@@ -7,12 +7,14 @@ parser, the load generator and bucket ladders) are imported from
 ``deeprecsys_tpu``, never copied; this package imports ``torch`` and never
 ``jax``.
 
-- ``ops``     — fused pooled lookup (CUDA kernel K1 + plain version), MLPs,
-  the "cat" interaction
-- ``models``  — DLRM (``get_model``)
+- ``ops``     — fused pooled lookup (CUDA kernel K1 + plain version), DIEN's
+  RNN scan (CUDA kernel K3 + plain loop), MLPs, the "cat" interaction
+- ``models``  — the six families of the eight zoo models: DLRM, WnD,
+  MT-WnD, NCF, DIN, DIEN (``get_model``)
 - ``data``    — the random-mode data generator, bit-identical to the JAX one
 - ``serving`` — query sizes and splits, bucket ladder and choice
-- ``bridge``  — JAX params pytree (as numpy) <-> the port's tensors
+- ``bridge``  — JAX params pytree (as numpy) <-> the port's tensors, and
+  a numpy draw of a model's params from a seed
 - ``main``    — the standalone CLI path
 """
 

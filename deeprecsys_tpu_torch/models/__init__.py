@@ -2,8 +2,7 @@
 
 ``get_model(cfg, device)`` returns the (init, apply) pair for a config's
 ``model_type``, closed over the config, the device and the table offsets
-on that device. Only DLRM is ported; the other families raise and name
-their ROADMAP.md item.
+on that device.
 """
 
 from __future__ import annotations
@@ -13,32 +12,40 @@ import functools
 import torch
 
 from deeprecsys_tpu.config import ModelConfig
-from deeprecsys_tpu_torch.models import dlrm
+from deeprecsys_tpu_torch.models import dien, din, dlrm, multi_task_wnd, ncf, wide_and_deep
 from deeprecsys_tpu_torch.models.base import Batch, ModelFns, table_offsets
 
-_NOT_PORTED = {
-    "wnd": "Queue 1 item 4",
-    "mtwnd": "Queue 1 item 4",
-    "ncf": "Queue 1 item 4",
-    "din": "Queue 1 item 5",
-    "dien": "Queue 1 item 6",
+_REGISTRY = {
+    "dlrm": dlrm,
+    "wnd": wide_and_deep,
+    "mtwnd": multi_task_wnd,
+    "ncf": ncf,
+    "din": din,
+    "dien": dien,
 }
 
 
 def get_model(cfg: ModelConfig, device: torch.device | str) -> ModelFns:
-    if cfg.model_type != "dlrm":
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED.get(cfg.model_type, 'Queue 1')})")
+    mod = _REGISTRY[cfg.model_type]
     device = torch.device(device)
-    offsets = table_offsets(cfg, device)
     return ModelFns(
         name=cfg.model_name,
-        init=functools.partial(dlrm.init, cfg=cfg, device=device),
-        apply=functools.partial(dlrm.apply, cfg=cfg, offsets=offsets),
+        init=functools.partial(mod.init, cfg=cfg, device=device),
+        apply=functools.partial(mod.apply, cfg=cfg, offsets=table_offsets(cfg, device)),
         cfg=cfg,
-        apply_from_pooled=functools.partial(dlrm.apply_from_pooled, cfg=cfg),
+        apply_from_pooled=functools.partial(mod.apply_from_pooled, cfg=cfg),
     )
 
 
-__all__ = ["get_model", "Batch", "ModelFns"]
+# Families whose reference graphs end in a sigmoid (scores are
+# probabilities); ncf, din and dien end in FC + ReLU (JAX
+# models/__init__.py:40-50).
+_SIGMOID_OUTPUT_TYPES = frozenset({"dlrm", "wnd", "mtwnd"})
+
+
+def sigmoid_output(cfg: ModelConfig) -> bool:
+    """Whether this model's apply() returns sigmoid probabilities."""
+    return cfg.model_type in _SIGMOID_OUTPUT_TYPES
+
+
+__all__ = ["get_model", "Batch", "ModelFns", "sigmoid_output"]

@@ -8,6 +8,7 @@ A model is a pair of functions over one batch layout:
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -55,6 +56,39 @@ def _dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r} (valid: {sorted(_DTYPES)})")
     return _DTYPES[name]
+
+
+def stacked_mlp_init(num: int, dims, dtype: torch.dtype, generator: torch.Generator,
+                     device: torch.device | str, sum_fanin: int = 1) -> list[dict]:
+    """``num`` independent same-shape MLPs as stacked ``(num, n, m)`` weights
+    and ``(num, m)`` biases, with ``mlp_init``'s distributions. ``sum_fanin``
+    > 1 (the caller sums the ``num`` outputs, as DIN does) divides the last
+    layer's weights and biases by sqrt(sum_fanin) (JAX ``models/base.py:54-86``)."""
+    params = []
+    for i, (n, m) in enumerate(zip(dims[:-1], dims[1:]), start=1):
+        w = torch.randn((num, n, m), generator=generator, device=device) * math.sqrt(2.0 / (m + n))
+        b = torch.randn((num, m), generator=generator, device=device) * math.sqrt(1.0 / m)
+        if sum_fanin > 1 and i == len(dims) - 1:
+            w, b = w / math.sqrt(sum_fanin), b / math.sqrt(sum_fanin)
+        params.append({"w": w.to(dtype), "b": b.to(dtype)})
+    return params
+
+
+def stacked_mlp_apply(params, x: torch.Tensor, sigmoid_layer: int = -1) -> torch.Tensor:
+    """Stacked MLPs: ``x (B, num, n) -> (B, num, out)``, MLP t on ``x[:, t]``.
+
+    Each layer is one batched product over the ``num`` axis, with
+    ``mlp_apply``'s numerics: f32 accumulation, f32 bias and activation, a
+    cast to the input dtype at each layer. ``sigmoid_layer`` is 1-based;
+    every other layer is a ReLU.
+    """
+    out_dtype = x.dtype
+    for i, layer in enumerate(params, start=1):
+        y = torch.einsum("btn,tnm->btm", x.float(), layer["w"].float())
+        y = y + layer["b"].float()[None, :, :]
+        y = torch.sigmoid(y) if i == sigmoid_layer else torch.relu(y)
+        x = y.to(out_dtype)
+    return x
 
 
 def table_offsets(cfg: ModelConfig, device: torch.device | str) -> torch.Tensor:

@@ -6,6 +6,12 @@ from deeprecsys_tpu_torch.ops.embedding import (
 )
 from deeprecsys_tpu_torch.ops.mlp import mlp_init, mlp_apply
 from deeprecsys_tpu_torch.ops.interactions import cat_interaction
+from deeprecsys_tpu_torch.ops.rnn import (
+    basic_rnn_init,
+    basic_rnn_scan,
+    rnn_scan,
+    rnn_scan_reference,
+)
 
 __all__ = [
     "embedding_bag",
@@ -15,4 +21,8 @@ __all__ = [
     "mlp_init",
     "mlp_apply",
     "cat_interaction",
+    "basic_rnn_init",
+    "basic_rnn_scan",
+    "rnn_scan",
+    "rnn_scan_reference",
 ]

@@ -21,6 +21,16 @@ def test_standalone_prints_reference_totals(capsys, dtype):
         assert o.shape == (16, 1) and bool(torch.isfinite(o.float()).all())
 
 
+@pytest.mark.parametrize("model", ["rm3", "wnd", "mtwnd", "ncf", "din", "dien"])
+def test_standalone_runs_every_family(model):
+    """ncf, din and dien take no dense input (Batch.dense is None)."""
+    res = main(["--model", model, "--table_scale", "2000", "--num_batches", "1",
+                "--mini_batch_size", "4", "--device", "cpu"])
+    assert res["forwards"] == 2 and len(res["outputs"]) == 1
+    out = res["outputs"][0]
+    assert out.shape[0] == 4 and bool(torch.isfinite(out).all())
+
+
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -19,11 +19,17 @@ MODULES = [
     "deeprecsys_tpu_torch.models",
     "deeprecsys_tpu_torch.models.base",
     "deeprecsys_tpu_torch.models.dlrm",
+    "deeprecsys_tpu_torch.models.wide_and_deep",
+    "deeprecsys_tpu_torch.models.multi_task_wnd",
+    "deeprecsys_tpu_torch.models.ncf",
+    "deeprecsys_tpu_torch.models.din",
+    "deeprecsys_tpu_torch.models.dien",
     "deeprecsys_tpu_torch.ops",
     "deeprecsys_tpu_torch.ops._build",
     "deeprecsys_tpu_torch.ops.embedding",
     "deeprecsys_tpu_torch.ops.interactions",
     "deeprecsys_tpu_torch.ops.mlp",
+    "deeprecsys_tpu_torch.ops.rnn",
     "deeprecsys_tpu_torch.serving",
     "deeprecsys_tpu_torch.utils.devices",
     "chip_smoke",
