@@ -16,6 +16,10 @@ Then it drives the models at full width (bf16, batch 512):
   three forwards each, checked against the plain path and timed, each
   model's table freed before the next; dien also through the CLI loop.
 
+Each kernel is timed beside its plain version, its bound and one PyTorch
+call computing the same function (``F.embedding_bag`` at every zoo shape,
+cuDNN's tanh RNN at DIEN's), from ``deeprecsys_tpu_torch/kernel_bench.py``.
+
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
 at once. It imports no JAX and nothing of the JAX package: only
@@ -28,7 +32,6 @@ gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -38,23 +41,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parent
-# The port's serving module imports the shared load generator, which builds
-# its native pacer at first import: keep that build inside the checkout.
-os.environ.setdefault("DRS_NATIVE_CACHE", str(ROOT / "build" / "native"))
-
-from deeprecsys_tpu_torch import ServingConfig, bridge, zoo  # noqa: E402
-from deeprecsys_tpu_torch import main as port_main  # noqa: E402
-from deeprecsys_tpu_torch.data import RecDataGenerator  # noqa: E402
-from deeprecsys_tpu_torch.models import get_model, sigmoid_output  # noqa: E402
-from deeprecsys_tpu_torch.models.base import Batch, table_offsets  # noqa: E402
-from deeprecsys_tpu_torch.ops import (  # noqa: E402
+from deeprecsys_tpu_torch import ServingConfig, bridge, zoo
+from deeprecsys_tpu_torch import main as port_main
+from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.kernel_bench import (
+    HBM_BYTES_PER_S, k1_bound, k1_library, k3_bound, k3_library, measure, ptxas_summary)
+from deeprecsys_tpu_torch.models import get_model, sigmoid_output
+from deeprecsys_tpu_torch.models.base import Batch, table_offsets
+from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_reference, rnn_scan, rnn_scan_reference)
-from deeprecsys_tpu_torch.ops.embedding import pooled_tolerance  # noqa: E402
-from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance  # noqa: E402
-from deeprecsys_tpu_torch.serving import (  # noqa: E402
+from deeprecsys_tpu_torch.ops.embedding import pooled_tolerance
+from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
+from deeprecsys_tpu_torch.serving import (
     model_batch_sizes, partition_query, pick_bucket, resolve_buckets)
-from deeprecsys_tpu_torch.utils.devices import synchronize  # noqa: E402
+from deeprecsys_tpu_torch.utils.devices import synchronize
+
+ROOT = Path(__file__).resolve().parent
 
 FIXTURE = ROOT / "tests" / "golden" / "torch_port_rm1.npz"
 ZOO_FIXTURE = ROOT / "tests" / "golden" / "torch_port_zoo.npz"
@@ -68,7 +70,7 @@ KERNELS = {
                  "replaces": "deeprecsys_tpu/ops/rnn.py:45"},
 }
 ZOO = ("rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet, 700 W)
+TIMED_ITERS = 100
 # Port vs the JAX fixtures. rm1: f32 as the golden outputs; bf16 one bf16
 # ulp of a sigmoid score in [0.5, 1), as tests/test_torch_dlrm.py holds it.
 # The other models: f32 rtol and atol 1e-5, bf16 two bf16 ulps of the
@@ -83,8 +85,10 @@ BF16_ATOL = 2.0 ** -8
 # the bounds leave a factor of ~10 and 2.
 K3_F32_ATOL = 1e-5
 K3_BF16_ATOL = 2.0 ** -7
+# K3 at DIEN's shape is checked on inputs from this many seeds, so that the
+# margin under K3_BF16_ATOL is read on more than one draw.
+K3_SEEDS = 4
 BATCH = 512
-TIMED_ITERS = 100
 # Full-size tables; a CPU rehearsal of the forward phases sets it larger.
 TABLE_SCALE = 1
 DIEN_T = 40  # dien's behaviour tables: the scan length
@@ -149,10 +153,8 @@ def phase_build() -> dict:
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, b in builds.items():
         how = f"built in {b.seconds:.2f} s" if b.seconds else "reused from an earlier build"
-        _log(f"[2 build] {b.path.name}: {how}")
-        for ln in b.log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                _log(f"[2 build] ptxas: {ln.strip()}")
+        _log(f"[2 build] {b.path.name}: {how}; ptxas (template arguments: registers, "
+             f"spills): " + "; ".join(ptxas_summary(b.log)))
     _log(f"[2 build] all kernels in {time.perf_counter() - t0:.2f} s")
     return builds
 
@@ -424,36 +426,6 @@ def phase_requests(device, model, params, cfg) -> list[float]:
     return latencies
 
 
-def _measure(fn, args_list, iters: int = TIMED_ITERS) -> dict:
-    """Per-call times of ``iters`` back-to-back calls cycling through
-    ``args_list``, after a warm-up. ``wall_ms``: CUDA events around the loop,
-    so host launch cost shows wherever it leaves the card idle. ``device_ms``:
-    the summed durations of the device kernels and copies the calls ran,
-    from a torch.profiler trace of a second loop (None when the trace holds
-    no device activity)."""
-    for a in args_list:
-        fn(*a)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*args_list[i % len(args_list)])
-    end.record()
-    end.synchronize()
-    wall_ms = start.elapsed_time(end) / iters
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                acc_events=True) as prof:
-        for i in range(iters):
-            fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters if dev else None
-    by_name: dict = {}
-    for e in dev:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / iters
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": len(dev) / iters,
-            "kernels": sorted(by_name), "us_by_kernel": by_name}
-
-
 def _top(m: dict, n: int = 6) -> str:
     """The ``n`` kernels that took the most device time a call."""
     top = sorted(m["us_by_kernel"].items(), key=lambda kv: -kv[1])[:n]
@@ -485,23 +457,30 @@ def _k1_runs(table, offsets, batches, cdt) -> dict:
         return embedding_bag_reference(table, offsets, idx, compute_dtype=cdt)
 
     ids = [(b.indices,) for b in batches]
-    return {key: _measure(fn, ids) for key, fn in
+    runs = {key: measure(fn, ids, TIMED_ITERS) for key, fn in
             (("p1", plain), ("k1", k1), ("k2", k1), ("p2", plain))}
+    runs["s1"] = measure(k1_library(table, offsets), ids, TIMED_ITERS)
+    return runs
 
 
-def _k1_summary(runs: dict, batches, table) -> dict:
+def _k1_summary(runs: dict, batches, table, offsets) -> dict:
+    """K1's times (device where the trace has them, else wall) beside its
+    bound on the first batch's ids and the library call's time."""
     B, T, L = batches[0].indices.shape
     d = table.shape[1]
     k_dev, p_dev = _mean(runs, ("k1", "k2"), "device_ms"), _mean(runs, ("p1", "p2"), "device_ms")
     k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
     n_rows = B * T * L
-    nbytes = n_rows * d * table.element_size() + n_rows * 4 + B * T * d * 2
-    k_ms = k_dev if k_dev is not None else k_wall
-    p_ms = p_dev if k_dev is not None and p_dev is not None else p_wall
+    bound = k1_bound(table, offsets, batches[0].indices, torch.bfloat16)
+    use_dev = k_dev is not None and p_dev is not None and runs["s1"]["device_ms"] is not None
+    k_ms = k_dev if use_dev else k_wall
+    p_ms = p_dev if use_dev else p_wall
+    lib_ms = runs["s1"]["device_ms"] if use_dev else runs["s1"]["wall_ms"]
     return {"shape": f"B={B} T={T} L={L} d={d}", "ms": k_ms, "plain_ms": p_ms,
-            "device": k_dev is not None, "k_wall": k_wall, "p_wall": p_wall,
-            "p_dev": p_dev, "bytes": nbytes, "rows_per_s": n_rows / (k_ms / 1e3),
-            "hbm_share": nbytes / (k_ms / 1e3) / HBM_BYTES_PER_S}
+            "library_ms": lib_ms, "device": use_dev, "k_wall": k_wall, "p_wall": p_wall,
+            "p_dev": p_dev, "bytes": bound["bytes"], "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "rows_per_s": n_rows / (k_ms / 1e3),
+            "hbm_share": bound["bytes"] / (k_ms / 1e3) / HBM_BYTES_PER_S}
 
 
 def _k1_line(s: dict, name: str, card: str) -> str:
@@ -509,7 +488,8 @@ def _k1_line(s: dict, name: str, card: str) -> str:
             f"{s['ms'] * 1e3:.2f} us ({'device' if s['device'] else 'wall'}), "
             f"{s['rows_per_s'] / 1e9:.3f} G rows/s, "
             f"{s['bytes'] / (s['ms'] / 1e3) / 1e9:.1f} GB/s = "
-            f"{100 * s['hbm_share']:.1f}% of 3.35 TB/s; wall per call "
+            f"{100 * s['hbm_share']:.1f}% of 3.35 TB/s; bound {s['bound_ms'] * 1e3:.2f} us "
+            f"({s['bound_by']}); F.embedding_bag {s['library_ms'] * 1e3:.2f} us; wall per call "
             f"{s['k_wall'] * 1e3:.2f} us; plain version device {_us(s['p_dev'])}, "
             f"wall {s['p_wall'] * 1e3:.2f} us [{card}]")
 
@@ -525,10 +505,6 @@ def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
     bf16 = torch.bfloat16
     B, T, L = batches[0].indices.shape
 
-    def stock(idx):  # torch's own op, a timing baseline (its sum order differs)
-        flat = (idx.long() + offsets.long()[None, :, None]).view(B * T, L)
-        return torch.nn.functional.embedding_bag(flat, table, mode="sum")
-
     def fwd_kernel(b):
         return model.apply(params, b)
 
@@ -539,12 +515,11 @@ def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
     with torch.inference_mode():
         runs = _k1_runs(table, offsets, batches, bf16)
         bs = [(b,) for b in batches]
-        for key, fn, args in (("s1", stock, [(b.indices,) for b in batches]),
-                              ("fp1", fwd_plain, bs), ("fk1", fwd_kernel, bs),
+        for key, fn, args in (("fp1", fwd_plain, bs), ("fk1", fwd_kernel, bs),
                               ("fk2", fwd_kernel, bs), ("fp2", fwd_plain, bs)):
-            runs[key] = _measure(fn, args)
+            runs[key] = measure(fn, args, TIMED_ITERS)
 
-    k1 = _k1_summary(runs, batches, table)
+    k1 = _k1_summary(runs, batches, table, offsets)
     fk_wall, fp_wall = _mean(runs, ("fk1", "fk2"), "wall_ms"), _mean(runs, ("fp1", "fp2"), "wall_ms")
     fk_dev = _mean(runs, ("fk1", "fk2"), "device_ms")
     lat = np.asarray(latencies)
@@ -553,7 +528,7 @@ def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
          "plain, kernel, kernel, plain")
     for key in ("p1", "k1", "k2", "p2", "s1", "fp1", "fk1", "fk2", "fp2"):
         _log(f"[7 times]   {key}: {_fmt(runs[key])} [{card}]; {', '.join(runs[key]['kernels'])}")
-    _log(f"[7 times] {_k1_line(k1, 'rm1', card)}; F.embedding_bag {_fmt(runs['s1'])}")
+    _log(f"[7 times] {_k1_line(k1, 'rm1', card)}")
     _log(f"[7 times] rm1 forward, device time by kernel: {_top(runs['fk1'])} [{card}]")
     idle = "not measured" if fk_dev is None else f"{100 * (1 - fk_dev / fk_wall):.1f}%"
     _log(f"[7 times] rm1 forward batch {B} bf16: kernel path {fk_wall:.4f} ms = "
@@ -563,7 +538,7 @@ def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
          f"{np.percentile(lat, 50):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms, "
          f"max {lat.max():.3f} ms [{card}]")
     _log(f"[7 times] peak device memory (phases 5-6): {peak / 2**30:.3f} GiB [{card}]")
-    return {"ms": k1["ms"], "plain_ms": k1["plain_ms"], "k1": k1,
+    return {"k1": k1,
             "fwd_wall_ms": fk_wall, "fwd_device_ms": fk_dev, "peak_bytes": peak}
 
 
@@ -629,13 +604,14 @@ def zoo_times(device, z: dict, card: str) -> dict:
     with torch.inference_mode():
         runs = _k1_runs(table, offsets, batches, torch.bfloat16)
         for key in ("fk1", "fk2"):
-            runs[key] = _measure(lambda b: model.apply(params, b), [(b,) for b in batches])
-    k1 = _k1_summary(runs, batches, table)
+            runs[key] = measure(lambda b: model.apply(params, b), [(b,) for b in batches],
+                                TIMED_ITERS)
+    k1 = _k1_summary(runs, batches, table, offsets)
     wall, dev = _mean(runs, ("fk1", "fk2"), "wall_ms"), _mean(runs, ("fk1", "fk2"), "device_ms")
     idle = None if dev is None else 1 - dev / wall
     peak = torch.cuda.max_memory_allocated(device)
     name = z["name"]
-    for key in ("p1", "k1", "k2", "p2", "fk1", "fk2"):
+    for key in ("p1", "k1", "k2", "p2", "s1", "fk1", "fk2"):
         _log(f"[8 zoo]   {name} {key}: {_fmt(runs[key])} [{card}]")
     _log(f"[8 zoo] {name} {_k1_line(k1, name, card)}")
     _log(f"[8 zoo] {name} forward, device time by kernel: {_top(runs['fk1'])} [{card}]")
@@ -683,23 +659,31 @@ def phase_zoo(device, card: str) -> tuple[list, dict]:
 
 def phase_rnn_times(device, card: str) -> dict:
     """K3 against its plain loop at DIEN's shape, bf16, in the order plain,
-    kernel, kernel, plain."""
+    kernel, kernel, plain; then cuDNN's tanh RNN on the same recurrence
+    (kernel_bench.k3_library), and K3's bound."""
     inp = rnn_inputs(device, DIEN_T, BATCH, torch.bfloat16, seed=1)
     args = [(inp["xproj"], inp["h2h_w"], inp["h2h_b"], torch.bfloat16)]
     iters = 50
     with torch.inference_mode():
-        runs = {key: _measure(fn, args, iters) for key, fn in (
+        runs = {key: measure(fn, args, iters) for key, fn in (
             ("p1", rnn_scan_reference), ("k1", rnn_scan), ("k2", rnn_scan),
             ("p2", rnn_scan_reference))}
-    for key in ("p1", "k1", "k2", "p2"):
+        runs["s1"] = measure(k3_library(inp["h2h_w"], inp["h2h_b"]),
+                             [(inp["xproj"].bfloat16(),)], iters)
+    for key in ("p1", "k1", "k2", "p2", "s1"):
         _log(f"[9 K3 times]   {key}: {_fmt(runs[key])} [{card}]")
     k_dev, p_dev = _mean(runs, ("k1", "k2"), "device_ms"), _mean(runs, ("p1", "p2"), "device_ms")
     k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
+    bound = k3_bound(DIEN_T, BATCH, KERNEL_HIDDEN, torch.bfloat16)
+    use_dev = None not in (k_dev, p_dev, runs["s1"]["device_ms"])
+    lib_ms = runs["s1"]["device_ms" if use_dev else "wall_ms"]
     _log(f"[9 K3 times] K3 at T={DIEN_T} B={BATCH} H={KERNEL_HIDDEN} bf16 ({iters} calls a "
-         f"run): device {_us(k_dev)}, wall {k_wall * 1e3:.2f} us a scan; plain loop device "
-         f"{_us(p_dev)}, wall {p_wall * 1e3:.2f} us [{card}]")
-    use_dev = k_dev is not None and p_dev is not None
-    return {"ms": k_dev if use_dev else k_wall, "plain_ms": p_dev if use_dev else p_wall}
+         f"run): device {_us(k_dev)}, wall {k_wall * 1e3:.2f} us a scan; bound "
+         f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}); plain loop device "
+         f"{_us(p_dev)}, wall {p_wall * 1e3:.2f} us; cuDNN RNN "
+         f"{lib_ms * 1e3:.2f} us ({'device' if use_dev else 'wall'}) [{card}]")
+    return {"ms": k_dev if use_dev else k_wall, "plain_ms": p_dev if use_dev else p_wall,
+            "library_ms": lib_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
 def main() -> int:
@@ -711,7 +695,11 @@ def main() -> int:
     card = phase_card()
     phase_build()
     k1_err = phase_kernel(device)
-    k3_err = rnn_cases(device, DIEN_T, BATCH)  # K3 at DIEN's full shape
+    k3_errs = [rnn_cases(device, DIEN_T, BATCH, seed) for seed in range(K3_SEEDS)]
+    k3_err = max(k3_errs)
+    _log(f"[3 kernel] K3 at DIEN's shape, free-running max |err| by seed: "
+         f"{', '.join(f'{e:.3e}' for e in k3_errs)}; worst {k3_err:.3e} = "
+         f"{100 * k3_err / K3_BF16_ATOL:.1f}% of the bf16 limit {K3_BF16_ATOL:.3e}")
     phase_fixture(device)
 
     # rm1's main path: the counts are set to 0 just before it and read just after.
@@ -735,8 +723,9 @@ def main() -> int:
     k3 = phase_rnn_times(device, card["card"])
 
     _log(f"[10 summary] per model, bf16, batch {BATCH}, full-size tables [{card['card']}]:")
-    _log("[10 summary]   model: forward wall ms, device ms, idle, K1 us (% of 3.35 TB/s), "
-         "K1 plain us, peak GiB")
+    _log("[10 summary]   model: forward wall ms, device ms, idle, K1 us (% of 3.35 TB/s, "
+         "counting each distinct row once), K1 bound us, F.embedding_bag us, K1 plain us, "
+         "peak GiB")
     rm1 = {"name": "rm1", "fwd_wall_ms": times["fwd_wall_ms"], "k1": times["k1"],
            "fwd_device_ms": times["fwd_device_ms"], "peak_bytes": times["peak_bytes"]}
     for r in [rm1] + rows:
@@ -745,17 +734,19 @@ def main() -> int:
         _log(f"[10 summary]   {r['name']}: {r['fwd_wall_ms']:.4f}, "
              f"{'not measured' if dev is None else f'{dev:.4f}'}, {idle}, "
              f"{r['k1']['ms'] * 1e3:.2f} ({100 * r['k1']['hbm_share']:.1f}%), "
+             f"{r['k1']['bound_ms'] * 1e3:.2f}, {r['k1']['library_ms'] * 1e3:.2f}, "
              f"{r['k1']['plain_ms'] * 1e3:.2f}, {r['peak_bytes'] / 2**30:.3f} [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "embedding_bag", "route": "cuda", **KERNELS["embedding_bag"],
          "launches": launches["embedding_bag"], "max_abs_err": k1_err,
-         "ms": times["ms"], "plain_ms": times["plain_ms"]},
+         **{k: times["k1"][k] for k in timed}},
         {"name": "rnn_scan", "route": "cuda", **KERNELS["rnn_scan"],
          "launches": launches["rnn_scan"], "max_abs_err": k3_err,
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]}]}))
+         **{k: k3[k] for k in timed}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

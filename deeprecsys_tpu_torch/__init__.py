@@ -2,10 +2,13 @@
 NVIDIA Hopper GPU.
 
 The module names follow the JAX package, so each module's counterpart is
-easy to find. Framework-neutral layers (``config``, ``zoo``, the CLI
-parser, the load generator and bucket ladders) are imported from
-``deeprecsys_tpu``, never copied; this package imports ``torch`` and never
-``jax``.
+easy to find. This package imports ``torch`` and nothing of JAX or of the
+JAX package, not even its framework-neutral modules: ``config``, ``zoo``,
+the CLI parser and the serving helpers are copies, which
+``tests/test_torch_config.py`` holds equal to the originals.
+
+- ``config``  — ``ModelConfig`` and ``ServingConfig``
+- ``zoo``     — the eight zoo configurations (``get_config``)
 
 - ``ops``     — fused pooled lookup (CUDA kernel K1 + plain version), DIEN's
   RNN scan (CUDA kernel K3 + plain loop), MLPs, the "cat" interaction
@@ -20,6 +23,6 @@ parser, the load generator and bucket ladders) are imported from
 
 __version__ = "0.1.0"
 
-from deeprecsys_tpu.config import ModelConfig, ServingConfig
+from deeprecsys_tpu_torch.config import ModelConfig, ServingConfig
 
 __all__ = ["ModelConfig", "ServingConfig"]

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.ops.embedding import unpack_table
 
 _QUANTIZED_KEYS = ("q", "q_packed", "qrows")

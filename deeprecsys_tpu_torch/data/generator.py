@@ -1,7 +1,8 @@
 """Synthetic input generation, random mode.
 
-Counterpart of ``deeprecsys_tpu/data/generator.py:30-165``, which cannot be
-imported here (it pulls in jax through its ``Batch``). The numpy draws are
+Counterpart of ``deeprecsys_tpu/data/generator.py:30-165``, copied (the port
+imports nothing of the JAX package, and that module pulls in jax through
+its ``Batch``). The numpy draws are
 the same calls in the same order, so one seed gives bit-identical batches in
 both packages: uniform dense features, then per (table, sample) a sorted
 group of ``num_indices_per_lookup`` unique ids by whole-group rejection
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models.base import Batch
 
 

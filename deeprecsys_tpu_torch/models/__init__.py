@@ -11,7 +11,7 @@ import functools
 
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models import dien, din, dlrm, multi_task_wnd, ncf, wide_and_deep
 from deeprecsys_tpu_torch.models.base import Batch, ModelFns, table_offsets
 

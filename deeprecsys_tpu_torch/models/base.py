@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models.base import (
     Batch, init_tables, param_dtype_of, pooled_lookup)
 from deeprecsys_tpu_torch.ops import basic_rnn_init, basic_rnn_scan, mlp_apply, mlp_init

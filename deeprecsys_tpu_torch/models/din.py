@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models.base import (
     Batch, init_tables, param_dtype_of, pooled_lookup, stacked_mlp_apply,
     stacked_mlp_init)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models.base import (
     Batch, init_tables, param_dtype_of, pooled_lookup)
 from deeprecsys_tpu_torch.ops import mlp_apply, mlp_init

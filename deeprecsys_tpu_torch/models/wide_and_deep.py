@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from deeprecsys_tpu.config import ModelConfig
+from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models.base import (
     Batch, compute_dtype_of, init_tables, param_dtype_of, pooled_lookup)
 from deeprecsys_tpu_torch.ops import cat_interaction, mlp_apply, mlp_init

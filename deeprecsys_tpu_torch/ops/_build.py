@@ -8,7 +8,8 @@ goes to ``build/kernels/`` at the root of the checkout, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import: the CPU-only tests import every module.
 
-A failed build raises; there is no fallback.
+A failed build raises; there is no fallback. ``launch`` calls a loaded
+kernel on PyTorch's current stream of a tensor's card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -81,3 +84,18 @@ def build(name: str) -> Build:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     return ctypes.CDLL(str(build(name).path))
+
+
+def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args):
+    """``lib.<fn>(*args, stream)`` with the current stream of ``device``'s
+    card, made the current card only for the call when it is not already;
+    raises if the C function returns a nonzero ``cudaError_t``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = getattr(lib, fn)(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{fn} failed to launch: "
+                           f"{lib.drs_cuda_error_string(err).decode()} ({err})")

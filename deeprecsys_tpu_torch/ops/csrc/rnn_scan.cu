@@ -14,7 +14,7 @@
 // the hidden state is carried in.
 //
 // Contract:
-//   xproj       (T, B, H) f32: x_t @ i2h_w + i2h_b
+//   xproj       (T, B, H) f32: x_t @ i2h_w + i2h_b, 16-byte aligned
 //   w           (H, H)    f32 or bf16, row-major: h2h_w, (in, out)
 //   bias        (H,)      same dtype as w: h2h_b
 //   h0          (B, H)    f32 holding compute-dtype values, or null (zeros)
@@ -22,17 +22,28 @@
 //   all_h       (T, B, H) in the compute dtype: h after each step
 // The last hidden state is all_h[T-1] (a frozen row keeps its state).
 //
-// What bounds it: the chain of T dependent steps, not bytes or FLOPs. At
-// DIEN's shape (T = 40, B = 512, H = 64) a scan reads 5.2 MB of xproj and
-// does 168 MFLOP, a few microseconds of the card; in eager PyTorch the same
-// scan is T steps of several launches each. So the design keeps every step
-// on the SM and the step itself short:
-//   * one block owns R batch rows; thread (j, r) owns output column j of row
-//     r, with column j of W held in 64 registers for the whole scan;
-//   * the block's h tile lives in shared memory as f32, double-buffered, so
-//     one __syncthreads() a step suffices; a thread reads its row of h as
-//     16 float4 broadcasts;
-//   * the next step's xproj element is loaded before this step's dot.
+// What bounds it: the chain of T dependent steps. At DIEN's shape (T = 40,
+// B = 512, H = 64) a scan does 168 MFLOP and moves 7.9 MB, about 2.5 us of
+// the card, but each step of a row waits for the whole previous step, and
+// B = 512 rows give an SM only about 4 rows to work on. A step is a chain
+// of latencies (h from shared memory, the dot, tanhf, the store, the
+// barrier): measured on an H100 (PERF.md), about 0.27 us a
+// step at B = 512 and 0.2 us with one row an SM, plus about 2.7 us of
+// launch and set-up. So the design keeps the step short and the SMs busy:
+//   * block b owns batch row b (512 blocks of 2 warps on the 132 SMs at
+//     DIEN's shape, about 4 an SM, so a step's barrier waits for 2 warps;
+//     2 and 4 rows a block measured slower, PERF.md); thread j owns output column j, with column j
+//     of W in 64 registers for the whole scan;
+//   * the dot runs as kChains = 2 independent chains of 32 FMAs (float4 k
+//     of h feeds chain k % 2), summed c0 + c1: two FMAs in flight instead
+//     of one chain of 64 (2 measured fastest of 1, 2, 4 and 8 chains);
+//   * the h row lives in shared memory as f32, double-buffered: one
+//     __syncthreads() a step; a thread reads h as 16 float4 broadcasts;
+//   * the row's xproj streams into a ring of kRing chunks of kChunk steps
+//     in shared memory by cp.async, kRing - 1 chunks ahead of the step
+//     that reads them, so no step waits for device memory.
+// No tensor cores: TF32 would change the f32 results, and tanhf (not
+// tanh.approx) keeps JAX's values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,8 +51,10 @@
 
 namespace {
 
-constexpr int kH = 64;  // the zoo's hidden size; the wrapper rejects others
-constexpr int kRows = 4;  // batch rows per block: 256 threads
+constexpr int kH = 64;      // the zoo's hidden size; the wrapper rejects others
+constexpr int kChains = 2;  // independent partial sums of the dot
+constexpr int kChunk = 8;   // steps a cp.async group
+constexpr int kRing = 4;    // chunks in flight or held
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -59,59 +72,91 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 template <typename TW, typename TC>
-__global__ void __launch_bounds__(kH * kRows)
+__global__ void __launch_bounds__(kH)
 rnn_scan_kernel(const float* __restrict__ xproj, const TW* __restrict__ w,
                 const TW* __restrict__ bias, const float* __restrict__ h0,
                 const int32_t* __restrict__ seq_lengths, TC* __restrict__ all_h,
                 int T, int B) {
-  __shared__ __align__(16) float hs[2][kRows][kH];
+  __shared__ __align__(16) float hs[2][kH];
+  __shared__ __align__(16) float xs[kRing * kChunk][kH];
 
   const int j = threadIdx.x;
-  const int r = threadIdx.y;
-  const int b = blockIdx.x * kRows + r;
-  const bool valid = b < B;  // rows past B still take part in the barriers
+  const int b = blockIdx.x;
+  const int64_t step_stride = (int64_t)B * kH;
+  const float* xrow = xproj + (int64_t)b * kH;
 
-  float wcol[kH];
+  // Copy chunk c of the row's xproj into its ring slot: kChunk steps x 16
+  // pieces of 16 bytes, two pieces a thread. Every thread commits a group,
+  // empty or not, so the group counts stay uniform.
+  auto issue_chunk = [&](int c) {
+    constexpr int kPieces = kChunk * (kH / 4);
+#pragma unroll
+    for (int p = j; p < kPieces; p += kH) {
+      const int t = c * kChunk + p / (kH / 4);
+      const int part = p % (kH / 4);
+      if (t < T) cp_async16(&xs[t % (kRing * kChunk)][part * 4], xrow + t * step_stride + part * 4);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < kRing; ++c) issue_chunk(c);
+
+  float wcol[kH];  // column j of W
 #pragma unroll
   for (int k = 0; k < kH; ++k) wcol[k] = to_float(w[k * kH + j]);
   const float bj = to_float(bias[j]);
-  const int len = !valid ? 0 : (seq_lengths != nullptr ? seq_lengths[b] : T);
+  const int len = seq_lengths != nullptr ? seq_lengths[b] : T;
 
-  float h = (valid && h0 != nullptr) ? h0[(int64_t)b * kH + j] : 0.f;
-  hs[0][r][j] = h;
-  __syncthreads();
+  float h = h0 != nullptr ? h0[(int64_t)b * kH + j] : 0.f;
+  hs[0][j] = h;
 
-  const int64_t step = (int64_t)B * kH;
-  const int64_t col = (int64_t)b * kH + j;
-  float xp_next = (valid && T > 0) ? xproj[col] : 0.f;
-  for (int t = 0; t < T; ++t) {
-    const float xp = xp_next;
-    if (valid && t + 1 < T) xp_next = xproj[(t + 1) * step + col];
-
-    const float4* hv = reinterpret_cast<const float4*>(hs[t & 1][r]);
-    float acc = 0.f;
+  for (int c = 0; c * kChunk < T; ++c) {
+    cp_async_wait<kRing - 1>();  // this thread's pieces of chunk c have landed
+    __syncthreads();             // ... and everyone's (and h's first row)
 #pragma unroll
-    for (int k = 0; k < kH / 4; ++k) {
-      const float4 v = hv[k];
-      acc = fmaf(v.x, wcol[4 * k + 0], acc);
-      acc = fmaf(v.y, wcol[4 * k + 1], acc);
-      acc = fmaf(v.z, wcol[4 * k + 2], acc);
-      acc = fmaf(v.w, wcol[4 * k + 3], acc);
+    for (int u = 0; u < kChunk; ++u) {
+      const int t = c * kChunk + u;
+      if (t >= T) break;
+      const float4* hv = reinterpret_cast<const float4*>(hs[t & 1]);
+      float acc[kChains];
+#pragma unroll
+      for (int i = 0; i < kChains; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kH / 4; ++k) {
+        const float4 v = hv[k];
+        float& a = acc[k % kChains];
+        a = fmaf(v.x, wcol[4 * k + 0], a);
+        a = fmaf(v.y, wcol[4 * k + 1], a);
+        a = fmaf(v.z, wcol[4 * k + 2], a);
+        a = fmaf(v.w, wcol[4 * k + 3], a);
+      }
+      const float dot = acc[0] + acc[1];
+      const float xp = xs[t % (kRing * kChunk)][j];
+      if (t < len) h = round_to<TC>(tanhf((xp + dot) + bj));
+      hs[(t + 1) & 1][j] = h;
+      store(all_h + t * step_stride + (int64_t)b * kH + j, h);
+      __syncthreads();
     }
-    if (t < len) h = round_to<TC>(tanhf((xp + acc) + bj));
-    hs[(t + 1) & 1][r][j] = h;
-    if (valid) store(all_h + t * step + col, h);
-    __syncthreads();
+    issue_chunk(c + kRing);  // chunk c's slot is free: every step of it is past a barrier
   }
+  cp_async_wait<0>();  // leave no copy in flight into a block's freed shared memory
 }
 
 template <typename TW, typename TC>
 int launch(const float* xproj, const void* w, const void* bias, const float* h0,
            const int32_t* seq_lengths, void* all_h, int T, int B, cudaStream_t stream) {
-  const dim3 block(kH, kRows);
-  const unsigned grid = (unsigned)((B + kRows - 1) / kRows);
-  rnn_scan_kernel<TW, TC><<<grid, block, 0, stream>>>(
+  rnn_scan_kernel<TW, TC><<<B, kH, 0, stream>>>(
       xproj, static_cast<const TW*>(w), static_cast<const TW*>(bias), h0, seq_lengths,
       static_cast<TC*>(all_h), T, B);
   return (int)cudaGetLastError();
@@ -121,8 +166,9 @@ int launch(const float* xproj, const void* w, const void* bias, const float* h0,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 = success). The caller validates shapes, dtypes and devices.
+// dtype codes: 0 = float32, 1 = bfloat16. Launches one block a batch row.
+// Returns the cudaError_t of the launch (0 = success). The caller validates
+// shapes, dtypes, devices and alignment.
 int drs_rnn_scan(const void* xproj, const void* w, const void* bias, int w_dtype,
                  const void* h0, const void* seq_lengths, void* all_h, int out_dtype,
                  int T, int B, int H, void* stream) {

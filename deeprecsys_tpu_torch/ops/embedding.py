@@ -16,10 +16,13 @@ the unpacked layout; packed TPU checkpoints are unpacked by ``bridge``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
 import torch
+
+from deeprecsys_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WIDTHS = (32, 64)
@@ -89,10 +92,64 @@ def pooled_tolerance(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
     return tol
 
 
+# K1's launch geometry, mirroring kWarpsPerBlock and kMinBlocksPerSm in
+# csrc/embedding_bag.cu (its __launch_bounds__ keeps K1_BLOCKS_PER_SM
+# blocks an SM resident).
+K1_WARPS_PER_BLOCK = 8
+K1_BLOCKS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """How K1 maps bags onto the card (see ``csrc/embedding_bag.cu``).
+
+    A warp pools ``bags_per_warp`` bags at once (a task); each of a bag's
+    ``row_slots // bags_per_warp`` slots of lanes issues ``rows_per_lane``
+    independent row loads a step. ``grid`` blocks of K1_WARPS_PER_BLOCK
+    warps walk the ``tasks`` in a grid-stride loop (one task a warp when the
+    grid covers them all, as ``k1_launch_plan``'s does).
+    """
+
+    bags_per_warp: int
+    rows_per_lane: int
+    row_slots: int
+    tasks: int
+    grid: int
+
+    @property
+    def rows_per_step(self) -> int:
+        """Rows of one bag a warp reads a step."""
+        return self.row_slots // self.bags_per_warp * self.rows_per_lane
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=512)
+def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1Plan:
+    """K1's mapping for ``n_bags = B * T`` bags of ``L`` rows of width ``d``.
+
+    A lane loads 16 bytes, so a row takes ``d * itemsize / 16`` lanes and a
+    warp has ``S = 32 / that`` row slots (8 for bf16 d = 32). For L <= 8
+    every slot is its own bag (``S`` bags a warp) and loads all L rows at
+    once (U = the power of two >= L, at most 8). Longer bags take a warp
+    each, U = 4 rows a slot a step: of the mappings measured on an H100,
+    the fastest at rm1 and rm3 (fewer registers than U = 8 keep more warps
+    resident), and within the run-to-run spread at rm2 (PERF.md). The grid
+    is one block per K1_WARPS_PER_BLOCK tasks: capping it at the blocks the
+    card holds at once, each block looping over tasks, measured no faster.
+    These are the only mappings ``csrc/embedding_bag.cu`` is built with.
+    """
+    S = 32 // (d * table_dtype.itemsize // 16)
+    G, U = (S, _pow2_at_least(max(L, 1))) if L <= 8 else (1, 4)
+    tasks = -(-n_bags // G)
+    grid = max(1, -(-tasks // K1_WARPS_PER_BLOCK))
+    return K1Plan(bags_per_warp=G, rows_per_lane=U, row_slots=S, tasks=tasks, grid=grid)
+
+
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
-    from deeprecsys_tpu_torch.ops import _build
-
     lib = _build.load("embedding_bag")
     lib.drs_embedding_bag.restype = ctypes.c_int
     lib.drs_embedding_bag.argtypes = [
@@ -100,6 +157,7 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
         ctypes.c_void_p, ctypes.c_int,                      # out, out dtype
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
         ctypes.c_void_p,                                    # stream
     ]
     lib.drs_cuda_error_string.restype = ctypes.c_char_p
@@ -125,10 +183,12 @@ def _check(table, offsets, indices, cdt, mask):
     if mask is not None and (mask.shape != indices.shape or mask.dtype != torch.bool):
         raise TypeError(f"mask must be bool of shape {tuple(indices.shape)}; got "
                         f"{tuple(mask.shape)} {mask.dtype}")
-    tensors = [table, offsets, indices] + ([mask] if mask is not None else [])
-    if any(t.device != table.device for t in tensors):
+    device = table.device
+    if offsets.device != device or indices.device != device or (
+            mask is not None and mask.device != device):
         raise ValueError("table, offsets, indices and mask must be on one device")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (table.is_contiguous() and offsets.is_contiguous() and indices.is_contiguous()
+            and (mask is None or mask.is_contiguous())):
         raise ValueError("table, offsets, indices and mask must be contiguous")
 
 
@@ -150,35 +210,38 @@ def embedding_bag(table: torch.Tensor, offsets: torch.Tensor,
       ``(B, T, d)`` pooled rows in ``compute_dtype`` (default: the table's).
 
     CPU tensors take ``embedding_bag_reference``. CUDA tensors launch K1
-    and count the launch in ``embedding_bag.kernel_launches``; a failed
-    build or launch raises.
+    with ``k1_launch_plan``'s mapping and count the launch in
+    ``embedding_bag.kernel_launches``; a failed build or launch raises.
     """
     cdt = compute_dtype if compute_dtype is not None else table.dtype
     _check(table, offsets, indices, cdt, mask)
-    if table.device.type == "cpu":
+    device = table.device
+    if device.type == "cpu":
         return embedding_bag_reference(table, offsets, indices,
                                        compute_dtype=cdt, mask=mask)
-    if table.device.type != "cuda":
-        raise ValueError(f"embedding_bag runs on cpu or cuda, not {table.device}")
+    if device.type != "cuda":
+        raise ValueError(f"embedding_bag runs on cpu or cuda, not {device}")
     if table.data_ptr() % 16:
         raise ValueError("the kernel loads 16-byte vectors: the table must "
                          "start on a 16-byte boundary")
+    B, T, L = indices.shape
+    return _launch(table, offsets, indices, mask, cdt,
+                   k1_launch_plan(B * T, L, table.shape[1], table.dtype))
+
+
+def _launch(table, offsets, indices, mask, cdt, plan: K1Plan) -> torch.Tensor:
+    """K1 with ``plan``'s mapping, on checked CUDA inputs."""
     B, T, L = indices.shape
     d = table.shape[1]
     out = torch.empty((B, T, d), dtype=cdt, device=table.device)
     if B * T == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.drs_embedding_bag(
-            table.data_ptr(), _DTYPE_CODES[table.dtype], d,
-            offsets.data_ptr(), indices.data_ptr(),
-            mask.data_ptr() if mask is not None else None,
-            out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L, stream)
-    if err != 0:
-        raise RuntimeError("embedding_bag kernel launch failed: "
-                           f"{lib.drs_cuda_error_string(err).decode()} ({err})")
+    _build.launch(_kernel_lib(), "drs_embedding_bag", table.device,
+                  table.data_ptr(), _DTYPE_CODES[table.dtype], d,
+                  offsets.data_ptr(), indices.data_ptr(),
+                  mask.data_ptr() if mask is not None else None,
+                  out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L,
+                  plan.bags_per_warp, plan.rows_per_lane, plan.grid)
     embedding_bag.kernel_launches += 1
     return out
 

@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from deeprecsys_tpu_torch.ops import _build
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HIDDEN = 64  # the zoo's hidden size, the only one K3 is built for
 
@@ -68,8 +70,6 @@ def rnn_scan_reference(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Te
 
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
-    from deeprecsys_tpu_torch.ops import _build
-
     lib = _build.load("rnn_scan")
     lib.drs_rnn_scan.restype = ctypes.c_int
     lib.drs_rnn_scan.argtypes = [
@@ -131,9 +131,9 @@ def rnn_scan(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Tensor,
     Returns:
       ``(all_h (T, B, H), last (B, H))`` in ``out_dtype``.
 
-    CPU tensors take ``rnn_scan_reference``. CUDA tensors launch K3 once and
-    count the launch in ``rnn_scan.kernel_launches``; a failed build or
-    launch raises.
+    CPU tensors take ``rnn_scan_reference``. CUDA tensors launch K3 once,
+    one block a batch row, and count the launch in
+    ``rnn_scan.kernel_launches``; a failed build or launch raises.
     """
     _check(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths)
     if xproj.device.type == "cpu":
@@ -148,18 +148,15 @@ def rnn_scan(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Tensor,
         return xproj.new_empty((T, B, H), dtype=out_dtype), last
     lens = None if seq_lengths is None else seq_lengths.to(torch.int32).contiguous()
     xproj, w, b = xproj.contiguous(), h2h_w.contiguous(), h2h_b.contiguous()
+    if xproj.data_ptr() % 16:
+        raise ValueError("the kernel copies xproj in 16-byte pieces: it must start "
+                         "on a 16-byte boundary")
     all_h = torch.empty((T, B, H), dtype=out_dtype, device=xproj.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(xproj.device):
-        stream = torch.cuda.current_stream(xproj.device).cuda_stream
-        err = lib.drs_rnn_scan(
-            xproj.data_ptr(), w.data_ptr(), b.data_ptr(), _DTYPE_CODES[w.dtype],
-            None if h_init is None else h_init.data_ptr(),
-            None if lens is None else lens.data_ptr(),
-            all_h.data_ptr(), _DTYPE_CODES[out_dtype], T, B, H, stream)
-    if err != 0:
-        raise RuntimeError("rnn_scan kernel launch failed: "
-                           f"{lib.drs_cuda_error_string(err).decode()} ({err})")
+    _build.launch(_kernel_lib(), "drs_rnn_scan", xproj.device,
+                  xproj.data_ptr(), w.data_ptr(), b.data_ptr(), _DTYPE_CODES[w.dtype],
+                  None if h_init is None else h_init.data_ptr(),
+                  None if lens is None else lens.data_ptr(),
+                  all_h.data_ptr(), _DTYPE_CODES[out_dtype], T, B, H)
     rnn_scan.kernel_launches += 1
     return all_h, all_h[-1]
 

@@ -1,17 +1,14 @@
 """Serving pieces of the port.
 
-Query sizes and their split into sub-batches (``model_batch_sizes``,
-``partition_query``) and the bucket ladder (``resolve_buckets``) hold no
-framework code, so they are imported from the JAX package
-(``deeprecsys_tpu/serving/load_generator.py``, ``serving/buckets.py``).
-``pick_bucket`` is ported: its home, ``serving/engine.py``, imports jax.
-Importing this module imports the JAX package's load generator, which
-builds its native pacer at first import (into ``DRS_NATIVE_CACHE`` when
-that is set).
+Query sizes and their split into sub-batches (``load_generator.py``), the
+bucket ladder (``buckets.py``) and the choice of bucket (``pick_bucket``):
+counterparts of ``deeprecsys_tpu/serving/{load_generator,buckets,engine}.py``,
+copied, so that nothing here imports the JAX package or builds its native
+pacer.
 """
 
-from deeprecsys_tpu.serving.buckets import resolve_buckets
-from deeprecsys_tpu.serving.load_generator import model_batch_sizes, partition_query
+from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
+from deeprecsys_tpu_torch.serving.load_generator import model_batch_sizes, partition_query
 
 __all__ = ["model_batch_sizes", "partition_query", "pick_bucket", "resolve_buckets"]
 

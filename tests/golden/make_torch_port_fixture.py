@@ -50,6 +50,7 @@ from deeprecsys_tpu import zoo
 from deeprecsys_tpu.data import RecDataGenerator
 from deeprecsys_tpu.models import get_model
 from deeprecsys_tpu_torch import bridge
+from deeprecsys_tpu_torch import zoo as port_zoo
 
 PATH = Path(__file__).parent / "torch_port_rm1.npz"
 ZOO_PATH = Path(__file__).parent / "torch_port_zoo.npz"
@@ -62,6 +63,11 @@ WEIGHT_SEED = 0
 
 def _config(dtype: str, name: str = "rm1"):
     return zoo.get_config(name, table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype)
+
+
+def _port_config(dtype: str, name: str):
+    """The port's config of the same model, for the port's ``bridge``."""
+    return port_zoo.get_config(name, table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype)
 
 
 def build() -> dict[str, np.ndarray]:
@@ -118,11 +124,12 @@ def build_model(name: str) -> dict[str, np.ndarray]:
     if batch.dense is not None:
         arrays["dense"] = batch.dense
     arrays["indices"] = batch.indices
-    arrays["fingerprint"] = bridge.fingerprint(bridge.init_numpy(cfg32, WEIGHT_SEED))
+    arrays["fingerprint"] = bridge.fingerprint(
+        bridge.init_numpy(_port_config("float32", name), WEIGHT_SEED))
     for dtype, tag in (("float32", "f32"), ("bfloat16", "bf16")):
         cfg = _config(dtype, name)
         apply = jax.jit(get_model(cfg).apply)  # one program: faster than op by op
-        params = _jax_params(bridge.init_numpy(cfg, WEIGHT_SEED))
+        params = _jax_params(bridge.init_numpy(_port_config(dtype, name), WEIGHT_SEED))
         arrays[f"out_{tag}"] = np.asarray(apply(params, batch).astype(jnp.float32))
         if name == "dien":
             lengths, h0 = _ragged(ZOO_BATCH, cfg)

@@ -3,8 +3,9 @@
 import numpy as np
 import pytest
 
-from deeprecsys_tpu import zoo
+from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.data import RecDataGenerator as JaxGenerator
+from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 
 
@@ -14,9 +15,10 @@ from deeprecsys_tpu_torch.data import RecDataGenerator
                                         ("rm2", 2000), ("ncf", 2000)])
 @pytest.mark.parametrize("seed,batch", [(0, 1), (1, 8), (7, 33)])
 def test_generator_bit_identical_to_jax(name, scale, seed, batch):
-    cfg = zoo.get_config(name, table_scale=scale)
-    want = JaxGenerator(cfg, seed=seed).generate_batches(3, batch)
-    got = RecDataGenerator(cfg, seed=seed).generate_batches(3, batch)
+    want = JaxGenerator(jax_zoo.get_config(name, table_scale=scale),
+                        seed=seed).generate_batches(3, batch)
+    got = RecDataGenerator(zoo.get_config(name, table_scale=scale),
+                           seed=seed).generate_batches(3, batch)
     for w, g in zip(want, got):
         assert g.indices.dtype == np.int32 and g.indices.shape == w.indices.shape
         np.testing.assert_array_equal(g.indices, w.indices)

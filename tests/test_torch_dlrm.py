@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from deeprecsys_tpu import zoo
+from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.data import RecDataGenerator as JaxGenerator
 from deeprecsys_tpu.models import get_model as jax_get_model
-from deeprecsys_tpu_torch import bridge
+from deeprecsys_tpu_torch import bridge, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import get_model
 from deeprecsys_tpu_torch.models.base import Batch, pooled_lookup
@@ -32,6 +32,10 @@ def _cfg(dtype="float32", **kw):
                           compute_dtype=dtype, **kw)
 
 
+def _jax_cfg(dtype="float32"):
+    return jax_zoo.get_config("rm1", table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype)
+
+
 def _port_forward(cfg, np_params, batch):
     model = get_model(cfg, "cpu")
     params = bridge.params_from_numpy(np_params, cfg, "cpu")
@@ -42,7 +46,7 @@ def _port_forward(cfg, np_params, batch):
 def test_rm1_matches_golden_outputs():
     # tests/test_parity.py::_forward: init PRNGKey(0), generator seed 1, batch 8.
     cfg = _cfg()
-    np_params = jax.device_get(jax_get_model(cfg).init(jax.random.PRNGKey(0)))
+    np_params = jax.device_get(jax_get_model(_jax_cfg()).init(jax.random.PRNGKey(0)))
     got = _port_forward(cfg, np_params, RecDataGenerator(cfg, seed=1).generate_batch(8))
     want = np.asarray(json.loads((GOLDEN / "forward_outputs.json").read_text())["rm1"],
                       dtype=np.float32)
@@ -52,12 +56,12 @@ def test_rm1_matches_golden_outputs():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("seed", [1, 2])
 def test_rm1_matches_jax_apply(dtype, seed):
-    cfg = _cfg(dtype)
-    model = jax_get_model(cfg)
+    cfg, jax_cfg = _cfg(dtype), _jax_cfg(dtype)
+    model = jax_get_model(jax_cfg)
     params = model.init(jax.random.PRNGKey(0))
     if dtype == "bfloat16":  # the JAX table is packed; the bridge unpacks it
         assert cfg.resolved_table_pack == 2 and "packed" in params["tables"]
-    batch = JaxGenerator(cfg, seed=seed).generate_batch(32)
+    batch = JaxGenerator(jax_cfg, seed=seed).generate_batch(32)
     want = np.asarray(model.apply(params, batch).astype(jnp.float32))
     got = _port_forward(cfg, jax.device_get(params), Batch(batch.dense, batch.indices))
     assert got.shape == want.shape == (32, 1)
@@ -70,7 +74,7 @@ def test_rm1_matches_jax_apply(dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridge_round_trip(dtype):
     cfg = _cfg(dtype)
-    np_params = jax.device_get(jax_get_model(cfg).init(jax.random.PRNGKey(0)))
+    np_params = jax.device_get(jax_get_model(_jax_cfg(dtype)).init(jax.random.PRNGKey(0)))
     back = bridge.params_to_numpy(bridge.params_from_numpy(np_params, cfg, "cpu"), cfg)
     want_leaves, want_def = jax.tree_util.tree_flatten(np_params)
     got_leaves, got_def = jax.tree_util.tree_flatten(back)

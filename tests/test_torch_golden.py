@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from deeprecsys_tpu import zoo
+from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.models import get_model as jax_get_model
-from deeprecsys_tpu_torch import bridge
+from deeprecsys_tpu_torch import bridge, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import get_model
 
@@ -31,9 +31,13 @@ def _cfg(name):
     return zoo.get_config(name, table_scale=SCALE)
 
 
+def _jax_cfg(name):
+    return jax_zoo.get_config(name, table_scale=SCALE)
+
+
 @functools.cache
 def _jax_init(name: str) -> dict:
-    return jax.device_get(jax_get_model(_cfg(name)).init(jax.random.PRNGKey(0)))
+    return jax.device_get(jax_get_model(_jax_cfg(name)).init(jax.random.PRNGKey(0)))
 
 
 @pytest.mark.parametrize("name", MODELS)

@@ -89,7 +89,7 @@ def test_kernel_at_zoo_extremes(cuda, B, T, L, rows):
 def _rnn_inputs(cuda, T, B, w_dt, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     lens = torch.randint(0, T + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
-    lens[:2] = torch.tensor([0, T], dtype=torch.int32)
+    lens[:2] = torch.tensor([0, T], dtype=torch.int32)[:B]
     return (torch.randn((T, B, 64), generator=g, device=cuda),
             (torch.randn((64, 64), generator=g, device=cuda) / 8).to(w_dt),
             (torch.randn((64,), generator=g, device=cuda) * 0.1).to(w_dt),
@@ -126,3 +126,49 @@ def test_rnn_scan_kernel_rejects_other_hidden_sizes(cuda):
     with pytest.raises(ValueError, match="hidden size 64"):
         rnn_scan(torch.zeros((3, 2, 32), device=cuda), torch.zeros((32, 32), device=cuda),
                  torch.zeros(32, device=cuda), torch.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d,dt", [(32, torch.bfloat16), (64, torch.bfloat16),
+                                  (32, torch.float32), (64, torch.float32)])
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 8, 20, 80, 120])
+@pytest.mark.parametrize("B,T", [(1, 1), (7, 3), (33, 5)])
+def test_kernel_at_launch_plan_edges(cuda, B, T, L, d, dt, masked):
+    """Every mapping k1_launch_plan picks: B * T = 1 and not a multiple of
+    the bags a warp holds; with a mask, bag (0, 0) is masked out entirely."""
+    rows = 300
+    g = torch.Generator(device=cuda).manual_seed(L)
+    table = torch.randn((rows * T, d), generator=g, device=cuda).to(dt)
+    offsets = torch.arange(T, dtype=torch.int32, device=cuda) * rows
+    indices = torch.randint(0, rows, (B, T, L), generator=g, device=cuda).to(torch.int32)
+    mask = None
+    if masked:
+        mask = torch.rand((B, T, L), generator=g, device=cuda) < 0.6
+        mask[0, 0] = False
+    got = embedding_bag(table, offsets, indices, mask=mask)
+    torch.cuda.synchronize()
+    want = embedding_bag_reference(table, offsets, indices, mask=mask)
+    tol = pooled_tolerance(got, want, table, offsets, indices, mask)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    if masked:
+        assert not got[0, 0].any()
+
+
+@pytest.mark.parametrize("use_h0", [False, True])
+@pytest.mark.parametrize("out_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B", [(1, 1), (1, 5), (40, 5), (40, 7), (9, 130), (41, 133)])
+def test_rnn_scan_kernel_plan_edges(cuda, T, B, out_dt, use_h0):
+    """T = 1 and T = 40 (several cp.async chunks, one not full), seq_lengths
+    holding 0 and T, B = 1, and B past the card's SM count."""
+    xproj, w, b, h0, lens = _rnn_inputs(cuda, T, B, out_dt, seed=T + B)
+    h0 = h0 if use_h0 else None
+    got, last = rnn_scan(xproj, w, b, out_dt, h0=h0, seq_lengths=lens)
+    torch.cuda.synchronize()
+    step, tol = rnn_scan_tolerance(got, xproj, w, b, h0=h0, seq_lengths=lens)
+    assert bool(((got.float() - step).abs() <= tol).all())
+    want, want_last = rnn_scan_reference(xproj, w, b, out_dt, h0=h0, seq_lengths=lens)
+    atol = 1e-5 if out_dt == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(last.float(), want_last.float(), rtol=0, atol=atol)
+    start = h0[0].to(out_dt) if use_h0 else torch.zeros(64, dtype=out_dt, device=cuda)
+    assert torch.equal(got[:, 0], start.expand(T, 64))  # lens[0] == 0

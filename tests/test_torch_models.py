@@ -30,11 +30,11 @@ import pytest
 import torch
 
 import chip_smoke
-from deeprecsys_tpu import zoo
+from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.models import get_model as jax_get_model
 from deeprecsys_tpu.models import sigmoid_output as jax_sigmoid_output
 from deeprecsys_tpu.models.base import stacked_mlp_apply as jax_stacked_mlp_apply
-from deeprecsys_tpu_torch import bridge
+from deeprecsys_tpu_torch import bridge, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import dien, get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import (
@@ -48,6 +48,11 @@ MODELS = fixture.ZOO_MODELS
 def _cfg(name, dtype="float32", **kw):
     return zoo.get_config(name, table_scale=SCALE, param_dtype=dtype,
                           compute_dtype=dtype, **kw)
+
+
+def _jax_cfg(name, dtype="float32", **kw):
+    return jax_zoo.get_config(name, table_scale=SCALE, param_dtype=dtype,
+                              compute_dtype=dtype, **kw)
 
 
 @functools.cache
@@ -120,7 +125,8 @@ def test_logits_head_matches_jax(name):
     # Shift the last bias by the mean score, so that scores of both signs come.
     head = np_params["final" if name == "ncf" else "top"][-1]
     head["b"] = head["b"] - _port_forward(cfg, np_params, batch).mean(axis=0)
-    want = np.asarray(jax.jit(jax_get_model(cfg).apply)(np_params, batch))
+    want = np.asarray(jax.jit(jax_get_model(_jax_cfg(name, output_head="logits")).apply)(
+        np_params, batch))
     got = _port_forward(cfg, np_params, batch)
     _assert_close(got, want, "float32")
     assert (got < 0).any() and (got > 0).any()  # the final pre-activation is exposed
@@ -168,7 +174,8 @@ def test_init_numpy_and_port_init_match_jax_init_layout(name, dtype):
     params_to_numpy, give the keys, shapes, dtypes and table layout of
     JAX ``init`` (packed bf16 d=32 tables included)."""
     cfg = _cfg(name, dtype)
-    want = _shape_tree(jax.eval_shape(jax_get_model(cfg).init, jax.random.PRNGKey(0)))
+    want = _shape_tree(jax.eval_shape(jax_get_model(_jax_cfg(name, dtype)).init,
+                                      jax.random.PRNGKey(0)))
     assert _shape_tree(bridge.init_numpy(cfg, 0)) == want
     port = get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     assert _shape_tree(bridge.params_to_numpy(port, cfg)) == want
@@ -194,7 +201,8 @@ def test_bridge_round_trip(name, dtype):
 
 def test_sigmoid_output_matches_jax():
     for name in zoo.MODEL_NAMES:
-        assert sigmoid_output(zoo.get_config(name)) == jax_sigmoid_output(zoo.get_config(name))
+        assert sigmoid_output(zoo.get_config(name)) == \
+            jax_sigmoid_output(jax_zoo.get_config(name))
 
 
 @pytest.mark.parametrize("sigmoid_layer", [-1, 2])

@@ -10,6 +10,10 @@ Tolerances:
   layer and move the next layer's output by about one ulp.
 """
 
+import dataclasses
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +23,12 @@ from deeprecsys_tpu.ops import cat_interaction as jax_cat
 from deeprecsys_tpu.ops import embedding_bag as jax_embedding_bag
 from deeprecsys_tpu.ops import mlp_apply as jax_mlp_apply
 from deeprecsys_tpu.ops import pack_table as jax_pack_table
+from deeprecsys_tpu_torch import zoo as port_zoo
 from deeprecsys_tpu_torch.ops import (
     cat_interaction, embedding_bag, embedding_bag_reference, init_fused_tables,
     mlp_apply, mlp_init, unpack_table)
+from deeprecsys_tpu_torch.ops.embedding import (
+    K1_BLOCKS_PER_SM, K1_WARPS_PER_BLOCK, k1_launch_plan)
 
 TABLE_ROWS = (50, 30, 20)
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -198,3 +205,85 @@ def test_mlp_init_distributions():
     np.testing.assert_allclose(layer["w"].std().item(), np.sqrt(2 / (256 + 512)), rtol=0.03)
     np.testing.assert_allclose(layer["b"].std().item(), np.sqrt(1 / 512), rtol=0.15)
     assert abs(layer["w"].mean().item()) < 0.01 * np.sqrt(2 / 768)
+
+
+# ------------------------------------------------------------ K1's launch plan
+
+K1_CU = Path(__file__).resolve().parents[1] / "deeprecsys_tpu_torch" / "ops" / "csrc" / \
+    "embedding_bag.cu"
+
+
+def _k1_instances(S):
+    """The (bags a warp, rows a lane) pairs embedding_bag.cu instantiates."""
+    return {(S, u) for u in (1, 2, 4, 8)} | {(1, 4)}
+
+
+def _k1_coverage(plan, n_bags, L):
+    """How often K1 reads each (bag, row) and writes each bag under ``plan``:
+    the kernel's index arithmetic (grid-stride loop over warp tasks, slot s
+    of bag bi reading rows step0 + u * SPB + s, the ids' loader lane k
+    holding (k // RPS, step0 + k % RPS)), in numpy."""
+    G, U, S = plan.bags_per_warp, plan.rows_per_lane, plan.row_slots
+    SPB, RPS = S // G, plan.rows_per_step
+    warps = plan.grid * K1_WARPS_PER_BLOCK
+    tasks = np.concatenate([np.arange(w, plan.tasks, warps) for w in range(warps)])
+    reads = np.zeros((n_bags, L), np.int64)
+    writes = np.zeros(n_bags, np.int64)
+    g = np.arange(S)
+    bi, s = g // SPB, g % SPB
+    for step0 in range(0, L, RPS):
+        u = np.arange(U)[:, None]
+        k = bi * RPS + u * SPB + s                      # (U, S): the shuffle's source id
+        assert (k < G * RPS).all()
+        assert ((k // RPS == bi) & (step0 + k % RPS == step0 + u * SPB + s)).all()
+        bag = tasks[:, None, None] * G + bi[None, None, :]   # (tasks, 1, S)
+        row = step0 + u * SPB + s                            # (U, S)
+        bag, row = np.broadcast_arrays(bag, row[None])
+        ok = (bag < n_bags) & (row < L)
+        np.add.at(reads, (bag[ok], row[ok]), 1)
+    bag = tasks[:, None] * G + np.arange(G)[None, :]
+    np.add.at(writes, bag[bag < n_bags], 1)
+    return reads, writes
+
+
+def test_k1_constants_match_the_kernel_source():
+    src = K1_CU.read_text()
+    assert re.search(rf"kWarpsPerBlock = {K1_WARPS_PER_BLOCK};", src)
+    assert re.search(rf"kMinBlocksPerSm = {K1_BLOCKS_PER_SM};", src)
+    cases = set(re.findall(r"DRS_K1_CASE\((S|1), (\d)\)", src))
+    assert cases == {("S", "1"), ("S", "2"), ("S", "4"), ("S", "8"), ("1", "4")}
+
+
+@pytest.mark.parametrize("grid_cap", [None, 264])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["rm1", "rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien"])
+def test_k1_plan_covers_every_zoo_bag_once(name, dtype, grid_cap):
+    """Also with the grid capped, so that warps loop over several tasks, as
+    the kernel's grid-stride loop allows."""
+    cfg = port_zoo.get_config(name)
+    n_bags, L, d = 512 * cfg.num_tables, cfg.num_indices_per_lookup, cfg.sparse_feature_size
+    plan = k1_launch_plan(n_bags, L, d, dtype)
+    assert (plan.bags_per_warp, plan.rows_per_lane) in _k1_instances(plan.row_slots)
+    assert plan.grid * K1_WARPS_PER_BLOCK >= plan.tasks > (plan.grid - 1) * K1_WARPS_PER_BLOCK
+    if grid_cap is not None:
+        plan = dataclasses.replace(plan, grid=min(plan.grid, grid_cap))
+    reads, writes = _k1_coverage(plan, n_bags, L)
+    assert (reads == 1).all() and (writes == 1).all()
+
+
+@pytest.mark.parametrize("grid_cap", [None, 1])
+@pytest.mark.parametrize("d,dtype", [(32, torch.bfloat16), (64, torch.bfloat16),
+                                     (32, torch.float32), (64, torch.float32)])
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 8, 20, 80, 120])
+@pytest.mark.parametrize("n_bags", [1, 13, 1001])
+def test_k1_plan_covers_edge_shapes_once(n_bags, L, d, dtype, grid_cap):
+    """B * T = 1, and not a multiple of the bags a warp holds."""
+    plan = k1_launch_plan(n_bags, L, d, dtype)
+    if grid_cap is not None:
+        plan = dataclasses.replace(plan, grid=min(plan.grid, grid_cap))
+    assert (plan.bags_per_warp, plan.rows_per_lane) in _k1_instances(plan.row_slots)
+    assert plan.row_slots == 32 // (d * dtype.itemsize // 16)
+    if L <= 8:  # every lane has all its bag's rows in flight in one step
+        assert plan.bags_per_warp == plan.row_slots and plan.rows_per_step >= L
+    reads, writes = _k1_coverage(plan, n_bags, L)
+    assert (reads == 1).all() and (writes == 1).all()

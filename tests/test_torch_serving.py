@@ -2,9 +2,8 @@
 
 import pytest
 
-from deeprecsys_tpu.config import ServingConfig
 from deeprecsys_tpu.serving.engine import pick_bucket as jax_pick_bucket
-from deeprecsys_tpu_torch import serving
+from deeprecsys_tpu_torch import ServingConfig, serving
 
 
 @pytest.mark.parametrize("max_batch", [32, 1024])
