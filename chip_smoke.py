@@ -10,8 +10,13 @@ their plain PyTorch versions, and checks all eight zoo models against the
 JAX package's outputs stored in ``tests/golden/torch_port_{rm1,zoo}.npz``.
 Then it drives the models at full width (bf16, batch 512):
 
-- rm1 through ``get_model(...).apply``, the standalone CLI loop and 16
-  served queries, timed against the plain path;
+- rm1 through ``get_model(...).apply`` and the standalone CLI loop, timed
+  against the plain path;
+- rm1 through the serving stack (``serving.run_serving``: load generator,
+  engines on their own CUDA streams, aggregator) at the canonical
+  DeepRecSys point, with 1 and with 4 engines; payload requests through an
+  engine, held against ``model.apply``; a short DeepRecSched tuning run;
+  and dien served through ``main.py --queue`` (K1 and K3);
 - rm2, rm3, wnd, mtwnd, ncf, din and dien through ``get_model(...).apply``,
   three forwards each, checked against the plain path and timed, each
   model's table freed before the next; dien also through the CLI loop.
@@ -32,6 +37,7 @@ gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import queue
 import subprocess
 import sys
 import time
@@ -52,8 +58,9 @@ from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_reference, rnn_scan, rnn_scan_reference)
 from deeprecsys_tpu_torch.ops.embedding import pooled_tolerance
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
-from deeprecsys_tpu_torch.serving import (
-    model_batch_sizes, partition_query, pick_bucket, resolve_buckets)
+from deeprecsys_tpu_torch.serving import ServiceRequest, run_serving
+from deeprecsys_tpu_torch.serving.engine import ComputeEngine
+from deeprecsys_tpu_torch.serving.packets import ERR_OK, ERR_PAYLOAD
 from deeprecsys_tpu_torch.utils.devices import synchronize
 
 ROOT = Path(__file__).resolve().parent
@@ -92,6 +99,14 @@ BATCH = 512
 # Full-size tables; a CPU rehearsal of the forward phases sets it larger.
 TABLE_SCALE = 1
 DIEN_T = 40  # dien's behaviour tables: the scan length
+# The canonical DeepRecSys serving point (BASELINE.md): query sizes
+# ~N(165, 16) capped at 1024, sub-batches of 32, Poisson arrivals 10 ms
+# apart on average.
+SERVING_POINT = {"batch_size_distribution": "normal", "avg_mini_batch_size": 165,
+                 "var_mini_batch_size": 16, "max_mini_batch_size": 1024,
+                 "sub_task_batch_size": 32, "avg_arrival_rate_ms": 10.0}
+SERVE_QUERIES = 200
+DIEN_QUERIES = 50
 
 
 def _log(msg: str):
@@ -387,43 +402,183 @@ def phase_forward(device) -> dict:
     return {"cfg": cfg, "model": model, "params": params, "batches": batches}
 
 
-def phase_requests(device, model, params, cfg) -> list[float]:
-    """16 queries at the canonical DeepRecSys operating point (BASELINE.md):
-    sizes ~N(165, 16), split into sub-batches of 32, each padded to its
-    bucket, run, and sliced back. Returns per-query latencies in ms."""
-    scfg = ServingConfig(batch_size_distribution="normal", avg_mini_batch_size=165,
-                         var_mini_batch_size=16, max_mini_batch_size=1024,
-                         num_batches=16, sub_task_batch_size=32)
-    sizes = model_batch_sizes(scfg, np.random.default_rng(scfg.seed))
-    buckets = tuple(b for b in sorted(resolve_buckets(scfg))
-                    if b <= scfg.max_mini_batch_size)
-    data = RecDataGenerator(cfg, seed=2)
-    queries = [data.generate_batch(int(n)) for n in sizes]
+def _backend(device) -> str:
+    return "gpu" if device.type == "cuda" else "cpu"
 
-    def serve(q: Batch) -> torch.Tensor:
-        scores, start = [], 0
-        for part in partition_query(len(q.indices), scfg.sub_task_batch_size):
-            pad = pick_bucket(buckets, part) - part
-            sub = Batch(np.pad(q.dense[start:start + part], ((0, pad), (0, 0))),
-                        np.pad(q.indices[start:start + part], ((0, pad), (0, 0), (0, 0))))
-            scores.append(model.apply(params, sub.to(device))[:part])
-            start += part
-        return torch.cat(scores).float().cpu()  # the copy to the host waits for the card
 
-    latencies = []
+def _peak_gib(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else 0.0
+
+
+def _reset_peak(device):
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _check_served(res, counts: dict, scans_per_execution: int, what: str,
+                  drained: bool = False):
+    """Every sub-request answered without an error (but those a tuning run's
+    drain-and-settle removed from the queue, with ``drained``), and each
+    kernel launched once a model execution (K3 twice for dien), warm-up
+    included."""
+    if res.engine_errors:
+        raise AssertionError(f"{what}: engines failed: {res.engine_errors}")
+    if res.error_responses != 0 or (
+            res.num_responses > res.cpu_sub_requests if drained
+            else res.num_responses != res.cpu_sub_requests):
+        raise AssertionError(f"{what}: {res.num_responses} responses for "
+                             f"{res.cpu_sub_requests} sub-requests, "
+                             f"{res.error_responses} of them errors")
+    want = {"embedding_bag": res.executions,
+            "rnn_scan": scans_per_execution * res.executions}
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected {want} for "
+                             f"{res.executions} executions (warm-up included)")
+    if not (np.isfinite(res.p95_ms) and res.measured_qps > 0):
+        raise AssertionError(f"{what}: no latency or QPS measured")
+
+
+def _served_line(res, counts: dict) -> str:
+    return (f"QPS {res.measured_qps:.2f}; p50 {res.p50_ms:.3f} ms, p95 "
+            f"{res.p95_ms:.3f} ms, p99 {res.p99_ms:.3f} ms; queue-wait p95 "
+            f"{res.queue_wait_p95_ms:.3f} ms, inference p95 {res.inference_p95_ms:.3f} ms; "
+            f"{res.cpu_requests} queries, {res.cpu_sub_requests} sub-requests, "
+            f"{res.num_responses} responses, {res.error_responses} errors; executions a "
+            f"bucket {res.bucket_counts} + {res.warmup_executions} warm-up; launches "
+            f"{counts}; pacing error mean {res.pacing_error_mean_ms:.4f} ms, p99 "
+            f"{res.pacing_error_p99_ms:.4f} ms; wall {res.wall_s:.2f} s")
+
+
+def serve_rm1(device, engines: int, card: str) -> tuple[dict, dict]:
+    """rm1 at the canonical point through ``run_serving``, each engine with
+    its own params from its seed. Returns the result and the launches."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE,
+                         param_dtype="bfloat16", compute_dtype="bfloat16")
+    scfg = ServingConfig(**SERVING_POINT, num_batches=SERVE_QUERIES,
+                         inference_engines=engines, engine_backend=_backend(device))
+    _reset_peak(device)
+    _reset_counts()
+    res = run_serving(cfg, scfg, settle_s=0.1)
+    counts = _counts()
+    _check_served(res, counts, 0, f"rm1 served by {engines} engine(s)")
+    peak = _peak_gib(device)
+    _log(f"[6 serving] rm1 table_scale={TABLE_SCALE} bf16, {engines} engine(s): "
+         f"{_served_line(res, counts)}; peak device memory {peak:.3f} GiB [{card}]")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"engines": engines, **res.to_dict(), "peak_gib": peak}, counts
+
+
+def serve_payloads(device, fwd: dict) -> tuple[float, dict]:
+    """Payload requests through one rm1 engine on phase 5's params: their
+    scores against ``model.apply`` on the same rows (bf16_atol: the bucket's
+    GEMMs may take another cuBLAS algorithm than the reference batch's);
+    an id past its table is answered ERR_PAYLOAD. Returns the max |error|
+    and the launches."""
+    cfg, model, params = fwd["cfg"], fwd["model"], fwd["params"]
+    scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device))
+    data = RecDataGenerator(cfg, seed=4)
+    payloads = [data.generate_batch(n) for n in (32, 17, 100)]
+    bad = data.generate_batch(8)
+    bad.indices[3, 5, 7] = cfg.scaled_rows[5]
+    req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+    _reset_counts()
+    eng = ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, device=device, params=params)
+    eng.start()
+    ready = ready_q.get(timeout=120)
+    if isinstance(ready, Exception):
+        raise RuntimeError("the payload engine failed during setup") from ready
+    for i, p in enumerate(payloads + [bad]):
+        req_q.put(ServiceRequest(batch_id=i, batch_size=len(p.indices),
+                                 arrival_time=time.time(), payload=p))
+    req_q.put(None)
+    got = {}
+    for _ in range(len(payloads) + 1):
+        r = resp_q.get(timeout=120)
+        got[r.batch_id] = r
+    eng.join(timeout=120)
+    counts = _counts()
+    executions = sum(eng.bucket_counts.values()) + eng.warmup_executions
+    if counts != {"embedding_bag": executions, "rnn_scan": 0} or eng.error is not None:
+        raise AssertionError(f"payload engine: launches {counts} for {executions} "
+                             f"executions; error {eng.error!r}")
+    if got[len(payloads)].error_code != ERR_PAYLOAD:
+        raise AssertionError("an out-of-range id was not answered with ERR_PAYLOAD")
+    worst = 0.0
     with torch.inference_mode():
-        for b in buckets:  # warm-up, as an engine warms its ladder
-            if b <= scfg.sub_task_batch_size:
-                serve(data.generate_batch(b))
-        for n, q in zip(sizes, queries):
-            t0 = time.perf_counter()
-            out = serve(q)
-            latencies.append((time.perf_counter() - t0) * 1000.0)
-            _check_scores(out, (int(n), 1), True, "served query")
-    _log(f"[6 requests] {len(sizes)} queries answered, {int(sizes.sum())} samples, "
-         f"sizes {int(sizes.min())}-{int(sizes.max())}, buckets used "
-         f"{sorted({pick_bucket(buckets, p) for n in sizes for p in partition_query(int(n), 32)})}")
-    return latencies
+        for i, p in enumerate(payloads):
+            want = model.apply(params, p.to(device)).float().cpu().numpy()
+            r = got[i]
+            if r.error_code != ERR_OK or r.scores is None or r.scores.shape != want.shape:
+                raise AssertionError(f"payload {i}: error {r.error_code}, scores "
+                                     f"{None if r.scores is None else r.scores.shape}")
+            err = float(np.abs(r.scores - want).max())
+            if err > bf16_atol(want):
+                raise AssertionError(f"payload {i}: engine scores differ from "
+                                     f"model.apply by {err:.3e} > {bf16_atol(want):.3e}")
+            worst = max(worst, err)
+    _log(f"[6 serving] rm1 payload requests of {[len(p.indices) for p in payloads]} rows "
+         f"through one engine match model.apply on the same rows: max |err| {worst:.3e} "
+         f"(limit bf16_atol); an id past table 5's {cfg.scaled_rows[5]} rows answered "
+         f"ERR_PAYLOAD; launches {counts} for {executions} executions")
+    return worst, counts
+
+
+def serve_tuning(device, fwd: dict, card: str) -> tuple[dict, dict]:
+    """A short DeepRecSched run on rm1 (one engine, phase 5's params): the
+    hill climber over sub-batches of 32 and 64 picks one."""
+    scfg = ServingConfig(**{**SERVING_POINT, "avg_arrival_rate_ms": 5.0},
+                         num_batches=40, engine_backend=_backend(device),
+                         tune_batch_qps=True, batch_configs=(32, 64), arr_steps=5,
+                         sched_timeout=4, req_granularity=8, min_arr_range=2.0,
+                         max_arr_range=20.0, target_latency_ms=25.0)
+    _reset_counts()
+    res = run_serving(fwd["cfg"], scfg, params=fwd["params"], settle_s=0.1)
+    counts = _counts()
+    if res.optimal_sub_batch not in scfg.batch_configs:
+        raise AssertionError(f"tune_batch_qps picked {res.optimal_sub_batch}")
+    _check_served(res, counts, 0, "rm1 tuning run", drained=True)
+    _log(f"[6 serving] rm1 tune_batch_qps over {scfg.batch_configs}: optimal_sub_batch "
+         f"{res.optimal_sub_batch}; after tuning {_served_line(res, counts)} [{card}]")
+    return res.to_dict(), counts
+
+
+def serve_dien(device, card: str) -> tuple[dict, dict]:
+    """dien at full width through ``main.py --queue``, one engine."""
+    _reset_peak(device)
+    _reset_counts()
+    res = port_main.main([
+        "--model", "dien", "--param_dtype", "bfloat16", "--table_scale", str(TABLE_SCALE),
+        "--queue", "--engine_backend", _backend(device), "--num_batches", str(DIEN_QUERIES),
+        "--batch_size_distribution", "normal", "--avg_mini_batch_size", "165",
+        "--var_mini_batch_size", "16", "--sub_task_batch_size", "32",
+        "--avg_arrival_rate", "10"])
+    counts = _counts()
+    _check_served(res, counts, 2, "dien served by main.py --queue")
+    peak = _peak_gib(device)
+    _log(f"[6 serving] dien table_scale={TABLE_SCALE} bf16 through main.py --queue, 1 "
+         f"engine: {_served_line(res, counts)}; peak device memory {peak:.3f} GiB [{card}]")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {**res.to_dict(), "peak_gib": peak}, counts
+
+
+def phase_serving(device, fwd: dict, card: str) -> tuple[dict, dict]:
+    """The serving stack on the card; each path's launches read around it.
+    Returns the results and the launches summed over the paths."""
+    t0 = time.perf_counter()
+    launches = {"embedding_bag": 0, "rnn_scan": 0}
+    out = {}
+    for key, run in (("rm1_1", lambda: serve_rm1(device, 1, card)),
+                     ("rm1_4", lambda: serve_rm1(device, 4, card)),
+                     ("payload_err", lambda: serve_payloads(device, fwd)),
+                     ("tune", lambda: serve_tuning(device, fwd, card)),
+                     ("dien", lambda: serve_dien(device, card))):
+        out[key], counts = run()
+        for k, v in counts.items():
+            launches[k] += v
+    _log(f"[6 serving] all serving paths in {time.perf_counter() - t0:.1f} s")
+    return out, launches
 
 
 def _top(m: dict, n: int = 6) -> str:
@@ -468,7 +623,9 @@ def _k1_summary(runs: dict, batches, table, offsets) -> dict:
     bound on the first batch's ids and the library call's time."""
     B, T, L = batches[0].indices.shape
     d = table.shape[1]
-    k_dev, p_dev = _mean(runs, ("k1", "k2"), "device_ms"), _mean(runs, ("p1", "p2"), "device_ms")
+    # The kernel runs: the median kernel, which a trace that dropped events
+    # cannot pull down as it can the sum a call.
+    k_dev, p_dev = _mean(runs, ("k1", "k2"), "kernel_ms"), _mean(runs, ("p1", "p2"), "device_ms")
     k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
     n_rows = B * T * L
     bound = k1_bound(table, offsets, batches[0].indices, torch.bfloat16)
@@ -494,7 +651,7 @@ def _k1_line(s: dict, name: str, card: str) -> str:
             f"wall {s['p_wall'] * 1e3:.2f} us [{card}]")
 
 
-def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
+def phase_times(device, fwd: dict, card: str) -> dict:
     cfg, model, params = fwd["cfg"], fwd["model"], fwd["params"]
     table = params["tables"]
     offsets = table_offsets(cfg, device)
@@ -522,7 +679,6 @@ def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
     k1 = _k1_summary(runs, batches, table, offsets)
     fk_wall, fp_wall = _mean(runs, ("fk1", "fk2"), "wall_ms"), _mean(runs, ("fp1", "fp2"), "wall_ms")
     fk_dev = _mean(runs, ("fk1", "fk2"), "device_ms")
-    lat = np.asarray(latencies)
     peak = torch.cuda.max_memory_allocated(device)
     _log(f"[7 times] card: {card}; {TIMED_ITERS} calls a run, runs in the order "
          "plain, kernel, kernel, plain")
@@ -534,10 +690,7 @@ def phase_times(device, fwd: dict, card: str, latencies: list[float]) -> dict:
     _log(f"[7 times] rm1 forward batch {B} bf16: kernel path {fk_wall:.4f} ms = "
          f"{B / (fk_wall / 1e3):.0f} samples/s (device {_us(fk_dev)}, idle {idle}); "
          f"plain path {fp_wall:.4f} ms = {B / (fp_wall / 1e3):.0f} samples/s [{card}]")
-    _log(f"[7 times] per-query latency over {len(lat)} queries: p50 "
-         f"{np.percentile(lat, 50):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms, "
-         f"max {lat.max():.3f} ms [{card}]")
-    _log(f"[7 times] peak device memory (phases 5-6): {peak / 2**30:.3f} GiB [{card}]")
+    _log(f"[7 times] peak device memory (phase 7): {peak / 2**30:.3f} GiB [{card}]")
     return {"k1": k1,
             "fwd_wall_ms": fk_wall, "fwd_device_ms": fk_dev, "peak_bytes": peak}
 
@@ -672,7 +825,7 @@ def phase_rnn_times(device, card: str) -> dict:
                              [(inp["xproj"].bfloat16(),)], iters)
     for key in ("p1", "k1", "k2", "p2", "s1"):
         _log(f"[9 K3 times]   {key}: {_fmt(runs[key])} [{card}]")
-    k_dev, p_dev = _mean(runs, ("k1", "k2"), "device_ms"), _mean(runs, ("p1", "p2"), "device_ms")
+    k_dev, p_dev = _mean(runs, ("k1", "k2"), "kernel_ms"), _mean(runs, ("p1", "p2"), "device_ms")
     k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
     bound = k3_bound(DIEN_T, BATCH, KERNEL_HIDDEN, torch.bfloat16)
     use_dev = None not in (k_dev, p_dev, runs["s1"]["device_ms"])
@@ -706,11 +859,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(device)
     _reset_counts()
     fwd = phase_forward(device)
-    latencies = phase_requests(device, fwd["model"], fwd["params"], fwd["cfg"])
     launches = _counts()
     if launches["embedding_bag"] == 0:
         raise AssertionError("the main path never launched K1")
-    times = phase_times(device, fwd, card["card"], latencies)
+    # The serving paths, each read around itself.
+    serving, serve_launches = phase_serving(device, fwd, card["card"])
+    for k, v in serve_launches.items():
+        launches[k] += v
+    torch.cuda.reset_peak_memory_stats(device)
+    times = phase_times(device, fwd, card["card"])
     del fwd
     torch.cuda.empty_cache()
 
@@ -736,6 +893,16 @@ def main() -> int:
              f"{r['k1']['ms'] * 1e3:.2f} ({100 * r['k1']['hbm_share']:.1f}%), "
              f"{r['k1']['bound_ms'] * 1e3:.2f}, {r['k1']['library_ms'] * 1e3:.2f}, "
              f"{r['k1']['plain_ms'] * 1e3:.2f}, {r['peak_bytes'] / 2**30:.3f} [{card['card']}]")
+    _log("[10 summary] serving, canonical point (sizes ~N(165, 16), sub-batch 32, 10 ms "
+         "mean gap): engines, queries, QPS, p50/p95/p99 ms, queue-wait p95 ms, inference "
+         "p95 ms, pacing error mean/p99 ms, peak GiB")
+    for key in ("rm1_1", "rm1_4", "dien"):
+        s = serving[key]
+        _log(f"[10 summary]   {key.split('_')[0]}: {s.get('engines', 1)}, {s['cpu_requests']}, "
+             f"{s['measured_qps']:.2f}, {s['p50_ms']:.3f}/{s['p95_ms']:.3f}/{s['p99_ms']:.3f}, "
+             f"{s['queue_wait_p95_ms']:.3f}, {s['inference_p95_ms']:.3f}, "
+             f"{s['pacing_error_mean_ms']:.4f}/{s['pacing_error_p99_ms']:.4f}, "
+             f"{s['peak_gib']:.3f} [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())

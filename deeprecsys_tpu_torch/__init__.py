@@ -15,10 +15,12 @@ the CLI parser and the serving helpers are copies, which
 - ``models``  — the six families of the eight zoo models: DLRM, WnD,
   MT-WnD, NCF, DIN, DIEN (``get_model``)
 - ``data``    — the random-mode data generator, bit-identical to the JAX one
-- ``serving`` — query sizes and splits, bucket ladder and choice
+- ``serving`` — the serving stack: load generator (Poisson arrivals, query
+  splitting), DeepRecSched, the inference engines (each on its own CUDA
+  stream), the response aggregator and ``run_serving``
 - ``bridge``  — JAX params pytree (as numpy) <-> the port's tensors, and
   a numpy draw of a model's params from a seed
-- ``main``    — the standalone CLI path
+- ``main``    — the CLI: ``--queue`` (serving) and standalone
 """
 
 __version__ = "0.1.0"

@@ -234,9 +234,14 @@ def model_config_from_dict(raw: dict, table_scale: int = 1, **overrides) -> Mode
 @dataclasses.dataclass
 class ServingConfig:
     """Load-generation, engine and scheduler knobs (reference serving
-    flags, ``utils/utils.py:44-94``); times in milliseconds. The port reads
-    the query-stream and bucket fields; the engine, scheduler and hot/cold
-    fields wait for the serving engines (ROADMAP.md Queue 1 item 11)."""
+    flags, ``utils/utils.py:44-94``); times in milliseconds.
+
+    One stated difference from the JAX package's: ``engine_backend`` is
+    ``"gpu"`` (engines on the CUDA card, the default; raises without a
+    card), ``"cpu"`` or ``"sim"``. ``"cpu-mp"`` raises
+    ``NotImplementedError`` (ROADMAP.md Queue 1 item 11b) and ``"tpu"`` is
+    refused. The hot/cold refresh fields and ``payload_arena_slots`` are
+    kept for equality; the engines refuse hot/cold (item 10)."""
 
     # Query stream (loadGenerator.py:14-43)
     num_batches: int = 64
@@ -251,7 +256,7 @@ class ServingConfig:
 
     # Engines and their batch buckets
     inference_engines: int = 1
-    engine_backend: str = "tpu"
+    engine_backend: str = "gpu"
     batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
     bucket_policy: str = "static"  # "static" | "auto" (serving/buckets.py)
     max_auto_buckets: int = 6
@@ -294,7 +299,14 @@ class ServingConfig:
     log_file: str | None = None
 
     def __post_init__(self):
-        if self.engine_backend not in ("tpu", "cpu", "cpu-mp", "sim"):
+        if self.engine_backend == "tpu":
+            raise ValueError("engine_backend='tpu' is the JAX package's; the port "
+                             "serves on 'gpu' (the CUDA card), 'cpu' or 'sim'")
+        if self.engine_backend == "cpu-mp":
+            raise NotImplementedError(
+                "engine_backend='cpu-mp' (process engines and their shared-memory "
+                "runtime) is not ported yet (ROADMAP.md Queue 1 item 11b)")
+        if self.engine_backend not in ("gpu", "cpu", "sim"):
             raise ValueError(f"unknown engine_backend {self.engine_backend!r}")
         if self.hotcold_refresh_interval > 0 and self.hotcold_refresh_window < 2:
             raise ValueError(

@@ -9,7 +9,10 @@ the sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import: the CPU-only tests import every module.
 
 A failed build raises; there is no fallback. ``launch`` calls a loaded
-kernel on PyTorch's current stream of a tensor's card.
+kernel on PyTorch's current stream of a tensor's card (the calling
+thread's: a serving engine launches on its own stream). Builds, loads and
+launch counts are safe under threads: one compile a source per process,
+one load, and ``count_launch`` loses no update.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -56,34 +61,68 @@ def _tag(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+_GUARD = threading.Lock()       # guards the two dicts below
+_NAME_LOCKS: dict[str, threading.RLock] = {}  # reentrant: load() holds it around build()
+_LOADED: dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def _name_lock(name: str) -> threading.RLock:
+    with _GUARD:
+        return _NAME_LOCKS.setdefault(name, threading.RLock())
+
+
 def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless a library of the same sources exists."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same sources exists.
+
+    Threads of one process that ask for the same source wait for one
+    compile (a lock a name; different sources build in parallel).
+    Processes each compile into a temporary name of their own, then rename
+    atomically, so no two writers ever share a file."""
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"{name}_{_tag(src)}.so"
     log_path = out.with_suffix(".log")
-    if out.exists():
-        return Build(out, 0.0, log_path.read_text() if log_path.exists() else "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Per-process temporary name, then an atomic rename: concurrent builds
-    # of the same sources never interleave writes into one file.
-    tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {src.name} "
-                           f"(exit {proc.returncode}):\n{log[-4000:]}")
-    log_path.write_text(log)
-    os.replace(tmp, out)
-    return Build(out, seconds, log)
+    with _name_lock(name):
+        if out.exists():
+            return Build(out, 0.0, log_path.read_text() if log_path.exists() else "")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".so.tmp.{os.getpid()}.{threading.get_ident()}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed to build {src.name} "
+                               f"(exit {proc.returncode}):\n{log[-4000:]}")
+        log_path.write_text(log)
+        os.replace(tmp, out)
+        return Build(out, seconds, log)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    return ctypes.CDLL(str(build(name).path))
+def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The library for ``csrc/<name>.cu``, built if needed, loaded once a
+    process and handed out only after ``declare`` has set its functions'
+    ``argtypes`` and ``restype``."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _name_lock(name):
+        if name not in _LOADED:
+            lib = ctypes.CDLL(str(build(name).path))
+            lib.drs_cuda_error_string.restype = ctypes.c_char_p
+            lib.drs_cuda_error_string.argtypes = [ctypes.c_int]
+            declare(lib)
+            _LOADED[name] = lib
+        return _LOADED[name]
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.kernel_launches``, exact under threads (the
+    serving engines launch from several)."""
+    with _COUNT_LOCK:
+        wrapper.kernel_launches += 1
 
 
 def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args):

@@ -148,9 +148,7 @@ def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1P
     return K1Plan(bags_per_warp=G, rows_per_lane=U, row_slots=S, tasks=tasks, grid=grid)
 
 
-@functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("embedding_bag")
+def _declare(lib: ctypes.CDLL):
     lib.drs_embedding_bag.restype = ctypes.c_int
     lib.drs_embedding_bag.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # table, dtype, d
@@ -160,9 +158,10 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
         ctypes.c_void_p,                                    # stream
     ]
-    lib.drs_cuda_error_string.restype = ctypes.c_char_p
-    lib.drs_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    return _build.load("embedding_bag", _declare)
 
 
 def _check(table, offsets, indices, cdt, mask):
@@ -242,7 +241,7 @@ def _launch(table, offsets, indices, mask, cdt, plan: K1Plan) -> torch.Tensor:
                   mask.data_ptr() if mask is not None else None,
                   out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L,
                   plan.bags_per_warp, plan.rows_per_lane, plan.grid)
-    embedding_bag.kernel_launches += 1
+    _build.count_launch(embedding_bag)
     return out
 
 

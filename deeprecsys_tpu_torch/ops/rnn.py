@@ -21,7 +21,6 @@ The init keeps the JAX package's deliberate departure from the reference:
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -68,9 +67,7 @@ def rnn_scan_reference(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Te
     return all_h, h
 
 
-@functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("rnn_scan")
+def _declare(lib: ctypes.CDLL):
     lib.drs_rnn_scan.restype = ctypes.c_int
     lib.drs_rnn_scan.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # xproj, w, b, w dtype
@@ -79,9 +76,10 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                           # T, B, H
         ctypes.c_void_p,                                                    # stream
     ]
-    lib.drs_cuda_error_string.restype = ctypes.c_char_p
-    lib.drs_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    return _build.load("rnn_scan", _declare)
 
 
 def _check(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths):
@@ -157,7 +155,7 @@ def rnn_scan(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Tensor,
                   None if h_init is None else h_init.data_ptr(),
                   None if lens is None else lens.data_ptr(),
                   all_h.data_ptr(), _DTYPE_CODES[out_dtype], T, B, H)
-    rnn_scan.kernel_launches += 1
+    _build.count_launch(rnn_scan)
     return all_h, all_h[-1]
 
 

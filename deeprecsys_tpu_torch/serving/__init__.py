@@ -1,19 +1,32 @@
-"""Serving pieces of the port.
+"""The serving stack of the port.
 
-Query sizes and their split into sub-batches (``load_generator.py``), the
-bucket ladder (``buckets.py``) and the choice of bucket (``pick_bucket``):
-counterparts of ``deeprecsys_tpu/serving/{load_generator,buckets,engine}.py``,
-copied, so that nothing here imports the JAX package or builds its native
-pacer.
+Counterparts of ``deeprecsys_tpu/serving/``: the load generator with
+Poisson arrivals and query splitting (``load_generator.py``), the
+DeepRecSched hill climber (``scheduler.py``), the inference engines
+(``engine.py``: on the CUDA card through K1, and K3 for dien), the
+response aggregator (``metrics.py``) and ``run_serving``
+(``orchestrator.py``); plus the bucket ladder (``buckets.py``), the
+packets and the latency model of the sim engines. Nothing here imports the
+JAX package.
 """
 
 from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
-from deeprecsys_tpu_torch.serving.load_generator import model_batch_sizes, partition_query
+from deeprecsys_tpu_torch.serving.engine import pick_bucket
+from deeprecsys_tpu_torch.serving.load_generator import (
+    LoadGenerator, model_batch_sizes, partition_query)
+from deeprecsys_tpu_torch.serving.orchestrator import ServingResult, run_serving
+from deeprecsys_tpu_torch.serving.packets import ServiceRequest, ServiceResponse
+from deeprecsys_tpu_torch.serving.scheduler import DeepRecScheduler
 
-__all__ = ["model_batch_sizes", "partition_query", "pick_bucket", "resolve_buckets"]
-
-
-def pick_bucket(buckets, batch_size: int) -> int:
-    """Smallest bucket >= batch_size in the ascending ``buckets``; the last
-    bucket caps (``deeprecsys_tpu/serving/engine.py:89``)."""
-    return next((b for b in buckets if b >= batch_size), buckets[-1])
+__all__ = [
+    "ServiceRequest",
+    "ServiceResponse",
+    "DeepRecScheduler",
+    "LoadGenerator",
+    "run_serving",
+    "ServingResult",
+    "model_batch_sizes",
+    "partition_query",
+    "pick_bucket",
+    "resolve_buckets",
+]

@@ -1,0 +1,628 @@
+"""Inference engines.
+
+Counterpart of ``deeprecsys_tpu/serving/engine.py`` (reference
+``inferenceEngine.py``: one process an engine, a feed thread and a thread
+that stamps ``inference_end_time`` when the net finishes;
+``accelInferenceEngine.py``: a latency-table lookup and a sleep).
+
+Engines are threads of one process sharing the card, as in the JAX
+package. ``ComputeEngine`` serves every request at a static batch bucket
+(the smallest of the ladder that holds it) from rows generated once at the
+largest bucket and sliced, the reference's "pre-generate at max size then
+slice" (``inferenceEngine.py:200-206``). Every bucket runs once before the
+engine signals ready: the counterpart of the JAX package's compile a
+bucket, which here builds and loads the kernels, fills
+``k1_launch_plan``'s cache and the caching allocator. Two threads an
+engine: the serve thread assembles and dispatches, the completion thread
+waits for the scores and answers. ``SimEngine`` sleeps a
+``LatencyModel``'s time instead of computing.
+
+On a CUDA card, each engine:
+
+- makes its own CUDA stream in its own thread and enters
+  ``torch.inference_mode()`` and ``torch.cuda.stream`` there (both are
+  thread-local), so K1 and K3, which launch on the calling thread's current
+  stream, land on the engine's stream;
+- copies each execution's rows from pinned host memory with
+  ``non_blocking=True``: the pre-generated rows of each bucket are pinned
+  once, and a payload group is assembled into one of ``IN_FLIGHT`` pinned
+  staging slots, which is reused only after its execution was answered;
+- copies the scores back with ``non_blocking=True`` into the slot's pinned
+  buffer and records an event on its stream; the completion thread waits
+  on that event (the GIL released), where a device error surfaces and is
+  answered with ``ERR_READBACK``.
+
+A request's payload is checked on the host before it reaches the card: a
+wrong shape, or an id outside ``[0, rows[t])``, is answered with
+``ERR_PAYLOAD``. K1 does not check ids; the JAX package's gather fills an
+out-of-range row with NaN instead (ROADMAP.md Queue 3).
+
+Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
+hot/cold lookups and their refresh (item 10), multi-device meshes (item
+12), checkpoint reload and the cpu-mp control ring and payload arena (item
+11b). There is no TPU layout negotiation to port.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from deeprecsys_tpu_torch import bridge
+from deeprecsys_tpu_torch.config import ModelConfig, ServingConfig
+from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.models import get_model
+from deeprecsys_tpu_torch.models.base import Batch, compute_dtype_of
+from deeprecsys_tpu_torch.serving.latency_model import LatencyModel
+from deeprecsys_tpu_torch.serving.packets import (
+    ERR_DEADLINE,
+    ERR_OVER_LADDER,
+    ERR_PAYLOAD,
+    ERR_READBACK,
+    ServiceRequest,
+    ServiceResponse,
+)
+from deeprecsys_tpu_torch.utils.devices import resolve_device
+
+_SENTINEL = None
+# Executions an engine keeps in flight: its pinned staging slots. The serve
+# thread waits for a free slot when all are taken.
+IN_FLIGHT = 4
+
+
+def pick_bucket(buckets, batch_size: int) -> int:
+    """Smallest bucket >= batch_size in the ascending ``buckets``; the last
+    bucket caps."""
+    return next((b for b in buckets if b >= batch_size), buckets[-1])
+
+
+class _Slot:
+    """Host buffers of one in-flight execution, at the largest bucket: a
+    payload group's assembled rows and the landing place of its scores.
+    Pinned on a card, so that both copies run asynchronously."""
+
+    def __init__(self, rows: int, cfg: ModelConfig, masked: bool, pin: bool):
+        T, L = cfg.num_tables, cfg.num_indices_per_lookup
+
+        def buf(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=pin)
+
+        self.indices = buf((rows, T, L), torch.int32)
+        self.dense = buf((rows, cfg.dense_dim), torch.float32) if cfg.dense_dim else None
+        self.mask = buf((rows, T, L), torch.bool) if masked else None
+        self.out = buf((rows, cfg.out_dim), compute_dtype_of(cfg))
+
+
+class ComputeEngine(threading.Thread):
+    """An inference engine on the CUDA card (or on the CPU)."""
+
+    def __init__(
+        self,
+        engine_id: int,
+        model_cfg: ModelConfig,
+        serving_cfg: ServingConfig,
+        request_q: "queue.Queue",
+        response_q: "queue.Queue",
+        ready_q: "queue.Queue",
+        device=None,
+        params=None,
+        seed: int = 0,
+        mesh=None,
+        buckets=None,
+        strict_buckets: bool = True,
+        control_q=None,
+        arena=None,
+    ):
+        super().__init__(name=f"engine-{engine_id}", daemon=True)
+        if mesh is not None:
+            raise NotImplementedError("multi-device serving (mesh=) is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 12)")
+        if control_q is not None or arena is not None:
+            raise NotImplementedError("the cpu-mp control ring and payload arena are not "
+                                      "ported yet (ROADMAP.md Queue 1 item 11b)")
+        if (model_cfg.embedding_impl in ("hotcold", "auto")
+                or serving_cfg.hotcold_refresh_interval > 0):
+            raise NotImplementedError(
+                f"hot/cold serving (embedding_impl={model_cfg.embedding_impl!r}, "
+                f"hotcold_refresh_interval={serving_cfg.hotcold_refresh_interval}) is "
+                "not ported yet (ROADMAP.md Queue 1 item 10)")
+        self.engine_id = engine_id
+        self.model_cfg = model_cfg
+        self.serving_cfg = serving_cfg
+        self.request_q = request_q
+        self.response_q = response_q
+        self.ready_q = ready_q
+        # Raises when a card is asked for and there is none: never the CPU.
+        self.device = resolve_device("cuda" if device is None else str(device))
+        self.params = params
+        self.seed = seed
+        if buckets is None:
+            from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
+
+            buckets = resolve_buckets(serving_cfg)
+        self.buckets = tuple(
+            b for b in sorted(buckets) if b <= serving_cfg.max_mini_batch_size
+        ) or (serving_cfg.max_mini_batch_size,)
+        self.model = None
+        self._rows = np.asarray(model_cfg.scaled_rows, np.int64)[None, :, None]
+        self._host_data: dict[int, Batch] = {}  # bucket -> host rows (pinned on a card)
+        self._pending: "queue.Queue" = queue.Queue()
+        self._free_slots: "queue.Queue" = queue.Queue()
+        self._stream = None
+        self.error: Exception | None = None
+        # Observability, single writer each: executions per bucket, warm-up
+        # executions, coalesced, clamped, rejected and expired requests.
+        self.bucket_counts: dict[int, int] = {}
+        self.warmup_executions = 0
+        self.coalesced_requests = 0
+        self.clamped_requests = 0
+        # Over-ladder handling: strict (the default for direct construction)
+        # answers ERR_OVER_LADDER instead of undercomputing at the cap
+        # bucket; serving pools pass False and count the clamp.
+        self.strict_buckets = strict_buckets
+        self.rejected_requests = 0   # strict over-ladder and payload rejections
+        self.expired_requests = 0    # deadline-expired, dropped before dispatch
+        self._clamp_warned = False
+
+    # -- setup ---------------------------------------------------------
+
+    def _setup(self):
+        """Model, params, the pinned rows of every bucket and the staging
+        slots, then one execution a bucket (and its masked twin with
+        ``accept_ragged``). Runs in the engine's thread, on its stream."""
+        cfg = self.model_cfg
+        self.model = get_model(cfg, self.device)
+        if self.params is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            self.params = self.model.init(gen)
+        else:
+            self.params = bridge.tree_map(lambda t: t.to(self.device), self.params)
+        if self.device.type == "cuda":
+            # Params and offsets were made on other streams or threads.
+            torch.cuda.synchronize(self.device)
+        pin = self.device.type == "cuda"
+        full = RecDataGenerator(cfg, seed=self.seed + 17,
+                                data_generation=self.serving_cfg.data_generation
+                                ).generate_batch(max(self.buckets))
+
+        def host(a):
+            if a is None:
+                return None
+            t = torch.from_numpy(a)
+            return t.pin_memory() if pin else t
+
+        dense, indices = host(full.dense), host(full.indices)
+        ragged = self.serving_cfg.accept_ragged
+        for _ in range(IN_FLIGHT):
+            self._free_slots.put(_Slot(max(self.buckets), cfg, ragged, pin))
+        all_true = None
+        if ragged:
+            all_true = torch.ones(indices.shape, dtype=torch.bool, pin_memory=pin)
+        for b in self.buckets:
+            self._host_data[b] = Batch(dense=None if dense is None else dense[:b],
+                                       indices=indices[:b])
+            self._warm(self._host_data[b], b)
+            if ragged:
+                # The masked twin: a ragged request runs K1 with a mask.
+                self._warm(self._host_data[b]._replace(mask=all_true[:b]), b)
+
+    def _warm(self, host: Batch, bucket: int):
+        slot = self._free_slots.get()
+        event = self._dispatch(host, bucket, slot)
+        if event is not None:
+            event.synchronize()
+        self._free_slots.put(slot)
+        self.warmup_executions += 1
+
+    def _payload_ok(self, r: ServiceRequest) -> bool:
+        """True iff a request's payload (if any) matches the model's inputs
+        (indices (batch_size, T, L) of integers in [0, rows[t]), dense
+        present iff the model takes dense features, a mask only on an
+        ``accept_ragged`` engine and shaped like the indices)."""
+        p = r.payload
+        if p is None:
+            return True
+        base = self._host_data[self.buckets[0]]
+        T, L = base.indices.shape[1:]
+        idx = p.indices
+        if getattr(idx, "shape", None) != (r.batch_size, T, L):
+            return False
+        idx = np.asarray(idx)
+        if not np.issubdtype(idx.dtype, np.integer) or (
+                idx.size and (idx.min() < 0 or (idx >= self._rows).any())):
+            return False  # K1 would read another table's row or past the table
+        if (base.dense is None) != (p.dense is None):
+            return False
+        if p.dense is not None and p.dense.shape != (r.batch_size, base.dense.shape[1]):
+            return False
+        if p.mask is not None:
+            if not self.serving_cfg.accept_ragged:
+                return False
+            if p.mask.shape != (r.batch_size, T, L):
+                return False
+        return True
+
+    def _assemble_host(self, group, bucket: int, slot: _Slot) -> Batch:
+        """Bucket-size host rows for a group that holds client payloads,
+        written into ``slot``: each request's rows at its cumulative offset
+        (the completion thread slices scores at the same offsets); requests
+        without a payload and the pad up to ``bucket`` take the
+        pre-generated rows at the same positions. A masked member gives the
+        whole execution a mask, all-true for the other rows."""
+        base = self._host_data[bucket]
+        any_mask = any(r.payload is not None and r.payload.mask is not None
+                       for r in group)
+        idx = slot.indices[:bucket].numpy()
+        dense = None if slot.dense is None else slot.dense[:bucket].numpy()
+        mask = slot.mask[:bucket].numpy() if any_mask else None
+        base_idx = base.indices.numpy()
+        base_dense = None if base.dense is None else base.dense.numpy()
+        off = 0
+        for r in group:
+            end = off + r.batch_size
+            p = r.payload
+            idx[off:end] = base_idx[off:end] if p is None else p.indices
+            if dense is not None:
+                dense[off:end] = base_dense[off:end] if p is None else p.dense
+            if mask is not None:
+                mask[off:end] = True if p is None or p.mask is None else p.mask
+            off = end
+        if off < bucket:  # pad to the bucket
+            idx[off:] = base_idx[off:bucket]
+            if dense is not None:
+                dense[off:] = base_dense[off:bucket]
+            if mask is not None:
+                mask[off:] = True
+        return Batch(dense=None if dense is None else slot.dense[:bucket],
+                     indices=slot.indices[:bucket],
+                     mask=slot.mask[:bucket] if any_mask else None)
+
+    def _dispatch(self, host: Batch, bucket: int, slot: _Slot):
+        """Copy ``host`` in, run the model, copy the scores into ``slot``;
+        returns the event that marks the scores readable (None on the CPU,
+        where every step is synchronous)."""
+        on_card = self.device.type == "cuda"
+
+        def to_device(t):
+            return None if t is None else t.to(self.device, non_blocking=on_card)
+
+        batch = Batch(dense=to_device(host.dense), indices=to_device(host.indices),
+                      mask=to_device(host.mask))
+        out = self.model.apply(self.params, batch)
+        slot.out[:bucket].copy_(out, non_blocking=on_card)
+        if not on_card:
+            return None
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return event
+
+    # -- run loop ------------------------------------------------------
+
+    def run(self):
+        with contextlib.ExitStack() as stack:
+            try:
+                stack.enter_context(torch.inference_mode())
+                if self.device.type == "cuda":
+                    stack.enter_context(torch.cuda.device(self.device))
+                    self._stream = torch.cuda.Stream(self.device)
+                    stack.enter_context(torch.cuda.stream(self._stream))
+                self._setup()
+            except Exception as e:  # surface engine failures instead of hanging
+                self.error = e
+                self.ready_q.put(e)
+                self.response_q.put(_SENTINEL)
+                return
+            self.ready_q.put(self.engine_id)
+
+            completer = threading.Thread(target=self._completion_loop,
+                                         name=f"engine-{self.engine_id}-completion",
+                                         daemon=True)
+            completer.start()
+            try:
+                self._serve_loop()
+            except Exception as e:
+                # A mid-run crash must not deadlock the fabric: record it,
+                # then sink requests until the shutdown sentinel so the load
+                # generator can finish; the dropped requests show as lost.
+                self.error = e
+                print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} "
+                      f"crashed mid-run ({e!r}); sinking its queue until "
+                      f"shutdown", flush=True)
+                self._sink_requests()
+            self._pending.put(_SENTINEL)
+            completer.join()
+        self.response_q.put(_SENTINEL)
+
+    def _sink_requests(self):
+        while self.request_q.get() is not _SENTINEL:
+            pass
+
+    def _emit_error(self, request: ServiceRequest, code: int, t: float):
+        """Answer one request with an error response; no device time spent."""
+        now = time.time()
+        self.response_q.put(ServiceResponse(
+            consumer_id=self.engine_id,
+            epoch=request.epoch,
+            batch_id=request.batch_id,
+            batch_size=request.batch_size,
+            arrival_time=request.arrival_time,
+            queue_start_time=t,
+            queue_end_time=now,
+            inference_end_time=now,
+            out_batch_size=0,
+            sub_id=request.sub_id,
+            total_sub_batches=request.total_sub_batches,
+            exp_packet=request.exp_packet,
+            error_code=code,
+        ))
+
+    def request_reload(self, path: str):
+        raise NotImplementedError("checkpoint reload is not ported yet (ROADMAP.md "
+                                  "Queue 1 item 11b; it needs item 9's checkpoints)")
+
+    def _serve_loop(self):
+        cfg = self.serving_cfg
+        done = False
+        carry = None  # request drained during coalescing that didn't fit
+        while not done:
+            request = carry if carry is not None else self.request_q.get()
+            carry = None
+            if request is _SENTINEL:
+                break
+            group = [request]
+            if cfg.coalesce_requests:
+                # Dynamic batching: drain waiting requests into one bucket
+                # execution. A drained request that would overflow the
+                # largest bucket is carried into the next execution.
+                total = request.batch_size
+                while len(group) < cfg.max_coalesce and total < self.buckets[-1]:
+                    try:
+                        nxt = self.request_q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if nxt is _SENTINEL:
+                        # The sentinel belongs to whichever engine blocks on
+                        # the queue next: put it back.
+                        self.request_q.put(_SENTINEL)
+                        done = True
+                        break
+                    if total + nxt.batch_size > self.buckets[-1]:
+                        carry = nxt
+                        break
+                    group.append(nxt)
+                    total += nxt.batch_size
+            queue_start = time.time()
+            # Deadline admission and payload checks, before any device work.
+            live = []
+            for r in group:
+                if r.deadline and queue_start > r.deadline:
+                    self.expired_requests += 1
+                    self._emit_error(r, ERR_DEADLINE, queue_start)
+                elif not self._payload_ok(r):
+                    self.rejected_requests += 1
+                    self._emit_error(r, ERR_PAYLOAD, queue_start)
+                else:
+                    live.append(r)
+            group = live
+            if not group:
+                continue
+            total_rows = sum(r.batch_size for r in group)
+            bucket = pick_bucket(self.buckets, total_rows)
+            if bucket < total_rows:
+                if self.strict_buckets:
+                    self.rejected_requests += len(group)
+                    for r in group:
+                        self._emit_error(r, ERR_OVER_LADDER, queue_start)
+                    continue
+                # Payload requests can never be clamped (their scores must
+                # match their rows 1:1); only load-modeling members are.
+                keep = []
+                for r in group:
+                    if r.payload is not None:
+                        self.rejected_requests += 1
+                        self._emit_error(r, ERR_OVER_LADDER, queue_start)
+                    else:
+                        keep.append(r)
+                group = keep
+                if not group:
+                    continue
+                self.clamped_requests += len(group)
+                if not self._clamp_warned:
+                    self._clamp_warned = True
+                    print(f"[deeprecsys_tpu_torch] WARNING: engine "
+                          f"{self.engine_id} clamped a {total_rows}-row "
+                          f"request to its largest bucket {bucket}; extend "
+                          f"batch_buckets or use bucket_policy=auto", flush=True)
+            self.bucket_counts[bucket] = self.bucket_counts.get(bucket, 0) + 1
+            if len(group) > 1:
+                self.coalesced_requests += len(group)
+            slot = self._free_slots.get()
+            if any(r.payload is not None for r in group):
+                host = self._assemble_host(group, bucket, slot)
+            else:
+                host = self._host_data[bucket]
+            event = self._dispatch(host, bucket, slot)
+            queue_end = time.time()
+            self._pending.put((group, slot, bucket, event, queue_start, queue_end))
+
+    def _completion_loop(self):
+        with torch.inference_mode():
+            while True:
+                item = self._pending.get()
+                if item is _SENTINEL:
+                    return
+                self._complete(*item)
+
+    def _complete(self, group, slot: _Slot, bucket: int, event, queue_start: float,
+                  queue_end: float):
+        # A response is complete when the client could read its scores (the
+        # reference fetches the output blob, inferenceEngine.py:52-58): wait
+        # for the copy back, the place where a device error surfaces.
+        try:
+            try:
+                if event is not None:
+                    event.synchronize()
+                scores = slot.out[:bucket].to(torch.float32, copy=True).numpy()
+            finally:
+                self._free_slots.put(slot)
+        except Exception as e:
+            if self.error is None:
+                self.error = e
+            print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} "
+                  f"readback failed ({e!r}); answering {len(group)} "
+                  f"request(s) with ERR_READBACK", flush=True)
+            for request in group:
+                self._emit_error(request, ERR_READBACK, queue_start)
+            return
+        end = time.time()
+        off = 0  # cumulative row offset, as in _assemble_host
+        for request in group:
+            # A singleton owns the whole padded execution; coalesced members
+            # report their own rows.
+            out_rows = int(scores.shape[0]) if len(group) == 1 else request.batch_size
+            own_scores = (scores[off:off + request.batch_size]
+                          if request.payload is not None else None)
+            off += request.batch_size
+            self.response_q.put(ServiceResponse(
+                consumer_id=self.engine_id,
+                epoch=request.epoch,
+                batch_id=request.batch_id,
+                batch_size=request.batch_size,
+                arrival_time=request.arrival_time,
+                queue_start_time=queue_start,
+                queue_end_time=queue_end,
+                inference_end_time=end,
+                out_batch_size=out_rows,
+                sub_id=request.sub_id,
+                total_sub_batches=request.total_sub_batches,
+                exp_packet=request.exp_packet,
+                scores=own_scores,
+            ))
+
+
+class SimEngine(threading.Thread):
+    """Latency-model engine: sleeps instead of computing (reference
+    ``accelInferenceEngine.py:44-84``); the serving tests' fake."""
+
+    def __init__(
+        self,
+        engine_id: int,
+        model_cfg: ModelConfig,
+        serving_cfg: ServingConfig,
+        request_q: "queue.Queue",
+        response_q: "queue.Queue",
+        ready_q: "queue.Queue",
+        latency_model: LatencyModel,
+    ):
+        super().__init__(name=f"sim-engine-{engine_id}", daemon=True)
+        self.engine_id = engine_id
+        self.request_q = request_q
+        self.response_q = response_q
+        self.ready_q = ready_q
+        self.latency_model = latency_model
+        self.expired_requests = 0
+
+    def run(self):
+        self.ready_q.put(self.engine_id)
+        while True:
+            request = self.request_q.get()
+            if request is _SENTINEL:
+                break
+            queue_start = time.time()
+            if request.deadline and queue_start > request.deadline:
+                self.expired_requests += 1
+                self.response_q.put(ServiceResponse(
+                    consumer_id=self.engine_id, epoch=request.epoch,
+                    batch_id=request.batch_id, batch_size=request.batch_size,
+                    arrival_time=request.arrival_time,
+                    queue_start_time=queue_start, queue_end_time=queue_start,
+                    inference_end_time=queue_start, out_batch_size=0,
+                    sub_id=request.sub_id,
+                    total_sub_batches=request.total_sub_batches,
+                    exp_packet=request.exp_packet, error_code=ERR_DEADLINE))
+                continue
+            # The full per-request latency, slept serially (the JAX package
+            # measured this serial model as the faithful one).
+            time.sleep(self.latency_model.predict_ms(request.batch_size) / 1000.0)
+            now = time.time()
+            self.response_q.put(ServiceResponse(
+                consumer_id=self.engine_id,
+                epoch=request.epoch,
+                batch_id=request.batch_id,
+                batch_size=request.batch_size,
+                arrival_time=request.arrival_time,
+                queue_start_time=queue_start,
+                queue_end_time=now,
+                inference_end_time=now,
+                out_batch_size=request.batch_size,
+                sub_id=request.sub_id,
+                total_sub_batches=request.total_sub_batches,
+                exp_packet=request.exp_packet,
+            ))
+        self.response_q.put(_SENTINEL)
+
+
+def build_engine_pool(
+    model_cfg,
+    cfg,
+    request_q,
+    accel_request_q,
+    response_q,
+    ready_q,
+    latency_model=None,
+    accel_latency_model=None,
+    params=None,
+    mesh=None,
+    id_base: int = 0,
+):
+    """The thread engines of a ServingConfig: ``cfg.inference_engines``
+    engines on the backend's device ("gpu": the card, "cpu", or "sim":
+    ``SimEngine``s over ``latency_model``), plus with ``model_accel`` one
+    offload engine for whole big queries (a ``SimEngine`` over
+    ``accel_latency_model`` if given, else a ``ComputeEngine`` on the card,
+    as the JAX package puts it on its accelerator). Each compute engine
+    draws its own params from ``cfg.seed + engine_id`` unless ``params`` is
+    given. Returns (engines, total_engine_count)."""
+    from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
+
+    # One ladder for the pool (autotuning samples the size distribution).
+    buckets = resolve_buckets(cfg)
+    device = "cpu" if cfg.engine_backend == "cpu" else "cuda"
+    engines = []
+    for i in range(cfg.inference_engines):
+        eid = id_base + i
+        if cfg.engine_backend == "sim":
+            if latency_model is None:
+                raise ValueError("sim backend requires a latency_model")
+            engines.append(SimEngine(eid, model_cfg, cfg, request_q, response_q,
+                                     ready_q, latency_model))
+        else:
+            engines.append(
+                ComputeEngine(eid, model_cfg, cfg, request_q, response_q, ready_q,
+                              device=device, params=params, seed=cfg.seed + eid,
+                              mesh=mesh, buckets=buckets, strict_buckets=False))
+    total = cfg.inference_engines
+    if cfg.model_accel:
+        aid = id_base + total
+        if accel_latency_model is not None:
+            engines.append(SimEngine(aid, model_cfg, cfg, accel_request_q,
+                                     response_q, ready_q, accel_latency_model))
+        elif cfg.engine_backend == "sim":
+            # A hardware-free run stays hardware-free.
+            raise ValueError(
+                "sim backend with model_accel requires an "
+                "accel_latency_model (the offload engine would otherwise "
+                "run on real hardware)")
+        else:
+            engines.append(
+                ComputeEngine(aid, model_cfg, cfg, accel_request_q, response_q,
+                              ready_q, device="cuda", params=params,
+                              seed=cfg.seed + aid, mesh=mesh, buckets=buckets,
+                              strict_buckets=False))
+        total += 1
+    return engines, total

@@ -1,4 +1,6 @@
-"""The port's standalone CLI path, on the CPU at a small size."""
+"""The port's CLI, standalone and --queue, on the CPU at a small size."""
+
+import json
 
 import pytest
 import torch
@@ -38,7 +40,47 @@ def test_cuda_without_a_card_raises():
         main(ARGS + ["--device", "cuda"])
 
 
-@pytest.mark.parametrize("flag", [["--queue"], ["--serve"], ["--checkpoint", "x"]])
+@pytest.mark.parametrize("flag", [["--queue", "--engine_backend", "sim"], ["--serve"],
+                                  ["--checkpoint", "x"]])
 def test_unported_modes_raise(flag):
+    """--queue itself is ported; its sim backend waits for the card's own
+    latency ladders."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(ARGS + ["--device", "cpu"] + flag)
+
+
+QUEUE = ["--model", "rm1", "--table_scale", "2000", "--queue", "--num_batches", "12",
+         "--batch_size_distribution", "normal", "--avg_mini_batch_size", "40",
+         "--var_mini_batch_size", "8", "--sub_task_batch_size", "16", "--avg_arrival_rate", "1"]
+
+
+def test_queue_on_the_cpu_prints_the_reference_report(capsys):
+    res = main(QUEUE + ["--engine_backend", "cpu", "--inference_engines", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-4].startswith("Measured QPS: ")
+    assert out[-3].startswith("Measured p95 tail-latency: ") and out[-3].endswith(" ms")
+    assert out[-2].startswith("Measured p99 tail-latency: ") and out[-2].endswith(" ms")
+    report = json.loads(out[-1])
+    assert report["cpu_requests"] == 12 and report["error_responses"] == 0
+    assert report["num_responses"] == report["cpu_sub_requests"] == res.cpu_sub_requests
+    assert res.warmup_executions == 2 * 11  # two engines, the static ladder up to 1024
+
+
+def test_queue_on_the_card_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        main(QUEUE)  # --engine_backend gpu is the default
+
+
+def test_queue_warns_of_several_engines_on_the_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        main(QUEUE + ["--inference_engines", "4"])
+    assert "WARNING: 4 engine threads share one interpreter" in capsys.readouterr().out
+
+
+def test_queue_cpu_mp_backend_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11b"):
+        main(QUEUE + ["--engine_backend", "cpu-mp"])

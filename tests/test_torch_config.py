@@ -12,10 +12,13 @@ from deeprecsys_tpu import config as jax_config
 from deeprecsys_tpu import main as jax_main
 from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.serving import buckets as jax_buckets
+from deeprecsys_tpu.serving import latency_model as jax_lm
 from deeprecsys_tpu.serving import load_generator as jax_lg
+from deeprecsys_tpu.serving import metrics as jax_metrics
+from deeprecsys_tpu.serving import packets as jax_packets
 from deeprecsys_tpu_torch import config, zoo
 from deeprecsys_tpu_torch import main as port_main
-from deeprecsys_tpu_torch.serving import buckets, load_generator
+from deeprecsys_tpu_torch.serving import buckets, latency_model, load_generator, metrics, packets
 
 DERIVED = ("num_tables", "scaled_rows", "table_offsets", "total_rows", "resolved_table_pack",
            "dense_dim", "num_fea", "top_in_dim", "ln_top", "out_dim", "behavior_table_ids")
@@ -55,13 +58,36 @@ def test_zoo_overrides_equal_jax(name, overrides):
 
 
 def test_dataclass_fields_and_defaults_equal_jax():
-    for cls in ("ModelConfig", "ServingConfig"):
-        got = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(config, cls))]
-        want = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(jax_config, cls))]
-        assert got == want, cls
-    assert dataclasses.asdict(config.ServingConfig()) == \
-        dataclasses.asdict(jax_config.ServingConfig())
+    """Equal but for the one stated difference: ServingConfig's
+    engine_backend defaults to the card ("gpu") where the JAX package's
+    defaults to its TPU."""
+    def fields(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(config.ModelConfig) == fields(jax_config.ModelConfig)
+    got, want = fields(config.ServingConfig), fields(jax_config.ServingConfig)
+    assert [f for f in got if f[0] != "engine_backend"] == \
+        [f for f in want if f[0] != "engine_backend"]
+    assert ("engine_backend", "str", "gpu") in got and ("engine_backend", "str", "tpu") in want
+    port = dataclasses.asdict(config.ServingConfig())
+    jax = dataclasses.asdict(jax_config.ServingConfig())
+    assert (port.pop("engine_backend"), jax.pop("engine_backend")) == ("gpu", "tpu")
+    assert port == jax
     _assert_same_config(config.ModelConfig(), jax_config.ModelConfig())
+
+
+def test_engine_backend_is_the_one_stated_difference():
+    """The port serves on "gpu", "cpu" or "sim"; "cpu-mp" is not ported
+    yet and says where it will be; "tpu" is refused. The JAX package takes
+    "tpu", "cpu", "cpu-mp" and "sim"."""
+    for backend in ("gpu", "cpu", "sim"):
+        assert config.ServingConfig(engine_backend=backend).engine_backend == backend
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11b"):
+        config.ServingConfig(engine_backend="cpu-mp")
+    with pytest.raises(ValueError, match="port serves on 'gpu'"):
+        config.ServingConfig(engine_backend="tpu")
+    for backend in ("tpu", "cpu", "cpu-mp", "sim"):
+        jax_config.ServingConfig(engine_backend=backend)
 
 
 @pytest.mark.parametrize("kw", [
@@ -78,7 +104,7 @@ def test_model_config_validation_equals_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw", [{"engine_backend": "gpu"}, {"payload_arena_slots": 0},
+@pytest.mark.parametrize("kw", [{"engine_backend": "bogus"}, {"payload_arena_slots": 0},
                                 {"hotcold_refresh_interval": 4, "hotcold_refresh_window": 1}])
 def test_serving_config_validation_equals_jax(kw):
     with pytest.raises(ValueError) as want:
@@ -160,7 +186,105 @@ def test_parser_defaults_equal_jax():
     port = vars(port_main.build_parser().parse_args([]))
     want = vars(jax_main.build_parser().parse_args([]))
     assert port.pop("device") == "cuda"
+    assert (port.pop("engine_backend"), want["engine_backend"]) == ("gpu", "tpu")
     assert {k: want[k] for k in port} == port
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--queue", "--inference_engines", "4", "--batch_size_distribution", "normal",
+     "--avg_mini_batch_size", "165", "--var_mini_batch_size", "16", "--sub_task_batch_size",
+     "32", "--avg_arrival_rate", "5", "--target_latency", "20", "--tune_batch_qps",
+     "--batch_configs", "32-64", "--arr_steps", "5", "--sched_timeout", "4",
+     "--numpy_rand_seed", "7", "--bucket_policy", "auto", "--max_auto_buckets", "4"],
+    ["--model_accel", "--accel_request_size_thres", "300", "--tune_accel_qps",
+     "--accel_configs", "200-400", "--coalesce_requests", "--max_coalesce", "3",
+     "--accept_ragged", "--hotcold_refresh_interval", "2",
+     "--stable_region", "0.2", "--min_arr_range", "2",
+     "--max_arr_range", "50", "--req_granularity", "16", "--nepochs", "3",
+     "--num_batches", "11", "--max_mini_batch_size", "512", "--debug_mode",
+     "--log_file", "x.log", "--batch_dist_file", "d.txt"],
+])
+def test_serving_config_from_args_equals_jax(argv):
+    """The same ServingConfig from the same flags, but the engine backend
+    (each package's default)."""
+    got = port_main.serving_config_from_args(port_main.build_parser().parse_args(argv))
+    want = jax_main.serving_config_from_args(jax_main.build_parser().parse_args(argv))
+    got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+    assert (got.pop("engine_backend"), want.pop("engine_backend")) == ("gpu", "tpu")
+    assert got == want
+
+
+def test_packets_equal_jax():
+    """Fields, defaults, error codes and messages of the packet copies."""
+    for cls in ("ServiceRequest", "ServiceResponse"):
+        got = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(packets, cls))]
+        want = [(f.name, f.type, f.default)
+                for f in dataclasses.fields(getattr(jax_packets, cls))]
+        assert got == want, cls
+    names = [n for n in dir(jax_packets) if n.startswith("ERR_")] + ["RELOAD_ACK_BATCH_ID"]
+    assert [getattr(packets, n) for n in names] == [getattr(jax_packets, n) for n in names]
+    assert packets.ERROR_MESSAGES == jax_packets.ERROR_MESSAGES
+    for code in (0, 3, 5, 77):
+        assert packets.ServiceResponse(error_code=code, arrival_time=1.0,
+                                       inference_end_time=3.5).error_message() == \
+            jax_packets.ServiceResponse(error_code=code).error_message()
+    assert packets.ServiceResponse(arrival_time=1.0, inference_end_time=3.5).latency() == 2.5
+
+
+def test_response_aggregator_equals_jax():
+    """The same responses, in the same order, give both aggregators the same
+    windowed p95 feed, latencies, error counts, QPS and tails."""
+    rng = np.random.default_rng(3)
+    port, jax = metrics.ResponseAggregator(4), jax_metrics.ResponseAggregator(4)
+    feed_port, feed_jax = [], []
+    events = []
+    for q in range(60):
+        parts = int(rng.integers(1, 5))
+        arrival = q * 0.01
+        for sub in range(parts):
+            events.append(dict(epoch=q % 2, batch_id=q, sub_id=sub, total_sub_batches=parts,
+                               arrival_time=arrival + 1e-4 * sub,
+                               inference_end_time=arrival + float(rng.uniform(0.001, 0.05)),
+                               exp_packet=q < 8, error_code=int(rng.random() < 0.05) * 3))
+    for i in rng.permutation(len(events)):
+        feed_port.append(port.add(packets.ServiceResponse(**events[i])))
+        feed_jax.append(jax.add(jax_packets.ServiceResponse(**events[i])))
+    assert feed_port == feed_jax and any(f is not None for f in feed_port)
+    assert port.latencies == jax.latencies and port.final_latencies == jax.final_latencies
+    assert port.error_counts == jax.error_counts
+    assert port.measured_qps() == jax.measured_qps()
+    for pct in (50, 95, 99):
+        assert port.tail_latency_ms(pct) == jax.tail_latency_ms(pct)
+    assert np.isnan(metrics.ResponseAggregator().tail_latency_ms(95))
+
+
+@pytest.mark.parametrize("kind", ["plain", "overhead", "overlap", "single"])
+def test_latency_model_equals_jax(kind, tmp_path):
+    """Predictions on a grid of batch sizes (clamp, exact hits,
+    interpolation, extrapolation), the JSON round-trip and the reference
+    raw-file reader."""
+    ladder = ([1, 4, 16, 64, 256], [0.2, 0.5, 1.1, 2.0, 5.5]) if kind != "single" \
+        else ([8], [1.5])
+    port, jax = latency_model.LatencyModel(*ladder), jax_lm.LatencyModel(*ladder)
+    if kind == "overhead":
+        port, jax = port.with_overhead(0.3, 0.01), jax.with_overhead(0.3, 0.01)
+    elif kind == "overlap":
+        port, jax = port.with_overlap(0.3, 0.02), jax.with_overlap(0.3, 0.02)
+    for b in (0, 1, 3, 4, 7, 16, 100, 256, 1000, 4096):
+        assert port.predict_ms(b) == jax.predict_ms(b), b
+    assert port.to_json() == jax.to_json()
+    back = latency_model.LatencyModel.from_json(port.to_json())
+    assert [back.predict_ms(b) for b in (5, 500)] == [jax.predict_ms(b) for b in (5, 500)]
+    path = tmp_path / "lm.json"
+    port.save(path)
+    assert latency_model.LatencyModel.load(path).to_json() == jax_lm.LatencyModel.load(path).to_json()
+    raw = tmp_path / "results.txt"
+    raw.write_text("".join(f"x *** {v} ms\n" for v in (1, 2, 3, 4, 5, 6.5, 1, 2, 3, 4, 5, 9.0)))
+    assert latency_model.LatencyModel.from_reference_raw(raw).to_json() == \
+        jax_lm.LatencyModel.from_reference_raw(raw).to_json()
+    with pytest.raises(ValueError):
+        latency_model.LatencyModel([1, 2], [1.0])
 
 
 @pytest.mark.parametrize("argv", [

@@ -19,6 +19,7 @@ MODULES = [
     "deeprecsys_tpu_torch.bridge",
     "deeprecsys_tpu_torch.main",
     "deeprecsys_tpu_torch.kernel_bench",
+    "deeprecsys_tpu_torch.engine_bench",
     "deeprecsys_tpu_torch.data",
     "deeprecsys_tpu_torch.data.generator",
     "deeprecsys_tpu_torch.models",
@@ -37,7 +38,13 @@ MODULES = [
     "deeprecsys_tpu_torch.ops.rnn",
     "deeprecsys_tpu_torch.serving",
     "deeprecsys_tpu_torch.serving.buckets",
+    "deeprecsys_tpu_torch.serving.engine",
+    "deeprecsys_tpu_torch.serving.latency_model",
     "deeprecsys_tpu_torch.serving.load_generator",
+    "deeprecsys_tpu_torch.serving.metrics",
+    "deeprecsys_tpu_torch.serving.orchestrator",
+    "deeprecsys_tpu_torch.serving.packets",
+    "deeprecsys_tpu_torch.serving.scheduler",
     "deeprecsys_tpu_torch.utils.devices",
     "chip_smoke",
 ]

@@ -61,6 +61,33 @@ def test_kernel_matches_reference(cuda, table_dt, compute_dt, d, masked):
     assert bool(((got.float() - want.float()).abs() <= tol).all())
 
 
+def test_kernel_on_a_side_stream_follows_the_copy_of_its_ids(cuda):
+    """K1 launches on the calling thread's current stream, as a serving
+    engine's stream: under a side stream it runs after that stream's
+    pinned, non-blocking copy of its ids (held back by a long sleep
+    kernel), and gives the default stream's result. Were it launched on
+    the default stream it would read the zeros the ids buffer held."""
+    rows = (5000, 300, 70000)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    table = torch.randn((sum(rows), 32), generator=g, device=cuda).bfloat16()
+    offsets = torch.tensor(np.cumsum((0,) + rows[:-1]), dtype=torch.int32, device=cuda)
+    ids = torch.stack([torch.randint(1, n, (64, 20), generator=g, device=cuda)
+                       for n in rows], dim=1).to(torch.int32)
+    want = embedding_bag(table, offsets, ids)
+    host = ids.cpu().pin_memory()
+    dev_ids = torch.zeros_like(ids)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)  # ~tens of ms of one busy block
+        dev_ids.copy_(host, non_blocking=True)
+        got = embedding_bag(table, offsets, dev_ids)
+    side.synchronize()
+    assert torch.equal(got, want)
+    zeros = embedding_bag(table, offsets, torch.zeros_like(ids))
+    assert not torch.equal(want, zeros)
+
+
 def test_kernel_rejects_misaligned_table(cuda):
     base = torch.zeros((100 * 32 + 4,), dtype=torch.bfloat16, device=cuda)
     table = base[4:].view(100, 32)  # starts 8 bytes into the allocation
