@@ -25,6 +25,20 @@ Each kernel is timed beside its plain version, its bound and one PyTorch
 call computing the same function (``F.embedding_bag`` at every zoo shape,
 cuDNN's tanh RNN at DIEN's), from ``deeprecsys_tpu_torch/kernel_bench.py``.
 
+Then the trainer (phase 11): the training kernels K1b (the lookup's
+backward), K5 (sparse row-wise AdaGrad) and K3b (the RNN's reverse scan)
+against their plain versions at rm1's and DIEN's training shapes (batch 128,
+full-size tables) in f32 and bf16; the JAX trainer's losses in
+``tests/golden/torch_port_train.npz`` reproduced on the card;
+``deeprecsys_tpu_torch.train.main`` at full width (f32, the CLI's dtype)
+for rm1 dense, rm1 ``--sparse_tables`` and dien ``--sparse_tables``,
+``TRAIN_STEPS`` steps each, the launches read around each run; the save ->
+export -> ``main.py --checkpoint`` (standalone and ``--queue``) round trip
+at ``--table_scale 100`` (the file format does not depend on the table's
+size, and a 4 GB ``.npz`` a run is not worth the time); the three kernels'
+times and each training step's wall, device time, idle share and peak
+memory.
+
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
 at once. It imports no JAX and nothing of the JAX package: only
@@ -49,18 +63,24 @@ import torch
 
 from deeprecsys_tpu_torch import ServingConfig, bridge, zoo
 from deeprecsys_tpu_torch import main as port_main
+from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.kernel_bench import (
-    HBM_BYTES_PER_S, k1_bound, k1_library, k3_bound, k3_library, measure, ptxas_summary)
+    HBM_BYTES_PER_S, k1_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library,
+    k3b_bound, k3b_library, k5_bound, k5_library, measure, ptxas_summary)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.ops import (
-    _build, embedding_bag, embedding_bag_reference, rnn_scan, rnn_scan_reference)
-from deeprecsys_tpu_torch.ops.embedding import pooled_tolerance
+    _build, embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
+    embedding_bag_reference, rnn_scan, rnn_scan_backward, rnn_scan_backward_reference,
+    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference)
+from deeprecsys_tpu_torch.ops.embedding import backward_tolerance, pooled_tolerance
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
+from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.serving import ServiceRequest, run_serving
 from deeprecsys_tpu_torch.serving.engine import ComputeEngine
 from deeprecsys_tpu_torch.serving.packets import ERR_OK, ERR_PAYLOAD
+from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params, load_model_params
 from deeprecsys_tpu_torch.utils.devices import synchronize
 
 ROOT = Path(__file__).resolve().parent
@@ -75,6 +95,15 @@ KERNELS = {
                       "replaces": "deeprecsys_tpu/ops/embedding.py:770"},
     "rnn_scan": {"source": "deeprecsys_tpu_torch/ops/csrc/rnn_scan.cu",
                  "replaces": "deeprecsys_tpu/ops/rnn.py:45"},
+    # The trainer's: the gather's VJP under jax.value_and_grad (train.py:361),
+    # the sparse table step's scatters, and the scan's VJP.
+    "embedding_bag_backward": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_backward.cu",
+        "replaces": "deeprecsys_tpu/ops/embedding.py:770"},
+    "sparse_adagrad_step": {"source": "deeprecsys_tpu_torch/ops/csrc/sparse_adagrad.cu",
+                            "replaces": "deeprecsys_tpu/train.py:258"},
+    "rnn_scan_backward": {"source": "deeprecsys_tpu_torch/ops/csrc/rnn_scan_backward.cu",
+                          "replaces": "deeprecsys_tpu/ops/rnn.py:45"},
 }
 ZOO = ("rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")
 TIMED_ITERS = 100
@@ -107,6 +136,18 @@ SERVING_POINT = {"batch_size_distribution": "normal", "avg_mini_batch_size": 165
                  "sub_task_batch_size": 32, "avg_arrival_rate_ms": 10.0}
 SERVE_QUERIES = 200
 DIEN_QUERIES = 50
+TRAIN_FIXTURE = ROOT / "tests" / "golden" / "torch_port_train.npz"
+TRAIN_FAMILIES = ("rm1", "wnd", "mtwnd", "ncf", "din", "dien")
+TRAIN_BATCH = 128  # the train CLI's default batch
+TRAIN_STEPS = 60
+ROUND_TRIP_SCALE = 100
+# The card's losses against the JAX trainer's (CPU, XLA) on the fixture's
+# batches: f32 sums in other orders (cuBLAS, K1b's and K5's atomics) over
+# three steps (measured at most 3.5e-7 on an H100, PERF.md), with a margin.
+TRAIN_LOSS_RTOL = 1e-4
+# K3b against its plain loop in f32: two orders of the 64-term dot carried
+# over the scan's steps, within this share of the largest |delta|.
+K3B_RTOL = 1e-5
 
 
 def _log(msg: str):
@@ -131,14 +172,31 @@ def bf16_atol(want: np.ndarray) -> float:
     return 2.0 * 2.0 ** (np.floor(np.log2(big)) - 7)
 
 
+def _wrappers() -> dict:
+    """The kernel wrappers by KERNELS name (looked up at each call, so a CPU
+    rehearsal can put counting shims in their place)."""
+    return {"embedding_bag": embedding_bag, "rnn_scan": rnn_scan,
+            "embedding_bag_backward": embedding_bag_backward,
+            "sparse_adagrad_step": sparse_adagrad_step, "rnn_scan_backward": rnn_scan_backward}
+
+
 def _reset_counts():
-    embedding_bag.kernel_launches = 0
-    rnn_scan.kernel_launches = 0
+    for w in _wrappers().values():
+        w.kernel_launches = 0
 
 
 def _counts() -> dict:
-    return {"embedding_bag": embedding_bag.kernel_launches,
-            "rnn_scan": rnn_scan.kernel_launches}
+    return {k: w.kernel_launches for k, w in _wrappers().items()}
+
+
+def _want(**launches) -> dict:
+    """Expected launches: those named, 0 for every other kernel."""
+    return {k: launches.get(k, 0) for k in KERNELS}
+
+
+def _add(total: dict, counts: dict):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
 
 
 def _check_pooled(got, want, table, offsets, indices, mask, what: str) -> float:
@@ -164,8 +222,9 @@ def phase_card() -> dict:
 def phase_build() -> dict:
     """Build every kernel, one nvcc a source, all at once."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    sources = [Path(k["source"]).stem for k in KERNELS.values()]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
         how = f"built in {b.seconds:.2f} s" if b.seconds else "reused from an earlier build"
         _log(f"[2 build] {b.path.name}: {how}; ptxas (template arguments: registers, "
@@ -429,8 +488,7 @@ def _check_served(res, counts: dict, scans_per_execution: int, what: str,
         raise AssertionError(f"{what}: {res.num_responses} responses for "
                              f"{res.cpu_sub_requests} sub-requests, "
                              f"{res.error_responses} of them errors")
-    want = {"embedding_bag": res.executions,
-            "rnn_scan": scans_per_execution * res.executions}
+    want = _want(embedding_bag=res.executions, rnn_scan=scans_per_execution * res.executions)
     if counts != want:
         raise AssertionError(f"{what}: kernel launches {counts}, expected {want} for "
                              f"{res.executions} executions (warm-up included)")
@@ -499,7 +557,7 @@ def serve_payloads(device, fwd: dict) -> tuple[float, dict]:
     eng.join(timeout=120)
     counts = _counts()
     executions = sum(eng.bucket_counts.values()) + eng.warmup_executions
-    if counts != {"embedding_bag": executions, "rnn_scan": 0} or eng.error is not None:
+    if counts != _want(embedding_bag=executions) or eng.error is not None:
         raise AssertionError(f"payload engine: launches {counts} for {executions} "
                              f"executions; error {eng.error!r}")
     if got[len(payloads)].error_code != ERR_PAYLOAD:
@@ -567,7 +625,7 @@ def phase_serving(device, fwd: dict, card: str) -> tuple[dict, dict]:
     """The serving stack on the card; each path's launches read around it.
     Returns the results and the launches summed over the paths."""
     t0 = time.perf_counter()
-    launches = {"embedding_bag": 0, "rnn_scan": 0}
+    launches = _want()
     out = {}
     for key, run in (("rm1_1", lambda: serve_rm1(device, 1, card)),
                      ("rm1_4", lambda: serve_rm1(device, 4, card)),
@@ -575,8 +633,7 @@ def phase_serving(device, fwd: dict, card: str) -> tuple[dict, dict]:
                      ("tune", lambda: serve_tuning(device, fwd, card)),
                      ("dien", lambda: serve_dien(device, card))):
         out[key], counts = run()
-        for k, v in counts.items():
-            launches[k] += v
+        _add(launches, counts)
     _log(f"[6 serving] all serving paths in {time.perf_counter() - t0:.1f} s")
     return out, launches
 
@@ -716,8 +773,8 @@ def zoo_forward(device, name: str) -> dict:
     synchronize(device)
     init_s = time.perf_counter() - t0
     batches = [b.to(device) for b in RecDataGenerator(cfg, seed=1).generate_batches(3, BATCH)]
-    want = {"embedding_bag": len(batches),
-            "rnn_scan": 2 * len(batches) if cfg.model_type == "dien" else 0}
+    want = _want(embedding_bag=len(batches),
+                 rnn_scan=2 * len(batches) if cfg.model_type == "dien" else 0)
     with torch.inference_mode():
         _reset_counts()
         outs = [model.apply(params, b) for b in batches]
@@ -781,12 +838,11 @@ def phase_zoo(device, card: str) -> tuple[list, dict]:
     """Each zoo model but rm1 at full width, its table freed before the
     next; then dien through main.py's loop. Returns the per-model times
     and the summed launch counts of these paths."""
-    rows, launches = [], {"embedding_bag": 0, "rnn_scan": 0}
+    rows, launches = [], _want()
     for name in ZOO:
         torch.cuda.reset_peak_memory_stats(device)
         z = zoo_forward(device, name)
-        for k, v in z["launches"].items():
-            launches[k] += v
+        _add(launches, z["launches"])
         rows.append(zoo_times(device, z, card))
         del z
         torch.cuda.empty_cache()
@@ -796,14 +852,13 @@ def phase_zoo(device, card: str) -> tuple[list, dict]:
                           "--mini_batch_size", str(BATCH), "--num_batches", "2",
                           "--table_scale", str(TABLE_SCALE), "--device", str(device)])
     counts = _counts()
-    if counts != {"embedding_bag": res["forwards"], "rnn_scan": 2 * res["forwards"]}:
+    if counts != _want(embedding_bag=res["forwards"], rnn_scan=2 * res["forwards"]):
         raise AssertionError(f"main.py's dien loop: launches {counts} for "
                              f"{res['forwards']} forwards")
     for out in res["outputs"]:
         _check_scores(out, (BATCH, zoo.get_config("dien").out_dim), False,
                       "main.py dien forward")
-    for k, v in counts.items():
-        launches[k] += v
+    _add(launches, counts)
     _log(f"[8 zoo] main.py standalone loop, dien (no dense input): {res['forwards']} "
          f"forwards, launches {counts}, compute {res['compute_ms']:.3f} ms for 2 batches")
     torch.cuda.empty_cache()
@@ -839,6 +894,396 @@ def phase_rnn_times(device, card: str) -> dict:
             "library_ms": lib_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
+# ---------------------------------------------------------------- training
+
+def _train_inputs(device, name: str, seed: int):
+    """``name``'s training-batch ids (the generator's, batch TRAIN_BATCH) and
+    offsets at TABLE_SCALE, and a generator for the rest."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    indices = torch.as_tensor(
+        RecDataGenerator(cfg, seed=seed).generate_batch(TRAIN_BATCH).indices).to(device)
+    return cfg, table_offsets(cfg, device), indices, torch.Generator(device=device).manual_seed(seed)
+
+
+def _free(device):
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_kernel_cases(device, name: str, seed: int) -> dict:
+    """K1b and K5 against their plain versions at ``name``'s training shape
+    (full-size table, batch TRAIN_BATCH, the generator's ids): K1b with f32
+    and bf16 gradients, with and without a mask, K5 with f32 and bf16
+    tables; each within its tolerance of the order of a row's adds. Returns
+    the max |error| by kernel."""
+    cfg, offsets, indices, g = _train_inputs(device, name, seed)
+    R, T, d = cfg.total_rows, cfg.num_tables, cfg.sparse_feature_size
+    B, _, L = indices.shape
+    mask = torch.rand(indices.shape, generator=g, device=device) < 0.7
+    errs = {"embedding_bag_backward": 0.0, "sparse_adagrad_step": 0.0}
+    shape = f"{name}: R={R} d={d} B={B} T={T} L={L}"
+    for gdt in (torch.float32, torch.bfloat16):
+        grad = torch.randn((B, T, d), generator=g, device=device).to(gdt)
+        for m in (None, mask):
+            got = embedding_bag_backward(grad, offsets, indices, R, mask=m)
+            synchronize(device)
+            err = (got - embedding_bag_backward_reference(grad, offsets, indices, R, mask=m)).abs()
+            del got
+            tol = backward_tolerance(grad, offsets, indices, R, m)
+            what = f"{shape}, g {str(gdt)[6:]}, mask={'yes' if m is not None else 'no'}"
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"K1b disagrees with its plain version ({what}): max |err| "
+                                     f"{err.max().item():.3e}, {int((err > tol).sum())} over")
+            errs["embedding_bag_backward"] = max(errs["embedding_bag_backward"], err.max().item())
+            _log(f"[11 train kernels] K1b ok {what}: max |err| {err.max().item():.3e} "
+                 f"(limit: the order of each row's adds)")
+            del err, tol
+            _free(device)
+    grad = torch.randn((B, T, d), generator=g, device=device) * 1e-2
+    for tdt in (torch.float32, torch.bfloat16):
+        table0 = ((torch.rand((R, d), generator=g, device=device) - 0.5) * 0.1).to(tdt)
+        acc0 = torch.rand((R,), generator=g, device=device) * 1e-4
+        table, acc = table0.clone(), acc0.clone()
+        sparse_adagrad_step(table, acc, offsets, indices, grad, 0.1)
+        synchronize(device)
+        want_t, want_a = table0.clone(), acc0.clone()
+        sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1)
+        tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, indices, grad, 0.1)
+        del table0, acc0
+        err = (table.float() - want_t.float()).abs()
+        acc_err = (acc - want_a).abs()
+        what = f"{shape}, table {str(tdt)[6:]}"
+        if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
+            raise AssertionError(f"K5 disagrees with its plain version ({what}): max |err| "
+                                 f"table {err.max().item():.3e}, acc {acc_err.max().item():.3e}")
+        errs["sparse_adagrad_step"] = max(errs["sparse_adagrad_step"], err.max().item(),
+                                          acc_err.max().item())
+        _log(f"[11 train kernels] K5 ok {what}: max |err| table {err.max().item():.3e}, "
+             f"accumulator {acc_err.max().item():.3e}")
+        del table, acc, want_t, want_a, tol, acc_tol, err, acc_err
+        _free(device)
+    return errs
+
+
+def _rnn_backward_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int):
+    """K3b's inputs at (T, B, 64): the f32 tanh values of a forward scan of
+    ``rnn_inputs`` and a random gradient of every step's state."""
+    inp = rnn_inputs(device, T, B, dtype, seed)
+    w, b, h0 = inp["h2h_w"], inp["h2h_b"], inp["h0"]
+    all_h, _ = rnn_scan_reference(inp["xproj"], w, b, torch.float32, h0=h0)
+    prev = torch.cat([h0[None], all_h[:-1]])
+    y = torch.tanh((inp["xproj"] + prev @ w.float()) + b.float())
+    gh = torch.randn((T, B, KERNEL_HIDDEN), generator=torch.Generator(device=device)
+                     .manual_seed(seed), device=device)
+    return y, gh, w, inp["seq_lengths"]
+
+
+def train_rnn_cases(device, T: int, B: int, seed: int = 0) -> float:
+    """K3b against its plain reverse loop with f32 and bf16 weights, with
+    and without seq_lengths, within K3B_RTOL of the largest |delta|."""
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        y, gh, w, lens = _rnn_backward_inputs(device, T, B, dt, seed)
+        for m in (None, lens):
+            delta, dh0 = rnn_scan_backward(y, gh, w, m)
+            synchronize(device)
+            want_d, want_h = rnn_scan_backward_reference(y, gh, w, m)
+            scale = max(want_d.abs().max().item(), want_h.abs().max().item())
+            err = max((delta - want_d).abs().max().item(), (dh0 - want_h).abs().max().item())
+            what = (f"T={T} B={B} H={KERNEL_HIDDEN} W {str(dt)[6:]}, "
+                    f"seq_lengths={'yes' if m is not None else 'no'}")
+            if err > K3B_RTOL * scale:
+                raise AssertionError(f"K3b disagrees with its plain loop ({what}): max |err| "
+                                     f"{err:.3e} > {K3B_RTOL:.0e} x {scale:.3e}")
+            worst = max(worst, err)
+            _log(f"[11 train kernels] K3b ok {what}: max |err| {err:.3e} = "
+                 f"{err / scale:.2e} of the largest |delta| (limit {K3B_RTOL:.0e})")
+    return worst
+
+
+def train_fixture_case(device, stored, name: str, mode: str) -> float:
+    """The port's trainer from the fixture's weights on its batches: the
+    losses against the JAX trainer's. Returns the max relative error."""
+    key = f"{name}/{mode}/"
+    cfg = zoo.get_config(name, table_scale=2000)
+    np_params = bridge.init_numpy(cfg, int(stored[key + "seed"]))
+    if not np.allclose(bridge.fingerprint(np_params), stored[key + "fingerprint"],
+                       rtol=1e-9, atol=0):
+        raise AssertionError(f"{key}: numpy drew other weights from the fixture's seed")
+    tr = port_train.Trainer(cfg, optimizer="adagrad", learning_rate=float(stored[key + "lr"]),
+                            sparse_tables=mode == "sparse", device=device,
+                            params=bridge.params_from_numpy(np_params, cfg, device))
+    indices = stored[key + "indices"]
+    dense = stored[key + "dense"] if key + "dense" in stored.files else None
+    gen = RecDataGenerator(tr.cfg, seed=1)
+    losses = []
+    for s in range(len(indices)):
+        host = Batch(None if dense is None else dense[s], indices[s])
+        if not np.array_equal(gen.generate_batch(indices.shape[1]).indices, indices[s]):
+            raise AssertionError(f"{key}: the generator's batch {s} differs from the fixture's")
+        losses.append(float(tr.step(host, tr._labels(host, None))))
+    want = stored[key + "losses"]
+    err = float(np.max(np.abs(np.asarray(losses) - want) / np.abs(want)))
+    if not err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{key}: losses {losses} differ from JAX's {want.tolist()} "
+                             f"(max relative error {err:.2e} > {TRAIN_LOSS_RTOL:.0e})")
+    return err
+
+
+def phase_train_fixture(device) -> float:
+    stored = np.load(TRAIN_FIXTURE)
+    worst = 0.0
+    for name in TRAIN_FAMILIES:
+        errs = {mode: train_fixture_case(device, stored, name, mode) for mode in ("dense", "sparse")}
+        worst = max(worst, *errs.values())
+        _log(f"[11 train fixture] {name} table_scale=2000 f32, 3 adagrad steps: losses match the "
+             f"JAX trainer's, max relative error " + ", ".join(
+                 f"{m} {e:.2e}" for m, e in errs.items()) + f" (limit {TRAIN_LOSS_RTOL:.0e})")
+    return worst
+
+
+def _train_want(name: str, sparse: bool, steps: int) -> dict:
+    dien = zoo.get_config(name).model_type == "dien"
+    return _want(embedding_bag=steps, embedding_bag_backward=0 if sparse else steps,
+                 sparse_adagrad_step=steps if sparse else 0,
+                 rnn_scan=2 * steps if dien else 0, rnn_scan_backward=2 * steps if dien else 0)
+
+
+def train_path(device, name: str, sparse: bool, card: str) -> dict:
+    """``train.main`` at full width (f32, batch TRAIN_BATCH, TRAIN_STEPS
+    steps), the launches read around it: every step launches K1 once, K1b
+    (dense) or K5 (sparse) once, and for dien K3 and K3b twice. The losses
+    must be finite and fall (mean of the last four below the first four)."""
+    args = ["--model", name, "--table_scale", str(TABLE_SCALE), "--steps", str(TRAIN_STEPS),
+            "--batch_size", str(TRAIN_BATCH), "--device", str(device)]
+    args += ["--sparse_tables"] if sparse else []
+    _reset_peak(device)
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = port_train.main(args)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    what = f"{name} {'--sparse_tables' if sparse else 'dense'}"
+    if counts != _train_want(name, sparse, len(losses)):
+        raise AssertionError(f"train {what}: launches {counts} for {len(losses)} steps")
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"train {what}: losses not finite and falling: {losses}")
+    peak = _peak_gib(device)
+    _log(f"[11 train] python -m deeprecsys_tpu_torch.train {' '.join(args)}: {len(losses)} steps, "
+         f"loss {first:.4f} -> {last:.4f}, launches {counts}, {wall:.2f} s with init, peak "
+         f"device memory {peak:.3f} GiB [{card}]")
+    _free(device)
+    return {"losses": losses, "launches": counts, "wall_s": wall, "peak_gib": peak}
+
+
+def round_trip(device, card: str) -> dict:
+    """Train rm1 at ROUND_TRIP_SCALE, save and export (int8_rowwise) it,
+    then serve the float checkpoint through main.py --checkpoint:
+    standalone (its scores are the checkpoint's params' scores, not a
+    random init's) and --queue (DIEN_QUERIES queries, no errors)."""
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = out_dir / "rm1_trained"
+    launches = _want()
+    _reset_counts()
+    losses = port_train.main(["--model", "rm1", "--table_scale", str(ROUND_TRIP_SCALE),
+                              "--steps", "20", "--batch_size", str(TRAIN_BATCH), "--device",
+                              str(device), "--save", str(ckpt), "--export_quant", "int8_rowwise"])
+    _add(launches, _counts())
+    cfg = zoo.get_config("rm1", table_scale=ROUND_TRIP_SCALE)
+    bundle = load_model_params(cfg.replace(table_quant="int8_rowwise"), f"{ckpt}_int8_rowwise")
+    qrows = bundle["tables"]["qrows"]
+    if qrows.shape != (cfg.total_rows, cfg.sparse_feature_size + 4) or qrows.dtype != np.int8:
+        raise AssertionError(f"export bundle: qrows {qrows.shape} {qrows.dtype}")
+    params = checkpoint_params(cfg, ckpt, device)
+    _reset_counts()
+    res = port_main.main(["--model", "rm1", "--table_scale", str(ROUND_TRIP_SCALE),
+                          "--checkpoint", str(ckpt), "--device", str(device),
+                          "--num_batches", "4", "--mini_batch_size", str(BATCH)])
+    counts = _counts()
+    if counts != _want(embedding_bag=res["forwards"]):
+        raise AssertionError(f"main.py --checkpoint: launches {counts}")
+    _add(launches, counts)
+    model = get_model(cfg, device)
+    batches = RecDataGenerator(cfg, seed=123).generate_batches(4, BATCH)
+    with torch.inference_mode():
+        worst = max((out.float() - model.apply(params, b.to(device)).float()).abs().max().item()
+                    for out, b in zip(res["outputs"], batches))
+        random_init = model.apply(model.init(torch.Generator(device=device).manual_seed(123)),
+                                  batches[0].to(device))
+    if worst != 0.0 or torch.equal(random_init, res["outputs"][0]):
+        raise AssertionError(f"main.py --checkpoint did not score the checkpoint's params "
+                             f"(max |err| {worst:.3e})")
+    _log(f"[11 round trip] rm1 table_scale={ROUND_TRIP_SCALE}: train {len(losses)} steps, "
+         f"loss {np.mean(losses[:4]):.4f} -> {np.mean(losses[-4:]):.4f}; --save and "
+         f"--export_quant int8_rowwise (qrows {qrows.shape}) load against the configs; "
+         f"main.py --checkpoint standalone scores the checkpoint's params exactly "
+         f"({res['forwards']} forwards)")
+    _reset_counts()
+    res_q = port_main.main([
+        "--model", "rm1", "--table_scale", str(ROUND_TRIP_SCALE), "--checkpoint", str(ckpt),
+        "--queue", "--engine_backend", _backend(device), "--num_batches", str(DIEN_QUERIES),
+        "--batch_size_distribution", "normal", "--avg_mini_batch_size", "165",
+        "--var_mini_batch_size", "16", "--sub_task_batch_size", "32",
+        "--avg_arrival_rate", "10"])
+    counts = _counts()
+    _check_served(res_q, counts, 0, "rm1 checkpoint served by main.py --queue")
+    _add(launches, counts)
+    _log(f"[11 round trip] main.py --checkpoint --queue: {_served_line(res_q, counts)} [{card}]")
+    for p in out_dir.glob("rm1_trained*"):
+        p.unlink()
+    return {"launches": launches, "queue": res_q.to_dict()}
+
+
+def _g_rows(g, offsets, indices):
+    """The pooled gradient broadcast over the L slots (f32), its rows' mean
+    squares and their fused rows: the library yardsticks' inputs."""
+    B, T, L = indices.shape
+    rows = g.float()[:, :, None, :].expand(B, T, L, g.shape[-1]).reshape(B * T * L, -1)
+    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    return rows.contiguous(), torch.mean(rows * rows, dim=-1), flat
+
+
+def _timed(runs: dict, kernel_field: str = "kernel_ms") -> dict:
+    """A kernel's times from runs in the order plain, kernel, kernel, plain
+    and a library run: device times where the trace has them, else wall."""
+    k_dev = _mean(runs, ("k1", "k2"), kernel_field)
+    p_dev = _mean(runs, ("p1", "p2"), "device_ms")
+    use_dev = None not in (k_dev, p_dev, runs["s1"]["device_ms"])
+    k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
+    return {"ms": k_dev if use_dev else k_wall, "plain_ms": p_dev if use_dev else p_wall,
+            "library_ms": runs["s1"]["device_ms" if use_dev else "wall_ms"],
+            "device": use_dev, "k_wall": k_wall, "p_wall": p_wall}
+
+
+def _time_runs(kernel, plain, library, args, lib_args, iters) -> dict:
+    runs = {key: measure(fn, args, iters) for key, fn in
+            (("p1", plain), ("k1", kernel), ("k2", kernel), ("p2", plain))}
+    runs["s1"] = measure(library, lib_args, iters)
+    return runs
+
+
+def train_kernel_times(device, card: str) -> dict:
+    """K1b and K5 at rm1's training shape (full-size f32 table, batch
+    TRAIN_BATCH, eight batches of ids), K3b at dien's (T = 40, B =
+    TRAIN_BATCH): each kernel beside its plain version (order plain,
+    kernel, kernel, plain), its bound and its library yardstick. K1b and
+    its yardsticks accumulate into one preallocated f32 gradient (the
+    zero-fill of a step is the same for all, and shows in the step's
+    breakdown)."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    offsets = table_offsets(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    ids = [b.to(device).indices for b in
+           RecDataGenerator(cfg, seed=3).generate_batches(8, TRAIN_BATCH)]
+    gs = [torch.randn((TRAIN_BATCH, cfg.num_tables, d), generator=gen, device=device) * 1e-2
+          for _ in ids]
+    prepared = [_g_rows(g, offsets, i) for g, i in zip(gs, ids)]
+    out = {}
+    grad = torch.zeros((R, d), dtype=torch.float32, device=device)
+    runs = _time_runs(
+        lambda g, i: embedding_bag_backward(g, offsets, i, R, out=grad),
+        lambda g, i: embedding_bag_backward_reference(g, offsets, i, R, out=grad),
+        k1b_library(grad), list(zip(gs, ids)), [(p[0], p[2]) for p in prepared], TIMED_ITERS)
+    out["embedding_bag_backward"] = {**_timed(runs), **k1b_bound(gs[0], offsets, ids[0])}
+    del grad
+    _free(device)
+    table = (torch.rand((R, d), generator=gen, device=device) - 0.5) * 0.1
+    acc = torch.zeros((R,), dtype=torch.float32, device=device)
+    runs.update(_time_runs(
+        lambda g, i: sparse_adagrad_step(table, acc, offsets, i, g, 0.1),
+        lambda g, i: sparse_adagrad_step_reference(table, acc, offsets, i, g, 0.1),
+        k5_library(table, acc, 0.1), list(zip(gs, ids)), prepared, TIMED_ITERS))
+    out["sparse_adagrad_step"] = {**_timed(runs, "device_ms"),
+                                  **k5_bound(table, gs[0], offsets, ids[0])}
+    del table, acc, prepared
+    _free(device)
+    y, gh, w, _ = _rnn_backward_inputs(device, DIEN_T, TRAIN_BATCH, torch.float32, seed=6)
+    inp = rnn_inputs(device, DIEN_T, TRAIN_BATCH, torch.float32, seed=6)
+    runs = _time_runs(rnn_scan_backward, rnn_scan_backward_reference,
+                      k3b_library(w, inp["h2h_b"], inp["xproj"]), [(y, gh, w)], [(gh,)], 50)
+    out["rnn_scan_backward"] = {**_timed(runs), **k3b_bound(DIEN_T, TRAIN_BATCH, KERNEL_HIDDEN)}
+    shapes = {"embedding_bag_backward": f"rm1 B={TRAIN_BATCH} T=8 L=80 d=32 f32, R={R}",
+              "sparse_adagrad_step": f"rm1 B={TRAIN_BATCH} T=8 L=80 d=32 f32 table, R={R}",
+              "rnn_scan_backward": f"dien T={DIEN_T} B={TRAIN_BATCH} H={KERNEL_HIDDEN} f32"}
+    names = {"embedding_bag_backward": ("K1b", "index_add_"),
+             "sparse_adagrad_step": ("K5 (both launches)", "index_add_ sequence"),
+             "rnn_scan_backward": ("K3b", "cuDNN RNN backward-data")}
+    for key, t in out.items():
+        label, lib = names[key]
+        _log(f"[11 train times] {label} at {shapes[key]}: {t['ms'] * 1e3:.2f} us "
+             f"({'device' if t['device'] else 'wall'}); bound {t['bound_ms'] * 1e3:.2f} us "
+             f"({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); plain {t['plain_ms'] * 1e3:.2f} us; "
+             f"{lib} {t['library_ms'] * 1e3:.2f} us; wall a call {t['k_wall'] * 1e3:.2f} us "
+             f"[{card}]")
+    return out
+
+
+def train_step_times(device, name: str, sparse: bool, card: str) -> dict:
+    """One training step of the CLI's (host batch to the card, forward,
+    backward, update, the loss read back) at full width: wall and device
+    time a step, idle share, the kernels that took the most device time,
+    and peak device memory (trainer state included)."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    _reset_peak(device)
+    tr = port_train.Trainer(cfg, learning_rate=0.1, sparse_tables=sparse, device=device)
+    gen = RecDataGenerator(tr.cfg, seed=1)
+    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(4)]
+    args = [(h, tr._labels(h, None)) for h in hosts]
+    m = measure(lambda h, lab: float(tr.step(h, lab)), args, 20)
+    peak = _peak_gib(device)
+    dev = m["device_ms"]
+    idle = None if dev is None else 1 - dev / m["wall_ms"]
+    what = f"{name} {'--sparse_tables' if sparse else 'dense'}"
+    _log(f"[11 train steps] {what} batch {TRAIN_BATCH} f32: wall {m['wall_ms']:.4f} ms a step, "
+         f"device {_us(dev)} in {m['launches']:.0f} device ops, idle "
+         f"{'not measured' if idle is None else f'{100 * idle:.1f}%'}; peak device memory "
+         f"{peak:.3f} GiB [{card}]")
+    _log(f"[11 train steps] {what}, device time by kernel: {_top(m, 8)} [{card}]")
+    if not sparse:
+        # The two passes over the whole table that the step's kernels share
+        # one name with: the gradient's zero-fill and the optimizer's sweep.
+        R, d = tr.params["tables"].shape
+        fill = measure(lambda: torch.zeros((R, d), device=device), [()], 5)
+        leaves = port_train._leaves(tr.params)
+        grads = [torch.zeros_like(p) for p in leaves]
+        sweep = measure(lambda: tr.tx.update(leaves, grads, tr.opt_state), [()], 5)
+        _log(f"[11 train steps] {what} breakdown: the (R, d) gradient's zero-fill "
+             f"{_us(fill['device_ms'])} (wall {fill['wall_ms'] * 1e3:.2f} us), adagrad's sweep "
+             f"over every param {_us(sweep['device_ms'])} in {sweep['launches']:.0f} device ops "
+             f"(wall {sweep['wall_ms'] * 1e3:.2f} us) [{card}]")
+        del grads
+    del tr
+    _free(device)
+    return {"name": what, "wall_ms": m["wall_ms"], "device_ms": dev, "idle": idle,
+            "peak_gib": peak}
+
+
+def phase_train(device, card: str) -> tuple[dict, dict, list]:
+    """Phase 11: the trainer. Returns the kernels' errors and times, the
+    launches of the training paths and the step times."""
+    t0 = time.perf_counter()
+    errs = {}
+    for seed, name in enumerate(("rm1", "dien")):
+        for k, v in train_kernel_cases(device, name, seed).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    errs["rnn_scan_backward"] = max(train_rnn_cases(device, DIEN_T, TRAIN_BATCH),
+                                    train_rnn_cases(device, DIEN_T, BATCH, seed=1))
+    phase_train_fixture(device)
+    launches = _want()
+    for name, sparse in (("rm1", False), ("rm1", True), ("dien", True)):
+        _add(launches, train_path(device, name, sparse, card)["launches"])
+    _add(launches, round_trip(device, card)["launches"])
+    times = train_kernel_times(device, card)
+    steps = [train_step_times(device, name, sparse, card)
+             for name, sparse in (("rm1", False), ("rm1", True), ("dien", True))]
+    _log(f"[11 train] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return {k: {**times[k], "max_abs_err": errs[k]} for k in times}, launches, steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -864,8 +1309,7 @@ def main() -> int:
         raise AssertionError("the main path never launched K1")
     # The serving paths, each read around itself.
     serving, serve_launches = phase_serving(device, fwd, card["card"])
-    for k, v in serve_launches.items():
-        launches[k] += v
+    _add(launches, serve_launches)
     torch.cuda.reset_peak_memory_stats(device)
     times = phase_times(device, fwd, card["card"])
     del fwd
@@ -873,11 +1317,17 @@ def main() -> int:
 
     # The other models' paths, each read around itself.
     rows, zoo_launches = phase_zoo(device, card["card"])
-    for k, v in zoo_launches.items():
-        launches[k] += v
+    _add(launches, zoo_launches)
     if launches["rnn_scan"] == 0:
         raise AssertionError("dien's path never launched K3")
     k3 = phase_rnn_times(device, card["card"])
+
+    # The trainer's paths, each read around itself.
+    trained, train_launches, steps = phase_train(device, card["card"])
+    _add(launches, train_launches)
+    for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward"):
+        if launches[key] == 0:
+            raise AssertionError(f"the training paths never launched {key}")
 
     _log(f"[10 summary] per model, bf16, batch {BATCH}, full-size tables [{card['card']}]:")
     _log("[10 summary]   model: forward wall ms, device ms, idle, K1 us (% of 3.35 TB/s, "
@@ -903,6 +1353,13 @@ def main() -> int:
              f"{s['queue_wait_p95_ms']:.3f}, {s['inference_p95_ms']:.3f}, "
              f"{s['pacing_error_mean_ms']:.4f}/{s['pacing_error_p99_ms']:.4f}, "
              f"{s['peak_gib']:.3f} [{card['card']}]")
+    _log("[10 summary] training step, f32, batch 128, full-size tables: wall ms, device ms, "
+         "idle, peak GiB")
+    for st in steps:
+        dev = "not measured" if st["device_ms"] is None else f"{st['device_ms']:.4f}"
+        idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.1f}%"
+        _log(f"[10 summary]   {st['name']}: {st['wall_ms']:.4f}, {dev}, {idle}, "
+             f"{st['peak_gib']:.3f} [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())
@@ -913,7 +1370,10 @@ def main() -> int:
          **{k: times["k1"][k] for k in timed}},
         {"name": "rnn_scan", "route": "cuda", **KERNELS["rnn_scan"],
          "launches": launches["rnn_scan"], "max_abs_err": k3_err,
-         **{k: k3[k] for k in timed}}]}))
+         **{k: k3[k] for k in timed}}] + [
+        {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
+         "max_abs_err": trained[key]["max_abs_err"], **{k: trained[key][k] for k in timed}}
+        for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

@@ -7,12 +7,18 @@ lists: MLP layers ``{"w", "b"}`` with ``w`` as ``(in, out)``, stacked MLPs
 ``(num, in, out)``, RNNs ``{"i2h_w", ...}``) except for the fused table:
 the JAX package may store it packed, ``{"packed": (ceil(R/p), p*d)}``
 (bf16 d=32 resolves to p=2, ``config.py:193-214``); the port keeps
-``(R, d)``. Quantized tables (``q``, ``q_packed``, ``qrows``) are not
-ported yet.
+``(R, d)``. Quantized tables cross too, so that export bundles can be
+written and read: ``{"qrows": (R, d+4) int8}`` as it is, per-table int8 as
+the port's ``{"q": (R, d), "scale": (T,)}`` and, where the config resolves
+to pack > 1, the JAX package's ``{"q_packed", "scale"}``. The port does not
+serve them yet (``models/base.py::pooled_lookup`` raises, ROADMAP.md
+Queue 1 item 8).
 
 ``init_numpy`` draws a model's whole params pytree with numpy from a seed,
 in the JAX layout and with the JAX init's distributions, so that both
-packages, and a machine without JAX, can build the same weights.
+packages, and a machine without JAX, can build the same weights;
+``param_shapes`` gives the same tree's leaf shapes and dtypes without
+drawing (the template a checkpoint is loaded against).
 ``flatten``/``unflatten`` map a pytree to flat ``"a/0/w"`` keys (an
 ``.npz``'s) and back.
 
@@ -22,13 +28,21 @@ by their 16-bit patterns, so no value changes.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.ops.embedding import unpack_table
 
-_QUANTIZED_KEYS = ("q", "q_packed", "qrows")
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A leaf of ``param_shapes``: its shape and numpy dtype name."""
+
+    shape: tuple
+    dtype: str
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -98,29 +112,39 @@ def _lists(node):
 
 def params_from_numpy(np_params: dict, cfg: ModelConfig,
                       device: torch.device | str) -> dict:
-    """The port's params for a JAX params pytree of numpy arrays."""
+    """The port's params for a JAX params pytree of numpy arrays: packed
+    tables (``packed``, ``q_packed``) unpacked to ``(R, d)`` rows."""
     params = {k: tree_map(lambda a: _to_tensor(a, device), v)
               for k, v in np_params.items() if k != "tables"}
     tables = np_params["tables"]
-    if isinstance(tables, dict):
-        if any(k in tables for k in _QUANTIZED_KEYS):
-            raise NotImplementedError(
-                f"quantized tables ({sorted(tables)}) are not ported yet "
-                "(ROADMAP.md Queue 1 item 8)")
-        packed = tables["packed"]
-        pack = packed.shape[1] // cfg.sparse_feature_size
-        # unpack_table's slice of a contiguous tensor is contiguous.
-        params["tables"] = unpack_table(_to_tensor(packed, device), pack, cfg.total_rows)
-    else:
+    d, R = cfg.sparse_feature_size, cfg.total_rows
+    if not isinstance(tables, dict):
         params["tables"] = _to_tensor(tables, device)
+    elif "packed" in tables or "q_packed" in tables:
+        key = "packed" if "packed" in tables else "q_packed"
+        packed = tables[key]
+        # unpack_table's slice of a contiguous tensor is contiguous.
+        t = unpack_table(_to_tensor(packed, device), packed.shape[1] // d, R)
+        params["tables"] = t if key == "packed" else {
+            "q": t, "scale": _to_tensor(tables["scale"], device)}
+    else:
+        params["tables"] = {k: _to_tensor(v, device) for k, v in tables.items()}
     return params
 
 
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The JAX params pytree (numpy arrays) for the port's params, with the
-    table in the layout the JAX package resolves for ``cfg``."""
+    table in the layout the JAX package resolves for ``cfg`` (packed where
+    the resolved pack factor is > 1; ``q_packed`` for per-table int8)."""
     out = {k: tree_map(_to_numpy, v) for k, v in params.items() if k != "tables"}
-    out["tables"] = _pack(_to_numpy(params["tables"]), cfg)
+    tables = params["tables"]
+    if not isinstance(tables, dict):
+        out["tables"] = _pack(_to_numpy(tables), cfg)
+    elif "q" in tables and cfg.resolved_table_pack > 1:
+        out["tables"] = {"q_packed": _pack(_to_numpy(tables["q"]), cfg)["packed"],
+                         "scale": _to_numpy(tables["scale"])}
+    else:
+        out["tables"] = {k: _to_numpy(v) for k, v in tables.items()}
     return out
 
 
@@ -133,6 +157,53 @@ def _pack(table: np.ndarray, cfg: ModelConfig):
     rows, d = table.shape
     table = np.concatenate([table, np.zeros((-rows % pack, d), table.dtype)])
     return {"packed": table.reshape(-1, pack * d)}
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The JAX params pytree of ``cfg``'s model with ``Leaf`` leaves:
+    ``init_numpy``'s tree (for int8 tables, the JAX init's quantized
+    layout), nothing drawn."""
+    pdt = cfg.param_dtype
+    m, H, ln_top = cfg.sparse_feature_size, cfg.hidden_size, cfg.ln_top
+
+    def mlp(dims, num=None):
+        lead = () if num is None else (num,)
+        return [{"w": Leaf(lead + (n, o), pdt), "b": Leaf(lead + (o,), pdt)}
+                for n, o in zip(dims[:-1], dims[1:])]
+
+    def rnn(n):
+        return {"i2h_w": Leaf((n, H), pdt), "i2h_b": Leaf((H,), pdt),
+                "h2h_w": Leaf((H, H), pdt), "h2h_b": Leaf((H,), pdt)}
+
+    kind = cfg.model_type
+    if kind == "dlrm":
+        tree = {"bot": mlp(cfg.mlp_bot), "top": mlp(ln_top)}
+    elif kind == "wnd":
+        tree = {"top": mlp(ln_top)}
+    elif kind == "mtwnd":
+        tree = {"top": mlp(ln_top), "tasks": mlp(cfg.mlp_tasks, num=cfg.num_multi_tasks)}
+    elif kind == "ncf":
+        tree = {"mlp": mlp(ln_top[:-1]), "final": mlp((m + ln_top[-2], ln_top[-1]))}
+    elif kind == "din":
+        nb = len(cfg.behavior_table_ids)
+        tree = {"attention": mlp((3 * m,) + cfg.mlp_bot + (m,), num=nb), "top": mlp(ln_top)}
+    elif kind == "dien":
+        tree = {"rnn0": rnn(m), "gate_fc": mlp((H, H))[0], "rnn1": rnn(H), "top": mlp(ln_top)}
+    else:
+        raise ValueError(f"unknown model_type {kind!r}")
+    R, pack = cfg.total_rows, cfg.resolved_table_pack
+    packed = (-(-R // pack), pack * m)
+    if cfg.table_quant == "int8_rowwise":
+        tables = {"qrows": Leaf((R, m + 4), "int8")}
+    elif cfg.table_quant == "int8":
+        tables = {"q_packed" if pack > 1 else "q": Leaf(packed if pack > 1 else (R, m), "int8"),
+                  "scale": Leaf((cfg.num_tables,), "float32")}
+    elif cfg.table_quant == "none":
+        tables = {"packed": Leaf(packed, pdt)} if pack > 1 else Leaf((R, m), pdt)
+    else:
+        raise ValueError(f"unknown table_quant {cfg.table_quant!r}")
+    tree["tables"] = tables
+    return tree
 
 
 # ------------------------------------------------------------ numpy init

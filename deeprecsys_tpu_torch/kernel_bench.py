@@ -1,5 +1,7 @@
 """K1 and K3 on one card: their times beside their bounds and a library
-yardstick, and each wrapper's host time a call.
+yardstick, and each wrapper's host time a call. The bounds and library
+yardsticks of the training kernels K1b, K5 and K3b (``k1b_bound``,
+``k5_library``, ...) live here too; ``chip_smoke.py`` times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH]
 
@@ -102,6 +104,11 @@ def _bound(nbytes: float, flops: float) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+def _touched_rows(offsets: torch.Tensor, indices: torch.Tensor) -> int:
+    """The distinct fused rows a batch reads."""
+    return torch.unique(indices.long() + offsets.long()[None, :, None]).numel()
+
+
 def k1_bound(table: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
              out_dtype: torch.dtype) -> dict:
     """K1's least time on these inputs: each distinct row of the batch read
@@ -109,8 +116,7 @@ def k1_bound(table: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
     element."""
     B, T, L = indices.shape
     d = table.shape[1]
-    rows = torch.unique(indices.long() + offsets.long()[None, :, None]).numel()
-    nbytes = (rows * d * table.element_size() + indices.numel() * 4
+    nbytes = (_touched_rows(offsets, indices) * d * table.element_size() + indices.numel() * 4
               + B * T * d * torch.empty((), dtype=out_dtype).element_size())
     return _bound(nbytes, B * T * L * d)
 
@@ -121,6 +127,77 @@ def k3_bound(T: int, B: int, H: int, out_dtype: torch.dtype) -> dict:
     out_size = torch.empty((), dtype=out_dtype).element_size()
     nbytes = T * B * H * (4 + out_size) + (H * H + H) * 4
     return _bound(nbytes, 2 * T * B * H * H)
+
+
+def k1b_bound(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor) -> dict:
+    """K1b's least time on these inputs, accumulating into an existing
+    gradient buffer: each touched f32 row read and written once, ``g`` and
+    the ids read once; one add a gathered element."""
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    nbytes = (_touched_rows(offsets, indices) * d * 4 * 2 + g.numel() * g.element_size()
+              + indices.numel() * 4)
+    return _bound(nbytes, B * T * L * d)
+
+
+def k5_bound(table: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
+             indices: torch.Tensor) -> dict:
+    """K5's least time: each touched table row and accumulator read and
+    written once, ``g`` and the ids read once; a bag's mean g^2 (2 d
+    operations) and, a slot, its accumulator add and a multiply, a multiply
+    and an add an element."""
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    nbytes = (_touched_rows(offsets, indices) * (d * table.element_size() + 4) * 2
+              + g.numel() * g.element_size() + indices.numel() * 4)
+    return _bound(nbytes, B * T * 2 * d + B * T * L * (3 * d + 2))
+
+
+def k3b_bound(T: int, B: int, H: int) -> dict:
+    """K3b's least time: y and the state gradients (f32) read and delta
+    written once, W read once, dh0 written once; the reverse dot (a
+    multiply and an add for each of T * B * H * H terms) and 4 operations
+    an element for the tanh VJP."""
+    nbytes = 3 * T * B * H * 4 + H * H * 4 + B * H * 4
+    return _bound(nbytes, 2 * T * B * H * H + 4 * T * B * H)
+
+
+def k1b_library(out: torch.Tensor):
+    """K1b's scatter as one PyTorch call: ``Tensor.index_add_`` into ``out``
+    of the gradient rows ``(B*T*L, d)`` f32 (the pooled gradient broadcast
+    over the L slots beforehand) at the fused rows ``flat``."""
+    def call(g_rows, flat):
+        return out.index_add_(0, flat, g_rows)
+    return call
+
+
+def k5_library(table: torch.Tensor, acc: torch.Tensor, learning_rate: float,
+               eps: float = 1e-8):
+    """K5's scatters as PyTorch calls on gradient rows broadcast beforehand
+    (and their mean squares): the accumulator's ``index_add_``, its gather
+    and the table's ``index_add_``."""
+    def call(g_rows, row_g2, flat):
+        acc.index_add_(0, flat, row_g2)
+        scale = torch.rsqrt(acc[flat] + eps)
+        return table.index_add_(0, flat, (-learning_rate * (g_rows * scale[:, None])).to(
+            table.dtype))
+    return call
+
+
+def k3b_library(h2h_w: torch.Tensor, h2h_b: torch.Tensor, xproj: torch.Tensor):
+    """cuDNN's backward of the tanh RNN of ``k3_library`` (W_ih = I) run on
+    ``xproj``: the gradient of its input for a given gradient of its
+    outputs, the work of K3b (cuDNN's backward-data pass; no weight
+    gradients are asked for)."""
+    rnn_call = k3_library(h2h_w, h2h_b)
+    x = xproj.to(h2h_w.dtype).detach().requires_grad_(True)
+    with torch.enable_grad():
+        out, _ = rnn_call(x)
+
+    def call(g_out):
+        with torch.enable_grad():
+            return torch.autograd.grad(out, [x], g_out, retain_graph=True)
+    return call
 
 
 def k1_library(table: torch.Tensor, offsets: torch.Tensor):

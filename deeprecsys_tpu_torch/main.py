@@ -14,10 +14,16 @@ Two modes, as in the JAX package (reference ``DeepRecSys.py``):
   compute time is the host clock between two ``torch.cuda.synchronize()``
   calls around the whole loop.
 
+``--checkpoint <name>`` (both modes) starts from a trained float checkpoint
+(``<name>.npz`` + ``<name>.tree.json``, the JAX package's format, e.g. from
+``python -m deeprecsys_tpu_torch.train --save <name>``) instead of random
+weights; a quantized one (``--table_quant``) raises until int8 tables are
+ported (ROADMAP.md Queue 1 item 8).
+
 The parser carries the JAX package's flags that the port reads, with the
 same names and defaults, but ``--engine_backend`` defaults to ``gpu``, and
 adds ``--device`` (standalone mode). The flags of modes not ported yet
-(``--serve``, ``--checkpoint``, ``--engine_backend sim``, ...) raise
+(``--serve``, ``--score_output``, ``--engine_backend sim``, ...) raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 Examples (on a machine with a CUDA card; ``--engine_backend cpu`` or
@@ -46,7 +52,6 @@ from deeprecsys_tpu_torch.config import (
 # item that ports each.
 _NOT_PORTED = {
     "serve": "Queue 1 item 11b (HTTP ingress)",
-    "checkpoint": "Queue 1 item 9 (trainer, checkpoints)",
     "score_output": "Queue 1 item 11b (offline scoring)",
     "enable_profiling": "Queue 1 item 13 (op breakdown through torch.profiler)",
 }
@@ -123,9 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_coalesce", type=int, default=8)
     p.add_argument("--log_file", type=str, default=None)
     p.add_argument("--debug_mode", action="store_true")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="start from this trained float checkpoint (<path>.npz + "
+                        "<path>.tree.json) instead of random weights: standalone and --queue")
     # Modes not ported yet (_NOT_PORTED)
     p.add_argument("--serve", action="store_true")
-    p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--score_output", type=str, default=None)
     p.add_argument("--enable_profiling", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
@@ -225,7 +232,8 @@ def run_queue(model_cfg: ModelConfig, args):
               "executions a second of one, and at 100 queries/s their queue did not "
               "drain (engine_bench; PERF.md). Use --inference_engines 1.", flush=True)
     res = run_serving(model_cfg, serving_config_from_args(args),
-                      log_responses=args.log_file is not None)
+                      log_responses=args.log_file is not None,
+                      checkpoint_path=args.checkpoint)
     if res.engine_errors:
         raise RuntimeError(f"{len(res.engine_errors)} engine(s) failed during the run, "
                            f"so its latencies are not a measurement: {res.engine_errors}")
@@ -246,9 +254,12 @@ def run_standalone(model_cfg: ModelConfig, args) -> dict:
 
     device = resolve_device(args.device)
     model = get_model(model_cfg, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.numpy_rand_seed)
-    params = model.init(gen)
+    if args.checkpoint:
+        from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params
+
+        params = checkpoint_params(model_cfg, args.checkpoint, device)
+    else:
+        params = model.init(torch.Generator(device=device).manual_seed(args.numpy_rand_seed))
     data = RecDataGenerator(model_cfg, seed=args.numpy_rand_seed,
                             data_generation=args.data_generation)
 

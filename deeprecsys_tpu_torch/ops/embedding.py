@@ -11,6 +11,18 @@ fused gather + sum over the pooling axis:
 hand-written Hopper kernel K1 (``csrc/embedding_bag.cu``), on a CPU tensor
 it runs the plain version ``embedding_bag_reference``. The port keeps only
 the unpacked layout; packed TPU checkpoints are unpacked by ``bridge``.
+
+Under autograd (grad enabled and a table that requires grad, as in the
+dense trainer) the lookup runs as ``EmbeddingBagFunction``: its forward is
+the same dispatch, its backward ``embedding_bag_backward``, kernel K1b
+(``csrc/embedding_bag_backward.cu``) on the card and the ``index_add_`` of
+``embedding_bag_backward_reference`` on the CPU. Inference and serving
+(``inference_mode``, tables without grad) call the dispatch directly.
+
+The export helpers ``quantize_rowwise_int8`` and ``quantize_pertable_int8``
+are plain torch: they run once an export. (JAX's ``pack_table`` is
+``bridge._pack``: the port packs rows only to write the JAX package's file
+layouts.)
 """
 
 from __future__ import annotations
@@ -211,9 +223,18 @@ def embedding_bag(table: torch.Tensor, offsets: torch.Tensor,
     CPU tensors take ``embedding_bag_reference``. CUDA tensors launch K1
     with ``k1_launch_plan``'s mapping and count the launch in
     ``embedding_bag.kernel_launches``; a failed build or launch raises.
+    With grad enabled and ``table.requires_grad`` the call is differentiable
+    with respect to the table (``EmbeddingBagFunction``).
     """
     cdt = compute_dtype if compute_dtype is not None else table.dtype
     _check(table, offsets, indices, cdt, mask)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return EmbeddingBagFunction.apply(table, offsets, indices, mask, cdt)
+    return _dispatch(table, offsets, indices, mask, cdt)
+
+
+def _dispatch(table, offsets, indices, mask, cdt) -> torch.Tensor:
+    """The plain version on the CPU, K1 on the card (checked inputs)."""
     device = table.device
     if device.type == "cpu":
         return embedding_bag_reference(table, offsets, indices,
@@ -246,3 +267,166 @@ def _launch(table, offsets, indices, mask, cdt, plan: K1Plan) -> torch.Tensor:
 
 
 embedding_bag.kernel_launches = 0
+
+
+# ------------------------------------------------------- backward (K1b)
+
+K1B_WARPS_PER_BLOCK = 8  # kWarpsPerBlock in csrc/embedding_bag_backward.cu
+
+
+def embedding_bag_backward_reference(g: torch.Tensor, offsets: torch.Tensor,
+                                     indices: torch.Tensor, num_rows: int, *,
+                                     mask: torch.Tensor | None = None,
+                                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch gradient of the pooled lookup with respect to the
+    table: each bag's pooled gradient, broadcast over its L slots in f32
+    (zero where masked out), ``index_add_``-ed into the rows the bag read.
+    Accumulates into ``out`` (f32 ``(num_rows, d)``) if given, else into
+    zeros; returns the f32 sum."""
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    rows = g.float()[:, :, None, :].expand(B, T, L, d)
+    if mask is not None:
+        rows = torch.where(mask[..., None], rows, 0.0)
+    if out is None:
+        out = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, flat, rows.reshape(B * T * L, d))
+
+
+def _declare_backward(lib: ctypes.CDLL):
+    lib.drs_embedding_bag_backward.restype = ctypes.c_int
+    lib.drs_embedding_bag_backward.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,        # g, g dtype, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
+        ctypes.c_void_p,                                    # grad (f32)
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_void_p,                      # grid, stream
+    ]
+
+
+def embedding_bag_backward(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+                           num_rows: int, *, mask: torch.Tensor | None = None,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """The gradient of ``embedding_bag`` with respect to its table (the
+    gather's VJP, a scatter-add; JAX ``ops/embedding.py:770-800`` under
+    ``jax.value_and_grad``).
+
+    Args:
+      g: ``(B, T, d)`` gradient of the pooled output, float32 or bfloat16.
+      offsets, indices, mask: as ``embedding_bag`` took them.
+      num_rows: the table's rows R.
+      out: optional f32 ``(R, d)`` buffer to accumulate into; by default a
+        zero-filled one is allocated.
+
+    Returns:
+      the f32 ``(R, d)`` gradient (``out``). Rows repeat within a batch,
+      and the kernel adds them with atomics in no fixed order, so two runs
+      agree to within the f32 rounding of the adds to each row.
+
+    CPU tensors take ``embedding_bag_backward_reference``. CUDA tensors
+    launch K1b and count the launch in
+    ``embedding_bag_backward.kernel_launches``; a failed build or launch
+    raises.
+    """
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    if g.shape != (B, T, d) or d not in _KERNEL_WIDTHS or g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"g must be (B, T, d) = ({B}, {T}, d) float32 or bfloat16 with "
+                         f"d in {_KERNEL_WIDTHS}; got {tuple(g.shape)} {g.dtype}")
+    if out is not None and (out.shape != (num_rows, d) or out.dtype != torch.float32
+                            or not out.is_contiguous() or out.device != g.device):
+        raise ValueError(f"out must be a contiguous float32 ({num_rows}, {d}) tensor on "
+                         f"{g.device}; got {tuple(out.shape)} {out.dtype} on {out.device}")
+    _check(g.new_empty((0, d)), offsets, indices, g.dtype, mask)
+    if g.device.type == "cpu":
+        return embedding_bag_backward_reference(g, offsets, indices, num_rows,
+                                                mask=mask, out=out)
+    if g.device.type != "cuda":
+        raise ValueError(f"embedding_bag_backward runs on cpu or cuda, not {g.device}")
+    g = g.contiguous()
+    if out is None:
+        out = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
+    if B * T == 0 or L == 0:
+        return out
+    tasks = B * T * -(-L // 32)  # a warp a bag and 32 of its slots
+    grid = -(-tasks // K1B_WARPS_PER_BLOCK)
+    _build.launch(_build.load("embedding_bag_backward", _declare_backward),
+                  "drs_embedding_bag_backward", g.device,
+                  g.data_ptr(), _DTYPE_CODES[g.dtype], d, offsets.data_ptr(),
+                  indices.data_ptr(), mask.data_ptr() if mask is not None else None,
+                  out.data_ptr(), B * T, T, L, grid)
+    _build.count_launch(embedding_bag_backward)
+    return out
+
+
+embedding_bag_backward.kernel_launches = 0
+
+
+def scatter_counts(offsets: torch.Tensor, indices: torch.Tensor, num_rows: int,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``(num_rows,)`` f32: how many live slots add into each row."""
+    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    ones = torch.ones(flat.shape, dtype=torch.float32, device=flat.device)
+    if mask is not None:
+        ones = ones * mask.reshape(-1)
+    return torch.zeros(num_rows, dtype=torch.float32, device=flat.device).index_add_(0, flat, ones)
+
+
+def backward_tolerance(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+                       num_rows: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Elementwise bound on |a - b| for two f32 gradients of this op that
+    differ only in the order of each row's adds: n_r * 2^-22 * sum|g| for a
+    row of n_r adds (recursive summation error of both orders)."""
+    abs_sum = embedding_bag_backward_reference(g.abs(), offsets, indices, num_rows, mask=mask)
+    n = scatter_counts(offsets, indices, num_rows, mask)
+    return n[:, None] * 2.0 ** -22 * abs_sum
+
+
+class EmbeddingBagFunction(torch.autograd.Function):
+    """``embedding_bag`` differentiable with respect to the table: forward
+    K1 (or the plain version on the CPU), backward K1b (or its plain
+    version). The gradient comes back in the table's dtype; for a bf16
+    table it is summed in f32 and rounded once (JAX's bf16 scatter rounds
+    at each add)."""
+
+    @staticmethod
+    def forward(ctx, table, offsets, indices, mask, cdt):
+        ctx.save_for_backward(offsets, indices, mask)
+        ctx.num_rows, ctx.table_dtype = table.shape[0], table.dtype
+        return _dispatch(table, offsets, indices, mask, cdt)
+
+    @staticmethod
+    def backward(ctx, g):
+        offsets, indices, mask = ctx.saved_tensors
+        grad = embedding_bag_backward(g, offsets, indices, ctx.num_rows, mask=mask)
+        return grad.to(ctx.table_dtype), None, None, None, None
+
+
+# ---------------------------------------------------------- export helpers
+
+def quantize_rowwise_int8(table: torch.Tensor) -> torch.Tensor:
+    """A float ``(R, d)`` table as ``(R, d + 4)`` int8 rows: symmetric int8
+    values at a per-row scale max|row| / 127, the last 4 bytes the scale's
+    float32 bit pattern (JAX ``ops/embedding.py:211-235``; the arithmetic
+    in the table's dtype, as there)."""
+    scale = torch.clamp(table.abs().amax(dim=1), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(table / scale[:, None]), -127, 127).to(torch.int8)
+    scale_bytes = scale.float().contiguous().view(torch.int8).reshape(-1, 4)
+    return torch.cat([q, scale_bytes], dim=1)
+
+
+def quantize_pertable_int8(table: torch.Tensor, table_rows) -> dict:
+    """A float fused table as per-table int8: ``{"q": (R, d) int8, "scale":
+    (T,) f32}`` with scale_t = max|table t| / 127, arithmetic in f32 (JAX
+    ``ops/embedding.py:557-583``). The division by 127 is a multiplication
+    by f32(1/127), as in the JAX package's jitted program (XLA rewrites a
+    division by a constant so), which keeps the exported bytes equal."""
+    counts = torch.as_tensor(np.asarray(table_rows, dtype=np.int64), device=table.device)
+    tid = torch.repeat_interleave(torch.arange(len(counts), device=table.device), counts)
+    t32 = table.float()
+    absmax = torch.zeros(len(counts), dtype=torch.float32, device=table.device)
+    absmax.scatter_reduce_(0, tid, t32.abs().amax(dim=1), "amax", include_self=False)
+    scale = torch.clamp(absmax, min=1e-30) * np.float32(1.0 / 127.0).item()
+    q = torch.clamp(torch.round(t32 / scale[tid][:, None]), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale}

@@ -14,6 +14,13 @@ plain loop ``rnn_scan_reference``. Numerics follow the JAX op: the dot
 accumulates in f32, then ``xp + dot``, then ``+ h2h_b``, tanh in f32, and
 the hidden state is stored in the input dtype at every step.
 
+Under autograd (grad enabled and an input that requires grad, as in the
+trainer) the recurrence runs as ``RnnScanFunction``: forward K3, backward
+``rnn_scan_backward``, the reverse scan, kernel K3b
+(``csrc/rnn_scan_backward.cu``) on the card and the plain loop
+``rnn_scan_backward_reference`` on the CPU. Inference and serving call the
+dispatch directly.
+
 The init keeps the JAX package's deliberate departure from the reference:
 1/sqrt(fan_in) weights and zero biases (``deeprecsys_tpu/ops/rnn.py:13-22``).
 """
@@ -134,6 +141,16 @@ def rnn_scan(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Tensor,
     ``rnn_scan.kernel_launches``; a failed build or launch raises.
     """
     _check(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths)
+    if torch.is_grad_enabled() and xproj.shape[0] > 0 and any(
+            t is not None and t.requires_grad for t in (xproj, h2h_w, h2h_b, h0)):
+        # all_h[-1] is a view of all_h, so the gradients of the two outputs add.
+        all_h = RnnScanFunction.apply(xproj, h2h_w, h2h_b, h0, seq_lengths, out_dtype)
+        return all_h, all_h[-1]
+    return _dispatch(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths)
+
+
+def _dispatch(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths):
+    """The plain loop on the CPU, K3 on the card (checked inputs)."""
     if xproj.device.type == "cpu":
         return rnn_scan_reference(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths)
     if xproj.device.type != "cuda":
@@ -160,6 +177,124 @@ def rnn_scan(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Tensor,
 
 
 rnn_scan.kernel_launches = 0
+
+
+# ------------------------------------------------------- backward (K3b)
+
+def rnn_scan_backward_reference(y: torch.Tensor, gh: torch.Tensor, h2h_w: torch.Tensor,
+                                seq_lengths: torch.Tensor | None = None):
+    """Plain PyTorch reverse scan (see ``csrc/rnn_scan_backward.cu``): the
+    gradient ``dh`` of the state carried back in f32 from step T-1 to 0.
+
+    Args:
+      y: ``(T, B, H)`` f32 tanh values of the forward steps.
+      gh: ``(T, B, H)`` f32 gradient of every step's output state.
+      h2h_w: ``(H, H)`` recurrent weights, ``(in, out)``.
+      seq_lengths: optional ``(B,)``; a frozen step passes ``dh`` on.
+
+    Returns:
+      ``(delta (T, B, H), dh0 (B, H))``, both f32: the gradient of each
+      step's pre-activation (hence of ``xproj``) and of the initial state.
+    """
+    T, B, H = y.shape
+    w_t = h2h_w.float().t()
+    dh = torch.zeros((B, H), dtype=torch.float32, device=y.device)
+    delta = torch.empty((T, B, H), dtype=torch.float32, device=y.device)
+    for t in range(T - 1, -1, -1):
+        g = dh + gh[t]
+        d = (g + g * y[t]) * (1.0 - y[t])  # JAX's tanh VJP: g (1 + y)(1 - y)
+        if seq_lengths is not None:
+            alive = (t < seq_lengths.to(torch.int32))[:, None]
+            d = torch.where(alive, d, 0.0)
+            dh = torch.where(alive, d @ w_t, g)
+        else:
+            dh = d @ w_t
+        delta[t] = d
+    return delta, dh
+
+
+def _declare_backward(lib: ctypes.CDLL):
+    lib.drs_rnn_scan_backward.restype = ctypes.c_int
+    lib.drs_rnn_scan_backward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # y, gh, w, w dtype
+        ctypes.c_void_p,                                                    # seq_lengths
+        ctypes.c_void_p, ctypes.c_void_p,                                   # delta, dh0
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,                           # T, B, H
+        ctypes.c_void_p,                                                    # stream
+    ]
+
+
+def rnn_scan_backward(y: torch.Tensor, gh: torch.Tensor, h2h_w: torch.Tensor,
+                      seq_lengths: torch.Tensor | None = None):
+    """The reverse scan of ``rnn_scan`` (the VJP of JAX's ``lax.scan``,
+    ``ops/rnn.py:45-91``); arguments and results as
+    ``rnn_scan_backward_reference``.
+
+    CPU tensors take the plain loop. CUDA tensors launch K3b once, one
+    block a batch row, and count the launch in
+    ``rnn_scan_backward.kernel_launches``; a failed build or launch raises.
+    """
+    T, B, H = y.shape
+    if H != KERNEL_HIDDEN or gh.shape != y.shape or h2h_w.shape != (H, H):
+        raise ValueError(f"y and gh must be (T, B, {KERNEL_HIDDEN}) and h2h_w "
+                         f"({KERNEL_HIDDEN}, {KERNEL_HIDDEN}); got {tuple(y.shape)}, "
+                         f"{tuple(gh.shape)} and {tuple(h2h_w.shape)}")
+    if y.dtype != torch.float32 or gh.dtype != torch.float32 or h2h_w.dtype not in _DTYPE_CODES:
+        raise TypeError(f"y and gh must be float32 and h2h_w float32 or bfloat16; got "
+                        f"{y.dtype}, {gh.dtype} and {h2h_w.dtype}")
+    if seq_lengths is not None and (seq_lengths.shape != (B,) or seq_lengths.is_floating_point()):
+        raise TypeError(f"seq_lengths must be an integer ({B},) tensor")
+    if any(t is not None and t.device != y.device for t in (gh, h2h_w, seq_lengths)):
+        raise ValueError("y, gh, h2h_w and seq_lengths must be on one device")
+    if y.device.type == "cpu":
+        return rnn_scan_backward_reference(y, gh, h2h_w, seq_lengths)
+    if y.device.type != "cuda":
+        raise ValueError(f"rnn_scan_backward runs on cpu or cuda, not {y.device}")
+    delta = torch.empty((T, B, H), dtype=torch.float32, device=y.device)
+    dh0 = torch.zeros((B, H), dtype=torch.float32, device=y.device)
+    if T == 0 or B == 0:
+        return delta, dh0
+    y, gh, w = y.contiguous(), gh.contiguous(), h2h_w.contiguous()
+    lens = None if seq_lengths is None else seq_lengths.to(torch.int32).contiguous()
+    _build.launch(_build.load("rnn_scan_backward", _declare_backward), "drs_rnn_scan_backward",
+                  y.device, y.data_ptr(), gh.data_ptr(), w.data_ptr(), _DTYPE_CODES[w.dtype],
+                  None if lens is None else lens.data_ptr(), delta.data_ptr(), dh0.data_ptr(),
+                  T, B, H)
+    _build.count_launch(rnn_scan_backward)
+    return delta, dh0
+
+
+rnn_scan_backward.kernel_launches = 0
+
+
+class RnnScanFunction(torch.autograd.Function):
+    """``rnn_scan``'s ``all_h`` differentiable with respect to ``xproj``,
+    ``h2h_w``, ``h2h_b`` and ``h0``: forward K3 (the plain loop on the
+    CPU), backward K3b (its plain loop on the CPU) for the gradients of
+    ``xproj`` and ``h0``, then ``dW = sum_t h_{t-1}^T delta_t`` and
+    ``db = sum_t delta_t`` as one product and one sum."""
+
+    @staticmethod
+    def forward(ctx, xproj, h2h_w, h2h_b, h0, seq_lengths, out_dtype):
+        all_h, _ = _dispatch(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths)
+        ctx.save_for_backward(xproj, h2h_w, h2h_b, h0, seq_lengths, all_h)
+        return all_h
+
+    @staticmethod
+    def backward(ctx, g_all):
+        xproj, w, b, h0, lens, all_h = ctx.saved_tensors
+        T, B, H = all_h.shape
+        start = (torch.zeros((1, B, H), dtype=all_h.dtype, device=all_h.device) if h0 is None
+                 else h0.to(all_h.dtype)[None])
+        prev = torch.cat([start, all_h[:-1]]).float()  # h_{t-1}, as each step read it
+        # The f32 tanh of every step, from the stored states (teacher-forced).
+        y = torch.tanh((xproj + prev @ w.float()) + b.float())
+        delta, dh0 = rnn_scan_backward(y, g_all.float(), w, lens)
+        need = ctx.needs_input_grad
+        dw = (prev.reshape(T * B, H).t() @ delta.reshape(T * B, H)).to(w.dtype) if need[1] else None
+        db = delta.sum(dim=(0, 1)).to(b.dtype) if need[2] else None
+        dh0 = dh0.to(h0.dtype) if h0 is not None and need[3] else None
+        return delta if need[0] else None, dw, db, dh0, None, None
 
 
 def basic_rnn_scan(params: dict, xs: torch.Tensor, h0: torch.Tensor | None = None,

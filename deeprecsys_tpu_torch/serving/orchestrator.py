@@ -90,12 +90,17 @@ def run_serving(
     (required). With ``model_accel`` one more engine takes whole big
     queries: a ``SimEngine`` over ``accel_latency_model`` if given, else a
     compute engine on the card. ``params`` (the port's tensors) are shared
-    by every compute engine; None = each draws its own from its seed.
+    by every compute engine; None = each draws its own from its seed, or,
+    with ``checkpoint_path``, all share the checkpoint's params, loaded once
+    onto the engines' device (a quantized checkpoint raises: ROADMAP.md
+    Queue 1 item 8).
     """
-    if checkpoint_path:
-        raise NotImplementedError("serving from a checkpoint is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
     cfg = serving_cfg
+    if params is None and checkpoint_path:
+        from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params
+
+        params = checkpoint_params(model_cfg, checkpoint_path,
+                                   "cpu" if cfg.engine_backend == "cpu" else "cuda")
     request_q: queue.Queue = queue.Queue(maxsize=1024)
     accel_request_q: queue.Queue = queue.Queue(maxsize=32)
     pid_q: queue.Queue = queue.Queue()

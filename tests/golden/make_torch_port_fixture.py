@@ -31,11 +31,20 @@ promotes the bf16 activations to f32, and since bf16 x bf16 products are
 exact in f32 and the sums run in f32 either way, the numerics are the
 bf16 path's.
 
-``chip_smoke.py`` loads both on the card; ``tests/test_torch_dlrm.py`` and
-``tests/test_torch_models.py`` rebuild them and compare, so they cannot go
-stale.
+``torch_port_train.npz`` holds, for each trained family (rm1, wnd,
+mtwnd, ncf, din, dien) and mode (``dense``: adagrad on every param;
+``sparse``: ``sparse_tables``, row-wise AdaGrad on the table), keys
+``<model>/<mode>/...``: the weight ``seed`` and ``fingerprint`` (as above),
+the learning rate ``lr``, the ``TRAIN_STEPS`` batches of ``TRAIN_BATCH``
+from ``RecDataGenerator(cfg, seed=1)`` (``dense`` where the model takes
+it, ``indices``) and the JAX trainer's ``losses`` on them, in f32 at
+``table_scale=2000``, starting from ``bridge.init_numpy``'s weights.
 
-Regenerate: python -m tests.golden.make_torch_port_fixture [rm1] [zoo]
+``chip_smoke.py`` loads all three on the card; ``tests/test_torch_dlrm.py``,
+``tests/test_torch_models.py`` and ``tests/test_torch_golden.py`` rebuild
+them and compare, so they cannot go stale.
+
+Regenerate: python -m tests.golden.make_torch_port_fixture [rm1] [zoo] [train]
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from deeprecsys_tpu import train as jax_train
 from deeprecsys_tpu import zoo
 from deeprecsys_tpu.data import RecDataGenerator
 from deeprecsys_tpu.models import get_model
@@ -54,6 +64,12 @@ from deeprecsys_tpu_torch import zoo as port_zoo
 
 PATH = Path(__file__).parent / "torch_port_rm1.npz"
 ZOO_PATH = Path(__file__).parent / "torch_port_zoo.npz"
+TRAIN_PATH = Path(__file__).parent / "torch_port_train.npz"
+TRAIN_MODELS = ("rm1", "wnd", "mtwnd", "ncf", "din", "dien")
+TRAIN_MODES = ("dense", "sparse")
+TRAIN_STEPS = 3
+TRAIN_BATCH = 16
+TRAIN_LR = 0.01
 ZOO_MODELS = ("rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")
 SCALE = 2000
 BATCH = 64
@@ -143,9 +159,43 @@ def build_zoo() -> dict[str, np.ndarray]:
     return {f"{name}/{k}": v for name in ZOO_MODELS for k, v in build_model(name).items()}
 
 
-def main(which=("rm1", "zoo")):
+def build_train_model(name: str, mode: str) -> dict[str, np.ndarray]:
+    """``name``'s ``mode`` entries of ``torch_port_train.npz``, keys
+    without the prefix: the JAX Trainer (adagrad, ``TRAIN_LR``) restarted
+    from ``bridge.init_numpy``'s weights, ``TRAIN_STEPS`` steps."""
+    sparse = mode == "sparse"
+    jt = jax_train.Trainer(_config("float32", name), optimizer="adagrad",
+                           learning_rate=TRAIN_LR, sparse_tables=sparse)
+    np_params = bridge.init_numpy(_port_config("float32", name), WEIGHT_SEED)
+    jt.params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    if sparse:
+        rest = {k: v for k, v in jt.params.items() if k != "tables"}
+        jt.opt_state = (jt.tx.init(rest), jnp.zeros((jt.cfg.total_rows,), jnp.float32))
+    else:
+        jt.opt_state = jt.tx.init(jt.params)
+    gen = RecDataGenerator(jt.cfg, seed=1)
+    batches = [gen.generate_batch(TRAIN_BATCH) for _ in range(TRAIN_STEPS)]
+    losses = jt.fit(TRAIN_STEPS, batch_size=TRAIN_BATCH, seed=1).losses
+    arrays = {"seed": np.asarray(WEIGHT_SEED), "lr": np.asarray(TRAIN_LR, np.float32),
+              "fingerprint": bridge.fingerprint(np_params),
+              "indices": np.stack([b.indices for b in batches]),
+              "losses": np.asarray(losses, np.float32)}
+    if batches[0].dense is not None:
+        arrays["dense"] = np.stack([b.dense for b in batches])
+    return arrays
+
+
+def build_train() -> dict[str, np.ndarray]:
+    return {f"{name}/{mode}/{k}": v for name in TRAIN_MODELS for mode in TRAIN_MODES
+            for k, v in build_train_model(name, mode).items()}
+
+
+def main(which=("rm1", "zoo", "train")):
+    builders = {"rm1": (PATH, build), "zoo": (ZOO_PATH, build_zoo),
+                "train": (TRAIN_PATH, build_train)}
     for name in which:
-        path, arrays = (PATH, build()) if name == "rm1" else (ZOO_PATH, build_zoo())
+        path, build_fn = builders[name]
+        arrays = build_fn()
         np.savez(path, **arrays)
         print(f"wrote {path} ({path.stat().st_size} bytes)")
 
@@ -154,4 +204,4 @@ if __name__ == "__main__":
     import sys
 
     jax.config.update("jax_platforms", "cpu")
-    main(sys.argv[1:] or ("rm1", "zoo"))
+    main(sys.argv[1:] or ("rm1", "zoo", "train"))

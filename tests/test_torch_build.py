@@ -148,10 +148,18 @@ def test_launch_counts_are_exact_under_threads(path, monkeypatch, short_switches
 
 
 def test_wrappers_count_with_the_locked_helper():
-    """K1 and K3 both count through ``_build.count_launch`` (their CUDA
-    paths cannot run here)."""
+    """Every kernel counts through ``_build.count_launch`` (their CUDA
+    paths cannot run here): K1, K3 (in ``rnn._dispatch``, which ``rnn_scan``
+    and its autograd forward call), K1b, K5 and K3b."""
     import inspect
 
+    from deeprecsys_tpu_torch.ops import sparse_adagrad
+
     assert "_build.count_launch(embedding_bag)" in inspect.getsource(embedding._launch)
-    assert "_build.count_launch(rnn_scan)" in inspect.getsource(rnn.rnn_scan)
+    assert "_build.count_launch(rnn_scan)" in inspect.getsource(rnn._dispatch)
+    assert "_build.count_launch(embedding_bag_backward)" in inspect.getsource(
+        embedding.embedding_bag_backward)
+    assert "_build.count_launch(sparse_adagrad_step)" in inspect.getsource(
+        sparse_adagrad.sparse_adagrad_step)
+    assert "_build.count_launch(rnn_scan_backward)" in inspect.getsource(rnn.rnn_scan_backward)
     assert embedding_bag.kernel_launches >= 0 and rnn_scan.kernel_launches >= 0

@@ -15,10 +15,14 @@ from deeprecsys_tpu.serving import buckets as jax_buckets
 from deeprecsys_tpu.serving import latency_model as jax_lm
 from deeprecsys_tpu.serving import load_generator as jax_lg
 from deeprecsys_tpu.serving import metrics as jax_metrics
+from deeprecsys_tpu.data import criteo as jax_criteo
+from deeprecsys_tpu.utils import metrics_ml as jax_metrics_ml
 from deeprecsys_tpu.serving import packets as jax_packets
 from deeprecsys_tpu_torch import config, zoo
 from deeprecsys_tpu_torch import main as port_main
+from deeprecsys_tpu_torch.data import criteo
 from deeprecsys_tpu_torch.serving import buckets, latency_model, load_generator, metrics, packets
+from deeprecsys_tpu_torch.utils import metrics_ml
 
 DERIVED = ("num_tables", "scaled_rows", "table_offsets", "total_rows", "resolved_table_pack",
            "dense_dim", "num_fea", "top_in_dim", "ln_top", "out_dim", "behavior_table_ids")
@@ -305,3 +309,51 @@ def test_criteo_model_raises_in_the_port():
     args = port_main.build_parser().parse_args(["--model", "criteo"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_main.model_config_from_args(args)
+
+
+@pytest.mark.parametrize("kw", [{}, {"rows_per_table": 1000, "d": 64,
+                                     "mlp_bot": (13, 128, 64), "mlp_top": (128, 1)}])
+def test_criteo_config_equals_jax(kw):
+    _assert_same_config(criteo.criteo_model_config(**kw), jax_criteo.criteo_model_config(**kw))
+
+
+@pytest.mark.parametrize("signal", [False, True])
+def test_criteo_reader_and_writer_equal_jax(signal, tmp_path):
+    criteo.write_synthetic_criteo(tmp_path / "p.tsv", 150, seed=4, missing_rate=0.2,
+                                  signal=signal)
+    jax_criteo.write_synthetic_criteo(tmp_path / "j.tsv", 150, seed=4, missing_rate=0.2,
+                                      signal=signal)
+    assert (tmp_path / "p.tsv").read_bytes() == (tmp_path / "j.tsv").read_bytes()
+    with open(tmp_path / "p.tsv", "a") as f:  # a CRLF line and a short one
+        f.write("1\t5" + "\t" * 37 + "\r\n0\t3\n")
+    cfg = criteo.criteo_model_config(rows_per_table=777)
+    jcfg = jax_criteo.criteo_model_config(rows_per_table=777)
+    got = list(criteo.CriteoReader(tmp_path / "p.tsv", cfg).batches(38, max_batches=3))
+    want = list(jax_criteo.CriteoReader(tmp_path / "p.tsv", jcfg).batches(38, max_batches=3))
+    assert len(got) == len(want) == 3
+    for (gb, gl), (wb, wl) in zip(got, want):
+        np.testing.assert_array_equal(gb.dense, wb.dense)
+        np.testing.assert_array_equal(gb.indices, wb.indices)
+        np.testing.assert_array_equal(gl, wl)
+    for h in ("", "0", "ffffffff", "zz9", "68fd1e64"):
+        assert criteo._hash_hex(h, 777) == jax_criteo._hash_hex(h, 777)
+
+
+@pytest.mark.parametrize("bad", [{"embedding_rows": (10,) * 3}, {"num_indices_per_lookup": 2}])
+def test_criteo_reader_validation_equals_jax(bad):
+    with pytest.raises(ValueError) as got:
+        criteo.CriteoReader("x", criteo.criteo_model_config(rows_per_table=10).replace(**bad))
+    with pytest.raises(ValueError) as want:
+        jax_criteo.CriteoReader("x", jax_criteo.criteo_model_config(rows_per_table=10)
+                                .replace(**bad))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_auc_equals_jax(seed):
+    rng = np.random.default_rng(seed)
+    scores = np.round(rng.random(500), 2)  # ties
+    labels = rng.random(500) < 0.3
+    assert metrics_ml.auc(scores, labels) == jax_metrics_ml.auc(scores, labels)
+    assert np.isnan(metrics_ml.auc(scores, np.zeros(500))) and np.isnan(
+        jax_metrics_ml.auc(scores, np.zeros(500)))

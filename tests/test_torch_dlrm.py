@@ -85,11 +85,17 @@ def test_bridge_round_trip(dtype):
 
 
 def test_bridge_rejects_quantized_tables():
+    """The bridge carries quantized tables (export bundles are written and
+    read), but the port's models refuse to serve them until int8 tables
+    are ported."""
     cfg = _cfg()
+    params = bridge.params_from_numpy({"tables": {"q": np.zeros((4, 32), np.int8),
+                                                  "scale": np.ones(8, np.float32)}},
+                                      cfg, "cpu")
+    assert params["tables"]["q"].dtype == torch.int8
+    batch = RecDataGenerator(cfg, seed=1).generate_batch(2).to("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bridge.params_from_numpy({"tables": {"q": np.zeros((4, 32), np.int8),
-                                             "scale": np.ones(8, np.float32)}},
-                                 cfg, "cpu")
+        pooled_lookup(params["tables"], batch, cfg)
 
 
 def test_port_init_shapes_and_range():

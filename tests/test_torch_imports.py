@@ -22,6 +22,7 @@ MODULES = [
     "deeprecsys_tpu_torch.engine_bench",
     "deeprecsys_tpu_torch.data",
     "deeprecsys_tpu_torch.data.generator",
+    "deeprecsys_tpu_torch.data.criteo",
     "deeprecsys_tpu_torch.models",
     "deeprecsys_tpu_torch.models.base",
     "deeprecsys_tpu_torch.models.dlrm",
@@ -36,6 +37,9 @@ MODULES = [
     "deeprecsys_tpu_torch.ops.interactions",
     "deeprecsys_tpu_torch.ops.mlp",
     "deeprecsys_tpu_torch.ops.rnn",
+    "deeprecsys_tpu_torch.ops.sparse_adagrad",
+    "deeprecsys_tpu_torch.parallel",
+    "deeprecsys_tpu_torch.parallel.sharding",
     "deeprecsys_tpu_torch.serving",
     "deeprecsys_tpu_torch.serving.buckets",
     "deeprecsys_tpu_torch.serving.engine",
@@ -45,7 +49,10 @@ MODULES = [
     "deeprecsys_tpu_torch.serving.orchestrator",
     "deeprecsys_tpu_torch.serving.packets",
     "deeprecsys_tpu_torch.serving.scheduler",
+    "deeprecsys_tpu_torch.utils.checkpoint",
     "deeprecsys_tpu_torch.utils.devices",
+    "deeprecsys_tpu_torch.utils.metrics_ml",
+    "deeprecsys_tpu_torch.train",
     "chip_smoke",
 ]
 

@@ -1,4 +1,5 @@
-"""K1 and K3 against their plain versions on a CUDA card.
+"""K1, K3 and the training kernels K1b, K5 and K3b against their plain
+versions on a CUDA card.
 
 These tests need a card; without one they skip. The file imports no JAX,
 so it runs where only torch is installed (``--noconftest`` skips
@@ -16,6 +17,13 @@ Tolerances:
   one ulp of the output dtype; frozen rows exact); the free-running scans
   within 1e-5 (f32) and 2^-7 (bf16) of the plain loop (chip_smoke.py
   states why).
+- K1b (``ops.embedding.backward_tolerance``) and K5
+  (``ops.sparse_adagrad.sparse_adagrad_tolerance``): the kernels add each
+  row's terms with atomics in no fixed order, so a row of n adds agrees
+  within n roundings of its running sum (bf16 tables: of the bf16 adds).
+- K3b: the reverse scan in f32 against its plain loop, each with its own
+  order of the 64-term dot, carried over T steps: within 1e-5 of the
+  largest |delta| (``RNN_BACKWARD_RTOL``; chip_smoke.py measures it).
 """
 
 import numpy as np
@@ -23,9 +31,14 @@ import pytest
 import torch
 
 from deeprecsys_tpu_torch.ops import (
-    embedding_bag, embedding_bag_reference, rnn_scan, rnn_scan_reference)
-from deeprecsys_tpu_torch.ops.embedding import pooled_tolerance
+    embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
+    embedding_bag_reference, rnn_scan, rnn_scan_backward, rnn_scan_backward_reference,
+    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference)
+from deeprecsys_tpu_torch.ops.embedding import backward_tolerance, pooled_tolerance
 from deeprecsys_tpu_torch.ops.rnn import rnn_scan_tolerance
+from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
+
+RNN_BACKWARD_RTOL = 1e-5
 
 pytestmark = pytest.mark.gpu
 
@@ -199,3 +212,115 @@ def test_rnn_scan_kernel_plan_edges(cuda, T, B, out_dt, use_h0):
     torch.testing.assert_close(last.float(), want_last.float(), rtol=0, atol=atol)
     start = h0[0].to(out_dt) if use_h0 else torch.zeros(64, dtype=out_dt, device=cuda)
     assert torch.equal(got[:, 0], start.expand(T, 64))  # lens[0] == 0
+
+
+# ------------------------------------------------------------ training kernels
+
+def _dup_inputs(cuda, B, T, L, rows, d, seed):
+    """Ids from few rows a table, so rows repeat many times in a batch."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    offsets = torch.arange(T, dtype=torch.int32, device=cuda) * rows
+    indices = torch.randint(0, rows, (B, T, L), generator=g, device=cuda).to(torch.int32)
+    grad = torch.randn((B, T, d), generator=g, device=cuda)
+    return g, offsets, indices, grad
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("B,T,L,rows", [(37, 3, 23, 50), (128, 8, 80, 2000), (5, 2, 1, 3)])
+def test_embedding_bag_backward_kernel_matches_reference(cuda, B, T, L, rows, d, g_dt, masked):
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=L + d)
+    grad = grad.to(g_dt)
+    mask = (torch.rand((B, T, L), generator=gen, device=cuda) < 0.7) if masked else None
+    before = embedding_bag_backward.kernel_launches
+    got = embedding_bag_backward(grad, offsets, indices, T * rows, mask=mask)
+    torch.cuda.synchronize()
+    assert embedding_bag_backward.kernel_launches == before + 1
+    want = embedding_bag_backward_reference(grad, offsets, indices, T * rows, mask=mask)
+    tol = backward_tolerance(grad, offsets, indices, T * rows, mask)
+    assert got.dtype == torch.float32 and got.shape == (T * rows, d)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_embedding_bag_autograd_launches_k1b_and_not_under_inference(cuda):
+    gen, offsets, indices, _ = _dup_inputs(cuda, 16, 3, 7, 40, 32, seed=3)
+    table = torch.randn((120, 32), generator=gen, device=cuda).requires_grad_(True)
+    before = embedding_bag_backward.kernel_launches
+    out = embedding_bag(table, offsets, indices)
+    (out * out).sum().backward()
+    torch.cuda.synchronize()
+    assert embedding_bag_backward.kernel_launches == before + 1
+    want = embedding_bag_backward_reference(2 * out.detach(), offsets, indices, 120)
+    torch.testing.assert_close(table.grad, want, rtol=1e-5, atol=1e-5)
+    with torch.inference_mode():
+        assert embedding_bag(table, offsets, indices).grad_fn is None
+    assert embedding_bag(table.detach(), offsets, indices).grad_fn is None
+
+
+@pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("B,T,L,rows", [(37, 3, 23, 50), (128, 8, 80, 2000), (5, 2, 1, 3)])
+def test_sparse_adagrad_kernel_matches_reference(cuda, B, T, L, rows, d, table_dt, g_dt):
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=L + 2 * d)
+    grad = (grad * 1e-2).to(g_dt)
+    table0 = (torch.rand((T * rows, d), generator=gen, device=cuda) - 0.5).to(table_dt)
+    acc0 = torch.rand((T * rows,), generator=gen, device=cuda) * 1e-4
+    table, acc = table0.clone(), acc0.clone()
+    before = sparse_adagrad_step.kernel_launches
+    sparse_adagrad_step(table, acc, offsets, indices, grad, 0.1)
+    torch.cuda.synchronize()
+    assert sparse_adagrad_step.kernel_launches == before + 1
+    want_t, want_a = table0.clone(), acc0.clone()
+    sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1)
+    tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, indices, grad, 0.1)
+    assert bool(((acc - want_a).abs() <= acc_tol).all())
+    assert bool(((table.float() - want_t.float()).abs() <= tol).all())
+
+
+def _rnn_backward_inputs(cuda, T, B, w_dt, seed):
+    xproj, w, b, h0, lens = _rnn_inputs(cuda, T, B, w_dt, seed)
+    all_h, _ = rnn_scan_reference(xproj, w, b, torch.float32, h0=h0)
+    prev = torch.cat([h0[None], all_h[:-1]])
+    y = torch.tanh((xproj + prev @ w.float()) + b.float())
+    gh = torch.randn((T, B, 64), generator=torch.Generator(device=cuda).manual_seed(seed),
+                     device=cuda)
+    return y, gh, w, lens
+
+
+@pytest.mark.parametrize("use_lens", [False, True])
+@pytest.mark.parametrize("w_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B", [(40, 512), (7, 5), (1, 3), (41, 133)])
+def test_rnn_scan_backward_kernel_matches_plain_loop(cuda, T, B, w_dt, use_lens):
+    y, gh, w, lens = _rnn_backward_inputs(cuda, T, B, w_dt, seed=T + B)
+    lens = lens if use_lens else None
+    before = rnn_scan_backward.kernel_launches
+    delta, dh0 = rnn_scan_backward(y, gh, w, lens)
+    torch.cuda.synchronize()
+    assert rnn_scan_backward.kernel_launches == before + 1
+    want_d, want_h = rnn_scan_backward_reference(y, gh, w, lens)
+    scale = float(want_d.abs().max())
+    torch.testing.assert_close(delta, want_d, rtol=0, atol=RNN_BACKWARD_RTOL * scale)
+    torch.testing.assert_close(dh0, want_h, rtol=0, atol=RNN_BACKWARD_RTOL * max(
+        scale, float(want_h.abs().max())))
+    if use_lens:  # row 0 has length 0: no step is alive, the gradient passes through
+        assert not delta[:, 0].any()
+        torch.testing.assert_close(dh0[0], gh[:, 0].sum(0), rtol=1e-5, atol=1e-5)
+
+
+def test_rnn_scan_autograd_launches_k3b(cuda):
+    xproj, w, b, h0, lens = _rnn_inputs(cuda, 9, 6, torch.float32)
+    xproj.requires_grad_(True)
+    w.requires_grad_(True)
+    before = rnn_scan_backward.kernel_launches
+    all_h, last = rnn_scan(xproj, w, b, torch.float32, h0=h0, seq_lengths=lens)
+    (all_h.square().sum() + last.sum()).backward()
+    torch.cuda.synchronize()
+    assert rnn_scan_backward.kernel_launches == before + 1
+    x2, w2 = xproj.detach().cpu().requires_grad_(True), w.detach().cpu().requires_grad_(True)
+    ref_h, ref_last = rnn_scan_reference(x2, w2, b.cpu(), torch.float32, h0=h0.cpu(),
+                                         seq_lengths=lens.cpu())
+    (ref_h.square().sum() + ref_last.sum()).backward()
+    torch.testing.assert_close(xproj.grad.cpu(), x2.grad, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(w.grad.cpu(), w2.grad, rtol=1e-4, atol=1e-5)
