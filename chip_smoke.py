@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``deeprecsys_tpu_torch/ops/csrc/`` (one
-``nvcc`` a source, all started together), checks K1, the pooled lookup, at
-every zoo model's shape and K3, DIEN's RNN scan, at DIEN's shape against
-their plain PyTorch versions, and checks all eight zoo models against the
-JAX package's outputs stored in ``tests/golden/torch_port_{rm1,zoo}.npz``.
+``nvcc`` a source, all started together), checks K1, the pooled lookup, and
+its int8 siblings K1-int8 (per-table scales, bit for bit) and K4 (row-wise
+scales) at every zoo model's shape, on tables past 2^31 bytes too, and K3,
+DIEN's RNN scan, at DIEN's shape against their plain PyTorch versions, and
+checks all eight zoo models, with float and with int8 tables, against the
+JAX package's outputs stored in ``tests/golden/torch_port_{rm1,zoo,quant}.npz``.
 Then it drives the models at full width (bf16, batch 512):
 
 - rm1 through ``get_model(...).apply`` and the standalone CLI loop, timed
@@ -19,7 +21,11 @@ Then it drives the models at full width (bf16, batch 512):
   and dien served through ``main.py --queue`` (K1 and K3);
 - rm2, rm3, wnd, mtwnd, ncf, din and dien through ``get_model(...).apply``,
   three forwards each, checked against the plain path and timed, each
-  model's table freed before the next; dien also through the CLI loop.
+  model's table freed before the next; dien also through the CLI loop;
+- with int8 tables (phase 12): rm1 in both modes through
+  ``get_model(...).apply``, ``main.py --table_quant`` and ``run_serving``
+  (one engine), timed; the other seven in ``int8_rowwise``, three forwards
+  each checked against the plain path.
 
 Each kernel is timed beside its plain version, its bound and one PyTorch
 call computing the same function (``F.embedding_bag`` at every zoo shape,
@@ -35,9 +41,10 @@ for rm1 dense, rm1 ``--sparse_tables`` and dien ``--sparse_tables``,
 ``TRAIN_STEPS`` steps each, the launches read around each run; the save ->
 export -> ``main.py --checkpoint`` (standalone and ``--queue``) round trip
 at ``--table_scale 100`` (the file format does not depend on the table's
-size, and a 4 GB ``.npz`` a run is not worth the time); the three kernels'
-times and each training step's wall, device time, idle share and peak
-memory.
+size, and a 4 GB ``.npz`` a run is not worth the time), and the trainer's
+``int8_rowwise`` and ``int8`` exports served through ``main.py --checkpoint
+--table_quant`` (standalone and ``--queue``); the three kernels' times and
+each training step's wall, device time, idle share and peak memory.
 
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
@@ -66,15 +73,19 @@ from deeprecsys_tpu_torch import main as port_main
 from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.kernel_bench import (
-    HBM_BYTES_PER_S, k1_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library,
-    k3b_bound, k3b_library, k5_bound, k5_library, measure, ptxas_summary)
+    HBM_BYTES_PER_S, k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound,
+    k3_library, k3b_bound, k3b_library, k4_bound, k5_bound, k5_library, measure, ptxas_summary,
+    random_int8_tables)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
-    embedding_bag_reference, rnn_scan, rnn_scan_backward, rnn_scan_backward_reference,
-    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference)
-from deeprecsys_tpu_torch.ops.embedding import backward_tolerance, pooled_tolerance
+    embedding_bag_int8, embedding_bag_int8_reference, embedding_bag_int8_rowwise,
+    embedding_bag_int8_rowwise_reference, embedding_bag_reference, rnn_scan, rnn_scan_backward,
+    rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
+    sparse_adagrad_step_reference)
+from deeprecsys_tpu_torch.ops.embedding import (
+    backward_tolerance, pooled_tolerance, rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.serving import ServiceRequest, run_serving
@@ -104,7 +115,19 @@ KERNELS = {
                             "replaces": "deeprecsys_tpu/train.py:258"},
     "rnn_scan_backward": {"source": "deeprecsys_tpu_torch/ops/csrc/rnn_scan_backward.cu",
                           "replaces": "deeprecsys_tpu/ops/rnn.py:45"},
+    # The int8 lookups (one source): K1-int8 the per-table pool (XLA, in
+    # pooled_lookup), K4 embedding_bag_int8_rowwise.
+    "embedding_bag_int8": {"source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_int8.cu",
+                           "replaces": "deeprecsys_tpu/models/base.py:178"},
+    "embedding_bag_int8_rowwise": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_int8.cu",
+        "replaces": "deeprecsys_tpu/ops/embedding.py:262"},
 }
+# The lookup kernel each table layout takes (cfg.table_quant).
+LOOKUP = {"none": "embedding_bag", "int8": "embedding_bag_int8",
+          "int8_rowwise": "embedding_bag_int8_rowwise"}
+QUANT_MODES = ("int8", "int8_rowwise")
+QUANT_FIXTURE = ROOT / "tests" / "golden" / "torch_port_quant.npz"
 ZOO = ("rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")
 TIMED_ITERS = 100
 # Port vs the JAX fixtures. rm1: f32 as the golden outputs; bf16 one bf16
@@ -148,6 +171,13 @@ TRAIN_LOSS_RTOL = 1e-4
 # K3b against its plain loop in f32: two orders of the 64-term dot carried
 # over the scan's steps, within this share of the largest |delta|.
 K3B_RTOL = 1e-5
+# The int8 bundles' scores against those of the float checkpoint they were
+# exported from (rm1, sigmoid scores in [0, 1]): the rounding of each table
+# value to 7 bits, pooled over 80 rows and carried through the towers.
+# Measured 9.9e-5 (int8) and 8.0e-5 (int8_rowwise) on the CPU for this
+# phase's run (table_scale 100, 20 steps); tests/test_torch_quant.py holds
+# the same bound at table_scale 2000.
+QUANT_SCORE_ATOL = 5e-3
 
 
 def _log(msg: str):
@@ -163,7 +193,12 @@ def card_line() -> str:
 
 
 def _bf16(params: dict) -> dict:
-    return bridge.tree_map(lambda t: t.bfloat16(), params)
+    """The float params in bf16; int8 tables and their f32 scales as they
+    are (``bridge.init_numpy``'s bf16 tree of the same seed)."""
+    out = {k: bridge.tree_map(lambda t: t.bfloat16(), v) for k, v in params.items()}
+    if isinstance(params["tables"], dict):
+        out["tables"] = params["tables"]
+    return out
 
 
 def bf16_atol(want: np.ndarray) -> float:
@@ -177,7 +212,9 @@ def _wrappers() -> dict:
     rehearsal can put counting shims in their place)."""
     return {"embedding_bag": embedding_bag, "rnn_scan": rnn_scan,
             "embedding_bag_backward": embedding_bag_backward,
-            "sparse_adagrad_step": sparse_adagrad_step, "rnn_scan_backward": rnn_scan_backward}
+            "sparse_adagrad_step": sparse_adagrad_step, "rnn_scan_backward": rnn_scan_backward,
+            "embedding_bag_int8": embedding_bag_int8,
+            "embedding_bag_int8_rowwise": embedding_bag_int8_rowwise}
 
 
 def _reset_counts():
@@ -199,14 +236,31 @@ def _add(total: dict, counts: dict):
         total[k] = total.get(k, 0) + v
 
 
-def _check_pooled(got, want, table, offsets, indices, mask, what: str) -> float:
-    tol = pooled_tolerance(got, want, table, offsets, indices, mask)
+def _check_pooled(got, want, table, offsets, indices, mask, what: str,
+                  tolerance=pooled_tolerance, kernel: str = "K1") -> float:
+    tol = tolerance(got, want, table, offsets, indices, mask)
     err = (got.float() - want.float()).abs()
     if not bool((err <= tol).all()):
-        raise AssertionError(f"K1 disagrees with the plain version ({what}): "
+        raise AssertionError(f"{kernel} disagrees with the plain version ({what}): "
                              f"max |err| {err.max().item():.3e}, "
                              f"{int((err > tol).sum())} elements over tolerance")
     return err.max().item()
+
+
+def _plain_pooled(tables, offsets, indices, cdt) -> torch.Tensor:
+    """The plain version of the lookup that the table's layout takes."""
+    if not isinstance(tables, dict):
+        return embedding_bag_reference(tables, offsets, indices, compute_dtype=cdt)
+    if "qrows" in tables:
+        return embedding_bag_int8_rowwise_reference(tables["qrows"], offsets, indices,
+                                                    compute_dtype=cdt)
+    return embedding_bag_int8_reference(tables["q"], tables["scale"], offsets, indices,
+                                        compute_dtype=cdt)
+
+
+def _table_bytes(tables) -> int:
+    ts = tables.values() if isinstance(tables, dict) else [tables]
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 # ---------------------------------------------------------------- phases
@@ -222,7 +276,7 @@ def phase_card() -> dict:
 def phase_build() -> dict:
     """Build every kernel, one nvcc a source, all at once."""
     t0 = time.perf_counter()
-    sources = [Path(k["source"]).stem for k in KERNELS.values()]
+    sources = list(dict.fromkeys(Path(k["source"]).stem for k in KERNELS.values()))
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
     for name, b in builds.items():
@@ -233,14 +287,12 @@ def phase_build() -> dict:
     return builds
 
 
-def kernel_cases(device, cfg, B: int, tail: int | None, seed: int) -> float:
-    """K1 against embedding_bag_reference for bf16 and f32 tables of
-    ``cfg``'s rows, width and pooling, with and without a mask. ``tail``:
-    ids drawn from the last ``tail`` rows of each table (reaching the far
-    end of the fused table); None = the port's generator. Returns the max
-    |error|."""
-    rows, T, L, d = cfg.scaled_rows, cfg.num_tables, cfg.num_indices_per_lookup, \
-        cfg.sparse_feature_size
+def _case_inputs(device, cfg, B: int, tail: int | None, seed: int):
+    """A generator, ``cfg``'s offsets, ``(B, T, L)`` ids and a mask for the
+    kernel cases. ``tail``: ids drawn from the last ``tail`` rows of each
+    table (reaching the far end of the fused table); None = the port's
+    generator."""
+    rows, T, L = cfg.scaled_rows, cfg.num_tables, cfg.num_indices_per_lookup
     g = torch.Generator(device=device).manual_seed(seed)
     offsets = table_offsets(cfg, device)
     if tail is None:
@@ -251,6 +303,18 @@ def kernel_cases(device, cfg, B: int, tail: int | None, seed: int) -> float:
         indices = (last - torch.randint(0, tail, (B, T, L), generator=g,
                                         device=device)).to(torch.int32)
     mask = torch.rand((B, T, L), generator=g, device=device) < 0.7
+    return g, offsets, indices, mask
+
+
+def kernel_cases(device, cfg, B: int, tail: int | None, seed: int) -> float:
+    """K1 against embedding_bag_reference for bf16 and f32 tables of
+    ``cfg``'s rows, width and pooling, with and without a mask. ``tail``:
+    ids drawn from the last ``tail`` rows of each table (reaching the far
+    end of the fused table); None = the port's generator. Returns the max
+    |error|."""
+    rows, d = cfg.scaled_rows, cfg.sparse_feature_size
+    g, offsets, indices, mask = _case_inputs(device, cfg, B, tail, seed)
+    T, L = cfg.num_tables, cfg.num_indices_per_lookup
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
         table = torch.empty((sum(rows), d), dtype=dt, device=device)
@@ -271,17 +335,62 @@ def kernel_cases(device, cfg, B: int, tail: int | None, seed: int) -> float:
     return worst
 
 
-def phase_kernel(device) -> float:
-    """K1 at every zoo model's full shape (rm1's: 8 x 4 M rows, d = 32,
-    L = 80), batch 512."""
-    err = 0.0
+def int8_kernel_cases(device, cfg, B: int, tail: int | None, seed: int) -> dict:
+    """K1-int8 and K4 against their plain versions on int8 tables of
+    ``cfg``'s rows and width (random values, positive random scales: a
+    table's, a row's), ``cfg``'s pooling, f32 and bf16 outputs, with and
+    without a mask: K1-int8 bit for bit, K4 within ``rowwise_tolerance``.
+    ``tail`` as ``kernel_cases``'. Returns the max |error| by kernel."""
+    g, offsets, indices, mask = _case_inputs(device, cfg, B, tail, seed)
+    t = random_int8_tables(cfg, g, device)
+    errs = {"embedding_bag_int8": 0.0, "embedding_bag_int8_rowwise": 0.0}
+    for cdt in (torch.bfloat16, torch.float32):
+        for m in (None, mask):
+            what = (f"{cfg.model_name}: {cfg.total_rows} rows, d = {cfg.sparse_feature_size} "
+                    f"({t['q'].numel() / 1e9:.3f} GB per-table, {t['qrows'].numel() / 1e9:.3f} "
+                    f"GB row-wise), B={B} T={cfg.num_tables} L={cfg.num_indices_per_lookup}, "
+                    f"out {str(cdt)[6:]}, mask={'yes' if m is not None else 'no'}")
+            got = embedding_bag_int8(t["q"], t["scale"], offsets, indices, compute_dtype=cdt,
+                                     mask=m)
+            synchronize(device)
+            want = embedding_bag_int8_reference(t["q"], t["scale"], offsets, indices,
+                                                compute_dtype=cdt, mask=m)
+            if got.dtype != cdt or not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"K1-int8 differs from its plain version ({what}): "
+                                     f"max |err| {err:.3e}")
+            got = embedding_bag_int8_rowwise(t["qrows"], offsets, indices, compute_dtype=cdt,
+                                             mask=m)
+            synchronize(device)
+            want = embedding_bag_int8_rowwise_reference(t["qrows"], offsets, indices,
+                                                        compute_dtype=cdt, mask=m)
+            err = _check_pooled(got, want, t["qrows"], offsets, indices, m, what,
+                                tolerance=rowwise_tolerance, kernel="K4")
+            errs["embedding_bag_int8_rowwise"] = max(errs["embedding_bag_int8_rowwise"], err)
+            _log(f"[3 kernel] K1-int8 ok (bit for bit), K4 ok (max |err| {err:.3e}) {what}")
+    del t
+    _free(device)
+    return errs
+
+
+def phase_kernel(device) -> dict:
+    """K1, K1-int8 and K4 at every zoo model's full shape (rm1's: 8 x 4 M
+    rows, d = 32, L = 80), batch 512. Returns the max |error| by kernel."""
+    errs = {"embedding_bag": 0.0}
     for seed, name in enumerate(zoo.MODEL_NAMES):
-        err = max(err, kernel_cases(device, zoo.get_config(name), BATCH, None, seed=seed))
+        cfg = zoo.get_config(name)
+        errs["embedding_bag"] = max(errs["embedding_bag"],
+                                    kernel_cases(device, cfg, BATCH, None, seed=seed))
+        for k, v in int8_kernel_cases(device, cfg, BATCH, None, seed=seed).items():
+            errs[k] = max(errs.get(k, 0.0), v)
     # 40 M rows: the bf16 table is 2.56 GB, the f32 one 5.12 GB, so the last
     # rows lie past 2^31 bytes.
     big = zoo.get_config("rm1").replace(embedding_rows=(5_000_000,) * 8)
     kernel_cases(device, big, 64, 100_000, seed=100)
-    return err
+    # 72 M int8 rows of d = 32: 2.30 GB per-table, 2.59 GB row-wise.
+    big = zoo.get_config("rm1").replace(embedding_rows=(9_000_000,) * 8)
+    int8_kernel_cases(device, big, 64, 100_000, seed=101)
+    return errs
 
 
 def rnn_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int) -> dict:
@@ -336,37 +445,43 @@ def rnn_cases(device, T: int, B: int, seed: int = 0) -> float:
     return worst
 
 
-def _zoo_fixture_params(stored, name: str, device) -> tuple[dict, Batch]:
-    """The f32 params of ``name``'s fixture entry, redrawn from its seed,
-    and its batch."""
-    cfg = zoo.get_config(name, table_scale=2000)
-    np_params = bridge.init_numpy(cfg, int(stored[f"{name}/seed"]))
-    if not np.allclose(bridge.fingerprint(np_params), stored[f"{name}/fingerprint"],
+def _zoo_fixture_params(stored, name: str, device,
+                        table_quant: str = "none") -> tuple[dict, Batch]:
+    """The f32 params of ``name``'s fixture entry (``name/`` in the zoo
+    fixture, ``name/<table_quant>/`` in the quant one), redrawn from its
+    seed, and its batch."""
+    key = f"{name}/" if table_quant == "none" else f"{name}/{table_quant}/"
+    cfg = zoo.get_config(name, table_scale=2000, table_quant=table_quant)
+    np_params = bridge.init_numpy(cfg, int(stored[f"{key}seed"]))
+    if not np.allclose(bridge.fingerprint(np_params), stored[f"{key}fingerprint"],
                        rtol=1e-9, atol=0):
-        raise AssertionError(f"{name}: numpy drew other weights from the fixture's seed "
+        raise AssertionError(f"{key}: numpy drew other weights from the fixture's seed "
                              "than when the fixture was built (fingerprint differs)")
-    dense = stored[f"{name}/dense"] if f"{name}/dense" in stored.files else None
-    batch = Batch(dense, stored[f"{name}/indices"]).to(device)
+    dense = stored[f"{key}dense"] if f"{key}dense" in stored.files else None
+    batch = Batch(dense, stored[f"{key}indices"]).to(device)
     return bridge.params_from_numpy(np_params, cfg, device), batch
 
 
-def fixture_model(stored, name: str, device) -> dict:
+def fixture_model(stored, name: str, device, table_quant: str = "none") -> dict:
     """``name`` at table_scale=2000, f32 and bf16, against the JAX outputs
-    in the zoo fixture (and, for dien, ragged histories with an initial
-    state). Returns the max |error| by output."""
-    params32, batch = _zoo_fixture_params(stored, name, device)
+    in the zoo fixture, or with int8 tables (``table_quant``) in the quant
+    fixture (and, for dien, ragged histories with an initial state).
+    Returns the max |error| by output."""
+    pre = f"{name}/" if table_quant == "none" else f"{name}/{table_quant}/"
+    params32, batch = _zoo_fixture_params(stored, name, device, table_quant)
     cases = [("", {})]
     if name == "dien":
         cases.append(("ragged_", {
-            "seq_lengths": torch.as_tensor(stored["dien/seq_lengths"]).to(device),
-            "initial_h": torch.as_tensor(stored["dien/initial_h"]).to(device)}))
+            "seq_lengths": torch.as_tensor(stored[f"{pre}seq_lengths"]).to(device),
+            "initial_h": torch.as_tensor(stored[f"{pre}initial_h"]).to(device)}))
     errs = {}
     for dtype, tag, params in (("float32", "f32", params32),
                                ("bfloat16", "bf16", _bf16(params32))):
-        cfg = zoo.get_config(name, table_scale=2000, param_dtype=dtype, compute_dtype=dtype)
+        cfg = zoo.get_config(name, table_scale=2000, param_dtype=dtype, compute_dtype=dtype,
+                             table_quant=table_quant)
         model = get_model(cfg, device)
         for prefix, kw in cases:
-            want = stored[f"{name}/out_{prefix}{tag}"]
+            want = stored[f"{pre}out_{prefix}{tag}"]
             with torch.inference_mode():
                 got = model.apply(params, batch, **kw).float().cpu().numpy()
             key = f"{prefix}{tag}"
@@ -375,8 +490,8 @@ def fixture_model(stored, name: str, device) -> dict:
                 np.allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL) if tag == "f32"
                 else np.allclose(got, want, rtol=0, atol=bf16_atol(want)))
             if not ok:
-                raise AssertionError(f"port {name} {key} differs from the JAX fixture: "
-                                     f"max |err| {errs[key]:.3e}")
+                raise AssertionError(f"port {name} {table_quant} {key} differs from the JAX "
+                                     f"fixture: max |err| {errs[key]:.3e}")
     return errs
 
 
@@ -409,6 +524,13 @@ def phase_fixture(device) -> dict:
         errs.update({f"{name} {k}": v for k, v in model_errs.items()})
         _log(f"[4 fixture] {name} table_scale=2000 matches JAX: max |err| " + ", ".join(
             f"{k} {v:.3e}" for k, v in model_errs.items()))
+    quant_stored = np.load(QUANT_FIXTURE)
+    for name in zoo.MODEL_NAMES:
+        for quant in QUANT_MODES:
+            model_errs = fixture_model(quant_stored, name, device, table_quant=quant)
+            errs.update({f"{name} {quant} {k}": v for k, v in model_errs.items()})
+            _log(f"[4 fixture] {name} table_scale=2000 {quant} tables match JAX: max |err| "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in model_errs.items()))
     return errs
 
 
@@ -475,11 +597,11 @@ def _reset_peak(device):
 
 
 def _check_served(res, counts: dict, scans_per_execution: int, what: str,
-                  drained: bool = False):
+                  drained: bool = False, lookup: str = "embedding_bag"):
     """Every sub-request answered without an error (but those a tuning run's
     drain-and-settle removed from the queue, with ``drained``), and each
-    kernel launched once a model execution (K3 twice for dien), warm-up
-    included."""
+    kernel launched once a model execution (the ``lookup`` kernel of the
+    table's layout; K3 twice for dien), warm-up included."""
     if res.engine_errors:
         raise AssertionError(f"{what}: engines failed: {res.engine_errors}")
     if res.error_responses != 0 or (
@@ -488,7 +610,7 @@ def _check_served(res, counts: dict, scans_per_execution: int, what: str,
         raise AssertionError(f"{what}: {res.num_responses} responses for "
                              f"{res.cpu_sub_requests} sub-requests, "
                              f"{res.error_responses} of them errors")
-    want = _want(embedding_bag=res.executions, rnn_scan=scans_per_execution * res.executions)
+    want = _want(**{lookup: res.executions}, rnn_scan=scans_per_execution * res.executions)
     if counts != want:
         raise AssertionError(f"{what}: kernel launches {counts}, expected {want} for "
                              f"{res.executions} executions (warm-up included)")
@@ -507,20 +629,24 @@ def _served_line(res, counts: dict) -> str:
             f"{res.pacing_error_p99_ms:.4f} ms; wall {res.wall_s:.2f} s")
 
 
-def serve_rm1(device, engines: int, card: str) -> tuple[dict, dict]:
+def serve_rm1(device, engines: int, card: str, table_quant: str = "none",
+              phase: str = "6 serving") -> tuple[dict, dict]:
     """rm1 at the canonical point through ``run_serving``, each engine with
-    its own params from its seed. Returns the result and the launches."""
-    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE,
-                         param_dtype="bfloat16", compute_dtype="bfloat16")
+    its own params from its seed (``table_quant``: int8 tables). Returns
+    the result and the launches."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", table_quant=table_quant)
     scfg = ServingConfig(**SERVING_POINT, num_batches=SERVE_QUERIES,
                          inference_engines=engines, engine_backend=_backend(device))
     _reset_peak(device)
     _reset_counts()
     res = run_serving(cfg, scfg, settle_s=0.1)
     counts = _counts()
-    _check_served(res, counts, 0, f"rm1 served by {engines} engine(s)")
+    what = f"rm1 {table_quant} tables" if table_quant != "none" else "rm1"
+    _check_served(res, counts, 0, f"{what} served by {engines} engine(s)",
+                  lookup=LOOKUP[table_quant])
     peak = _peak_gib(device)
-    _log(f"[6 serving] rm1 table_scale={TABLE_SCALE} bf16, {engines} engine(s): "
+    _log(f"[{phase}] {what} table_scale={TABLE_SCALE} bf16, {engines} engine(s): "
          f"{_served_line(res, counts)}; peak device memory {peak:.3f} GiB [{card}]")
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -759,21 +885,21 @@ def _tail_on_cpu(model, params: dict, pooled: torch.Tensor, batch: Batch) -> tor
     return model.apply_from_pooled(cpu, pooled.cpu(), batch.to("cpu"))
 
 
-def zoo_forward(device, name: str) -> dict:
-    """``name`` at full width, bf16, batch 512: three forwards through
-    ``get_model(...).apply`` with the launch counts read around them, the
-    scores checked, and each forward held against the plain path (the
-    plain lookup, then the rest of the model on the CPU). Returns the model
-    and its state for ``zoo_times``."""
-    cfg = zoo.get_config(name, table_scale=TABLE_SCALE,
-                         param_dtype="bfloat16", compute_dtype="bfloat16")
+def zoo_forward(device, name: str, table_quant: str = "none", phase: str = "8 zoo") -> dict:
+    """``name`` at full width, bf16, batch 512 (``table_quant``: int8
+    tables): three forwards through ``get_model(...).apply`` with the launch
+    counts read around them, the scores checked, and each forward held
+    against the plain path (the plain lookup, then the rest of the model on
+    the CPU). Returns the model and its state for ``zoo_times``."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", table_quant=table_quant)
     t0 = time.perf_counter()
     model = get_model(cfg, device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     synchronize(device)
     init_s = time.perf_counter() - t0
     batches = [b.to(device) for b in RecDataGenerator(cfg, seed=1).generate_batches(3, BATCH)]
-    want = _want(embedding_bag=len(batches),
+    want = _want(**{LOOKUP[table_quant]: len(batches)},
                  rnn_scan=2 * len(batches) if cfg.model_type == "dien" else 0)
     with torch.inference_mode():
         _reset_counts()
@@ -787,17 +913,17 @@ def zoo_forward(device, name: str) -> dict:
         worst, limit = 0.0, 0.0
         for b, out in zip(batches, outs):
             _check_scores(out, (BATCH, cfg.out_dim), sigmoid_output(cfg), f"{name} forward")
-            pooled = embedding_bag_reference(params["tables"], offsets, b.indices,
-                                             compute_dtype=torch.bfloat16)
+            pooled = _plain_pooled(params["tables"], offsets, b.indices, torch.bfloat16)
             plain = _tail_on_cpu(model, params, pooled, b).float()
             limit = max(limit, bf16_atol(plain.numpy()))
             worst = max(worst, (out.float().cpu() - plain).abs().max().item())
         if worst > limit:
             raise AssertionError(f"{name} forward differs from its plain path: "
                                  f"{worst:.3e} > {limit:.3e}")
-    nbytes = params["tables"].numel() * params["tables"].element_size()
-    _log(f"[8 zoo] {name} table_scale={TABLE_SCALE} ({cfg.total_rows} x "
-         f"{cfg.sparse_feature_size} bf16 table, {nbytes / 1e9:.3f} GB, init {init_s:.2f} s) "
+    nbytes = _table_bytes(params["tables"])
+    layout = "bf16" if table_quant == "none" else table_quant
+    _log(f"[{phase}] {name} table_scale={TABLE_SCALE} ({cfg.total_rows} x "
+         f"{cfg.sparse_feature_size} {layout} table, {nbytes / 1e9:.3f} GB, init {init_s:.2f} s) "
          f"batch {BATCH}: {len(batches)} forwards, launches {counts}, scores "
          f"{tuple(outs[0].shape)} finite {'in [0, 1]' if sigmoid_output(cfg) else '>= 0'}, "
          f"max |kernel - plain path| {worst:.3e} (limit {limit:.3e})")
@@ -892,6 +1018,153 @@ def phase_rnn_times(device, card: str) -> dict:
          f"{lib_ms * 1e3:.2f} us ({'device' if use_dev else 'wall'}) [{card}]")
     return {"ms": k_dev if use_dev else k_wall, "plain_ms": p_dev if use_dev else p_wall,
             "library_ms": lib_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+# ---------------------------------------------------------------- int8 tables
+
+def quant_rm1(device, quant: str, card: str) -> tuple[dict, dict, dict]:
+    """rm1 at full width, bf16, with ``quant`` tables: three forwards through
+    ``get_model(...).apply`` held against the plain path (the plain int8
+    lookup, the same towers); main.py's standalone loop with
+    ``--table_quant``; ``run_serving`` at the canonical point with one
+    engine. Each path's launches are read around it. Returns the model's
+    state for ``quant_times``, the serving result and the launches."""
+    lookup = LOOKUP[quant]
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", table_quant=quant)
+    model = get_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    batches = [b.to(device) for b in RecDataGenerator(cfg, seed=1).generate_batches(3, BATCH)]
+    launches = _want()
+    with torch.inference_mode():
+        _reset_counts()
+        outs = [model.apply(params, b) for b in batches]
+        synchronize(device)
+        counts = _counts()
+        if counts != _want(**{lookup: len(batches)}):
+            raise AssertionError(f"rm1 {quant}: launches {counts} for {len(batches)} forwards")
+        _add(launches, counts)
+        offsets = table_offsets(cfg, device)
+        worst = 0.0
+        for b, out in zip(batches, outs):
+            _check_scores(out, (BATCH, 1), True, f"rm1 {quant} forward")
+            pooled = _plain_pooled(params["tables"], offsets, b.indices, torch.bfloat16)
+            plain = model.apply_from_pooled(params, pooled, b)
+            worst = max(worst, (out.float() - plain.float()).abs().max().item())
+        if worst > BF16_ATOL:
+            raise AssertionError(f"rm1 {quant} forward differs from its plain path: {worst:.3e}")
+    _log(f"[12 int8] rm1 table_scale={TABLE_SCALE} bf16, {quant} tables "
+         f"({_table_bytes(params['tables']) / 1e9:.3f} GB) batch {BATCH}: {len(batches)} "
+         f"forwards, launches {counts}, scores finite in [0, 1], max |kernel - plain path| "
+         f"{worst:.3e} (limit {BF16_ATOL:.3e})")
+
+    _reset_counts()
+    res = port_main.main(["--model", "rm1", "--param_dtype", "bfloat16", "--table_quant", quant,
+                          "--mini_batch_size", str(BATCH), "--num_batches", "4",
+                          "--table_scale", str(TABLE_SCALE), "--device", str(device)])
+    counts = _counts()
+    if counts != _want(**{lookup: res["forwards"]}):
+        raise AssertionError(f"main.py --table_quant {quant}: launches {counts} for "
+                             f"{res['forwards']} forwards")
+    _add(launches, counts)
+    for out in res["outputs"]:
+        _check_scores(out, (BATCH, 1), True, f"main.py --table_quant {quant} forward")
+    _log(f"[12 int8] main.py --table_quant {quant} standalone loop: {res['forwards']} forwards, "
+         f"launches {counts}, compute {res['compute_ms']:.3f} ms for 4 batches")
+
+    served, counts = serve_rm1(device, 1, card, table_quant=quant, phase="12 int8")
+    _add(launches, counts)
+    return {"cfg": cfg, "model": model, "params": params}, served, launches
+
+
+def quant_times(device, state: dict, quant: str, card: str) -> dict:
+    """The int8 kernel at rm1's shape (bf16 output, eight batches) beside its
+    plain version (order plain, kernel, kernel, plain), its bound, and K1 on
+    the same ids over a bf16 table of the same rows; then rm1's forward with
+    ``quant`` tables: wall, device time, idle share, peak memory. No
+    PyTorch call pools int8 rows, so the kernel has no library time."""
+    cfg, model, params = state["cfg"], state["model"], state["params"]
+    tables, offsets = params["tables"], table_offsets(cfg, device)
+    batches = [b.to(device) for b in RecDataGenerator(cfg, seed=3).generate_batches(8, BATCH)]
+    ids = [(b.indices,) for b in batches]
+    bf16 = torch.bfloat16
+    if quant == "int8":
+        def kernel(i):
+            return embedding_bag_int8(tables["q"], tables["scale"], offsets, i, compute_dtype=bf16)
+
+        def plain(i):
+            return embedding_bag_int8_reference(tables["q"], tables["scale"], offsets, i,
+                                                compute_dtype=bf16)
+        bound = k1_int8_bound(tables["q"], offsets, batches[0].indices, bf16)
+    else:
+        def kernel(i):
+            return embedding_bag_int8_rowwise(tables["qrows"], offsets, i, compute_dtype=bf16)
+
+        def plain(i):
+            return embedding_bag_int8_rowwise_reference(tables["qrows"], offsets, i,
+                                                        compute_dtype=bf16)
+        bound = k4_bound(tables["qrows"], offsets, batches[0].indices, bf16)
+    with torch.inference_mode():
+        runs = {key: measure(fn, ids, TIMED_ITERS) for key, fn in
+                (("p1", plain), ("k1", kernel), ("k2", kernel), ("p2", plain))}
+        table16 = torch.empty((cfg.total_rows, cfg.sparse_feature_size), dtype=bf16,
+                              device=device).uniform_(-0.05, 0.05)
+        runs["bf16"] = measure(lambda i: embedding_bag(table16, offsets, i), ids, TIMED_ITERS)
+        del table16
+        _free(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        for key in ("fk1", "fk2"):
+            runs[key] = measure(lambda b: model.apply(params, b), [(b,) for b in batches],
+                                TIMED_ITERS)
+    peak = torch.cuda.max_memory_allocated(device)
+    k_dev, p_dev = _mean(runs, ("k1", "k2"), "kernel_ms"), _mean(runs, ("p1", "p2"), "device_ms")
+    k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
+    use_dev = None not in (k_dev, p_dev, runs["bf16"]["kernel_ms"])
+    k_ms, p_ms = (k_dev, p_dev) if use_dev else (k_wall, p_wall)
+    k1_ms = runs["bf16"]["kernel_ms" if use_dev else "wall_ms"]
+    wall, dev = _mean(runs, ("fk1", "fk2"), "wall_ms"), _mean(runs, ("fk1", "fk2"), "device_ms")
+    idle = None if dev is None else 1 - dev / wall
+    name = "K1-int8" if quant == "int8" else "K4"
+    for key in ("p1", "k1", "k2", "p2", "bf16", "fk1", "fk2"):
+        _log(f"[12 int8]   rm1 {quant} {key}: {_fmt(runs[key])} [{card}]")
+    B, T, L = batches[0].indices.shape
+    _log(f"[12 int8] {name} rm1 shape (B={B} T={T} L={L} d={cfg.sparse_feature_size}, bf16 out, "
+         f"{bound['bytes'] / 1e6:.2f} MB moved): {k_ms * 1e3:.2f} us "
+         f"({'device' if use_dev else 'wall'}), {B * T * L / (k_ms / 1e3) / 1e9:.3f} G rows/s, "
+         f"{100 * bound['bytes'] / (k_ms / 1e3) / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s; bound "
+         f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}); plain version "
+         f"{p_ms * 1e3:.2f} us; library: none (no PyTorch call pools int8 rows); K1 on a "
+         f"bf16 table, same ids {k1_ms * 1e3:.2f} us; wall per call {k_wall * 1e3:.2f} us [{card}]")
+    _log(f"[12 int8] rm1 forward batch {BATCH} bf16, {quant} tables: wall {wall:.4f} ms = "
+         f"{BATCH / (wall / 1e3):.0f} samples/s, device {_us(dev)} in "
+         f"{runs['fk1']['launches']:.0f} device ops, idle "
+         f"{'not measured' if idle is None else f'{100 * idle:.1f}%'}; device time by kernel: "
+         f"{_top(runs['fk1'])}; peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None, "k1_bf16_ms": k1_ms,
+            "fwd_wall_ms": wall, "fwd_device_ms": dev, "idle": idle, "peak_bytes": peak}
+
+
+def phase_quant(device, card: str) -> tuple[dict, dict]:
+    """Phase 12: int8 tables at full width. rm1 in both modes (forwards,
+    the CLI loop, serving, times), then the other seven models in
+    int8_rowwise (three forwards each, held against the plain path).
+    Returns the times and serving results by mode, and the launches."""
+    t0 = time.perf_counter()
+    launches, out = _want(), {}
+    for quant in QUANT_MODES:
+        state, served, counts = quant_rm1(device, quant, card)
+        _add(launches, counts)
+        out[quant] = {**quant_times(device, state, quant, card), "serving": served}
+        del state
+        _free(device)
+    for name in ZOO:
+        z = zoo_forward(device, name, table_quant="int8_rowwise", phase="12 int8")
+        _add(launches, z["launches"])
+        del z
+        _free(device)
+    _log(f"[12 int8] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return out, launches
 
 
 # ---------------------------------------------------------------- training
@@ -1082,7 +1355,9 @@ def round_trip(device, card: str) -> dict:
     """Train rm1 at ROUND_TRIP_SCALE, save and export (int8_rowwise) it,
     then serve the float checkpoint through main.py --checkpoint:
     standalone (its scores are the checkpoint's params' scores, not a
-    random init's) and --queue (DIEN_QUERIES queries, no errors)."""
+    random init's) and --queue (DIEN_QUERIES queries, no errors). Then
+    train it again with an int8 export and serve both int8 bundles
+    (``serve_export``)."""
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     ckpt = out_dir / "rm1_trained"
@@ -1132,9 +1407,71 @@ def round_trip(device, card: str) -> dict:
     _check_served(res_q, counts, 0, "rm1 checkpoint served by main.py --queue")
     _add(launches, counts)
     _log(f"[11 round trip] main.py --checkpoint --queue: {_served_line(res_q, counts)} [{card}]")
+
+    # The int8 exports, each from its own training run and float checkpoint.
+    ckpt8 = out_dir / "rm1_trained_b"
+    _reset_counts()
+    port_train.main(["--model", "rm1", "--table_scale", str(ROUND_TRIP_SCALE), "--steps", "20",
+                     "--batch_size", str(TRAIN_BATCH), "--device", str(device), "--save",
+                     str(ckpt8), "--export_quant", "int8"])
+    _add(launches, _counts())
+    quant = {}
+    for mode, base in (("int8_rowwise", ckpt), ("int8", ckpt8)):
+        quant[mode], counts = serve_export(device, cfg, mode, base, batches, card)
+        _add(launches, counts)
     for p in out_dir.glob("rm1_trained*"):
         p.unlink()
-    return {"launches": launches, "queue": res_q.to_dict()}
+    return {"launches": launches, "queue": res_q.to_dict(), "quant": quant}
+
+
+def serve_export(device, cfg, quant: str, base: Path, batches, card: str) -> tuple[dict, dict]:
+    """The trainer's ``quant`` export of checkpoint ``base`` through main.py
+    --checkpoint <bundle> --table_quant <quant>: standalone, its scores are
+    ``model.apply``'s on ``checkpoint_params`` of the bundle exactly, and
+    within QUANT_SCORE_ATOL of the float checkpoint's; --queue answers
+    DIEN_QUERIES queries without an error. Returns the scores' distance
+    from the float checkpoint's, the queue's result, and the launches."""
+    lookup = LOOKUP[quant]
+    qcfg = cfg.replace(table_quant=quant)
+    bundle = f"{base}_{quant}"
+    launches = _want()
+    _reset_counts()
+    res = port_main.main(["--model", "rm1", "--table_scale", str(ROUND_TRIP_SCALE),
+                          "--checkpoint", bundle, "--table_quant", quant, "--device", str(device),
+                          "--num_batches", "4", "--mini_batch_size", str(BATCH)])
+    counts = _counts()
+    if counts != _want(**{lookup: res["forwards"]}):
+        raise AssertionError(f"main.py --checkpoint {quant} bundle: launches {counts}")
+    _add(launches, counts)
+    qparams = checkpoint_params(qcfg, bundle, device)
+    fparams = checkpoint_params(cfg, base, device)
+    with torch.inference_mode():
+        exact = max((out.float() - get_model(qcfg, device).apply(qparams, b.to(device)).float())
+                    .abs().max().item() for out, b in zip(res["outputs"], batches))
+        vs_float = max((out.float() - get_model(cfg, device).apply(fparams, b.to(device)).float())
+                       .abs().max().item() for out, b in zip(res["outputs"], batches))
+    if exact != 0.0 or not vs_float <= QUANT_SCORE_ATOL:
+        raise AssertionError(f"main.py --checkpoint {quant} bundle: max |err| {exact:.3e} from "
+                             f"the bundle's params (must be 0), {vs_float:.3e} from the float "
+                             f"checkpoint's (limit {QUANT_SCORE_ATOL:.0e})")
+    _log(f"[11 round trip] --export_quant {quant} bundle through main.py --checkpoint "
+         f"--table_quant {quant}: {res['forwards']} forwards, launches {counts}, scores equal "
+         f"the bundle's params' exactly; max |int8 - float checkpoint| {vs_float:.3e} "
+         f"(limit {QUANT_SCORE_ATOL:.0e})")
+    _reset_counts()
+    res_q = port_main.main([
+        "--model", "rm1", "--table_scale", str(ROUND_TRIP_SCALE), "--checkpoint", bundle,
+        "--table_quant", quant, "--queue", "--engine_backend", _backend(device),
+        "--num_batches", str(DIEN_QUERIES), "--batch_size_distribution", "normal",
+        "--avg_mini_batch_size", "165", "--var_mini_batch_size", "16",
+        "--sub_task_batch_size", "32", "--avg_arrival_rate", "10"])
+    counts = _counts()
+    _check_served(res_q, counts, 0, f"rm1 {quant} bundle served by main.py --queue",
+                  lookup=lookup)
+    _add(launches, counts)
+    _log(f"[11 round trip] {quant} bundle through main.py --checkpoint --queue: "
+         f"{_served_line(res_q, counts)} [{card}]")
+    return {"vs_float": vs_float, "queue": res_q.to_dict()}, launches
 
 
 def _g_rows(g, offsets, indices):
@@ -1155,7 +1492,8 @@ def _timed(runs: dict, kernel_field: str = "kernel_ms") -> dict:
     k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
     return {"ms": k_dev if use_dev else k_wall, "plain_ms": p_dev if use_dev else p_wall,
             "library_ms": runs["s1"]["device_ms" if use_dev else "wall_ms"],
-            "device": use_dev, "k_wall": k_wall, "p_wall": p_wall}
+            "device": use_dev, "k_wall": k_wall, "p_wall": p_wall,
+            "by_kernel": _top(runs["k1"], 3)}
 
 
 def _time_runs(kernel, plain, library, args, lib_args, iters) -> dict:
@@ -1217,8 +1555,8 @@ def train_kernel_times(device, card: str) -> dict:
         _log(f"[11 train times] {label} at {shapes[key]}: {t['ms'] * 1e3:.2f} us "
              f"({'device' if t['device'] else 'wall'}); bound {t['bound_ms'] * 1e3:.2f} us "
              f"({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); plain {t['plain_ms'] * 1e3:.2f} us; "
-             f"{lib} {t['library_ms'] * 1e3:.2f} us; wall a call {t['k_wall'] * 1e3:.2f} us "
-             f"[{card}]")
+             f"{lib} {t['library_ms'] * 1e3:.2f} us; wall a call {t['k_wall'] * 1e3:.2f} us; "
+             f"the kernel run's device time a call by kernel: {t['by_kernel']} [{card}]")
     return out
 
 
@@ -1292,7 +1630,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = phase_card()
     phase_build()
-    k1_err = phase_kernel(device)
+    kernel_errs = phase_kernel(device)
     k3_errs = [rnn_cases(device, DIEN_T, BATCH, seed) for seed in range(K3_SEEDS)]
     k3_err = max(k3_errs)
     _log(f"[3 kernel] K3 at DIEN's shape, free-running max |err| by seed: "
@@ -1322,12 +1660,17 @@ def main() -> int:
         raise AssertionError("dien's path never launched K3")
     k3 = phase_rnn_times(device, card["card"])
 
+    # The int8 tables' paths, each read around itself.
+    quant, quant_launches = phase_quant(device, card["card"])
+    _add(launches, quant_launches)
+
     # The trainer's paths, each read around itself.
     trained, train_launches, steps = phase_train(device, card["card"])
     _add(launches, train_launches)
-    for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward"):
+    for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward",
+                "embedding_bag_int8", "embedding_bag_int8_rowwise"):
         if launches[key] == 0:
-            raise AssertionError(f"the training paths never launched {key}")
+            raise AssertionError(f"the training or int8 paths never launched {key}")
 
     _log(f"[10 summary] per model, bf16, batch {BATCH}, full-size tables [{card['card']}]:")
     _log("[10 summary]   model: forward wall ms, device ms, idle, K1 us (% of 3.35 TB/s, "
@@ -1353,6 +1696,19 @@ def main() -> int:
              f"{s['queue_wait_p95_ms']:.3f}, {s['inference_p95_ms']:.3f}, "
              f"{s['pacing_error_mean_ms']:.4f}/{s['pacing_error_p99_ms']:.4f}, "
              f"{s['peak_gib']:.3f} [{card['card']}]")
+    _log("[10 summary] rm1 with int8 tables, bf16, batch 512, full-size tables: mode: forward "
+         "wall ms, device ms, idle, forward peak GiB; kernel us, bound us, plain us, K1 on a bf16 "
+         "table us (same ids); served (1 engine): QPS, p50/p95/p99 ms, inference p95 ms, peak "
+         "GiB")
+    for mode, q in quant.items():
+        s = q["serving"]
+        dev = "not measured" if q["fwd_device_ms"] is None else f"{q['fwd_device_ms']:.4f}"
+        idle = "not measured" if q["idle"] is None else f"{100 * q['idle']:.1f}%"
+        _log(f"[10 summary]   {mode}: {q['fwd_wall_ms']:.4f}, {dev}, {idle}, "
+             f"{q['peak_bytes'] / 2**30:.3f}; {q['ms'] * 1e3:.2f}, {q['bound_ms'] * 1e3:.2f}, "
+             f"{q['plain_ms'] * 1e3:.2f}, {q['k1_bf16_ms'] * 1e3:.2f}; {s['measured_qps']:.2f}, "
+             f"{s['p50_ms']:.3f}/{s['p95_ms']:.3f}/{s['p99_ms']:.3f}, "
+             f"{s['inference_p95_ms']:.3f}, {s['peak_gib']:.3f} [{card['card']}]")
     _log("[10 summary] training step, f32, batch 128, full-size tables: wall ms, device ms, "
          "idle, peak GiB")
     for st in steps:
@@ -1366,14 +1722,18 @@ def main() -> int:
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "embedding_bag", "route": "cuda", **KERNELS["embedding_bag"],
-         "launches": launches["embedding_bag"], "max_abs_err": k1_err,
+         "launches": launches["embedding_bag"], "max_abs_err": kernel_errs["embedding_bag"],
          **{k: times["k1"][k] for k in timed}},
         {"name": "rnn_scan", "route": "cuda", **KERNELS["rnn_scan"],
          "launches": launches["rnn_scan"], "max_abs_err": k3_err,
          **{k: k3[k] for k in timed}}] + [
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": trained[key]["max_abs_err"], **{k: trained[key][k] for k in timed}}
-        for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward")]}))
+        for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward")] + [
+        {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
+         "max_abs_err": kernel_errs[key], **{k: quant[mode][k] for k in timed}}
+        for key, mode in (("embedding_bag_int8", "int8"),
+                          ("embedding_bag_int8_rowwise", "int8_rowwise"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

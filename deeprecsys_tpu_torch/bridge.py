@@ -7,12 +7,10 @@ lists: MLP layers ``{"w", "b"}`` with ``w`` as ``(in, out)``, stacked MLPs
 ``(num, in, out)``, RNNs ``{"i2h_w", ...}``) except for the fused table:
 the JAX package may store it packed, ``{"packed": (ceil(R/p), p*d)}``
 (bf16 d=32 resolves to p=2, ``config.py:193-214``); the port keeps
-``(R, d)``. Quantized tables cross too, so that export bundles can be
-written and read: ``{"qrows": (R, d+4) int8}`` as it is, per-table int8 as
-the port's ``{"q": (R, d), "scale": (T,)}`` and, where the config resolves
-to pack > 1, the JAX package's ``{"q_packed", "scale"}``. The port does not
-serve them yet (``models/base.py::pooled_lookup`` raises, ROADMAP.md
-Queue 1 item 8).
+``(R, d)``. Quantized tables cross too: ``{"qrows": (R, d+4) int8}`` as it
+is, per-table int8 as the port's ``{"q": (R, d), "scale": (T,)}`` and,
+where the config resolves to pack > 1, the JAX package's ``{"q_packed",
+"scale"}``; ``models/base.py::pooled_lookup`` serves both.
 
 ``init_numpy`` draws a model's whole params pytree with numpy from a seed,
 in the JAX layout and with the JAX init's distributions, so that both
@@ -34,7 +32,7 @@ import numpy as np
 import torch
 
 from deeprecsys_tpu_torch.config import ModelConfig
-from deeprecsys_tpu_torch.ops.embedding import unpack_table
+from deeprecsys_tpu_torch.ops.embedding import int8_table_scales, unpack_table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,18 +239,47 @@ def _np_tables(rng: np.random.Generator, cfg: ModelConfig) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def _np_tables_int8(rng: np.random.Generator, cfg: ModelConfig):
+    """The int8 inits' values, ``(total_rows, d)`` drawn uniformly from
+    [-127, 127], and their ``(T,)`` per-table scales (the division the JAX
+    inits make, ``ops/embedding.py::int8_table_scales``)."""
+    d = cfg.sparse_feature_size
+    q = np.concatenate([rng.integers(-127, 127, (n, d), dtype=np.int8, endpoint=True)
+                        for n in cfg.scaled_rows])
+    return q, int8_table_scales(cfg.scaled_rows)
+
+
+def _table_layout(tables, cfg: ModelConfig):
+    """The drawn table in the JAX init's layout for ``cfg``: float tables
+    packed where the config resolves to pack > 1; ``{"q" or "q_packed",
+    "scale"}``; ``{"qrows"}`` with each row's table scale as its last 4
+    (little-endian) bytes."""
+    if cfg.table_quant == "none":
+        return _pack(tables, cfg)
+    q, scale = tables
+    if cfg.table_quant == "int8_rowwise":
+        row_scale = np.repeat(scale, cfg.scaled_rows)
+        return {"qrows": np.concatenate([q, row_scale.view(np.int8).reshape(-1, 4)], axis=1)}
+    if cfg.table_quant != "int8":
+        raise ValueError(f"unknown table_quant {cfg.table_quant!r}")
+    if cfg.resolved_table_pack > 1:
+        return {"q_packed": _pack(q, cfg)["packed"], "scale": scale}
+    return {"q": q, "scale": scale}
+
+
 def init_numpy(cfg: ModelConfig, seed: int) -> dict:
     """The JAX params pytree of ``cfg``'s model, drawn with numpy from
     ``seed``: the same keys, shapes, dtypes and table layout as the JAX
     ``init``, and its distributions (not its values: JAX's PRNG differs).
-    Every leaf is drawn in f32 and cast to the param dtype, so a bf16 tree
-    is exactly the f32 tree of the same seed, cast."""
-    if cfg.table_quant != "none":
-        raise NotImplementedError(f"table_quant={cfg.table_quant!r} is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
+    Every float leaf is drawn in f32 and cast to the param dtype, so a bf16
+    tree is exactly the f32 tree of the same seed, cast; int8 tables stay
+    int8 with f32 scales (``q_packed`` where the config resolves to pack >
+    1, as in the JAX init)."""
     rng = np.random.default_rng(seed)
     m, H, ln_top = cfg.sparse_feature_size, cfg.hidden_size, cfg.ln_top
-    tree: dict = {"tables": _np_tables(rng, cfg)}
+    quantized = cfg.table_quant != "none"
+    tables = _np_tables_int8(rng, cfg) if quantized else _np_tables(rng, cfg)
+    tree: dict = {}
     kind = cfg.model_type
     if kind == "dlrm":
         tree.update(bot=_np_mlp(rng, cfg.mlp_bot), top=_np_mlp(rng, ln_top))
@@ -277,7 +304,8 @@ def init_numpy(cfg: ModelConfig, seed: int) -> dict:
         import ml_dtypes
 
         tree = tree_map(lambda a: a.astype(ml_dtypes.bfloat16), tree)
+        tables = tables if quantized else tables.astype(ml_dtypes.bfloat16)
     elif cfg.param_dtype != "float32":
         raise ValueError(f"unsupported param_dtype {cfg.param_dtype!r}")
-    tree["tables"] = _pack(tree["tables"], cfg)
-    return tree
+    # "tables" first: fingerprint() reads the leaves in this order.
+    return {"tables": _table_layout(tables, cfg), **tree}

@@ -3,11 +3,13 @@ second a pool of engine threads in one process sustains when its queue is
 never empty, and what an execution costs the host.
 
     python -m deeprecsys_tpu_torch.engine_bench [--engines 1 2 4]
-        [--switch_interval 0.005 0.0005] [--device cuda] [--json PATH]
+        [--switch_interval 0.005 0.0005] [--table_quant int8] [--device cuda]
+        [--json PATH]
 
 At each engine (thread) count and each ``sys.setswitchinterval`` value it
-runs three arms on one set of rm1 params (bf16, full-size tables), every
-execution at 32 rows (a sub-batch of the canonical serving point):
+runs three arms on one set of rm1 params (bf16, full-size tables; int8
+ones with ``--table_quant``), every execution at 32 rows (a sub-batch of
+the canonical serving point):
 
 - ``engine``: the serving engines themselves (``build_engine_pool``, one
   bucket), their request queue filled with ``--executions`` requests;
@@ -199,10 +201,11 @@ def card_line() -> str:
 
 
 def run(engines=(1, 2, 4), intervals=(0.005,), executions: int = 2000,
-        device: str = "cuda", table_scale: int = 1, model: str = "rm1", rows: int = 32) -> dict:
+        device: str = "cuda", table_scale: int = 1, model: str = "rm1", rows: int = 32,
+        table_quant: str = "none") -> dict:
     dev = resolve_device(device)
     cfg = zoo.get_config(model, table_scale=table_scale, param_dtype="bfloat16",
-                         compute_dtype="bfloat16")
+                         compute_dtype="bfloat16", table_quant=table_quant)
     fns = get_model(cfg, dev)
     params = fns.init(torch.Generator(device=dev).manual_seed(0))
     host_batch = RecDataGenerator(cfg, seed=17).generate_batch(rows)
@@ -223,11 +226,13 @@ def run(engines=(1, 2, 4), intervals=(0.005,), executions: int = 2000,
                                      graph=arm == "graph")
                     r["switch_interval_s"] = interval
                     rows_out.append(r)
-                    print(f"[engine_bench] {model} rows={rows} switch={interval} "
+                    print(f"[engine_bench] {model} tables={table_quant} rows={rows} "
+                          f"switch={interval} "
                           f"{arm:6s} threads={k}: {describe(r)} [{where}]", flush=True)
     finally:
         sys.setswitchinterval(default_interval)
-    return {"model": model, "rows": rows, "table_scale": table_scale, "device": where,
+    return {"model": model, "rows": rows, "table_scale": table_scale,
+            "table_quant": table_quant, "device": where,
             "torch": torch.__version__, "rows_by_arm": rows_out}
 
 
@@ -237,11 +242,12 @@ def main(argv=None) -> int:
     p.add_argument("--switch_interval", type=float, nargs="+", default=[0.005])
     p.add_argument("--executions", type=int, default=2000)
     p.add_argument("--table_scale", type=int, default=1)
+    p.add_argument("--table_quant", default="none", choices=["none", "int8", "int8_rowwise"])
     p.add_argument("--device", default="cuda")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
     out = run(tuple(args.engines), tuple(args.switch_interval), args.executions,
-              args.device, args.table_scale)
+              args.device, args.table_scale, table_quant=args.table_quant)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -1,22 +1,25 @@
-"""K1 and K3 on one card: their times beside their bounds and a library
-yardstick, and each wrapper's host time a call. The bounds and library
-yardsticks of the training kernels K1b, K5 and K3b (``k1b_bound``,
-``k5_library``, ...) live here too; ``chip_smoke.py`` times those.
+"""K1, K3 and the int8 lookups K1-int8 and K4 on one card: their times
+beside their bounds and a library yardstick, and each wrapper's host time a
+call. The bounds and library yardsticks of the training kernels K1b, K5 and
+K3b (``k1b_bound``, ``k5_library``, ...) live here too; ``chip_smoke.py``
+times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH]
 
-For K1 at every zoo model's shape (bf16, batch 512, full-size tables, ids
-from the port's generator, 8 batches so that rows come cold from device
-memory), and for K3 at DIEN's shape (T = 40, B = 512, H = 64, bf16), it
-checks each kernel against its plain version and prints, and writes to
-PATH:
+For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
+full-size tables, ids from the port's generator, 8 batches so that rows
+come cold from device memory), and for K3 at DIEN's shape (T = 40, B = 512,
+H = 64, bf16), it checks each kernel against its plain version and prints,
+and writes to PATH:
 
 - device time a call, from a ``torch.profiler`` trace;
 - ``bound_ms``: the larger of the bytes the call must move over 3.35 TB/s
   and its operations over the card's f32 rate (67 TFLOP/s), both the
   published H100 SXM figures at 700 W (``k1_bound``, ``k3_bound``);
 - ``library_ms``: one PyTorch call computing the same function,
-  ``F.embedding_bag(mode="sum")`` for K1, cuDNN's tanh RNN for K3;
+  ``F.embedding_bag(mode="sum")`` for K1, cuDNN's tanh RNN for K3; none
+  for K1-int8 and K4 (no PyTorch call pools int8 rows), which are printed
+  beside K1's time on the same ids over a bf16 table instead;
 - each wrapper's host time a call, the mean over back-to-back calls that
   the card keeps up with (rm1's shape and a 32-row sub-batch of dien).
 
@@ -72,15 +75,24 @@ def measure(fn, args_list, iters: int = 100) -> dict:
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters if dev else None
-    # For a call of one kernel: the median kernel, which a dropped trace event
-    # cannot pull down as it can the sum.
-    kernel_ms = float(np.median([e.time_range.elapsed_us() for e in dev])) / 1e3 if dev else None
-    by_name: dict = {}
+    durations: dict = {}
     for e in dev:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / iters
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
+        durations.setdefault(e.name[:60], []).append(e.time_range.elapsed_us())
+    by_name = {name: sum(us) / iters for name, us in durations.items()}
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernel_ms": main_kernel_ms(durations) if dev else None,
             "launches": len(dev) / iters,
             "kernels": sorted(by_name), "us_by_kernel": by_name}
+
+
+def main_kernel_ms(durations: dict) -> float:
+    """The median duration (ms) of the kernel that took the most device
+    time, from ``{name: [µs of each event]}``: a call's kernel time, which a
+    dropped trace event cannot pull down as it can the sum, and which a
+    small op the call also runs (a zero-fill) does not pull to a midpoint
+    as the median over all events did."""
+    name = max(durations, key=lambda n: sum(durations[n]))
+    return float(np.median(durations[name])) / 1e3
 
 
 def host_us(fn, args, iters: int = 200) -> float:
@@ -119,6 +131,32 @@ def k1_bound(table: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
     nbytes = (_touched_rows(offsets, indices) * d * table.element_size() + indices.numel() * 4
               + B * T * d * torch.empty((), dtype=out_dtype).element_size())
     return _bound(nbytes, B * T * L * d)
+
+
+def k1_int8_bound(q: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+                  out_dtype: torch.dtype) -> dict:
+    """K1-int8's least time on these inputs: K1's accounting at 1-byte
+    elements (each distinct d-byte row once, the ids, the (T,) f32 scales,
+    the output); an int add a gathered element and a multiply an output
+    element, at the f32 rate."""
+    B, T, L = indices.shape
+    d = q.shape[1]
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (_touched_rows(offsets, indices) * d + indices.numel() * 4 + T * 4
+              + B * T * d * out_size)
+    return _bound(nbytes, B * T * L * d + B * T * d)
+
+
+def k4_bound(qrows: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+             out_dtype: torch.dtype) -> dict:
+    """K4's least time on these inputs: each distinct (d + 4)-byte row
+    once, the ids, the output; a multiply and an add a gathered element."""
+    B, T, L = indices.shape
+    d = qrows.shape[1] - 4
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (_touched_rows(offsets, indices) * (d + 4) + indices.numel() * 4
+              + B * T * d * out_size)
+    return _bound(nbytes, 2 * B * T * L * d)
 
 
 def k3_bound(T: int, B: int, H: int, out_dtype: torch.dtype) -> dict:
@@ -285,6 +323,79 @@ def bench_k1(log) -> list:
     return rows
 
 
+def random_int8_tables(cfg, generator: torch.Generator, device) -> dict:
+    """Full-size int8 tables of ``cfg``'s rows for timing: per-table ``{"q",
+    "scale"}`` and row-wise ``{"qrows"}`` sharing the values, with positive
+    random scales."""
+    R, T, d = cfg.total_rows, cfg.num_tables, cfg.sparse_feature_size
+    qrows = torch.empty((R, d + 4), dtype=torch.int8, device=device)
+    qrows[:, :d] = torch.randint(-127, 128, (R, d), generator=generator, device=device,
+                                 dtype=torch.int8)
+    row_scale = torch.rand((R,), generator=generator, device=device) * 1e-2 + 1e-4
+    qrows[:, d:] = row_scale.view(torch.int8).reshape(R, 4)
+    del row_scale
+    q = qrows[:, :d].contiguous()
+    scale = torch.rand((T,), generator=generator, device=device) * 1e-2 + 1e-4
+    return {"q": q, "scale": scale, "qrows": qrows}
+
+
+def bench_int8(log) -> list:
+    """K1-int8 and K4 at every zoo shape (bf16 output, full-size int8
+    tables, ids as ``bench_k1``'s): device time and bound, and K1's time on
+    the same ids over a bf16 table of the same rows. No PyTorch call pools
+    int8 rows (``F.embedding_bag`` takes float weights only), so these two
+    kernels have no library time."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.data import RecDataGenerator
+    from deeprecsys_tpu_torch.models.base import table_offsets
+    from deeprecsys_tpu_torch.ops.embedding import (
+        embedding_bag, embedding_bag_int8, embedding_bag_int8_reference,
+        embedding_bag_int8_rowwise, embedding_bag_int8_rowwise_reference, rowwise_tolerance)
+
+    device, bf16 = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for name in zoo.MODEL_NAMES:
+        cfg = zoo.get_config(name)
+        g = torch.Generator(device=device).manual_seed(0)
+        t = random_int8_tables(cfg, g, device)
+        offsets = table_offsets(cfg, device)
+        batches = [b.to(device).indices
+                   for b in RecDataGenerator(cfg, seed=3).generate_batches(8, BATCH)]
+        i0 = batches[0]
+        got = embedding_bag_int8(t["q"], t["scale"], offsets, i0, compute_dtype=bf16)
+        if not torch.equal(got, embedding_bag_int8_reference(t["q"], t["scale"], offsets, i0,
+                                                             compute_dtype=bf16)):
+            raise AssertionError(f"K1-int8 differs from its plain version at {name}")
+        got = embedding_bag_int8_rowwise(t["qrows"], offsets, i0, compute_dtype=bf16)
+        want = embedding_bag_int8_rowwise_reference(t["qrows"], offsets, i0, compute_dtype=bf16)
+        if not bool(((got.float() - want.float()).abs()
+                     <= rowwise_tolerance(got, want, t["qrows"], offsets, i0)).all()):
+            raise AssertionError(f"K4 disagrees with its plain version at {name}")
+        ids = [(i,) for i in batches]
+        k1i8 = measure(lambda i: embedding_bag_int8(t["q"], t["scale"], offsets, i,
+                                                    compute_dtype=bf16), ids)
+        k4 = measure(lambda i: embedding_bag_int8_rowwise(t["qrows"], offsets, i,
+                                                          compute_dtype=bf16), ids)
+        row = {"model": name, "shape": list(i0.shape) + [cfg.sparse_feature_size],
+               "k1_int8": {**k1_int8_bound(t["q"], offsets, i0, bf16),
+                           "ms": k1i8["device_ms"], "wall_ms": k1i8["wall_ms"]},
+               "k4": {**k4_bound(t["qrows"], offsets, i0, bf16), "ms": k4["device_ms"],
+                      "wall_ms": k4["wall_ms"]},
+               "library_ms": None}
+        del t
+        table = torch.empty((cfg.total_rows, cfg.sparse_feature_size), dtype=bf16,
+                            device=device).uniform_(-0.05, 0.05, generator=g)
+        k1 = measure(lambda i: embedding_bag(table, offsets, i), ids)
+        row["k1_bf16_ms"] = k1["device_ms"]
+        log(f"int8 {name} {row['shape']}: K1-int8 {_us(row['k1_int8']['ms'])} (bound "
+            f"{_us(row['k1_int8']['bound_ms'])}); K4 {_us(row['k4']['ms'])} (bound "
+            f"{_us(row['k4']['bound_ms'])}); K1 on a bf16 table, same ids {_us(k1['device_ms'])}")
+        rows.append(row)
+        del table, batches
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bench_k1_host(log) -> dict:
     """Host time a K1 call at rm1's shape and at a 32-row sub-batch of dien
     (where the card finishes each call long before the host issues the
@@ -367,11 +478,11 @@ def main(argv=None) -> int:
 
     card = card_line()
     log(f"card: {card}; port at {Path(_build.__file__).parents[2]}")
-    for key in ("embedding_bag", "rnn_scan"):
+    for key in ("embedding_bag", "rnn_scan", "embedding_bag_int8"):
         log(f"{key}: ptxas " + "; ".join(ptxas_summary(_build.build(key).log)))
     with torch.inference_mode():
         res = {"card": card, "k1": bench_k1(log), "k1_host_us": bench_k1_host(log),
-               "k3": bench_k3(log)}
+               "k3": bench_k3(log), "int8": bench_int8(log)}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(res, indent=1))

@@ -14,11 +14,12 @@ Two modes, as in the JAX package (reference ``DeepRecSys.py``):
   compute time is the host clock between two ``torch.cuda.synchronize()``
   calls around the whole loop.
 
-``--checkpoint <name>`` (both modes) starts from a trained float checkpoint
-(``<name>.npz`` + ``<name>.tree.json``, the JAX package's format, e.g. from
-``python -m deeprecsys_tpu_torch.train --save <name>``) instead of random
-weights; a quantized one (``--table_quant``) raises until int8 tables are
-ported (ROADMAP.md Queue 1 item 8).
+``--table_quant int8|int8_rowwise`` (both modes) serves int8 tables through
+the kernels K1-int8 and K4. ``--checkpoint <name>`` (both modes) starts
+from a trained checkpoint (``<name>.npz`` + ``<name>.tree.json``, the JAX
+package's format, e.g. from ``python -m deeprecsys_tpu_torch.train --save
+<name>``) instead of random weights; with ``--table_quant`` it reads the
+int8 bundle ``--export_quant`` writes (``<name>_int8_rowwise``, ...).
 
 The parser carries the JAX package's flags that the port reads, with the
 same names and defaults, but ``--engine_backend`` defaults to ``gpu``, and
@@ -66,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--param_dtype", type=str, default="float32")
     p.add_argument("--compute_dtype", type=str, default=None,
                    help="default: --param_dtype")
-    # Lookup knobs of ModelConfig; the port runs only "xla" (K1), unquantized.
+    # Lookup knobs of ModelConfig; the port runs only "xla" (K1, K1-int8, K4).
     p.add_argument("--embedding_impl", type=str, default="xla",
                    choices=["xla", "hotcold", "auto"])
     p.add_argument("--hotcold_min_hit", type=float, default=None)
@@ -129,8 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_file", type=str, default=None)
     p.add_argument("--debug_mode", action="store_true")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="start from this trained float checkpoint (<path>.npz + "
-                        "<path>.tree.json) instead of random weights: standalone and --queue")
+                   help="start from this trained checkpoint (<path>.npz + "
+                        "<path>.tree.json; an int8 bundle with --table_quant) instead of "
+                        "random weights: standalone and --queue")
     # Modes not ported yet (_NOT_PORTED)
     p.add_argument("--serve", action="store_true")
     p.add_argument("--score_output", type=str, default=None)

@@ -97,26 +97,36 @@ def table_offsets(cfg: ModelConfig, device: torch.device | str) -> torch.Tensor:
 
 
 def init_tables(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device | str) -> torch.Tensor:
-    """The fused ``(total_rows, d)`` table, always in the unpacked layout."""
-    from deeprecsys_tpu_torch.ops import init_fused_tables
+                device: torch.device | str):
+    """The fused table per the config's quantization (JAX
+    ``models/base.py:104-125``), always unpacked: a ``(total_rows, d)``
+    tensor, ``{"q", "scale"}`` (int8) or ``{"qrows"}`` (int8_rowwise)."""
+    from deeprecsys_tpu_torch.ops import (
+        init_fused_tables, init_fused_tables_int8, init_fused_tables_int8_rowwise)
 
+    rows, d = cfg.scaled_rows, cfg.sparse_feature_size
+    if cfg.table_quant == "int8":
+        return init_fused_tables_int8(rows, d, generator, device)
+    if cfg.table_quant == "int8_rowwise":
+        return {"qrows": init_fused_tables_int8_rowwise(rows, d, generator, device)}
     if cfg.table_quant != "none":
-        raise NotImplementedError(
-            f"table_quant={cfg.table_quant!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 8, quantized tables)")
-    return init_fused_tables(cfg.scaled_rows, cfg.sparse_feature_size,
-                             param_dtype_of(cfg), generator, device)
+        raise ValueError(f"unknown table_quant {cfg.table_quant!r}")
+    return init_fused_tables(rows, d, param_dtype_of(cfg), generator, device)
 
 
 def pooled_lookup(tables, batch: Batch, cfg: ModelConfig,
                   offsets: torch.Tensor | None = None) -> torch.Tensor:
-    """The model-facing fused pooled lookup: (B, T, d) in the compute dtype.
+    """The model-facing fused pooled lookup: (B, T, d) in the compute dtype,
+    dispatching on the table's layout as JAX ``models/base.py:163-184``
+    does: a tensor goes to ``embedding_bag`` (K1), ``{"q", "scale"}`` to
+    ``embedding_bag_int8`` (K1-int8), ``{"qrows"}`` to
+    ``embedding_bag_int8_rowwise`` (K4).
 
     ``offsets`` may be passed precomputed on the table's device (the
     models do, so a forward makes no host-to-device copy for them).
     """
-    from deeprecsys_tpu_torch.ops import embedding_bag
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag, embedding_bag_int8, embedding_bag_int8_rowwise)
 
     if cfg.embedding_impl == "hotcold":
         raise NotImplementedError(
@@ -125,12 +135,17 @@ def pooled_lookup(tables, batch: Batch, cfg: ModelConfig,
     if cfg.embedding_impl not in ("xla", "auto"):
         raise ValueError(f"unknown embedding_impl {cfg.embedding_impl!r} "
                          "(valid: 'xla', 'hotcold', 'auto')")
-    if isinstance(tables, dict):
-        raise NotImplementedError(
-            f"quantized or packed tables ({sorted(tables)}) are not ported yet "
-            "(ROADMAP.md Queue 1 item 8); bridge.params_from_numpy unpacks "
-            "float tables")
+    cdt, indices, mask = compute_dtype_of(cfg), batch.indices, batch.mask
     if offsets is None:
-        offsets = table_offsets(cfg, tables.device)
-    return embedding_bag(tables, offsets, batch.indices,
-                         compute_dtype=compute_dtype_of(cfg), mask=batch.mask)
+        offsets = table_offsets(cfg, indices.device)
+    if not isinstance(tables, dict):
+        return embedding_bag(tables, offsets, indices, compute_dtype=cdt, mask=mask)
+    if set(tables) == {"q", "scale"}:
+        return embedding_bag_int8(tables["q"], tables["scale"], offsets, indices,
+                                  compute_dtype=cdt, mask=mask)
+    if set(tables) == {"qrows"}:
+        return embedding_bag_int8_rowwise(tables["qrows"], offsets, indices,
+                                          compute_dtype=cdt, mask=mask)
+    raise ValueError(f"unknown table layout {sorted(tables)} (the port takes a tensor, "
+                     "{'q', 'scale'} or {'qrows'}; bridge.params_from_numpy unpacks "
+                     "the JAX package's packed layouts)")

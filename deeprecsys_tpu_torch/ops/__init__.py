@@ -1,9 +1,16 @@
 from deeprecsys_tpu_torch.ops.embedding import (
+    dequant_packed_rows,
     embedding_bag,
     embedding_bag_backward,
     embedding_bag_backward_reference,
+    embedding_bag_int8,
+    embedding_bag_int8_reference,
+    embedding_bag_int8_rowwise,
+    embedding_bag_int8_rowwise_reference,
     embedding_bag_reference,
     init_fused_tables,
+    init_fused_tables_int8,
+    init_fused_tables_int8_rowwise,
     unpack_table,
 )
 from deeprecsys_tpu_torch.ops.mlp import mlp_init, mlp_apply
@@ -22,11 +29,18 @@ from deeprecsys_tpu_torch.ops.sparse_adagrad import (
 )
 
 __all__ = [
+    "dequant_packed_rows",
     "embedding_bag",
     "embedding_bag_backward",
     "embedding_bag_backward_reference",
+    "embedding_bag_int8",
+    "embedding_bag_int8_reference",
+    "embedding_bag_int8_rowwise",
+    "embedding_bag_int8_rowwise_reference",
     "embedding_bag_reference",
     "init_fused_tables",
+    "init_fused_tables_int8",
+    "init_fused_tables_int8_rowwise",
     "unpack_table",
     "mlp_init",
     "mlp_apply",

@@ -19,6 +19,21 @@ the same dispatch, its backward ``embedding_bag_backward``, kernel K1b
 ``embedding_bag_backward_reference`` on the CPU. Inference and serving
 (``inference_mode``, tables without grad) call the dispatch directly.
 
+Quantized tables (JAX ``ops/embedding.py:76-102, :211-284``,
+``models/base.py:163-182``) take two more dispatches of the same shape:
+
+- ``embedding_bag_int8``: per-table int8, ``q (R, d)`` int8 and ``scale
+  (T,)`` f32; each bag pooled in exact int32, then one f32 multiply by its
+  table's scale and a cast to the compute dtype. Kernel K1-int8
+  (``csrc/embedding_bag_int8.cu``); the same bits as the JAX op.
+- ``embedding_bag_int8_rowwise``: ``(R, d + 4)`` int8 rows whose last 4
+  bytes are the row's f32 scale (``dequant_packed_rows``); each element
+  dequantized by one f32 multiply, summed over L in f32, cast once. Kernel
+  K4 (same source).
+
+The JAX package may store per-table int8 packed (``q_packed``);
+``bridge.params_from_numpy`` unpacks it, so the port only sees ``(R, d)``.
+
 The export helpers ``quantize_rowwise_int8`` and ``quantize_pertable_int8``
 are plain torch: they run once an export. (JAX's ``pack_table`` is
 ``bridge._pack``: the port packs rows only to write the JAX package's file
@@ -61,6 +76,51 @@ def init_fused_tables(table_rows, dim: int, dtype: torch.dtype,
     return out
 
 
+def int8_table_scales(table_rows) -> np.ndarray:
+    """The ``(T,)`` f32 scales of the int8 inits: f32(sqrt(1/n)) / 127,
+    divided in f32 (JAX ``ops/embedding.py:91-92, :246``), so that the
+    init's U(+-sqrt(1/n)) bound is q = 127."""
+    bounds = np.sqrt(1.0 / np.asarray(table_rows, dtype=np.int64)).astype(np.float32)
+    return bounds / np.float32(127.0)
+
+
+def _draw_int8(n: int, dim: int, generator: torch.Generator, device) -> torch.Tensor:
+    """``(n, dim)`` int8 values drawn uniformly from [-127, 127]."""
+    return torch.randint(-127, 128, (n, dim), generator=generator, device=device,
+                         dtype=torch.int8)
+
+
+def init_fused_tables_int8(table_rows, dim: int, generator: torch.Generator,
+                           device: torch.device | str) -> dict:
+    """Per-table int8 fused tables, ``{"q": (R, dim) int8, "scale": (T,)
+    f32}``: values on the int8 grid, drawn a table at a time, at the
+    scale that makes the reference's U(-sqrt(1/n), sqrt(1/n)) init exact
+    (JAX ``init_fused_tables_int8``; the port keeps the unpacked layout)."""
+    table_rows = [int(n) for n in table_rows]
+    q = torch.empty((sum(table_rows), dim), dtype=torch.int8, device=device)
+    start = 0
+    for n in table_rows:
+        q[start:start + n] = _draw_int8(n, dim, generator, device)
+        start += n
+    return {"q": q, "scale": torch.from_numpy(int8_table_scales(table_rows)).to(device)}
+
+
+def init_fused_tables_int8_rowwise(table_rows, dim: int, generator: torch.Generator,
+                                   device: torch.device | str) -> torch.Tensor:
+    """Row-wise int8 fused tables, ``(R, dim + 4)`` int8: values on the
+    int8 grid and, in the last 4 bytes of each row, its table's scale as
+    little-endian f32 bytes (JAX ``init_fused_tables_int8_rowwise``)."""
+    table_rows = [int(n) for n in table_rows]
+    out = torch.empty((sum(table_rows), dim + 4), dtype=torch.int8, device=device)
+    start = 0
+    for n, s in zip(table_rows, int8_table_scales(table_rows).tolist()):
+        out[start:start + n, :dim] = _draw_int8(n, dim, generator, device)
+        scale = torch.full((n,), s, dtype=torch.float32, device=device)
+        out[start:start + n, dim:] = scale.view(torch.int8).reshape(n, 4)
+        start += n
+    return out
+
+
 def unpack_table(table_packed: torch.Tensor, pack: int, total_rows: int) -> torch.Tensor:
     """Logical ``(total_rows, d)`` view of a ``(ceil(R/pack), pack*d)``
     packed table (inverse of the JAX package's ``pack_table``)."""
@@ -96,7 +156,12 @@ def pooled_tolerance(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
     the larger value when the outputs are bf16 (each side rounds once)."""
     abs_sum = embedding_bag_reference(table.abs(), offsets, indices,
                                       compute_dtype=torch.float32, mask=mask)
-    tol = indices.shape[-1] * 2.0 ** -23 * abs_sum
+    return _order_tolerance(a, b, abs_sum, indices.shape[-1])
+
+
+def _order_tolerance(a, b, abs_sum: torch.Tensor, L: int) -> torch.Tensor:
+    """``pooled_tolerance``'s bound from the pooled sum of |rows|."""
+    tol = L * 2.0 ** -23 * abs_sum
     if a.dtype == torch.bfloat16:
         big = torch.maximum(a.float().abs(), b.float().abs())
         big = torch.clamp(big, min=torch.finfo(torch.float32).tiny)
@@ -138,6 +203,15 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def _plan(n_bags: int, L: int, S: int, long_rows_per_lane: int) -> K1Plan:
+    """A slot a bag and all L rows in flight for L <= 8; else a warp a bag
+    and ``long_rows_per_lane`` rows a slot a step."""
+    G, U = (S, _pow2_at_least(max(L, 1))) if L <= 8 else (1, long_rows_per_lane)
+    tasks = -(-n_bags // G)
+    grid = max(1, -(-tasks // K1_WARPS_PER_BLOCK))
+    return K1Plan(bags_per_warp=G, rows_per_lane=U, row_slots=S, tasks=tasks, grid=grid)
+
+
 @functools.lru_cache(maxsize=512)
 def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1Plan:
     """K1's mapping for ``n_bags = B * T`` bags of ``L`` rows of width ``d``.
@@ -152,12 +226,22 @@ def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1P
     is one block per K1_WARPS_PER_BLOCK tasks: capping it at the blocks the
     card holds at once, each block looping over tasks, measured no faster.
     These are the only mappings ``csrc/embedding_bag.cu`` is built with.
+    K1-int8 (``csrc/embedding_bag_int8.cu``) takes the same mapping at
+    ``table_dtype=torch.int8``: 16 int8 values a lane, S = 16 at d = 32.
     """
-    S = 32 // (d * table_dtype.itemsize // 16)
-    G, U = (S, _pow2_at_least(max(L, 1))) if L <= 8 else (1, 4)
-    tasks = -(-n_bags // G)
-    grid = max(1, -(-tasks // K1_WARPS_PER_BLOCK))
-    return K1Plan(bags_per_warp=G, rows_per_lane=U, row_slots=S, tasks=tasks, grid=grid)
+    return _plan(n_bags, L, 32 // (d * table_dtype.itemsize // 16), 4)
+
+
+@functools.lru_cache(maxsize=512)
+def k4_launch_plan(n_bags: int, L: int, d: int) -> K1Plan:
+    """K4's mapping for ``(R, d + 4)`` int8 rows, which start on 4-byte
+    boundaries only: a lane loads one 4-byte word (4 values), so a row
+    takes d / 4 lanes and a warp has S = 128 / d row slots (4 at d = 32).
+    K1's rule otherwise, but 8 rows a slot a step for long bags: a lane's
+    row costs one register, not four, and 8 keeps as many rows of a warp
+    in flight as K1's bf16 mapping. The only mappings
+    ``csrc/embedding_bag_int8.cu`` builds for K4."""
+    return _plan(n_bags, L, 128 // d, 8)
 
 
 def _declare(lib: ctypes.CDLL):
@@ -185,6 +269,12 @@ def _check(table, offsets, indices, cdt, mask):
     if table.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
         raise TypeError(f"table and compute dtypes must be float32 or bfloat16; "
                         f"got {table.dtype} and {cdt}")
+    _check_ids(table, offsets, indices, mask)
+
+
+def _check_ids(table, offsets, indices, mask, *others):
+    """The ids, offsets and mask of a lookup into ``table``; every tensor
+    on the table's device and contiguous (``others`` too)."""
     if indices.dim() != 3 or indices.dtype != torch.int32:
         raise TypeError(f"indices must be (B, T, L) int32; got "
                         f"{tuple(indices.shape)} {indices.dtype}")
@@ -196,10 +286,12 @@ def _check(table, offsets, indices, cdt, mask):
                         f"{tuple(mask.shape)} {mask.dtype}")
     device = table.device
     if offsets.device != device or indices.device != device or (
-            mask is not None and mask.device != device):
+            mask is not None and mask.device != device) or any(
+            t.device != device for t in others):
         raise ValueError("table, offsets, indices and mask must be on one device")
     if not (table.is_contiguous() and offsets.is_contiguous() and indices.is_contiguous()
-            and (mask is None or mask.is_contiguous())):
+            and (mask is None or mask.is_contiguous())
+            and all(t.is_contiguous() for t in others)):
         raise ValueError("table, offsets, indices and mask must be contiguous")
 
 
@@ -401,6 +493,198 @@ class EmbeddingBagFunction(torch.autograd.Function):
         offsets, indices, mask = ctx.saved_tensors
         grad = embedding_bag_backward(g, offsets, indices, ctx.num_rows, mask=mask)
         return grad.to(ctx.table_dtype), None, None, None, None
+
+
+# ------------------------------------------------- int8 tables (K1-int8, K4)
+
+def _flat_ids(offsets: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    return (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+
+
+def embedding_bag_int8_reference(q: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
+                                 indices: torch.Tensor, *,
+                                 compute_dtype: torch.dtype = torch.float32,
+                                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch per-table int8 lookup: the bag's int8 rows summed in
+    exact int32 (zero where masked out), converted to f32, multiplied by
+    its table's f32 scale once and cast (JAX ``models/base.py:178-182``)."""
+    B, T, L = indices.shape
+    rows = q.index_select(0, _flat_ids(offsets, indices)).to(torch.int32).reshape(B, T, L, -1)
+    if mask is not None:
+        rows = torch.where(mask[..., None], rows, 0)
+    pooled = rows.sum(dim=2, dtype=torch.int32)
+    return (pooled.float() * scale.float()[None, :, None]).to(compute_dtype)
+
+
+def dequant_packed_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``(N, d + 4)`` int8 rows as ``(N, d)`` f32: each value times its
+    row's scale, the f32 whose little-endian bytes are the row's last 4
+    (JAX ``ops/embedding.py:251-259``)."""
+    d = rows.shape[1] - 4
+    scale = rows[:, d:].contiguous().view(torch.float32)
+    return rows[:, :d].float() * scale
+
+
+def _rowwise_values(qrows, offsets, indices, mask) -> torch.Tensor:
+    """The dequantized rows of every slot, ``(B, T, L, d)`` f32, 0 where
+    masked out."""
+    B, T, L = indices.shape
+    vals = dequant_packed_rows(qrows.index_select(0, _flat_ids(offsets, indices)))
+    vals = vals.reshape(B, T, L, -1)
+    return vals if mask is None else torch.where(mask[..., None], vals, 0.0)
+
+
+def embedding_bag_int8_rowwise_reference(qrows: torch.Tensor, offsets: torch.Tensor,
+                                         indices: torch.Tensor, *,
+                                         compute_dtype: torch.dtype = torch.float32,
+                                         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch row-wise int8 lookup: ``dequant_packed_rows``, a sum
+    over L in f32, one cast (JAX ``ops/embedding.py:262-284``)."""
+    return _rowwise_values(qrows, offsets, indices, mask).sum(dim=2).to(compute_dtype)
+
+
+def rowwise_tolerance(a: torch.Tensor, b: torch.Tensor, qrows: torch.Tensor,
+                      offsets: torch.Tensor, indices: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``pooled_tolerance`` on the dequantized rows: two row-wise pooled
+    outputs whose products are the same f32 roundings and whose sums differ
+    only in order."""
+    abs_sum = _rowwise_values(qrows, offsets, indices, mask).abs().sum(dim=2)
+    return _order_tolerance(a, b, abs_sum, indices.shape[-1])
+
+
+def _check_int8(table, row_bytes_extra: int, cdt, offsets, indices, mask, *others):
+    """What K1-int8 (``row_bytes_extra`` 0) and K4 (4: the scale's bytes)
+    take; both devices share the contract."""
+    if table.dtype != torch.int8:
+        raise TypeError(f"an int8 table must be int8; got {table.dtype}")
+    if table.dim() != 2 or table.shape[1] - row_bytes_extra not in _KERNEL_WIDTHS:
+        widths = tuple(w + row_bytes_extra for w in _KERNEL_WIDTHS)
+        raise ValueError(f"the int8 table must be (R, w) with w in {widths}; "
+                         f"got {tuple(table.shape)}")
+    if cdt not in _DTYPE_CODES:
+        raise TypeError(f"the compute dtype must be float32 or bfloat16; got {cdt}")
+    _check_ids(table, offsets, indices, mask, *others)
+
+
+def _declare_int8(lib: ctypes.CDLL):
+    lib.drs_embedding_bag_int8.restype = ctypes.c_int
+    lib.drs_embedding_bag_int8.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # q, scale, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
+        ctypes.c_void_p, ctypes.c_int,                      # out, out dtype
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
+        ctypes.c_void_p,                                    # stream
+    ]
+    lib.drs_embedding_bag_int8_rowwise.restype = ctypes.c_int
+    lib.drs_embedding_bag_int8_rowwise.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,                      # qrows, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
+        ctypes.c_void_p, ctypes.c_int,                      # out, out dtype
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
+        ctypes.c_void_p,                                    # stream
+    ]
+
+
+def _launch_int8(wrapper, fn: str, table, args, offsets, indices, mask, cdt, plan: K1Plan):
+    """``wrapper``'s kernel in ``csrc/embedding_bag_int8.cu`` on checked
+    CUDA inputs (``args``: its arguments before the offsets), counted."""
+    B, T, L = indices.shape
+    d = table.shape[1] - (4 if fn.endswith("rowwise") else 0)
+    out = torch.empty((B, T, d), dtype=cdt, device=table.device)
+    if B * T == 0:
+        return out
+    _build.launch(_build.load("embedding_bag_int8", _declare_int8), fn, table.device,
+                  *args, offsets.data_ptr(), indices.data_ptr(),
+                  mask.data_ptr() if mask is not None else None,
+                  out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L,
+                  plan.bags_per_warp, plan.rows_per_lane, plan.grid)
+    _build.count_launch(wrapper)
+    return out
+
+
+def embedding_bag_int8(q: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
+                       indices: torch.Tensor, *, compute_dtype: torch.dtype = torch.float32,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Pooled lookup over per-table int8 tables (JAX ``models/base.py:163-182``).
+
+    Args:
+      q: ``(R, d)`` int8 fused table, d 32 or 64.
+      scale: ``(T,)`` f32 scale of each table.
+      offsets, indices, mask: as ``embedding_bag`` takes them.
+
+    Returns:
+      ``(B, T, d)`` in ``compute_dtype``: the bag's int32 sum times its
+      table's scale, the same bits as the JAX op's.
+
+    CPU tensors take ``embedding_bag_int8_reference``. CUDA tensors launch
+    K1-int8 with ``k1_launch_plan(..., torch.int8)``'s mapping (``q`` on a
+    16-byte boundary) and count the launch in
+    ``embedding_bag_int8.kernel_launches``; a failed build or launch raises.
+    """
+    cdt = compute_dtype
+    _check_int8(q, 0, cdt, offsets, indices, mask, scale)
+    if scale.shape != (indices.shape[1],) or scale.dtype != torch.float32:
+        raise TypeError(f"scale must be ({indices.shape[1]},) float32; got "
+                        f"{tuple(scale.shape)} {scale.dtype}")
+    if q.device.type == "cpu":
+        return embedding_bag_int8_reference(q, scale, offsets, indices,
+                                            compute_dtype=cdt, mask=mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"embedding_bag_int8 runs on cpu or cuda, not {q.device}")
+    if q.data_ptr() % 16:
+        raise ValueError("K1-int8 loads 16-byte vectors: the table must start on a "
+                         "16-byte boundary")
+    B, T, L = indices.shape
+    return _launch_int8(embedding_bag_int8, "drs_embedding_bag_int8", q,
+                        (q.data_ptr(), scale.data_ptr(), q.shape[1]), offsets, indices, mask,
+                        cdt, k1_launch_plan(B * T, L, q.shape[1], torch.int8))
+
+
+embedding_bag_int8.kernel_launches = 0
+
+
+def embedding_bag_int8_rowwise(qrows: torch.Tensor, offsets: torch.Tensor,
+                               indices: torch.Tensor, *,
+                               compute_dtype: torch.dtype = torch.float32,
+                               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Pooled lookup over row-wise int8 tables (JAX ``ops/embedding.py:262-284``).
+
+    Args:
+      qrows: ``(R, d + 4)`` int8 rows (``quantize_rowwise_int8``'s layout),
+        d 32 or 64, starting on a 4-byte boundary (every row then does).
+      offsets, indices, mask: as ``embedding_bag`` takes them.
+
+    Returns:
+      ``(B, T, d)`` in ``compute_dtype``: the f32 sum over L of each value
+      times its row's scale, cast once. The kernel sums in another order
+      than the plain version (``rowwise_tolerance``).
+
+    CPU tensors take ``embedding_bag_int8_rowwise_reference``. CUDA tensors
+    launch K4 with ``k4_launch_plan``'s mapping and count the launch in
+    ``embedding_bag_int8_rowwise.kernel_launches``; a failed build or
+    launch raises.
+    """
+    cdt = compute_dtype
+    _check_int8(qrows, 4, cdt, offsets, indices, mask)
+    if qrows.data_ptr() % 4:
+        raise ValueError("row-wise rows hold an f32 scale: the table must start on a "
+                         "4-byte boundary")
+    if qrows.device.type == "cpu":
+        return embedding_bag_int8_rowwise_reference(qrows, offsets, indices,
+                                                    compute_dtype=cdt, mask=mask)
+    if qrows.device.type != "cuda":
+        raise ValueError(f"embedding_bag_int8_rowwise runs on cpu or cuda, not {qrows.device}")
+    B, T, L = indices.shape
+    d = qrows.shape[1] - 4
+    return _launch_int8(embedding_bag_int8_rowwise, "drs_embedding_bag_int8_rowwise", qrows,
+                        (qrows.data_ptr(), d), offsets, indices, mask, cdt,
+                        k4_launch_plan(B * T, L, d))
+
+
+embedding_bag_int8_rowwise.kernel_launches = 0
 
 
 # ---------------------------------------------------------- export helpers

@@ -92,8 +92,8 @@ def run_serving(
     compute engine on the card. ``params`` (the port's tensors) are shared
     by every compute engine; None = each draws its own from its seed, or,
     with ``checkpoint_path``, all share the checkpoint's params, loaded once
-    onto the engines' device (a quantized checkpoint raises: ROADMAP.md
-    Queue 1 item 8).
+    onto the engines' device (with a quantized ``model_cfg``, the int8
+    bundle that ``train --export_quant`` writes).
     """
     cfg = serving_cfg
     if params is None and checkpoint_path:

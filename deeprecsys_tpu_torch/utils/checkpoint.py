@@ -158,10 +158,7 @@ def load_model_params(model_cfg, path: str | Path) -> dict:
 
 
 def checkpoint_params(model_cfg, path: str | Path, device) -> dict:
-    """A float checkpoint as the port's tensors on ``device``, for serving.
-    A quantized config raises: the port does not serve int8 tables yet."""
-    if model_cfg.table_quant != "none":
-        raise NotImplementedError(
-            f"serving a quantized checkpoint (table_quant={model_cfg.table_quant!r}) is not "
-            "ported yet (ROADMAP.md Queue 1 item 8, quantized tables)")
+    """A checkpoint as the port's tensors on ``device``, for serving: float
+    tables, or for a quantized config (``table_quant``) the int8 bundle
+    that ``train --export_quant`` writes, ``q_packed`` unpacked."""
     return bridge.params_from_numpy(load_model_params(model_cfg, path), model_cfg, device)

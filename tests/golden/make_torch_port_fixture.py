@@ -40,11 +40,22 @@ from ``RecDataGenerator(cfg, seed=1)`` (``dense`` where the model takes
 it, ``indices``) and the JAX trainer's ``losses`` on them, in f32 at
 ``table_scale=2000``, starting from ``bridge.init_numpy``'s weights.
 
-``chip_smoke.py`` loads all three on the card; ``tests/test_torch_dlrm.py``,
-``tests/test_torch_models.py`` and ``tests/test_torch_golden.py`` rebuild
-them and compare, so they cannot go stale.
+``torch_port_quant.npz`` holds, for all eight zoo models at
+``table_scale=2000`` with int8 tables, keys ``<model>/<table_quant>/...``
+(``int8``: per-table scales, ``q_packed`` where the config resolves to
+pack > 1; ``int8_rowwise``: ``qrows``) laid out as ``torch_port_zoo.npz``'s
+entries: the weight ``seed`` (``QUANT_WEIGHT_SEED``: at seed 0 din's
+relu-scored outputs are all 0 in both modes) and ``fingerprint`` of
+``bridge.init_numpy``'s tree, a batch, ``out_f32`` and ``out_bf16`` (the
+bf16 configs keep the int8 tables and cast the rest), and dien's ragged
+case.
 
-Regenerate: python -m tests.golden.make_torch_port_fixture [rm1] [zoo] [train]
+``chip_smoke.py`` loads all four on the card; ``tests/test_torch_dlrm.py``,
+``tests/test_torch_models.py``, ``tests/test_torch_golden.py`` and
+``tests/test_torch_quant.py`` rebuild them and compare, so they cannot go
+stale.
+
+Regenerate: python -m tests.golden.make_torch_port_fixture [rm1] [zoo] [train] [quant]
 """
 
 from __future__ import annotations
@@ -65,6 +76,10 @@ from deeprecsys_tpu_torch import zoo as port_zoo
 PATH = Path(__file__).parent / "torch_port_rm1.npz"
 ZOO_PATH = Path(__file__).parent / "torch_port_zoo.npz"
 TRAIN_PATH = Path(__file__).parent / "torch_port_train.npz"
+QUANT_PATH = Path(__file__).parent / "torch_port_quant.npz"
+QUANT_MODELS = ("rm1", "rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")
+QUANT_MODES = ("int8", "int8_rowwise")
+QUANT_WEIGHT_SEED = 1
 TRAIN_MODELS = ("rm1", "wnd", "mtwnd", "ncf", "din", "dien")
 TRAIN_MODES = ("dense", "sparse")
 TRAIN_STEPS = 3
@@ -77,13 +92,15 @@ ZOO_BATCH = 16
 WEIGHT_SEED = 0
 
 
-def _config(dtype: str, name: str = "rm1"):
-    return zoo.get_config(name, table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype)
+def _config(dtype: str, name: str = "rm1", table_quant: str = "none"):
+    return zoo.get_config(name, table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype,
+                          table_quant=table_quant)
 
 
-def _port_config(dtype: str, name: str):
+def _port_config(dtype: str, name: str, table_quant: str = "none"):
     """The port's config of the same model, for the port's ``bridge``."""
-    return port_zoo.get_config(name, table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype)
+    return port_zoo.get_config(name, table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype,
+                               table_quant=table_quant)
 
 
 def build() -> dict[str, np.ndarray]:
@@ -132,20 +149,22 @@ def _ragged(batch_size: int, cfg) -> tuple[np.ndarray, np.ndarray]:
     return lengths, h0
 
 
-def build_model(name: str) -> dict[str, np.ndarray]:
-    """``name``'s entries of ``torch_port_zoo.npz``, keys without the prefix."""
-    arrays: dict = {"seed": np.asarray(WEIGHT_SEED)}
-    cfg32 = _config("float32", name)
+def build_model(name: str, table_quant: str = "none",
+                seed: int = WEIGHT_SEED) -> dict[str, np.ndarray]:
+    """``name``'s entries of ``torch_port_zoo.npz`` (or, with a
+    ``table_quant``, of ``torch_port_quant.npz``), keys without the prefix."""
+    arrays: dict = {"seed": np.asarray(seed)}
+    cfg32 = _config("float32", name, table_quant)
     batch = RecDataGenerator(cfg32, seed=1).generate_batch(ZOO_BATCH)
     if batch.dense is not None:
         arrays["dense"] = batch.dense
     arrays["indices"] = batch.indices
     arrays["fingerprint"] = bridge.fingerprint(
-        bridge.init_numpy(_port_config("float32", name), WEIGHT_SEED))
+        bridge.init_numpy(_port_config("float32", name, table_quant), seed))
     for dtype, tag in (("float32", "f32"), ("bfloat16", "bf16")):
-        cfg = _config(dtype, name)
+        cfg = _config(dtype, name, table_quant)
         apply = jax.jit(get_model(cfg).apply)  # one program: faster than op by op
-        params = _jax_params(bridge.init_numpy(_port_config(dtype, name), WEIGHT_SEED))
+        params = _jax_params(bridge.init_numpy(_port_config(dtype, name, table_quant), seed))
         arrays[f"out_{tag}"] = np.asarray(apply(params, batch).astype(jnp.float32))
         if name == "dien":
             lengths, h0 = _ragged(ZOO_BATCH, cfg)
@@ -157,6 +176,11 @@ def build_model(name: str) -> dict[str, np.ndarray]:
 
 def build_zoo() -> dict[str, np.ndarray]:
     return {f"{name}/{k}": v for name in ZOO_MODELS for k, v in build_model(name).items()}
+
+
+def build_quant() -> dict[str, np.ndarray]:
+    return {f"{name}/{quant}/{k}": v for name in QUANT_MODELS for quant in QUANT_MODES
+            for k, v in build_model(name, quant, QUANT_WEIGHT_SEED).items()}
 
 
 def build_train_model(name: str, mode: str) -> dict[str, np.ndarray]:
@@ -190,9 +214,9 @@ def build_train() -> dict[str, np.ndarray]:
             for k, v in build_train_model(name, mode).items()}
 
 
-def main(which=("rm1", "zoo", "train")):
+def main(which=("rm1", "zoo", "train", "quant")):
     builders = {"rm1": (PATH, build), "zoo": (ZOO_PATH, build_zoo),
-                "train": (TRAIN_PATH, build_train)}
+                "train": (TRAIN_PATH, build_train), "quant": (QUANT_PATH, build_quant)}
     for name in which:
         path, build_fn = builders[name]
         arrays = build_fn()
@@ -204,4 +228,4 @@ if __name__ == "__main__":
     import sys
 
     jax.config.update("jax_platforms", "cpu")
-    main(sys.argv[1:] or ("rm1", "zoo", "train"))
+    main(sys.argv[1:] or ("rm1", "zoo", "train", "quant"))

@@ -11,7 +11,8 @@ of the port against the JAX package, on the CPU.
 - The train CLI runs on synthetic data and on a written Criteo TSV, saves
   and exports; ``main.py --checkpoint`` (standalone and ``--queue``) and
   ``run_serving(checkpoint_path=...)`` score what the trained params score
-  (f32 rtol 1e-6: the same tensors through the same forward).
+  (f32 rtol 1e-6: the same tensors through the same forward), and an int8
+  export bundle serves with ``--table_quant``.
 """
 
 import re
@@ -276,12 +277,20 @@ def test_main_checkpoint_queue_and_run_serving(tmp_path, monkeypatch):
 
 
 def test_quantized_checkpoints_are_not_served_yet(tmp_path):
+    """(The name is historical: they are served now.) An export bundle
+    serves standalone, scoring as model.apply on its own params, and
+    through run_serving; tests/test_torch_quant.py holds both modes to the
+    float checkpoint they come from."""
     tr = _trained(steps=1)
     sp, scfg = train.export_serving_params(tr.params, tr.cfg, "int8_rowwise")
     checkpoint.save_params(tmp_path / "q", bridge.params_to_numpy(sp, scfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        _standalone(["--checkpoint", str(tmp_path / "q"), "--table_quant", "int8_rowwise"],
-                    tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        run_serving(scfg, ServingConfig(engine_backend="cpu"),
-                    checkpoint_path=str(tmp_path / "q"))
+    res = _standalone(["--checkpoint", str(tmp_path / "q"), "--table_quant", "int8_rowwise"],
+                      tmp_path)
+    batches = RecDataGenerator(scfg, seed=123).generate_batches(3, 16)
+    with torch.inference_mode():
+        for out, b in zip(res["outputs"], batches):
+            assert torch.equal(out, get_model(scfg, "cpu").apply(sp, b.to("cpu")))
+    served = run_serving(scfg, ServingConfig(engine_backend="cpu", num_batches=4,
+                                             avg_arrival_rate_ms=1.0),
+                         settle_s=0.0, checkpoint_path=str(tmp_path / "q"))
+    assert served.error_responses == 0 and served.num_responses == served.cpu_sub_requests > 0

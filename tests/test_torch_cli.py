@@ -41,13 +41,26 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("flag", [["--queue", "--engine_backend", "sim"], ["--serve"],
-                                  ["--checkpoint", "x", "--table_quant", "int8_rowwise"]])
+                                  ["--score_output", "x"]])
 def test_unported_modes_raise(flag):
     """--queue itself is ported; its sim backend waits for the card's own
-    latency ladders. --checkpoint is ported for float checkpoints; a
-    quantized one waits for int8 tables (item 8)."""
+    latency ladders. --checkpoint and --table_quant are ported (quantized
+    checkpoints too: test_serves_int8_tables, tests/test_torch_quant.py);
+    offline scoring is not (item 11b)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(ARGS + ["--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_rowwise"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serves_int8_tables(quant, dtype):
+    """--table_quant standalone: int8 tables from the init, pooled by the
+    int8 lookups (their plain versions on the CPU)."""
+    res = main(ARGS + ["--device", "cpu", "--param_dtype", dtype, "--table_quant", quant])
+    assert res["forwards"] == 3 and len(res["outputs"]) == 2
+    for o in res["outputs"]:
+        assert o.shape == (16, 1) and o.dtype == getattr(torch, dtype)
+        assert bool(((o >= 0) & (o <= 1)).all())
 
 
 QUEUE = ["--model", "rm1", "--table_scale", "2000", "--queue", "--num_batches", "12",

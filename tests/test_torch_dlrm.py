@@ -18,6 +18,8 @@ import torch
 from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.data import RecDataGenerator as JaxGenerator
 from deeprecsys_tpu.models import get_model as jax_get_model
+from deeprecsys_tpu.models.base import Batch as JaxBatch
+from deeprecsys_tpu.models.base import pooled_lookup as jax_pooled_lookup
 from deeprecsys_tpu_torch import bridge, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import get_model
@@ -85,17 +87,26 @@ def test_bridge_round_trip(dtype):
 
 
 def test_bridge_rejects_quantized_tables():
-    """The bridge carries quantized tables (export bundles are written and
-    read), but the port's models refuse to serve them until int8 tables
-    are ported."""
-    cfg = _cfg()
-    params = bridge.params_from_numpy({"tables": {"q": np.zeros((4, 32), np.int8),
-                                                  "scale": np.ones(8, np.float32)}},
-                                      cfg, "cpu")
+    """(The name is historical: the port now serves them.) The bridge
+    carries per-table int8 tables in the JAX init's packed layout, and the
+    port's lookup pools them: each bag's int32 sum of q times its table's
+    scale, which JAX's pooled_lookup gives bit for bit."""
+    cfg = _cfg(table_quant="int8")
+    jax_cfg = jax_zoo.get_config("rm1", table_scale=SCALE, table_quant="int8")
+    np_params = jax.device_get(jax_get_model(jax_cfg).init(jax.random.PRNGKey(0)))
+    assert sorted(np_params["tables"]) == ["q_packed", "scale"]
+    params = bridge.params_from_numpy(np_params, cfg, "cpu")
     assert params["tables"]["q"].dtype == torch.int8
-    batch = RecDataGenerator(cfg, seed=1).generate_batch(2).to("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pooled_lookup(params["tables"], batch, cfg)
+    assert params["tables"]["q"].shape == (cfg.total_rows, 32)
+    batch = RecDataGenerator(cfg, seed=1).generate_batch(4)
+    got = pooled_lookup(params["tables"], batch.to("cpu"), cfg)
+    q = params["tables"]["q"].long()
+    flat = batch.indices.astype(np.int64) + cfg.table_offsets[None, :, None]
+    want = q[torch.from_numpy(flat)].sum(dim=2).float() * params["tables"]["scale"][None, :, None]
+    assert torch.equal(got, want)
+    want_jax = jax_pooled_lookup(jax.tree_util.tree_map(jnp.asarray, np_params["tables"]),
+                                 JaxBatch(None, jnp.asarray(batch.indices)), jax_cfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_jax))
 
 
 def test_port_init_shapes_and_range():
@@ -111,17 +122,23 @@ def test_port_init_shapes_and_range():
 
 
 def test_unported_paths_raise():
+    """Hot/cold serving is not ported (with float or int8 tables); int8
+    tables are (ROADMAP item 8): both inits serve through the model."""
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg.replace(table_quant="int8_rowwise"), "cpu").init(torch.Generator())
     batch = RecDataGenerator(cfg, seed=1).generate_batch(2).to("cpu")
     table = torch.zeros((cfg.total_rows, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pooled_lookup(table, batch, cfg.replace(embedding_impl="hotcold"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for quant, keys in (("int8", ["q", "scale"]), ("int8_rowwise", ["qrows"])):
+        model = get_model(cfg.replace(table_quant=quant), "cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        assert sorted(params["tables"]) == keys
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pooled_lookup(params["tables"], batch, model.cfg.replace(embedding_impl="hotcold"))
+        out = model.apply(params, batch)
+        assert out.shape == (2, 1) and bool(((out >= 0) & (out <= 1)).all())
+    with pytest.raises(ValueError, match="unknown table layout"):
         pooled_lookup({"q": table}, batch, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg.replace(table_quant="int8"), "cpu").init(torch.Generator())
 
 
 def test_parity_fixture_is_current():

@@ -2,6 +2,8 @@
 every arm runs and counts what it served; the engine arm drives the JAX
 package's pool through the same arguments."""
 
+import json
+
 import pytest
 import torch
 
@@ -48,3 +50,13 @@ def test_bench_needs_a_card_unless_told_the_cpu():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         engine_bench.main(["--table_scale", str(SCALE), "--executions", "4"])
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_rowwise"])
+def test_bench_runs_with_int8_tables_on_the_cpu(quant, tmp_path):
+    engine_bench.main(["--table_scale", str(SCALE), "--executions", "6", "--engines", "1",
+                       "--device", "cpu", "--table_quant", quant,
+                       "--json", str(tmp_path / "eb.json")])
+    out = json.loads((tmp_path / "eb.json").read_text())
+    assert out["table_quant"] == quant
+    assert [r["arm"] for r in out["rows_by_arm"]] == ["engine", "eager"]

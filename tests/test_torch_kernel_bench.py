@@ -12,7 +12,8 @@ import torch
 from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.kernel_bench import (
-    F32_FLOP_PER_S, HBM_BYTES_PER_S, k1_bound, k1_library, k3_bound, k3_library)
+    F32_FLOP_PER_S, HBM_BYTES_PER_S, k1_bound, k1_int8_bound, k1_library, k3_bound, k3_library,
+    k4_bound, main_kernel_ms, random_int8_tables)
 from deeprecsys_tpu_torch.models.base import table_offsets
 from deeprecsys_tpu_torch.ops import embedding_bag_reference, rnn_scan_reference
 
@@ -52,6 +53,32 @@ def test_k1_bound_counts_distinct_rows_ids_and_output():
     assert got["bound_ms"] == pytest.approx(nbytes / HBM_BYTES_PER_S * 1e3)
 
 
+def test_int8_bounds_count_distinct_rows_ids_scales_and_output():
+    """K1's accounting at int8 rows: d bytes a row (K1-int8, plus the (T,)
+    f32 scales), d + 4 bytes (K4)."""
+    q = torch.zeros((100, 32), dtype=torch.int8)
+    qrows = torch.zeros((100, 36), dtype=torch.int8)
+    offsets = torch.tensor([0, 50], dtype=torch.int32)
+    idx = torch.tensor([[[1, 2, 2], [1, 3, 4]]], dtype=torch.int32)  # 5 distinct rows
+    got = k1_int8_bound(q, offsets, idx, torch.bfloat16)
+    assert got["bytes"] == 5 * 32 + 6 * 4 + 2 * 4 + 2 * 32 * 2
+    assert got["flops"] == 6 * 32 + 2 * 32 and got["bound_by"] == "bytes"
+    got = k4_bound(qrows, offsets, idx, torch.float32)
+    assert got["bytes"] == 5 * 36 + 6 * 4 + 2 * 32 * 4 and got["flops"] == 2 * 6 * 32
+    assert got["bound_ms"] == pytest.approx(got["bytes"] / HBM_BYTES_PER_S * 1e3)
+
+
+def test_random_int8_tables_share_values_and_carry_their_scales():
+    cfg = zoo.get_config("wnd", table_scale=2000)
+    t = random_int8_tables(cfg, torch.Generator().manual_seed(0), "cpu")
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    assert t["q"].shape == (R, d) and t["qrows"].shape == (R, d + 4)
+    assert t["scale"].shape == (cfg.num_tables,) and bool((t["scale"] > 0).all())
+    assert torch.equal(t["q"], t["qrows"][:, :d])
+    row_scale = t["qrows"][:, d:].contiguous().view(torch.float32)
+    assert bool((row_scale > 0).all() & (row_scale < 0.011).all())
+
+
 def test_k3_bound_at_dien_shape_is_its_operations():
     got = k3_bound(40, 512, 64, torch.bfloat16)
     assert got["flops"] == 2 * 40 * 512 * 64 * 64
@@ -59,3 +86,12 @@ def test_k3_bound_at_dien_shape_is_its_operations():
     assert got["bound_by"] == "operations"
     assert got["bound_ms"] == pytest.approx(got["flops"] / F32_FLOP_PER_S * 1e3)
     assert np.isclose(got["bound_ms"] * 1e3, 2.504, atol=1e-3)  # µs
+
+
+def test_main_kernel_ms_is_the_median_of_the_busiest_kernel():
+    """A call of a 15 µs kernel and a 1 µs zero-fill: the median over all
+    events would be their midpoint, 8 µs; the kernel's own median is 15."""
+    durations = {"fill": [0.9, 1.0] * 50, "k3b": [15.0, 14.9, 15.1] * 33 + [15.0]}
+    assert main_kernel_ms(durations) == pytest.approx(15.0e-3)
+    assert float(np.median(durations["fill"] + durations["k3b"])) == pytest.approx(8.0, abs=0.1)
+    assert main_kernel_ms({"k1": [13.8]}) == pytest.approx(13.8e-3)

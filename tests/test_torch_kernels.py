@@ -1,5 +1,5 @@
-"""K1, K3 and the training kernels K1b, K5 and K3b against their plain
-versions on a CUDA card.
+"""K1, K3, the int8 lookups K1-int8 and K4, and the training kernels K1b,
+K5 and K3b against their plain versions on a CUDA card.
 
 These tests need a card; without one they skip. The file imports no JAX,
 so it runs where only torch is installed (``--noconftest`` skips
@@ -12,6 +12,9 @@ Tolerances:
   the compute dtype and sum in f32, so they differ only in summation
   order: |a - b| <= L * 2^-23 * sum|rows|, plus 1 bf16 ulp of the larger
   value for bf16 outputs.
+- K1-int8: bit for bit (an exact int32 sum, then the same f32 multiply
+  and rounding). K4 (``ops.embedding.rowwise_tolerance``): the same
+  products, sums in other orders, so K1's bound on the dequantized rows.
 - K3: each step, recomputed from the kernel's own previous state, within
   ``ops.rnn.rnn_scan_tolerance`` (the f32 slack of the dot, tanh's error,
   one ulp of the output dtype; frozen rows exact); the free-running scans
@@ -32,9 +35,12 @@ import torch
 
 from deeprecsys_tpu_torch.ops import (
     embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
-    embedding_bag_reference, rnn_scan, rnn_scan_backward, rnn_scan_backward_reference,
-    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference)
-from deeprecsys_tpu_torch.ops.embedding import backward_tolerance, pooled_tolerance
+    embedding_bag_int8, embedding_bag_int8_reference, embedding_bag_int8_rowwise,
+    embedding_bag_int8_rowwise_reference, embedding_bag_reference, rnn_scan,
+    rnn_scan_backward, rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
+    sparse_adagrad_step_reference)
+from deeprecsys_tpu_torch.ops.embedding import (
+    backward_tolerance, pooled_tolerance, rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 
@@ -124,6 +130,70 @@ def test_kernel_at_zoo_extremes(cuda, B, T, L, rows):
     want = embedding_bag_reference(table, offsets, indices)
     tol = pooled_tolerance(got, want, table, offsets, indices)
     assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def _int8_inputs(cuda, rows, d, B, L, seed, masked):
+    """Random int8 tables of ``rows`` (per-table: q and positive scales;
+    row-wise: (R, d + 4) rows with positive f32 scales in their last 4
+    bytes), ids and a mask with bag (0, 0) masked out entirely."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    R, T = sum(rows), len(rows)
+    offsets = torch.tensor(np.cumsum((0,) + tuple(rows[:-1])), dtype=torch.int32, device=cuda)
+    q = torch.randint(-127, 128, (R, d), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand((T,), generator=g, device=cuda) * 1e-2 + 1e-4
+    row_scale = torch.rand((R,), generator=g, device=cuda) * 1e-2 + 1e-4
+    qrows = torch.cat([q, row_scale.view(torch.int8).reshape(R, 4)], dim=1)
+    indices = torch.stack([torch.randint(0, n, (B, L), generator=g, device=cuda)
+                           for n in rows], dim=1).to(torch.int32)
+    mask = None
+    if masked:
+        mask = torch.rand(indices.shape, generator=g, device=cuda) < 0.7
+        mask[0, 0] = False
+    return q, scale, qrows, offsets, indices, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("compute_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("B,L", [(37, 23), (1, 1), (7, 3), (33, 5), (5, 8), (16, 80), (3, 120)])
+def test_int8_kernels_match_reference(cuda, B, L, d, compute_dt, masked):
+    """K1-int8 equals its plain version bit for bit; K4 agrees within
+    rowwise_tolerance. Every mapping the two plans pick, B * T not a
+    multiple of the bags a warp holds."""
+    q, scale, qrows, offsets, indices, mask = _int8_inputs(
+        cuda, (5000, 300, 70000), d, B, L, seed=L + d, masked=masked)
+    before = (embedding_bag_int8.kernel_launches, embedding_bag_int8_rowwise.kernel_launches)
+    got = embedding_bag_int8(q, scale, offsets, indices, compute_dtype=compute_dt, mask=mask)
+    got_rw = embedding_bag_int8_rowwise(qrows, offsets, indices, compute_dtype=compute_dt,
+                                        mask=mask)
+    torch.cuda.synchronize()
+    assert (embedding_bag_int8.kernel_launches, embedding_bag_int8_rowwise.kernel_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = embedding_bag_int8_reference(q, scale, offsets, indices, compute_dtype=compute_dt,
+                                        mask=mask)
+    assert got.dtype == got_rw.dtype == compute_dt and got.shape == got_rw.shape == (B, 3, d)
+    assert torch.equal(got, want)
+    want_rw = embedding_bag_int8_rowwise_reference(qrows, offsets, indices,
+                                                   compute_dtype=compute_dt, mask=mask)
+    tol = rowwise_tolerance(got_rw, want_rw, qrows, offsets, indices, mask)
+    assert bool(((got_rw.float() - want_rw.float()).abs() <= tol).all())
+    if masked:
+        assert not got[0, 0].any() and not got_rw[0, 0].any()
+
+
+def test_int8_kernels_reject_misaligned_tables(cuda):
+    q, scale, qrows, offsets, indices, _ = _int8_inputs(cuda, (50,), 32, 2, 3, 0, False)
+    base = torch.zeros((50 * 32 + 8,), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        embedding_bag_int8(base[8:].view(50, 32), scale, offsets, indices)
+    base = torch.zeros((50 * 36 + 2,), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        embedding_bag_int8_rowwise(base[2:].view(50, 36), offsets, indices)
+    # A slice that starts at row 1 is 4-byte aligned: every row is.
+    got = embedding_bag_int8_rowwise(qrows[1:], offsets, indices)
+    want = embedding_bag_int8_rowwise_reference(qrows[1:], offsets, indices)
+    assert bool(((got - want).abs() <= rowwise_tolerance(got, want, qrows[1:], offsets,
+                                                         indices)).all())
 
 
 def _rnn_inputs(cuda, T, B, w_dt, seed=0):
