@@ -27,6 +27,19 @@ Then it drives the models at full width (bf16, batch 512):
   (one engine), timed; the other seven in ``int8_rowwise``, three forwards
   each checked against the plain path.
 
+Then hot/cold serving (phase 13): K6, the hot/cold lookup, in the three
+table layouts at rm1's, rm2's and din's full shapes on zipf(1.2) ids with
+the JAX package's hot-set rule (masked and not; at rm1 also every id hot,
+none hot and an empty hot set), held to its plain version and to the direct
+kernel on the same ids; rm1 served through ``run_serving`` with
+``embedding_impl="hotcold"`` (every served execution split by the native
+splitter), a refreshing engine on zipf payloads that must upgrade its hot
+set while its scores match the direct model, ``"auto"`` choosing the direct
+lookup on the uniform stream, and ``main.py --queue --embedding_impl
+hotcold`` with both int8 layouts; then K6's times and
+``experiments/skew_bench.py``'s direct-against-split measurement for rm1,
+rm2 and din.
+
 Each kernel is timed beside its plain version, its bound and one PyTorch
 call computing the same function (``F.embedding_bag`` at every zoo shape,
 cuDNN's tanh RNN at DIEN's), from ``deeprecsys_tpu_torch/kernel_bench.py``.
@@ -57,6 +70,7 @@ gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import queue
 import subprocess
@@ -72,23 +86,29 @@ from deeprecsys_tpu_torch import ServingConfig, bridge, zoo
 from deeprecsys_tpu_torch import main as port_main
 from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.experiments.skew_bench import measure_skewed, zipf_stream
+from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.kernel_bench import (
-    HBM_BYTES_PER_S, k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound,
-    k3_library, k3b_bound, k3b_library, k4_bound, k5_bound, k5_library, measure, ptxas_summary,
-    random_int8_tables)
+    HBM_BYTES_PER_S, direct_call, hotcold_calls, hotcold_inputs, k1_bound, k1_int8_bound,
+    k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound, k3b_library, k4_bound,
+    k5_bound, k5_library, k6_call, measure, ptxas_summary, random_int8_tables)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
+from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
 from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
-    embedding_bag_int8, embedding_bag_int8_reference, embedding_bag_int8_rowwise,
-    embedding_bag_int8_rowwise_reference, embedding_bag_reference, rnn_scan, rnn_scan_backward,
-    rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
-    sparse_adagrad_step_reference)
+    embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_rowwise,
+    embedding_bag_int8, embedding_bag_int8_reference,
+    embedding_bag_int8_rowwise, embedding_bag_int8_rowwise_reference, embedding_bag_reference,
+    rnn_scan, rnn_scan_backward, rnn_scan_backward_reference, rnn_scan_reference,
+    sparse_adagrad_step, sparse_adagrad_step_reference)
+from deeprecsys_tpu_torch.ops import hotcold as hotcold_ops
 from deeprecsys_tpu_torch.ops.embedding import (
-    backward_tolerance, pooled_tolerance, rowwise_tolerance)
+    backward_tolerance, hotcold_tolerance, pooled_tolerance, rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
-from deeprecsys_tpu_torch.serving import ServiceRequest, run_serving
+from deeprecsys_tpu_torch.runtime.native import native_available
+from deeprecsys_tpu_torch.serving import ServiceRequest, orchestrator, run_serving
 from deeprecsys_tpu_torch.serving.engine import ComputeEngine
 from deeprecsys_tpu_torch.serving.packets import ERR_OK, ERR_PAYLOAD
 from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params, load_model_params
@@ -122,11 +142,35 @@ KERNELS = {
     "embedding_bag_int8_rowwise": {
         "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_int8.cu",
         "replaces": "deeprecsys_tpu/ops/embedding.py:262"},
+    # K6, the hot/cold lookup (one source): the XLA op of
+    # _embedding_bag_hotcold_impl behind each of the three entry points.
+    "embedding_bag_hotcold": {"source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
+                              "replaces": "deeprecsys_tpu/ops/embedding.py:542"},
+    "embedding_bag_hotcold_int8": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
+        "replaces": "deeprecsys_tpu/ops/embedding.py:737"},
+    "embedding_bag_hotcold_int8_rowwise": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
+        "replaces": "deeprecsys_tpu/ops/embedding.py:759"},
 }
 # The lookup kernel each table layout takes (cfg.table_quant).
 LOOKUP = {"none": "embedding_bag", "int8": "embedding_bag_int8",
           "int8_rowwise": "embedding_bag_int8_rowwise"}
 QUANT_MODES = ("int8", "int8_rowwise")
+# The hot/cold lookup kernel each table layout takes.
+HOTCOLD = {"none": "embedding_bag_hotcold", "int8": "embedding_bag_hotcold_int8",
+           "int8_rowwise": "embedding_bag_hotcold_int8_rowwise"}
+HOTCOLD_MODELS = ("rm1", "rm2", "din")  # K6's cases and the skew measurement
+HOTCOLD_QUERIES = 200
+HOTCOLD_CLI_QUERIES = 50
+# Zipf payload requests (64 rows each) through the refreshing engine: it
+# scans every REFRESH_INTERVAL executions; the upgrade lands a few later.
+REFRESH_INTERVAL = 4
+REFRESH_MAX_PAYLOADS = 48
+# The refreshing engine's hot_set_rows (0: suggest_hot_rows, 131,072 rows).
+# A CPU rehearsal at TABLE_SCALE 2000, where that covers rm1's whole table,
+# sets it below the table.
+REFRESH_HOT_ROWS = 0
 QUANT_FIXTURE = ROOT / "tests" / "golden" / "torch_port_quant.npz"
 ZOO = ("rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")
 TIMED_ITERS = 100
@@ -214,7 +258,10 @@ def _wrappers() -> dict:
             "embedding_bag_backward": embedding_bag_backward,
             "sparse_adagrad_step": sparse_adagrad_step, "rnn_scan_backward": rnn_scan_backward,
             "embedding_bag_int8": embedding_bag_int8,
-            "embedding_bag_int8_rowwise": embedding_bag_int8_rowwise}
+            "embedding_bag_int8_rowwise": embedding_bag_int8_rowwise,
+            "embedding_bag_hotcold": embedding_bag_hotcold,
+            "embedding_bag_hotcold_int8": embedding_bag_hotcold_int8,
+            "embedding_bag_hotcold_int8_rowwise": embedding_bag_hotcold_int8_rowwise}
 
 
 def _reset_counts():
@@ -1167,6 +1214,308 @@ def phase_quant(device, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------- hot/cold
+
+def _device_split(device, split: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(split[k])).to(device)
+            for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}
+
+
+def hotcold_case(device, quant: str, inp: dict, hot_ids: np.ndarray, mask: np.ndarray | None,
+                 cdt: torch.dtype, what: str) -> float:
+    """K6 on ``inp``'s first batch with the hot set ``hot_ids`` (split on the
+    host, natively), held to its plain version and to the direct kernel on
+    the same ids: per-table int8 bit for bit, float within
+    ``hotcold_tolerance``/``pooled_tolerance``, row-wise within
+    ``hotcold_tolerance``/``rowwise_tolerance``. Returns max |K6 - plain|."""
+    tables, offsets, idx_host = inp["tables"], inp["offsets"], inp["streams"][0]
+    index = inp["index"] if hot_ids is inp["hot_ids"] else None
+    split = _device_split(device, hotcold_ops.split_hot_cold(
+        idx_host, np.asarray(inp["cfg"].table_offsets, dtype=np.int64), hot_ids,
+        cold_buckets=cold_buckets_for(idx_host.size), impl="native", slot_mask=mask,
+        hot_index=index))
+    hot = inp["rows"].index_select(0, torch.as_tensor(hot_ids, dtype=torch.int64, device=device))
+    idx = inp["batches"][0][0]
+    dmask = None if mask is None else torch.from_numpy(mask).to(device)
+    got = k6_call(quant, hot, tables, split, cdt)
+    synchronize(device)
+    want = k6_call(quant, hot, tables, split, cdt, plain=True)
+    direct = direct_call(quant, tables, offsets, idx, cdt, mask=dmask)
+    synchronize(device)
+    name = {"none": "K6", "int8": "K6-int8", "int8_rowwise": "K6-rowwise"}[quant]
+    if quant == "int8":
+        if got.dtype != cdt or not torch.equal(got, want) or not torch.equal(got, direct):
+            raise AssertionError(f"{name} differs from its plain version or K1-int8 ({what})")
+        return 0.0
+    rowwise = quant == "int8_rowwise"
+    err = _check_pooled(got, want, hot, tables if not rowwise else tables["qrows"], split, None,
+                        f"{what}, against the plain version",
+                        tolerance=lambda a, b, h, t, s, _m: hotcold_tolerance(
+                            a, b, h, t, s, rowwise=rowwise), kernel=name)
+    table = tables["qrows"] if rowwise else tables
+    _check_pooled(got, direct, table, offsets, idx, dmask, f"{what}, against the direct kernel",
+                  tolerance=rowwise_tolerance if rowwise else pooled_tolerance, kernel=name)
+    return err
+
+
+def hotcold_kernel_cases(device, name: str, seed: int) -> dict:
+    """K6 at ``name``'s full shape in the three layouts, on zipf(1.2) ids
+    with the JAX hot-set rule, masked and not (bf16 output; f32 too
+    unmasked); for rm1 also every id hot, no id hot (K > 0) and K = 0.
+    Returns the max |K6 - plain| by kernel."""
+    errs = {}
+    for quant in ("none",) + QUANT_MODES:
+        inp = hotcold_inputs(name, quant, device, n_batches=1, table_scale=TABLE_SCALE)
+        idx_host = inp["streams"][0]
+        cfg = inp["cfg"]
+        mask = np.random.default_rng(seed).random(idx_host.shape) < 0.7
+        flat = np.unique(idx_host.astype(np.int64)
+                         + np.asarray(cfg.table_offsets, np.int64)[None, :, None])
+        cases = [("zipf, JAX hot set", inp["hot_ids"], None, torch.bfloat16),
+                 ("zipf, JAX hot set", inp["hot_ids"], None, torch.float32),
+                 ("zipf, JAX hot set, masked", inp["hot_ids"], mask, torch.bfloat16)]
+        if name == "rm1":
+            absent = np.setdiff1d(np.arange(cfg.total_rows - 4096, cfg.total_rows), flat)
+            cases += [("every id hot", flat, None, torch.bfloat16),
+                      ("no id hot", absent, None, torch.bfloat16),
+                      ("K = 0", np.empty(0, np.int64), mask, torch.bfloat16)]
+        key = HOTCOLD[quant]
+        for what, hot_ids, m, cdt in cases:
+            what = (f"{name} {quant}: {cfg.total_rows} rows, B={BATCH} T={cfg.num_tables} "
+                    f"L={cfg.num_indices_per_lookup}, {what} (K={len(hot_ids)}), out "
+                    f"{str(cdt)[6:]}")
+            err = hotcold_case(device, quant, inp, hot_ids, m, cdt, what)
+            errs[key] = max(errs.get(key, 0.0), err)
+            _log(f"[13 hotcold] {key} ok {what}: max |K6 - plain| {err:.3e}, against the "
+                 f"direct kernel within its tolerance")
+        del inp
+        _free(device)
+    return errs
+
+
+def _coverage(c) -> str:
+    return "not sampled (under the size floor)" if c is None else f"{c:.4f} (out of sample)"
+
+
+@contextlib.contextmanager
+def _engines_of_runs():
+    """The engines ``run_serving`` builds inside the block (a list), so a
+    run's hot-set coverage can be read from them."""
+    built, orig = [], orchestrator.build_engine_pool
+
+    def capture(*args, **kwargs):
+        engines, total = orig(*args, **kwargs)
+        built.extend(engines)
+        return engines, total
+    orchestrator.build_engine_pool = capture
+    try:
+        yield built
+    finally:
+        orchestrator.build_engine_pool = orig
+
+
+def serve_hotcold(device, card: str, quant: str = "none", impl: str = "hotcold",
+                  queries: int = HOTCOLD_QUERIES, cli: bool = False) -> tuple[dict, dict]:
+    """rm1 (bf16, one engine) at the canonical point with ``embedding_impl=
+    impl`` and ``quant`` tables, through ``run_serving`` or (``cli``)
+    ``main.py --queue``: 0 errors; with "hotcold" K6 launches equal to
+    executions and every served execution split by the native splitter;
+    with "auto" on this uniform stream the direct kernel, no split."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", table_quant=quant, embedding_impl=impl)
+    _reset_peak(device)
+    _reset_counts()
+    splits0 = hotcold_ops._split_hot_cold_native.calls
+    with _engines_of_runs() as engines:
+        if cli:
+            res = port_main.main([
+                "--model", "rm1", "--param_dtype", "bfloat16", "--table_scale",
+                str(TABLE_SCALE), "--queue", "--engine_backend", _backend(device),
+                "--embedding_impl", impl, "--table_quant", quant, "--num_batches", str(queries),
+                "--batch_size_distribution", "normal", "--avg_mini_batch_size", "165",
+                "--var_mini_batch_size", "16", "--sub_task_batch_size", "32",
+                "--avg_arrival_rate", "10"])
+        else:
+            scfg = ServingConfig(**SERVING_POINT, num_batches=queries,
+                                 engine_backend=_backend(device))
+            res = run_serving(cfg, scfg, settle_s=0.1)
+    counts = _counts()
+    splits = hotcold_ops._split_hot_cold_native.calls - splits0
+    (eng,) = engines
+    split_on = eng._hotcold is not None
+    what = (f"rm1 {quant} tables, embedding_impl={impl}"
+            f"{' through main.py --queue' if cli else ''}")
+    if split_on != (impl == "hotcold"):
+        raise AssertionError(f"{what}: the engine {'split' if split_on else 'did not split'} "
+                             f"(coverage {eng.hot_coverage})")
+    served = sum(res.bucket_counts.values())
+    if splits != (served if split_on else 0):
+        raise AssertionError(f"{what}: {splits} native splits for {served} served executions")
+    _check_served(res, counts, 0, what, lookup=(HOTCOLD if split_on else LOOKUP)[quant])
+    peak = _peak_gib(device)
+    _log(f"[13 hotcold] {what}, 1 engine: {_served_line(res, counts)}; hot-set coverage "
+         f"{_coverage(eng.hot_coverage)} ({0 if eng._hotcold is None else len(eng._hotcold.hot_ids)}"
+         f" hot rows); native splits {splits}; peak device memory {peak:.3f} GiB [{card}]")
+    _free(device)
+    return {**res.to_dict(), "peak_gib": peak, "hot_coverage": eng.hot_coverage,
+            "split": split_on}, counts
+
+
+def serve_hotcold_refresh(device, card: str) -> tuple[dict, dict]:
+    """Zipf(1.2) payload requests (64 rows each) through one rm1 hot/cold
+    engine with refresh tracking, one at a time: its warm-up hot set, chosen
+    from the uniform generator, covers little of them, so the engine must
+    upgrade to the stream's head. Every payload's scores are held to
+    ``model.apply`` on the direct path (bf16_atol); K6 and K1 launches add
+    up to the executions (K1: the direct warm-ups refresh tracking adds)."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", embedding_impl="hotcold",
+                         hot_set_rows=REFRESH_HOT_ROWS)
+    model = get_model(cfg.replace(embedding_impl="xla"), device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device),
+                         hotcold_refresh_interval=REFRESH_INTERVAL, hotcold_refresh_window=8)
+    rng = np.random.default_rng(9)
+    req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+    _reset_counts()
+    splits0 = hotcold_ops._split_hot_cold_native.calls
+    eng = ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, device=device, params=params)
+    eng.start()
+    ready = ready_q.get(timeout=300)
+    if isinstance(ready, Exception):
+        raise RuntimeError("the refreshing hot/cold engine failed during setup") from ready
+    warm_cov, answered, after = eng.hot_coverage, [], 0
+    while len(answered) < REFRESH_MAX_PAYLOADS and after < 2 * REFRESH_INTERVAL:
+        n = len(answered)
+        p = Batch(dense=rng.random((64, cfg.dense_dim), dtype=np.float32),
+                  indices=zipf_stream(cfg, 64, seed=100 + n))
+        req_q.put(ServiceRequest(batch_id=n, batch_size=64, arrival_time=time.time(),
+                                 payload=p))
+        answered.append((p, resp_q.get(timeout=120)))
+        after += eng.hot_refreshes > 0
+    req_q.put(None)
+    eng.join(timeout=120)
+    counts = _counts()  # before the direct model's reference launches
+    worst = 0.0
+    with torch.inference_mode():
+        for n, (p, r) in enumerate(answered):
+            want = model.apply(params, p.to(device)).float().cpu().numpy()
+            if r.error_code != ERR_OK or r.scores is None or r.scores.shape != want.shape:
+                raise AssertionError(f"refresh payload {n}: error {r.error_code}")
+            err = float(np.abs(r.scores - want).max())
+            if err > bf16_atol(want):
+                raise AssertionError(f"refresh payload {n}: scores differ from the direct "
+                                     f"model by {err:.3e} > {bf16_atol(want):.3e}")
+            worst = max(worst, err)
+    n = len(answered)
+    splits = hotcold_ops._split_hot_cold_native.calls - splits0
+    executions = sum(eng.bucket_counts.values()) + eng.warmup_executions
+    k6, k1 = counts["embedding_bag_hotcold"], counts["embedding_bag"]
+    if eng.error is not None or eng.hot_refreshes < 1:
+        raise AssertionError(f"refreshing engine: {eng.hot_refreshes} refreshes, error "
+                             f"{eng.error!r}")
+    if k6 + k1 != executions or k6 == 0 or counts != _want(embedding_bag_hotcold=k6,
+                                                          embedding_bag=k1):
+        raise AssertionError(f"refreshing engine: launches {counts} for {executions} executions")
+    if splits < sum(eng.bucket_counts.values()):
+        raise AssertionError(f"refreshing engine: {splits} native splits for "
+                             f"{sum(eng.bucket_counts.values())} served executions")
+    _log(f"[13 hotcold] rm1 hot/cold engine with refresh (interval {REFRESH_INTERVAL}, window 8): "
+         f"{n} zipf(1.2) payloads of 64 rows, one at a time; warm-up coverage {warm_cov:.4f}, "
+         f"hot_refreshes {eng.hot_refreshes}, hot_coverage {eng.hot_coverage:.4f}, "
+         f"live_hot_coverage {eng.live_hot_coverage:.4f}; every payload's scores match "
+         f"model.apply on the direct path (max |err| {worst:.3e}, limit bf16_atol); launches "
+         f"{counts} for {executions} executions; native splits {splits} [{card}]")
+    del params
+    _free(device)
+    return {"payloads": n, "hot_refreshes": eng.hot_refreshes,
+            "warm_coverage": warm_cov, "hot_coverage": eng.hot_coverage,
+            "live_hot_coverage": eng.live_hot_coverage, "max_abs_err": worst}, counts
+
+
+def phase_hotcold(device, card: str) -> tuple[dict, dict]:
+    """Phase 13, hot/cold serving: K6's cases at rm1's, rm2's and din's full
+    shapes, then the serving paths, each read around itself: rm1 through
+    run_serving with embedding_impl="hotcold", a refreshing engine on zipf
+    payloads, "auto" on the uniform stream, and main.py --queue with
+    int8_rowwise and int8 tables. Returns K6's errors, the serving results
+    and the launches."""
+    t0 = time.perf_counter()
+    if not native_available():
+        raise AssertionError("the native splitter did not build")
+    errs = {}
+    for seed, name in enumerate(HOTCOLD_MODELS):
+        for k, v in hotcold_kernel_cases(device, name, seed).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    launches, out = _want(), {}
+    for key, run in (
+            ("hotcold", lambda: serve_hotcold(device, card)),
+            ("refresh", lambda: serve_hotcold_refresh(device, card)),
+            ("auto", lambda: serve_hotcold(device, card, impl="auto",
+                                           queries=HOTCOLD_CLI_QUERIES)),
+            ("int8_rowwise", lambda: serve_hotcold(device, card, quant="int8_rowwise",
+                                                   queries=HOTCOLD_CLI_QUERIES, cli=True)),
+            ("int8", lambda: serve_hotcold(device, card, quant="int8",
+                                           queries=HOTCOLD_CLI_QUERIES, cli=True))):
+        out[key], counts = run()
+        _add(launches, counts)
+    _log(f"[13 hotcold] cases and serving paths in {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "serving": out}, launches
+
+
+def hotcold_times(device, card: str) -> dict:
+    """K6 in the three layouts at rm1's shape (bf16 output, eight zipf(1.2)
+    batches with the JAX hot set) beside its plain version (order plain,
+    kernel, kernel, plain), its bound, the direct kernel on the same ids
+    and, for the float table, ``F.embedding_bag`` on the original ids."""
+    out = {}
+    with torch.inference_mode():
+        for quant in ("none",) + QUANT_MODES:
+            inp = hotcold_inputs("rm1", quant, device, table_scale=TABLE_SCALE)
+            calls = hotcold_calls(inp, quant)
+            args = inp["batches"]
+            runs = {key: measure(fn, args, TIMED_ITERS) for key, fn in
+                    (("p1", calls["plain"]), ("k1", calls["kernel"]), ("k2", calls["kernel"]),
+                     ("p2", calls["plain"]), ("direct", calls["direct"]))}
+            if calls["library"] is not None:
+                runs["s1"] = measure(calls["library"], args, TIMED_ITERS)
+            bound = calls["bound"](*args[0])
+            k_dev, p_dev = _mean(runs, ("k1", "k2"), "kernel_ms"), _mean(runs, ("p1", "p2"),
+                                                                         "device_ms")
+            use_dev = None not in (k_dev, p_dev, runs["direct"]["kernel_ms"])
+            lib = runs.get("s1")
+            r = {"ms": k_dev if use_dev else _mean(runs, ("k1", "k2"), "wall_ms"),
+                 "plain_ms": p_dev if use_dev else _mean(runs, ("p1", "p2"), "wall_ms"),
+                 "library_ms": None if lib is None else lib["device_ms" if use_dev else "wall_ms"],
+                 "direct_ms": runs["direct"]["kernel_ms" if use_dev else "wall_ms"],
+                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                 "coverage": inp["coverage"]}
+            out[HOTCOLD[quant]] = r
+            B, T, L = args[0][0].shape
+            _log(f"[13 hotcold times] {HOTCOLD[quant]} rm1 shape (B={B} T={T} L={L}, bf16 out, "
+                 f"zipf(1.2), {inp['hot_rows']} hot rows, coverage {inp['coverage']:.4f}, "
+                 f"{bound['bytes'] / 1e6:.2f} MB moved): {r['ms'] * 1e3:.2f} us "
+                 f"({'device' if use_dev else 'wall'}); bound {r['bound_ms'] * 1e3:.2f} us "
+                 f"({r['bound_by']}); plain {r['plain_ms'] * 1e3:.2f} us; direct kernel on the "
+                 f"same ids {r['direct_ms'] * 1e3:.2f} us; library "
+                 f"{'none (no PyTorch call pools int8 rows)' if lib is None else _us(r['library_ms']) + ' (F.embedding_bag, original ids)'} "
+                 f"[{card}]")
+            del inp, calls, args
+            _free(device)
+    return out
+
+
+def phase_skew(device, card: str) -> list:
+    """``experiments.skew_bench.measure_skewed`` for rm1, rm2 and din, each
+    model's table freed before the next."""
+    rows = []
+    for name in HOTCOLD_MODELS:
+        rows.append(measure_skewed(name, device, table_scale=TABLE_SCALE))
+        _log(f"[13 skew] {skew_line(rows[-1], card)}")
+        _free(device)
+    return rows
+
+
 # ---------------------------------------------------------------- training
 
 def _train_inputs(device, name: str, seed: int):
@@ -1664,6 +2013,15 @@ def main() -> int:
     quant, quant_launches = phase_quant(device, card["card"])
     _add(launches, quant_launches)
 
+    # The hot/cold serving paths, each read around itself.
+    hotcold, hotcold_launches = phase_hotcold(device, card["card"])
+    _add(launches, hotcold_launches)
+    for key in HOTCOLD.values():
+        if launches[key] == 0:
+            raise AssertionError(f"the hot/cold paths never launched {key}")
+    hotcold_t = hotcold_times(device, card["card"])
+    skew = phase_skew(device, card["card"])
+
     # The trainer's paths, each read around itself.
     trained, train_launches, steps = phase_train(device, card["card"])
     _add(launches, train_launches)
@@ -1709,6 +2067,26 @@ def main() -> int:
              f"{q['plain_ms'] * 1e3:.2f}, {q['k1_bf16_ms'] * 1e3:.2f}; {s['measured_qps']:.2f}, "
              f"{s['p50_ms']:.3f}/{s['p95_ms']:.3f}/{s['p99_ms']:.3f}, "
              f"{s['inference_p95_ms']:.3f}, {s['peak_gib']:.3f} [{card['card']}]")
+    _log("[10 summary] hot/cold serving, rm1 bf16, 1 engine, canonical point: run: queries, "
+         "QPS, p50/p95/p99 ms, inference p95 ms, peak GiB, sampled hot-set coverage, split")
+    for key in ("hotcold", "auto", "int8_rowwise", "int8"):
+        s = hotcold["serving"][key]
+        _log(f"[10 summary]   {key}: {s['cpu_requests']}, {s['measured_qps']:.2f}, "
+             f"{s['p50_ms']:.3f}/{s['p95_ms']:.3f}/{s['p99_ms']:.3f}, "
+             f"{s['inference_p95_ms']:.3f}, {s['peak_gib']:.3f}, {_coverage(s['hot_coverage'])}, "
+             f"{s['split']} [{card['card']}]")
+    r = hotcold["serving"]["refresh"]
+    _log(f"[10 summary]   refresh on zipf payloads: {r['payloads']} payloads, hot_refreshes "
+         f"{r['hot_refreshes']}, coverage {r['warm_coverage']:.4f} -> {r['hot_coverage']:.4f}, "
+         f"live {r['live_hot_coverage']:.4f} [{card['card']}]")
+    _log("[10 summary] skewed traffic (zipf 1.2, batch 512, bf16): model: direct / hot/cold "
+         "forward us, K1 / K6 us (K1 on uniform ids), host split ms, coverage, auto's choice, "
+         "direct / max(hot/cold, split)")
+    for r in skew:
+        _log(f"[10 summary]   {r['model']}: {r['xla_ms'] * 1e3:.2f} / {r['hotcold_ms'] * 1e3:.2f}, "
+             f"{r['k1_ms'] * 1e3:.2f} / {r['k6_ms'] * 1e3:.2f} ({r['k1_uniform_ms'] * 1e3:.2f}), "
+             f"{r['split_ms']:.3f}, {r['hot_coverage']:.4f}, {r['auto_impl']}, "
+             f"{r['speedup']:.4f} [{card['card']}]")
     _log("[10 summary] training step, f32, batch 128, full-size tables: wall ms, device ms, "
          "idle, peak GiB")
     for st in steps:
@@ -1733,7 +2111,10 @@ def main() -> int:
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": kernel_errs[key], **{k: quant[mode][k] for k in timed}}
         for key, mode in (("embedding_bag_int8", "int8"),
-                          ("embedding_bag_int8_rowwise", "int8_rowwise"))]}))
+                          ("embedding_bag_int8_rowwise", "int8_rowwise"))] + [
+        {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
+         "max_abs_err": hotcold["errs"][key], **{k: hotcold_t[key][k] for k in timed}}
+        for key in HOTCOLD.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

@@ -7,7 +7,7 @@ same, the TPU-only knobs included (``table_pack``, ``embedding_impl``,
 the hot/cold and coalescing fields): a config means the same thing to both
 packages, and ``tests/test_torch_config.py`` holds every field, default and
 derived property here equal to the original. The port rejects the knobs
-whose paths it has not ported where it meets them (``models/base.py``).
+whose paths it has not ported where it meets them.
 
 As in the original, the DIN behavior-table expansion (reference
 ``utils/utils.py:132-149``) runs after the JSON merge and after overrides.
@@ -55,7 +55,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     # The JAX package's lookup implementations: "xla" (the direct fused
-    # lookup, the port's K1), "hotcold" and "auto" (serving; not ported).
+    # lookup: K1, K1-int8 or K4), "hotcold" and "auto" (serving engines
+    # only: a hot/cold split, K6, or by the sampled coverage either one).
     embedding_impl: str = "xla"
     hot_set_rows: int = 0
     hotcold_min_hit: float = 0.75
@@ -116,6 +117,15 @@ class ModelConfig:
         return int(np.sum(self.scaled_rows))
 
     @property
+    def fused_table_mb(self) -> float:
+        """Fused table size in MB at the serving layout: what
+        ``hotcold_min_table_mb``, ``embedding_impl="auto"``'s size floor,
+        is compared with (JAX ``config.py:185``)."""
+        itemsize = (1 if self.table_quant in ("int8", "int8_rowwise")
+                    else 2 if self.param_dtype == "bfloat16" else 4)
+        return self.total_rows * self.sparse_feature_size * itemsize / 1e6
+
+    @property
     def resolved_table_pack(self) -> int:
         """The JAX package's pack factor (0 = auto resolved): narrow rows
         packed up to one 128-byte physical row; int8 only below 64-byte
@@ -130,6 +140,13 @@ class ModelConfig:
         if self.table_quant == "int8" and row_bytes >= 64:
             return 1
         return max(1, 128 // row_bytes)
+
+    @property
+    def hotcold_auto_excluded(self) -> bool:
+        """Retired in the JAX package and always False (JAX
+        ``config.py:217``): ``embedding_impl="auto"`` is guarded against no
+        table layout."""
+        return False
 
     @property
     def dense_dim(self) -> int:
@@ -240,8 +257,7 @@ class ServingConfig:
     ``"gpu"`` (engines on the CUDA card, the default; raises without a
     card), ``"cpu"`` or ``"sim"``. ``"cpu-mp"`` raises
     ``NotImplementedError`` (ROADMAP.md Queue 1 item 11b) and ``"tpu"`` is
-    refused. The hot/cold refresh fields and ``payload_arena_slots`` are
-    kept for equality; the engines refuse hot/cold (item 10)."""
+    refused. ``payload_arena_slots`` is kept for equality (item 11b)."""
 
     # Query stream (loadGenerator.py:14-43)
     num_batches: int = 64

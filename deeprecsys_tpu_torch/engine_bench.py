@@ -3,8 +3,8 @@ second a pool of engine threads in one process sustains when its queue is
 never empty, and what an execution costs the host.
 
     python -m deeprecsys_tpu_torch.engine_bench [--engines 1 2 4]
-        [--switch_interval 0.005 0.0005] [--table_quant int8] [--device cuda]
-        [--json PATH]
+        [--switch_interval 0.005 0.0005] [--table_quant int8]
+        [--embedding_impl hotcold] [--device cuda] [--json PATH]
 
 At each engine (thread) count and each ``sys.setswitchinterval`` value it
 runs three arms on one set of rm1 params (bf16, full-size tables; int8
@@ -19,6 +19,10 @@ the canonical serving point):
 - ``graph``: the same loop replaying one CUDA graph of the forward a
   thread (captured one thread at a time before the timed window), so an
   execution is one call into PyTorch instead of one a device op.
+
+With ``--embedding_impl hotcold`` the engines split every request on the
+host and pool it with K6 (their hot set sampled at set-up), and only the
+``engine`` arm runs: the loops have no split.
 
 Each row gives executions a second over the pool, the process's context
 switches and CPU seconds an execution (``getrusage``), and, for
@@ -202,15 +206,18 @@ def card_line() -> str:
 
 def run(engines=(1, 2, 4), intervals=(0.005,), executions: int = 2000,
         device: str = "cuda", table_scale: int = 1, model: str = "rm1", rows: int = 32,
-        table_quant: str = "none") -> dict:
+        table_quant: str = "none", embedding_impl: str = "xla") -> dict:
     dev = resolve_device(device)
     cfg = zoo.get_config(model, table_scale=table_scale, param_dtype="bfloat16",
-                         compute_dtype="bfloat16", table_quant=table_quant)
-    fns = get_model(cfg, dev)
+                         compute_dtype="bfloat16", table_quant=table_quant,
+                         embedding_impl=embedding_impl)
+    fns = get_model(cfg.replace(embedding_impl="xla"), dev)
     params = fns.init(torch.Generator(device=dev).manual_seed(0))
     host_batch = RecDataGenerator(cfg, seed=17).generate_batch(rows)
     where = card_line() if dev.type == "cuda" else "host CPU (not a device measurement)"
     arms = ("engine", "eager", "graph") if dev.type == "cuda" else ("engine", "eager")
+    if embedding_impl != "xla":
+        arms = ("engine",)
     rows_out = []
     default_interval = sys.getswitchinterval()
     try:
@@ -226,13 +233,14 @@ def run(engines=(1, 2, 4), intervals=(0.005,), executions: int = 2000,
                                      graph=arm == "graph")
                     r["switch_interval_s"] = interval
                     rows_out.append(r)
-                    print(f"[engine_bench] {model} tables={table_quant} rows={rows} "
+                    print(f"[engine_bench] {model} tables={table_quant} "
+                          f"lookup={embedding_impl} rows={rows} "
                           f"switch={interval} "
                           f"{arm:6s} threads={k}: {describe(r)} [{where}]", flush=True)
     finally:
         sys.setswitchinterval(default_interval)
     return {"model": model, "rows": rows, "table_scale": table_scale,
-            "table_quant": table_quant, "device": where,
+            "table_quant": table_quant, "embedding_impl": embedding_impl, "device": where,
             "torch": torch.__version__, "rows_by_arm": rows_out}
 
 
@@ -243,11 +251,13 @@ def main(argv=None) -> int:
     p.add_argument("--executions", type=int, default=2000)
     p.add_argument("--table_scale", type=int, default=1)
     p.add_argument("--table_quant", default="none", choices=["none", "int8", "int8_rowwise"])
+    p.add_argument("--embedding_impl", default="xla", choices=["xla", "hotcold"])
     p.add_argument("--device", default="cuda")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
     out = run(tuple(args.engines), tuple(args.switch_interval), args.executions,
-              args.device, args.table_scale, table_quant=args.table_quant)
+              args.device, args.table_scale, table_quant=args.table_quant,
+              embedding_impl=args.embedding_impl)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

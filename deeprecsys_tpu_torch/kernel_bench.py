@@ -1,10 +1,10 @@
-"""K1, K3 and the int8 lookups K1-int8 and K4 on one card: their times
-beside their bounds and a library yardstick, and each wrapper's host time a
-call. The bounds and library yardsticks of the training kernels K1b, K5 and
+"""K1, K3, the int8 lookups K1-int8 and K4, and the hot/cold lookup K6 on
+one card: their times beside their bounds and a library yardstick, and each
+wrapper's host time a call. The bounds and library yardsticks of the training kernels K1b, K5 and
 K3b (``k1b_bound``, ``k5_library``, ...) live here too; ``chip_smoke.py``
 times those.
 
-    python -m deeprecsys_tpu_torch.kernel_bench [--json PATH]
+    python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6]
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
@@ -22,6 +22,12 @@ and writes to PATH:
   beside K1's time on the same ids over a bf16 table instead;
 - each wrapper's host time a call, the mean over back-to-back calls that
   the card keeps up with (rm1's shape and a 32-row sub-batch of dien).
+
+For K6 (``bench_k6``) at rm1's, rm2's and din's shapes on zipf(1.2) ids
+with the JAX package's hot-set rule, in the three table layouts: its time
+and ``k6_bound`` beside the direct kernel of the layout on the same ids
+(K1, K1-int8, K4) and, for float tables, ``F.embedding_bag`` on the
+original ids, which computes the same pooled sums.
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -52,13 +58,14 @@ BATCH = 512
 DIEN_T = 40
 
 
-def measure(fn, args_list, iters: int = 100) -> dict:
+def measure(fn, args_list, iters: int = 100, traces: int = 3) -> dict:
     """Per-call times of ``iters`` back-to-back calls cycling through
     ``args_list``, after a warm-up. ``wall_ms``: CUDA events around the loop,
     so host launch cost shows wherever it leaves the card idle. ``device_ms``:
     the summed durations of the device kernels and copies the calls ran,
-    from a torch.profiler trace of a second loop (None when the trace holds
-    no device activity)."""
+    from a torch.profiler trace of a second loop, traced again (up to
+    ``traces`` times) when a trace comes back without device activity
+    (None if every one did)."""
     for a in args_list:
         fn(*a)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -68,12 +75,15 @@ def measure(fn, args_list, iters: int = 100) -> dict:
     end.record()
     end.synchronize()
     wall_ms = start.elapsed_time(end) / iters
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                acc_events=True) as prof:
-        for i in range(iters):
-            fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(traces):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    acc_events=True) as prof:
+            for i in range(iters):
+                fn(*args_list[i % len(args_list)])
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
     device_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters if dev else None
     durations: dict = {}
     for e in dev:
@@ -157,6 +167,32 @@ def k4_bound(qrows: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
     nbytes = (_touched_rows(offsets, indices) * (d + 4) + indices.numel() * 4
               + B * T * d * out_size)
     return _bound(nbytes, 2 * B * T * L * d)
+
+
+def k6_bound(hot: torch.Tensor, table: torch.Tensor, split: dict, out_dtype: torch.dtype,
+             mode: str = "float") -> dict:
+    """K6's least time on these inputs: each distinct hot row and each
+    distinct cold row the split touches read once (row bytes of the table's
+    layout), ``hot_sel`` and ``hot_mask`` (5 bytes a slot), ``cold_ids`` and
+    ``cold_seg`` (8 bytes a padded cold slot), the per-table scales (int8)
+    and the output; an add a gathered element, plus a multiply an element
+    for row-wise rows and a multiply an output element for per-table int8.
+    ``mode``: "float", "int8" or "int8_rowwise"."""
+    hot_sel, hot_mask = split["hot_sel"], split["hot_mask"]
+    cold_ids, cold_seg = split["cold_ids"], split["cold_seg"]
+    B, T, L = hot_sel.shape
+    d = table.shape[1] - (4 if mode == "int8_rowwise" else 0)
+    row_bytes = table.shape[1] * table.element_size()
+    real = cold_seg < B * T
+    rows = (torch.unique(hot_sel[hot_mask]).numel()
+            + torch.unique(cold_ids[real]).numel())
+    gathered = int(hot_mask.sum()) + int(real.sum())
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (rows * row_bytes + B * T * L * 5 + cold_ids.numel() * 8 + B * T * d * out_size
+              + (T * 4 if mode == "int8" else 0))
+    flops = gathered * d * (2 if mode == "int8_rowwise" else 1) + (
+        B * T * d if mode == "int8" else 0)
+    return _bound(nbytes, flops)
 
 
 def k3_bound(T: int, B: int, H: int, out_dtype: torch.dtype) -> dict:
@@ -396,6 +432,141 @@ def bench_int8(log) -> list:
     return rows
 
 
+K6_MODELS = ("rm1", "rm2", "din")
+K6_LAYOUTS = ("none", "int8", "int8_rowwise")
+
+
+def hotcold_inputs(name: str, table_quant: str, device, n_batches: int = 8, seed: int = 2,
+                   table_scale: int = 1) -> dict:
+    """K6's inputs at a zoo model's shape on zipf(1.2) ids: ``n_batches``
+    batches of ``experiments.skew_bench.zipf_stream`` (seeds ``seed``,
+    ``seed + 1``, ...), the hot set of the JAX package's rule chosen on the
+    first (``skew_bench._hot_set``: ``suggest_hot_rows`` of the layout),
+    random full-size tables of ``table_quant``'s layout (bf16 for "none"),
+    the hot rows, and each batch's ids and native split on the card.
+    Returns ``{"cfg", "tables", "rows"`` (the table of row-gathers),
+    ``"hot_ids", "index"`` (its ``HotIndex``), ``"hot", "offsets", "streams"``
+    (host ids), ``"batches": [(indices, split)], "coverage", "hot_rows",
+    "n_cold"}``."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, zipf_stream
+    from deeprecsys_tpu_torch.models.base import table_offsets
+    from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
+    from deeprecsys_tpu_torch.ops.hotcold import split_hot_cold
+    from deeprecsys_tpu_torch.runtime.native import HotIndex
+
+    cfg = zoo.get_config(name, table_scale=table_scale, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", table_quant=table_quant)
+    streams = [zipf_stream(cfg, BATCH, seed=seed + i) for i in range(n_batches)]
+    hot_ids, coverage = _hot_set(cfg, streams[0])
+    index = HotIndex(hot_ids)
+    g = torch.Generator(device=device).manual_seed(0)
+    if table_quant == "none":
+        tables = torch.empty((cfg.total_rows, cfg.sparse_feature_size), dtype=torch.bfloat16,
+                             device=device).uniform_(-0.05, 0.05, generator=g)
+        rows = tables
+    else:
+        t = random_int8_tables(cfg, g, device)
+        tables = ({"q": t["q"], "scale": t["scale"]} if table_quant == "int8"
+                  else {"qrows": t["qrows"]})
+        rows = tables["q"] if table_quant == "int8" else tables["qrows"]
+        del t
+    offsets = np.asarray(cfg.table_offsets, dtype=np.int64)
+    batches, n_cold = [], []
+    for idx in streams:
+        sp = split_hot_cold(idx, offsets, hot_ids, impl="native", hot_index=index,
+                            cold_buckets=cold_buckets_for(idx.size))
+        n_cold.append(sp["n_cold"])
+        batches.append((torch.from_numpy(idx).to(device),
+                        {k: torch.from_numpy(np.ascontiguousarray(sp[k])).to(device)
+                         for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}))
+    return {"cfg": cfg, "tables": tables, "rows": rows, "hot_ids": hot_ids, "index": index,
+            "hot": rows.index_select(0, torch.as_tensor(hot_ids, device=device)),
+            "offsets": table_offsets(cfg, device), "streams": streams, "batches": batches,
+            "coverage": coverage, "hot_rows": int(len(hot_ids)), "n_cold": n_cold}
+
+
+def k6_call(quant: str, hot, tables, split: dict, cdt: torch.dtype, plain: bool = False):
+    """K6 (or, ``plain``, its plain version) for ``quant``'s table layout
+    ("none", "int8" or "int8_rowwise")."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    if quant == "none":
+        fn = emb.embedding_bag_hotcold_reference if plain else emb.embedding_bag_hotcold
+        return fn(hot, tables, split, compute_dtype=cdt)
+    if quant == "int8":
+        fn = emb.embedding_bag_hotcold_int8_reference if plain else emb.embedding_bag_hotcold_int8
+        return fn(hot, tables["q"], tables["scale"], split, compute_dtype=cdt)
+    fn = (emb.embedding_bag_hotcold_int8_rowwise_reference if plain
+          else emb.embedding_bag_hotcold_int8_rowwise)
+    return fn(hot, tables["qrows"], split, compute_dtype=cdt)
+
+
+def direct_call(quant: str, tables, offsets, indices, cdt: torch.dtype, mask=None):
+    """The direct kernel of ``quant``'s layout (K1, K1-int8, K4)."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    if quant == "none":
+        return emb.embedding_bag(tables, offsets, indices, compute_dtype=cdt, mask=mask)
+    if quant == "int8":
+        return emb.embedding_bag_int8(tables["q"], tables["scale"], offsets, indices,
+                                      compute_dtype=cdt, mask=mask)
+    return emb.embedding_bag_int8_rowwise(tables["qrows"], offsets, indices, compute_dtype=cdt,
+                                          mask=mask)
+
+
+def hotcold_calls(inp: dict, quant: str, cdt: torch.dtype = torch.bfloat16) -> dict:
+    """K6, its plain version and the direct kernel of the layout on
+    ``hotcold_inputs``' tables, as functions of ``(indices, split)``;
+    ``library``: ``F.embedding_bag`` on the original ids over the float
+    table (K6's yardstick: the same pooled sums), None for the int8
+    layouts; ``bound``: ``k6_bound`` of a batch."""
+    tables, hot, offsets = inp["tables"], inp["hot"], inp["offsets"]
+    lib = k1_library(tables, offsets) if quant == "none" else None
+    return {"kernel": lambda i, s: k6_call(quant, hot, tables, s, cdt),
+            "plain": lambda i, s: k6_call(quant, hot, tables, s, cdt, plain=True),
+            "direct": lambda i, s: direct_call(quant, tables, offsets, i, cdt),
+            "library": None if lib is None else (lambda i, s: lib(i)),
+            "bound": lambda i, s: k6_bound(hot, inp["rows"], s, cdt,
+                                           "float" if quant == "none" else quant)}
+
+
+def bench_k6(log) -> list:
+    """K6 at rm1's, rm2's and din's shapes on zipf(1.2) ids with the JAX
+    hot-set rule, in the three layouts (bf16 output, 8 batches): device
+    time beside its bound, the direct kernel's time on the same ids and,
+    for float tables, ``F.embedding_bag``'s."""
+    device = torch.device("cuda")
+    rows = []
+    for name in K6_MODELS:
+        for quant in K6_LAYOUTS:
+            inp = hotcold_inputs(name, quant, device)
+            calls = hotcold_calls(inp, quant)
+            i0, s0 = inp["batches"][0]
+            got, direct = calls["kernel"](i0, s0), calls["direct"](i0, s0)
+            err = (got.float() - direct.float()).abs().max().item()
+            if quant == "int8" and not torch.equal(got, direct):
+                raise AssertionError(f"K6-int8 differs from K1-int8 at {name}")
+            run = measure(calls["kernel"], inp["batches"])
+            dk = measure(calls["direct"], inp["batches"])
+            lib = None if calls["library"] is None else measure(calls["library"], inp["batches"])
+            row = {"model": name, "layout": quant, "shape": list(i0.shape),
+                   "hot_rows": inp["hot_rows"], "coverage": inp["coverage"],
+                   "n_cold": inp["n_cold"][0], **calls["bound"](i0, s0),
+                   "ms": run["kernel_ms"], "wall_ms": run["wall_ms"],
+                   "direct_ms": dk["kernel_ms"],
+                   "library_ms": None if lib is None else lib["device_ms"],
+                   "max_abs_err_vs_direct": err}
+            log(f"K6 {name} {quant} {row['shape']} (coverage {row['coverage']:.4f} of "
+                f"{row['hot_rows']} hot rows): {_us(row['ms'])}; bound {_us(row['bound_ms'])} "
+                f"({row['bound_by']}); direct kernel {_us(row['direct_ms'])}; F.embedding_bag "
+                f"{_us(row['library_ms'])}; max |K6 - direct| {err:.3e}")
+            rows.append(row)
+            del inp, calls
+            torch.cuda.empty_cache()
+    return rows
+
+
 def bench_k1_host(log) -> dict:
     """Host time a K1 call at rm1's shape and at a 32-row sub-batch of dien
     (where the card finishes each call long before the host issues the
@@ -464,6 +635,8 @@ def _us(ms) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", type=Path, default=None, help="write the results here")
+    p.add_argument("--only", type=str, default="k1,k1_host,k3,int8,k6",
+                   help="comma-separated benches to run (default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA card is available", file=sys.stderr)
@@ -478,11 +651,14 @@ def main(argv=None) -> int:
 
     card = card_line()
     log(f"card: {card}; port at {Path(_build.__file__).parents[2]}")
-    for key in ("embedding_bag", "rnn_scan", "embedding_bag_int8"):
+    for key in ("embedding_bag", "rnn_scan", "embedding_bag_int8", "embedding_bag_hotcold"):
         log(f"{key}: ptxas " + "; ".join(ptxas_summary(_build.build(key).log)))
+    benches = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
+               "k6": bench_k6}
+    res = {"card": card}
     with torch.inference_mode():
-        res = {"card": card, "k1": bench_k1(log), "k1_host_us": bench_k1_host(log),
-               "k3": bench_k3(log), "int8": bench_int8(log)}
+        for key in args.only.split(","):
+            res[key] = benches[key](log)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(res, indent=1))

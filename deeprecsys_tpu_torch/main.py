@@ -15,7 +15,11 @@ Two modes, as in the JAX package (reference ``DeepRecSys.py``):
   calls around the whole loop.
 
 ``--table_quant int8|int8_rowwise`` (both modes) serves int8 tables through
-the kernels K1-int8 and K4. ``--checkpoint <name>`` (both modes) starts
+the kernels K1-int8 and K4. ``--queue --embedding_impl hotcold|auto`` serves
+a hot/cold split of the lookups (K6, any table layout), with
+``--hotcold_refresh_interval`` its adaptive refresh; standalone
+``--embedding_impl hotcold`` raises, as in the JAX package, because the
+split needs an engine's host splitter. ``--checkpoint <name>`` (both modes) starts
 from a trained checkpoint (``<name>.npz`` + ``<name>.tree.json``, the JAX
 package's format, e.g. from ``python -m deeprecsys_tpu_torch.train --save
 <name>``) instead of random weights; with ``--table_quant`` it reads the
@@ -67,13 +71,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--param_dtype", type=str, default="float32")
     p.add_argument("--compute_dtype", type=str, default=None,
                    help="default: --param_dtype")
-    # Lookup knobs of ModelConfig; the port runs only "xla" (K1, K1-int8, K4).
+    # Lookup knobs of ModelConfig: "xla" the direct lookup (K1, K1-int8,
+    # K4); "hotcold" and "auto" serving engines only (--queue), K6.
     p.add_argument("--embedding_impl", type=str, default="xla",
-                   choices=["xla", "hotcold", "auto"])
-    p.add_argument("--hotcold_min_hit", type=float, default=None)
+                   choices=["xla", "hotcold", "auto"],
+                   help="'hotcold': a hot/cold split of the lookups (--queue only); "
+                        "'auto': the engines sample their stream at warm-up and split "
+                        "iff the hot set's coverage >= --hotcold_min_hit")
+    p.add_argument("--hotcold_min_hit", type=float, default=None,
+                   help="least sampled coverage for --embedding_impl auto to split "
+                        "(default: the config's)")
     p.add_argument("--hotcold_refresh_interval", type=int, default=0,
-                   help="hot/cold refresh (not ported: a value > 0 raises)")
-    p.add_argument("--hotcold_min_table_mb", type=float, default=128.0)
+                   help="adaptive hot-set refresh: every N tracked executions, re-derive "
+                        "the hot set from the live stream if its hit rate dropped (0 = off)")
+    p.add_argument("--hotcold_refresh_margin", type=float, default=0.05,
+                   help="refresh when live coverage falls this far below the reference")
+    p.add_argument("--hotcold_refresh_window", type=int, default=16,
+                   help="recent executions buffered for the hot-set re-derivation")
+    p.add_argument("--hotcold_scan_budget", type=int, default=2_000_000,
+                   help="most lookups the refresh scan reads from the window (<= 0: all)")
+    p.add_argument("--hotcold_scan_sync", action="store_true",
+                   help="run the refresh scan on the serve thread instead of the worker")
+    p.add_argument("--hotcold_min_table_mb", type=float, default=128.0,
+                   help="--embedding_impl auto splits only fused tables at least this big")
     p.add_argument("--accept_ragged", action="store_true",
                    help="engines take masked (ragged) payload requests")
     p.add_argument("--table_pack", type=int, default=0,
@@ -211,6 +231,10 @@ def serving_config_from_args(args) -> ServingConfig:
         coalesce_requests=args.coalesce_requests,
         max_coalesce=args.max_coalesce,
         hotcold_refresh_interval=args.hotcold_refresh_interval,
+        hotcold_refresh_margin=args.hotcold_refresh_margin,
+        hotcold_refresh_window=args.hotcold_refresh_window,
+        hotcold_scan_budget=args.hotcold_scan_budget,
+        hotcold_scan_async=not args.hotcold_scan_sync,
         accept_ragged=args.accept_ragged,
         seed=args.numpy_rand_seed,
         log_file=args.log_file,

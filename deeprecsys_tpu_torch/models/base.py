@@ -129,9 +129,15 @@ def pooled_lookup(tables, batch: Batch, cfg: ModelConfig,
         embedding_bag, embedding_bag_int8, embedding_bag_int8_rowwise)
 
     if cfg.embedding_impl == "hotcold":
-        raise NotImplementedError(
-            "embedding_impl='hotcold' is not ported yet "
-            "(ROADMAP.md Queue 1 item 10, hot/cold serving)")
+        # The split needs the host splitter in the loop (models/hotcold.py);
+        # falling through to the direct lookup would measure the wrong path
+        # (JAX models/base.py:138-145).
+        raise ValueError(
+            "embedding_impl='hotcold' is a serving-engine path (use --queue/"
+            "--serve, or models.hotcold.make_hotcold_model directly); the "
+            "plain apply would silently run the xla gather instead")
+    # "auto" is decided by a serving engine at warm-up; elsewhere the direct
+    # lookup is the right one, as in the JAX package.
     if cfg.embedding_impl not in ("xla", "auto"):
         raise ValueError(f"unknown embedding_impl {cfg.embedding_impl!r} "
                          "(valid: 'xla', 'hotcold', 'auto')")

@@ -263,13 +263,17 @@ def _kernel_lib() -> ctypes.CDLL:
 def _check(table, offsets, indices, cdt, mask):
     """Raise on anything the kernel does not take (both devices share the
     contract, so the CPU tests exercise these checks too)."""
+    _check_float_table(table, cdt)
+    _check_ids(table, offsets, indices, mask)
+
+
+def _check_float_table(table, cdt):
     if table.dim() != 2 or table.shape[1] not in _KERNEL_WIDTHS:
         raise ValueError(f"table must be (R, d) with d in {_KERNEL_WIDTHS}; "
                          f"got {tuple(table.shape)}")
     if table.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
         raise TypeError(f"table and compute dtypes must be float32 or bfloat16; "
                         f"got {table.dtype} and {cdt}")
-    _check_ids(table, offsets, indices, mask)
 
 
 def _check_ids(table, offsets, indices, mask, *others):
@@ -556,6 +560,11 @@ def rowwise_tolerance(a: torch.Tensor, b: torch.Tensor, qrows: torch.Tensor,
 def _check_int8(table, row_bytes_extra: int, cdt, offsets, indices, mask, *others):
     """What K1-int8 (``row_bytes_extra`` 0) and K4 (4: the scale's bytes)
     take; both devices share the contract."""
+    _check_int8_table(table, row_bytes_extra, cdt)
+    _check_ids(table, offsets, indices, mask, *others)
+
+
+def _check_int8_table(table, row_bytes_extra: int, cdt):
     if table.dtype != torch.int8:
         raise TypeError(f"an int8 table must be int8; got {table.dtype}")
     if table.dim() != 2 or table.shape[1] - row_bytes_extra not in _KERNEL_WIDTHS:
@@ -564,7 +573,6 @@ def _check_int8(table, row_bytes_extra: int, cdt, offsets, indices, mask, *other
                          f"got {tuple(table.shape)}")
     if cdt not in _DTYPE_CODES:
         raise TypeError(f"the compute dtype must be float32 or bfloat16; got {cdt}")
-    _check_ids(table, offsets, indices, mask, *others)
 
 
 def _declare_int8(lib: ctypes.CDLL):
@@ -685,6 +693,292 @@ def embedding_bag_int8_rowwise(qrows: torch.Tensor, offsets: torch.Tensor,
 
 
 embedding_bag_int8_rowwise.kernel_launches = 0
+
+
+# ------------------------------------------------------- hot/cold (K6)
+
+# K6's launch geometry, mirroring csrc/embedding_bag_hotcold.cu: a warp a
+# bag, K6_WARPS_PER_BLOCK warps a block.
+K6_WARPS_PER_BLOCK = 8
+_K6_MODES = {"float": 0, "int8": 1, "int8_rowwise": 2}
+_SPLIT_KEYS = ("hot_sel", "hot_mask", "cold_ids", "cold_seg")
+
+
+@dataclasses.dataclass(frozen=True)
+class K6Geometry:
+    """How K6 maps a bag's rows onto a warp (``Geometry`` in
+    ``csrc/embedding_bag_hotcold.cu``): ``lanes_per_row`` lanes load a row
+    (16 bytes each, 4 for row-wise rows), ``slots = 32 / lanes_per_row``
+    rows load at once, ``rows_per_slot`` each a step, so a step reads
+    ``chunk = slots * rows_per_slot`` slots of the bag (at most 32)."""
+
+    lanes_per_row: int
+    slots: int
+    rows_per_slot: int
+
+    @property
+    def chunk(self) -> int:
+        return self.slots * self.rows_per_slot
+
+
+@functools.lru_cache(maxsize=64)
+def k6_geometry(mode: str, d: int, itemsize: int) -> K6Geometry:
+    """K6's geometry for a table layout (``mode`` of ``_K6_MODES``), width
+    ``d`` and element size (bytes): 16-byte loads and at most 4 rows a slot
+    a step, row-wise 4-byte loads and at most 8."""
+    load, max_u = (4, 8) if mode == "int8_rowwise" else (16, 4)
+    lanes = d // (load // itemsize)
+    slots = 32 // lanes
+    return K6Geometry(lanes, slots, min(32 // slots, max_u))
+
+
+@dataclasses.dataclass(frozen=True)
+class K6Plan:
+    """How K6 maps bags onto warps: ``rows_per_slot`` 0 is a warp a bag (L >
+    8), else a slot a bag, ``bags_per_warp`` of them, each slot with all of
+    its bag's rows in flight (the power of two >= L); ``grid`` blocks of
+    K6_WARPS_PER_BLOCK warps cover every task once."""
+
+    bags_per_warp: int
+    rows_per_slot: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=512)
+def k6_launch_plan(n_bags: int, L: int, geometry: K6Geometry) -> K6Plan:
+    """K6's plan for ``n_bags`` bags of ``L`` slots; the only ones
+    ``csrc/embedding_bag_hotcold.cu`` builds."""
+    u = 0 if L > 8 else _pow2_at_least(max(L, 1))
+    bpw = geometry.slots if u else 1
+    tasks = -(-n_bags // bpw)
+    return K6Plan(bpw, u, max(1, -(-tasks // K6_WARPS_PER_BLOCK)))
+
+
+def _hotcold_pooled(row_fn, acc_dtype: torch.dtype, hot: torch.Tensor, table: torch.Tensor,
+                    split: dict) -> torch.Tensor:
+    """The hot hits pooled over L plus the cold rows summed into their bags,
+    ``(B, T, d)`` in ``acc_dtype``; ``row_fn`` maps gathered rows to the
+    values that are summed."""
+    hot_sel, hot_mask = split["hot_sel"], split["hot_mask"]
+    B, T, L = hot_sel.shape
+    cold = row_fn(table.index_select(0, split["cold_ids"].long()))
+    d = cold.shape[1]
+    if hot.shape[0]:
+        rows = row_fn(hot.index_select(0, hot_sel.reshape(-1).long()))
+        rows = torch.where(hot_mask.reshape(-1, 1), rows, torch.zeros((), dtype=rows.dtype))
+        pooled = rows.reshape(B, T, L, d).sum(dim=2, dtype=acc_dtype)
+    else:  # K = 0: no hot hits
+        pooled = torch.zeros((B, T, d), dtype=acc_dtype, device=table.device)
+    segs = torch.zeros((B * T + 1, d), dtype=acc_dtype, device=table.device)
+    segs.index_add_(0, split["cold_seg"].long(), cold.to(acc_dtype))
+    return pooled + segs[:B * T].reshape(B, T, d)  # the last bag holds the pads
+
+
+def embedding_bag_hotcold_reference(hot_table: torch.Tensor, table: torch.Tensor, split: dict,
+                                    *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch hot/cold lookup over float tables: each row converted
+    to the compute dtype, hot hits and cold rows summed in f32, rounded once
+    (``embedding_bag_reference``'s numerics, so it equals the direct lookup
+    on the same ids up to the order of the f32 sum)."""
+    cdt = compute_dtype if compute_dtype is not None else table.dtype
+    return _hotcold_pooled(lambda r: r.to(cdt).float(), torch.float32, hot_table, table,
+                           split).to(cdt)
+
+
+def embedding_bag_hotcold_int8_reference(hot_q: torch.Tensor, q: torch.Tensor,
+                                         scale: torch.Tensor, split: dict, *,
+                                         compute_dtype: torch.dtype = torch.float32
+                                         ) -> torch.Tensor:
+    """Plain PyTorch hot/cold lookup over per-table int8 tables: hot and
+    cold rows summed in exact int32, one f32 multiply by the table's scale,
+    one cast (JAX ``hotcold_quant_modes``)."""
+    pooled = _hotcold_pooled(lambda r: r.to(torch.int32), torch.int32, hot_q, q, split)
+    return (pooled.float() * scale.float()[None, :, None]).to(compute_dtype)
+
+
+def embedding_bag_hotcold_int8_rowwise_reference(hot_qrows: torch.Tensor, qrows: torch.Tensor,
+                                                 split: dict, *,
+                                                 compute_dtype: torch.dtype = torch.float32
+                                                 ) -> torch.Tensor:
+    """Plain PyTorch hot/cold lookup over row-wise int8 tables: every row
+    dequantized by its own scale (``dequant_packed_rows``), an f32 sum, one
+    cast."""
+    return _hotcold_pooled(dequant_packed_rows, torch.float32, hot_qrows, qrows,
+                           split).to(compute_dtype)
+
+
+def hotcold_tolerance(a: torch.Tensor, b: torch.Tensor, hot: torch.Tensor, table: torch.Tensor,
+                      split: dict, rowwise: bool = False) -> torch.Tensor:
+    """``pooled_tolerance`` for two hot/cold outputs (float or row-wise
+    tables) that differ only in the order of their f32 sums: a bag sums at
+    most L rows, hot and cold together."""
+    row_fn = (lambda r: dequant_packed_rows(r).abs()) if rowwise else (lambda r: r.float().abs())
+    abs_sum = _hotcold_pooled(row_fn, torch.float32, hot, table, split)
+    return _order_tolerance(a, b, abs_sum, split["hot_sel"].shape[-1])
+
+
+def _check_hotcold(hot, table, split: dict, *others):
+    """The split's arrays and the hot table as K6 takes them (both devices
+    share the contract). The cold stream's order is not checked: it would
+    cost a read back from the card."""
+    hot_sel, hot_mask = split["hot_sel"], split["hot_mask"]
+    cold_ids, cold_seg = split["cold_ids"], split["cold_seg"]
+    if hot_sel.dim() != 3 or hot_sel.dtype != torch.int32:
+        raise TypeError(f"hot_sel must be (B, T, L) int32; got {tuple(hot_sel.shape)} "
+                        f"{hot_sel.dtype}")
+    if hot_mask.shape != hot_sel.shape or hot_mask.dtype != torch.bool:
+        raise TypeError(f"hot_mask must be bool of shape {tuple(hot_sel.shape)}; got "
+                        f"{tuple(hot_mask.shape)} {hot_mask.dtype}")
+    if (cold_ids.dim() != 1 or cold_ids.dtype != torch.int32
+            or cold_seg.shape != cold_ids.shape or cold_seg.dtype != torch.int32):
+        raise TypeError(f"cold_ids and cold_seg must be (C_pad,) int32; got "
+                        f"{tuple(cold_ids.shape)} {cold_ids.dtype} and "
+                        f"{tuple(cold_seg.shape)} {cold_seg.dtype}")
+    if hot.dim() != 2 or hot.shape[1] != table.shape[1] or hot.dtype != table.dtype:
+        raise ValueError(f"the hot table must be (K, {table.shape[1]}) {table.dtype}; got "
+                         f"{tuple(hot.shape)} {hot.dtype}")
+    tensors = (hot, table, hot_sel, hot_mask, cold_ids, cold_seg, *others)
+    if any(t.device != table.device for t in tensors):
+        raise ValueError("the tables and the split must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the tables and the split must be contiguous")
+
+
+def _declare_hotcold(lib: ctypes.CDLL):
+    lib.drs_embedding_bag_hotcold.restype = ctypes.c_int
+    lib.drs_embedding_bag_hotcold.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # mode, table dtype, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # hot, table, scale
+        ctypes.c_void_p, ctypes.c_void_p,                   # hot_sel, hot_mask
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,   # cold_ids, cold_seg, C_pad
+        ctypes.c_void_p, ctypes.c_int,                      # out, out dtype
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,        # plan: rows/slot, grid; stream
+    ]
+
+
+def _hotcold_dispatch(wrapper, mode: str, hot, table, scale, split: dict, d: int, cdt,
+                      align: int, plain):
+    """``plain()`` for CPU tensors; on the card K6 (``mode``) on checked
+    inputs, counted in ``wrapper.kernel_launches``."""
+    device = table.device
+    if device.type == "cpu":
+        return plain()
+    if device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {device}")
+    if table.data_ptr() % align or hot.data_ptr() % align:
+        raise ValueError(f"K6 loads {align}-byte words: the table and the hot table must "
+                         f"start on a {align}-byte boundary")
+    hot_sel, cold_ids = split["hot_sel"], split["cold_ids"]
+    B, T, L = hot_sel.shape
+    out = torch.empty((B, T, d), dtype=cdt, device=device)
+    if B * T == 0:
+        return out
+    plan = k6_launch_plan(B * T, L, k6_geometry(mode, d, table.element_size()))
+    _build.launch(_build.load("embedding_bag_hotcold", _declare_hotcold),
+                  "drs_embedding_bag_hotcold", device, _K6_MODES[mode],
+                  _DTYPE_CODES.get(table.dtype, 0), d, hot.data_ptr() or None, table.data_ptr(),
+                  None if scale is None else scale.data_ptr(), hot_sel.data_ptr(),
+                  split["hot_mask"].data_ptr(), cold_ids.data_ptr() or None,
+                  split["cold_seg"].data_ptr() or None, cold_ids.numel(), out.data_ptr(),
+                  _DTYPE_CODES[cdt], B * T, T, L, plan.rows_per_slot, plan.grid)
+    _build.count_launch(wrapper)
+    return out
+
+
+def embedding_bag_hotcold(hot_table: torch.Tensor, table: torch.Tensor, split: dict, *,
+                          compute_dtype: torch.dtype | None = None,
+                          pack: int = 1) -> torch.Tensor:
+    """Pooled lookup over a hot/cold split (JAX ``ops/embedding.py:542``).
+
+    Args:
+      hot_table: ``(K, d)`` rows of the hot set (``table[hot_ids]``), K >= 0.
+      table: fused ``(R, d)`` float32 or bfloat16 table, d 32 or 64.
+      split: ``ops/hotcold.py::split_hot_cold``'s arrays as tensors on the
+        table's device: ``hot_sel``/``hot_mask`` ``(B, T, L)``, the padded
+        cold stream ``cold_ids``/``cold_seg`` ``(C_pad,)`` in its order (bags
+        ascending, pads in bag ``B*T`` last). ``n_cold`` is not read.
+      pack: the JAX package's packed cold tables; the port keeps ``(R, d)``
+        rows, so only 1.
+
+    Returns:
+      ``(B, T, d)`` in ``compute_dtype`` (default: the table's): each row
+      converted to it, the bag's hot and cold rows summed in f32, rounded
+      once, as ``embedding_bag`` pools the same ids.
+
+    CPU tensors take ``embedding_bag_hotcold_reference``. CUDA tensors
+    launch K6 (``csrc/embedding_bag_hotcold.cu``) and count the launch in
+    ``embedding_bag_hotcold.kernel_launches``; a failed build or launch
+    raises.
+    """
+    if pack != 1:
+        raise NotImplementedError("packed cold tables: the port keeps (R, d) rows "
+                                  "(bridge.params_from_numpy unpacks them)")
+    cdt = compute_dtype if compute_dtype is not None else table.dtype
+    _check_float_table(table, cdt)
+    _check_hotcold(hot_table, table, split)
+    return _hotcold_dispatch(
+        embedding_bag_hotcold, "float", hot_table, table, None, split, table.shape[1], cdt, 16,
+        lambda: embedding_bag_hotcold_reference(hot_table, table, split, compute_dtype=cdt))
+
+
+embedding_bag_hotcold.kernel_launches = 0
+
+
+def embedding_bag_hotcold_int8(hot_q: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                               split: dict, *, compute_dtype: torch.dtype = torch.float32,
+                               pack: int = 1) -> torch.Tensor:
+    """Hot/cold lookup over per-table int8 tables (JAX
+    ``ops/embedding.py:737``): hot and cold rows summed in exact int32, one
+    f32 multiply by the table's scale, one cast: the JAX op's bits.
+
+    ``hot_q`` ``(K, d)`` int8 (``q[hot_ids]``), ``q`` ``(R, d)`` int8,
+    ``scale`` ``(T,)`` f32, ``split`` as ``embedding_bag_hotcold`` takes it.
+    CPU tensors take the plain version; CUDA tensors launch K6 (per-table
+    mode), counted in ``embedding_bag_hotcold_int8.kernel_launches``.
+    """
+    if pack != 1:
+        raise NotImplementedError("packed cold tables: the port keeps (R, d) rows "
+                                  "(bridge.params_from_numpy unpacks them)")
+    cdt = compute_dtype
+    _check_int8_table(q, 0, cdt)
+    if scale.shape != (split["hot_sel"].shape[1],) or scale.dtype != torch.float32:
+        raise TypeError(f"scale must be ({split['hot_sel'].shape[1]},) float32; got "
+                        f"{tuple(scale.shape)} {scale.dtype}")
+    _check_hotcold(hot_q, q, split, scale)
+    return _hotcold_dispatch(
+        embedding_bag_hotcold_int8, "int8", hot_q, q, scale, split, q.shape[1], cdt, 16,
+        lambda: embedding_bag_hotcold_int8_reference(hot_q, q, scale, split, compute_dtype=cdt))
+
+
+embedding_bag_hotcold_int8.kernel_launches = 0
+
+
+def embedding_bag_hotcold_int8_rowwise(hot_qrows: torch.Tensor, qrows: torch.Tensor,
+                                       split: dict, *,
+                                       compute_dtype: torch.dtype = torch.float32
+                                       ) -> torch.Tensor:
+    """Hot/cold lookup over row-wise int8 tables (JAX
+    ``ops/embedding.py:759``): every row, hot or cold, dequantized by its
+    own scale before an f32 sum, one cast.
+
+    ``hot_qrows`` ``(K, d + 4)`` int8 (``qrows[hot_ids]``), ``qrows``
+    ``(R, d + 4)`` int8 on 4-byte boundaries, ``split`` as
+    ``embedding_bag_hotcold`` takes it. CPU tensors take the plain version;
+    CUDA tensors launch K6 (row-wise mode), counted in
+    ``embedding_bag_hotcold_int8_rowwise.kernel_launches``.
+    """
+    cdt = compute_dtype
+    _check_int8_table(qrows, 4, cdt)
+    _check_hotcold(hot_qrows, qrows, split)
+    return _hotcold_dispatch(
+        embedding_bag_hotcold_int8_rowwise, "int8_rowwise", hot_qrows, qrows, None, split,
+        qrows.shape[1] - 4, cdt, 4,
+        lambda: embedding_bag_hotcold_int8_rowwise_reference(hot_qrows, qrows, split,
+                                                             compute_dtype=cdt))
+
+
+embedding_bag_hotcold_int8_rowwise.kernel_launches = 0
 
 
 # ---------------------------------------------------------- export helpers

@@ -37,14 +37,33 @@ wrong shape, or an id outside ``[0, rows[t])``, is answered with
 ``ERR_PAYLOAD``. K1 does not check ids; the JAX package's gather fills an
 out-of-range row with NaN instead (ROADMAP.md Queue 3).
 
+Hot/cold serving (``embedding_impl="hotcold"``, or ``"auto"`` when the
+sampled hot set covers at least ``hotcold_min_hit`` of the engine's stream
+and the table is at least ``hotcold_min_table_mb``), as the JAX package's
+engine does it on one device (its ``engine.py:326-380, :806-1194``): at
+set-up the hot set is chosen from the engine's own data stream and the
+params gain a ``(K, d)`` hot table; per execution the serve thread splits
+the batch on the host (``models/hotcold.py::prepare``, the native splitter,
+with the engine's own ``HotIndex``) straight into the execution's pinned
+staging slot, the split arrays are copied with ``non_blocking=True``, and
+K6 pools them (the ragged mask is consumed by the split, so the device call
+is mask-free; nothing reads the cold count back from the card). With
+``hotcold_refresh_interval > 0`` the engine tracks the live hit rate and,
+every interval, upgrades, refreshes or disables the hot set and re-enables
+it when a head returns. A scan worker thread only computes candidate ids
+and their ``HotIndex``; it launches nothing. The swap happens on the serve
+thread: a new hot table (``index_select`` on the engine's stream), never
+a write into the live one.
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
-hot/cold lookups and their refresh (item 10), multi-device meshes (item
-12), checkpoint reload and the cpu-mp control ring and payload arena (item
-11b). There is no TPU layout negotiation to port.
+multi-device meshes (item 12), checkpoint reload and the cpu-mp control
+ring and payload arena (item 11b). There is no TPU layout negotiation to
+port.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import queue
 import threading
@@ -58,6 +77,7 @@ from deeprecsys_tpu_torch.config import ModelConfig, ServingConfig
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import get_model
 from deeprecsys_tpu_torch.models.base import Batch, compute_dtype_of
+from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
 from deeprecsys_tpu_torch.serving.latency_model import LatencyModel
 from deeprecsys_tpu_torch.serving.packets import (
     ERR_DEADLINE,
@@ -83,10 +103,13 @@ def pick_bucket(buckets, batch_size: int) -> int:
 
 class _Slot:
     """Host buffers of one in-flight execution, at the largest bucket: a
-    payload group's assembled rows and the landing place of its scores.
-    Pinned on a card, so that both copies run asynchronously."""
+    payload group's assembled rows, with ``hotcold`` the host split of its
+    lookups (flat, room for every lookup and the largest cold rung), and the
+    landing place of its scores. Pinned on a card, so that every copy runs
+    asynchronously."""
 
-    def __init__(self, rows: int, cfg: ModelConfig, masked: bool, pin: bool):
+    def __init__(self, rows: int, cfg: ModelConfig, masked: bool, pin: bool,
+                 hotcold: bool = False):
         T, L = cfg.num_tables, cfg.num_indices_per_lookup
 
         def buf(shape, dtype):
@@ -96,6 +119,22 @@ class _Slot:
         self.dense = buf((rows, cfg.dense_dim), torch.float32) if cfg.dense_dim else None
         self.mask = buf((rows, T, L), torch.bool) if masked else None
         self.out = buf((rows, cfg.out_dim), compute_dtype_of(cfg))
+        self.split = self.split_np = None
+        if hotcold:
+            n = max(rows * T * L, max(cold_buckets_for(rows * T * L)))
+            self.split = {"hot_sel": buf((n,), torch.int32), "hot_mask": buf((n,), torch.bool),
+                          "cold_ids": buf((n,), torch.int32), "cold_seg": buf((n,), torch.int32)}
+            self.split_np = {k: v.numpy() for k, v in self.split.items()}
+
+    def split_tensors(self, split: dict) -> dict:
+        """The slot's buffers holding ``split`` (``prepare``'s result written
+        into ``split_np``), shaped as K6 takes them."""
+        shape = split["hot_sel"].shape
+        n, c_pad = split["hot_sel"].size, split["cold_ids"].size
+        return {"hot_sel": self.split["hot_sel"][:n].view(shape),
+                "hot_mask": self.split["hot_mask"][:n].view(shape),
+                "cold_ids": self.split["cold_ids"][:c_pad],
+                "cold_seg": self.split["cold_seg"][:c_pad]}
 
 
 class ComputeEngine(threading.Thread):
@@ -125,12 +164,6 @@ class ComputeEngine(threading.Thread):
         if control_q is not None or arena is not None:
             raise NotImplementedError("the cpu-mp control ring and payload arena are not "
                                       "ported yet (ROADMAP.md Queue 1 item 11b)")
-        if (model_cfg.embedding_impl in ("hotcold", "auto")
-                or serving_cfg.hotcold_refresh_interval > 0):
-            raise NotImplementedError(
-                f"hot/cold serving (embedding_impl={model_cfg.embedding_impl!r}, "
-                f"hotcold_refresh_interval={serving_cfg.hotcold_refresh_interval}) is "
-                "not ported yet (ROADMAP.md Queue 1 item 10)")
         self.engine_id = engine_id
         self.model_cfg = model_cfg
         self.serving_cfg = serving_cfg
@@ -168,20 +201,48 @@ class ComputeEngine(threading.Thread):
         self.rejected_requests = 0   # strict over-ladder and payload rejections
         self.expired_requests = 0    # deadline-expired, dropped before dispatch
         self._clamp_warned = False
+        # Hot/cold serving: the HotColdModel when the split is set up, the
+        # sampled coverage of its hot set (hotcold/auto), and the refresh
+        # state, all written by the serve thread only.
+        self._hotcold = None
+        self.hot_coverage = None
+        self.hot_refreshes = 0
+        self.live_hot_coverage = None
+        self._live_hot = 0
+        self._live_total = 0
+        self._refresh_buf = None
+        self._tracked_since_check = 0
+        # A refresh that finds the stream headless disables the split and
+        # serves the direct lookup, still watching the stream.
+        self._hotcold_active = True
+        self._upgrade_backoff = 0  # doubling skip count after failed scans
+        self._upgrade_wait = 0
+        # The scan worker computes candidate hot sets off the serve thread;
+        # one task in flight, its result applied on the serve thread.
+        self._scan_thread = None
+        self._scan_req: "queue.Queue" = queue.Queue(maxsize=1)
+        self._scan_res: "queue.Queue" = queue.Queue(maxsize=1)
+        self._scan_inflight = False
 
     # -- setup ---------------------------------------------------------
 
     def _setup(self):
-        """Model, params, the pinned rows of every bucket and the staging
-        slots, then one execution a bucket (and its masked twin with
-        ``accept_ragged``). Runs in the engine's thread, on its stream."""
+        """Model, params (with ``hotcold``/``auto`` the hot set and its
+        table), the pinned rows of every bucket and the staging slots, then
+        one execution a bucket: its masked twin with ``accept_ragged``, every
+        cold rung on a hot/cold engine, and with refresh tracking also the
+        direct lookup's. Runs in the engine's thread, on its stream."""
         cfg = self.model_cfg
-        self.model = get_model(cfg, self.device)
+        # The direct model: the lookup "auto" falls back to and a disabled
+        # split serves; a hot/cold engine runs its tail (apply_from_pooled).
+        self.model = get_model(cfg.replace(embedding_impl="xla"), self.device)
         if self.params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             self.params = self.model.init(gen)
         else:
             self.params = bridge.tree_map(lambda t: t.to(self.device), self.params)
+        if cfg.embedding_impl in ("hotcold", "auto"):
+            self._setup_hotcold(require=cfg.embedding_impl == "hotcold")
         if self.device.type == "cuda":
             # Params and offsets were made on other streams or threads.
             torch.cuda.synchronize(self.device)
@@ -198,22 +259,66 @@ class ComputeEngine(threading.Thread):
 
         dense, indices = host(full.dense), host(full.indices)
         ragged = self.serving_cfg.accept_ragged
+        hotcold = self._hotcold is not None
         for _ in range(IN_FLIGHT):
-            self._free_slots.put(_Slot(max(self.buckets), cfg, ragged, pin))
+            self._free_slots.put(_Slot(max(self.buckets), cfg, ragged, pin, hotcold))
         all_true = None
         if ragged:
             all_true = torch.ones(indices.shape, dtype=torch.bool, pin_memory=pin)
+        direct = not hotcold or self.serving_cfg.hotcold_refresh_interval > 0
+        T, L = cfg.num_tables, cfg.num_indices_per_lookup
         for b in self.buckets:
             self._host_data[b] = Batch(dense=None if dense is None else dense[:b],
                                        indices=indices[:b])
-            self._warm(self._host_data[b], b)
-            if ragged:
-                # The masked twin: a ragged request runs K1 with a mask.
-                self._warm(self._host_data[b]._replace(mask=all_true[:b]), b)
+            if hotcold:
+                # Every cold rung the splitter pads to, on an empty split.
+                for c_pad in cold_buckets_for(b * T * L):
+                    self._warm(self._host_data[b], b, {
+                        "hot_sel": np.zeros((b, T, L), np.int32),
+                        "hot_mask": np.zeros((b, T, L), bool),
+                        "cold_ids": np.zeros(c_pad, np.int32),
+                        "cold_seg": np.full(c_pad, b * T, np.int32)})
+            if direct:
+                self._warm(self._host_data[b], b)
+                if ragged:
+                    # The masked twin: a ragged request runs the direct
+                    # lookup with a mask.
+                    self._warm(self._host_data[b]._replace(mask=all_true[:b]), b)
 
-    def _warm(self, host: Batch, bucket: int):
+    def _setup_hotcold(self, require: bool):
+        """The hot/cold split (JAX ``engine.py:326-380``): the hot set,
+        sized by ``hot_set_rows`` (0: ``suggest_hot_rows``), chosen from
+        the engine's own data stream with its out-of-sample coverage. With
+        ``require=False`` (``auto``) a table under ``hotcold_min_table_mb``
+        is not sampled, and a coverage under ``hotcold_min_hit`` keeps the
+        direct lookup. The params gain the hot table."""
+        from deeprecsys_tpu_torch.models.hotcold import (
+            hot_ids_and_coverage_from_generator, make_hotcold_model)
+        from deeprecsys_tpu_torch.utils.memory import suggest_hot_rows
+
+        cfg = self.model_cfg
+        if not require and cfg.fused_table_mb < cfg.hotcold_min_table_mb:
+            return  # the size floor: a small table's direct lookup stays
+        hot_rows = cfg.hot_set_rows if cfg.hot_set_rows > 0 else suggest_hot_rows(cfg)
+        # The warm-up sample grows with the hot budget, so a large budget is
+        # filled from the stream and not limited by the sample.
+        T, L = cfg.num_tables, cfg.num_indices_per_lookup
+        n_batches = int(np.clip(-(-4 * hot_rows // (256 * T * L)), 8, 256))
+        hot_ids, coverage = hot_ids_and_coverage_from_generator(
+            cfg, seed=self.seed + 31, hot_rows=hot_rows, n_batches=n_batches,
+            data_generation=self.serving_cfg.data_generation)
+        self.hot_coverage = coverage
+        if not require and coverage < cfg.hotcold_min_hit:
+            return
+        self._hotcold = make_hotcold_model(self.model, hot_ids)
+        self.params = self._hotcold.convert_params(self.params)
+
+    def _warm(self, host: Batch, bucket: int, split: dict | None = None):
         slot = self._free_slots.get()
-        event = self._dispatch(host, bucket, slot)
+        if split is not None:
+            for k, v in split.items():
+                slot.split_np[k][:v.size] = v.reshape(-1)
+        event = self._dispatch(host, bucket, slot, split)
         if event is not None:
             event.synchronize()
         self._free_slots.put(slot)
@@ -282,18 +387,28 @@ class ComputeEngine(threading.Thread):
                      indices=slot.indices[:bucket],
                      mask=slot.mask[:bucket] if any_mask else None)
 
-    def _dispatch(self, host: Batch, bucket: int, slot: _Slot):
-        """Copy ``host`` in, run the model, copy the scores into ``slot``;
-        returns the event that marks the scores readable (None on the CPU,
-        where every step is synchronous)."""
+    def _dispatch(self, host: Batch, bucket: int, slot: _Slot, split: dict | None = None):
+        """Copy ``host`` in (and ``split``, the host split held in ``slot``),
+        run the model (K6 on the split, else the direct lookup), copy the
+        scores into ``slot``; returns the event that marks the scores
+        readable (None on the CPU, where every step is synchronous)."""
         on_card = self.device.type == "cuda"
 
         def to_device(t):
             return None if t is None else t.to(self.device, non_blocking=on_card)
 
-        batch = Batch(dense=to_device(host.dense), indices=to_device(host.indices),
-                      mask=to_device(host.mask))
-        out = self.model.apply(self.params, batch)
+        if split is not None:
+            # The split stands for the ids and consumed the ragged mask: the
+            # tail takes only the dense features.
+            batch = Batch(dense=to_device(host.dense), indices=None)
+            dev_split = {k: to_device(v) for k, v in slot.split_tensors(split).items()}
+            out = self._hotcold.apply(self.params, batch, dev_split)
+        else:
+            batch = Batch(dense=to_device(host.dense), indices=to_device(host.indices),
+                          mask=to_device(host.mask))
+            params = self.params if self._hotcold is None else {
+                k: v for k, v in self.params.items() if k != "hot_table"}
+            out = self.model.apply(params, batch)
         slot.out[:bucket].copy_(out, non_blocking=on_card)
         if not on_card:
             return None
@@ -336,6 +451,13 @@ class ComputeEngine(threading.Thread):
                 self._sink_requests()
             self._pending.put(_SENTINEL)
             completer.join()
+        if self._scan_thread is not None:
+            # Best-effort stop: with a task in flight the daemon worker ends
+            # with the process after its scan.
+            try:
+                self._scan_req.put_nowait(None)
+            except queue.Full:
+                pass
         self.response_q.put(_SENTINEL)
 
     def _sink_requests(self):
@@ -364,6 +486,271 @@ class ComputeEngine(threading.Thread):
     def request_reload(self, path: str):
         raise NotImplementedError("checkpoint reload is not ported yet (ROADMAP.md "
                                   "Queue 1 item 11b; it needs item 9's checkpoints)")
+
+    # -- hot/cold dispatch and refresh (JAX engine.py:806-1194) ---------
+
+    def _split(self, host: Batch, slot: _Slot, real_rows: int) -> dict | None:
+        """The host split of ``host`` written into ``slot``, or None where
+        the execution takes the direct lookup (no split set up, or the split
+        disabled). With refresh tracking the first ``real_rows`` rows (the
+        requests' own; the rest of the bucket is pad) feed the tracker, which
+        may swap the hot set or disable the split before this dispatch."""
+        if self._hotcold is None:
+            return None
+        tracking = self.serving_cfg.hotcold_refresh_interval > 0
+        if not self._hotcold_active:
+            if tracking:
+                self._track_direct(host, real_rows)
+            return None
+        split = self._hotcold.prepare(host, out=slot.split_np)
+        if tracking and self._track_hotcold(host, split, real_rows):
+            if not self._hotcold_active:
+                return None
+            split = self._hotcold.prepare(host, out=slot.split_np)  # against the new set
+        return split
+
+    def _track_hotcold(self, host: Batch, split: dict, real_rows: int) -> bool:
+        """Adaptive hot-set refresh: accumulate the live hit rate from the
+        split's hot mask and buffer the requests' rows; every
+        ``hotcold_refresh_interval`` tracked executions, scan for a better
+        hot set when the windowed coverage fell ``hotcold_refresh_margin``
+        below the reference (a refresh), or when the reference itself is
+        under ``hotcold_min_hit`` (an upgrade, backing off after failed
+        scans). Returns True when the hot set or the split's state changed
+        (the caller's split is stale). Serve thread only."""
+        cfg = self.serving_cfg
+        hm = np.asarray(split["hot_mask"])[:real_rows]
+        self._live_hot += int(hm.sum())
+        if host.mask is None:
+            self._live_total += int(hm.size)
+        else:
+            # The split zeroed hot_mask on invalid slots: only valid slots
+            # are lookups.
+            self._live_total += int(np.asarray(host.mask[:real_rows]).sum())
+        if self._refresh_buf is None:
+            self._refresh_buf = collections.deque(maxlen=max(cfg.hotcold_refresh_window, 1))
+        self._refresh_buf.append(self._buffered(host, real_rows))
+        # A finished worker scan applies on the next tracked execution.
+        changed = self._apply_scan_result()
+        self._tracked_since_check += 1
+        if self._tracked_since_check < cfg.hotcold_refresh_interval:
+            return changed
+        cov = self._live_hot / max(self._live_total, 1)
+        self.live_hot_coverage = cov
+        self._tracked_since_check = 0
+        self._live_hot = self._live_total = 0
+        ref = self.hot_coverage if self.hot_coverage is not None else 0.0
+        if cov >= ref - cfg.hotcold_refresh_margin:
+            # No degradation; a set that was never good is upgraded when a
+            # set from the live stream would cover more.
+            if ref >= self.model_cfg.hotcold_min_hit:
+                return changed
+            if self._upgrade_wait > 0:
+                self._upgrade_wait -= 1
+                return changed
+            res = self._scan("upgrade", cov)
+            if res is not None:  # sync mode: decided inline
+                changed = self._apply_upgrade(res, cov) or changed
+            return changed
+        res = self._scan("refresh", cov)
+        if res is not None:
+            changed = self._apply_refresh(res, cov) or changed
+        return changed
+
+    def _scan(self, kind: str, cov):
+        """Ask for a candidate scan. Sync (``hotcold_scan_async=False``):
+        computed inline, returns (new_hot, est_coverage). Async: a snapshot
+        of the buffer goes to the worker (one task in flight) and None
+        comes back; the result applies on a later tracked execution."""
+        if not self.serving_cfg.hotcold_scan_async:
+            return self._candidate_hot_ids()
+        if not self._scan_inflight:
+            old_hot = None if self._hotcold is None else np.asarray(self._hotcold.hot_ids)
+            k = 0 if old_hot is None else len(old_hot)
+            if self._scan_thread is None:
+                self._scan_thread = threading.Thread(
+                    target=self._scan_worker_loop, daemon=True,
+                    name=f"engine-{self.engine_id}-scan")
+                self._scan_thread.start()
+            self._scan_inflight = True
+            self._scan_req.put((kind, cov, list(self._refresh_buf), k, old_hot))
+        return None
+
+    def _scan_worker_loop(self):
+        """The scan worker: candidate ids and their HotIndex, host work
+        only (it launches nothing on the card)."""
+        while True:
+            task = self._scan_req.get()
+            if task is None:
+                return
+            kind, cov, batches, k, old_hot = task
+            try:
+                res = self._candidate_hot_ids_from(batches, k, old_hot)
+            except Exception as e:  # never kill the worker silently
+                print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} scan worker "
+                      f"failed ({e!r}); scan dropped", flush=True)
+                res = (None, None)
+            hot_index = None
+            if res[0] is not None:
+                try:
+                    from deeprecsys_tpu_torch.runtime.native import HotIndex
+
+                    hot_index = HotIndex(res[0])
+                except RuntimeError:
+                    pass
+            self._scan_res.put((kind, cov, res, hot_index))
+
+    def _apply_scan_result(self) -> bool:
+        """Apply a finished worker scan (serve thread). Returns True when
+        the split's state changed."""
+        try:
+            kind, cov, res, hot_index = self._scan_res.get_nowait()
+        except queue.Empty:
+            return False
+        self._scan_inflight = False
+        if kind == "upgrade":
+            changed = self._apply_upgrade(res, cov, hot_index=hot_index)
+        elif kind == "refresh":
+            changed = self._apply_refresh(res, cov, hot_index=hot_index)
+        else:
+            changed = self._apply_reenable(res, hot_index=hot_index)
+        if changed:
+            # Executions against the old set must not count in the new
+            # set's window: restart it at the swap.
+            self._live_hot = self._live_total = 0
+            self._tracked_since_check = 0
+        return changed
+
+    def _apply_upgrade(self, res, cov: float, hot_index=None) -> bool:
+        new_hot, cand = res
+        cfg = self.serving_cfg
+        ref = self.hot_coverage if self.hot_coverage is not None else 0.0
+        if new_hot is None or cand is None or cand < max(ref, cov) + cfg.hotcold_refresh_margin:
+            self._upgrade_backoff = min(max(self._upgrade_backoff, 1) * 2, 64)
+            self._upgrade_wait = self._upgrade_backoff
+            return False
+        self._upgrade_backoff = self._upgrade_wait = 0
+        self._install_hot_ids(new_hot, cand, hot_index=hot_index)
+        print(f"[deeprecsys_tpu_torch] engine {self.engine_id}: hot-set UPGRADE "
+              f"#{self.hot_refreshes} (live coverage {cov:.1%} -> candidate {cand:.1%})",
+              flush=True)
+        return True
+
+    @staticmethod
+    def _buffered(host: Batch, real_rows: int):
+        """A refresh-buffer entry: copies of the requests' ids and mask (the
+        staging slot they lie in is reused)."""
+        return (np.array(host.indices[:real_rows]),
+                None if host.mask is None else np.array(host.mask[:real_rows]))
+
+    def _candidate_hot_ids(self):
+        """(new_hot, est_coverage) from the buffered stream (sync mode)."""
+        return self._candidate_hot_ids_from(list(self._refresh_buf),
+                                            len(self._hotcold.hot_ids),
+                                            np.asarray(self._hotcold.hot_ids))
+
+    def _candidate_hot_ids_from(self, batches, k: int, old_hot):
+        """A candidate hot set of ``k`` ids selected on the buffered batches
+        but the last quarter (topped up to ``k`` with old ids still hot, so
+        the hot table keeps its shape), and its coverage on that held-out
+        quarter, both under ``hotcold_scan_budget``; (None, None) under two
+        batches. Reads only its arguments: safe on the worker."""
+        from deeprecsys_tpu_torch.ops.hotcold import (
+            hot_coverage_of, scan_budget_subsample, select_hot_ids)
+
+        if len(batches) < 2:
+            return None, None
+        offsets = np.asarray(self.model_cfg.table_offsets)
+        n_hold = max(1, len(batches) // 4)
+
+        def cat(entries):
+            idx = np.concatenate([e[0] for e in entries], axis=0)
+            if all(e[1] is None for e in entries):
+                return idx, None
+            mask = np.concatenate([np.ones(e[0].shape, dtype=bool) if e[1] is None else e[1]
+                                   for e in entries], axis=0)
+            return idx, mask
+
+        budget = self.serving_cfg.hotcold_scan_budget
+        sel_idx, sel_mask = cat(batches[:-n_hold])
+        hold_idx, hold_mask = cat(batches[-n_hold:])
+        select = scan_budget_subsample(sel_idx, budget)
+        holdout = scan_budget_subsample(hold_idx, budget)
+        if sel_mask is not None:
+            sel_mask = scan_budget_subsample(sel_mask, budget)
+        if hold_mask is not None:
+            hold_mask = scan_budget_subsample(hold_mask, budget)
+        new_hot = select_hot_ids(select, offsets, k, mask=sel_mask)
+        if len(new_hot) < k:
+            extra = np.setdiff1d(old_hot, new_hot)
+            new_hot = np.sort(np.concatenate([new_hot, extra[:k - len(new_hot)]]))
+        return new_hot, hot_coverage_of(holdout, offsets, new_hot, mask=hold_mask)
+
+    def _apply_refresh(self, res, live_cov: float, hot_index=None) -> bool:
+        """Live coverage fell: install the buffered stream's head, or,
+        where no candidate reaches ``hotcold_min_hit``, disable the split.
+        Returns True when the state changed."""
+        new_hot, new_cov = res
+        if new_cov is None:
+            return False  # too few buffered batches to estimate
+        if new_cov < self.model_cfg.hotcold_min_hit:
+            self._disable_hotcold(live_cov, new_cov)
+            return True
+        self._install_hot_ids(new_hot, new_cov, hot_index=hot_index)
+        print(f"[deeprecsys_tpu_torch] engine {self.engine_id}: hot-set refresh "
+              f"#{self.hot_refreshes} (live coverage {live_cov:.1%} -> buffered-stream "
+              f"coverage {new_cov:.1%}, {len(new_hot)} rows)", flush=True)
+        return True
+
+    def _install_hot_ids(self, new_hot, ref_cov: float, hot_index=None):
+        """Swap in a hot set: a new hot table gathered from the live table
+        on the engine's stream (executions in flight keep reading the old
+        one, which the stream's order keeps alive until they are done), and
+        the coverage reference re-based on the new set."""
+        from deeprecsys_tpu_torch.models.hotcold import with_hot_ids
+
+        hc = with_hot_ids(self._hotcold, new_hot, hot_index=hot_index)
+        self.params = hc.convert_params(
+            {k: v for k, v in self.params.items() if k != "hot_table"})
+        self._hotcold = hc
+        self.hot_coverage = ref_cov
+        self.hot_refreshes += 1
+
+    def _disable_hotcold(self, live_cov: float, cand_cov: float):
+        self._hotcold_active = False
+        self.hot_coverage = cand_cov
+        print(f"[deeprecsys_tpu_torch] engine {self.engine_id}: hot/cold split DISABLED "
+              f"(live coverage {live_cov:.1%}, best candidate {cand_cov:.1%} < min_hit "
+              f"{self.model_cfg.hotcold_min_hit:.0%}); serving the direct lookup, still "
+              f"watching the stream", flush=True)
+
+    def _track_direct(self, host: Batch, real_rows: int):
+        """The disabled split's watch: keep buffering, and every interval
+        estimate what a new hot set would cover (host work only)."""
+        self._refresh_buf.append(self._buffered(host, real_rows))
+        self._apply_scan_result()
+        self._tracked_since_check += 1
+        if self._tracked_since_check < self.serving_cfg.hotcold_refresh_interval:
+            return
+        self._tracked_since_check = 0
+        res = self._scan("reenable", None)
+        if res is not None:  # sync mode
+            self._apply_reenable(res)
+
+    def _apply_reenable(self, res, hot_index=None) -> bool:
+        new_hot, cov = res
+        if cov is not None:
+            self.live_hot_coverage = cov
+        # Hysteresis: re-enable needs min_hit + margin.
+        if cov is None or cov < (self.model_cfg.hotcold_min_hit
+                                 + self.serving_cfg.hotcold_refresh_margin):
+            return False
+        self._install_hot_ids(new_hot, cov, hot_index=hot_index)
+        self._hotcold_active = True
+        self._live_hot = self._live_total = 0
+        print(f"[deeprecsys_tpu_torch] engine {self.engine_id}: hot/cold split RE-ENABLED "
+              f"(candidate coverage {cov:.1%}, refresh #{self.hot_refreshes})", flush=True)
+        return True
 
     def _serve_loop(self):
         cfg = self.serving_cfg
@@ -446,7 +833,8 @@ class ComputeEngine(threading.Thread):
                 host = self._assemble_host(group, bucket, slot)
             else:
                 host = self._host_data[bucket]
-            event = self._dispatch(host, bucket, slot)
+            split = self._split(host, slot, min(sum(r.batch_size for r in group), bucket))
+            event = self._dispatch(host, bucket, slot, split)
             queue_end = time.time()
             self._pending.put((group, slot, bucket, event, queue_start, queue_end))
 

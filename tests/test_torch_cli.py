@@ -98,3 +98,29 @@ def test_queue_warns_of_several_engines_on_the_card(capsys):
 def test_queue_cpu_mp_backend_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11b"):
         main(QUEUE + ["--engine_backend", "cpu-mp"])
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_rowwise"])
+@pytest.mark.parametrize("impl", ["hotcold", "auto"])
+def test_queue_serves_hotcold_and_auto(impl, quant):
+    """--queue --embedding_impl hotcold|auto on the CPU: every query
+    answered without an error (auto at this size keeps the direct lookup:
+    the table is under --hotcold_min_table_mb; with the floor at 0 it
+    samples and splits)."""
+    from deeprecsys_tpu_torch.ops import hotcold as hc_ops
+
+    before = hc_ops._split_hot_cold_native.calls
+    extra = ["--hotcold_min_table_mb", "0"] if quant == "int8" else []
+    res = main(ARGS + ["--queue", "--engine_backend", "cpu", "--embedding_impl", impl,
+                       "--table_quant", quant, "--num_batches", "6",
+                       "--avg_arrival_rate", "1", "--hotcold_refresh_interval", "2"] + extra)
+    assert res.error_responses == 0 and res.num_responses == res.cpu_sub_requests > 0
+    split = impl == "hotcold" or quant == "int8"
+    assert (hc_ops._split_hot_cold_native.calls > before) == split
+
+
+def test_standalone_hotcold_raises_like_jax():
+    with pytest.raises(ValueError, match="a serving-engine path"):
+        main(ARGS + ["--device", "cpu", "--embedding_impl", "hotcold"])
+    res = main(ARGS + ["--device", "cpu", "--embedding_impl", "auto"])
+    assert res["forwards"] == 3

@@ -22,10 +22,12 @@ from deeprecsys_tpu_torch import config, zoo
 from deeprecsys_tpu_torch import main as port_main
 from deeprecsys_tpu_torch.data import criteo
 from deeprecsys_tpu_torch.serving import buckets, latency_model, load_generator, metrics, packets
-from deeprecsys_tpu_torch.utils import metrics_ml
+from deeprecsys_tpu_torch.utils import memory, metrics_ml
+from deeprecsys_tpu.utils import memory as jax_memory
 
 DERIVED = ("num_tables", "scaled_rows", "table_offsets", "total_rows", "resolved_table_pack",
-           "dense_dim", "num_fea", "top_in_dim", "ln_top", "out_dim", "behavior_table_ids")
+           "dense_dim", "num_fea", "top_in_dim", "ln_top", "out_dim", "behavior_table_ids",
+           "fused_table_mb", "hotcold_auto_excluded")
 
 
 def _assert_same_config(got, want):
@@ -203,7 +205,8 @@ def test_parser_defaults_equal_jax():
      "--numpy_rand_seed", "7", "--bucket_policy", "auto", "--max_auto_buckets", "4"],
     ["--model_accel", "--accel_request_size_thres", "300", "--tune_accel_qps",
      "--accel_configs", "200-400", "--coalesce_requests", "--max_coalesce", "3",
-     "--accept_ragged", "--hotcold_refresh_interval", "2",
+     "--accept_ragged", "--hotcold_refresh_interval", "2", "--hotcold_refresh_margin", "0.1",
+     "--hotcold_refresh_window", "5", "--hotcold_scan_budget", "300", "--hotcold_scan_sync",
      "--stable_region", "0.2", "--min_arr_range", "2",
      "--max_arr_range", "50", "--req_granularity", "16", "--nepochs", "3",
      "--num_batches", "11", "--max_mini_batch_size", "512", "--debug_mode",
@@ -357,3 +360,36 @@ def test_auc_equals_jax(seed):
     assert metrics_ml.auc(scores, labels) == jax_metrics_ml.auc(scores, labels)
     assert np.isnan(metrics_ml.auc(scores, np.zeros(500))) and np.isnan(
         jax_metrics_ml.auc(scores, np.zeros(500)))
+
+
+def test_native_runtime_source_is_a_byte_equal_copy():
+    """The port's native splitter is its own copy of the JAX package's C++
+    source, built into the port's own directory."""
+    from pathlib import Path
+
+    from deeprecsys_tpu_torch.runtime import native
+
+    root = Path(__file__).resolve().parents[1]
+    original = root / "deeprecsys_tpu" / "runtime" / "cpp" / "drs_runtime.cpp"
+    assert native.SRC == root / "deeprecsys_tpu_torch" / "runtime" / "cpp" / "drs_runtime.cpp"
+    assert native.SRC.read_bytes() == original.read_bytes()
+    assert native.BUILD_DIR == root / "build" / "native"
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_rowwise"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", jax_zoo.MODEL_NAMES)
+def test_memory_sizes_equal_jax(name, dtype, quant):
+    """model_memory_bytes, fits_hbm and suggest_hot_rows of the same config
+    in both packages; the 8 MB default keeps the JAX hot-set sizes (rm1
+    bf16: 131,072 rows, int8 262,144, int8_rowwise 233,016)."""
+    kw = dict(param_dtype=dtype, table_quant=quant)
+    cfg, jcfg = zoo.get_config(name, **kw), jax_zoo.get_config(name, **kw)
+    assert memory.model_memory_bytes(cfg) == jax_memory.model_memory_bytes(jcfg)
+    for hbm in (16 * 2**30, 80 * 2**30, 2**20):
+        assert memory.fits_hbm(cfg, hbm) == jax_memory.fits_hbm(jcfg, hbm)
+    assert memory.suggest_hot_rows(cfg) == jax_memory.suggest_hot_rows(jcfg)
+    assert memory.suggest_hot_rows(cfg, 1 << 16) == jax_memory.suggest_hot_rows(jcfg, 1 << 16)
+    if name == "rm1" and dtype == "bfloat16":
+        assert memory.suggest_hot_rows(cfg) == {"none": 131_072, "int8": 262_144,
+                                                "int8_rowwise": 233_016}[quant]

@@ -122,18 +122,22 @@ def test_port_init_shapes_and_range():
 
 
 def test_unported_paths_raise():
-    """Hot/cold serving is not ported (with float or int8 tables); int8
-    tables are (ROADMAP item 8): both inits serve through the model."""
+    """The model's own lookup refuses embedding_impl="hotcold", with float
+    or int8 tables, as the JAX package's does (a serving-engine path:
+    models/hotcold.py); "auto" takes the direct lookup. Both int8 inits
+    serve through the model."""
     cfg = _cfg()
     batch = RecDataGenerator(cfg, seed=1).generate_batch(2).to("cpu")
     table = torch.zeros((cfg.total_rows, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="a serving-engine path"):
         pooled_lookup(table, batch, cfg.replace(embedding_impl="hotcold"))
+    assert torch.equal(pooled_lookup(table, batch, cfg.replace(embedding_impl="auto")),
+                       pooled_lookup(table, batch, cfg))
     for quant, keys in (("int8", ["q", "scale"]), ("int8_rowwise", ["qrows"])):
         model = get_model(cfg.replace(table_quant=quant), "cpu")
         params = model.init(torch.Generator().manual_seed(0))
         assert sorted(params["tables"]) == keys
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="a serving-engine path"):
             pooled_lookup(params["tables"], batch, model.cfg.replace(embedding_impl="hotcold"))
         out = model.apply(params, batch)
         assert out.shape == (2, 1) and bool(((out >= 0) & (out <= 1)).all())

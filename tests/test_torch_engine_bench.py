@@ -60,3 +60,15 @@ def test_bench_runs_with_int8_tables_on_the_cpu(quant, tmp_path):
     out = json.loads((tmp_path / "eb.json").read_text())
     assert out["table_quant"] == quant
     assert [r["arm"] for r in out["rows_by_arm"]] == ["engine", "eager"]
+
+
+def test_bench_runs_hotcold_engines_on_the_cpu(tmp_path):
+    """--embedding_impl hotcold: the engine arm alone, its engines splitting
+    every request."""
+    engine_bench.main(["--table_scale", str(SCALE), "--executions", "6", "--engines", "1",
+                       "--device", "cpu", "--embedding_impl", "hotcold",
+                       "--json", str(tmp_path / "eb.json")])
+    out = json.loads((tmp_path / "eb.json").read_text())
+    assert out["embedding_impl"] == "hotcold"
+    assert [r["arm"] for r in out["rows_by_arm"]] == ["engine"]
+    assert out["rows_by_arm"][0]["executions"] == 6

@@ -1,0 +1,630 @@
+"""The port's hot/cold split against the JAX package's, on the CPU: the host
+ops (``ops/hotcold.py``: the split on its numpy and native paths, the
+hot-set choice, the coverage and the scan budget), the plain versions of K6
+(``ops/embedding.py``), ``models/hotcold.py`` for all eight zoo models in
+the three table layouts and ``experiments/skew_bench.py``, and a simulation
+of K6's index arithmetic (``utils/memory.py`` in ``test_torch_config.py``).
+
+Tolerances:
+- the split, the hot-set choice, the coverage and the ladders: equal
+  exactly (the same integer and numpy arithmetic);
+- K6's plain version, float tables: f32 rtol 1e-5 against JAX's hot/cold
+  op (the same sums in another order); per-table int8: bit for bit (exact
+  int32 sums, one f32 multiply, one rounding); row-wise: ``hotcold_tolerance``
+  (the same f32 products, another order of their sum);
+- K6's plain version against the port's direct lookup on the same ids:
+  ``pooled_tolerance``/``rowwise_tolerance``, int8 bit for bit (a hot/cold
+  split is an exact re-association of the direct sum);
+- models: f32 rtol and atol 1e-5 against JAX's hot/cold model; bf16 against
+  JAX's direct model at the zoo's limit (two bf16 ulps of the largest
+  output, ``chip_smoke.bf16_atol``): JAX's hot/cold pools in bf16 where the
+  port pools in f32 as its direct lookup does.
+"""
+
+import functools
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from deeprecsys_tpu import zoo as jax_zoo
+from deeprecsys_tpu.experiments import skew_bench as jax_skew
+from deeprecsys_tpu.models import get_model as jax_get_model
+from deeprecsys_tpu.models import hotcold as jax_hotcold
+from deeprecsys_tpu.models.base import Batch as JaxBatch
+from deeprecsys_tpu.ops import embedding as jax_emb
+from deeprecsys_tpu_torch import bridge, zoo
+from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.experiments import skew_bench
+from deeprecsys_tpu_torch.models import get_model, hotcold
+from deeprecsys_tpu_torch.models.base import Batch
+from deeprecsys_tpu_torch.ops import embedding as emb
+from deeprecsys_tpu_torch.ops import hotcold as ops_hc
+from deeprecsys_tpu_torch.runtime import native
+from tests.golden import make_torch_port_fixture as fixture
+
+SCALE = 2000
+QUANTS = ("none", "int8", "int8_rowwise")
+HOTCOLD_CU = (Path(__file__).resolve().parents[1] / "deeprecsys_tpu_torch" / "ops" / "csrc"
+              / "embedding_bag_hotcold.cu")
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _split_t(split: dict) -> dict:
+    return {k: _t(split[k]) for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}
+
+
+def _split_j(split: dict) -> dict:
+    return {k: jnp.asarray(split[k]) for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}
+
+
+def _stream(seed, B=6, T=3, L=5, rows=(50, 70, 30), alpha=1.3, masked=False):
+    rng = np.random.default_rng(seed)
+    rows = np.asarray(rows[:T] if len(rows) >= T else (rows * T)[:T], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int32)
+    idx = (rng.zipf(alpha, size=(B, T, L)) % rows[None, :, None]).astype(np.int32)
+    mask = rng.random((B, T, L)) < 0.7 if masked else None
+    return rows, offsets, idx, mask
+
+
+# ---------------------------------------------------------------- the split
+
+@pytest.mark.parametrize("with_index", [False, True])
+@pytest.mark.parametrize("pad", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("impl", ["numpy", "native"])
+@pytest.mark.parametrize("shape", [(6, 3, 5), (16, 8, 80), (1, 1, 1), (33, 4, 3)])
+def test_split_equals_jax_exactly(shape, impl, masked, pad, with_index):
+    """Every output of the port's split equals JAX's (its numpy path, the
+    definition), padded or not, masked or not, with or without a hash
+    index, on the port's numpy and native paths, and written into caller
+    buffers too."""
+    B, T, L = shape
+    rows, offsets, idx, mask = _stream(sum(shape), B, T, L, rows=(500, 70, 9000, 31),
+                                       masked=masked)
+    hot = jax_emb.select_hot_ids(idx, offsets, 37)
+    buckets = hotcold.cold_ladder(idx.size)
+    want = jax_emb.split_hot_cold(idx, offsets, hot, cold_buckets=buckets, impl="numpy",
+                                  pad=pad, slot_mask=mask)
+    index = native.HotIndex(hot) if with_index else None
+    n_cap = max(idx.size, max(buckets))
+    out = {"hot_sel": np.full(n_cap, -7, np.int32), "hot_mask": np.ones(n_cap, bool),
+           "cold_ids": np.full(n_cap, -7, np.int32), "cold_seg": np.full(n_cap, -7, np.int32)}
+    for o in (None, out):
+        got = ops_hc.split_hot_cold(idx, offsets, hot, cold_buckets=buckets, impl=impl, pad=pad,
+                                    slot_mask=mask, hot_index=index, out=o)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            if k == "n_cold":
+                assert got[k] == want[k]
+                continue
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            assert g.dtype == w.dtype and g.shape == w.shape, k
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_native_split_is_counted_and_refuses_a_stale_index():
+    _, offsets, idx, _ = _stream(1)
+    hot = jax_emb.select_hot_ids(idx, offsets, 5)
+    before = ops_hc._split_hot_cold_native.calls
+    ops_hc.split_hot_cold(idx, offsets, hot, impl="native")
+    ops_hc.split_hot_cold(idx, offsets, hot, impl="numpy")
+    assert ops_hc._split_hot_cold_native.calls == before + 1
+    assert native.native_available()
+    with pytest.raises(ValueError, match="stale index"):
+        ops_hc.split_hot_cold(idx, offsets, hot, impl="native",
+                              hot_index=native.HotIndex(hot[:-1]))
+
+
+def test_native_library_builds_into_the_checkout():
+    path = native.library_path()
+    assert native.get_lib() is not None and path.exists()
+    assert path.parent == Path(__file__).resolve().parents[1] / "build" / "native"
+    assert "deeprecsys_tpu" not in str(path.relative_to(path.parents[2]))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_native_cold_stream_is_sorted_and_matches_brute_force(seed):
+    """Fuzz (as tests/test_fuzz_parity.py): the native split's cold stream
+    holds exactly the misses, in order, with their bags; ``cold_seg`` is
+    non-decreasing with the pads (bag B*T) last, the order K6 relies on;
+    each hit maps back to its fused id."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(25):
+        T, L, B = int(rng.integers(1, 6)), int(rng.integers(1, 9)), int(rng.integers(1, 40))
+        rows = rng.integers(4, 60, size=T)
+        offsets = np.concatenate([[0], np.cumsum(rows)])[:-1]
+        idx = np.stack([rng.integers(0, rows[t], size=(B, L)) for t in range(T)],
+                       axis=1).astype(np.int32)
+        mask = rng.random(idx.shape) < 0.7 if rng.random() < 0.5 else None
+        k = int(rng.integers(0, int(rows.sum()) + 1))
+        hot = ops_hc.select_hot_ids(idx[: max(B // 2, 1)], offsets, k)
+        s = ops_hc.split_hot_cold(idx, offsets, hot, impl="native", slot_mask=mask,
+                                  cold_buckets=hotcold.cold_ladder(idx.size))
+        flat = (idx.astype(np.int64) + offsets[None, :, None]).reshape(-1)
+        valid = np.ones(flat.shape, bool) if mask is None else mask.reshape(-1)
+        in_hot = np.isin(flat, hot) & valid
+        np.testing.assert_array_equal(s["hot_mask"].reshape(-1), in_hot)
+        sel = s["hot_sel"].reshape(-1)
+        np.testing.assert_array_equal(hot[sel[in_hot]], flat[in_hot])
+        assert (sel[~in_hot] == 0).all()
+        cold = valid & ~in_hot
+        n = s["n_cold"]
+        assert n == int(cold.sum())
+        groups = np.arange(flat.size) // L
+        np.testing.assert_array_equal(s["cold_ids"][:n], flat[cold])
+        np.testing.assert_array_equal(s["cold_seg"][:n], groups[cold])
+        assert (np.diff(s["cold_seg"]) >= 0).all()
+        assert (s["cold_seg"][n:] == B * T).all() and (s["cold_ids"][n:] == 0).all()
+
+
+def test_pad_bucket_equals_jax():
+    for n in range(0, 70):
+        for buckets in (None, (8, 16, 64), (3,)):
+            for floor in (1, 8):
+                assert ops_hc._pad_bucket(n, buckets, floor) == \
+                    jax_emb._pad_bucket(n, buckets, floor)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [0, 1, 7, 60, 10_000])
+def test_select_hot_ids_and_coverage_equal_jax(k, masked):
+    _, offsets, idx, mask = _stream(k + 3, B=40, masked=masked)
+    got = ops_hc.select_hot_ids(idx, offsets, k, mask=mask)
+    want = jax_emb.select_hot_ids(idx, offsets, k, mask=mask)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    _, _, other, omask = _stream(k + 4, B=40, masked=masked)
+    assert ops_hc.hot_coverage_of(other, offsets, got, mask=omask) == \
+        jax_emb.hot_coverage_of(other, offsets, want, mask=omask)
+
+
+@pytest.mark.parametrize("budget", [0, -1, 1, 100, 2_000, 10**9])
+def test_scan_budget_subsample_equals_jax(budget):
+    arr = np.arange(37 * 3 * 5).reshape(37, 3, 5)
+    np.testing.assert_array_equal(ops_hc.scan_budget_subsample(arr, budget),
+                                  jax_emb.scan_budget_subsample(arr, budget))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 63, 640, 327_680, 655_361])
+def test_cold_ladder_equals_jax(n):
+    assert hotcold.cold_ladder(n) == jax_hotcold.cold_ladder(n)
+    assert hotcold.cold_buckets_for(n) == jax_hotcold.cold_buckets_for(n, None)
+
+
+def test_sharded_ladder_and_mesh_raise():
+    with pytest.raises(NotImplementedError, match="item 12"):
+        hotcold.cold_buckets_for(64, mesh=object())
+    model = get_model(zoo.get_config("ncf", table_scale=SCALE), "cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        hotcold.make_hotcold_model(model, np.arange(4), mesh=object())
+
+
+# ---------------------------------------------------------------- K6's plain versions
+
+def _tables(seed, R, d=32):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((R, d)).astype(np.float32)
+    q = rng.integers(-127, 127, (R, d), dtype=np.int8, endpoint=True)
+    row_scale = (rng.random(R, dtype=np.float32) * 1e-2 + 1e-4).astype(np.float32)
+    qrows = np.concatenate([q, row_scale.view(np.int8).reshape(R, 4)], axis=1)
+    return table, q, qrows
+
+
+def _hotcold_inputs(seed, k, masked, B=8, T=3, L=6):
+    """A zipf batch and its split over a hot set: the ``k`` most frequent
+    rows, every row (k = -1), rows the batch never reads (k = -2: all cold,
+    K > 0) or none (k = 0)."""
+    rows, offsets, idx, mask = _stream(seed, B, T, L, rows=(120, 80, 300), masked=masked)
+    flat = (idx.astype(np.int64) + offsets.astype(np.int64)[None, :, None]).reshape(-1)
+    if k == -1:
+        hot = np.arange(rows.sum(), dtype=np.int64)
+    elif k == -2:
+        hot = np.setdiff1d(np.arange(rows.sum(), dtype=np.int64), flat)[:50]
+    else:
+        hot = ops_hc.select_hot_ids(idx, offsets, k)
+    split = ops_hc.split_hot_cold(idx, offsets, hot, cold_buckets=hotcold.cold_ladder(idx.size),
+                                  slot_mask=mask)
+    scale = (np.random.default_rng(seed).random(T, dtype=np.float32) * 1e-2
+             + 1e-4).astype(np.float32)
+    return rows, offsets, idx, mask, hot, split, scale
+
+
+# The edges of JAX tests/test_ops.py:169-195: a hot set, every row hot, no
+# row of the batch hot; and K = 0, which JAX's op cannot take (jnp.take
+# from an empty hot table) and the port's checks against the direct lookup.
+EDGES = [30, -1, -2, 0]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", EDGES)
+def test_float_plain_version_matches_jax_and_direct(k, masked):
+    rows, offsets, idx, mask, hot, split, _ = _hotcold_inputs(k + 11, k, masked)
+    table, _, _ = _tables(1, int(rows.sum()))
+    ht = table[hot]
+    got = emb.embedding_bag_hotcold(_t(ht), _t(table), _split_t(split))
+    if len(hot):
+        want = np.asarray(jax_emb.embedding_bag_hotcold(jnp.asarray(ht), jnp.asarray(table),
+                                                        _split_j(split)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    direct = emb.embedding_bag(_t(table), _t(offsets), _t(idx), mask=_t(mask))
+    tol = emb.pooled_tolerance(got, direct, _t(table), _t(offsets), _t(idx), _t(mask))
+    assert bool(((got - direct).abs() <= tol).all())
+    if k in (0, -2):
+        assert split["n_cold"] == (idx.size if mask is None else int(mask.sum()))
+    if k == -1:
+        assert split["n_cold"] == 0
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", EDGES)
+def test_int8_plain_version_equals_jax_bitwise(k, masked, cdt):
+    rows, offsets, idx, mask, hot, split, scale = _hotcold_inputs(k + 21, k, masked)
+    _, q, _ = _tables(2, int(rows.sum()))
+    got = emb.embedding_bag_hotcold_int8(_t(q[hot]), _t(q), _t(scale), _split_t(split),
+                                         compute_dtype=cdt)
+    jdt = jnp.float32 if cdt == torch.float32 else jnp.bfloat16
+    assert got.dtype == cdt
+    if len(hot):
+        want = jax_emb.embedding_bag_hotcold_int8(jnp.asarray(q[hot]), jnp.asarray(q),
+                                                  jnp.asarray(scale), _split_j(split),
+                                                  compute_dtype=jdt)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+    direct = emb.embedding_bag_int8(_t(q), _t(scale), _t(offsets), _t(idx), compute_dtype=cdt,
+                                    mask=_t(mask))
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", EDGES)
+def test_rowwise_plain_version_matches_jax(k, masked, cdt):
+    rows, offsets, idx, mask, hot, split, _ = _hotcold_inputs(k + 31, k, masked)
+    _, _, qrows = _tables(3, int(rows.sum()))
+    hq, sp = _t(qrows[hot]), _split_t(split)
+    got = emb.embedding_bag_hotcold_int8_rowwise(hq, _t(qrows), sp, compute_dtype=cdt)
+    jdt = jnp.float32 if cdt == torch.float32 else jnp.bfloat16
+    assert got.dtype == cdt
+    if len(hot):
+        want = jax_emb.embedding_bag_hotcold_int8_rowwise(jnp.asarray(qrows[hot]),
+                                                          jnp.asarray(qrows), _split_j(split),
+                                                          compute_dtype=jdt)
+        want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(cdt)
+        tol = emb.hotcold_tolerance(got, want, hq, _t(qrows), sp, rowwise=True)
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+    direct = emb.embedding_bag_int8_rowwise(_t(qrows), _t(offsets), _t(idx), compute_dtype=cdt,
+                                            mask=_t(mask))
+    tol = emb.rowwise_tolerance(got, direct, _t(qrows), _t(offsets), _t(idx), _t(mask))
+    assert bool(((got.float() - direct.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_cpu_wrappers_take_the_plain_path(quant):
+    rows, offsets, idx, mask, hot, split, scale = _hotcold_inputs(5, 30, True)
+    table, q, qrows = _tables(4, int(rows.sum()))
+    sp = _split_t(split)
+    wrapper = {"none": emb.embedding_bag_hotcold, "int8": emb.embedding_bag_hotcold_int8,
+               "int8_rowwise": emb.embedding_bag_hotcold_int8_rowwise}[quant]
+    wrapper.kernel_launches = 0
+    if quant == "none":
+        got = wrapper(_t(table[hot]), _t(table), sp)
+        want = emb.embedding_bag_hotcold_reference(_t(table[hot]), _t(table), sp)
+    elif quant == "int8":
+        got = wrapper(_t(q[hot]), _t(q), _t(scale), sp)
+        want = emb.embedding_bag_hotcold_int8_reference(_t(q[hot]), _t(q), _t(scale), sp)
+    else:
+        got = wrapper(_t(qrows[hot]), _t(qrows), sp)
+        want = emb.embedding_bag_hotcold_int8_rowwise_reference(_t(qrows[hot]), _t(qrows), sp)
+    assert wrapper.kernel_launches == 0 and torch.equal(got, want)
+
+
+def test_wrappers_reject_what_k6_does_not_take():
+    rows, offsets, idx, mask, hot, split, scale = _hotcold_inputs(6, 30, False)
+    table, q, qrows = _tables(5, int(rows.sum()))
+    t, ht, sp = _t(table), _t(table[hot]), _split_t(split)
+    with pytest.raises(NotImplementedError, match="packed"):
+        emb.embedding_bag_hotcold(ht, t, sp, pack=2)
+    with pytest.raises(NotImplementedError, match="packed"):
+        emb.embedding_bag_hotcold_int8(_t(q[hot]), _t(q), _t(scale), sp, pack=4)
+    with pytest.raises(TypeError, match="hot_sel"):
+        emb.embedding_bag_hotcold(ht, t, {**sp, "hot_sel": sp["hot_sel"].long()})
+    with pytest.raises(TypeError, match="hot_mask"):
+        emb.embedding_bag_hotcold(ht, t, {**sp, "hot_mask": sp["hot_mask"].to(torch.uint8)})
+    with pytest.raises(TypeError, match="cold_ids"):
+        emb.embedding_bag_hotcold(ht, t, {**sp, "cold_seg": sp["cold_seg"][:-1]})
+    with pytest.raises(ValueError, match="hot table"):
+        emb.embedding_bag_hotcold(ht.bfloat16(), t, sp)
+    with pytest.raises(ValueError, match=r"d in \(32, 64\)"):
+        emb.embedding_bag_hotcold(ht[:, :16], t[:, :16].contiguous(), sp)
+    with pytest.raises(ValueError, match="contiguous"):
+        emb.embedding_bag_hotcold(ht.t().contiguous().t(), t, sp)
+    with pytest.raises(TypeError, match="scale"):
+        emb.embedding_bag_hotcold_int8(_t(q[hot]), _t(q), _t(scale)[:1], sp)
+    with pytest.raises(TypeError, match="int8"):
+        emb.embedding_bag_hotcold_int8_rowwise(ht, t, sp)
+    with pytest.raises(ValueError, match=r"w in \(36, 68\)"):
+        emb.embedding_bag_hotcold_int8_rowwise(_t(q[hot]), _t(q), sp)
+
+
+# ---------------------------------------------------------------- K6's index arithmetic
+
+def _lower_bounds(seg: np.ndarray, key: int) -> int:
+    """``lower_bounds`` of embedding_bag_hotcold.cu for one half-warp."""
+    lo, hi = 0, len(seg)
+    while hi > lo:
+        length = hi - lo
+        stride = -(-length // 16) if length > 16 else 1
+        below = [lo + (j + 1) * stride - 1 < hi and seg[lo + (j + 1) * stride - 1] < key
+                 for j in range(16)]
+        c = sum(below)
+        assert all(below[:c]) and not any(below[c:])  # a prefix
+        probe_c = lo + (c + 1) * stride - 1
+        hi = probe_c if c < 16 and probe_c < hi else hi
+        lo = min(lo + c * stride, hi)
+    return lo
+
+
+def _simulate_k6(plan, geo, n_bags, L, hot_mask, seg):
+    """The rows K6 reads under ``plan``: (hot reads a hot slot, cold reads a
+    cold entry, cold reads by slots past the last bag, which store nothing)."""
+    hot_reads = np.zeros(hot_mask.size, int)
+    cold_reads = np.zeros(seg.size, int)
+    stray = 0
+    warps = emb.K6_WARPS_PER_BLOCK * plan.grid
+    tasks = -(-n_bags // plan.bags_per_warp)
+    by_warp = [list(range(w, tasks, warps)) for w in range(warps)]
+    assert sorted(t for ts in by_warp for t in ts) == list(range(tasks))
+    if plan.rows_per_slot == 0:  # a warp a bag
+        for bag in range(n_bags):
+            for c0 in range(0, L, geo.chunk):
+                for u in range(geo.rows_per_slot):
+                    for slot in range(geo.slots):
+                        lane = u * geo.slots + slot  # the lane whose id the slot takes
+                        assert lane < 32
+                        at = c0 + lane
+                        if lane < geo.chunk and at < L and hot_mask[bag * L + at]:
+                            hot_reads[bag * L + at] += 1
+            lo, hi = _lower_bounds(seg, bag), _lower_bounds(seg, bag + 1)
+            assert (lo, hi) == tuple(np.searchsorted(seg, [bag, bag + 1]))
+            for c0 in range(lo, hi, geo.chunk):
+                for lane in range(geo.chunk):
+                    if c0 + lane < hi:
+                        assert seg[c0 + lane] == bag
+                        cold_reads[c0 + lane] += 1
+        return hot_reads, cold_reads, stray
+    S, UB = geo.slots, plan.rows_per_slot  # a slot a bag
+    assert plan.bags_per_warp == S and L <= UB and S * UB <= 128
+    for task in range(tasks):
+        bag0 = task * S
+        window = min(S, n_bags - bag0) * L
+        for slot in range(S):
+            for u in range(UB):
+                k = slot * L + u
+                if u < L and k < window and hot_mask[bag0 * L + k]:
+                    hot_reads[bag0 * L + k] += 1
+        lo = _lower_bounds(seg, bag0)
+        at = np.arange(lo, min(lo + S * UB, seg.size))
+        offs = np.minimum(seg[at] - bag0, S)
+        # Every cold lookup of the task's bags lies in the window.
+        mine = (seg >= bag0) & (seg < min(bag0 + S, n_bags))
+        assert not (mine & (np.arange(seg.size) >= lo + at.size)).any()
+        for slot in range(S):
+            first, last = int((offs < slot).sum()), int((offs < slot + 1).sum())
+            for u in range(UB):
+                if first + u < last:
+                    assert seg[lo + first + u] == bag0 + slot
+                    if bag0 + slot < n_bags:
+                        cold_reads[lo + first + u] += 1
+                    else:
+                        stray += 1
+    return hot_reads, cold_reads, stray
+
+
+@pytest.mark.parametrize("mode,itemsize", [("float", 2), ("float", 4), ("int8", 1),
+                                           ("int8_rowwise", 1)])
+@pytest.mark.parametrize("d", [32, 64])
+def test_k6_index_arithmetic_covers_every_slot_once(mode, itemsize, d):
+    """A simulation of K6's mappings over the plans the wrapper picks
+    (``k6_geometry``, ``k6_launch_plan``): every task is one warp's exactly
+    once; every hot hit is read once, by its bag; every cold lookup once,
+    by its bag (a warp a bag: its range from the 16-ary search, equal to
+    ``np.searchsorted``; a slot a bag: its part of the window of the first
+    bag's lower bound); a pad by no bag that is stored; a step's rows stay
+    within the 32 lanes."""
+    geo = emb.k6_geometry(mode, d, itemsize)
+    assert geo.lanes_per_row * geo.slots == 32 and geo.chunk <= 32
+    plans = set()
+    for B, T, L, k in [(1, 1, 1, 0), (7, 3, 5, 20), (33, 5, 80, 200), (3, 2, 120, 1000),
+                       (9, 4, 3, -1), (5, 7, 2, 30), (11, 3, 8, 9), (13, 2, 9, 0),
+                       (40, 1, 1, 5), (21, 5, 4, 0)]:
+        rows, offsets, idx, mask = _stream(B * L + k, B, T, L, rows=(120, 80, 300, 40, 77, 5, 9),
+                                           masked=bool(k % 2))
+        hot = (np.arange(rows.sum(), dtype=np.int64) if k < 0
+               else ops_hc.select_hot_ids(idx, offsets, k))
+        s = ops_hc.split_hot_cold(idx, offsets, hot, cold_buckets=hotcold.cold_ladder(idx.size),
+                                  slot_mask=mask)
+        plan = emb.k6_launch_plan(B * T, L, geo)
+        plans.add(plan.rows_per_slot)
+        hot_mask = s["hot_mask"].reshape(-1)
+        hot_reads, cold_reads, _ = _simulate_k6(plan, geo, B * T, L, hot_mask, s["cold_seg"])
+        np.testing.assert_array_equal(hot_reads, hot_mask.astype(int))
+        n = s["n_cold"]
+        assert (cold_reads[:n] == 1).all() and (cold_reads[n:] == 0).all()
+    assert plans == {0, 1, 2, 4, 8}
+
+
+def test_k6_geometry_mirrors_the_source():
+    src = HOTCOLD_CU.read_text()
+    assert re.search(rf"kWarpsPerBlock = {emb.K6_WARPS_PER_BLOCK};", src)
+    assert "kLoad = M == kRowwise ? 4 : 16;" in src
+    assert "kMaxU = M == kRowwise ? 8 : 4;" in src
+    assert "U = 32 / S < kMaxU ? 32 / S : kMaxU;" in src
+    modes = re.findall(r"enum Mode \{ kFloat = (\d), kInt8 = (\d), kRowwise = (\d) \}", src)
+    assert modes == [tuple(str(emb._K6_MODES[m]) for m in ("float", "int8", "int8_rowwise"))]
+    assert emb.k6_geometry("float", 32, 2) == emb.K6Geometry(4, 8, 4)
+    assert emb.k6_geometry("int8", 32, 1) == emb.K6Geometry(2, 16, 2)
+    assert emb.k6_geometry("int8_rowwise", 32, 1) == emb.K6Geometry(8, 4, 8)
+    for u in (0, 1, 2, 4, 8):
+        assert f"case {u}: return launch<M, TIn, TC, D, {u}>(a);" in src
+
+
+# ---------------------------------------------------------------- models
+
+def _cfgs(name, dtype, quant, **kw):
+    args = dict(table_scale=SCALE, param_dtype=dtype, compute_dtype=dtype, table_quant=quant,
+                **kw)
+    return zoo.get_config(name, **args), jax_zoo.get_config(name, **args)
+
+
+@functools.cache
+def _model_case(name: str, quant: str):
+    """Weights (``bridge.init_numpy``, f32 and bf16), a batch, a zipf batch
+    and its hot set, shared by the model tests."""
+    cfg, _ = _cfgs(name, "float32", quant)
+    batch = RecDataGenerator(cfg, seed=1).generate_batch(fixture.ZOO_BATCH)
+    idx = skew_bench.zipf_stream(cfg, fixture.ZOO_BATCH, seed=2)
+    hot = ops_hc.select_hot_ids(idx, cfg.table_offsets, max(1, cfg.total_rows // 4))
+    return batch, idx, hot
+
+
+def _forward_pair(name, dtype, quant):
+    cfg, jcfg = _cfgs(name, dtype, quant)
+    batch, idx, hot = _model_case(name, quant)
+    np_params = bridge.init_numpy(cfg, fixture.WEIGHT_SEED)
+    jp = fixture._jax_params(np_params)
+    model = get_model(cfg, "cpu")
+    hc = hotcold.make_hotcold_model(model, hot)
+    params = hc.convert_params(bridge.params_from_numpy(np_params, cfg, "cpu"))
+    host = Batch(batch.dense, idx)
+    split = hc.prepare(host)
+    with torch.inference_mode():
+        got = hc.apply(params, host.to("cpu"), _split_t(split)).float().numpy()
+    jmodel = jax_get_model(jcfg)
+    return cfg, jcfg, jmodel, jp, hot, host, split, got
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("name", zoo.MODEL_NAMES)
+def test_hotcold_model_matches_jax_f32(name, quant):
+    """The port's hot/cold model against JAX's on the same weights, hot set
+    and zipf batch, in f32; the split the same arrays."""
+    cfg, jcfg, jmodel, jp, hot, host, split, got = _forward_pair(name, "float32", quant)
+    jhc = jax_hotcold.make_hotcold_model(jmodel, hot)
+    jsplit = jhc.prepare(JaxBatch(host.dense, host.indices))
+    for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg", "n_cold"):
+        np.testing.assert_array_equal(np.asarray(split[k]), np.asarray(jsplit[k]), err_msg=k)
+    want = np.asarray(jhc.apply(jhc.convert_params(jax.tree_util.tree_map(jnp.asarray, jp)),
+                                JaxBatch(host.dense, jnp.asarray(host.indices)),
+                                _split_j(jsplit)), dtype=np.float32)
+    assert got.shape == want.shape == (fixture.ZOO_BATCH, cfg.out_dim)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("name", zoo.MODEL_NAMES)
+def test_hotcold_model_bf16_matches_jax_direct(name, quant):
+    """In bf16 the port's hot/cold model pools as its direct lookup does (f32
+    sums of bf16 rows), so it is held to JAX's direct model at the zoo's
+    bf16 limit."""
+    cfg, jcfg, jmodel, jp, hot, host, split, got = _forward_pair(name, "bfloat16", quant)
+    want = np.asarray(jax.jit(jmodel.apply)(jp, JaxBatch(host.dense, host.indices))
+                      .astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=0, atol=chip_smoke.bf16_atol(want))
+
+
+@pytest.mark.parametrize("name", zoo.MODEL_NAMES)
+def test_hot_ids_and_coverage_from_generator_equal_jax(name):
+    cfg, jcfg = _cfgs(name, "float32", "none")
+    for rows, n in ((64, 4), (1 << 20, 8)):
+        got = hotcold.hot_ids_and_coverage_from_generator(cfg, 31, rows, n_batches=n,
+                                                          batch_size=64)
+        want = jax_hotcold.hot_ids_and_coverage_from_generator(jcfg, 31, rows, n_batches=n,
+                                                               batch_size=64)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    np.testing.assert_array_equal(hotcold.hot_ids_from_generator(cfg, 3, 10, n_batches=2),
+                                  jax_hotcold.hot_ids_from_generator(jcfg, 3, 10, n_batches=2))
+
+
+def test_coverage_is_estimated_out_of_sample():
+    """JAX tests/test_serving.py:1162: a budget past the sample's distinct
+    ids reads in-sample 1.0 on a uniform stream; out of sample it does not."""
+    hot, cov = hotcold.hot_ids_and_coverage_from_generator(
+        zoo.get_config("ncf", table_scale=10), seed=31, hot_rows=16384)
+    assert len(hot) < 16384 and cov < 0.5
+    _, cov_all = hotcold.hot_ids_and_coverage_from_generator(
+        zoo.get_config("rm1", table_scale=2000), seed=31, hot_rows=65536)
+    assert cov_all > 0.9
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_masked_hotcold_matches_masked_direct(quant):
+    """JAX tests/test_ops.py:488: the hot/cold model on a ragged batch (the
+    mask consumed by the host split) equals the direct model's masked
+    forward."""
+    cfg, _ = _cfgs("rm1", "float32", quant)
+    rng = np.random.default_rng(7)
+    batch = RecDataGenerator(cfg, seed=3).generate_batch(8)
+    lengths = rng.integers(0, cfg.num_indices_per_lookup + 1, size=(8, cfg.num_tables))
+    mask = np.arange(cfg.num_indices_per_lookup)[None, None, :] < lengths[:, :, None]
+    model = get_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    hot = ops_hc.select_hot_ids(batch.indices, cfg.table_offsets, 500)
+    hc = hotcold.make_hotcold_model(model, hot)
+    host = Batch(batch.dense, batch.indices, mask)
+    split = hc.prepare(host)
+    with torch.inference_mode():
+        got = hc.apply(hc.convert_params(params), Batch(batch.dense, batch.indices).to("cpu"),
+                       _split_t(split))
+        want = model.apply(params, host.to("cpu"))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_hot_table_is_a_new_tensor_and_with_hot_ids_keeps_apply():
+    cfg, _ = _cfgs("rm1", "float32", "none")
+    model = get_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    hc = hotcold.make_hotcold_model(model, np.array([0, 5, 9], dtype=np.int64))
+    p1 = hc.convert_params(params)
+    assert p1["tables"] is params["tables"] and "hot_table" not in params
+    torch.testing.assert_close(p1["hot_table"], params["tables"][[0, 5, 9]])
+    assert p1["hot_table"].data_ptr() != params["tables"].data_ptr()
+    hc2 = hotcold.with_hot_ids(hc, np.array([1, 2], dtype=np.int64))
+    assert hc2.apply is hc.apply and list(hc2.hot_ids) == [1, 2]
+    p2 = hc2.convert_params({k: v for k, v in p1.items() if k != "hot_table"})
+    torch.testing.assert_close(p2["hot_table"], params["tables"][[1, 2]])
+    torch.testing.assert_close(p1["hot_table"], params["tables"][[0, 5, 9]])  # untouched
+
+
+# ---------------------------------------------------------------- skew_bench
+
+@pytest.mark.parametrize("name", ["rm1", "ncf", "din"])
+def test_skew_streams_and_auto_decision_equal_jax(name):
+    for scale in (SCALE, 1):
+        cfg = zoo.get_config(name, table_scale=scale, param_dtype="bfloat16")
+        jcfg = jax_zoo.get_config(name, table_scale=scale, param_dtype="bfloat16")
+        idx = skew_bench.zipf_stream(cfg, 16)
+        np.testing.assert_array_equal(idx, jax_skew.zipf_stream(jcfg, 16))
+        np.testing.assert_array_equal(skew_bench.drifted_zipf_stream(cfg, 16),
+                                      jax_skew.drifted_zipf_stream(jcfg, 16))
+        hot, cov = skew_bench._hot_set(cfg, idx)
+        jhot, jcov = jax_skew._hot_set(jcfg, idx)
+        np.testing.assert_array_equal(hot, jhot)
+        assert cov == jcov == skew_bench.stream_coverage(cfg, idx, hot)
+        got, want = skew_bench.resolve_auto_impl(cfg, idx), jax_skew.resolve_auto_impl(jcfg, idx)
+        assert got[0] == want[0] and got[2] == want[2]
+
+
+def test_measure_skewed_needs_a_card():
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        skew_bench.measure_skewed("rm1", "cpu", table_scale=SCALE)

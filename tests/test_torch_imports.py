@@ -20,6 +20,13 @@ MODULES = [
     "deeprecsys_tpu_torch.main",
     "deeprecsys_tpu_torch.kernel_bench",
     "deeprecsys_tpu_torch.engine_bench",
+    "deeprecsys_tpu_torch.experiments",
+    "deeprecsys_tpu_torch.experiments.skew_bench",
+    "deeprecsys_tpu_torch.runtime",
+    "deeprecsys_tpu_torch.runtime.native",
+    "deeprecsys_tpu_torch.utils.memory",
+    "deeprecsys_tpu_torch.models.hotcold",
+    "deeprecsys_tpu_torch.ops.hotcold",
     "deeprecsys_tpu_torch.data",
     "deeprecsys_tpu_torch.data.generator",
     "deeprecsys_tpu_torch.data.criteo",

@@ -1,5 +1,6 @@
-"""K1, K3, the int8 lookups K1-int8 and K4, and the training kernels K1b,
-K5 and K3b against their plain versions on a CUDA card.
+"""K1, K3, the int8 lookups K1-int8 and K4, the training kernels K1b, K5
+and K3b, and the hot/cold lookup K6 against their plain versions on a CUDA
+card.
 
 These tests need a card; without one they skip. The file imports no JAX,
 so it runs where only torch is installed (``--noconftest`` skips
@@ -27,7 +28,13 @@ Tolerances:
 - K3b: the reverse scan in f32 against its plain loop, each with its own
   order of the 64-term dot, carried over T steps: within 1e-5 of the
   largest |delta| (``RNN_BACKWARD_RTOL``; chip_smoke.py measures it).
+- K6: per-table int8 bit for bit against its plain version and K1-int8 on
+  the same ids; float and row-wise within ``hotcold_tolerance`` of the
+  plain version and ``pooled_tolerance``/``rowwise_tolerance`` of K1/K4
+  (the same rows, summed in another f32 order).
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -394,3 +401,109 @@ def test_rnn_scan_autograd_launches_k3b(cuda):
     (ref_h.square().sum() + ref_last.sum()).backward()
     torch.testing.assert_close(xproj.grad.cpu(), x2.grad, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(w.grad.cpu(), w2.grad, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- K6 (hot/cold)
+
+def _hotcold_case(cuda, layout, d, B, T, L, k, masked, seed, rows=300):
+    """Tables of ``layout`` (T tables of ``rows`` rows), zipf(1.2) ids, the
+    ``k`` most frequent rows as the hot set (k = -1: every row), the split
+    (native, padded to the cold ladder) on the card; ``(tables, hot,
+    offsets, indices, mask, split)``."""
+    from deeprecsys_tpu_torch.kernel_bench import random_int8_tables
+    from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
+    from deeprecsys_tpu_torch.ops.hotcold import select_hot_ids, split_hot_cold
+
+    rng = np.random.default_rng(seed)
+    idx = (rng.zipf(1.2, size=(B, T, L)) % rows).astype(np.int32)
+    offsets = np.arange(T, dtype=np.int64) * rows
+    mask = rng.random((B, T, L)) < 0.6 if masked else None
+    hot_ids = (np.arange(T * rows, dtype=np.int64) if k < 0
+               else select_hot_ids(idx, offsets, k))
+    split = split_hot_cold(idx, offsets, hot_ids, cold_buckets=cold_buckets_for(B * T * L),
+                           impl="native", slot_mask=mask)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if layout in ("int8", "int8_rowwise"):
+        shape = types.SimpleNamespace(total_rows=T * rows, num_tables=T, sparse_feature_size=d)
+        t = random_int8_tables(shape, g, cuda)
+        tables = {"q": t["q"], "scale": t["scale"]} if layout == "int8" else {"qrows": t["qrows"]}
+    else:
+        tables = torch.randn((T * rows, d), generator=g, device=cuda).to(layout)
+    rows_t = tables if not isinstance(tables, dict) else tables.get("q", tables.get("qrows"))
+    hot = rows_t.index_select(0, torch.as_tensor(hot_ids, device=cuda))
+    dev_split = {k2: torch.from_numpy(np.ascontiguousarray(split[k2])).to(cuda)
+                 for k2 in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}
+    return (tables, hot, torch.as_tensor(offsets, dtype=torch.int32, device=cuda),
+            torch.from_numpy(idx).to(cuda), None if mask is None else torch.from_numpy(mask).to(cuda),
+            dev_split)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [40, -1, 0])  # a hot set, every row hot, K = 0 (all cold)
+@pytest.mark.parametrize("B,T,L", [(1, 1, 1), (7, 3, 5), (33, 5, 80), (3, 2, 120)])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("layout,cdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), ("int8", torch.bfloat16), ("int8", torch.float32),
+    ("int8_rowwise", torch.bfloat16), ("int8_rowwise", torch.float32)])
+def test_hotcold_kernel_matches_plain_and_direct(cuda, layout, cdt, d, B, T, L, k, masked):
+    """K6 against its plain version and against the direct kernel (K1,
+    K1-int8, K4) on the same ids: per-table int8 bit for bit, float and
+    row-wise within the order of their f32 sums."""
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference,
+        embedding_bag_hotcold_int8_rowwise, embedding_bag_hotcold_int8_rowwise_reference,
+        embedding_bag_hotcold_reference)
+    from deeprecsys_tpu_torch.ops.embedding import hotcold_tolerance
+
+    tables, hot, offsets, idx, mask, split = _hotcold_case(cuda, layout, d, B, T, L, k, masked,
+                                                           seed=B * 7 + L)
+    if layout == "int8":
+        wrapper = embedding_bag_hotcold_int8
+        before = wrapper.kernel_launches
+        got = wrapper(hot, tables["q"], tables["scale"], split, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        want = embedding_bag_hotcold_int8_reference(hot, tables["q"], tables["scale"], split,
+                                                    compute_dtype=cdt)
+        direct = embedding_bag_int8(tables["q"], tables["scale"], offsets, idx,
+                                    compute_dtype=cdt, mask=mask)
+        assert torch.equal(got, want) and torch.equal(got, direct)
+    elif layout == "int8_rowwise":
+        wrapper = embedding_bag_hotcold_int8_rowwise
+        before = wrapper.kernel_launches
+        got = wrapper(hot, tables["qrows"], split, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        want = embedding_bag_hotcold_int8_rowwise_reference(hot, tables["qrows"], split,
+                                                            compute_dtype=cdt)
+        tol = hotcold_tolerance(got, want, hot, tables["qrows"], split, rowwise=True)
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+        direct = embedding_bag_int8_rowwise(tables["qrows"], offsets, idx, compute_dtype=cdt,
+                                            mask=mask)
+        tol = rowwise_tolerance(got, direct, tables["qrows"], offsets, idx, mask)
+        assert bool(((got.float() - direct.float()).abs() <= tol).all())
+    else:
+        wrapper = embedding_bag_hotcold
+        before = wrapper.kernel_launches
+        got = wrapper(hot, tables, split, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        want = embedding_bag_hotcold_reference(hot, tables, split, compute_dtype=cdt)
+        tol = hotcold_tolerance(got, want, hot, tables, split)
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+        direct = embedding_bag(tables, offsets, idx, compute_dtype=cdt, mask=mask)
+        tol = pooled_tolerance(got, direct, tables, offsets, idx, mask)
+        assert bool(((got.float() - direct.float()).abs() <= tol).all())
+    assert wrapper.kernel_launches == before + 1
+    assert got.dtype == cdt and got.shape == (B, T, d)
+
+
+def test_hotcold_kernel_rejects_misaligned_tables(cuda):
+    from deeprecsys_tpu_torch.ops import embedding_bag_hotcold, embedding_bag_hotcold_int8_rowwise
+
+    tables, hot, _, _, _, split = _hotcold_case(cuda, torch.bfloat16, 32, 4, 2, 3, 10, False, 1)
+    base = torch.zeros((tables.numel() + 4,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        embedding_bag_hotcold(hot, base[4:].view(tables.shape), split)
+    tables, hot, _, _, _, split = _hotcold_case(cuda, "int8_rowwise", 32, 4, 2, 3, 10, False, 1)
+    base = torch.zeros((tables["qrows"].numel() + 2,), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        embedding_bag_hotcold_int8_rowwise(hot, base[2:].view(tables["qrows"].shape), split)

@@ -15,6 +15,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from deeprecsys_tpu import zoo as jax_zoo
 from deeprecsys_tpu.config import ServingConfig as JaxServingConfig
@@ -332,19 +333,37 @@ def test_gpu_engine_raises_without_a_card():
         serving.run_serving(cfg, ServingConfig(engine_backend="gpu"), settle_s=0.01)
 
 
-@pytest.mark.parametrize("what,kw", [
-    ("mesh", {"mesh": object()}), ("arena", {"arena": object()}),
-    ("hotcold", {"model_cfg": "hotcold"}), ("refresh", {"refresh": 4})])
+@pytest.mark.parametrize("what,kw", [("mesh", {"mesh": object()}), ("arena", {"arena": object()})])
 def test_engine_paths_not_ported_raise(what, kw):
     cfg = zoo.get_config("ncf", table_scale=SCALE)
     scfg = ServingConfig(engine_backend="cpu")
-    if kw.pop("model_cfg", None):
-        cfg = cfg.replace(embedding_impl="hotcold")
-    if "refresh" in kw:
-        scfg = ServingConfig(engine_backend="cpu", hotcold_refresh_interval=kw.pop("refresh"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         engine.ComputeEngine(0, cfg, scfg, *(queue.Queue() for _ in range(3)),
                              device="cpu", **kw)
+
+
+@pytest.mark.parametrize("what", ["hotcold", "refresh"])
+def test_engine_hotcold_paths_serve(what):
+    """The two paths the port once refused: a hot/cold engine, and one with
+    refresh tracking, serve load-modeling requests (JAX
+    tests/test_serving.py:554) and keep checkpoint reload refused (item
+    11b)."""
+    cfg = zoo.get_config("ncf", table_scale=SCALE, embedding_impl="hotcold", hot_set_rows=32)
+    scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8, 16), max_mini_batch_size=16,
+                         hotcold_refresh_interval=4 if what == "refresh" else 0)
+    eng, got = _run_engine(engine.ComputeEngine, cfg, scfg, [
+        packets.ServiceRequest(batch_id=i, batch_size=n, arrival_time=time.time())
+        for i, n in enumerate((3, 11, 16))], device="cpu")
+    assert sorted(r.batch_size for r in got.values()) == [3, 11, 16]
+    assert all(r.error_code == 0 and r.inference_end_time >= r.queue_start_time
+               for r in got.values())
+    assert eng._hotcold is not None and eng._hotcold_active
+    # Every cold rung of both buckets warmed through the split; with refresh
+    # tracking the direct lookup's too.
+    rungs = sum(len(engine.cold_buckets_for(b * cfg.num_tables)) for b in (8, 16))
+    assert eng.warmup_executions == rungs + (2 if what == "refresh" else 0)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        eng.request_reload("x")
 
 
 # ------------------------------------------------------------ run_serving
@@ -438,10 +457,10 @@ def test_engine_failure_mid_run_is_reported(monkeypatch):
 
     dispatch = engine.ComputeEngine._dispatch
 
-    def failing_dispatch(self, host, bucket, slot):
+    def failing_dispatch(self, host, bucket, slot, split=None):
         if self.warmup_executions >= len(self.buckets):
             raise RuntimeError("drs_embedding_bag failed to launch")
-        return dispatch(self, host, bucket, slot)
+        return dispatch(self, host, bucket, slot, split)
 
     monkeypatch.setattr(engine.ComputeEngine, "_dispatch", failing_dispatch)
     kw = dict(num_batches=6, engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8,
@@ -474,3 +493,278 @@ def test_scheduler_tunes_in_sim_loop_like_jax():
     for res in (got, want):
         assert res.optimal_sub_batch in (32, 64, 128) and res.num_responses > 0
         assert res.error_responses == 0
+
+
+# ------------------------------------------------------------ hot/cold engines
+# JAX tests/test_serving.py's single-device hot/cold engine cases, driven
+# with payload requests (the port has no HTTP ingress): one request at a
+# time, each answered before the next, as ServingServer.predict does.
+
+
+class _Predictor:
+    """One started ComputeEngine (cpu) answering payload requests one at a
+    time."""
+
+    def __init__(self, model_cfg, scfg, **kw):
+        self.cfg = model_cfg
+        self.req_q, self.resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+        self.engine = engine.ComputeEngine(0, model_cfg, scfg, self.req_q, self.resp_q,
+                                           ready_q, device="cpu", **kw)
+        self.engine.start()
+        ready = ready_q.get(timeout=300)
+        assert not isinstance(ready, Exception), ready
+        self.n = 0
+
+    def predict(self, indices, dense=None, mask=None) -> np.ndarray:
+        indices = np.asarray(indices, dtype=np.int32)
+        self.req_q.put(packets.ServiceRequest(
+            batch_id=self.n, batch_size=len(indices), arrival_time=time.time(),
+            payload=Batch(dense=dense, indices=indices, mask=mask)))
+        self.n += 1
+        r = self.resp_q.get(timeout=120)
+        assert r.error_code == 0, r.error_code
+        return r.scores
+
+    def stop(self):
+        self.req_q.put(None)
+        self.engine.join(timeout=120)
+        assert not self.engine.is_alive() and self.engine.error is None
+
+
+def _direct_scores(eng, indices, dense=None, mask=None) -> np.ndarray:
+    """The direct model on the engine's live params (its hot table dropped)."""
+    from deeprecsys_tpu_torch.models import get_model
+
+    direct = get_model(eng.model_cfg.replace(embedding_impl="xla"), "cpu")
+    base = {k: v for k, v in eng.params.items() if k != "hot_table"}
+    batch = Batch(dense=dense, indices=np.asarray(indices, dtype=np.int32), mask=mask)
+    with torch.inference_mode():
+        return direct.apply(base, batch.to("cpu")).float().numpy()
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_rowwise"])
+def test_hotcold_engine_payload_scores_equal_jax(quant):
+    """Payload requests through the port's and the JAX package's hot/cold
+    engines (cpu) on the same weights: the same hot set and coverage, the
+    same scores (f32), and the port's equal to its direct model on the same
+    rows (JAX tests/test_serving.py:554, :922, :1792). int8 with
+    hot_set_rows=0 sizes the set by the memory budget."""
+    rows_kw = {"hot_set_rows": 0 if quant == "int8" else 32}
+    port_cfg = zoo.get_config("ncf", table_scale=PARITY_SCALE, table_quant=quant,
+                              embedding_impl="hotcold", **rows_kw)
+    jax_cfg = jax_zoo.get_config("ncf", table_scale=PARITY_SCALE, table_quant=quant,
+                                 embedding_impl="hotcold", **rows_kw)
+    p1, p2 = _payload_rows(port_cfg, 8, 11), _payload_rows(port_cfg, 5, 12)
+
+    def requests(req, batch):
+        return [req(batch_id=i, batch_size=len(p[1]), arrival_time=1.0,
+                    payload=batch(dense=p[0], indices=p[1])) for i, p in enumerate((p1, p2))]
+
+    np_params = bridge.init_numpy(port_cfg, 5)
+    scfg = dict(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8)
+    port, got = _run_engine(engine.ComputeEngine, port_cfg, ServingConfig(**scfg),
+                            requests(packets.ServiceRequest, Batch), device="cpu",
+                            params=bridge.params_from_numpy(np_params, port_cfg, "cpu"))
+    jx, want = _run_engine(jax_engine.ComputeEngine, jax_cfg, JaxServingConfig(**scfg),
+                           requests(jax_packets.ServiceRequest, JaxBatch),
+                           device=jax.devices("cpu")[0], params=np_params)
+    np.testing.assert_array_equal(port._hotcold.hot_ids, jx._hotcold.hot_ids)
+    assert port.hot_coverage == jx.hot_coverage
+    for i, p in enumerate((p1, p2)):
+        assert got[i].error_code == want[i].error_code == 0
+        np.testing.assert_allclose(got[i].scores, want[i].scores, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got[i].scores, _direct_scores(port, p[1], p[0]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_engine_auto_embedding_impl_picks_by_coverage():
+    """JAX tests/test_serving.py:581, :1162: auto samples the engine's own
+    stream (out of sample) and splits iff the coverage reaches
+    hotcold_min_hit; the size floor declines unsampled; "hotcold" splits
+    regardless. The coverage is the JAX package's on the same stream."""
+    from deeprecsys_tpu.models.hotcold import hot_ids_and_coverage_from_generator as jax_cov
+
+    def run(**kw):
+        cfg = zoo.get_config("rm1", table_scale=PARITY_SCALE).replace(**kw)
+        scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8)
+        eng, got = _run_engine(engine.ComputeEngine, cfg, scfg, [
+            packets.ServiceRequest(batch_id=0, batch_size=5, arrival_time=time.time())],
+            device="cpu")
+        assert got[0].batch_size == 5 and got[0].error_code == 0
+        return eng
+
+    eng = run(embedding_impl="auto", hotcold_min_table_mb=0)
+    assert eng._hotcold is not None and eng.hot_coverage > 0.9
+    jcfg = jax_zoo.get_config("rm1", table_scale=PARITY_SCALE)
+    assert eng.hot_coverage == jax_cov(jcfg, seed=eng.seed + 31, hot_rows=131072,
+                                       n_batches=8)[1]
+    eng = run(embedding_impl="auto")
+    assert eng._hotcold is None and eng.hot_coverage is None
+    eng = run(embedding_impl="auto", hot_set_rows=64, hotcold_min_table_mb=0)
+    assert eng._hotcold is None and eng.hot_coverage < 0.5
+    assert eng.warmup_executions == 1  # the direct lookup only
+    eng = run(embedding_impl="hotcold", hot_set_rows=64)
+    assert eng._hotcold is not None
+
+
+def _ncf_refresh(scan_async=True, **kw):
+    cfg = zoo.get_config("ncf", table_scale=500).replace(embedding_impl="hotcold",
+                                                          hot_set_rows=64)
+    scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8,
+                         hotcold_refresh_window=8, hotcold_scan_async=scan_async, **kw)
+    return _Predictor(cfg, scfg)
+
+
+def _pool_batch(cfg, pools, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.choice(pools[t], size=(8, cfg.num_indices_per_lookup))
+                     for t in range(cfg.num_tables)], axis=1).astype(np.int32)
+
+
+def _uniform_batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, r, size=(8, cfg.num_indices_per_lookup))
+                     for r in cfg.scaled_rows], axis=1).astype(np.int32)
+
+
+def test_hotcold_upgrade_without_degradation():
+    """JAX tests/test_serving.py:638: a warm-up set that was never good
+    (uniform) under concentrated traffic never trips the drop rule, but the
+    engine upgrades to the live head; a good set stops the scans."""
+    srv = _ncf_refresh(hotcold_refresh_interval=4)
+    try:
+        eng = srv.engine
+        assert eng._hotcold is not None and eng.hot_coverage < 0.75
+        pools = [[3, 7, 11, 19], [5, 9, 13, 21], [2, 4, 6, 8], [1, 10, 12, 14]]
+        for i in range(8):
+            srv.predict(_pool_batch(srv.cfg, pools, i))
+        assert eng.hot_refreshes >= 1, "upgrade never installed"
+        assert eng.hot_coverage > 0.9 and eng._hotcold_active
+        for i in range(8, 16):
+            srv.predict(_pool_batch(srv.cfg, pools, i))
+        assert eng.hot_refreshes == 1 and eng._upgrade_backoff == 0
+    finally:
+        srv.stop()
+
+
+def test_hotcold_upgrade_scan_backs_off_on_steady_mediocre_stream():
+    """JAX tests/test_serving.py:686: failed upgrade scans grow an
+    exponential skip count, with no state change."""
+    srv = _ncf_refresh(hotcold_refresh_interval=2)
+    try:
+        eng = srv.engine
+        assert eng.hot_coverage < 0.75
+        for i in range(12):
+            srv.predict(_uniform_batch(srv.cfg, i))
+        assert eng.hot_refreshes == 0 and eng._hotcold_active
+        assert eng._upgrade_backoff >= 2, "scan never backed off"
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("scan_async", [True, False])
+def test_hotcold_adaptive_refresh_recovers_from_drift(scan_async):
+    """JAX tests/test_serving.py:727: a popular head moved outside the hot
+    set is refreshed in (the swap needs no new shapes); a headless stream
+    disables the split (direct lookup); a returning head re-enables it.
+    Scores equal the direct model on the live params throughout; async and
+    sync scans (a tiny scan budget forces the row-stride subsample)."""
+    srv = _ncf_refresh(scan_async=scan_async, hotcold_refresh_interval=4,
+                       hotcold_refresh_margin=0.05, hotcold_scan_budget=200)
+    try:
+        eng, cfg = srv.engine, srv.cfg
+        assert eng._hotcold is not None and eng.hot_coverage > 0.05
+        hot = set(int(i) for i in eng._hotcold.hot_ids)
+        pools = []
+        for off, r in zip(cfg.table_offsets, cfg.scaled_rows):
+            cold = [i for i in range(r) if int(off) + i not in hot][:6]
+            assert len(cold) == 6
+            pools.append(cold)
+        for i in range(8):
+            srv.predict(_pool_batch(cfg, pools, i))
+            if eng.hot_refreshes:
+                break
+        assert eng.hot_refreshes == 1 and eng.hot_coverage > 0.9
+        hot_table = eng.params["hot_table"]
+        for i in range(8, 12):
+            srv.predict(_pool_batch(cfg, pools, i))
+        assert eng.live_hot_coverage > 0.9 and eng.hot_refreshes == 1
+        idx = _pool_batch(cfg, pools, 99)
+        np.testing.assert_allclose(srv.predict(idx), _direct_scores(eng, idx),
+                                   rtol=1e-5, atol=1e-6)
+        for i in range(32):  # the head is lost: disable
+            srv.predict(_uniform_batch(cfg, 1000 + i))
+            if not eng._hotcold_active:
+                break
+        assert not eng._hotcold_active, "a uniform stream must disable the split"
+        idx = _uniform_batch(cfg, 99)
+        np.testing.assert_allclose(srv.predict(idx), _direct_scores(eng, idx),
+                                   rtol=1e-5, atol=1e-6)
+        for i in range(64):  # the head returns: re-enable
+            srv.predict(_pool_batch(cfg, pools, 200 + i))
+            if eng._hotcold_active:
+                break
+        assert eng._hotcold_active, "a returning head must re-enable the split"
+        assert eng.params["hot_table"] is not hot_table  # swaps build new tables
+        idx = _pool_batch(cfg, pools, 999)
+        np.testing.assert_allclose(srv.predict(idx), _direct_scores(eng, idx),
+                                   rtol=1e-5, atol=1e-6)
+    finally:
+        srv.stop()
+
+
+def test_hotcold_refresh_tracks_ragged_streams_by_valid_slots():
+    """JAX tests/test_serving.py:1838: on a masked stream the tracker counts
+    valid slots only and the refreshed set is the valid head, not the
+    padded slots' index-0 filler; scores equal the direct masked forward."""
+    cfg = zoo.get_config("rm1", table_scale=500).replace(embedding_impl="hotcold",
+                                                          hot_set_rows=8)
+    scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8,
+                         accept_ragged=True, hotcold_refresh_interval=4,
+                         hotcold_refresh_window=8, hotcold_refresh_margin=0.05)
+    srv = _Predictor(cfg, scfg)
+    try:
+        eng = srv.engine
+        offsets = np.asarray(cfg.table_offsets, dtype=np.int64)
+        rows = np.asarray(cfg.scaled_rows)
+        T, L, B = cfg.num_tables, cfg.num_indices_per_lookup, 8
+        dense = np.random.default_rng(3).random((B, cfg.dense_dim)).astype(np.float32)
+        hot = np.asarray(eng._hotcold.hot_ids)
+
+        def batch(per_table_ids):
+            idx = np.zeros((B, T, L), dtype=np.int32)
+            mask = np.zeros((B, T, L), dtype=bool)
+            for t, i in enumerate(per_table_ids):
+                if i is not None:
+                    idx[:, t, 0] = i
+                    mask[:, t, 0] = True
+            return idx, mask
+
+        hot_local = [None] * T
+        for h in hot:
+            t = int(np.searchsorted(offsets, h, side="right") - 1)
+            hot_local[t] = int(h - offsets[t])
+        assert any(i is not None for i in hot_local)
+        for _ in range(4):
+            srv.predict(*batch(hot_local)[:1], dense=dense, mask=batch(hot_local)[1])
+        assert eng.live_hot_coverage > 0.9, "padded slots leaked into the denominator"
+        assert eng.hot_refreshes == 0 and eng._hotcold_active
+        hotset = set(int(h) for h in hot)
+        pool = [next(i for i in range(1, int(rows[t])) if int(offsets[t]) + i not in hotset)
+                for t in range(T)]
+        fused_pool = {int(offsets[t]) + pool[t] for t in range(T)}
+        idx, mask = batch(pool)
+        for _ in range(24):
+            srv.predict(idx, dense=dense, mask=mask)
+            if eng.hot_refreshes >= 1:
+                break
+        assert eng.hot_refreshes >= 1 and eng._hotcold_active
+        assert len(set(int(h) for h in eng._hotcold.hot_ids) & fused_pool) >= 6
+        n_ref = eng.hot_refreshes
+        for _ in range(4):
+            srv.predict(idx, dense=dense, mask=mask)
+        assert eng.live_hot_coverage > 0.9 and eng.hot_refreshes == n_ref
+        np.testing.assert_allclose(srv.predict(idx, dense=dense, mask=mask),
+                                   _direct_scores(eng, idx, dense, mask), rtol=1e-5, atol=1e-6)
+    finally:
+        srv.stop()
