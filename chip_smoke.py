@@ -6,7 +6,10 @@
 Builds the port's CUDA kernels from ``deeprecsys_tpu_torch/ops/csrc/`` (one
 ``nvcc`` a source, all started together), checks K1, the pooled lookup, and
 its int8 siblings K1-int8 (per-table scales, bit for bit) and K4 (row-wise
-scales) at every zoo model's shape, on tables past 2^31 bytes too, and K3,
+scales) at every zoo model's shape, on tables past 2^31 bytes too, and at
+a small size where their designs could slip (K4's rows of each 16-byte
+phase and tables that start on a 4-byte boundary or end their storage,
+bags of 257 to 5000 rows of extreme values), and K3,
 DIEN's RNN scan, at DIEN's shape against their plain PyTorch versions, and
 checks all eight zoo models, with float and with int8 tables, against the
 JAX package's outputs stored in ``tests/golden/torch_port_{rm1,zoo,quant}.npz``.
@@ -420,6 +423,85 @@ def int8_kernel_cases(device, cfg, B: int, tail: int | None, seed: int) -> dict:
     return errs
 
 
+def _edge_int8(device, rows: tuple, d: int, B: int, L: int, seed: int, value=None,
+               start: int = 0, ids=None, masked: bool = False) -> dict:
+    """Small int8 tables of ``rows`` (values ``value`` or random in [-128,
+    127], positive scales), ``qrows`` starting ``start`` bytes past a
+    16-byte boundary at the end of a storage of their own; ids ``ids(t, n,
+    g)`` a table, else uniform; a random mask when ``masked``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    R, T = sum(rows), len(rows)
+    offsets = torch.as_tensor(np.cumsum((0,) + rows[:-1]), dtype=torch.int32, device=device)
+    q = torch.randint(-128, 128, (R, d), generator=g, device=device, dtype=torch.int8)
+    if value is not None:
+        q.fill_(value)
+    scale = torch.rand((T,), generator=g, device=device) * 1e-2 + 1e-4
+    row_scale = torch.rand((R,), generator=g, device=device) * 1e-2 + 1e-4
+    qrows = torch.empty((start + R * (d + 4),), dtype=torch.int8, device=device)[start:]
+    qrows = qrows.view(R, d + 4)
+    qrows.copy_(torch.cat([q, row_scale.view(torch.int8).reshape(R, 4)], dim=1))
+    draw = ids or (lambda t, n, g: torch.randint(0, n, (B, L), generator=g, device=device))
+    indices = torch.stack([draw(t, n, g) for t, n in enumerate(rows)], dim=1).to(torch.int32)
+    mask = (torch.rand(indices.shape, generator=g, device=device) < 0.7) if masked else None
+    return {"q": q, "scale": scale, "qrows": qrows, "offsets": offsets, "indices": indices,
+            "mask": mask}
+
+
+def _check_int8_pair(c: dict, what: str, k1_int8: bool = True) -> float:
+    """K1-int8 bit for bit (when ``k1_int8``) and K4 within rowwise_tolerance
+    on ``_edge_int8``'s inputs, f32 and bf16 out; K4's max |error|."""
+    worst = 0.0
+    for cdt in (torch.float32, torch.bfloat16):
+        args = (c["offsets"], c["indices"])
+        if k1_int8:
+            got = embedding_bag_int8(c["q"], c["scale"], *args, compute_dtype=cdt, mask=c["mask"])
+            synchronize(c["q"].device)
+            if not torch.equal(got, embedding_bag_int8_reference(
+                    c["q"], c["scale"], *args, compute_dtype=cdt, mask=c["mask"])):
+                raise AssertionError(f"K1-int8 differs from its plain version ({what})")
+        got = embedding_bag_int8_rowwise(c["qrows"], *args, compute_dtype=cdt, mask=c["mask"])
+        synchronize(c["q"].device)
+        want = embedding_bag_int8_rowwise_reference(c["qrows"], *args, compute_dtype=cdt,
+                                                    mask=c["mask"])
+        worst = max(worst, _check_pooled(got, want, c["qrows"], *args, c["mask"], what,
+                                         tolerance=rowwise_tolerance, kernel="K4"))
+    return worst
+
+
+def int8_edge_cases(device) -> float:
+    """K1-int8 and K4 where their designs could slip, at a small size: K4
+    on rows of each 16-byte phase (ids of one residue mod 4 in a table on a
+    16-byte boundary read rows of one phase), on tables that start 4, 8 or
+    12 bytes past a 16-byte boundary and end where their storage ends with
+    the last rows read; K1-int8 (bit for bit) and K4 on bags of 257, 258,
+    300 and 5000 rows, all -128, all 127 or random, masked and not.
+    Returns K4's max |error|."""
+    worst = 0.0
+    for d in (32, 64):
+        for phase in range(4):
+            c = _edge_int8(device, (4000, 400, 8000), d, 37, 23, phase,
+                           ids=lambda t, n, g, p=phase: torch.randint(
+                               0, n // 4, (37, 23), generator=g, device=device) * 4 + p)
+            worst = max(worst, _check_int8_pair(c, f"K4 phase {phase}, d={d}", k1_int8=False))
+        for start in (0, 4, 8, 12):
+            c = _edge_int8(device, (3000, 2000), d, 33, 20, start, start=start,
+                           ids=lambda t, n, g: n - 1 - torch.randint(
+                               0, 64, (33, 20), generator=g, device=device))
+            worst = max(worst, _check_int8_pair(c, f"K4 start +{start} B, d={d}",
+                                                k1_int8=False))
+        for L in (257, 258, 300, 5000):
+            for value in (-128, 127, None):
+                for masked in (False, True):
+                    c = _edge_int8(device, (6000, 300), d, 3, L, L, value=value, masked=masked)
+                    worst = max(worst, _check_int8_pair(
+                        c, f"L={L}, d={d}, values {value or 'random'}, masked={masked}"))
+    _log(f"[3 kernel] K1-int8 ok (bit for bit) and K4 ok (max |err| {worst:.3e}) on rows of "
+         "every 16-byte phase, tables starting 4/8/12 bytes past 16 and ending their storage, "
+         "and bags of 257, 258, 300 and 5000 rows of -128, 127 and random values, masked and "
+         "not, at d = 32 and 64")
+    return worst
+
+
 def phase_kernel(device) -> dict:
     """K1, K1-int8 and K4 at every zoo model's full shape (rm1's: 8 x 4 M
     rows, d = 32, L = 80), batch 512. Returns the max |error| by kernel."""
@@ -437,6 +519,8 @@ def phase_kernel(device) -> dict:
     # 72 M int8 rows of d = 32: 2.30 GB per-table, 2.59 GB row-wise.
     big = zoo.get_config("rm1").replace(embedding_rows=(9_000_000,) * 8)
     int8_kernel_cases(device, big, 64, 100_000, seed=101)
+    errs["embedding_bag_int8_rowwise"] = max(errs["embedding_bag_int8_rowwise"],
+                                             int8_edge_cases(device))
     return errs
 
 

@@ -8,9 +8,9 @@ times those.
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
-come cold from device memory), and for K3 at DIEN's shape (T = 40, B = 512,
-H = 64, bf16), it checks each kernel against its plain version and prints,
-and writes to PATH:
+come cold from device memory; K1-int8 and K4 also on zipf(1.2) ids), and
+for K3 at DIEN's shape (T = 40, B = 512, H = 64, bf16), it checks each
+kernel against its plain version and prints, and writes to PATH:
 
 - device time a call, from a ``torch.profiler`` trace;
 - ``bound_ms``: the larger of the bytes the call must move over 3.35 TB/s
@@ -19,7 +19,8 @@ and writes to PATH:
 - ``library_ms``: one PyTorch call computing the same function,
   ``F.embedding_bag(mode="sum")`` for K1, cuDNN's tanh RNN for K3; none
   for K1-int8 and K4 (no PyTorch call pools int8 rows), which are printed
-  beside K1's time on the same ids over a bf16 table instead;
+  beside K1's time on the same ids over a bf16 table instead, with their
+  rows/s and the registers and spills of the instance each launches;
 - each wrapper's host time a call, the mean over back-to-back calls that
   the card keeps up with (rm1's shape and a 32-row sub-batch of dien).
 
@@ -303,21 +304,59 @@ def k3_library(h2h_w: torch.Tensor, h2h_b: torch.Tensor):
     return call
 
 
+_MANGLED_TYPES = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+
+
+def kernel_instance(mangled: str) -> str:
+    """``name<arg, ...>`` of a mangled kernel template instance (Itanium ABI:
+    ``...<len><name>I<args>E...``): types as ``bf16``/``f32``/``int8``,
+    integer and bool arguments as numbers, a repeated type as ``S``."""
+    at = mangled.find("_kernelI")
+    if at < 0:
+        return mangled
+    end = at + len("_kernel")
+    name = mangled[:end]
+    for n in range(1, end):  # the name is the run of n chars right after the digits of n
+        if mangled[end - n - len(str(n)):end - n] == str(n):
+            name = mangled[end - n:end]
+            break
+    args, i = [], end + 1
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":                      # literal: L<type><value>E
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled[i] == "S":                    # substitution: S_ or S<n>_
+            j = mangled.index("_", i)
+            args.append("S")
+            i = j + 1
+        elif mangled[i].isdigit():                 # <len><name>
+            digits = re.match(r"\d+", mangled[i:]).group()
+            n = int(digits)
+            token = mangled[i:i + len(digits) + n]
+            args.append(_MANGLED_TYPES.get(token, token[len(digits):]))
+            i += len(digits) + n
+        else:
+            args.append(_MANGLED_TYPES.get(mangled[i], mangled[i]))
+            i += 1
+    return f"{name}<{', '.join(args)}>"
+
+
 def ptxas_summary(log: str) -> list:
-    """``"<kernel template arguments>: <registers>, <spills>"`` for every
-    kernel instance in an ``nvcc -Xptxas -v`` log."""
-    out, name = [], None
+    """``"<kernel><<template arguments>>: <registers> regs, <spills> B
+    spilled"`` for every kernel instance in an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, "0"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?kernelI(\w+?)E[EvP]", line)
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
         if m:
-            name = m.group(1)
+            name = kernel_instance(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.append(f"{name}: {m.group(1)} regs, {spill} B spilled")
-            name = None
+            name, spill = None, "0"
     return out
 
 
@@ -375,61 +414,107 @@ def random_int8_tables(cfg, generator: torch.Generator, device) -> dict:
     return {"q": q, "scale": scale, "qrows": qrows}
 
 
+def int8_instance_ptxas(lines: list, kernel: str, d: int, plan) -> str:
+    """The ptxas line (registers, spills) of the instance of ``kernel``
+    ("K1-int8" or "K4") that ``plan`` launches for bf16 output, from
+    ``ptxas_summary`` of ``embedding_bag_int8.cu``'s build; "not found" if
+    that build names its instances otherwise."""
+    name = "embedding_bag_int8_kernel" if kernel == "K1-int8" else \
+        "embedding_bag_int8_rowwise_kernel"
+    G, U, lpr = plan.bags_per_warp, plan.rows_per_lane, 32 // plan.row_slots
+    for prefix in (f"{name}<bf16, {d}, {lpr}, {G}, {U},", f"{name}<bf16, {d}, {G}, {U}>"):
+        for line in lines:
+            if line.startswith(prefix):
+                return line.split(": ", 1)[1]
+    return "not found"
+
+
+def int8_id_streams(cfg, device) -> dict:
+    """8 batches of ids for ``cfg`` at batch 512 on the card: "uniform", the
+    port's generator (seed 3, as ``bench_k1``'s), and "zipf", zipf(1.2)
+    folded into each table (``experiments.skew_bench.zipf_stream``, seeds
+    2-9, as ``bench_k6``'s)."""
+    from deeprecsys_tpu_torch.data import RecDataGenerator
+    from deeprecsys_tpu_torch.experiments.skew_bench import zipf_stream
+
+    return {"uniform": [b.to(device).indices
+                        for b in RecDataGenerator(cfg, seed=3).generate_batches(8, BATCH)],
+            "zipf": [torch.from_numpy(zipf_stream(cfg, BATCH, seed=2 + i)).to(device)
+                     for i in range(8)]}
+
+
 def bench_int8(log) -> list:
     """K1-int8 and K4 at every zoo shape (bf16 output, full-size int8
-    tables, ids as ``bench_k1``'s): device time and bound, and K1's time on
-    the same ids over a bf16 table of the same rows. No PyTorch call pools
-    int8 rows (``F.embedding_bag`` takes float weights only), so these two
-    kernels have no library time."""
+    tables, batch 512) on uniform and on zipf(1.2) ids (``int8_id_streams``):
+    each kernel's time (the median of its launches in a profiler trace),
+    rows/s, bound and the registers and spills of the instance its plan
+    launches, beside K1's time on the same ids over a bf16 table of the same
+    rows. No PyTorch call pools int8 rows (``F.embedding_bag`` takes float
+    weights only), so these two kernels have no library time."""
     from deeprecsys_tpu_torch import zoo
-    from deeprecsys_tpu_torch.data import RecDataGenerator
     from deeprecsys_tpu_torch.models.base import table_offsets
+    from deeprecsys_tpu_torch.ops import _build
     from deeprecsys_tpu_torch.ops.embedding import (
         embedding_bag, embedding_bag_int8, embedding_bag_int8_reference,
-        embedding_bag_int8_rowwise, embedding_bag_int8_rowwise_reference, rowwise_tolerance)
+        embedding_bag_int8_rowwise, embedding_bag_int8_rowwise_reference, k1_launch_plan,
+        k4_launch_plan, rowwise_tolerance)
 
     device, bf16 = torch.device("cuda"), torch.bfloat16
+    lines = ptxas_summary(_build.build("embedding_bag_int8").log)
     rows = []
     for name in zoo.MODEL_NAMES:
         cfg = zoo.get_config(name)
         g = torch.Generator(device=device).manual_seed(0)
         t = random_int8_tables(cfg, g, device)
-        offsets = table_offsets(cfg, device)
-        batches = [b.to(device).indices
-                   for b in RecDataGenerator(cfg, seed=3).generate_batches(8, BATCH)]
-        i0 = batches[0]
-        got = embedding_bag_int8(t["q"], t["scale"], offsets, i0, compute_dtype=bf16)
-        if not torch.equal(got, embedding_bag_int8_reference(t["q"], t["scale"], offsets, i0,
-                                                             compute_dtype=bf16)):
-            raise AssertionError(f"K1-int8 differs from its plain version at {name}")
-        got = embedding_bag_int8_rowwise(t["qrows"], offsets, i0, compute_dtype=bf16)
-        want = embedding_bag_int8_rowwise_reference(t["qrows"], offsets, i0, compute_dtype=bf16)
-        if not bool(((got.float() - want.float()).abs()
-                     <= rowwise_tolerance(got, want, t["qrows"], offsets, i0)).all()):
-            raise AssertionError(f"K4 disagrees with its plain version at {name}")
-        ids = [(i,) for i in batches]
-        k1i8 = measure(lambda i: embedding_bag_int8(t["q"], t["scale"], offsets, i,
-                                                    compute_dtype=bf16), ids)
-        k4 = measure(lambda i: embedding_bag_int8_rowwise(t["qrows"], offsets, i,
-                                                          compute_dtype=bf16), ids)
-        row = {"model": name, "shape": list(i0.shape) + [cfg.sparse_feature_size],
-               "k1_int8": {**k1_int8_bound(t["q"], offsets, i0, bf16),
-                           "ms": k1i8["device_ms"], "wall_ms": k1i8["wall_ms"]},
-               "k4": {**k4_bound(t["qrows"], offsets, i0, bf16), "ms": k4["device_ms"],
-                      "wall_ms": k4["wall_ms"]},
-               "library_ms": None}
-        del t
         table = torch.empty((cfg.total_rows, cfg.sparse_feature_size), dtype=bf16,
                             device=device).uniform_(-0.05, 0.05, generator=g)
-        k1 = measure(lambda i: embedding_bag(table, offsets, i), ids)
-        row["k1_bf16_ms"] = k1["device_ms"]
-        log(f"int8 {name} {row['shape']}: K1-int8 {_us(row['k1_int8']['ms'])} (bound "
-            f"{_us(row['k1_int8']['bound_ms'])}); K4 {_us(row['k4']['ms'])} (bound "
-            f"{_us(row['k4']['bound_ms'])}); K1 on a bf16 table, same ids {_us(k1['device_ms'])}")
-        rows.append(row)
-        del table, batches
+        offsets = table_offsets(cfg, device)
+        for kind, batches in int8_id_streams(cfg, device).items():
+            i0 = batches[0]
+            B, T, L = i0.shape
+            d = cfg.sparse_feature_size
+            got = embedding_bag_int8(t["q"], t["scale"], offsets, i0, compute_dtype=bf16)
+            if not torch.equal(got, embedding_bag_int8_reference(t["q"], t["scale"], offsets, i0,
+                                                                 compute_dtype=bf16)):
+                raise AssertionError(f"K1-int8 differs from its plain version at {name}, {kind}")
+            got = embedding_bag_int8_rowwise(t["qrows"], offsets, i0, compute_dtype=bf16)
+            want = embedding_bag_int8_rowwise_reference(t["qrows"], offsets, i0,
+                                                        compute_dtype=bf16)
+            if not bool(((got.float() - want.float()).abs()
+                         <= rowwise_tolerance(got, want, t["qrows"], offsets, i0)).all()):
+                raise AssertionError(f"K4 disagrees with its plain version at {name}, {kind}")
+            ids = [(i,) for i in batches]
+            k1i8 = measure(lambda i: embedding_bag_int8(t["q"], t["scale"], offsets, i,
+                                                        compute_dtype=bf16), ids)
+            k4 = measure(lambda i: embedding_bag_int8_rowwise(t["qrows"], offsets, i,
+                                                              compute_dtype=bf16), ids)
+            k1 = measure(lambda i: embedding_bag(table, offsets, i), ids)
+            row = {"model": name, "ids": kind, "shape": [B, T, L, d],
+                   "k1_int8": {**k1_int8_bound(t["q"], offsets, i0, bf16),
+                               "ms": k1i8["kernel_ms"], "wall_ms": k1i8["wall_ms"],
+                               "ptxas": int8_instance_ptxas(
+                                   lines, "K1-int8", d, k1_launch_plan(B * T, L, d, torch.int8))},
+                   "k4": {**k4_bound(t["qrows"], offsets, i0, bf16), "ms": k4["kernel_ms"],
+                          "wall_ms": k4["wall_ms"],
+                          "ptxas": int8_instance_ptxas(lines, "K4", d,
+                                                       k4_launch_plan(B * T, L, d))},
+                   "k1_bf16_ms": k1["kernel_ms"], "library_ms": None}
+            for key in ("k1_int8", "k4"):
+                r = row[key]
+                r["rows_per_s"] = None if r["ms"] is None else B * T * L / (r["ms"] / 1e3)
+            log(f"int8 {name} {kind} {row['shape']}: "
+                + "; ".join(f"{label} {_us(row[key]['ms'])} ({_rate(row[key]['rows_per_s'])}, "
+                            f"bound {_us(row[key]['bound_ms'])}; {row[key]['ptxas']})"
+                            for key, label in (("k1_int8", "K1-int8"), ("k4", "K4")))
+                + f"; K1 on a bf16 table, same ids {_us(row['k1_bf16_ms'])}")
+            rows.append(row)
+        del t, table
         torch.cuda.empty_cache()
     return rows
+
+
+def _rate(rows_per_s) -> str:
+    return "not measured" if rows_per_s is None else f"{rows_per_s / 1e9:.2f} G rows/s"
 
 
 K6_MODELS = ("rm1", "rm2", "din")

@@ -20,29 +20,59 @@
 //   mask    (B, T, L)  uint8/bool or null: slot contributes iff mask != 0
 //   out     (B, T, D)  f32 or bf16
 //
-// Numerics. K1-int8 sums in int32, which is exact (|sum| <= L * 127), and
+// Numerics. K1-int8 sums in int32, which is exact (|sum| <= L * 128), and
 // then applies one f32 multiply (__fmul_rn) and one rounding to the output
 // dtype: the same bits as the JAX op, in any order of the sum. K4 forms
-// each product with __fmul_rn, so nvcc cannot contract it into the
-// accumulator's add as an FMA; it then differs from the JAX op only in the
-// order of the f32 sum (ops/embedding.py::rowwise_tolerance).
+// each product with __fmul_rn of the exact value and the row's scale, so
+// nvcc cannot contract it into the accumulator's add as an FMA; it then
+// differs from the JAX op only in the order of the f32 sum
+// (ops/embedding.py::rowwise_tolerance).
 //
-// What bounds them: random row reads, as for K1 (embedding_bag.cu): every
-// row is a random 32- to 68-byte read with no reuse, and K1 measured a
-// ceiling of ~21-24 G random rows/s on an H100 whatever the row's width.
-// So the design is K1's: many independent row loads in flight a lane, the
-// ids of a step in one coalesced load shared by __shfl_sync (a masked-out
-// slot arrives as id -1), accumulators in registers, a bag's slots combined
-// with __shfl_xor_sync, a grid-stride loop over warp tasks. The mappings
-// (bags a warp G, rows a lane a step U) come from ops/embedding.py:
-// k1_launch_plan(..., torch.int8) for K1-int8, k4_launch_plan for K4.
-//   * K1-int8: a lane loads 16 int8 values (16 bytes), so a d = 32 row
-//     takes 2 lanes and a warp has 16 row slots.
-//   * K4: rows start on 4-byte boundaries only ((base + id) * (D + 4)
-//     bytes), so a lane loads one 4-byte word: D / 4 lanes a row (8 at
-//     D = 32), 4 slots a warp at D = 32. The slot's first lane also loads
-//     the row's scale word, and __shfl_sync hands it to the slot's lanes.
-//     A 36-byte row spans two 32-byte sectors, a 68-byte one three.
+// What bounds them: random row reads, as for K1 (embedding_bag.cu), at
+// ~24 G rows/s from DRAM on an H100; rows that sit in the L2 come faster.
+// The frame is K1's: many independent row loads in flight a lane, the ids
+// of a step in one coalesced load shared by __shfl_sync (a masked-out slot
+// arrives as id -1), accumulators in registers, a grid-stride loop over
+// warp tasks. LPR lanes cover a row, so a warp has S = 32 / LPR row slots;
+// it pools G bags at once, SPB = S / G slots a bag, U rows a slot a step.
+// The mappings (LPR, G, U, load hint) come from ops/embedding.py:
+// k1_launch_plan(..., torch.int8) for K1-int8, k4_launch_plan for K4, each
+// chosen by measurement at the zoo's shapes on uniform and zipf(1.2) ids
+// (experiments/int8_sweep.py, PERF.md). Lanes of more than 16 values of a
+// row ran out of registers (64 a thread at 4 blocks an SM) before they
+// kept enough rows in flight. load16's hint pays only where a slot owns
+// its bag and loads two rows a step: at din it saves 3 us of 19-23 on
+// uniform ids, while on long bags it costs 25-60% on zipf(1.2) ids, whose
+// head rows the L1 holds. A bag's slots are combined by a
+// reduce-scatter (reduce_scatter below): each of log2(SPB) exchanges halves
+// the columns a lane holds, so a lane of CPL columns spends CPL - CPL / SPB
+// shuffles instead of CPL * log2(SPB), and every lane stores its share.
+//
+// K1-int8: a lane loads 16 bytes of a row and adds each byte, sign-
+// extended, into an int32 of its column. (Offset-binary sums, two bytes a
+// 32-bit add in 16-bit halves flushed every 257 rows, measured slower on an
+// H100 at every zoo shape: a lane adds 5 to 15 rows of a bag there, too few
+// to repay unpacking 16 halves and correcting the offset; PERF.md.)
+//
+// K4: rows are (D + 4) bytes, 36 or 68, and start on 4-byte boundaries
+// only ((base + id) * (D + 4) bytes). Lane r owns words c0 = r * NW ..
+// c0 + NW - 1 of a row (NW = D / LPR / 4) and loads the 16-byte-aligned
+// chunks that hold them at any of the four phases (addr & 15) / 4, from the
+// row's address rounded down to 16 plus the chunk of word c0. Every such
+// chunk holds a byte of the row, so it never crosses into a page the table
+// does not own; the bytes outside the row are never used. The lane's words
+// start e = phase + c0 % 4 words into its window and are picked as whole
+// 32-bit words (selects by 4, 2 and 1 words), so no byte shuffles are
+// needed; the row's last lane finds the scale word right after its values
+// and one __shfl_sync hands it to the row's other lanes. A value is made
+// exact in f32 without a conversion instruction: its offset-binary byte
+// (x ^ 0x80) under the exponent of 2^23, minus 2^23 + 128.
+// On uniform ids K4 stays above K1-int8 because of the layout it keeps: a
+// 36-byte row crosses a 64-byte boundary of the table for half of the
+// rows, and such rows cost two DRAM accesses. Measured on an H100 (PERF.md,
+// experiments/int8_sweep.py --probe): rm1's ids moved onto rows inside one
+// 64-byte block run K4 as fast as K1-int8; onto rows that cross, 37% slower.
+//
 // Addresses are computed in 64 bits: (base + id) * (D + 4) passes 2^31 at
 // 59 M rows of D = 32.
 
@@ -54,13 +84,24 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;   // ops/embedding.py::K1_WARPS_PER_BLOCK
 constexpr int kMinBlocksPerSm = 4;
+constexpr uint32_t kOffset = 0x80808080u;  // x ^ kOffset: each byte + 128, unsigned
 
 __device__ __forceinline__ void to_out(float x, float* p) { *p = x; }
 __device__ __forceinline__ void to_out(float x, __nv_bfloat16* p) { *p = __float2bfloat16_rn(x); }
 
-// Byte j of w, sign-extended.
-__device__ __forceinline__ int byte_at(uint32_t w, int j) {
-  return static_cast<int>(w << (24 - 8 * j)) >> 24;
+// 16 bytes at p; kHint: no L1 line for a row that is never read again, and
+// no L2 prefetch past 64 bytes (K1's hint, embedding_bag.cu).
+template <bool kHint>
+__device__ __forceinline__ uint4 load16(const void* p) {
+  if constexpr (kHint) {
+    uint4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.L2::64B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(p));
+    return v;
+  } else {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
 }
 
 // The ids of step `step0` for the warp's G bags, id -1 where a slot is past
@@ -97,43 +138,90 @@ __device__ __forceinline__ int32_t id_of(const int32_t (&ids)[NI], int k) {
   return id;
 }
 
-// N output values at dst, rounded once to TC: N * sizeof(TC) is 64, 32,
-// 16 or 8 bytes, and dst starts a run of that many bytes.
-template <typename TC, int N>
-__device__ __forceinline__ void store_row(TC* dst, const float (&v)[N]) {
-  __align__(16) TC o[N];
+// A bag's sums of a[0..N) over its slots, the lanes lane ^ k * STRIDE for
+// k < END / STRIDE (a power of two), by reduce-scatter: at each exchange a
+// lane whose STRIDE bit is set keeps the upper half of the values it holds
+// and its partner the lower half, each adding the other's copy. A lane
+// ends with N * STRIDE / END sums in a[0..), those of its columns from
+// slot_share on.
+template <int STRIDE, int END, int H, typename V, int N>
+__device__ __forceinline__ void reduce_scatter(V (&a)[N], int lane) {
+  if constexpr (STRIDE < END) {
+    const bool up = (lane & STRIDE) != 0;
 #pragma unroll
-  for (int i = 0; i < N; ++i) to_out(v[i], o + i);
-  if constexpr (N * sizeof(TC) >= 16) {
-#pragma unroll
-    for (int c = 0; c < (int)(N * sizeof(TC) / 16); ++c)
-      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(o)[c];
-  } else {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+    for (int i = 0; i < H; ++i) {
+      const V send = up ? a[i] : a[i + H];
+      const V keep = up ? a[i + H] : a[i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, STRIDE);
+    }
+    reduce_scatter<STRIDE * 2, END, H / 2>(a, lane);
   }
 }
 
+__host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
+
+// The first of the CPL / SPB columns (of a lane's CPL) that slot s of a bag
+// holds after reduce_scatter over the bag's SPB slots: the exchanges halve
+// by the bits of s from the lowest, so the share is s's bits reversed.
+template <int CPL, int SPB>
+__device__ __forceinline__ int slot_share(int s) {
+  if constexpr (SPB == 1) {
+    return 0;
+  } else {
+    constexpr int kBits = log2_of(SPB);
+    return static_cast<int>(__brev(static_cast<unsigned>(s)) >> (32 - kBits)) * (CPL / SPB);
+  }
+}
+
+// N output values at dst, rounded once to TC; dst starts a run of
+// N * sizeof(TC) bytes (2 to 256), aligned to that size or to 16.
+template <typename TC, int N>
+__device__ __forceinline__ void store_row(TC* dst, const float (&v)[N]) {
+  constexpr int kBytes = N * (int)sizeof(TC);
+  __align__(16) TC o[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) to_out(v[i], o + i);
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int c = 0; c < kBytes / 16; ++c)
+      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(o)[c];
+  } else if constexpr (kBytes == 8) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+  } else if constexpr (kBytes == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(o);
+  } else {
+    static_assert(kBytes == 2, "unsupported store");
+    *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(o);
+  }
+}
+
+// Byte j of w, sign-extended.
+__device__ __forceinline__ int byte_at(uint32_t w, int j) {
+  return static_cast<int>(w << (24 - 8 * j)) >> 24;
+}
+
 // K1-int8.
-template <typename TC, int D, int G, int U>
+template <typename TC, int D, int LPR, int G, int U, bool H>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                           const int32_t* __restrict__ offsets,
                           const int32_t* __restrict__ indices,
                           const uint8_t* __restrict__ mask, TC* __restrict__ out,
                           int64_t n_bags, int T, int L) {
-  constexpr int kElems = 16;          // int8 values a lane loads
-  constexpr int P = D / kElems;       // lanes covering one row
-  constexpr int S = 32 / P;           // row slots a warp
+  constexpr int CPL = D / LPR;        // int8 values (bytes) a lane a row
+  constexpr int NV = CPL / 16;        // its 16-byte loads
+  constexpr int S = 32 / LPR;         // row slots a warp
   constexpr int SPB = S / G;          // slots a bag
   constexpr int RPS = SPB * U;        // rows of a bag a step
   constexpr int NI = (G * RPS + 31) / 32;
-  static_assert(D % kElems == 0 && 32 % P == 0 && S % G == 0, "unsupported mapping");
+  static_assert(CPL % 16 == 0 && 32 % LPR == 0 && S % G == 0 && CPL % SPB == 0,
+                "unsupported mapping");
 
   const int lane = threadIdx.x & 31;
-  const int group = lane / P;
+  const int group = lane / LPR;
   const int bi = group / SPB;
   const int s = group % SPB;
-  const int col = (lane % P) * kElems;
+  const int col = (lane % LPR) * CPL;
   const int64_t n_tasks = (n_bags + G - 1) / G;
 
   for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -143,53 +231,56 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
     const int64_t base = bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0;
 
     int32_t ids[NI];
-    int acc[kElems];
+    int acc[CPL];
 #pragma unroll
-    for (int i = 0; i < kElems; ++i) acc[i] = 0;
+    for (int i = 0; i < CPL; ++i) acc[i] = 0;
 
     load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, 0, lane);
     for (int step0 = 0; step0 < L; step0 += RPS) {
       int32_t rid[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) rid[u] = id_of<NI>(ids, bi * RPS + u * SPB + s);
-      uint4 v[U];
+      uint4 v[U][NV];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        v[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (rid[u] >= 0)
-          v[u] = __ldg(reinterpret_cast<const uint4*>(q + (base + rid[u]) * D + col));
+#pragma unroll
+        for (int c = 0; c < NV; ++c) v[u][c] = make_uint4(0u, 0u, 0u, 0u);
+        if (rid[u] >= 0) {
+          const int8_t* row = q + (base + rid[u]) * D + col;
+#pragma unroll
+          for (int c = 0; c < NV; ++c) v[u][c] = load16<H>(row + 16 * c);
+        }
       }
       if (step0 + RPS < L) load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L,
                                                  step0 + RPS, lane);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < NV; ++c) {
+          const uint32_t x[4] = {v[u][c].x, v[u][c].y, v[u][c].z, v[u][c].w};
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[4 * c + j] += byte_at(w[c], j);
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) acc[16 * c + 4 * j + b] += byte_at(x[j], b);
+          }
         }
       }
     }
 
-#pragma unroll
-    for (int off = P; off < P * SPB; off <<= 1) {
-#pragma unroll
-      for (int i = 0; i < kElems; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-    }
-
-    if (s == 0 && bag < n_bags) {
+    reduce_scatter<LPR, LPR * SPB, CPL / 2>(acc, lane);
+    if (bag < n_bags) {
+      constexpr int M = CPL / SPB;
       const float sc = __ldg(scale + bag % T);
-      float o[kElems];
+      float o[M];
 #pragma unroll
-      for (int i = 0; i < kElems; ++i) o[i] = __fmul_rn(static_cast<float>(acc[i]), sc);
-      store_row<TC, kElems>(out + bag * D + col, o);
+      for (int i = 0; i < M; ++i) o[i] = __fmul_rn(static_cast<float>(acc[i]), sc);
+      store_row<TC>(out + bag * D + col + slot_share<CPL, SPB>(s), o);
     }
   }
 }
 
 // K4.
-template <typename TC, int D, int G, int U>
+template <typename TC, int D, int LPR, int G, int U, bool H>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
                                   const int32_t* __restrict__ offsets,
@@ -197,20 +288,28 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
                                   const uint8_t* __restrict__ mask, TC* __restrict__ out,
                                   int64_t n_bags, int T, int L) {
   constexpr int RB = D + 4;           // bytes a row: D values, then the f32 scale
-  constexpr int kElems = 4;           // int8 values a lane loads (one word)
-  constexpr int P = D / kElems;       // lanes covering one row
-  constexpr int S = 32 / P;           // row slots a warp
+  constexpr int CPL = D / LPR;        // values a lane
+  constexpr int NW = CPL / 4;         // their words, from word c0 = r * NW of the row
+  // The lane's words start e = phase + c0 % 4 words into the chunk that
+  // holds the row's word c0 at phase 0; NC chunks from there hold them
+  // (and the scale word after them) at any phase.
+  constexpr int kMaxE = 3 + (NW < 4 ? 4 - NW : 0);
+  constexpr int NC = (kMaxE + NW) / 4 + 1;
+  constexpr int W = 4 * NC;
+  constexpr int S = 32 / LPR;
   constexpr int SPB = S / G;
   constexpr int RPS = SPB * U;
   constexpr int NI = (G * RPS + 31) / 32;
-  static_assert(D % kElems == 0 && 32 % P == 0 && S % G == 0, "unsupported mapping");
+  static_assert(CPL % 4 == 0 && 32 % LPR == 0 && S % G == 0 && CPL % SPB == 0,
+                "unsupported mapping");
 
   const int lane = threadIdx.x & 31;
-  const int group = lane / P;
-  const int leader = group * P;       // the slot's first lane: it loads the scale
+  const int group = lane / LPR;
   const int bi = group / SPB;
   const int s = group % SPB;
-  const int col = (lane % P) * kElems;
+  const int r = lane % LPR;
+  const int c0 = r * NW;
+  const int last = lane | (LPR - 1);  // the row's last lane: its window holds the scale
   const int64_t n_tasks = (n_bags + G - 1) / G;
 
   for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -220,45 +319,79 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
     const int64_t base = bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0;
 
     int32_t ids[NI];
-    float acc[kElems];
+    float acc[CPL];
 #pragma unroll
-    for (int i = 0; i < kElems; ++i) acc[i] = 0.f;
+    for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
 
     load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, 0, lane);
     for (int step0 = 0; step0 < L; step0 += RPS) {
       int32_t rid[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) rid[u] = id_of<NI>(ids, bi * RPS + u * SPB + s);
-      uint32_t w[U];
-      float sc[U];
+      // The lane's window: NC aligned chunks from the row's address rounded
+      // down to 16, plus its chunk offset; zeros (values 0, scale 0) where
+      // the slot adds nothing.
+      uint4 win[U][NC];
+      uint32_t e[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        w[u] = 0u;
-        sc[u] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) win[u][c] = make_uint4(0u, 0u, 0u, 0u);
+        e[u] = 0u;
         if (rid[u] >= 0) {
-          const int8_t* row = qrows + (base + rid[u]) * RB;
-          w[u] = __ldg(reinterpret_cast<const uint32_t*>(row + col));
-          if (lane == leader) sc[u] = __ldg(reinterpret_cast<const float*>(row + D));
+          const uintptr_t at = reinterpret_cast<uintptr_t>(qrows) + (base + rid[u]) * RB;
+          e[u] = (static_cast<uint32_t>(at >> 2) & 3u) + (c0 & 3);
+          const uint4* chunk = reinterpret_cast<const uint4*>(at & ~uintptr_t(15)) + (c0 >> 2);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) win[u][c] = load16<H>(chunk + c);
         }
       }
       if (step0 + RPS < L) load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L,
                                                  step0 + RPS, lane);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const float row_scale = __shfl_sync(0xffffffffu, sc[u], leader);
+        uint32_t w[W];
 #pragma unroll
-        for (int j = 0; j < kElems; ++j)
-          acc[j] += __fmul_rn(static_cast<float>(byte_at(w[u], j)), row_scale);
+        for (int c = 0; c < NC; ++c) {
+          w[4 * c + 0] = win[u][c].x;
+          w[4 * c + 1] = win[u][c].y;
+          w[4 * c + 2] = win[u][c].z;
+          w[4 * c + 3] = win[u][c].w;
+        }
+        // Words e .. e + NW of the window: by 4 (when e can reach it), by 2,
+        // by 1. A clamped index is one no e needs.
+        uint32_t t4[W], t2[W], x[NW + 1];
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          t4[j] = (kMaxE >= 4 && (e[u] & 4u)) ? w[j + 4 < W ? j + 4 : W - 1] : w[j];
+#pragma unroll
+        for (int j = 0; j < W; ++j) t2[j] = (e[u] & 2u) ? t4[j + 2 < W ? j + 2 : W - 1] : t4[j];
+#pragma unroll
+        for (int j = 0; j <= NW; ++j) x[j] = (e[u] & 1u) ? t2[j + 1] : t2[j];
+        float row_scale = __uint_as_float(x[NW]);
+        if constexpr (LPR > 1) row_scale = __shfl_sync(0xffffffffu, row_scale, last);
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          const uint32_t y = x[j] ^ kOffset;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            // 2^23 + (value + 128), exactly, then the value.
+            const float value =
+                __uint_as_float(__byte_perm(y, 0x4b000000u, 0x7540u | b)) - 8388736.0f;
+            acc[4 * j + b] += __fmul_rn(value, row_scale);
+          }
+        }
       }
     }
 
+    reduce_scatter<LPR, LPR * SPB, CPL / 2>(acc, lane);
+    if (bag < n_bags) {
+      constexpr int M = CPL / SPB;
+      float o[M];
 #pragma unroll
-    for (int off = P; off < P * SPB; off <<= 1) {
-#pragma unroll
-      for (int i = 0; i < kElems; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+      for (int i = 0; i < M; ++i) o[i] = acc[i];
+      store_row<TC>(out + bag * D + r * CPL + slot_share<CPL, SPB>(s), o);
     }
-
-    if (s == 0 && bag < n_bags) store_row<TC, kElems>(out + bag * D + col, acc);
   }
 }
 
@@ -272,46 +405,53 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TC, int D, int G, int U>
+template <typename TC, int D, int LPR, int G, int U, bool H>
 int launch_int8(const void* q, const void* scale, const Args& a) {
-  embedding_bag_int8_kernel<TC, D, G, U><<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scale), a.offsets, a.indices,
-      a.mask, static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
+  embedding_bag_int8_kernel<TC, D, LPR, G, U, H>
+      <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
+          static_cast<const int8_t*>(q), static_cast<const float*>(scale), a.offsets,
+          a.indices, a.mask, static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
   return (int)cudaGetLastError();
 }
 
-template <typename TC, int D, int G, int U>
+template <typename TC, int D, int LPR, int G, int U, bool H>
 int launch_rowwise(const void* qrows, const Args& a) {
-  embedding_bag_int8_rowwise_kernel<TC, D, G, U><<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
-      static_cast<const int8_t*>(qrows), a.offsets, a.indices, a.mask,
-      static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
+  embedding_bag_int8_rowwise_kernel<TC, D, LPR, G, U, H>
+      <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
+          static_cast<const int8_t*>(qrows), a.offsets, a.indices, a.mask,
+          static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
   return (int)cudaGetLastError();
 }
 
-// The (G, U) instances k1_launch_plan(..., torch.int8) picks: one slot a bag
-// (G = S, S = 16 at D = 32) with U in {1, 2, 4, 8} for L <= 8, else a warp a
-// bag with U = 4.
+// The instances k1_launch_plan(..., torch.int8) picks: a lane 16 bytes of a
+// row (LPR = D / 16: S = 16 slots at D = 32, 8 at D = 64); one slot a bag
+// (G = S) with U 1, or 2 and load16's hint, for L <= 8; else a warp a bag with
+// U = 2 at D = 32, 4 bags a warp with U = 4 at D = 64.
 template <typename TC, int D>
 int mapping_int8(int G, int U, const void* q, const void* scale, const Args& a) {
-  constexpr int S = 32 / (D / 16);
-#define DRS_K1I8_CASE(g, u) \
-  if (G == (g) && U == (u)) return launch_int8<TC, D, (g), (u)>(q, scale, a);
-  DRS_K1I8_CASE(S, 1) DRS_K1I8_CASE(S, 2) DRS_K1I8_CASE(S, 4) DRS_K1I8_CASE(S, 8)
-  DRS_K1I8_CASE(1, 4)
-#undef DRS_K1I8_CASE
+  constexpr int LPR = D / 16;
+  constexpr int S = 32 / LPR;
+  constexpr int GL = D == 32 ? 1 : 4;
+  constexpr int UL = D == 32 ? 2 : 4;
+  if (G == S && U == 1) return launch_int8<TC, D, LPR, S, 1, false>(q, scale, a);
+  if (G == S && U == 2) return launch_int8<TC, D, LPR, S, 2, true>(q, scale, a);
+  if (G == GL && U == UL) return launch_int8<TC, D, LPR, GL, UL, false>(q, scale, a);
   return (int)cudaErrorInvalidValue;
 }
 
-// The (G, U) instances k4_launch_plan picks: G = S (4 at D = 32) with U in
-// {1, 2, 4, 8} for L <= 8, else a warp a bag with U = 8.
+// The instances k4_launch_plan picks: for L <= 1 a slot a bag of 8 values a
+// lane (LPR = D / 8), one row; for 2 <= L <= 8 a slot a bag of 16 values a
+// lane (LPR = D / 16), two rows a step with the hint; else 16 values a lane
+// with a warp a bag and U = 2 at D = 32, 4 bags a warp and U = 3 at D = 64.
 template <typename TC, int D>
 int mapping_rowwise(int G, int U, const void* qrows, const Args& a) {
-  constexpr int S = 32 / (D / 4);
-#define DRS_K4_CASE(g, u) \
-  if (G == (g) && U == (u)) return launch_rowwise<TC, D, (g), (u)>(qrows, a);
-  DRS_K4_CASE(S, 1) DRS_K4_CASE(S, 2) DRS_K4_CASE(S, 4) DRS_K4_CASE(S, 8)
-  DRS_K4_CASE(1, 8)
-#undef DRS_K4_CASE
+  constexpr int S8 = 256 / D;   // slots a warp at 8 values a lane
+  constexpr int S16 = 512 / D;  // at 16
+  constexpr int GL = D == 32 ? 1 : 4;
+  constexpr int UL = D == 32 ? 2 : 3;
+  if (G == S8 && U == 1) return launch_rowwise<TC, D, D / 8, S8, 1, false>(qrows, a);
+  if (G == S16 && U == 2) return launch_rowwise<TC, D, D / 16, S16, 2, true>(qrows, a);
+  if (G == GL && U == UL) return launch_rowwise<TC, D, D / 16, GL, UL, false>(qrows, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -203,10 +203,13 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _plan(n_bags: int, L: int, S: int, long_rows_per_lane: int) -> K1Plan:
-    """A slot a bag and all L rows in flight for L <= 8; else a warp a bag
-    and ``long_rows_per_lane`` rows a slot a step."""
-    G, U = (S, _pow2_at_least(max(L, 1))) if L <= 8 else (1, long_rows_per_lane)
+def _plan(n_bags: int, L: int, S: int, long_rows_per_lane: int,
+          short_rows_per_lane: int = 8, long_bags_per_warp: int = 1) -> K1Plan:
+    """A slot a bag for L <= 8, with all L rows in flight (the power of two
+    >= L, at most ``short_rows_per_lane``); else ``long_bags_per_warp``
+    bags a warp and ``long_rows_per_lane`` rows a slot a step."""
+    G, U = ((S, min(_pow2_at_least(max(L, 1)), short_rows_per_lane)) if L <= 8
+            else (long_bags_per_warp, long_rows_per_lane))
     tasks = -(-n_bags // G)
     grid = max(1, -(-tasks // K1_WARPS_PER_BLOCK))
     return K1Plan(bags_per_warp=G, rows_per_lane=U, row_slots=S, tasks=tasks, grid=grid)
@@ -226,22 +229,34 @@ def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1P
     is one block per K1_WARPS_PER_BLOCK tasks: capping it at the blocks the
     card holds at once, each block looping over tasks, measured no faster.
     These are the only mappings ``csrc/embedding_bag.cu`` is built with.
-    K1-int8 (``csrc/embedding_bag_int8.cu``) takes the same mapping at
-    ``table_dtype=torch.int8``: 16 int8 values a lane, S = 16 at d = 32.
+
+    K1-int8 (``csrc/embedding_bag_int8.cu``) takes ``table_dtype=torch.int8``:
+    16 int8 values a lane too (S = 16 at d = 32, 8 at d = 64), one slot a
+    bag and at most 2 rows a step for L <= 8; longer bags a warp each and
+    U = 2 at d = 32, 4 a warp (2 slots each) and U = 4 at d = 64: of the
+    mappings measured on an H100 (``experiments/int8_sweep.py``, PERF.md),
+    the fastest at the zoo's shapes on uniform and zipf(1.2) ids, and the
+    only ones that source builds.
     """
+    if table_dtype == torch.int8:
+        return _plan(n_bags, L, 512 // d, 2 if d == 32 else 4, 2, 1 if d == 32 else 4)
     return _plan(n_bags, L, 32 // (d * table_dtype.itemsize // 16), 4)
 
 
 @functools.lru_cache(maxsize=512)
 def k4_launch_plan(n_bags: int, L: int, d: int) -> K1Plan:
-    """K4's mapping for ``(R, d + 4)`` int8 rows, which start on 4-byte
-    boundaries only: a lane loads one 4-byte word (4 values), so a row
-    takes d / 4 lanes and a warp has S = 128 / d row slots (4 at d = 32).
-    K1's rule otherwise, but 8 rows a slot a step for long bags: a lane's
-    row costs one register, not four, and 8 keeps as many rows of a warp
-    in flight as K1's bf16 mapping. The only mappings
-    ``csrc/embedding_bag_int8.cu`` builds for K4."""
-    return _plan(n_bags, L, 128 // d, 8)
+    """K4's mapping for ``(R, d + 4)`` int8 rows, whose lanes each load the
+    16-byte-aligned chunks that cover their part of a row (rows start on
+    4-byte boundaries only). Bags of one row take a slot each at 8 values a
+    lane (S = 256 / d slots a warp); bags of 2-8 rows a slot each at 16
+    values a lane (S = 512 / d), 2 rows a step; longer bags 16 values a
+    lane, a warp a bag and 2 rows a slot a step at d = 32, 4 bags a warp
+    and 3 rows at d = 64. Chosen by measurement on an H100
+    (``experiments/int8_sweep.py``, PERF.md): at L = 1 the narrower lanes
+    spread a batch over twice the warps and finish sooner. The only
+    mappings ``csrc/embedding_bag_int8.cu`` builds for K4."""
+    return _plan(n_bags, L, 256 // d if L <= 1 else 512 // d, 2 if d == 32 else 3, 2,
+                 1 if d == 32 else 4)
 
 
 def _declare(lib: ctypes.CDLL):

@@ -22,6 +22,7 @@ MODULES = [
     "deeprecsys_tpu_torch.engine_bench",
     "deeprecsys_tpu_torch.experiments",
     "deeprecsys_tpu_torch.experiments.skew_bench",
+    "deeprecsys_tpu_torch.experiments.int8_sweep",
     "deeprecsys_tpu_torch.runtime",
     "deeprecsys_tpu_torch.runtime.native",
     "deeprecsys_tpu_torch.utils.memory",

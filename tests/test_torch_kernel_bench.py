@@ -5,17 +5,22 @@ Tolerances: f32 rtol 1e-5 and atol 1e-5 (sums and dots in other orders);
 the cuDNN-style RNN also adds its identity input product, exact in f32.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.experiments import int8_sweep
 from deeprecsys_tpu_torch.kernel_bench import (
-    F32_FLOP_PER_S, HBM_BYTES_PER_S, k1_bound, k1_int8_bound, k1_library, k3_bound, k3_library,
-    k4_bound, main_kernel_ms, random_int8_tables)
+    F32_FLOP_PER_S, HBM_BYTES_PER_S, int8_instance_ptxas, k1_bound, k1_int8_bound, k1_library,
+    k3_bound, k3_library, k4_bound, kernel_instance, main_kernel_ms, ptxas_summary,
+    random_int8_tables)
 from deeprecsys_tpu_torch.models.base import table_offsets
 from deeprecsys_tpu_torch.ops import embedding_bag_reference, rnn_scan_reference
+from deeprecsys_tpu_torch.ops.embedding import K1Plan, k1_launch_plan, k4_launch_plan
 
 
 @pytest.mark.parametrize("name", ["rm1", "din", "ncf"])
@@ -95,3 +100,56 @@ def test_main_kernel_ms_is_the_median_of_the_busiest_kernel():
     assert main_kernel_ms(durations) == pytest.approx(15.0e-3)
     assert float(np.median(durations["fill"] + durations["k3b"])) == pytest.approx(8.0, abs=0.1)
     assert main_kernel_ms({"k1": [13.8]}) == pytest.approx(13.8e-3)
+
+
+# ptxas -v's lines for two K1-int8 instances (this source's and the
+# parent design's template arguments) and one of K1.
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125embedding_bag_int8_kernelI13__nv_bfloat16Li32ELi2ELi1ELi2ELb0EEEvPKaPKfPKiS7_PKhPT_lii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125embedding_bag_int8_kernelI13__nv_bfloat16Li32ELi2ELi1ELi2ELb0EEEvPKaPKfPKiS7_PKhPT_lii
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125embedding_bag_int8_kernelIfLi64ELi1ELi4EEEvPKaPKfPKiS5_PKhPT_lii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120embedding_bag_kernelI13__nv_bfloat16S1_Li32ELi8ELi1EEEvPKT_PKiS6_PKhPT0_lii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+"""
+
+
+def test_ptxas_summary_names_each_instance_with_its_registers_and_spills():
+    mangled = "_ZN12_GLOBAL__N_133embedding_bag_int8_rowwise_kernelIfLi64ELi4ELi1ELi2ELb1EEEvPKa"
+    assert kernel_instance(mangled) == "embedding_bag_int8_rowwise_kernel<f32, 64, 4, 1, 2, 1>"
+    assert ptxas_summary(PTXAS_LOG) == [
+        "embedding_bag_int8_kernel<bf16, 32, 2, 1, 2, 0>: 56 regs, 8 B spilled",
+        "embedding_bag_int8_kernel<f32, 64, 1, 4>: 40 regs, 0 B spilled",
+        "embedding_bag_kernel<bf16, S, 32, 8, 1>: 30 regs, 0 B spilled"]
+
+
+def test_int8_instance_ptxas_finds_the_instance_a_plan_launches():
+    lines = ptxas_summary(PTXAS_LOG)
+    rm1 = k1_launch_plan(512 * 8, 80, 32, torch.int8)
+    assert (rm1.row_slots, rm1.bags_per_warp, rm1.rows_per_lane) == (16, 1, 2)
+    assert int8_instance_ptxas(lines, "K1-int8", 32, rm1) == "56 regs, 8 B spilled"
+    assert int8_instance_ptxas(lines, "K4", 32, k4_launch_plan(512 * 8, 80, 32)) == "not found"
+    # An earlier design's names, <TC, D, G, U>, are found by (G, U).
+    old = K1Plan(bags_per_warp=1, rows_per_lane=4, row_slots=8, tasks=1, grid=1)
+    assert int8_instance_ptxas([lines[1].replace("f32", "bf16")], "K1-int8", 64, old) == \
+        "40 regs, 0 B spilled"
+
+
+@pytest.mark.parametrize("name", zoo.MODEL_NAMES)
+def test_int8_sweep_builds_every_shipped_mapping_once(name):
+    """The sweep's instances hold the mapping each plan ships at every zoo
+    shape, and its entry point dispatches each instance exactly once."""
+    cfg = zoo.get_config(name)
+    d, L = cfg.sparse_feature_size, cfg.num_indices_per_lookup
+    for kernel, plan in (("K1-int8", k1_launch_plan(512 * cfg.num_tables, L, d, torch.int8)),
+                         ("K4", k4_launch_plan(512 * cfg.num_tables, L, d))):
+        found = {(lpr, g, u) for lpr, g, u, *_ in int8_sweep.instances(kernel, d, L <= 8)}
+        assert (32 // plan.row_slots, plan.bags_per_warp, plan.rows_per_lane) in found
+        src = int8_sweep._source(kernel, d, Path("embedding_bag_int8.cu"))
+        cases = [line for line in src.splitlines() if line.strip().startswith("if (lpr")]
+        assert len(cases) == len(set(cases)) == len(
+            set(int8_sweep.instances(kernel, d, True) + int8_sweep.instances(kernel, d, False)))

@@ -203,6 +203,98 @@ def test_int8_kernels_reject_misaligned_tables(cuda):
                                                          indices)).all())
 
 
+def _check_k4(qrows, offsets, indices, compute_dt=torch.float32, mask=None):
+    got = embedding_bag_int8_rowwise(qrows, offsets, indices, compute_dtype=compute_dt,
+                                     mask=mask)
+    torch.cuda.synchronize()
+    want = embedding_bag_int8_rowwise_reference(qrows, offsets, indices,
+                                                compute_dtype=compute_dt, mask=mask)
+    tol = rowwise_tolerance(got, want, qrows, offsets, indices, mask)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("compute_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(37, 23), (7, 3)])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("phase", [0, 1, 2, 3])
+def test_k4_at_every_row_phase(cuda, phase, d, B, L, compute_dt):
+    """K4 loads a row as the 16-byte-aligned chunks that cover it and picks
+    its words by the row's phase (address % 16) / 4. Row r of a table that
+    starts on a 16-byte boundary has phase r % 4 ((d + 4) % 16 == 4), so
+    ids of one residue read rows of one phase only: here every phase, at
+    both widths, with a warp a bag (L = 23) and a slot a bag (L = 3)."""
+    rows = (4000, 400, 8000)
+    _, _, qrows, offsets, _, mask = _int8_inputs(cuda, rows, d, B, L, seed=phase, masked=True)
+    assert qrows.data_ptr() % 16 == 0
+    g = torch.Generator(device=cuda).manual_seed(10 + phase)
+    indices = torch.stack([torch.randint(0, n // 4, (B, L), generator=g, device=cuda) * 4 + phase
+                           for n in rows], dim=1).to(torch.int32)
+    _check_k4(qrows, offsets, indices, compute_dt)
+    _check_k4(qrows, offsets, indices, compute_dt, mask)
+
+
+@pytest.mark.parametrize("start", [0, 4, 8, 12])
+@pytest.mark.parametrize("d", [32, 64])
+def test_k4_on_a_table_that_ends_its_allocation(cuda, d, start):
+    """The last row of the table ends where its storage ends, the end of a
+    32 MiB allocation of its own, and the table starts ``start`` bytes past
+    a 16-byte boundary (a 4-byte boundary only, for start 4, 8, 12); the
+    ids read the last 64 rows of the last table, every phase among them.
+    K4's chunks over-read a row only inside the 16-byte granules that hold
+    its bytes, so none passes the end of the allocation."""
+    rb, size = d + 4, 1 << 25
+    n_last = 20000 + (-(start // 4)) % 4  # (size - R * rb) % 16 == start
+    rows = (3000, n_last)
+    R = sum(rows)
+    assert (size - R * rb) % 16 == start
+    _, _, src, offsets, indices, _ = _int8_inputs(cuda, rows, d, 33, 20, seed=start + d,
+                                                  masked=False)
+    torch.cuda.empty_cache()
+    buf = torch.empty((size,), dtype=torch.int8, device=cuda)
+    qrows = buf[size - R * rb:].view(R, rb)
+    qrows.copy_(src)
+    assert qrows.data_ptr() % 16 == start
+    assert qrows.data_ptr() + qrows.numel() == buf.data_ptr() + buf.numel()
+    g = torch.Generator(device=cuda).manual_seed(start)
+    indices[:, 1] = (n_last - 1 - torch.randint(0, 64, indices[:, 1].shape, generator=g,
+                                                device=cuda)).to(torch.int32)
+    _check_k4(qrows, offsets, indices)
+    _check_k4(qrows, offsets, indices, torch.bfloat16)
+    # The same rows from a tensor whose storage is exactly the table.
+    exact = torch.empty((R * rb + start,), dtype=torch.int8, device=cuda)[start:].view(R, rb)
+    exact.copy_(src)
+    _check_k4(exact, offsets, indices)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("value", [-128, 127, None])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("L", [257, 258, 300, 5000])
+def test_int8_kernel_long_bags_bit_for_bit(cuda, L, d, value, masked):
+    """Bags of 257, 258, 300 and 5000 rows (past any 16-bit or 8-bit count
+    of rows a lane might keep) whose values are all -128, all 127 or
+    random, masked and not: K1-int8 against its plain version bit for bit
+    (and, unscaled, equal to value * L), K4 on the same rows within
+    rowwise_tolerance."""
+    rows = (6000, 300)
+    q, scale, qrows, offsets, indices, mask = _int8_inputs(cuda, rows, d, 3, L, seed=L + d,
+                                                           masked=masked)
+    if value is not None:
+        q.fill_(value)
+        qrows[:, :d] = value
+    for compute_dt in (torch.float32, torch.bfloat16):
+        got = embedding_bag_int8(q, scale, offsets, indices, compute_dtype=compute_dt,
+                                 mask=mask)
+        torch.cuda.synchronize()
+        want = embedding_bag_int8_reference(q, scale, offsets, indices,
+                                            compute_dtype=compute_dt, mask=mask)
+        assert torch.equal(got, want)
+        _check_k4(qrows, offsets, indices, compute_dt, mask)
+    if value is not None and not masked:
+        sums = embedding_bag_int8(q, torch.ones_like(scale), offsets, indices)
+        assert bool((sums == value * L).all())
+
+
 def _rnn_inputs(cuda, T, B, w_dt, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     lens = torch.randint(0, T + 1, (B,), generator=g, device=cuda, dtype=torch.int32)

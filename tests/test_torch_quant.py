@@ -236,27 +236,39 @@ def test_init_numpy_and_port_init_match_jax_init(name, quant):
 # ---------------------------------------------------- the kernels' arithmetic
 
 def test_int8_kernel_instances_match_the_plans():
-    """The (bags a warp, rows a lane) pairs embedding_bag_int8.cu builds
-    are the ones k1_launch_plan(..., torch.int8) and k4_launch_plan pick."""
+    """The (lanes a row, bags a warp, rows a lane, load hint) instances
+    embedding_bag_int8.cu builds are the ones k1_launch_plan(...,
+    torch.int8) and k4_launch_plan pick. K1-int8: 16 bytes a lane (LPR = D
+    / 16), a slot a bag with U 1 (no hint) or 2 (the hint), and for long bags
+    a warp a bag with U = 2 (d = 32) or 4 bags a warp with U = 4 (d = 64).
+    K4: a slot a bag of 8 values a lane with U 1, or of 16 with U 2 and
+    the hint, and for long bags 16 values a lane, a warp a bag with U 2 (d =
+    32) or 4 bags a warp with U 3 (d = 64)."""
     src = INT8_CU.read_text()
     assert re.search(rf"kWarpsPerBlock = {K1_WARPS_PER_BLOCK};", src)
-    assert set(re.findall(r"DRS_K1I8_CASE\((S|1), (\d)\)", src)) == {
-        ("S", "1"), ("S", "2"), ("S", "4"), ("S", "8"), ("1", "4")}
-    assert set(re.findall(r"DRS_K4_CASE\((S|1), (\d)\)", src)) == {
-        ("S", "1"), ("S", "2"), ("S", "4"), ("S", "8"), ("1", "8")}
+    assert re.search(r"constexpr int LPR = D / 16;", src)
+    assert len(re.findall(r"constexpr int GL = D == 32 \? 1 : 4;", src)) == 2
+    assert re.search(r"constexpr int UL = D == 32 \? 2 : 4;", src)
+    assert re.search(r"constexpr int UL = D == 32 \? 2 : 3;", src)
+    assert set(re.findall(r"launch_int8<TC, D, LPR, (S|GL), (\w+), (true|false)>", src)) == {
+        ("S", "1", "false"), ("S", "2", "true"), ("GL", "UL", "false")}
+    assert re.search(r"constexpr int S8 = 256 / D;", src)
+    assert re.search(r"constexpr int S16 = 512 / D;", src)
+    assert set(re.findall(r"launch_rowwise<TC, D, D / (\d+), (S8|S16|GL), (\w+), (true|false)>",
+                          src)) == {("8", "S8", "1", "false"), ("16", "S16", "2", "true"),
+                                    ("16", "GL", "UL", "false")}
 
 
 def _plans(kernel, n_bags, L, d):
     if kernel == "K1-int8":
         plan = k1_launch_plan(n_bags, L, d, torch.int8)
-        assert plan.row_slots == 32 // (d // 16)
-        assert (plan.bags_per_warp, plan.rows_per_lane) in {
-            (plan.row_slots, u) for u in (1, 2, 4, 8)} | {(1, 4)}
+        assert plan.row_slots == 512 // d
+        allowed = {(512 // d, 1), (512 // d, 2), (1, 2) if d == 32 else (4, 4)}
     else:
         plan = k4_launch_plan(n_bags, L, d)
-        assert plan.row_slots == 32 // (d // 4)
-        assert (plan.bags_per_warp, plan.rows_per_lane) in {
-            (plan.row_slots, u) for u in (1, 2, 4, 8)} | {(1, 8)}
+        assert plan.row_slots == (256 // d if L <= 1 else 512 // d)
+        allowed = {(256 // d, 1), (512 // d, 2), (1, 2) if d == 32 else (4, 3)}
+    assert (plan.bags_per_warp, plan.rows_per_lane) in allowed
     return plan
 
 
@@ -271,7 +283,7 @@ def test_int8_plans_cover_every_bag_and_row_once(n_bags, L, d, kernel, grid_cap)
     so that warps loop over several tasks."""
     plan = _plans(kernel, n_bags, L, d)
     if L <= 8:
-        assert plan.bags_per_warp == plan.row_slots and plan.rows_per_step >= L
+        assert plan.bags_per_warp == plan.row_slots and plan.rows_per_lane == min(L, 2)
     if grid_cap is not None:
         plan = dataclasses.replace(plan, grid=min(plan.grid, grid_cap))
     reads, writes = _k1_coverage(plan, n_bags, L)
@@ -287,6 +299,104 @@ def test_int8_plans_cover_every_zoo_bag_once(name, kernel):
     assert plan.grid * K1_WARPS_PER_BLOCK >= plan.tasks > (plan.grid - 1) * K1_WARPS_PER_BLOCK
     reads, writes = _k1_coverage(plan, n_bags, L)
     assert (reads == 1).all() and (writes == 1).all()
+
+
+# The kernels' addressing and arithmetic, simulated in Python as
+# embedding_bag_int8.cu does it (the card runs the real thing).
+
+def test_k4_values_from_offset_binary_bytes_are_exact():
+    """K4's value of a byte: its offset-binary byte under 2^23's exponent
+    (__byte_perm(y, 0x4b000000, 0x7540 | b)) minus 2^23 + 128, in f32."""
+    b = np.arange(-128, 128, dtype=np.int64)
+    bits = (0x4B000000 | ((b & 0xFF) ^ 0x80)).astype(np.uint32)
+    value = bits.view(np.float32) - np.float32(8388736.0)
+    assert value.dtype == np.float32 and (value == b).all()
+
+
+def _k4_lane_words(buf: np.ndarray, at: int, d: int, lpr: int, r: int) -> list:
+    """The words lane ``r`` of ``lpr`` picks for the row at byte ``at`` of
+    ``buf``: NW = d / lpr / 4 words from the row's word c0 = r * NW, read
+    as NC chunks from the row's address rounded down to 16 plus the chunk
+    of word c0, then picked by selects of 4 (where reachable), 2 and 1
+    words on e = phase + c0 % 4, a clamped index being one no e needs.
+    Asserts that each chunk holds a byte of the row."""
+    nw = d // lpr // 4
+    c0, max_e = r * nw, 3 + (4 - nw if nw < 4 else 0)
+    nc = (max_e + nw) // 4 + 1
+    W = 4 * nc
+    e, start = ((at >> 2) & 3) + c0 % 4, (at & ~15) + 16 * (c0 // 4)
+    for c in range(nc):
+        assert start + 16 * c < at + d + 4 and start + 16 * c + 16 > at
+    w = buf[start:start + 16 * nc].view("<u4")
+    t4 = [w[min(j + 4, W - 1)] if max_e >= 4 and e & 4 else w[j] for j in range(W)]
+    t2 = [t4[min(j + 2, W - 1)] if e & 2 else t4[j] for j in range(W)]
+    return [t2[j + 1] if e & 1 else t2[j] for j in range(nw + 1)]
+
+
+@pytest.mark.parametrize("start", [0, 4, 8, 12])
+@pytest.mark.parametrize("d,lpr", [(32, 1), (32, 2), (32, 4), (32, 8), (64, 1), (64, 2),
+                                   (64, 4), (64, 8), (64, 16)])
+def test_k4_chunks_and_selects_find_every_row_at_every_phase(d, lpr, start):
+    """A (R, d + 4) table starting ``start`` bytes past a 16-byte boundary
+    and ending where its 16-byte-rounded storage ends: every row (all four
+    phases) and every lane's chunks stay inside the storage, and the selects
+    give the lane's values and, on the row's last lane, the scale word."""
+    rb, R = d + 4, 21
+    buf = np.zeros(-(-(start + R * rb) // 16) * 16, np.uint8)
+    table = np.random.default_rng(d + lpr + start).integers(0, 256, (R, rb), dtype=np.uint8)
+    buf[start:start + R * rb] = table.reshape(-1)
+    nw = d // lpr // 4
+    phases = set()
+    for row in range(R):
+        at = start + row * rb
+        phases.add((at >> 2) & 3)
+        words = table[row].view("<u4")
+        for r in range(lpr):
+            got = _k4_lane_words(buf, at, d, lpr, r)
+            assert list(got[:nw]) == list(words[r * nw:(r + 1) * nw])
+            if r == lpr - 1:
+                assert got[nw] == words[d // 4]
+    assert phases == {0, 1, 2, 3}
+
+
+def _reduce_scatter(a: np.ndarray, lpr: int, spb: int) -> np.ndarray:
+    """embedding_bag_int8.cu::reduce_scatter over the 32 lanes' values
+    ``a`` (32, N): strides lpr, 2 lpr, ... < lpr * spb; a lane with the
+    stride's bit set keeps the upper half."""
+    a = a.copy()
+    h, stride = a.shape[1] // 2, lpr
+    while stride < lpr * spb:
+        lanes = np.arange(32)
+        up = (lanes & stride) != 0
+        partner = lanes ^ stride
+        send = np.where(up[:, None], a[:, :h], a[:, h:2 * h])
+        keep = np.where(up[:, None], a[:, h:2 * h], a[:, :h])
+        a[:, :h] = keep + send[partner]
+        h, stride = h // 2, stride * 2
+    return a
+
+
+@pytest.mark.parametrize("lpr,G,cpl", [(1, 1, 32), (2, 1, 16), (2, 1, 32), (4, 1, 16),
+                                       (4, 1, 8), (8, 1, 4), (16, 1, 4), (1, 32, 32),
+                                       (2, 16, 16), (4, 8, 16), (8, 4, 4)])
+def test_reduce_scatter_leaves_each_lane_its_share_of_the_bag(lpr, G, cpl):
+    """After the exchanges, lane (bag bi, slot s, row part r) holds the
+    bag's sums of its row part's columns slot_share(s) = rev(s) * M .. + M,
+    M = cpl / SPB, and the lanes of a bag cover the row once."""
+    spb = 32 // lpr // G
+    m = cpl // spb
+    a = np.random.default_rng(cpl).integers(-1000, 1000, (32, cpl))
+    out = _reduce_scatter(a, lpr, spb)
+    bits = spb.bit_length() - 1
+    covered = np.zeros((G, lpr, cpl), np.int64)
+    for lane in range(32):
+        group, r = divmod(lane, lpr)
+        bi, s = divmod(group, spb)
+        share = int(format(s, f"0{bits}b")[::-1], 2) * m if bits else 0
+        same = [(bi * spb + t) * lpr + r for t in range(spb)]
+        assert (out[lane, :m] == a[same, share:share + m].sum(axis=0)).all()
+        covered[bi, r, share:share + m] += 1
+    assert (covered == 1).all()
 
 
 # ---------------------------------------------------------------- the models
