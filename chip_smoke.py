@@ -34,7 +34,8 @@ Then hot/cold serving (phase 13): K6, the hot/cold lookup, in the three
 table layouts at rm1's, rm2's and din's full shapes on zipf(1.2) ids with
 the JAX package's hot-set rule (masked and not; at rm1 also every id hot,
 none hot and an empty hot set), held to its plain version and to the direct
-kernel on the same ids; rm1 served through ``run_serving`` with
+kernel on the same ids, and its first launch's ``cold_start`` held to
+``torch.searchsorted`` of the cold stream; rm1 served through ``run_serving`` with
 ``embedding_impl="hotcold"`` (every served execution split by the native
 splitter), a refreshing engine on zipf payloads that must upgrade its hot
 set while its scores match the direct model, ``"auto"`` choosing the direct
@@ -92,9 +93,10 @@ from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.experiments.skew_bench import measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.kernel_bench import (
-    HBM_BYTES_PER_S, direct_call, hotcold_calls, hotcold_inputs, k1_bound, k1_int8_bound,
-    k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound, k3b_library, k4_bound,
-    k5_bound, k5_library, k6_call, measure, ptxas_summary, random_int8_tables)
+    HBM_BYTES_PER_S, cold_starts_bound, direct_call, hotcold_calls, hotcold_inputs, k1_bound,
+    k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
+    k3b_library, k4_bound, k5_bound, k5_library, k6_call, measure, named_kernel_ms,
+    ptxas_summary, random_int8_tables, span_ms)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
@@ -107,7 +109,8 @@ from deeprecsys_tpu_torch.ops import (
     sparse_adagrad_step, sparse_adagrad_step_reference)
 from deeprecsys_tpu_torch.ops import hotcold as hotcold_ops
 from deeprecsys_tpu_torch.ops.embedding import (
-    backward_tolerance, hotcold_tolerance, pooled_tolerance, rowwise_tolerance)
+    backward_tolerance, hotcold_cold_starts, hotcold_tolerance, pooled_tolerance,
+    rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.runtime.native import native_available
@@ -1311,7 +1314,9 @@ def hotcold_case(device, quant: str, inp: dict, hot_ids: np.ndarray, mask: np.nd
     host, natively), held to its plain version and to the direct kernel on
     the same ids: per-table int8 bit for bit, float within
     ``hotcold_tolerance``/``pooled_tolerance``, row-wise within
-    ``hotcold_tolerance``/``rowwise_tolerance``. Returns max |K6 - plain|."""
+    ``hotcold_tolerance``/``rowwise_tolerance``; its first launch alone
+    (``hotcold_cold_starts``) held to ``torch.searchsorted`` of the cold
+    stream. Returns max |K6 - plain|."""
     tables, offsets, idx_host = inp["tables"], inp["offsets"], inp["streams"][0]
     index = inp["index"] if hot_ids is inp["hot_ids"] else None
     split = _device_split(device, hotcold_ops.split_hot_cold(
@@ -1321,6 +1326,14 @@ def hotcold_case(device, quant: str, inp: dict, hot_ids: np.ndarray, mask: np.nd
     hot = inp["rows"].index_select(0, torch.as_tensor(hot_ids, dtype=torch.int64, device=device))
     idx = inp["batches"][0][0]
     dmask = None if mask is None else torch.from_numpy(mask).to(device)
+    # K6's first launch alone: each bag's cold start and the first pad.
+    n_bags = idx.shape[0] * idx.shape[1]
+    starts = hotcold_cold_starts(split["cold_seg"], n_bags)
+    synchronize(device)
+    want_starts = torch.searchsorted(split["cold_seg"], torch.arange(
+        n_bags + 1, dtype=torch.int32, device=device))
+    if not torch.equal(starts.long(), want_starts):
+        raise AssertionError(f"K6's cold_start differs from torch.searchsorted ({what})")
     got = k6_call(quant, hot, tables, split, cdt)
     synchronize(device)
     want = k6_call(quant, hot, tables, split, cdt, plain=True)
@@ -1551,7 +1564,13 @@ def hotcold_times(device, card: str) -> dict:
     """K6 in the three layouts at rm1's shape (bf16 output, eight zipf(1.2)
     batches with the JAX hot set) beside its plain version (order plain,
     kernel, kernel, plain), its bound, the direct kernel on the same ids
-    and, for the float table, ``F.embedding_bag`` on the original ids."""
+    and, for the float table, ``F.embedding_bag`` on the original ids. K6's
+    time is the sum of its two launches (``cold_start``, then the pool;
+    ``kernel_bench.launch_sum_ms``), its bound the function's
+    (``kernel_bench.k6_bound``); its span (``kernel_bench.span_ms``,
+    launches that overlap counted once) stands beside the direct kernel's,
+    and on a line of its own the ``cold_start`` launch's time beside that
+    launch's bound (``kernel_bench.cold_starts_bound``)."""
     out = {}
     with torch.inference_mode():
         for quant in ("none",) + QUANT_MODES:
@@ -1564,25 +1583,37 @@ def hotcold_times(device, card: str) -> dict:
             if calls["library"] is not None:
                 runs["s1"] = measure(calls["library"], args, TIMED_ITERS)
             bound = calls["bound"](*args[0])
-            k_dev, p_dev = _mean(runs, ("k1", "k2"), "kernel_ms"), _mean(runs, ("p1", "p2"),
-                                                                         "device_ms")
+            starts_bound = cold_starts_bound(args[0][1])
+            starts = [named_kernel_ms(runs[k], "cold_starts") for k in ("k1", "k2")]
+            starts_ms = None if None in starts else sum(starts) / 2
+            k_dev, p_dev = _mean(runs, ("k1", "k2"), "launch_sum_ms"), _mean(runs, ("p1", "p2"),
+                                                                             "device_ms")
             use_dev = None not in (k_dev, p_dev, runs["direct"]["kernel_ms"])
             lib = runs.get("s1")
             r = {"ms": k_dev if use_dev else _mean(runs, ("k1", "k2"), "wall_ms"),
                  "plain_ms": p_dev if use_dev else _mean(runs, ("p1", "p2"), "wall_ms"),
                  "library_ms": None if lib is None else lib["device_ms" if use_dev else "wall_ms"],
                  "direct_ms": runs["direct"]["kernel_ms" if use_dev else "wall_ms"],
+                 "span_ms": span_ms(calls["kernel"], args),
+                 "direct_span_ms": span_ms(calls["direct"], args),
                  "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                 "cold_starts_ms": starts_ms, "cold_starts_bound_ms": starts_bound["bound_ms"],
                  "coverage": inp["coverage"]}
             out[HOTCOLD[quant]] = r
             B, T, L = args[0][0].shape
             _log(f"[13 hotcold times] {HOTCOLD[quant]} rm1 shape (B={B} T={T} L={L}, bf16 out, "
                  f"zipf(1.2), {inp['hot_rows']} hot rows, coverage {inp['coverage']:.4f}, "
                  f"{bound['bytes'] / 1e6:.2f} MB moved): {r['ms'] * 1e3:.2f} us "
-                 f"({'device' if use_dev else 'wall'}); bound {r['bound_ms'] * 1e3:.2f} us "
+                 f"({'device, both launches' if use_dev else 'wall'}: "
+                 f"{_top(runs['k1'], 2)}); span {r['span_ms'] * 1e3:.2f} us (direct "
+                 f"{r['direct_span_ms'] * 1e3:.2f}); bound {r['bound_ms'] * 1e3:.2f} us "
                  f"({r['bound_by']}); plain {r['plain_ms'] * 1e3:.2f} us; direct kernel on the "
                  f"same ids {r['direct_ms'] * 1e3:.2f} us; library "
                  f"{'none (no PyTorch call pools int8 rows)' if lib is None else _us(r['library_ms']) + ' (F.embedding_bag, original ids)'} "
+                 f"[{card}]")
+            _log(f"[13 hotcold times] {HOTCOLD[quant]} rm1 shape, its cold_start launch: "
+                 f"{_us(starts_ms)} (device, median); bound {_us(starts_bound['bound_ms'])} "
+                 f"({starts_bound['bytes'] / 1e6:.3f} MB: cold_seg read, cold_start written) "
                  f"[{card}]")
             del inp, calls, args
             _free(device)
@@ -1968,7 +1999,7 @@ def train_kernel_times(device, card: str) -> dict:
         lambda g, i: sparse_adagrad_step(table, acc, offsets, i, g, 0.1),
         lambda g, i: sparse_adagrad_step_reference(table, acc, offsets, i, g, 0.1),
         k5_library(table, acc, 0.1), list(zip(gs, ids)), prepared, TIMED_ITERS))
-    out["sparse_adagrad_step"] = {**_timed(runs, "device_ms"),
+    out["sparse_adagrad_step"] = {**_timed(runs, "launch_sum_ms"),
                                   **k5_bound(table, gs[0], offsets, ids[0])}
     del table, acc, prepared
     _free(device)

@@ -8,7 +8,7 @@
 pick. This script chose them: it writes translation units into
 ``build/int8_sweep/`` that include that source and add one C entry point
 over a wider set of instances (lanes a row, rows a lane a step, the load
-hint), builds them with ``ops._build``'s nvcc flags, holds every instance
+hint), builds them (``experiments.sweep_build``), holds every instance
 to its plain version at every zoo shape (K1-int8 bit for bit, K4 within
 ``rowwise_tolerance``), and times it: bf16 output, batch 512, full-size
 tables, 8 batches of uniform ids (the port's generator) and 8 of zipf(1.2)
@@ -26,15 +26,16 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
+from deeprecsys_tpu_torch.experiments.sweep_build import build_units, ptxas_of
+
 KERNELS = (("K1-int8", 32), ("K1-int8", 64), ("K4", 32), ("K4", 64))
-BUILD = Path(__file__).resolve().parents[2] / "build" / "int8_sweep"
+ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def instances(kernel: str, d: int, short: bool) -> list:
@@ -77,29 +78,13 @@ extern "C" int drs_sweep(int lpr, int g, int u, int h, const void* table, const 
 
 def build_all(log) -> dict:
     """One library a (kernel, d), compiled in parallel: {(kernel, d): (CDLL, ptxas lines)}."""
-    from deeprecsys_tpu_torch.kernel_bench import ptxas_summary
     from deeprecsys_tpu_torch.ops import _build
 
-    BUILD.mkdir(parents=True, exist_ok=True)
     src = _build.CSRC / "embedding_bag_int8.cu"
-
-    def one(key):
-        kernel, d = key
-        stem = f"{kernel.replace('-', '_').lower()}_{d}"
-        cu, so = BUILD / f"{stem}.cu", BUILD / f"{stem}.so"
-        cu.write_text(_source(kernel, d, src))
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {cu}:\n{(proc.stdout + proc.stderr)[-4000:]}")
-        lib = ctypes.CDLL(str(so))
-        lib.drs_sweep.restype = ctypes.c_int
-        lib.drs_sweep.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        return lib, ptxas_summary(proc.stdout + proc.stderr)
-
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    stems = {f"{kernel.replace('-', '_').lower()}_{d}": (kernel, d) for kernel, d in KERNELS}
+    built = build_units("int8_sweep", {stem: _source(*key, src) for stem, key in stems.items()},
+                        "drs_sweep", ARGTYPES)
+    libs = {stems[stem]: lib_lines for stem, lib_lines in built.items()}
     for key, (_, lines) in libs.items():
         log(f"{key[0]} d={key[1]}: {len(lines)} instances; ptxas " + "; ".join(lines))
     return libs
@@ -123,8 +108,7 @@ def _call(lib, inst, table, scale, offsets, indices):
 def _ptxas_of(lines: list, kernel: str, d: int, inst) -> str:
     name = "embedding_bag_int8_kernel" if kernel == "K1-int8" else \
         "embedding_bag_int8_rowwise_kernel"
-    tag = f"{name}<bf16, {d}, {inst[0]}, {inst[1]}, {inst[2]}, {int(inst[3])}>"
-    return next((x.split(": ", 1)[1] for x in lines if x.startswith(tag + ":")), "not found")
+    return ptxas_of(lines, f"{name}<bf16, {d}, {inst[0]}, {inst[1]}, {inst[2]}, {int(inst[3])}>")
 
 
 def sweep_model(name: str, libs: dict, log) -> list:

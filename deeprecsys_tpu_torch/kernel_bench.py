@@ -24,11 +24,14 @@ kernel against its plain version and prints, and writes to PATH:
 - each wrapper's host time a call, the mean over back-to-back calls that
   the card keeps up with (rm1's shape and a 32-row sub-batch of dien).
 
-For K6 (``bench_k6``) at rm1's, rm2's and din's shapes on zipf(1.2) ids
-with the JAX package's hot-set rule, in the three table layouts: its time
-and ``k6_bound`` beside the direct kernel of the layout on the same ids
-(K1, K1-int8, K4) and, for float tables, ``F.embedding_bag`` on the
-original ids, which computes the same pooled sums.
+For K6 (``bench_k6``) at every zoo model's shape on zipf(1.2) ids with the
+JAX package's hot-set rule, in the three table layouts: its time, the sum of its two launches
+(``cold_start``, then the pool), each launch's, the wall time and the host
+time a call (K6's wrapper and the direct one's, each the median of 21
+runs), and ``k6_bound`` beside the direct kernel of the layout on the same
+ids (K1, K1-int8, K4) and, for float tables, ``F.embedding_bag`` on the
+original ids, which computes the same pooled sums; the ``cold_start``
+launch's time beside its own bound (``cold_starts_bound``).
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -92,6 +95,9 @@ def measure(fn, args_list, iters: int = 100, traces: int = 3) -> dict:
     by_name = {name: sum(us) / iters for name, us in durations.items()}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "kernel_ms": main_kernel_ms(durations) if dev else None,
+            "launch_sum_ms": launch_sum_ms(durations, iters) if dev else None,
+            "median_ms_by_kernel": {name: float(np.median(us)) / 1e3
+                                    for name, us in durations.items()},
             "launches": len(dev) / iters,
             "kernels": sorted(by_name), "us_by_kernel": by_name}
 
@@ -106,18 +112,58 @@ def main_kernel_ms(durations: dict) -> float:
     return float(np.median(durations[name])) / 1e3
 
 
-def host_us(fn, args, iters: int = 200) -> float:
+def named_kernel_ms(run: dict, part: str):
+    """The median duration (ms) of the kernel of ``measure``'s ``run`` whose
+    name holds ``part``, or None if no kernel's does."""
+    return next((ms for name, ms in run["median_ms_by_kernel"].items() if part in name), None)
+
+
+def span_ms(fn, args_list, iters: int = 50, spin_cycles: int = 200_000) -> float:
+    """Device time a call, from the card reaching the call to its last
+    launch's end (launches that overlap count once, the gaps between them
+    do count): each call queued behind a spin kernel (``torch.cuda._sleep``,
+    ~0.1 ms) so that the host has queued it before the card gets to it, and
+    timed by CUDA events on either side; the median over ``iters`` calls
+    cycling through ``args_list``."""
+    for a in args_list:
+        fn(*a)
+    pairs = []
+    for i in range(iters):
+        torch.cuda._sleep(spin_cycles)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args_list[i % len(args_list)])
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def launch_sum_ms(durations: dict, iters: int) -> float:
+    """A call's device time over all of its launches (K6's two, K5's two):
+    each kernel's median duration (ms) times its launches a call, summed
+    over kernels, from ``{name: [µs of each event]}`` of ``iters`` calls;
+    as ``main_kernel_ms``, a dropped trace event cannot pull it down."""
+    return sum(float(np.median(us)) * max(1, round(len(us) / iters))
+               for us in durations.values()) / 1e3
+
+
+def host_us(fn, args, iters: int = 200, reps: int = 1) -> float:
     """Host time a call, in µs: ``iters`` back-to-back calls timed on the
-    host clock before the closing synchronize."""
-    for _ in range(10):
-        fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / iters * 1e6
+    host clock before the closing synchronize; the median of ``reps`` such
+    runs."""
+    runs = []
+    for _ in range(reps):
+        for _ in range(10):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        runs.append((t1 - t0) / iters * 1e6)
+    return float(np.median(runs))
 
 
 def _bound(nbytes: float, flops: float) -> dict:
@@ -172,13 +218,15 @@ def k4_bound(qrows: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
 
 def k6_bound(hot: torch.Tensor, table: torch.Tensor, split: dict, out_dtype: torch.dtype,
              mode: str = "float") -> dict:
-    """K6's least time on these inputs: each distinct hot row and each
-    distinct cold row the split touches read once (row bytes of the table's
-    layout), ``hot_sel`` and ``hot_mask`` (5 bytes a slot), ``cold_ids`` and
-    ``cold_seg`` (8 bytes a padded cold slot), the per-table scales (int8)
-    and the output; an add a gathered element, plus a multiply an element
-    for row-wise rows and a multiply an output element for per-table int8.
-    ``mode``: "float", "int8" or "int8_rowwise"."""
+    """K6's least time on these inputs, by the bytes the function must move:
+    each distinct hot row and each distinct cold row the split touches read
+    once (row bytes of the table's layout), ``hot_sel`` and ``hot_mask`` (5
+    bytes a slot), ``cold_ids`` and ``cold_seg`` (8 bytes a padded cold
+    slot), the per-table scales (int8) and the output; an add a gathered
+    element, plus a multiply an element for row-wise rows and a multiply an
+    output element for per-table int8. ``cold_start``, the scratch of K6's
+    design, is not the function's: ``cold_starts_bound`` bounds the launch
+    that writes it. ``mode``: "float", "int8" or "int8_rowwise"."""
     hot_sel, hot_mask = split["hot_sel"], split["hot_mask"]
     cold_ids, cold_seg = split["cold_ids"], split["cold_seg"]
     B, T, L = hot_sel.shape
@@ -194,6 +242,14 @@ def k6_bound(hot: torch.Tensor, table: torch.Tensor, split: dict, out_dtype: tor
     flops = gathered * d * (2 if mode == "int8_rowwise" else 1) + (
         B * T * d if mode == "int8" else 0)
     return _bound(nbytes, flops)
+
+
+def cold_starts_bound(split: dict) -> dict:
+    """The least time of K6's first launch alone: ``cold_seg`` read once (4
+    bytes a padded cold slot) and ``cold_start`` written once (4 bytes a
+    bag and one more); it computes nothing."""
+    B, T, _ = split["hot_sel"].shape
+    return _bound(split["cold_seg"].numel() * 4 + (B * T + 1) * 4, 0)
 
 
 def k3_bound(T: int, B: int, H: int, out_dtype: torch.dtype) -> dict:
@@ -517,7 +573,7 @@ def _rate(rows_per_s) -> str:
     return "not measured" if rows_per_s is None else f"{rows_per_s / 1e9:.2f} G rows/s"
 
 
-K6_MODELS = ("rm1", "rm2", "din")
+K6_MODELS = ("rm1", "rm2", "rm3", "wnd", "mtwnd", "ncf", "din", "dien")  # every zoo shape
 K6_LAYOUTS = ("none", "int8", "int8_rowwise")
 
 
@@ -616,11 +672,21 @@ def hotcold_calls(inp: dict, quant: str, cdt: torch.dtype = torch.bfloat16) -> d
                                            "float" if quant == "none" else quant)}
 
 
+HOST_REPS = 21  # host_us runs a K6 row takes the median of
+
+
 def bench_k6(log) -> list:
-    """K6 at rm1's, rm2's and din's shapes on zipf(1.2) ids with the JAX
-    hot-set rule, in the three layouts (bf16 output, 8 batches): device
-    time beside its bound, the direct kernel's time on the same ids and,
-    for float tables, ``F.embedding_bag``'s."""
+    """K6 at every zoo model's shape on zipf(1.2) ids with the JAX hot-set
+    rule, in the three layouts
+    (bf16 output, 8 batches): device time a call, the sum of all of its
+    launches (``launch_sum_ms``; each launch's mean beside it), beside its
+    bound, its span (``span_ms``, the direct kernel's beside it), the wall
+    time a call, the wrapper's host time a call and the direct wrapper's
+    (each the median of ``HOST_REPS`` runs of ``host_us``), the direct
+    kernel's time on the same ids and, for float tables,
+    ``F.embedding_bag``'s. Where K6 has a ``cold_start`` launch, that
+    launch's median time stands beside its own bound
+    (``cold_starts_bound``)."""
     device = torch.device("cuda")
     rows = []
     for name in K6_MODELS:
@@ -635,21 +701,42 @@ def bench_k6(log) -> list:
             run = measure(calls["kernel"], inp["batches"])
             dk = measure(calls["direct"], inp["batches"])
             lib = None if calls["library"] is None else measure(calls["library"], inp["batches"])
+            starts_ms = named_kernel_ms(run, "cold_starts")
             row = {"model": name, "layout": quant, "shape": list(i0.shape),
                    "hot_rows": inp["hot_rows"], "coverage": inp["coverage"],
                    "n_cold": inp["n_cold"][0], **calls["bound"](i0, s0),
-                   "ms": run["kernel_ms"], "wall_ms": run["wall_ms"],
+                   "ms": run["launch_sum_ms"], "span_ms": span_ms(calls["kernel"], inp["batches"]),
+                   "direct_span_ms": span_ms(calls["direct"], inp["batches"]),
+                   "wall_ms": run["wall_ms"],
+                   "launches": run["launches"], "us_by_kernel": run["us_by_kernel"],
+                   "cold_starts_ms": starts_ms,
+                   "cold_starts_bound_ms": cold_starts_bound(s0)["bound_ms"],
+                   "host_us": host_us(calls["kernel"], (i0, s0), reps=HOST_REPS),
+                   "direct_host_us": host_us(calls["direct"], (i0, s0), reps=HOST_REPS),
                    "direct_ms": dk["kernel_ms"],
                    "library_ms": None if lib is None else lib["device_ms"],
                    "max_abs_err_vs_direct": err}
             log(f"K6 {name} {quant} {row['shape']} (coverage {row['coverage']:.4f} of "
-                f"{row['hot_rows']} hot rows): {_us(row['ms'])}; bound {_us(row['bound_ms'])} "
-                f"({row['bound_by']}); direct kernel {_us(row['direct_ms'])}; F.embedding_bag "
-                f"{_us(row['library_ms'])}; max |K6 - direct| {err:.3e}")
+                f"{row['hot_rows']} hot rows): {_us(row['ms'])} in {row['launches']:.0f} "
+                f"launches ({_by_kernel(row['us_by_kernel'])}); span {_us(row['span_ms'])} "
+                f"(direct {_us(row['direct_span_ms'])}); wall {_us(row['wall_ms'])}; "
+                f"host {row['host_us']:.2f} us a call (direct {row['direct_host_us']:.2f}); "
+                f"bound {_us(row['bound_ms'])} ({row['bound_by']}); direct kernel "
+                f"{_us(row['direct_ms'])}; F.embedding_bag {_us(row['library_ms'])}; "
+                f"max |K6 - direct| {err:.3e}")
+            if starts_ms is not None:
+                log(f"K6 {name} {quant} cold_start launch: {_us(row['cold_starts_ms'])}; bound "
+                    f"{_us(row['cold_starts_bound_ms'])} (bytes: cold_seg read, cold_start "
+                    f"written)")
             rows.append(row)
             del inp, calls
             torch.cuda.empty_cache()
     return rows
+
+
+def _by_kernel(us_by_kernel: dict) -> str:
+    return ", ".join(f"{name.split('(')[0].split('<')[0][-40:]} {us:.2f} us"
+                     for name, us in sorted(us_by_kernel.items(), key=lambda kv: -kv[1]))
 
 
 def bench_k1_host(log) -> dict:

@@ -9,17 +9,18 @@
 // into B*T + 1 bags with the last (the pads') dropped, and the two added.
 //
 // Contract (ops/embedding.py checks it):
-//   hot      (K, W)     the hot rows, in the table's layout (K may be 0)
-//   table    (R, W)     bf16 or f32 (W = D), int8 (W = D), or row-wise int8
-//                       (W = D + 4: D values, then the row's f32 scale)
-//   scale    (T,)       f32 per-table scales (per-table int8 only)
-//   hot_sel  (B, T, L)  int32 position in the hot set; read where hot_mask
-//   hot_mask (B, T, L)  uint8/bool: the slot is a hot hit
-//   cold_ids (C_pad,)   int32 fused row ids of the cold lookups
-//   cold_seg (C_pad,)   int32 bag b*T + t of each; non-decreasing, pads
-//                       (bag B*T) last: ops/hotcold.py::split_hot_cold's
-//                       order, which the kernel relies on and does not check
-//   out      (B, T, D)  f32 or bf16
+//   hot        (K, W)      the hot rows, in the table's layout (K may be 0)
+//   table      (R, W)      bf16 or f32 (W = D), int8 (W = D), or row-wise
+//                          int8 (W = D + 4: D values, then the row's f32 scale)
+//   scale      (T,)        f32 per-table scales (per-table int8 only)
+//   hot_sel    (B, T, L)   int32 position in the hot set (0 where not hot)
+//   hot_mask   (B, T, L)   uint8/bool: the slot is a hot hit
+//   cold_ids   (C_pad,)    int32 fused row ids of the cold lookups
+//   cold_seg   (C_pad,)    int32 bag b*T + t of each; non-decreasing, pads
+//                          (bag B*T) last: ops/hotcold.py::split_hot_cold's
+//                          order, which the kernel relies on and does not check
+//   cold_start (B*T + 1,)  int32 scratch, written by K6's first launch
+//   out        (B, T, D)   f32 or bf16
 //
 // Numerics, so that a hot/cold engine scores what the direct one does:
 //   float: each row converted to the compute dtype, hot and cold rows summed
@@ -29,37 +30,67 @@
 //     op's bits;
 //   row-wise int8: each value times its row's scale (__fmul_rn, never fused
 //     into the add), an f32 sum, one rounding (K4's).
+// No atomics: the order of every sum is fixed, so the result is
+// deterministic. Pads (bag B*T) fall in no stored bag. Addresses are 64-bit.
 //
-// Mapping. A lane loads 16 bytes of a row (4 for row-wise rows, which start
-// on 4-byte boundaries only), so P lanes cover a row and a warp has S = 32 / P
-// row slots. The plan (ops/embedding.py::k6_launch_plan) follows L:
-//   * L > 8: a warp a bag g = b*T + t, grid-stride. Each slot has U rows in
-//     flight a step, and a step reads CH = S * U <= 32 slots of the bag: the
-//     step's hot_sel/hot_mask pairs (or cold ids) come in one coalesced load,
-//     one a lane, and reach their slots by __shfl_sync (a missing or
-//     masked-out one is -1 and loads nothing). The cold range [lo, hi) of
-//     bag g is the lower bounds of g and g + 1 in the sorted cold_seg, found
-//     by one warp-wide search, a half-warp each, 16 probes a step (five
-//     dependent steps at 327,680 cold slots). At the end the slots are
-//     combined with __shfl_xor_sync and slot 0 writes the row.
+// What bounds it: the same random row reads as K1 (~21-24 G rows/s from
+// DRAM on an H100, PERF.md), with the hot rows from a K-row table that the
+// L2 (50 MB) holds once warm. At the zoo's shapes every bag of a batch fits
+// in one wave of warps, so a bag's time is the length of its chain of
+// dependent memory round trips. K1's chain is one round trip for the ids,
+// then one a step of rows. The design keeps K6's chain one round trip
+// longer than that, and no more:
+//
+// K6 is two launches on the caller's stream.
+//   1. cold_starts_kernel builds cold_start, the CSR row pointer of the cold
+//      stream: cold_start[g] is the lower bound of g in cold_seg and
+//      cold_start[B*T] the first pad. Entry i writes i into every g in
+//      (cold_seg[i - 1], cold_seg[i]] (cold_seg[-1] = -1, cold_seg[C_pad] =
+//      B*T, clamped to [0, B*T]): every g is written once, coalesced, in
+//      O(C_pad + B*T). A long range (bags with no cold lookup) is written
+//      by the entry's warp, a very long one by its block.
+//   2. The pooling kernel is launched with programmatic dependent launch
+//      (cudaLaunchAttributeProgrammaticStreamSerialization): launch 1
+//      triggers it at its start, and a warp waits for launch 1
+//      (griddepcontrol.wait, what cudaGridDependencySynchronize() issues)
+//      only after it has issued its hot loads, just before it reads
+//      cold_start. Launched without it, K6 takes as long in sum and its
+//      span is longer (experiments/k6_sweep.py --pdl_only, PERF.md).
+//
+// A bag's cold lookups are its non-hot valid slots in order. The kernel
+// cannot see the slot mask, so the non-hot slot of rank r in its bag takes
+// cold entry cold_start[g] + r while r < cold_start[g + 1] - cold_start[g],
+// and nothing after: a ragged bag's padding slots load nothing, and every
+// cold entry is read once, by its own bag, whichever slot reads it.
+// Hot ids do not wait on the mask: hot_mask and hot_sel are loaded side by
+// side (hot_sel is a full (B, T, L) array) and a slot's id is mask ? sel :
+// none. Each slot's row then comes from `hot` or from `table` by one code:
+// c >= 0 is table row c, c <= -2 hot row -2 - c, -1 nothing.
+//
+// Mapping. A lane holds V values of a row (16 bytes for float and per-table
+// int8 rows; row-wise rows start on 4-byte boundaries only and are loaded as
+// K4 loads them, below), so P = D / V lanes cover a row and a warp has S =
+// 32 / P row slots. The plan (ops/embedding.py::k6_launch_plan) follows L:
+//   * L > 8: a warp a bag g = b*T + t, grid-stride. Round trip 1 loads the
+//     bag's hot_mask and hot_sel, NI a lane for a window of 32 * NI slots
+//     (the whole bag up to L = 128), and cold_start[g], cold_start[g + 1].
+//     Ranks of the non-hot slots come from __ballot_sync and __popc below
+//     the lane; round trip 2 loads each lane's cold ids, coalesced. Then
+//     the steps walk the L slots as K1 does, CH = S * U slots a step, each
+//     slot with U rows in flight drawn from either table by its code:
+//     ceil(L / CH) steps. The bag's slots are combined by K1-int8's
+//     reduce-scatter (pooled_rows.cuh) and every lane stores its share.
 //   * L <= 8: a slot a bag, S consecutive bags a warp, each slot with all of
-//     its bag's rows in flight (UB = the power of two >= L). The S bags' hot
-//     slots are S * L consecutive entries; their cold lookups, at most S * L,
-//     are a window of the sorted stream from the first bag's lower bound
-//     (one search a warp, not a bag): both windows are loaded coalesced and
-//     a slot finds its bag's part of the cold window by ballots over the
-//     entries' bags. No combining step: a slot holds its whole bag.
-// Row-wise: a slot's first lane also loads the row's scale and hands it to
-// the slot by __shfl_sync. No atomics: the sum's order is fixed, so the
-// result is deterministic. Pads (bag B*T) fall in no bag. Addresses are
-// 64-bit.
+//     its bag's rows in flight (UB = the power of two >= L). Round trip 1
+//     loads the task's S * L hot entries and its S + 1 starts; round trip 2
+//     the cold window [cold_start[bag0], cold_start[bag0 + S]) (at most
+//     S * L entries), coalesced; a slot picks its entries by shuffles, and
+//     its UB rows, hot or cold, load in one round trip. No combining step.
 //
-// What bounds it: K1's random row reads (~21-24 G rows/s on an H100, PERF.md),
-// plus one byte a slot for the mask: its bytes are K1's with a 1-byte mask
-// beside each 4-byte id. Hot rows come from a K-row table that the L2 (50 MB)
-// holds once warm, so at high coverage most rows are L2 hits; the design
-// keeps U rows a lane in flight from either source, as K1 does, and reads
-// the split arrays coalesced.
+// Row-wise rows (D + 4 bytes, 36 or 68, on 4-byte boundaries only) load as
+// K4 loads them (pooled_rows.cuh, shared with embedding_bag_int8.cu): each
+// lane the 16-byte-aligned chunks over its words, picked by the row's
+// phase, the scale handed from the row's last lane by __shfl_sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,12 +98,45 @@
 
 #include <type_traits>
 
+#include "pooled_rows.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;  // ops/embedding.py::K6_WARPS_PER_BLOCK
+constexpr int kWarpsPerBlock = 8;    // ops/embedding.py::K6_WARPS_PER_BLOCK
+constexpr int kMinBlocksPerSm = 4;
+constexpr int kStartThreads = 256;   // cold_starts_kernel's block
+constexpr int kWarpRange = 8;        // ranges of cold_start a warp writes, from this long
+constexpr int kBlockRange = 256;     // and a block
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode { kFloat = 0, kInt8 = 1, kRowwise = 2 };
+
+// The shipped mapping of a layout (ops/embedding.py::k6_geometry mirrors
+// it): V values a lane, U rows a slot a step (a warp a bag), H the load
+// hint (load_row16), for long bags (kShort false) or a slot a bag.
+// Chosen by measurement on an H100 at rm1's, rm2's and din's shapes
+// (experiments/k6_sweep.py, PERF.md): float (bf16) rows take D / 2 slots a
+// step (2 rows a slot at D = 32, 8 at D = 64); row-wise rows 16 values a
+// lane and 16 slots a step (1 row a slot at D = 32, 2 at D = 64). Cold
+// rows of at most 64 bytes (and row-wise rows) load with the hint (H = 2:
+// they come from DRAM and are rarely read again, while hot rows repeat and
+// the L1 keeps them; the hint on every row cost 5-60% on these zipf ids;
+// on 128-byte rows its 64-byte L2 fetch cost 6%); float short bags load
+// every row with it (H = 1); per-table int8 keeps the mapping of K6's first
+// design (16 bytes a lane, at most 4 rows a slot, 32 slots a step, no hint).
+template <int M, typename TIn, int D, bool kShort>
+struct Shipped {
+  static constexpr int V = M == kRowwise ? 16 : 16 / (int)sizeof(TIn);
+  static constexpr int S = 32 / (D / V);
+  static constexpr int U = M == kRowwise ? 16 / S
+                           : M == kInt8  ? (32 / S < 4 ? 32 / S : 4)
+                                         : (D / 2 / S < 8 ? D / 2 / S : 8);
+  static constexpr int H = M == kInt8                        ? 0
+                           : M == kRowwise                   ? 2
+                           : kShort                          ? 1
+                           : D * (int)sizeof(TIn) <= 64      ? 2
+                                                             : 0;
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -86,271 +150,289 @@ __device__ __forceinline__ float as_compute<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ void to_out(float x, float* p) { *p = x; }
-__device__ __forceinline__ void to_out(float x, __nv_bfloat16* p) { *p = __float2bfloat16_rn(x); }
-
-// Byte j of w, sign-extended.
-__device__ __forceinline__ int byte_at(uint32_t w, int j) {
-  return static_cast<int>(w << (24 - 8 * j)) >> 24;
-}
-
-template <int M, typename TIn, int D>
-struct Geometry {
-  static constexpr int kLoad = M == kRowwise ? 4 : 16;       // bytes a lane loads
-  static constexpr int kElems = kLoad / (int)sizeof(TIn);    // values a lane loads
-  static constexpr int P = D / kElems;                       // lanes a row
-  static constexpr int S = 32 / P;                           // row slots a warp
-  static constexpr int kMaxU = M == kRowwise ? 8 : 4;
-  static constexpr int U = 32 / S < kMaxU ? 32 / S : kMaxU;  // rows a slot a step
-  static constexpr int CH = S * U;                           // slots of the bag a step
-  static constexpr int W = M == kRowwise ? D + 4 : D;        // row stride, elements
-  static_assert(D % kElems == 0 && 32 % P == 0 && CH <= 32, "unsupported width");
-};
-
-// The first index in [0, n) of seg with seg[i] >= g (lanes 0-15) or
-// >= g + 1 (lanes 16-31), n if none: a 16-ary search a half-warp. Invariant:
-// the answer lies in [lo, hi].
-__device__ __forceinline__ int64_t lower_bounds(const int32_t* __restrict__ seg, int64_t n,
-                                                int64_t g, int lane) {
-  const int half = lane >> 4;
-  const int j = lane & 15;
-  const int64_t key = g + half;
-  int64_t lo = 0, hi = n;
-  while (__any_sync(kFull, hi > lo)) {
-    const int64_t len = hi - lo;
-    const int64_t stride = len > 16 ? (len + 15) / 16 : 1;
-    const int64_t p = lo + (j + 1) * stride - 1;  // probe j
-    const bool below = len > 0 && p < hi && (int64_t)__ldg(seg + p) < key;
-    const unsigned ball = __ballot_sync(kFull, below);
-    const int c = __popc((ball >> (16 * half)) & 0xffffu);  // probes below key
-    // Probes below key are a prefix: the answer is past probe c - 1 and
-    // at or before probe c.
-    const int64_t new_lo = lo + (int64_t)c * stride;
-    const int64_t probe_c = lo + (int64_t)(c + 1) * stride - 1;
-    hi = c < 16 && probe_c < hi ? probe_c : hi;
-    lo = new_lo < hi ? new_lo : hi;
+// 16 bytes of a row of either source; kHint 0: no hint, 1: every row with
+// load16's hint, 2: only rows of `table` (cold rows, from DRAM; the L1 keeps
+// hot rows, which repeat).
+template <int kHint>
+__device__ __forceinline__ uint4 load_row16(const void* p, bool cold) {
+  if constexpr (kHint == 2) {
+    return cold ? load16<true>(p) : load16<false>(p);
+  } else {
+    return load16<kHint == 1>(p);
   }
-  return lo;
 }
 
-// Adds rows rid[0..NR) (-1 for none) of `rows` (stride Geometry::W) to
-// this lane's columns of acc.
-template <int M, typename TIn, typename TC, int D, int NR, typename Acc>
-__device__ __forceinline__ void add_rows(Acc (&acc)[Geometry<M, TIn, D>::kElems],
-                                         const TIn* __restrict__ rows, const int32_t (&rid)[NR],
-                                         int lane) {
-  using G = Geometry<M, TIn, D>;
-  const int slot = lane / G::P;
-  const int col = (lane % G::P) * G::kElems;
+// Waits for launch 1 (cudaGridDependencySynchronize()); a no-op when K6 was
+// launched without programmatic dependent launch.
+__device__ __forceinline__ void wait_cold_starts() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launch 1: cold_start[g], g in [0, n_bags], the first i with cold_seg[i] >= g
+// (c_pad if none). A thread an entry; a range of kWarpRange or more bags is
+// written by the thread's warp, one of kBlockRange or more by its block (a
+// batch with few cold entries has long runs of bags with none: with every
+// id hot, one range holds every bag).
+__global__ void __launch_bounds__(kStartThreads)
+cold_starts_kernel(const int32_t* __restrict__ cold_seg, int64_t c_pad, int64_t n_bags,
+                   int32_t* __restrict__ cold_start) {
+  // K6 may start now: what it loads before its wait is not written here
+  // (cudaTriggerProgrammaticLaunchCompletion()).
+  asm volatile("griddepcontrol.launch_dependents;");
+  __shared__ long long block_lo[kStartThreads], block_hi[kStartThreads];
+  __shared__ int block_value[kStartThreads];
+  __shared__ int n_block;
+  const int lane = threadIdx.x & 31;
+  const int64_t i = (int64_t)blockIdx.x * kStartThreads + threadIdx.x;
+  if (threadIdx.x == 0) n_block = 0;
+  int64_t lo = 0, hi = -1;  // entry i writes cold_start[lo..hi]
+  if (i <= c_pad) {
+    const int64_t prev = i == 0 ? -1 : (int64_t)__ldg(cold_seg + i - 1);
+    const int64_t cur = i == c_pad ? n_bags : (int64_t)__ldg(cold_seg + i);
+    lo = prev + 1 > 0 ? prev + 1 : 0;
+    hi = cur < n_bags ? cur : n_bags;
+  }
+  const int64_t len = hi - lo + 1;
+  __syncthreads();
+  if (len >= kBlockRange) {
+    const int k = atomicAdd(&n_block, 1);  // the list's order does not matter: ranges are disjoint
+    block_lo[k] = lo;
+    block_hi[k] = hi;
+    block_value[k] = (int)i;
+  } else if (len < kWarpRange) {
+    for (int64_t g = lo; g <= hi; ++g) cold_start[g] = (int32_t)i;
+  }
+  const bool wide = len >= kWarpRange && len < kBlockRange;
+  for (unsigned ball = __ballot_sync(kFull, wide); ball != 0u; ball &= ball - 1u) {
+    const int src = __ffs(ball) - 1;
+    const long long wl = __shfl_sync(kFull, (long long)lo, src);
+    const long long wh = __shfl_sync(kFull, (long long)hi, src);
+    const int32_t value = (int32_t)__shfl_sync(kFull, (long long)i, src);
+    for (long long g = wl + lane; g <= wh; g += 32) cold_start[g] = value;
+  }
+  __syncthreads();
+  for (int k = 0; k < n_block; ++k) {
+    for (long long g = block_lo[k] + threadIdx.x; g <= block_hi[k]; g += kStartThreads)
+      cold_start[g] = block_value[k];
+  }
+}
+
+// Adds the rows of codes c[0..NR) (table row c >= 0, hot row -2 - c, none
+// -1) to this lane's V columns of acc.
+template <int M, typename TIn, typename TC, int D, int V, int H, int NR, typename Acc>
+__device__ __forceinline__ void add_rows(Acc (&acc)[V], const TIn* __restrict__ hot,
+                                         const TIn* __restrict__ table,
+                                         const int32_t (&c)[NR], int lane) {
+  constexpr int P = D / V;
   if constexpr (M == kRowwise) {
-    const int leader = slot * G::P;
-    uint32_t w[NR];
-    float sc[NR];
+    constexpr int NW = V / 4;
+    constexpr int NC = RowChunks<NW>::NC;
+    const int c0 = (lane % P) * NW;
+    uint4 win[NR][NC];
+    uint32_t e[NR];
 #pragma unroll
     for (int u = 0; u < NR; ++u) {
-      w[u] = 0u;
-      sc[u] = 0.f;
-      if (rid[u] >= 0) {
-        const int8_t* row = reinterpret_cast<const int8_t*>(rows) + (int64_t)rid[u] * G::W;
-        w[u] = __ldg(reinterpret_cast<const uint32_t*>(row + col));
-        if (lane == leader) sc[u] = __ldg(reinterpret_cast<const float*>(row + D));
+#pragma unroll
+      for (int k = 0; k < NC; ++k) win[u][k] = make_uint4(0u, 0u, 0u, 0u);
+      e[u] = 0u;
+      if (c[u] != -1) {
+        const bool cold = c[u] >= 0;
+        const int64_t row = cold ? (int64_t)c[u] : -2 - (int64_t)c[u];
+        const uint4* chunk =
+            row_window(reinterpret_cast<uintptr_t>(cold ? table : hot) + row * (D + 4), c0, e[u]);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) win[u][k] = load_row16<H>(chunk + k, cold);
       }
     }
 #pragma unroll
     for (int u = 0; u < NR; ++u) {
-      const float row_scale = __shfl_sync(kFull, sc[u], leader);
-#pragma unroll
-      for (int j = 0; j < G::kElems; ++j)
-        acc[j] += __fmul_rn(static_cast<float>(byte_at(w[u], j)), row_scale);
+      uint32_t x[NW + 1];
+      pick_words<NW>(win[u], e[u], x);
+      float row_scale = __uint_as_float(x[NW]);
+      if constexpr (P > 1) row_scale = __shfl_sync(kFull, row_scale, lane | (P - 1));
+      add_scaled<NW>(acc, x, row_scale);
     }
   } else {
+    static_assert(V * sizeof(TIn) == 16, "float and int8 lanes load 16 bytes");
+    const int col = (lane % P) * V;
     uint4 v[NR];
 #pragma unroll
     for (int u = 0; u < NR; ++u) {
       v[u] = make_uint4(0u, 0u, 0u, 0u);  // zero bits: +0.0 in f32 and bf16, 0 in int8
-      if (rid[u] >= 0)
-        v[u] = __ldg(reinterpret_cast<const uint4*>(rows + (int64_t)rid[u] * G::W + col));
+      if (c[u] != -1) {
+        const bool cold = c[u] >= 0;
+        const int64_t row = cold ? (int64_t)c[u] : -2 - (int64_t)c[u];
+        v[u] = load_row16<H>((cold ? table : hot) + row * D + col, cold);
+      }
     }
 #pragma unroll
     for (int u = 0; u < NR; ++u) {
       if constexpr (M == kInt8) {
         const uint32_t w4[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int k = 0; k < 4; ++k) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[4 * c + j] += byte_at(w4[c], j);
+          for (int j = 0; j < 4; ++j) acc[4 * k + j] += byte_at(w4[k], j);
         }
       } else {
-        const TIn* e = reinterpret_cast<const TIn*>(&v[u]);
+        const TIn* x = reinterpret_cast<const TIn*>(&v[u]);
 #pragma unroll
-        for (int i = 0; i < G::kElems; ++i) acc[i] += as_compute<TC>(to_float(e[i]));
+        for (int i = 0; i < V; ++i) acc[i] += as_compute<TC>(to_float(x[i]));
       }
     }
   }
 }
 
-// Entry k (0 <= k < 32 * NI) of a window held one a lane: lane k % 32's
-// ids[k / 32]. Every lane takes part.
-template <int NI>
-__device__ __forceinline__ int32_t id_of(const int32_t (&ids)[NI], int k) {
-  int32_t id = __shfl_sync(kFull, ids[0], k & 31);
-#pragma unroll
-  for (int r = 1; r < NI; ++r) {
-    const int32_t other = __shfl_sync(kFull, ids[r], k & 31);
-    if ((k >> 5) == r) id = other;
-  }
-  return id;
-}
-
-// Writes this lane's columns of bag's pooled row, finished (per-table int8:
-// times the table's scale) and rounded once to TC.
-template <int M, typename TIn, typename TC, int D, typename Acc>
-__device__ __forceinline__ void store_bag(const Acc (&acc)[Geometry<M, TIn, D>::kElems],
-                                          TC* __restrict__ out, const float* __restrict__ scale,
-                                          int64_t bag, int T, int col) {
-  using G = Geometry<M, TIn, D>;
-  float o[G::kElems];
+// N values of bag `bag` at dst (per-table int8: times its table's scale),
+// rounded once to TC (store_row).
+template <int M, typename TC, int N, typename Acc>
+__device__ __forceinline__ void store_vals(TC* dst, const Acc* a, const float* __restrict__ scale,
+                                           int64_t bag, int T) {
+  float o[N];
   if constexpr (M == kInt8) {
     const float sc = __ldg(scale + bag % T);
 #pragma unroll
-    for (int i = 0; i < G::kElems; ++i) o[i] = __fmul_rn(static_cast<float>(acc[i]), sc);
+    for (int i = 0; i < N; ++i) o[i] = __fmul_rn(static_cast<float>(a[i]), sc);
   } else {
 #pragma unroll
-    for (int i = 0; i < G::kElems; ++i) o[i] = acc[i];
+    for (int i = 0; i < N; ++i) o[i] = a[i];
   }
-  // kElems * sizeof(TC) is 64, 32, 16 or 8 bytes and col starts a run of
-  // that many: whole 16-byte stores, or one 8-byte store.
-  __align__(16) TC ov[G::kElems];
-#pragma unroll
-  for (int i = 0; i < G::kElems; ++i) to_out(o[i], ov + i);
-  TC* dst = out + bag * D + col;
-  if constexpr (G::kElems * sizeof(TC) >= 16) {
-#pragma unroll
-    for (int c = 0; c < (int)(G::kElems * sizeof(TC) / 16); ++c)
-      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(ov)[c];
-  } else {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(ov);
-  }
+  store_row<TC>(dst, o);
 }
 
-// UB = 0: a warp a bag (L > 8). UB in {1, 2, 4, 8} (L <= UB): a slot a bag,
-// S bags a warp, each slot with all of its bag's rows in flight.
-template <int M, typename TIn, typename TC, int D, int UB>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Launch 2. UB = 0: a warp a bag (L > 8), windows of 32 * NI slots. UB in
+// {1, 2, 4, 8} (L <= UB): a slot a bag, S bags a warp.
+template <int M, typename TIn, typename TC, int D, int V, int U, int H, int UB, int NI>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict__ table,
                              const float* __restrict__ scale,
                              const int32_t* __restrict__ hot_sel,
                              const uint8_t* __restrict__ hot_mask,
                              const int32_t* __restrict__ cold_ids,
-                             const int32_t* __restrict__ cold_seg, int64_t c_pad,
+                             const int32_t* cold_start,  // launch 1's: read past the wait only
                              TC* __restrict__ out, int64_t n_bags, int T, int L) {
-  using G = Geometry<M, TIn, D>;
+  constexpr int P = D / V;   // lanes a row
+  constexpr int S = 32 / P;  // row slots a warp
   using Acc = typename std::conditional<M == kInt8, int, float>::type;
+  static_assert(D % V == 0 && 32 % P == 0 && V % S == 0, "unsupported mapping");
   const int lane = threadIdx.x & 31;
-  const int slot = lane / G::P;
-  const int col = (lane % G::P) * G::kElems;
+  const int slot = lane / P;
   const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int64_t warps = (int64_t)gridDim.x * kWarpsPerBlock;
+  bool waited = false;
 
   if constexpr (UB == 0) {
+    constexpr int CH = S * U;      // slots of the bag a step
+    constexpr int WIN = 32 * NI;   // slots a window
+    static_assert(WIN % CH == 0, "a window is whole steps");
+    const unsigned below = (1u << lane) - 1u;
     for (int64_t bag = warp; bag < n_bags; bag += warps) {
-      Acc acc[G::kElems];
+      Acc acc[V];
 #pragma unroll
-      for (int i = 0; i < G::kElems; ++i) acc[i] = 0;
-      int32_t rid[G::U];
-
-      // Hot hits: the bag's L slots, CH a step; row u of a slot is the
-      // step's entry u * S + slot.
+      for (int i = 0; i < V; ++i) acc[i] = 0;
       const int64_t h0 = bag * L;
-      for (int c0 = 0; c0 < L; c0 += G::CH) {
-        int32_t id = -1;
-        if (lane < G::CH && c0 + lane < L && __ldg(hot_mask + h0 + c0 + lane) != 0)
-          id = __ldg(hot_sel + h0 + c0 + lane);
+      int64_t lo = 0;
+      int n_cold = 0, carry = 0;  // the bag's cold entries; non-hot slots of earlier windows
+      for (int w0 = 0; w0 < L; w0 += WIN) {
+        // Round trip 1: the window's masks and hot ids side by side, and
+        // (first window) the bag's cold range.
+        bool in[NI], hit[NI];
+        int32_t sel[NI], code[NI];
 #pragma unroll
-        for (int u = 0; u < G::U; ++u) rid[u] = __shfl_sync(kFull, id, u * G::S + slot);
-        add_rows<M, TIn, TC, D>(acc, hot, rid, lane);
+        for (int r = 0; r < NI; ++r) {
+          const int l = w0 + r * 32 + lane;
+          in[r] = l < L;
+          hit[r] = in[r] && __ldg(hot_mask + h0 + l) != 0;
+          sel[r] = in[r] ? __ldg(hot_sel + h0 + l) : 0;
+        }
+        if (w0 == 0) {
+          wait_cold_starts();
+          waited = true;
+          const int32_t a = __ldcg(cold_start + bag), b = __ldcg(cold_start + bag + 1);
+          lo = a;
+          n_cold = b - a;
+        }
+        // Round trip 2: the cold id of each non-hot slot of rank < n_cold.
+#pragma unroll
+        for (int r = 0; r < NI; ++r) {
+          const unsigned cold_ball = __ballot_sync(kFull, in[r] && !hit[r]);
+          const int rank = carry + __popc(cold_ball & below);
+          carry += __popc(cold_ball);
+          const bool cold = in[r] && !hit[r] && rank < n_cold;
+          code[r] = cold ? __ldg(cold_ids + lo + rank) : -1;
+        }
+#pragma unroll
+        for (int r = 0; r < NI; ++r) code[r] = hit[r] ? -2 - sel[r] : code[r];
+        // The steps: row u of a slot is the step's slot u * S + slot.
+#pragma unroll
+        for (int k = 0; k < WIN / CH; ++k) {
+          if (w0 + k * CH >= L) break;
+          int32_t rid[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            rid[u] = __shfl_sync(kFull, code[(k * CH + u * S) >> 5], (k * CH + u * S + slot) & 31);
+          add_rows<M, TIn, TC, D, V, H>(acc, hot, table, rid, lane);
+        }
       }
-
-      // Cold lookups: the bag's contiguous range of the sorted stream.
-      const int64_t bounds = lower_bounds(cold_seg, c_pad, bag, lane);
-      const int64_t lo = __shfl_sync(kFull, bounds, 0);
-      const int64_t hi = __shfl_sync(kFull, bounds, 16);
-      for (int64_t c0 = lo; c0 < hi; c0 += G::CH) {
-        int32_t id = -1;
-        if (lane < G::CH && c0 + lane < hi) id = __ldg(cold_ids + c0 + lane);
-#pragma unroll
-        for (int u = 0; u < G::U; ++u) rid[u] = __shfl_sync(kFull, id, u * G::S + slot);
-        add_rows<M, TIn, TC, D>(acc, table, rid, lane);
-      }
-
-#pragma unroll
-      for (int off = G::P; off < 32; off <<= 1) {
-#pragma unroll
-        for (int i = 0; i < G::kElems; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
-      }
-      if (slot == 0) store_bag<M, TIn, TC, D>(acc, out, scale, bag, T, col);
+      reduce_scatter<P, 32, V / 2>(acc, lane);
+      store_vals<M, TC, V / S>(out + bag * D + (lane % P) * V + slot_share<V, S>(slot), acc,
+                               scale, bag, T);
     }
   } else {
-    // S bags a task, slot s holding bag bag0 + s. Their hot slots are the
-    // task's S * L consecutive entries, and their cold lookups a window of
-    // at most S * L entries of the sorted stream from the first bag's lower
-    // bound: both loaded coalesced, a window of NI ids a lane.
-    constexpr int NW = G::S * UB;
-    constexpr int NI = (NW + 31) / 32;
-    const int64_t n_tasks = (n_bags + G::S - 1) / G::S;
+    // S bags a task, slot s holding bag bag0 + s.
+    constexpr int NW = S * UB;
+    constexpr int NJ = (NW + 31) / 32;
+    const int64_t n_tasks = (n_bags + S - 1) / S;
     for (int64_t task = warp; task < n_tasks; task += warps) {
-      const int64_t bag0 = task * G::S;
+      const int64_t bag0 = task * S;
       const int64_t bag = bag0 + slot;
-      Acc acc[G::kElems];
+      const int nb = n_bags - bag0 < S ? (int)(n_bags - bag0) : S;
+      const int window = nb * L;
+      // Round trip 1: the task's S * L hot entries and its S + 1 starts.
+      int32_t hcode[NJ], cw[NJ];
 #pragma unroll
-      for (int i = 0; i < G::kElems; ++i) acc[i] = 0;
-      int32_t ids[NI], rid[UB];
-
-      const int64_t window = (n_bags - bag0 < G::S ? n_bags - bag0 : G::S) * L;
-#pragma unroll
-      for (int r = 0; r < NI; ++r) {
+      for (int r = 0; r < NJ; ++r) {
         const int k = r * 32 + lane;
         const int64_t at = bag0 * L + k;
-        ids[r] = k < window && __ldg(hot_mask + at) != 0 ? __ldg(hot_sel + at) : -1;
+        const bool hit = k < window && __ldg(hot_mask + at) != 0;
+        const int32_t sel = k < window ? __ldg(hot_sel + at) : 0;
+        hcode[r] = hit ? -2 - sel : -1;
       }
+      wait_cold_starts();
+      waited = true;
+      const int32_t st = __ldcg(cold_start + bag0 + (lane < nb ? lane : nb));
+      const int32_t end = __ldcg(cold_start + bag0 + nb);
+      const int32_t lo0 = __shfl_sync(kFull, st, 0);
+      const int32_t first = __shfl_sync(kFull, st, slot);
+      const int32_t next = __shfl_sync(kFull, st, (slot + 1) & 31);
+      const int32_t last = slot + 1 < nb ? next : (slot < nb ? end : first);
+      // Round trip 2: the cold window [lo0, end), at most S * L entries.
+#pragma unroll
+      for (int r = 0; r < NJ; ++r) {
+        const int k = r * 32 + lane;
+        cw[r] = lo0 + k < end ? __ldg(cold_ids + lo0 + k) : -1;
+      }
+      // Slot position u: its hot id, or the bag's next cold entry.
+      int32_t code[UB];
+      int rank = first - lo0;
+      const int stop = last - lo0;
 #pragma unroll
       for (int u = 0; u < UB; ++u) {
-        const int32_t id = id_of<NI>(ids, slot * L + u);
-        rid[u] = u < L ? id : -1;
+        const int32_t h = id_of<NJ>(hcode, slot * L + u < NW ? slot * L + u : NW - 1);
+        const int32_t c = id_of<NJ>(cw, rank < NW ? rank : NW - 1);
+        const bool live = u < L;
+        code[u] = !live ? -1 : h != -1 ? h : rank < stop ? c : -1;
+        rank += live && h == -1;
       }
-      add_rows<M, TIn, TC, D>(acc, hot, rid, lane);
-
-      const int64_t lo = __shfl_sync(kFull, lower_bounds(cold_seg, c_pad, bag0, lane), 0);
-      int32_t offs[NI];  // each window entry's bag within the task; S past it
+      Acc acc[V];
 #pragma unroll
-      for (int r = 0; r < NI; ++r) {
-        const int64_t at = lo + r * 32 + lane;
-        const bool in = r * 32 + lane < NW && at < c_pad;
-        const int64_t off = in ? (int64_t)__ldg(cold_seg + at) - bag0 : G::S;
-        offs[r] = off < G::S ? (int)off : G::S;
-        ids[r] = in ? __ldg(cold_ids + at) : -1;
-      }
-      // This slot's bag's entries are [first, last) of the window: the
-      // entries of the bags before it, and of it.
-      int first = 0, last = 0;
-#pragma unroll
-      for (int b = 1; b <= G::S; ++b) {
-        int below = 0;
-#pragma unroll
-        for (int r = 0; r < NI; ++r) below += __popc(__ballot_sync(kFull, offs[r] < b));
-        if (b == slot) first = below;
-        if (b == slot + 1) last = below;
-      }
-#pragma unroll
-      for (int u = 0; u < UB; ++u) {
-        const int32_t id = id_of<NI>(ids, first + u);
-        rid[u] = first + u < last ? id : -1;
-      }
-      add_rows<M, TIn, TC, D>(acc, table, rid, lane);
-
-      if (bag < n_bags) store_bag<M, TIn, TC, D>(acc, out, scale, bag, T, col);
+      for (int i = 0; i < V; ++i) acc[i] = 0;
+      add_rows<M, TIn, TC, D, V, H>(acc, hot, table, code, lane);
+      if (bag < n_bags) store_vals<M, TC, V>(out + bag * D + (lane % P) * V, acc, scale, bag, T);
     }
   }
+  // A warp with no task still waits, so K6 never ends before launch 1.
+  if (!waited) wait_cold_starts();
 }
 
 struct Args {
@@ -362,75 +444,137 @@ struct Args {
   const int32_t* cold_ids;
   const int32_t* cold_seg;
   int64_t c_pad;
+  int32_t* cold_start;
   void* out;
   int64_t n_bags;
   int T, L, grid;
   cudaStream_t stream;
 };
 
-template <int M, typename TIn, typename TC, int D, int UB>
-int launch(const Args& a) {
-  embedding_bag_hotcold_kernel<M, TIn, TC, D, UB><<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
-      static_cast<const TIn*>(a.hot), static_cast<const TIn*>(a.table), a.scale, a.hot_sel,
-      a.hot_mask, a.cold_ids, a.cold_seg, a.c_pad, static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
+int launch_cold_starts(const Args& a) {
+  const int64_t blocks = (a.c_pad + 1 + kStartThreads - 1) / kStartThreads;
+  cold_starts_kernel<<<(unsigned)blocks, kStartThreads, 0, a.stream>>>(a.cold_seg, a.c_pad,
+                                                                     a.n_bags, a.cold_start);
   return (int)cudaGetLastError();
 }
 
+// Launch 2 with mapping (V, U, H) and plan (UB, NI), with programmatic
+// dependent launch unless the caller says otherwise (the sweep measures both).
+template <int M, typename TIn, typename TC, int D, int V, int U, int H, int UB, int NI>
+int launch(const Args& a, bool pdl = true) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.grid);
+  cfg.blockDim = dim3(kWarpsPerBlock * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(
+      &cfg, embedding_bag_hotcold_kernel<M, TIn, TC, D, V, U, H, UB, NI>,
+      static_cast<const TIn*>(a.hot), static_cast<const TIn*>(a.table), a.scale, a.hot_sel,
+      a.hot_mask, a.cold_ids, static_cast<const int32_t*>(a.cold_start), static_cast<TC*>(a.out),
+      a.n_bags, a.T, a.L);
+}
+
 // The plans ops/embedding.py::k6_launch_plan picks: rows_per_slot 0 (a warp
-// a bag) for L > 8, else the power of two >= L.
+// a bag) for L > 8 with NI in {1, 2, 4}, else the power of two >= L; each
+// with the layout's shipped mapping (the hint only where a slot loads more
+// than one row).
 template <int M, typename TIn, typename TC, int D>
-int launch_plan(int rows_per_slot, const Args& a) {
+int launch_plan(int rows_per_slot, int ids_per_lane, const Args& a) {
+  using LB = Shipped<M, TIn, D, false>;
+  using SB = Shipped<M, TIn, D, true>;
+  constexpr int kMinNI = LB::S * LB::U / 32 > 1 ? LB::S * LB::U / 32 : 1;  // a step in a window
+  if (rows_per_slot == 0) {
+    switch (ids_per_lane) {
+      case 1: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, kMinNI>(a);
+      case 2: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, (kMinNI > 2 ? kMinNI : 2)>(a);
+      case 4: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, 4>(a);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (rows_per_slot) {
-    case 0: return launch<M, TIn, TC, D, 0>(a);
-    case 1: return launch<M, TIn, TC, D, 1>(a);
-    case 2: return launch<M, TIn, TC, D, 2>(a);
-    case 4: return launch<M, TIn, TC, D, 4>(a);
-    case 8: return launch<M, TIn, TC, D, 8>(a);
+    case 1: return launch<M, TIn, TC, D, SB::V, 1, 0, 1, 1>(a);  // one row: no hint, as K1
+    case 2: return launch<M, TIn, TC, D, SB::V, 1, SB::H, 2, 1>(a);
+    case 4: return launch<M, TIn, TC, D, SB::V, 1, SB::H, 4, 1>(a);
+    case 8: return launch<M, TIn, TC, D, SB::V, 1, SB::H, 8, 1>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <int M, typename TIn, typename TC>
-int launch_width(int d, int rows_per_slot, const Args& a) {
-  if (d == 32) return launch_plan<M, TIn, TC, 32>(rows_per_slot, a);
-  if (d == 64) return launch_plan<M, TIn, TC, 64>(rows_per_slot, a);
+int launch_width(int d, int rows_per_slot, int ids_per_lane, const Args& a) {
+  if (d == 32) return launch_plan<M, TIn, TC, 32>(rows_per_slot, ids_per_lane, a);
+  if (d == 64) return launch_plan<M, TIn, TC, 64>(rows_per_slot, ids_per_lane, a);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int M, typename TIn>
-int launch_out(int out_dtype, int d, int rows_per_slot, const Args& a) {
-  if (out_dtype == 0) return launch_width<M, TIn, float>(d, rows_per_slot, a);
-  if (out_dtype == 1) return launch_width<M, TIn, __nv_bfloat16>(d, rows_per_slot, a);
+int launch_out(int out_dtype, int d, int rows_per_slot, int ids_per_lane, const Args& a) {
+  if (out_dtype == 0) return launch_width<M, TIn, float>(d, rows_per_slot, ids_per_lane, a);
+  if (out_dtype == 1)
+    return launch_width<M, TIn, __nv_bfloat16>(d, rows_per_slot, ids_per_lane, a);
   return (int)cudaErrorInvalidValue;
+}
+
+Args make_args(const void* hot, const void* table, const void* scale, const void* hot_sel,
+               const void* hot_mask, const void* cold_ids, const void* cold_seg, int64_t c_pad,
+               void* cold_start, void* out, int64_t n_bags, int T, int L, int grid,
+               void* stream) {
+  return Args{hot, table, static_cast<const float*>(scale),
+              static_cast<const int32_t*>(hot_sel), static_cast<const uint8_t*>(hot_mask),
+              static_cast<const int32_t*>(cold_ids), static_cast<const int32_t*>(cold_seg),
+              c_pad, static_cast<int32_t*>(cold_start), out, n_bags, T, L, grid,
+              static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
 extern "C" {
 
-// mode: 0 float table (table_dtype 0 = f32, 1 = bf16), 1 per-table int8,
-// 2 row-wise int8. out_dtype: 0 = f32, 1 = bf16. (rows_per_slot, grid):
-// ops/embedding.py::k6_launch_plan's. Returns the cudaError_t of the launch
-// (0 = success). The caller validates shapes, alignment and the cold
-// stream's order.
+// Both of K6's launches. mode: 0 float table (table_dtype 0 = f32, 1 =
+// bf16), 1 per-table int8, 2 row-wise int8. out_dtype: 0 = f32, 1 = bf16.
+// (rows_per_slot, ids_per_lane, grid): ops/embedding.py::k6_launch_plan's.
+// Launch 2 depends on launch 1 by programmatic dependent launch.
+// cold_start: (n_bags + 1) int32 scratch. Returns the first nonzero
+// cudaError_t of the two launches (0 = success). The caller validates
+// shapes, alignment and the cold stream's order.
 int drs_embedding_bag_hotcold(int mode, int table_dtype, int d, const void* hot,
                               const void* table, const void* scale, const void* hot_sel,
                               const void* hot_mask, const void* cold_ids, const void* cold_seg,
-                              int64_t c_pad, void* out, int out_dtype, int64_t n_bags, int T,
-                              int L, int rows_per_slot, int grid, void* stream) {
+                              int64_t c_pad, void* cold_start, void* out, int out_dtype,
+                              int64_t n_bags, int T, int L, int rows_per_slot,
+                              int ids_per_lane, int grid, void* stream) {
   if (n_bags <= 0) return 0;
-  if (grid <= 0 || (rows_per_slot > 0 && L > rows_per_slot)) return (int)cudaErrorInvalidValue;
-  const Args a{hot, table, static_cast<const float*>(scale),
-               static_cast<const int32_t*>(hot_sel), static_cast<const uint8_t*>(hot_mask),
-               static_cast<const int32_t*>(cold_ids), static_cast<const int32_t*>(cold_seg),
-               c_pad, out, n_bags, T, L, grid, static_cast<cudaStream_t>(stream)};
-  const int u = rows_per_slot;
-  if (mode == kFloat && table_dtype == 0) return launch_out<kFloat, float>(out_dtype, d, u, a);
+  if (grid <= 0 || c_pad < 0 || (rows_per_slot > 0 && L > rows_per_slot))
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(hot, table, scale, hot_sel, hot_mask, cold_ids, cold_seg, c_pad,
+                           cold_start, out, n_bags, T, L, grid, stream);
+  const int err = launch_cold_starts(a);
+  if (err != 0) return err;
+  const int u = rows_per_slot, ni = ids_per_lane;
+  if (mode == kFloat && table_dtype == 0) return launch_out<kFloat, float>(out_dtype, d, u, ni, a);
   if (mode == kFloat && table_dtype == 1)
-    return launch_out<kFloat, __nv_bfloat16>(out_dtype, d, u, a);
-  if (mode == kInt8) return launch_out<kInt8, int8_t>(out_dtype, d, u, a);
-  if (mode == kRowwise) return launch_out<kRowwise, int8_t>(out_dtype, d, u, a);
+    return launch_out<kFloat, __nv_bfloat16>(out_dtype, d, u, ni, a);
+  if (mode == kInt8) return launch_out<kInt8, int8_t>(out_dtype, d, u, ni, a);
+  if (mode == kRowwise) return launch_out<kRowwise, int8_t>(out_dtype, d, u, ni, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launch 1 alone, for checks: cold_start (n_bags + 1) of cold_seg (c_pad).
+int drs_hotcold_cold_starts(const void* cold_seg, int64_t c_pad, void* cold_start,
+                            int64_t n_bags, void* stream) {
+  if (n_bags < 0 || c_pad < 0) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.cold_seg = static_cast<const int32_t*>(cold_seg);
+  a.c_pad = c_pad;
+  a.cold_start = static_cast<int32_t*>(cold_start);
+  a.n_bags = n_bags;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return launch_cold_starts(a);
 }
 
 const char* drs_cuda_error_string(int err) {

@@ -44,7 +44,7 @@
 // its bag and loads two rows a step: at din it saves 3 us of 19-23 on
 // uniform ids, while on long bags it costs 25-60% on zipf(1.2) ids, whose
 // head rows the L1 holds. A bag's slots are combined by a
-// reduce-scatter (reduce_scatter below): each of log2(SPB) exchanges halves
+// reduce-scatter (reduce_scatter, pooled_rows.cuh): each of log2(SPB) exchanges halves
 // the columns a lane holds, so a lane of CPL columns spends CPL - CPL / SPB
 // shuffles instead of CPL * log2(SPB), and every lane stores its share.
 //
@@ -80,29 +80,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pooled_rows.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;   // ops/embedding.py::K1_WARPS_PER_BLOCK
 constexpr int kMinBlocksPerSm = 4;
-constexpr uint32_t kOffset = 0x80808080u;  // x ^ kOffset: each byte + 128, unsigned
-
-__device__ __forceinline__ void to_out(float x, float* p) { *p = x; }
-__device__ __forceinline__ void to_out(float x, __nv_bfloat16* p) { *p = __float2bfloat16_rn(x); }
-
-// 16 bytes at p; kHint: no L1 line for a row that is never read again, and
-// no L2 prefetch past 64 bytes (K1's hint, embedding_bag.cu).
-template <bool kHint>
-__device__ __forceinline__ uint4 load16(const void* p) {
-  if constexpr (kHint) {
-    uint4 v;
-    asm volatile("ld.global.nc.L1::no_allocate.L2::64B.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-                 : "l"(p));
-    return v;
-  } else {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-}
 
 // The ids of step `step0` for the warp's G bags, id -1 where a slot is past
 // L, past the last bag, or masked out; id k of the step is (bag0 + k / RPS,
@@ -124,80 +107,6 @@ __device__ __forceinline__ void load_ids(int32_t (&ids)[NI], const int32_t* __re
     }
     ids[r] = id;
   }
-}
-
-// Id k of the step, from the lane that loaded it (every lane takes part).
-template <int NI>
-__device__ __forceinline__ int32_t id_of(const int32_t (&ids)[NI], int k) {
-  int32_t id = __shfl_sync(0xffffffffu, ids[0], k & 31);
-#pragma unroll
-  for (int r = 1; r < NI; ++r) {
-    const int32_t other = __shfl_sync(0xffffffffu, ids[r], k & 31);
-    if ((k >> 5) == r) id = other;
-  }
-  return id;
-}
-
-// A bag's sums of a[0..N) over its slots, the lanes lane ^ k * STRIDE for
-// k < END / STRIDE (a power of two), by reduce-scatter: at each exchange a
-// lane whose STRIDE bit is set keeps the upper half of the values it holds
-// and its partner the lower half, each adding the other's copy. A lane
-// ends with N * STRIDE / END sums in a[0..), those of its columns from
-// slot_share on.
-template <int STRIDE, int END, int H, typename V, int N>
-__device__ __forceinline__ void reduce_scatter(V (&a)[N], int lane) {
-  if constexpr (STRIDE < END) {
-    const bool up = (lane & STRIDE) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const V send = up ? a[i] : a[i + H];
-      const V keep = up ? a[i + H] : a[i];
-      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, STRIDE);
-    }
-    reduce_scatter<STRIDE * 2, END, H / 2>(a, lane);
-  }
-}
-
-__host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
-
-// The first of the CPL / SPB columns (of a lane's CPL) that slot s of a bag
-// holds after reduce_scatter over the bag's SPB slots: the exchanges halve
-// by the bits of s from the lowest, so the share is s's bits reversed.
-template <int CPL, int SPB>
-__device__ __forceinline__ int slot_share(int s) {
-  if constexpr (SPB == 1) {
-    return 0;
-  } else {
-    constexpr int kBits = log2_of(SPB);
-    return static_cast<int>(__brev(static_cast<unsigned>(s)) >> (32 - kBits)) * (CPL / SPB);
-  }
-}
-
-// N output values at dst, rounded once to TC; dst starts a run of
-// N * sizeof(TC) bytes (2 to 256), aligned to that size or to 16.
-template <typename TC, int N>
-__device__ __forceinline__ void store_row(TC* dst, const float (&v)[N]) {
-  constexpr int kBytes = N * (int)sizeof(TC);
-  __align__(16) TC o[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) to_out(v[i], o + i);
-  if constexpr (kBytes >= 16) {
-#pragma unroll
-    for (int c = 0; c < kBytes / 16; ++c)
-      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(o)[c];
-  } else if constexpr (kBytes == 8) {
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
-  } else if constexpr (kBytes == 4) {
-    *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(o);
-  } else {
-    static_assert(kBytes == 2, "unsupported store");
-    *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(o);
-  }
-}
-
-// Byte j of w, sign-extended.
-__device__ __forceinline__ int byte_at(uint32_t w, int j) {
-  return static_cast<int>(w << (24 - 8 * j)) >> 24;
 }
 
 // K1-int8.
@@ -290,12 +199,7 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
   constexpr int RB = D + 4;           // bytes a row: D values, then the f32 scale
   constexpr int CPL = D / LPR;        // values a lane
   constexpr int NW = CPL / 4;         // their words, from word c0 = r * NW of the row
-  // The lane's words start e = phase + c0 % 4 words into the chunk that
-  // holds the row's word c0 at phase 0; NC chunks from there hold them
-  // (and the scale word after them) at any phase.
-  constexpr int kMaxE = 3 + (NW < 4 ? 4 - NW : 0);
-  constexpr int NC = (kMaxE + NW) / 4 + 1;
-  constexpr int W = 4 * NC;
+  constexpr int NC = RowChunks<NW>::NC;  // the chunks that hold them at any phase
   constexpr int S = 32 / LPR;
   constexpr int SPB = S / G;
   constexpr int RPS = SPB * U;
@@ -339,9 +243,8 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
         for (int c = 0; c < NC; ++c) win[u][c] = make_uint4(0u, 0u, 0u, 0u);
         e[u] = 0u;
         if (rid[u] >= 0) {
-          const uintptr_t at = reinterpret_cast<uintptr_t>(qrows) + (base + rid[u]) * RB;
-          e[u] = (static_cast<uint32_t>(at >> 2) & 3u) + (c0 & 3);
-          const uint4* chunk = reinterpret_cast<const uint4*>(at & ~uintptr_t(15)) + (c0 >> 2);
+          const uint4* chunk = row_window(
+              reinterpret_cast<uintptr_t>(qrows) + (base + rid[u]) * RB, c0, e[u]);
 #pragma unroll
           for (int c = 0; c < NC; ++c) win[u][c] = load16<H>(chunk + c);
         }
@@ -350,37 +253,11 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
                                                  step0 + RPS, lane);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        uint32_t w[W];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          w[4 * c + 0] = win[u][c].x;
-          w[4 * c + 1] = win[u][c].y;
-          w[4 * c + 2] = win[u][c].z;
-          w[4 * c + 3] = win[u][c].w;
-        }
-        // Words e .. e + NW of the window: by 4 (when e can reach it), by 2,
-        // by 1. A clamped index is one no e needs.
-        uint32_t t4[W], t2[W], x[NW + 1];
-#pragma unroll
-        for (int j = 0; j < W; ++j)
-          t4[j] = (kMaxE >= 4 && (e[u] & 4u)) ? w[j + 4 < W ? j + 4 : W - 1] : w[j];
-#pragma unroll
-        for (int j = 0; j < W; ++j) t2[j] = (e[u] & 2u) ? t4[j + 2 < W ? j + 2 : W - 1] : t4[j];
-#pragma unroll
-        for (int j = 0; j <= NW; ++j) x[j] = (e[u] & 1u) ? t2[j + 1] : t2[j];
+        uint32_t x[NW + 1];
+        pick_words<NW>(win[u], e[u], x);
         float row_scale = __uint_as_float(x[NW]);
         if constexpr (LPR > 1) row_scale = __shfl_sync(0xffffffffu, row_scale, last);
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-          const uint32_t y = x[j] ^ kOffset;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            // 2^23 + (value + 128), exactly, then the value.
-            const float value =
-                __uint_as_float(__byte_perm(y, 0x4b000000u, 0x7540u | b)) - 8388736.0f;
-            acc[4 * j + b] += __fmul_rn(value, row_scale);
-          }
-        }
+        add_scaled<NW>(acc, x, row_scale);
       }
     }
 

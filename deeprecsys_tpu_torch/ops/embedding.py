@@ -713,7 +713,7 @@ embedding_bag_int8_rowwise.kernel_launches = 0
 # ------------------------------------------------------- hot/cold (K6)
 
 # K6's launch geometry, mirroring csrc/embedding_bag_hotcold.cu: a warp a
-# bag, K6_WARPS_PER_BLOCK warps a block.
+# bag (L > 8) or a slot a bag, K6_WARPS_PER_BLOCK warps a block.
 K6_WARPS_PER_BLOCK = 8
 _K6_MODES = {"float": 0, "int8": 1, "int8_rowwise": 2}
 _SPLIT_KEYS = ("hot_sel", "hot_mask", "cold_ids", "cold_seg")
@@ -721,15 +721,20 @@ _SPLIT_KEYS = ("hot_sel", "hot_mask", "cold_ids", "cold_seg")
 
 @dataclasses.dataclass(frozen=True)
 class K6Geometry:
-    """How K6 maps a bag's rows onto a warp (``Geometry`` in
-    ``csrc/embedding_bag_hotcold.cu``): ``lanes_per_row`` lanes load a row
-    (16 bytes each, 4 for row-wise rows), ``slots = 32 / lanes_per_row``
-    rows load at once, ``rows_per_slot`` each a step, so a step reads
-    ``chunk = slots * rows_per_slot`` slots of the bag (at most 32)."""
+    """How K6 maps rows onto a warp (``Shipped`` in
+    ``csrc/embedding_bag_hotcold.cu``): a lane holds ``values_per_lane``
+    values of a row (16 bytes of a float or per-table int8 row; row-wise
+    rows as the 16-byte-aligned chunks over them), ``lanes_per_row`` lanes
+    cover a row, ``slots = 32 / lanes_per_row`` rows load at once,
+    ``rows_per_slot`` each a step where a warp pools a bag, so a step reads
+    ``chunk = slots * rows_per_slot`` slots of the bag; ``hint``: 0 none,
+    1 every row loads with K1's no-L1 hint, 2 only cold rows do."""
 
+    values_per_lane: int
     lanes_per_row: int
     slots: int
     rows_per_slot: int
+    hint: int
 
     @property
     def chunk(self) -> int:
@@ -737,36 +742,98 @@ class K6Geometry:
 
 
 @functools.lru_cache(maxsize=64)
-def k6_geometry(mode: str, d: int, itemsize: int) -> K6Geometry:
+def k6_geometry(mode: str, d: int, itemsize: int, short: bool = False) -> K6Geometry:
     """K6's geometry for a table layout (``mode`` of ``_K6_MODES``), width
-    ``d`` and element size (bytes): 16-byte loads and at most 4 rows a slot
-    a step, row-wise 4-byte loads and at most 8."""
-    load, max_u = (4, 8) if mode == "int8_rowwise" else (16, 4)
-    lanes = d // (load // itemsize)
+    ``d``, element size (bytes) and bag length (``short``: L <= 8, a slot a
+    bag). Float lanes load 16 bytes, d / 2 slots a step (at most 8 rows a
+    slot); row-wise lanes hold 16 values, 16 slots a step. Cold rows of at
+    most 64 bytes and row-wise rows load with the hint, float short bags
+    every row (``k6_launch_plan`` drops it for bags of one row, as K1
+    does); per-table int8 lanes 16 bytes, at most 4 rows a slot and 32
+    slots a step, no hint. Chosen by measurement on an H100
+    (``experiments/k6_sweep.py``, PERF.md) but per-table int8's, which
+    keeps K6's first design."""
+    values = 16 if mode == "int8_rowwise" else 16 // itemsize
+    lanes = d // values
     slots = 32 // lanes
-    return K6Geometry(lanes, slots, min(32 // slots, max_u))
+    rows = {"int8_rowwise": 16 // slots, "int8": min(32 // slots, 4)}.get(
+        mode, min(d // 2 // slots, 8))
+    if mode == "float":
+        hint = 1 if short else 2 if d * itemsize <= 64 else 0
+    else:
+        hint = 2 if mode == "int8_rowwise" else 0
+    return K6Geometry(values, lanes, slots, rows, hint)
 
 
 @dataclasses.dataclass(frozen=True)
 class K6Plan:
     """How K6 maps bags onto warps: ``rows_per_slot`` 0 is a warp a bag (L >
-    8), else a slot a bag, ``bags_per_warp`` of them, each slot with all of
-    its bag's rows in flight (the power of two >= L); ``grid`` blocks of
-    K6_WARPS_PER_BLOCK warps cover every task once."""
+    8) whose slots' hot entries and cold ids load ``ids_per_lane`` a lane (a
+    window of ``32 * ids_per_lane`` slots); else a slot a bag,
+    ``bags_per_warp`` of them, each slot with all of its bag's rows in
+    flight (the power of two >= L). ``grid`` blocks of K6_WARPS_PER_BLOCK
+    warps cover every task once; ``geometry`` is the mapping launched."""
 
     bags_per_warp: int
     rows_per_slot: int
+    ids_per_lane: int
     grid: int
+    geometry: K6Geometry
 
 
 @functools.lru_cache(maxsize=512)
-def k6_launch_plan(n_bags: int, L: int, geometry: K6Geometry) -> K6Plan:
-    """K6's plan for ``n_bags`` bags of ``L`` slots; the only ones
-    ``csrc/embedding_bag_hotcold.cu`` builds."""
-    u = 0 if L > 8 else _pow2_at_least(max(L, 1))
-    bpw = geometry.slots if u else 1
+def k6_launch_plan(n_bags: int, L: int, mode: str, d: int, itemsize: int) -> K6Plan:
+    """K6's plan for ``n_bags`` bags of ``L`` slots of a layout; the only
+    ones ``csrc/embedding_bag_hotcold.cu`` builds. A warp a bag loads the
+    bag's slots in one window up to L = 128 (``ids_per_lane`` the power of
+    two >= ceil(L / 32), at most 4, and at least a step's)."""
+    short = L <= 8
+    geo = k6_geometry(mode, d, itemsize, short)
+    if short:
+        u, bpw, ni = _pow2_at_least(max(L, 1)), geo.slots, 1
+        geo = dataclasses.replace(geo, hint=geo.hint if u > 1 else 0)  # one row: as K1
+    else:
+        u, bpw = 0, 1
+        ni = max(min(4, _pow2_at_least(-(-L // 32))), geo.chunk // 32)
     tasks = -(-n_bags // bpw)
-    return K6Plan(bpw, u, max(1, -(-tasks // K6_WARPS_PER_BLOCK)))
+    return K6Plan(bpw, u, ni, max(1, -(-tasks // K6_WARPS_PER_BLOCK)), geo)
+
+
+def hotcold_cold_starts_reference(cold_seg: torch.Tensor, n_bags: int) -> torch.Tensor:
+    """Plain PyTorch ``cold_start``, ``(n_bags + 1,)`` int32: the number of
+    cold entries of bags before g, for g in [0, n_bags] (the CSR row pointer
+    of the sorted cold stream; its last entry the first pad)."""
+    counts = torch.bincount(cold_seg.long().clamp(max=n_bags), minlength=n_bags + 1)
+    starts = torch.zeros(n_bags + 1, dtype=torch.int64, device=cold_seg.device)
+    starts[1:] = torch.cumsum(counts[:n_bags], dim=0)
+    return starts.to(torch.int32)
+
+
+def hotcold_cold_starts(cold_seg: torch.Tensor, n_bags: int) -> torch.Tensor:
+    """K6's first launch alone: ``cold_start`` of a sorted cold stream
+    (``split_hot_cold``'s ``cold_seg``, pads ``n_bags`` last), for checks.
+    CPU tensors take ``hotcold_cold_starts_reference``; on the card a failed
+    launch raises. K6 itself builds these in the same launch sequence as it
+    pools, so this call is not counted."""
+    if cold_seg.dim() != 1 or cold_seg.dtype != torch.int32 or not cold_seg.is_contiguous():
+        raise TypeError(f"cold_seg must be contiguous (C_pad,) int32; got "
+                        f"{tuple(cold_seg.shape)} {cold_seg.dtype}")
+    if cold_seg.device.type == "cpu":
+        return hotcold_cold_starts_reference(cold_seg, n_bags)
+    if cold_seg.device.type != "cuda":
+        raise ValueError(f"hotcold_cold_starts runs on cpu or cuda, not {cold_seg.device}")
+    _check_k6_sizes(cold_seg.numel(), n_bags)
+    starts = torch.empty((n_bags + 1,), dtype=torch.int32, device=cold_seg.device)
+    _build.launch(_build.load("embedding_bag_hotcold", _declare_hotcold),
+                  "drs_hotcold_cold_starts", cold_seg.device, cold_seg.data_ptr() or None,
+                  cold_seg.numel(), starts.data_ptr(), n_bags)
+    return starts
+
+
+def _check_k6_sizes(c_pad: int, n_bags: int):
+    if c_pad >= 2 ** 31 - 1 or n_bags >= 2 ** 31 - 1:
+        raise ValueError(f"K6 indexes the cold stream and the bags in int32; got C_pad "
+                         f"{c_pad}, B*T {n_bags}")
 
 
 def _hotcold_pooled(row_fn, acc_dtype: torch.dtype, hot: torch.Tensor, table: torch.Tensor,
@@ -866,16 +933,23 @@ def _declare_hotcold(lib: ctypes.CDLL):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # hot, table, scale
         ctypes.c_void_p, ctypes.c_void_p,                   # hot_sel, hot_mask
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,   # cold_ids, cold_seg, C_pad
-        ctypes.c_void_p, ctypes.c_int,                      # out, out dtype
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # cold_start, out, out dtype
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,        # plan: rows/slot, grid; stream
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: rows/slot, ids/lane, grid
+        ctypes.c_void_p,                                    # stream
+    ]
+    lib.drs_hotcold_cold_starts.restype = ctypes.c_int
+    lib.drs_hotcold_cold_starts.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,   # cold_seg, C_pad, cold_start
+        ctypes.c_int64, ctypes.c_void_p,                    # B*T, stream
     ]
 
 
 def _hotcold_dispatch(wrapper, mode: str, hot, table, scale, split: dict, d: int, cdt,
                       align: int, plain):
     """``plain()`` for CPU tensors; on the card K6 (``mode``) on checked
-    inputs, counted in ``wrapper.kernel_launches``."""
+    inputs: its two launches (``cold_start``, then the pool), counted once in
+    ``wrapper.kernel_launches``."""
     device = table.device
     if device.type == "cpu":
         return plain()
@@ -889,14 +963,17 @@ def _hotcold_dispatch(wrapper, mode: str, hot, table, scale, split: dict, d: int
     out = torch.empty((B, T, d), dtype=cdt, device=device)
     if B * T == 0:
         return out
-    plan = k6_launch_plan(B * T, L, k6_geometry(mode, d, table.element_size()))
+    _check_k6_sizes(cold_ids.numel(), B * T)
+    plan = k6_launch_plan(B * T, L, mode, d, table.element_size())
+    starts = torch.empty((B * T + 1,), dtype=torch.int32, device=device)  # launch 1's output
     _build.launch(_build.load("embedding_bag_hotcold", _declare_hotcold),
                   "drs_embedding_bag_hotcold", device, _K6_MODES[mode],
                   _DTYPE_CODES.get(table.dtype, 0), d, hot.data_ptr() or None, table.data_ptr(),
                   None if scale is None else scale.data_ptr(), hot_sel.data_ptr(),
                   split["hot_mask"].data_ptr(), cold_ids.data_ptr() or None,
-                  split["cold_seg"].data_ptr() or None, cold_ids.numel(), out.data_ptr(),
-                  _DTYPE_CODES[cdt], B * T, T, L, plan.rows_per_slot, plan.grid)
+                  split["cold_seg"].data_ptr() or None, cold_ids.numel(), starts.data_ptr(),
+                  out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L, plan.rows_per_slot,
+                  plan.ids_per_lane, plan.grid)
     _build.count_launch(wrapper)
     return out
 
@@ -922,7 +999,8 @@ def embedding_bag_hotcold(hot_table: torch.Tensor, table: torch.Tensor, split: d
       once, as ``embedding_bag`` pools the same ids.
 
     CPU tensors take ``embedding_bag_hotcold_reference``. CUDA tensors
-    launch K6 (``csrc/embedding_bag_hotcold.cu``) and count the launch in
+    launch K6 (``csrc/embedding_bag_hotcold.cu``: ``cold_start``, then the
+    pool) and count the call once in
     ``embedding_bag_hotcold.kernel_launches``; a failed build or launch
     raises.
     """

@@ -47,6 +47,7 @@ from deeprecsys_tpu_torch.ops import embedding as emb
 from deeprecsys_tpu_torch.ops import hotcold as ops_hc
 from deeprecsys_tpu_torch.runtime import native
 from tests.golden import make_torch_port_fixture as fixture
+from tests.test_torch_quant import _k4_lane_words
 
 SCALE = 2000
 QUANTS = ("none", "int8", "int8_rowwise")
@@ -358,91 +359,137 @@ def test_wrappers_reject_what_k6_does_not_take():
 
 # ---------------------------------------------------------------- K6's index arithmetic
 
-def _lower_bounds(seg: np.ndarray, key: int) -> int:
-    """``lower_bounds`` of embedding_bag_hotcold.cu for one half-warp."""
-    lo, hi = 0, len(seg)
-    while hi > lo:
-        length = hi - lo
-        stride = -(-length // 16) if length > 16 else 1
-        below = [lo + (j + 1) * stride - 1 < hi and seg[lo + (j + 1) * stride - 1] < key
-                 for j in range(16)]
-        c = sum(below)
-        assert all(below[:c]) and not any(below[c:])  # a prefix
-        probe_c = lo + (c + 1) * stride - 1
-        hi = probe_c if c < 16 and probe_c < hi else hi
-        lo = min(lo + c * stride, hi)
-    return lo
+def _cold_starts(seg: np.ndarray, n_bags: int) -> np.ndarray:
+    """K6's first launch (``cold_starts_kernel``): entry i (0 <= i <= C_pad)
+    writes i into every g in (seg[i - 1], seg[i]] (seg[-1] = -1, seg[C_pad]
+    = n_bags), clamped to [0, n_bags]: a range of fewer than 8 bags by its
+    thread, up to 255 by its warp (lane l: g = lo + l + 32 k), longer by its
+    block (thread t: lo + t + 256 k). Asserts that every g is written once."""
+    out = np.full(n_bags + 1, -1, np.int64)
+    writes = np.zeros(n_bags + 1, int)
+    for i in range(seg.size + 1):
+        prev = -1 if i == 0 else int(seg[i - 1])
+        cur = n_bags if i == seg.size else int(seg[i])
+        lo, hi = max(prev + 1, 0), min(cur, n_bags)
+        width = 1 if hi - lo + 1 < 8 else 32 if hi - lo + 1 < 256 else 256
+        gs = [g for t in range(width) for g in range(lo + t, hi + 1, width)]
+        out[gs] = i
+        np.add.at(writes, gs, 1)
+    assert (writes == 1).all()
+    return out
 
 
-def _simulate_k6(plan, geo, n_bags, L, hot_mask, seg):
-    """The rows K6 reads under ``plan``: (hot reads a hot slot, cold reads a
-    cold entry, cold reads by slots past the last bag, which store nothing)."""
+def _simulate_k6(plan, n_bags, L, hot_mask, seg):
+    """The rows K6 reads under ``plan`` (``k6_launch_plan``'s): (hot reads a
+    hot slot, cold reads a cold entry, cold reads by slots past the last
+    bag, which store nothing). Asserts that every cold entry a slot reads is
+    its own bag's, and that each step's rows come from the window's ids."""
+    geo = plan.geometry
     hot_reads = np.zeros(hot_mask.size, int)
     cold_reads = np.zeros(seg.size, int)
     stray = 0
+    cs = _cold_starts(seg, n_bags)
     warps = emb.K6_WARPS_PER_BLOCK * plan.grid
     tasks = -(-n_bags // plan.bags_per_warp)
     by_warp = [list(range(w, tasks, warps)) for w in range(warps)]
     assert sorted(t for ts in by_warp for t in ts) == list(range(tasks))
-    if plan.rows_per_slot == 0:  # a warp a bag
+    if plan.rows_per_slot == 0:  # a warp a bag, windows of 32 * NI slots
+        S, U, CH = geo.slots, geo.rows_per_slot, geo.chunk
+        win = 32 * plan.ids_per_lane
+        assert plan.bags_per_warp == 1 and win % CH == 0 and plan.ids_per_lane in (1, 2, 4)
         for bag in range(n_bags):
-            for c0 in range(0, L, geo.chunk):
-                for u in range(geo.rows_per_slot):
-                    for slot in range(geo.slots):
-                        lane = u * geo.slots + slot  # the lane whose id the slot takes
-                        assert lane < 32
-                        at = c0 + lane
-                        if lane < geo.chunk and at < L and hot_mask[bag * L + at]:
-                            hot_reads[bag * L + at] += 1
-            lo, hi = _lower_bounds(seg, bag), _lower_bounds(seg, bag + 1)
-            assert (lo, hi) == tuple(np.searchsorted(seg, [bag, bag + 1]))
-            for c0 in range(lo, hi, geo.chunk):
-                for lane in range(geo.chunk):
-                    if c0 + lane < hi:
-                        assert seg[c0 + lane] == bag
-                        cold_reads[c0 + lane] += 1
+            lo, n_cold, carry = cs[bag], cs[bag + 1] - cs[bag], 0
+            for w0 in range(0, L, win):
+                code = [None] * win  # ("hot", slot) or ("cold", entry)
+                for r in range(win // 32):
+                    ls = w0 + r * 32 + np.arange(32)
+                    inr = ls < L
+                    hit = inr & hot_mask[bag * L + np.minimum(ls, L - 1)]
+                    nonhot = inr & ~hit
+                    rank = carry + np.cumsum(nonhot) - nonhot  # popc below the lane
+                    carry += int(nonhot.sum())
+                    for lane in range(32):
+                        if hit[lane]:
+                            code[r * 32 + lane] = ("hot", bag * L + ls[lane])
+                        elif nonhot[lane] and rank[lane] < n_cold:
+                            code[r * 32 + lane] = ("cold", lo + rank[lane])
+                for k in range(win // CH):
+                    if w0 + k * CH >= L:
+                        break
+                    for u in range(U):
+                        for slot in range(S):
+                            p = k * CH + u * S + slot
+                            assert (k * CH + u * S) >> 5 == p // 32  # the word the source reads
+                            c = code[p]
+                            if c is None:
+                                continue
+                            if c[0] == "hot":
+                                hot_reads[c[1]] += 1
+                            else:
+                                assert seg[c[1]] == bag
+                                cold_reads[c[1]] += 1
         return hot_reads, cold_reads, stray
     S, UB = geo.slots, plan.rows_per_slot  # a slot a bag
-    assert plan.bags_per_warp == S and L <= UB and S * UB <= 128
+    nw = S * UB
+    assert plan.bags_per_warp == S and L <= UB and plan.ids_per_lane == 1
     for task in range(tasks):
         bag0 = task * S
-        window = min(S, n_bags - bag0) * L
+        nb = min(S, n_bags - bag0)
+        window = nb * L
+        hcode = [bag0 * L + k if k < window and hot_mask[bag0 * L + k] else None
+                 for k in range(nw)]
+        st = [cs[bag0 + min(lane, nb)] for lane in range(32)]
+        end, lo0 = cs[bag0 + nb], st[0]
+        assert end - lo0 <= nw  # the cold window fits the lanes' ids
         for slot in range(S):
-            for u in range(UB):
-                k = slot * L + u
-                if u < L and k < window and hot_mask[bag0 * L + k]:
-                    hot_reads[bag0 * L + k] += 1
-        lo = _lower_bounds(seg, bag0)
-        at = np.arange(lo, min(lo + S * UB, seg.size))
-        offs = np.minimum(seg[at] - bag0, S)
-        # Every cold lookup of the task's bags lies in the window.
-        mine = (seg >= bag0) & (seg < min(bag0 + S, n_bags))
-        assert not (mine & (np.arange(seg.size) >= lo + at.size)).any()
-        for slot in range(S):
-            first, last = int((offs < slot).sum()), int((offs < slot + 1).sum())
-            for u in range(UB):
-                if first + u < last:
-                    assert seg[lo + first + u] == bag0 + slot
+            first = st[slot]
+            last = st[(slot + 1) & 31] if slot + 1 < nb else (end if slot < nb else first)
+            rank, stop = first - lo0, last - lo0
+            for u in range(L):
+                h = hcode[min(slot * L + u, nw - 1)]
+                if h is not None:
+                    assert h == bag0 * L + slot * L + u
+                    hot_reads[h] += 1
+                    continue
+                if rank < stop:
+                    entry = lo0 + rank
+                    assert rank < nw and seg[entry] == bag0 + slot
                     if bag0 + slot < n_bags:
-                        cold_reads[lo + first + u] += 1
+                        cold_reads[entry] += 1
                     else:
                         stray += 1
+                rank += 1
     return hot_reads, cold_reads, stray
 
 
-@pytest.mark.parametrize("mode,itemsize", [("float", 2), ("float", 4), ("int8", 1),
-                                           ("int8_rowwise", 1)])
+def _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask, pad=True):
+    """Splits ``idx`` over ``hot`` and simulates K6 on it: every hot hit read
+    once, every real cold entry once (by its own bag), no pad; returns the
+    plan."""
+    B, T, L = idx.shape
+    s = ops_hc.split_hot_cold(idx, offsets, hot, cold_buckets=hotcold.cold_ladder(idx.size),
+                              slot_mask=mask, pad=pad)
+    plan = emb.k6_launch_plan(B * T, L, mode, d, itemsize)
+    hot_mask = s["hot_mask"].reshape(-1)
+    hot_reads, cold_reads, stray = _simulate_k6(plan, B * T, L, hot_mask, s["cold_seg"])
+    np.testing.assert_array_equal(hot_reads, hot_mask.astype(int))
+    n = s["n_cold"]
+    assert (cold_reads[:n] == 1).all() and (cold_reads[n:] == 0).all() and stray == 0
+    return plan, s
+
+
+LAYOUTS = [("float", 2), ("float", 4), ("int8", 1), ("int8_rowwise", 1)]
+
+
+@pytest.mark.parametrize("mode,itemsize", LAYOUTS)
 @pytest.mark.parametrize("d", [32, 64])
 def test_k6_index_arithmetic_covers_every_slot_once(mode, itemsize, d):
-    """A simulation of K6's mappings over the plans the wrapper picks
-    (``k6_geometry``, ``k6_launch_plan``): every task is one warp's exactly
-    once; every hot hit is read once, by its bag; every cold lookup once,
-    by its bag (a warp a bag: its range from the 16-ary search, equal to
-    ``np.searchsorted``; a slot a bag: its part of the window of the first
-    bag's lower bound); a pad by no bag that is stored; a step's rows stay
-    within the 32 lanes."""
-    geo = emb.k6_geometry(mode, d, itemsize)
-    assert geo.lanes_per_row * geo.slots == 32 and geo.chunk <= 32
+    """A simulation of K6's launches over the plans the wrapper picks
+    (``k6_launch_plan``): every task is one warp's exactly once; every hot
+    hit is read once, by its bag; every cold lookup once, by its bag (a
+    warp a bag: the non-hot slot of rank r takes entry cold_start[g] + r; a
+    slot a bag: its part of the task's cold window); a pad by no bag; a
+    step's rows come from the window's ids."""
     plans = set()
     for B, T, L, k in [(1, 1, 1, 0), (7, 3, 5, 20), (33, 5, 80, 200), (3, 2, 120, 1000),
                        (9, 4, 3, -1), (5, 7, 2, 30), (11, 3, 8, 9), (13, 2, 9, 0),
@@ -451,31 +498,149 @@ def test_k6_index_arithmetic_covers_every_slot_once(mode, itemsize, d):
                                            masked=bool(k % 2))
         hot = (np.arange(rows.sum(), dtype=np.int64) if k < 0
                else ops_hc.select_hot_ids(idx, offsets, k))
-        s = ops_hc.split_hot_cold(idx, offsets, hot, cold_buckets=hotcold.cold_ladder(idx.size),
-                                  slot_mask=mask)
-        plan = emb.k6_launch_plan(B * T, L, geo)
+        plan, _ = _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask)
+        geo = plan.geometry
+        assert geo.lanes_per_row * geo.slots == 32 and geo.chunk <= 32 * plan.ids_per_lane
         plans.add(plan.rows_per_slot)
-        hot_mask = s["hot_mask"].reshape(-1)
-        hot_reads, cold_reads, _ = _simulate_k6(plan, geo, B * T, L, hot_mask, s["cold_seg"])
-        np.testing.assert_array_equal(hot_reads, hot_mask.astype(int))
-        n = s["n_cold"]
-        assert (cold_reads[:n] == 1).all() and (cold_reads[n:] == 0).all()
     assert plans == {0, 1, 2, 4, 8}
+
+
+def _edge_hot(case, rows, idx, offsets):
+    flat = np.unique(idx.astype(np.int64) + offsets[None, :, None].astype(np.int64))
+    if case in ("all hot", "all hot, no pads", "ragged, all hot"):
+        return np.arange(rows.sum(), dtype=np.int64)
+    if case in ("K = 0", "ragged, K = 0"):
+        return np.empty(0, np.int64)
+    if case == "bags with no cold lookup":  # table 0 hot: its bags have no cold entry
+        return np.arange(rows[0], dtype=np.int64)
+    return flat[::3] if case != "no pads" else ops_hc.select_hot_ids(idx, offsets, 25)
+
+
+EDGE_CASES = ["no pads", "all hot", "all hot, no pads", "K = 0", "ragged", "ragged, all hot",
+              "ragged, K = 0", "bags with no cold lookup"]
+
+
+@pytest.mark.parametrize("mode,itemsize", LAYOUTS)
+@pytest.mark.parametrize("L", [1, 3, 8, 9, 80, 120, 200])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_k6_index_arithmetic_edges(case, L, mode, itemsize):
+    """K6's simulation at the edges of its front end: no pads (n_cold ==
+    C_pad), C_pad == 0 (all hot, no pads), all hot with pads, K = 0 (all
+    cold), ragged masks (slots masked out among live ones: with a hot set,
+    with every row hot, where no non-hot slot is cold, and with K = 0, where
+    fewer entries are cold than slots are non-hot) and bags with no cold
+    lookup (long runs of cold_start); L past one window (200)."""
+    rng = np.random.default_rng(L + len(case))
+    rows = np.array([60, 500, 90], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int32)
+    B, T = 19, 3
+    idx = (rng.zipf(1.3, size=(B, T, L)) % rows[None, :, None]).astype(np.int32)
+    mask = None
+    if case.startswith("ragged"):
+        mask = rng.random(idx.shape) < 0.6
+    elif case == "bags with no cold lookup":
+        mask = np.ones(idx.shape, bool)
+        mask[::2, 1] = False  # whole bags masked out: no lookups at all
+    hot = _edge_hot(case, rows, idx, offsets)
+    pad = "no pads" not in case
+    _, s = _check_k6_case(mode, itemsize, 32, idx, offsets, hot, mask, pad=pad)
+    if not pad:
+        assert s["cold_ids"].size == s["n_cold"]
+    if case == "all hot, no pads":
+        assert s["cold_ids"].size == 0
+    if case == "K = 0":
+        assert s["n_cold"] == idx.size
+    if case == "ragged, all hot":
+        assert s["n_cold"] == 0
+    if case == "ragged, K = 0":
+        assert s["n_cold"] == int(mask.sum()) < idx.size
+
+
+@pytest.mark.parametrize("n_bags,counts", [
+    (1, [0]), (7, [0] * 7), (5, [0, 0, 3, 0, 1]), (6, [1] * 6), (40, [0] * 39 + [2]),
+    (300, [2] * 10 + [0] * 280 + [1] * 10), (1000, None)])
+@pytest.mark.parametrize("pads", [0, 5])
+def test_cold_start_build_equals_searchsorted(n_bags, counts, pads):
+    """Launch 1's ranges (and the plain version, ``hotcold_cold_starts``
+    on the CPU) equal np.searchsorted(cold_seg, arange(B*T + 1)): with and
+    without pads, with C_pad == 0, and with long runs of bags with no cold
+    entry (a warp writes those)."""
+    if counts is None:
+        counts = np.random.default_rng(3).poisson(0.7, n_bags)
+    seg = np.concatenate([np.repeat(np.arange(n_bags), counts),
+                          np.full(pads, n_bags)]).astype(np.int32)
+    want = np.searchsorted(seg, np.arange(n_bags + 1))
+    np.testing.assert_array_equal(_cold_starts(seg, n_bags), want)
+    got = emb.hotcold_cold_starts(torch.from_numpy(seg), n_bags)
+    assert got.dtype == torch.int32 and got.shape == (n_bags + 1,)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_k6_geometry_mirrors_the_source():
     src = HOTCOLD_CU.read_text()
     assert re.search(rf"kWarpsPerBlock = {emb.K6_WARPS_PER_BLOCK};", src)
-    assert "kLoad = M == kRowwise ? 4 : 16;" in src
-    assert "kMaxU = M == kRowwise ? 8 : 4;" in src
-    assert "U = 32 / S < kMaxU ? 32 / S : kMaxU;" in src
+    assert "static constexpr int V = M == kRowwise ? 16 : 16 / (int)sizeof(TIn);" in src
+    assert re.search(r"static constexpr int U = M == kRowwise \? 16 / S\s+: M == kInt8  \? "
+                     r"\(32 / S < 4 \? 32 / S : 4\)\s+: \(D / 2 / S < 8 \? D / 2 / S : 8\);",
+                     src)
+    assert re.search(r"static constexpr int H = M == kInt8\s+\? 0\s+: M == kRowwise\s+\? 2"
+                     r"\s+: kShort\s+\? 1\s+: D \* \(int\)sizeof\(TIn\) <= 64\s+\? 2\s+: 0;", src)
     modes = re.findall(r"enum Mode \{ kFloat = (\d), kInt8 = (\d), kRowwise = (\d) \}", src)
     assert modes == [tuple(str(emb._K6_MODES[m]) for m in ("float", "int8", "int8_rowwise"))]
-    assert emb.k6_geometry("float", 32, 2) == emb.K6Geometry(4, 8, 4)
-    assert emb.k6_geometry("int8", 32, 1) == emb.K6Geometry(2, 16, 2)
-    assert emb.k6_geometry("int8_rowwise", 32, 1) == emb.K6Geometry(8, 4, 8)
-    for u in (0, 1, 2, 4, 8):
-        assert f"case {u}: return launch<M, TIn, TC, D, {u}>(a);" in src
+    G = emb.K6Geometry
+    assert emb.k6_geometry("float", 32, 2) == G(8, 4, 8, 2, 2)
+    assert emb.k6_geometry("float", 64, 2) == G(8, 8, 4, 8, 0)
+    assert emb.k6_geometry("float", 32, 4, True) == G(4, 8, 4, 4, 1)
+    assert emb.k6_geometry("float", 64, 4) == G(4, 16, 2, 8, 0)
+    assert emb.k6_geometry("int8", 32, 1) == G(16, 2, 16, 2, 0)
+    assert emb.k6_geometry("int8", 64, 1, True) == G(16, 4, 8, 4, 0)
+    assert emb.k6_geometry("int8_rowwise", 32, 1) == G(16, 2, 16, 1, 2)
+    assert emb.k6_geometry("int8_rowwise", 64, 1, True) == G(16, 4, 8, 2, 2)
+    assert "case 1: return launch<M, TIn, TC, D, SB::V, 1, 0, 1, 1>(a);" in src
+    for u in (2, 4, 8):
+        assert f"case {u}: return launch<M, TIn, TC, D, SB::V, 1, SB::H, {u}, 1>(a);" in src
+    assert emb.k6_launch_plan(100, 1, "float", 32, 2).geometry.hint == 0
+    assert emb.k6_launch_plan(100, 2, "float", 32, 2).geometry.hint == 1
+    assert "case 4: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, 4>(a);" in src
+    assert "lower_bounds" not in src and "cudaLaunchAttributeProgrammaticStreamSerialization" in src
+    assert "griddepcontrol.wait" in src and "griddepcontrol.launch_dependents" in src
+    for const in ("kStartThreads = 256", "kWarpRange = 8", "kBlockRange = 256"):  # _cold_starts'
+        assert f"constexpr int {const};" in src
+
+
+@pytest.mark.parametrize("start", [0, 4, 8, 12])
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+def test_k6_rowwise_chunks_find_every_row_of_both_tables(d, short, start):
+    """K6-rowwise's lanes load rows as K4 does (``_k4_lane_words``, at the
+    geometry's lanes a row): for a code of each table (cold: table row c >=
+    0; hot: hot row -2 - c), a hot and a cold table starting at different
+    4-byte phases, every row at every phase gives each lane its words and
+    the row's last lane the scale word."""
+    geo = emb.k6_geometry("int8_rowwise", d, 1, short)
+    lpr, nw, rb = geo.lanes_per_row, geo.values_per_lane // 4, d + 4
+    assert lpr * geo.values_per_lane == d
+    rng = np.random.default_rng(d + start + short)
+    bufs, tables = {}, {}
+    for name, at0, R in (("cold", start, 23), ("hot", (start + 4) % 16, 9)):
+        tables[name] = rng.integers(0, 256, (R, rb), dtype=np.uint8)
+        buf = np.zeros(-(-(at0 + R * rb) // 16) * 16, np.uint8)
+        buf[at0:at0 + R * rb] = tables[name].reshape(-1)
+        bufs[name] = (buf, at0)
+    phases = {"cold": set(), "hot": set()}
+    codes = [c for c in range(23)] + [-2 - h for h in range(9)]
+    for code in codes:
+        name, row = ("cold", code) if code >= 0 else ("hot", -2 - code)
+        buf, at0 = bufs[name]
+        at = at0 + row * rb
+        phases[name].add((at >> 2) & 3)
+        words = tables[name][row].view("<u4")
+        for r in range(lpr):
+            got = _k4_lane_words(buf, at, d, lpr, r)
+            assert list(got[:nw]) == list(words[r * nw:(r + 1) * nw])
+            if r == lpr - 1:
+                assert got[nw] == words[d // 4]
+    assert phases["cold"] == phases["hot"] == {0, 1, 2, 3}
 
 
 # ---------------------------------------------------------------- models

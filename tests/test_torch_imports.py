@@ -23,6 +23,8 @@ MODULES = [
     "deeprecsys_tpu_torch.experiments",
     "deeprecsys_tpu_torch.experiments.skew_bench",
     "deeprecsys_tpu_torch.experiments.int8_sweep",
+    "deeprecsys_tpu_torch.experiments.k6_sweep",
+    "deeprecsys_tpu_torch.experiments.sweep_build",
     "deeprecsys_tpu_torch.runtime",
     "deeprecsys_tpu_torch.runtime.native",
     "deeprecsys_tpu_torch.utils.memory",

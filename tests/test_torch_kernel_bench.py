@@ -13,14 +13,15 @@ import torch
 
 from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
-from deeprecsys_tpu_torch.experiments import int8_sweep
+from deeprecsys_tpu_torch.experiments import int8_sweep, k6_sweep
 from deeprecsys_tpu_torch.kernel_bench import (
-    F32_FLOP_PER_S, HBM_BYTES_PER_S, int8_instance_ptxas, k1_bound, k1_int8_bound, k1_library,
-    k3_bound, k3_library, k4_bound, kernel_instance, main_kernel_ms, ptxas_summary,
-    random_int8_tables)
+    F32_FLOP_PER_S, HBM_BYTES_PER_S, cold_starts_bound, int8_instance_ptxas, k1_bound,
+    k1_int8_bound, k1_library, k3_bound, k3_library, k4_bound, k6_bound, kernel_instance,
+    launch_sum_ms, main_kernel_ms, ptxas_summary, random_int8_tables)
 from deeprecsys_tpu_torch.models.base import table_offsets
 from deeprecsys_tpu_torch.ops import embedding_bag_reference, rnn_scan_reference
-from deeprecsys_tpu_torch.ops.embedding import K1Plan, k1_launch_plan, k4_launch_plan
+from deeprecsys_tpu_torch.ops.embedding import (
+    K1Plan, k1_launch_plan, k4_launch_plan, k6_launch_plan)
 
 
 @pytest.mark.parametrize("name", ["rm1", "din", "ncf"])
@@ -102,6 +103,17 @@ def test_main_kernel_ms_is_the_median_of_the_busiest_kernel():
     assert main_kernel_ms({"k1": [13.8]}) == pytest.approx(13.8e-3)
 
 
+def test_launch_sum_ms_adds_each_launchs_median():
+    """K6's two launches a call (a 1.8 µs cold_start build, a 7.5 µs pool)
+    over 100 calls, with 30 of the pool's trace events dropped: the sum of
+    medians stays 9.3 µs where the summed events over the calls fall to 7.05;
+    a kernel launched twice a call counts twice."""
+    durations = {"cold_starts": [1.8] * 100, "pool": [7.4, 7.5, 7.6] * 23 + [7.5]}
+    assert launch_sum_ms(durations, 100) == pytest.approx(9.3e-3)
+    assert sum(sum(us) for us in durations.values()) / 100 == pytest.approx(7.05)
+    assert launch_sum_ms({"k5": [10.0] * 200}, 100) == pytest.approx(20.0e-3)
+
+
 # ptxas -v's lines for two K1-int8 instances (this source's and the
 # parent design's template arguments) and one of K1.
 PTXAS_LOG = """\
@@ -153,3 +165,47 @@ def test_int8_sweep_builds_every_shipped_mapping_once(name):
         cases = [line for line in src.splitlines() if line.strip().startswith("if (lpr")]
         assert len(cases) == len(set(cases)) == len(
             set(int8_sweep.instances(kernel, d, True) + int8_sweep.instances(kernel, d, False)))
+
+
+def test_k6_bound_counts_both_launches():
+    """K6's bound: distinct hot and cold rows, the split's arrays and the
+    output, not the cold_start scratch of its design; its first launch's
+    own bound: cold_seg read and cold_start written once."""
+    table = torch.zeros((100, 32), dtype=torch.bfloat16)
+    hot = torch.zeros((10, 32), dtype=torch.bfloat16)
+    split = {"hot_sel": torch.tensor([[[0, 3, 3], [0, 0, 1]]], dtype=torch.int32),
+             "hot_mask": torch.tensor([[[1, 1, 1], [0, 0, 1]]], dtype=torch.bool),
+             "cold_ids": torch.tensor([7, 7, 0, 0], dtype=torch.int32),
+             "cold_seg": torch.tensor([1, 1, 2, 2], dtype=torch.int32)}  # 2 real, 2 pads
+    got = k6_bound(hot, table, split, torch.float32)
+    rows = 3 + 1  # hot 0, 3, 1; cold 7
+    nbytes = rows * 64 + 6 * 5 + 4 * 8 + 2 * 32 * 4
+    assert got["bytes"] == nbytes and got["flops"] == (4 + 2) * 32
+    got8 = k6_bound(hot.to(torch.int8), table.to(torch.int8), split, torch.bfloat16, "int8")
+    assert got8["bytes"] == rows * 32 + 6 * 5 + 4 * 8 + 2 * 32 * 2 + 2 * 4
+    assert got8["flops"] == 6 * 32 + 2 * 32
+    starts = cold_starts_bound(split)
+    assert starts["bytes"] == 4 * 4 + 3 * 4 and starts["flops"] == 0
+    assert starts["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("name", k6_sweep.MODELS)
+def test_k6_sweep_holds_every_shipped_mapping_once(name):
+    """The K6 sweep's instances at rm1's, rm2's and din's shapes hold the
+    mapping each layout ships (``k6_launch_plan``) with the same plan, and
+    its entry point dispatches each instance exactly once."""
+    cfg = zoo.get_config(name)
+    d, L = cfg.sparse_feature_size, cfg.num_indices_per_lookup
+    for layout, mode in (("none", "float"), ("int8_rowwise", "int8_rowwise")):
+        plan = k6_launch_plan(512 * cfg.num_tables, L, mode, d, 2 if layout == "none" else 1)
+        geo = plan.geometry
+        inst = (geo.values_per_lane, 1 if L <= 8 else geo.rows_per_slot, geo.hint)
+        assert inst in k6_sweep.instances(layout, d, L <= 8)
+        ub, ni, grid = k6_sweep._plan(512 * cfg.num_tables, L, d, inst)
+        assert (ub, ni, grid) == (plan.rows_per_slot, plan.ids_per_lane, plan.grid)
+    keys = k6_sweep.sweep_keys([name])
+    assert set(k6_sweep.shipped_keys([name])) <= set(keys)
+    src = k6_sweep._source(Path("embedding_bag_hotcold.cu"), keys)
+    cases = [line.split(": ", 1)[1] for line in src.splitlines()
+             if line.strip().startswith("case ")]
+    assert len(cases) == len(set(cases)) == len(keys)

@@ -497,11 +497,14 @@ def test_rnn_scan_autograd_launches_k3b(cuda):
 
 # ---------------------------------------------------------------- K6 (hot/cold)
 
-def _hotcold_case(cuda, layout, d, B, T, L, k, masked, seed, rows=300):
+def _hotcold_case(cuda, layout, d, B, T, L, k, masked, seed, rows=300, pad=True,
+                  bare_bags=False):
     """Tables of ``layout`` (T tables of ``rows`` rows), zipf(1.2) ids, the
     ``k`` most frequent rows as the hot set (k = -1: every row), the split
-    (native, padded to the cold ladder) on the card; ``(tables, hot,
-    offsets, indices, mask, split)``."""
+    (native, padded to the cold ladder unless not ``pad``) on the card;
+    ``masked``: a ragged mask, ``bare_bags``: every other bag of table 0
+    masked out (no lookup at all); ``(tables, hot, offsets, indices, mask,
+    split)``."""
     from deeprecsys_tpu_torch.kernel_bench import random_int8_tables
     from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
     from deeprecsys_tpu_torch.ops.hotcold import select_hot_ids, split_hot_cold
@@ -510,10 +513,13 @@ def _hotcold_case(cuda, layout, d, B, T, L, k, masked, seed, rows=300):
     idx = (rng.zipf(1.2, size=(B, T, L)) % rows).astype(np.int32)
     offsets = np.arange(T, dtype=np.int64) * rows
     mask = rng.random((B, T, L)) < 0.6 if masked else None
+    if bare_bags:
+        mask = np.ones((B, T, L), bool) if mask is None else mask
+        mask[::2, 0] = False
     hot_ids = (np.arange(T * rows, dtype=np.int64) if k < 0
                else select_hot_ids(idx, offsets, k))
     split = split_hot_cold(idx, offsets, hot_ids, cold_buckets=cold_buckets_for(B * T * L),
-                           impl="native", slot_mask=mask)
+                           impl="native", slot_mask=mask, pad=pad)
     g = torch.Generator(device=cuda).manual_seed(seed)
     if layout in ("int8", "int8_rowwise"):
         shape = types.SimpleNamespace(total_rows=T * rows, num_tables=T, sparse_feature_size=d)
@@ -530,15 +536,29 @@ def _hotcold_case(cuda, layout, d, B, T, L, k, masked, seed, rows=300):
             dev_split)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("k", [40, -1, 0])  # a hot set, every row hot, K = 0 (all cold)
-@pytest.mark.parametrize("B,T,L", [(1, 1, 1), (7, 3, 5), (33, 5, 80), (3, 2, 120)])
+# K6's cases: (k, masked, pad, bare_bags). A hot set; every row hot; K = 0
+# (all cold); no pads (n_cold == C_pad); C_pad == 0 (every row hot, no
+# pads); a ragged mask with a hot set, with every row hot (masked-out slots
+# the only non-hot ones, none of them cold) and with K = 0 (every valid
+# slot cold, fewer cold entries than non-hot slots); bags with no lookup
+# (long runs of cold_start).
+HOTCOLD_CASES = {"hot set": (40, False, True, False), "all hot": (-1, False, True, False),
+                 "K = 0": (0, False, True, False), "no pads": (40, False, False, False),
+                 "C_pad == 0": (-1, False, False, False), "ragged": (40, True, True, False),
+                 "ragged, all hot": (-1, True, True, False), "ragged, K = 0": (0, True, True, False),
+                 "bags with no lookup": (40, True, True, True)}
+
+
+@pytest.mark.parametrize("case", list(HOTCOLD_CASES))
+@pytest.mark.parametrize("B,T,L", [(1, 1, 1), (40, 3, 1), (7, 3, 3), (7, 3, 5), (9, 5, 8),
+                                   (11, 3, 9), (5, 3, 40), (33, 5, 80), (3, 2, 120),
+                                   (3, 2, 200)])
 @pytest.mark.parametrize("d", [32, 64])
 @pytest.mark.parametrize("layout,cdt", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.float32), ("int8", torch.bfloat16), ("int8", torch.float32),
     ("int8_rowwise", torch.bfloat16), ("int8_rowwise", torch.float32)])
-def test_hotcold_kernel_matches_plain_and_direct(cuda, layout, cdt, d, B, T, L, k, masked):
+def test_hotcold_kernel_matches_plain_and_direct(cuda, layout, cdt, d, B, T, L, case):
     """K6 against its plain version and against the direct kernel (K1,
     K1-int8, K4) on the same ids: per-table int8 bit for bit, float and
     row-wise within the order of their f32 sums."""
@@ -548,8 +568,11 @@ def test_hotcold_kernel_matches_plain_and_direct(cuda, layout, cdt, d, B, T, L, 
         embedding_bag_hotcold_reference)
     from deeprecsys_tpu_torch.ops.embedding import hotcold_tolerance
 
-    tables, hot, offsets, idx, mask, split = _hotcold_case(cuda, layout, d, B, T, L, k, masked,
-                                                           seed=B * 7 + L)
+    k, masked, pad, bare = HOTCOLD_CASES[case]
+    tables, hot, offsets, idx, mask, split = _hotcold_case(
+        cuda, layout, d, B, T, L, k, masked, seed=B * 7 + L, pad=pad, bare_bags=bare)
+    if case == "C_pad == 0":
+        assert split["cold_ids"].numel() == 0
     if layout == "int8":
         wrapper = embedding_bag_hotcold_int8
         before = wrapper.kernel_launches
@@ -586,6 +609,30 @@ def test_hotcold_kernel_matches_plain_and_direct(cuda, layout, cdt, d, B, T, L, 
         assert bool(((got.float() - direct.float()).abs() <= tol).all())
     assert wrapper.kernel_launches == before + 1
     assert got.dtype == cdt and got.shape == (B, T, d)
+
+
+@pytest.mark.parametrize("case", list(HOTCOLD_CASES))
+@pytest.mark.parametrize("B,T,L", [(1, 1, 1), (7, 3, 3), (33, 5, 80), (300, 40, 2)])
+def test_hotcold_cold_starts_match_searchsorted(cuda, B, T, L, case):
+    """K6's first launch alone (``hotcold_cold_starts``) against
+    torch.searchsorted of the sorted cold stream, used here only: the lower
+    bound of every bag and, last, the first pad; and against its plain
+    version."""
+    from deeprecsys_tpu_torch.ops.embedding import (
+        hotcold_cold_starts, hotcold_cold_starts_reference)
+
+    k, masked, pad, bare = HOTCOLD_CASES[case]
+    *_, split = _hotcold_case(cuda, torch.bfloat16, 32, B, T, L, k, masked, seed=B + L,
+                              pad=pad, bare_bags=bare)
+    seg = split["cold_seg"]
+    got = hotcold_cold_starts(seg, B * T)
+    torch.cuda.synchronize()
+    want = torch.searchsorted(seg, torch.arange(B * T + 1, dtype=torch.int32, device=cuda))
+    assert got.dtype == torch.int32 and torch.equal(got.long(), want)
+    assert torch.equal(got, hotcold_cold_starts_reference(seg, B * T))
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    assert torch.equal(hotcold_cold_starts(empty, B * T),
+                       torch.zeros(B * T + 1, dtype=torch.int32, device=cuda))
 
 
 def test_hotcold_kernel_rejects_misaligned_tables(cuda):
