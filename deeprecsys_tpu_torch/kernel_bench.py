@@ -1,10 +1,10 @@
-"""K1, K3, the int8 lookups K1-int8 and K4, and the hot/cold lookup K6 on
-one card: their times beside their bounds and a library yardstick, and each
-wrapper's host time a call. The bounds and library yardsticks of the training kernels K1b, K5 and
-K3b (``k1b_bound``, ``k5_library``, ...) live here too; ``chip_smoke.py``
-times those.
+"""K1, K3, the int8 lookups K1-int8 and K4, the hot/cold lookup K6 and
+the RNN's reverse scan K3b on one card: their times beside their bounds and
+a library yardstick, and each wrapper's host time a call. The bounds and
+library yardsticks of the other training kernels K1b and K5 (``k1b_bound``,
+``k5_library``, ...) live here too; ``chip_smoke.py`` times those.
 
-    python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6]
+    python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6,k3b]
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
@@ -32,6 +32,12 @@ runs), and ``k6_bound`` beside the direct kernel of the layout on the same
 ids (K1, K1-int8, K4) and, for float tables, ``F.embedding_bag`` on the
 original ids, which computes the same pooled sums; the ``cold_start``
 launch's time beside its own bound (``cold_starts_bound``).
+
+For K3b (``bench_k3b``) at T = 40 and B = 128 (the trainer's batch) and
+512, with f32 and bf16 weights: it checks the kernel against its plain
+loop with and without ``seq_lengths``, then gives the kernel's median
+device time beside ``k3b_bound``, cuDNN's backward-data pass
+(``k3b_library``), the plain loop and the wrapper's host time a call.
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -793,6 +799,87 @@ def bench_k3(log) -> dict:
     return row
 
 
+def k3b_inputs(T: int, B: int, w_dtype: torch.dtype, device, seed: int = 0) -> dict:
+    """K3b's inputs at (T, B, 64): a forward scan's f32 tanh values ``y``
+    (teacher-forced from the plain loop's states, as
+    ``RnnScanFunction.backward`` forms them), a random gradient ``gh`` of
+    every state, the weights, and lengths in [0, T] (row 0 of length 0);
+    ``xproj`` and ``b`` for the library yardstick."""
+    from deeprecsys_tpu_torch.ops.rnn import rnn_scan_reference
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    H = 64
+    xproj = torch.randn((T, B, H), generator=g, device=device)
+    w = (torch.randn((H, H), generator=g, device=device) / H ** 0.5).to(w_dtype)
+    b = (torch.randn((H,), generator=g, device=device) * 0.1).to(w_dtype)
+    all_h, _ = rnn_scan_reference(xproj, w, b, torch.float32)
+    prev = torch.cat([torch.zeros_like(all_h[:1]), all_h[:-1]])
+    y = torch.tanh((xproj + prev @ w.float()) + b.float())
+    gh = torch.randn((T, B, H), generator=g, device=device)
+    lens = torch.randint(0, T + 1, (B,), generator=g, device=device, dtype=torch.int32)
+    lens[0] = 0
+    return {"xproj": xproj, "w": w, "b": b, "y": y, "gh": gh, "lens": lens}
+
+
+K3B_SHAPES = ((DIEN_T, 128), (DIEN_T, BATCH))  # (T, B): the trainer's batch and the forward's
+K3B_RTOL = 1e-5  # of the largest |delta|, as chip_smoke.py holds K3b
+
+
+def k3b_error(fn, inp: dict, lens) -> float:
+    """``fn``'s (K3b or an instance of it) largest |error| against the
+    plain loop over delta and dh0, as a share of the largest |delta| (or
+    |dh0|); raises past ``K3B_RTOL``."""
+    from deeprecsys_tpu_torch.ops.rnn import rnn_scan_backward_reference
+
+    delta, dh0 = fn(inp["y"], inp["gh"], inp["w"], lens)
+    want_d, want_h = rnn_scan_backward_reference(inp["y"], inp["gh"], inp["w"], lens)
+    scale = max(want_d.abs().max().item(), want_h.abs().max().item())
+    err = max((delta - want_d).abs().max().item(), (dh0 - want_h).abs().max().item()) / scale
+    if err > K3B_RTOL:
+        raise AssertionError(f"K3b disagrees with its plain loop: {err:.3e} of the largest "
+                             f"|delta| (limit {K3B_RTOL:.0e})")
+    return err
+
+
+def bench_k3b(log) -> list:
+    """K3b at ``K3B_SHAPES`` with f32 and bf16 weights: checked against the
+    plain loop with and without seq_lengths, then its median device time
+    (no seq_lengths, as the trainer's timing runs it) beside its bound,
+    cuDNN's backward-data pass, the plain loop and the wrapper's host time
+    a call (the median of ``HOST_REPS`` runs of ``host_us``)."""
+    with torch.inference_mode(False):  # the library yardstick runs autograd
+        return _bench_k3b(log)
+
+
+def _bench_k3b(log) -> list:
+    from deeprecsys_tpu_torch.ops.rnn import rnn_scan_backward, rnn_scan_backward_reference
+
+    device = torch.device("cuda")
+    rows = []
+    for T, B in K3B_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            inp = k3b_inputs(T, B, dt, device, seed=T + B)
+            err = max(k3b_error(rnn_scan_backward, inp, m) for m in (None, inp["lens"]))
+            args = [(inp["y"], inp["gh"], inp["w"])]
+            run = measure(rnn_scan_backward, args, 50)
+            plain = measure(rnn_scan_backward_reference, args, 10)
+            lib = measure(k3b_library(inp["w"], inp["b"], inp["xproj"]), [(inp["gh"].to(dt),)],
+                          50)
+            row = {"shape": [T, B, 64], "w_dtype": str(dt)[6:], **k3b_bound(T, B, 64),
+                   "ms": run["kernel_ms"], "wall_ms": run["wall_ms"],
+                   "plain_ms": plain["device_ms"], "library_ms": lib["device_ms"],
+                   "host_us": host_us(rnn_scan_backward, args[0], reps=HOST_REPS),
+                   "max_rel_err": err}
+            rows.append(row)
+            log(f"K3b T={T} B={B} W {row['w_dtype']}: {_us(row['ms'])} (device, median); bound "
+                f"{_us(row['bound_ms'])} ({row['bound_by']}); cuDNN backward-data "
+                f"{_us(row['library_ms'])}; plain loop {_us(row['plain_ms'])}; wall "
+                f"{_us(row['wall_ms'])}; host {row['host_us']:.2f} us a call; max |err| "
+                f"{err:.2e} of the largest |delta|")
+            del inp
+    return rows
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -804,10 +891,14 @@ def _us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
 
 
+BENCHES = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
+           "k6": bench_k6, "k3b": bench_k3b}  # --only's names
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", type=Path, default=None, help="write the results here")
-    p.add_argument("--only", type=str, default="k1,k1_host,k3,int8,k6",
+    p.add_argument("--only", type=str, default=",".join(BENCHES),
                    help="comma-separated benches to run (default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -823,14 +914,13 @@ def main(argv=None) -> int:
 
     card = card_line()
     log(f"card: {card}; port at {Path(_build.__file__).parents[2]}")
-    for key in ("embedding_bag", "rnn_scan", "embedding_bag_int8", "embedding_bag_hotcold"):
+    for key in ("embedding_bag", "rnn_scan", "embedding_bag_int8", "embedding_bag_hotcold",
+                "rnn_scan_backward"):
         log(f"{key}: ptxas " + "; ".join(ptxas_summary(_build.build(key).log)))
-    benches = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
-               "k6": bench_k6}
     res = {"card": card}
     with torch.inference_mode():
         for key in args.only.split(","):
-            res[key] = benches[key](log)
+            res[key] = BENCHES[key](log)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(res, indent=1))

@@ -71,21 +71,31 @@
 // int8 rows; row-wise rows start on 4-byte boundaries only and are loaded as
 // K4 loads them, below), so P = D / V lanes cover a row and a warp has S =
 // 32 / P row slots. The plan (ops/embedding.py::k6_launch_plan) follows L:
-//   * L > 8: a warp a bag g = b*T + t, grid-stride. Round trip 1 loads the
-//     bag's hot_mask and hot_sel, NI a lane for a window of 32 * NI slots
-//     (the whole bag up to L = 128), and cold_start[g], cold_start[g + 1].
-//     Ranks of the non-hot slots come from __ballot_sync and __popc below
-//     the lane; round trip 2 loads each lane's cold ids, coalesced. Then
-//     the steps walk the L slots as K1 does, CH = S * U slots a step, each
-//     slot with U rows in flight drawn from either table by its code:
-//     ceil(L / CH) steps. The bag's slots are combined by K1-int8's
-//     reduce-scatter (pooled_rows.cuh) and every lane stores its share.
-//   * L <= 8: a slot a bag, S consecutive bags a warp, each slot with all of
-//     its bag's rows in flight (UB = the power of two >= L). Round trip 1
+//   * L > 8: G bags a warp (a task), grid-stride; bag bi of a task owns the
+//     32 / G lanes from bi * 32 / G, which are S / G row slots (G = 1 but
+//     for per-table int8 rows at D = 64). Round trip 1 loads each bag's
+//     hot_mask and hot_sel, NI a lane for a window of 32 / G * NI slots of
+//     the bag, and cold_start[g], cold_start[g + 1]. Ranks of the non-hot
+//     slots come from one __ballot_sync masked to the bag's lanes and __popc
+//     below the lane, the rank carried across windows kept per bag; round
+//     trip 2 loads each lane's cold ids, coalesced. Then the steps walk the
+//     L slots as K1 does, CH = S / G * U slots of the bag a step, each slot
+//     with U rows in flight drawn from either table by its code: ceil(L /
+//     CH) steps. A bag's slots are combined by K1-int8's reduce-scatter over
+//     the bag's lanes (pooled_rows.cuh) and every lane stores its share.
+//     Per-table int8 rows (64 bytes at most) make the front end a large
+//     share of a bag's chain, so there it is pipelined across windows of
+//     one step: a window's rows load while the next window's cold ids and
+//     the one after's masks and hot ids are in flight, as K1-int8 loads a
+//     step's ids while the step before it pools (without it, K1-int8's
+//     mappings gained nothing over a warp a bag at rm2's shape on an H100:
+//     experiments/k6_sweep.py, PERF.md).
+//   * L <= 8: a slot a bag, S consecutive bags a warp, each slot with its
+//     bag's rows (UB = the power of two >= L) loaded U a step. Round trip 1
 //     loads the task's S * L hot entries and its S + 1 starts; round trip 2
 //     the cold window [cold_start[bag0], cold_start[bag0 + S]) (at most
 //     S * L entries), coalesced; a slot picks its entries by shuffles, and
-//     its UB rows, hot or cold, load in one round trip. No combining step.
+//     its rows, hot or cold, load U at a time. No combining step.
 //
 // Row-wise rows (D + 4 bytes, 36 or 68, on 4-byte boundaries only) load as
 // K4 loads them (pooled_rows.cuh, shared with embedding_bag_int8.cu): each
@@ -112,8 +122,9 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Mode { kFloat = 0, kInt8 = 1, kRowwise = 2 };
 
 // The shipped mapping of a layout (ops/embedding.py::k6_geometry mirrors
-// it): V values a lane, U rows a slot a step (a warp a bag), H the load
-// hint (load_row16), for long bags (kShort false) or a slot a bag.
+// it): V values a lane; on long bags G bags a warp, U rows a slot a step,
+// windows of at most NI ids a lane; on short bags (kShort, a slot a bag) at
+// most U of the bag's rows a step; H the load hint (load_row16).
 // Chosen by measurement on an H100 at rm1's, rm2's and din's shapes
 // (experiments/k6_sweep.py, PERF.md): float (bf16) rows take D / 2 slots a
 // step (2 rows a slot at D = 32, 8 at D = 64); row-wise rows 16 values a
@@ -122,20 +133,24 @@ enum Mode { kFloat = 0, kInt8 = 1, kRowwise = 2 };
 // they come from DRAM and are rarely read again, while hot rows repeat and
 // the L1 keeps them; the hint on every row cost 5-60% on these zipf ids;
 // on 128-byte rows its 64-byte L2 fetch cost 6%); float short bags load
-// every row with it (H = 1); per-table int8 keeps the mapping of K6's first
-// design (16 bytes a lane, at most 4 rows a slot, 32 slots a step, no hint).
+// every row with it (H = 1). Per-table int8 rows load 16 bytes a lane,
+// with the hint on cold rows; their long bags take a window of one step
+// (pipelined, NI = 1) with U = 2 at D = 32 and 4 bags a warp with U = 4 at
+// D = 64, as K1-int8 does; short bags load every row at once.
 template <int M, typename TIn, int D, bool kShort>
 struct Shipped {
   static constexpr int V = M == kRowwise ? 16 : 16 / (int)sizeof(TIn);
   static constexpr int S = 32 / (D / V);
-  static constexpr int U = M == kRowwise ? 16 / S
-                           : M == kInt8  ? (32 / S < 4 ? 32 / S : 4)
-                                         : (D / 2 / S < 8 ? D / 2 / S : 8);
-  static constexpr int H = M == kInt8                        ? 0
-                           : M == kRowwise                   ? 2
-                           : kShort                          ? 1
-                           : D * (int)sizeof(TIn) <= 64      ? 2
-                                                             : 0;
+  static constexpr int G = M == kInt8 && !kShort && D == 64 ? 4 : 1;
+  static constexpr int U = kShort          ? 8
+                           : M == kInt8    ? (D == 64 ? 4 : 2)
+                           : M == kRowwise ? 16 / S
+                                           : (D / 2 / S < 8 ? D / 2 / S : 8);
+  static constexpr int NI = M == kInt8 ? 1 : 4;
+  static constexpr int H = M != kFloat                  ? 2
+                           : kShort                     ? 1
+                           : D * (int)sizeof(TIn) <= 64 ? 2
+                                                        : 0;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -300,9 +315,50 @@ __device__ __forceinline__ void store_vals(TC* dst, const Acc* a, const float* _
   store_row<TC>(dst, o);
 }
 
-// Launch 2. UB = 0: a warp a bag (L > 8), windows of 32 * NI slots. UB in
-// {1, 2, 4, 8} (L <= UB): a slot a bag, S bags a warp.
-template <int M, typename TIn, typename TC, int D, int V, int U, int H, int UB, int NI>
+// Per-table int8 long bags, stage 1 of a window from slot w0 of bag h0 / L:
+// the masks and hot ids of its NI * LB slots, slot w0 + r * LB + l of the
+// bag being its lane l's r-th (none past L or past the last bag).
+template <int NI, int LB>
+__device__ __forceinline__ void load_front(uint8_t (&m)[NI], int32_t (&sel)[NI],
+                                           const uint8_t* __restrict__ hot_mask,
+                                           const int32_t* __restrict__ hot_sel, int64_t h0,
+                                           int w0, int L, bool real, int lane) {
+#pragma unroll
+  for (int r = 0; r < NI; ++r) {
+    const int l = w0 + r * LB + lane % LB;
+    const bool in = real && l < L;
+    m[r] = in ? __ldg(hot_mask + h0 + l) : 0;
+    sel[r] = in ? __ldg(hot_sel + h0 + l) : 0;
+  }
+}
+
+// Stage 2 of that window: each slot's code (hot row -2 - sel, cold entry
+// lo + rank while rank < n_cold, else -1), the rank of a non-hot slot
+// counted over the bag's lanes (seg) of one ballot and carried across
+// windows in `carry`; the cold ids load here.
+template <int NI, int LB>
+__device__ __forceinline__ void front_codes(int32_t (&code)[NI], const uint8_t (&m)[NI],
+                                            const int32_t (&sel)[NI],
+                                            const int32_t* __restrict__ cold_ids, int w0,
+                                            int L, bool real, int lane, unsigned seg,
+                                            int& carry, int64_t lo, int n_cold) {
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < NI; ++r) {
+    const int l = w0 + r * LB + lane % LB;
+    const bool in = real && l < L;
+    const bool hit = in && m[r] != 0;
+    const unsigned cold_ball = __ballot_sync(kFull, in && !hit) & seg;
+    const int rank = carry + __popc(cold_ball & below);
+    carry += __popc(cold_ball);
+    code[r] = hit ? -2 - sel[r] : in && rank < n_cold ? __ldg(cold_ids + lo + rank) : -1;
+  }
+}
+
+// Launch 2. UB = 0: G bags a warp (L > 8), windows of 32 / G * NI slots a
+// bag. UB in {1, 2, 4, 8} (L <= UB): a slot a bag, S bags a warp, U of its
+// UB rows loaded a step.
+template <int M, typename TIn, typename TC, int D, int V, int G, int U, int H, int UB, int NI>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict__ table,
                              const float* __restrict__ scale,
@@ -321,41 +377,113 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
   const int64_t warps = (int64_t)gridDim.x * kWarpsPerBlock;
   bool waited = false;
 
-  if constexpr (UB == 0) {
-    constexpr int CH = S * U;      // slots of the bag a step
-    constexpr int WIN = 32 * NI;   // slots a window
-    static_assert(WIN % CH == 0, "a window is whole steps");
+  if constexpr (UB == 0 && M == kInt8) {
+    // Per-table int8 long bags: the front end pipelined across windows.
+    // While window w's rows load, window w + 1's cold ids (stage 2) and
+    // window w + 2's masks and hot ids (stage 1) are in flight, so a window
+    // waits for one round trip (its rows) where it waited for three. The
+    // codes, and so the rows read and the sums, are those of the windows
+    // taken one after another.
+    constexpr int SPB = S / G;
+    constexpr int LB = 32 / G;
+    constexpr int CH = SPB * U;
+    constexpr int WIN = LB * NI;
+    static_assert(S % G == 0 && WIN % CH == 0, "a bag owns whole slots; a window is whole steps");
+    const int bi = lane / LB;
+    const int s = slot % SPB;
+    const unsigned seg = G == 1 ? kFull : ((1u << (LB % 32)) - 1u) << (bi * LB);
+    const int64_t n_tasks = (n_bags + G - 1) / G;
+    for (int64_t task = warp; task < n_tasks; task += warps) {
+      const int64_t bag = task * G + bi;
+      const bool real = G == 1 || bag < n_bags;
+      const int64_t h0 = bag * L;
+      Acc acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0;
+      uint8_t m0[NI], m1[NI];
+      int32_t sel0[NI], sel1[NI], c0[NI], c1[NI];
+      load_front<NI, LB>(m0, sel0, hot_mask, hot_sel, h0, 0, L, real, lane);
+      load_front<NI, LB>(m1, sel1, hot_mask, hot_sel, h0, WIN, L, real, lane);
+      wait_cold_starts();
+      waited = true;
+      int64_t lo = 0;
+      int n_cold = 0, carry = 0;
+      if (real) {
+        const int32_t a = __ldcg(cold_start + bag), b = __ldcg(cold_start + bag + 1);
+        lo = a;
+        n_cold = b - a;
+      }
+      front_codes<NI, LB>(c0, m0, sel0, cold_ids, 0, L, real, lane, seg, carry, lo, n_cold);
+      for (int w0 = 0; w0 < L; w0 += WIN) {
+        front_codes<NI, LB>(c1, m1, sel1, cold_ids, w0 + WIN, L, real, lane, seg, carry, lo,
+                            n_cold);
+        load_front<NI, LB>(m1, sel1, hot_mask, hot_sel, h0, w0 + 2 * WIN, L, real, lane);
+#pragma unroll
+        for (int k = 0; k < WIN / CH; ++k) {
+          if (w0 + k * CH >= L) break;
+          int32_t rid[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int p0 = k * CH + u * SPB;  // a multiple of SPB: p0 % LB + s < LB
+            rid[u] = __shfl_sync(kFull, c0[p0 / LB], bi * LB + p0 % LB + s);
+          }
+          add_rows<M, TIn, TC, D, V, H>(acc, hot, table, rid, lane);
+        }
+#pragma unroll
+        for (int r = 0; r < NI; ++r) c0[r] = c1[r];
+      }
+      reduce_scatter<P, P * SPB, V / 2>(acc, lane);  // over the bag's slots
+      if (real)
+        store_vals<M, TC, V / SPB>(out + bag * D + (lane % P) * V + slot_share<V, SPB>(s), acc,
+                                   scale, bag, T);
+    }
+  } else if constexpr (UB == 0) {
+    constexpr int SPB = S / G;     // slots a bag
+    constexpr int LB = 32 / G;     // lanes a bag: bag bi of a task owns lanes [bi * LB, (bi + 1) * LB)
+    constexpr int CH = SPB * U;    // slots of a bag a step
+    constexpr int WIN = LB * NI;   // slots of a bag a window
+    static_assert(S % G == 0 && WIN % CH == 0, "a bag owns whole slots; a window is whole steps");
+    const int bi = G == 1 ? 0 : lane / LB;
+    const int s = G == 1 ? slot : slot % SPB;  // the lane's slot in its bag
     const unsigned below = (1u << lane) - 1u;
-    for (int64_t bag = warp; bag < n_bags; bag += warps) {
+    const unsigned seg = G == 1 ? kFull : ((1u << (LB % 32)) - 1u) << (bi * LB);  // the bag's lanes
+    const int64_t n_tasks = (n_bags + G - 1) / G;
+    for (int64_t task = warp; task < n_tasks; task += warps) {
+      const int64_t bag = task * G + bi;
+      const bool real = G == 1 || bag < n_bags;  // the last task may hold fewer than G bags
       Acc acc[V];
 #pragma unroll
       for (int i = 0; i < V; ++i) acc[i] = 0;
       const int64_t h0 = bag * L;
       int64_t lo = 0;
-      int n_cold = 0, carry = 0;  // the bag's cold entries; non-hot slots of earlier windows
+      int n_cold = 0, carry = 0;  // the bag's cold entries; its non-hot slots of earlier windows
       for (int w0 = 0; w0 < L; w0 += WIN) {
         // Round trip 1: the window's masks and hot ids side by side, and
-        // (first window) the bag's cold range.
+        // (first window) the bag's cold range; slot w0 + r * LB + l of the
+        // bag is its lane l's r-th.
         bool in[NI], hit[NI];
         int32_t sel[NI], code[NI];
 #pragma unroll
         for (int r = 0; r < NI; ++r) {
-          const int l = w0 + r * 32 + lane;
-          in[r] = l < L;
+          const int l = w0 + r * LB + lane % LB;
+          in[r] = real && l < L;
           hit[r] = in[r] && __ldg(hot_mask + h0 + l) != 0;
           sel[r] = in[r] ? __ldg(hot_sel + h0 + l) : 0;
         }
         if (w0 == 0) {
           wait_cold_starts();
           waited = true;
-          const int32_t a = __ldcg(cold_start + bag), b = __ldcg(cold_start + bag + 1);
-          lo = a;
-          n_cold = b - a;
+          if (real) {
+            const int32_t a = __ldcg(cold_start + bag), b = __ldcg(cold_start + bag + 1);
+            lo = a;
+            n_cold = b - a;
+          }
         }
-        // Round trip 2: the cold id of each non-hot slot of rank < n_cold.
+        // Round trip 2: the cold id of each non-hot slot of rank < n_cold,
+        // its rank counted over the bag's lanes of one ballot.
 #pragma unroll
         for (int r = 0; r < NI; ++r) {
-          const unsigned cold_ball = __ballot_sync(kFull, in[r] && !hit[r]);
+          const unsigned cold_ball = __ballot_sync(kFull, in[r] && !hit[r]) & seg;
           const int rank = carry + __popc(cold_ball & below);
           carry += __popc(cold_ball);
           const bool cold = in[r] && !hit[r] && rank < n_cold;
@@ -363,25 +491,31 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
         }
 #pragma unroll
         for (int r = 0; r < NI; ++r) code[r] = hit[r] ? -2 - sel[r] : code[r];
-        // The steps: row u of a slot is the step's slot u * S + slot.
+        // The steps: row u of a slot is the bag's step slot u * SPB + s,
+        // held by the bag's lane (k * CH + u * SPB) % LB + s.
 #pragma unroll
         for (int k = 0; k < WIN / CH; ++k) {
           if (w0 + k * CH >= L) break;
           int32_t rid[U];
 #pragma unroll
-          for (int u = 0; u < U; ++u)
-            rid[u] = __shfl_sync(kFull, code[(k * CH + u * S) >> 5], (k * CH + u * S + slot) & 31);
+          for (int u = 0; u < U; ++u) {
+            const int p0 = k * CH + u * SPB;  // a multiple of SPB: p0 % LB + s < LB
+            const int src = G == 1 ? (p0 + slot) & 31 : bi * LB + p0 % LB + s;
+            rid[u] = __shfl_sync(kFull, code[p0 / LB], src);
+          }
           add_rows<M, TIn, TC, D, V, H>(acc, hot, table, rid, lane);
         }
       }
-      reduce_scatter<P, 32, V / 2>(acc, lane);
-      store_vals<M, TC, V / S>(out + bag * D + (lane % P) * V + slot_share<V, S>(slot), acc,
-                               scale, bag, T);
+      reduce_scatter<P, P * SPB, V / 2>(acc, lane);  // over the bag's slots
+      if (real)
+        store_vals<M, TC, V / SPB>(out + bag * D + (lane % P) * V + slot_share<V, SPB>(s), acc,
+                                   scale, bag, T);
     }
   } else {
     // S bags a task, slot s holding bag bag0 + s.
     constexpr int NW = S * UB;
     constexpr int NJ = (NW + 31) / 32;
+    static_assert(UB % U == 0, "a bag is whole steps");
     const int64_t n_tasks = (n_bags + S - 1) / S;
     for (int64_t task = warp; task < n_tasks; task += warps) {
       const int64_t bag0 = task * S;
@@ -427,7 +561,17 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
       Acc acc[V];
 #pragma unroll
       for (int i = 0; i < V; ++i) acc[i] = 0;
-      add_rows<M, TIn, TC, D, V, H>(acc, hot, table, code, lane);
+      if constexpr (U == UB) {
+        add_rows<M, TIn, TC, D, V, H>(acc, hot, table, code, lane);
+      } else {
+#pragma unroll
+        for (int k = 0; k < UB / U; ++k) {
+          int32_t rid[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) rid[u] = code[k * U + u];
+          add_rows<M, TIn, TC, D, V, H>(acc, hot, table, rid, lane);
+        }
+      }
       if (bag < n_bags) store_vals<M, TC, V>(out + bag * D + (lane % P) * V, acc, scale, bag, T);
     }
   }
@@ -458,9 +602,9 @@ int launch_cold_starts(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// Launch 2 with mapping (V, U, H) and plan (UB, NI), with programmatic
+// Launch 2 with mapping (V, G, U, H) and plan (UB, NI), with programmatic
 // dependent launch unless the caller says otherwise (the sweep measures both).
-template <int M, typename TIn, typename TC, int D, int V, int U, int H, int UB, int NI>
+template <int M, typename TIn, typename TC, int D, int V, int G, int U, int H, int UB, int NI>
 int launch(const Args& a, bool pdl = true) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)a.grid);
@@ -473,34 +617,52 @@ int launch(const Args& a, bool pdl = true) {
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 1 : 0;
   return (int)cudaLaunchKernelEx(
-      &cfg, embedding_bag_hotcold_kernel<M, TIn, TC, D, V, U, H, UB, NI>,
+      &cfg, embedding_bag_hotcold_kernel<M, TIn, TC, D, V, G, U, H, UB, NI>,
       static_cast<const TIn*>(a.hot), static_cast<const TIn*>(a.table), a.scale, a.hot_sel,
       a.hot_mask, a.cold_ids, static_cast<const int32_t*>(a.cold_start), static_cast<TC*>(a.out),
       a.n_bags, a.T, a.L);
 }
 
-// The plans ops/embedding.py::k6_launch_plan picks: rows_per_slot 0 (a warp
-// a bag) for L > 8 with NI in {1, 2, 4}, else the power of two >= L; each
-// with the layout's shipped mapping (the hint only where a slot loads more
-// than one row).
+// ids_per_lane of a long-bag window: the power of two >= p (the bag's
+// slots over its lanes, rounded up) capped at NI, then rounded up to whole
+// steps (P * NI a multiple of U). ops/embedding.py::k6_launch_plan's rule.
+__host__ __device__ constexpr int gcd_of(int a, int b) { return b == 0 ? a : gcd_of(b, a % b); }
+template <int P, int U, int NI>
+__host__ __device__ constexpr int window_ids(int p) {
+  return ((p < NI ? p : NI) + U / gcd_of(U, P) - 1) / (U / gcd_of(U, P)) * (U / gcd_of(U, P));
+}
+
+// The plans ops/embedding.py::k6_launch_plan picks: rows_per_slot 0 (G bags
+// a warp) for L > 8 with ids_per_lane window_ids(1 .. NI); else the power of
+// two >= L, U of its rows a step; each with the layout's shipped mapping
+// (no hint on bags of one row).
 template <int M, typename TIn, typename TC, int D>
 int launch_plan(int rows_per_slot, int ids_per_lane, const Args& a) {
   using LB = Shipped<M, TIn, D, false>;
   using SB = Shipped<M, TIn, D, true>;
-  constexpr int kMinNI = LB::S * LB::U / 32 > 1 ? LB::S * LB::U / 32 : 1;  // a step in a window
+  constexpr int P = D / LB::V;
   if (rows_per_slot == 0) {
-    switch (ids_per_lane) {
-      case 1: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, kMinNI>(a);
-      case 2: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, (kMinNI > 2 ? kMinNI : 2)>(a);
-      case 4: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, 4>(a);
-      default: return (int)cudaErrorInvalidValue;
+    constexpr int n1 = window_ids<P, LB::U, LB::NI>(1), n2 = window_ids<P, LB::U, LB::NI>(2),
+                  n4 = window_ids<P, LB::U, LB::NI>(4), n8 = window_ids<P, LB::U, LB::NI>(8),
+                  n16 = window_ids<P, LB::U, LB::NI>(16);
+    if (ids_per_lane == n1) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n1>(a);
+    if (ids_per_lane == n2) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n2>(a);
+    if (ids_per_lane == n4) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n4>(a);
+    if constexpr (LB::NI >= 8) {
+      if (ids_per_lane == n8) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n8>(a);
     }
+    if constexpr (LB::NI >= 16) {
+      if (ids_per_lane == n16)
+        return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n16>(a);
+    }
+    return (int)cudaErrorInvalidValue;
   }
+  constexpr int U2 = SB::U < 2 ? SB::U : 2, U4 = SB::U < 4 ? SB::U : 4, U8 = SB::U < 8 ? SB::U : 8;
   switch (rows_per_slot) {
-    case 1: return launch<M, TIn, TC, D, SB::V, 1, 0, 1, 1>(a);  // one row: no hint, as K1
-    case 2: return launch<M, TIn, TC, D, SB::V, 1, SB::H, 2, 1>(a);
-    case 4: return launch<M, TIn, TC, D, SB::V, 1, SB::H, 4, 1>(a);
-    case 8: return launch<M, TIn, TC, D, SB::V, 1, SB::H, 8, 1>(a);
+    case 1: return launch<M, TIn, TC, D, SB::V, 1, 1, 0, 1, 1>(a);  // one row: no hint, as K1
+    case 2: return launch<M, TIn, TC, D, SB::V, 1, U2, SB::H, 2, 1>(a);
+    case 4: return launch<M, TIn, TC, D, SB::V, 1, U4, SB::H, 4, 1>(a);
+    case 8: return launch<M, TIn, TC, D, SB::V, 1, U8, SB::H, 8, 1>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

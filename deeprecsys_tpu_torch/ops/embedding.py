@@ -45,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -712,8 +713,8 @@ embedding_bag_int8_rowwise.kernel_launches = 0
 
 # ------------------------------------------------------- hot/cold (K6)
 
-# K6's launch geometry, mirroring csrc/embedding_bag_hotcold.cu: a warp a
-# bag (L > 8) or a slot a bag, K6_WARPS_PER_BLOCK warps a block.
+# K6's launch geometry, mirroring csrc/embedding_bag_hotcold.cu: G bags a
+# warp (L > 8) or a slot a bag, K6_WARPS_PER_BLOCK warps a block.
 K6_WARPS_PER_BLOCK = 8
 _K6_MODES = {"float": 0, "int8": 1, "int8_rowwise": 2}
 _SPLIT_KEYS = ("hot_sel", "hot_mask", "cold_ids", "cold_seg")
@@ -725,20 +726,26 @@ class K6Geometry:
     ``csrc/embedding_bag_hotcold.cu``): a lane holds ``values_per_lane``
     values of a row (16 bytes of a float or per-table int8 row; row-wise
     rows as the 16-byte-aligned chunks over them), ``lanes_per_row`` lanes
-    cover a row, ``slots = 32 / lanes_per_row`` rows load at once,
-    ``rows_per_slot`` each a step where a warp pools a bag, so a step reads
-    ``chunk = slots * rows_per_slot`` slots of the bag; ``hint``: 0 none,
-    1 every row loads with K1's no-L1 hint, 2 only cold rows do."""
+    cover a row, ``slots = 32 / lanes_per_row`` rows load at once. Where a
+    warp pools long bags it pools ``bags_per_warp`` (G) of them, each on
+    ``slots / G`` slots, ``rows_per_slot`` rows a slot a step, so a step
+    reads ``chunk`` slots of a bag, and a window holds at most
+    ``ids_per_lane`` ids a lane; where a slot pools a bag it loads at most
+    ``rows_per_slot`` of the bag's rows a step. ``hint``: 0 none, 1 every
+    row loads with K1's no-L1 hint, 2 only cold rows do."""
 
     values_per_lane: int
     lanes_per_row: int
     slots: int
     rows_per_slot: int
     hint: int
+    bags_per_warp: int = 1
+    ids_per_lane: int = 4
 
     @property
     def chunk(self) -> int:
-        return self.slots * self.rows_per_slot
+        """Slots of a bag a step (long bags)."""
+        return self.slots // self.bags_per_warp * self.rows_per_slot
 
 
 @functools.lru_cache(maxsize=64)
@@ -746,33 +753,42 @@ def k6_geometry(mode: str, d: int, itemsize: int, short: bool = False) -> K6Geom
     """K6's geometry for a table layout (``mode`` of ``_K6_MODES``), width
     ``d``, element size (bytes) and bag length (``short``: L <= 8, a slot a
     bag). Float lanes load 16 bytes, d / 2 slots a step (at most 8 rows a
-    slot); row-wise lanes hold 16 values, 16 slots a step. Cold rows of at
-    most 64 bytes and row-wise rows load with the hint, float short bags
-    every row (``k6_launch_plan`` drops it for bags of one row, as K1
-    does); per-table int8 lanes 16 bytes, at most 4 rows a slot and 32
-    slots a step, no hint. Chosen by measurement on an H100
-    (``experiments/k6_sweep.py``, PERF.md) but per-table int8's, which
-    keeps K6's first design."""
+    slot); row-wise lanes hold 16 values, 16 slots a step; both load every
+    row of a short bag at once. Cold rows of at most 64 bytes and row-wise
+    rows load with the hint, float short bags every row (``k6_launch_plan``
+    drops it for bags of one row, as K1 does). Per-table int8 lanes load 16
+    bytes, cold rows with the hint; long bags take K1-int8's mappings
+    (``k1_launch_plan(..., torch.int8)``: a warp a bag and 2 rows a slot a
+    step at d = 32, 4 bags a warp and 4 rows at d = 64) with windows of one
+    step (1 id a lane: the front end is pipelined across windows); short
+    bags load every row at once. Chosen by measurement on an H100
+    (``experiments/k6_sweep.py``, PERF.md)."""
     values = 16 if mode == "int8_rowwise" else 16 // itemsize
     lanes = d // values
     slots = 32 // lanes
-    rows = {"int8_rowwise": 16 // slots, "int8": min(32 // slots, 4)}.get(
-        mode, min(d // 2 // slots, 8))
-    if mode == "float":
-        hint = 1 if short else 2 if d * itemsize <= 64 else 0
+    bags, ids = 1, 4
+    if short:
+        rows, hint = 8, 1 if mode == "float" else 2
+    elif mode == "int8":
+        rows, hint, ids = (2, 2, 1) if d == 32 else (4, 2, 1)
+        bags = 1 if d == 32 else 4
+    elif mode == "int8_rowwise":
+        rows, hint = 16 // slots, 2
     else:
-        hint = 2 if mode == "int8_rowwise" else 0
-    return K6Geometry(values, lanes, slots, rows, hint)
+        rows, hint = min(d // 2 // slots, 8), 2 if d * itemsize <= 64 else 0
+    return K6Geometry(values, lanes, slots, rows, hint, bags, ids)
 
 
 @dataclasses.dataclass(frozen=True)
 class K6Plan:
-    """How K6 maps bags onto warps: ``rows_per_slot`` 0 is a warp a bag (L >
-    8) whose slots' hot entries and cold ids load ``ids_per_lane`` a lane (a
-    window of ``32 * ids_per_lane`` slots); else a slot a bag,
-    ``bags_per_warp`` of them, each slot with all of its bag's rows in
-    flight (the power of two >= L). ``grid`` blocks of K6_WARPS_PER_BLOCK
-    warps cover every task once; ``geometry`` is the mapping launched."""
+    """How K6 maps bags onto warps: ``rows_per_slot`` 0 is long bags,
+    ``bags_per_warp`` (the geometry's G) a warp, whose slots' hot entries
+    and cold ids load ``ids_per_lane`` a lane of the bag's lanes (a window
+    of ``32 / G * ids_per_lane`` slots of the bag); else a slot a bag,
+    ``bags_per_warp`` of them, each slot with its bag's rows (the power of
+    two >= L) loaded ``geometry.rows_per_slot`` a step. ``grid`` blocks of
+    K6_WARPS_PER_BLOCK warps cover every task once; ``geometry`` is the
+    mapping launched."""
 
     bags_per_warp: int
     rows_per_slot: int
@@ -781,20 +797,29 @@ class K6Plan:
     geometry: K6Geometry
 
 
+def k6_window_ids(L: int, geo: K6Geometry) -> int:
+    """ids_per_lane of a long-bag window: the power of two >= the bag's
+    slots over its lanes, at most ``geo.ids_per_lane``, rounded up to whole
+    steps (``csrc/embedding_bag_hotcold.cu::window_ids``)."""
+    p = min(geo.ids_per_lane, _pow2_at_least(-(-L // (32 // geo.bags_per_warp))))
+    m = geo.rows_per_slot // math.gcd(geo.rows_per_slot, geo.lanes_per_row)
+    return -(-p // m) * m
+
+
 @functools.lru_cache(maxsize=512)
 def k6_launch_plan(n_bags: int, L: int, mode: str, d: int, itemsize: int) -> K6Plan:
     """K6's plan for ``n_bags`` bags of ``L`` slots of a layout; the only
-    ones ``csrc/embedding_bag_hotcold.cu`` builds. A warp a bag loads the
-    bag's slots in one window up to L = 128 (``ids_per_lane`` the power of
-    two >= ceil(L / 32), at most 4, and at least a step's)."""
+    ones ``csrc/embedding_bag_hotcold.cu`` builds. Long bags load a window
+    of ``k6_window_ids`` ids a lane (up to L = 128 in one window at G =
+    1); short bags all of their rows, at most the geometry's a step."""
     short = L <= 8
     geo = k6_geometry(mode, d, itemsize, short)
     if short:
         u, bpw, ni = _pow2_at_least(max(L, 1)), geo.slots, 1
-        geo = dataclasses.replace(geo, hint=geo.hint if u > 1 else 0)  # one row: as K1
+        geo = dataclasses.replace(geo, rows_per_slot=min(u, geo.rows_per_slot),
+                                  hint=geo.hint if u > 1 else 0)  # one row: as K1
     else:
-        u, bpw = 0, 1
-        ni = max(min(4, _pow2_at_least(-(-L // 32))), geo.chunk // 32)
+        u, bpw, ni = 0, geo.bags_per_warp, k6_window_ids(L, geo)
     tasks = -(-n_bags // bpw)
     return K6Plan(bpw, u, ni, max(1, -(-tasks // K6_WARPS_PER_BLOCK)), geo)
 

@@ -254,7 +254,10 @@ def rnn_scan_backward(y: torch.Tensor, gh: torch.Tensor, h2h_w: torch.Tensor,
     dh0 = torch.zeros((B, H), dtype=torch.float32, device=y.device)
     if T == 0 or B == 0:
         return delta, dh0
-    y, gh, w = y.contiguous(), gh.contiguous(), h2h_w.contiguous()
+    # K3b copies y and gh and loads h2h_w in 16-byte words: a view that does
+    # not start on a 16-byte boundary is copied first.
+    y, gh, w = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (y, gh, h2h_w))
     lens = None if seq_lengths is None else seq_lengths.to(torch.int32).contiguous()
     _build.launch(_build.load("rnn_scan_backward", _declare_backward), "drs_rnn_scan_backward",
                   y.device, y.data_ptr(), gh.data_ptr(), w.data_ptr(), _DTYPE_CODES[w.dtype],

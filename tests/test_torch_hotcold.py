@@ -21,6 +21,7 @@ Tolerances:
   port pools in f32 as its direct lookup does.
 """
 
+import dataclasses
 import functools
 import re
 from pathlib import Path
@@ -383,7 +384,9 @@ def _simulate_k6(plan, n_bags, L, hot_mask, seg):
     """The rows K6 reads under ``plan`` (``k6_launch_plan``'s): (hot reads a
     hot slot, cold reads a cold entry, cold reads by slots past the last
     bag, which store nothing). Asserts that every cold entry a slot reads is
-    its own bag's, and that each step's rows come from the window's ids."""
+    its own bag's, that each step's rows come from the window's ids of the
+    slot's own bag, and (long bags) that every column of every real bag is
+    stored once and no lane of a bag past the last stores."""
     geo = plan.geometry
     hot_reads = np.zeros(hot_mask.size, int)
     cold_reads = np.zeros(seg.size, int)
@@ -393,45 +396,70 @@ def _simulate_k6(plan, n_bags, L, hot_mask, seg):
     tasks = -(-n_bags // plan.bags_per_warp)
     by_warp = [list(range(w, tasks, warps)) for w in range(warps)]
     assert sorted(t for ts in by_warp for t in ts) == list(range(tasks))
-    if plan.rows_per_slot == 0:  # a warp a bag, windows of 32 * NI slots
-        S, U, CH = geo.slots, geo.rows_per_slot, geo.chunk
-        win = 32 * plan.ids_per_lane
-        assert plan.bags_per_warp == 1 and win % CH == 0 and plan.ids_per_lane in (1, 2, 4)
-        for bag in range(n_bags):
-            lo, n_cold, carry = cs[bag], cs[bag + 1] - cs[bag], 0
+    if plan.rows_per_slot == 0:  # G bags a warp, windows of 32 / G * NI slots a bag
+        G, NI = plan.bags_per_warp, plan.ids_per_lane
+        P, S, U, V = geo.lanes_per_row, geo.slots, geo.rows_per_slot, geo.values_per_lane
+        SPB, LB = S // G, 32 // G
+        CH, win = SPB * U, LB * NI
+        assert G == geo.bags_per_warp and S % G == 0 and win % CH == 0 and V % SPB == 0
+        assert NI == emb.k6_window_ids(L, geo)
+        lane = np.arange(32)
+        bi, slot = lane // LB, lane // P
+        s = slot % SPB
+        below = (1 << lane) - 1
+        seg_mask = np.array([0xFFFFFFFF if G == 1 else ((1 << LB) - 1) << (b * LB) for b in bi])
+        bits = int(np.log2(SPB))
+        share = np.array([int(format(x, f"0{bits}b")[::-1] or "0", 2) for x in s]) * (V // SPB)
+        stored = np.zeros((n_bags, geo.values_per_lane * P), int)
+        for task in range(tasks):
+            bag = task * G + bi
+            real = bag < n_bags
+            lo = np.where(real, cs[np.minimum(bag, n_bags - 1)], 0)
+            n_cold = np.where(real, cs[np.minimum(bag + 1, n_bags)] - lo, 0)
+            carry = np.zeros(32, int)
             for w0 in range(0, L, win):
-                code = [None] * win  # ("hot", slot) or ("cold", entry)
-                for r in range(win // 32):
-                    ls = w0 + r * 32 + np.arange(32)
-                    inr = ls < L
-                    hit = inr & hot_mask[bag * L + np.minimum(ls, L - 1)]
-                    nonhot = inr & ~hit
-                    rank = carry + np.cumsum(nonhot) - nonhot  # popc below the lane
-                    carry += int(nonhot.sum())
-                    for lane in range(32):
-                        if hit[lane]:
-                            code[r * 32 + lane] = ("hot", bag * L + ls[lane])
-                        elif nonhot[lane] and rank[lane] < n_cold:
-                            code[r * 32 + lane] = ("cold", lo + rank[lane])
+                code = [[None] * 32 for _ in range(NI)]  # ("hot", slot) or ("cold", entry)
+                for r in range(NI):
+                    ls = w0 + r * LB + lane % LB
+                    inr = real & (ls < L)
+                    at = np.where(inr, bag * L + np.minimum(ls, L - 1), 0)
+                    hit = inr & hot_mask[at]
+                    ball = int(sum(1 << int(x) for x in lane[inr & ~hit])) & 0xFFFFFFFF
+                    mine = np.array([ball & int(m) for m in seg_mask])
+                    rank = carry + np.array([bin(int(m) & int(bw)).count("1")
+                                             for m, bw in zip(mine, below)])
+                    carry = carry + np.array([bin(int(m)).count("1") for m in mine])
+                    for ln in range(32):
+                        if hit[ln]:
+                            code[r][ln] = ("hot", int(at[ln]))
+                        elif inr[ln] and not hit[ln] and rank[ln] < n_cold[ln]:
+                            code[r][ln] = ("cold", int(lo[ln] + rank[ln]))
                 for k in range(win // CH):
                     if w0 + k * CH >= L:
                         break
                     for u in range(U):
-                        for slot in range(S):
-                            p = k * CH + u * S + slot
-                            assert (k * CH + u * S) >> 5 == p // 32  # the word the source reads
-                            c = code[p]
+                        p0 = k * CH + u * SPB
+                        for ln in range(0, 32, P):  # one read a slot (its P lanes load one row)
+                            assert p0 % LB + s[ln] < LB  # the source lane is the bag's
+                            c = code[p0 // LB][bi[ln] * LB + p0 % LB + s[ln]]
                             if c is None:
                                 continue
                             if c[0] == "hot":
+                                assert c[1] // L == bag[ln]
                                 hot_reads[c[1]] += 1
                             else:
-                                assert seg[c[1]] == bag
+                                assert real[ln] and seg[c[1]] == bag[ln]
                                 cold_reads[c[1]] += 1
+            for ln in range(32):  # reduce_scatter over the bag's SPB slots, then the store
+                if real[ln]:
+                    col = (ln % P) * V + share[ln]
+                    stored[bag[ln], col:col + V // SPB] += 1
+        assert (stored == 1).all()
         return hot_reads, cold_reads, stray
     S, UB = geo.slots, plan.rows_per_slot  # a slot a bag
     nw = S * UB
     assert plan.bags_per_warp == S and L <= UB and plan.ids_per_lane == 1
+    assert UB % geo.rows_per_slot == 0  # the bag's rows in whole steps
     for task in range(tasks):
         bag0 = task * S
         nb = min(S, n_bags - bag0)
@@ -462,14 +490,20 @@ def _simulate_k6(plan, n_bags, L, hot_mask, seg):
     return hot_reads, cold_reads, stray
 
 
-def _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask, pad=True):
-    """Splits ``idx`` over ``hot`` and simulates K6 on it: every hot hit read
-    once, every real cold entry once (by its own bag), no pad; returns the
-    plan."""
+def _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask, pad=True, variant=None):
+    """Splits ``idx`` over ``hot`` and simulates K6 on it (the shipped plan,
+    or its long bags mapped ``variant``): every hot hit read once, every
+    real cold entry once (by its own bag), no pad; returns the plan."""
     B, T, L = idx.shape
     s = ops_hc.split_hot_cold(idx, offsets, hot, cold_buckets=hotcold.cold_ladder(idx.size),
                               slot_mask=mask, pad=pad)
     plan = emb.k6_launch_plan(B * T, L, mode, d, itemsize)
+    if variant is not None and plan.rows_per_slot == 0:
+        G, U = variant
+        geo = dataclasses.replace(plan.geometry, bags_per_warp=G, rows_per_slot=U)
+        tasks = -(-B * T // G)
+        plan = dataclasses.replace(plan, bags_per_warp=G, ids_per_lane=emb.k6_window_ids(L, geo),
+                                   grid=max(1, -(-tasks // emb.K6_WARPS_PER_BLOCK)), geometry=geo)
     hot_mask = s["hot_mask"].reshape(-1)
     hot_reads, cold_reads, stray = _simulate_k6(plan, B * T, L, hot_mask, s["cold_seg"])
     np.testing.assert_array_equal(hot_reads, hot_mask.astype(int))
@@ -479,6 +513,14 @@ def _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask, pad=True):
 
 
 LAYOUTS = [("float", 2), ("float", 4), ("int8", 1), ("int8_rowwise", 1)]
+# Long-bag mappings (G bags a warp, U rows a slot a step) simulated beside
+# the shipped one for per-table int8, whose mappings pool several long bags
+# a warp: U = 3 makes windows of 3 or 6 ids a lane.
+INT8_VARIANTS = (None, (2, 2), (4, 4), (2, 3), (4, 3))
+
+
+def _variants(mode):
+    return INT8_VARIANTS if mode == "int8" else (None,)
 
 
 @pytest.mark.parametrize("mode,itemsize", LAYOUTS)
@@ -489,7 +531,10 @@ def test_k6_index_arithmetic_covers_every_slot_once(mode, itemsize, d):
     hit is read once, by its bag; every cold lookup once, by its bag (a
     warp a bag: the non-hot slot of rank r takes entry cold_start[g] + r; a
     slot a bag: its part of the task's cold window); a pad by no bag; a
-    step's rows come from the window's ids."""
+    step's rows come from the window's ids of the slot's own bag; every
+    column of a real bag is stored once. Per-table int8 also under long-bag
+    mappings of 2 and 4 bags a warp (``INT8_VARIANTS``), where the number
+    of bags is not always a multiple of G."""
     plans = set()
     for B, T, L, k in [(1, 1, 1, 0), (7, 3, 5, 20), (33, 5, 80, 200), (3, 2, 120, 1000),
                        (9, 4, 3, -1), (5, 7, 2, 30), (11, 3, 8, 9), (13, 2, 9, 0),
@@ -498,11 +543,16 @@ def test_k6_index_arithmetic_covers_every_slot_once(mode, itemsize, d):
                                            masked=bool(k % 2))
         hot = (np.arange(rows.sum(), dtype=np.int64) if k < 0
                else ops_hc.select_hot_ids(idx, offsets, k))
-        plan, _ = _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask)
-        geo = plan.geometry
-        assert geo.lanes_per_row * geo.slots == 32 and geo.chunk <= 32 * plan.ids_per_lane
-        plans.add(plan.rows_per_slot)
-    assert plans == {0, 1, 2, 4, 8}
+        for variant in _variants(mode):
+            plan, _ = _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask, variant=variant)
+            geo = plan.geometry
+            assert geo.lanes_per_row * geo.slots == 32
+            assert geo.chunk <= 32 // plan.bags_per_warp * plan.ids_per_lane or plan.rows_per_slot
+            plans.add((plan.rows_per_slot, plan.bags_per_warp if plan.rows_per_slot == 0 else 0))
+    long_bags = {g for u, g in plans if u == 0}
+    assert {u for u, _ in plans} == {0, 1, 2, 4, 8}
+    shipped = emb.k6_geometry(mode, d, itemsize).bags_per_warp
+    assert long_bags == ({shipped, 2, 4} if mode == "int8" else {1})
 
 
 def _edge_hot(case, rows, idx, offsets):
@@ -529,7 +579,9 @@ def test_k6_index_arithmetic_edges(case, L, mode, itemsize):
     cold), ragged masks (slots masked out among live ones: with a hot set,
     with every row hot, where no non-hot slot is cold, and with K = 0, where
     fewer entries are cold than slots are non-hot) and bags with no cold
-    lookup (long runs of cold_start); L past one window (200)."""
+    lookup (long runs of cold_start); L past one window (200). Per-table
+    int8 also at d = 64 (4 bags a warp, shipped) and under the long-bag
+    mappings of ``INT8_VARIANTS`` (57 bags: no multiple of G)."""
     rng = np.random.default_rng(L + len(case))
     rows = np.array([60, 500, 90], np.int64)
     offsets = np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int32)
@@ -543,7 +595,10 @@ def test_k6_index_arithmetic_edges(case, L, mode, itemsize):
         mask[::2, 1] = False  # whole bags masked out: no lookups at all
     hot = _edge_hot(case, rows, idx, offsets)
     pad = "no pads" not in case
-    _, s = _check_k6_case(mode, itemsize, 32, idx, offsets, hot, mask, pad=pad)
+    runs = [(32, v) for v in _variants(mode)] + ([(64, None)] if mode == "int8" else [])
+    for d, variant in runs:
+        _, s = _check_k6_case(mode, itemsize, d, idx, offsets, hot, mask, pad=pad,
+                              variant=variant)
     if not pad:
         assert s["cold_ids"].size == s["n_cold"]
     if case == "all hot, no pads":
@@ -580,28 +635,53 @@ def test_k6_geometry_mirrors_the_source():
     src = HOTCOLD_CU.read_text()
     assert re.search(rf"kWarpsPerBlock = {emb.K6_WARPS_PER_BLOCK};", src)
     assert "static constexpr int V = M == kRowwise ? 16 : 16 / (int)sizeof(TIn);" in src
-    assert re.search(r"static constexpr int U = M == kRowwise \? 16 / S\s+: M == kInt8  \? "
-                     r"\(32 / S < 4 \? 32 / S : 4\)\s+: \(D / 2 / S < 8 \? D / 2 / S : 8\);",
-                     src)
-    assert re.search(r"static constexpr int H = M == kInt8\s+\? 0\s+: M == kRowwise\s+\? 2"
-                     r"\s+: kShort\s+\? 1\s+: D \* \(int\)sizeof\(TIn\) <= 64\s+\? 2\s+: 0;", src)
+    assert "static constexpr int G = M == kInt8 && !kShort && D == 64 ? 4 : 1;" in src
+    assert re.search(r"static constexpr int U = kShort\s+\? 8\s+: M == kInt8\s+\? "
+                     r"\(D == 64 \? 4 : 2\)\s+: M == kRowwise \? 16 / S"
+                     r"\s+: \(D / 2 / S < 8 \? D / 2 / S : 8\);", src)
+    assert "static constexpr int NI = M == kInt8 ? 1 : 4;" in src
+    assert re.search(r"static constexpr int H = M != kFloat\s+\? 2\s+: kShort\s+\? 1"
+                     r"\s+: D \* \(int\)sizeof\(TIn\) <= 64 \? 2\s+: 0;", src)
     modes = re.findall(r"enum Mode \{ kFloat = (\d), kInt8 = (\d), kRowwise = (\d) \}", src)
     assert modes == [tuple(str(emb._K6_MODES[m]) for m in ("float", "int8", "int8_rowwise"))]
     G = emb.K6Geometry
     assert emb.k6_geometry("float", 32, 2) == G(8, 4, 8, 2, 2)
     assert emb.k6_geometry("float", 64, 2) == G(8, 8, 4, 8, 0)
-    assert emb.k6_geometry("float", 32, 4, True) == G(4, 8, 4, 4, 1)
+    assert emb.k6_geometry("float", 32, 4, True) == G(4, 8, 4, 8, 1)
     assert emb.k6_geometry("float", 64, 4) == G(4, 16, 2, 8, 0)
-    assert emb.k6_geometry("int8", 32, 1) == G(16, 2, 16, 2, 0)
-    assert emb.k6_geometry("int8", 64, 1, True) == G(16, 4, 8, 4, 0)
+    # Per-table int8 long bags: K1-int8's mappings (k1_launch_plan(..., torch.int8)),
+    # windows of one step; short bags every row at once; cold rows with the hint.
+    assert emb.k6_geometry("int8", 32, 1) == G(16, 2, 16, 2, 2, 1, 1)
+    assert emb.k6_geometry("int8", 64, 1) == G(16, 4, 8, 4, 2, 4, 1)
+    assert emb.k6_geometry("int8", 64, 1, True) == G(16, 4, 8, 8, 2)
+    for d in (32, 64):
+        for L in (9, 80, 120):
+            k1 = emb.k1_launch_plan(512, L, d, torch.int8)
+            k6 = emb.k6_launch_plan(512, L, "int8", d, 1)
+            assert k6.geometry.slots == k1.row_slots and k6.bags_per_warp == k1.bags_per_warp
+            assert k6.geometry.rows_per_slot == k1.rows_per_lane and k6.ids_per_lane == 1
+            assert k6.geometry.chunk == 32 // k6.bags_per_warp  # a window is one step
     assert emb.k6_geometry("int8_rowwise", 32, 1) == G(16, 2, 16, 1, 2)
-    assert emb.k6_geometry("int8_rowwise", 64, 1, True) == G(16, 4, 8, 2, 2)
-    assert "case 1: return launch<M, TIn, TC, D, SB::V, 1, 0, 1, 1>(a);" in src
+    assert emb.k6_geometry("int8_rowwise", 64, 1, True) == G(16, 4, 8, 8, 2)
+    assert "case 1: return launch<M, TIn, TC, D, SB::V, 1, 1, 0, 1, 1>(a);" in src
     for u in (2, 4, 8):
-        assert f"case {u}: return launch<M, TIn, TC, D, SB::V, 1, SB::H, {u}, 1>(a);" in src
+        assert f"case {u}: return launch<M, TIn, TC, D, SB::V, 1, U{u}, SB::H, {u}, 1>(a);" in src
+        for mode, itemsize in (("int8", 1), ("float", 2), ("int8_rowwise", 1)):
+            plan = emb.k6_launch_plan(100, u, mode, 32, itemsize)
+            assert (plan.rows_per_slot, plan.geometry.rows_per_slot) == (u, u)  # all at once
     assert emb.k6_launch_plan(100, 1, "float", 32, 2).geometry.hint == 0
     assert emb.k6_launch_plan(100, 2, "float", 32, 2).geometry.hint == 1
-    assert "case 4: return launch<M, TIn, TC, D, LB::V, LB::U, LB::H, 0, 4>(a);" in src
+    assert emb.k6_launch_plan(100, 1, "int8", 32, 1).geometry.hint == 0
+    assert emb.k6_launch_plan(100, 2, "int8", 32, 1).geometry.hint == 2
+    for n in (1, 2, 4, 8, 16):  # the windows the source builds, as k6_window_ids reckons them
+        assert f"n{n} = window_ids<P, LB::U, LB::NI>({n})" in src
+    assert "return ((p < NI ? p : NI) + U / gcd_of(U, P) - 1)" in src
+    geo = dataclasses.replace(emb.k6_geometry("int8", 64, 1), ids_per_lane=4)
+    assert [emb.k6_window_ids(L, geo) for L in (9, 16, 17, 120, 200)] == [2, 2, 4, 4, 4]
+    geo3 = dataclasses.replace(geo, rows_per_slot=3)
+    assert [emb.k6_window_ids(L, geo3) for L in (9, 17, 120)] == [3, 6, 6]
+    assert emb.k6_window_ids(200, emb.k6_geometry("int8", 64, 1)) == 1
+    assert emb.k6_window_ids(200, emb.k6_geometry("float", 32, 2)) == 4
     assert "lower_bounds" not in src and "cudaLaunchAttributeProgrammaticStreamSerialization" in src
     assert "griddepcontrol.wait" in src and "griddepcontrol.launch_dependents" in src
     for const in ("kStartThreads = 256", "kWarpRange = 8", "kBlockRange = 256"):  # _cold_starts'

@@ -23,6 +23,7 @@ MODULES = [
     "deeprecsys_tpu_torch.experiments",
     "deeprecsys_tpu_torch.experiments.skew_bench",
     "deeprecsys_tpu_torch.experiments.int8_sweep",
+    "deeprecsys_tpu_torch.experiments.k3b_sweep",
     "deeprecsys_tpu_torch.experiments.k6_sweep",
     "deeprecsys_tpu_torch.experiments.sweep_build",
     "deeprecsys_tpu_torch.runtime",

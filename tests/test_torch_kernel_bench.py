@@ -5,6 +5,7 @@ Tolerances: f32 rtol 1e-5 and atol 1e-5 (sums and dots in other orders);
 the cuDNN-style RNN also adds its identity input product, exact in f32.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -13,13 +14,16 @@ import torch
 
 from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
-from deeprecsys_tpu_torch.experiments import int8_sweep, k6_sweep
+from deeprecsys_tpu_torch import kernel_bench
+from deeprecsys_tpu_torch.experiments import int8_sweep, k3b_sweep, k6_sweep
 from deeprecsys_tpu_torch.kernel_bench import (
-    F32_FLOP_PER_S, HBM_BYTES_PER_S, cold_starts_bound, int8_instance_ptxas, k1_bound,
-    k1_int8_bound, k1_library, k3_bound, k3_library, k4_bound, k6_bound, kernel_instance,
-    launch_sum_ms, main_kernel_ms, ptxas_summary, random_int8_tables)
+    F32_FLOP_PER_S, HBM_BYTES_PER_S, K3B_SHAPES, cold_starts_bound, int8_instance_ptxas,
+    k1_bound, k1_int8_bound, k1_library, k3_bound, k3_library, k3b_bound, k3b_error, k3b_inputs,
+    k3b_library, k4_bound, k6_bound, kernel_instance, launch_sum_ms, main_kernel_ms,
+    ptxas_summary, random_int8_tables)
 from deeprecsys_tpu_torch.models.base import table_offsets
-from deeprecsys_tpu_torch.ops import embedding_bag_reference, rnn_scan_reference
+from deeprecsys_tpu_torch.ops import (
+    embedding_bag_reference, rnn_scan_backward, rnn_scan_backward_reference, rnn_scan_reference)
 from deeprecsys_tpu_torch.ops.embedding import (
     K1Plan, k1_launch_plan, k4_launch_plan, k6_launch_plan)
 
@@ -46,6 +50,65 @@ def test_k3_library_computes_the_recurrence(T, B):
     want, want_last = rnn_scan_reference(xproj, w, b, torch.float32)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(last[0], want_last, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("w_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B", [(1, 3), (40, 6)])
+def test_k3b_bench_inputs_check_and_library_on_the_cpu(T, B, w_dt):
+    """``bench_k3b``'s pieces where no card is needed: its inputs (lengths
+    in [0, T], row 0 frozen throughout), its check (the wrapper's plain
+    loop on the CPU: no error; a wrong delta raises), and its library
+    yardstick, cuDNN's backward-data pass through ``torch.nn.RNN``, which
+    computes K3b's delta: the gradient of xproj for the gradient gh of
+    every state (f32; bf16 weights run the RNN in bf16, so only shapes)."""
+    inp = k3b_inputs(T, B, w_dt, "cpu", seed=T + B)
+    assert inp["y"].shape == inp["gh"].shape == (T, B, 64) and inp["w"].dtype == w_dt
+    assert int(inp["lens"][0]) == 0 and bool(((inp["lens"] >= 0) & (inp["lens"] <= T)).all())
+    for lens in (None, inp["lens"]):
+        assert k3b_error(rnn_scan_backward, inp, lens) == 0.0
+
+    def off(y, gh, w, lens):
+        delta, dh0 = rnn_scan_backward_reference(y, gh, w, lens)
+        return delta * (1 + 1e-4), dh0
+    with pytest.raises(AssertionError, match="disagrees"):
+        k3b_error(off, inp, None)
+    (dx,) = k3b_library(inp["w"], inp["b"], inp["xproj"])(inp["gh"].to(w_dt))
+    assert dx.shape == (T, B, 64)
+    if w_dt == torch.float32:
+        want, _ = rnn_scan_backward_reference(inp["y"], inp["gh"], inp["w"])
+        torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k3b_bench_is_an_only_option_at_the_trainers_shapes():
+    """``--only k3b`` runs ``bench_k3b`` (without a card the CLI exits 1
+    before any bench) at T = 40, B = 128 and 512; its bound counts y, gh
+    and delta once, W and dh0 once, and the reverse dot's operations."""
+    assert K3B_SHAPES == ((40, 128), (40, 512))
+    assert kernel_bench.BENCHES["k3b"] is kernel_bench.bench_k3b
+    if not torch.cuda.is_available():
+        assert kernel_bench.main(["--only", "k3b"]) == 1
+    got = k3b_bound(40, 128, 64)
+    assert got["bytes"] == 3 * 40 * 128 * 64 * 4 + 64 * 64 * 4 + 128 * 64 * 4
+    assert got["flops"] == 2 * 40 * 128 * 64 * 64 + 4 * 40 * 128 * 64
+    assert got["bound_by"] == "bytes"
+
+
+def test_k3b_sweep_holds_every_instance_once():
+    """The K3b sweep's instances hold the shipped one and its entry point
+    dispatches each (weight type, threads a unit, units a thread, chains,
+    steps a chunk, chunks in the ring) exactly once; a thread's share of
+    the dot is whole chains."""
+    src = (Path(kernel_bench.__file__).parent / "ops" / "csrc" / "rnn_scan_backward.cu").read_text()
+    shipped = tuple(int(re.search(rf"static constexpr int {k} = (\d+);", src).group(1))
+                    for k in ("KS", "NU", "kChains", "kChunk", "kRing"))
+    assert shipped in k3b_sweep.instances()
+    assert all((16 // ks) % c == 0 and (nu == 1 or ks == 1) and r >= 2
+               for ks, nu, c, _, r in k3b_sweep.instances())
+    keys = k3b_sweep.keys()
+    body = k3b_sweep._source(Path("rnn_scan_backward.cu"), keys)
+    cases = [line.split(": ", 1)[1] for line in body.splitlines()
+             if line.strip().startswith("case ")]
+    assert len(cases) == len(set(cases)) == len(keys) == 2 * len(k3b_sweep.instances())
 
 
 def test_k1_bound_counts_distinct_rows_ids_and_output():
@@ -189,20 +252,29 @@ def test_k6_bound_counts_both_launches():
     assert starts["bound_by"] == "bytes"
 
 
-@pytest.mark.parametrize("name", k6_sweep.MODELS)
+@pytest.mark.parametrize("name", k6_sweep.MODELS + ("rm3", "wnd"))
 def test_k6_sweep_holds_every_shipped_mapping_once(name):
-    """The K6 sweep's instances at rm1's, rm2's and din's shapes hold the
-    mapping each layout ships (``k6_launch_plan``) with the same plan, and
-    its entry point dispatches each instance exactly once."""
+    """The K6 sweep's instances at rm1's, rm2's and din's shapes (and rm3's
+    and wnd's, which the int8 sweep adds) hold the mapping each layout ships
+    (``k6_launch_plan``) with the same plan, and its entry point dispatches
+    each instance exactly once; per-table int8 sweeps K1-int8's mappings
+    and the parent design's (a warp a bag, 32 slots a step, every short
+    bag's rows at once, no hint) among G x U x hint x window."""
     cfg = zoo.get_config(name)
     d, L = cfg.sparse_feature_size, cfg.num_indices_per_lookup
-    for layout, mode in (("none", "float"), ("int8_rowwise", "int8_rowwise")):
+    for layout, mode in (("none", "float"), ("int8_rowwise", "int8_rowwise"), ("int8", "int8")):
         plan = k6_launch_plan(512 * cfg.num_tables, L, mode, d, 2 if layout == "none" else 1)
+        inst = k6_sweep._shipped_inst(layout, L, d, 512 * cfg.num_tables)
+        key = k6_sweep._key(layout, d, L, inst)
+        assert key in {k6_sweep._key(layout, d, L, i)
+                       for i in k6_sweep.instances(layout, d, L <= 8)}
         geo = plan.geometry
-        inst = (geo.values_per_lane, 1 if L <= 8 else geo.rows_per_slot, geo.hint)
-        assert inst in k6_sweep.instances(layout, d, L <= 8)
-        ub, ni, grid = k6_sweep._plan(512 * cfg.num_tables, L, d, inst)
+        assert key == (layout, d, plan.rows_per_slot, plan.ids_per_lane, geo.values_per_lane,
+                       geo.bags_per_warp if L > 8 else 1, geo.rows_per_slot, geo.hint)
+        ub, ni, grid, _ = k6_sweep._plan(512 * cfg.num_tables, L, d, inst)
         assert (ub, ni, grid) == (plan.rows_per_slot, plan.ids_per_lane, plan.grid)
+    parent = (16, 1, 2 if d == 32 else 4, 0, 4) if L > 8 else (16, 1, 8, 0, 4)
+    assert parent in k6_sweep.instances("int8", d, L <= 8)
     keys = k6_sweep.sweep_keys([name])
     assert set(k6_sweep.shipped_keys([name])) <= set(keys)
     src = k6_sweep._source(Path("embedding_bag_hotcold.cu"), keys)

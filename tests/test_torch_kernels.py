@@ -27,14 +27,17 @@ Tolerances:
   within n roundings of its running sum (bf16 tables: of the bf16 adds).
 - K3b: the reverse scan in f32 against its plain loop, each with its own
   order of the 64-term dot, carried over T steps: within 1e-5 of the
-  largest |delta| (``RNN_BACKWARD_RTOL``; chip_smoke.py measures it).
+  largest |delta| (``RNN_BACKWARD_RTOL``; chip_smoke.py measures it); a
+  misaligned view bit for bit against an aligned copy (the same kernel).
 - K6: per-table int8 bit for bit against its plain version and K1-int8 on
   the same ids; float and row-wise within ``hotcold_tolerance`` of the
   plain version and ``pooled_tolerance``/``rowwise_tolerance`` of K1/K4
   (the same rows, summed in another f32 order).
 """
 
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -478,6 +481,55 @@ def test_rnn_scan_backward_kernel_matches_plain_loop(cuda, T, B, w_dt, use_lens)
         torch.testing.assert_close(dh0[0], gh[:, 0].sum(0), rtol=1e-5, atol=1e-5)
 
 
+def _k3b_ring() -> int:
+    """The steps K3b's ring holds in the shipped instance: its chunks times
+    their steps (``csrc/rnn_scan_backward.cu``)."""
+    src = (Path(__file__).resolve().parents[1] / "deeprecsys_tpu_torch" / "ops" / "csrc"
+           / "rnn_scan_backward.cu").read_text()
+    return int(re.search(r"static constexpr int kChunk = (\d+);", src).group(1)) * int(
+        re.search(r"static constexpr int kRing = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("lens_case", ["none", "all 0", "all T", "mixed"])
+@pytest.mark.parametrize("w_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 128, 513])
+@pytest.mark.parametrize("T_case", ["1", "ring - 1", "ring + 1", "40"])
+def test_rnn_scan_backward_kernel_at_ring_edges(cuda, T_case, B, w_dt, lens_case):
+    """K3b where its ring could slip: T of one step, one under and one past
+    the ring (its first fill, the first slot refilled), DIEN's 40; one row,
+    the trainer's batch and one past 512; every row frozen, none frozen,
+    mixed lengths (row 0 of length 0): within 1e-5 of the largest |delta|."""
+    ring = _k3b_ring()
+    T = {"1": 1, "ring - 1": ring - 1, "ring + 1": ring + 1, "40": 40}[T_case]
+    y, gh, w, lens = _rnn_backward_inputs(cuda, T, B, w_dt, seed=T * 3 + B)
+    lens = {"none": None, "all 0": torch.zeros_like(lens), "all T": torch.full_like(lens, T),
+            "mixed": lens}[lens_case]
+    delta, dh0 = rnn_scan_backward(y, gh, w, lens)
+    torch.cuda.synchronize()
+    want_d, want_h = rnn_scan_backward_reference(y, gh, w, lens)
+    scale = max(float(want_d.abs().max()), float(want_h.abs().max()))
+    torch.testing.assert_close(delta, want_d, rtol=0, atol=RNN_BACKWARD_RTOL * scale)
+    torch.testing.assert_close(dh0, want_h, rtol=0, atol=RNN_BACKWARD_RTOL * scale)
+    if lens_case == "all 0":  # every step frozen: the gradient passes through, summed
+        assert not delta.any()
+        torch.testing.assert_close(dh0, gh.sum(0), rtol=1e-5, atol=1e-5)
+
+
+def test_rnn_scan_backward_copies_misaligned_views(cuda):
+    """y and gh that start off a 16-byte boundary (views 1 element in) are
+    copied before K3b runs on them: the same result as aligned copies."""
+    y, gh, w, lens = _rnn_backward_inputs(cuda, 9, 5, torch.float32, seed=4)
+    by, bg = torch.empty(y.numel() + 1, device=cuda), torch.empty(gh.numel() + 1, device=cuda)
+    vy, vg = by[1:].view(y.shape), bg[1:].view(gh.shape)
+    vy.copy_(y)
+    vg.copy_(gh)
+    assert vy.data_ptr() % 16 and vg.data_ptr() % 16
+    got = rnn_scan_backward(vy, vg, w, lens)
+    want = rnn_scan_backward(y, gh, w, lens)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_rnn_scan_autograd_launches_k3b(cuda):
     xproj, w, b, h0, lens = _rnn_inputs(cuda, 9, 6, torch.float32)
     xproj.requires_grad_(True)
@@ -609,6 +661,33 @@ def test_hotcold_kernel_matches_plain_and_direct(cuda, layout, cdt, d, B, T, L, 
         assert bool(((got.float() - direct.float()).abs() <= tol).all())
     assert wrapper.kernel_launches == before + 1
     assert got.dtype == cdt and got.shape == (B, T, d)
+
+
+@pytest.mark.parametrize("case", ["hot set", "all hot", "K = 0", "no pads", "ragged",
+                                  "ragged, all hot", "ragged, K = 0", "bags with no lookup"])
+@pytest.mark.parametrize("B,T,L", [(1, 1, 9), (1, 3, 120), (5, 3, 120), (7, 1, 33), (9, 3, 17),
+                                   (3, 2, 200), (11, 5, 80)])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.float32])
+def test_hotcold_int8_long_bags_bit_for_bit(cuda, cdt, d, B, T, L, case):
+    """K6-int8 on long bags, where its plan pools several bags a warp (4 at
+    d = 64): bag counts that are no multiple of 4 (a last task of 1-3
+    bags), fewer bags than a task, windows past one (L = 120, 200), ragged
+    masks, every row hot, K = 0: bit for bit against its plain version and
+    K1-int8 on the same ids."""
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference)
+
+    k, masked, pad, bare = HOTCOLD_CASES[case]
+    tables, hot, offsets, idx, mask, split = _hotcold_case(
+        cuda, "int8", d, B, T, L, k, masked, seed=B * 11 + L + d, pad=pad, bare_bags=bare)
+    got = embedding_bag_hotcold_int8(hot, tables["q"], tables["scale"], split, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    want = embedding_bag_hotcold_int8_reference(hot, tables["q"], tables["scale"], split,
+                                                compute_dtype=cdt)
+    direct = embedding_bag_int8(tables["q"], tables["scale"], offsets, idx, compute_dtype=cdt,
+                                mask=mask)
+    assert torch.equal(got, want) and torch.equal(got, direct)
 
 
 @pytest.mark.parametrize("case", list(HOTCOLD_CASES))
