@@ -51,7 +51,10 @@ cuDNN's tanh RNN at DIEN's), from ``deeprecsys_tpu_torch/kernel_bench.py``.
 Then the trainer (phase 11): the training kernels K1b (the lookup's
 backward), K5 (sparse row-wise AdaGrad) and K3b (the RNN's reverse scan)
 against their plain versions at rm1's and DIEN's training shapes (batch 128,
-full-size tables) in f32 and bf16; the JAX trainer's losses in
+full-size tables) in f32 and bf16, K5 also on heavily repeated rows; K10
+(the optimizer update) bit for bit against its plain version for sgd,
+adagrad and adam in f32 and bf16, on odd and unaligned leaves and on rm1's
+full-size params; the JAX trainer's losses in
 ``tests/golden/torch_port_train.npz`` reproduced on the card;
 ``deeprecsys_tpu_torch.train.main`` at full width (f32, the CLI's dtype)
 for rm1 dense, rm1 ``--sparse_tables`` and dien ``--sparse_tables``,
@@ -60,8 +63,9 @@ export -> ``main.py --checkpoint`` (standalone and ``--queue``) round trip
 at ``--table_scale 100`` (the file format does not depend on the table's
 size, and a 4 GB ``.npz`` a run is not worth the time), and the trainer's
 ``int8_rowwise`` and ``int8`` exports served through ``main.py --checkpoint
---table_quant`` (standalone and ``--queue``); the three kernels' times and
-each training step's wall, device time, idle share and peak memory.
+--table_quant`` (standalone and ``--queue``); the four kernels' times (K10
+over rm1's dense params) and each training step's wall, device time, idle
+share and peak memory.
 
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
@@ -93,10 +97,10 @@ from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.experiments.skew_bench import measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.kernel_bench import (
-    HBM_BYTES_PER_S, cold_starts_bound, direct_call, hotcold_calls, hotcold_inputs, k1_bound,
-    k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
-    k3b_library, k4_bound, k5_bound, k5_library, k6_call, measure, named_kernel_ms,
-    ptxas_summary, random_int8_tables, span_ms)
+    HBM_BYTES_PER_S, cold_starts_bound, direct_call, g_rows, hotcold_calls, hotcold_inputs,
+    k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
+    k3b_library, k4_bound, k5_bound, k5_library, k6_call, k10_bound, k10_inputs, k10_library,
+    measure, named_kernel_ms, ptxas_summary, random_int8_tables, span_ms)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
@@ -105,8 +109,9 @@ from deeprecsys_tpu_torch.ops import (
     embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_rowwise,
     embedding_bag_int8, embedding_bag_int8_reference,
     embedding_bag_int8_rowwise, embedding_bag_int8_rowwise_reference, embedding_bag_reference,
-    rnn_scan, rnn_scan_backward, rnn_scan_backward_reference, rnn_scan_reference,
-    sparse_adagrad_step, sparse_adagrad_step_reference)
+    optimizer_update, optimizer_update_reference, rnn_scan, rnn_scan_backward,
+    rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
+    sparse_adagrad_step_reference)
 from deeprecsys_tpu_torch.ops import hotcold as hotcold_ops
 from deeprecsys_tpu_torch.ops.embedding import (
     backward_tolerance, hotcold_cold_starts, hotcold_tolerance, pooled_tolerance,
@@ -141,6 +146,10 @@ KERNELS = {
                             "replaces": "deeprecsys_tpu/train.py:258"},
     "rnn_scan_backward": {"source": "deeprecsys_tpu_torch/ops/csrc/rnn_scan_backward.cu",
                           "replaces": "deeprecsys_tpu/ops/rnn.py:45"},
+    # K10: optax's update and apply_updates in the jitted dense step
+    # (train.py:362-363) and in the sparse step's dense half (:255-256).
+    "optimizer_update": {"source": "deeprecsys_tpu_torch/ops/csrc/optimizer_update.cu",
+                         "replaces": "deeprecsys_tpu/train.py:362"},
     # The int8 lookups (one source): K1-int8 the per-table pool (XLA, in
     # pooled_lookup), K4 embedding_bag_int8_rowwise.
     "embedding_bag_int8": {"source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_int8.cu",
@@ -221,6 +230,13 @@ TRAIN_LOSS_RTOL = 1e-4
 # K3b against its plain loop in f32: two orders of the 64-term dot carried
 # over the scan's steps, within this share of the largest |delta|.
 K3B_RTOL = 1e-5
+# K5's heavy-duplicate cases: the generator's ids folded onto this many rows
+# a table (rm1: each row ~20 adds a step; dien: ~2).
+DUP_ROWS = 64
+# K10's small leaves (elements), beside an unaligned slice of each size
+# and rm1's full-size params: one element, a size under one 16-byte vector,
+# sizes past a vector and past the kernel's 65,536-element chunks.
+K10_SIZES = (1, 3, 4097, 2 * 65536 + 5)
 # The int8 bundles' scores against those of the float checkpoint they were
 # exported from (rm1, sigmoid scores in [0, 1]): the rounding of each table
 # value to 7 bits, pooled over 80 rows and carried through the towers.
@@ -263,6 +279,7 @@ def _wrappers() -> dict:
     return {"embedding_bag": embedding_bag, "rnn_scan": rnn_scan,
             "embedding_bag_backward": embedding_bag_backward,
             "sparse_adagrad_step": sparse_adagrad_step, "rnn_scan_backward": rnn_scan_backward,
+            "optimizer_update": optimizer_update,
             "embedding_bag_int8": embedding_bag_int8,
             "embedding_bag_int8_rowwise": embedding_bag_int8_rowwise,
             "embedding_bag_hotcold": embedding_bag_hotcold,
@@ -1651,7 +1668,8 @@ def train_kernel_cases(device, name: str, seed: int) -> dict:
     """K1b and K5 against their plain versions at ``name``'s training shape
     (full-size table, batch TRAIN_BATCH, the generator's ids): K1b with f32
     and bf16 gradients, with and without a mask, K5 with f32 and bf16
-    tables; each within its tolerance of the order of a row's adds. Returns
+    tables, on the generator's ids and on ids folded onto DUP_ROWS rows a
+    table; each within its tolerance of the order of a row's adds. Returns
     the max |error| by kernel."""
     cfg, offsets, indices, g = _train_inputs(device, name, seed)
     R, T, d = cfg.total_rows, cfg.num_tables, cfg.sparse_feature_size
@@ -1677,19 +1695,24 @@ def train_kernel_cases(device, name: str, seed: int) -> dict:
             del err, tol
             _free(device)
     grad = torch.randn((B, T, d), generator=g, device=device) * 1e-2
-    for tdt in (torch.float32, torch.bfloat16):
+    # The generator's ids, and the same bags on DUP_ROWS rows a table, so
+    # that each row takes many adds in one step.
+    dup = indices % DUP_ROWS
+    for tdt, ids in ((torch.float32, indices), (torch.bfloat16, indices),
+                     (torch.float32, dup), (torch.bfloat16, dup)):
         table0 = ((torch.rand((R, d), generator=g, device=device) - 0.5) * 0.1).to(tdt)
         acc0 = torch.rand((R,), generator=g, device=device) * 1e-4
         table, acc = table0.clone(), acc0.clone()
-        sparse_adagrad_step(table, acc, offsets, indices, grad, 0.1)
+        sparse_adagrad_step(table, acc, offsets, ids, grad, 0.1)
         synchronize(device)
         want_t, want_a = table0.clone(), acc0.clone()
-        sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1)
-        tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, indices, grad, 0.1)
+        sparse_adagrad_step_reference(want_t, want_a, offsets, ids, grad, 0.1)
+        tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, ids, grad, 0.1)
         del table0, acc0
         err = (table.float() - want_t.float()).abs()
         acc_err = (acc - want_a).abs()
-        what = f"{shape}, table {str(tdt)[6:]}"
+        what = (f"{shape}, table {str(tdt)[6:]}"
+                + (f", ids on {DUP_ROWS} rows a table" if ids is dup else ""))
         if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
             raise AssertionError(f"K5 disagrees with its plain version ({what}): max |err| "
                                  f"table {err.max().item():.3e}, acc {acc_err.max().item():.3e}")
@@ -1700,6 +1723,67 @@ def train_kernel_cases(device, name: str, seed: int) -> dict:
         del table, acc, want_t, want_a, tol, acc_tol, err, acc_err
         _free(device)
     return errs
+
+
+def _k10_step(device, name: str, params: list, grads: list, states: list, count: int) -> float:
+    """One step of K10 on copies and of the plain version in place, from
+    the same values; raises unless every param and state element is the
+    same bit for bit. Returns the max |difference| (0.0)."""
+    ps, ss = [p.clone() for p in params], [[t.clone() for t in s] for s in states]
+    optimizer_update(name, ps, grads, ss, 0.1, count)
+    synchronize(device)
+    optimizer_update_reference(name, params, grads, states, 0.1, count)
+    got, want = ps + [t for s in ss for t in s], params + [t for s in states for t in s]
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K10 {name} differs from its plain version (max |diff| "
+                             f"{diff:.3e}) on leaves {[tuple(p.shape) for p in params][:6]}")
+    return diff
+
+
+def _k10_states(name: str, params: list) -> list:
+    """The trainer's initial state for ``params`` as ``optimizer_update``'s
+    state lists."""
+    st = port_train.make_optimizer(name, 0.1).init(params)
+    return [] if st is None else [st] if name == "adagrad" else [st["mu"], st["nu"]]
+
+
+def train_k10_cases(device) -> float:
+    """K10 against its plain version, bit for bit, for sgd, adagrad and adam
+    in f32 and bf16: two steps (adam's bias corrections at counts 1 and 2)
+    on leaves of K10_SIZES elements and an unaligned slice of each (4 or 2
+    bytes past a 16-byte boundary: the element-by-element path), gradients
+    over seven decades; then one step on rm1's params (full-size table at
+    TABLE_SCALE). Returns the max |difference| (0.0)."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for name in ("sgd", "adagrad", "adam"):
+            params = [torch.randn((n,), generator=gen, device=device).to(dt) for n in K10_SIZES]
+            params += [torch.randn((n + 1,), generator=gen, device=device).to(dt)[1:]
+                       for n in K10_SIZES]
+            grads = [(torch.randn(p.shape, generator=gen, device=device)
+                      * 10.0 ** torch.randint(-6, 1, p.shape, generator=gen, device=device)).to(dt)
+                     for p in params]
+            states = _k10_states(name, params)
+            for count in (1, 2):
+                worst = max(worst, _k10_step(device, name, params, grads, states, count))
+            _log(f"[11 train kernels] K10 ok {name} {str(dt)[6:]}: leaves of {K10_SIZES} "
+                 f"elements, aligned and 1 element past a 16-byte boundary, two steps: bit for "
+                 f"bit the plain version")
+    for dt in (torch.float32, torch.bfloat16):
+        leaves, grads = k10_inputs(device, table_scale=TABLE_SCALE)
+        leaves, grads = [p.to(dt) for p in leaves], [g.to(dt) for g in grads]
+        for name in ("sgd", "adagrad", "adam"):
+            worst = max(worst, _k10_step(device, name, leaves, grads, _k10_states(name, leaves),
+                                         1))
+            _free(device)
+        _log(f"[11 train kernels] K10 ok rm1's {len(leaves)} params "
+             f"({sum(p.numel() for p in leaves)} elements, table_scale={TABLE_SCALE}) "
+             f"{str(dt)[6:]}, sgd, adagrad and adam: bit for bit the plain version")
+        del leaves, grads
+        _free(device)
+    return worst
 
 
 def _rnn_backward_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int):
@@ -1782,14 +1866,15 @@ def phase_train_fixture(device) -> float:
 def _train_want(name: str, sparse: bool, steps: int) -> dict:
     dien = zoo.get_config(name).model_type == "dien"
     return _want(embedding_bag=steps, embedding_bag_backward=0 if sparse else steps,
-                 sparse_adagrad_step=steps if sparse else 0,
+                 sparse_adagrad_step=steps if sparse else 0, optimizer_update=steps,
                  rnn_scan=2 * steps if dien else 0, rnn_scan_backward=2 * steps if dien else 0)
 
 
 def train_path(device, name: str, sparse: bool, card: str) -> dict:
     """``train.main`` at full width (f32, batch TRAIN_BATCH, TRAIN_STEPS
     steps), the launches read around it: every step launches K1 once, K1b
-    (dense) or K5 (sparse) once, and for dien K3 and K3b twice. The losses
+    (dense) or K5 (sparse) once, K10 once (every param, or the sparse
+    step's dense half), and for dien K3 and K3b twice. The losses
     must be finite and fall (mean of the last four below the first four)."""
     args = ["--model", name, "--table_scale", str(TABLE_SCALE), "--steps", str(TRAIN_STEPS),
             "--batch_size", str(TRAIN_BATCH), "--device", str(device)]
@@ -1938,15 +2023,6 @@ def serve_export(device, cfg, quant: str, base: Path, batches, card: str) -> tup
     return {"vs_float": vs_float, "queue": res_q.to_dict()}, launches
 
 
-def _g_rows(g, offsets, indices):
-    """The pooled gradient broadcast over the L slots (f32), its rows' mean
-    squares and their fused rows: the library yardsticks' inputs."""
-    B, T, L = indices.shape
-    rows = g.float()[:, :, None, :].expand(B, T, L, g.shape[-1]).reshape(B * T * L, -1)
-    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
-    return rows.contiguous(), torch.mean(rows * rows, dim=-1), flat
-
-
 def _timed(runs: dict, kernel_field: str = "kernel_ms") -> dict:
     """A kernel's times from runs in the order plain, kernel, kernel, plain
     and a library run: device times where the trace has them, else wall."""
@@ -1983,7 +2059,7 @@ def train_kernel_times(device, card: str) -> dict:
            RecDataGenerator(cfg, seed=3).generate_batches(8, TRAIN_BATCH)]
     gs = [torch.randn((TRAIN_BATCH, cfg.num_tables, d), generator=gen, device=device) * 1e-2
           for _ in ids]
-    prepared = [_g_rows(g, offsets, i) for g, i in zip(gs, ids)]
+    prepared = [g_rows(g, offsets, i) for g, i in zip(gs, ids)]
     out = {}
     grad = torch.zeros((R, d), dtype=torch.float32, device=device)
     runs = _time_runs(
@@ -1999,10 +2075,16 @@ def train_kernel_times(device, card: str) -> dict:
         lambda g, i: sparse_adagrad_step(table, acc, offsets, i, g, 0.1),
         lambda g, i: sparse_adagrad_step_reference(table, acc, offsets, i, g, 0.1),
         k5_library(table, acc, 0.1), list(zip(gs, ids)), prepared, TIMED_ITERS))
-    out["sparse_adagrad_step"] = {**_timed(runs, "launch_sum_ms"),
-                                  **k5_bound(table, gs[0], offsets, ids[0])}
+    k5 = _timed(runs, "launch_sum_ms")
+    # K5's launch 2 starts early and waits for launch 1 inside: its time is
+    # the span from launch 1's start to launch 2's end, not their sum.
+    out["sparse_adagrad_step"] = {
+        **k5, **k5_bound(table, gs[0], offsets, ids[0]), "launch_sum_ms": k5["ms"],
+        "ms": span_ms(lambda g, i: sparse_adagrad_step(table, acc, offsets, i, g, 0.1),
+                      list(zip(gs, ids)), TIMED_ITERS)}
     del table, acc, prepared
     _free(device)
+    out.update(k10_times(device, card))
     y, gh, w, _ = _rnn_backward_inputs(device, DIEN_T, TRAIN_BATCH, torch.float32, seed=6)
     inp = rnn_inputs(device, DIEN_T, TRAIN_BATCH, torch.float32, seed=6)
     runs = _time_runs(rnn_scan_backward, rnn_scan_backward_reference,
@@ -2012,9 +2094,14 @@ def train_kernel_times(device, card: str) -> dict:
               "sparse_adagrad_step": f"rm1 B={TRAIN_BATCH} T=8 L=80 d=32 f32 table, R={R}",
               "rnn_scan_backward": f"dien T={DIEN_T} B={TRAIN_BATCH} H={KERNEL_HIDDEN} f32"}
     names = {"embedding_bag_backward": ("K1b", "index_add_"),
-             "sparse_adagrad_step": ("K5 (both launches)", "index_add_ sequence"),
+             "sparse_adagrad_step": ("K5 (span of both launches)", "index_add_ sequence"),
              "rnn_scan_backward": ("K3b", "cuDNN RNN backward-data")}
+    _log(f"[11 train times] K5's two launches' medians summed: "
+         f"{out['sparse_adagrad_step']['launch_sum_ms'] * 1e3:.2f} us (launch 2 waits inside "
+         f"for launch 1) [{card}]")
     for key, t in out.items():
+        if key not in names:
+            continue
         label, lib = names[key]
         _log(f"[11 train times] {label} at {shapes[key]}: {t['ms'] * 1e3:.2f} us "
              f"({'device' if t['device'] else 'wall'}); bound {t['bound_ms'] * 1e3:.2f} us "
@@ -2022,6 +2109,46 @@ def train_kernel_times(device, card: str) -> dict:
              f"{lib} {t['library_ms'] * 1e3:.2f} us; wall a call {t['k_wall'] * 1e3:.2f} us; "
              f"the kernel run's device time a call by kernel: {t['by_kernel']} [{card}]")
     return out
+
+
+def k10_times(device, card: str) -> dict:
+    """K10 over rm1's params (full-size f32 table at TABLE_SCALE, the dense
+    step's leaves): adagrad (the trainer's) in the order plain, kernel,
+    kernel, plain, beside its bound (no PyTorch call computes optax's
+    adagrad: torch's divides by sqrt(acc) + eps); then sgd and adam, each
+    beside its bound and one PyTorch call of the same function
+    (``k10_library``). Returns the adagrad row as the kernels line takes it."""
+    leaves, grads = k10_inputs(device, table_scale=TABLE_SCALE)
+    row = None
+    for name in ("adagrad", "sgd", "adam"):
+        states = _k10_states(name, leaves)
+
+        def kernel():
+            optimizer_update(name, leaves, grads, states, 0.1, 1)
+
+        def plain():
+            optimizer_update_reference(name, leaves, grads, states, 0.1, 1)
+        order = (("p1", plain), ("k1", kernel), ("k2", kernel), ("p2", plain)) \
+            if name == "adagrad" else (("k1", kernel), ("k2", kernel))
+        runs = {key: measure(fn, [()], 10) for key, fn in order}
+        lib = k10_library(name, 0.1)
+        lib_ms = None if lib is None else measure(lambda: lib(leaves, grads, states), [()],
+                                                  10)["device_ms"]
+        t = {"ms": _mean(runs, ("k1", "k2"), "kernel_ms"), "library_ms": lib_ms,
+             "k_wall": _mean(runs, ("k1", "k2"), "wall_ms"), **k10_bound(leaves, name),
+             "plain_ms": _mean(runs, ("p1", "p2"), "device_ms") if "p1" in runs else None}
+        _log(f"[11 train times] K10 {name} over rm1's {len(leaves)} f32 params "
+             f"({sum(p.numel() for p in leaves)} elements): {_us(t['ms'])} (device, the kernel's "
+             f"median); bound {_us(t['bound_ms'])} ({t['bound_by']}, {t['bytes'] / 1e9:.3f} GB, "
+             f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); plain {_us(t['plain_ms'])}; "
+             + ("no PyTorch call computes it" if lib is None else
+                f"one PyTorch call {_us(lib_ms)}")
+             + f"; wall a call {_us(t['k_wall'])} [{card}]")
+        if name == "adagrad":
+            row = t
+        del states
+        _free(device)
+    return {"optimizer_update": row}
 
 
 def train_step_times(device, name: str, sparse: bool, card: str) -> dict:
@@ -2053,9 +2180,13 @@ def train_step_times(device, name: str, sparse: bool, card: str) -> dict:
         leaves = port_train._leaves(tr.params)
         grads = [torch.zeros_like(p) for p in leaves]
         sweep = measure(lambda: tr.tx.update(leaves, grads, tr.opt_state), [()], 5)
+        # Each launch's median times its launches a call, summed (a 4 GB
+        # fill may take more than one launch): a trace that drops one of the
+        # 5 calls' events would pull a plain sum down by a fifth.
         _log(f"[11 train steps] {what} breakdown: the (R, d) gradient's zero-fill "
-             f"{_us(fill['device_ms'])} (wall {fill['wall_ms'] * 1e3:.2f} us), adagrad's sweep "
-             f"over every param {_us(sweep['device_ms'])} in {sweep['launches']:.0f} device ops "
+             f"{_us(fill['launch_sum_ms'])} (wall {fill['wall_ms'] * 1e3:.2f} us), adagrad's "
+             f"update (K10) over every param {_us(sweep['launch_sum_ms'])} in "
+             f"{sweep['launches']:.0f} device ops "
              f"(wall {sweep['wall_ms'] * 1e3:.2f} us) [{card}]")
         del grads
     del tr
@@ -2074,6 +2205,7 @@ def phase_train(device, card: str) -> tuple[dict, dict, list]:
             errs[k] = max(errs.get(k, 0.0), v)
     errs["rnn_scan_backward"] = max(train_rnn_cases(device, DIEN_T, TRAIN_BATCH),
                                     train_rnn_cases(device, DIEN_T, BATCH, seed=1))
+    errs["optimizer_update"] = train_k10_cases(device)
     phase_train_fixture(device)
     launches = _want()
     for name, sparse in (("rm1", False), ("rm1", True), ("dien", True)):
@@ -2141,7 +2273,7 @@ def main() -> int:
     trained, train_launches, steps = phase_train(device, card["card"])
     _add(launches, train_launches)
     for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward",
-                "embedding_bag_int8", "embedding_bag_int8_rowwise"):
+                "optimizer_update", "embedding_bag_int8", "embedding_bag_int8_rowwise"):
         if launches[key] == 0:
             raise AssertionError(f"the training or int8 paths never launched {key}")
 
@@ -2222,7 +2354,8 @@ def main() -> int:
          **{k: k3[k] for k in timed}}] + [
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": trained[key]["max_abs_err"], **{k: trained[key][k] for k in timed}}
-        for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward")] + [
+        for key in ("embedding_bag_backward", "sparse_adagrad_step", "rnn_scan_backward",
+                    "optimizer_update")] + [
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": kernel_errs[key], **{k: quant[mode][k] for k in timed}}
         for key, mode in (("embedding_bag_int8", "int8"),

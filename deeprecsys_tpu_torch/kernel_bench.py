@@ -290,6 +290,20 @@ def k5_bound(table: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
     return _bound(nbytes, B * T * 2 * d + B * T * L * (3 * d + 2))
 
 
+K10_PASSES = {"sgd": 3, "adagrad": 5, "adam": 7}   # leaf-sized reads + writes an element
+K10_OPS = {"sgd": 2, "adagrad": 7, "adam": 14}     # the formulas' operations an element
+
+
+def k10_bound(leaves: list, name: str) -> dict:
+    """K10's least time for optimizer ``name`` over ``leaves``: each param,
+    gradient and state element read once and each param and state element
+    written once (sgd 3 passes, adagrad 5, adam 7), and the formula's
+    operations an element (``ops/optimizer.py``)."""
+    n = sum(p.numel() for p in leaves)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves) * K10_PASSES[name]
+    return _bound(nbytes, n * K10_OPS[name])
+
+
 def k3b_bound(T: int, B: int, H: int) -> dict:
     """K3b's least time: y and the state gradients (f32) read and delta
     written once, W read once, dh0 written once; the reverse dot (a
@@ -319,6 +333,42 @@ def k5_library(table: torch.Tensor, acc: torch.Tensor, learning_rate: float,
         return table.index_add_(0, flat, (-learning_rate * (g_rows * scale[:, None])).to(
             table.dtype))
     return call
+
+
+def g_rows(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor):
+    """The pooled gradient broadcast over the L slots (f32), its rows' mean
+    squares and their fused rows: the K1b and K5 yardsticks' inputs."""
+    B, T, L = indices.shape
+    rows = g.float()[:, :, None, :].expand(B, T, L, g.shape[-1]).reshape(B * T * L, -1)
+    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    return rows.contiguous(), torch.mean(rows * rows, dim=-1), flat
+
+
+def k10_library(name: str, learning_rate: float):
+    """One PyTorch call over every leaf computing K10's function, where
+    there is one, as ``fn(params, grads, states)``: sgd
+    ``torch._foreach_add_(params, grads, alpha=-lr)``; adam torch's fused
+    Adam step (``torch._fused_adam_``: mu and nu as optax's, the bias
+    corrections applied as lr / bc1 and sqrt(nu) / sqrt(bc2), so the same
+    function in another rounding), its step counts kept in f32 tensors
+    beside it. None for adagrad: torch's divides by sqrt(acc) + eps, optax's
+    multiplies by rsqrt(acc + eps), another function."""
+    if name == "sgd":
+        def sgd(params, grads, states):
+            torch._foreach_add_(params, grads, alpha=-learning_rate)
+        return sgd
+    if name == "adagrad":
+        return None
+    steps: list = []
+
+    def adam(params, grads, states):
+        if not steps:
+            steps.extend(torch.zeros((), dtype=torch.float32, device=p.device) for p in params)
+        torch._foreach_add_(steps, 1)
+        torch._fused_adam_(params, grads, states[0], states[1], [], steps, lr=learning_rate,
+                           beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                           maximize=False)
+    return adam
 
 
 def k3b_library(h2h_w: torch.Tensor, h2h_b: torch.Tensor, xproj: torch.Tensor):
@@ -741,7 +791,10 @@ def bench_k6(log) -> list:
 
 
 def _by_kernel(us_by_kernel: dict) -> str:
-    return ", ".join(f"{name.split('(')[0].split('<')[0][-40:]} {us:.2f} us"
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return name.split("(")[0].split("<")[0][-40:]
+    return ", ".join(f"{short(name)} {us:.2f} us"
                      for name, us in sorted(us_by_kernel.items(), key=lambda kv: -kv[1]))
 
 
@@ -880,6 +933,184 @@ def _bench_k3b(log) -> list:
     return rows
 
 
+K5_MODELS = ("rm1", "dien")  # the sparse steps' shapes: rm1 L 80, dien L 1 (d 32)
+K5_BATCH = 128               # the train CLI's batch
+
+
+def k5_inputs(name: str, device, n_batches: int = 8, seed: int = 3) -> dict:
+    """``name``'s full-size table rows, ``n_batches`` batches of the
+    generator's ids (batch ``K5_BATCH``) and random f32 pooled gradients."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.data import RecDataGenerator
+    from deeprecsys_tpu_torch.models.base import table_offsets
+
+    cfg = zoo.get_config(name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = [b.to(device).indices for b in
+           RecDataGenerator(cfg, seed=seed).generate_batches(n_batches, K5_BATCH)]
+    gs = [torch.randn((K5_BATCH, cfg.num_tables, cfg.sparse_feature_size), generator=gen,
+                      device=device) * 1e-2 for _ in ids]
+    return {"R": cfg.total_rows, "d": cfg.sparse_feature_size,
+            "offsets": table_offsets(cfg, device), "ids": ids, "gs": gs, "gen": gen}
+
+
+def k5_tables(inp: dict, table_dtype: torch.dtype, acc_scale: float = 0.0) -> tuple:
+    """A random ``(R, d)`` table of ``table_dtype`` and an accumulator,
+    zero or uniform in [0, ``acc_scale``)."""
+    R, d, gen = inp["R"], inp["d"], inp["gen"]
+    device = inp["offsets"].device
+    table = ((torch.rand((R, d), generator=gen, device=device) - 0.5) * 0.1).to(table_dtype)
+    acc = torch.rand((R,), generator=gen, device=device) * acc_scale
+    return table, acc
+
+
+def k5_check(fn, inp: dict, table_dtype: torch.dtype) -> dict:
+    """``fn(table, acc, offsets, indices, g)`` (K5 or a variant of it) on
+    the first batch against the plain version: raises past
+    ``sparse_adagrad_tolerance``; returns the largest |error| and, of the
+    rows that take one add, how many there are and in how many the
+    accumulator differs from the plain version's at all."""
+    from deeprecsys_tpu_torch.ops import sparse_adagrad_step_reference
+    from deeprecsys_tpu_torch.ops.embedding import scatter_counts
+    from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
+
+    offsets, indices, g = inp["offsets"], inp["ids"][0], inp["gs"][0]
+    table0, acc0 = k5_tables(inp, table_dtype, 1e-4)
+    table, acc = table0.clone(), acc0.clone()
+    fn(table, acc, offsets, indices, g)
+    torch.cuda.synchronize()
+    want_t, want_a = table0.clone(), acc0.clone()
+    sparse_adagrad_step_reference(want_t, want_a, offsets, indices, g, 0.1)
+    tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, indices, g, 0.1)
+    err, acc_err = (table.float() - want_t.float()).abs(), (acc - want_a).abs()
+    if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
+        raise AssertionError(f"K5 disagrees with the plain version: max |err| table "
+                             f"{err.max().item():.3e}, acc {acc_err.max().item():.3e}")
+    once = scatter_counts(offsets, indices, acc.shape[0]) == 1
+    return {"max_abs_err": max(err.max().item(), acc_err.max().item()),
+            "rows_once": int(once.sum()), "acc_differ_once": int((once & (acc != want_a)).sum())}
+
+
+def bench_k5(log) -> list:
+    """K5 at the sparse steps' shapes (``K5_MODELS``, full-size tables,
+    batch 128, 8 batches of the generator's ids) with f32 and bf16 tables:
+    checked against its plain version, then its span (``span_ms``: launch
+    1's start to launch 2's end), the sum of its launches' medians, its
+    bound, the plain version, the ``index_add_`` yardstick
+    (``k5_library``) and the wrapper's host time a call (the median of
+    ``HOST_REPS`` runs)."""
+    from deeprecsys_tpu_torch.ops import sparse_adagrad_step, sparse_adagrad_step_reference
+
+    device = torch.device("cuda")
+    rows = []
+    for name in K5_MODELS:
+        inp = k5_inputs(name, device)
+        offsets = inp["offsets"]
+        for tdt in (torch.float32, torch.bfloat16):
+            chk = k5_check(lambda t, a, o, i, g: sparse_adagrad_step(t, a, o, i, g, 0.1), inp, tdt)
+            table, acc = k5_tables(inp, tdt)
+            args = list(zip(inp["ids"], inp["gs"]))
+
+            def kernel(i, g):
+                sparse_adagrad_step(table, acc, offsets, i, g, 0.1)
+
+            def plain(i, g):
+                sparse_adagrad_step_reference(table, acc, offsets, i, g, 0.1)
+            run = measure(kernel, args)
+            pl = measure(plain, args, 20)
+            lib = measure(k5_library(table, acc, 0.1), [g_rows(g, offsets, i) for i, g in args])
+            row = {"model": name, "shape": list(inp["ids"][0].shape) + [inp["d"]],
+                   "table_dtype": str(tdt)[6:],
+                   **k5_bound(table, inp["gs"][0], offsets, inp["ids"][0]),
+                   "ms": run["launch_sum_ms"], "span_ms": span_ms(kernel, args, 100),
+                   "wall_ms": run["wall_ms"], "us_by_kernel": run["us_by_kernel"],
+                   "plain_ms": pl["device_ms"], "library_ms": lib["device_ms"],
+                   "host_us": host_us(kernel, args[0], reps=HOST_REPS), **chk}
+            rows.append(row)
+            log(f"K5 {name} {row['shape']} table {row['table_dtype']}: launches "
+                f"{_us(row['ms'])} ({_by_kernel(row['us_by_kernel'])}); span "
+                f"{_us(row['span_ms'])}; bound {_us(row['bound_ms'])} ({row['bound_by']}); plain "
+                f"{_us(row['plain_ms'])}; index_add_ sequence {_us(row['library_ms'])}; wall "
+                f"{_us(row['wall_ms'])}; host {row['host_us']:.2f} us a call; max |err| "
+                f"{chk['max_abs_err']:.2e}; accumulator unequal to the plain one in "
+                f"{chk['acc_differ_once']} of {chk['rows_once']} rows of one add")
+            del table, acc
+        del inp
+        torch.cuda.empty_cache()
+    return rows
+
+
+K10_MODEL = "rm1"  # the dense step's params: a 32 M x 32 f32 table and the MLPs
+
+
+def k10_inputs(device, seed: int = 7, table_scale: int = 1) -> tuple:
+    """``K10_MODEL``'s f32 params (full-size at ``table_scale`` 1) as the
+    trainer's leaves, and random gradients scaled to 1e-2."""
+    from deeprecsys_tpu_torch import bridge, zoo
+    from deeprecsys_tpu_torch.models import get_model
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = get_model(zoo.get_config(K10_MODEL, table_scale=table_scale), device).init(gen)
+    leaves = list(bridge.flatten(params).values())
+    grads = [torch.randn(p.shape, generator=gen, device=device) * 1e-2 for p in leaves]
+    return leaves, grads
+
+
+def bench_k10(log) -> list:
+    """The trainer's optimizer update (``train.make_optimizer(name,
+    0.1).update``, which launches K10 where the port has it) over rm1's
+    full-size f32 params, for sgd, adagrad and adam: its device time, wall
+    time and device ops a call beside ``k10_bound``; where the port has
+    ``ops.optimizer`` also the plain version's time, K10 held bit for bit
+    to it (one step from the same state), and ``k10_library``'s call."""
+    import importlib.util
+
+    from deeprecsys_tpu_torch.train import make_optimizer
+
+    has_k10 = importlib.util.find_spec("deeprecsys_tpu_torch.ops.optimizer") is not None
+    device = torch.device("cuda")
+    leaves, grads = k10_inputs(device)
+    rows = []
+    for name in ("sgd", "adagrad", "adam"):
+        opt = make_optimizer(name, 0.1)
+        state = opt.init(leaves)
+        run = measure(lambda: opt.update(leaves, grads, state), [()], 10)
+        row = {"optimizer": name, "leaves": len(leaves), **k10_bound(leaves, name),
+               "ms": run["device_ms"], "wall_ms": run["wall_ms"], "device_ops": run["launches"]}
+        if has_k10:
+            from deeprecsys_tpu_torch.ops.optimizer import (
+                optimizer_update, optimizer_update_reference)
+
+            if name == "adam":
+                states, count = [state["mu"], state["nu"]], state["count"]
+            else:
+                states, count = ([state] if name == "adagrad" else []), 0
+            ps, ss = [p.clone() for p in leaves], [[t.clone() for t in s] for s in states]
+            optimizer_update(name, ps, grads, ss, 0.1, count + 1)
+            optimizer_update_reference(name, leaves, grads, states, 0.1, count + 1)
+            torch.cuda.synchronize()
+            row["bit_for_bit"] = all(torch.equal(a, b) for a, b in zip(
+                ps + [t for s in ss for t in s], leaves + [t for s in states for t in s]))
+            del ps, ss
+            if not row["bit_for_bit"]:
+                raise AssertionError(f"K10 {name} differs from its plain version")
+            plain = measure(lambda: optimizer_update_reference(name, leaves, grads, states, 0.1,
+                                                               count + 1), [()], 5)
+            row["plain_ms"] = plain["device_ms"]
+            lib = k10_library(name, 0.1)
+            row["library_ms"] = None if lib is None else measure(
+                lambda: lib(leaves, grads, states), [()], 10)["device_ms"]
+        rows.append(row)
+        log(f"optimizer update {name} over {K10_MODEL}'s {len(leaves)} f32 leaves: "
+            f"{_us(row['ms'])} in {row['device_ops']:.0f} device ops; wall {_us(row['wall_ms'])}; "
+            f"bound {_us(row['bound_ms'])} ({row['bound_by']}, {row['bytes'] / 1e9:.3f} GB)"
+            + (f"; plain {_us(row['plain_ms'])}; library {_us(row['library_ms'])}; K10 bit for "
+               f"bit the plain version" if has_k10 else "; (no K10 in this tree)"))
+        del state
+        torch.cuda.empty_cache()
+    return rows
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -892,7 +1123,7 @@ def _us(ms) -> str:
 
 
 BENCHES = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
-           "k6": bench_k6, "k3b": bench_k3b}  # --only's names
+           "k6": bench_k6, "k3b": bench_k3b, "k5": bench_k5, "k10": bench_k10}  # --only's names
 
 
 def main(argv=None) -> int:
@@ -915,8 +1146,9 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}; port at {Path(_build.__file__).parents[2]}")
     for key in ("embedding_bag", "rnn_scan", "embedding_bag_int8", "embedding_bag_hotcold",
-                "rnn_scan_backward"):
-        log(f"{key}: ptxas " + "; ".join(ptxas_summary(_build.build(key).log)))
+                "rnn_scan_backward", "sparse_adagrad", "optimizer_update"):
+        if (_build.CSRC / f"{key}.cu").exists():  # an older checkout lacks the newer kernels
+            log(f"{key}: ptxas " + "; ".join(ptxas_summary(_build.build(key).log)))
     res = {"card": card}
     with torch.inference_mode():
         for key in args.only.split(","):

@@ -12,8 +12,7 @@
 //
 // Duplicate rows each add their own g^2 and their own update, and every
 // accumulator add lands before any scale is read. So the step is two
-// launches on one stream (launch 2 starts after launch 1 has ended), never
-// one kernel that interleaves them.
+// launches, never one kernel that interleaves them.
 //
 // Contract:
 //   table   (R, D) f32 or bf16, updated in place
@@ -24,17 +23,36 @@
 // What bounds it: the touched rows. At rm1's training shape (B = 128,
 // T = 8, L = 80, D = 32, f32) launch 1 adds 81,920 accumulator floats and
 // launch 2 reads 81,920 of them and read-modify-writes 81,920 table rows of
-// 128 bytes: ~22 MB, ~7 us at 3.35 TB/s. The design follows K1b's (a warp
-// a bag and up to 32 of its slots; one coalesced load of the ids):
-//   * launch 1 (accumulate): the warp reduces the bag's mean g^2 by
-//     shuffles, once for all its slots; lane j adds it to slot j's row with
-//     one atomicAdd, so 32 rows' adds go out at once;
-//   * launch 2 (apply): lane j reads slot j's accumulator and forms its
-//     scale, 1 / sqrtf(acc + eps) (IEEE sqrt and division); the bag's
-//     gradient row sits in registers; for each slot the warp adds the
-//     update, cast to the table dtype, with one atomicAdd a lane (a
-//     coalesced 128-byte request for an f32 D = 32 row; bf16 rows use the
-//     native bf16 atomicAdd of sm_80 and later).
+// 128 bytes: ~22 MB, ~7 us at 3.35 TB/s. At dien's sparse shape (T = 43,
+// L = 1) every bag is one row. Measured, both launches are held by those
+// random rows through DRAM, not by the atomics: launch 2 with plain
+// read-modify-writes, or without its accumulator reads, is no faster
+// (experiments/k5_sweep.py's probes, PERF.md). The design:
+//   * launch 1 (accumulate): a lane a slot, S lanes a bag's window of S
+//     slots, S the power of two >= L, at least a lane a 16-byte chunk of
+//     the bag's gradient row and at most 32
+//     (ops/sparse_adagrad.py::k5_launch_plan), so short bags share a warp
+//     (4 bags of one row) and long bags take a warp a window; the lanes
+//     load the bag's gradient row in 16-byte chunks, sum its squares in
+//     torch.mean's order (by shuffles across the window's lanes, then in
+//     registers), and each adds the mean to its slot's row with one f32
+//     atomic add;
+//   * launch 2 (apply): flat over the B*T*L slots, P lanes a slot, each
+//     lane one 16-byte vector atomic add into its part of the row (sm_90's
+//     red.global.add.v4.f32, 4 f32 elements; red.global.add.noftz
+//     .v4.bf16x2, 8 bf16 elements): an f32 D = 32 row is 8 lanes, so one
+//     warp instruction updates 4 rows where the parent's scalar atomics
+//     updated one. Each element's add stays atomic, so duplicate rows add
+//     their own terms as before;
+//   * launch 2 starts early (programmatic dependent launch, as K6's pool
+//     does): launch 1 lets it start at once (griddepcontrol
+//     .launch_dependents), and it loads its ids and its gradient values,
+//     then waits (griddepcontrol.wait) before its first accumulator read.
+//     That wait returns only when launch 1 has completed and its memory
+//     operations are visible, so every accumulator add still lands before
+//     any scale is read. Its scale is rsqrtf(acc + eps), what ATen's rsqrt
+//     computes on the card (the plain version's, bit for bit), the update
+//     cast to the table dtype before it is added.
 // The order of the atomic adds changes from run to run, so results agree
 // with a sequential scatter to within the rounding of the adds to a row.
 
@@ -44,105 +62,271 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+// Launch 1's L2 prefetches (bits; the sweep's, none shipped): the slot's
+// table row, for launch 2's atomic adds; the slot's accumulator, ahead of
+// launch 1's own add.
+constexpr int kPrefetchRows = 1, kPrefetchAcc = 2;
+
+// The shipped mapping; experiments/k5_sweep.py builds the others.
+struct Shipped {
+  static constexpr int kVecBytes = 16;  // bytes of one lane's atomic add in launch 2
+  static constexpr bool kPdl = true;    // launch 2 with programmatic dependent launch
+  static constexpr int kPrefetch = 0;   // what launch 1 brings into the L2
+};
+
+struct Args {
+  void* table;
+  float* acc;
+  const void* g;
+  const int32_t* offsets;
+  const int32_t* indices;
+  int64_t n_bags;
+  int T, L;
+  float neg_lr, eps;
+  cudaStream_t stream;
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__device__ __forceinline__ void add_to(float* p, float x) { atomicAdd(p, x); }
-__device__ __forceinline__ void add_to(__nv_bfloat16* p, float x) {
-  atomicAdd(p, __float2bfloat16_rn(x));
-}
-
-// The ids of one task (a bag and up to 32 of its slots): lane j holds slot
-// l0 + j's fused row, or -1 past L.
-__device__ __forceinline__ int64_t task_row(const int32_t* __restrict__ offsets,
-                                            const int32_t* __restrict__ indices, int64_t bag,
-                                            int l0, int n, int T, int L, int lane) {
-  if (lane >= n) return -1;
-  return (int64_t)__ldg(offsets + bag % T) + __ldg(indices + bag * L + l0 + lane);
-}
-
-template <typename TG, int D>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
-                  const int32_t* __restrict__ indices, float* __restrict__ acc, int64_t n_bags,
-                  int T, int L) {
-  constexpr int kPerLane = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int chunks = (L + 31) / 32;
-  const int64_t n_tasks = n_bags * chunks;
-  for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
-    const int64_t bag = task / chunks;
-    const int l0 = (int)(task % chunks) * 32;
-    const int n = min(32, L - l0);
-    float sq = 0.f;
+// E consecutive values of g (f32 or bf16) from p, in 16-, 8- or 4-byte loads.
+template <typename TG, int E>
+__device__ __forceinline__ void load_g(const TG* __restrict__ p, float (&v)[E]) {
+  constexpr int kBytes = E * (int)sizeof(TG);
+  if constexpr (kBytes % 16 == 0) {
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const float x = to_float(g[bag * D + i * 32 + lane]);
-      sq += x * x;
+    for (int w = 0; w < kBytes / 16; ++w) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + w);
+      const uint32_t x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (sizeof(TG) == 4) {
+          v[4 * w + k] = __uint_as_float(x[k]);
+        } else {
+          v[8 * w + 2 * k] = __uint_as_float(x[k] << 16);
+          v[8 * w + 2 * k + 1] = __uint_as_float(x[k] & 0xffff0000u);
+        }
+      }
     }
+  } else {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const int64_t row = task_row(offsets, indices, bag, l0, n, T, L, lane);
-    if (row >= 0) atomicAdd(acc + row, sq / (float)D);
+    for (int k = 0; k < E; ++k) v[k] = to_float(__ldg(p + k));
   }
 }
 
-template <typename TT, typename TG, int D>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// Atomically adds E values (cast to the table dtype) to p[0 .. E), one
+// vector reduction of E * sizeof(TT) bytes: each element's add is atomic.
+template <typename TT, int E>
+__device__ __forceinline__ void red_add(TT* p, const float (&v)[E]) {
+  if constexpr (sizeof(TT) == 4) {
+    static_assert(E == 1 || E == 2 || E == 4, "f32 reductions are 4, 8 or 16 bytes");
+    if constexpr (E == 1) {
+      atomicAdd(reinterpret_cast<float*>(p), v[0]);
+    } else if constexpr (E == 2) {
+      asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(p), "f"(v[0]), "f"(v[1])
+                   : "memory");
+    } else {
+      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(v[0]),
+                   "f"(v[1]), "f"(v[2]), "f"(v[3])
+                   : "memory");
+    }
+  } else {
+    static_assert(E == 2 || E == 4 || E == 8, "bf16 reductions are 4, 8 or 16 bytes");
+    if constexpr (E == 2) {
+      asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(p), "r"(bf16x2(v[0], v[1]))
+                   : "memory");
+    } else if constexpr (E == 4) {
+      asm volatile("red.global.add.noftz.v2.bf16x2 [%0], {%1, %2};" ::"l"(p),
+                   "r"(bf16x2(v[0], v[1])), "r"(bf16x2(v[2], v[3]))
+                   : "memory");
+    } else {
+      asm volatile("red.global.add.noftz.v4.bf16x2 [%0], {%1, %2, %3, %4};" ::"l"(p),
+                   "r"(bf16x2(v[0], v[1])), "r"(bf16x2(v[2], v[3])), "r"(bf16x2(v[4], v[5])),
+                   "r"(bf16x2(v[6], v[7]))
+                   : "memory");
+    }
+  }
+}
+
+// The sum of x[0 .. N), N a power of two, halving: x[i] + x[i + N / 2],
+// then again on the first half; rounded adds, no FMA.
+template <int N>
+__device__ __forceinline__ float halving_sum(float (&x)[N]) {
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2) {
+#pragma unroll
+    for (int i = 0; i < w; ++i) x[i] = __fadd_rn(x[i], x[i + w]);
+  }
+  return x[0];
+}
+
+// Launch 1: a task is a bag's window of S slots (S divides 32, so a task's
+// lanes are one aligned segment of a warp), a lane a slot, and S is at
+// least the gradient row's 16-byte chunks, a lane loading one. A bag's sum
+// of squares is added in the order of torch.mean over a row of 32 or 64 on
+// the card, halving: element t + D / 2 onto t, then t + D / 4, ...
+// (measured: every one of 2^20 rows equal, experiments/k5_sweep.py
+// --mean_order). Across a lane's chunk that is a shuffle of each square,
+// within it a halving sum; the segment's first lane then hands the sum to
+// all. The plain version's accumulator and scales are then the kernel's
+// bit for bit on rows that take one add, so no term's bf16 rounding flips
+// between them; a sum in another order strays further than the
+// tolerance's order argument allows.
+template <typename TG, int D, int S, int PF>
+__global__ void __launch_bounds__(kThreads)
+accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
+                  const int32_t* __restrict__ indices, float* __restrict__ acc,
+                  const char* __restrict__ table, int row_bytes, int64_t n_bags, int T,
+                  int L) {
+  // Launch 2 may start now: what it reads before its wait is not written
+  // here (cudaTriggerProgrammaticLaunchCompletion()).
+  asm volatile("griddepcontrol.launch_dependents;");
+  constexpr int kE = 16 / (int)sizeof(TG);  // g values a 16-byte chunk
+  constexpr int kChunks = D / kE;
+  static_assert(S >= kChunks, "a lane a chunk of the gradient row");
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int windows = (L + S - 1) / S;
+  const int64_t task = t / S;
+  const int64_t bag = task / windows;
+  const int j = (int)(t % S);
+  const int l = (int)(task % windows) * S + j;
+  if (bag >= n_bags) return;  // the whole segment: it shares the task
+  const int64_t row = l < L ? (int64_t)__ldg(offsets + bag % T) + __ldg(indices + bag * L + l) : -1;
+  if constexpr ((PF & kPrefetchRows) != 0) {
+    if (row >= 0)
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(table + row * row_bytes),
+                   "r"(row_bytes) : "memory");
+  }
+  if constexpr ((PF & kPrefetchAcc) != 0) {
+    if (row >= 0) asm volatile("prefetch.global.L2 [%0];" ::"l"(acc + row) : "memory");
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned seg = S == 32 ? 0xffffffffu : ((1u << S) - 1u) << (lane & ~(S - 1));
+  float v[kE] = {};
+  if (j < kChunks) {
+    load_g<TG, kE>(g + bag * D + j * kE, v);
+#pragma unroll
+    for (int k = 0; k < kE; ++k) v[k] = __fmul_rn(v[k], v[k]);
+  }
+#pragma unroll
+  for (int off = kChunks / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kE; ++k) v[k] = __fadd_rn(v[k], __shfl_xor_sync(seg, v[k], off));
+  }
+  const float sq = __shfl_sync(seg, halving_sum(v), 0, S);
+  const float mean_sq = sq / (float)D;
+  if (row >= 0) atomicAdd(acc + row, mean_sq);
+}
+
+// Waits for launch 1 (cudaGridDependencySynchronize()); a no-op when launch
+// 2 was launched without programmatic dependent launch.
+__device__ __forceinline__ void wait_accumulated() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launch 2: a slot (bag, l) a group of S lanes, each lane K adds of E
+// elements (P = D / E lanes a row; an f32 D = 64 row at 4 bytes a lane is
+// 64 parts, two a lane).
+template <typename TT, typename TG, int D, int VB>
+__global__ void __launch_bounds__(kThreads)
 apply_kernel(TT* __restrict__ table, const float* __restrict__ acc, const TG* __restrict__ g,
              const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
-             int64_t n_bags, int T, int L, float neg_lr, float eps) {
-  constexpr int kPerLane = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int chunks = (L + 31) / 32;
-  const int64_t n_tasks = n_bags * chunks;
-  for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
-    const int64_t bag = task / chunks;
-    const int l0 = (int)(task % chunks) * 32;
-    const int n = min(32, L - l0);
-    const int64_t row = task_row(offsets, indices, bag, l0, n, T, L, lane);
-    const float scale = row >= 0 ? 1.f / sqrtf(__ldcg(acc + row) + eps) : 0.f;
-    float v[kPerLane];
+             int64_t n_slots, int T, int L, float neg_lr, float eps) {
+  constexpr int E = VB / (int)sizeof(TT);
+  constexpr int P = D / E;
+  constexpr int S = P < 32 ? P : 32;
+  constexpr int K = P / S;
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t slot = t / S;
+  const int j = (int)(t % S);
+  if (slot >= n_slots) return;
+  const int64_t bag = slot / L;
+  const int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
+  float v[K][E];
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) v[i] = to_float(g[bag * D + i * 32 + lane]);
-    for (int j = 0; j < n; ++j) {
-      const int64_t r = __shfl_sync(0xffffffffu, row, j);
-      const float s = __shfl_sync(0xffffffffu, scale, j);
-      TT* dst = table + r * D + lane;
+  for (int k = 0; k < K; ++k) load_g<TG, E>(g + bag * D + (j + k * S) * E, v[k]);
+  wait_accumulated();
+  const float s = rsqrtf(__ldcg(acc + row) + eps);
+  TT* dst = table + row * D;
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) add_to(dst + i * 32, neg_lr * (v[i] * s));
-    }
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[k][e] = neg_lr * (v[k][e] * s);
+    red_add<TT, E>(dst + (j + k * S) * E, v[k]);
   }
 }
 
-template <typename TT, typename TG, int D>
-int launch(void* table, float* acc, const void* g, const int32_t* offsets,
-           const int32_t* indices, int64_t n_bags, int T, int L, float neg_lr, float eps,
-           int grid, cudaStream_t stream) {
-  accumulate_kernel<TG, D><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const TG*>(g), offsets, indices, acc, n_bags, T, L);
-  int err = (int)cudaGetLastError();
+template <typename TG, int D, int S, int PF>
+int launch_accumulate(const Args& a, int row_bytes) {
+  if constexpr (S < D * (int)sizeof(TG) / 16) {
+    return (int)cudaErrorInvalidValue;  // fewer lanes than the row's chunks (k5_launch_plan)
+  } else {
+    const int64_t blocks = (a.n_bags * ((a.L + S - 1) / S) * S + kThreads - 1) / kThreads;
+    accumulate_kernel<TG, D, S, PF><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
+        static_cast<const TG*>(a.g), a.offsets, a.indices, a.acc,
+        static_cast<const char*>(a.table), row_bytes, a.n_bags, a.T, a.L);
+    return (int)cudaGetLastError();
+  }
+}
+
+// Launch 1 on lanes_per_bag (4, 8, 16 or 32: at least a 16-byte chunk
+// of the gradient row a lane) lanes a bag.
+template <typename TG, int D, int PF>
+int accumulate(const Args& a, int row_bytes, int lanes_per_bag) {
+  switch (lanes_per_bag) {
+    case 4: return launch_accumulate<TG, D, 4, PF>(a, row_bytes);
+    case 8: return launch_accumulate<TG, D, 8, PF>(a, row_bytes);
+    case 16: return launch_accumulate<TG, D, 16, PF>(a, row_bytes);
+    case 32: return launch_accumulate<TG, D, 32, PF>(a, row_bytes);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch 2: ``kernel`` (apply_kernel, or a sweep's other mapping) on
+// ``threads`` threads, with programmatic dependent launch when pdl.
+template <typename TT, typename TG>
+int launch_apply(void (*kernel)(TT*, const float*, const TG*, const int32_t*, const int32_t*,
+                                int64_t, int, int, float, float),
+                 const Args& a, int64_t threads, bool pdl) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((threads + kThreads - 1) / kThreads));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<TT*>(a.table),
+                                 static_cast<const float*>(a.acc), static_cast<const TG*>(a.g),
+                                 a.offsets, a.indices, a.n_bags * a.L, a.T, a.L, a.neg_lr, a.eps);
+}
+
+// Both launches: launch 1 with lanes_per_bag lanes a bag and the L2
+// prefetches PF, launch 2 with VB-byte atomic adds, with programmatic
+// dependent launch when pdl. The wrapper builds Shipped's instance;
+// experiments/k5_sweep.py the others.
+template <typename TT, typename TG, int D, int VB, int PF>
+int launch(const Args& a, int lanes_per_bag, bool pdl) {
+  constexpr int P = D * (int)sizeof(TT) / VB;
+  const int err = accumulate<TG, D, PF>(a, D * (int)sizeof(TT), lanes_per_bag);
   if (err != 0) return err;
-  apply_kernel<TT, TG, D><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<TT*>(table), acc, static_cast<const TG*>(g), offsets, indices, n_bags, T, L,
-      neg_lr, eps);
-  return (int)cudaGetLastError();
+  return launch_apply(apply_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl);
 }
 
 template <typename TT, typename TG>
-int launch_width(int d, void* table, float* acc, const void* g, const int32_t* offsets,
-                 const int32_t* indices, int64_t n_bags, int T, int L, float neg_lr, float eps,
-                 int grid, cudaStream_t stream) {
-  if (d == 32)
-    return launch<TT, TG, 32>(table, acc, g, offsets, indices, n_bags, T, L, neg_lr, eps, grid,
-                              stream);
-  if (d == 64)
-    return launch<TT, TG, 64>(table, acc, g, offsets, indices, n_bags, T, L, neg_lr, eps, grid,
-                              stream);
+int launch_width(int d, const Args& a, int lanes_per_bag) {
+  constexpr int VB = Shipped::kVecBytes;
+  using K = Shipped;
+  if (d == 32) return launch<TT, TG, 32, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+  if (d == 64) return launch<TT, TG, 64, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -150,31 +334,24 @@ int launch_width(int d, void* table, float* acc, const void* g, const int32_t* o
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16. neg_lr is -learning_rate. grid:
-// blocks of kWarpsPerBlock warps for both launches
-// (ops/sparse_adagrad.py::K5_WARPS_PER_BLOCK). Returns the first nonzero
-// cudaError_t of the two launches (0 = success). The caller validates shapes.
+// dtype codes: 0 = float32, 1 = bfloat16. neg_lr is -learning_rate.
+// lanes_per_bag: launch 1's plan (ops/sparse_adagrad.py::k5_launch_plan).
+// Returns the first nonzero cudaError_t of the two launches (0 = success).
+// The caller validates shapes.
 int drs_sparse_adagrad(void* table, int table_dtype, int d, void* acc, const void* g,
                        int g_dtype, const void* offsets, const void* indices, int64_t n_bags,
-                       int T, int L, float neg_lr, float eps, int grid, void* stream) {
+                       int T, int L, float neg_lr, float eps, int lanes_per_bag, void* stream) {
   if (n_bags <= 0 || L <= 0) return 0;
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
-  float* a = static_cast<float*>(acc);
-  const int32_t* off = static_cast<const int32_t*>(offsets);
-  const int32_t* idx = static_cast<const int32_t*>(indices);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (table_dtype == 0 && g_dtype == 0)
-    return launch_width<float, float>(d, table, a, g, off, idx, n_bags, T, L, neg_lr, eps,
-                                      grid, s);
+  const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
+                  static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
+                  static_cast<cudaStream_t>(stream)};
+  if (table_dtype == 0 && g_dtype == 0) return launch_width<float, float>(d, a, lanes_per_bag);
   if (table_dtype == 0 && g_dtype == 1)
-    return launch_width<float, __nv_bfloat16>(d, table, a, g, off, idx, n_bags, T, L, neg_lr,
-                                              eps, grid, s);
+    return launch_width<float, __nv_bfloat16>(d, a, lanes_per_bag);
   if (table_dtype == 1 && g_dtype == 0)
-    return launch_width<__nv_bfloat16, float>(d, table, a, g, off, idx, n_bags, T, L, neg_lr,
-                                              eps, grid, s);
+    return launch_width<__nv_bfloat16, float>(d, a, lanes_per_bag);
   if (table_dtype == 1 && g_dtype == 1)
-    return launch_width<__nv_bfloat16, __nv_bfloat16>(d, table, a, g, off, idx, n_bags, T, L,
-                                                       neg_lr, eps, grid, s);
+    return launch_width<__nv_bfloat16, __nv_bfloat16>(d, a, lanes_per_bag);
   return (int)cudaErrorInvalidValue;
 }
 

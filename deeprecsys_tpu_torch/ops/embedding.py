@@ -325,8 +325,10 @@ def embedding_bag(table: torch.Tensor, offsets: torch.Tensor,
       table: fused ``(total_rows, d)`` table, float32 or bfloat16, d 32 or 64.
       offsets: ``(T,)`` int32 first row of each table.
       indices: ``(B, T, L)`` int32 table-local ids, ``0 <= id < rows[t]``.
-        The kernel does not check the range (the JAX gather fills an
-        out-of-range row with NaN; see ROADMAP.md Queue 3).
+        The kernel does not check the range. The JAX gather adds the
+        table's offset first, so an id just past its own table reads the
+        next table's row, and only an id past the whole fused table gives
+        NaN (ROADMAP.md Queue 3, deliberate differences).
       mask: optional ``(B, T, L)`` bool; masked-out slots contribute zero.
 
     Returns:

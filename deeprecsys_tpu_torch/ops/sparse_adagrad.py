@@ -11,7 +11,9 @@ rows, with one f32 accumulator a row:
 Duplicate rows each add their own g^2 and their own update.
 ``sparse_adagrad_step`` is the dispatch: on CUDA tensors it launches the
 hand-written Hopper kernel K5 (``csrc/sparse_adagrad.cu``, two launches:
-accumulate, then apply), on CPU tensors it runs the plain version
+accumulate, with ``k5_launch_plan``'s lanes a bag; then apply, 16-byte
+vector atomic adds into each touched row, started early by programmatic
+dependent launch), on CPU tensors it runs the plain version
 ``sparse_adagrad_step_reference``. Both update ``table`` and ``acc`` in
 place, where the JAX step returns new arrays (its jit donates them).
 """
@@ -19,6 +21,8 @@ place, where the JAX step returns new arrays (its jit donates them).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -27,7 +31,37 @@ from deeprecsys_tpu_torch.ops.embedding import scatter_counts
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WIDTHS = (32, 64)
-K5_WARPS_PER_BLOCK = 8  # kWarpsPerBlock in csrc/sparse_adagrad.cu
+K5_THREADS = 256     # kThreads in csrc/sparse_adagrad.cu
+K5_VEC_BYTES = 16    # Shipped::kVecBytes there: one lane's atomic add in launch 2
+
+
+@dataclasses.dataclass(frozen=True)
+class K5Plan:
+    """K5's two launches for ``n_bags`` bags (B * T) of L slots: launch 1
+    (accumulate) on a lane a slot, ``lanes_per_bag`` lanes a window of a
+    bag's slots, launch 2 (apply) on ``lanes_per_slot`` lanes a slot, each
+    of ``K5_THREADS``-thread blocks."""
+    lanes_per_bag: int
+    lanes_per_slot: int
+    accumulate_blocks: int
+    apply_blocks: int
+
+
+@functools.lru_cache(maxsize=None)  # the wrapper asks every step; host time counts
+def k5_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype,
+                   g_dtype: torch.dtype = torch.float32) -> K5Plan:
+    """Launch 1 takes the power of two >= L lanes a bag, at least a lane
+    for each 16 bytes of the bag's gradient row and at most 32 (so short
+    bags share a warp, and a longer bag takes a warp for each 32 of its
+    slots); launch 2 takes a lane for each ``K5_VEC_BYTES`` of a table row,
+    at most 32 lanes a slot. The C entry point gets ``lanes_per_bag`` and
+    computes the same grids."""
+    lanes_per_bag = min(32, max(1 << max(0, L - 1).bit_length(), d * g_dtype.itemsize // 16))
+    windows = -(-L // lanes_per_bag)
+    lanes_per_slot = min(32, d * table_dtype.itemsize // K5_VEC_BYTES)
+    return K5Plan(lanes_per_bag, lanes_per_slot,
+                  -(-n_bags * windows * lanes_per_bag // K5_THREADS),
+                  -(-n_bags * L * lanes_per_slot // K5_THREADS))
 
 
 def sparse_adagrad_step_reference(table: torch.Tensor, acc: torch.Tensor,
@@ -52,7 +86,7 @@ def _declare(lib: ctypes.CDLL):
         ctypes.c_void_p, ctypes.c_void_p,              # offsets, indices
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,    # B*T, T, L
         ctypes.c_float, ctypes.c_float,                # -learning_rate, eps
-        ctypes.c_int, ctypes.c_void_p,                 # grid, stream
+        ctypes.c_int, ctypes.c_void_p,                 # lanes a bag, stream
     ]
 
 
@@ -76,6 +110,9 @@ def _check(table, acc, offsets, indices, g):
         raise ValueError("table, acc, offsets, indices and g must be on one device")
     if not all(t.is_contiguous() for t in (table, acc, offsets, indices)):
         raise ValueError("table, acc, offsets and indices must be contiguous")
+    if table.device.type == "cuda" and table.data_ptr() % 16:
+        raise ValueError("K5 adds 16-byte vectors into the table's rows: the table must "
+                         "start on a 16-byte boundary")
 
 
 def sparse_adagrad_step(table: torch.Tensor, acc: torch.Tensor, offsets: torch.Tensor,
@@ -92,11 +129,11 @@ def sparse_adagrad_step(table: torch.Tensor, acc: torch.Tensor, offsets: torch.T
         before it is added.
 
     CPU tensors take ``sparse_adagrad_step_reference``. CUDA tensors launch
-    K5 (two kernels on the current stream) and count the call once in
-    ``sparse_adagrad_step.kernel_launches``; a failed build or launch
-    raises. The kernel's atomic adds run in no fixed order, so rows that
-    repeat within a batch agree with the plain version to within the
-    rounding of their adds.
+    K5 (two kernels on the current stream, ``k5_launch_plan``) and count
+    the call once in ``sparse_adagrad_step.kernel_launches``; a failed build
+    or launch raises. The kernel's atomic adds run in no fixed order, so
+    rows that repeat within a batch agree with the plain version to within
+    the rounding of their adds.
     """
     _check(table, acc, offsets, indices, g)
     if table.device.type == "cpu":
@@ -108,11 +145,13 @@ def sparse_adagrad_step(table: torch.Tensor, acc: torch.Tensor, offsets: torch.T
     if B * T == 0 or L == 0:
         return None
     g = g.contiguous()
-    tasks = B * T * -(-L // 32)  # a warp a bag and 32 of its slots
+    if g.data_ptr() % 16:  # the kernels load g's rows in 16-byte chunks
+        g = g.clone()
+    plan = k5_launch_plan(B * T, L, table.shape[1], table.dtype, g.dtype)
     _build.launch(_build.load("sparse_adagrad", _declare), "drs_sparse_adagrad", table.device,
                   table.data_ptr(), _DTYPE_CODES[table.dtype], table.shape[1], acc.data_ptr(),
                   g.data_ptr(), _DTYPE_CODES[g.dtype], offsets.data_ptr(), indices.data_ptr(),
-                  B * T, T, L, -learning_rate, eps, -(-tasks // K5_WARPS_PER_BLOCK))
+                  B * T, T, L, -learning_rate, eps, plan.lanes_per_bag)
     _build.count_launch(sparse_adagrad_step)
     return None
 

@@ -34,8 +34,10 @@ On a CUDA card, each engine:
 
 A request's payload is checked on the host before it reaches the card: a
 wrong shape, or an id outside ``[0, rows[t])``, is answered with
-``ERR_PAYLOAD``. K1 does not check ids; the JAX package's gather fills an
-out-of-range row with NaN instead (ROADMAP.md Queue 3).
+``ERR_PAYLOAD``. K1 does not check ids. The JAX package's gather adds the
+table's offset first, so there an id just past its own table reads the
+next table's row, and only an id past the whole fused table gives NaN
+(ROADMAP.md Queue 3, deliberate differences).
 
 Hot/cold serving (``embedding_impl="hotcold"``, or ``"auto"`` when the
 sampled hot set covers at least ``hotcold_min_hit`` of the engine's stream

@@ -5,7 +5,8 @@ The single-device trainer of the JAX package on the card:
 - the optimizers of ``make_optimizer`` (sgd, adagrad, adam) with optax's
   update formulas (``Optimizer``), not ``torch.optim``'s: optax's adagrad
   starts its accumulator at 0.1 and scales by rsqrt(acc + 1e-7), torch's
-  starts at 0 and divides by sqrt(acc) + eps;
+  starts at 0 and divides by sqrt(acc) + eps. Every param takes the
+  update in one fused pass, kernel K10 (``ops/optimizer.py``);
 - the losses of ``parallel/sharding.py`` and ROC AUC evaluation;
 - two table-update modes: the default dense autodiff path, where the
   lookup's backward is kernel K1b (``ops/embedding.py``) and the whole
@@ -45,6 +46,7 @@ from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, compute_dtype_of, table_offsets
 from deeprecsys_tpu_torch.ops import embedding_bag, sparse_adagrad_step
 from deeprecsys_tpu_torch.ops.embedding import quantize_pertable_int8, quantize_rowwise_int8
+from deeprecsys_tpu_torch.ops.optimizer import OPTIMIZERS, optimizer_update
 from deeprecsys_tpu_torch.parallel.sharding import loss_fn_for
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 from deeprecsys_tpu_torch.utils.metrics_ml import auc
@@ -55,21 +57,16 @@ def _leaves(tree) -> list:
 
 
 class Optimizer:
-    """One of optax's sgd, adagrad and adam (optax 0.2.6 defaults), with its
-    update written out op by op in optax's order, applied in place. The
-    state mirrors the params in their dtype, as optax's does.
-
-    - sgd: p += -lr * g
-    - adagrad: acc = g^2 + acc (acc starts at 0.1); p += -lr * (g *
-      rsqrt(acc + 1e-7)). (optax's ``where(acc > 0, ...)`` is always true
-      here: acc >= 0.1.)
-    - adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, count += 1;
-      p += -lr * (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps),
-      b1 0.9, b2 0.999, eps 1e-8, the bias corrections in f32.
+    """One of optax's sgd, adagrad and adam (optax 0.2.6 defaults), applied
+    in place by ``ops.optimizer.optimizer_update``: kernel K10 on the card,
+    optax's update written out op by op on the CPU (the formulas are in
+    ``ops/optimizer.py``). The state mirrors the params in their dtype, as
+    optax's does: adagrad a list of accumulators (starting at 0.1), adam
+    ``{"count", "mu", "nu"}``.
     """
 
     def __init__(self, name: str, learning_rate: float):
-        if name not in ("sgd", "adagrad", "adam"):
+        if name not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {name!r}")
         self.name, self.lr = name, learning_rate
 
@@ -83,27 +80,14 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, leaves: list, grads, state):
-        lr = self.lr
         if self.name == "sgd":
-            for p, g in zip(leaves, grads):
-                p.add_(g * -lr)
+            optimizer_update("sgd", leaves, grads, [], self.lr)
         elif self.name == "adagrad":
-            for p, g, acc in zip(leaves, grads, state):
-                acc.add_(g * g)
-                u = (acc + 1e-7).rsqrt_()
-                u.mul_(g).mul_(-lr)
-                p.add_(u)
+            optimizer_update("adagrad", leaves, grads, [state], self.lr)
         else:
-            b1, b2 = 0.9, 0.999
             state["count"] += 1
-            f32 = np.float32
-            bc1 = float(f32(1) - f32(b1) ** f32(state["count"]))
-            bc2 = float(f32(1) - f32(b2) ** f32(state["count"]))
-            for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
-                mu.mul_(b1).add_(g * (1 - b1))
-                nu.mul_(b2).add_((g * g) * (1 - b2))
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
-                p.add_(u * -lr)
+            optimizer_update("adam", leaves, grads, [state["mu"], state["nu"]], self.lr,
+                             count=state["count"])
         return state
 
 

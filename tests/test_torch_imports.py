@@ -24,6 +24,7 @@ MODULES = [
     "deeprecsys_tpu_torch.experiments.skew_bench",
     "deeprecsys_tpu_torch.experiments.int8_sweep",
     "deeprecsys_tpu_torch.experiments.k3b_sweep",
+    "deeprecsys_tpu_torch.experiments.k5_sweep",
     "deeprecsys_tpu_torch.experiments.k6_sweep",
     "deeprecsys_tpu_torch.experiments.sweep_build",
     "deeprecsys_tpu_torch.runtime",
@@ -47,6 +48,7 @@ MODULES = [
     "deeprecsys_tpu_torch.ops.embedding",
     "deeprecsys_tpu_torch.ops.interactions",
     "deeprecsys_tpu_torch.ops.mlp",
+    "deeprecsys_tpu_torch.ops.optimizer",
     "deeprecsys_tpu_torch.ops.rnn",
     "deeprecsys_tpu_torch.ops.sparse_adagrad",
     "deeprecsys_tpu_torch.parallel",

@@ -15,17 +15,19 @@ import torch
 from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch import kernel_bench
-from deeprecsys_tpu_torch.experiments import int8_sweep, k3b_sweep, k6_sweep
+from deeprecsys_tpu_torch.experiments import int8_sweep, k3b_sweep, k5_sweep, k6_sweep
 from deeprecsys_tpu_torch.kernel_bench import (
-    F32_FLOP_PER_S, HBM_BYTES_PER_S, K3B_SHAPES, cold_starts_bound, int8_instance_ptxas,
+    F32_FLOP_PER_S, HBM_BYTES_PER_S, K3B_SHAPES, cold_starts_bound, g_rows, int8_instance_ptxas,
     k1_bound, k1_int8_bound, k1_library, k3_bound, k3_library, k3b_bound, k3b_error, k3b_inputs,
-    k3b_library, k4_bound, k6_bound, kernel_instance, launch_sum_ms, main_kernel_ms,
-    ptxas_summary, random_int8_tables)
+    k3b_library, k4_bound, k5_bound, k5_library, k6_bound, k10_bound, k10_library,
+    kernel_instance, launch_sum_ms, main_kernel_ms, ptxas_summary, random_int8_tables)
 from deeprecsys_tpu_torch.models.base import table_offsets
 from deeprecsys_tpu_torch.ops import (
-    embedding_bag_reference, rnn_scan_backward, rnn_scan_backward_reference, rnn_scan_reference)
+    embedding_bag_reference, optimizer_update_reference, rnn_scan_backward,
+    rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step_reference)
 from deeprecsys_tpu_torch.ops.embedding import (
     K1Plan, k1_launch_plan, k4_launch_plan, k6_launch_plan)
+from deeprecsys_tpu_torch.ops.sparse_adagrad import K5_THREADS, K5_VEC_BYTES, k5_launch_plan
 
 
 @pytest.mark.parametrize("name", ["rm1", "din", "ncf"])
@@ -281,3 +283,147 @@ def test_k6_sweep_holds_every_shipped_mapping_once(name):
     cases = [line.split(": ", 1)[1] for line in src.splitlines()
              if line.strip().startswith("case ")]
     assert len(cases) == len(set(cases)) == len(keys)
+
+
+def test_k5_and_k10_benches_are_only_options():
+    """``--only k5,k10`` run ``bench_k5`` and ``bench_k10`` (without a card
+    the CLI exits 1 before any bench) at the sparse steps' shapes and over
+    rm1's dense params."""
+    assert kernel_bench.BENCHES["k5"] is kernel_bench.bench_k5
+    assert kernel_bench.BENCHES["k10"] is kernel_bench.bench_k10
+    assert kernel_bench.K5_MODELS == ("rm1", "dien") and kernel_bench.K10_MODEL == "rm1"
+    if not torch.cuda.is_available():
+        assert kernel_bench.main(["--only", "k5,k10"]) == 1
+
+
+def test_k10_bound_counts_each_pass_and_operation():
+    """sgd reads p and g and writes p (3 passes), adagrad also reads and
+    writes its accumulator (5), adam its two moments (7); at rm1's 32 M x
+    32 f32 table adagrad moves 20.48 GB, 6.11 ms at 3.35 TB/s."""
+    leaves = [torch.zeros((7, 3)), torch.zeros(5, dtype=torch.bfloat16)]
+    for name, passes, ops in (("sgd", 3, 2), ("adagrad", 5, 7), ("adam", 7, 14)):
+        got = k10_bound(leaves, name)
+        assert got["bytes"] == (21 * 4 + 5 * 2) * passes and got["flops"] == 26 * ops
+        assert got["bound_by"] == "bytes"
+    table = torch.empty((32_000_000, 32), device="meta")
+    got = k10_bound([table], "adagrad")
+    assert got["bytes"] == 32_000_000 * 32 * 4 * 5
+    assert got["bound_ms"] == pytest.approx(6.1134, abs=1e-3)
+
+
+@pytest.mark.parametrize("name", ["sgd", "adagrad", "adam"])
+def test_k10_library_computes_the_update(name):
+    """The yardsticks compute K10's function (other roundings): sgd's
+    ``_foreach_add_`` and torch's fused Adam over two steps within 1e-5 of
+    the plain version; adagrad has none (torch's divides by sqrt(acc) +
+    eps)."""
+    lib = k10_library(name, 0.05)
+    if name == "adagrad":
+        assert lib is None
+        return
+    g = torch.Generator().manual_seed(4)
+    params = [torch.randn((9, 5), generator=g), torch.randn(7, generator=g)]
+    grads = [torch.randn(p.shape, generator=g) * 1e-2 for p in params]
+    want = [p.clone() for p in params]
+    states = [[torch.zeros_like(p) for p in params] for _ in range(2 if name == "adam" else 0)]
+    plain_states = [[t.clone() for t in s] for s in states]
+    for count in (1, 2):
+        lib(params, grads, states)
+        optimizer_update_reference(name, want, grads, plain_states, 0.05, count)
+    for a, b in zip(params, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_k5_library_computes_the_step_from_g_rows():
+    """``k5_library`` on ``g_rows``' broadcast rows, mean squares and fused
+    rows is the step's plain version (the same ops, so equal within f32
+    rounding)."""
+    cfg = zoo.get_config("rm1", table_scale=2000)
+    g = torch.Generator().manual_seed(6)
+    offsets = table_offsets(cfg, "cpu")
+    idx = torch.from_numpy(RecDataGenerator(cfg, seed=2).generate_batch(16).indices)
+    grad = torch.randn((16, cfg.num_tables, 32), generator=g) * 1e-2
+    table = torch.randn((cfg.total_rows, 32), generator=g) * 0.05
+    acc = torch.rand((cfg.total_rows,), generator=g) * 1e-4
+    got_t, got_a, want_t, want_a = table.clone(), acc.clone(), table.clone(), acc.clone()
+    k5_library(got_t, got_a, 0.1)(*g_rows(grad, offsets, idx))
+    sparse_adagrad_step_reference(want_t, want_a, offsets, idx, grad, 0.1)
+    torch.testing.assert_close(got_a, want_a, rtol=1e-6, atol=0)
+    torch.testing.assert_close(got_t, want_t, rtol=1e-5, atol=1e-7)
+    got = k5_bound(table, grad, offsets, idx)
+    B, T, L = idx.shape
+    touched = torch.unique(idx.long() + offsets.long()[None, :, None]).numel()
+    assert got["bytes"] == touched * (32 * 4 + 4) * 2 + grad.numel() * 4 + idx.numel() * 4
+    assert got["flops"] == B * T * 2 * 32 + B * T * L * (3 * 32 + 2)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 17, 32, 33, 80, 200])
+@pytest.mark.parametrize("d,table_dt,g_dt", [
+    (32, torch.float32, torch.float32), (64, torch.float32, torch.float32),
+    (32, torch.bfloat16, torch.bfloat16), (64, torch.bfloat16, torch.float32)])
+def test_k5_launch_plan_covers_every_slot_and_chunk_once(L, d, table_dt, g_dt):
+    """K5's two launches as ``csrc/sparse_adagrad.cu`` maps them, simulated:
+    launch 1 (S lanes a window of S slots) adds every slot once, a task has
+    a lane for each 16-byte chunk of the bag's gradient row, and its
+    halving shuffles pair lanes inside the task; launch 2 (a group of lanes
+    a slot, one 16-byte add a lane) covers every element of every slot's
+    row once. Bag counts that are no multiple of the bags a warp hold."""
+    n_bags = 37
+    plan = k5_launch_plan(n_bags, L, d, table_dt, g_dt)
+    S, chunks = plan.lanes_per_bag, d * g_dt.itemsize // 16
+    assert S in (1, 2, 4, 8, 16, 32) and chunks <= S <= 32 and (S >= L or S == 32)
+    windows = -(-L // S)
+    slots = {}
+    for t in range(plan.accumulate_blocks * K5_THREADS):
+        task, j = divmod(t, S)
+        bag, w = divmod(task, windows)
+        if bag >= n_bags:
+            continue
+        l = w * S + j
+        if l < L:
+            slots[(bag, l)] = slots.get((bag, l), 0) + 1
+    assert slots == {(b, l): 1 for b in range(n_bags) for l in range(L)}
+    lane = np.arange(32)
+    for off in [o for o in (16, 8, 4, 2, 1) if o < chunks]:
+        assert np.all((lane ^ off) // S == lane // S)  # the shuffle stays in the task
+    P = d * table_dt.itemsize // K5_VEC_BYTES
+    assert plan.lanes_per_slot == min(32, P)
+    E = K5_VEC_BYTES // table_dt.itemsize
+    seen = np.zeros((n_bags * L, d), dtype=int)
+    for t in range(plan.apply_blocks * K5_THREADS):
+        slot, j = divmod(t, plan.lanes_per_slot)
+        if slot >= n_bags * L:
+            continue
+        for k in range(P // plan.lanes_per_slot):
+            seen[slot, (j + k * plan.lanes_per_slot) * E:(j + k * plan.lanes_per_slot + 1) * E] += 1
+    assert np.all(seen == 1)
+
+
+def test_k5_sweep_holds_every_instance_once():
+    """The K5 sweep's instances hold the shipped one (``Shipped`` in the
+    source: 16-byte adds, a group of lanes a slot, no prefetch, PDL), its
+    variants the plan's lanes a bag, and its entry point dispatches each
+    (table dtype, add width, mapping, prefetch) exactly once."""
+    src = (Path(kernel_bench.__file__).parent / "ops" / "csrc" / "sparse_adagrad.cu").read_text()
+    assert re.search(rf"kVecBytes = {K5_VEC_BYTES};", src)
+    assert re.search(rf"kPrefetch = {k5_sweep.SHIPPED_PREFETCH};", src)
+    assert re.search(r"kPdl = true;", src) and k5_sweep.SHIPPED_MAPPING == "flat"
+    assert "apply_window_kernel" not in src  # the sweep's other mapping is its own
+    keys = k5_sweep.keys()
+    for tt in k5_sweep.T_TYPES:
+        assert (tt, K5_VEC_BYTES, k5_sweep.SHIPPED_MAPPING, k5_sweep.SHIPPED_PREFETCH) in keys
+    for L in (1, 80):
+        plan = k5_launch_plan(1, L, k5_sweep.D, torch.float32).lanes_per_bag
+        assert (plan, True) in k5_sweep.variants(L, keys[0])
+    body = k5_sweep._source(Path("sparse_adagrad.cu"), keys)
+    cases = [line.split(": ", 1)[1] for line in body.splitlines()
+             if line.strip().startswith("case ") and "(a, lanes_per_bag, pdl)" in line]
+    assert len(cases) == len(set(cases)) == len(keys)
+
+
+def test_k5_sweep_mean_orders_are_sums_of_the_row():
+    """Each candidate order of ``torch.mean``'s adds sums the whole row (on
+    integers, exact in any order)."""
+    x = torch.arange(64, dtype=torch.float32).reshape(2, 32)
+    for fn in k5_sweep.MEAN_ORDERS.values():
+        torch.testing.assert_close(fn(x), x.sum(-1), rtol=0, atol=0)

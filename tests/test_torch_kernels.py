@@ -1,6 +1,6 @@
-"""K1, K3, the int8 lookups K1-int8 and K4, the training kernels K1b, K5
-and K3b, and the hot/cold lookup K6 against their plain versions on a CUDA
-card.
+"""K1, K3, the int8 lookups K1-int8 and K4, the training kernels K1b, K5,
+K3b and K10, and the hot/cold lookup K6 against their plain versions on a
+CUDA card.
 
 These tests need a card; without one they skip. The file imports no JAX,
 so it runs where only torch is installed (``--noconftest`` skips
@@ -25,6 +25,8 @@ Tolerances:
   (``ops.sparse_adagrad.sparse_adagrad_tolerance``): the kernels add each
   row's terms with atomics in no fixed order, so a row of n adds agrees
   within n roundings of its running sum (bf16 tables: of the bf16 adds).
+- K10 (``ops.optimizer.optimizer_update``): bit for bit its plain version
+  (the same f32 operations, each rounded as the eager ops round them).
 - K3b: the reverse scan in f32 against its plain loop, each with its own
   order of the 64-term dot, carried over T steps: within 1e-5 of the
   largest |delta| (``RNN_BACKWARD_RTOL``; chip_smoke.py measures it); a
@@ -46,13 +48,13 @@ import torch
 from deeprecsys_tpu_torch.ops import (
     embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
     embedding_bag_int8, embedding_bag_int8_reference, embedding_bag_int8_rowwise,
-    embedding_bag_int8_rowwise_reference, embedding_bag_reference, rnn_scan,
-    rnn_scan_backward, rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
-    sparse_adagrad_step_reference)
+    embedding_bag_int8_rowwise_reference, embedding_bag_reference, optimizer_update,
+    optimizer_update_reference, rnn_scan, rnn_scan_backward, rnn_scan_backward_reference,
+    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference)
 from deeprecsys_tpu_torch.ops.embedding import (
     backward_tolerance, pooled_tolerance, rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import rnn_scan_tolerance
-from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
+from deeprecsys_tpu_torch.ops.sparse_adagrad import k5_launch_plan, sparse_adagrad_tolerance
 
 RNN_BACKWARD_RTOL = 1e-5
 
@@ -449,6 +451,107 @@ def test_sparse_adagrad_kernel_matches_reference(cuda, B, T, L, rows, d, table_d
     tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, indices, grad, 0.1)
     assert bool(((acc - want_a).abs() <= acc_tol).all())
     assert bool(((table.float() - want_t.float()).abs() <= tol).all())
+
+
+def _check_k5(table0, acc0, offsets, indices, grad):
+    table, acc = table0.clone(), acc0.clone()
+    before = sparse_adagrad_step.kernel_launches
+    sparse_adagrad_step(table, acc, offsets, indices, grad, 0.1)
+    torch.cuda.synchronize()
+    assert sparse_adagrad_step.kernel_launches == before + 1
+    want_t, want_a = table0.clone(), acc0.clone()
+    sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1)
+    tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, indices, grad, 0.1)
+    assert bool(((acc - want_a).abs() <= acc_tol).all())
+    assert bool(((table.float() - want_t.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("B,T,L,rows", [
+    (37, 3, 1, 50), (129, 43, 1, 500), (9, 5, 3, 4), (7, 3, 5, 20), (11, 2, 17, 9),
+    (3, 2, 33, 30), (7, 3, 200, 40), (1, 1, 1, 1)])
+def test_sparse_adagrad_kernel_at_plan_edges(cuda, B, T, L, rows, d, table_dt, g_dt):
+    """The plan's lanes a bag (1 to 32: several short bags a warp, bag
+    counts that are no multiple of them, a warp a bag of 200 slots) and
+    every lanes-a-slot mapping (4 to 16 lanes a row), on rows that repeat."""
+    plan = k5_launch_plan(B * T, L, d, table_dt, g_dt)
+    g_bytes = 4 if g_dt == torch.float32 else 2
+    assert plan.lanes_per_bag == min(32, max(1 << (L - 1).bit_length(), d * g_bytes // 16))
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=B + L + d)
+    table0 = (torch.rand((T * rows, d), generator=gen, device=cuda) - 0.5).to(table_dt)
+    acc0 = torch.rand((T * rows,), generator=gen, device=cuda) * 1e-4
+    _check_k5(table0, acc0, offsets, indices, (grad * 1e-2).to(g_dt))
+
+
+def test_sparse_adagrad_kernel_takes_an_unaligned_gradient_and_rejects_an_unaligned_table(cuda):
+    gen, offsets, indices, grad = _dup_inputs(cuda, 7, 3, 5, 20, 32, seed=5)
+    buf = torch.randn((7 * 3 * 32 + 1,), generator=gen, device=cuda) * 1e-2
+    g_view = buf[1:].view(7, 3, 32)  # contiguous, 4 bytes past a 16-byte boundary
+    table0 = torch.rand((60, 32), generator=gen, device=cuda) - 0.5
+    acc0 = torch.rand((60,), generator=gen, device=cuda) * 1e-4
+    _check_k5(table0, acc0, offsets, indices, g_view)
+    tbuf = torch.zeros((60 * 32 + 1,), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        sparse_adagrad_step(tbuf[1:].view(60, 32), acc0.clone(), offsets, indices, grad, 0.1)
+
+
+def _k10_case(cuda, name, dt, sizes, seed, unaligned=False):
+    """Leaves of ``sizes`` elements (each one element past a 16-byte
+    boundary if ``unaligned``), gradients over seven decades, the
+    trainer's initial state."""
+    from deeprecsys_tpu_torch.train import make_optimizer
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    skip = 1 if unaligned else 0
+    params = [torch.randn((n + skip,), generator=g, device=cuda).to(dt)[skip:] for n in sizes]
+    grads = [(torch.randn((n,), generator=g, device=cuda)
+              * 10.0 ** torch.randint(-6, 1, (n,), generator=g, device=cuda)).to(dt)
+             for n in sizes]
+    st = make_optimizer(name, 0.05).init(params)
+    states = [] if st is None else [st] if name == "adagrad" else [st["mu"], st["nu"]]
+    return params, grads, states
+
+
+def _k10_bit_for_bit(name, params, grads, states, count):
+    ps, ss = [p.clone() for p in params], [[t.clone() for t in s] for s in states]
+    before = optimizer_update.kernel_launches
+    optimizer_update(name, ps, grads, ss, 0.05, count)
+    torch.cuda.synchronize()
+    assert optimizer_update.kernel_launches == before + 1
+    optimizer_update_reference(name, params, grads, states, 0.05, count)
+    for a, b in zip(ps + [t for s in ss for t in s], params + [t for s in states for t in s]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["sgd", "adagrad", "adam"])
+def test_optimizer_update_kernel_is_bit_for_bit(cuda, name, dt, unaligned):
+    """Odd sizes (one element, under a vector, a vector and a tail, past
+    the 65,536-element chunk), two steps (adam's bias corrections at counts
+    1 and 2), aligned leaves and leaves one element past a 16-byte boundary
+    (the element-by-element path)."""
+    params, grads, states = _k10_case(cuda, name, dt, (1, 3, 7, 4097, 65536 * 2 + 5, 1000003),
+                                      seed=3, unaligned=unaligned)
+    for count in (1, 2):
+        _k10_bit_for_bit(name, params, grads, states, count)
+
+
+@pytest.mark.parametrize("name", ["sgd", "adagrad", "adam"])
+def test_optimizer_update_kernel_over_many_leaves_of_both_dtypes(cuda, name):
+    """45 leaves (two launches of at most 40 leaves in one C call) of f32
+    and bf16 mixed (one launch a dtype, one count a call)."""
+    p32, g32, s32 = _k10_case(cuda, name, torch.float32, [17 * k + 1 for k in range(30)], 4)
+    p16, g16, s16 = _k10_case(cuda, name, torch.bfloat16, [33 * k + 5 for k in range(15)], 5)
+    _k10_bit_for_bit(name, p32 + p16, g32 + g16, [a + b for a, b in zip(s32, s16)], 1)
+
+
+def test_optimizer_update_kernel_rejects_a_strided_param(cuda):
+    p = torch.zeros((8, 8), device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        optimizer_update("sgd", [p], [torch.zeros_like(p)], [], 0.1)
 
 
 def _rnn_backward_inputs(cuda, T, B, w_dt, seed):

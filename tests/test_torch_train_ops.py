@@ -20,7 +20,14 @@ tensors every kernel wrapper runs its plain version:
 - The losses and their gradients: rtol 1e-6 (elementwise f32 math).
 - One optimizer step (two for adam) against optax on the same params and
   gradients: rtol 1e-6 (the port writes optax's ops in optax's order; one
-  f32 rounding apart at most).
+  f32 rounding apart at most). The plain version of K10
+  (``optimizer_update_reference``) on its own over two steps: f32 leaves
+  against optax in f32, params and state, rtol 1e-6; bf16 leaves against
+  optax in f32 on the same bf16 values, params within 2 bf16 ulps of each
+  value plus 2^-6 * lr a step (the eager ops round every step's result to
+  bf16, the update too before it is added, which near p = 0 is many ulps
+  of p; optax in bf16 is no reference here: it rounds its own constants
+  to bf16, b2 = 0.999 to 1.0).
 - ``dot_interaction`` against JAX: f32 rtol 1e-6.
 """
 
@@ -39,7 +46,9 @@ from deeprecsys_tpu.train import make_optimizer as jax_make_optimizer
 from deeprecsys_tpu_torch.ops import (
     basic_rnn_scan, dot_interaction, embedding_bag, embedding_bag_backward, rnn_scan,
     rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step)
+from deeprecsys_tpu_torch.ops import optimizer as port_optimizer
 from deeprecsys_tpu_torch.ops.embedding import backward_tolerance
+from deeprecsys_tpu_torch.ops.optimizer import optimizer_update, optimizer_update_reference
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.parallel import sharding
 from deeprecsys_tpu_torch.train import make_optimizer
@@ -256,6 +265,94 @@ def test_optimizer_steps_match_optax(name):
         opt.update(leaves, [torch.from_numpy(g[k]) for k in ("w", "b")], pstate)
     for k, got in zip(("w", "b"), leaves):
         np.testing.assert_allclose(got.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
+
+
+def _optax_state_lists(name, state):
+    """optax's state of one of sgd, adagrad, adam as the port's state lists
+    (leaves ``w``, ``b``)."""
+    if name == "sgd":
+        return []
+    if name == "adagrad":
+        return [[state[0].sum_of_squares[k] for k in ("w", "b")]]
+    return [[state[0].mu[k] for k in ("w", "b")], [state[0].nu[k] for k in ("w", "b")]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["sgd", "adagrad", "adam"])
+def test_optimizer_update_reference_matches_optax(name, dtype):
+    """K10's plain version, called on its own, against optax's update and
+    apply_updates in f32 on the same leaves and gradients (bf16 values for
+    bf16 leaves), two steps (see the module note for the bounds)."""
+    rng = np.random.default_rng(12)
+    tdt = getattr(torch, dtype)
+    as_dt = lambda x: torch.from_numpy(x).to(tdt)  # noqa: E731
+    params = {"w": rng.standard_normal((33, 17)).astype(np.float32),
+              "b": rng.standard_normal(17).astype(np.float32)}
+    grads = [{k: (rng.standard_normal(v.shape) * 10.0 ** rng.integers(-4, 1, v.shape)
+                  ).astype(np.float32) for k, v in params.items()} for _ in range(2)]
+    exact = lambda x: as_dt(x).float().numpy()  # noqa: E731  (the leaf's values in f32)
+    tx = jax_make_optimizer(name, 0.05)
+    jp = {k: jnp.asarray(exact(v)) for k, v in params.items()}
+    state = tx.init(jp)
+    leaves = [as_dt(params[k]) for k in ("w", "b")]
+    init = make_optimizer(name, 0.05).init(leaves)
+    states = ([] if init is None else [init] if name == "adagrad" else [init["mu"], init["nu"]])
+    for count, g in enumerate(grads, start=1):
+        upd, state = tx.update({k: jnp.asarray(exact(v)) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, upd)
+        optimizer_update_reference(name, leaves, [as_dt(g[k]) for k in ("w", "b")], states, 0.05,
+                                   count)
+    if dtype == "float32":
+        got = leaves + [t for s in states for t in s]
+        want = [jp[k] for k in ("w", "b")] + [t for s in _optax_state_lists(name, state) for t in s]
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+        return
+    for a, k in zip(leaves, ("w", "b")):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(jp[k])
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(b), 2.0 ** -126))) - 7)
+        np.testing.assert_array_less(np.abs(a.float().numpy() - b),
+                                     2 * ulp + len(grads) * 0.05 * 2.0 ** -6)
+
+
+def test_optimizer_update_takes_the_plain_version_on_the_cpu(monkeypatch):
+    calls = []
+    plain = port_optimizer.optimizer_update_reference
+    monkeypatch.setattr(port_optimizer, "optimizer_update_reference",
+                        lambda *a, **k: calls.append(a[0]) or plain(*a, **k))
+    tx = make_optimizer("adagrad", 0.1)
+    leaves = [torch.ones(5), torch.ones(2, 3)]
+    state = tx.init(leaves)
+    before = optimizer_update.kernel_launches
+    tx.update(leaves, [torch.full((5,), 0.5), torch.full((2, 3), 0.5)], state)
+    assert calls == ["adagrad"] and optimizer_update.kernel_launches == before
+    want = 1 - 0.1 * 0.5 / np.sqrt(np.float32(0.1) + np.float32(0.25) + np.float32(1e-7))
+    np.testing.assert_allclose(leaves[0].numpy(), np.full(5, want, np.float32), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["sgd", "adagrad", "adam"])
+def test_optimizer_update_raises_off_cpu_and_cuda(name):
+    """A meta tensor is neither: the update raises rather than falling back."""
+    tx = make_optimizer(name, 0.1)
+    leaves = [torch.empty((4, 4), device="meta")]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tx.update(leaves, [torch.empty((4, 4), device="meta")], tx.init(leaves))
+
+
+def test_optimizer_update_checks_its_leaves():
+    p, g = torch.zeros(4), torch.zeros(4)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optimizer_update("rmsprop", [p], [g], [], 0.1)
+    with pytest.raises(ValueError, match="state lists"):
+        optimizer_update("adagrad", [p], [g], [], 0.1)
+    with pytest.raises(ValueError, match="does not match"):
+        optimizer_update("sgd", [p], [torch.zeros(5)], [], 0.1)
+    with pytest.raises(ValueError, match="does not match"):
+        optimizer_update("adagrad", [p], [g], [[torch.zeros(4, dtype=torch.bfloat16)]], 0.1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        optimizer_update("sgd", [p.double()], [g.double()], [], 0.1)
+    optimizer_update("sgd", [], [], [], 0.1)  # no leaves: nothing to do
 
 
 def test_make_optimizer_rejects_unknown():
