@@ -44,6 +44,18 @@ hotcold`` with both int8 layouts; then K6's times and
 ``experiments/skew_bench.py``'s direct-against-split measurement for rm1,
 rm2 and din.
 
+Then the serving fabric (phase 14, after phase 7, on phase 5's rm1): the
+HTTP ingress (``serving/ingress.py``) on one engine, with ``/v1/infer`` and
+``/v1/predict`` at canonical sizes timed beside the same queries
+in-process, phase 5's batch and a ragged batch (lengths + values) through
+``/v1/predict`` held to the direct (masked) forward, and the health, stats
+and metrics routes; a checkpoint of other params swapped in by ``POST
+/v1/reload`` while two clients keep sending (0 failed requests, then the
+new params' scores), for the direct engine and a hot/cold one (K6 goes on
+after the swap); ``run_serving`` with two cpu-mp engine processes (CPU,
+``FABRIC_MP_SCALE``) and the offload engine on the card; and ``main.py
+--checkpoint --score_output``.
+
 Each kernel is timed beside its plain version, its bound and one PyTorch
 call computing the same function (``F.embedding_bag`` at every zoo shape,
 cuDNN's tanh RNN at DIEN's), from ``deeprecsys_tpu_torch/kernel_bench.py``.
@@ -79,11 +91,14 @@ gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import queue
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -94,6 +109,7 @@ from deeprecsys_tpu_torch import ServingConfig, bridge, zoo
 from deeprecsys_tpu_torch import main as port_main
 from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.data.ragged import pad_csr
 from deeprecsys_tpu_torch.experiments.skew_bench import measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.kernel_bench import (
@@ -121,8 +137,11 @@ from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.runtime.native import native_available
 from deeprecsys_tpu_torch.serving import ServiceRequest, orchestrator, run_serving
 from deeprecsys_tpu_torch.serving.engine import ComputeEngine
+from deeprecsys_tpu_torch.serving.ingress import HttpIngress, ServingServer
+from deeprecsys_tpu_torch.serving.load_generator import model_batch_sizes
 from deeprecsys_tpu_torch.serving.packets import ERR_OK, ERR_PAYLOAD
-from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params, load_model_params
+from deeprecsys_tpu_torch.utils.checkpoint import (
+    checkpoint_params, load_model_params, save_params)
 from deeprecsys_tpu_torch.utils.devices import synchronize
 
 ROOT = Path(__file__).resolve().parent
@@ -244,6 +263,16 @@ K10_SIZES = (1, 3, 4097, 2 * 65536 + 5)
 # phase's run (table_scale 100, 20 steps); tests/test_torch_quant.py holds
 # the same bound at table_scale 2000.
 QUANT_SCORE_ATOL = 5e-3
+# Phase 14, the serving fabric: timed queries of each kind (HTTP and
+# in-process, sizes ~N(165, 16)), the clients that keep sending through a
+# reload, and the cpu-mp run: its engine processes build their own CPU
+# tables, so it runs at FABRIC_MP_SCALE; queries of FABRIC_ACCEL_THRES rows
+# and more (~27% of N(165, 16)) go whole to the offload engine on the card.
+FABRIC_QUERIES = 30
+FABRIC_CLIENTS = 2
+FABRIC_MP_SCALE = 10
+FABRIC_MP_QUERIES = 100
+FABRIC_ACCEL_THRES = 175
 
 
 def _log(msg: str):
@@ -2218,6 +2247,353 @@ def phase_train(device, card: str) -> tuple[dict, dict, list]:
     return {k: {**times[k], "max_abs_err": errs[k]} for k in times}, launches, steps
 
 
+# ------------------------------------------------------- 14 serving fabric
+
+def _http(url: str, payload=None, timeout: float = 120.0):
+    """(status, body) of a GET (``payload`` None) or a JSON POST; the body
+    parsed when it is JSON."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        if r.headers.get_content_type() == "application/json":
+            return r.status, json.loads(body)
+        return r.status, body.decode()
+
+
+def _body(batch: Batch) -> dict:
+    """A predict body of a host batch."""
+    out = {"indices": np.asarray(batch.indices).tolist()}
+    if batch.dense is not None:
+        out["dense"] = np.asarray(batch.dense, np.float32).tolist()
+    return out
+
+
+def _executions(engine) -> int:
+    return sum(engine.bucket_counts.values()) + engine.warmup_executions
+
+
+def _pct(ms: list) -> str:
+    return f"p50 {np.percentile(ms, 50):.3f} ms, p95 {np.percentile(ms, 95):.3f} ms"
+
+
+def _check_close(got, want: np.ndarray, what: str) -> float:
+    got = np.asarray(got, np.float32)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    if err > bf16_atol(want):
+        raise AssertionError(f"{what}: scores differ from the direct forward by {err:.3e} > "
+                             f"{bf16_atol(want):.3e} (shape {got.shape} vs {want.shape})")
+    return err
+
+
+def _forward(model, params, batch: Batch, device) -> np.ndarray:
+    with torch.inference_mode():
+        return model.apply(params, batch.to(device)).float().cpu().numpy()
+
+
+def _traffic(base: str, body: dict, clients: int):
+    """``clients`` threads sending ``body`` to /v1/predict until the
+    returned event is set; the list collects failures, the counter answers."""
+    stop, failures, answered = threading.Event(), [], [0]
+    lock = threading.Lock()
+
+    def client():
+        while not stop.is_set():
+            try:
+                status, _ = _http(f"{base}/v1/predict", body)
+                ok = status == 200
+            except Exception as e:  # a failed or dropped request is downtime
+                ok, status = False, repr(e)
+            with lock:
+                if ok:
+                    answered[0] += 1
+                else:
+                    failures.append(status)
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    return stop, threads, failures, answered
+
+
+def _reload_under_traffic(server: ServingServer, base: str, body: dict, ckpt: Path) -> dict:
+    """POST /v1/reload while FABRIC_CLIENTS clients keep sending ``body``;
+    returns the handle's outcome, the requests answered and the failures."""
+    stop, threads, failures, answered = _traffic(base, body, FABRIC_CLIENTS)
+    try:
+        while answered[0] < 4 and not failures:  # the clients are in flight
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        status, out = _http(f"{base}/v1/reload", {"path": str(ckpt)})
+        if status != 200 or out["scheduled"] != 1:
+            raise AssertionError(f"POST /v1/reload answered {status} {out}")
+        handle = server._reload_handles[0]
+        if not handle.event.wait(timeout=300):
+            raise AssertionError("the reload was not applied within 300 s")
+        wall = time.perf_counter() - t0
+        at_swap = _counts()
+        before = answered[0]
+        while answered[0] < before + 4 and not failures:  # served after the swap
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    _, st = _http(f"{base}/v1/reload")
+    if failures or handle.error is not None or st["applied"] != 1 or st["failed"] != 0:
+        raise AssertionError(f"reload under traffic: {len(failures)} failed requests "
+                             f"{failures[:3]}, handle error {handle.error!r}, status {st}")
+    return {"wall_s": wall, "answered": answered[0], "apply_ms": server.engines[0].last_reload_ms,
+            "at_swap": at_swap}
+
+
+def fabric_ingress(device, fwd: dict, card: str) -> tuple[dict, dict, tuple]:
+    """rm1 behind the HTTP ingress on one engine (phase 5's params, ragged
+    accepted): /v1/infer and /v1/predict at canonical sizes beside the same
+    queries in-process, the fixture batch and a ragged batch through
+    /v1/predict, the health, stats and metrics routes. Returns the results,
+    the launches and (server, ingress, base) for the reload."""
+    cfg, model, params = fwd["cfg"], fwd["model"], fwd["params"]
+    scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device), accept_ragged=True)
+    sizes = model_batch_sizes(dataclasses.replace(scfg, num_batches=FABRIC_QUERIES),
+                              np.random.default_rng(7))
+    data = RecDataGenerator(cfg, seed=8)
+    payloads = [data.generate_batch(int(n)) for n in sizes]
+    fixture = Batch(dense=fwd["batches"][0].dense.float().cpu().numpy(),
+                    indices=fwd["batches"][0].indices.cpu().numpy())
+    rng = np.random.default_rng(9)
+    T, L = cfg.num_tables, cfg.num_indices_per_lookup
+    lengths = rng.integers(0, L + 1, size=(64, T))
+    values = np.concatenate([rng.integers(0, cfg.scaled_rows[t], size=int(lengths[b, t]))
+                             for b in range(64) for t in range(T)])
+    rag_dense = rng.random((64, cfg.dense_dim), dtype=np.float32)
+    _reset_peak(device)
+    _reset_counts()
+    server = ServingServer(cfg, scfg, params=params)
+    try:
+        server.start(timeout=300)
+        ing = HttpIngress(server)
+    except BaseException:
+        server.stop()
+        raise
+    ing.start()
+    base = "http://%s:%s" % ing.address
+    try:
+        times = {k: [] for k in ("http_infer", "submit", "http_predict", "predict")}
+        for n, p in zip(sizes, payloads):
+            body = _body(p)
+            for key, call in (
+                    ("http_infer", lambda: _http(f"{base}/v1/infer", {"batch_size": int(n)})),
+                    ("submit", lambda: (200, server.submit(int(n)))),
+                    ("http_predict", lambda: _http(f"{base}/v1/predict", body)),
+                    ("predict", lambda: (200, server.predict(p.indices, dense=p.dense)))):
+                t0 = time.perf_counter()
+                status, out = call()
+                times[key].append((time.perf_counter() - t0) * 1000.0)
+                if status != 200 or out["batch_size"] != n:
+                    raise AssertionError(f"{key} of {n} rows answered {status}")
+        _, fix = _http(f"{base}/v1/predict", _body(fixture))
+        _, rag = _http(f"{base}/v1/predict", {"lengths": lengths.tolist(),
+                                              "values": values.tolist(),
+                                              "dense": rag_dense.tolist()})
+        _, health = _http(f"{base}/v1/healthz")
+        _, stats = _http(f"{base}/v1/stats")
+        _, metrics = _http(f"{base}/metrics")
+        counts = _counts()
+        executions = _executions(server.engines[0])
+        if counts != _want(embedding_bag=executions):
+            raise AssertionError(f"ingress: launches {counts} for {executions} executions")
+        if (health["status"] != "ok" or stats["completed"] != 4 * FABRIC_QUERIES + 2
+                or 'drs_up{model="rm1"} 1' not in metrics):
+            raise AssertionError(f"ingress routes: healthz {health}, stats {stats}")
+    except BaseException:
+        ing.stop()
+        raise
+    fix_err = _check_close(fix["scores"], _forward(model, params, fixture, device),
+                           "/v1/predict of phase 5's batch")
+    idx, mask = pad_csr(lengths, values, L)
+    rag_err = _check_close(rag["scores"], _forward(model, params, Batch(
+        dense=rag_dense, indices=idx.astype(np.int32), mask=mask), device),
+        "ragged /v1/predict (the masked forward)")
+    _log(f"[14 fabric] rm1 table_scale={TABLE_SCALE} bf16 behind the HTTP ingress, 1 engine "
+         f"(accept_ragged): {FABRIC_QUERIES} queries of each kind at sizes ~N(165, 16) "
+         f"(mean {sizes.mean():.1f} rows), one at a time: HTTP /v1/infer {_pct(times['http_infer'])}; "
+         f"in-process submit {_pct(times['submit'])}; HTTP /v1/predict {_pct(times['http_predict'])}; "
+         f"in-process predict {_pct(times['predict'])} [{card}]")
+    _log(f"[14 fabric] /v1/predict of phase 5's {len(fixture.indices)}-row batch matches "
+         f"model.apply: max |err| {fix_err:.3e}; ragged /v1/predict of 64 rows (lengths + values) "
+         f"matches the masked forward: max |err| {rag_err:.3e} (limit bf16_atol); healthz, stats, "
+         f"metrics answer; launches {counts} for {executions} executions (warm-up included)")
+    out = {"sizes_mean": float(sizes.mean()), "fixture_err": fix_err, "ragged_err": rag_err,
+           **{f"{k}_p50_ms": float(np.percentile(v, 50)) for k, v in times.items()},
+           **{f"{k}_p95_ms": float(np.percentile(v, 95)) for k, v in times.items()}}
+    return out, counts, (server, ing, base)
+
+
+def fabric_reload(device, fwd: dict, served: tuple, ckpt: Path, new_params: dict,
+                  card: str) -> tuple[dict, dict]:
+    """The ingress's engine swaps to ``ckpt`` while two clients keep
+    sending predicts: 0 failed requests, then the scores are the new
+    params' direct forward. Then the same for a hot/cold rm1 engine, whose
+    K6 launches go on after the swap. Returns the results and launches."""
+    cfg, model = fwd["cfg"], fwd["model"]
+    server, ing, base = served
+    probe = RecDataGenerator(cfg, seed=10).generate_batch(32)
+    launches = _want()
+    out = {}
+    try:
+        _reset_peak(device)
+        _reset_counts()
+        ex0 = _executions(server.engines[0])
+        r = _reload_under_traffic(server, base, _body(probe), ckpt)
+        del r["at_swap"]
+        counts = _counts()
+        ex = _executions(server.engines[0]) - ex0
+        if counts != _want(embedding_bag=ex):
+            raise AssertionError(f"reload: launches {counts} for {ex} executions")
+        _add(launches, counts)
+        peak = _peak_gib(device)
+        _, after = _http(f"{base}/v1/predict", _body(probe))
+    finally:
+        ing.stop()
+    err = _check_close(after["scores"], _forward(model, new_params, probe, device),
+                       "/v1/predict after the reload (the new params)")
+    _log(f"[14 fabric] reload of {ckpt.name} ({_table_bytes(new_params['tables']) / 2**30:.3f} "
+         f"GiB of tables) under {FABRIC_CLIENTS} clients of 32-row predicts: 0 failed of "
+         f"{r['answered']} answered; applied in {r['apply_ms']:.1f} ms on the serve thread "
+         f"(request to ACK {r['wall_s'] * 1e3:.1f} ms); then the new params' scores (max |err| "
+         f"{err:.3e}); peak device memory {peak:.3f} GiB; launches {counts} [{card}]")
+    out["direct"] = {**r, "peak_gib": peak, "max_abs_err": err}
+    _free(device)
+
+    hc_cfg = cfg.replace(embedding_impl="hotcold")
+    scfg = ServingConfig(engine_backend=_backend(device), batch_buckets=(32,),
+                         max_mini_batch_size=32, sub_task_batch_size=32)
+    _reset_peak(device)
+    _reset_counts()
+    server = ServingServer(hc_cfg, scfg, params=fwd["params"])
+    server.start(timeout=300)
+    ing = HttpIngress(server)
+    ing.start()
+    base = "http://%s:%s" % ing.address
+    try:
+        r = _reload_under_traffic(server, base, _body(probe), ckpt)
+        k6_at_swap = r.pop("at_swap")["embedding_bag_hotcold"]
+        _, after = _http(f"{base}/v1/predict", _body(probe))
+        counts = _counts()
+        eng = server.engines[0]
+        ex = _executions(eng)
+        if counts != _want(embedding_bag_hotcold=ex) or counts["embedding_bag_hotcold"] <= k6_at_swap:
+            raise AssertionError(f"hot/cold reload: launches {counts} for {ex} executions, "
+                                 f"{k6_at_swap} at the swap")
+        _add(launches, counts)
+        peak = _peak_gib(device)
+        hot = torch.as_tensor(np.asarray(eng._hotcold.hot_ids), device=device)
+        if not torch.equal(eng.params["hot_table"], eng.params["tables"].index_select(0, hot)):
+            raise AssertionError("hot/cold reload: the hot table is not the new tables' hot rows")
+    finally:
+        ing.stop()
+    err = _check_close(after["scores"], _forward(model, new_params, probe, device),
+                       "hot/cold /v1/predict after the reload")
+    _log(f"[14 fabric] hot/cold rm1 engine ({len(eng._hotcold.hot_ids)} hot rows), the same reload "
+         f"under traffic: 0 failed of {r['answered']} answered; applied in {r['apply_ms']:.1f} ms "
+         f"(hot table re-gathered from the new tables); K6 launches {k6_at_swap} at the swap, "
+         f"{counts['embedding_bag_hotcold']} after; scores match the new params' direct forward "
+         f"(max |err| {err:.3e}); peak device memory {peak:.3f} GiB [{card}]")
+    out["hotcold"] = {**r, "peak_gib": peak, "max_abs_err": err}
+    _free(device)
+    return out, launches
+
+
+def fabric_cpu_mp(device, card: str) -> tuple[dict, dict]:
+    """run_serving with 2 CPU engine processes and the offload engine on
+    ``device`` at the canonical point: big queries offload, no errors, and
+    the parent's K1 launches are the offload engine's executions."""
+    cfg = zoo.get_config("rm1", table_scale=FABRIC_MP_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    scfg = ServingConfig(**SERVING_POINT, num_batches=FABRIC_MP_QUERIES, engine_backend="cpu-mp",
+                         inference_engines=2, model_accel=True,
+                         accel_request_size_thres=FABRIC_ACCEL_THRES)
+    _reset_counts()
+    with _engines_of_runs() as engines:
+        res = run_serving(cfg, scfg, settle_s=0.1, accel_device=device.type)
+    counts = _counts()
+    (accel,) = engines
+    if (res.accel_requests == 0 or res.error_responses or res.engine_errors
+            or res.num_responses != res.cpu_sub_requests + res.accel_requests):
+        raise AssertionError(f"cpu-mp: {res.accel_requests} offloaded, {res.num_responses} "
+                             f"responses for {res.cpu_sub_requests} + {res.accel_requests}, "
+                             f"errors {res.error_responses} {res.engine_errors}")
+    if accel.device.type != device.type or counts != _want(embedding_bag=_executions(accel)):
+        raise AssertionError(f"cpu-mp: parent launches {counts} for the offload engine's "
+                             f"{_executions(accel)} executions on {accel.device}")
+    _log(f"[14 fabric] cpu-mp rm1 table_scale={FABRIC_MP_SCALE} bf16 (the processes build "
+         f"their own CPU tables), 2 engine processes + the offload engine on {accel.device} for "
+         f"queries of {FABRIC_ACCEL_THRES}+ rows: {_served_line(res, counts)}; {res.accel_requests} "
+         f"offloaded [{card}]")
+    return res.to_dict(), counts
+
+
+def fabric_score_output(device, fwd: dict, ckpt: Path, new_params: dict,
+                        card: str) -> tuple[float, dict]:
+    """main.py --checkpoint --score_output: the npz holds the checkpoint's
+    forward of main.py's batches."""
+    cfg, model = fwd["cfg"], fwd["model"]
+    npz = ckpt.parent / "scores.npz"
+    _reset_counts()
+    res = port_main.main(["--model", "rm1", "--param_dtype", "bfloat16", "--table_scale",
+                          str(TABLE_SCALE), "--checkpoint", str(ckpt), "--num_batches", "2",
+                          "--mini_batch_size", str(BATCH), "--device", str(device),
+                          "--score_output", str(npz)])
+    counts = _counts()
+    if counts != _want(embedding_bag=res["forwards"]):
+        raise AssertionError(f"--score_output: launches {counts} for {res['forwards']} forwards")
+    with np.load(npz) as f:
+        scores = f["scores"]
+    batches = RecDataGenerator(cfg, seed=123).generate_batches(2, BATCH)  # main.py's
+    want = np.concatenate([_forward(model, new_params, b, device) for b in batches])
+    err = _check_close(scores, want, "main.py --score_output")
+    _log(f"[14 fabric] main.py --checkpoint --score_output: {scores.shape[0]} x "
+         f"{scores.shape[1]} f32 scores match the checkpoint's forward (max |err| {err:.3e}); "
+         f"launches {counts} [{card}]")
+    return err, counts
+
+
+def phase_fabric(device, fwd: dict, card: str) -> tuple[dict, dict]:
+    """Phase 14, the serving fabric, each path read around itself: the HTTP
+    ingress on one engine, a checkpoint reload under traffic (direct and
+    hot/cold), cpu-mp engine processes with the offload engine on the card,
+    and offline scoring. Returns the results and the launches."""
+    t0 = time.perf_counter()
+    launches = _want()
+    out = {}
+    out["ingress"], counts, served = fabric_ingress(device, fwd, card)
+    _add(launches, counts)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = out_dir / "rm1_fabric"
+    try:
+        new_params = fwd["model"].init(torch.Generator(device=device).manual_seed(1))
+        t1 = time.perf_counter()
+        save_params(ckpt, bridge.params_to_numpy(new_params, fwd["cfg"]))
+        _log(f"[14 fabric] wrote a checkpoint of params from seed 1 in "
+             f"{time.perf_counter() - t1:.1f} s")
+        out["reload"], counts = fabric_reload(device, fwd, served, ckpt, new_params, card)
+        _add(launches, counts)
+        out["cpu_mp"], counts = fabric_cpu_mp(device, card)
+        _add(launches, counts)
+        out["score_err"], counts = fabric_score_output(device, fwd, ckpt, new_params, card)
+        _add(launches, counts)
+    finally:
+        served[1].stop()  # a no-op once stopped
+        for f in out_dir.glob("rm1_fabric*"):
+            f.unlink()
+        (out_dir / "scores.npz").unlink(missing_ok=True)
+        _free(device)
+    _log(f"[14 fabric] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2246,6 +2622,9 @@ def main() -> int:
     _add(launches, serve_launches)
     torch.cuda.reset_peak_memory_stats(device)
     times = phase_times(device, fwd, card["card"])
+    # The serving fabric's paths, each read around itself.
+    fabric, fabric_launches = phase_fabric(device, fwd, card["card"])
+    _add(launches, fabric_launches)
     del fwd
     torch.cuda.empty_cache()
 
@@ -2334,6 +2713,16 @@ def main() -> int:
              f"{r['k1_ms'] * 1e3:.2f} / {r['k6_ms'] * 1e3:.2f} ({r['k1_uniform_ms'] * 1e3:.2f}), "
              f"{r['split_ms']:.3f}, {r['hot_coverage']:.4f}, {r['auto_impl']}, "
              f"{r['speedup']:.4f} [{card['card']}]")
+    i, r, m = fabric["ingress"], fabric["reload"], fabric["cpu_mp"]
+    _log(f"[10 summary] serving fabric, rm1 bf16: HTTP /v1/infer p50/p95 "
+         f"{i['http_infer_p50_ms']:.3f}/{i['http_infer_p95_ms']:.3f} ms (in-process "
+         f"{i['submit_p50_ms']:.3f}/{i['submit_p95_ms']:.3f}), /v1/predict "
+         f"{i['http_predict_p50_ms']:.3f}/{i['http_predict_p95_ms']:.3f} (in-process "
+         f"{i['predict_p50_ms']:.3f}/{i['predict_p95_ms']:.3f}); reload apply ms direct "
+         f"{r['direct']['apply_ms']:.1f}, hot/cold {r['hotcold']['apply_ms']:.1f}, peak GiB "
+         f"{r['direct']['peak_gib']:.3f}/{r['hotcold']['peak_gib']:.3f}, 0 failed; cpu-mp + "
+         f"offload (table_scale {FABRIC_MP_SCALE}) QPS {m['measured_qps']:.2f}, p95 "
+         f"{m['p95_ms']:.3f} ms, {m['accel_requests']} offloaded [{card['card']}]")
     _log("[10 summary] training step, f32, batch 128, full-size tables: wall ms, device ms, "
          "idle, peak GiB")
     for st in steps:

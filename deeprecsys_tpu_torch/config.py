@@ -255,9 +255,9 @@ class ServingConfig:
 
     One stated difference from the JAX package's: ``engine_backend`` is
     ``"gpu"`` (engines on the CUDA card, the default; raises without a
-    card), ``"cpu"`` or ``"sim"``. ``"cpu-mp"`` raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 11b) and ``"tpu"`` is
-    refused. ``payload_arena_slots`` is kept for equality (item 11b)."""
+    card), ``"cpu"``, ``"cpu-mp"`` (CPU engine processes over shared-memory
+    rings; ``payload_arena_slots`` sizes their payload arena) or ``"sim"``;
+    ``"tpu"`` is refused."""
 
     # Query stream (loadGenerator.py:14-43)
     num_batches: int = 64
@@ -317,12 +317,8 @@ class ServingConfig:
     def __post_init__(self):
         if self.engine_backend == "tpu":
             raise ValueError("engine_backend='tpu' is the JAX package's; the port "
-                             "serves on 'gpu' (the CUDA card), 'cpu' or 'sim'")
-        if self.engine_backend == "cpu-mp":
-            raise NotImplementedError(
-                "engine_backend='cpu-mp' (process engines and their shared-memory "
-                "runtime) is not ported yet (ROADMAP.md Queue 1 item 11b)")
-        if self.engine_backend not in ("gpu", "cpu", "sim"):
+                             "serves on 'gpu' (the CUDA card), 'cpu', 'cpu-mp' or 'sim'")
+        if self.engine_backend not in ("gpu", "cpu", "cpu-mp", "sim"):
             raise ValueError(f"unknown engine_backend {self.engine_backend!r}")
         if self.hotcold_refresh_interval > 0 and self.hotcold_refresh_window < 2:
             raise ValueError(

@@ -1,6 +1,6 @@
 """Command-line entry point (counterpart of ``deeprecsys_tpu/main.py``).
 
-Two modes, as in the JAX package (reference ``DeepRecSys.py``):
+Three modes, as in the JAX package (reference ``DeepRecSys.py``):
 
 - ``--queue``: the serving stack (``serving.run_serving``): load generator,
   engines, aggregator and, with ``--tune_batch_qps``, DeepRecSched; prints
@@ -27,9 +27,11 @@ int8 bundle ``--export_quant`` writes (``<name>_int8_rowwise``, ...).
 
 The parser carries the JAX package's flags that the port reads, with the
 same names and defaults, but ``--engine_backend`` defaults to ``gpu``, and
-adds ``--device`` (standalone mode). The flags of modes not ported yet
-(``--serve``, ``--score_output``, ``--engine_backend sim``, ...) raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+adds ``--device``: the device of standalone mode and of the ``--model_accel``
+offload engine (the card unless ``cpu`` is asked for). ``--engine_backend
+cpu-mp`` runs CPU engine processes over shared-memory rings. The flags of
+paths not ported yet (``--engine_backend sim``, ``--enable_profiling``)
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
 Examples (on a machine with a CUDA card; ``--engine_backend cpu`` or
 ``--device cpu`` for the host):
@@ -38,15 +40,20 @@ Examples (on a machine with a CUDA card; ``--engine_backend cpu`` or
       --var_mini_batch_size 16 --sub_task_batch_size 32 --num_batches 200
   python -m deeprecsys_tpu_torch.main --model rm1 --param_dtype bfloat16 \\
       --num_batches 16 --mini_batch_size 512
+  python -m deeprecsys_tpu_torch.main --model rm1 --param_dtype bfloat16 --serve \\
+      --port 8321 --accept_ragged
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
+import threading
 import time
 
+import numpy as np
 import torch
 
 from deeprecsys_tpu_torch import zoo
@@ -56,8 +63,6 @@ from deeprecsys_tpu_torch.config import (
 # Flags of the JAX CLI whose paths are not ported yet, with the ROADMAP.md
 # item that ports each.
 _NOT_PORTED = {
-    "serve": "Queue 1 item 11b (HTTP ingress)",
-    "score_output": "Queue 1 item 11b (offline scoring)",
     "enable_profiling": "Queue 1 item 13 (op breakdown through torch.profiler)",
 }
 
@@ -96,6 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--embedding_impl auto splits only fused tables at least this big")
     p.add_argument("--accept_ragged", action="store_true",
                    help="engines take masked (ragged) payload requests")
+    p.add_argument("--payload_arena_slots", type=int,
+                   default=ServingConfig.payload_arena_slots,
+                   help="cpu-mp: blob-arena slots, one an in-flight /v1/predict "
+                        "sub-request; exhaustion answers 503")
     p.add_argument("--table_pack", type=int, default=0,
                    help="the JAX package's row packing; the port keeps tables unpacked")
     p.add_argument("--hot_set_rows", type=int, default=0)
@@ -115,12 +124,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mini_batch_size", type=int, default=64)
     p.add_argument("--nepochs", type=int, default=1)
     p.add_argument("--numpy_rand_seed", type=int, default=123)
-    # Serving mode (reference: --queue)
+    # Serving mode (reference: --queue) and the HTTP ingress
     p.add_argument("--queue", action="store_true")
+    p.add_argument("--serve", action="store_true",
+                   help="start the HTTP serving ingress instead of a load-generator run")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--serve_models", type=str, default=None,
+                   help="comma-separated zoo models behind one ingress "
+                        "(POST /v1/models/<name>/infer); default: just --model")
+    p.add_argument("--port", type=int, default=8321)
+    p.add_argument("--reload_root", type=str, default=None,
+                   help="directory the checkpoint paths of POST /v1/reload must lie "
+                        "under; required for reloads on a non-loopback --host")
     p.add_argument("--inference_engines", type=int, default=1)
     p.add_argument("--engine_backend", type=str, default="gpu",
                    choices=("gpu", "cpu", "cpu-mp", "sim"),
-                   help="'gpu' (the CUDA card; raises without one) or 'cpu'")
+                   help="'gpu' (the CUDA card; raises without one), 'cpu' or 'cpu-mp' "
+                        "(CPU engine processes)")
     p.add_argument("--avg_arrival_rate", type=float, default=10.0, help="ms")
     p.add_argument("--target_latency", type=float, default=25.0, help="ms (p95 SLA)")
     p.add_argument("--batch_size_distribution", type=str, default="fixed")
@@ -142,7 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arr_steps", type=int, default=20)
     p.add_argument("--sched_timeout", type=int, default=100)
     p.add_argument("--model_accel", action="store_true",
-                   help="add a big-query offload engine on the card")
+                   help="add a big-query offload engine on --device")
     p.add_argument("--accel_request_size_thres", type=int, default=1024)
     p.add_argument("--coalesce_requests", action="store_true",
                    help="engines drain waiting requests into one bucket execution")
@@ -152,14 +172,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", type=str, default=None,
                    help="start from this trained checkpoint (<path>.npz + "
                         "<path>.tree.json; an int8 bundle with --table_quant) instead of "
-                        "random weights: standalone and --queue")
-    # Modes not ported yet (_NOT_PORTED)
-    p.add_argument("--serve", action="store_true")
-    p.add_argument("--score_output", type=str, default=None)
-    p.add_argument("--enable_profiling", action="store_true")
+                        "random weights: standalone, --queue and --serve (--model only)")
+    p.add_argument("--score_output", type=str, default=None,
+                   help="standalone mode: write the last epoch's scores to this .npz "
+                        "(offline batch scoring)")
+    p.add_argument("--enable_profiling", action="store_true")  # not ported (_NOT_PORTED)
     p.add_argument("--device", type=str, default="cuda",
-                   help="standalone mode: 'cuda' (default; raises when no card is "
-                        "present) or 'cpu'")
+                   help="standalone mode and the --model_accel offload engine: 'cuda' "
+                        "(default; raises when no card is present) or 'cpu'")
     return p
 
 
@@ -184,16 +204,17 @@ def _model_overrides(args) -> dict:
     return overrides
 
 
-def model_config_from_args(args) -> ModelConfig:
-    """The ModelConfig for ``--model`` and the lookup flags (JAX
-    ``main.py:199-230``)."""
+def model_config_from_args(args, name: str | None = None) -> ModelConfig:
+    """The ModelConfig for ``--model`` (or ``name``) and the lookup flags
+    (JAX ``main.py:199-230``)."""
+    name = args.model if name is None else name
     overrides = _model_overrides(args)
-    if args.model == "criteo":
+    if name == "criteo":
         raise NotImplementedError("--model criteo (the Criteo dataset mode) is not "
                                   "ported yet (ROADMAP.md Queue 1 item 1)")
-    if args.model in zoo.MODEL_NAMES:
-        return zoo.get_config(args.model, table_scale=args.table_scale, **overrides)
-    return load_model_config(args.model, table_scale=args.table_scale, **overrides)
+    if name in zoo.MODEL_NAMES:
+        return zoo.get_config(name, table_scale=args.table_scale, **overrides)
+    return load_model_config(name, table_scale=args.table_scale, **overrides)
 
 
 def serving_config_from_args(args) -> ServingConfig:
@@ -236,21 +257,26 @@ def serving_config_from_args(args) -> ServingConfig:
         hotcold_scan_budget=args.hotcold_scan_budget,
         hotcold_scan_async=not args.hotcold_scan_sync,
         accept_ragged=args.accept_ragged,
+        payload_arena_slots=args.payload_arena_slots,
         seed=args.numpy_rand_seed,
         log_file=args.log_file,
         debug_mode=args.debug_mode,
     )
 
 
-def run_queue(model_cfg: ModelConfig, args):
-    """Serving mode: run the stack and print the reference's report."""
-    from deeprecsys_tpu_torch.serving import run_serving
-
+def _check_backend(args):
     if args.engine_backend == "sim":
         raise NotImplementedError(
             "--engine_backend sim needs the card's own latency ladders, which are "
             "not measured yet (ROADMAP.md Queue 1 item 13; the JAX package's "
             "benchmarks/characterization/tpu_*.json are TPU numbers)")
+
+
+def run_queue(model_cfg: ModelConfig, args):
+    """Serving mode: run the stack and print the reference's report."""
+    from deeprecsys_tpu_torch.serving import run_serving
+
+    _check_backend(args)
     if args.engine_backend == "gpu" and args.inference_engines > 1:
         print(f"[deeprecsys_tpu_torch] WARNING: {args.inference_engines} engine threads "
               "share one interpreter, and every eager PyTorch call hands the GIL to "
@@ -259,7 +285,7 @@ def run_queue(model_cfg: ModelConfig, args):
               "drain (engine_bench; PERF.md). Use --inference_engines 1.", flush=True)
     res = run_serving(model_cfg, serving_config_from_args(args),
                       log_responses=args.log_file is not None,
-                      checkpoint_path=args.checkpoint)
+                      checkpoint_path=args.checkpoint, accel_device=args.device)
     if res.engine_errors:
         raise RuntimeError(f"{len(res.engine_errors)} engine(s) failed during the run, "
                            f"so its latencies are not a measurement: {res.engine_errors}")
@@ -304,6 +330,16 @@ def run_standalone(model_cfg: ModelConfig, args) -> dict:
         synchronize(device)
         t_comp = time.perf_counter() - t0
 
+        forwards = 1 + args.nepochs * len(dev)
+        if args.score_output:
+            if not outs:  # --nepochs 0: score all the same
+                outs = [model.apply(params, b) for b in dev]
+                forwards += len(dev)
+            scores = torch.cat([o.float() for o in outs]).cpu().numpy()
+            np.savez(args.score_output, scores=scores)
+            print(f"[deeprecsys_tpu_torch] wrote {scores.shape[0]} x {scores.shape[1]} "
+                  f"scores to {args.score_output}", flush=True)
+
     total_ms = (t_load + t_comp) * 1000.0
     print(f"Total data loading time: *** {t_load * 1000.0:.3f} ms")
     print(f"Total computation time: *** {t_comp * 1000.0:.3f} ms")
@@ -312,8 +348,52 @@ def run_standalone(model_cfg: ModelConfig, args) -> dict:
     print(f"Throughput: {n / (t_load + t_comp):.1f} samples/s")
     sys.stdout.flush()
     return {"load_ms": t_load * 1000.0, "compute_ms": t_comp * 1000.0,
-            "total_ms": total_ms, "forwards": 1 + args.nepochs * args.num_batches,
+            "total_ms": total_ms, "forwards": forwards,
             "outputs": outs, "device": str(device)}
+
+
+def start_serve(model_cfg: ModelConfig, args):
+    """The started HTTP ingress of ``--serve``: one ``ServingServer`` a model
+    of ``--serve_models`` (default ``--model``), ``--checkpoint`` for
+    ``--model``, the offload engine on ``--device``."""
+    from deeprecsys_tpu_torch.serving.ingress import HttpIngress, ServingServer
+
+    _check_backend(args)
+    serving_cfg = serving_config_from_args(args)
+    names = args.serve_models.split(",") if args.serve_models else [model_cfg.model_name]
+    registry = {}
+    try:
+        for name in names:
+            cfg = model_cfg if name == model_cfg.model_name else model_config_from_args(args, name)
+            registry[name] = ServingServer(
+                cfg, serving_cfg, accel_device=args.device,
+                checkpoint_path=args.checkpoint if name == model_cfg.model_name else None)
+            registry[name].start()
+        ingress = HttpIngress(registry, host=args.host, port=args.port, default=names[0],
+                              reload_root=args.reload_root)
+    except BaseException:
+        for server in registry.values():
+            server.stop()
+        raise
+    ingress.start()
+    host, port = ingress.address
+    print(f"[deeprecsys_tpu_torch] serving on http://{host}:{port} "
+          f"(POST /v1/infer, /v1/predict, /v1/reload; GET /v1/models, /v1/stats)", flush=True)
+    return ingress
+
+
+def run_serve(model_cfg: ModelConfig, args):
+    """``--serve``: the ingress until SIGTERM or Ctrl-C."""
+    ingress = start_serve(model_cfg, args)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        while not stop.wait(3600):
+            pass
+    except KeyboardInterrupt:
+        pass
+    print("[deeprecsys_tpu_torch] shutting down serving", flush=True)
+    ingress.stop()
 
 
 def main(argv=None):
@@ -322,10 +402,13 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md {item})")
     model_cfg = model_config_from_args(args)
-    where = f"engine_backend={args.engine_backend}" if args.queue else f"device={args.device}"
+    where = (f"engine_backend={args.engine_backend}" if args.queue or args.serve
+             else f"device={args.device}")
     print(f"[deeprecsys_tpu_torch] model={model_cfg.model_name} "
           f"type={model_cfg.model_type} tables={model_cfg.num_tables} "
           f"rows={model_cfg.total_rows} L={model_cfg.num_indices_per_lookup} {where}")
+    if args.serve:
+        return run_serve(model_cfg, args)
     if args.queue:
         return run_queue(model_cfg, args)
     return run_standalone(model_cfg, args)

@@ -1,14 +1,15 @@
 """ctypes bindings and on-demand build of the native host runtime.
 
-Counterpart of ``deeprecsys_tpu/runtime/native.py``, for the parts the
-hot/cold serving path uses: ``get_lib``, ``native_available`` and
-``HotIndex``. ``cpp/drs_runtime.cpp`` is compiled once with ``g++`` into
-``build/native/`` at the root of the checkout, named by a hash of the
-source, at first use; the port never reads the JAX package's cache. A build
-that fails is remembered, and ``native_available()`` then says False: the
-splitter's ``impl="auto"`` takes its numpy path, as in the JAX package. The
-ring queue and precise sleep the source also holds are not bound yet
-(process engines, ROADMAP.md Queue 1 item 11b).
+Counterpart of ``deeprecsys_tpu/runtime/native.py``: ``get_lib``,
+``native_available``, ``HotIndex`` (the hot/cold splitter's index),
+``precise_sleep_ns``, and the MPMC ring of 64-byte slots that
+``shm_queue.ShmRingQueue`` wraps (the cpu-mp process engines' transport).
+``cpp/drs_runtime.cpp`` is compiled once with ``g++`` into ``build/native/``
+at the root of the checkout, named by a hash of the source, at first use;
+the port never reads the JAX package's cache. A build that fails is
+remembered, and ``native_available()`` then says False: the splitter's
+``impl="auto"`` takes its numpy path, as in the JAX package, and the ring
+raises (process engines have no pure-Python transport).
 """
 
 from __future__ import annotations
@@ -57,6 +58,21 @@ def _build() -> Path:
 
 
 def _declare(lib: ctypes.CDLL):
+    # The ring: a header and ``capacity`` 64-byte slots in caller memory.
+    lib.drs_ring_bytes.restype = ctypes.c_uint64
+    lib.drs_ring_bytes.argtypes = [ctypes.c_uint64]
+    lib.drs_ring_init.restype = ctypes.c_int
+    lib.drs_ring_init.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.drs_ring_push.restype = ctypes.c_int
+    lib.drs_ring_push.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.drs_ring_pop.restype = ctypes.c_int
+    lib.drs_ring_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.drs_ring_pop_wait.restype = ctypes.c_int
+    lib.drs_ring_pop_wait.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    lib.drs_ring_approx_size.restype = ctypes.c_uint64
+    lib.drs_ring_approx_size.argtypes = [ctypes.c_void_p]
+    lib.drs_precise_sleep_ns.restype = None
+    lib.drs_precise_sleep_ns.argtypes = [ctypes.c_int64, ctypes.c_int64]
     lib.drs_split_hot_cold_indexed.restype = ctypes.c_int64
     lib.drs_split_hot_cold_indexed.argtypes = [
         ctypes.c_void_p, ctypes.c_int64,                   # indices, n
@@ -100,6 +116,12 @@ def native_available() -> bool:
         return True
     except RuntimeError:
         return False
+
+
+def precise_sleep_ns(total_ns: int, spin_ns: int = 200_000):
+    """Sleep ``total_ns`` with the GIL released (nanosleep, then a spin over
+    the last ``spin_ns``)."""
+    get_lib().drs_precise_sleep_ns(total_ns, spin_ns)
 
 
 class HotIndex:

@@ -5,9 +5,10 @@ Poisson arrivals and query splitting (``load_generator.py``), the
 DeepRecSched hill climber (``scheduler.py``), the inference engines
 (``engine.py``: on the CUDA card through K1, and K3 for dien), the
 response aggregator (``metrics.py``) and ``run_serving``
-(``orchestrator.py``); plus the bucket ladder (``buckets.py``), the
-packets and the latency model of the sim engines. Nothing here imports the
-JAX package.
+(``orchestrator.py``), the cpu-mp engine processes
+(``process_engine.py``) and the HTTP ingress (``ingress.py``); plus the
+bucket ladder (``buckets.py``), the packets and the latency model of the
+sim engines. Nothing here imports the JAX package.
 """
 
 from deeprecsys_tpu_torch.serving.buckets import resolve_buckets

@@ -57,10 +57,27 @@ and their ``HotIndex``; it launches nothing. The swap happens on the serve
 thread: a new hot table (``index_select`` on the engine's stream), never
 a write into the live one.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP.md item:
-multi-device meshes (item 12), checkpoint reload and the cpu-mp control
-ring and payload arena (item 11b). There is no TPU layout negotiation to
-port.
+Checkpoint reload (JAX ``engine.py:65-86, :732-804``): ``request_reload``
+hands the engine a ``ReloadHandle`` from any thread; the serve thread
+applies it before the next execution it dispatches (or within 0.5 s when
+idle). On a card the new params are loaded on the serve thread, so on the
+engine's stream, and every tensor of the old params is marked with
+``record_stream``: the executions still queued on the stream keep reading
+the old tables, and the allocator reuses their memory only after them.
+Both copies live during the swap. A hot/cold engine derives its hot table
+from the new tables; its hot ids stay.
+
+A cpu-mp engine process (``process_engine.py``) runs this same engine on
+the CPU over shared-memory rings: the reload path arrives as fragments on
+its control ring and is acknowledged on the response ring
+(``RELOAD_ACK_BATCH_ID``), and a request's features arrive in, and its
+scores go back through, a blob-arena slot (JAX ``engine.py:1195-1286,
+:1501-1510``).
+
+Multi-device meshes are not ported (``NotImplementedError``, ROADMAP.md
+Queue 1 item 12). There is no TPU layout negotiation to port: a checkpoint
+is loaded against the engine's model config, which fixes every shape and
+dtype.
 """
 
 from __future__ import annotations
@@ -86,15 +103,37 @@ from deeprecsys_tpu_torch.serving.packets import (
     ERR_OVER_LADDER,
     ERR_PAYLOAD,
     ERR_READBACK,
+    ERR_RELOAD,
+    RELOAD_ACK_BATCH_ID,
     ServiceRequest,
     ServiceResponse,
 )
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 
 _SENTINEL = None
+# _hydrate's mark of a request it already answered with an error; never
+# None, which is the shutdown sentinel.
+_DROPPED = object()
 # Executions an engine keeps in flight: its pinned staging slots. The serve
 # thread waits for a free slot when all are taken.
 IN_FLIGHT = 4
+
+
+class ReloadHandle:
+    """One scheduled checkpoint swap (``ComputeEngine.request_reload``).
+    ``event`` is set once the engine applied the swap, before the next
+    request it serves, or failed it (``error``; the old params keep
+    serving). The cpu-mp ingress sets ``engine_id`` and ``gen`` so that a
+    handle of an engine process that died before its ACK can be resolved."""
+
+    __slots__ = ("path", "event", "error", "engine_id", "gen")
+
+    def __init__(self, path: str):
+        self.path = path
+        self.event = threading.Event()
+        self.error: Exception | None = None
+        self.engine_id: int | None = None
+        self.gen: int | None = None
 
 
 def pick_bucket(buckets, batch_size: int) -> int:
@@ -163,9 +202,6 @@ class ComputeEngine(threading.Thread):
         if mesh is not None:
             raise NotImplementedError("multi-device serving (mesh=) is not ported yet "
                                       "(ROADMAP.md Queue 1 item 12)")
-        if control_q is not None or arena is not None:
-            raise NotImplementedError("the cpu-mp control ring and payload arena are not "
-                                      "ported yet (ROADMAP.md Queue 1 item 11b)")
         self.engine_id = engine_id
         self.model_cfg = model_cfg
         self.serving_cfg = serving_cfg
@@ -225,6 +261,17 @@ class ComputeEngine(threading.Thread):
         self._scan_req: "queue.Queue" = queue.Queue(maxsize=1)
         self._scan_res: "queue.Queue" = queue.Queue(maxsize=1)
         self._scan_inflight = False
+        # Checkpoint reload: the pending handle, set under the lock; _stopped
+        # (under the same lock) fails any handle asked of an exited engine.
+        self._reload: ReloadHandle | None = None
+        self._reload_lock = threading.Lock()
+        self._stopped = False
+        self.last_reload_ms = None  # wall time of the last applied swap
+        # cpu-mp: the engine's reload control ring (path fragments, joined
+        # a gen at a time) and the blob arena its payloads cross.
+        self.control_q = control_q
+        self.arena = arena
+        self._reload_frags: dict[int, list] = {}
 
     # -- setup ---------------------------------------------------------
 
@@ -432,6 +479,7 @@ class ComputeEngine(threading.Thread):
             except Exception as e:  # surface engine failures instead of hanging
                 self.error = e
                 self.ready_q.put(e)
+                self._stop_and_release_reload("engine failed during setup")
                 self.response_q.put(_SENTINEL)
                 return
             self.ready_q.put(self.engine_id)
@@ -460,6 +508,7 @@ class ComputeEngine(threading.Thread):
                 self._scan_req.put_nowait(None)
             except queue.Full:
                 pass
+        self._stop_and_release_reload("engine shut down before applying the reload")
         self.response_q.put(_SENTINEL)
 
     def _sink_requests(self):
@@ -485,9 +534,142 @@ class ComputeEngine(threading.Thread):
             error_code=code,
         ))
 
-    def request_reload(self, path: str):
-        raise NotImplementedError("checkpoint reload is not ported yet (ROADMAP.md "
-                                  "Queue 1 item 11b; it needs item 9's checkpoints)")
+    # -- checkpoint reload (JAX engine.py:732-804) -------------------------
+
+    def request_reload(self, path: str) -> ReloadHandle:
+        """Schedule a swap to the checkpoint at ``path`` (the model's params
+        in the JAX package's format, ``utils/checkpoint.py``). Applied
+        before the next request this engine serves; a newer request
+        supersedes a pending one, whose handle is failed so that no waiter
+        hangs. Thread-safe."""
+        handle = ReloadHandle(path)
+        with self._reload_lock:
+            if self._stopped:
+                handle.error = RuntimeError("engine has shut down")
+                handle.event.set()
+                return handle
+            prev, self._reload = self._reload, handle
+        if prev is not None and not prev.event.is_set():
+            prev.error = RuntimeError(f"superseded by a newer reload request ({path})")
+            prev.event.set()
+        return handle
+
+    def _stop_and_release_reload(self, msg: str):
+        """Mark the engine stopped and fail a pending reload, in one locked
+        section, so that no handle is parked after the last take."""
+        with self._reload_lock:
+            self._stopped = True
+            pending, self._reload = self._reload, None
+        if pending is not None:
+            pending.error = RuntimeError(msg)
+            pending.event.set()
+
+    def _take_pending_reload(self) -> ReloadHandle | None:
+        with self._reload_lock:
+            pending, self._reload = self._reload, None
+        return pending
+
+    def _apply_reload(self, handle: ReloadHandle):
+        """Load ``handle.path`` and swap it in (serve thread, so on the
+        engine's stream): the direct model's layout (float, per-table or
+        row-wise int8) fixes the template, and a hot/cold engine adds the
+        hot table gathered from the new tables."""
+        from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params, tree_flatten
+
+        t0 = time.perf_counter()
+        try:
+            new = checkpoint_params(self.model_cfg.replace(embedding_impl="xla"),
+                                    handle.path, self.device)
+            if self._hotcold is not None:
+                new = self._hotcold.convert_params(new)
+            old, self.params = self.params, new
+            if self.device.type == "cuda":
+                # Executions queued on the stream still read the old tensors:
+                # their memory is reused only after those finish.
+                for t in tree_flatten(old):
+                    t.record_stream(self._stream)
+            del old
+            self.last_reload_ms = (time.perf_counter() - t0) * 1000.0
+        except Exception as e:
+            handle.error = e
+        finally:
+            handle.event.set()
+
+    def _poll_control(self):
+        """cpu-mp: drain the control ring, join each gen's path fragments
+        in order, apply each complete path and ACK it on the response ring
+        with the gen in ``sub_id`` (JAX ``engine.py:1195-1242``)."""
+        if self.control_q is None:
+            return
+        while True:
+            try:
+                frag = self.control_q.get_nowait()
+            except queue.Empty:
+                return
+            if frag is None:
+                continue
+            buf = self._reload_frags.setdefault(frag.gen, [])
+            if frag.seq != len(buf):
+                # A torn sequence (its sender died mid-path): drop it; a
+                # fresh seq 0 starts over.
+                print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} dropped a "
+                      f"torn reload-path sequence (gen {frag.gen}, got seq {frag.seq} "
+                      f"after {len(buf)} fragments)", flush=True)
+                self._reload_frags.pop(frag.gen, None)
+                if frag.seq != 0:
+                    continue
+                buf = self._reload_frags.setdefault(frag.gen, [])
+            buf.append(frag)
+            if len(buf) < frag.total:
+                continue
+            del self._reload_frags[frag.gen]
+            handle = ReloadHandle(b"".join(f.payload for f in buf).decode())
+            self._apply_reload(handle)
+            now = time.time()
+            failed = handle.error is not None
+            self.response_q.put(ServiceResponse(
+                consumer_id=self.engine_id, epoch=0, batch_id=RELOAD_ACK_BATCH_ID,
+                batch_size=0, arrival_time=now, queue_start_time=now, queue_end_time=now,
+                inference_end_time=now, out_batch_size=0 if failed else 1,
+                sub_id=frag.gen, total_sub_batches=1, exp_packet=True,
+                error_code=ERR_RELOAD if failed else 0))
+            if failed:
+                print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} reload of "
+                      f"{handle.path!r} failed ({handle.error!r}); previous params keep "
+                      f"serving", flush=True)
+
+    def _next_request(self):
+        """The next request, waking every 0.5 s while idle to apply a
+        pending reload (a thread engine's handle, a process engine's
+        control ring), so that an idle engine does not hold a swap back."""
+        if not isinstance(self.request_q, queue.Queue) and self.control_q is None:
+            return self.request_q.get()
+        while True:
+            try:
+                return self.request_q.get(timeout=0.5)
+            except queue.Empty:
+                self._poll_control()
+                pending = self._take_pending_reload()
+                if pending is not None:
+                    self._apply_reload(pending)
+
+    def _hydrate(self, request):
+        """cpu-mp: the features of a request that names a blob-arena slot,
+        copied out of the slot (its scores go back into it). An unreadable
+        slot is answered ERR_READBACK and gives ``_DROPPED``."""
+        if (request is _SENTINEL or self.arena is None or request.payload is not None
+                or request.payload_slot < 0):
+            return request
+        try:
+            idx, dense, mask = self.arena.read_batch(request.payload_slot)
+        except Exception as e:
+            print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} failed to read "
+                  f"payload slot {request.payload_slot} ({e!r}); answering ERR_READBACK",
+                  flush=True)
+            self._emit_error(request, ERR_READBACK, time.time())
+            return _DROPPED
+        request.payload = Batch(dense=dense, indices=idx, mask=mask)
+        return request
 
     # -- hot/cold dispatch and refresh (JAX engine.py:806-1194) ---------
 
@@ -759,10 +941,12 @@ class ComputeEngine(threading.Thread):
         done = False
         carry = None  # request drained during coalescing that didn't fit
         while not done:
-            request = carry if carry is not None else self.request_q.get()
+            request = carry if carry is not None else self._hydrate(self._next_request())
             carry = None
             if request is _SENTINEL:
                 break
+            if request is _DROPPED:
+                continue
             group = [request]
             if cfg.coalesce_requests:
                 # Dynamic batching: drain waiting requests into one bucket
@@ -780,11 +964,20 @@ class ComputeEngine(threading.Thread):
                         self.request_q.put(_SENTINEL)
                         done = True
                         break
+                    nxt = self._hydrate(nxt)
+                    if nxt is _DROPPED:
+                        continue
                     if total + nxt.batch_size > self.buckets[-1]:
                         carry = nxt
                         break
                     group.append(nxt)
                     total += nxt.batch_size
+            # A swap scheduled before any request of this group was taken
+            # applies to the whole group.
+            pending = self._take_pending_reload()
+            if pending is not None:
+                self._apply_reload(pending)
+            self._poll_control()
             queue_start = time.time()
             # Deadline admission and payload checks, before any device work.
             live = []
@@ -878,6 +1071,16 @@ class ComputeEngine(threading.Thread):
             own_scores = (scores[off:off + request.batch_size]
                           if request.payload is not None else None)
             off += request.batch_size
+            if own_scores is not None and self.arena is not None and request.payload_slot >= 0:
+                # cpu-mp: the scores go back through the request's slot,
+                # written before the response is pushed.
+                try:
+                    self.arena.write_scores(request.payload_slot, own_scores)
+                except Exception as e:
+                    print(f"[deeprecsys_tpu_torch] WARNING: engine {self.engine_id} failed "
+                          f"to write scores to slot {request.payload_slot} ({e!r})", flush=True)
+                    self._emit_error(request, ERR_READBACK, queue_start)
+                    continue
             self.response_q.put(ServiceResponse(
                 consumer_id=self.engine_id,
                 epoch=request.epoch,
@@ -969,15 +1172,19 @@ def build_engine_pool(
     params=None,
     mesh=None,
     id_base: int = 0,
+    accel_device: str = "cuda",
 ):
     """The thread engines of a ServingConfig: ``cfg.inference_engines``
     engines on the backend's device ("gpu": the card, "cpu", or "sim":
     ``SimEngine``s over ``latency_model``), plus with ``model_accel`` one
     offload engine for whole big queries (a ``SimEngine`` over
-    ``accel_latency_model`` if given, else a ``ComputeEngine`` on the card,
-    as the JAX package puts it on its accelerator). Each compute engine
-    draws its own params from ``cfg.seed + engine_id`` unless ``params`` is
-    given. Returns (engines, total_engine_count)."""
+    ``accel_latency_model`` if given, else a ``ComputeEngine`` on
+    ``accel_device``: the card unless the caller asks for the CPU, as the
+    JAX package puts it on its accelerator). Each compute engine draws its
+    own params from ``cfg.seed + engine_id`` unless ``params`` is given.
+    cpu-mp process engines are spawned apart (``process_engine.py``); this
+    builds their in-parent offload engine with ``inference_engines=0``.
+    Returns (engines, total_engine_count)."""
     from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
 
     # One ladder for the pool (autotuning samples the size distribution).
@@ -1011,7 +1218,7 @@ def build_engine_pool(
         else:
             engines.append(
                 ComputeEngine(aid, model_cfg, cfg, accel_request_q, response_q,
-                              ready_q, device="cuda", params=params,
+                              ready_q, device=accel_device, params=params,
                               seed=cfg.seed + aid, mesh=mesh, buckets=buckets,
                               strict_buckets=False))
         total += 1

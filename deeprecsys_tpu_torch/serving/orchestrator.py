@@ -19,6 +19,7 @@ measurement, and ``main.py --queue`` raises on one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue
@@ -81,34 +82,79 @@ def run_serving(
     watchdog_s: float = 60.0,
     mesh=None,
     checkpoint_path: str | None = None,
+    accel_device: str = "cuda",
 ) -> ServingResult:
     """Run the full serving stack and return measured QPS and tail latency.
 
     Engine backends (``serving_cfg.engine_backend``): "gpu", compute
     engines on the CUDA card (raises without one); "cpu", compute engines
-    on the host; "sim", ``SimEngine``s driven by ``latency_model``
-    (required). With ``model_accel`` one more engine takes whole big
-    queries: a ``SimEngine`` over ``accel_latency_model`` if given, else a
-    compute engine on the card. ``params`` (the port's tensors) are shared
-    by every compute engine; None = each draws its own from its seed, or,
-    with ``checkpoint_path``, all share the checkpoint's params, loaded once
-    onto the engines' device (with a quantized ``model_cfg``, the int8
-    bundle that ``train --export_quant`` writes).
+    on the host; "cpu-mp", CPU engine processes over shared-memory rings
+    (``process_engine.py``); "sim", ``SimEngine``s driven by
+    ``latency_model`` (required). With ``model_accel`` one more engine, in
+    this process, takes whole big queries: a ``SimEngine`` over
+    ``accel_latency_model`` if given, else a compute engine on
+    ``accel_device`` (the card unless the caller asks for the CPU).
+    ``params`` (the port's tensors) are shared by every thread compute
+    engine; None = each draws its own from its seed, or, with
+    ``checkpoint_path``, all share the checkpoint's params, loaded once onto
+    the engines' device (with a quantized ``model_cfg``, the int8 bundle
+    that ``train --export_quant`` writes). Engine processes cannot take a
+    params tree: each loads ``checkpoint_path`` itself.
     """
     cfg = serving_cfg
-    if params is None and checkpoint_path:
+    mp = cfg.engine_backend == "cpu-mp"
+    if mp and params is not None:
+        raise ValueError("cpu-mp engines cannot take a params pytree; pass "
+                         "checkpoint_path= instead (each child loads it)")
+    if params is None and checkpoint_path and (
+            not mp or (cfg.model_accel and accel_latency_model is None)):
+        # Loaded once for the thread engines; with engine processes, which
+        # load it themselves, for the in-parent offload engine alone.
         from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params
 
-        params = checkpoint_params(model_cfg, checkpoint_path,
+        params = checkpoint_params(model_cfg, checkpoint_path, accel_device if mp else
                                    "cpu" if cfg.engine_backend == "cpu" else "cuda")
-    request_q: queue.Queue = queue.Queue(maxsize=1024)
     accel_request_q: queue.Queue = queue.Queue(maxsize=32)
     pid_q: queue.Queue = queue.Queue()
-    response_q: queue.Queue = queue.Queue()
-    ready_q: queue.Queue = queue.Queue()
-    engines, total_engines = build_engine_pool(
-        model_cfg, cfg, request_q, accel_request_q, response_q, ready_q,
-        latency_model, accel_latency_model, params, mesh=mesh)
+    procs, cleanup = [], None
+    if mp:
+        from deeprecsys_tpu_torch.serving.process_engine import spawn_process_engines
+
+        request_q, response_q, ready_q, procs, cleanup, _, _ = spawn_process_engines(
+            model_cfg, cfg, checkpoint_path=checkpoint_path)
+    else:
+        request_q = queue.Queue(maxsize=1024)
+        response_q = queue.Queue()
+        ready_q = queue.Queue()
+    try:
+        return _serve(model_cfg, cfg, request_q, accel_request_q, pid_q, response_q, ready_q,
+                      procs, latency_model, accel_latency_model, params, settle_s,
+                      log_responses, watchdog_s, mesh, accel_device)
+    except BaseException:
+        for _ in procs:  # let live engine processes exit before the cleanup
+            with contextlib.suppress(TimeoutError):
+                request_q.put(None, timeout=1.0)
+        raise
+    finally:
+        if cleanup is not None:
+            cleanup()
+
+
+def _serve(model_cfg, cfg, request_q, accel_request_q, pid_q, response_q, ready_q, procs,
+           latency_model, accel_latency_model, params, settle_s, log_responses, watchdog_s,
+           mesh, accel_device) -> ServingResult:
+    if cfg.engine_backend == "cpu-mp":
+        # The processes are spawned; the pool helper builds the in-parent
+        # offload engine (if any), its id past theirs.
+        engines, extra = build_engine_pool(
+            model_cfg, dataclasses.replace(cfg, inference_engines=0), request_q,
+            accel_request_q, response_q, ready_q, latency_model, accel_latency_model,
+            params, id_base=cfg.inference_engines, accel_device=accel_device)
+        total_engines = cfg.inference_engines + extra
+    else:
+        engines, total_engines = build_engine_pool(
+            model_cfg, cfg, request_q, accel_request_q, response_q, ready_q,
+            latency_model, accel_latency_model, params, mesh=mesh, accel_device=accel_device)
     loadgen = LoadGenerator(cfg, request_q, accel_request_q, pid_q, ready_q, settle_s=settle_s)
 
     t0 = time.time()
@@ -128,8 +174,10 @@ def run_serving(
         try:
             response = response_q.get(timeout=watchdog_s)
         except queue.Empty:
-            dead = [e.name for e in engines if not e.is_alive()]
-            live_engines = any(e.is_alive() for e in engines)
+            dead = [e.name for e in engines if not e.is_alive()] + [
+                p.name for p in procs if not p.is_alive()]
+            live_engines = (any(e.is_alive() for e in engines)
+                            or any(p.is_alive() for p in procs))
             if (not loadgen.is_alive() and loadgen.error is not None
                     and shutdown_owed != (0, 0)):
                 # The load generator died before sending the sentinels, so

@@ -7,8 +7,8 @@ arrival_time, batch_size, sub_id, total_sub_batches, exp_packet);
 timestamps and the measured output batch size. ``exp_packet`` marks
 warm-up and tuning traffic, excluded from the final metrics.
 ``tests/test_torch_config.py`` holds the fields and codes equal to the
-original's. ``payload_slot`` (the cpu-mp blob-arena transport) stays unused
-until the process engines are ported.
+original's, ``tests/test_torch_runtime.py`` their 64-byte ring form
+(``runtime/shm_queue.py``).
 """
 
 from __future__ import annotations

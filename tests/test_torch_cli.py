@@ -40,13 +40,14 @@ def test_cuda_without_a_card_raises():
         main(ARGS + ["--device", "cuda"])
 
 
-@pytest.mark.parametrize("flag", [["--queue", "--engine_backend", "sim"], ["--serve"],
-                                  ["--score_output", "x"]])
+@pytest.mark.parametrize("flag", [["--queue", "--engine_backend", "sim"],
+                                  ["--serve", "--engine_backend", "sim"],
+                                  ["--enable_profiling"]])
 def test_unported_modes_raise(flag):
-    """--queue itself is ported; its sim backend waits for the card's own
-    latency ladders. --checkpoint and --table_quant are ported (quantized
-    checkpoints too: test_serves_int8_tables, tests/test_torch_quant.py);
-    offline scoring is not (item 11b)."""
+    """--queue and --serve are ported; their sim backend waits for the
+    card's own latency ladders, and profiling for item 13. --checkpoint,
+    --table_quant, --serve and --score_output are ported (test_serve_*,
+    test_score_output_equals_jax_cli)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(ARGS + ["--device", "cpu"] + flag)
 
@@ -95,9 +96,13 @@ def test_queue_warns_of_several_engines_on_the_card(capsys):
     assert "WARNING: 4 engine threads share one interpreter" in capsys.readouterr().out
 
 
-def test_queue_cpu_mp_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11b"):
-        main(QUEUE + ["--engine_backend", "cpu-mp"])
+def test_queue_cpu_mp_backend_is_not_ported(capsys):
+    """cpu-mp was once refused here; it now serves --queue through an engine
+    process, and prints the reference's report."""
+    res = main(QUEUE + ["--engine_backend", "cpu-mp", "--inference_engines", "1"])
+    report = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert report["cpu_requests"] == 12 and report["error_responses"] == 0
+    assert res.num_responses == res.cpu_sub_requests > 12 and not res.engine_errors
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "int8_rowwise"])
@@ -124,3 +129,98 @@ def test_standalone_hotcold_raises_like_jax():
         main(ARGS + ["--device", "cpu", "--embedding_impl", "hotcold"])
     res = main(ARGS + ["--device", "cpu", "--embedding_impl", "auto"])
     assert res["forwards"] == 3
+
+
+def test_serve_mode_sigterm_shutdown():
+    """--serve answers over HTTP and exits cleanly on SIGTERM (JAX
+    tests/test_cli.py::test_serve_mode_sigterm_shutdown)."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeprecsys_tpu_torch.main", "--model", "ncf",
+         "--table_scale", "2000", "--serve", "--port", "0", "--engine_backend", "cpu",
+         "--max_mini_batch_size", "8", "--sub_task_batch_size", "8"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root)
+    try:
+        port, lines, deadline = None, [], time.time() + 120
+        while time.time() < deadline:
+            line = proc.stdout.readline()
+            lines.append(line)
+            if "serving on http" in line:
+                port = int(line.split(":")[2].split(" ")[0].split("/")[0])
+                break
+            if not line and proc.poll() is not None:
+                break
+        assert port, lines[-5:]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/healthz", timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read())["engines"] == 1
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert "shutting down serving" in out and proc.returncode == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def test_serve_models_registry_and_predict():
+    """--serve_models puts several models behind one ingress; --device cpu
+    puts the --model_accel offload engine on the CPU."""
+    import urllib.request
+
+    from deeprecsys_tpu_torch import main as port_main
+
+    args = port_main.build_parser().parse_args(
+        ["--model", "ncf", "--table_scale", "2000", "--serve", "--port", "0",
+         "--serve_models", "ncf,rm1", "--engine_backend", "cpu", "--device", "cpu",
+         "--model_accel", "--accel_request_size_thres", "48", "--max_mini_batch_size", "64",
+         "--sub_task_batch_size", "16"])
+    ing = port_main.start_serve(port_main.model_config_from_args(args), args)
+    base = "http://%s:%s" % ing.address
+    try:
+        with urllib.request.urlopen(f"{base}/v1/models", timeout=30) as r:
+            models = json.loads(r.read())
+        assert set(models) == {"ncf", "rm1"} and models["rm1"]["engines"] == 2
+        req = urllib.request.Request(f"{base}/v1/models/rm1/infer",
+                                     data=json.dumps({"batch_size": 50}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            out = json.loads(r.read())
+        assert out["accel"] and out["engines"] == [1]
+    finally:
+        ing.stop()
+
+
+@pytest.mark.parametrize("nepochs", ["1", "0"])
+def test_score_output_equals_jax_cli(tmp_path, nepochs):
+    """--score_output writes the last epoch's scores (f32): the JAX CLI's
+    npz for the same checkpoint and batches (rtol and atol 1e-5), also with
+    --nepochs 0."""
+    import numpy as np
+
+    from deeprecsys_tpu.main import main as jax_main
+    from deeprecsys_tpu_torch import bridge, zoo
+    from deeprecsys_tpu_torch.utils.checkpoint import save_params
+
+    save_params(tmp_path / "ckpt", bridge.init_numpy(zoo.get_config("rm1", table_scale=2000),
+                                                     99))
+    argv = ["--model", "rm1", "--table_scale", "2000", "--num_batches", "3",
+            "--mini_batch_size", "4", "--nepochs", nepochs, "--checkpoint",
+            str(tmp_path / "ckpt")]
+    res = main(argv + ["--device", "cpu", "--score_output", str(tmp_path / "port.npz")])
+    assert res["forwards"] == 4  # the warm-up and three batches
+    jax_main(argv + ["--score_output", str(tmp_path / "jax.npz")])
+    with np.load(tmp_path / "port.npz") as got, np.load(tmp_path / "jax.npz") as want:
+        assert got["scores"].dtype == np.float32 and got["scores"].shape == (12, 1)
+        np.testing.assert_allclose(got["scores"], want["scores"], rtol=1e-5, atol=1e-5)
+
+
+def test_score_output_on_the_card_raises_without_one(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        main(ARGS + ["--score_output", str(tmp_path / "s.npz")])

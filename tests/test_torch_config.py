@@ -83,13 +83,10 @@ def test_dataclass_fields_and_defaults_equal_jax():
 
 
 def test_engine_backend_is_the_one_stated_difference():
-    """The port serves on "gpu", "cpu" or "sim"; "cpu-mp" is not ported
-    yet and says where it will be; "tpu" is refused. The JAX package takes
-    "tpu", "cpu", "cpu-mp" and "sim"."""
-    for backend in ("gpu", "cpu", "sim"):
+    """The port serves on "gpu", "cpu", "cpu-mp" or "sim"; "tpu" is
+    refused. The JAX package takes "tpu", "cpu", "cpu-mp" and "sim"."""
+    for backend in ("gpu", "cpu", "cpu-mp", "sim"):
         assert config.ServingConfig(engine_backend=backend).engine_backend == backend
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11b"):
-        config.ServingConfig(engine_backend="cpu-mp")
     with pytest.raises(ValueError, match="port serves on 'gpu'"):
         config.ServingConfig(engine_backend="tpu")
     for backend in ("tpu", "cpu", "cpu-mp", "sim"):

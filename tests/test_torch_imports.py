@@ -29,12 +29,15 @@ MODULES = [
     "deeprecsys_tpu_torch.experiments.sweep_build",
     "deeprecsys_tpu_torch.runtime",
     "deeprecsys_tpu_torch.runtime.native",
+    "deeprecsys_tpu_torch.runtime.shm_queue",
+    "deeprecsys_tpu_torch.runtime.blob_arena",
     "deeprecsys_tpu_torch.utils.memory",
     "deeprecsys_tpu_torch.models.hotcold",
     "deeprecsys_tpu_torch.ops.hotcold",
     "deeprecsys_tpu_torch.data",
     "deeprecsys_tpu_torch.data.generator",
     "deeprecsys_tpu_torch.data.criteo",
+    "deeprecsys_tpu_torch.data.ragged",
     "deeprecsys_tpu_torch.models",
     "deeprecsys_tpu_torch.models.base",
     "deeprecsys_tpu_torch.models.dlrm",
@@ -56,6 +59,8 @@ MODULES = [
     "deeprecsys_tpu_torch.serving",
     "deeprecsys_tpu_torch.serving.buckets",
     "deeprecsys_tpu_torch.serving.engine",
+    "deeprecsys_tpu_torch.serving.ingress",
+    "deeprecsys_tpu_torch.serving.process_engine",
     "deeprecsys_tpu_torch.serving.latency_model",
     "deeprecsys_tpu_torch.serving.load_generator",
     "deeprecsys_tpu_torch.serving.metrics",

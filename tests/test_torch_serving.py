@@ -335,19 +335,26 @@ def test_gpu_engine_raises_without_a_card():
 
 @pytest.mark.parametrize("what,kw", [("mesh", {"mesh": object()}), ("arena", {"arena": object()})])
 def test_engine_paths_not_ported_raise(what, kw):
+    """A mesh is still refused (ROADMAP.md Queue 1 item 12). The cpu-mp
+    arena and control ring, once refused here too, are taken
+    (tests/test_torch_process_engines.py serves through them)."""
     cfg = zoo.get_config("ncf", table_scale=SCALE)
     scfg = ServingConfig(engine_backend="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        engine.ComputeEngine(0, cfg, scfg, *(queue.Queue() for _ in range(3)),
-                             device="cpu", **kw)
+    qs = [queue.Queue() for _ in range(3)]
+    if what == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+            engine.ComputeEngine(0, cfg, scfg, *qs, device="cpu", **kw)
+    else:
+        eng = engine.ComputeEngine(0, cfg, scfg, *qs, device="cpu", control_q=qs[0], **kw)
+        assert eng.arena is kw["arena"] and eng.control_q is qs[0]
 
 
 @pytest.mark.parametrize("what", ["hotcold", "refresh"])
 def test_engine_hotcold_paths_serve(what):
     """The two paths the port once refused: a hot/cold engine, and one with
     refresh tracking, serve load-modeling requests (JAX
-    tests/test_serving.py:554) and keep checkpoint reload refused (item
-    11b)."""
+    tests/test_serving.py:554). Checkpoint reload, once refused as well, is
+    ported: a reload of an exited engine fails its handle at once."""
     cfg = zoo.get_config("ncf", table_scale=SCALE, embedding_impl="hotcold", hot_set_rows=32)
     scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8, 16), max_mini_batch_size=16,
                          hotcold_refresh_interval=4 if what == "refresh" else 0)
@@ -362,8 +369,80 @@ def test_engine_hotcold_paths_serve(what):
     # tracking the direct lookup's too.
     rungs = sum(len(engine.cold_buckets_for(b * cfg.num_tables)) for b in (8, 16))
     assert eng.warmup_executions == rungs + (2 if what == "refresh" else 0)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        eng.request_reload("x")
+    h = eng.request_reload("x")
+    assert h.event.is_set() and "shut down" in str(h.error)
+
+
+@pytest.mark.parametrize("impl,quant", [("xla", "none"), ("hotcold", "none"),
+                                        ("xla", "int8_rowwise"), ("hotcold", "int8")])
+def test_engine_reload_swaps_to_the_checkpoint(tmp_path, impl, quant):
+    """request_reload from another thread: the engine applies the swap
+    before its next request, whose scores are then the JAX model's on the
+    checkpoint (f32, the table layout of the config); a hot/cold engine
+    gathers its hot table from the new tables with the same hot ids."""
+    from deeprecsys_tpu.models import get_model as jax_get_model
+    from deeprecsys_tpu_torch.utils.checkpoint import save_params
+
+    port_cfg, jax_cfg = (c.replace(table_quant=quant) for c in _configs("rm1", PARITY_SCALE))
+    direct = port_cfg
+    port_cfg = port_cfg.replace(embedding_impl=impl, hot_set_rows=32)
+    old, new = bridge.init_numpy(direct, 1), bridge.init_numpy(direct, 2)
+    save_params(tmp_path / "ckpt.new", new)
+    dense, idx, _ = _payload_rows(direct, 8, 3)
+    scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8)
+    req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+    eng = engine.ComputeEngine(0, port_cfg, scfg, req_q, resp_q, ready_q, device="cpu",
+                               params=bridge.params_from_numpy(old, direct, "cpu"))
+    eng.start()
+    assert not isinstance(ready_q.get(timeout=300), Exception)
+    hot_ids = None if eng._hotcold is None else np.asarray(eng._hotcold.hot_ids)
+    assert (hot_ids is not None) == (impl == "hotcold")
+    got = []
+    try:
+        for i in range(2):
+            if i == 1:
+                h = eng.request_reload(str(tmp_path / "ckpt.new"))
+            req_q.put(packets.ServiceRequest(batch_id=i, batch_size=8, arrival_time=time.time(),
+                                             payload=Batch(dense=dense, indices=idx)))
+            got.append(resp_q.get(timeout=120))
+        assert h.event.wait(timeout=60) and h.error is None and eng.last_reload_ms > 0
+    finally:
+        req_q.put(None)
+        eng.join(timeout=120)
+    model = jax_get_model(jax_cfg)
+    for r, weights in zip(got, (old, new)):
+        want = np.asarray(model.apply(jax.tree_util.tree_map(jax.numpy.asarray, weights),
+                                      JaxBatch(dense=dense, indices=idx)), np.float32)
+        assert r.error_code == 0
+        np.testing.assert_allclose(r.scores, want, rtol=RTOL, atol=ATOL)
+    if hot_ids is not None:
+        assert np.array_equal(np.asarray(eng._hotcold.hot_ids), hot_ids)
+        tables = eng.params["tables"]
+        rows = tables if not isinstance(tables, dict) else (
+            tables["qrows"] if "qrows" in tables else tables["q"])
+        assert torch.equal(eng.params["hot_table"], rows[torch.as_tensor(hot_ids)])
+
+
+def test_engine_reload_failure_keeps_serving_and_newest_wins(tmp_path):
+    """A missing checkpoint fails its handle and the old params serve on; a
+    newer request supersedes a pending one, whose handle fails at once."""
+    cfg = zoo.get_config("ncf", table_scale=PARITY_SCALE)
+    scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8)
+    qs = [queue.Queue() for _ in range(3)]
+    eng = engine.ComputeEngine(0, cfg, scfg, *qs, device="cpu")
+    first = eng.request_reload(str(tmp_path / "a"))
+    second = eng.request_reload(str(tmp_path / "missing"))
+    assert first.event.is_set() and "superseded" in str(first.error)
+    eng.start()
+    assert not isinstance(qs[2].get(timeout=300), Exception)
+    try:
+        assert second.event.wait(timeout=30)  # the idle engine applies it within 0.5 s
+        assert isinstance(second.error, FileNotFoundError) and eng.last_reload_ms is None
+        qs[0].put(packets.ServiceRequest(batch_id=0, batch_size=4, arrival_time=time.time()))
+        assert qs[1].get(timeout=60).error_code == 0
+    finally:
+        qs[0].put(None)
+        eng.join(timeout=60)
 
 
 # ------------------------------------------------------------ run_serving
