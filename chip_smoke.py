@@ -79,6 +79,21 @@ size, and a 4 GB ``.npz`` a run is not worth the time), and the trainer's
 over rm1's dense params) and each training step's wall, device time, idle
 share and peak memory.
 
+Then the data modes and the experiments (phase 15), each path read around
+itself: rm1 standalone on stack-distance trace ids (``data/trace.py``'s
+``sd_cumm`` of a zipf stream, ``--data_generation synthetic``) with K1 held
+to its plain version on them and timed beside phase 7's uniform ids;
+``--model criteo --data_generation dataset --score_output`` on a Criteo TSV
+(26 tables x 1 M x 32), one score a file row, K1 at L = 1 held to its
+plain version; rm1's latency ladder swept on the card
+(``experiments/sweep.py``) into a temporary ``gpu_rm1.json`` and
+``--queue --engine_backend sim`` over it at the canonical point, its p95
+beside phase 6's real engine; ``--enable_profiling`` (its trace lists K1)
+and ``experiments/op_breakdown.py`` for rm1 and dien; ``train_planted``
+(``experiments/train_quality.py``, sparse tables) on rm1 at full size with
+its holdout AUC beside the Bayes ceiling; and ``experiments/qps_sweep.py``
+on the card for rm1's latency-bounded QPS.
+
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
 at once. It imports no JAX and nothing of the JAX package: only
@@ -96,6 +111,7 @@ import json
 import queue
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -109,9 +125,12 @@ from deeprecsys_tpu_torch import ServingConfig, bridge, zoo
 from deeprecsys_tpu_torch import main as port_main
 from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
+from deeprecsys_tpu_torch.data import trace as trace_mod
 from deeprecsys_tpu_torch.data.ragged import pad_csr
 from deeprecsys_tpu_torch.experiments.skew_bench import measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
+from deeprecsys_tpu_torch.experiments import op_breakdown, qps_sweep, train_quality
+from deeprecsys_tpu_torch.experiments import sweep as sweep_mod
 from deeprecsys_tpu_torch.kernel_bench import (
     HBM_BYTES_PER_S, cold_starts_bound, direct_call, g_rows, hotcold_calls, hotcold_inputs,
     k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
@@ -135,7 +154,8 @@ from deeprecsys_tpu_torch.ops.embedding import (
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.runtime.native import native_available
-from deeprecsys_tpu_torch.serving import ServiceRequest, orchestrator, run_serving
+from deeprecsys_tpu_torch.serving import ServiceRequest, latency_model, orchestrator, run_serving
+from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
 from deeprecsys_tpu_torch.serving.engine import ComputeEngine
 from deeprecsys_tpu_torch.serving.ingress import HttpIngress, ServingServer
 from deeprecsys_tpu_torch.serving.load_generator import model_batch_sizes
@@ -273,6 +293,25 @@ FABRIC_CLIENTS = 2
 FABRIC_MP_SCALE = 10
 FABRIC_MP_QUERIES = 100
 FABRIC_ACCEL_THRES = 175
+# Phase 15, the data modes and the experiments: the stack-distance
+# distribution profiled from a zipf stream (its profile is quadratic in the
+# stack, so a few ten thousand samples), the standalone runs' batches, the
+# Criteo file's rows (whole batches: one score a row), op_breakdown's
+# batches, train_planted at the JAX defaults (600 steps of 512, lr 0.01,
+# table_lr 1e-3), and qps_sweep's arrival rates (ms) on one engine at the
+# JAX CLI's sub-batch.
+TRACE_LINES = 20_000
+TRACE_SAMPLES = 20_000
+TRACE_ALPHA = 1.05
+DATA_BATCHES = 4
+CRITEO_ROWS = 4096
+OP_BATCHES = (1, 16, 256)
+QUALITY_STEPS = 600
+QUALITY_BATCH = 512
+QPS_SLA_MS = 25.0
+QPS_ARRIVALS = (4.0, 2.0, 1.4, 1.0)
+QPS_QUERIES = 300
+QPS_SUB_BATCH = 256
 
 
 def _log(msg: str):
@@ -576,11 +615,12 @@ def phase_kernel(device) -> dict:
 def rnn_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int) -> dict:
     """Random inputs of K3 at (T, B, 64): xproj ~ N(0, 1), W with the
     1/sqrt(H) init, a nonzero bias, seq_lengths in [0, T] (0 and T among
-    them) and an initial state."""
+    them where B >= 2) and an initial state."""
     g = torch.Generator(device=device).manual_seed(seed)
     H = KERNEL_HIDDEN
     lens = torch.randint(0, T + 1, (B,), generator=g, device=device, dtype=torch.int32)
-    lens[:2] = torch.tensor([0, T], dtype=torch.int32)
+    if B >= 2:
+        lens[:2] = torch.tensor([0, T], dtype=torch.int32)
     return {
         "xproj": torch.randn((T, B, H), generator=g, device=device),
         "h2h_w": (torch.randn((H, H), generator=g, device=device) / H ** 0.5).to(dtype),
@@ -2594,6 +2634,369 @@ def phase_fabric(device, fwd: dict, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
+# ------------------------------------------- phase 15: data modes, experiments
+
+def _count_path(what: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the launch counts set to 0 just before
+    and read just after; returns (its result, the counts)."""
+    _reset_counts()
+    out = fn(*args, **kwargs)
+    counts = _counts()
+    _log(f"[15 data] {what}: launches {dict((k, v) for k, v in counts.items() if v)}")
+    return out, counts
+
+
+def _k1_cases(device, name: str, batch_sizes, what: str, param_dtype: str = "bfloat16",
+              ids=None) -> float:
+    """K1 held to its plain version on zoo model ``name``'s full-size
+    table at each batch size of ``batch_sizes``, on the generator's ids
+    (or on ``ids(cfg, b)``, a host (b, T, L) array). Returns the max
+    |error|."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE, param_dtype=param_dtype,
+                         compute_dtype=param_dtype)
+    table = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))["tables"]
+    offsets, cdt = table_offsets(cfg, device), table.dtype
+    gen = RecDataGenerator(cfg, seed=3)
+    err = 0.0
+    with torch.inference_mode():
+        for b in batch_sizes:
+            idx = (gen.generate_batch(b).indices if ids is None else ids(cfg, b))
+            idx = torch.as_tensor(np.asarray(idx), device=device)
+            got = embedding_bag(table, offsets, idx, compute_dtype=cdt)
+            want = embedding_bag_reference(table, offsets, idx, compute_dtype=cdt)
+            err = max(err, _check_pooled(got, want, table, offsets, idx, None,
+                                         f"{name} {param_dtype} batch {b}, {what}"))
+    _log(f"[15 data] K1 ok on {name} {param_dtype} at batches {tuple(batch_sizes)} ({what}): "
+         f"max |K1 - plain| {err:.3e}")
+    del table
+    _free(device)
+    return err
+
+
+def data_synthetic(device, work: Path, k1_uniform: dict, card: str) -> tuple[dict, dict]:
+    """rm1 (bf16, full size) on stack-distance trace ids: a two-line
+    ``sd_cumm`` written by ``data/trace.py profile`` from
+    ``synthesize_zipf_distribution``, ``main.py --data_generation synthetic``
+    standalone, the generator's host ms a batch, K1 on the trace ids held to
+    its plain version and timed beside phase 7's uniform ids, the forward's
+    wall."""
+    dist = work / "sd_cumm"
+    t0 = time.perf_counter()
+    trace_mod.main(["profile", "--zipf-lines", str(TRACE_LINES), "--zipf-alpha",
+                    str(TRACE_ALPHA), "--samples", str(TRACE_SAMPLES), "--format", "2line",
+                    "--out", str(dist)])
+    _log(f"[15 data] profiled a zipf({TRACE_ALPHA}) stream into {dist.name} in "
+         f"{time.perf_counter() - t0:.2f} s")
+    res, counts = _count_path("main.py --data_generation synthetic", port_main.main, [
+        "--model", "rm1", "--param_dtype", "bfloat16", "--table_scale", str(TABLE_SCALE),
+        "--data_generation", "synthetic", "--synthetic_data_trace_file", str(dist),
+        "--mini_batch_size", str(BATCH), "--num_batches", str(DATA_BATCHES),
+        "--device", str(device)])
+    if counts != _want(embedding_bag=res["forwards"]):
+        raise AssertionError(f"synthetic standalone: launches {counts}, expected K1 "
+                             f"{res['forwards']}")
+    for out in res["outputs"]:
+        _check_scores(out, (BATCH, 1), True, "synthetic standalone")
+
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    gen = RecDataGenerator(cfg, seed=1, data_generation="synthetic", trace_file=str(dist))
+    t0 = time.perf_counter()
+    hosts = [gen.generate_batch(BATCH)]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hosts += [gen.generate_batch(BATCH) for _ in range(7)]
+    batch_ms = (time.perf_counter() - t0) * 1e3 / 7
+    model = get_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    table, offsets = params["tables"], table_offsets(cfg, device)
+    batches = [h.to(device) for h in hosts]
+    distinct = len(np.unique(hosts[0].indices.astype(np.int64)
+                             + np.asarray(cfg.table_offsets)[None, :, None]))
+    with torch.inference_mode():
+        got = embedding_bag(table, offsets, batches[0].indices, compute_dtype=torch.bfloat16)
+        want = embedding_bag_reference(table, offsets, batches[0].indices,
+                                       compute_dtype=torch.bfloat16)
+        err = _check_pooled(got, want, table, offsets, batches[0].indices, None,
+                            "rm1 trace ids")
+        runs = _k1_runs(table, offsets, batches, torch.bfloat16)
+        fwd = measure(model.apply, [(params, b) for b in batches], TIMED_ITERS)
+    k1 = _k1_summary(runs, batches, table, offsets)
+    _log(f"[15 data] generator, synthetic rm1 batch {BATCH}: first batch {first_ms:.1f} ms "
+         f"(each table's line state made), then {batch_ms:.1f} ms a batch on the host; "
+         f"{distinct} distinct rows of {BATCH * cfg.num_tables * cfg.num_indices_per_lookup} "
+         f"lookups in a batch")
+    _log(f"[15 data] {_k1_line(k1, 'rm1 trace ids', card)}")
+    _log(f"[15 data] K1 rm1 bf16 batch {BATCH}: trace ids {k1['ms'] * 1e3:.2f} us against "
+         f"uniform ids (phase 7) {k1_uniform['ms'] * 1e3:.2f} us; max |K1 - plain| {err:.3e}; "
+         f"forward wall on trace ids {fwd['wall_ms']:.4f} ms (device "
+         f"{_us(fwd['device_ms'])}) [{card}]")
+    del params, table, batches, runs
+    _free(device)
+    return {"host_first_ms": first_ms, "host_batch_ms": batch_ms, "k1": k1,
+            "errs": {"embedding_bag": err},
+            "k1_uniform_ms": k1_uniform["ms"], "fwd_wall_ms": fwd["wall_ms"],
+            "fwd_device_ms": fwd["device_ms"], "distinct_rows": distinct}, counts
+
+
+def data_criteo(device, work: Path, card: str) -> tuple[dict, dict]:
+    """``--model criteo`` (26 tables x 1 M x 32, bf16) on a Criteo TSV of
+    CRITEO_ROWS rows through ``main.py --data_generation dataset
+    --score_output``: one finite score a row of the file; K1 at L = 1 held
+    to its plain version; the forward timed."""
+    from deeprecsys_tpu_torch.data.criteo import criteo_model_config, write_synthetic_criteo
+
+    tsv, scores = work / "criteo.tsv", work / "criteo_scores.npz"
+    write_synthetic_criteo(tsv, num_rows=CRITEO_ROWS, seed=0)
+    res, counts = _count_path("main.py --model criteo --data_generation dataset",
+                              port_main.main, [
+        "--model", "criteo", "--param_dtype", "bfloat16", "--table_scale", str(TABLE_SCALE),
+        "--data_generation", "dataset", "--raw_data_file", str(tsv),
+        "--mini_batch_size", str(BATCH), "--num_batches", str(CRITEO_ROWS // BATCH),
+        "--device", str(device), "--score_output", str(scores)])
+    if counts != _want(embedding_bag=res["forwards"]):
+        raise AssertionError(f"criteo standalone: launches {counts}, expected K1 "
+                             f"{res['forwards']}")
+    with np.load(scores) as f:
+        s = f["scores"]
+    if s.shape != (CRITEO_ROWS, 1) or not np.isfinite(s).all() or not ((s >= 0) & (s <= 1)).all():
+        raise AssertionError(f"criteo scores: shape {s.shape}, want ({CRITEO_ROWS}, 1) finite "
+                             "in [0, 1]")
+    cfg = criteo_model_config().replace(table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                                        compute_dtype="bfloat16")
+    model = get_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    table, offsets = params["tables"], table_offsets(cfg, device)
+    gen = RecDataGenerator(cfg, data_generation="dataset", raw_data_file=str(tsv))
+    batches = [gen.generate_batch(BATCH).to(device) for _ in range(CRITEO_ROWS // BATCH)]
+    with torch.inference_mode():
+        err = 0.0
+        for b in batches:
+            got = embedding_bag(table, offsets, b.indices, compute_dtype=torch.bfloat16)
+            want = embedding_bag_reference(table, offsets, b.indices,
+                                           compute_dtype=torch.bfloat16)
+            err = max(err, _check_pooled(got, want, table, offsets, b.indices, None,
+                                         "criteo L = 1"))
+        runs = _k1_runs(table, offsets, batches, torch.bfloat16)
+        fwd = measure(model.apply, [(params, b) for b in batches], TIMED_ITERS)
+    k1 = _k1_summary(runs, batches, table, offsets)
+    _log(f"[15 data] criteo: {s.shape[0]} scores for {CRITEO_ROWS} file rows, finite in "
+         f"[0, 1]; table {_table_bytes(table) / 1e9:.3f} GB; data loading "
+         f"{res['load_ms']:.1f} ms for {CRITEO_ROWS} rows; max |K1 - plain| at L = 1 "
+         f"{err:.3e}")
+    _log(f"[15 data] {_k1_line(k1, 'criteo', card)}")
+    _log(f"[15 data] criteo forward bf16 batch {BATCH}: wall {fwd['wall_ms']:.4f} ms (device "
+         f"{_us(fwd['device_ms'])}); by kernel {_top(fwd)} [{card}]")
+    del params, table, batches, runs
+    _free(device)
+    return {"k1": k1, "errs": {"embedding_bag": err}, "fwd_wall_ms": fwd["wall_ms"],
+            "fwd_device_ms": fwd["device_ms"], "rows": int(s.shape[0])}, counts
+
+
+def data_ladder_sim(device, work: Path, real_p95_ms: float, card: str) -> tuple[dict, dict]:
+    """rm1's ladder (bf16, full size) swept on the card in this process into
+    a temporary ``gpu_rm1.json``, and by ``experiments/sweep.py`` in a
+    fresh process into another; then ``main.py --queue --engine_backend
+    sim`` at the canonical point over each, its p95 beside the real
+    engine's (phase 6)."""
+    ladder, counts = _count_path("experiments/sweep.py rm1", sweep_mod.sweep_model, "rm1",
+                                 device, sweep_mod.DEFAULT_BATCHES, TABLE_SCALE, "bfloat16")
+    if counts["embedding_bag"] == 0:
+        raise AssertionError("the ladder's sweep never launched K1")
+    (work / "gpu_rm1.json").write_text(json.dumps(sweep_mod.ladder_json(ladder)))
+    _free(device)
+    fresh = work / "fresh"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "deeprecsys_tpu_torch.experiments.sweep", "--models",
+                    "rm1", "--table-scale", str(TABLE_SCALE), "--device", str(device),
+                    "--out-dir", str(fresh)], cwd=ROOT, check=True, timeout=600,
+                   capture_output=True, text=True)
+    fresh_ladder = json.loads((fresh / "gpu_rm1.json").read_text())
+    for what, lad in ((f"this process ({threading.active_count()} threads alive)", ladder),
+                      (f"a fresh process ({time.perf_counter() - t0:.1f} s)", fresh_ladder)):
+        _log(f"[15 data] rm1 ladder in {what}, bf16, table_scale {TABLE_SCALE}, ms a "
+             "forward: " + ", ".join(f"{b}: {ms:.4f}" for b, ms in
+                                     zip(lad["batch_sizes"], lad["latencies_ms"]))
+             + f" ({lad['device']}, {lad['power_limit']}) [{card}]")
+    point = ["--batch_size_distribution", "normal", "--avg_mini_batch_size",
+             str(SERVING_POINT["avg_mini_batch_size"]), "--var_mini_batch_size",
+             str(SERVING_POINT["var_mini_batch_size"]), "--max_mini_batch_size",
+             str(SERVING_POINT["max_mini_batch_size"]), "--sub_task_batch_size",
+             str(SERVING_POINT["sub_task_batch_size"]), "--avg_arrival_rate",
+             str(SERVING_POINT["avg_arrival_rate_ms"])]
+    out = {"ladder": ladder, "fresh_ladder": fresh_ladder, "real_p95_ms": real_p95_ms,
+           "errs": {"embedding_bag": _k1_cases(device, "rm1", sweep_mod.DEFAULT_BATCHES,
+                                               "the ladder's ids")}}
+    saved = latency_model.CHAR_DIR
+    for key, char_dir in (("sim", work), ("sim_fresh", fresh)):
+        latency_model.CHAR_DIR = char_dir
+        try:
+            res, sim_counts = _count_path(
+                f"main.py --queue --engine_backend sim ({char_dir.name})", port_main.main, [
+                    "--model", "rm1", "--param_dtype", "bfloat16", "--table_scale",
+                    str(TABLE_SCALE), "--queue", "--engine_backend", "sim", "--num_batches",
+                    str(SERVE_QUERIES)] + point)
+        finally:
+            latency_model.CHAR_DIR = saved
+        if any(sim_counts.values()) or res.error_responses or res.engine_errors:
+            raise AssertionError(f"sim serving launched {sim_counts} or failed "
+                                 f"({res.error_responses} errors, {res.engine_errors})")
+        out[f"{key}_p95_ms"], out[f"{key}_p50_ms"] = res.p95_ms, res.p50_ms
+        _log(f"[15 data] rm1 at the canonical point, 1 engine: sim over "
+             f"{char_dir.name}/gpu_rm1.json p95 {res.p95_ms:.3f} ms (p50 {res.p50_ms:.3f}, QPS "
+             f"{res.measured_qps:.2f}) against the real engine's p95 {real_p95_ms:.3f} ms "
+             f"(phase 6) [{card}]")
+    return out, counts
+
+
+def data_profiling(device, work: Path, card: str) -> tuple[dict, dict]:
+    """``main.py --enable_profiling`` (its trace lists K1), then
+    ``op_breakdown`` of rm1 and dien at OP_BATCHES."""
+    res, counts = _count_path("main.py --enable_profiling", port_main.main, [
+        "--model", "rm1", "--param_dtype", "bfloat16", "--table_scale", str(TABLE_SCALE),
+        "--mini_batch_size", str(BATCH), "--num_batches", str(DATA_BATCHES),
+        "--device", str(device), "--enable_profiling", "--profile_dir", str(work / "prof")])
+    trace_file = Path(res["profile_trace"])
+    if counts != _want(embedding_bag=res["forwards"]) or (
+            "embedding_bag_kernel" not in trace_file.read_text()):
+        raise AssertionError(f"profiled standalone: launches {counts}, or {trace_file.name} "
+                             "lists no K1")
+    _log(f"[15 data] profiled standalone: {trace_file.name}, "
+         f"{trace_file.stat().st_size / 1e6:.2f} MB, lists K1")
+    rows = []
+    total = _want()
+    for name in ("rm1", "dien"):
+        for b in OP_BATCHES:
+            r, c = _count_path(f"op_breakdown {name} batch {b}", op_breakdown.breakdown_for,
+                               name, b, TABLE_SCALE, "bfloat16", device)
+            _add(total, c)
+            rows.append(r)
+            top = sorted(r.get("kernel_device_us", {}).items(), key=lambda kv: -kv[1])[:4]
+            _log(f"[15 data] op breakdown {name} bf16 batch {b}, us by stage: "
+                 + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in r["stage_ms"].items())
+                 + f"; one forward's device {_us(r.get('device_ms'))}, wall "
+                 + f"{_us(r.get('wall_ms'))}; by kernel "
+                 + "; ".join(f"{k[:40]} {v:.2f} us" for k, v in top) + f" [{card}]")
+            _free(device)
+    if total["embedding_bag"] == 0 or total["rnn_scan"] == 0:
+        raise AssertionError(f"op_breakdown never launched K1 or K3: {total}")
+    _add(total, counts)
+    errs = {"embedding_bag": max(_k1_cases(device, name, OP_BATCHES, "op_breakdown's ids")
+                                 for name in ("rm1", "dien")),
+            "rnn_scan": max(rnn_cases(device, DIEN_T, b) for b in OP_BATCHES)}
+    _log(f"[15 data] K3 ok at T={DIEN_T} B={OP_BATCHES} H={KERNEL_HIDDEN} (f32 and bf16, "
+         f"with and without seq_lengths and h0): max |K3 - plain| {errs['rnn_scan']:.3e}")
+    return {"breakdown": rows, "trace": trace_file.name, "errs": errs}, total
+
+
+def k5_zipf_case(device, cfg, learning_rate: float) -> float:
+    """K5 held to its plain version within its tolerance at
+    ``train_planted``'s shape: an f32 table of ``cfg``'s size, one batch of
+    QUALITY_BATCH zipf(1.2) ids (its head row in ~19% of the lookups).
+    Returns the max |error|."""
+    offsets = table_offsets(cfg, device)
+    ids = torch.as_tensor(train_quality.zipf_batch(cfg, QUALITY_BATCH, np.random.default_rng(7)),
+                          device=device)
+    g = torch.Generator(device=device).manual_seed(9)
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    grad = torch.randn((QUALITY_BATCH, cfg.num_tables, d), generator=g, device=device) * 1e-2
+    table0 = (torch.rand((R, d), generator=g, device=device) - 0.5) * 0.1
+    acc0 = torch.rand((R,), generator=g, device=device) * 1e-4
+    table, acc = table0.clone(), acc0.clone()
+    sparse_adagrad_step(table, acc, offsets, ids, grad, learning_rate)
+    synchronize(device)
+    want_t, want_a = table0.clone(), acc0.clone()
+    sparse_adagrad_step_reference(want_t, want_a, offsets, ids, grad, learning_rate)
+    tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, ids, grad, learning_rate)
+    del table0, acc0
+    err, acc_err = (table - want_t).abs(), (acc - want_a).abs()
+    what = f"rm1 f32 R={R} d={d} B={QUALITY_BATCH}, zipf(1.2) ids, lr {learning_rate}"
+    if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
+        raise AssertionError(f"K5 disagrees with its plain version ({what}): max |err| "
+                             f"table {err.max().item():.3e}, acc {acc_err.max().item():.3e}")
+    worst = max(err.max().item(), acc_err.max().item())
+    _log(f"[15 data] K5 ok {what}: max |err| table {err.max().item():.3e}, accumulator "
+         f"{acc_err.max().item():.3e}")
+    del table, acc, want_t, want_a, tol, acc_tol, err, acc_err
+    _free(device)
+    return worst
+
+
+def data_train_qps(device, card: str) -> tuple[dict, dict]:
+    """``train_planted`` on rm1 at full size (sparse tables, the JAX
+    defaults), its holdout AUC against Bayes and its steps a second; then
+    ``qps_sweep`` on ``gpu`` for rm1 over QPS_ARRIVALS."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
+    (tr, rep), counts = _count_path("train_planted rm1", train_quality.train_planted, cfg,
+                                    steps=QUALITY_STEPS, batch=QUALITY_BATCH,
+                                    eval_every=QUALITY_STEPS // 4, log=lambda *a: None,
+                                    device=str(device))
+    for key in ("embedding_bag", "sparse_adagrad_step", "optimizer_update"):
+        if counts[key] == 0:
+            raise AssertionError(f"train_planted never launched {key}")
+    if not rep["final_auc"] > 0.5:
+        raise AssertionError(f"train_planted did not learn: {rep}")
+    _log(f"[15 data] train_planted rm1 f32 table_scale {TABLE_SCALE}, sparse tables, "
+         f"{rep['steps']} steps of "
+         f"{rep['batch']}, lr {rep['lr']}, table_lr {rep['table_lr']}: holdout AUC "
+         f"{rep['final_auc']:.4f} against Bayes {rep['bayes_auc']:.4f} (curve "
+         + ", ".join(f"{p['step']}: {p['auc']:.4f}" for p in rep["auc_curve"])
+         + f"); loss {rep['loss_first8']:.4f} -> {rep['loss_last8']:.4f}; "
+         f"{rep['steps_per_s']:.2f} steps/s (host batches, step, loss read) [{card}]")
+    del tr
+    _free(device)
+    errs = {"sparse_adagrad_step": k5_zipf_case(device, cfg, rep["table_lr"]),
+            "embedding_bag": _k1_cases(
+                device, "rm1", (QUALITY_BATCH,), "train_planted's zipf ids", "float32",
+                ids=lambda c, b: train_quality.zipf_batch(c, b, np.random.default_rng(7)))}
+    qps, qcounts = _count_path("qps_sweep rm1", qps_sweep.sweep, "rm1", _backend(device), QPS_SLA_MS,
+                               QPS_ARRIVALS, 1, QPS_QUERIES, TABLE_SCALE, QPS_SUB_BATCH)
+    if qcounts["embedding_bag"] == 0:
+        raise AssertionError("qps_sweep never launched K1")
+    _add(counts, qcounts)
+    scfg = qps_sweep.serving_config(_backend(device), QPS_SLA_MS, QPS_ARRIVALS[0], 1,
+                                    QPS_QUERIES, QPS_SUB_BATCH)
+    buckets = [b for b in resolve_buckets(scfg) if b <= scfg.max_mini_batch_size]
+    errs["embedding_bag"] = max(errs["embedding_bag"],
+                                _k1_cases(device, "rm1", buckets, "qps_sweep's buckets"))
+    _log(f"[15 data] qps_sweep rm1 bf16 table_scale {TABLE_SCALE}, {_backend(device)}, 1 engine, "
+         f"sub-batch {QPS_SUB_BATCH}, "
+         f"{QPS_QUERIES} queries ~N(165, 16) a rate: "
+         + "; ".join(f"{r['arrival_ms']:.2f} ms -> QPS {r['qps']:.2f}, p95 {r['p95_ms']:.3f}"
+                     for r in qps["sweep"])
+         + f"; latency-bounded QPS (p95 <= {QPS_SLA_MS:.0f} ms) "
+         f"{qps['latency_bounded_qps']:.2f} [{card}]")
+    _free(device)
+    return {"quality": rep, "qps": qps, "errs": errs}, counts
+
+
+def phase_data(device, card: str, k1_uniform: dict, real_p95_ms: float) -> tuple[dict, dict]:
+    """Phase 15: the data modes and the one-card experiments, each path
+    read around itself. Returns the results and the launches."""
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches = _want()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        work = Path(tmp)
+        for key, fn, args in (("synthetic", data_synthetic, (k1_uniform,)),
+                              ("criteo", data_criteo, ()),
+                              ("sim", data_ladder_sim, (real_p95_ms,)),
+                              ("profiling", data_profiling, ())):
+            t1 = time.perf_counter()
+            out[key], counts = fn(device, work, *args, card)
+            _add(launches, counts)
+            _log(f"[15 data] {key} in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["train_qps"], counts = data_train_qps(device, card)
+    _add(launches, counts)
+    _log(f"[15 data] training quality and QPS in {time.perf_counter() - t1:.1f} s")
+    out["errs"] = {k: max(part["errs"].get(k, 0.0) for part in out.values()) for k in KERNELS}
+    _log(f"[15 data] phase 15 in {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2655,6 +3058,16 @@ def main() -> int:
                 "optimizer_update", "embedding_bag_int8", "embedding_bag_int8_rowwise"):
         if launches[key] == 0:
             raise AssertionError(f"the training or int8 paths never launched {key}")
+
+    # The data modes' and the experiments' paths, each read around itself.
+    data, data_launches = phase_data(device, card["card"], times["k1"],
+                                     serving["rm1_1"]["p95_ms"])
+    _add(launches, data_launches)
+    kernel_errs["embedding_bag"] = max(kernel_errs["embedding_bag"],
+                                       data["errs"]["embedding_bag"])
+    k3_err = max(k3_err, data["errs"]["rnn_scan"])
+    trained["sparse_adagrad_step"]["max_abs_err"] = max(
+        trained["sparse_adagrad_step"]["max_abs_err"], data["errs"]["sparse_adagrad_step"])
 
     _log(f"[10 summary] per model, bf16, batch {BATCH}, full-size tables [{card['card']}]:")
     _log("[10 summary]   model: forward wall ms, device ms, idle, K1 us (% of 3.35 TB/s, "
@@ -2730,6 +3143,17 @@ def main() -> int:
         idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.1f}%"
         _log(f"[10 summary]   {st['name']}: {st['wall_ms']:.4f}, {dev}, {idle}, "
              f"{st['peak_gib']:.3f} [{card['card']}]")
+    syn, cri, sim = data["synthetic"], data["criteo"], data["sim"]
+    q, qps = data["train_qps"]["quality"], data["train_qps"]["qps"]
+    _log(f"[10 summary] data modes and experiments, rm1 bf16 batch {BATCH}, full size: "
+         f"synthetic host {syn['host_batch_ms']:.1f} ms a batch (first {syn['host_first_ms']:.1f}); "
+         f"K1 trace ids {syn['k1']['ms'] * 1e3:.2f} us / uniform {syn['k1_uniform_ms'] * 1e3:.2f} "
+         f"us; forward on trace ids {syn['fwd_wall_ms']:.4f} ms; criteo forward "
+         f"{cri['fwd_wall_ms']:.4f} ms, K1 {cri['k1']['ms'] * 1e3:.2f} us (L = 1); sim p95 "
+         f"{sim['sim_p95_ms']:.3f} ms (this process's ladder) / {sim['sim_fresh_p95_ms']:.3f} ms "
+         f"(a fresh process's) / real {sim['real_p95_ms']:.3f} ms; train_planted AUC "
+         f"{q['final_auc']:.4f} / Bayes {q['bayes_auc']:.4f}, {q['steps_per_s']:.2f} steps/s; "
+         f"latency-bounded QPS on gpu {qps['latency_bounded_qps']:.2f} [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())

@@ -68,23 +68,36 @@ BATCH = 512
 DIEN_T = 40
 
 
-def measure(fn, args_list, iters: int = 100, traces: int = 3) -> dict:
-    """Per-call times of ``iters`` back-to-back calls cycling through
-    ``args_list``, after a warm-up. ``wall_ms``: CUDA events around the loop,
-    so host launch cost shows wherever it leaves the card idle. ``device_ms``:
-    the summed durations of the device kernels and copies the calls ran,
-    from a torch.profiler trace of a second loop, traced again (up to
-    ``traces`` times) when a trace comes back without device activity
-    (None if every one did)."""
-    for a in args_list:
-        fn(*a)
+def wall_ms(fn, args_list, iters: int, cuda: bool = True) -> float:
+    """ms a call of ``iters`` back-to-back calls of ``fn`` cycling through
+    ``args_list``: CUDA events around the loop, so host launch cost shows
+    wherever it leaves the card idle; with ``cuda=False``, the host clock
+    around it (CPU ops return when done)."""
+    if not cuda:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        return (time.perf_counter() - t0) * 1e3 / iters
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(iters):
         fn(*args_list[i % len(args_list)])
     end.record()
     end.synchronize()
-    wall_ms = start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters
+
+
+def measure(fn, args_list, iters: int = 100, traces: int = 3) -> dict:
+    """Per-call times of ``iters`` back-to-back calls cycling through
+    ``args_list``, after a warm-up. ``wall_ms``: the function of that name
+    over the loop. ``device_ms``:
+    the summed durations of the device kernels and copies the calls ran,
+    from a torch.profiler trace of a second loop, traced again (up to
+    ``traces`` times) when a trace comes back without device activity
+    (None if every one did)."""
+    for a in args_list:
+        fn(*a)
+    wall = wall_ms(fn, args_list, iters)
     for _ in range(traces):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
                                     acc_events=True) as prof:
@@ -99,7 +112,7 @@ def measure(fn, args_list, iters: int = 100, traces: int = 3) -> dict:
     for e in dev:
         durations.setdefault(e.name[:60], []).append(e.time_range.elapsed_us())
     by_name = {name: sum(us) / iters for name, us in durations.items()}
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
+    return {"wall_ms": wall, "device_ms": device_ms,
             "kernel_ms": main_kernel_ms(durations) if dev else None,
             "launch_sum_ms": launch_sum_ms(durations, iters) if dev else None,
             "median_ms_by_kernel": {name: float(np.median(us)) / 1e3

@@ -14,6 +14,24 @@ Three modes, as in the JAX package (reference ``DeepRecSys.py``):
   compute time is the host clock between two ``torch.cuda.synchronize()``
   calls around the whole loop.
 
+Batches come from ``--data_generation``: ``random`` (the default),
+``synthetic`` (stack-distance trace replay from
+``--synthetic_data_trace_file``, ``data/trace.py``) or ``dataset`` (the
+Criteo TSV ``--raw_data_file``; ``--model criteo`` is the 26-table DLRM
+that matches its columns). In dataset mode ``--score_output`` writes the
+scores of the file's rows in file order, cycling at its end.
+
+``--enable_profiling`` traces the timed loop of standalone mode and the
+``--queue`` run with ``torch.profiler`` (CPU ops, and the card's kernels on
+a card): a Chrome trace goes into ``--profile_dir`` and the top ops of its
+``key_averages()`` are printed. Without the flag the loop is untouched.
+
+``--engine_backend sim`` (``--queue`` and ``--serve``) runs sleep-based
+engines, the offload engine too, over the card's own latency ladder
+``characterization/gpu_<model>.json`` (``experiments/sweep.py`` measures
+it); it raises when that ladder is absent and never reads another
+machine's ladder.
+
 ``--table_quant int8|int8_rowwise`` (both modes) serves int8 tables through
 the kernels K1-int8 and K4. ``--queue --embedding_impl hotcold|auto`` serves
 a hot/cold split of the lookups (K6, any table layout), with
@@ -29,9 +47,7 @@ The parser carries the JAX package's flags that the port reads, with the
 same names and defaults, but ``--engine_backend`` defaults to ``gpu``, and
 adds ``--device``: the device of standalone mode and of the ``--model_accel``
 offload engine (the card unless ``cpu`` is asked for). ``--engine_backend
-cpu-mp`` runs CPU engine processes over shared-memory rings. The flags of
-paths not ported yet (``--engine_backend sim``, ``--enable_profiling``)
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+cpu-mp`` runs CPU engine processes over shared-memory rings.
 
 Examples (on a machine with a CUDA card; ``--engine_backend cpu`` or
 ``--device cpu`` for the host):
@@ -42,12 +58,16 @@ Examples (on a machine with a CUDA card; ``--engine_backend cpu`` or
       --num_batches 16 --mini_batch_size 512
   python -m deeprecsys_tpu_torch.main --model rm1 --param_dtype bfloat16 --serve \\
       --port 8321 --accept_ragged
+  python -m deeprecsys_tpu_torch.main --model criteo --data_generation dataset \\
+      --raw_data_file train.txt --mini_batch_size 512 --num_batches 8 --score_output s.npz
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import signal
 import sys
 import threading
@@ -59,12 +79,6 @@ import torch
 from deeprecsys_tpu_torch import zoo
 from deeprecsys_tpu_torch.config import (
     ModelConfig, ServingConfig, _parse_dims, load_model_config)
-
-# Flags of the JAX CLI whose paths are not ported yet, with the ROADMAP.md
-# item that ports each.
-_NOT_PORTED = {
-    "enable_profiling": "Queue 1 item 13 (op breakdown through torch.profiler)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,8 +132,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_generation", type=str, default="random",
                    choices=["random", "synthetic", "dataset"])
     p.add_argument("--synthetic_data_trace_file", type=str, default=None)
+    # Both --data_set values mean the Criteo display-advertising TSV.
     p.add_argument("--data_set", type=str, default="kaggle", choices=["kaggle", "criteo"])
-    p.add_argument("--raw_data_file", type=str, default=None)
+    p.add_argument("--raw_data_file", type=str, default=None,
+                   help="Criteo TSV for --data_generation dataset")
     p.add_argument("--num_batches", type=int, default=16)
     p.add_argument("--mini_batch_size", type=int, default=64)
     p.add_argument("--nepochs", type=int, default=1)
@@ -139,8 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inference_engines", type=int, default=1)
     p.add_argument("--engine_backend", type=str, default="gpu",
                    choices=("gpu", "cpu", "cpu-mp", "sim"),
-                   help="'gpu' (the CUDA card; raises without one), 'cpu' or 'cpu-mp' "
-                        "(CPU engine processes)")
+                   help="'gpu' (the CUDA card; raises without one), 'cpu', 'cpu-mp' "
+                        "(CPU engine processes) or 'sim' (sleeps over the card's own "
+                        "latency ladder, characterization/gpu_<model>.json)")
     p.add_argument("--avg_arrival_rate", type=float, default=10.0, help="ms")
     p.add_argument("--target_latency", type=float, default=25.0, help="ms (p95 SLA)")
     p.add_argument("--batch_size_distribution", type=str, default="fixed")
@@ -176,7 +193,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--score_output", type=str, default=None,
                    help="standalone mode: write the last epoch's scores to this .npz "
                         "(offline batch scoring)")
-    p.add_argument("--enable_profiling", action="store_true")  # not ported (_NOT_PORTED)
+    p.add_argument("--enable_profiling", action="store_true",
+                   help="trace the timed loop (standalone) or the run (--queue) with "
+                        "torch.profiler into --profile_dir")
+    p.add_argument("--profile_dir", type=str, default="log/profile")
     p.add_argument("--device", type=str, default="cuda",
                    help="standalone mode and the --model_accel offload engine: 'cuda' "
                         "(default; raises when no card is present) or 'cpu'")
@@ -210,8 +230,9 @@ def model_config_from_args(args, name: str | None = None) -> ModelConfig:
     name = args.model if name is None else name
     overrides = _model_overrides(args)
     if name == "criteo":
-        raise NotImplementedError("--model criteo (the Criteo dataset mode) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 1)")
+        from deeprecsys_tpu_torch.data.criteo import criteo_model_config
+
+        return criteo_model_config().replace(table_scale=args.table_scale, **overrides)
     if name in zoo.MODEL_NAMES:
         return zoo.get_config(name, table_scale=args.table_scale, **overrides)
     return load_model_config(name, table_scale=args.table_scale, **overrides)
@@ -264,28 +285,67 @@ def serving_config_from_args(args) -> ServingConfig:
     )
 
 
-def _check_backend(args):
-    if args.engine_backend == "sim":
-        raise NotImplementedError(
-            "--engine_backend sim needs the card's own latency ladders, which are "
-            "not measured yet (ROADMAP.md Queue 1 item 13; the JAX package's "
-            "benchmarks/characterization/tpu_*.json are TPU numbers)")
+def _calibrated_latency_model(model_cfg: ModelConfig):
+    """The sim engines' latency model: the ladder measured on the card for
+    this model (``serving/latency_model.py::load_card_ladder``); raises when
+    there is none."""
+    from deeprecsys_tpu_torch.serving.latency_model import card_ladder_path, load_card_ladder
+
+    lm, fields = load_card_ladder(model_cfg.model_name)
+    print(f"[deeprecsys_tpu_torch] sim engines calibrated from "
+          f"{card_ladder_path(model_cfg.model_name)} ({fields.get('device')}, "
+          f"{fields.get('power_limit')}, {fields.get('dtype')}, "
+          f"table_scale {fields.get('table_scale')})", flush=True)
+    return lm
+
+
+def _profiler(args, on_card: bool):
+    """A ``torch.profiler.profile`` for ``--enable_profiling`` (the card's
+    kernels too when ``on_card``), or None without the flag."""
+    if not args.enable_profiling:
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
+
+
+def _report_profile(prof, args, model_cfg: ModelConfig, on_card: bool) -> str:
+    """Write ``prof``'s Chrome trace into ``--profile_dir`` and print its
+    top ops (by device time on a card); returns the trace's path."""
+    os.makedirs(args.profile_dir, exist_ok=True)
+    mode = "queue" if args.queue else "standalone"
+    path = os.path.join(args.profile_dir, f"{model_cfg.model_name}_{mode}_{os.getpid()}_"
+                                          f"{int(time.time() * 1e3)}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    key = "self_device_time_total" if on_card else "self_cpu_time_total"
+    print(prof.key_averages().table(sort_by=key, row_limit=12))
+    print(f"[deeprecsys_tpu_torch] profile trace written to {path}", flush=True)
+    return path
 
 
 def run_queue(model_cfg: ModelConfig, args):
     """Serving mode: run the stack and print the reference's report."""
     from deeprecsys_tpu_torch.serving import run_serving
 
-    _check_backend(args)
+    lm = _calibrated_latency_model(model_cfg) if args.engine_backend == "sim" else None
     if args.engine_backend == "gpu" and args.inference_engines > 1:
         print(f"[deeprecsys_tpu_torch] WARNING: {args.inference_engines} engine threads "
               "share one interpreter, and every eager PyTorch call hands the GIL to "
               "another engine: on an H100, four rm1 engines sustained half the "
               "executions a second of one, and at 100 queries/s their queue did not "
               "drain (engine_bench; PERF.md). Use --inference_engines 1.", flush=True)
-    res = run_serving(model_cfg, serving_config_from_args(args),
-                      log_responses=args.log_file is not None,
-                      checkpoint_path=args.checkpoint, accel_device=args.device)
+    on_card = args.engine_backend == "gpu" or (
+        args.model_accel and lm is None and args.device != "cpu")
+    prof = _profiler(args, on_card)
+    with prof if prof is not None else contextlib.nullcontext():
+        # In sim mode the offload engine is simulated too, as in the JAX
+        # package (the reference's accelerator is always simulated).
+        res = run_serving(model_cfg, serving_config_from_args(args), latency_model=lm,
+                          accel_latency_model=lm, log_responses=args.log_file is not None,
+                          checkpoint_path=args.checkpoint, accel_device=args.device)
+    if prof is not None:
+        _report_profile(prof, args, model_cfg, on_card)
     if res.engine_errors:
         raise RuntimeError(f"{len(res.engine_errors)} engine(s) failed during the run, "
                            f"so its latencies are not a measurement: {res.engine_errors}")
@@ -313,22 +373,27 @@ def run_standalone(model_cfg: ModelConfig, args) -> dict:
     else:
         params = model.init(torch.Generator(device=device).manual_seed(args.numpy_rand_seed))
     data = RecDataGenerator(model_cfg, seed=args.numpy_rand_seed,
-                            data_generation=args.data_generation)
+                            data_generation=args.data_generation,
+                            trace_file=args.synthetic_data_trace_file,
+                            raw_data_file=args.raw_data_file)
 
     t0 = time.perf_counter()
     batches = data.generate_batches(args.num_batches, args.mini_batch_size)
     t_load = time.perf_counter() - t0
     dev = [b.to(device) for b in batches]
 
+    on_card = device.type == "cuda"
+    prof = _profiler(args, on_card)
     with torch.inference_mode():
         model.apply(params, dev[0])  # warm-up, excluded from the total
         synchronize(device)
-        t0 = time.perf_counter()
-        outs = []
-        for _ in range(args.nepochs):
-            outs = [model.apply(params, b) for b in dev]
-        synchronize(device)
-        t_comp = time.perf_counter() - t0
+        with prof if prof is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            outs = []
+            for _ in range(args.nepochs):
+                outs = [model.apply(params, b) for b in dev]
+            synchronize(device)
+            t_comp = time.perf_counter() - t0
 
         forwards = 1 + args.nepochs * len(dev)
         if args.score_output:
@@ -347,9 +412,10 @@ def run_standalone(model_cfg: ModelConfig, args) -> dict:
     n = args.nepochs * args.num_batches * args.mini_batch_size
     print(f"Throughput: {n / (t_load + t_comp):.1f} samples/s")
     sys.stdout.flush()
+    trace = _report_profile(prof, args, model_cfg, on_card) if prof is not None else None
     return {"load_ms": t_load * 1000.0, "compute_ms": t_comp * 1000.0,
             "total_ms": total_ms, "forwards": forwards,
-            "outputs": outs, "device": str(device)}
+            "outputs": outs, "device": str(device), "profile_trace": trace}
 
 
 def start_serve(model_cfg: ModelConfig, args):
@@ -358,15 +424,17 @@ def start_serve(model_cfg: ModelConfig, args):
     ``--model``, the offload engine on ``--device``."""
     from deeprecsys_tpu_torch.serving.ingress import HttpIngress, ServingServer
 
-    _check_backend(args)
     serving_cfg = serving_config_from_args(args)
     names = args.serve_models.split(",") if args.serve_models else [model_cfg.model_name]
     registry = {}
     try:
         for name in names:
             cfg = model_cfg if name == model_cfg.model_name else model_config_from_args(args, name)
+            # Sim engines, the offload engine's too, over the model's ladder.
+            lm = _calibrated_latency_model(cfg) if args.engine_backend == "sim" else None
             registry[name] = ServingServer(
-                cfg, serving_cfg, accel_device=args.device,
+                cfg, serving_cfg, accel_device=args.device, latency_model=lm,
+                accel_latency_model=lm,
                 checkpoint_path=args.checkpoint if name == model_cfg.model_name else None)
             registry[name].start()
         ingress = HttpIngress(registry, host=args.host, port=args.port, default=names[0],
@@ -398,9 +466,6 @@ def run_serve(model_cfg: ModelConfig, args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md {item})")
     model_cfg = model_config_from_args(args)
     where = (f"engine_backend={args.engine_backend}" if args.queue or args.serve
              else f"device={args.device}")

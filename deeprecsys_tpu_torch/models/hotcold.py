@@ -147,13 +147,13 @@ def hot_ids_and_coverage_from_generator(
     """The hot set, chosen from the model's own data stream, and its
     coverage, estimated out of sample: selected on the first half of the
     sampled batches, scored on the second (JAX :276). The returned ids are
-    selected from the whole sample. ``trace_file`` and ``raw_data_file``
-    are the JAX signature's; the port's generator takes the random stream
-    only (``data_generation="synthetic"`` raises, ROADMAP.md Queue 1
-    item 1)."""
+    selected from the whole sample. Pass the engine's ``data_generation``,
+    ``trace_file`` and ``raw_data_file``, so the sample has the locality
+    of the stream the engine will serve."""
     from deeprecsys_tpu_torch.data import RecDataGenerator
 
-    gen = RecDataGenerator(cfg, seed=seed, data_generation=data_generation)
+    gen = RecDataGenerator(cfg, seed=seed, data_generation=data_generation,
+                           trace_file=trace_file, raw_data_file=raw_data_file)
     samples = [np.asarray(gen.generate_batch(batch_size).indices) for _ in range(n_batches)]
     sample = np.concatenate(samples, axis=0)
     offsets = np.asarray(cfg.table_offsets)

@@ -2,7 +2,9 @@
 
 Counterpart of ``deeprecsys_tpu/runtime/native.py``: ``get_lib``,
 ``native_available``, ``HotIndex`` (the hot/cold splitter's index),
-``precise_sleep_ns``, and the MPMC ring of 64-byte slots that
+``precise_sleep_ns``, the LRU trace replay of synthetic mode
+(``drs_trace_generate_lru``, wrapped by ``data/trace.py::NativeLruTrace``),
+and the MPMC ring of 64-byte slots that
 ``shm_queue.ShmRingQueue`` wraps (the cpu-mp process engines' transport).
 ``cpp/drs_runtime.cpp`` is compiled once with ``g++`` into ``build/native/``
 at the root of the checkout, named by a hash of the source, at first use;
@@ -71,6 +73,13 @@ def _declare(lib: ctypes.CDLL):
     lib.drs_ring_pop_wait.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
     lib.drs_ring_approx_size.restype = ctypes.c_uint64
     lib.drs_ring_approx_size.argtypes = [ctypes.c_void_p]
+    lib.drs_trace_generate_lru.restype = ctypes.c_int64
+    lib.drs_trace_generate_lru.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,  # lines, n, head
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # sd_vals, sd_cdf, n_sd
+        ctypes.c_int64, ctypes.c_void_p,                   # out_len, out
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,   # rng_state, padding, i
+    ]
     lib.drs_precise_sleep_ns.restype = None
     lib.drs_precise_sleep_ns.argtypes = [ctypes.c_int64, ctypes.c_int64]
     lib.drs_split_hot_cold_indexed.restype = ctypes.c_int64

@@ -297,7 +297,9 @@ class ComputeEngine(threading.Thread):
             torch.cuda.synchronize(self.device)
         pin = self.device.type == "cuda"
         full = RecDataGenerator(cfg, seed=self.seed + 17,
-                                data_generation=self.serving_cfg.data_generation
+                                data_generation=self.serving_cfg.data_generation,
+                                trace_file=self.serving_cfg.synthetic_trace_file,
+                                raw_data_file=self.serving_cfg.raw_data_file
                                 ).generate_batch(max(self.buckets))
 
         def host(a):
@@ -355,7 +357,9 @@ class ComputeEngine(threading.Thread):
         n_batches = int(np.clip(-(-4 * hot_rows // (256 * T * L)), 8, 256))
         hot_ids, coverage = hot_ids_and_coverage_from_generator(
             cfg, seed=self.seed + 31, hot_rows=hot_rows, n_batches=n_batches,
-            data_generation=self.serving_cfg.data_generation)
+            data_generation=self.serving_cfg.data_generation,
+            trace_file=self.serving_cfg.synthetic_trace_file,
+            raw_data_file=self.serving_cfg.raw_data_file)
         self.hot_coverage = coverage
         if not require and coverage < cfg.hotcold_min_hit:
             return

@@ -1,14 +1,22 @@
 """Latency model of an engine, characterization-driven.
 
-Counterpart of ``deeprecsys_tpu/serving/latency_model.py:24-185``, copied
-without its command-line converter (reference
+Counterpart of ``deeprecsys_tpu/serving/latency_model.py`` (reference
 ``accelerator/predict_execution.py``): measured execution times at a ladder
 of batch sizes, and a prediction for any batch size by linear
 interpolation in log-base space between the two bracketing points
 (:67-97). It drives ``SimEngine``, the reference's sleep-based fake
-engine, for tests that need no hardware. The port has no latency ladders
-of the card yet (ROADMAP.md Queue 1 item 13), so ``main.py`` does not
-offer the sim backend.
+engine.
+
+The card's own ladders, ``gpu_<model>.json`` in ``CHAR_DIR`` (the port's
+``characterization/`` directory), are measured by
+``python -m deeprecsys_tpu_torch.experiments.sweep``; ``load_card_ladder``
+reads one and is the only way ``main.py --engine_backend sim`` and
+``experiments/qps_sweep.py`` get a ladder: a sim engine of the port never
+runs on another machine's numbers. The command line converts a
+reference ``raw_data/results_<model>.txt`` into a ladder file:
+
+    python -m deeprecsys_tpu_torch.serving.latency_model --from-raw results_rm1.txt \\
+        --out ladder.json
 """
 
 from __future__ import annotations
@@ -18,6 +26,9 @@ import math
 from pathlib import Path
 
 import numpy as np
+
+# The card's latency ladders, one gpu_<model>.json a model.
+CHAR_DIR = Path(__file__).resolve().parents[1] / "characterization"
 
 
 class LatencyModel:
@@ -150,3 +161,44 @@ class _OverlapModel(LatencyModel):
         d["overhead"] = {"a_ms": self.a_ms, "ms_per_sample": self.ms_per_sample,
                          "overlap": True}
         return d
+
+
+def card_ladder_path(model_name: str) -> Path:
+    """Where ``experiments/sweep.py`` writes ``model_name``'s ladder."""
+    return CHAR_DIR / f"gpu_{model_name}.json"
+
+
+def load_card_ladder(model_name: str) -> tuple[LatencyModel, dict]:
+    """The ladder measured on the card for ``model_name`` and the file's
+    fields (``device``, ``power_limit``, ``dtype``, ``table_scale``, ...).
+    Raises FileNotFoundError when it was never measured: no other file
+    (the JAX package's ``tpu_*`` or ``cpu_*`` ladders) stands in."""
+    path = card_ladder_path(model_name)
+    if not path.exists():
+        raise FileNotFoundError(
+            f"engine_backend sim needs the card's latency ladder {path}; measure it "
+            f"on the card with `python -m deeprecsys_tpu_torch.experiments.sweep "
+            f"--models {model_name}` (experiments/sweep.py)")
+    fields = json.loads(path.read_text())
+    return LatencyModel.from_json(fields), fields
+
+
+def main(argv=None):
+    """Convert a reference ``raw_data/results_<model>.txt`` (the ``***``
+    6-tuple format) into a ladder JSON that ``LatencyModel.load`` reads."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--from-raw", required=True, help="reference results_<model>.txt path")
+    ap.add_argument("--out", required=True, help="output JSON path")
+    ap.add_argument("--base", type=float, default=4.0,
+                    help="batch ladder base (4 = GTX-1080Ti sweeps, 2 = GTX-960)")
+    args = ap.parse_args(argv)
+    m = LatencyModel.from_reference_raw(args.from_raw, base=args.base)
+    m.save(args.out)
+    print(f"wrote {args.out}: batches {m.batches.astype(int).tolist()}, "
+          f"exec ms/iter {[round(v, 4) for v in m.lat_ms.tolist()]}")
+
+
+if __name__ == "__main__":
+    main()

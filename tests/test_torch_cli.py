@@ -43,13 +43,21 @@ def test_cuda_without_a_card_raises():
 @pytest.mark.parametrize("flag", [["--queue", "--engine_backend", "sim"],
                                   ["--serve", "--engine_backend", "sim"],
                                   ["--enable_profiling"]])
-def test_unported_modes_raise(flag):
-    """--queue and --serve are ported; their sim backend waits for the
-    card's own latency ladders, and profiling for item 13. --checkpoint,
-    --table_quant, --serve and --score_output are ported (test_serve_*,
-    test_score_output_equals_jax_cli)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(ARGS + ["--device", "cpu"] + flag)
+def test_unported_modes_raise(flag, tmp_path, monkeypatch):
+    """The three flags that raised until they were ported: the sim backend
+    now raises only for want of the card's own latency ladder (none in
+    ``CHAR_DIR`` here), naming the sweep that measures it, and
+    --enable_profiling writes its trace (tests/test_torch_data_modes.py
+    holds both further)."""
+    from deeprecsys_tpu_torch.serving import latency_model
+
+    monkeypatch.setattr(latency_model, "CHAR_DIR", tmp_path)
+    argv = ARGS + ["--device", "cpu", "--profile_dir", str(tmp_path / "prof")] + flag
+    if "sim" in flag:
+        with pytest.raises(FileNotFoundError, match="experiments/sweep.py"):
+            main(argv)
+    else:
+        assert main(argv)["profile_trace"].startswith(str(tmp_path / "prof"))
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8_rowwise"])

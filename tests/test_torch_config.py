@@ -306,9 +306,13 @@ def test_model_config_from_args_equals_jax(argv):
 
 
 def test_criteo_model_raises_in_the_port():
-    args = port_main.build_parser().parse_args(["--model", "criteo"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main.model_config_from_args(args)
+    """``--model criteo`` raised until the dataset mode was ported; it now
+    gives the JAX CLI's config."""
+    for argv in ([], ["--table_scale", "1000", "--param_dtype", "bfloat16", "--table_pack", "1"]):
+        argv = ["--model", "criteo"] + argv
+        got = port_main.model_config_from_args(port_main.build_parser().parse_args(argv))
+        want = jax_main.model_config_from_args(jax_main.build_parser().parse_args(argv))
+        _assert_same_config(got, want)
 
 
 @pytest.mark.parametrize("kw", [{}, {"rows_per_table": 1000, "d": 64,

@@ -38,6 +38,10 @@ def test_groups_sorted_unique_in_range():
 
 @pytest.mark.parametrize("mode", ["synthetic", "dataset"])
 def test_unported_modes_raise(mode):
+    """Both modes are ported (tests/test_torch_data_modes.py); each raises,
+    as the JAX generator does, when it is not given its input file."""
     cfg = zoo.get_config("rm1", table_scale=2000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires"):
         RecDataGenerator(cfg, data_generation=mode)
+    with pytest.raises(ValueError, match="requires"):
+        JaxGenerator(jax_zoo.get_config("rm1", table_scale=2000), data_generation=mode)

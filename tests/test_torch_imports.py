@@ -22,6 +22,13 @@ MODULES = [
     "deeprecsys_tpu_torch.engine_bench",
     "deeprecsys_tpu_torch.experiments",
     "deeprecsys_tpu_torch.experiments.skew_bench",
+    "deeprecsys_tpu_torch.experiments.sweep",
+    "deeprecsys_tpu_torch.experiments.op_breakdown",
+    "deeprecsys_tpu_torch.experiments.qps_sweep",
+    "deeprecsys_tpu_torch.experiments.scheduling_study",
+    "deeprecsys_tpu_torch.experiments.loadgen_study",
+    "deeprecsys_tpu_torch.experiments.train_quality",
+    "deeprecsys_tpu_torch.experiments.plots",
     "deeprecsys_tpu_torch.experiments.int8_sweep",
     "deeprecsys_tpu_torch.experiments.k3b_sweep",
     "deeprecsys_tpu_torch.experiments.k5_sweep",
@@ -37,6 +44,7 @@ MODULES = [
     "deeprecsys_tpu_torch.data",
     "deeprecsys_tpu_torch.data.generator",
     "deeprecsys_tpu_torch.data.criteo",
+    "deeprecsys_tpu_torch.data.trace",
     "deeprecsys_tpu_torch.data.ragged",
     "deeprecsys_tpu_torch.models",
     "deeprecsys_tpu_torch.models.base",
