@@ -127,23 +127,28 @@ from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.data import trace as trace_mod
 from deeprecsys_tpu_torch.data.ragged import pad_csr
-from deeprecsys_tpu_torch.experiments.skew_bench import measure_skewed, zipf_stream
+from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.experiments import op_breakdown, qps_sweep, train_quality
 from deeprecsys_tpu_torch.experiments import sweep as sweep_mod
 from deeprecsys_tpu_torch.kernel_bench import (
     HBM_BYTES_PER_S, cold_starts_bound, direct_call, g_rows, hotcold_calls, hotcold_inputs,
     k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
-    k3b_library, k4_bound, k5_bound, k5_library, k6_call, k10_bound, k10_inputs, k10_library,
-    measure, named_kernel_ms, ptxas_summary, random_int8_tables, span_ms)
+    k3b_library, k4_bound, k5_bound, k5_library, k6_bound, k6_call, k10_bound, k10_inputs,
+    k10_library, measure, named_kernel_ms, ptxas_summary, random_int8_tables, span_ms,
+    window_bound, window_library)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
-from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
+from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for, make_hotcold_model
 from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
-    embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_rowwise,
-    embedding_bag_int8, embedding_bag_int8_reference,
-    embedding_bag_int8_rowwise, embedding_bag_int8_rowwise_reference, embedding_bag_reference,
+    embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference,
+    embedding_bag_hotcold_int8_rowwise, embedding_bag_hotcold_int8_rowwise_reference,
+    embedding_bag_hotcold_int8_rowwise_shard, embedding_bag_hotcold_int8_shard,
+    embedding_bag_hotcold_reference, embedding_bag_hotcold_shard, embedding_bag_int8,
+    embedding_bag_int8_reference, embedding_bag_int8_rowwise,
+    embedding_bag_int8_rowwise_reference, embedding_bag_int8_rowwise_shard,
+    embedding_bag_int8_shard, embedding_bag_reference, embedding_bag_shard,
     optimizer_update, optimizer_update_reference, rnn_scan, rnn_scan_backward,
     rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
     sparse_adagrad_step_reference)
@@ -153,6 +158,8 @@ from deeprecsys_tpu_torch.ops.embedding import (
     rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
+from deeprecsys_tpu_torch.parallel import make_mesh, shard_params, sharded_apply
+from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.runtime.native import native_available
 from deeprecsys_tpu_torch.serving import ServiceRequest, latency_model, orchestrator, run_serving
 from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
@@ -206,6 +213,29 @@ KERNELS = {
     "embedding_bag_hotcold_int8_rowwise": {
         "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
         "replaces": "deeprecsys_tpu/ops/embedding.py:759"},
+    # Phase 16, the mesh modes of the same sources: K1, K1-int8 and K4 with
+    # the ownership window (a row shard's masked gather and pool under the
+    # TPU package's shard_map, and the int8 pools GSPMD partitions in its
+    # sharded_apply), and K6 on a shard's cold stream (the shard_map bodies
+    # of its sharded and hybrid hot/cold lookups), each leaving the partial
+    # in the type it sums in.
+    "embedding_bag_shard": {"source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag.cu",
+                            "replaces": "deeprecsys_tpu/parallel/sharding.py:118"},
+    "embedding_bag_int8_shard": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_int8.cu",
+        "replaces": "deeprecsys_tpu/parallel/sharding.py:411"},
+    "embedding_bag_int8_rowwise_shard": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_int8.cu",
+        "replaces": "deeprecsys_tpu/parallel/sharding.py:411"},
+    "embedding_bag_hotcold_shard": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
+        "replaces": "deeprecsys_tpu/parallel/sharding.py:172"},
+    "embedding_bag_hotcold_int8_shard": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
+        "replaces": "deeprecsys_tpu/parallel/sharding.py:172"},
+    "embedding_bag_hotcold_int8_rowwise_shard": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
+        "replaces": "deeprecsys_tpu/parallel/sharding.py:228"},
 }
 # The lookup kernel each table layout takes (cfg.table_quant).
 LOOKUP = {"none": "embedding_bag", "int8": "embedding_bag_int8",
@@ -312,6 +342,18 @@ QPS_SLA_MS = 25.0
 QPS_ARRIVALS = (4.0, 2.0, 1.4, 1.0)
 QPS_QUERIES = 300
 QPS_SUB_BATCH = 256
+# Phase 16, serving over meshes whose entries all name the card (virtual
+# shards): the row shards of the kernels' cases and of the 1xM meshes, the
+# meshes rm1 runs on, and the models whose 1/4-shard windows are checked.
+MESH_SHARDS = 4
+MESH_AXES = ((1, 4), (2, 2), (4, 1))
+MESH_KERNEL_MODELS = ("rm1", "rm2")
+# The window kernel and K6's shard mode of each table layout.
+SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
+         "int8_rowwise": "embedding_bag_int8_rowwise_shard"}
+HOTCOLD_SHARD = {"none": "embedding_bag_hotcold_shard",
+                 "int8": "embedding_bag_hotcold_int8_shard",
+                 "int8_rowwise": "embedding_bag_hotcold_int8_rowwise_shard"}
 
 
 def _log(msg: str):
@@ -352,7 +394,13 @@ def _wrappers() -> dict:
             "embedding_bag_int8_rowwise": embedding_bag_int8_rowwise,
             "embedding_bag_hotcold": embedding_bag_hotcold,
             "embedding_bag_hotcold_int8": embedding_bag_hotcold_int8,
-            "embedding_bag_hotcold_int8_rowwise": embedding_bag_hotcold_int8_rowwise}
+            "embedding_bag_hotcold_int8_rowwise": embedding_bag_hotcold_int8_rowwise,
+            "embedding_bag_shard": embedding_bag_shard,
+            "embedding_bag_int8_shard": embedding_bag_int8_shard,
+            "embedding_bag_int8_rowwise_shard": embedding_bag_int8_rowwise_shard,
+            "embedding_bag_hotcold_shard": embedding_bag_hotcold_shard,
+            "embedding_bag_hotcold_int8_shard": embedding_bag_hotcold_int8_shard,
+            "embedding_bag_hotcold_int8_rowwise_shard": embedding_bag_hotcold_int8_rowwise_shard}
 
 
 def _reset_counts():
@@ -1180,16 +1228,20 @@ def zoo_times(device, z: dict, card: str) -> dict:
             "k1": k1, "peak_bytes": peak, "device_ops": runs["fk1"]["launches"]}
 
 
-def phase_zoo(device, card: str) -> tuple[list, dict]:
+def phase_zoo(device, card: str, on_model=None) -> tuple[list, dict]:
     """Each zoo model but rm1 at full width, its table freed before the
-    next; then dien through main.py's loop. Returns the per-model times
-    and the summed launch counts of these paths."""
+    next; then dien through main.py's loop. ``on_model(z)``: a path of
+    another phase run on each model while it lives (phase 16's meshes),
+    its launches its own. Returns the per-model times and the summed launch
+    counts of these paths."""
     rows, launches = [], _want()
     for name in ZOO:
         torch.cuda.reset_peak_memory_stats(device)
         z = zoo_forward(device, name)
         _add(launches, z["launches"])
         rows.append(zoo_times(device, z, card))
+        if on_model is not None:
+            on_model(z)
         del z
         torch.cuda.empty_cache()
 
@@ -2599,11 +2651,14 @@ def fabric_score_output(device, fwd: dict, ckpt: Path, new_params: dict,
     return err, counts
 
 
-def phase_fabric(device, fwd: dict, card: str) -> tuple[dict, dict]:
+def phase_fabric(device, fwd: dict, card: str, on_checkpoint=None) -> tuple[dict, dict]:
     """Phase 14, the serving fabric, each path read around itself: the HTTP
     ingress on one engine, a checkpoint reload under traffic (direct and
     hot/cold), cpu-mp engine processes with the offload engine on the card,
-    and offline scoring. Returns the results and the launches."""
+    and offline scoring. ``on_checkpoint(ckpt, new_params)``: a path of
+    another phase on the same checkpoint (phase 16's mesh reload), its
+    result in ``out["on_checkpoint"]`` and its launches its own. Returns the
+    results and the launches."""
     t0 = time.perf_counter()
     launches = _want()
     out = {}
@@ -2624,6 +2679,8 @@ def phase_fabric(device, fwd: dict, card: str) -> tuple[dict, dict]:
         _add(launches, counts)
         out["score_err"], counts = fabric_score_output(device, fwd, ckpt, new_params, card)
         _add(launches, counts)
+        if on_checkpoint is not None:
+            out["on_checkpoint"] = on_checkpoint(ckpt, new_params)
     finally:
         served[1].stop()  # a no-op once stopped
         for f in out_dir.glob("rm1_fabric*"):
@@ -2997,6 +3054,754 @@ def phase_data(device, card: str, k1_uniform: dict, real_p95_ms: float) -> tuple
     return out, launches
 
 
+# -------------------------------------------- phase 16: serving over meshes
+
+def _cuda_mesh(device, D: int, M: int):
+    """A D x M mesh whose every entry is ``device``: virtual shards on one
+    card (every sharded path, launch and combine runs; no scaling shows)."""
+    return make_mesh(D, M, devices=[device] * (D * M))
+
+
+def _shard_tables(device, g, rows: int, d: int) -> dict:
+    """Random tables of ``rows`` rows in the three layouts: bf16, per-table
+    int8 (``q``) and row-wise int8 (``qrows``, positive row scales)."""
+    table = torch.empty((rows, d), dtype=torch.bfloat16, device=device)
+    table.uniform_(-1.0, 1.0, generator=g)
+    qrows = torch.empty((rows, d + 4), dtype=torch.int8, device=device)
+    qrows[:, :d] = torch.randint(-127, 128, (rows, d), generator=g, device=device,
+                                 dtype=torch.int8)
+    row_scale = torch.rand((rows,), generator=g, device=device) * 1e-2 + 1e-4
+    qrows[:, d:] = row_scale.view(torch.int8).reshape(rows, 4)
+    return {"none": table, "int8": qrows[:, :d].contiguous(), "int8_rowwise": qrows}
+
+
+def _window_partial(quant: str, shard, offsets, idx, row_lo: int, mask, plain: bool = False):
+    """The window kernel of ``quant``'s layout on a shard (or its plain version)."""
+    w = (row_lo, row_lo + shard.shape[0])
+    if quant == "none":
+        if plain:
+            return embedding_bag_reference(shard, offsets, idx, compute_dtype=torch.bfloat16,
+                                           mask=mask, window=w)
+        return embedding_bag_shard(shard, offsets, idx, row_lo, compute_dtype=torch.bfloat16,
+                                   mask=mask)
+    if quant == "int8":
+        if plain:
+            return embedding_bag_int8_reference(shard, None, offsets, idx, mask=mask, window=w)
+        return embedding_bag_int8_shard(shard, offsets, idx, row_lo, mask=mask)
+    if plain:
+        return embedding_bag_int8_rowwise_reference(shard, offsets, idx, mask=mask, window=w)
+    return embedding_bag_int8_rowwise_shard(shard, offsets, idx, row_lo, mask=mask)
+
+
+def _hotcold_partial(quant: str, hot, shard, split: dict, plain: bool = False):
+    """K6 on a shard in ``quant``'s layout (or its plain version)."""
+    if quant == "none":
+        if plain:
+            return embedding_bag_hotcold_reference(hot, shard, split,
+                                                   compute_dtype=torch.bfloat16, partial=True)
+        return embedding_bag_hotcold_shard(hot, shard, split, compute_dtype=torch.bfloat16)
+    if quant == "int8":
+        if plain:
+            return embedding_bag_hotcold_int8_reference(hot, shard, None, split, partial=True)
+        return embedding_bag_hotcold_int8_shard(hot, shard, split)
+    if plain:
+        return embedding_bag_hotcold_int8_rowwise_reference(hot, shard, split, partial=True)
+    return embedding_bag_hotcold_int8_rowwise_shard(hot, shard, split)
+
+
+def _check_partial(quant: str, got, want, table, what: str, tolerance, *args) -> float:
+    """A partial held to its plain one: per-table int8 bit for bit (int32),
+    the others within ``tolerance(got, want, table, *args)``."""
+    if quant == "int8":
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"{what}: the int32 partial differs from its plain version")
+        return 0.0
+    if got.dtype != torch.float32:
+        raise AssertionError(f"{what}: the partial is {got.dtype}, not float32")
+    tol = tolerance(got, want, table, *args)
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: differs from its plain version by {err.max().item():.3e}, "
+                             f"{int((err > tol).sum())} elements over tolerance")
+    return err.max().item()
+
+
+def _finish(quant: str, acc, scale=None):
+    if quant == "int8":
+        return (acc.float() * scale[None, :, None]).to(torch.bfloat16)
+    return acc.to(torch.bfloat16)
+
+
+def _merge(errs: dict, key: str, err: float):
+    errs[key] = max(errs.get(key, 0.0), err)
+
+
+def _layout_leaf(tables):
+    """The 2-D leaf of a table layout (the table, ``q`` or ``qrows``)."""
+    if not isinstance(tables, dict):
+        return tables
+    return tables["qrows"] if "qrows" in tables else tables["q"]
+
+
+def _window_cells(quant: str, sp, d: int, offsets, indices, mask, what: str,
+                  errs: dict) -> float:
+    """The window kernel of every shard of ``sp``'s data row ``d`` at this
+    slice's shape (``indices``/``mask`` on the card), each held to its plain
+    version as ``_check_partial`` holds it; the max |error| goes into
+    ``errs``."""
+    tol = {"none": pooled_tolerance, "int8_rowwise": rowwise_tolerance, "int8": None}[quant]
+    rps, worst = sp.rows_per_shard, 0.0
+    for m in range(sp.mesh.shape["model"]):
+        shard, lo = _layout_leaf(sp.entry(d, m)["tables"]), m * rps
+        got = _window_partial(quant, shard, offsets, indices, lo, mask)
+        synchronize(shard.device)
+        want = _window_partial(quant, shard, offsets, indices, lo, mask, plain=True)
+        worst = max(worst, _check_partial(
+            quant, got, want, shard,
+            f"{what}: shard {m} (rows [{lo}, {lo + rps})), b={indices.shape[0]}, "
+            f"mask={'yes' if mask is not None else 'no'}",
+            lambda a, b, t: tol(a, b, t, offsets, indices, mask, window=(lo, lo + rps))))
+    _merge(errs, SHARD[quant], worst)
+    return worst
+
+
+def _on(x, device):
+    return torch.as_tensor(np.ascontiguousarray(x) if isinstance(x, np.ndarray) else x).to(device)
+
+
+def _hotcold_cells(quant: str, hp, split: dict, what: str, errs: dict) -> float:
+    """K6 on every (data, model) cell of a mesh hot/cold lookup, as
+    ``parallel/sharding.py::_hotcold_row`` launches it: cell (d, m) takes
+    data slice d's hot hits (shard 0 only; the others an all-false mask) and
+    its own cold stream (``split``: tensor-parallel ``(M, C_pad)`` or hybrid
+    ``(D, M, C_pad)``, segments local to the slice, pad ``b_loc * T``), on
+    ``hp``'s shard and hot table; each held to its plain version."""
+    mesh = hp.mesh
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    b = split["hot_sel"].shape[0] // D
+    worst = 0.0
+    for d in range(D):
+        for m in range(M):
+            e = hp.entry(d, m)
+            shard, hot = _layout_leaf(e["tables"]), e["hot_table"]
+            dev = shard.device
+            cold = (lambda k: split[k][d][m]) if D > 1 else (lambda k: split[k][m])
+            hits = _on(split["hot_mask"][d * b:(d + 1) * b], dev)
+            cell = {"hot_sel": _on(split["hot_sel"][d * b:(d + 1) * b], dev),
+                    "hot_mask": hits if m == 0 else torch.zeros_like(hits),
+                    "cold_ids": _on(cold("cold_local"), dev), "cold_seg": _on(cold("cold_seg"), dev)}
+            got = _hotcold_partial(quant, hot, shard, cell)
+            synchronize(dev)
+            want = _hotcold_partial(quant, hot, shard, cell, plain=True)
+            worst = max(worst, _check_partial(
+                quant, got, want, shard,
+                f"{what}: cell ({d}, {m}), b={b}, C_pad {cell['cold_ids'].numel()}",
+                lambda a, b_, t: hotcold_tolerance(a, b_, hot, t, cell,
+                                                   rowwise=quant == "int8_rowwise")))
+    _merge(errs, HOTCOLD_SHARD[quant], worst)
+    return worst
+
+
+def _tablewise_cells(quant: str, tw_params: dict, batch: Batch, what: str, errs: dict) -> float:
+    """The direct kernel of every table-wise (data slice, shard) cell at its
+    shape (the shard's placed tables, their offsets within it, virtual pad
+    slots on row 0), held to its plain version: K1-int8 bit for bit."""
+    worst = 0.0
+    for d, s, idx, msk, offs, scale in tw_params["plan"].cells(batch.indices, batch.mask):
+        tbl = tw_params["tables_tw"].part(d, s)
+        tables = {"none": tbl, "int8": {"q": tbl, "scale": scale},
+                  "int8_rowwise": {"qrows": tbl}}[quant]
+        got = direct_call(quant, tables, offs, idx, torch.bfloat16, mask=msk)
+        synchronize(tbl.device)
+        cell = f"{what}: cell ({d}, {s}), {idx.shape[1]} placed tables"
+        if quant == "int8":
+            want = embedding_bag_int8_reference(tbl, scale, offs, idx,
+                                                compute_dtype=torch.bfloat16, mask=msk)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{cell}: K1-int8 differs from its plain version")
+            continue
+        want = (embedding_bag_reference if quant == "none"
+                else embedding_bag_int8_rowwise_reference)(tbl, offs, idx,
+                                                           compute_dtype=torch.bfloat16, mask=msk)
+        worst = max(worst, _check_pooled(
+            got, want, tbl, offs, idx, msk, cell,
+            tolerance=pooled_tolerance if quant == "none" else rowwise_tolerance,
+            kernel=LOOKUP[quant]))
+    _merge(errs, LOOKUP[quant], worst)
+    return worst
+
+
+def _bucket_windows(device, cfg, sp, buckets, what: str, errs: dict) -> float:
+    """The window kernel at a mesh engine's buckets: data slice 0's ids (and
+    a ragged mask) of a ``bucket``-row batch on every shard of row 0."""
+    D = sp.mesh.shape["data"]
+    offsets = table_offsets(cfg, device)
+    worst = 0.0
+    for n in buckets:
+        _, _, idx, mask = _case_inputs(device, cfg, n, None, seed=60 + n)
+        for m_ in (None, mask):
+            worst = max(worst, _window_cells("none", sp, 0, offsets, idx[:n // D],
+                                             None if m_ is None else m_[:n // D],
+                                             f"{what} bucket {n}", errs))
+    return worst
+
+
+def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, dict]:
+    """K1, K1-int8 and K4 with the ownership window, and K6 in the three
+    layouts on a shard's cold stream, at ``name``'s full shape and its 1/4
+    row shards (rm1: all four, their partials combined and held to the
+    direct kernels; rm2: its second shard), on the generator's ids (masked
+    and not) and zipf(1.2) ids; each held to its plain version (int32
+    partials bit for bit). At rm1 the direct K1 is held to the full window's
+    partial rounded once, bit for bit, and each kernel is timed at shard
+    1's shape. Returns the max |error| and the times by kernel."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    g, offsets, indices, mask = _case_inputs(device, cfg, BATCH, None, seed)
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    rps = R // MESH_SHARDS
+    full = name == "rm1"
+    shards = range(MESH_SHARDS) if full else (1,)
+    tables = _shard_tables(device, g, R if full else rps, d)
+    base = 0 if full else rps  # the fused row of the tables' first row
+    scale = torch.rand((cfg.num_tables,), generator=g, device=device) * 1e-2 + 1e-4
+    errs, times = {}, {}
+    tol = {"none": pooled_tolerance, "int8_rowwise": rowwise_tolerance, "int8": None}
+    for quant in ("none",) + QUANT_MODES:
+        key = SHARD[quant]
+        table = tables[quant]
+        for m_ in (None, mask):
+            parts = []
+            for m in shards:
+                lo = m * rps
+                shard = table[lo - base:lo - base + rps]
+                what = (f"{name} {quant} shard {m} of {MESH_SHARDS} (rows [{lo}, {lo + rps})), "
+                        f"B={BATCH} T={cfg.num_tables} L={cfg.num_indices_per_lookup}, "
+                        f"mask={'yes' if m_ is not None else 'no'}")
+                got = _window_partial(quant, shard, offsets, indices, lo, m_)
+                synchronize(device)
+                want = _window_partial(quant, shard, offsets, indices, lo, m_, plain=True)
+                err = _check_partial(quant, got, want, shard, what,
+                                     lambda a, b, t, *r: tol[quant](a, b, t, offsets, indices,
+                                                                    m_, window=(lo, lo + rps)))
+                errs[key] = max(errs.get(key, 0.0), err)
+                parts.append(got)
+            if full:  # the shards' partials combined, against the direct kernel
+                direct = direct_call(quant, {"none": table, "int8": {"q": table, "scale": scale},
+                                             "int8_rowwise": {"qrows": table}}[quant],
+                                     offsets, indices, torch.bfloat16, mask=m_)
+                acc = parts[0]
+                for p_ in parts[1:]:
+                    acc = acc + p_
+                combined = _finish(quant, acc, scale)
+                what = f"{name} {quant}: {MESH_SHARDS} shards combined against the direct kernel"
+                if quant == "int8":
+                    if not torch.equal(combined, direct):
+                        raise AssertionError(f"{what}: not bit for bit")
+                else:
+                    _check_pooled(combined, direct, table, offsets, indices, m_, what,
+                                  tolerance=tol[quant], kernel=key)
+        _log(f"[16 mesh] {key} ok at {name}'s {len(shards)} shard(s) of {MESH_SHARDS}, "
+             f"masked and not: max |err| {errs[key]:.3e} against the plain version"
+             + (f"; the {MESH_SHARDS} partials combined match the direct kernel"
+                + (" bit for bit" if quant == "int8" else "") if full else ""))
+    if full:  # the direct path: the full window's partial rounded once is K1
+        got = embedding_bag_shard(tables["none"], offsets, indices, 0,
+                                  compute_dtype=torch.bfloat16).to(torch.bfloat16)
+        if not torch.equal(got, embedding_bag(tables["none"], offsets, indices)):
+            raise AssertionError("rm1: the full window's partial, rounded, is not the direct K1")
+        _log("[16 mesh] rm1: K1 with the full window [0, R), rounded once, equals the direct "
+             "K1 bit for bit")
+
+    # K6 on a shard's cold stream (zipf ids, the JAX hot-set rule).
+    zipf = zipf_stream(cfg, BATCH, seed=seed + 20)
+    hot_ids, cov = _hot_set(cfg, zipf)
+    offs64 = np.asarray(cfg.table_offsets, dtype=np.int64)
+    split = hotcold_ops.split_hot_cold_sharded(
+        zipf, offs64, hot_ids, MESH_SHARDS, rps,
+        cold_buckets=cold_buckets_for(zipf.size, _cuda_mesh(device, 1, MESH_SHARDS)),
+        impl="native")
+    zidx = torch.from_numpy(zipf).to(device)
+    hot_sel = torch.from_numpy(split["hot_sel"]).to(device)
+    hot_mask = torch.from_numpy(split["hot_mask"]).to(device)
+    no_hits = torch.zeros_like(hot_mask)
+    hid = torch.as_tensor(hot_ids, dtype=torch.int64, device=device)
+    for quant in ("none",) + QUANT_MODES:
+        key = HOTCOLD_SHARD[quant]
+        table = tables[quant]
+        # The hot rows: the table's where it is whole, random rows of its
+        # layout at rm2 (the plain version takes the same ones).
+        hot = (table.index_select(0, hid) if full
+               else table.index_select(0, hid % table.shape[0]))
+        parts = []
+        for m in shards:
+            shard = table[m * rps - base:m * rps - base + rps]
+            sp = {"hot_sel": hot_sel, "hot_mask": hot_mask if (m == 0 or not full) else no_hits,
+                  "cold_ids": torch.from_numpy(split["cold_local"][m]).to(device),
+                  "cold_seg": torch.from_numpy(split["cold_seg"][m]).to(device)}
+            what = (f"{name} {quant} K6 on shard {m} of {MESH_SHARDS}: zipf(1.2), K={len(hot_ids)} "
+                    f"(coverage {cov:.4f}), C_pad {sp['cold_ids'].numel()}")
+            got = _hotcold_partial(quant, hot, shard, sp)
+            synchronize(device)
+            want = _hotcold_partial(quant, hot, shard, sp, plain=True)
+            err = _check_partial(quant, got, want, shard, what,
+                                 lambda a, b, t, *r: hotcold_tolerance(
+                                     a, b, hot, t, sp, rowwise=quant == "int8_rowwise"))
+            errs[key] = max(errs.get(key, 0.0), err)
+            parts.append(got)
+        if full:
+            acc = parts[0]
+            for p_ in parts[1:]:
+                acc = acc + p_
+            combined = _finish(quant, acc, scale)
+            direct = direct_call(quant, {"none": table, "int8": {"q": table, "scale": scale},
+                                         "int8_rowwise": {"qrows": table}}[quant],
+                                 offsets, zidx, torch.bfloat16)
+            what = f"{name} {quant}: K6 on {MESH_SHARDS} shards combined against the direct kernel"
+            if quant == "int8":
+                if not torch.equal(combined, direct):
+                    raise AssertionError(f"{what}: not bit for bit")
+            else:
+                _check_pooled(combined, direct, table, offsets, zidx, None, what,
+                              tolerance=tol[quant], kernel=key)
+        _log(f"[16 mesh] {key} ok at {name}'s {len(shards)} shard(s): max |err| "
+             f"{errs[key]:.3e} against the plain version"
+             + (" (int32, bit for bit)" if quant == "int8" else "")
+             + (f"; combined with the hot part on shard 0 only, the direct kernel's pool"
+                if full else ""))
+
+    # Times at shard 1's shape: the kernel, its plain version, the library call.
+    lo = rps
+    for quant in ("none",) + QUANT_MODES:
+        shard = tables[quant][lo - base:lo - base + rps]
+        ids = [(b,) for b in (indices,)]
+        k = measure(lambda i: _window_partial(quant, shard, offsets, i, lo, None), ids,
+                    TIMED_ITERS)
+        pl = measure(lambda i: _window_partial(quant, shard, offsets, i, lo, None, plain=True),
+                     ids, TIMED_ITERS)
+        lib = (measure(window_library(shard, lo, offsets), ids, TIMED_ITERS)
+               if quant == "none" else None)
+        bound = window_bound(shard, lo, offsets, indices, d, 2 if quant == "int8_rowwise" else 1)
+        times[SHARD[quant]] = {
+            "ms": k["kernel_ms"], "plain_ms": pl["device_ms"],
+            "library_ms": None if lib is None else lib["device_ms"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        t = times[SHARD[quant]]
+        _log(f"[16 mesh] {SHARD[quant]} at {name}'s shard 1 of {MESH_SHARDS} (B={BATCH}, "
+             f"{bound['bytes'] / 1e6:.2f} MB moved): {_us(t['ms'])} device (virtual shard on one "
+             f"card); bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); plain "
+             f"{_us(t['plain_ms'])}; library {_us(t['library_ms'])}; wall a call "
+             f"{k['wall_ms'] * 1e3:.2f} us [{card}]")
+    sp1 = {"hot_sel": hot_sel, "hot_mask": hot_mask,
+           "cold_ids": torch.from_numpy(split["cold_local"][1]).to(device),
+           "cold_seg": torch.from_numpy(split["cold_seg"][1]).to(device)}
+    for quant in ("none",) + QUANT_MODES:
+        shard = tables[quant][lo - base:lo - base + rps]
+        hot = tables[quant].index_select(0, hid % tables[quant].shape[0])
+        args = [(sp1,)]
+        k = measure(lambda s_: _hotcold_partial(quant, hot, shard, s_), args, TIMED_ITERS)
+        pl = measure(lambda s_: _hotcold_partial(quant, hot, shard, s_, plain=True), args,
+                     TIMED_ITERS)
+        lib = (measure(window_library(shard, lo, offsets), [(zidx,)], TIMED_ITERS)
+               if quant == "none" else None)
+        bound = k6_bound(hot, shard, sp1, torch.float32, "float" if quant == "none" else quant)
+        times[HOTCOLD_SHARD[quant]] = {
+            "ms": k["launch_sum_ms"], "plain_ms": pl["device_ms"],
+            "library_ms": None if lib is None else lib["device_ms"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        t = times[HOTCOLD_SHARD[quant]]
+        _log(f"[16 mesh] {HOTCOLD_SHARD[quant]} at {name}'s shard 1 (zipf, C_pad "
+             f"{sp1['cold_ids'].numel()}): {_us(t['ms'])} device, both launches (virtual shard "
+             f"on one card); bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); plain "
+             f"{_us(t['plain_ms'])}; library {_us(t['library_ms'])} [{card}]")
+    del tables
+    _free(device)
+    return errs, times
+
+
+def _mesh_launch_check(counts: dict, want: dict, what: str):
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected {want}")
+
+
+def mesh_rm1(device, fwd: dict, times: dict, card: str, errs: dict) -> tuple[dict, dict]:
+    """rm1 (phase 5's params) through ``sharded_apply`` on 1x4, 2x2 and 4x1
+    meshes of the card: three forwards each held to the single-device
+    forward (bf16_atol), the launches read around them (D*M window K1 a
+    forward), the window K1 of every shard at the first and last data
+    slice's shape held to its plain version, peak memory; then 100 back-to-back forwards over 8 batches,
+    wall (CUDA events) and device time (torch.profiler), beside phase 7's
+    single-device forward."""
+    cfg, model, params, batches = fwd["cfg"], fwd["model"], fwd["params"], fwd["batches"]
+    timed = [(b.to(device),) for b in RecDataGenerator(cfg, seed=3).generate_batches(8, BATCH)]
+    launches, out = _want(), {}
+    with torch.inference_mode():
+        wants = [model.apply(params, b).float().cpu().numpy() for b in batches]
+        for D, M in MESH_AXES:
+            mesh = _cuda_mesh(device, D, M)
+            _reset_peak(device)
+            sp = shard_params(params, mesh)
+            fn = sharded_apply(model, mesh, has_dense=True)
+            _reset_counts()
+            outs = [fn(sp, b) for b in batches]
+            synchronize(device)
+            counts = _counts()
+            _mesh_launch_check(counts, _want(embedding_bag_shard=len(batches) * D * M),
+                               f"rm1 sharded_apply {D}x{M}")
+            _add(launches, counts)
+            worst = max(_check_close(o.float().cpu().numpy(), w, f"rm1 sharded_apply {D}x{M}")
+                        for o, w in zip(outs, wants))
+            peak = _peak_gib(device)  # before the checks' plain versions allocate
+            b, offsets = BATCH // D, table_offsets(fwd["cfg"], device)
+            k1_err = max(_window_cells("none", sp, d, offsets, batches[0].indices[d * b:(d + 1) * b],
+                                       None, f"rm1 sharded_apply {D}x{M} slice {d}", errs)
+                         for d in sorted({0, D - 1}))
+            r = measure(lambda b: fn(sp, b), timed, TIMED_ITERS)
+            dev = r["device_ms"]
+            out[f"{D}x{M}"] = {"wall_ms": r["wall_ms"], "device_ms": dev, "peak_gib": peak,
+                               "k1_window_ms": r["kernel_ms"], "max_abs_err": worst,
+                               "device_ops": r["launches"]}
+            idle = "not measured" if dev is None else f"{100 * (1 - dev / r['wall_ms']):.1f}%"
+            _log(f"[16 mesh] rm1 sharded_apply on a {D}x{M} mesh of one card (virtual shards): "
+                 f"{len(batches)} forwards match the single-device forward (max |err| "
+                 f"{worst:.3e}, limit bf16_atol), launches {counts}, window K1 of each shard at "
+                 f"b={b} max |err| {k1_err:.3e} against its plain version, peak {peak:.3f} GiB; "
+                 f"{TIMED_ITERS} back-to-back forwards: wall {r['wall_ms']:.4f} ms, device "
+                 f"{_us(dev)} in {r['launches']:.0f} device ops, idle {idle}; window K1 median "
+                 f"{_us(r['kernel_ms'])}; device time by kernel: {_top(r)} [{card}]")
+            del sp, fn, outs
+    _log(f"[16 mesh] rm1 forward wall / device, virtual shards on one card: 1x1 (phase 7) "
+         f"{times['fwd_wall_ms']:.4f} ms / {_us(times['fwd_device_ms'])}; "
+         + "; ".join(f"{k} {v['wall_ms']:.4f} ms / {_us(v['device_ms'])}" for k, v in out.items())
+         + f" [{card}]")
+    return out, launches
+
+
+def mesh_zoo(device, z: dict, card: str, errs: dict) -> tuple[dict, dict]:
+    """Phase 8's model ``z`` through ``sharded_apply`` on a 1x4 mesh of the
+    card: three forwards held to its single-device forward (bf16_atol), the
+    launches read around them, the window K1 of every shard at the model's
+    shape held to its plain version, peak memory (the shards are views of
+    the table: no copy)."""
+    cfg, model, params, name = z["cfg"], z["model"], z["params"], z["name"]
+    batches = [b.to(device) for b in RecDataGenerator(cfg, seed=1).generate_batches(3, BATCH)]
+    mesh = _cuda_mesh(device, 1, MESH_SHARDS)
+    with torch.inference_mode():
+        wants = [model.apply(params, b).float().cpu().numpy() for b in batches]
+        _reset_peak(device)
+        sp = shard_params(params, mesh)
+        fn = sharded_apply(model, mesh, has_dense=cfg.dense_dim > 0)
+        _reset_counts()
+        outs = [fn(sp, b) for b in batches]
+        synchronize(device)
+        counts = _counts()
+    # A table whose rows do not divide the shards is replicated: the direct
+    # K1 on each data row (at full size every zoo table divides 4).
+    lookups = ({"embedding_bag_shard": len(batches) * MESH_SHARDS} if sp.rows_per_shard
+               else {"embedding_bag": len(batches)})
+    _mesh_launch_check(counts, _want(**lookups, rnn_scan=2 * len(batches)
+                                     if cfg.model_type == "dien" else 0),
+                       f"{name} sharded_apply 1x{MESH_SHARDS}")
+    worst = max(_check_close(o.float().cpu().numpy(), w, f"{name} sharded_apply")
+                for o, w in zip(outs, wants))
+    peak = _peak_gib(device)  # before the checks' plain versions allocate
+    k1 = ""
+    if sp.rows_per_shard:
+        err = _window_cells("none", sp, 0, table_offsets(cfg, device), batches[0].indices,
+                            batches[0].mask, f"{name} sharded_apply 1x{MESH_SHARDS}", errs)
+        k1 = f", window K1 of each shard max |err| {err:.3e} against its plain version"
+    _log(f"[16 mesh] {name} sharded_apply on a 1x{MESH_SHARDS} mesh of one card: "
+         f"{len(batches)} forwards match the single-device forward (max |err| {worst:.3e}, "
+         f"limit bf16_atol), launches {counts}{k1}, peak {peak:.3f} GiB [{card}]")
+    return {"name": name, "max_abs_err": worst, "peak_gib": peak}, counts
+
+
+def mesh_layouts(device, fwd: dict, card: str, errs: dict) -> tuple[dict, dict]:
+    """rm1 in the three table layouts on zipf(1.2) ids (the JAX hot-set
+    rule): ``sharded_apply`` (1x4), the table-wise model (1x4), hot/cold
+    tensor-parallel (1x4) and hybrid (2x2); each forward held to the
+    layout's single-device direct forward (bf16_atol), its launches read
+    around it; then each path's kernel on every cell at that path's shape
+    held to its plain version (the window kernel on each shard, the direct
+    kernel on each table-wise shard, K6 on each (data, model) cell)."""
+    launches, out = _want(), {}
+    mesh14, mesh22 = _cuda_mesh(device, 1, MESH_SHARDS), _cuda_mesh(device, 2, 2)
+    for quant in ("none",) + QUANT_MODES:
+        if quant == "none":
+            cfg, model, params = fwd["cfg"], fwd["model"], fwd["params"]
+        else:
+            cfg = fwd["cfg"].replace(table_quant=quant)
+            model = get_model(cfg, device)
+            params = model.init(torch.Generator(device=device).manual_seed(0))
+        zipf = zipf_stream(cfg, BATCH, seed=31)
+        dense = np.random.default_rng(31).random((BATCH, cfg.dense_dim), dtype=np.float32)
+        host = Batch(dense=dense, indices=zipf)
+        batch = host.to(device)
+        hot_ids, cov = _hot_set(cfg, zipf)
+        with torch.inference_mode():
+            want = model.apply(params, batch).float().cpu().numpy()
+            paths = {}
+            sp = shard_params(params, mesh14)
+            paths["sharded 1x4"] = (lambda: sharded_apply(model, mesh14, True)(sp, batch),
+                                    {SHARD[quant]: MESH_SHARDS})
+            tw = make_tablewise_model(model, mesh14)
+            tw_params = tw.convert_params(params)
+            paths["table-wise 1x4"] = (lambda: tw.apply(tw_params, batch),
+                                       {LOOKUP[quant]: MESH_SHARDS})
+            hcs = {}
+            for label, mesh in (("hot/cold tensor-parallel 1x4", mesh14),
+                                ("hot/cold hybrid 2x2", mesh22)):
+                hc = make_hotcold_model(model, hot_ids, mesh=mesh)
+                hp = shard_params(hc.convert_params(params), mesh)
+                hcs[label] = (hc, hp)
+                paths[label] = (lambda hc=hc, hp=hp: hc.apply(
+                    hp, Batch(dense=batch.dense, indices=None), hc.prepare(host)),
+                    {HOTCOLD_SHARD[quant]: mesh.size})
+            res = {}
+            for label, (run, launched) in paths.items():
+                _reset_counts()
+                got = run()
+                synchronize(device)
+                counts = _counts()
+                _mesh_launch_check(counts, _want(**launched), f"rm1 {quant} {label}")
+                _add(launches, counts)
+                res[label] = _check_close(got.float().cpu().numpy(), want,
+                                          f"rm1 {quant} {label}")
+            cells = {"sharded 1x4": _window_cells(
+                         quant, sp, 0, table_offsets(cfg, device), batch.indices, batch.mask,
+                         f"rm1 {quant} sharded 1x4 on zipf ids", errs),
+                     "table-wise 1x4": _tablewise_cells(quant, tw_params, batch,
+                                                        f"rm1 {quant} table-wise 1x4", errs)}
+            for label, (hc, hp) in hcs.items():
+                cells[label] = _hotcold_cells(quant, hp, hc.prepare(host), f"rm1 {quant} {label}",
+                                              errs)
+        _log(f"[16 mesh] rm1 {quant} tables on zipf(1.2) ids (K={len(hot_ids)}, coverage "
+             f"{cov:.4f}), each against the single-device direct forward (limit bf16_atol): "
+             + "; ".join(f"{k} max |err| {v:.3e}" for k, v in res.items())
+             + "; each cell's kernel against its plain version: "
+             + "; ".join(f"{k} {v:.3e}" for k, v in cells.items())
+             + (" (int32 and K1-int8 bit for bit)" if quant == "int8" else "") + f" [{card}]")
+        out[quant] = res
+        del sp, tw_params, paths, hp, hcs
+        if quant != "none":
+            del params
+        _free(device)
+    return out, launches
+
+
+def mesh_engine_payloads(device, fwd: dict, card: str, errs: dict) -> tuple[float, dict]:
+    """Payload requests (32, 17 and 100 rows) and a ragged one (64 rows,
+    masked) through one rm1 engine on a 2x2 mesh of the card (phase 5's
+    params): scores held to ``model.apply`` on the same rows (bf16_atol);
+    D*M window K1 launches an execution; the window K1 at every bucket's
+    slice, masked and not, held to its plain version."""
+    cfg, model, params = fwd["cfg"], fwd["model"], fwd["params"]
+    scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device), accept_ragged=True)
+    data = RecDataGenerator(cfg, seed=40)
+    payloads = [data.generate_batch(n) for n in (32, 17, 100)]
+    rag = data.generate_batch(64)
+    payloads.append(rag._replace(mask=np.random.default_rng(41).random(rag.indices.shape) < 0.6))
+    mesh = _cuda_mesh(device, 2, 2)
+    req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+    _reset_counts()
+    eng = ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, params=params, mesh=mesh)
+    eng.start()
+    ready = ready_q.get(timeout=300)
+    if isinstance(ready, Exception):
+        raise RuntimeError("the mesh payload engine failed during setup") from ready
+    for i, p in enumerate(payloads):
+        req_q.put(ServiceRequest(batch_id=i, batch_size=len(p.indices),
+                                 arrival_time=time.time(), payload=p))
+    req_q.put(None)
+    got = {}
+    for _ in payloads:
+        r = resp_q.get(timeout=120)
+        got[r.batch_id] = r
+    eng.join(timeout=120)
+    counts = _counts()
+    ex = _executions(eng)
+    _mesh_launch_check(counts, _want(embedding_bag_shard=mesh.size * ex),
+                       f"mesh payload engine ({ex} executions)")
+    if eng.error is not None:
+        raise AssertionError(f"mesh payload engine: {eng.error!r}")
+    worst = 0.0
+    for i, p in enumerate(payloads):
+        if got[i].error_code != ERR_OK:
+            raise AssertionError(f"mesh payload {i}: error {got[i].error_code}")
+        worst = max(worst, _check_close(got[i].scores, _forward(model, params, p, device),
+                                        f"mesh payload {i}"))
+    k1 = _bucket_windows(device, cfg, eng.params, eng.buckets, "rm1 2x2 payload engine", errs)
+    _log(f"[16 mesh] rm1 engine on a 2x2 mesh of one card (buckets {eng.buckets}): payloads "
+         f"of 32, 17, 100 rows and a ragged one of 64 match model.apply (max |err| "
+         f"{worst:.3e}, limit bf16_atol); launches {counts} for {ex} executions; window K1 "
+         f"at each bucket's slice max |err| {k1:.3e} against its plain version [{card}]")
+    return worst, counts
+
+
+def mesh_serving(device, fwd: dict, single: dict, card: str, errs: dict) -> tuple[dict, dict]:
+    """rm1 (phase 5's params) through ``run_serving`` with one engine on a
+    2x2 mesh of the card at the canonical point, beside phase 6's
+    single-device engine; the window K1 at the engine's buckets held to its
+    plain version."""
+    cfg = fwd["cfg"]
+    scfg = ServingConfig(**SERVING_POINT, num_batches=SERVE_QUERIES,
+                         engine_backend=_backend(device))
+    _reset_peak(device)
+    _reset_counts()
+    with _engines_of_runs() as engines:
+        res = run_serving(cfg, scfg, settle_s=0.1, params=fwd["params"],
+                          mesh=_cuda_mesh(device, 2, 2))
+    counts = _counts()
+    (eng,) = engines
+    if res.engine_errors or res.error_responses or res.num_responses != res.cpu_sub_requests:
+        raise AssertionError(f"mesh serving: {res.num_responses} responses for "
+                             f"{res.cpu_sub_requests}, errors {res.error_responses} "
+                             f"{res.engine_errors}")
+    _mesh_launch_check(counts, _want(embedding_bag_shard=4 * res.executions),
+                       f"mesh serving ({res.executions} executions)")
+    peak = _peak_gib(device)
+    k1 = _bucket_windows(device, cfg, eng.params, eng.buckets, "rm1 2x2 served engine", errs)
+    _log(f"[16 mesh] rm1 served by one engine on a 2x2 mesh of one card (virtual shards), "
+         f"canonical point: {_served_line(res, counts)}; peak {peak:.3f} GiB; window K1 at each "
+         f"bucket's slice max |err| {k1:.3e}; beside phase 6's "
+         f"single-device engine: QPS {single['measured_qps']:.2f}, p50/p95/p99 "
+         f"{single['p50_ms']:.3f}/{single['p95_ms']:.3f}/{single['p99_ms']:.3f} ms [{card}]")
+    return {**res.to_dict(), "peak_gib": peak}, counts
+
+
+def mesh_reload(device, fwd: dict, ckpt: Path, new_params: dict, card: str,
+                errs: dict) -> tuple[dict, dict]:
+    """The reload of phase 14's checkpoint into an rm1 engine on a 2x2 mesh
+    of the card, behind the HTTP ingress, while two clients keep sending
+    predicts: 0 failed requests, then the new params' scores; the window K1
+    at the engine's bucket on the reloaded shards held to its plain
+    version."""
+    cfg, model = fwd["cfg"], fwd["model"]
+    scfg = ServingConfig(engine_backend=_backend(device), batch_buckets=(32,),
+                         max_mini_batch_size=32, sub_task_batch_size=32)
+    probe = RecDataGenerator(cfg, seed=12).generate_batch(32)
+    _reset_peak(device)
+    _reset_counts()
+    server = ServingServer(cfg, scfg, params=fwd["params"], mesh=_cuda_mesh(device, 2, 2))
+    server.start(timeout=300)
+    ing = HttpIngress(server)
+    ing.start()
+    base = "http://%s:%s" % ing.address
+    try:
+        r = _reload_under_traffic(server, base, _body(probe), ckpt)
+        del r["at_swap"]
+        _, after = _http(f"{base}/v1/predict", _body(probe))
+        counts = _counts()
+        ex = _executions(server.engines[0])
+        peak = _peak_gib(device)  # before the checks' plain versions allocate
+        k1 = _bucket_windows(device, cfg, server.engines[0].params, server.engines[0].buckets,
+                             "rm1 2x2 engine after its reload", errs)
+    finally:
+        ing.stop()
+    _mesh_launch_check(counts, _want(embedding_bag_shard=4 * ex), f"mesh reload ({ex} executions)")
+    err = _check_close(after["scores"], _forward(model, new_params, probe, device),
+                       "mesh /v1/predict after the reload")
+    _log(f"[16 mesh] reload of {ckpt.name} into a 2x2-mesh engine under {FABRIC_CLIENTS} "
+         f"clients: 0 failed of {r['answered']} answered; applied in {r['apply_ms']:.1f} ms "
+         f"(loaded on the card, sharded into views); then the new params' scores (max |err| "
+         f"{err:.3e}); window K1 on the reloaded shards max |err| {k1:.3e}; peak {peak:.3f} "
+         f"GiB; launches {counts} [{card}]")
+    _free(device)
+    return {**r, "peak_gib": peak, "max_abs_err": err}, counts
+
+
+def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
+    """Zipf(1.2) payloads through an rm1 hot/cold engine with refresh
+    tracking on a 1x4 mesh of the card: it must upgrade its hot set (the
+    new hot table gathered from the shards that own its rows), and every
+    payload's scores match the direct model (bf16_atol); then, at each of
+    the engine's buckets, K6 on every shard (zipf ids, the new hot set) and
+    the window K1 held to their plain versions."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                         compute_dtype="bfloat16", embedding_impl="hotcold",
+                         hot_set_rows=REFRESH_HOT_ROWS)
+    model = get_model(cfg.replace(embedding_impl="xla"), device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device),
+                         hotcold_refresh_interval=REFRESH_INTERVAL, hotcold_refresh_window=8)
+    rng = np.random.default_rng(19)
+    mesh = _cuda_mesh(device, 1, MESH_SHARDS)
+    req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+    _reset_counts()
+    eng = ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, params=params, mesh=mesh)
+    eng.start()
+    ready = ready_q.get(timeout=300)
+    if isinstance(ready, Exception):
+        raise RuntimeError("the mesh refresh engine failed during setup") from ready
+    warm_cov, answered, after = eng.hot_coverage, [], 0
+    while len(answered) < REFRESH_MAX_PAYLOADS and after < 2 * REFRESH_INTERVAL:
+        n = len(answered)
+        p = Batch(dense=rng.random((64, cfg.dense_dim), dtype=np.float32),
+                  indices=zipf_stream(cfg, 64, seed=300 + n))
+        req_q.put(ServiceRequest(batch_id=n, batch_size=64, arrival_time=time.time(),
+                                 payload=p))
+        answered.append((p, resp_q.get(timeout=120)))
+        after += eng.hot_refreshes > 0
+    req_q.put(None)
+    eng.join(timeout=120)
+    counts = _counts()
+    ex = _executions(eng)
+    k6, k1 = counts["embedding_bag_hotcold_shard"], counts["embedding_bag_shard"]
+    if eng.error is not None or eng.hot_refreshes < 1:
+        raise AssertionError(f"mesh refresh: {eng.hot_refreshes} refreshes, error {eng.error!r}")
+    if k6 == 0 or k6 + k1 != MESH_SHARDS * ex or counts != _want(
+            embedding_bag_hotcold_shard=k6, embedding_bag_shard=k1):
+        raise AssertionError(f"mesh refresh: launches {counts} for {ex} executions")
+    hot = eng.params.entry(0, MESH_SHARDS - 1)["hot_table"]
+    if not torch.equal(hot, params["tables"].index_select(0, torch.as_tensor(
+            np.asarray(eng._hotcold.hot_ids), device=device))):
+        raise AssertionError("mesh refresh: the hot table is not the tables' hot rows")
+    worst = max(_check_close(r.scores, _forward(model, params, p, device), f"mesh refresh {n}")
+                for n, (p, r) in enumerate(answered))
+    hc = make_hotcold_model(model, np.asarray(eng._hotcold.hot_ids), mesh=mesh)
+    k6 = max(_hotcold_cells("none", eng.params,
+                            hc.prepare(Batch(dense=None, indices=zipf_stream(cfg, n, seed=400 + n))),
+                            f"rm1 1x{MESH_SHARDS} hot/cold engine bucket {n}", errs)
+             for n in eng.buckets)
+    k1 = _bucket_windows(device, cfg, eng.params, eng.buckets,
+                         f"rm1 1x{MESH_SHARDS} hot/cold engine's direct path", errs)
+    _log(f"[16 mesh] rm1 hot/cold engine with refresh on a 1x{MESH_SHARDS} mesh of one card: "
+         f"{len(answered)} zipf(1.2) payloads of 64 rows; warm-up coverage {warm_cov:.4f}, "
+         f"hot_refreshes {eng.hot_refreshes}, hot_coverage {eng.hot_coverage:.4f}; the new hot "
+         f"table is the shards' rows; scores match the direct model (max |err| {worst:.3e}); "
+         f"launches {counts} for {ex} executions; at each bucket K6 max |err| {k6:.3e} and "
+         f"window K1 {k1:.3e} against their plain versions [{card}]")
+    del params, eng
+    _free(device)
+    return {"payloads": len(answered), "hot_refreshes": 1, "max_abs_err": worst}, counts
+
+
+def phase_mesh(device, fwd: dict, times: dict, single: dict, card: str,
+               errs: dict) -> tuple[dict, dict]:
+    """Phase 16 (but its zoo models, run in phase 8's loop, and its reload,
+    in phase 14's): serving over meshes of the card, each path read around
+    itself. ``errs``: each kernel's max |error| against its plain version so
+    far, which the paths raise. Returns the results and the launches."""
+    t0 = time.perf_counter()
+    launches = _want()
+    out = {"errs": errs, "times": {}}
+    for seed, name in enumerate(MESH_KERNEL_MODELS):
+        case_errs, ktimes = mesh_kernel_cases(device, name, seed, card)
+        for k, v in case_errs.items():
+            _merge(errs, k, v)
+        out["times"].setdefault(name, ktimes)
+    for key, run in (("rm1", lambda: mesh_rm1(device, fwd, times, card, errs)),
+                     ("layouts", lambda: mesh_layouts(device, fwd, card, errs)),
+                     ("payload_err", lambda: mesh_engine_payloads(device, fwd, card, errs)),
+                     ("serving", lambda: mesh_serving(device, fwd, single, card, errs)),
+                     ("refresh", lambda: mesh_refresh(device, card, errs))):
+        out[key], counts = run()
+        _add(launches, counts)
+    _log(f"[16 mesh] phase 16 (but its zoo models and reload) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3025,15 +3830,40 @@ def main() -> int:
     _add(launches, serve_launches)
     torch.cuda.reset_peak_memory_stats(device)
     times = phase_times(device, fwd, card["card"])
-    # The serving fabric's paths, each read around itself.
-    fabric, fabric_launches = phase_fabric(device, fwd, card["card"])
+    # The serving fabric's paths, each read around itself; phase 16's mesh
+    # reload on its checkpoint.
+    mesh_errs: dict = {}
+    fabric, fabric_launches = phase_fabric(
+        device, fwd, card["card"],
+        on_checkpoint=lambda ckpt, new: mesh_reload(device, fwd, ckpt, new, card["card"],
+                                                    mesh_errs))
     _add(launches, fabric_launches)
+    mesh_launches = _want()
+    mesh_reload_res, counts = fabric.pop("on_checkpoint")
+    _add(mesh_launches, counts)
+    # Phase 16: serving over meshes of the card, each path read around itself.
+    mesh, counts = phase_mesh(device, fwd, times, serving["rm1_1"], card["card"], mesh_errs)
+    _add(mesh_launches, counts)
     del fwd
     torch.cuda.empty_cache()
 
-    # The other models' paths, each read around itself.
-    rows, zoo_launches = phase_zoo(device, card["card"])
+    # The other models' paths, each read around itself; phase 16's 1x4 mesh
+    # on each while it lives.
+    mesh_zoo_rows = []
+
+    def on_model(z):
+        row, counts = mesh_zoo(device, z, card["card"], mesh["errs"])
+        mesh_zoo_rows.append(row)
+        _add(mesh_launches, counts)
+
+    rows, zoo_launches = phase_zoo(device, card["card"], on_model=on_model)
     _add(launches, zoo_launches)
+    for key in list(SHARD.values()) + list(HOTCOLD_SHARD.values()):
+        if mesh_launches[key] == 0:
+            raise AssertionError(f"the mesh paths never launched {key}")
+    _add(launches, mesh_launches)
+    for key in LOOKUP.values():  # the direct kernels on the table-wise shards
+        kernel_errs[key] = max(kernel_errs[key], mesh["errs"].get(key, 0.0))
     if launches["rnn_scan"] == 0:
         raise AssertionError("dien's path never launched K3")
     k3 = phase_rnn_times(device, card["card"])
@@ -3154,6 +3984,20 @@ def main() -> int:
          f"(a fresh process's) / real {sim['real_p95_ms']:.3f} ms; train_planted AUC "
          f"{q['final_auc']:.4f} / Bayes {q['bayes_auc']:.4f}, {q['steps_per_s']:.2f} steps/s; "
          f"latency-bounded QPS on gpu {qps['latency_bounded_qps']:.2f} [{card['card']}]")
+    _log("[10 summary] serving over meshes whose entries all name this card (virtual shards: "
+         "every sharded path, launch and combine; no scaling across cards is shown), rm1 bf16 "
+         "batch 512 full size: forward wall ms / device us by mesh, 1x1 (phase 7) "
+         f"{times['fwd_wall_ms']:.4f} / {_us(times['fwd_device_ms'])}, "
+         + ", ".join(f"{k} {v['wall_ms']:.4f} / {_us(v['device_ms'])}"
+                     for k, v in mesh["rm1"].items())
+         + f" [{card['card']}]")
+    s = mesh["serving"]
+    _log(f"[10 summary]   rm1 one engine on a 2x2 mesh, canonical point: QPS "
+         f"{s['measured_qps']:.2f}, p50/p95/p99 {s['p50_ms']:.3f}/{s['p95_ms']:.3f}/"
+         f"{s['p99_ms']:.3f} ms, peak {s['peak_gib']:.3f} GiB; reload under traffic 0 failed, "
+         f"{mesh_reload_res['apply_ms']:.1f} ms; zoo on 1x4: "
+         + ", ".join(f"{r['name']} {r['max_abs_err']:.2e}" for r in mesh_zoo_rows)
+         + f" [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())
@@ -3175,7 +4019,10 @@ def main() -> int:
                           ("embedding_bag_int8_rowwise", "int8_rowwise"))] + [
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": hotcold["errs"][key], **{k: hotcold_t[key][k] for k in timed}}
-        for key in HOTCOLD.values()]}))
+        for key in HOTCOLD.values()] + [
+        {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
+         "max_abs_err": mesh["errs"][key], **{k: mesh["times"]["rm1"][key][k] for k in timed}}
+        for key in list(SHARD.values()) + list(HOTCOLD_SHARD.values())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

@@ -235,6 +235,36 @@ def k4_bound(qrows: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
     return _bound(nbytes, 2 * B * T * L * d)
 
 
+def window_bound(shard: torch.Tensor, row_lo: int, offsets: torch.Tensor,
+                 indices: torch.Tensor, d: int, ops_per_element: int = 1) -> dict:
+    """A row shard's lookup (K1, K1-int8 or K4 with the ownership window):
+    each distinct row of the batch that the shard owns read once (the
+    shard's row bytes each), every id read once (the kernel tests each
+    against the window), the ``(B, T, d)`` 4-byte partial (f32 or int32)
+    written once; ``ops_per_element`` operations a gathered element of an
+    owned slot."""
+    B, T, L = indices.shape
+    flat = indices.long() + offsets.long()[None, :, None]
+    owned = (flat >= row_lo) & (flat < row_lo + shard.shape[0])
+    rows = torch.unique(flat[owned]).numel()
+    row_bytes = shard.shape[1] * shard.element_size()
+    nbytes = rows * row_bytes + indices.numel() * 4 + B * T * d * 4
+    return _bound(nbytes, int(owned.sum()) * d * ops_per_element)
+
+
+def window_library(shard: torch.Tensor, row_lo: int, offsets: torch.Tensor):
+    """``F.embedding_bag(mode="sum")`` over a float shard with the window as
+    ``per_sample_weights`` (1 for an owned slot, 0 else; the local ids
+    clamped): the same partial sums in the shard's dtype."""
+    def call(indices):
+        B, T, L = indices.shape
+        flat = (indices.long() + offsets.long()[None, :, None]).view(B * T, L) - row_lo
+        owned = (flat >= 0) & (flat < shard.shape[0])
+        return torch.nn.functional.embedding_bag(torch.where(owned, flat, 0), shard, mode="sum",
+                                                 per_sample_weights=owned.to(shard.dtype))
+    return call
+
+
 def k6_bound(hot: torch.Tensor, table: torch.Tensor, split: dict, out_dtype: torch.dtype,
              mode: str = "float") -> dict:
     """K6's least time on these inputs, by the bytes the function must move:

@@ -15,9 +15,14 @@ rate and its VMEM is managed by software. An H100 keeps hot rows in its
 measurement (``experiments/skew_bench.py``, PERF.md), and
 ``embedding_impl="auto"`` keeps the JAX package's rule.
 
-Ported for one device: ``mesh=`` (the sharded and hybrid splits) raises
-(ROADMAP.md Queue 1 item 12). The port keeps ``(R, d)`` tables, so there is
-no packed cold table.
+With ``mesh=`` the variant runs row-sharded (JAX :86-273): the host
+partitions the cold stream by owning row shard (``split_hot_cold_sharded``,
+the tensor-parallel mode, when the mesh's "data" axis is 1) or by (data
+shard, row shard) cell (``split_hot_cold_hybrid`` otherwise), each shard
+runs K6 on its own cold stream with the hot hits counted on one shard, and
+one sum a data row combines (``parallel/sharding.py``). ``apply`` then takes
+``shard_params(convert_params(params), mesh)``. The port keeps ``(R, d)``
+tables, so there is no packed cold table.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 
 from deeprecsys_tpu_torch.models.base import Batch, ModelFns, compute_dtype_of
-from deeprecsys_tpu_torch.ops.hotcold import select_hot_ids, split_hot_cold
+from deeprecsys_tpu_torch.ops.hotcold import (
+    select_hot_ids, split_hot_cold, split_hot_cold_hybrid, split_hot_cold_sharded)
 
 
 def cold_ladder(n_lookups: int) -> tuple[int, ...]:
@@ -40,11 +46,17 @@ def cold_ladder(n_lookups: int) -> tuple[int, ...]:
 
 
 def cold_buckets_for(n_lookups: int, mesh=None) -> tuple[int, ...]:
-    """The cold stream's pad ladder (JAX :60-73, one device only)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded hot/cold serving (mesh=) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)")
-    return cold_ladder(n_lookups)
+    """The cold stream's pad ladder (JAX :60-73). On a mesh the splits pad
+    each partition cell (M for tensor-parallel, D*M for hybrid), so the
+    ladder is a cell's share of the lookups, plus one cap bucket (the most
+    a cell can hold: its data shard's lookups)."""
+    if mesh is None:
+        return cold_ladder(n_lookups)
+    n_data = mesh.shape.get("data", 1)
+    parts = n_data * mesh.shape["model"]
+    cap = -(-n_lookups // n_data)
+    n_cell = -(-n_lookups // parts)
+    return tuple(sorted(set(cold_ladder(n_cell)) | {max(8, cap)}))
 
 
 def _np(x) -> np.ndarray:
@@ -66,10 +78,8 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
     ``runtime.native.HotIndex`` over the same ids, built elsewhere (an
     engine's scan worker); else one is built here when the native library
     is available. The closure holds it, so an in-flight ``prepare`` keeps
-    it alive across a hot-set swap."""
-    if mesh is not None:
-        raise NotImplementedError("sharded hot/cold serving (mesh=) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)")
+    it alive across a hot-set swap. With ``mesh`` (JAX :86-99) the total
+    rows must divide over the model axis."""
     cfg = model.cfg
     offsets_np = np.asarray(cfg.table_offsets, dtype=np.int64)
     if hot_index is not None and hot_index.K != len(hot_ids):
@@ -82,6 +92,12 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
             hot_index = HotIndex(hot_ids)
         except RuntimeError:
             pass  # no native runtime: the splitter takes its numpy path
+    if mesh is not None:
+        n_data, n_shards = mesh.shape["data"], mesh.shape["model"]
+        if cfg.total_rows % n_shards:
+            raise ValueError(f"total rows {cfg.total_rows} must divide over model axis "
+                             f"{n_shards}")
+        rows_per_shard = cfg.total_rows // n_shards
 
     def convert_params(params: dict) -> dict:
         """``params`` plus ``"hot_table"``: the hot rows of the table's
@@ -105,7 +121,16 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
         idx = _np(batch.indices)
         smask = None if batch.mask is None else _np(batch.mask)
         B, T, L = idx.shape
-        return split_hot_cold(idx, offsets_np, hot_ids, cold_buckets=cold_buckets_for(B * T * L),
+        buckets = cold_buckets_for(B * T * L, mesh)
+        if mesh is not None and n_data > 1:
+            return split_hot_cold_hybrid(idx, offsets_np, hot_ids, n_data, n_shards,
+                                         rows_per_shard, cold_buckets=buckets, slot_mask=smask,
+                                         hot_index=hot_index)
+        if mesh is not None:
+            return split_hot_cold_sharded(idx, offsets_np, hot_ids, n_shards, rows_per_shard,
+                                          cold_buckets=buckets, slot_mask=smask,
+                                          hot_index=hot_index)
+        return split_hot_cold(idx, offsets_np, hot_ids, cold_buckets=buckets,
                               slot_mask=smask, hot_index=hot_index, out=out)
 
     def apply(params: dict, batch: Batch, split: dict) -> torch.Tensor:
@@ -115,6 +140,8 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
             embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_rowwise)
 
         cdt = compute_dtype_of(cfg)
+        if mesh is not None:
+            return _mesh_apply(params, batch, split, cdt)
         tables, hot = params["tables"], params["hot_table"]
         if isinstance(tables, dict) and "qrows" in tables:
             pooled = embedding_bag_hotcold_int8_rowwise(hot, tables["qrows"], split,
@@ -126,6 +153,38 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
             pooled = embedding_bag_hotcold(hot, tables, split, compute_dtype=cdt)
         return model.apply_from_pooled(
             {k: v for k, v in params.items() if k != "hot_table"}, pooled, batch)
+
+    def _mesh_apply(sp, batch: Batch, split: dict, cdt) -> torch.Tensor:
+        """The mesh lookup (tensor-parallel or hybrid) on ``sp``, a
+        ``ShardedParams`` of the converted params, then the model's tail a
+        data slice on entry (d, 0); the scores on ``mesh.devices.flat[0]``."""
+        from deeprecsys_tpu_torch.parallel.sharding import (
+            Sharded, _to, hybrid_hotcold_rows, sharded_embedding_bag_hotcold)
+
+        tables0 = sp.entry(0, 0)["tables"]
+        key = ("qrows" if isinstance(tables0, dict) and "qrows" in tables0
+               else "q" if isinstance(tables0, dict) else None)
+        rows = Sharded(mesh, [[sp.entry(d, m)["tables"] if key is None
+                               else sp.entry(d, m)["tables"][key]
+                               for m in range(n_shards)] for d in range(n_data)])
+        kw = {"compute_dtype": cdt, "rowwise": key == "qrows",
+              "table_scale": tables0["scale"] if key == "q" else None}
+
+        def hot(d, m):
+            return sp.entry(d, m)["hot_table"]
+
+        if n_data == 1:
+            pooled = [sharded_embedding_bag_hotcold(hot, rows, split, mesh, **kw)]
+        else:
+            pooled = hybrid_hotcold_rows(hot, rows, split, mesh, **kw)
+        b = pooled[0].shape[0]
+        scores = []
+        for d, pooled_d in enumerate(pooled):
+            dev = mesh.device(d, 0)
+            dense = None if batch.dense is None else _to(batch.dense[d * b:(d + 1) * b], dev)
+            scores.append(model.apply_from_pooled(sp.entry(d, 0), pooled_d,
+                                                  Batch(dense=dense, indices=None)))
+        return torch.cat([_to(s, mesh.devices.flat[0]) for s in scores], dim=0)
 
     return HotColdModel(base=model, hot_ids=hot_ids, convert_params=convert_params,
                         apply=apply, prepare=prepare)

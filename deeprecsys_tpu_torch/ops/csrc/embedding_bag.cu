@@ -41,6 +41,19 @@
 // Addresses are computed in 64 bits: tables of more than 2^31 bytes are
 // normal (din's fused table has 46 M rows).
 //
+// The ownership window (kWindow, drs_embedding_bag_window): the lookup of
+// one row shard of a table split over a mesh's "model" axis, the TPU
+// package's shard_local_indices and masked gather
+// (deeprecsys_tpu/parallel/sharding.py:102-130). `table` is the shard,
+// rows [row_lo, row_lo + n_rows) of the fused table; a slot whose fused row
+// offsets[t] + id falls outside them adds nothing, and one inside reads
+// table[offsets[t] + id - row_lo]. The test sits where the row is loaded,
+// on the bag's base already moved by row_lo: no pass over the ids, no
+// extra load. The shard's pool leaves in f32 (TO = float), each row
+// converted to the compute dtype and summed as above but not rounded: the
+// caller sums the shards' partials and rounds once. The direct path
+// (kWindow false) is compiled without the test.
+//
 // Where a lane has several rows in flight (U > 1), rows load with
 // ld.global.nc.L1::no_allocate.L2::64B: no L1 line for a row that is never
 // read again, and no L2 prefetch past 64 bytes (a bf16 d = 32 row is 64
@@ -86,14 +99,14 @@ __device__ __forceinline__ uint4 load_row(const void* p) {
   }
 }
 
-template <typename TIn, typename TC, int D, int G, int U>
+template <typename TIn, typename TC, int D, int G, int U, typename TO = TC, bool kWindow = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_kernel(const TIn* __restrict__ table,
                      const int32_t* __restrict__ offsets,
                      const int32_t* __restrict__ indices,
                      const uint8_t* __restrict__ mask,
-                     TC* __restrict__ out,
-                     int64_t n_bags, int T, int L) {
+                     TO* __restrict__ out,
+                     int64_t n_bags, int T, int L, int64_t row_lo = 0, int64_t n_rows = 0) {
   constexpr int kElems = 16 / sizeof(TIn);  // elements a lane loads
   constexpr int P = D / kElems;             // lanes covering one row
   constexpr int S = 32 / P;                 // row slots a warp
@@ -114,7 +127,8 @@ embedding_bag_kernel(const TIn* __restrict__ table,
        task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
     const int64_t bag0 = task * G;
     const int64_t bag = bag0 + bi;
-    const int64_t base = bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0;
+    const int64_t base =
+        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? row_lo : 0);
 
     // The ids of step `step0` for all G bags, id -1 where a slot is past
     // L, past the last bag, or masked out; id k of the step is
@@ -158,7 +172,10 @@ embedding_bag_kernel(const TIn* __restrict__ table,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         v[u] = make_uint4(0u, 0u, 0u, 0u);  // zero bits: +0.0 in f32 and bf16
-        if (rid[u] >= 0) v[u] = load_row<(U > 1)>(table + (base + rid[u]) * D + col);
+        const int64_t row = base + rid[u];
+        // In the window iff 0 <= row < n_rows (one unsigned compare).
+        if (rid[u] >= 0 && (!kWindow || (uint64_t)row < (uint64_t)n_rows))
+          v[u] = load_row<(U > 1)>(table + row * D + col);
       }
       if (step0 + RPS < L) load_ids(step0 + RPS);
 #pragma unroll
@@ -176,15 +193,15 @@ embedding_bag_kernel(const TIn* __restrict__ table,
     }
 
     if (s == 0 && bag < n_bags) {
-      // kElems * sizeof(TC) is 32, 16 or 8 bytes, and col starts a run of
+      // kElems * sizeof(TO) is 32, 16 or 8 bytes, and col starts a run of
       // that many bytes: whole 16-byte stores, or one 8-byte store.
-      __align__(16) TC o[kElems];
+      __align__(16) TO o[kElems];
 #pragma unroll
       for (int i = 0; i < kElems; ++i) to_out(acc[i], o + i);
-      TC* dst = out + bag * D + col;
-      if constexpr (kElems * sizeof(TC) >= 16) {
+      TO* dst = out + bag * D + col;
+      if constexpr (kElems * sizeof(TO) >= 16) {
 #pragma unroll
-        for (int c = 0; c < (int)(kElems * sizeof(TC) / 16); ++c)
+        for (int c = 0; c < (int)(kElems * sizeof(TO) / 16); ++c)
           reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(o)[c];
       } else {
         *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
@@ -193,43 +210,45 @@ embedding_bag_kernel(const TIn* __restrict__ table,
   }
 }
 
-template <typename TIn, typename TC, int D, int G, int U>
+template <typename TIn, typename TC, int D, int G, int U, typename TO, bool kWindow>
 int launch(const void* table, const int32_t* offsets, const int32_t* indices,
            const uint8_t* mask, void* out, int64_t n_bags, int T, int L, int grid,
-           cudaStream_t stream) {
-  embedding_bag_kernel<TIn, TC, D, G, U><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const TIn*>(table), offsets, indices, mask, static_cast<TC*>(out),
-      n_bags, T, L);
+           cudaStream_t stream, int64_t row_lo, int64_t n_rows) {
+  embedding_bag_kernel<TIn, TC, D, G, U, TO, kWindow><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const TIn*>(table), offsets, indices, mask, static_cast<TO*>(out),
+      n_bags, T, L, row_lo, n_rows);
   return (int)cudaGetLastError();
 }
 
 // The (G, U) instances k1_launch_plan picks: one slot a bag (G = S) with
 // U in {1, 2, 4, 8} for L <= 8; for longer bags a warp a bag with U = 4.
-template <typename TIn, typename TC, int D>
+template <typename TIn, typename TC, int D, typename TO, bool kWindow>
 int launch_mapping(int G, int U, const void* table, const int32_t* offsets,
                    const int32_t* indices, const uint8_t* mask, void* out, int64_t n_bags,
-                   int T, int L, int grid, cudaStream_t stream) {
+                   int T, int L, int grid, cudaStream_t stream, int64_t row_lo, int64_t n_rows) {
   constexpr int S = 32 / (D * (int)sizeof(TIn) / 16);
-#define DRS_K1_CASE(g, u)                                                              \
-  if (G == (g) && U == (u))                                                            \
-    return launch<TIn, TC, D, (g), (u)>(table, offsets, indices, mask, out, n_bags, T, \
-                                        L, grid, stream);
+#define DRS_K1_CASE(g, u)                                                                   \
+  if (G == (g) && U == (u))                                                                 \
+    return launch<TIn, TC, D, (g), (u), TO, kWindow>(table, offsets, indices, mask, out,    \
+                                                     n_bags, T, L, grid, stream, row_lo,    \
+                                                     n_rows);
   DRS_K1_CASE(S, 1) DRS_K1_CASE(S, 2) DRS_K1_CASE(S, 4) DRS_K1_CASE(S, 8)
   DRS_K1_CASE(1, 4)
 #undef DRS_K1_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TIn, typename TC>
+template <typename TIn, typename TC, typename TO = TC, bool kWindow = false>
 int launch_width(int d, int G, int U, const void* table, const int32_t* offsets,
                  const int32_t* indices, const uint8_t* mask, void* out, int64_t n_bags,
-                 int T, int L, int grid, cudaStream_t stream) {
+                 int T, int L, int grid, cudaStream_t stream, int64_t row_lo = 0,
+                 int64_t n_rows = 0) {
   if (d == 32)
-    return launch_mapping<TIn, TC, 32>(G, U, table, offsets, indices, mask, out, n_bags, T, L,
-                                       grid, stream);
+    return launch_mapping<TIn, TC, 32, TO, kWindow>(G, U, table, offsets, indices, mask, out,
+                                                    n_bags, T, L, grid, stream, row_lo, n_rows);
   if (d == 64)
-    return launch_mapping<TIn, TC, 64>(G, U, table, offsets, indices, mask, out, n_bags, T, L,
-                                       grid, stream);
+    return launch_mapping<TIn, TC, 64, TO, kWindow>(G, U, table, offsets, indices, mask, out,
+                                                    n_bags, T, L, grid, stream, row_lo, n_rows);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -263,6 +282,35 @@ int drs_embedding_bag(const void* table, int table_dtype, int d,
   if (table_dtype == 0 && out_dtype == 1)
     return launch_width<float, __nv_bfloat16>(d, G, U, table, off, idx, msk, out, n_bags, T,
                                               L, grid, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The lookup of one row shard (kWindow): `table` holds fused rows
+// [row_lo, row_lo + n_rows); out is the f32 partial (B, T, d), each row
+// converted to the compute dtype (compute_dtype: 0 = f32, 1 = bf16) and
+// summed in f32, not rounded. A bf16 row is already a bf16 value, so a
+// bf16 table takes the f32 instance: the same sums.
+int drs_embedding_bag_window(const void* table, int table_dtype, int d, const void* offsets,
+                             const void* indices, const void* mask, void* out,
+                             int compute_dtype, int64_t row_lo, int64_t n_rows,
+                             int64_t n_bags, int T, int L, int bags_per_warp,
+                             int rows_per_lane, int grid, void* stream) {
+  if (n_bags <= 0) return 0;
+  if (grid <= 0 || row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  const int32_t* off = static_cast<const int32_t*>(offsets);
+  const int32_t* idx = static_cast<const int32_t*>(indices);
+  const uint8_t* msk = static_cast<const uint8_t*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = bags_per_warp, U = rows_per_lane;
+  if (table_dtype == 1 && (compute_dtype == 0 || compute_dtype == 1))
+    return launch_width<__nv_bfloat16, float, float, true>(d, G, U, table, off, idx, msk, out,
+                                                           n_bags, T, L, grid, s, row_lo, n_rows);
+  if (table_dtype == 0 && compute_dtype == 0)
+    return launch_width<float, float, float, true>(d, G, U, table, off, idx, msk, out, n_bags, T,
+                                                   L, grid, s, row_lo, n_rows);
+  if (table_dtype == 0 && compute_dtype == 1)
+    return launch_width<float, __nv_bfloat16, float, true>(d, G, U, table, off, idx, msk, out,
+                                                           n_bags, T, L, grid, s, row_lo, n_rows);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,6 +33,17 @@
 // No atomics: the order of every sum is fixed, so the result is
 // deterministic. Pads (bag B*T) fall in no stored bag. Addresses are 64-bit.
 //
+// On one row shard of a table split over a mesh's "model" axis
+// (drs_embedding_bag_hotcold_partial, TO the type the kernel sums in): the
+// caller gives the shard as `table` and that shard's cold stream, whose
+// ids the host splitter already made shard-local (ops/hotcold.py::
+// split_hot_cold_hybrid), so no window is needed; the hot hits are counted
+// on one shard only (the others get an all-false hot_mask). The partial
+// leaves unscaled and unrounded: f32 for float and row-wise tables, the
+// exact int32 pool for per-table int8, so that the shards' partials add
+// exactly as the single-device sums do and the scale and rounding come
+// once, after the combine.
+//
 // What bounds it: the same random row reads as K1 (~21-24 G rows/s from
 // DRAM on an H100, PERF.md), with the hot rows from a K-row table that the
 // L2 (50 MB) holds once warm. At the zoo's shapes every bag of a batch fits
@@ -299,20 +310,28 @@ __device__ __forceinline__ void add_rows(Acc (&acc)[V], const TIn* __restrict__ 
 }
 
 // N values of bag `bag` at dst (per-table int8: times its table's scale),
-// rounded once to TC (store_row).
+// rounded once to TC (store_row); a per-table int8 partial (TC = int32_t)
+// as its exact int32 sums.
 template <int M, typename TC, int N, typename Acc>
 __device__ __forceinline__ void store_vals(TC* dst, const Acc* a, const float* __restrict__ scale,
                                            int64_t bag, int T) {
-  float o[N];
-  if constexpr (M == kInt8) {
-    const float sc = __ldg(scale + bag % T);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = __fmul_rn(static_cast<float>(a[i]), sc);
-  } else {
+  if constexpr (std::is_same<TC, int32_t>::value) {
+    int o[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = a[i];
+    store_row<TC>(dst, o);
+  } else {
+    float o[N];
+    if constexpr (M == kInt8) {
+      const float sc = __ldg(scale + bag % T);
+#pragma unroll
+      for (int i = 0; i < N; ++i) o[i] = __fmul_rn(static_cast<float>(a[i]), sc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) o[i] = a[i];
+    }
+    store_row<TC>(dst, o);
   }
-  store_row<TC>(dst, o);
 }
 
 // Per-table int8 long bags, stage 1 of a window from slot w0 of bag h0 / L:
@@ -358,7 +377,8 @@ __device__ __forceinline__ void front_codes(int32_t (&code)[NI], const uint8_t (
 // Launch 2. UB = 0: G bags a warp (L > 8), windows of 32 / G * NI slots a
 // bag. UB in {1, 2, 4, 8} (L <= UB): a slot a bag, S bags a warp, U of its
 // UB rows loaded a step.
-template <int M, typename TIn, typename TC, int D, int V, int G, int U, int H, int UB, int NI>
+template <int M, typename TIn, typename TC, int D, int V, int G, int U, int H, int UB, int NI,
+          typename TO = TC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict__ table,
                              const float* __restrict__ scale,
@@ -366,7 +386,7 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
                              const uint8_t* __restrict__ hot_mask,
                              const int32_t* __restrict__ cold_ids,
                              const int32_t* cold_start,  // launch 1's: read past the wait only
-                             TC* __restrict__ out, int64_t n_bags, int T, int L) {
+                             TO* __restrict__ out, int64_t n_bags, int T, int L) {
   constexpr int P = D / V;   // lanes a row
   constexpr int S = 32 / P;  // row slots a warp
   using Acc = typename std::conditional<M == kInt8, int, float>::type;
@@ -434,7 +454,7 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
       }
       reduce_scatter<P, P * SPB, V / 2>(acc, lane);  // over the bag's slots
       if (real)
-        store_vals<M, TC, V / SPB>(out + bag * D + (lane % P) * V + slot_share<V, SPB>(s), acc,
+        store_vals<M, TO, V / SPB>(out + bag * D + (lane % P) * V + slot_share<V, SPB>(s), acc,
                                    scale, bag, T);
     }
   } else if constexpr (UB == 0) {
@@ -508,7 +528,7 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
       }
       reduce_scatter<P, P * SPB, V / 2>(acc, lane);  // over the bag's slots
       if (real)
-        store_vals<M, TC, V / SPB>(out + bag * D + (lane % P) * V + slot_share<V, SPB>(s), acc,
+        store_vals<M, TO, V / SPB>(out + bag * D + (lane % P) * V + slot_share<V, SPB>(s), acc,
                                    scale, bag, T);
     }
   } else {
@@ -572,7 +592,7 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
           add_rows<M, TIn, TC, D, V, H>(acc, hot, table, rid, lane);
         }
       }
-      if (bag < n_bags) store_vals<M, TC, V>(out + bag * D + (lane % P) * V, acc, scale, bag, T);
+      if (bag < n_bags) store_vals<M, TO, V>(out + bag * D + (lane % P) * V, acc, scale, bag, T);
     }
   }
   // A warp with no task still waits, so K6 never ends before launch 1.
@@ -604,7 +624,8 @@ int launch_cold_starts(const Args& a) {
 
 // Launch 2 with mapping (V, G, U, H) and plan (UB, NI), with programmatic
 // dependent launch unless the caller says otherwise (the sweep measures both).
-template <int M, typename TIn, typename TC, int D, int V, int G, int U, int H, int UB, int NI>
+template <int M, typename TIn, typename TC, int D, int V, int G, int U, int H, int UB, int NI,
+          typename TO = TC>
 int launch(const Args& a, bool pdl = true) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)a.grid);
@@ -617,9 +638,9 @@ int launch(const Args& a, bool pdl = true) {
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 1 : 0;
   return (int)cudaLaunchKernelEx(
-      &cfg, embedding_bag_hotcold_kernel<M, TIn, TC, D, V, G, U, H, UB, NI>,
+      &cfg, embedding_bag_hotcold_kernel<M, TIn, TC, D, V, G, U, H, UB, NI, TO>,
       static_cast<const TIn*>(a.hot), static_cast<const TIn*>(a.table), a.scale, a.hot_sel,
-      a.hot_mask, a.cold_ids, static_cast<const int32_t*>(a.cold_start), static_cast<TC*>(a.out),
+      a.hot_mask, a.cold_ids, static_cast<const int32_t*>(a.cold_start), static_cast<TO*>(a.out),
       a.n_bags, a.T, a.L);
 }
 
@@ -636,7 +657,7 @@ __host__ __device__ constexpr int window_ids(int p) {
 // a warp) for L > 8 with ids_per_lane window_ids(1 .. NI); else the power of
 // two >= L, U of its rows a step; each with the layout's shipped mapping
 // (no hint on bags of one row).
-template <int M, typename TIn, typename TC, int D>
+template <int M, typename TIn, typename TC, int D, typename TO = TC>
 int launch_plan(int rows_per_slot, int ids_per_lane, const Args& a) {
   using LB = Shipped<M, TIn, D, false>;
   using SB = Shipped<M, TIn, D, true>;
@@ -645,32 +666,36 @@ int launch_plan(int rows_per_slot, int ids_per_lane, const Args& a) {
     constexpr int n1 = window_ids<P, LB::U, LB::NI>(1), n2 = window_ids<P, LB::U, LB::NI>(2),
                   n4 = window_ids<P, LB::U, LB::NI>(4), n8 = window_ids<P, LB::U, LB::NI>(8),
                   n16 = window_ids<P, LB::U, LB::NI>(16);
-    if (ids_per_lane == n1) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n1>(a);
-    if (ids_per_lane == n2) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n2>(a);
-    if (ids_per_lane == n4) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n4>(a);
+    if (ids_per_lane == n1)
+      return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n1, TO>(a);
+    if (ids_per_lane == n2)
+      return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n2, TO>(a);
+    if (ids_per_lane == n4)
+      return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n4, TO>(a);
     if constexpr (LB::NI >= 8) {
-      if (ids_per_lane == n8) return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n8>(a);
+      if (ids_per_lane == n8)
+        return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n8, TO>(a);
     }
     if constexpr (LB::NI >= 16) {
       if (ids_per_lane == n16)
-        return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n16>(a);
+        return launch<M, TIn, TC, D, LB::V, LB::G, LB::U, LB::H, 0, n16, TO>(a);
     }
     return (int)cudaErrorInvalidValue;
   }
   constexpr int U2 = SB::U < 2 ? SB::U : 2, U4 = SB::U < 4 ? SB::U : 4, U8 = SB::U < 8 ? SB::U : 8;
   switch (rows_per_slot) {
-    case 1: return launch<M, TIn, TC, D, SB::V, 1, 1, 0, 1, 1>(a);  // one row: no hint, as K1
-    case 2: return launch<M, TIn, TC, D, SB::V, 1, U2, SB::H, 2, 1>(a);
-    case 4: return launch<M, TIn, TC, D, SB::V, 1, U4, SB::H, 4, 1>(a);
-    case 8: return launch<M, TIn, TC, D, SB::V, 1, U8, SB::H, 8, 1>(a);
+    case 1: return launch<M, TIn, TC, D, SB::V, 1, 1, 0, 1, 1, TO>(a);  // one row: no hint
+    case 2: return launch<M, TIn, TC, D, SB::V, 1, U2, SB::H, 2, 1, TO>(a);
+    case 4: return launch<M, TIn, TC, D, SB::V, 1, U4, SB::H, 4, 1, TO>(a);
+    case 8: return launch<M, TIn, TC, D, SB::V, 1, U8, SB::H, 8, 1, TO>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int M, typename TIn, typename TC>
+template <int M, typename TIn, typename TC, typename TO = TC>
 int launch_width(int d, int rows_per_slot, int ids_per_lane, const Args& a) {
-  if (d == 32) return launch_plan<M, TIn, TC, 32>(rows_per_slot, ids_per_lane, a);
-  if (d == 64) return launch_plan<M, TIn, TC, 64>(rows_per_slot, ids_per_lane, a);
+  if (d == 32) return launch_plan<M, TIn, TC, 32, TO>(rows_per_slot, ids_per_lane, a);
+  if (d == 64) return launch_plan<M, TIn, TC, 64, TO>(rows_per_slot, ids_per_lane, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -723,6 +748,37 @@ int drs_embedding_bag_hotcold(int mode, int table_dtype, int d, const void* hot,
     return launch_out<kFloat, __nv_bfloat16>(out_dtype, d, u, ni, a);
   if (mode == kInt8) return launch_out<kInt8, int8_t>(out_dtype, d, u, ni, a);
   if (mode == kRowwise) return launch_out<kRowwise, int8_t>(out_dtype, d, u, ni, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Both launches on one row shard: out is the partial, f32 for float and
+// row-wise tables, int32 for per-table int8 (compute_dtype, 0 = f32 and 1 =
+// bf16, is the type a float row is converted to before its f32 sum; a bf16
+// row is already a bf16 value, so a bf16 table takes the f32 instance).
+// The other arguments as drs_embedding_bag_hotcold's; scale is not read.
+int drs_embedding_bag_hotcold_partial(int mode, int table_dtype, int d, const void* hot,
+                                      const void* table, const void* hot_sel,
+                                      const void* hot_mask, const void* cold_ids,
+                                      const void* cold_seg, int64_t c_pad, void* cold_start,
+                                      void* out, int compute_dtype, int64_t n_bags, int T, int L,
+                                      int rows_per_slot, int ids_per_lane, int grid,
+                                      void* stream) {
+  if (n_bags <= 0) return 0;
+  if (grid <= 0 || c_pad < 0 || (rows_per_slot > 0 && L > rows_per_slot))
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(hot, table, nullptr, hot_sel, hot_mask, cold_ids, cold_seg, c_pad,
+                           cold_start, out, n_bags, T, L, grid, stream);
+  const int err = launch_cold_starts(a);
+  if (err != 0) return err;
+  const int u = rows_per_slot, ni = ids_per_lane;
+  if (mode == kFloat && table_dtype == 1 && (compute_dtype == 0 || compute_dtype == 1))
+    return launch_width<kFloat, __nv_bfloat16, float, float>(d, u, ni, a);
+  if (mode == kFloat && table_dtype == 0 && compute_dtype == 0)
+    return launch_width<kFloat, float, float, float>(d, u, ni, a);
+  if (mode == kFloat && table_dtype == 0 && compute_dtype == 1)
+    return launch_width<kFloat, float, __nv_bfloat16, float>(d, u, ni, a);
+  if (mode == kInt8) return launch_width<kInt8, int8_t, float, int32_t>(d, u, ni, a);
+  if (mode == kRowwise) return launch_width<kRowwise, int8_t, float, float>(d, u, ni, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -75,6 +75,17 @@
 //
 // Addresses are computed in 64 bits: (base + id) * (D + 4) passes 2^31 at
 // 59 M rows of D = 32.
+//
+// The ownership window (kWindow; drs_embedding_bag_int8_window and
+// drs_embedding_bag_int8_rowwise_window): the lookup of one row shard of a
+// table split over a mesh's "model" axis, as K1's (embedding_bag.cu). The
+// shard holds fused rows [row_lo, row_lo + n_rows); a slot whose fused row
+// falls outside adds nothing, one inside reads shard row offsets[t] + id -
+// row_lo, tested where the row is loaded. The partial leaves in the type
+// the kernel sums in: K1-int8 the exact int32 pool before the scale
+// (TC = int32_t), so that the shards' partials add exactly and the scale
+// and rounding come once, after the combine, as the TPU package's psum of
+// int32 partials does; K4 the f32 sum before the cast (TC = float).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,14 +120,25 @@ __device__ __forceinline__ void load_ids(int32_t (&ids)[NI], const int32_t* __re
   }
 }
 
+// Whether the slot of id `id` reads a row: not masked out (id >= 0) and,
+// with the window, its row base + id inside the shard's [0, n_rows).
+template <bool kWindow>
+__device__ __forceinline__ bool owned(int32_t id, int64_t base, int64_t n_rows) {
+  if constexpr (kWindow) {
+    return id >= 0 && (uint64_t)(base + id) < (uint64_t)n_rows;
+  } else {
+    return id >= 0;
+  }
+}
+
 // K1-int8.
-template <typename TC, int D, int LPR, int G, int U, bool H>
+template <typename TC, int D, int LPR, int G, int U, bool H, bool kWindow = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                           const int32_t* __restrict__ offsets,
                           const int32_t* __restrict__ indices,
                           const uint8_t* __restrict__ mask, TC* __restrict__ out,
-                          int64_t n_bags, int T, int L) {
+                          int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
   constexpr int CPL = D / LPR;        // int8 values (bytes) a lane a row
   constexpr int NV = CPL / 16;        // its 16-byte loads
   constexpr int S = 32 / LPR;         // row slots a warp
@@ -137,7 +159,8 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
        task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
     const int64_t bag0 = task * G;
     const int64_t bag = bag0 + bi;
-    const int64_t base = bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0;
+    const int64_t base =
+        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? row_lo : 0);
 
     int32_t ids[NI];
     int acc[CPL];
@@ -154,7 +177,7 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
       for (int u = 0; u < U; ++u) {
 #pragma unroll
         for (int c = 0; c < NV; ++c) v[u][c] = make_uint4(0u, 0u, 0u, 0u);
-        if (rid[u] >= 0) {
+        if (owned<kWindow>(rid[u], base, n_rows)) {
           const int8_t* row = q + (base + rid[u]) * D + col;
 #pragma unroll
           for (int c = 0; c < NV; ++c) v[u][c] = load16<H>(row + 16 * c);
@@ -179,23 +202,31 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
     reduce_scatter<LPR, LPR * SPB, CPL / 2>(acc, lane);
     if (bag < n_bags) {
       constexpr int M = CPL / SPB;
-      const float sc = __ldg(scale + bag % T);
-      float o[M];
+      TC* dst = out + bag * D + col + slot_share<CPL, SPB>(s);
+      if constexpr (kWindow) {
+        int o[M];  // the exact int32 pool: the scale comes after the combine
 #pragma unroll
-      for (int i = 0; i < M; ++i) o[i] = __fmul_rn(static_cast<float>(acc[i]), sc);
-      store_row<TC>(out + bag * D + col + slot_share<CPL, SPB>(s), o);
+        for (int i = 0; i < M; ++i) o[i] = acc[i];
+        store_row<TC>(dst, o);
+      } else {
+        const float sc = __ldg(scale + bag % T);
+        float o[M];
+#pragma unroll
+        for (int i = 0; i < M; ++i) o[i] = __fmul_rn(static_cast<float>(acc[i]), sc);
+        store_row<TC>(dst, o);
+      }
     }
   }
 }
 
 // K4.
-template <typename TC, int D, int LPR, int G, int U, bool H>
+template <typename TC, int D, int LPR, int G, int U, bool H, bool kWindow = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
 embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
                                   const int32_t* __restrict__ offsets,
                                   const int32_t* __restrict__ indices,
                                   const uint8_t* __restrict__ mask, TC* __restrict__ out,
-                                  int64_t n_bags, int T, int L) {
+                                  int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
   constexpr int RB = D + 4;           // bytes a row: D values, then the f32 scale
   constexpr int CPL = D / LPR;        // values a lane
   constexpr int NW = CPL / 4;         // their words, from word c0 = r * NW of the row
@@ -220,7 +251,8 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
        task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
     const int64_t bag0 = task * G;
     const int64_t bag = bag0 + bi;
-    const int64_t base = bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0;
+    const int64_t base =
+        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? row_lo : 0);
 
     int32_t ids[NI];
     float acc[CPL];
@@ -242,7 +274,7 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
 #pragma unroll
         for (int c = 0; c < NC; ++c) win[u][c] = make_uint4(0u, 0u, 0u, 0u);
         e[u] = 0u;
-        if (rid[u] >= 0) {
+        if (owned<kWindow>(rid[u], base, n_rows)) {
           const uint4* chunk = row_window(
               reinterpret_cast<uintptr_t>(qrows) + (base + rid[u]) * RB, c0, e[u]);
 #pragma unroll
@@ -280,23 +312,24 @@ struct Args {
   int64_t n_bags;
   int T, L, grid;
   cudaStream_t stream;
+  int64_t row_lo = 0, n_rows = 0;  // the window (kWindow instances only)
 };
 
-template <typename TC, int D, int LPR, int G, int U, bool H>
+template <typename TC, int D, int LPR, int G, int U, bool H, bool kWindow = false>
 int launch_int8(const void* q, const void* scale, const Args& a) {
-  embedding_bag_int8_kernel<TC, D, LPR, G, U, H>
+  embedding_bag_int8_kernel<TC, D, LPR, G, U, H, kWindow>
       <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
           static_cast<const int8_t*>(q), static_cast<const float*>(scale), a.offsets,
-          a.indices, a.mask, static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
+          a.indices, a.mask, static_cast<TC*>(a.out), a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
   return (int)cudaGetLastError();
 }
 
-template <typename TC, int D, int LPR, int G, int U, bool H>
+template <typename TC, int D, int LPR, int G, int U, bool H, bool kWindow = false>
 int launch_rowwise(const void* qrows, const Args& a) {
-  embedding_bag_int8_rowwise_kernel<TC, D, LPR, G, U, H>
+  embedding_bag_int8_rowwise_kernel<TC, D, LPR, G, U, H, kWindow>
       <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
           static_cast<const int8_t*>(qrows), a.offsets, a.indices, a.mask,
-          static_cast<TC*>(a.out), a.n_bags, a.T, a.L);
+          static_cast<TC*>(a.out), a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
   return (int)cudaGetLastError();
 }
 
@@ -304,15 +337,15 @@ int launch_rowwise(const void* qrows, const Args& a) {
 // row (LPR = D / 16: S = 16 slots at D = 32, 8 at D = 64); one slot a bag
 // (G = S) with U 1, or 2 and load16's hint, for L <= 8; else a warp a bag with
 // U = 2 at D = 32, 4 bags a warp with U = 4 at D = 64.
-template <typename TC, int D>
+template <typename TC, int D, bool kWindow = false>
 int mapping_int8(int G, int U, const void* q, const void* scale, const Args& a) {
   constexpr int LPR = D / 16;
   constexpr int S = 32 / LPR;
   constexpr int GL = D == 32 ? 1 : 4;
   constexpr int UL = D == 32 ? 2 : 4;
-  if (G == S && U == 1) return launch_int8<TC, D, LPR, S, 1, false>(q, scale, a);
-  if (G == S && U == 2) return launch_int8<TC, D, LPR, S, 2, true>(q, scale, a);
-  if (G == GL && U == UL) return launch_int8<TC, D, LPR, GL, UL, false>(q, scale, a);
+  if (G == S && U == 1) return launch_int8<TC, D, LPR, S, 1, false, kWindow>(q, scale, a);
+  if (G == S && U == 2) return launch_int8<TC, D, LPR, S, 2, true, kWindow>(q, scale, a);
+  if (G == GL && U == UL) return launch_int8<TC, D, LPR, GL, UL, false, kWindow>(q, scale, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -320,29 +353,29 @@ int mapping_int8(int G, int U, const void* q, const void* scale, const Args& a) 
 // lane (LPR = D / 8), one row; for 2 <= L <= 8 a slot a bag of 16 values a
 // lane (LPR = D / 16), two rows a step with the hint; else 16 values a lane
 // with a warp a bag and U = 2 at D = 32, 4 bags a warp and U = 3 at D = 64.
-template <typename TC, int D>
+template <typename TC, int D, bool kWindow = false>
 int mapping_rowwise(int G, int U, const void* qrows, const Args& a) {
   constexpr int S8 = 256 / D;   // slots a warp at 8 values a lane
   constexpr int S16 = 512 / D;  // at 16
   constexpr int GL = D == 32 ? 1 : 4;
   constexpr int UL = D == 32 ? 2 : 3;
-  if (G == S8 && U == 1) return launch_rowwise<TC, D, D / 8, S8, 1, false>(qrows, a);
-  if (G == S16 && U == 2) return launch_rowwise<TC, D, D / 16, S16, 2, true>(qrows, a);
-  if (G == GL && U == UL) return launch_rowwise<TC, D, D / 16, GL, UL, false>(qrows, a);
+  if (G == S8 && U == 1) return launch_rowwise<TC, D, D / 8, S8, 1, false, kWindow>(qrows, a);
+  if (G == S16 && U == 2) return launch_rowwise<TC, D, D / 16, S16, 2, true, kWindow>(qrows, a);
+  if (G == GL && U == UL) return launch_rowwise<TC, D, D / 16, GL, UL, false, kWindow>(qrows, a);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TC>
+template <typename TC, bool kWindow = false>
 int width_int8(int d, int G, int U, const void* q, const void* scale, const Args& a) {
-  if (d == 32) return mapping_int8<TC, 32>(G, U, q, scale, a);
-  if (d == 64) return mapping_int8<TC, 64>(G, U, q, scale, a);
+  if (d == 32) return mapping_int8<TC, 32, kWindow>(G, U, q, scale, a);
+  if (d == 64) return mapping_int8<TC, 64, kWindow>(G, U, q, scale, a);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TC>
+template <typename TC, bool kWindow = false>
 int width_rowwise(int d, int G, int U, const void* qrows, const Args& a) {
-  if (d == 32) return mapping_rowwise<TC, 32>(G, U, qrows, a);
-  if (d == 64) return mapping_rowwise<TC, 64>(G, U, qrows, a);
+  if (d == 32) return mapping_rowwise<TC, 32, kWindow>(G, U, qrows, a);
+  if (d == 64) return mapping_rowwise<TC, 64, kWindow>(G, U, qrows, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -387,6 +420,34 @@ int drs_embedding_bag_int8_rowwise(const void* qrows, int d, const void* offsets
   if (out_dtype == 1)
     return width_rowwise<__nv_bfloat16>(d, bags_per_warp, rows_per_lane, qrows, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// The lookup of one row shard (the window): q holds fused rows [row_lo,
+// row_lo + n_rows); out is the (B, T, d) int32 pool before the scale.
+int drs_embedding_bag_int8_window(const void* q, int d, const void* offsets,
+                                  const void* indices, const void* mask, void* out,
+                                  int64_t row_lo, int64_t n_rows, int64_t n_bags, int T, int L,
+                                  int bags_per_warp, int rows_per_lane, int grid, void* stream) {
+  if (n_bags <= 0) return 0;
+  if (grid <= 0 || row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  Args a = make_args(offsets, indices, mask, out, n_bags, T, L, grid, stream);
+  a.row_lo = row_lo;
+  a.n_rows = n_rows;
+  return width_int8<int32_t, true>(d, bags_per_warp, rows_per_lane, q, nullptr, a);
+}
+
+// As above for K4: out is the (B, T, d) f32 sum before the cast.
+int drs_embedding_bag_int8_rowwise_window(const void* qrows, int d, const void* offsets,
+                                          const void* indices, const void* mask, void* out,
+                                          int64_t row_lo, int64_t n_rows, int64_t n_bags, int T,
+                                          int L, int bags_per_warp, int rows_per_lane, int grid,
+                                          void* stream) {
+  if (n_bags <= 0) return 0;
+  if (grid <= 0 || row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  Args a = make_args(offsets, indices, mask, out, n_bags, T, L, grid, stream);
+  a.row_lo = row_lo;
+  a.n_rows = n_rows;
+  return width_rowwise<float, true>(d, bags_per_warp, rows_per_lane, qrows, a);
 }
 
 const char* drs_cuda_error_string(int err) {

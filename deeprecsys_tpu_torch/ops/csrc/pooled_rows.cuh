@@ -15,6 +15,7 @@ namespace {
 
 __device__ __forceinline__ void to_out(float x, float* p) { *p = x; }
 __device__ __forceinline__ void to_out(float x, __nv_bfloat16* p) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void to_out(int x, int32_t* p) { *p = x; }  // an exact int32 pool
 
 // 16 bytes at p; kHint: no L1 line for a row that is never read again, and
 // no L2 prefetch past 64 bytes (K1's hint, embedding_bag.cu).
@@ -79,10 +80,11 @@ __device__ __forceinline__ int slot_share(int s) {
   }
 }
 
-// N output values at dst, rounded once to TC; dst starts a run of
-// N * sizeof(TC) bytes (2 to 256), aligned to that size or to 16.
-template <typename TC, int N>
-__device__ __forceinline__ void store_row(TC* dst, const float (&v)[N]) {
+// N output values at dst, rounded once to TC (f32 sums), or as they are
+// (int32 sums into int32_t); dst starts a run of N * sizeof(TC) bytes (2 to
+// 256), aligned to that size or to 16.
+template <typename TC, int N, typename V>
+__device__ __forceinline__ void store_row(TC* dst, const V (&v)[N]) {
   constexpr int kBytes = N * (int)sizeof(TC);
   __align__(16) TC o[N];
 #pragma unroll

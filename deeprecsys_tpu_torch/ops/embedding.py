@@ -34,6 +34,17 @@ Quantized tables (JAX ``ops/embedding.py:76-102, :211-284``,
 The JAX package may store per-table int8 packed (``q_packed``);
 ``bridge.params_from_numpy`` unpacks it, so the port only sees ``(R, d)``.
 
+On a mesh (``parallel/sharding.py``) each row shard of a table pools its
+own partial: ``embedding_bag_shard``, ``embedding_bag_int8_shard`` and
+``embedding_bag_int8_rowwise_shard`` launch the same kernels with an
+ownership window (the shard's fused rows ``[row_lo, row_hi)``; a slot whose
+row lies outside adds nothing) and return the sum before its last step (f32
+for float and row-wise tables, the exact int32 pool for per-table int8), and
+the ``*_hotcold_*_shard`` wrappers do the same for K6 on a shard's cold
+stream. The caller adds the shards' partials and then scales and rounds
+once, so a sharded per-table int8 lookup is bit for bit the single-device
+one. Each keeps its own launch count.
+
 The export helpers ``quantize_rowwise_int8`` and ``quantize_pertable_int8``
 are plain torch: they run once an export. (JAX's ``pack_table`` is
 ``bridge._pack``: the port packs rows only to write the JAX package's file
@@ -131,32 +142,55 @@ def unpack_table(table_packed: torch.Tensor, pack: int, total_rows: int) -> torc
     return table_packed.reshape(-1, d)[:total_rows]
 
 
+def window_ids(offsets: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor | None,
+               window: tuple[int, int] | None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The rows a lookup reads and which slots count: ``(B*T*L,)`` int64
+    rows of the table it is given, and a ``(B, T, L)`` bool of the slots
+    that add (None: all). With ``window = (row_lo, row_hi)`` the table is
+    that row shard of the fused table: a slot adds iff its fused row lies in
+    ``[row_lo, row_hi)``, and reads shard row ``fused - row_lo`` (row 0 for
+    the others, masked out); JAX ``parallel/sharding.py:102-130``."""
+    flat = indices.long() + offsets.long()[None, :, None]
+    if window is None:
+        return flat.reshape(-1), mask
+    row_lo, row_hi = window
+    valid = (flat >= row_lo) & (flat < row_hi)
+    if mask is not None:
+        valid &= mask
+    return torch.where(valid, flat - row_lo, 0).reshape(-1), valid
+
+
 def embedding_bag_reference(table: torch.Tensor, offsets: torch.Tensor,
                             indices: torch.Tensor, *,
                             compute_dtype: torch.dtype | None = None,
-                            mask: torch.Tensor | None = None) -> torch.Tensor:
+                            mask: torch.Tensor | None = None,
+                            window: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain PyTorch pooled lookup: each gathered row converted to the
     compute dtype, summed over L in f32 and rounded once (the JAX op's
     numerics: a bf16 ``jnp.sum`` accumulates in f32). Masked-out slots
-    contribute zero."""
+    contribute zero. With ``window`` (``window_ids``) ``table`` is a row
+    shard and the result is its f32 partial, not rounded."""
     cdt = compute_dtype if compute_dtype is not None else table.dtype
     B, T, L = indices.shape
-    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    flat, mask = window_ids(offsets, indices, mask, window)
     rows = table.index_select(0, flat).to(cdt).float().reshape(B, T, L, -1)
     if mask is not None:
         rows = torch.where(mask[..., None], rows, 0.0)
-    return rows.sum(dim=2).to(cdt)
+    pooled = rows.sum(dim=2)
+    return pooled if window is not None else pooled.to(cdt)
 
 
 def pooled_tolerance(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
                      offsets: torch.Tensor, indices: torch.Tensor,
-                     mask: torch.Tensor | None = None) -> torch.Tensor:
+                     mask: torch.Tensor | None = None,
+                     window: tuple[int, int] | None = None) -> torch.Tensor:
     """Elementwise bound on |a - b| for two pooled outputs of this op that
     differ only in the order of their f32 sums: L * 2^-23 * sum|rows|
     (recursive summation error, both orders together), plus one bf16 ulp of
-    the larger value when the outputs are bf16 (each side rounds once)."""
+    the larger value when the outputs are bf16 (each side rounds once).
+    ``window``: two f32 partials of a row shard."""
     abs_sum = embedding_bag_reference(table.abs(), offsets, indices,
-                                      compute_dtype=torch.float32, mask=mask)
+                                      compute_dtype=torch.float32, mask=mask, window=window)
     return _order_tolerance(a, b, abs_sum, indices.shape[-1])
 
 
@@ -266,6 +300,16 @@ def _declare(lib: ctypes.CDLL):
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # table, dtype, d
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
         ctypes.c_void_p, ctypes.c_int,                      # out, out dtype
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
+        ctypes.c_void_p,                                    # stream
+    ]
+    lib.drs_embedding_bag_window.restype = ctypes.c_int
+    lib.drs_embedding_bag_window.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # shard, dtype, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
+        ctypes.c_void_p, ctypes.c_int,                      # out (f32), compute dtype
+        ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows of the shard
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
         ctypes.c_void_p,                                    # stream
@@ -523,18 +567,24 @@ def _flat_ids(offsets: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return (indices.long() + offsets.long()[None, :, None]).reshape(-1)
 
 
-def embedding_bag_int8_reference(q: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
-                                 indices: torch.Tensor, *,
+def embedding_bag_int8_reference(q: torch.Tensor, scale: torch.Tensor | None,
+                                 offsets: torch.Tensor, indices: torch.Tensor, *,
                                  compute_dtype: torch.dtype = torch.float32,
-                                 mask: torch.Tensor | None = None) -> torch.Tensor:
+                                 mask: torch.Tensor | None = None,
+                                 window: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain PyTorch per-table int8 lookup: the bag's int8 rows summed in
     exact int32 (zero where masked out), converted to f32, multiplied by
-    its table's f32 scale once and cast (JAX ``models/base.py:178-182``)."""
+    its table's f32 scale once and cast (JAX ``models/base.py:178-182``).
+    With ``window`` (``window_ids``) ``q`` is a row shard and the result is
+    its exact int32 pool; ``scale`` is not read."""
     B, T, L = indices.shape
-    rows = q.index_select(0, _flat_ids(offsets, indices)).to(torch.int32).reshape(B, T, L, -1)
+    flat, mask = window_ids(offsets, indices, mask, window)
+    rows = q.index_select(0, flat).to(torch.int32).reshape(B, T, L, -1)
     if mask is not None:
         rows = torch.where(mask[..., None], rows, 0)
     pooled = rows.sum(dim=2, dtype=torch.int32)
+    if window is not None:
+        return pooled
     return (pooled.float() * scale.float()[None, :, None]).to(compute_dtype)
 
 
@@ -547,11 +597,12 @@ def dequant_packed_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows[:, :d].float() * scale
 
 
-def _rowwise_values(qrows, offsets, indices, mask) -> torch.Tensor:
+def _rowwise_values(qrows, offsets, indices, mask, window=None) -> torch.Tensor:
     """The dequantized rows of every slot, ``(B, T, L, d)`` f32, 0 where
-    masked out."""
+    masked out (or, with ``window``, outside the shard)."""
     B, T, L = indices.shape
-    vals = dequant_packed_rows(qrows.index_select(0, _flat_ids(offsets, indices)))
+    flat, mask = window_ids(offsets, indices, mask, window)
+    vals = dequant_packed_rows(qrows.index_select(0, flat))
     vals = vals.reshape(B, T, L, -1)
     return vals if mask is None else torch.where(mask[..., None], vals, 0.0)
 
@@ -559,19 +610,24 @@ def _rowwise_values(qrows, offsets, indices, mask) -> torch.Tensor:
 def embedding_bag_int8_rowwise_reference(qrows: torch.Tensor, offsets: torch.Tensor,
                                          indices: torch.Tensor, *,
                                          compute_dtype: torch.dtype = torch.float32,
-                                         mask: torch.Tensor | None = None) -> torch.Tensor:
+                                         mask: torch.Tensor | None = None,
+                                         window: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain PyTorch row-wise int8 lookup: ``dequant_packed_rows``, a sum
-    over L in f32, one cast (JAX ``ops/embedding.py:262-284``)."""
-    return _rowwise_values(qrows, offsets, indices, mask).sum(dim=2).to(compute_dtype)
+    over L in f32, one cast (JAX ``ops/embedding.py:262-284``). With
+    ``window`` (``window_ids``) ``qrows`` is a row shard and the result is
+    its f32 sum, not cast."""
+    pooled = _rowwise_values(qrows, offsets, indices, mask, window).sum(dim=2)
+    return pooled if window is not None else pooled.to(compute_dtype)
 
 
 def rowwise_tolerance(a: torch.Tensor, b: torch.Tensor, qrows: torch.Tensor,
                       offsets: torch.Tensor, indices: torch.Tensor,
-                      mask: torch.Tensor | None = None) -> torch.Tensor:
+                      mask: torch.Tensor | None = None,
+                      window: tuple[int, int] | None = None) -> torch.Tensor:
     """``pooled_tolerance`` on the dequantized rows: two row-wise pooled
     outputs whose products are the same f32 roundings and whose sums differ
-    only in order."""
-    abs_sum = _rowwise_values(qrows, offsets, indices, mask).abs().sum(dim=2)
+    only in order (``window``: two f32 partials of a row shard)."""
+    abs_sum = _rowwise_values(qrows, offsets, indices, mask, window).abs().sum(dim=2)
     return _order_tolerance(a, b, abs_sum, indices.shape[-1])
 
 
@@ -612,6 +668,17 @@ def _declare_int8(lib: ctypes.CDLL):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
         ctypes.c_void_p,                                    # stream
     ]
+    for fn in ("drs_embedding_bag_int8_window", "drs_embedding_bag_int8_rowwise_window"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [
+            ctypes.c_void_p, ctypes.c_int,                      # shard, d
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
+            ctypes.c_void_p,                                    # out (int32 or f32)
+            ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows of the shard
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
+            ctypes.c_void_p,                                    # stream
+        ]
 
 
 def _launch_int8(wrapper, fn: str, table, args, offsets, indices, mask, cdt, plan: K1Plan):
@@ -711,6 +778,135 @@ def embedding_bag_int8_rowwise(qrows: torch.Tensor, offsets: torch.Tensor,
 
 
 embedding_bag_int8_rowwise.kernel_launches = 0
+
+
+# ------------------------------------------- row shards (the ownership window)
+
+def _check_window(table, row_lo: int):
+    if row_lo < 0:
+        raise ValueError(f"row_lo must be >= 0; got {row_lo}")
+    return (row_lo, row_lo + table.shape[0])
+
+
+def _launch_window(wrapper, fn: str, lib, table, args, offsets, indices, mask, out_dtype,
+                   d: int, row_lo: int, plan: K1Plan, extra=()) -> torch.Tensor:
+    """``fn`` (a window entry point of ``lib``) on checked CUDA inputs,
+    counted in ``wrapper.kernel_launches``."""
+    B, T, L = indices.shape
+    out = torch.empty((B, T, d), dtype=out_dtype, device=table.device)
+    if B * T == 0:
+        return out
+    _build.launch(lib, fn, table.device, *args, offsets.data_ptr(), indices.data_ptr(),
+                  mask.data_ptr() if mask is not None else None, out.data_ptr(), *extra,
+                  row_lo, table.shape[0], B * T, T, L, plan.bags_per_warp, plan.rows_per_lane,
+                  plan.grid)
+    _build.count_launch(wrapper)
+    return out
+
+
+def embedding_bag_shard(shard: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+                        row_lo: int, *, compute_dtype: torch.dtype | None = None,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One row shard's part of ``embedding_bag`` (K1 with the ownership
+    window; JAX ``parallel/sharding.py:102-130``).
+
+    ``shard`` holds the fused table's rows ``[row_lo, row_lo + R_s)``; the
+    ids are the whole batch's table-local ids. Returns the ``(B, T, d)`` f32
+    partial: each row the shard owns converted to the compute dtype (default
+    the shard's) and summed over L in f32, not rounded; a slot whose row
+    another shard owns adds nothing. The shards' partials summed and cast
+    once give ``embedding_bag`` up to the order of the f32 sums.
+
+    CPU tensors take ``embedding_bag_reference(..., window=...)``; CUDA
+    tensors launch K1's window instance with ``k1_launch_plan``'s mapping,
+    counted in ``embedding_bag_shard.kernel_launches``.
+    """
+    cdt = compute_dtype if compute_dtype is not None else shard.dtype
+    _check(shard, offsets, indices, cdt, mask)
+    window = _check_window(shard, row_lo)
+    if shard.device.type == "cpu":
+        return embedding_bag_reference(shard, offsets, indices, compute_dtype=cdt, mask=mask,
+                                       window=window)
+    if shard.device.type != "cuda":
+        raise ValueError(f"embedding_bag_shard runs on cpu or cuda, not {shard.device}")
+    if shard.data_ptr() % 16:
+        raise ValueError("the kernel loads 16-byte vectors: the shard must start on a "
+                         "16-byte boundary")
+    B, T, L = indices.shape
+    d = shard.shape[1]
+    return _launch_window(embedding_bag_shard, "drs_embedding_bag_window", _kernel_lib(), shard,
+                          (shard.data_ptr(), _DTYPE_CODES[shard.dtype], d), offsets, indices,
+                          mask, torch.float32, d, row_lo,
+                          k1_launch_plan(B * T, L, d, shard.dtype), (_DTYPE_CODES[cdt],))
+
+
+embedding_bag_shard.kernel_launches = 0
+
+
+def embedding_bag_int8_shard(q_shard: torch.Tensor, offsets: torch.Tensor,
+                             indices: torch.Tensor, row_lo: int, *,
+                             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One row shard's part of ``embedding_bag_int8`` (K1-int8 with the
+    ownership window): the ``(B, T, d)`` exact int32 pool of the rows the
+    shard owns, before the scale. The shards' partials add exactly; their
+    sum times the table's scale, cast once, is ``embedding_bag_int8`` bit
+    for bit.
+
+    CPU tensors take ``embedding_bag_int8_reference(..., window=...)``;
+    CUDA tensors launch K1-int8's window instance, counted in
+    ``embedding_bag_int8_shard.kernel_launches``."""
+    _check_int8(q_shard, 0, torch.float32, offsets, indices, mask)
+    window = _check_window(q_shard, row_lo)
+    if q_shard.device.type == "cpu":
+        return embedding_bag_int8_reference(q_shard, None, offsets, indices, mask=mask,
+                                            window=window)
+    if q_shard.device.type != "cuda":
+        raise ValueError(f"embedding_bag_int8_shard runs on cpu or cuda, not {q_shard.device}")
+    if q_shard.data_ptr() % 16:
+        raise ValueError("K1-int8 loads 16-byte vectors: the shard must start on a "
+                         "16-byte boundary")
+    B, T, L = indices.shape
+    d = q_shard.shape[1]
+    return _launch_window(embedding_bag_int8_shard, "drs_embedding_bag_int8_window",
+                          _build.load("embedding_bag_int8", _declare_int8), q_shard,
+                          (q_shard.data_ptr(), d), offsets, indices, mask, torch.int32, d,
+                          row_lo, k1_launch_plan(B * T, L, d, torch.int8))
+
+
+embedding_bag_int8_shard.kernel_launches = 0
+
+
+def embedding_bag_int8_rowwise_shard(qrows_shard: torch.Tensor, offsets: torch.Tensor,
+                                     indices: torch.Tensor, row_lo: int, *,
+                                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One row shard's part of ``embedding_bag_int8_rowwise`` (K4 with the
+    ownership window): the ``(B, T, d)`` f32 sum of the dequantized rows the
+    shard owns, not cast.
+
+    CPU tensors take ``embedding_bag_int8_rowwise_reference(...,
+    window=...)``; CUDA tensors launch K4's window instance, counted in
+    ``embedding_bag_int8_rowwise_shard.kernel_launches``."""
+    _check_int8(qrows_shard, 4, torch.float32, offsets, indices, mask)
+    window = _check_window(qrows_shard, row_lo)
+    if qrows_shard.data_ptr() % 4:
+        raise ValueError("row-wise rows hold an f32 scale: the shard must start on a "
+                         "4-byte boundary")
+    if qrows_shard.device.type == "cpu":
+        return embedding_bag_int8_rowwise_reference(qrows_shard, offsets, indices, mask=mask,
+                                                    window=window)
+    if qrows_shard.device.type != "cuda":
+        raise ValueError(f"embedding_bag_int8_rowwise_shard runs on cpu or cuda, not "
+                         f"{qrows_shard.device}")
+    B, T, L = indices.shape
+    d = qrows_shard.shape[1] - 4
+    return _launch_window(embedding_bag_int8_rowwise_shard,
+                          "drs_embedding_bag_int8_rowwise_window",
+                          _build.load("embedding_bag_int8", _declare_int8), qrows_shard,
+                          (qrows_shard.data_ptr(), d), offsets, indices, mask, torch.float32,
+                          d, row_lo, k4_launch_plan(B * T, L, d))
+
+
+embedding_bag_int8_rowwise_shard.kernel_launches = 0
 
 
 # ------------------------------------------------------- hot/cold (K6)
@@ -884,36 +1080,41 @@ def _hotcold_pooled(row_fn, acc_dtype: torch.dtype, hot: torch.Tensor, table: to
 
 
 def embedding_bag_hotcold_reference(hot_table: torch.Tensor, table: torch.Tensor, split: dict,
-                                    *, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                                    *, compute_dtype: torch.dtype | None = None,
+                                    partial: bool = False) -> torch.Tensor:
     """Plain PyTorch hot/cold lookup over float tables: each row converted
     to the compute dtype, hot hits and cold rows summed in f32, rounded once
     (``embedding_bag_reference``'s numerics, so it equals the direct lookup
-    on the same ids up to the order of the f32 sum)."""
+    on the same ids up to the order of the f32 sum). ``partial``: the f32
+    sum of a row shard, not rounded."""
     cdt = compute_dtype if compute_dtype is not None else table.dtype
-    return _hotcold_pooled(lambda r: r.to(cdt).float(), torch.float32, hot_table, table,
-                           split).to(cdt)
+    pooled = _hotcold_pooled(lambda r: r.to(cdt).float(), torch.float32, hot_table, table, split)
+    return pooled if partial else pooled.to(cdt)
 
 
 def embedding_bag_hotcold_int8_reference(hot_q: torch.Tensor, q: torch.Tensor,
-                                         scale: torch.Tensor, split: dict, *,
-                                         compute_dtype: torch.dtype = torch.float32
-                                         ) -> torch.Tensor:
+                                         scale: torch.Tensor | None, split: dict, *,
+                                         compute_dtype: torch.dtype = torch.float32,
+                                         partial: bool = False) -> torch.Tensor:
     """Plain PyTorch hot/cold lookup over per-table int8 tables: hot and
     cold rows summed in exact int32, one f32 multiply by the table's scale,
-    one cast (JAX ``hotcold_quant_modes``)."""
+    one cast (JAX ``hotcold_quant_modes``). ``partial``: the int32 pool of
+    a row shard, before the scale (``scale`` is not read)."""
     pooled = _hotcold_pooled(lambda r: r.to(torch.int32), torch.int32, hot_q, q, split)
+    if partial:
+        return pooled
     return (pooled.float() * scale.float()[None, :, None]).to(compute_dtype)
 
 
 def embedding_bag_hotcold_int8_rowwise_reference(hot_qrows: torch.Tensor, qrows: torch.Tensor,
                                                  split: dict, *,
-                                                 compute_dtype: torch.dtype = torch.float32
-                                                 ) -> torch.Tensor:
+                                                 compute_dtype: torch.dtype = torch.float32,
+                                                 partial: bool = False) -> torch.Tensor:
     """Plain PyTorch hot/cold lookup over row-wise int8 tables: every row
     dequantized by its own scale (``dequant_packed_rows``), an f32 sum, one
-    cast."""
-    return _hotcold_pooled(dequant_packed_rows, torch.float32, hot_qrows, qrows,
-                           split).to(compute_dtype)
+    cast. ``partial``: the f32 sum of a row shard, not cast."""
+    pooled = _hotcold_pooled(dequant_packed_rows, torch.float32, hot_qrows, qrows, split)
+    return pooled if partial else pooled.to(compute_dtype)
 
 
 def hotcold_tolerance(a: torch.Tensor, b: torch.Tensor, hot: torch.Tensor, table: torch.Tensor,
@@ -965,6 +1166,17 @@ def _declare_hotcold(lib: ctypes.CDLL):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: rows/slot, ids/lane, grid
         ctypes.c_void_p,                                    # stream
     ]
+    lib.drs_embedding_bag_hotcold_partial.restype = ctypes.c_int
+    lib.drs_embedding_bag_hotcold_partial.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # mode, table dtype, d
+        ctypes.c_void_p, ctypes.c_void_p,                   # hot, table (the shard)
+        ctypes.c_void_p, ctypes.c_void_p,                   # hot_sel, hot_mask
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,   # cold_ids, cold_seg, C_pad
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # cold_start, out, compute dtype
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: rows/slot, ids/lane, grid
+        ctypes.c_void_p,                                    # stream
+    ]
     lib.drs_hotcold_cold_starts.restype = ctypes.c_int
     lib.drs_hotcold_cold_starts.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,   # cold_seg, C_pad, cold_start
@@ -973,10 +1185,11 @@ def _declare_hotcold(lib: ctypes.CDLL):
 
 
 def _hotcold_dispatch(wrapper, mode: str, hot, table, scale, split: dict, d: int, cdt,
-                      align: int, plain):
+                      align: int, plain, partial: bool = False):
     """``plain()`` for CPU tensors; on the card K6 (``mode``) on checked
     inputs: its two launches (``cold_start``, then the pool), counted once in
-    ``wrapper.kernel_launches``."""
+    ``wrapper.kernel_launches``. ``partial``: a row shard's sum, f32 (int32
+    for per-table int8), before the scale and the rounding."""
     device = table.device
     if device.type == "cpu":
         return plain()
@@ -987,20 +1200,25 @@ def _hotcold_dispatch(wrapper, mode: str, hot, table, scale, split: dict, d: int
                          f"start on a {align}-byte boundary")
     hot_sel, cold_ids = split["hot_sel"], split["cold_ids"]
     B, T, L = hot_sel.shape
-    out = torch.empty((B, T, d), dtype=cdt, device=device)
+    out_dtype = (torch.int32 if mode == "int8" else torch.float32) if partial else cdt
+    out = torch.empty((B, T, d), dtype=out_dtype, device=device)
     if B * T == 0:
         return out
     _check_k6_sizes(cold_ids.numel(), B * T)
     plan = k6_launch_plan(B * T, L, mode, d, table.element_size())
     starts = torch.empty((B * T + 1,), dtype=torch.int32, device=device)  # launch 1's output
-    _build.launch(_build.load("embedding_bag_hotcold", _declare_hotcold),
-                  "drs_embedding_bag_hotcold", device, _K6_MODES[mode],
-                  _DTYPE_CODES.get(table.dtype, 0), d, hot.data_ptr() or None, table.data_ptr(),
-                  None if scale is None else scale.data_ptr(), hot_sel.data_ptr(),
-                  split["hot_mask"].data_ptr(), cold_ids.data_ptr() or None,
-                  split["cold_seg"].data_ptr() or None, cold_ids.numel(), starts.data_ptr(),
-                  out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L, plan.rows_per_slot,
-                  plan.ids_per_lane, plan.grid)
+    lib = _build.load("embedding_bag_hotcold", _declare_hotcold)
+    head = (_K6_MODES[mode], _DTYPE_CODES.get(table.dtype, 0), d, hot.data_ptr() or None,
+            table.data_ptr())
+    stream = (hot_sel.data_ptr(), split["hot_mask"].data_ptr(), cold_ids.data_ptr() or None,
+              split["cold_seg"].data_ptr() or None, cold_ids.numel(), starts.data_ptr(),
+              out.data_ptr(), _DTYPE_CODES[cdt], B * T, T, L, plan.rows_per_slot,
+              plan.ids_per_lane, plan.grid)
+    if partial:
+        _build.launch(lib, "drs_embedding_bag_hotcold_partial", device, *head, *stream)
+    else:
+        _build.launch(lib, "drs_embedding_bag_hotcold", device, *head,
+                      None if scale is None else scale.data_ptr(), *stream)
     _build.count_launch(wrapper)
     return out
 
@@ -1099,6 +1317,65 @@ def embedding_bag_hotcold_int8_rowwise(hot_qrows: torch.Tensor, qrows: torch.Ten
 
 
 embedding_bag_hotcold_int8_rowwise.kernel_launches = 0
+
+
+def embedding_bag_hotcold_shard(hot_table: torch.Tensor, shard: torch.Tensor, split: dict, *,
+                                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One row shard's part of ``embedding_bag_hotcold`` (K6 on a shard):
+    ``split``'s ``cold_ids`` are the shard's own cold ids, already local to
+    it (``ops/hotcold.py::split_hot_cold_sharded``, ``_hybrid``), and its
+    ``hot_mask`` marks the hits this shard counts (all false on every shard
+    but one, so the hot part is counted once). Returns the ``(B, T, d)`` f32
+    partial, each row converted to the compute dtype and summed, not
+    rounded. CPU tensors take ``embedding_bag_hotcold_reference(...,
+    partial=True)``; CUDA tensors launch K6, counted in
+    ``embedding_bag_hotcold_shard.kernel_launches``."""
+    cdt = compute_dtype if compute_dtype is not None else shard.dtype
+    _check_float_table(shard, cdt)
+    _check_hotcold(hot_table, shard, split)
+    return _hotcold_dispatch(
+        embedding_bag_hotcold_shard, "float", hot_table, shard, None, split, shard.shape[1], cdt,
+        16, lambda: embedding_bag_hotcold_reference(hot_table, shard, split, compute_dtype=cdt,
+                                                    partial=True), partial=True)
+
+
+embedding_bag_hotcold_shard.kernel_launches = 0
+
+
+def embedding_bag_hotcold_int8_shard(hot_q: torch.Tensor, q_shard: torch.Tensor,
+                                     split: dict) -> torch.Tensor:
+    """``embedding_bag_hotcold_shard`` over a per-table int8 shard: the
+    ``(B, T, d)`` exact int32 pool before the scale (K6-int8 with an int32
+    output). CPU tensors take the plain version; CUDA tensors launch K6,
+    counted in ``embedding_bag_hotcold_int8_shard.kernel_launches``."""
+    _check_int8_table(q_shard, 0, torch.float32)
+    _check_hotcold(hot_q, q_shard, split)
+    return _hotcold_dispatch(
+        embedding_bag_hotcold_int8_shard, "int8", hot_q, q_shard, None, split, q_shard.shape[1],
+        torch.float32, 16,
+        lambda: embedding_bag_hotcold_int8_reference(hot_q, q_shard, None, split, partial=True),
+        partial=True)
+
+
+embedding_bag_hotcold_int8_shard.kernel_launches = 0
+
+
+def embedding_bag_hotcold_int8_rowwise_shard(hot_qrows: torch.Tensor, qrows_shard: torch.Tensor,
+                                             split: dict) -> torch.Tensor:
+    """``embedding_bag_hotcold_shard`` over a row-wise int8 shard: the
+    ``(B, T, d)`` f32 sum of the dequantized rows, not cast. CPU tensors
+    take the plain version; CUDA tensors launch K6, counted in
+    ``embedding_bag_hotcold_int8_rowwise_shard.kernel_launches``."""
+    _check_int8_table(qrows_shard, 4, torch.float32)
+    _check_hotcold(hot_qrows, qrows_shard, split)
+    return _hotcold_dispatch(
+        embedding_bag_hotcold_int8_rowwise_shard, "int8_rowwise", hot_qrows, qrows_shard, None,
+        split, qrows_shard.shape[1] - 4, torch.float32, 4,
+        lambda: embedding_bag_hotcold_int8_rowwise_reference(hot_qrows, qrows_shard, split,
+                                                             partial=True), partial=True)
+
+
+embedding_bag_hotcold_int8_rowwise_shard.kernel_launches = 0
 
 
 # ---------------------------------------------------------- export helpers

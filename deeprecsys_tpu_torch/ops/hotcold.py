@@ -3,7 +3,8 @@
 Counterpart of ``deeprecsys_tpu/ops/embedding.py`` (``_pad_bucket`` :287,
 ``_split_hot_cold_native`` and ``split_hot_cold`` :347-480,
 ``hot_coverage_of`` :585, ``scan_budget_subsample`` :607,
-``select_hot_ids`` :627). All numpy; ``tests/test_torch_hotcold.py`` holds
+``select_hot_ids`` :627, ``split_hot_cold_sharded`` and
+``split_hot_cold_hybrid`` :649-735). All numpy; ``tests/test_torch_hotcold.py`` holds
 each equal to its original on the same inputs.
 
 A batch's ``(B, T, L)`` lookups split into hits of a sorted hot set of
@@ -166,6 +167,70 @@ def split_hot_cold(indices: np.ndarray, offsets: np.ndarray, hot_ids: np.ndarray
         cold_ids[n_cold:] = 0
         cold_seg[n_cold:] = B * T
     return {**shaped, "cold_ids": cold_ids, "cold_seg": cold_seg, "n_cold": n_cold}
+
+
+def split_hot_cold_sharded(indices: np.ndarray, offsets: np.ndarray, hot_ids: np.ndarray,
+                           n_shards: int, rows_per_shard: int, cold_buckets=None,
+                           impl: str = "auto", slot_mask: "np.ndarray | None" = None,
+                           hot_index=None) -> dict:
+    """The split with the cold stream partitioned by owning row shard (shard
+    m owns fused rows ``[m * rows_per_shard, (m+1) * rows_per_shard)``), for
+    the tensor-parallel mesh lookup (JAX :649-679): ``hot_sel``/``hot_mask``
+    as ``split_hot_cold``'s, ``cold_local``/``cold_seg`` ``(M, C_pad)``
+    int32 (shard-local ids; pads id 0 in bag ``B*T``), ``n_cold``. The
+    hybrid partition at one data shard."""
+    h = split_hot_cold_hybrid(indices, offsets, hot_ids, 1, n_shards, rows_per_shard,
+                              cold_buckets=cold_buckets, impl=impl, slot_mask=slot_mask,
+                              hot_index=hot_index)
+    return {"hot_sel": h["hot_sel"], "hot_mask": h["hot_mask"],
+            "cold_local": h["cold_local"][0], "cold_seg": h["cold_seg"][0],
+            "n_cold": h["n_cold"]}
+
+
+def split_hot_cold_hybrid(indices: np.ndarray, offsets: np.ndarray, hot_ids: np.ndarray,
+                          n_data: int, n_model: int, rows_per_shard: int, cold_buckets=None,
+                          impl: str = "auto", slot_mask: "np.ndarray | None" = None,
+                          hot_index=None) -> dict:
+    """The split for a (data x model) mesh (JAX :682-735): the cold stream
+    partitioned by (data shard of the query row, owning row shard). Data
+    shard d owns batch rows ``[d*B/D, (d+1)*B/D)`` and its segments are
+    local, ``b_local*T + t``. Returns ``hot_sel``/``hot_mask`` ``(B, T, L)``,
+    ``cold_local``/``cold_seg`` ``(D, M, C_pad)`` int32 (shard-local ids;
+    pads id 0 in segment ``B/D*T``, last in each cell; each cell keeps the
+    stream's order, so its bags ascend) and ``n_cold``. ``C_pad`` is the
+    bucketed largest cell. One stable argsort of the cell ids partitions the
+    stream, whatever the mesh's size."""
+    base = split_hot_cold(indices, offsets, hot_ids, impl=impl, pad=False,
+                          slot_mask=slot_mask, hot_index=hot_index)
+    B, T, L = indices.shape
+    if B % n_data:
+        raise ValueError(f"batch {B} does not divide over data axis {n_data}")
+    b_loc = B // n_data
+    n_cold = base["n_cold"]
+    ids = base["cold_ids"].astype(np.int64)   # exact length (pad=False)
+    segs = base["cold_seg"].astype(np.int64)  # global b*T + t
+    d_of = segs // (b_loc * T)
+    seg_local = segs % (b_loc * T)
+    m_of = np.clip(ids // rows_per_shard, 0, n_model - 1)
+    local_ids = ids - m_of * rows_per_shard
+    cell = d_of * n_model + m_of
+    order = np.argsort(cell, kind="stable")
+    ids_sorted = local_ids[order]
+    segs_sorted = seg_local[order]
+    bounds = np.searchsorted(cell[order], np.arange(n_data * n_model + 1))
+    counts = np.diff(bounds)
+    c_max = int(counts.max()) if n_cold else 0
+    c_pad = _pad_bucket(c_max, cold_buckets, floor=8)
+    cold_local = np.zeros((n_data, n_model, c_pad), dtype=np.int32)
+    cold_seg = np.full((n_data, n_model, c_pad), b_loc * T, dtype=np.int32)
+    for c in range(n_data * n_model):
+        lo, hi = bounds[c], bounds[c + 1]
+        if hi > lo:
+            d, m = divmod(c, n_model)
+            cold_local[d, m, : hi - lo] = ids_sorted[lo:hi]
+            cold_seg[d, m, : hi - lo] = segs_sorted[lo:hi]
+    return {"hot_sel": base["hot_sel"], "hot_mask": base["hot_mask"],
+            "cold_local": cold_local, "cold_seg": cold_seg, "n_cold": n_cold}
 
 
 def hot_coverage_of(indices: np.ndarray, offsets: np.ndarray, hot_ids: np.ndarray,

@@ -74,10 +74,21 @@ its control ring and is acknowledged on the response ring
 scores go back through, a blob-arena slot (JAX ``engine.py:1195-1286,
 :1501-1510``).
 
-Multi-device meshes are not ported (``NotImplementedError``, ROADMAP.md
-Queue 1 item 12). There is no TPU layout negotiation to port: a checkpoint
-is loaded against the engine's model config, which fixes every shape and
-dtype.
+With ``mesh=`` (a ``parallel.make_mesh`` mesh; JAX ``engine.py:140-151,
+:279-488, :785-792, :1095-1151``) the engine serves over the mesh from its
+own thread: the buckets round up to a multiple of the "data" axis, the
+params are placed by ``parallel.shard_params`` (the table row-sharded over
+"model"), the direct path runs ``parallel.sharded_apply`` and a hot/cold
+engine the mesh split (tensor-parallel when "data" is 1, hybrid
+otherwise). The engine's device is the mesh's first entry, where the
+scores land; the engine makes a stream on every distinct mesh device in its
+thread, and an execution completes when an event on each of them has
+passed. A refresh gathers the new hot table's rows from the shards that own
+them; a reload loads the checkpoint on the first device and shards it.
+The orchestrator, ``build_engine_pool`` and the ingress pass ``mesh`` on to
+thread engines (cpu-mp engine processes refuse one, as in the JAX package).
+There is no TPU layout negotiation to port: a checkpoint is loaded against
+the engine's model config, which fixes every shape and dtype.
 """
 
 from __future__ import annotations
@@ -150,7 +161,7 @@ class _Slot:
     asynchronously."""
 
     def __init__(self, rows: int, cfg: ModelConfig, masked: bool, pin: bool,
-                 hotcold: bool = False):
+                 hotcold: bool = False, mesh=None):
         T, L = cfg.num_tables, cfg.num_indices_per_lookup
 
         def buf(shape, dtype):
@@ -162,20 +173,28 @@ class _Slot:
         self.out = buf((rows, cfg.out_dim), compute_dtype_of(cfg))
         self.split = self.split_np = None
         if hotcold:
-            n = max(rows * T * L, max(cold_buckets_for(rows * T * L)))
+            n = rows * T * L
+            cold_top = max(cold_buckets_for(n, mesh))
+            if mesh is None:  # the splitter writes the unpadded stream here too
+                cold, key = max(n, cold_top), "cold_ids"
+            else:  # a stream a (data, model) cell
+                cold, key = mesh.size * cold_top, "cold_local"
             self.split = {"hot_sel": buf((n,), torch.int32), "hot_mask": buf((n,), torch.bool),
-                          "cold_ids": buf((n,), torch.int32), "cold_seg": buf((n,), torch.int32)}
+                          key: buf((cold,), torch.int32), "cold_seg": buf((cold,), torch.int32)}
             self.split_np = {k: v.numpy() for k, v in self.split.items()}
+
+    def stage(self, split: dict):
+        """Copy ``split``'s arrays into the slot's buffers (a mesh split,
+        which the splitters return in arrays of their own)."""
+        for k, buf in self.split_np.items():
+            v = split[k]
+            buf[:v.size] = v.reshape(-1)
 
     def split_tensors(self, split: dict) -> dict:
         """The slot's buffers holding ``split`` (``prepare``'s result written
-        into ``split_np``), shaped as K6 takes them."""
-        shape = split["hot_sel"].shape
-        n, c_pad = split["hot_sel"].size, split["cold_ids"].size
-        return {"hot_sel": self.split["hot_sel"][:n].view(shape),
-                "hot_mask": self.split["hot_mask"][:n].view(shape),
-                "cold_ids": self.split["cold_ids"][:c_pad],
-                "cold_seg": self.split["cold_seg"][:c_pad]}
+        into ``split_np``, or ``stage``d there), shaped as the split's
+        arrays: as K6 takes them on one device."""
+        return {k: buf[:split[k].size].view(split[k].shape) for k, buf in self.split.items()}
 
 
 class ComputeEngine(threading.Thread):
@@ -199,9 +218,6 @@ class ComputeEngine(threading.Thread):
         arena=None,
     ):
         super().__init__(name=f"engine-{engine_id}", daemon=True)
-        if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 12)")
         self.engine_id = engine_id
         self.model_cfg = model_cfg
         self.serving_cfg = serving_cfg
@@ -209,7 +225,16 @@ class ComputeEngine(threading.Thread):
         self.response_q = response_q
         self.ready_q = ready_q
         # Raises when a card is asked for and there is none: never the CPU.
+        # On a mesh the engine's device is its first entry (JAX engine.py:785).
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices.flat[0]
+            for dev in mesh.distinct_devices:
+                resolve_device(str(dev))
         self.device = resolve_device("cuda" if device is None else str(device))
+        if self.device.type == "cuda" and self.device.index is None:
+            # The card by its index, as tensors name it (streams are keyed so).
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.params = params
         self.seed = seed
         if buckets is None:
@@ -219,12 +244,20 @@ class ComputeEngine(threading.Thread):
         self.buckets = tuple(
             b for b in sorted(buckets) if b <= serving_cfg.max_mini_batch_size
         ) or (serving_cfg.max_mini_batch_size,)
+        if mesh is not None:
+            # Every bucket divides the data axis: rounded up, so that a
+            # request of the largest size is never served at a smaller cap
+            # (the cap may pass max_mini_batch_size by under D pad rows).
+            n_data = mesh.shape["data"]
+            self.buckets = tuple(sorted({-(-b // n_data) * n_data for b in self.buckets}))
         self.model = None
+        self._direct_fn = None  # the mesh's direct forward (parallel.sharded_apply)
         self._rows = np.asarray(model_cfg.scaled_rows, np.int64)[None, :, None]
         self._host_data: dict[int, Batch] = {}  # bucket -> host rows (pinned on a card)
         self._pending: "queue.Queue" = queue.Queue()
         self._free_slots: "queue.Queue" = queue.Queue()
         self._stream = None
+        self._streams: dict = {}  # device -> the engine's stream there (a card)
         self.error: Exception | None = None
         # Observability, single writer each: executions per bucket, warm-up
         # executions, coalesced, clamped, rejected and expired requests.
@@ -292,9 +325,17 @@ class ComputeEngine(threading.Thread):
             self.params = bridge.tree_map(lambda t: t.to(self.device), self.params)
         if cfg.embedding_impl in ("hotcold", "auto"):
             self._setup_hotcold(require=cfg.embedding_impl == "hotcold")
+        if self.mesh is not None:
+            from deeprecsys_tpu_torch.parallel import shard_params, sharded_apply
+
+            # The table row-sharded over "model"; a hot table and the towers
+            # replicated (JAX engine.py:279-290, :371-378).
+            self.params = shard_params(self.params, self.mesh)
+            self._direct_fn = sharded_apply(self.model, self.mesh, has_dense=cfg.dense_dim > 0)
         if self.device.type == "cuda":
             # Params and offsets were made on other streams or threads.
-            torch.cuda.synchronize(self.device)
+            for dev in self._devices():
+                torch.cuda.synchronize(dev)
         pin = self.device.type == "cuda"
         full = RecDataGenerator(cfg, seed=self.seed + 17,
                                 data_generation=self.serving_cfg.data_generation,
@@ -312,7 +353,7 @@ class ComputeEngine(threading.Thread):
         ragged = self.serving_cfg.accept_ragged
         hotcold = self._hotcold is not None
         for _ in range(IN_FLIGHT):
-            self._free_slots.put(_Slot(max(self.buckets), cfg, ragged, pin, hotcold))
+            self._free_slots.put(_Slot(max(self.buckets), cfg, ragged, pin, hotcold, self.mesh))
         all_true = None
         if ragged:
             all_true = torch.ones(indices.shape, dtype=torch.bool, pin_memory=pin)
@@ -323,18 +364,38 @@ class ComputeEngine(threading.Thread):
                                        indices=indices[:b])
             if hotcold:
                 # Every cold rung the splitter pads to, on an empty split.
-                for c_pad in cold_buckets_for(b * T * L):
-                    self._warm(self._host_data[b], b, {
-                        "hot_sel": np.zeros((b, T, L), np.int32),
-                        "hot_mask": np.zeros((b, T, L), bool),
-                        "cold_ids": np.zeros(c_pad, np.int32),
-                        "cold_seg": np.full(c_pad, b * T, np.int32)})
+                for c_pad in cold_buckets_for(b * T * L, self.mesh):
+                    self._warm(self._host_data[b], b, self._empty_split(b, c_pad))
             if direct:
                 self._warm(self._host_data[b], b)
                 if ragged:
                     # The masked twin: a ragged request runs the direct
                     # lookup with a mask.
                     self._warm(self._host_data[b]._replace(mask=all_true[:b]), b)
+
+    def _devices(self) -> list:
+        """The devices the engine runs on: the mesh's distinct ones, or its one."""
+        return [self.device] if self.mesh is None else self.mesh.distinct_devices
+
+    def _empty_split(self, b: int, c_pad: int) -> dict:
+        """A split of no hot hit and no cold lookup at cold rung ``c_pad``,
+        shaped as the engine's splitter shapes its splits (JAX
+        ``engine.py:395-418``)."""
+        T, L = self.model_cfg.num_tables, self.model_cfg.num_indices_per_lookup
+        split = {"hot_sel": np.zeros((b, T, L), np.int32),
+                 "hot_mask": np.zeros((b, T, L), bool)}
+        if self.mesh is None:
+            split["cold_ids"] = np.zeros(c_pad, np.int32)
+            split["cold_seg"] = np.full(c_pad, b * T, np.int32)
+        elif self.mesh.shape["data"] > 1:
+            D, M = self.mesh.shape["data"], self.mesh.shape["model"]
+            split["cold_local"] = np.zeros((D, M, c_pad), np.int32)
+            split["cold_seg"] = np.full((D, M, c_pad), (b // D) * T, np.int32)
+        else:
+            M = self.mesh.shape["model"]
+            split["cold_local"] = np.zeros((M, c_pad), np.int32)
+            split["cold_seg"] = np.full((M, c_pad), b * T, np.int32)
+        return split
 
     def _setup_hotcold(self, require: bool):
         """The hot/cold split (JAX ``engine.py:326-380``): the hot set,
@@ -363,16 +424,14 @@ class ComputeEngine(threading.Thread):
         self.hot_coverage = coverage
         if not require and coverage < cfg.hotcold_min_hit:
             return
-        self._hotcold = make_hotcold_model(self.model, hot_ids)
+        self._hotcold = make_hotcold_model(self.model, hot_ids, mesh=self.mesh)
         self.params = self._hotcold.convert_params(self.params)
 
     def _warm(self, host: Batch, bucket: int, split: dict | None = None):
         slot = self._free_slots.get()
         if split is not None:
-            for k, v in split.items():
-                slot.split_np[k][:v.size] = v.reshape(-1)
-        event = self._dispatch(host, bucket, slot, split)
-        if event is not None:
+            slot.stage(split)
+        for event in self._dispatch(host, bucket, slot, split):
             event.synchronize()
         self._free_slots.put(slot)
         self.warmup_executions += 1
@@ -440,17 +499,25 @@ class ComputeEngine(threading.Thread):
                      indices=slot.indices[:bucket],
                      mask=slot.mask[:bucket] if any_mask else None)
 
-    def _dispatch(self, host: Batch, bucket: int, slot: _Slot, split: dict | None = None):
+    def _dispatch(self, host: Batch, bucket: int, slot: _Slot, split: dict | None = None) -> list:
         """Copy ``host`` in (and ``split``, the host split held in ``slot``),
         run the model (K6 on the split, else the direct lookup), copy the
-        scores into ``slot``; returns the event that marks the scores
-        readable (None on the CPU, where every step is synchronous)."""
+        scores into ``slot``; returns the events that mark the scores
+        readable, one on the engine's stream of each of its devices (none on
+        the CPU, where every step is synchronous)."""
         on_card = self.device.type == "cuda"
 
         def to_device(t):
             return None if t is None else t.to(self.device, non_blocking=on_card)
 
-        if split is not None:
+        if self.mesh is not None:
+            # The mesh paths move each data slice to its row themselves.
+            if split is not None:
+                out = self._hotcold.apply(self.params, Batch(dense=host.dense, indices=None),
+                                          slot.split_tensors(split))
+            else:
+                out = self._direct_fn(self.params, host)
+        elif split is not None:
             # The split stands for the ids and consumed the ragged mask: the
             # tail takes only the dense features.
             batch = Batch(dense=to_device(host.dense), indices=None)
@@ -464,10 +531,13 @@ class ComputeEngine(threading.Thread):
             out = self.model.apply(params, batch)
         slot.out[:bucket].copy_(out, non_blocking=on_card)
         if not on_card:
-            return None
-        event = torch.cuda.Event()
-        event.record(self._stream)
-        return event
+            return []
+        events = []
+        for stream in self._streams.values():
+            event = torch.cuda.Event()
+            event.record(stream)
+            events.append(event)
+        return events
 
     # -- run loop ------------------------------------------------------
 
@@ -476,9 +546,13 @@ class ComputeEngine(threading.Thread):
             try:
                 stack.enter_context(torch.inference_mode())
                 if self.device.type == "cuda":
+                    # A stream on each of the engine's devices, current in
+                    # this thread; then the engine's own device is current.
+                    for dev in self._devices():
+                        self._streams[dev] = torch.cuda.Stream(dev)
+                        stack.enter_context(torch.cuda.stream(self._streams[dev]))
                     stack.enter_context(torch.cuda.device(self.device))
-                    self._stream = torch.cuda.Stream(self.device)
-                    stack.enter_context(torch.cuda.stream(self._stream))
+                    self._stream = self._streams[self.device]
                 self._setup()
             except Exception as e:  # surface engine failures instead of hanging
                 self.error = e
@@ -586,12 +660,16 @@ class ComputeEngine(threading.Thread):
                                     handle.path, self.device)
             if self._hotcold is not None:
                 new = self._hotcold.convert_params(new)
+            if self.mesh is not None:
+                from deeprecsys_tpu_torch.parallel import shard_params
+
+                new = shard_params(new, self.mesh)  # JAX engine.py:785-792
             old, self.params = self.params, new
             if self.device.type == "cuda":
-                # Executions queued on the stream still read the old tensors:
-                # their memory is reused only after those finish.
-                for t in tree_flatten(old):
-                    t.record_stream(self._stream)
+                # Executions queued on the streams still read the old
+                # tensors: their memory is reused only after those finish.
+                for t in (old.tensors() if self.mesh is not None else tree_flatten(old)):
+                    t.record_stream(self._streams[t.device])
             del old
             self.last_reload_ms = (time.perf_counter() - t0) * 1000.0
         except Exception as e:
@@ -690,11 +768,20 @@ class ComputeEngine(threading.Thread):
             if tracking:
                 self._track_direct(host, real_rows)
             return None
-        split = self._hotcold.prepare(host, out=slot.split_np)
+        split = self._prepare(host, slot)
         if tracking and self._track_hotcold(host, split, real_rows):
             if not self._hotcold_active:
                 return None
-            split = self._hotcold.prepare(host, out=slot.split_np)  # against the new set
+            split = self._prepare(host, slot)  # against the new set
+        return split
+
+    def _prepare(self, host: Batch, slot: _Slot) -> dict:
+        """The host split of ``host`` in ``slot``'s buffers: written there by
+        the splitter on one device, copied there from a mesh split."""
+        if self.mesh is None:
+            return self._hotcold.prepare(host, out=slot.split_np)
+        split = self._hotcold.prepare(host)
+        slot.stage(split)
         return split
 
     def _track_hotcold(self, host: Batch, split: dict, real_rows: int) -> bool:
@@ -897,9 +984,17 @@ class ComputeEngine(threading.Thread):
         the coverage reference re-based on the new set."""
         from deeprecsys_tpu_torch.models.hotcold import with_hot_ids
 
-        hc = with_hot_ids(self._hotcold, new_hot, hot_index=hot_index)
-        self.params = hc.convert_params(
-            {k: v for k, v in self.params.items() if k != "hot_table"})
+        hc = with_hot_ids(self._hotcold, new_hot, mesh=self.mesh, hot_index=hot_index)
+        if self.mesh is not None:
+            # The hot rows gathered from the shards that own them, as raw
+            # rows of the table's layout, then one copy a device (JAX
+            # engine.py:1104-1113).
+            from deeprecsys_tpu_torch.parallel.sharding import gather_rows
+
+            self.params = self.params.with_leaf("hot_table", gather_rows(self.params, new_hot))
+        else:
+            self.params = hc.convert_params(
+                {k: v for k, v in self.params.items() if k != "hot_table"})
         self._hotcold = hc
         self.hot_coverage = ref_cov
         self.hot_refreshes += 1
@@ -1033,9 +1128,9 @@ class ComputeEngine(threading.Thread):
             else:
                 host = self._host_data[bucket]
             split = self._split(host, slot, min(sum(r.batch_size for r in group), bucket))
-            event = self._dispatch(host, bucket, slot, split)
+            events = self._dispatch(host, bucket, slot, split)
             queue_end = time.time()
-            self._pending.put((group, slot, bucket, event, queue_start, queue_end))
+            self._pending.put((group, slot, bucket, events, queue_start, queue_end))
 
     def _completion_loop(self):
         with torch.inference_mode():
@@ -1045,15 +1140,15 @@ class ComputeEngine(threading.Thread):
                     return
                 self._complete(*item)
 
-    def _complete(self, group, slot: _Slot, bucket: int, event, queue_start: float,
+    def _complete(self, group, slot: _Slot, bucket: int, events: list, queue_start: float,
                   queue_end: float):
         # A response is complete when the client could read its scores (the
         # reference fetches the output blob, inferenceEngine.py:52-58): wait
         # for the copy back, the place where a device error surfaces.
         try:
             try:
-                if event is not None:
-                    event.synchronize()
+                for e in events:
+                    e.synchronize()
                 scores = slot.out[:bucket].to(torch.float32, copy=True).numpy()
             finally:
                 self._free_slots.put(slot)

@@ -134,6 +134,9 @@ class ServingServer:
         # and with model_accel an offload engine in this process, fed by the
         # in-process accel queue and answered on its own queue and router.
         if mesh is not None:
+            # Mesh engines are thread engines over the mesh; engine
+            # processes would each shard over the same devices (JAX
+            # ingress.py:121-125, the same refusal).
             raise NotImplementedError("mesh with cpu-mp ingress")
         if params is not None:
             raise ValueError("cpu-mp engines cannot take a params pytree; pass "

@@ -21,7 +21,8 @@ The single-device trainer of the JAX package on the card:
 JAX's jitted steps donate the params and the optimizer state; the port
 updates them in place instead (``Trainer.params`` and ``opt_state`` are
 the same tensors after a step). Not ported: the sharded trainers
-(``mesh=``, ROADMAP.md Queue 1 item 12) and ``dedup=True`` (ROADMAP.md
+(``mesh=``, ROADMAP.md Queue 1 item 12b; sharded serving is ported, in
+``parallel/``) and ``dedup=True`` (ROADMAP.md
 Queue 2 item 5: its argsort + segment-sum was a loss on the TPU, and its
 H100 choice waits on a measurement); both raise.
 
@@ -207,7 +208,7 @@ class Trainer:
     ):
         if mesh is not None:
             raise NotImplementedError("the sharded trainers (mesh=) are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 12, multi-device)")
+                                      "(ROADMAP.md Queue 1 item 12b, sharded training)")
         if cfg.table_quant != "none":
             raise ValueError("training requires float tables (table_quant='none')")
         if sparse_tables and cfg.resolved_table_pack > 1:

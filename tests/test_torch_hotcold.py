@@ -202,14 +202,6 @@ def test_cold_ladder_equals_jax(n):
     assert hotcold.cold_buckets_for(n) == jax_hotcold.cold_buckets_for(n, None)
 
 
-def test_sharded_ladder_and_mesh_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        hotcold.cold_buckets_for(64, mesh=object())
-    model = get_model(zoo.get_config("ncf", table_scale=SCALE), "cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        hotcold.make_hotcold_model(model, np.arange(4), mesh=object())
-
-
 # ---------------------------------------------------------------- K6's plain versions
 
 def _tables(seed, R, d=32):
@@ -663,9 +655,10 @@ def test_k6_geometry_mirrors_the_source():
             assert k6.geometry.chunk == 32 // k6.bags_per_warp  # a window is one step
     assert emb.k6_geometry("int8_rowwise", 32, 1) == G(16, 2, 16, 1, 2)
     assert emb.k6_geometry("int8_rowwise", 64, 1, True) == G(16, 4, 8, 8, 2)
-    assert "case 1: return launch<M, TIn, TC, D, SB::V, 1, 1, 0, 1, 1>(a);" in src
+    assert "case 1: return launch<M, TIn, TC, D, SB::V, 1, 1, 0, 1, 1, TO>(a);" in src
     for u in (2, 4, 8):
-        assert f"case {u}: return launch<M, TIn, TC, D, SB::V, 1, U{u}, SB::H, {u}, 1>(a);" in src
+        assert (f"case {u}: return launch<M, TIn, TC, D, SB::V, 1, U{u}, SB::H, {u}, 1, TO>(a);"
+                in src)
         for mode, itemsize in (("int8", 1), ("float", 2), ("int8_rowwise", 1)):
             plan = emb.k6_launch_plan(100, u, mode, 32, itemsize)
             assert (plan.rows_per_slot, plan.geometry.rows_per_slot) == (u, u)  # all at once

@@ -64,6 +64,9 @@ MODULES = [
     "deeprecsys_tpu_torch.ops.sparse_adagrad",
     "deeprecsys_tpu_torch.parallel",
     "deeprecsys_tpu_torch.parallel.sharding",
+    "deeprecsys_tpu_torch.parallel.mesh",
+    "deeprecsys_tpu_torch.parallel.placement",
+    "deeprecsys_tpu_torch.parallel.api",
     "deeprecsys_tpu_torch.serving",
     "deeprecsys_tpu_torch.serving.buckets",
     "deeprecsys_tpu_torch.serving.engine",

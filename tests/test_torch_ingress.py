@@ -440,7 +440,8 @@ def test_predict_ragged_refused_without_capability(tmp_path):
 def test_predict_ragged_on_hotcold_server(tmp_path):
     """A hot/cold server consumes the ragged mask in its host split: the
     JAX model's direct masked forward on the same weights. (The JAX test's
-    mesh case waits for multi-device serving, ROADMAP.md Queue 1 item 12.)"""
+    mesh case is tests/test_torch_parallel.py::
+    test_serving_server_ragged_predict_over_a_mesh.)"""
     cfg = zoo.get_config("rm1", table_scale=5000, embedding_impl="hotcold", hot_set_rows=64)
     np_params = bridge.init_numpy(cfg.replace(embedding_impl="xla"), 4)
     save_params(tmp_path / "hc", np_params)

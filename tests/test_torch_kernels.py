@@ -35,6 +35,10 @@ Tolerances:
   the same ids; float and row-wise within ``hotcold_tolerance`` of the
   plain version and ``pooled_tolerance``/``rowwise_tolerance`` of K1/K4
   (the same rows, summed in another f32 order).
+- The mesh modes (the window of K1, K1-int8 and K4; K6 on a shard): the
+  int32 partials bit for bit, the f32 ones within the same tolerances
+  given the window; the shards' partials combined against the direct
+  kernel as above, and K1's full window rounded once bit for bit K1.
 """
 
 import re
@@ -828,3 +832,124 @@ def test_hotcold_kernel_rejects_misaligned_tables(cuda):
     base = torch.zeros((tables["qrows"].numel() + 2,), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="4-byte"):
         embedding_bag_hotcold_int8_rowwise(hot, base[2:].view(tables["qrows"].shape), split)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("B,L", [(37, 23), (7, 3), (5, 1), (16, 80)])
+def test_window_kernels_match_plain_and_combine_to_the_direct_kernels(cuda, B, L, d, masked):
+    """K1, K1-int8 and K4 with the ownership window, on each of 4 row
+    shards: each partial against its plain version (``window=``), the
+    four summed (and scaled, cast) against the direct kernel."""
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag_int8_rowwise_shard, embedding_bag_int8_shard, embedding_bag_shard)
+
+    rows = (500, 300, 700, 100)  # 1600 rows: shards of 400 cut tables
+    q, scale, qrows, offsets, indices, mask = _int8_inputs(cuda, rows, d, B, L, d + B, masked)
+    g = torch.Generator(device=cuda).manual_seed(L)
+    table = torch.randn((sum(rows), d), generator=g, device=cuda).to(torch.bfloat16)
+    rps = sum(rows) // 4
+    parts = {"k1": [], "k1_int8": [], "k4": []}
+    for m in range(4):
+        lo, w = m * rps, (m * rps, (m + 1) * rps)
+        got = embedding_bag_shard(table[lo:lo + rps], offsets, indices, lo, mask=mask)
+        want = embedding_bag_reference(table[lo:lo + rps], offsets, indices, mask=mask, window=w)
+        assert got.dtype == torch.float32
+        tol = pooled_tolerance(got, want, table[lo:lo + rps], offsets, indices, mask, window=w)
+        assert bool(((got - want).abs() <= tol).all())
+        parts["k1"].append(got)
+        got = embedding_bag_int8_shard(q[lo:lo + rps], offsets, indices, lo, mask=mask)
+        want = embedding_bag_int8_reference(q[lo:lo + rps], None, offsets, indices, mask=mask,
+                                            window=w)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        parts["k1_int8"].append(got)
+        got = embedding_bag_int8_rowwise_shard(qrows[lo:lo + rps], offsets, indices, lo,
+                                               mask=mask)
+        want = embedding_bag_int8_rowwise_reference(qrows[lo:lo + rps], offsets, indices,
+                                                    mask=mask, window=w)
+        tol = rowwise_tolerance(got, want, qrows[lo:lo + rps], offsets, indices, mask, window=w)
+        assert bool(((got - want).abs() <= tol).all())
+        parts["k4"].append(got)
+    direct = embedding_bag(table, offsets, indices, mask=mask)
+    combined = sum(parts["k1"]).to(torch.bfloat16)
+    assert bool(((combined.float() - direct.float()).abs()
+                 <= pooled_tolerance(combined, direct, table, offsets, indices, mask)).all())
+    full = embedding_bag_shard(table, offsets, indices, 0, mask=mask)
+    assert torch.equal(full.to(torch.bfloat16), direct)
+    i8 = sum(parts["k1_int8"])
+    assert torch.equal((i8.float() * scale[None, :, None]).to(torch.bfloat16),
+                       embedding_bag_int8(q, scale, offsets, indices,
+                                          compute_dtype=torch.bfloat16, mask=mask))
+    k4 = embedding_bag_int8_rowwise(qrows, offsets, indices, mask=mask)
+    assert bool(((sum(parts["k4"]) - k4).abs()
+                 <= rowwise_tolerance(sum(parts["k4"]), k4, qrows, offsets, indices, mask)).all())
+
+
+@pytest.mark.parametrize("layout", ["none", "int8", "int8_rowwise"])
+@pytest.mark.parametrize("B,T,L", [(7, 3, 3), (33, 5, 80), (300, 4, 1)])
+def test_hotcold_shard_kernels_match_plain_and_combine(cuda, layout, B, T, L):
+    """K6 on each of 4 row shards' cold streams (the mesh splitter's
+    shard-local ids), the hot hits on shard 0 only: each partial against
+    its plain version (int32 for per-table int8, bit for bit), the four
+    combined against the direct kernel on the same ids."""
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag_hotcold_int8_reference, embedding_bag_hotcold_int8_rowwise_reference,
+        embedding_bag_hotcold_int8_rowwise_shard, embedding_bag_hotcold_int8_shard,
+        embedding_bag_hotcold_reference, embedding_bag_hotcold_shard)
+    from deeprecsys_tpu_torch.ops.embedding import hotcold_tolerance
+    from deeprecsys_tpu_torch.ops.hotcold import select_hot_ids, split_hot_cold_sharded
+
+    rng = np.random.default_rng(B + L)
+    rows = 300
+    R = rows * T
+    offsets = torch.arange(T, dtype=torch.int32, device=cuda) * rows
+    idx = (rng.zipf(1.3, size=(B, T, L)) % rows).astype(np.int32)
+    off64 = np.arange(T, dtype=np.int64) * rows
+    hot_ids = select_hot_ids(idx, off64, 40)
+    g = torch.Generator(device=cuda).manual_seed(T)
+    if layout == "none":
+        table = torch.randn((R, 32), generator=g, device=cuda).to(torch.bfloat16)
+    else:
+        table = torch.randint(-127, 128, (R, 32), generator=g, device=cuda, dtype=torch.int8)
+        if layout == "int8_rowwise":
+            table = torch.cat([table, (torch.rand((R,), generator=g, device=cuda) * 1e-2 + 1e-4)
+                               .view(torch.int8).reshape(R, 4)], dim=1)
+    rps = R // 4
+    split = split_hot_cold_sharded(idx, off64, hot_ids, 4, rps)
+    hot = table.index_select(0, torch.as_tensor(hot_ids, device=cuda))
+    parts = []
+    for m in range(4):
+        s = {"hot_sel": torch.from_numpy(split["hot_sel"]).to(cuda),
+             "hot_mask": torch.from_numpy(split["hot_mask"] & (m == 0)).to(cuda),
+             "cold_ids": torch.from_numpy(split["cold_local"][m]).to(cuda),
+             "cold_seg": torch.from_numpy(split["cold_seg"][m]).to(cuda)}
+        shard = table[m * rps:(m + 1) * rps]
+        if layout == "int8":
+            got = embedding_bag_hotcold_int8_shard(hot, shard, s)
+            want = embedding_bag_hotcold_int8_reference(hot, shard, None, s, partial=True)
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+        else:
+            rowwise = layout == "int8_rowwise"
+            fn = embedding_bag_hotcold_int8_rowwise_shard if rowwise else \
+                embedding_bag_hotcold_shard
+            ref = (embedding_bag_hotcold_int8_rowwise_reference if rowwise
+                   else embedding_bag_hotcold_reference)
+            got, want = fn(hot, shard, s), ref(hot, shard, s, partial=True)
+            assert got.dtype == torch.float32
+            assert bool(((got - want).abs()
+                         <= hotcold_tolerance(got, want, hot, shard, s, rowwise=rowwise)).all())
+        parts.append(got)
+    acc = sum(parts)
+    ids = torch.from_numpy(idx).to(cuda)
+    if layout == "int8":
+        scale = torch.rand((T,), generator=g, device=cuda) * 1e-2 + 1e-4
+        assert torch.equal(acc.float() * scale[None, :, None],
+                           embedding_bag_int8(table, scale, offsets, ids))
+    elif layout == "int8_rowwise":
+        want = embedding_bag_int8_rowwise(table, offsets, ids)
+        assert bool(((acc - want).abs()
+                     <= rowwise_tolerance(acc, want, table, offsets, ids)).all())
+    else:
+        got, want = acc.to(torch.bfloat16), embedding_bag(table, offsets, ids)
+        assert bool(((got.float() - want.float()).abs()
+                     <= pooled_tolerance(got, want, table, offsets, ids)).all())

@@ -250,13 +250,14 @@ def test_int8_kernel_instances_match_the_plans():
     assert len(re.findall(r"constexpr int GL = D == 32 \? 1 : 4;", src)) == 2
     assert re.search(r"constexpr int UL = D == 32 \? 2 : 4;", src)
     assert re.search(r"constexpr int UL = D == 32 \? 2 : 3;", src)
-    assert set(re.findall(r"launch_int8<TC, D, LPR, (S|GL), (\w+), (true|false)>", src)) == {
+    assert set(re.findall(r"launch_int8<TC, D, LPR, (S|GL), (\w+), (true|false), kWindow>",
+                          src)) == {
         ("S", "1", "false"), ("S", "2", "true"), ("GL", "UL", "false")}
     assert re.search(r"constexpr int S8 = 256 / D;", src)
     assert re.search(r"constexpr int S16 = 512 / D;", src)
-    assert set(re.findall(r"launch_rowwise<TC, D, D / (\d+), (S8|S16|GL), (\w+), (true|false)>",
-                          src)) == {("8", "S8", "1", "false"), ("16", "S16", "2", "true"),
-                                    ("16", "GL", "UL", "false")}
+    assert set(re.findall(r"launch_rowwise<TC, D, D / (\d+), (S8|S16|GL), (\w+), (true|false), "
+                          r"kWindow>", src)) == {
+        ("8", "S8", "1", "false"), ("16", "S16", "2", "true"), ("16", "GL", "UL", "false")}
 
 
 def _plans(kernel, n_bags, L, d):

@@ -333,20 +333,16 @@ def test_gpu_engine_raises_without_a_card():
         serving.run_serving(cfg, ServingConfig(engine_backend="gpu"), settle_s=0.01)
 
 
-@pytest.mark.parametrize("what,kw", [("mesh", {"mesh": object()}), ("arena", {"arena": object()})])
+@pytest.mark.parametrize("what,kw", [("arena", {"arena": object()})])
 def test_engine_paths_not_ported_raise(what, kw):
-    """A mesh is still refused (ROADMAP.md Queue 1 item 12). The cpu-mp
-    arena and control ring, once refused here too, are taken
-    (tests/test_torch_process_engines.py serves through them)."""
+    """The cpu-mp arena and control ring, once refused here, are taken
+    (tests/test_torch_process_engines.py serves through them). A mesh, once
+    refused here too, is served (tests/test_torch_parallel.py)."""
     cfg = zoo.get_config("ncf", table_scale=SCALE)
     scfg = ServingConfig(engine_backend="cpu")
     qs = [queue.Queue() for _ in range(3)]
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-            engine.ComputeEngine(0, cfg, scfg, *qs, device="cpu", **kw)
-    else:
-        eng = engine.ComputeEngine(0, cfg, scfg, *qs, device="cpu", control_q=qs[0], **kw)
-        assert eng.arena is kw["arena"] and eng.control_q is qs[0]
+    eng = engine.ComputeEngine(0, cfg, scfg, *qs, device="cpu", control_q=qs[0], **kw)
+    assert eng.arena is kw["arena"] and eng.control_q is qs[0]
 
 
 @pytest.mark.parametrize("what", ["hotcold", "refresh"])
