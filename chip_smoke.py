@@ -94,6 +94,28 @@ and ``experiments/op_breakdown.py`` for rm1 and dien; ``train_planted``
 its holdout AUC beside the Bayes ceiling; and ``experiments/qps_sweep.py``
 on the card for rm1's latency-bounded QPS.
 
+Then training over meshes whose entries all name the card (phase 17, after
+phase 11; virtual shards: every launch, gradient reduction and update runs,
+no scaling across cards shows): rm1 at full size (f32, batch 128) trained
+dense (adagrad) on 1x4 and 2x2 and sparse on 1x4, 2x2 and 4x1, a 2x2
+``dedup=True`` step, and dien sparse on 1x4, each from the single-device
+trainer's weights on its batches: the losses of three steps against the
+single-device trainer's; after one step the mesh's pooled gradients within
+1e-5 of their max |g| of the single-device ones, and the table and
+accumulator within the bounds of the steps' kernels plus what that limit
+carries; every launch of K1's, K1b's and K5's ownership windows in step 1,
+and the single-device step's K5, against its plain version; and the
+launches around each path (K1's window D*M a step, K1b's window D*M a dense
+step, K5's window a distinct shard a sparse step, K10 once);
+``make_train_step`` on the dryrun's "dot" DLRM (four SGD steps on one
+batch, the loss falling, step 1's windows against their plain versions)
+and on rm1 for one step against the single-device SGD step; the two
+windows' times at rm1's 1/4 shard beside their bounds, plain versions and
+``index_add_`` yardsticks; each path's step times; and ``dedup=True``
+against ``False`` for rm1's and rm2's single-device sparse steps (each
+step's K5 then against its plain version), with the sort and segment sum
+alone.
+
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
 at once. It imports no JAX and nothing of the JAX package: only
@@ -121,7 +143,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from deeprecsys_tpu_torch import ServingConfig, bridge, zoo
+from deeprecsys_tpu_torch import ModelConfig, ServingConfig, bridge, zoo
 from deeprecsys_tpu_torch import main as port_main
 from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
@@ -135,14 +157,14 @@ from deeprecsys_tpu_torch.kernel_bench import (
     HBM_BYTES_PER_S, cold_starts_bound, direct_call, g_rows, hotcold_calls, hotcold_inputs,
     k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
     k3b_library, k4_bound, k5_bound, k5_library, k6_bound, k6_call, k10_bound, k10_inputs,
-    k10_library, measure, named_kernel_ms, ptxas_summary, random_int8_tables, span_ms,
-    window_bound, window_library)
+    k10_library, k1b_window_bound, k5_window_bound, measure, named_kernel_ms, ptxas_summary,
+    random_int8_tables, span_ms, window_bound, window_g_rows, window_library)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for, make_hotcold_model
 from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
-    embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference,
+    embedding_bag_backward_shard, embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference,
     embedding_bag_hotcold_int8_rowwise, embedding_bag_hotcold_int8_rowwise_reference,
     embedding_bag_hotcold_int8_rowwise_shard, embedding_bag_hotcold_int8_shard,
     embedding_bag_hotcold_reference, embedding_bag_hotcold_shard, embedding_bag_int8,
@@ -151,14 +173,17 @@ from deeprecsys_tpu_torch.ops import (
     embedding_bag_int8_shard, embedding_bag_reference, embedding_bag_shard,
     optimizer_update, optimizer_update_reference, rnn_scan, rnn_scan_backward,
     rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step,
-    sparse_adagrad_step_reference)
+    sparse_adagrad_step_reference, sparse_adagrad_step_shard)
+from deeprecsys_tpu_torch import ops as port_ops
+from deeprecsys_tpu_torch.ops import embedding as emb_mod
 from deeprecsys_tpu_torch.ops import hotcold as hotcold_ops
 from deeprecsys_tpu_torch.ops.embedding import (
     backward_tolerance, hotcold_cold_starts, hotcold_tolerance, pooled_tolerance,
-    rowwise_tolerance)
+    rowwise_tolerance, scatter_counts, window_ids)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
-from deeprecsys_tpu_torch.parallel import make_mesh, shard_params, sharded_apply
+from deeprecsys_tpu_torch.parallel import make_mesh, make_train_step, shard_params, sharded_apply
+from deeprecsys_tpu_torch.parallel.sharding import leaf_copies
 from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.runtime.native import native_available
 from deeprecsys_tpu_torch.serving import ServiceRequest, latency_model, orchestrator, run_serving
@@ -236,6 +261,14 @@ KERNELS = {
     "embedding_bag_hotcold_int8_rowwise_shard": {
         "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_hotcold.cu",
         "replaces": "deeprecsys_tpu/parallel/sharding.py:228"},
+    # Phase 17, the training windows: K1b's (the VJP of a row shard's
+    # masked gather and pool under the dense mesh step's value_and_grad)
+    # and K5's (the sharded sparse step's masked scatters).
+    "embedding_bag_backward_shard": {
+        "source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag_backward.cu",
+        "replaces": "deeprecsys_tpu/parallel/sharding.py:118"},
+    "sparse_adagrad_step_shard": {"source": "deeprecsys_tpu_torch/ops/csrc/sparse_adagrad.cu",
+                                  "replaces": "deeprecsys_tpu/train.py:177"},
 }
 # The lookup kernel each table layout takes (cfg.table_quant).
 LOOKUP = {"none": "embedding_bag", "int8": "embedding_bag_int8",
@@ -351,6 +384,26 @@ MESH_KERNEL_MODELS = ("rm1", "rm2")
 # The window kernel and K6's shard mode of each table layout.
 SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
          "int8_rowwise": "embedding_bag_int8_rowwise_shard"}
+# Phase 17, training over meshes of the card at rm1's full size: the paths
+# held to the single-device trainer (mode, data, model axes; "dedup" is
+# sparse with dedup=True), the steps of that check, the CLI's learning
+# rate, the timed paths (20 steps after 4), make_train_step's steps on the
+# dryrun's tiny "dot" DLRM (__graft_entry__.py:56-63, at d = 32: K1 and K1b
+# take d 32 or 64), and the models of the dedup measurement.
+MESH_TRAIN_RUNS = (("dense", 1, 4), ("dense", 2, 2), ("sparse", 1, 4), ("sparse", 2, 2),
+                   ("sparse", 4, 1), ("dedup", 2, 2))
+MESH_PARITY_STEPS = 3
+MESH_G_RTOL = 1e-5  # the mesh's pooled gradients against one device's, of their max |g|
+MESH_TRAIN_LR = 0.1
+MESH_TIMED_STEPS = 20
+MESH_TIMED_RUNS = (("rm1", "dense", (1, 4)), ("rm1", "dense", (2, 2)), ("rm1", "sparse", (1, 4)),
+                   ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (4, 1)), ("rm1", "dedup", (2, 2)),
+                   ("rm1", "make_train_step", (2, 2)), ("dien", "sparse", (1, 4)))
+DRYRUN_STEPS = 4
+DRYRUN_CFG = dict(model_type="dlrm", model_name="dryrun", mlp_bot=(16, 32), mlp_top=(16, 8, 1),
+                  embedding_rows=(64, 64, 32, 32), sparse_feature_size=32,
+                  num_indices_per_lookup=4, interaction_op="dot")
+DEDUP_MODELS = ("rm1", "rm2")
 HOTCOLD_SHARD = {"none": "embedding_bag_hotcold_shard",
                  "int8": "embedding_bag_hotcold_int8_shard",
                  "int8_rowwise": "embedding_bag_hotcold_int8_rowwise_shard"}
@@ -400,7 +453,9 @@ def _wrappers() -> dict:
             "embedding_bag_int8_rowwise_shard": embedding_bag_int8_rowwise_shard,
             "embedding_bag_hotcold_shard": embedding_bag_hotcold_shard,
             "embedding_bag_hotcold_int8_shard": embedding_bag_hotcold_int8_shard,
-            "embedding_bag_hotcold_int8_rowwise_shard": embedding_bag_hotcold_int8_rowwise_shard}
+            "embedding_bag_hotcold_int8_rowwise_shard": embedding_bag_hotcold_int8_rowwise_shard,
+            "embedding_bag_backward_shard": embedding_bag_backward_shard,
+            "sparse_adagrad_step_shard": sparse_adagrad_step_shard}
 
 
 def _reset_counts():
@@ -3802,6 +3857,709 @@ def phase_mesh(device, fwd: dict, times: dict, single: dict, card: str,
     return out, launches
 
 
+# ------------------------------------------------------- 17 mesh training
+
+class _Recorder:
+    """A kernel wrapper that records its calls as ``(args, kwargs,
+    before(*args), result)`` and runs the wrapper; with ``after``, the
+    result recorded is ``after(args, kwargs, out)``: a check made at the
+    call, before the step goes on to change what the call read. Its
+    ``kernel_launches`` is the wrapper's own (a wrapper counts itself
+    through its module's name, which then names this)."""
+
+    def __init__(self, orig, before, after):
+        self.orig, self.before, self.after, self.calls = orig, before, after, []
+
+    def __call__(self, *args, **kwargs):
+        pre = self.before(*args) if self.before is not None else None
+        out = self.orig(*args, **kwargs)
+        self.calls.append((args, kwargs, pre,
+                           out if self.after is None else self.after(args, kwargs, out)))
+        return out
+
+    @property
+    def kernel_launches(self):
+        return self.orig.kernel_launches
+
+    @kernel_launches.setter
+    def kernel_launches(self, value):
+        self.orig.kernel_launches = value
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str, before=None, after=None):
+    """The calls of ``module.<name>`` (a kernel wrapper or helper, where the
+    path looks it up) recorded (``_Recorder``); the wrapper itself runs, and
+    counts its launch, as always."""
+    orig = getattr(module, name)
+    rec = _Recorder(orig, before, after)
+    setattr(module, name, rec)
+    try:
+        yield rec.calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _k5_pre(*args):
+    return args[0].clone(), args[1].clone()
+
+
+def _k1_window_err(what: str):
+    """An ``after`` for ``embedding_bag_shard``: the partial K1's window
+    returned against ``embedding_bag_reference(..., window=)`` on the same
+    shard and ids, within ``pooled_tolerance`` of the window (the order of
+    the L adds). Returns the max |err|."""
+    def check(args, kw, out):
+        shard, offsets, indices, row_lo = args[:4]
+        mask, w = kw.get("mask"), (row_lo, row_lo + shard.shape[0])
+        cdt = kw.get("compute_dtype")
+        with torch.no_grad():
+            got = out.detach()
+            want = embedding_bag_reference(shard, offsets, indices, mask=mask, window=w,
+                                           compute_dtype=shard.dtype if cdt is None else cdt)
+            err = (got.float() - want.float()).abs()
+            tol = pooled_tolerance(got, want, shard, offsets, indices, mask, window=w)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"K1's window disagrees with its plain version ({what}, rows "
+                                 f"[{w[0]}, {w[1]}), b={indices.shape[0]}): max |err| "
+                                 f"{err.max().item():.3e}, {int((err > tol).sum())} over")
+        return err.max().item()
+
+    return check
+
+
+def _check_k1b_windows(calls, what: str) -> float:
+    """Each recorded K1b window launch against its plain version, within
+    ``backward_tolerance`` of the window (the order of each row's adds)."""
+    worst = 0.0
+    for args, kw, _, got in calls:
+        g, offsets, indices, row_lo, rows = args
+        mask, w = kw.get("mask"), (row_lo, row_lo + rows)
+        err = (got - embedding_bag_backward_reference(g, offsets, indices, rows, mask=mask,
+                                                      window=w)).abs()
+        tol = backward_tolerance(g, offsets, indices, rows, mask, window=w)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"K1b's window disagrees with its plain version ({what}, rows "
+                                 f"[{w[0]}, {w[1]}), b={indices.shape[0]}): max |err| "
+                                 f"{err.max().item():.3e}, {int((err > tol).sum())} over")
+        worst = max(worst, err.max().item())
+        del err, tol
+    return worst
+
+
+def _k5_call(args, window: bool):
+    """``(table, acc, offsets, ids, g, lr, eps, window)`` of a recorded K5
+    call, positional as the trainer makes it: the window's ``(shard, acc,
+    offsets, ids, g, row_lo, lr, eps)`` or the direct kernel's ``(table,
+    acc, offsets, ids, g, lr, eps)`` (window None)."""
+    if window:
+        shard, acc, offsets, ids, g, row_lo, lr, eps = args
+        return shard, acc, offsets, ids, g, lr, eps, (row_lo, row_lo + shard.shape[0])
+    table, acc, offsets, ids, g, lr, eps = args
+    return table, acc, offsets, ids, g, lr, eps, None
+
+
+def _k5_ref(t0, a0, offsets, ids, g, lr, eps, w):
+    t, a = t0.clone(), a0.clone()
+    sparse_adagrad_step_reference(t, a, offsets, ids, g, lr, eps, window=w)
+    return t, a
+
+
+def _check_k5(calls, what: str, window: bool) -> float:
+    """Each recorded K5 launch (the window's with ``window``, else the
+    direct kernel's), recorded with ``_k5_pre``: the table and accumulator
+    it left against the plain version from the state before it, within
+    ``sparse_adagrad_tolerance``. Run before the next step."""
+    worst = 0.0
+    for args, _, (t0, a0), _ in calls:
+        table, acc, offsets, ids, g, lr, eps, w = _k5_call(args, window)
+        want_t, want_a = _k5_ref(t0, a0, offsets, ids, g, lr, eps, w)
+        tol, acc_tol = sparse_adagrad_tolerance(t0, a0, offsets, ids, g, lr, eps, window=w)
+        err, acc_err = (table.float() - want_t.float()).abs(), (acc - want_a).abs()
+        if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
+            where = "the whole table" if w is None else f"rows [{w[0]}, {w[1]})"
+            raise AssertionError(f"K5{'s window' if window else ''} disagrees with its plain "
+                                 f"version ({what}, {where}, ids {tuple(ids.shape)}): max "
+                                 f"|err| table {err.max().item():.3e}, acc "
+                                 f"{acc_err.max().item():.3e}")
+        worst = max(worst, err.max().item(), acc_err.max().item())
+        del want_t, want_a, tol, acc_tol, err, acc_err
+    return worst
+
+
+def _without_pre(calls) -> list:
+    """Recorded calls with the ``before`` copies dropped (they hold a table)."""
+    return [(args, kw, None, out) for args, kw, _, out in calls]
+
+
+def _check_pooled_grad(g_m, g_s, delta: float, what: str) -> float:
+    """The mesh's pooled gradient (rows in data-row order) against the
+    single-device one's on the same rows: within ``delta`` (MESH_G_RTOL of
+    the single-device max |g|, the f32 rounding of the towers' backward
+    on a slice and on the batch). Returns the max |diff|."""
+    diff = (g_m.float() - g_s.float().to(g_m.device)).abs().max().item()
+    if not diff <= delta:
+        raise AssertionError(f"{what}: the mesh's pooled gradient differs from the "
+                             f"single-device one by {diff:.3e}, past {MESH_G_RTOL:.0e} of its "
+                             f"max |g| ({delta:.3e})")
+    return diff
+
+
+def _check_slices_grad(g_s, s_ids, mesh_calls, delta: float, what: str) -> float:
+    """``_check_pooled_grad`` of each recorded K1b window call's pooled
+    gradient against the single-device rows of its data slice (the slice
+    whose ids it was given)."""
+    worst = 0.0
+    for args, _, _, _ in mesh_calls:
+        g, ids = args[0], args[2]
+        b = ids.shape[0]
+        d = next((d for d in range(s_ids.shape[0] // b)
+                  if torch.equal(ids, s_ids[d * b:(d + 1) * b].to(ids.device))), None)
+        if d is None:
+            raise AssertionError(f"{what}: a K1b window call's ids are no data slice of the batch")
+        worst = max(worst, _check_pooled_grad(g, g_s[d * b:(d + 1) * b], delta, what))
+    return worst
+
+
+def _dedup_limit(ded_s, ded_m, delta: float, what: str):
+    """The recorded ``_dedup_stream`` calls of the single-device and the
+    mesh's dedup step (their pooled gradients within ``delta``, checked
+    before): the unique rows the same, and each merged gradient within
+    n * delta + n^2 * 2^-23 * max |g| of the single-device one for a row of
+    n slots (the slots' differences, and each side's f32 sum of n terms of
+    at most max |g|). Returns that limit as a ``(N, 1, 1)`` tensor and the
+    max |diff|."""
+    off, ids, g = ded_s[0]
+    _, uids_s, sum_s = ded_s[3]
+    _, uids_m, sum_m = ded_m[3]
+    if not torch.equal(uids_m.to(uids_s.device), uids_s):
+        raise AssertionError(f"{what}: the mesh's unique rows differ from the single-device ones")
+    flat = (ids.long() + off.long()[None, :, None]).reshape(-1)
+    _, counts = torch.unique(flat, return_counts=True)  # ascending, as dedup's head
+    n = torch.zeros((uids_s.shape[0],), dtype=torch.float32, device=g.device)
+    n[:counts.shape[0]] = counts.float()
+    lim = (n * (delta + n * 2.0 ** -23 * g.abs().max())).reshape(-1, 1, 1)
+    diff = (sum_m.float().to(sum_s.device) - sum_s.float()).abs()
+    if not bool((diff <= lim).all()):
+        raise AssertionError(f"{what}: the mesh's merged gradients differ from the single-device "
+                             f"ones by {diff.max().item():.3e}, past n * delta + rounding")
+    return lim, diff.max().item()
+
+
+def _k5_carry(t0, a0, offsets, ids, g, delta, lr: float, eps: float, w):
+    """How far K5's step from ``(t0, a0)`` on window ``w``'s rows can move,
+    in exact arithmetic, when each element of ``g`` moves by at most
+    ``delta`` (a float, or a tensor that broadcasts to ``g``). Returns
+    ``(rows, table (U, d), acc (U,))`` on the U rows the window's slots
+    touch. A row of slots s takes acc = a0 + sum_s mean(g_s^2), which moves
+    by at most eA = sum_s mean(2 |g_s| delta_s + delta_s^2), and the update
+    -lr * (sum_s g_s) * rsqrt(acc + eps), whose sum moves by at most nD =
+    sum_s delta_s; so the update moves by at most lr * ((|sum_s g_s| + nD)
+    * (rsqrt(max(acc - eA, 0) + eps) - rsqrt(acc + eps)) + nD * rsqrt(acc +
+    eps))."""
+    B, T, L = ids.shape
+    d = g.shape[-1]
+    flat, valid = window_ids(offsets, ids, None, w)
+    dl = torch.broadcast_to(torch.as_tensor(delta, dtype=torch.float32, device=g.device), g.shape)
+    g_rows = g.float()[:, :, None, :].expand(B, T, L, d).reshape(-1, d)
+    dl_rows = dl[:, :, None, :].expand(B, T, L, d).reshape(-1, d)
+    if valid is not None:
+        keep = valid.reshape(-1)
+        flat, g_rows, dl_rows = flat[keep], g_rows[keep], dl_rows[keep]
+    rows, inv = torch.unique(flat, return_inverse=True)
+    U = rows.shape[0]
+    acc = a0[rows] + torch.zeros((U,), device=g.device).index_add_(0, inv, (g_rows ** 2).mean(-1))
+    e_acc = torch.zeros((U,), device=g.device).index_add_(
+        0, inv, (2 * g_rows.abs() * dl_rows + dl_rows ** 2).mean(-1))
+    g_sum = torch.zeros((U, d), device=g.device).index_add_(0, inv, g_rows)
+    n_delta = torch.zeros((U, d), device=g.device).index_add_(0, inv, dl_rows)
+    r0 = torch.rsqrt(acc + eps)[:, None]
+    r1 = torch.rsqrt(torch.clamp(acc - e_acc, min=0) + eps)[:, None]
+    return rows, lr * ((g_sum.abs() + n_delta) * (r1 - r0) + n_delta * r0), e_acc
+
+
+def _sparse_parity(single_call, mesh_calls, single, start_table, delta, what: str) -> float:
+    """The mesh's table and accumulator after one sparse step against the
+    single-device step's, shard by shard. Each side lies within its K5
+    bound (``sparse_adagrad_tolerance``) of its plain version, and each
+    plain version within the same bound of exact arithmetic on its own
+    stream; the two streams' gradients differ by at most ``delta`` (held
+    by the caller), which moves the exact step by at most ``_k5_carry``.
+    Rows no slot touches stay as they were on both sides."""
+    s_off, s_ids, s_g = single_call[0][2:5]
+    worst = 0.0
+    for args, _, _, _ in mesh_calls:
+        shard, acc, offsets, ids, g, lr, eps, w = _k5_call(args, True)
+        t0 = start_table[w[0]:w[1]]
+        a0 = torch.zeros_like(acc)
+        bound_t, bound_a = sparse_adagrad_tolerance(t0, a0, s_off, s_ids, s_g, lr, eps, window=w)
+        tol_m, atol_m = sparse_adagrad_tolerance(t0, a0, offsets, ids, g, lr, eps, window=w)
+        bound_t.add_(tol_m).mul_(2)
+        bound_a.add_(atol_m).mul_(2)
+        del tol_m, atol_m
+        rows, carry_t, carry_a = _k5_carry(t0, a0, s_off, s_ids, s_g, delta, lr, eps, w)
+        bound_t[rows] += carry_t
+        bound_a[rows] += carry_a
+        err = (shard.float() - single.params["tables"][w[0]:w[1]].float()).abs()
+        acc_err = (acc - single.opt_state[1][w[0]:w[1]]).abs()
+        if not (bool((err <= bound_t).all()) and bool((acc_err <= bound_a).all())):
+            raise AssertionError(f"{what}: after one step the table (max |err| "
+                                 f"{err.max().item():.3e}) or accumulator ({acc_err.max().item():.3e}) "
+                                 f"of rows [{w[0]}, {w[1]}) is past K5's bounds and what the "
+                                 f"pooled gradients' limit carries")
+        worst = max(worst, err.max().item(), acc_err.max().item())
+        del bound_t, bound_a, carry_t, carry_a, err, acc_err
+    return worst
+
+
+def _state_of(tr, tensor):
+    """The adagrad accumulator of ``tensor`` in a trainer's state."""
+    if tr.mesh is None:
+        keys = list(bridge.flatten(tr.params))
+        return tr.opt_state[keys.index("tables")]
+    leaves = [t for c in leaf_copies(tr.params) for t in c]
+    for dev, idx in tr.opt_state.devices.items():
+        for j, i in enumerate(idx):
+            if leaves[i] is tensor:
+                return tr.opt_state.states[dev][j]
+    raise AssertionError("no optimizer state for the table shard")
+
+
+def _dense_parity(single_call, mesh_calls, table_s, table_of, state_s, state_of, table0,
+                  delta: float, lr: float, optimizer: str, what: str) -> float:
+    """The mesh's table gradient and the table (and adagrad state) after one
+    dense step against the single-device step's, shard by shard. The
+    gradients: each side within K1b's bound (``backward_tolerance``, the
+    cells of a shard added) of exact arithmetic on its own pooled gradient,
+    and those differ by at most ``delta`` (held by the caller), so a row of
+    n slots by at most n * delta more: tol_g. The update is K10 on both
+    sides (bit for bit its plain version), so the tables differ by at most
+    lr * tol_g (sgd) or lr / sqrt(0.1) * tol_g (adagrad from its 0.1
+    start), and the accumulators by (2 |G_s| + tol_g) * tol_g, plus the
+    rounding of the update and the add on each side."""
+    g_s, s_off, s_ids = single_call[0][:3]
+    G_s = single_call[3]
+    worst = 0.0
+    for row_lo in sorted({args[3] for args, _, _, _ in mesh_calls}):
+        cells = [c for c in mesh_calls if c[0][3] == row_lo]
+        rows = cells[0][0][4]
+        w = (row_lo, row_lo + rows)
+        G_m = sum(c[3] for c in cells)
+        tol_g = backward_tolerance(g_s, s_off, s_ids, rows, window=w)
+        for c in cells:
+            tol_g += backward_tolerance(c[0][0], c[0][1], c[0][2], rows, window=w)
+        tol_g += delta * scatter_counts(s_off, s_ids, rows, window=w)[:, None]
+        dG = (G_m - G_s[w[0]:w[1]]).abs()
+        if not bool((dG <= tol_g).all()):
+            raise AssertionError(f"{what}: the table gradient of rows [{w[0]}, {w[1]}) differs "
+                                 f"from the single-device one by {dG.max().item():.3e}, past "
+                                 f"K1b's bounds and what the pooled gradients' limit carries")
+        t0 = table0[w[0]:w[1]].float()
+        slack = 2.0 ** -20 * (t0.abs() + lr * (1.0 + G_s[w[0]:w[1]].abs()))
+        gain = lr if optimizer == "sgd" else lr / np.sqrt(0.1)
+        err = (table_of(row_lo).float() - table_s[w[0]:w[1]].float()).abs()
+        if not bool((err <= gain * tol_g + slack).all()):
+            raise AssertionError(f"{what}: after one step the table of rows [{w[0]}, {w[1]}) "
+                                 f"differs from the single-device one by {err.max().item():.3e}, "
+                                 f"past what its gradient's bound carries")
+        worst = max(worst, err.max().item())
+        if state_s is not None:
+            acc_err = (state_of(row_lo) - state_s[w[0]:w[1]]).abs()
+            bound = (2 * G_s[w[0]:w[1]].abs() + tol_g) * tol_g + 2.0 ** -22 * state_s[w[0]:w[1]]
+            if not bool((acc_err <= bound).all()):
+                raise AssertionError(f"{what}: after one step the adagrad state of rows "
+                                     f"[{w[0]}, {w[1]}) differs by {acc_err.max().item():.3e}")
+            worst = max(worst, acc_err.max().item())
+        del G_m, dG, err, slack, t0, tol_g
+    return worst
+
+
+def _mesh_want(mode: str, dien: bool, D: int, M: int, steps: int) -> dict:
+    """A path's launches on a mesh of one card: K1's window D*M a step, K1b's
+    window D*M a dense step or K5's window a distinct shard tensor (M on one
+    card) a sparse step, K10 once a step (one device), and for dien K3 and
+    K3b twice a data slice."""
+    return _want(embedding_bag_shard=D * M * steps,
+                 embedding_bag_backward_shard=D * M * steps if mode == "dense" else 0,
+                 sparse_adagrad_step_shard=M * steps if mode != "dense" else 0,
+                 optimizer_update=steps, rnn_scan=2 * D * steps if dien else 0,
+                 rnn_scan_backward=2 * D * steps if dien else 0)
+
+
+def mesh_train_parity(device, name: str, mode: str, D: int, M: int, start: dict, hosts: list,
+                      card: str, errs: dict) -> tuple[dict, dict]:
+    """One mesh path against the single-device trainer, from the same weights
+    (``start``) on the same batches: ``mode`` "dense" (adagrad), "sparse" or
+    "dedup" (sparse, ``dedup=True``). Step 1 records the launches of the
+    path's kernels and holds each to its plain version (K1's window at the
+    call; K1b's or K5's window, and the single-device step's K5, after
+    it); holds the mesh's pooled gradients to the single-device ones within
+    MESH_G_RTOL of their max |g|; and holds the table and accumulator to
+    the single-device step's within the kernels' bounds plus what that
+    limit carries (``_sparse_parity``, ``_dense_parity``). The losses of
+    MESH_PARITY_STEPS steps agree to TRAIN_LOSS_RTOL; the launches around
+    the mesh steps are as ``_mesh_want`` says."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    sparse, what = mode != "dense", f"{name} {mode} {D}x{M}"
+    kw = dict(optimizer="adagrad", learning_rate=MESH_TRAIN_LR, sparse_tables=sparse,
+              dedup=mode == "dedup", params=start)
+    single = port_train.Trainer(cfg, device=device, **kw)
+    tr = port_train.Trainer(cfg, mesh=_cuda_mesh(device, D, M), **kw)
+    labels = [single._labels(h, None) for h in hosts]
+    launches = _want()
+    if sparse:
+        with _recorded(port_train, "sparse_adagrad_step", _k5_pre) as s_calls, \
+                _recorded(port_train, "_dedup_stream") as s_ded:
+            losses_s = [float(single.step(hosts[0], labels[0]))]
+        _merge(errs, "sparse_adagrad_step", _check_k5(s_calls, f"{what}, one device", False))
+        s_calls = _without_pre(s_calls)
+        _free(device)
+        _reset_counts()
+        with _recorded(port_train, "sparse_adagrad_step_shard", _k5_pre) as m_calls, \
+                _recorded(port_train, "_dedup_stream") as m_ded, \
+                _recorded(port_ops, "embedding_bag_shard", after=_k1_window_err(what)) as k1:
+            losses_m = [float(tr.step(hosts[0], labels[0]))]
+        synchronize(device)
+        _add(launches, _counts())
+        _merge(errs, "embedding_bag_shard", max(c[3] for c in k1))
+        _merge(errs, "sparse_adagrad_step_shard", _check_k5(m_calls, what, True))
+        m_calls = _without_pre(m_calls)
+        # The pooled gradients: the stream K5 takes, or dedup's input.
+        s_g = s_ded[0][0][2] if s_ded else s_calls[0][0][4]
+        delta = MESH_G_RTOL * s_g.abs().max().item()
+        gdiff = max(_check_pooled_grad(c[0][2] if s_ded else c[0][4], s_g, delta, what)
+                    for c in (m_ded or m_calls))
+        for c in m_ded:  # dedup: K5 takes the merged rows, held to n * delta and rounding
+            delta = _dedup_limit(s_ded[0], c, MESH_G_RTOL * s_g.abs().max().item(), what)[0]
+        par = _sparse_parity(s_calls[0], m_calls, single, start["tables"], delta, what)
+        del s_ded, m_ded
+    else:
+        with _recorded(emb_mod, "embedding_bag_backward") as s_calls:
+            losses_s = [float(single.step(hosts[0], labels[0]))]
+        _reset_counts()
+        with _recorded(emb_mod, "embedding_bag_backward_shard") as m_calls, \
+                _recorded(port_ops, "embedding_bag_shard", after=_k1_window_err(what)) as k1:
+            losses_m = [float(tr.step(hosts[0], labels[0]))]
+        synchronize(device)
+        _add(launches, _counts())
+        _merge(errs, "embedding_bag_shard", max(c[3] for c in k1))
+        _merge(errs, "embedding_bag_backward_shard", _check_k1b_windows(m_calls, what))
+        s_g, s_ids = s_calls[0][0][0], s_calls[0][0][2]
+        delta = MESH_G_RTOL * s_g.abs().max().item()
+        gdiff = _check_slices_grad(s_g, s_ids, m_calls, delta, what)
+        rps = tr.params.rows_per_shard
+        par = _dense_parity(s_calls[0], m_calls, single.params["tables"],
+                            lambda lo: tr.params.entry(0, lo // rps)["tables"],
+                            _state_of(single, None),
+                            lambda lo: _state_of(tr, tr.params.entry(0, lo // rps)["tables"]),
+                            start["tables"], delta, MESH_TRAIN_LR, "adagrad", what)
+    del s_calls, m_calls, k1
+    _free(device)
+    for h, lab in zip(hosts[1:], labels[1:]):
+        losses_s.append(float(single.step(h, lab)))
+    _reset_counts()
+    for h, lab in zip(hosts[1:], labels[1:]):
+        losses_m.append(float(tr.step(h, lab)))
+    synchronize(device)
+    _add(launches, _counts())
+    steps = len(hosts)
+    want = _mesh_want(mode, cfg.model_type == "dien", D, M, steps)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    rel = float(np.max(np.abs(np.asarray(losses_m) - losses_s) / np.abs(losses_s)))
+    if not (np.all(np.isfinite(losses_m)) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"{what}: losses {losses_m} against the single-device trainer's "
+                             f"{losses_s} (max relative error {rel:.2e} > {TRAIN_LOSS_RTOL:.0e})")
+    _log(f"[17 mesh train] {what} (f32, batch {TRAIN_BATCH}, table_scale {TABLE_SCALE}) on a "
+         f"mesh of one card: losses {', '.join(f'{x:.6f}' for x in losses_m)} against the "
+         f"single-device trainer's (max relative error {rel:.2e}, limit {TRAIN_LOSS_RTOL:.0e}); "
+         f"step 1's K1, {'K5' if sparse else 'K1b'} window launches and the single-device "
+         f"step's {'K5' if sparse else 'K1b'} within their plain versions; the pooled gradients "
+         f"within {MESH_G_RTOL:.0e} of max |g| of the single-device ones (max |diff| "
+         f"{gdiff:.3e}, limit {MESH_G_RTOL * s_g.abs().max().item():.3e}); the table and "
+         f"accumulator within the kernels' bounds plus what that limit carries of the "
+         f"single-device step's (max |diff| {par:.3e}); launches {_nonzero(launches)} [{card}]")
+    del single, tr, s_g
+    _free(device)
+    return {"losses": losses_m, "rel": rel, "parity": par, "g_diff": gdiff}, launches
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def mesh_train_time(device, name: str, mode: str, axes, card: str, errs: dict | None = None) -> dict:
+    """A trainer's step (host batch to the card, forward, backward, update,
+    the loss read back) at full width: MESH_TIMED_STEPS steps after 4, wall
+    and device time a step, idle share, the kernels that took the most
+    device time, and peak device memory (trainer state included, read
+    before anything else allocates). ``axes`` None: one device; ``mode``
+    "make_train_step": ``make_train_step``'s SGD step in place of a
+    trainer's. With ``errs`` (a sparse trainer on one device) one more step
+    after the timed ones holds its K5 launch to the plain version
+    (``_check_k5``), merged into ``errs["sparse_adagrad_step"]``."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    _free(device)
+    _reset_peak(device)
+    mesh = None if axes is None else _cuda_mesh(device, *axes)
+    gen = RecDataGenerator(cfg, seed=1)
+    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(4)]
+    if mode == "make_train_step":  # SGD through make_train_step, host batch to the card
+        model = get_model(cfg, device)
+        tr = shard_params(model.init(torch.Generator(device=device).manual_seed(0)), mesh)
+        run = make_train_step(model, mesh, has_dense=cfg.dense_dim > 0,
+                              learning_rate=MESH_TRAIN_LR, loss="bce",
+                              sigmoid_output=sigmoid_output(cfg))(tr)
+        args = [(h, torch.as_tensor(gen.generate_targets(TRAIN_BATCH, round_targets=True)))
+                for h in hosts]
+
+        def step(h, t):
+            return float(run(tr, h.to(device), t.to(device))[1])
+    else:
+        tr = port_train.Trainer(cfg, mesh=mesh, device=device if mesh is None else None,
+                                optimizer="adagrad", learning_rate=MESH_TRAIN_LR,
+                                sparse_tables=mode != "dense", dedup=mode == "dedup")
+        args = [(h, tr._labels(h, None)) for h in hosts]
+
+        def step(h, lab):
+            return float(tr.step(h, lab))
+    m = measure(step, args, MESH_TIMED_STEPS)
+    peak = _peak_gib(device)
+    if errs is not None:
+        with _recorded(port_train, "sparse_adagrad_step", _k5_pre) as calls:
+            step(*args[0])
+        _merge(errs, "sparse_adagrad_step", _check_k5(calls, f"{name} {mode} one device", False))
+        del calls
+    dev = m["device_ms"]
+    idle = None if dev is None else 1 - dev / m["wall_ms"]
+    where = "one device" if axes is None else f"{axes[0]}x{axes[1]}"
+    _log(f"[17 mesh train] {name} {mode} on {where}, batch {TRAIN_BATCH} f32: wall "
+         f"{m['wall_ms']:.4f} ms a step, device {_us(dev)} in {m['launches']:.0f} device ops, "
+         f"idle {'not measured' if idle is None else f'{100 * idle:.1f}%'}, peak "
+         f"{peak:.3f} GiB; device time by kernel: {_top(m, 6)} [{card}]")
+    del tr
+    _free(device)
+    return {"name": f"{name} {mode} {where}", "wall_ms": m["wall_ms"], "device_ms": dev,
+            "idle": idle, "peak_gib": peak, "by_kernel": m["us_by_kernel"]}
+
+
+def mesh_dryrun(device, card: str, errs: dict) -> tuple[dict, dict]:
+    """``make_train_step`` on the dryrun's tiny "dot" DLRM (DRYRUN_CFG) on a
+    2x2 mesh of the card: DRYRUN_STEPS SGD steps on one batch, the loss
+    finite and falling, the launches K1's and K1b's windows 4 a step and
+    K10 once; step 1's window launches held to their plain versions."""
+    cfg = ModelConfig(**DRYRUN_CFG)
+    model = get_model(cfg, device)
+    mesh = _cuda_mesh(device, 2, 2)
+    sp = shard_params(model.init(torch.Generator(device=device).manual_seed(0)), mesh)
+    gen = RecDataGenerator(cfg, seed=0)
+    host = gen.generate_batch(16).to(device)
+    targets = torch.as_tensor(gen.generate_targets(16, round_targets=True)).to(device)
+    step = make_train_step(model, mesh, has_dense=True, learning_rate=0.05, loss="bce")(sp)
+    what = "dryrun make_train_step 2x2"
+    _reset_counts()
+    with _recorded(emb_mod, "embedding_bag_backward_shard") as k1b, \
+            _recorded(port_ops, "embedding_bag_shard", after=_k1_window_err(what)) as k1:
+        losses = [float(step(sp, host, targets)[1])]
+    losses += [float(step(sp, host, targets)[1]) for _ in range(DRYRUN_STEPS - 1)]
+    counts = _counts()
+    _merge(errs, "embedding_bag_shard", max(c[3] for c in k1))
+    _merge(errs, "embedding_bag_backward_shard", _check_k1b_windows(k1b, what))
+    want = _want(embedding_bag_shard=4 * DRYRUN_STEPS, embedding_bag_backward_shard=4 * DRYRUN_STEPS,
+                 optimizer_update=DRYRUN_STEPS)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses not finite and falling: {losses}")
+    _log(f"[17 mesh train] make_train_step, the dryrun's dot DLRM (d = 32) on 2x2, "
+         f"{DRYRUN_STEPS} SGD steps on one batch: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+         f"launches {_nonzero(counts)} [{card}]")
+    return {"losses": losses}, counts
+
+
+def mesh_rm1_train_step(device, start: dict, hosts: list, card: str, errs: dict) -> tuple[dict, dict]:
+    """rm1's ``make_train_step`` on 2x2 for one SGD step against the
+    single-device dense SGD step from the same weights on the same batch:
+    the loss to TRAIN_LOSS_RTOL, the pooled gradients to MESH_G_RTOL, the
+    table gradient and the table as ``_dense_parity`` holds them, each K1
+    and K1b window launch to its plain version."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
+    single = port_train.Trainer(cfg, device=device, optimizer="sgd", learning_rate=MESH_TRAIN_LR,
+                                params=start)
+    labels = single._labels(hosts[0], None)
+    with _recorded(emb_mod, "embedding_bag_backward") as s_calls:
+        loss_s = float(single.step(hosts[0], labels))
+    mesh = _cuda_mesh(device, 2, 2)
+    sp = shard_params(bridge.tree_map(lambda t: t.clone(), start), mesh)
+    step = make_train_step(single.model, mesh, has_dense=True, learning_rate=MESH_TRAIN_LR,
+                           loss="bce", sigmoid_output=sigmoid_output(cfg))(sp)
+    what = "rm1 make_train_step 2x2"
+    _reset_counts()
+    with _recorded(emb_mod, "embedding_bag_backward_shard") as m_calls, \
+            _recorded(port_ops, "embedding_bag_shard", after=_k1_window_err(what)) as k1:
+        loss_m = float(step(sp, hosts[0].to(device), single._targets(labels))[1])
+    synchronize(device)
+    counts = _counts()
+    if counts != _mesh_want("dense", False, 2, 2, 1):
+        raise AssertionError(f"{what}: launches {counts}")
+    _merge(errs, "embedding_bag_shard", max(c[3] for c in k1))
+    _merge(errs, "embedding_bag_backward_shard", _check_k1b_windows(m_calls, what))
+    s_g, s_ids = s_calls[0][0][0], s_calls[0][0][2]
+    delta = MESH_G_RTOL * s_g.abs().max().item()
+    gdiff = _check_slices_grad(s_g, s_ids, m_calls, delta, what)
+    rps = sp.rows_per_shard
+    par = _dense_parity(s_calls[0], m_calls, single.params["tables"],
+                        lambda lo: sp.entry(0, lo // rps)["tables"], None, None,
+                        start["tables"], delta, MESH_TRAIN_LR, "sgd", what)
+    rel = abs(loss_m - loss_s) / abs(loss_s)
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{what}: loss {loss_m} against the single-device {loss_s}")
+    _log(f"[17 mesh train] {what}, one SGD step (lr {MESH_TRAIN_LR}) against the single-device "
+         f"dense SGD step: loss {loss_m:.6f} / {loss_s:.6f} (relative {rel:.2e}); pooled "
+         f"gradients within {MESH_G_RTOL:.0e} of max |g| (max |diff| {gdiff:.3e}, limit "
+         f"{delta:.3e}); table within K1b's bounds plus what that limit carries (max |diff| "
+         f"{par:.3e}); launches {_nonzero(counts)} [{card}]")
+    del s_calls, m_calls, k1, single, sp, step
+    _free(device)
+    return {"rel": rel, "parity": par}, counts
+
+
+def mesh_window_times(device, card: str) -> dict:
+    """K1b's and K5's windows at rm1's training shape on its shard 1 of 4
+    (rows [R/4, R/2), f32, batch TRAIN_BATCH, eight batches of ids): each
+    beside its plain version (order plain, kernel, kernel, plain), its bound
+    and its library yardstick (a windowed ``index_add_`` for K1b;
+    ``index_add_`` twice and a gather for K5, on the owned slots' rows
+    prepared beforehand). K5's time is the span of its two launches."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    rps = R // MESH_SHARDS
+    lo = rps
+    offsets = table_offsets(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(15)
+    ids = [b.to(device).indices for b in
+           RecDataGenerator(cfg, seed=13).generate_batches(8, TRAIN_BATCH)]
+    gs = [torch.randn((TRAIN_BATCH, cfg.num_tables, d), generator=gen, device=device) * 1e-2
+          for _ in ids]
+    prepared = [window_g_rows(g, offsets, i, lo, rps) for g, i in zip(gs, ids)]
+    out = {}
+    grad = torch.zeros((rps, d), dtype=torch.float32, device=device)
+    runs = _time_runs(
+        lambda g, i: embedding_bag_backward_shard(g, offsets, i, lo, rps, out=grad),
+        lambda g, i: embedding_bag_backward_reference(g, offsets, i, rps, out=grad,
+                                                      window=(lo, lo + rps)),
+        k1b_library(grad), list(zip(gs, ids)), [(p[0], p[2]) for p in prepared], TIMED_ITERS)
+    out["embedding_bag_backward_shard"] = {**_timed(runs),
+                                           **k1b_window_bound(gs[0], offsets, ids[0], lo, rps)}
+    del grad
+    _free(device)
+    shard = (torch.rand((rps, d), generator=gen, device=device) - 0.5) * 0.1
+    acc = torch.zeros((rps,), dtype=torch.float32, device=device)
+
+    def k5(g, i):
+        sparse_adagrad_step_shard(shard, acc, offsets, i, g, lo, 0.1)
+
+    runs = _time_runs(
+        k5, lambda g, i: sparse_adagrad_step_reference(shard, acc, offsets, i, g, 0.1,
+                                                       window=(lo, lo + rps)),
+        k5_library(shard, acc, 0.1), list(zip(gs, ids)), prepared, TIMED_ITERS)
+    t = _timed(runs, "launch_sum_ms")
+    out["sparse_adagrad_step_shard"] = {
+        **t, **k5_window_bound(shard, gs[0], offsets, ids[0], lo), "launch_sum_ms": t["ms"],
+        "ms": span_ms(k5, list(zip(gs, ids)), TIMED_ITERS)}
+    for key, label, lib in (("embedding_bag_backward_shard", "K1b's window", "windowed index_add_"),
+                            ("sparse_adagrad_step_shard", "K5's window (span of both launches)",
+                             "index_add_ x2 + gather")):
+        t = out[key]
+        _log(f"[17 mesh train times] {label} at rm1's shard 1 of {MESH_SHARDS} (rows "
+             f"[{lo}, {lo + rps}), B={TRAIN_BATCH} T=8 L=80 d=32 f32): {_us(t['ms'])} "
+             f"({'device' if t['device'] else 'wall'}); bound {_us(t['bound_ms'])} "
+             f"({t['bound_by']}, {t['bytes'] / 1e6:.2f} MB); plain {_us(t['plain_ms'])}; {lib} "
+             f"{_us(t['library_ms'])}; wall a call {_us(t['k_wall'])}; device time a call by "
+             f"kernel: {t['by_kernel']} [{card}]")
+    _log(f"[17 mesh train times] K5's window, its two launches' medians summed: "
+         f"{_us(out['sparse_adagrad_step_shard']['launch_sum_ms'])} [{card}]")
+    del shard, acc, prepared
+    _free(device)
+    return out
+
+
+def dedup_times(device, card: str, errs: dict) -> dict:
+    """The measurement ROADMAP Queue 2 item 5 asks for: single-device sparse
+    steps of rm1 and rm2 with ``dedup=True`` against ``False``
+    (``mesh_train_time``, each step's K5 then held to its plain version:
+    dedup's K5 takes the unique rows as bags of one), and
+    ``dedup_touched_rows`` alone (the sort and the segment sum) at the
+    step's stream (batch TRAIN_BATCH's B*T*L rows)."""
+    out = {}
+    for name in DEDUP_MODELS:
+        steps = {mode: mesh_train_time(device, name, mode, None, card, errs)
+                 for mode in ("sparse", "dedup")}
+        cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+        offsets = table_offsets(cfg, device)
+        ids = torch.as_tensor(RecDataGenerator(cfg, seed=1).generate_batch(TRAIN_BATCH).indices,
+                              device=device)
+        B, T, L = ids.shape
+        d = cfg.sparse_feature_size
+        g = torch.randn((B, T, d), device=device)
+        flat = (ids + offsets[None, :, None]).reshape(-1)
+        rows = g[:, :, None, :].expand(B, T, L, d).reshape(-1, d)
+        m = measure(lambda: port_train.dedup_touched_rows(flat, rows), [()], TIMED_ITERS)
+        out[name] = {**steps, "sort_segment_ms": m["device_ms"], "sort_segment_wall_ms": m["wall_ms"]}
+        s, dd = steps["sparse"], steps["dedup"]
+        _log(f"[17 dedup] {name} single-device sparse step, batch {TRAIN_BATCH} f32 "
+             f"({B * T * L} touched slots): dedup=False wall {s['wall_ms']:.4f} ms, device "
+             f"{_us(s['device_ms'])}; dedup=True wall {dd['wall_ms']:.4f} ms, device "
+             f"{_us(dd['device_ms'])}; dedup_touched_rows alone (sort + segment sum) device "
+             f"{_us(m['device_ms'])}, wall {_us(m['wall_ms'])} [{card}]")
+        del flat, rows, g, ids
+        _free(device)
+    return out
+
+
+def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
+    """Phase 17: training over meshes whose entries all name the card
+    (virtual shards: every launch, gradient reduction and update runs; no
+    scaling across cards is shown). rm1 at full size (f32, batch
+    TRAIN_BATCH): dense adagrad on 1x4 and 2x2, sparse on 1x4, 2x2 and 4x1,
+    a 2x2 dedup step against the single-device dedup step, dien sparse on
+    1x4 (a model axis that divides its rows), each against the
+    single-device trainer (``mesh_train_parity``); ``make_train_step`` on
+    the dryrun's DLRM and, for rm1, one step against the single-device SGD
+    step; then the windows' times, each path's step times and the dedup
+    measurement. Returns the results (``errs``: each checked kernel's max
+    |err| against its plain version) and the launches of the paths."""
+    t0 = time.perf_counter()
+    errs = {"embedding_bag_shard": 0.0, "embedding_bag_backward_shard": 0.0,
+            "sparse_adagrad_step_shard": 0.0, "sparse_adagrad_step": 0.0}
+    launches = _want()
+    out = {"parity": {}, "steps": []}
+    for name, runs in (("rm1", MESH_TRAIN_RUNS), ("dien", (("sparse", 1, 4),))):
+        cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+        start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
+        gen = RecDataGenerator(cfg, seed=1)
+        hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(MESH_PARITY_STEPS)]
+        for mode, D, M in runs:
+            res, counts = mesh_train_parity(device, name, mode, D, M, start, hosts, card, errs)
+            out["parity"][f"{name} {mode} {D}x{M}"] = res
+            _add(launches, counts)
+        if name == "rm1":
+            res, counts = mesh_rm1_train_step(device, start, hosts, card, errs)
+            out["parity"]["rm1 make_train_step 2x2"] = res
+            _add(launches, counts)
+        del start
+        _free(device)
+    out["dryrun"], counts = mesh_dryrun(device, card, errs)
+    _add(launches, counts)
+    out["times"] = mesh_window_times(device, card)
+    for name, mode, axes in MESH_TIMED_RUNS:
+        out["steps"].append(mesh_train_time(device, name, mode, axes, card))
+    out["dedup"] = dedup_times(device, card, errs)
+    out["errs"] = errs
+    _log(f"[17 mesh train] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3888,6 +4646,17 @@ def main() -> int:
                 "optimizer_update", "embedding_bag_int8", "embedding_bag_int8_rowwise"):
         if launches[key] == 0:
             raise AssertionError(f"the training or int8 paths never launched {key}")
+
+    # Phase 17: training over meshes of the card, each path read around itself.
+    mesh_train, mesh_train_launches = phase_mesh_train(device, card["card"])
+    for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard"):
+        if mesh_train_launches[key] == 0:
+            raise AssertionError(f"the mesh training paths never launched {key}")
+    _add(launches, mesh_train_launches)
+    mesh["errs"]["embedding_bag_shard"] = max(mesh["errs"]["embedding_bag_shard"],
+                                              mesh_train["errs"]["embedding_bag_shard"])
+    trained["sparse_adagrad_step"]["max_abs_err"] = max(
+        trained["sparse_adagrad_step"]["max_abs_err"], mesh_train["errs"]["sparse_adagrad_step"])
 
     # The data modes' and the experiments' paths, each read around itself.
     data, data_launches = phase_data(device, card["card"], times["k1"],
@@ -3998,6 +4767,19 @@ def main() -> int:
          f"{mesh_reload_res['apply_ms']:.1f} ms; zoo on 1x4: "
          + ", ".join(f"{r['name']} {r['max_abs_err']:.2e}" for r in mesh_zoo_rows)
          + f" [{card['card']}]")
+    _log("[10 summary] training over meshes whose entries all name this card (virtual shards: "
+         "every launch, reduction and update; no scaling across cards is shown), f32 batch "
+         f"{TRAIN_BATCH} full size: path: wall ms, device ms, idle, peak GiB")
+    for st in mesh_train["steps"]:
+        dev = "not measured" if st["device_ms"] is None else f"{st['device_ms']:.4f}"
+        idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.1f}%"
+        _log(f"[10 summary]   {st['name']}: {st['wall_ms']:.4f}, {dev}, {idle}, "
+             f"{st['peak_gib']:.3f} [{card['card']}]")
+    for name, r in mesh_train["dedup"].items():
+        _log(f"[10 summary]   dedup {name} one device: step wall ms dedup=False "
+             f"{r['sparse']['wall_ms']:.4f} / True {r['dedup']['wall_ms']:.4f}, device "
+             f"{_us(r['sparse']['device_ms'])} / {_us(r['dedup']['device_ms'])}, sort + segment "
+             f"sum {_us(r['sort_segment_ms'])} [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())
@@ -4022,7 +4804,10 @@ def main() -> int:
         for key in HOTCOLD.values()] + [
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": mesh["errs"][key], **{k: mesh["times"]["rm1"][key][k] for k in timed}}
-        for key in list(SHARD.values()) + list(HOTCOLD_SHARD.values())]}))
+        for key in list(SHARD.values()) + list(HOTCOLD_SHARD.values())] + [
+        {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
+         "max_abs_err": mesh_train["errs"][key], **{k: mesh_train["times"][key][k] for k in timed}}
+        for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

@@ -2,7 +2,9 @@
 the RNN's reverse scan K3b on one card: their times beside their bounds and
 a library yardstick, and each wrapper's host time a call. The bounds and
 library yardsticks of the other training kernels K1b and K5 (``k1b_bound``,
-``k5_library``, ...) live here too; ``chip_smoke.py`` times those.
+``k5_library``, ...) and of their ownership windows (``k1b_window_bound``,
+``k5_window_bound``, ``window_g_rows``) live here too; ``chip_smoke.py``
+times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6,k3b]
 
@@ -331,6 +333,50 @@ def k5_bound(table: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
     nbytes = (_touched_rows(offsets, indices) * (d * table.element_size() + 4) * 2
               + g.numel() * g.element_size() + indices.numel() * 4)
     return _bound(nbytes, B * T * 2 * d + B * T * L * (3 * d + 2))
+
+
+def _owned(offsets: torch.Tensor, indices: torch.Tensor, row_lo: int, rows: int):
+    """The fused rows of a batch's slots and which of them a row shard
+    ``[row_lo, row_lo + rows)`` owns."""
+    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    return flat, (flat >= row_lo) & (flat < row_lo + rows)
+
+
+def k1b_window_bound(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+                     row_lo: int, rows: int) -> dict:
+    """K1b's window on one row shard: each distinct owned row of the f32
+    gradient read and written once, ``g`` and the ids read once (the kernel
+    tests every id against the window); one add an element of an owned
+    slot."""
+    flat, owned = _owned(offsets, indices, row_lo, rows)
+    d = g.shape[-1]
+    nbytes = (torch.unique(flat[owned]).numel() * d * 4 * 2 + g.numel() * g.element_size()
+              + indices.numel() * 4)
+    return _bound(nbytes, int(owned.sum()) * d)
+
+
+def k5_window_bound(shard: torch.Tensor, g: torch.Tensor, offsets: torch.Tensor,
+                    indices: torch.Tensor, row_lo: int) -> dict:
+    """K5's window on one row shard: each distinct owned table row and its
+    accumulator read and written once, ``g`` and the ids read once; a bag's
+    mean g^2 (2 d operations) and, an owned slot, its accumulator add and a
+    multiply, a multiply and an add an element."""
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    flat, owned = _owned(offsets, indices, row_lo, shard.shape[0])
+    nbytes = (torch.unique(flat[owned]).numel() * (d * shard.element_size() + 4) * 2
+              + g.numel() * g.element_size() + indices.numel() * 4)
+    return _bound(nbytes, B * T * 2 * d + int(owned.sum()) * (3 * d + 2))
+
+
+def window_g_rows(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor, row_lo: int,
+                  rows: int):
+    """``g_rows``' inputs for a row shard: the owned slots' f32 gradient rows,
+    their mean squares and their shard rows (the windowed ``index_add_``
+    yardsticks of K1b's and K5's windows)."""
+    g_all, g2, flat = g_rows(g, offsets, indices)
+    keep = (flat >= row_lo) & (flat < row_lo + rows)
+    return g_all[keep].contiguous(), g2[keep].contiguous(), flat[keep] - row_lo
 
 
 K10_PASSES = {"sgd": 3, "adagrad": 5, "adam": 7}   # leaf-sized reads + writes an element

@@ -32,6 +32,15 @@
 //   * a grid-stride loop over tasks; B * T * ceil(L / 32) tasks (3,072 at
 //     rm1's shape) keep every SM busy.
 // Addresses are computed in 64 bits (fused tables pass 2^31 bytes).
+//
+// The ownership window (kWindow, drs_embedding_bag_backward_window): the
+// gradient of one row shard of the fused table, rows [row_lo, row_lo +
+// n_rows), which replaces the VJP of the shard's masked gather + pool
+// (deeprecsys_tpu/parallel/sharding.py:102-130) under the dense mesh step's
+// jax.value_and_grad. A slot adds into grad[offsets[t] + id - row_lo] iff
+// that row lies in the shard; the test sits on the row the warp already
+// has, so a slot another shard owns costs one compare and no add. The
+// direct instance (kWindow false) is compiled without the test.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,12 +53,12 @@ constexpr int kWarpsPerBlock = 8;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename TG, int D>
+template <typename TG, int D, bool kWindow>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 embedding_bag_backward_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
                               const int32_t* __restrict__ indices,
                               const uint8_t* __restrict__ mask, float* __restrict__ grad,
-                              int64_t n_bags, int T, int L) {
+                              int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
   constexpr int kPerLane = D / 32;
   static_assert(D % 32 == 0, "D must be a multiple of 32");
   const int lane = threadIdx.x & 31;
@@ -67,13 +76,14 @@ embedding_bag_backward_kernel(const TG* __restrict__ g, const int32_t* __restric
       id = __ldg(indices + slot0 + lane);
       if (mask != nullptr && __ldg(mask + slot0 + lane) == 0) id = -1;
     }
-    const int64_t base = (int64_t)__ldg(offsets + bag % T);
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
     float v[kPerLane];
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) v[i] = to_float(g[bag * D + i * 32 + lane]);
     for (int j = 0; j < n; ++j) {
       const int32_t r = __shfl_sync(0xffffffffu, id, j);
       if (r < 0) continue;
+      if (kWindow && (uint64_t)(base + r) >= (uint64_t)n_rows) continue;
       float* dst = grad + (base + r) * D + lane;
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) atomicAdd(dst + i * 32, v[i]);
@@ -81,20 +91,45 @@ embedding_bag_backward_kernel(const TG* __restrict__ g, const int32_t* __restric
   }
 }
 
-template <typename TG, int D>
+template <typename TG, int D, bool kWindow>
 int launch(const void* g, const int32_t* offsets, const int32_t* indices, const uint8_t* mask,
-           float* grad, int64_t n_bags, int T, int L, int grid, cudaStream_t stream) {
-  embedding_bag_backward_kernel<TG, D><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const TG*>(g), offsets, indices, mask, grad, n_bags, T, L);
+           float* grad, int64_t n_bags, int T, int L, int grid, cudaStream_t stream,
+           int64_t row_lo, int64_t n_rows) {
+  embedding_bag_backward_kernel<TG, D, kWindow><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const TG*>(g), offsets, indices, mask, grad, n_bags, T, L, row_lo, n_rows);
   return (int)cudaGetLastError();
 }
 
-template <typename TG>
+template <typename TG, bool kWindow>
 int launch_width(int d, const void* g, const int32_t* offsets, const int32_t* indices,
                  const uint8_t* mask, float* grad, int64_t n_bags, int T, int L, int grid,
-                 cudaStream_t stream) {
-  if (d == 32) return launch<TG, 32>(g, offsets, indices, mask, grad, n_bags, T, L, grid, stream);
-  if (d == 64) return launch<TG, 64>(g, offsets, indices, mask, grad, n_bags, T, L, grid, stream);
+                 cudaStream_t stream, int64_t row_lo, int64_t n_rows) {
+  if (d == 32)
+    return launch<TG, 32, kWindow>(g, offsets, indices, mask, grad, n_bags, T, L, grid, stream,
+                                   row_lo, n_rows);
+  if (d == 64)
+    return launch<TG, 64, kWindow>(g, offsets, indices, mask, grad, n_bags, T, L, grid, stream,
+                                   row_lo, n_rows);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kWindow>
+int launch_dtype(const void* g, int g_dtype, int d, const void* offsets, const void* indices,
+                 const void* mask, void* grad, int64_t n_bags, int T, int L, int grid,
+                 void* stream, int64_t row_lo, int64_t n_rows) {
+  if (n_bags <= 0 || L <= 0) return 0;
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  const int32_t* off = static_cast<const int32_t*>(offsets);
+  const int32_t* idx = static_cast<const int32_t*>(indices);
+  const uint8_t* msk = static_cast<const uint8_t*>(mask);
+  float* out = static_cast<float*>(grad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_dtype == 0)
+    return launch_width<float, kWindow>(d, g, off, idx, msk, out, n_bags, T, L, grid, s, row_lo,
+                                        n_rows);
+  if (g_dtype == 1)
+    return launch_width<__nv_bfloat16, kWindow>(d, g, off, idx, msk, out, n_bags, T, L, grid, s,
+                                                row_lo, n_rows);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -108,18 +143,20 @@ extern "C" {
 int drs_embedding_bag_backward(const void* g, int g_dtype, int d, const void* offsets,
                                const void* indices, const void* mask, void* grad,
                                int64_t n_bags, int T, int L, int grid, void* stream) {
-  if (n_bags <= 0 || L <= 0) return 0;
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
-  const int32_t* off = static_cast<const int32_t*>(offsets);
-  const int32_t* idx = static_cast<const int32_t*>(indices);
-  const uint8_t* msk = static_cast<const uint8_t*>(mask);
-  float* out = static_cast<float*>(grad);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_dtype == 0)
-    return launch_width<float>(d, g, off, idx, msk, out, n_bags, T, L, grid, s);
-  if (g_dtype == 1)
-    return launch_width<__nv_bfloat16>(d, g, off, idx, msk, out, n_bags, T, L, grid, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<false>(g, g_dtype, d, offsets, indices, mask, grad, n_bags, T, L, grid,
+                             stream, 0, 0);
+}
+
+// The gradient of one row shard (kWindow): grad is the shard's (n_rows, D)
+// f32 gradient, rows [row_lo, row_lo + n_rows) of the fused table; a slot
+// whose fused row lies outside adds nothing.
+int drs_embedding_bag_backward_window(const void* g, int g_dtype, int d, const void* offsets,
+                                      const void* indices, const void* mask, void* grad,
+                                      int64_t row_lo, int64_t n_rows, int64_t n_bags, int T,
+                                      int L, int grid, void* stream) {
+  if (row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  return launch_dtype<true>(g, g_dtype, d, offsets, indices, mask, grad, n_bags, T, L, grid,
+                            stream, row_lo, n_rows);
 }
 
 const char* drs_cuda_error_string(int err) {

@@ -55,6 +55,18 @@
 //     cast to the table dtype before it is added.
 // The order of the atomic adds changes from run to run, so results agree
 // with a sequential scatter to within the rounding of the adds to a row.
+//
+// The ownership window (kWindow, drs_sparse_adagrad_window): the step of one
+// row shard of the table, rows [row_lo, row_lo + n_rows), with its own
+// accumulator; it replaces the shard's masked scatters of the sharded
+// sparse step (deeprecsys_tpu/train.py:177-182). Both launches run over the
+// whole stream it is given (every data slice's ids, concatenated), so every
+// accumulator add lands before any scale is read, as above; a slot whose
+// fused row lies outside the shard touches nothing (launch 1 adds no g^2,
+// launch 2's lanes leave before their wait). The update is cast to the table
+// dtype before it is added, as in the single-device step: a bf16 shard
+// rounds at each add, where the TPU package's sharded step adds in f32 and
+// rounds each row once (ROADMAP.md Queue 3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +97,7 @@ struct Args {
   int T, L;
   float neg_lr, eps;
   cudaStream_t stream;
+  int64_t row_lo, n_rows;  // the window (kWindow instances only)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -178,12 +191,12 @@ __device__ __forceinline__ float halving_sum(float (&x)[N]) {
 // bit for bit on rows that take one add, so no term's bf16 rounding flips
 // between them; a sum in another order strays further than the
 // tolerance's order argument allows.
-template <typename TG, int D, int S, int PF>
+template <typename TG, int D, int S, int PF, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
                   const int32_t* __restrict__ indices, float* __restrict__ acc,
                   const char* __restrict__ table, int row_bytes, int64_t n_bags, int T,
-                  int L) {
+                  int L, int64_t row_lo, int64_t n_rows) {
   // Launch 2 may start now: what it reads before its wait is not written
   // here (cudaTriggerProgrammaticLaunchCompletion()).
   asm volatile("griddepcontrol.launch_dependents;");
@@ -197,7 +210,10 @@ accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
   const int j = (int)(t % S);
   const int l = (int)(task % windows) * S + j;
   if (bag >= n_bags) return;  // the whole segment: it shares the task
-  const int64_t row = l < L ? (int64_t)__ldg(offsets + bag % T) + __ldg(indices + bag * L + l) : -1;
+  int64_t row = l < L ? (int64_t)__ldg(offsets + bag % T) + __ldg(indices + bag * L + l) : -1;
+  if constexpr (kWindow) {
+    if (row >= 0) row = (uint64_t)(row - row_lo) < (uint64_t)n_rows ? row - row_lo : -1;
+  }
   if constexpr ((PF & kPrefetchRows) != 0) {
     if (row >= 0)
       asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(table + row * row_bytes),
@@ -233,11 +249,13 @@ __device__ __forceinline__ void wait_accumulated() {
 // Launch 2: a slot (bag, l) a group of S lanes, each lane K adds of E
 // elements (P = D / E lanes a row; an f32 D = 64 row at 4 bytes a lane is
 // 64 parts, two a lane).
-template <typename TT, typename TG, int D, int VB>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(TT* __restrict__ table, const float* __restrict__ acc, const TG* __restrict__ g,
-             const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
-             int64_t n_slots, int T, int L, float neg_lr, float eps) {
+template <typename TT, typename TG, int D, int VB, bool kWindow>
+__device__ __forceinline__ void apply_body(TT* __restrict__ table, const float* __restrict__ acc,
+                                           const TG* __restrict__ g,
+                                           const int32_t* __restrict__ offsets,
+                                           const int32_t* __restrict__ indices, int64_t n_slots,
+                                           int T, int L, float neg_lr, float eps, int64_t row_lo,
+                                           int64_t n_rows) {
   constexpr int E = VB / (int)sizeof(TT);
   constexpr int P = D / E;
   constexpr int S = P < 32 ? P : 32;
@@ -247,7 +265,11 @@ apply_kernel(TT* __restrict__ table, const float* __restrict__ acc, const TG* __
   const int j = (int)(t % S);
   if (slot >= n_slots) return;
   const int64_t bag = slot / L;
-  const int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
+  int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
+  if constexpr (kWindow) {
+    row -= row_lo;
+    if ((uint64_t)row >= (uint64_t)n_rows) return;  // another shard's row
+  }
   float v[K][E];
 #pragma unroll
   for (int k = 0; k < K; ++k) load_g<TG, E>(g + bag * D + (j + k * S) * E, v[k]);
@@ -262,38 +284,58 @@ apply_kernel(TT* __restrict__ table, const float* __restrict__ acc, const TG* __
   }
 }
 
-template <typename TG, int D, int S, int PF>
+template <typename TT, typename TG, int D, int VB>
+__global__ void __launch_bounds__(kThreads)
+apply_kernel(TT* __restrict__ table, const float* __restrict__ acc, const TG* __restrict__ g,
+             const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
+             int64_t n_slots, int T, int L, float neg_lr, float eps) {
+  apply_body<TT, TG, D, VB, false>(table, acc, g, offsets, indices, n_slots, T, L, neg_lr, eps,
+                                   0, 0);
+}
+
+// Launch 2 of one row shard: apply_kernel's slots, the window's only.
+template <typename TT, typename TG, int D, int VB>
+__global__ void __launch_bounds__(kThreads)
+apply_shard_kernel(TT* __restrict__ table, const float* __restrict__ acc,
+                   const TG* __restrict__ g, const int32_t* __restrict__ offsets,
+                   const int32_t* __restrict__ indices, int64_t n_slots, int T, int L,
+                   float neg_lr, float eps, int64_t row_lo, int64_t n_rows) {
+  apply_body<TT, TG, D, VB, true>(table, acc, g, offsets, indices, n_slots, T, L, neg_lr, eps,
+                                  row_lo, n_rows);
+}
+
+template <typename TG, int D, int S, int PF, bool kWindow>
 int launch_accumulate(const Args& a, int row_bytes) {
   if constexpr (S < D * (int)sizeof(TG) / 16) {
     return (int)cudaErrorInvalidValue;  // fewer lanes than the row's chunks (k5_launch_plan)
   } else {
     const int64_t blocks = (a.n_bags * ((a.L + S - 1) / S) * S + kThreads - 1) / kThreads;
-    accumulate_kernel<TG, D, S, PF><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
+    accumulate_kernel<TG, D, S, PF, kWindow><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
         static_cast<const TG*>(a.g), a.offsets, a.indices, a.acc,
-        static_cast<const char*>(a.table), row_bytes, a.n_bags, a.T, a.L);
+        static_cast<const char*>(a.table), row_bytes, a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
     return (int)cudaGetLastError();
   }
 }
 
 // Launch 1 on lanes_per_bag (4, 8, 16 or 32: at least a 16-byte chunk
-// of the gradient row a lane) lanes a bag.
-template <typename TG, int D, int PF>
+// of the gradient row a lane) lanes a bag; the window's slots only when
+// kWindow.
+template <typename TG, int D, int PF, bool kWindow = false>
 int accumulate(const Args& a, int row_bytes, int lanes_per_bag) {
   switch (lanes_per_bag) {
-    case 4: return launch_accumulate<TG, D, 4, PF>(a, row_bytes);
-    case 8: return launch_accumulate<TG, D, 8, PF>(a, row_bytes);
-    case 16: return launch_accumulate<TG, D, 16, PF>(a, row_bytes);
-    case 32: return launch_accumulate<TG, D, 32, PF>(a, row_bytes);
+    case 4: return launch_accumulate<TG, D, 4, PF, kWindow>(a, row_bytes);
+    case 8: return launch_accumulate<TG, D, 8, PF, kWindow>(a, row_bytes);
+    case 16: return launch_accumulate<TG, D, 16, PF, kWindow>(a, row_bytes);
+    case 32: return launch_accumulate<TG, D, 32, PF, kWindow>(a, row_bytes);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Launch 2: ``kernel`` (apply_kernel, or a sweep's other mapping) on
 // ``threads`` threads, with programmatic dependent launch when pdl.
-template <typename TT, typename TG>
-int launch_apply(void (*kernel)(TT*, const float*, const TG*, const int32_t*, const int32_t*,
-                                int64_t, int, int, float, float),
-                 const Args& a, int64_t threads, bool pdl) {
+template <typename... KArgs, typename... Params>
+int launch_pdl(void (*kernel)(KArgs...), const Args& a, int64_t threads, bool pdl,
+               Params... params) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((threads + kThreads - 1) / kThreads));
   cfg.blockDim = dim3(kThreads);
@@ -304,9 +346,16 @@ int launch_apply(void (*kernel)(TT*, const float*, const TG*, const int32_t*, co
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<TT*>(a.table),
-                                 static_cast<const float*>(a.acc), static_cast<const TG*>(a.g),
-                                 a.offsets, a.indices, a.n_bags * a.L, a.T, a.L, a.neg_lr, a.eps);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, params...);
+}
+
+template <typename TT, typename TG>
+int launch_apply(void (*kernel)(TT*, const float*, const TG*, const int32_t*, const int32_t*,
+                                int64_t, int, int, float, float),
+                 const Args& a, int64_t threads, bool pdl) {
+  return launch_pdl(kernel, a, threads, pdl, static_cast<TT*>(a.table),
+                    static_cast<const float*>(a.acc), static_cast<const TG*>(a.g), a.offsets,
+                    a.indices, a.n_bags * a.L, a.T, a.L, a.neg_lr, a.eps);
 }
 
 // Both launches: launch 1 with lanes_per_bag lanes a bag and the L2
@@ -321,12 +370,42 @@ int launch(const Args& a, int lanes_per_bag, bool pdl) {
   return launch_apply(apply_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl);
 }
 
-template <typename TT, typename TG>
+// Both launches of one row shard (Shipped's mapping, the window's slots).
+template <typename TT, typename TG, int D, int VB, int PF>
+int launch_shard(const Args& a, int lanes_per_bag, bool pdl) {
+  constexpr int P = D * (int)sizeof(TT) / VB;
+  const int err = accumulate<TG, D, PF, true>(a, D * (int)sizeof(TT), lanes_per_bag);
+  if (err != 0) return err;
+  return launch_pdl(apply_shard_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl,
+                    static_cast<TT*>(a.table), static_cast<const float*>(a.acc),
+                    static_cast<const TG*>(a.g), a.offsets, a.indices, a.n_bags * a.L, a.T, a.L,
+                    a.neg_lr, a.eps, a.row_lo, a.n_rows);
+}
+
+template <typename TT, typename TG, bool kWindow>
 int launch_width(int d, const Args& a, int lanes_per_bag) {
   constexpr int VB = Shipped::kVecBytes;
   using K = Shipped;
-  if (d == 32) return launch<TT, TG, 32, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
-  if (d == 64) return launch<TT, TG, 64, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+  if constexpr (kWindow) {
+    if (d == 32) return launch_shard<TT, TG, 32, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+    if (d == 64) return launch_shard<TT, TG, 64, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+  } else {
+    if (d == 32) return launch<TT, TG, 32, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+    if (d == 64) return launch<TT, TG, 64, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kWindow>
+int launch_dtypes(int table_dtype, int d, const Args& a, int g_dtype, int lanes_per_bag) {
+  if (table_dtype == 0 && g_dtype == 0)
+    return launch_width<float, float, kWindow>(d, a, lanes_per_bag);
+  if (table_dtype == 0 && g_dtype == 1)
+    return launch_width<float, __nv_bfloat16, kWindow>(d, a, lanes_per_bag);
+  if (table_dtype == 1 && g_dtype == 0)
+    return launch_width<__nv_bfloat16, float, kWindow>(d, a, lanes_per_bag);
+  if (table_dtype == 1 && g_dtype == 1)
+    return launch_width<__nv_bfloat16, __nv_bfloat16, kWindow>(d, a, lanes_per_bag);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -344,15 +423,23 @@ int drs_sparse_adagrad(void* table, int table_dtype, int d, void* acc, const voi
   if (n_bags <= 0 || L <= 0) return 0;
   const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
                   static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
-                  static_cast<cudaStream_t>(stream)};
-  if (table_dtype == 0 && g_dtype == 0) return launch_width<float, float>(d, a, lanes_per_bag);
-  if (table_dtype == 0 && g_dtype == 1)
-    return launch_width<float, __nv_bfloat16>(d, a, lanes_per_bag);
-  if (table_dtype == 1 && g_dtype == 0)
-    return launch_width<__nv_bfloat16, float>(d, a, lanes_per_bag);
-  if (table_dtype == 1 && g_dtype == 1)
-    return launch_width<__nv_bfloat16, __nv_bfloat16>(d, a, lanes_per_bag);
-  return (int)cudaErrorInvalidValue;
+                  static_cast<cudaStream_t>(stream), 0, 0};
+  return launch_dtypes<false>(table_dtype, d, a, g_dtype, lanes_per_bag);
+}
+
+// One row shard's step: table is the shard's (n_rows, d) rows [row_lo,
+// row_lo + n_rows) of the fused table and acc its (n_rows,) accumulator;
+// the ids are the whole stream's table-local ids.
+int drs_sparse_adagrad_window(void* table, int table_dtype, int d, void* acc, const void* g,
+                              int g_dtype, const void* offsets, const void* indices,
+                              int64_t row_lo, int64_t n_rows, int64_t n_bags, int T, int L,
+                              float neg_lr, float eps, int lanes_per_bag, void* stream) {
+  if (n_bags <= 0 || L <= 0) return 0;
+  if (row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
+                  static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
+                  static_cast<cudaStream_t>(stream), row_lo, n_rows};
+  return launch_dtypes<true>(table_dtype, d, a, g_dtype, lanes_per_bag);
 }
 
 const char* drs_cuda_error_string(int err) {

@@ -43,7 +43,10 @@ for float and row-wise tables, the exact int32 pool for per-table int8), and
 the ``*_hotcold_*_shard`` wrappers do the same for K6 on a shard's cold
 stream. The caller adds the shards' partials and then scales and rounds
 once, so a sharded per-table int8 lookup is bit for bit the single-device
-one. Each keeps its own launch count.
+one. Each keeps its own launch count. Under autograd (the dense mesh
+trainer) ``embedding_bag_shard`` runs as ``EmbeddingBagShardFunction``,
+whose backward is K1b with the same window (``embedding_bag_backward_shard``:
+the shard's own ``(R_s, d)`` f32 gradient).
 
 The export helpers ``quantize_rowwise_int8`` and ``quantize_pertable_int8``
 are plain torch: they run once an export. (JAX's ``pack_table`` is
@@ -435,15 +438,18 @@ K1B_WARPS_PER_BLOCK = 8  # kWarpsPerBlock in csrc/embedding_bag_backward.cu
 def embedding_bag_backward_reference(g: torch.Tensor, offsets: torch.Tensor,
                                      indices: torch.Tensor, num_rows: int, *,
                                      mask: torch.Tensor | None = None,
-                                     out: torch.Tensor | None = None) -> torch.Tensor:
+                                     out: torch.Tensor | None = None,
+                                     window: tuple[int, int] | None = None) -> torch.Tensor:
     """Plain PyTorch gradient of the pooled lookup with respect to the
     table: each bag's pooled gradient, broadcast over its L slots in f32
     (zero where masked out), ``index_add_``-ed into the rows the bag read.
     Accumulates into ``out`` (f32 ``(num_rows, d)``) if given, else into
-    zeros; returns the f32 sum."""
+    zeros; returns the f32 sum. With ``window = (row_lo, row_lo +
+    num_rows)`` (``window_ids``) the gradient is that row shard's: a slot
+    adds into shard row ``fused - row_lo`` iff its row lies in the shard."""
     B, T, L = indices.shape
     d = g.shape[-1]
-    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    flat, mask = window_ids(offsets, indices, mask, window)
     rows = g.float()[:, :, None, :].expand(B, T, L, d)
     if mask is not None:
         rows = torch.where(mask[..., None], rows, 0.0)
@@ -461,6 +467,34 @@ def _declare_backward(lib: ctypes.CDLL):
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
         ctypes.c_int, ctypes.c_void_p,                      # grid, stream
     ]
+    lib.drs_embedding_bag_backward_window.restype = ctypes.c_int
+    lib.drs_embedding_bag_backward_window.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,        # g, g dtype, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
+        ctypes.c_void_p,                                    # grad (f32, the shard's)
+        ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_void_p,                      # grid, stream
+    ]
+
+
+def _check_backward(g, offsets, indices, num_rows: int, mask, out):
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    if g.shape != (B, T, d) or d not in _KERNEL_WIDTHS or g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"g must be (B, T, d) = ({B}, {T}, d) float32 or bfloat16 with "
+                         f"d in {_KERNEL_WIDTHS}; got {tuple(g.shape)} {g.dtype}")
+    if out is not None and (out.shape != (num_rows, d) or out.dtype != torch.float32
+                            or not out.is_contiguous() or out.device != g.device):
+        raise ValueError(f"out must be a contiguous float32 ({num_rows}, {d}) tensor on "
+                         f"{g.device}; got {tuple(out.shape)} {out.dtype} on {out.device}")
+    _check(g.new_empty((0, d)), offsets, indices, g.dtype, mask)
+
+
+def _k1b_grid(indices) -> int:
+    B, T, L = indices.shape
+    tasks = B * T * -(-L // 32)  # a warp a bag and 32 of its slots
+    return -(-tasks // K1B_WARPS_PER_BLOCK)
 
 
 def embedding_bag_backward(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
@@ -487,16 +521,9 @@ def embedding_bag_backward(g: torch.Tensor, offsets: torch.Tensor, indices: torc
     ``embedding_bag_backward.kernel_launches``; a failed build or launch
     raises.
     """
+    _check_backward(g, offsets, indices, num_rows, mask, out)
     B, T, L = indices.shape
     d = g.shape[-1]
-    if g.shape != (B, T, d) or d not in _KERNEL_WIDTHS or g.dtype not in _DTYPE_CODES:
-        raise ValueError(f"g must be (B, T, d) = ({B}, {T}, d) float32 or bfloat16 with "
-                         f"d in {_KERNEL_WIDTHS}; got {tuple(g.shape)} {g.dtype}")
-    if out is not None and (out.shape != (num_rows, d) or out.dtype != torch.float32
-                            or not out.is_contiguous() or out.device != g.device):
-        raise ValueError(f"out must be a contiguous float32 ({num_rows}, {d}) tensor on "
-                         f"{g.device}; got {tuple(out.shape)} {out.dtype} on {out.device}")
-    _check(g.new_empty((0, d)), offsets, indices, g.dtype, mask)
     if g.device.type == "cpu":
         return embedding_bag_backward_reference(g, offsets, indices, num_rows,
                                                 mask=mask, out=out)
@@ -507,13 +534,11 @@ def embedding_bag_backward(g: torch.Tensor, offsets: torch.Tensor, indices: torc
         out = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
     if B * T == 0 or L == 0:
         return out
-    tasks = B * T * -(-L // 32)  # a warp a bag and 32 of its slots
-    grid = -(-tasks // K1B_WARPS_PER_BLOCK)
     _build.launch(_build.load("embedding_bag_backward", _declare_backward),
                   "drs_embedding_bag_backward", g.device,
                   g.data_ptr(), _DTYPE_CODES[g.dtype], d, offsets.data_ptr(),
                   indices.data_ptr(), mask.data_ptr() if mask is not None else None,
-                  out.data_ptr(), B * T, T, L, grid)
+                  out.data_ptr(), B * T, T, L, _k1b_grid(indices))
     _build.count_launch(embedding_bag_backward)
     return out
 
@@ -521,10 +546,66 @@ def embedding_bag_backward(g: torch.Tensor, offsets: torch.Tensor, indices: torc
 embedding_bag_backward.kernel_launches = 0
 
 
+def embedding_bag_backward_shard(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
+                                 row_lo: int, rows: int, *, mask: torch.Tensor | None = None,
+                                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The gradient of ``embedding_bag_shard`` with respect to its row
+    shard (K1b with the ownership window; the VJP of the shard's masked
+    gather + pool, JAX ``parallel/sharding.py:102-130``, under the dense
+    mesh step's ``jax.value_and_grad``).
+
+    Args:
+      g: ``(B, T, d)`` gradient of the shard's pooled partial, float32 or
+        bfloat16.
+      offsets, indices, mask: as ``embedding_bag_shard`` took them (the
+        whole batch's table-local ids).
+      row_lo, rows: the shard holds the fused rows ``[row_lo, row_lo + rows)``.
+      out: optional f32 ``(rows, d)`` buffer to accumulate into.
+
+    Returns:
+      the shard's f32 ``(rows, d)`` gradient: each bag's gradient added at
+      row ``fused - row_lo`` of every slot whose row the shard owns; a slot
+      another shard owns adds nothing. The adds are atomic, in no fixed
+      order, as ``embedding_bag_backward``'s.
+
+    CPU tensors take ``embedding_bag_backward_reference(..., window=...)``;
+    CUDA tensors launch K1b's window instance, counted in
+    ``embedding_bag_backward_shard.kernel_launches``; a failed build or
+    launch raises.
+    """
+    if row_lo < 0 or rows < 0:
+        raise ValueError(f"row_lo and rows must be >= 0; got {row_lo}, {rows}")
+    _check_backward(g, offsets, indices, rows, mask, out)
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    if g.device.type == "cpu":
+        return embedding_bag_backward_reference(g, offsets, indices, rows, mask=mask, out=out,
+                                                window=(row_lo, row_lo + rows))
+    if g.device.type != "cuda":
+        raise ValueError(f"embedding_bag_backward_shard runs on cpu or cuda, not {g.device}")
+    g = g.contiguous()
+    if out is None:
+        out = torch.zeros((rows, d), dtype=torch.float32, device=g.device)
+    if B * T == 0 or L == 0:
+        return out
+    _build.launch(_build.load("embedding_bag_backward", _declare_backward),
+                  "drs_embedding_bag_backward_window", g.device,
+                  g.data_ptr(), _DTYPE_CODES[g.dtype], d, offsets.data_ptr(),
+                  indices.data_ptr(), mask.data_ptr() if mask is not None else None,
+                  out.data_ptr(), row_lo, rows, B * T, T, L, _k1b_grid(indices))
+    _build.count_launch(embedding_bag_backward_shard)
+    return out
+
+
+embedding_bag_backward_shard.kernel_launches = 0
+
+
 def scatter_counts(offsets: torch.Tensor, indices: torch.Tensor, num_rows: int,
-                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """``(num_rows,)`` f32: how many live slots add into each row."""
-    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+                   mask: torch.Tensor | None = None,
+                   window: tuple[int, int] | None = None) -> torch.Tensor:
+    """``(num_rows,)`` f32: how many live slots add into each row (of the
+    row shard ``window``, ``window_ids``, if given)."""
+    flat, mask = window_ids(offsets, indices, mask, window)
     ones = torch.ones(flat.shape, dtype=torch.float32, device=flat.device)
     if mask is not None:
         ones = ones * mask.reshape(-1)
@@ -532,12 +613,15 @@ def scatter_counts(offsets: torch.Tensor, indices: torch.Tensor, num_rows: int,
 
 
 def backward_tolerance(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
-                       num_rows: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+                       num_rows: int, mask: torch.Tensor | None = None,
+                       window: tuple[int, int] | None = None) -> torch.Tensor:
     """Elementwise bound on |a - b| for two f32 gradients of this op that
     differ only in the order of each row's adds: n_r * 2^-22 * sum|g| for a
-    row of n_r adds (recursive summation error of both orders)."""
-    abs_sum = embedding_bag_backward_reference(g.abs(), offsets, indices, num_rows, mask=mask)
-    n = scatter_counts(offsets, indices, num_rows, mask)
+    row of n_r adds (recursive summation error of both orders). ``window``:
+    two gradients of that row shard."""
+    abs_sum = embedding_bag_backward_reference(g.abs(), offsets, indices, num_rows, mask=mask,
+                                               window=window)
+    n = scatter_counts(offsets, indices, num_rows, mask, window)
     return n[:, None] * 2.0 ** -22 * abs_sum
 
 
@@ -559,6 +643,26 @@ class EmbeddingBagFunction(torch.autograd.Function):
         offsets, indices, mask = ctx.saved_tensors
         grad = embedding_bag_backward(g, offsets, indices, ctx.num_rows, mask=mask)
         return grad.to(ctx.table_dtype), None, None, None, None
+
+
+class EmbeddingBagShardFunction(torch.autograd.Function):
+    """``embedding_bag_shard`` differentiable with respect to its row shard:
+    forward K1's window (the f32 partial), backward K1b's window
+    (``embedding_bag_backward_shard``; the plain versions on the CPU). The
+    gradient comes back in the shard's dtype, summed in f32 and rounded
+    once."""
+
+    @staticmethod
+    def forward(ctx, shard, offsets, indices, mask, cdt, row_lo):
+        ctx.save_for_backward(offsets, indices, mask)
+        ctx.rows, ctx.row_lo, ctx.table_dtype = shard.shape[0], row_lo, shard.dtype
+        return _dispatch_shard(shard, offsets, indices, mask, cdt, row_lo)
+
+    @staticmethod
+    def backward(ctx, g):
+        offsets, indices, mask = ctx.saved_tensors
+        grad = embedding_bag_backward_shard(g, offsets, indices, ctx.row_lo, ctx.rows, mask=mask)
+        return grad.to(ctx.table_dtype), None, None, None, None, None
 
 
 # ------------------------------------------------- int8 tables (K1-int8, K4)
@@ -819,14 +923,23 @@ def embedding_bag_shard(shard: torch.Tensor, offsets: torch.Tensor, indices: tor
 
     CPU tensors take ``embedding_bag_reference(..., window=...)``; CUDA
     tensors launch K1's window instance with ``k1_launch_plan``'s mapping,
-    counted in ``embedding_bag_shard.kernel_launches``.
+    counted in ``embedding_bag_shard.kernel_launches``. With grad enabled
+    and ``shard.requires_grad`` the call is differentiable with respect to
+    the shard (``EmbeddingBagShardFunction``: backward K1b's window).
     """
     cdt = compute_dtype if compute_dtype is not None else shard.dtype
     _check(shard, offsets, indices, cdt, mask)
-    window = _check_window(shard, row_lo)
+    _check_window(shard, row_lo)
+    if torch.is_grad_enabled() and shard.requires_grad:
+        return EmbeddingBagShardFunction.apply(shard, offsets, indices, mask, cdt, row_lo)
+    return _dispatch_shard(shard, offsets, indices, mask, cdt, row_lo)
+
+
+def _dispatch_shard(shard, offsets, indices, mask, cdt, row_lo: int) -> torch.Tensor:
+    """The plain version on the CPU, K1's window on the card (checked inputs)."""
     if shard.device.type == "cpu":
         return embedding_bag_reference(shard, offsets, indices, compute_dtype=cdt, mask=mask,
-                                       window=window)
+                                       window=(row_lo, row_lo + shard.shape[0]))
     if shard.device.type != "cuda":
         raise ValueError(f"embedding_bag_shard runs on cpu or cuda, not {shard.device}")
     if shard.data_ptr() % 16:

@@ -166,3 +166,39 @@ def optimizer_update(name: str, params: list, grads: list, states: list,
 
 
 optimizer_update.kernel_launches = 0
+
+
+class Optimizer:
+    """One of optax's sgd, adagrad and adam (optax 0.2.6 defaults), applied
+    in place by ``optimizer_update``: kernel K10 on the card, optax's update
+    written out op by op on the CPU (the formulas are above). The state
+    mirrors the params in their dtype, as optax's does: adagrad a list of
+    accumulators (starting at 0.1), adam ``{"count", "mu", "nu"}``. The
+    single-device trainer and the mesh trainers (``parallel/sharding.py::
+    MeshOptimizer``) both take it.
+    """
+
+    def __init__(self, name: str, learning_rate: float):
+        if name not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {name!r}")
+        self.name, self.lr = name, learning_rate
+
+    def init(self, leaves: list):
+        if self.name == "adagrad":
+            return [torch.full_like(p, 0.1) for p in leaves]
+        if self.name == "adam":
+            return {"count": 0, "mu": [torch.zeros_like(p) for p in leaves],
+                    "nu": [torch.zeros_like(p) for p in leaves]}
+        return None
+
+    @torch.no_grad()
+    def update(self, leaves: list, grads, state):
+        if self.name == "sgd":
+            optimizer_update("sgd", leaves, grads, [], self.lr)
+        elif self.name == "adagrad":
+            optimizer_update("adagrad", leaves, grads, [state], self.lr)
+        else:
+            state["count"] += 1
+            optimizer_update("adam", leaves, grads, [state["mu"], state["nu"]], self.lr,
+                             count=state["count"])
+        return state

@@ -16,6 +16,16 @@ vector atomic adds into each touched row, started early by programmatic
 dependent launch), on CPU tensors it runs the plain version
 ``sparse_adagrad_step_reference``. Both update ``table`` and ``acc`` in
 place, where the JAX step returns new arrays (its jit donates them).
+
+On a mesh (``train.py::make_sharded_sparse_table_step``) each row shard of
+the table takes ``sparse_adagrad_step_shard``: K5 with the ownership window
+(the shard's fused rows ``[row_lo, row_lo + R_s)`` and its own
+accumulator), over the stream of every data slice's ids, so that every
+accumulator add still lands before any scale is read. Its update is cast to
+the table dtype before it is added, as the single-device step's: a bf16
+shard rounds at each add, where the JAX sharded step adds in f32 and rounds
+each row once (``train.py:172-182``; ROADMAP.md Queue 3). f32 tables are
+the same either way.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import functools
 import torch
 
 from deeprecsys_tpu_torch.ops import _build
-from deeprecsys_tpu_torch.ops.embedding import scatter_counts
+from deeprecsys_tpu_torch.ops.embedding import scatter_counts, window_ids
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_WIDTHS = (32, 64)
@@ -64,18 +74,45 @@ def k5_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype,
                   -(-n_bags * L * lanes_per_slot // K5_THREADS))
 
 
-def sparse_adagrad_step_reference(table: torch.Tensor, acc: torch.Tensor,
-                                  offsets: torch.Tensor, indices: torch.Tensor,
-                                  g: torch.Tensor, learning_rate: float, eps: float = 1e-8):
-    """Plain PyTorch step: the JAX step's scatters as ``index_add_``, the
-    accumulator's before the table's."""
+def _window_rows(offsets, indices, g, window):
+    """The step's touched rows (of the shard, with ``window``) and their
+    f32 gradient rows; slots outside the window dropped."""
     B, T, L = indices.shape
     d = g.shape[-1]
-    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
+    flat, valid = window_ids(offsets, indices, None, window)
     g_rows = g.float()[:, :, None, :].expand(B, T, L, d).reshape(B * T * L, d)
+    if valid is not None:
+        keep = valid.reshape(-1)
+        flat, g_rows = flat[keep], g_rows[keep]
+    return flat, g_rows
+
+
+def sparse_adagrad_step_reference(table: torch.Tensor, acc: torch.Tensor,
+                                  offsets: torch.Tensor, indices: torch.Tensor,
+                                  g: torch.Tensor, learning_rate: float, eps: float = 1e-8,
+                                  window: tuple[int, int] | None = None):
+    """Plain PyTorch step: the JAX step's scatters as ``index_add_``, the
+    accumulator's before the table's. With ``window = (row_lo, row_lo +
+    R_s)`` (``window_ids``) ``table`` and ``acc`` are that row shard's and
+    only the slots whose rows it owns take part."""
+    flat, g_rows = _window_rows(offsets, indices, g, window)
     acc.index_add_(0, flat, torch.mean(g_rows * g_rows, dim=-1))
     scale = torch.rsqrt(acc[flat] + eps)
     table.index_add_(0, flat, (-learning_rate * (g_rows * scale[:, None])).to(table.dtype))
+
+
+def _declare_window(lib: ctypes.CDLL):
+    _declare(lib)
+    lib.drs_sparse_adagrad_window.restype = ctypes.c_int
+    lib.drs_sparse_adagrad_window.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,   # shard, table dtype, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # acc (the shard's), g, g dtype
+        ctypes.c_void_p, ctypes.c_void_p,              # offsets, indices
+        ctypes.c_int64, ctypes.c_int64,                # row_lo, rows
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,    # B*T, T, L
+        ctypes.c_float, ctypes.c_float,                # -learning_rate, eps
+        ctypes.c_int, ctypes.c_void_p,                 # lanes a bag, stream
+    ]
 
 
 def _declare(lib: ctypes.CDLL):
@@ -148,7 +185,8 @@ def sparse_adagrad_step(table: torch.Tensor, acc: torch.Tensor, offsets: torch.T
     if g.data_ptr() % 16:  # the kernels load g's rows in 16-byte chunks
         g = g.clone()
     plan = k5_launch_plan(B * T, L, table.shape[1], table.dtype, g.dtype)
-    _build.launch(_build.load("sparse_adagrad", _declare), "drs_sparse_adagrad", table.device,
+    _build.launch(_build.load("sparse_adagrad", _declare_window), "drs_sparse_adagrad",
+                  table.device,
                   table.data_ptr(), _DTYPE_CODES[table.dtype], table.shape[1], acc.data_ptr(),
                   g.data_ptr(), _DTYPE_CODES[g.dtype], offsets.data_ptr(), indices.data_ptr(),
                   B * T, T, L, -learning_rate, eps, plan.lanes_per_bag)
@@ -159,9 +197,61 @@ def sparse_adagrad_step(table: torch.Tensor, acc: torch.Tensor, offsets: torch.T
 sparse_adagrad_step.kernel_launches = 0
 
 
+def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
+                              offsets: torch.Tensor, indices: torch.Tensor, g: torch.Tensor,
+                              row_lo: int, learning_rate: float, eps: float = 1e-8):
+    """One row-wise AdaGrad step of one row shard of the table, in place
+    (K5 with the ownership window; the shard's masked scatters of the JAX
+    sharded sparse step, ``train.py:177-182``).
+
+    Args:
+      shard: ``(R_s, d)`` rows ``[row_lo, row_lo + R_s)`` of the fused
+        table, float32 or bfloat16, d 32 or 64.
+      acc_shard: its ``(R_s,)`` float32 accumulator.
+      offsets, indices: the whole stream's table-local ids (every data
+        slice's, concatenated in data-row order).
+      g: ``(B, T, d)`` gradient of the stream's pooled outputs.
+      row_lo, learning_rate, eps: the window's first fused row; the step's.
+
+    Only the rows the shard owns are touched; a slot whose row another shard
+    owns adds nothing. Both launches run over the whole stream, so every
+    accumulator add lands before any scale is read. CPU tensors take
+    ``sparse_adagrad_step_reference(..., window=...)``; CUDA tensors launch
+    K5's window instance (two kernels on the current stream, counted once
+    in ``sparse_adagrad_step_shard.kernel_launches``); a failed build or
+    launch raises.
+    """
+    if row_lo < 0:
+        raise ValueError(f"row_lo must be >= 0; got {row_lo}")
+    _check(shard, acc_shard, offsets, indices, g)
+    window = (row_lo, row_lo + shard.shape[0])
+    if shard.device.type == "cpu":
+        return sparse_adagrad_step_reference(shard, acc_shard, offsets, indices, g,
+                                             learning_rate, eps, window=window)
+    if shard.device.type != "cuda":
+        raise ValueError(f"sparse_adagrad_step_shard runs on cpu or cuda, not {shard.device}")
+    B, T, L = indices.shape
+    if B * T == 0 or L == 0:
+        return None
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    plan = k5_launch_plan(B * T, L, shard.shape[1], shard.dtype, g.dtype)
+    _build.launch(_build.load("sparse_adagrad", _declare_window), "drs_sparse_adagrad_window",
+                  shard.device, shard.data_ptr(), _DTYPE_CODES[shard.dtype], shard.shape[1],
+                  acc_shard.data_ptr(), g.data_ptr(), _DTYPE_CODES[g.dtype], offsets.data_ptr(),
+                  indices.data_ptr(), row_lo, shard.shape[0], B * T, T, L, -learning_rate, eps,
+                  plan.lanes_per_bag)
+    _build.count_launch(sparse_adagrad_step_shard)
+    return None
+
+
+sparse_adagrad_step_shard.kernel_launches = 0
+
+
 def sparse_adagrad_tolerance(table0: torch.Tensor, acc0: torch.Tensor, offsets: torch.Tensor,
                              indices: torch.Tensor, g: torch.Tensor, learning_rate: float,
-                             eps: float = 1e-8):
+                             eps: float = 1e-8, window: tuple[int, int] | None = None):
     """Elementwise bounds on |a - b| for the table and the accumulator after
     two steps from ``(table0, acc0)`` that differ only in the order of each
     row's adds. A row of n adds: the accumulator within n * 2^-22 * its
@@ -169,13 +259,12 @@ def sparse_adagrad_tolerance(table0: torch.Tensor, acc0: torch.Tensor, offsets: 
     rsqrt (half of it), and each side rounds each add to the table dtype,
     so the updated rows agree within n * (2^-21 + 2 ulp) * (|table0| +
     sum |term|), ulp the table dtype's unit roundoff (2^-23 f32, 2^-8
-    bf16)."""
-    B, T, L = indices.shape
+    bf16). ``window``: two steps of that row shard (``table0``, ``acc0``
+    the shard's)."""
     d = g.shape[-1]
     R = table0.shape[0]
-    flat = (indices.long() + offsets.long()[None, :, None]).reshape(-1)
-    g_rows = g.float()[:, :, None, :].expand(B, T, L, d).reshape(-1, d)
-    n = scatter_counts(offsets, indices, R)
+    flat, g_rows = _window_rows(offsets, indices, g, window)
+    n = scatter_counts(offsets, indices, R, window=window)
     acc = acc0.clone().index_add_(0, flat, torch.mean(g_rows * g_rows, dim=-1))
     acc_tol = n * 2.0 ** -22 * acc
     terms = (learning_rate * g_rows.abs() * torch.rsqrt(acc[flat] + eps)[:, None])

@@ -1,25 +1,30 @@
 """Counterpart of ``deeprecsys_tpu/parallel/``: the device mesh
 (``mesh.py``), table placement (``placement.py``), the sharded serving
-lookups and ``sharded_apply`` (``sharding.py``, with the training losses),
-and the table-wise model (``api.py``).
+lookups and ``sharded_apply`` (``sharding.py``, with the training losses,
+``make_train_step`` and ``unshard_params``), and the table-wise model
+(``api.py``). The mesh trainers are ``train.py``'s ``Trainer(mesh=)`` and
+``make_sharded_sparse_table_step``.
 
-Not ported yet (ROADMAP.md Queue 1 item 12b): the sharded trainers
-(``make_train_step``, ``make_sharded_sparse_table_step``) and multi-process
-meshes (``distributed_init`` with more than one process raises).
+Not ported yet (ROADMAP.md Queue 1): multi-process meshes
+(``distributed_init`` with more than one process raises).
 """
 
 from deeprecsys_tpu_torch.parallel.mesh import Mesh, distributed_init, make_mesh
 from deeprecsys_tpu_torch.parallel.sharding import (
+    make_train_step,
     shard_params,
     sharded_apply,
     sharded_embedding_bag,
+    unshard_params,
 )
 
 __all__ = [
     "make_mesh",
     "distributed_init",
+    "make_train_step",
     "shard_params",
     "sharded_apply",
     "sharded_embedding_bag",
+    "unshard_params",
     "Mesh",
 ]

@@ -39,8 +39,17 @@ mesh run K6 on each shard's cold stream (``sharded_embedding_bag_hotcold``:
 tensor-parallel, the batch on row 0; ``hybrid_embedding_bag_hotcold``: a
 cold stream a (data, model) cell).
 
-The sharded trainers (``make_train_step``) are not ported yet (ROADMAP.md
-Queue 1 item 12b). The losses at the end are the JAX module's (:427-462).
+Training over a mesh (``make_train_step`` here, and ``train.py``'s
+``Trainer(mesh=)`` and ``make_sharded_sparse_table_step``): the same
+lookup under autograd, each shard's partial an ``EmbeddingBagShardFunction``
+(forward K1's window, backward K1b's window), the loss the mean of the data
+slices' mean losses (the JAX ``pmean`` over "data"). Autograd sums the
+gradient of a tensor that several entries share (a one-card mesh holds each
+leaf once), and ``reduce_copies`` adds the gradients of a leaf's copies on
+distinct devices (the JAX ``psum`` of the replicated leaves' gradients), so
+each distinct tensor takes the whole gradient once and its update exactly
+once (``leaf_copies``). ``unshard_params`` reads the full params back. The
+losses at the end are the JAX module's (:427-462).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from deeprecsys_tpu_torch import bridge
 from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.models.base import Batch, ModelFns, compute_dtype_of
 from deeprecsys_tpu_torch.parallel.mesh import Mesh
@@ -426,7 +436,7 @@ def pad_rows_for_mesh(cfg: ModelConfig, n_model: int) -> int:
     return 0 if r == 0 else n_model - r
 
 
-def _pooled_on_row(sp: ShardedParams, d: int, batch: Batch, cfg: ModelConfig,
+def pooled_on_row(sp: ShardedParams, d: int, batch: Batch, cfg: ModelConfig,
                    offsets: Replicated) -> torch.Tensor:
     """Row d's pooled lookup for the table's layout, on entry (d, 0)."""
     from deeprecsys_tpu_torch.models.base import pooled_lookup
@@ -462,12 +472,10 @@ def sharded_apply(model: ModelFns, mesh: Mesh, has_dense: bool) -> Callable:
         if not isinstance(sp, ShardedParams):
             raise TypeError(f"sharded_apply's fn takes shard_params(params, mesh), not "
                             f"{type(sp).__name__}")
-        if has_dense != (batch.dense is not None):
-            raise ValueError(f"has_dense={has_dense} but the batch "
-                             f"{'has no' if batch.dense is None else 'has'} dense features")
+        _check_dense(has_dense, batch)
         scores = []
         for d, sl in enumerate(split_batch(batch, mesh)):
-            pooled = _pooled_on_row(sp, d, sl, cfg, offsets)
+            pooled = pooled_on_row(sp, d, sl, cfg, offsets)
             dev0 = mesh.device(d, 0)
             tail = Batch(dense=None if sl.dense is None else _to(torch.as_tensor(sl.dense), dev0),
                          indices=None, mask=None)
@@ -748,6 +756,197 @@ def tablewise_embedding_bag(shard_tables, indices: torch.Tensor, placement, mesh
     out = tablewise_rows(shard_tables, indices, TablewisePlan(placement, mesh, table_scale),
                          compute_dtype=compute_dtype, mask=mask, rowwise=rowwise)
     return torch.cat([_to(o, mesh.devices.flat[0]) for o in out], dim=0)
+
+
+# ----------------------------------------------------------------------
+# Training over a mesh
+# ----------------------------------------------------------------------
+
+
+def leaf_copies(sp: ShardedParams, skip: tuple = ()) -> list:
+    """Each logical leaf's distinct tensors, first copy first: a replicated
+    leaf has one a distinct device, shard m of a row-sharded table one a
+    distinct device of column m. Top-level keys in ``skip`` are left out.
+    One step updates each tensor here once, whichever entries share it."""
+    groups: dict = {}
+    for row in sp.entries:
+        for m, e in enumerate(row):
+            for path, t in bridge.flatten(e).items():
+                top = path.split("/")[0]
+                if top in skip:
+                    continue
+                sharded = top == "tables" and sp.rows_per_shard is not None and t.dim() == 2
+                copies = groups.setdefault((path, m if sharded else None), [])
+                if not any(c is t for c in copies):
+                    copies.append(t)
+    return list(groups.values())
+
+
+def reduce_copies(groups: list, grads: list) -> list:
+    """The gradients of ``groups``' tensors (flattened in order; None for a
+    copy no slice used) with each logical leaf's copies given their sum:
+    added in copy order on the first copy's device, then moved to each
+    copy's (the JAX ``psum``). A leaf of one copy keeps its gradient."""
+    out, i = [], 0
+    for copies in groups:
+        gs = grads[i:i + len(copies)]
+        i += len(copies)
+        if len(copies) == 1:
+            out.append(gs[0] if gs[0] is not None else torch.zeros_like(copies[0]))
+            continue
+        total = None
+        for g in gs:
+            if g is not None:
+                total = _to(g, copies[0].device) if total is None else total + _to(
+                    g, copies[0].device)
+        if total is None:
+            total = torch.zeros_like(copies[0])
+        out.extend(_to(total, c.device) for c in copies)
+    return out
+
+
+def by_device(tensors: list) -> dict:
+    """``{device: [indices of tensors on it]}`` in first-seen order."""
+    out: dict = {}
+    for i, t in enumerate(tensors):
+        out.setdefault(t.device, []).append(i)
+    return out
+
+
+def with_grad(leaves: list, fn):
+    """``fn()`` with ``leaves`` requiring grad for its duration only, so
+    trained params are plain tensors between steps (serving them runs no
+    autograd)."""
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        return fn()
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def split_targets(targets: torch.Tensor, mesh: Mesh) -> list:
+    """The targets' D contiguous slices over "data", slice d on entry (d, 0)."""
+    D = mesh.shape["data"]
+    b = targets.shape[0] // D
+    return [_to(targets[d * b:(d + 1) * b], mesh.device(d, 0)) for d in range(D)]
+
+
+def mesh_loss(model: ModelFns, sp: ShardedParams, slices: list, targets: list, loss_fn,
+              pooled_of: Callable) -> torch.Tensor:
+    """The global mean loss: each data slice's mean loss (``pooled_of(d,
+    slice)``, then ``apply_from_pooled`` on entry (d, 0)), summed on
+    ``mesh.devices.flat[0]`` in slice order and divided by D (the JAX
+    ``pmean`` over "data"; equal slices, so the mean of the batch)."""
+    mesh = sp.mesh
+    total = None
+    for d, sl in enumerate(slices):
+        dev0 = mesh.device(d, 0)
+        tail = Batch(dense=None if sl.dense is None else _to(torch.as_tensor(sl.dense), dev0),
+                     indices=None, mask=None)
+        loss = loss_fn(model.apply_from_pooled(sp.entry(d, 0), pooled_of(d, sl), tail),
+                       targets[d])
+        loss = _to(loss, mesh.devices.flat[0])
+        total = loss if total is None else total + loss
+    return total / len(slices)
+
+
+class MeshOptimizer:
+    """An optimizer (``ops/optimizer.py::Optimizer``) over the distinct
+    tensors of a mesh's params: a state a device (its tensors', in
+    ``leaf_copies`` order), one update (one K10 launch a dtype) a device.
+    Each tensor's state has its shape, so a row shard's state is row-sharded
+    with it and every other leaf's is replicated (JAX ``train.py:375-386``)."""
+
+    def __init__(self, tx, leaves: list):
+        self.tx = tx
+        self.devices = by_device(leaves)
+        self.states = {dev: tx.init([leaves[i] for i in idx])
+                       for dev, idx in self.devices.items()}
+
+    def update(self, leaves: list, grads: list):
+        for dev, idx in self.devices.items():
+            self.tx.update([leaves[i] for i in idx],
+                           [grads[i].to(leaves[i].dtype) for i in idx], self.states[dev])
+
+
+def make_mesh_dense_step(model: ModelFns, mesh: Mesh, loss_fn) -> Callable:
+    """The dense step over a mesh (JAX ``Trainer._build_step`` with
+    shardings, ``train.py:354-399``): autodiff through the row-sharded
+    lookup (each shard's partial an ``EmbeddingBagShardFunction``: K1's
+    window forward, K1b's window backward) and the towers, the loss the mean
+    of the slices' means, each leaf's gradient summed over its copies
+    (``reduce_copies``), then the optimizer (``MeshOptimizer``, K10).
+    ``step(sp, opt_state, batch, targets)`` updates both in place and
+    returns the loss; ``opt_state`` is a ``MeshOptimizer`` of
+    ``leaf_copies(sp)``' tensors."""
+    offsets = Replicated(mesh, torch.as_tensor(model.cfg.table_offsets, dtype=torch.int32))
+
+    def step(sp: ShardedParams, opt_state: MeshOptimizer, batch: Batch, targets):
+        groups = leaf_copies(sp)
+        leaves = [t for copies in groups for t in copies]
+        slices, tsl = split_batch(batch, mesh), split_targets(targets, mesh)
+
+        def run():
+            loss = mesh_loss(model, sp, slices, tsl, loss_fn,
+                             lambda d, sl: pooled_on_row(sp, d, sl, model.cfg, offsets))
+            return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+        loss, grads = with_grad(leaves, run)
+        opt_state.update(leaves, reduce_copies(groups, list(grads)))
+        return loss.detach()
+
+    return step
+
+
+def _check_dense(has_dense: bool, batch: Batch):
+    if has_dense != (batch.dense is not None):
+        raise ValueError(f"has_dense={has_dense} but the batch "
+                         f"{'has no' if batch.dense is None else 'has'} dense features")
+
+
+def make_train_step(model: ModelFns, mesh: Mesh, has_dense: bool, learning_rate: float = 0.01,
+                    loss: str = "mse", sigmoid_output: bool = True) -> Callable:
+    """An SGD train step over the mesh (JAX ``sharding.py:465-499``).
+
+    Takes the ``ModelFns`` (as ``sharded_apply`` does; JAX takes
+    ``model.apply``) and returns ``jitted(sp) -> step``, where ``step(sp,
+    batch, targets) -> (sp, loss)`` updates ``sp`` (``shard_params``'
+    output) in place and returns it. It is ``make_mesh_dense_step`` with
+    sgd: the update is JAX's ``p - lr * g.astype(p.dtype)`` in ``p.dtype``,
+    computed by K10's sgd (``p += g * -lr``, the same bits: a negation is
+    exact), one launch a device and dtype over the distinct tensors there.
+    ``sigmoid_output`` tells "bce" which space the scores are in
+    (``loss_fn_for``)."""
+    from deeprecsys_tpu_torch.ops.optimizer import Optimizer
+
+    dense_step = make_mesh_dense_step(model, mesh, loss_fn_for(loss, sigmoid_output))
+
+    def jitted(sp: ShardedParams) -> Callable:
+        opt = MeshOptimizer(Optimizer("sgd", learning_rate),
+                            [t for copies in leaf_copies(sp) for t in copies])
+
+        def step(sp: ShardedParams, batch: Batch, targets: torch.Tensor):
+            _check_dense(has_dense, batch)
+            return sp, dense_step(sp, opt, batch, torch.as_tensor(targets))
+
+        return step
+
+    return jitted
+
+
+def unshard_params(sp: ShardedParams, device: torch.device | str = "cpu") -> dict:
+    """The full params as one device reads them (the counterpart of
+    ``np.asarray`` on the JAX package's sharded arrays): the row shards of
+    the table concatenated in shard order, every other leaf entry (0, 0)'s
+    copy; a copy on ``device`` (the host by default)."""
+    e0 = sp.entry(0, 0)
+    out = bridge.tree_map(lambda t: t.detach().to(device, copy=True), e0)
+    if sp.rows_per_shard is not None:
+        out["tables"] = torch.cat([sp.entry(0, m)["tables"].detach().to(device)
+                                   for m in range(sp.mesh.shape["model"])])
+    return out
 
 
 # ----------------------------------------------------------------------

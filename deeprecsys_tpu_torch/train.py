@@ -18,13 +18,19 @@ The single-device trainer of the JAX package on the card:
 - checkpoints in the JAX package's file format (``utils/checkpoint.py``)
   and the int8 serving export (``export_serving_params``).
 
+Over a mesh (``Trainer(mesh=)``, ``parallel/``): the dense mode's step
+differentiates through the row-sharded lookup (K1's and K1b's ownership
+windows, ``parallel/sharding.py::make_mesh_dense_step``) and K10 updates
+the distinct tensors of each device; the sparse mode is
+``make_sharded_sparse_table_step`` (K1's window, then K5's window on each
+row shard). ``dedup=True`` (``dedup_touched_rows``: a sort and a segment
+sum in torch ops, then K5 over the unique rows) merges a row's repeated
+gradients before the update, on one device and on a mesh; it stays off by
+default (ROADMAP.md Queue 2 item 5 holds its measurement on the card).
+
 JAX's jitted steps donate the params and the optimizer state; the port
 updates them in place instead (``Trainer.params`` and ``opt_state`` are
-the same tensors after a step). Not ported: the sharded trainers
-(``mesh=``, ROADMAP.md Queue 1 item 12b; sharded serving is ported, in
-``parallel/``) and ``dedup=True`` (ROADMAP.md
-Queue 2 item 5: its argsort + segment-sum was a loss on the TPU, and its
-H100 choice waits on a measurement); both raise.
+the same tensors after a step).
 
     python -m deeprecsys_tpu_torch.train --model rm1 --steps 200 \\
         [--sparse_tables] [--criteo train.txt] [--save ckpt] \\
@@ -45,51 +51,19 @@ from deeprecsys_tpu_torch.config import ModelConfig
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, compute_dtype_of, table_offsets
-from deeprecsys_tpu_torch.ops import embedding_bag, sparse_adagrad_step
+from deeprecsys_tpu_torch.ops import embedding_bag, sparse_adagrad_step, sparse_adagrad_step_shard
 from deeprecsys_tpu_torch.ops.embedding import quantize_pertable_int8, quantize_rowwise_int8
-from deeprecsys_tpu_torch.ops.optimizer import OPTIMIZERS, optimizer_update
-from deeprecsys_tpu_torch.parallel.sharding import loss_fn_for
+from deeprecsys_tpu_torch.ops.optimizer import Optimizer
+from deeprecsys_tpu_torch.parallel.sharding import (
+    MeshOptimizer, Replicated, Sharded, ShardedParams, leaf_copies, loss_fn_for,
+    make_mesh_dense_step, mesh_loss, pooled_on_row, reduce_copies, shard_params, sharded_apply,
+    split_batch, split_targets, unshard_params, with_grad)
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 from deeprecsys_tpu_torch.utils.metrics_ml import auc
 
 
 def _leaves(tree) -> list:
     return list(bridge.flatten(tree).values())
-
-
-class Optimizer:
-    """One of optax's sgd, adagrad and adam (optax 0.2.6 defaults), applied
-    in place by ``ops.optimizer.optimizer_update``: kernel K10 on the card,
-    optax's update written out op by op on the CPU (the formulas are in
-    ``ops/optimizer.py``). The state mirrors the params in their dtype, as
-    optax's does: adagrad a list of accumulators (starting at 0.1), adam
-    ``{"count", "mu", "nu"}``.
-    """
-
-    def __init__(self, name: str, learning_rate: float):
-        if name not in OPTIMIZERS:
-            raise ValueError(f"unknown optimizer {name!r}")
-        self.name, self.lr = name, learning_rate
-
-    def init(self, leaves: list):
-        if self.name == "adagrad":
-            return [torch.full_like(p, 0.1) for p in leaves]
-        if self.name == "adam":
-            return {"count": 0, "mu": [torch.zeros_like(p) for p in leaves],
-                    "nu": [torch.zeros_like(p) for p in leaves]}
-        return None
-
-    @torch.no_grad()
-    def update(self, leaves: list, grads, state):
-        if self.name == "sgd":
-            optimizer_update("sgd", leaves, grads, [], self.lr)
-        elif self.name == "adagrad":
-            optimizer_update("adagrad", leaves, grads, [state], self.lr)
-        else:
-            state["count"] += 1
-            optimizer_update("adam", leaves, grads, [state["mu"], state["nu"]], self.lr,
-                             count=state["count"])
-        return state
 
 
 def make_optimizer(name: str, learning_rate: float) -> Optimizer:
@@ -102,17 +76,41 @@ class TrainHistory:
     eval_aucs: list
 
 
-def _with_grad(leaves: list, fn):
-    """``fn()`` with ``leaves`` requiring grad for its duration only, so the
-    trainer's params are plain tensors between steps (serving them runs no
-    autograd)."""
-    for p in leaves:
-        p.requires_grad_(True)
-    try:
-        return fn()
-    finally:
-        for p in leaves:
-            p.requires_grad_(False)
+def dedup_touched_rows(flat: torch.Tensor, g_rows: torch.Tensor):
+    """Merge duplicate touched-row gradients before the update (JAX
+    ``train.py:66-94``): a stable sort of the ``(N,)`` fused row ids, a run
+    mask, its ``cumsum`` as segment ids, and a segment sum of the f32
+    gradient rows into an ``(N, d)`` buffer, so that each unique row takes
+    its true gradient (the sum over its occurrences) once.
+
+    Returns ``(uids (N,), summed (N, d) f32)``: one entry a unique row in
+    ascending order, then an inert tail (uid 0, gradient 0: zero-adds on
+    row 0). On the card the segment sum's adds are atomic, in no fixed
+    order."""
+    N, d = g_rows.shape
+    sid, order = torch.sort(flat, stable=True)
+    newrun = torch.ones((N,), dtype=torch.bool, device=flat.device)
+    newrun[1:] = sid[1:] != sid[:-1]
+    seg = torch.cumsum(newrun, 0) - 1
+    summed = torch.zeros((N, d), dtype=torch.float32, device=g_rows.device)
+    summed.index_add_(0, seg, g_rows.float().index_select(0, order))
+    uids = torch.zeros_like(flat)
+    uids[seg[newrun]] = sid[newrun]
+    return uids, summed
+
+
+def _dedup_stream(offsets, indices, g) -> tuple:
+    """K5's ``(offsets, ids, g)`` over the unique rows of a stream:
+    ``dedup_touched_rows`` of its fused ids and broadcast gradients, each
+    unique row a bag of one fused row (``offsets = [0]``, ids ``(N, 1,
+    1)``, ``g (N, 1, d)``). So dedup adds no kernel."""
+    B, T, L = indices.shape
+    d = g.shape[-1]
+    flat = (indices + offsets[None, :, None]).reshape(-1)
+    rows = g.float()[:, :, None, :].expand(B, T, L, d).reshape(B * T * L, d)
+    uids, summed = dedup_touched_rows(flat, rows)
+    return (torch.zeros((1,), dtype=torch.int32, device=indices.device),
+            uids.reshape(-1, 1, 1).to(torch.int32), summed.reshape(-1, 1, d))
 
 
 def make_dense_step(model, tx: Optimizer, loss_fn):
@@ -128,7 +126,7 @@ def make_dense_step(model, tx: Optimizer, loss_fn):
             loss = loss_fn(model.apply(params, batch), targets)
             return loss, torch.autograd.grad(loss, leaves)
 
-        loss, g = _with_grad(leaves, grads)
+        loss, g = with_grad(leaves, grads)
         tx.update(leaves, g, opt_state)
         return loss.detach()
 
@@ -145,11 +143,9 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer, learning
     gradient (K5). ``opt_state`` is ``(tx_state, table_acc)``. The table
     always takes row-wise AdaGrad (the JAX step's ``rowwise_adagrad=True``,
     the only mode its Trainer uses). Step cost is O(B*T*L) rows whatever R.
+    ``dedup``: each row's occurrences merged first (``dedup_touched_rows``),
+    so the accumulator sees the row's true gradient once (JAX ``:264-265``).
     """
-    if dedup:
-        raise NotImplementedError(
-            "dedup=True is not ported: its argsort + segment-sum measured a loss on the TPU, "
-            "and its H100 choice waits on a measurement (ROADMAP.md Queue 2 item 5)")
     if table_learning_rate is None:
         table_learning_rate = learning_rate
     cdt = compute_dtype_of(cfg)
@@ -172,23 +168,101 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer, learning
             loss = loss_fn(model.apply_from_pooled(rest, pooled, batch), targets)
             return loss, torch.autograd.grad(loss, leaves + [pooled])
 
-        loss, g = _with_grad(leaves + [pooled], grads)
+        loss, g = with_grad(leaves + [pooled], grads)
         tx_rest.update(leaves, g[:-1], tx_state)
-        sparse_adagrad_step(table, table_acc, off, batch.indices, g[-1],
-                            table_learning_rate, eps)
+        stream = (_dedup_stream(off, batch.indices, g[-1]) if dedup
+                  else (off, batch.indices, g[-1]))
+        sparse_adagrad_step(table, table_acc, *stream, table_learning_rate, eps)
+        return loss.detach()
+
+    return step
+
+
+def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
+                                   learning_rate: float, loss_fn, mesh, eps: float = 1e-8,
+                                   table_learning_rate: float | None = None,
+                                   dedup: bool = False):
+    """Sparse-table training over a (data, model) mesh (JAX
+    ``train.py:97-207``): the table and its row-wise AdaGrad accumulator
+    row-sharded over "model", the batch over "data".
+
+    ``step(sp, opt_state, batch, targets)`` updates in place and returns
+    the loss; ``opt_state`` is ``(MeshOptimizer of the non-table leaves,
+    Sharded accumulator)``. Each data slice looks up with K1's window on
+    every shard (no grad), combined on entry (d, 0), and runs
+    ``apply_from_pooled`` there; the loss is the mean of the slices' means,
+    so the dense half's gradients are their mean over "data" (summed over
+    a leaf's copies) and each slice's pooled gradient carries the 1 / D of
+    the JAX step's ``g_pooled / n_data``. Then the all-gather over "data":
+    for each distinct (device, shard) tensor, one K5 window launch
+    (``sparse_adagrad_step_shard``) over all D slices' ids and pooled
+    gradients, concatenated in data-row order on that device, so every
+    accumulator add lands before any scale is read. ``dedup``: the
+    concatenated stream's rows merged first (``dedup_touched_rows``, once a
+    device), then the window over the unique rows.
+    """
+    M = mesh.shape["model"]
+    if cfg.total_rows % M:
+        raise ValueError("pad tables to divide over the model axis")
+    rps = cfg.total_rows // M
+    if table_learning_rate is None:
+        table_learning_rate = learning_rate
+    offsets = Replicated(mesh, torch.as_tensor(cfg.table_offsets, dtype=torch.int32))
+
+    def step(sp: ShardedParams, opt_state, batch: Batch, targets):
+        tx_state, acc = opt_state
+        slices, tsl = split_batch(batch, mesh), split_targets(targets, mesh)
+        with torch.no_grad():  # the single-device step's lookup reads no mask either
+            pooled = [pooled_on_row(sp, d, sl._replace(mask=None), cfg, offsets)
+                      for d, sl in enumerate(slices)]
+        groups = leaf_copies(sp, skip=("tables",))
+        leaves = [t for copies in groups for t in copies]
+
+        def grads():
+            loss = mesh_loss(model, sp, slices, tsl, loss_fn, lambda d, sl: pooled[d])
+            return loss, torch.autograd.grad(loss, leaves + pooled, allow_unused=True)
+
+        loss, g = with_grad(leaves + pooled, grads)
+        tx_state.update(leaves, reduce_copies(groups, list(g[:len(leaves)])))
+        g_pooled = g[len(leaves):]
+        streams: dict = {}
+        done: set = set()
+        for d in range(mesh.shape["data"]):
+            for m in range(M):
+                shard = sp.entry(d, m)["tables"]
+                if id(shard) in done:
+                    continue
+                done.add(id(shard))
+                dev = shard.device
+                if dev not in streams:  # every slice's ids and gradients, in data-row order
+                    stream = (offsets.on(dev), torch.cat([sl.indices.to(dev) for sl in slices]),
+                              torch.cat([gp.to(dev) for gp in g_pooled]))
+                    streams[dev] = _dedup_stream(*stream) if dedup else stream
+                sparse_adagrad_step_shard(shard, acc.part(d, m), *streams[dev], m * rps,
+                                          table_learning_rate, eps)
         return loss.detach()
 
     return step
 
 
 class Trainer:
-    """The single-device trainer (JAX ``train.py:285-471``).
+    """The trainer (JAX ``train.py:285-471``), on one device or a mesh.
 
     ``params``: the port's tensors to start from instead of the seed's init
     (e.g. ``bridge.params_from_numpy`` of the JAX package's params); they
     are copied to ``device``, and the optimizer state is built from the
     copy. ``device`` is the card by default (raises without one); the tests
     pass ``"cpu"``, where every kernel wrapper runs its plain version.
+
+    With ``mesh`` (``parallel.make_mesh``) the params are ``shard_params``
+    of the init (made on the mesh's first device) or of ``params``, a
+    ``ShardedParams``; ``device`` is the mesh's first device. Dense mode
+    trains by ``make_mesh_dense_step`` (the optimizer state a distinct
+    tensor, so the table's is row-sharded with it), sparse mode by
+    ``make_sharded_sparse_table_step`` with a row-sharded accumulator.
+    ``evaluate`` runs ``sharded_apply``; ``full_params()`` is
+    ``unshard_params``' full tensors, what checkpoints and
+    ``export_serving_params`` write.
     """
 
     def __init__(
@@ -203,12 +277,9 @@ class Trainer:
         table_learning_rate: float | None = None,
         dedup: bool = False,
         *,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         params: dict | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("the sharded trainers (mesh=) are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 12b, sharded training)")
         if cfg.table_quant != "none":
             raise ValueError("training requires float tables (table_quant='none')")
         if sparse_tables and cfg.resolved_table_pack > 1:
@@ -221,7 +292,14 @@ class Trainer:
             # the checkpoint serves either head.
             cfg = cfg.replace(output_head="logits")
         self.cfg = cfg
-        self.device = resolve_device(str(device))
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(str(device or "cuda"))
+        else:
+            self.device = mesh.devices.flat[0]
+            want = resolve_device(str(device)) if device is not None else self.device
+            if want.type != self.device.type or want.index not in (None, self.device.index):
+                raise ValueError(f"device {device} is not the mesh's first device {self.device}")
         self.sparse_tables = sparse_tables
         self.model = get_model(cfg, self.device)
         self.loss_fn = loss_fn_for(loss, sigmoid_output(cfg))
@@ -230,6 +308,9 @@ class Trainer:
             params = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
         else:
             params = bridge.tree_map(lambda t: t.detach().to(self.device, copy=True), params)
+        if mesh is not None:
+            self._init_mesh(params, learning_rate, table_learning_rate, dedup)
+            return
         self.params = params
         if sparse_tables:
             rest = {k: v for k, v in params.items() if k != "tables"}
@@ -240,11 +321,29 @@ class Trainer:
                 self.model, cfg, self.tx, learning_rate, self.loss_fn,
                 table_learning_rate=table_learning_rate, dedup=dedup)
         else:
-            if dedup:
-                raise NotImplementedError("dedup=True applies to sparse_tables only, and is not "
-                                          "ported (ROADMAP.md Queue 2 item 5)")
             self.opt_state = self.tx.init(_leaves(params))
             self._step = make_dense_step(self.model, self.tx, self.loss_fn)
+
+    def _init_mesh(self, params: dict, learning_rate: float, table_learning_rate, dedup: bool):
+        mesh, cfg = self.mesh, self.cfg
+        self.params = sp = shard_params(params, mesh)
+        self._apply = sharded_apply(self.model, mesh, has_dense=cfg.dense_dim > 0)
+        if self.sparse_tables:
+            self._step = make_sharded_sparse_table_step(
+                self.model, cfg, self.tx, learning_rate, self.loss_fn, mesh,
+                table_learning_rate=table_learning_rate, dedup=dedup)
+            rest = leaf_copies(sp, skip=("tables",))
+            acc = Sharded.place(mesh, lambda m: torch.zeros(
+                (sp.rows_per_shard,), dtype=torch.float32, device=self.device))
+            self.opt_state = (MeshOptimizer(self.tx, [t for c in rest for t in c]), acc)
+        else:
+            self.opt_state = MeshOptimizer(self.tx, [t for c in leaf_copies(sp) for t in c])
+            self._step = make_mesh_dense_step(self.model, mesh, self.loss_fn)
+
+    def full_params(self) -> dict:
+        """The params as one tensor a leaf: ``self.params`` on one device,
+        ``unshard_params`` (host copies) on a mesh."""
+        return self.params if self.mesh is None else unshard_params(self.params)
 
     def _targets(self, labels: np.ndarray) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(labels, dtype=np.float32))
@@ -284,7 +383,10 @@ class Trainer:
 
     def _scores(self, host: Batch) -> np.ndarray:
         with torch.inference_mode():
-            out = self.model.apply(self.params, host.to(self.device))
+            if self.mesh is not None:
+                out = self._apply(self.params, host.to(self.device))
+            else:
+                out = self.model.apply(self.params, host.to(self.device))
             return out.float().cpu().numpy()
 
     def evaluate(self, gen: RecDataGenerator, batch_size: int = 256,
@@ -321,7 +423,10 @@ def export_serving_params(params: dict, cfg: ModelConfig, table_quant: str = "in
     ``(serving_params, serving_cfg)``. The port's tensors stay unpacked;
     ``bridge.params_to_numpy(serving_params, serving_cfg)`` gives the JAX
     package's layout (``q_packed`` where ``serving_cfg`` resolves to pack >
-    1), which is what a checkpoint stores."""
+    1), which is what a checkpoint stores. A mesh trainer's
+    ``ShardedParams`` are read back whole first (``unshard_params``)."""
+    if isinstance(params, ShardedParams):
+        params = unshard_params(params)
     tables = params["tables"]
     if isinstance(tables, dict):
         raise ValueError("params already quantized")
@@ -417,11 +522,11 @@ def main(argv=None):
         print(msg, flush=True)
 
     if args.save:
-        save_params(args.save, bridge.params_to_numpy(tr.params, tr.cfg))
+        save_params(args.save, bridge.params_to_numpy(tr.full_params(), tr.cfg))
         print(f"saved params -> {args.save}", flush=True)
     if args.export_quant:
         out = args.export_out or (args.save or "serving_params") + f"_{args.export_quant}"
-        sp, scfg = export_serving_params(tr.params, tr.cfg, table_quant=args.export_quant)
+        sp, scfg = export_serving_params(tr.full_params(), tr.cfg, table_quant=args.export_quant)
         save_params(out, bridge.params_to_numpy(sp, scfg))
         print(f"exported {args.export_quant} serving bundle -> {out}", flush=True)
     return losses

@@ -427,3 +427,29 @@ def test_k5_sweep_mean_orders_are_sums_of_the_row():
     x = torch.arange(64, dtype=torch.float32).reshape(2, 32)
     for fn in k5_sweep.MEAN_ORDERS.values():
         torch.testing.assert_close(fn(x), x.sum(-1), rtol=0, atol=0)
+
+
+def test_window_bounds_and_yardsticks_cover_the_shard():
+    """The training windows' bounds: the whole table as one window is the
+    direct kernel's bound; shards split its row bytes and operations. Their
+    yardsticks' owned rows, index_add_-ed, give the window's plain gradient."""
+    from deeprecsys_tpu_torch.kernel_bench import (
+        k1b_bound, k1b_window_bound, k5_bound, k5_window_bound, window_g_rows)
+    from deeprecsys_tpu_torch.ops import embedding_bag_backward_reference
+
+    cfg = zoo.get_config("rm1", table_scale=2000)
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    offsets = table_offsets(cfg, "cpu")
+    ids = torch.as_tensor(RecDataGenerator(cfg, seed=3).generate_batch(16).indices)
+    g = torch.randn((16, cfg.num_tables, d), generator=torch.Generator().manual_seed(0))
+    table = torch.zeros((R, d))
+    assert k1b_window_bound(g, offsets, ids, 0, R) == k1b_bound(g, offsets, ids)
+    assert k5_window_bound(table, g, offsets, ids, 0) == k5_bound(table, g, offsets, ids)
+    rps = R // 4
+    flops = [k1b_window_bound(g, offsets, ids, m * rps, rps)["flops"] for m in range(4)]
+    assert sum(flops) == k1b_bound(g, offsets, ids)["flops"]
+    rows, g2, local = window_g_rows(g, offsets, ids, rps, rps)
+    got = torch.zeros((rps, d)).index_add_(0, local, rows)
+    want = embedding_bag_backward_reference(g, offsets, ids, rps, window=(rps, 2 * rps))
+    torch.testing.assert_close(got, want)
+    torch.testing.assert_close(g2, (rows * rows).mean(-1))

@@ -39,6 +39,11 @@ Tolerances:
   int32 partials bit for bit, the f32 ones within the same tolerances
   given the window; the shards' partials combined against the direct
   kernel as above, and K1's full window rounded once bit for bit K1.
+- The training windows (K1b's and K5's, on shards of 1, 2 and 4): each
+  shard within ``backward_tolerance``/``sparse_adagrad_tolerance`` with
+  ``window=`` of its plain version; K1b's windows concatenated also
+  within ``backward_tolerance`` of the direct K1b, and the autograd of
+  ``embedding_bag_shard`` launches K1b's window once a shard.
 """
 
 import re
@@ -953,3 +958,79 @@ def test_hotcold_shard_kernels_match_plain_and_combine(cuda, layout, B, T, L):
         got, want = acc.to(torch.bfloat16), embedding_bag(table, offsets, ids)
         assert bool(((got.float() - want.float()).abs()
                      <= pooled_tolerance(got, want, table, offsets, ids)).all())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("B,T,L,rows", [(37, 3, 23, 52), (128, 8, 80, 2000), (5, 2, 1, 4)])
+def test_backward_window_matches_plain(cuda, B, T, L, rows, shards, d, g_dt, masked):
+    """K1b's window on each row shard (the shards cut through the tables)
+    against its plain version; the shards together against the direct K1b."""
+    from deeprecsys_tpu_torch.ops import embedding_bag_backward_shard
+
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=L + d + shards)
+    grad = grad.to(g_dt)
+    mask = (torch.rand((B, T, L), generator=gen, device=cuda) < 0.7) if masked else None
+    R = T * rows
+    rps = R // shards
+    parts = []
+    for m in range(shards):
+        w = (m * rps, (m + 1) * rps)
+        before = embedding_bag_backward_shard.kernel_launches
+        got = embedding_bag_backward_shard(grad, offsets, indices, w[0], rps, mask=mask)
+        torch.cuda.synchronize()
+        assert embedding_bag_backward_shard.kernel_launches == before + 1
+        want = embedding_bag_backward_reference(grad, offsets, indices, rps, mask=mask, window=w)
+        tol = backward_tolerance(grad, offsets, indices, rps, mask, window=w)
+        assert got.dtype == torch.float32 and got.shape == (rps, d)
+        assert bool(((got - want).abs() <= tol).all())
+        parts.append(got)
+    direct = embedding_bag_backward(grad, offsets, indices, R, mask=mask)
+    tol = backward_tolerance(grad, offsets, indices, R, mask)
+    assert bool(((torch.cat(parts) - direct).abs() <= 2 * tol).all())
+
+
+def test_shard_autograd_launches_the_backward_window(cuda):
+    from deeprecsys_tpu_torch.ops import embedding_bag_backward_shard, embedding_bag_shard
+
+    gen, offsets, indices, _ = _dup_inputs(cuda, 16, 3, 7, 40, 32, seed=4)
+    table = torch.randn((120, 32), generator=gen, device=cuda)
+    shards = [table[m * 30:(m + 1) * 30].clone().requires_grad_(True) for m in range(4)]
+    before = embedding_bag_backward_shard.kernel_launches
+    out = sum(embedding_bag_shard(t, offsets, indices, 30 * m) for m, t in enumerate(shards))
+    (out * out).sum().backward()
+    torch.cuda.synchronize()
+    assert embedding_bag_backward_shard.kernel_launches == before + 4
+    want = embedding_bag_backward_reference(2 * out.detach(), offsets, indices, 120)
+    torch.testing.assert_close(torch.cat([t.grad for t in shards]), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("B,T,L,rows", [(37, 3, 23, 52), (128, 8, 80, 2000), (129, 43, 1, 500)])
+def test_sparse_adagrad_window_matches_plain(cuda, B, T, L, rows, shards, d, table_dt, g_dt):
+    from deeprecsys_tpu_torch.ops import sparse_adagrad_step_shard
+
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=B + L + shards)
+    grad = (grad * 1e-2).to(g_dt)
+    R = T * rows
+    rps = R // shards
+    table0 = (torch.rand((R, d), generator=gen, device=cuda) - 0.5).to(table_dt)
+    acc0 = torch.rand((R,), generator=gen, device=cuda) * 1e-4
+    for m in range(shards):
+        w = (m * rps, (m + 1) * rps)
+        t0, a0 = table0[w[0]:w[1]], acc0[w[0]:w[1]]
+        table, acc = t0.clone(), a0.clone()
+        before = sparse_adagrad_step_shard.kernel_launches
+        sparse_adagrad_step_shard(table, acc, offsets, indices, grad, w[0], 0.1)
+        torch.cuda.synchronize()
+        assert sparse_adagrad_step_shard.kernel_launches == before + 1
+        want_t, want_a = t0.clone(), a0.clone()
+        sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1, window=w)
+        tol, acc_tol = sparse_adagrad_tolerance(t0, a0, offsets, indices, grad, 0.1, window=w)
+        assert bool(((acc - want_a).abs() <= acc_tol).all())
+        assert bool(((table.float() - want_t.float()).abs() <= tol).all())

@@ -9,6 +9,12 @@ file imports no JAX:
 Each output is held to the single-device forward on the first card, on the
 same f32 weights: rtol 2e-4, atol 2e-5 (the JAX mesh tests'), the sharded
 sums differing only in their order; per-table int8 pools bit for bit.
+A dense and a sparse mesh training step (every shard and every copy of the
+towers on its own card, the gradients of the copies added across cards) are
+held to the single-device step: the loss rtol 1e-5, the table and the
+accumulator the JAX sharded-step test's limits (rtol 1e-4, atol 1e-6 and
+1e-7), every copy of a replicated leaf (and, dense, of a table shard) equal
+to the first.
 """
 
 import queue
@@ -18,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from deeprecsys_tpu_torch import ServingConfig, zoo
+from deeprecsys_tpu_torch import ServingConfig, train, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.experiments.skew_bench import zipf_stream
 from deeprecsys_tpu_torch.models import get_model
@@ -76,7 +82,7 @@ def test_sharded_apply_across_cards(cards, quant):
         if quant == "int8":
             offs = sharding.Replicated(mesh, table_offsets(cfg, "cpu"))
             for d, sl in enumerate(sharding.split_batch(batch.to(cards[0]), mesh)):
-                pooled = sharding._pooled_on_row(sp, d, sl, cfg, offs)
+                pooled = sharding.pooled_on_row(sp, d, sl, cfg, offs)
                 assert torch.equal(pooled.to(cards[0]), embedding_bag_int8(
                     params["tables"]["q"], params["tables"]["scale"], offs.on(cards[0]),
                     sl.indices, compute_dtype=torch.float32))
@@ -149,3 +155,68 @@ def test_mesh_engine_across_cards(cards, impl):
         req_q.put(None)
         eng.join(timeout=120)
     assert eng.error is None
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
+    from deeprecsys_tpu_torch.ops import embedding_bag_backward_shard, sparse_adagrad_step_shard
+    from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
+
+    n = len(cards)
+    D, M = (2, n // 2) if n >= 4 else (1, n)
+    cfg, model, start = _model(cards[0])
+    kw = dict(optimizer="adagrad", learning_rate=0.05, sparse_tables=sparse,
+              table_learning_rate=0.01, params=start)
+    single = train.Trainer(cfg, device=cards[0], **kw)
+    tr = train.Trainer(cfg, mesh=make_mesh(D, M, devices=cards[:D * M]), **kw)
+    host = RecDataGenerator(cfg, seed=1).generate_batch(64)
+    labels = single._labels(host, None)
+    k5_calls = []
+
+    def k5_recorded(*args):
+        k5_calls.append(args)
+        return sparse_adagrad_step_shard(*args)
+
+    monkeypatch.setattr(train, "sparse_adagrad_step_shard", k5_recorded)
+    k1b, k5 = embedding_bag_backward_shard.kernel_launches, sparse_adagrad_step_shard.kernel_launches
+    want = float(single.step(host, labels))
+    got = float(tr.step(host, labels))
+    torch.cuda.synchronize()
+    assert got == pytest.approx(want, rel=1e-5)
+    if sparse:
+        assert sparse_adagrad_step_shard.kernel_launches - k5 == D * M  # distinct (card, shard)
+    else:
+        assert embedding_bag_backward_shard.kernel_launches - k1b == D * M
+    # Each data row's copy of the table (and of the accumulator) against the
+    # single-device step, within the JAX tests' limits.
+    for d in range(D):
+        table = torch.cat([tr.params.entry(d, m)["tables"].cpu() for m in range(M)])
+        np.testing.assert_allclose(table.numpy(), single.params["tables"].cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+        if sparse:
+            acc = torch.cat([tr.opt_state[1].part(d, m).cpu() for m in range(M)])
+            np.testing.assert_allclose(acc.numpy(), single.opt_state[1].cpu().numpy(),
+                                       rtol=1e-4, atol=1e-7)
+    np.testing.assert_array_equal(tr.full_params()["tables"].numpy(),
+                                  torch.cat([tr.params.entry(0, m)["tables"].cpu()
+                                             for m in range(M)]).numpy())
+    # Every copy takes the same gradient and the same update (K10 is
+    # deterministic). In sparse mode each copy of a table shard takes its own
+    # K5 launch on the same stream, whose atomic adds may round in another
+    # order, so the copies drift apart within K5's order bound a step (where
+    # JAX keeps one replicated array; ROADMAP.md Queue 3).
+    for copies in sharding.leaf_copies(tr.params, skip=("tables",) if sparse else ()):
+        for c in copies[1:]:
+            assert torch.equal(c.cpu(), copies[0].cpu())
+    for m in range(M) if sparse else ():
+        shard, acc, offsets, ids, g, row_lo, lr, eps = next(
+            a for a in k5_calls if a[0] is tr.params.entry(0, m)["tables"])
+        rps = shard.shape[0]
+        tol, acc_tol = sparse_adagrad_tolerance(
+            start["tables"][row_lo:row_lo + rps].to(shard.device), torch.zeros_like(acc),
+            offsets, ids, g, lr, eps, window=(row_lo, row_lo + rps))
+        for d in range(1, D):
+            other = tr.params.entry(d, m)["tables"]
+            assert bool(((other.to(shard.device) - shard).abs() <= tol).all())
+            assert bool(((tr.opt_state[1].part(d, m).to(shard.device) - acc).abs()
+                         <= acc_tol).all())

@@ -320,7 +320,7 @@ def test_sharded_apply_quantized_tables(jax_sharded_outputs, quant):
         for d, sl in enumerate(sharding.split_batch(batch, mesh)):
             single = emb.embedding_bag_int8(params["tables"]["q"], params["tables"]["scale"],
                                             offs.on(torch.device("cpu")), sl.indices)
-            assert torch.equal(sharding._pooled_on_row(sp, d, sl, model.cfg, offs), single)
+            assert torch.equal(sharding.pooled_on_row(sp, d, sl, model.cfg, offs), single)
 
 
 def test_sharded_apply_on_packed_jax_tables():

@@ -142,11 +142,10 @@ def test_trainer_config_rules_match_jax(name, sparse, dtype):
 
 
 def test_trainer_paths_not_ported_raise():
+    """What the trainer refuses: int8 tables, and the card when there is
+    none. (``mesh=`` and ``dedup=True`` train: ``test_torch_mesh_train.py``,
+    ``test_torch_dedup.py``.)"""
     cfg = zoo.get_config("rm1", table_scale=SCALE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        train.Trainer(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 5"):
-        train.Trainer(cfg, sparse_tables=True, dedup=True, device="cpu")
     with pytest.raises(ValueError, match="float tables"):
         train.Trainer(cfg.replace(table_quant="int8"), device="cpu")
     if not torch.cuda.is_available():

@@ -29,6 +29,16 @@ tensors every kernel wrapper runs its plain version:
   of p; optax in bf16 is no reference here: it rounds its own constants
   to bf16, b2 = 0.999 to 1.0).
 - ``dot_interaction`` against JAX: f32 rtol 1e-6.
+- The ownership windows' plain versions on the row shards of a 1x4 mesh:
+  K1b's (``embedding_bag_backward_shard``, and ``embedding_bag_shard``
+  under autograd) against ``jax.vjp`` of JAX's ``sharded_embedding_bag``,
+  each shard within ``backward_tolerance(window=)``; K5's
+  (``sparse_adagrad_step_shard``) against the JAX sharded step's masked
+  scatters (``shard_local_indices``, ``train.py:164-182``) under
+  ``shard_map``: f32 within ``sparse_adagrad_tolerance(window=)``. A bf16
+  shard rounds at each add, as the single-device step does: within that
+  tolerance of the single-device JAX rule on the shard's rows, where the
+  JAX sharded step rounds each row once (ROADMAP.md Queue 3).
 """
 
 import jax
@@ -41,11 +51,13 @@ import torch
 from deeprecsys_tpu.ops import basic_rnn_scan as jax_basic_rnn_scan
 from deeprecsys_tpu.ops.embedding import embedding_bag as jax_embedding_bag
 from deeprecsys_tpu.ops.interactions import dot_interaction as jax_dot_interaction
+from deeprecsys_tpu.parallel import make_mesh as jax_make_mesh
 from deeprecsys_tpu.parallel import sharding as jax_sharding
 from deeprecsys_tpu.train import make_optimizer as jax_make_optimizer
 from deeprecsys_tpu_torch.ops import (
-    basic_rnn_scan, dot_interaction, embedding_bag, embedding_bag_backward, rnn_scan,
-    rnn_scan_backward_reference, rnn_scan_reference, sparse_adagrad_step)
+    basic_rnn_scan, dot_interaction, embedding_bag, embedding_bag_backward,
+    embedding_bag_backward_shard, embedding_bag_shard, rnn_scan, rnn_scan_backward_reference,
+    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_shard)
 from deeprecsys_tpu_torch.ops import optimizer as port_optimizer
 from deeprecsys_tpu_torch.ops.embedding import backward_tolerance
 from deeprecsys_tpu_torch.ops.optimizer import optimizer_update, optimizer_update_reference
@@ -371,3 +383,108 @@ def test_dot_interaction_matches_jax(self_interaction):
                           self_interaction=self_interaction).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------- the ownership windows
+
+SHARDS = 4
+
+
+def _jax_shard_mesh():
+    return jax_make_mesh(data=1, model=SHARDS, devices=jax.devices()[:SHARDS])
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_embedding_bag_backward_window_matches_jax_sharded_vjp(d):
+    """Each row shard's gradient (rows 6 a shard: the shards cut through
+    the tables) against the VJP of JAX's row-sharded lookup."""
+    offsets, indices, mask, table, g = _lookup_inputs(6, rows=8, d=d)
+    R = table.shape[0]
+    rps = R // SHARDS
+    mesh = _jax_shard_mesh()
+
+    @jax.jit
+    def vjp(t, gp):
+        return jax.vjp(lambda t_: jax_sharding.sharded_embedding_bag(
+            t_, jnp.asarray(offsets), jnp.asarray(indices), mesh, R), t)[1](gp)[0]
+
+    want = np.asarray(vjp(jnp.asarray(table), jnp.asarray(g)))
+    args = (torch.from_numpy(g), torch.from_numpy(offsets), torch.from_numpy(indices))
+    shards = [torch.from_numpy(table[m * rps:(m + 1) * rps]).requires_grad_(True)
+              for m in range(SHARDS)]
+    pooled = sum(embedding_bag_shard(t, args[1], args[2], m * rps) for m, t in enumerate(shards))
+    assert pooled.grad_fn is not None
+    (pooled * args[0]).sum().backward()
+    for m, t in enumerate(shards):
+        w = (m * rps, (m + 1) * rps)
+        got = embedding_bag_backward_shard(*args, m * rps, rps)
+        tol = backward_tolerance(*args, rps, window=w).numpy()
+        assert got.shape == (rps, d) and got.dtype == torch.float32
+        assert np.all(np.abs(got.numpy() - want[w[0]:w[1]]) <= tol)
+        assert np.all(np.abs(t.grad.numpy() - want[w[0]:w[1]]) <= tol)
+    # With a mask: the window of the masked single-device gradient.
+    tm = torch.from_numpy(mask)
+    full = embedding_bag_backward(*args, R, mask=tm)
+    for m in range(SHARDS):
+        got = embedding_bag_backward_shard(*args, m * rps, rps, mask=tm)
+        assert torch.equal(got, full[m * rps:(m + 1) * rps])
+
+
+def _jax_sharded_scatters(table, acc, offsets, indices, g_pooled, lr, eps=1e-8):
+    """The JAX sharded sparse step's masked scatters (``train.py:164-182``)
+    on each row shard of a 1x4 mesh, under ``shard_map``."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    rps = table.shape[0] // SHARDS
+
+    def local(table_shard, acc_shard, idx, g):
+        safe, valid = jax_sharding.shard_local_indices(idx, jnp.asarray(offsets), rps)
+        B, T, L = idx.shape
+        g_rows = jnp.broadcast_to(g[:, :, None, :].astype(jnp.float32),
+                                  (B, T, L, g.shape[-1])).reshape(B * T * L, -1)
+        flat, maskf = safe.reshape(-1), valid.reshape(-1)
+        g_rows = jnp.where(maskf[:, None], g_rows, 0.0)
+        row_g2 = jnp.where(maskf, jnp.mean(g_rows * g_rows, axis=-1), 0.0)
+        acc_shard = acc_shard.at[flat].add(row_g2)
+        scale = jax.lax.rsqrt(acc_shard[flat] + eps)
+        table_shard = table_shard.astype(jnp.float32).at[flat].add(
+            -lr * g_rows * scale[:, None]).astype(table_shard.dtype)
+        return table_shard, acc_shard
+
+    fn = jax.jit(shard_map(local, mesh=_jax_shard_mesh(),
+                   in_specs=(P("model", None), P("model"), P(), P()),
+                   out_specs=(P("model", None), P("model")), check_vma=False))
+    t, a = fn(jnp.asarray(table), jnp.asarray(acc), jnp.asarray(indices), jnp.asarray(g_pooled))
+    return np.asarray(t.astype(jnp.float32)), np.asarray(a)
+
+
+@pytest.mark.parametrize("table_dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64])
+def test_sparse_adagrad_window_matches_jax_masked_scatters(d, table_dt):
+    offsets, indices, _, table, g = _lookup_inputs(7, rows=8, d=d)
+    R = table.shape[0]
+    rps = R // SHARDS
+    rng = np.random.default_rng(8)
+    acc0 = (rng.random(R) * 1e-3).astype(np.float32)
+    g = g * np.float32(0.05)
+    jt = jnp.asarray(table).astype(table_dt)
+    want_t, want_a = _jax_sharded_scatters(jt, acc0, offsets, indices, g, 0.1)
+    # The single-device rule (each update cast, then added): JAX's step.
+    single_t, _ = _jax_sparse_step(jt, acc0, offsets, indices, g, 0.1)
+    t0 = torch.from_numpy(table).to(getattr(torch, table_dt))
+    args = (torch.from_numpy(offsets), torch.from_numpy(indices), torch.from_numpy(g))
+    for m in range(SHARDS):
+        w = (m * rps, (m + 1) * rps)
+        shard0, a0 = t0[w[0]:w[1]], torch.from_numpy(acc0[w[0]:w[1]].copy())
+        shard, acc = shard0.clone(), a0.clone()
+        sparse_adagrad_step_shard(shard, acc, *args, m * rps, 0.1)
+        tol, acc_tol = sparse_adagrad_tolerance(shard0, a0, *args, 0.1, window=w)
+        assert shard.dtype == shard0.dtype
+        assert np.all(np.abs(acc.numpy() - want_a[w[0]:w[1]]) <= acc_tol.numpy())
+        # f32: the JAX sharded step's table; bf16: the single-device rule's.
+        want = want_t if table_dt == "float32" else single_t
+        assert np.all(np.abs(shard.float().numpy() - want[w[0]:w[1]]) <= tol.numpy())
+    if table_dt == "bfloat16":
+        # The JAX sharded step rounds each row once: another result.
+        assert not np.array_equal(single_t, want_t)
