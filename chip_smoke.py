@@ -13,6 +13,16 @@ bags of 257 to 5000 rows of extreme values), and K3,
 DIEN's RNN scan, at DIEN's shape against their plain PyTorch versions, and
 checks all eight zoo models, with float and with int8 tables, against the
 JAX package's outputs stored in ``tests/golden/torch_port_{rm1,zoo,quant}.npz``.
+Before the fixtures (phase 3, widths) it holds every kernel at widths the
+zoo does not use to its plain version with the same tolerances, at a small
+size: K1, K1b, K1-int8, K4, K5 and the three K6 modes at d 4, 8, 12, 16
+and 128 (the 16-byte-lane instances and the general ones), K5 also at
+d 24, 48 and 100, each window mode at d = 8 (K5's bf16 shard also on rows
+of many adds, which its once-rounded bound holds), K3 and K3b at H 4, 8
+and 32; drives the dryrun's "dot"
+DLRM (d = 8) and dien at H = 8 on the card against their CPU forwards,
+each read around itself; and times K1 at rm1's shape with d = 8 and K3 at
+DIEN's with H = 8 beside their plain versions, bounds and library calls.
 Then it drives the models at full width (bf16, batch 512):
 
 - rm1 through ``get_model(...).apply`` and the standalone CLI loop, timed
@@ -106,7 +116,7 @@ accumulator within the bounds of the steps' kernels plus what that limit
 carries; every launch of K1's, K1b's and K5's ownership windows in step 1,
 and the single-device step's K5, against its plain version; and the
 launches around each path (K1's window D*M a step, K1b's window D*M a dense
-step, K5's window a distinct shard a sparse step, K10 once);
+step, K5's window M a sparse step, K10 once);
 ``make_train_step`` on the dryrun's "dot" DLRM (four SGD steps on one
 batch, the loss falling, step 1's windows against their plain versions)
 and on rm1 for one step against the single-device SGD step; the two
@@ -388,8 +398,8 @@ SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
 # held to the single-device trainer (mode, data, model axes; "dedup" is
 # sparse with dedup=True), the steps of that check, the CLI's learning
 # rate, the timed paths (20 steps after 4), make_train_step's steps on the
-# dryrun's tiny "dot" DLRM (__graft_entry__.py:56-63, at d = 32: K1 and K1b
-# take d 32 or 64), and the models of the dedup measurement.
+# dryrun's tiny "dot" DLRM (__graft_entry__.py:56-63), and the models of the
+# dedup measurement.
 MESH_TRAIN_RUNS = (("dense", 1, 4), ("dense", 2, 2), ("sparse", 1, 4), ("sparse", 2, 2),
                    ("sparse", 4, 1), ("dedup", 2, 2))
 MESH_PARITY_STEPS = 3
@@ -400,9 +410,22 @@ MESH_TIMED_RUNS = (("rm1", "dense", (1, 4)), ("rm1", "dense", (2, 2)), ("rm1", "
                    ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (4, 1)), ("rm1", "dedup", (2, 2)),
                    ("rm1", "make_train_step", (2, 2)), ("dien", "sparse", (1, 4)))
 DRYRUN_STEPS = 4
-DRYRUN_CFG = dict(model_type="dlrm", model_name="dryrun", mlp_bot=(16, 32), mlp_top=(16, 8, 1),
-                  embedding_rows=(64, 64, 32, 32), sparse_feature_size=32,
+DRYRUN_CFG = dict(model_type="dlrm", model_name="dryrun", mlp_bot=(16, 8), mlp_top=(16, 8, 1),
+                  embedding_rows=(64, 64, 32, 32), sparse_feature_size=8,
                   num_indices_per_lookup=4, interaction_op="dot")
+# The width checks (phase 3): every kernel at the widths below, each window
+# mode at WINDOW_WIDTH, K3 and K3b at RNN_HIDDEN, on tables of WIDTH_ROWS
+# (d 12 has no 16-byte lanes in either float dtype: the general instances).
+WIDTHS = (4, 8, 12, 16, 128)
+K5_WIDTHS = (24, 48, 100)  # more widths of K5's general instance (its mean's order)
+WINDOW_WIDTH = 8
+RNN_HIDDEN = (4, 8, 32)
+WIDTH_ROWS = (3000, 500, 2000)
+WIDTH_BATCH = 64
+# The paths at new widths: dien's tables at this scale, and the f32 limit
+# of a forward on the card against the CPU's (the order of f32 sums).
+WIDTH_PATH_SCALE = 100
+WIDTH_PATH_ATOL = 1e-5
 DEDUP_MODELS = ("rm1", "rm2")
 HOTCOLD_SHARD = {"none": "embedding_bag_hotcold_shard",
                  "int8": "embedding_bag_hotcold_int8_shard",
@@ -715,12 +738,12 @@ def phase_kernel(device) -> dict:
     return errs
 
 
-def rnn_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int) -> dict:
-    """Random inputs of K3 at (T, B, 64): xproj ~ N(0, 1), W with the
+def rnn_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int,
+               H: int = KERNEL_HIDDEN) -> dict:
+    """Random inputs of K3 at (T, B, H): xproj ~ N(0, 1), W with the
     1/sqrt(H) init, a nonzero bias, seq_lengths in [0, T] (0 and T among
     them where B >= 2) and an initial state."""
     g = torch.Generator(device=device).manual_seed(seed)
-    H = KERNEL_HIDDEN
     lens = torch.randint(0, T + 1, (B,), generator=g, device=device, dtype=torch.int32)
     if B >= 2:
         lens[:2] = torch.tensor([0, T], dtype=torch.int32)
@@ -733,14 +756,15 @@ def rnn_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int) -> dict:
     }
 
 
-def rnn_cases(device, T: int, B: int, seed: int = 0) -> float:
+def rnn_cases(device, T: int, B: int, seed: int = 0, H: int = KERNEL_HIDDEN,
+              phase: str = "3 kernel") -> float:
     """K3 against rnn_scan_reference in f32 and bf16, with and without
-    seq_lengths and h0. Each step is held, teacher-forced, to
-    rnn_scan_tolerance, and the free-running scans to K3_*_ATOL. Returns
+    seq_lengths and h0, at hidden size H. Each step is held, teacher-forced,
+    to rnn_scan_tolerance, and the free-running scans to K3_*_ATOL. Returns
     the max |error| of the free-running scans."""
     worst = 0.0
     for dt, atol in ((torch.float32, K3_F32_ATOL), (torch.bfloat16, K3_BF16_ATOL)):
-        inp = rnn_inputs(device, T, B, dt, seed)
+        inp = rnn_inputs(device, T, B, dt, seed, H)
         for use_lens in (False, True):
             for use_h0 in (False, True):
                 h0 = inp["h0"] if use_h0 else None
@@ -749,7 +773,7 @@ def rnn_cases(device, T: int, B: int, seed: int = 0) -> float:
                 got, last = rnn_scan(*args, h0=h0, seq_lengths=lens)
                 synchronize(device)
                 want, want_last = rnn_scan_reference(*args, h0=h0, seq_lengths=lens)
-                what = (f"T={T} B={B} H={KERNEL_HIDDEN} {str(dt)[6:]}, "
+                what = (f"T={T} B={B} H={H} {str(dt)[6:]}, "
                         f"seq_lengths={'yes' if use_lens else 'no'}, h0={'yes' if use_h0 else 'no'}")
                 step, tol = rnn_scan_tolerance(got, inp["xproj"], inp["h2h_w"], inp["h2h_b"],
                                                h0=h0, seq_lengths=lens)
@@ -763,9 +787,325 @@ def rnn_cases(device, T: int, B: int, seed: int = 0) -> float:
                     raise AssertionError(f"K3 disagrees with its plain loop ({what}): "
                                          f"max |err| {err:.3e} > {atol:.1e}")
                 worst = max(worst, err)
-                _log(f"[3 kernel] K3 ok {what}: max |err| {err:.3e} (limit {atol:.1e}); "
+                _log(f"[{phase}] K3 ok {what}: max |err| {err:.3e} (limit {atol:.1e}); "
                      f"teacher-forced max |err| {step_err.max().item():.3e}")
     return worst
+
+
+# ---------------------------------------------------------------- widths
+
+def _width_inputs(device, d: int, L: int, seed: int, B: int = WIDTH_BATCH):
+    """Small float, per-table and row-wise int8 tables of WIDTH_ROWS at
+    width d, uniform ids of ``(B, T, L)`` and a random mask."""
+    c = _edge_int8(device, WIDTH_ROWS, d, B, L, seed, masked=True)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    c["table"] = torch.empty((sum(WIDTH_ROWS), d), device=device).uniform_(-1, 1, generator=g)
+    c["g"] = g
+    return c
+
+
+def _width_split(device, c: dict) -> tuple[torch.Tensor, dict]:
+    """Every 7th fused row as the hot set, and the host split of ``c``'s
+    ids (masked slots neither hot nor cold)."""
+    R = sum(WIDTH_ROWS)
+    hot_ids = np.arange(0, R, 7, dtype=np.int64)
+    idx = c["indices"].cpu().numpy()
+    split = _device_split(device, hotcold_ops.split_hot_cold(
+        idx, c["offsets"].cpu().numpy().astype(np.int64), hot_ids,
+        cold_buckets=cold_buckets_for(idx.size), slot_mask=c["mask"].cpu().numpy()))
+    return torch.as_tensor(hot_ids, device=device), split
+
+
+def _check_k6_at(device, c: dict, what: str, errs: dict):
+    """K6 in the three layouts on ``c``'s tables and a split, against its
+    plain version (per-table int8 bit for bit)."""
+    hot_ids, split = _width_split(device, c)
+    layouts = {"none": c["table"].bfloat16(), "int8": {"q": c["q"], "scale": c["scale"]},
+               "int8_rowwise": {"qrows": c["qrows"]}}
+    for quant, tables in layouts.items():
+        layout = tables if quant == "none" else tables["q" if quant == "int8" else "qrows"]
+        hot = layout.index_select(0, hot_ids)
+        got = k6_call(quant, hot, tables, split, torch.bfloat16)
+        synchronize(device)
+        want = k6_call(quant, hot, tables, split, torch.bfloat16, plain=True)
+        key = HOTCOLD[quant]
+        if quant == "int8":
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6-int8 differs from its plain version ({what})")
+            continue
+        rowwise = quant == "int8_rowwise"
+        errs[key] = max(errs.get(key, 0.0), _check_pooled(
+            got, want, hot, layout, split, None, what,
+            tolerance=lambda a, b, h, t, sp, _m: hotcold_tolerance(a, b, h, t, sp,
+                                                                    rowwise=rowwise),
+            kernel="K6"))
+
+
+def _check_k5_at(device, c: dict, what: str, errs: dict, window=None):
+    """K5 (or its window on the shard ``window``) with f32 and bf16 tables
+    against its plain version, within ``sparse_adagrad_tolerance``."""
+    offsets, idx = c["offsets"], c["indices"]
+    B, T, _ = idx.shape
+    d = c["table"].shape[1]
+    grad = torch.randn((B, T, d), generator=c["g"], device=device) * 1e-2
+    lo, hi = window or (0, sum(WIDTH_ROWS))
+    key = "sparse_adagrad_step" if window is None else "sparse_adagrad_step_shard"
+    for tdt in (torch.float32, torch.bfloat16):
+        table0 = (c["table"][lo:hi] * 0.05).to(tdt)
+        acc0 = torch.rand((hi - lo,), generator=c["g"], device=device) * 1e-4
+        table, acc = table0.clone(), acc0.clone()
+        want_t, want_a = table0.clone(), acc0.clone()
+        if window is None:
+            sparse_adagrad_step(table, acc, offsets, idx, grad, 0.1)
+            sparse_adagrad_step_reference(want_t, want_a, offsets, idx, grad, 0.1)
+        else:
+            sparse_adagrad_step_shard(table, acc, offsets, idx, grad, lo, 0.1)
+            sparse_adagrad_step_reference(want_t, want_a, offsets, idx, grad, 0.1, window=window)
+        synchronize(device)
+        tol, acc_tol = sparse_adagrad_tolerance(table0, acc0, offsets, idx, grad, 0.1,
+                                                window=window)
+        err = (table.float() - want_t.float()).abs()
+        acc_err = (acc - want_a).abs()
+        if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
+            raise AssertionError(f"K5 disagrees with its plain version ({what}, table "
+                                 f"{str(tdt)[6:]}): max |err| table {err.max().item():.3e}, "
+                                 f"acc {acc_err.max().item():.3e}")
+        errs[key] = max(errs.get(key, 0.0), err.max().item(), acc_err.max().item())
+
+
+def width_cases(device) -> dict:
+    """Every kernel at widths the zoo does not use, at a small size, against
+    its plain version with the existing tolerances: K1, K1b, K1-int8, K4,
+    K5 and the three K6 modes at each of WIDTHS (short and long bags,
+    masked); each window mode at WINDOW_WIDTH on rows [R/4, R/2) of the
+    same tables (K1's on its compacted gather for long bags, K5's with
+    f32 and bf16 shards, also on ids that repeat); K5 and its window at
+    each of K5_WIDTHS; K3 and K3b at each of RNN_HIDDEN. Returns the max
+    |error| by kernel, and K1's and K3's by width too."""
+    errs: dict = {}
+    for d in WIDTHS:
+        for L in (3, 40):
+            c = _width_inputs(device, d, L, seed=d * 100 + L)
+            offsets, idx, mask = c["offsets"], c["indices"], c["mask"]
+            R = sum(WIDTH_ROWS)
+            what = f"d={d} L={L} B={WIDTH_BATCH} T={len(WIDTH_ROWS)}"
+            for dt in (torch.bfloat16, torch.float32):
+                table = c["table"].to(dt)
+                for m in (None, mask):
+                    got = embedding_bag(table, offsets, idx, mask=m)
+                    synchronize(device)
+                    want = embedding_bag_reference(table, offsets, idx, mask=m)
+                    err = _check_pooled(got, want, table, offsets, idx, m,
+                                        f"{what} {str(dt)[6:]}")
+                    for key in ("embedding_bag", f"embedding_bag d={d}"):
+                        errs[key] = max(errs.get(key, 0.0), err)
+                grad = torch.randn(idx.shape[:2] + (d,), generator=c["g"], device=device).to(dt)
+                got = embedding_bag_backward(grad, offsets, idx, R, mask=mask)
+                synchronize(device)
+                err = (got - embedding_bag_backward_reference(grad, offsets, idx, R,
+                                                              mask=mask)).abs()
+                if not bool((err <= backward_tolerance(grad, offsets, idx, R, mask)).all()):
+                    raise AssertionError(f"K1b disagrees with its plain version ({what})")
+                errs["embedding_bag_backward"] = max(errs.get("embedding_bag_backward", 0.0),
+                                                     err.max().item())
+            errs["embedding_bag_int8_rowwise"] = max(errs.get("embedding_bag_int8_rowwise", 0.0),
+                                                     _check_int8_pair(c, what))
+            _check_k5_at(device, c, what, errs)
+            _check_k6_at(device, c, what, errs)
+            if d == WINDOW_WIDTH:
+                width_window_cases(device, c, what, errs)
+            _log(f"[3 widths] K1, K1b, K1-int8, K4, K5 and K6 (three layouts) ok at {what}"
+                 + (", and every window mode" if d == WINDOW_WIDTH else ""))
+    for d in K5_WIDTHS:
+        c = _width_inputs(device, d, 40, seed=d * 100 + 40)
+        what = f"d={d} L=40 B={WIDTH_BATCH} T={len(WIDTH_ROWS)}"
+        R = sum(WIDTH_ROWS)
+        _check_k5_at(device, c, what, errs)
+        _check_k5_at(device, c, what, errs, window=(R // 4, R // 2))
+        _log(f"[3 widths] K5 and its window ok at {what}")
+    for H in RNN_HIDDEN:
+        err = rnn_cases(device, DIEN_T, WIDTH_BATCH, H, H, "3 widths")
+        for key in ("rnn_scan", f"rnn_scan H={H}"):
+            errs[key] = max(errs.get(key, 0.0), err)
+        errs["rnn_scan_backward"] = max(errs.get("rnn_scan_backward", 0.0), train_rnn_cases(
+            device, DIEN_T, WIDTH_BATCH, H, H, "3 widths"))
+    return errs
+
+
+def width_window_cases(device, c: dict, what: str, errs: dict):
+    """Each window mode on rows [R/4, R/2) of ``c``'s tables: K1's (f32
+    partial of bf16 and f32 shards), K1-int8's (exact), K4's, K1b's, K5's
+    (f32 and bf16 shards) and K6 on a shard's cold stream in the three
+    layouts, each against its plain version."""
+    offsets, idx, mask = c["offsets"], c["indices"], c["mask"]
+    R = sum(WIDTH_ROWS)
+    lo, hi = R // 4, R // 2
+    w = (lo, hi)
+    what = f"{what}, shard rows [{lo}, {hi})"
+    for dt in (torch.bfloat16, torch.float32):
+        shard = c["table"][lo:hi].to(dt)
+        for m in (None, mask):
+            got = embedding_bag_shard(shard, offsets, idx, lo, mask=m)
+            synchronize(device)
+            want = embedding_bag_reference(shard, offsets, idx, mask=m, window=w)
+            tol = pooled_tolerance(got, want, shard, offsets, idx, m, window=w)
+            err = (got - want).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"K1's window disagrees with its plain version ({what})")
+            errs["embedding_bag_shard"] = max(errs.get("embedding_bag_shard", 0.0),
+                                              err.max().item())
+        grad = torch.randn(idx.shape[:2] + (shard.shape[1],), generator=c["g"], device=device)
+        got = embedding_bag_backward_shard(grad, offsets, idx, lo, hi - lo, mask=mask)
+        synchronize(device)
+        err = (got - embedding_bag_backward_reference(grad, offsets, idx, hi - lo, mask=mask,
+                                                      window=w)).abs()
+        if not bool((err <= backward_tolerance(grad, offsets, idx, hi - lo, mask, w)).all()):
+            raise AssertionError(f"K1b's window disagrees with its plain version ({what})")
+        errs["embedding_bag_backward_shard"] = max(
+            errs.get("embedding_bag_backward_shard", 0.0), err.max().item())
+    got = embedding_bag_int8_shard(c["q"][lo:hi], offsets, idx, lo, mask=mask)
+    synchronize(device)
+    if not torch.equal(got, embedding_bag_int8_reference(c["q"][lo:hi], None, offsets, idx,
+                                                         mask=mask, window=w)):
+        raise AssertionError(f"K1-int8's window differs from its plain version ({what})")
+    qrows = c["qrows"][lo:hi]
+    got = embedding_bag_int8_rowwise_shard(qrows, offsets, idx, lo, mask=mask)
+    synchronize(device)
+    want = embedding_bag_int8_rowwise_reference(qrows, offsets, idx, mask=mask, window=w)
+    tol = rowwise_tolerance(got, want, qrows, offsets, idx, mask, window=w)
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"K4's window disagrees with its plain version ({what})")
+    errs["embedding_bag_int8_rowwise_shard"] = max(
+        errs.get("embedding_bag_int8_rowwise_shard", 0.0), err.max().item())
+    _check_k5_at(device, c, what, errs, window=w)
+    # And on ids that repeat: 50 rows of table 0 inside the window, each
+    # taking many adds, where a bf16 shard rounding at each add would miss
+    # the once-rounded rule's bound.
+    dup = c["indices"] % 50
+    dup[:, 0] += lo + 25
+    _check_k5_at(device, {**c, "indices": dup}, f"{what}, 50 rows repeated", errs, window=w)
+    # K6 on a shard: the shard's rows as a table of their own, its ids local.
+    local = {"table": c["table"][lo:hi], "q": c["q"][lo:hi], "qrows": qrows}
+    ids = torch.randint(0, hi - lo, (WIDTH_BATCH, 1, idx.shape[2]), generator=c["g"],
+                        device=device, dtype=torch.int32)
+    hot_ids = np.arange(0, hi - lo, 5, dtype=np.int64)
+    split = _device_split(device, hotcold_ops.split_hot_cold(
+        ids.cpu().numpy(), np.zeros(1, dtype=np.int64), hot_ids,
+        cold_buckets=cold_buckets_for(ids.numel())))
+    hot_idx = torch.as_tensor(hot_ids, device=device)
+    for quant, fn, plain in (
+            ("none", embedding_bag_hotcold_shard,
+             lambda h, t, sp: embedding_bag_hotcold_reference(h, t, sp, partial=True)),
+            ("int8", embedding_bag_hotcold_int8_shard,
+             lambda h, t, sp: embedding_bag_hotcold_int8_reference(h, t, None, sp, partial=True)),
+            ("int8_rowwise", embedding_bag_hotcold_int8_rowwise_shard,
+             lambda h, t, sp: embedding_bag_hotcold_int8_rowwise_reference(h, t, sp,
+                                                                          partial=True))):
+        table = {"none": local["table"].bfloat16(), "int8": local["q"],
+                 "int8_rowwise": local["qrows"]}[quant]
+        hot = table.index_select(0, hot_idx)
+        got = fn(hot, table, split)
+        synchronize(device)
+        want = plain(hot, table, split)
+        key = HOTCOLD_SHARD[quant]
+        if quant == "int8":
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6-int8 on a shard differs from its plain version ({what})")
+            continue
+        tol = hotcold_tolerance(got, want, hot, table, split, rowwise=quant == "int8_rowwise")
+        err = (got - want).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"K6 on a shard ({quant}) disagrees with its plain version "
+                                 f"({what})")
+        errs[key] = max(errs.get(key, 0.0), err.max().item())
+
+
+def width_times(device, card: str) -> dict:
+    """K1 at rm1's shape with d = WINDOW_WIDTH (bf16, batch 512, full-size
+    table; the 16-byte lanes at one lane a row) and K3 at DIEN's shape with
+    H = WINDOW_WIDTH (the general instance), each beside its plain version,
+    its bound and its library call, as phases 7 and 9 time the zoo's."""
+    cfg = zoo.get_config("rm1").replace(sparse_feature_size=WINDOW_WIDTH)
+    g = torch.Generator(device=device).manual_seed(8)
+    table = torch.empty((cfg.total_rows, WINDOW_WIDTH), dtype=torch.bfloat16,
+                        device=device).uniform_(-0.05, 0.05, generator=g)
+    offsets = table_offsets(cfg, device)
+    batches = [b.to(device) for b in RecDataGenerator(cfg, seed=3).generate_batches(8, BATCH)]
+    with torch.inference_mode():
+        k1 = _k1_summary(_k1_runs(table, offsets, batches, torch.bfloat16), batches, table,
+                         offsets)
+    _log("[3 widths times] " + _k1_line(k1, f"rm1 at d={WINDOW_WIDTH}", card))
+    del table, batches
+    _free(device)
+    k3 = phase_rnn_times(device, card, H=WINDOW_WIDTH, label="3 widths times")
+    return {"embedding_bag": k1, "rnn_scan": k3}
+
+
+def width_path(device, cfg, what: str) -> tuple[float, dict]:
+    """``cfg`` (f32) through ``get_model(...).apply`` on the card, three
+    batches of BATCH, against the same forward on the CPU (every wrapper's
+    plain version there). Returns the max |error| and the launches, read
+    around the card's forwards."""
+    cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = get_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(6))
+    batches = RecDataGenerator(cfg, seed=6).generate_batches(3, BATCH)
+    with torch.inference_mode():
+        _reset_counts()
+        outs = [model.apply(params, b.to(device)) for b in batches]
+        synchronize(device)
+        counts = _counts()
+        cpu_model = get_model(cfg, "cpu")
+        cpu_params = bridge.tree_map(lambda t: t.cpu(), params)
+        worst = 0.0
+        for out, b in zip(outs, batches):
+            want = cpu_model.apply(cpu_params, b.to("cpu"))
+            _check_scores(out, tuple(want.shape), sigmoid_output(cfg), what)
+            err = (out.cpu() - want).abs().max().item()
+            if err > WIDTH_PATH_ATOL:
+                raise AssertionError(f"{what} on the card differs from the CPU forward: max "
+                                     f"|err| {err:.3e} > {WIDTH_PATH_ATOL:.0e}")
+            worst = max(worst, err)
+    del params, outs
+    _free(device)
+    return worst, counts
+
+
+def phase_widths(device, card: str) -> tuple[dict, dict, dict]:
+    """The width checks (``width_cases``, their launches read around them
+    and each kernel required), then two paths at new widths, each read
+    around itself: the dryrun's "dot" DLRM (d = 8, K1's 16-byte lanes at 2
+    lanes a row) and dien at H = WINDOW_WIDTH (K3's general instance),
+    each against its CPU forward; then ``width_times``. Returns (max
+    |error| by kernel and by new instance, e.g. ``"embedding_bag d=8"``,
+    over the kernel checks; times; K1's launches on the dryrun's path and
+    K3's on dien's)."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    errs = width_cases(device)
+    checked = _counts()
+    for key in ("embedding_bag", "embedding_bag_backward", "embedding_bag_int8",
+                "embedding_bag_int8_rowwise", "sparse_adagrad_step", "rnn_scan",
+                "rnn_scan_backward", *HOTCOLD.values(), *SHARD.values(), *HOTCOLD_SHARD.values(),
+                "embedding_bag_backward_shard", "sparse_adagrad_step_shard"):
+        if checked[key] == 0:
+            raise AssertionError(f"the width checks never launched {key}")
+    launches = {}
+    for cfg, what, key in (
+            (ModelConfig(**DRYRUN_CFG), "the dryrun's DLRM (d = 8)", "embedding_bag"),
+            (zoo.get_config("dien", table_scale=WIDTH_PATH_SCALE).replace(
+                hidden_size=WINDOW_WIDTH), f"dien at H = {WINDOW_WIDTH}", "rnn_scan")):
+        err, counts = width_path(device, cfg, what)
+        if counts[key] == 0:
+            raise AssertionError(f"{what} never launched {key}")
+        launches[key] = counts[key]  # the new width's instance: this path's launches only
+        _log(f"[3 widths] {what}, f32, batch {BATCH}: 3 forwards within {WIDTH_PATH_ATOL:.0e} "
+             f"of the CPU forward (max |err| {err:.3e}); launches {_nonzero(counts)} [{card}]")
+    times = width_times(device, card)
+    _log(f"[3 widths] every kernel's new widths ok in {time.perf_counter() - t0:.1f} s; "
+         f"launches of the checks {_nonzero(checked)}")
+    return errs, times, launches
 
 
 def _zoo_fixture_params(stored, name: str, device,
@@ -1318,11 +1658,11 @@ def phase_zoo(device, card: str, on_model=None) -> tuple[list, dict]:
     return rows, launches
 
 
-def phase_rnn_times(device, card: str) -> dict:
-    """K3 against its plain loop at DIEN's shape, bf16, in the order plain,
-    kernel, kernel, plain; then cuDNN's tanh RNN on the same recurrence
-    (kernel_bench.k3_library), and K3's bound."""
-    inp = rnn_inputs(device, DIEN_T, BATCH, torch.bfloat16, seed=1)
+def phase_rnn_times(device, card: str, H: int = KERNEL_HIDDEN, label: str = "9 K3 times") -> dict:
+    """K3 against its plain loop at DIEN's shape (hidden size H), bf16, in
+    the order plain, kernel, kernel, plain; then cuDNN's tanh RNN on the
+    same recurrence (kernel_bench.k3_library), and K3's bound."""
+    inp = rnn_inputs(device, DIEN_T, BATCH, torch.bfloat16, seed=1, H=H)
     args = [(inp["xproj"], inp["h2h_w"], inp["h2h_b"], torch.bfloat16)]
     iters = 50
     with torch.inference_mode():
@@ -1332,13 +1672,13 @@ def phase_rnn_times(device, card: str) -> dict:
         runs["s1"] = measure(k3_library(inp["h2h_w"], inp["h2h_b"]),
                              [(inp["xproj"].bfloat16(),)], iters)
     for key in ("p1", "k1", "k2", "p2", "s1"):
-        _log(f"[9 K3 times]   {key}: {_fmt(runs[key])} [{card}]")
+        _log(f"[{label}]   {key}: {_fmt(runs[key])} [{card}]")
     k_dev, p_dev = _mean(runs, ("k1", "k2"), "kernel_ms"), _mean(runs, ("p1", "p2"), "device_ms")
     k_wall, p_wall = _mean(runs, ("k1", "k2"), "wall_ms"), _mean(runs, ("p1", "p2"), "wall_ms")
-    bound = k3_bound(DIEN_T, BATCH, KERNEL_HIDDEN, torch.bfloat16)
+    bound = k3_bound(DIEN_T, BATCH, H, torch.bfloat16)
     use_dev = None not in (k_dev, p_dev, runs["s1"]["device_ms"])
     lib_ms = runs["s1"]["device_ms" if use_dev else "wall_ms"]
-    _log(f"[9 K3 times] K3 at T={DIEN_T} B={BATCH} H={KERNEL_HIDDEN} bf16 ({iters} calls a "
+    _log(f"[{label}] K3 at T={DIEN_T} B={BATCH} H={H} bf16 ({iters} calls a "
          f"run): device {_us(k_dev)}, wall {k_wall * 1e3:.2f} us a scan; bound "
          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}); plain loop device "
          f"{_us(p_dev)}, wall {p_wall * 1e3:.2f} us; cuDNN RNN "
@@ -1962,38 +2302,41 @@ def train_k10_cases(device) -> float:
     return worst
 
 
-def _rnn_backward_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int):
-    """K3b's inputs at (T, B, 64): the f32 tanh values of a forward scan of
+def _rnn_backward_inputs(device, T: int, B: int, dtype: torch.dtype, seed: int,
+                         H: int = KERNEL_HIDDEN):
+    """K3b's inputs at (T, B, H): the f32 tanh values of a forward scan of
     ``rnn_inputs`` and a random gradient of every step's state."""
-    inp = rnn_inputs(device, T, B, dtype, seed)
+    inp = rnn_inputs(device, T, B, dtype, seed, H)
     w, b, h0 = inp["h2h_w"], inp["h2h_b"], inp["h0"]
     all_h, _ = rnn_scan_reference(inp["xproj"], w, b, torch.float32, h0=h0)
     prev = torch.cat([h0[None], all_h[:-1]])
     y = torch.tanh((inp["xproj"] + prev @ w.float()) + b.float())
-    gh = torch.randn((T, B, KERNEL_HIDDEN), generator=torch.Generator(device=device)
+    gh = torch.randn((T, B, H), generator=torch.Generator(device=device)
                      .manual_seed(seed), device=device)
     return y, gh, w, inp["seq_lengths"]
 
 
-def train_rnn_cases(device, T: int, B: int, seed: int = 0) -> float:
+def train_rnn_cases(device, T: int, B: int, seed: int = 0, H: int = KERNEL_HIDDEN,
+                    phase: str = "11 train kernels") -> float:
     """K3b against its plain reverse loop with f32 and bf16 weights, with
-    and without seq_lengths, within K3B_RTOL of the largest |delta|."""
+    and without seq_lengths, at hidden size H, within K3B_RTOL of the
+    largest |delta|."""
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
-        y, gh, w, lens = _rnn_backward_inputs(device, T, B, dt, seed)
+        y, gh, w, lens = _rnn_backward_inputs(device, T, B, dt, seed, H)
         for m in (None, lens):
             delta, dh0 = rnn_scan_backward(y, gh, w, m)
             synchronize(device)
             want_d, want_h = rnn_scan_backward_reference(y, gh, w, m)
             scale = max(want_d.abs().max().item(), want_h.abs().max().item())
             err = max((delta - want_d).abs().max().item(), (dh0 - want_h).abs().max().item())
-            what = (f"T={T} B={B} H={KERNEL_HIDDEN} W {str(dt)[6:]}, "
+            what = (f"T={T} B={B} H={H} W {str(dt)[6:]}, "
                     f"seq_lengths={'yes' if m is not None else 'no'}")
             if err > K3B_RTOL * scale:
                 raise AssertionError(f"K3b disagrees with its plain loop ({what}): max |err| "
                                      f"{err:.3e} > {K3B_RTOL:.0e} x {scale:.3e}")
             worst = max(worst, err)
-            _log(f"[11 train kernels] K3b ok {what}: max |err| {err:.3e} = "
+            _log(f"[{phase}] K3b ok {what}: max |err| {err:.3e} = "
                  f"{err / scale:.2e} of the largest |delta| (limit {K3B_RTOL:.0e})")
     return worst
 
@@ -4176,9 +4519,9 @@ def _dense_parity(single_call, mesh_calls, table_s, table_of, state_s, state_of,
 
 def _mesh_want(mode: str, dien: bool, D: int, M: int, steps: int) -> dict:
     """A path's launches on a mesh of one card: K1's window D*M a step, K1b's
-    window D*M a dense step or K5's window a distinct shard tensor (M on one
-    card) a sparse step, K10 once a step (one device), and for dien K3 and
-    K3b twice a data slice."""
+    window D*M a dense step or K5's window M a sparse step (one a shard, on
+    its first copy), K10 once a step (one device), and for dien K3 and K3b
+    twice a data slice."""
     return _want(embedding_bag_shard=D * M * steps,
                  embedding_bag_backward_shard=D * M * steps if mode == "dense" else 0,
                  sparse_adagrad_step_shard=M * steps if mode != "dense" else 0,
@@ -4371,7 +4714,7 @@ def mesh_dryrun(device, card: str, errs: dict) -> tuple[dict, dict]:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{what}: losses not finite and falling: {losses}")
-    _log(f"[17 mesh train] make_train_step, the dryrun's dot DLRM (d = 32) on 2x2, "
+    _log(f"[17 mesh train] make_train_step, the dryrun's dot DLRM (d = {cfg.sparse_feature_size}) on 2x2, "
          f"{DRYRUN_STEPS} SGD steps on one batch: losses {', '.join(f'{x:.5f}' for x in losses)}; "
          f"launches {_nonzero(counts)} [{card}]")
     return {"losses": losses}, counts
@@ -4574,6 +4917,7 @@ def main() -> int:
     _log(f"[3 kernel] K3 at DIEN's shape, free-running max |err| by seed: "
          f"{', '.join(f'{e:.3e}' for e in k3_errs)}; worst {k3_err:.3e} = "
          f"{100 * k3_err / K3_BF16_ATOL:.1f}% of the bf16 limit {K3_BF16_ATOL:.3e}")
+    widths, width_t, width_launches = phase_widths(device, card["card"])
     phase_fixture(device)
 
     # rm1's main path: the counts are set to 0 just before it and read just after.
@@ -4807,7 +5151,12 @@ def main() -> int:
         for key in list(SHARD.values()) + list(HOTCOLD_SHARD.values())] + [
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": mesh_train["errs"][key], **{k: mesh_train["times"][key][k] for k in timed}}
-        for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard")]}))
+        for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard")] + [
+        # The new widths' instances, on the paths at those widths (phase 3).
+        {"name": f"{key} at {label} = {WINDOW_WIDTH}", "route": "cuda", **KERNELS[key],
+         "launches": width_launches[key], "max_abs_err": widths[f"{key} {label}={WINDOW_WIDTH}"],
+         **{k: width_t[key][k] for k in timed}}
+        for key, label in (("embedding_bag", "d"), ("rnn_scan", "H"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))
     return 0

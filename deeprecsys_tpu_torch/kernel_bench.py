@@ -7,6 +7,7 @@ library yardsticks of the other training kernels K1b and K5 (``k1b_bound``,
 times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6,k3b]
+    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k5w
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
@@ -40,6 +41,16 @@ For K3b (``bench_k3b``) at T = 40 and B = 128 (the trainer's batch) and
 loop with and without ``seq_lengths``, then gives the kernel's median
 device time beside ``k3b_bound``, cuDNN's backward-data pass
 (``k3b_library``), the plain loop and the wrapper's host time a call.
+
+For K1's ownership window (``--only k1w``) on shard 1 of rm1's and rm2's
+bf16 tables at 1x4 (a data slice of 512) and 2x2 (of 256): the shipped
+window kernel's time beside its plain version, ``window_bound`` and the
+windowed ``F.embedding_bag`` (``experiments/k1w_sweep.py`` sweeps both
+window designs and their floors at the same cells); ``--only k5w`` times
+K5's window on rm1's 1/4 shard (f32 and bf16 shards, batch 128) as a span
+beside its bound, after holding it to its plain version on the batch's ids
+and on ids folded onto 256 rows a table (rows of many adds, where a bf16
+shard's once-rounded bound is tight).
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -1200,6 +1211,152 @@ def bench_k10(log) -> list:
     return rows
 
 
+# K1's window (--only k1w; experiments/k1w_sweep.py): the zoo's long-bag
+# models, each on shard 1 of a 1x4 mesh (a data slice of BATCH rows) and of
+# a 2x2 mesh (of BATCH / 2 rows), bf16 tables, f32 partials.
+K1W_MODELS = ("rm1", "rm2")
+K1W_CELLS = ((4, BATCH), (2, BATCH // 2))  # (model axis M, data slice rows)
+
+
+def k1w_inputs(name: str, M: int, B: int, device, n_batches: int = 8,
+               table_scale: int = 1) -> dict:
+    """``name``'s bf16 table (full size by default), its shard 1 of M (rows
+    [R / M, 2 R / M)), the fused offsets and ``n_batches`` batches of B
+    ids."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.data import RecDataGenerator
+    from deeprecsys_tpu_torch.models.base import table_offsets
+
+    cfg = zoo.get_config(name, table_scale=table_scale)
+    rps = cfg.total_rows // M
+    g = torch.Generator(device=device).manual_seed(11)
+    shard = torch.empty((rps, cfg.sparse_feature_size), dtype=torch.bfloat16,
+                        device=device).uniform_(-0.05, 0.05, generator=g)
+    return {"cfg": cfg, "shard": shard, "row_lo": rps, "offsets": table_offsets(cfg, device),
+            "ids": [b.to(device).indices for b in
+                    RecDataGenerator(cfg, seed=5).generate_batches(n_batches, B)]}
+
+
+def _k1w_check(got, inp: dict, idx, what: str):
+    from deeprecsys_tpu_torch.ops.embedding import embedding_bag_reference, pooled_tolerance
+
+    shard, lo, offsets = inp["shard"], inp["row_lo"], inp["offsets"]
+    w = (lo, lo + shard.shape[0])
+    want = embedding_bag_reference(shard, offsets, idx, window=w)
+    tol = pooled_tolerance(got, want, shard, offsets, idx, window=w)
+    if not bool(((got - want).abs() <= tol).all()):
+        raise AssertionError(f"K1's window disagrees with its plain version ({what})")
+
+
+def bench_k1w(log) -> list:
+    """K1's window (``embedding_bag_shard``, the shipped instance) on shard
+    1 of rm1's and rm2's tables at 1x4 and 2x2, beside its plain version
+    (order plain, kernel, kernel, plain), its bound (``window_bound``) and
+    the windowed ``F.embedding_bag`` (``window_library``). Only public
+    functions, so an older checkout runs it too."""
+    from deeprecsys_tpu_torch.ops import embedding_bag_shard
+    from deeprecsys_tpu_torch.ops.embedding import embedding_bag_reference
+
+    device = torch.device("cuda")
+    rows = []
+    for name in K1W_MODELS:
+        for M, B in K1W_CELLS:
+            inp = k1w_inputs(name, M, B, device)
+            shard, lo, offsets = inp["shard"], inp["row_lo"], inp["offsets"]
+            w = (lo, lo + shard.shape[0])
+            args = [(i,) for i in inp["ids"]]
+            _k1w_check(embedding_bag_shard(shard, offsets, inp["ids"][0], lo), inp,
+                       inp["ids"][0], f"{name} 1/{M}")
+            kernel = lambda i: embedding_bag_shard(shard, offsets, i, lo)  # noqa: E731
+            plain = lambda i: embedding_bag_reference(shard, offsets, i, window=w)  # noqa: E731
+            runs = [measure(fn, args) for fn in (plain, kernel, kernel, plain)]
+            lib = measure(window_library(shard, lo, offsets), args)
+            # A shard that owns no row: the ids' pass, the launch and the store.
+            empty = measure(lambda i: embedding_bag_shard(shard[:0], offsets, i, lo), args)
+            bound = window_bound(shard, lo, offsets, inp["ids"][0], shard.shape[1])
+            row = {"model": name, "shard": f"1/{M}", "shape": list(inp["ids"][0].shape)
+                   + [shard.shape[1]], **bound,
+                   "ms": float(np.mean([r["kernel_ms"] for r in runs[1:3]])),
+                   "plain_ms": float(np.mean([r["device_ms"] for r in (runs[0], runs[3])])),
+                   "library_ms": lib["device_ms"], "wall_ms": runs[1]["wall_ms"],
+                   "no_rows_ms": empty["kernel_ms"]}
+            row["of_bound"] = row["bound_ms"] / row["ms"]
+            log(f"K1 window {name} shard 1/{M} {row['shape']}: {_us(row['ms'])} "
+                f"({100 * row['of_bound']:.1f}% of the bound {_us(row['bound_ms'])}, "
+                f"{row['bound_by']}); plain {_us(row['plain_ms'])}; windowed F.embedding_bag "
+                f"{_us(row['library_ms'])}; on a shard of no rows {_us(row['no_rows_ms'])}")
+            rows.append(row)
+            del inp, shard
+            torch.cuda.empty_cache()
+    return rows
+
+
+def bench_k5w(log) -> list:
+    """K5's window (``sparse_adagrad_step_shard``) on shard 1 of 4 of rm1's
+    table at the trainer's batch (128, eight batches of ids), f32 and bf16
+    shards: each held to its plain version on one batch, then the span of
+    its launches (``span_ms``) beside its bound (``k5_window_bound``) and
+    its plain version's device time. Only public functions, so an older
+    checkout runs it too."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.data import RecDataGenerator
+    from deeprecsys_tpu_torch.models.base import table_offsets
+    from deeprecsys_tpu_torch.ops import sparse_adagrad_step_shard
+    from deeprecsys_tpu_torch.ops.sparse_adagrad import (
+        sparse_adagrad_step_reference, sparse_adagrad_tolerance)
+
+    device = torch.device("cuda")
+    cfg = zoo.get_config("rm1")
+    rps = cfg.total_rows // 4
+    lo, d = rps, cfg.sparse_feature_size
+    offsets = table_offsets(cfg, device)
+    g = torch.Generator(device=device).manual_seed(15)
+    ids = [b.to(device).indices for b in RecDataGenerator(cfg, seed=13).generate_batches(8, 128)]
+    gs = [torch.randn((128, cfg.num_tables, d), generator=g, device=device) * 1e-2 for _ in ids]
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        shard = ((torch.rand((rps, d), generator=g, device=device) - 0.5) * 0.1).to(dt)
+        acc = torch.zeros((rps,), dtype=torch.float32, device=device)
+        args = list(zip(gs, ids))
+
+        def k5(gr, i):
+            sparse_adagrad_step_shard(shard, acc, offsets, i, gr, lo, 0.1)
+
+        def plain(gr, i):
+            sparse_adagrad_step_reference(shard, acc, offsets, i, gr, 0.1, window=(lo, lo + rps))
+
+        # The batch's ids, then the same folded onto 256 rows of each table
+        # (tables 2 and 3 lie in the window): ~40 adds a row.
+        for what, i in (("ids", ids[0]), ("ids on 256 rows a table", ids[0] % 256)):
+            got_t, got_a, want_t, want_a = shard.clone(), acc.clone(), shard.clone(), acc.clone()
+            sparse_adagrad_step_shard(got_t, got_a, offsets, i, gs[0], lo, 0.1)
+            sparse_adagrad_step_reference(want_t, want_a, offsets, i, gs[0], 0.1,
+                                          window=(lo, lo + rps))
+            tol, acc_tol = sparse_adagrad_tolerance(shard, acc, offsets, i, gs[0], 0.1,
+                                                    window=(lo, lo + rps))
+            err = (got_t.float() - want_t.float()).abs()
+            if not (bool((err <= tol).all()) and bool(((got_a - want_a).abs() <= acc_tol).all())):
+                raise AssertionError(f"K5's window disagrees with its plain version ({dt}, "
+                                     f"{what}): max |err| table {err.max().item():.3e}")
+            del got_t, got_a, want_t, want_a, tol, acc_tol, err
+        bound = k5_window_bound(shard, gs[0], offsets, ids[0], lo)
+        span = span_ms(k5, args)
+        run = measure(k5, args)
+        pl = measure(plain, args)
+        row = {"dtype": str(dt)[6:], "span_ms": span, "device_ms": run["device_ms"],
+               "wall_ms": run["wall_ms"], "plain_ms": pl["device_ms"], **bound,
+               "by_kernel": run["us_by_kernel"]}
+        log(f"K5 window rm1 shard 1/4 {row['dtype']} B=128 T=8 L=80 d={d}: span "
+            f"{_us(span)}, device {_us(run['device_ms'])} a call over {run['launches']:.1f} "
+            f"launches, wall {_us(run['wall_ms'])}; bound {_us(bound['bound_ms'])} "
+            f"({bound['bound_by']}); plain {_us(row['plain_ms'])}; by kernel "
+            f"{_by_kernel(run['us_by_kernel'])}")
+        rows.append(row)
+        del shard, acc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1212,7 +1369,8 @@ def _us(ms) -> str:
 
 
 BENCHES = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
-           "k6": bench_k6, "k3b": bench_k3b, "k5": bench_k5, "k10": bench_k10}  # --only's names
+           "k6": bench_k6, "k3b": bench_k3b, "k5": bench_k5, "k10": bench_k10,
+           "k1w": bench_k1w, "k5w": bench_k5w}  # --only's names
 
 
 def main(argv=None) -> int:

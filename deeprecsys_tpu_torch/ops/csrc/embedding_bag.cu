@@ -54,6 +54,31 @@
 // caller sums the shards' partials and rounds once. The direct path
 // (kWindow false) is compiled without the test.
 //
+// Widths. The mapping above runs at every row of 16 * 2^k bytes up to a
+// warp's 512 (bf16 D 8 to 256, f32 D 4 to 128), each width its own
+// instance; D = 32 and 64 keep the instances (and code) they had. Any other
+// width takes the general instance (embedding_bag_general_kernel): the
+// width a runtime argument, a warp a bag, a lane an element of the row (a
+// chunk of 32 * kGeneralCols columns at a time), the bag's 32-id chunks in
+// one coalesced load each, the rows walked in order; correct, not tuned.
+//
+// The window's long walks (bags the direct mapping takes more than
+// K1W_DIRECT_STEPS steps over) take the compacted gather
+// (embedding_bag_compact_kernel; ops/embedding.py::k1_window_plan): on an
+// M-way shard only about 1/M of a bag's slots own their row, so the direct
+// mapping's steps keep about 1/M of its rows in flight. Instead a warp
+// reads up to kCompactIds of its bag's ids at once (4 coalesced loads a
+// lane), takes a __ballot_sync of which rows the shard owns, and packs the
+// owned ids into its own kCompactIds ints of shared memory at the rank
+// __popc of the ballot below the lane gives; then its S slots gather only
+// the packed rows, U a slot a step with the 16-byte lanes and the load
+// hint, so every row load the warp issues is one that adds. Measured on an
+// H100 (kernel_bench --only k1w_sweep, PERF.md): at rm2's shards (7.5 steps
+// a bag) U = 8 ran 24% (1/4 shard) and 6% (1/2) under the direct window;
+// at rm1's (2.5 steps) no design moved the time (6.2-6.5 us), which the
+// ids' pass, the launch and the random-row rate hold, so rm1 keeps the
+// direct mapping.
+//
 // Where a lane has several rows in flight (U > 1), rows load with
 // ld.global.nc.L1::no_allocate.L2::64B: no L1 line for a row that is never
 // read again, and no L2 prefetch past 64 bytes (a bf16 d = 32 row is 64
@@ -210,6 +235,144 @@ embedding_bag_kernel(const TIn* __restrict__ table,
   }
 }
 
+// The general instance: any width d, a warp a bag, lane c of the warp the
+// columns c, c + 32, ... of a chunk of 32 * kGeneralCols, summed in f32 in
+// the bag's slot order; with kWindow the window's test at each row.
+constexpr int kGeneralCols = 4;
+
+template <typename TIn, typename TC, typename TO, bool kWindow>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+embedding_bag_general_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ offsets,
+                             const int32_t* __restrict__ indices,
+                             const uint8_t* __restrict__ mask, TO* __restrict__ out, int d,
+                             int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
+  const int lane = threadIdx.x & 31;
+  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
+       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
+    for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
+      float acc[kGeneralCols];
+#pragma unroll
+      for (int k = 0; k < kGeneralCols; ++k) acc[k] = 0.f;
+      for (int l0 = 0; l0 < L; l0 += 32) {
+        int32_t id = -1;
+        if (l0 + lane < L) {
+          const int64_t at = bag * L + l0 + lane;
+          id = __ldg(indices + at);
+          if (mask != nullptr && __ldg(mask + at) == 0) id = -1;
+        }
+        const int n = min(32, L - l0);
+        for (int j = 0; j < n; ++j) {
+          const int32_t r = __shfl_sync(0xffffffffu, id, j);  // the same in every lane
+          if (r < 0) continue;
+          const int64_t row = base + r;
+          if (kWindow && (uint64_t)row >= (uint64_t)n_rows) continue;
+          const TIn* p = table + row * d;
+#pragma unroll
+          for (int k = 0; k < kGeneralCols; ++k) {
+            const int c = c0 + lane + 32 * k;
+            if (c < d) acc[k] += as_compute<TC>(to_float(__ldg(p + c)));
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGeneralCols; ++k) {
+        const int c = c0 + lane + 32 * k;
+        if (c < d) to_out(acc[k], out + bag * d + c);
+      }
+    }
+  }
+}
+
+// The window's compacted gather (long bags): a warp a bag; each window of
+// kCompactIds of the bag's slots is read at once, the ids whose rows the
+// shard owns packed into the warp's shared ints by a ballot and a prefix
+// count, then gathered by the S slots of P lanes, U rows a slot a step.
+// The partial leaves in f32, not rounded.
+constexpr int kCompactIds = 128;
+
+template <typename TIn, typename TC, int D, int U>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
+embedding_bag_compact_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ offsets,
+                             const int32_t* __restrict__ indices,
+                             const uint8_t* __restrict__ mask, float* __restrict__ out,
+                             int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
+  constexpr int kElems = 16 / sizeof(TIn);  // elements a lane loads
+  constexpr int P = D / kElems;             // lanes covering one row
+  constexpr int S = 32 / P;                 // row slots a warp
+  constexpr int RPS = S * U;                // packed rows a step
+  constexpr int NI = kCompactIds / 32;      // ids a lane a window
+  static_assert(D % kElems == 0 && 32 % P == 0, "unsupported mapping");
+  __shared__ int32_t packed[kWarpsPerBlock][kCompactIds];
+
+  const int lane = threadIdx.x & 31;
+  const int s = lane / P;
+  const int col = (lane % P) * kElems;
+  const unsigned below = (1u << lane) - 1u;
+  int32_t* own = packed[threadIdx.x >> 5];
+
+  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
+       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - row_lo;
+    float acc[kElems];
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) acc[i] = 0.f;
+
+    for (int w0 = 0; w0 < L; w0 += kCompactIds) {
+      int32_t ids[NI];
+#pragma unroll
+      for (int r = 0; r < NI; ++r) {
+        const int l = w0 + r * 32 + lane;
+        int32_t id = -1;
+        if (l < L) {
+          const int64_t at = bag * L + l;
+          id = __ldg(indices + at);
+          if (mask != nullptr && __ldg(mask + at) == 0) id = -1;
+        }
+        ids[r] = id;
+      }
+      int n = 0;  // owned ids packed so far, the same in every lane
+#pragma unroll
+      for (int r = 0; r < NI; ++r) {
+        const bool owned = ids[r] >= 0 && (uint64_t)(base + ids[r]) < (uint64_t)n_rows;
+        const unsigned ballot = __ballot_sync(0xffffffffu, owned);
+        if (owned) own[n + __popc(ballot & below)] = ids[r];
+        n += __popc(ballot);
+      }
+      __syncwarp();
+      for (int k0 = 0; k0 < n; k0 += RPS) {
+        uint4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int k = k0 + u * S + s;
+          v[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (k < n) v[u] = load_row<true>(table + (base + own[k]) * D + col);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const TIn* e = reinterpret_cast<const TIn*>(&v[u]);
+#pragma unroll
+          for (int i = 0; i < kElems; ++i) acc[i] += as_compute<TC>(to_float(e[i]));
+        }
+      }
+      __syncwarp();  // every lane has read the packed ids before the next window's
+    }
+
+#pragma unroll
+    for (int off = P; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < kElems; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    }
+    if (s == 0) {
+      float* dst = out + bag * D + col;
+#pragma unroll
+      for (int c = 0; c < kElems / 4; ++c)
+        reinterpret_cast<float4*>(dst)[c] =
+            make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+    }
+  }
+}
+
 template <typename TIn, typename TC, int D, int G, int U, typename TO, bool kWindow>
 int launch(const void* table, const int32_t* offsets, const int32_t* indices,
            const uint8_t* mask, void* out, int64_t n_bags, int T, int L, int grid,
@@ -238,17 +401,57 @@ int launch_mapping(int G, int U, const void* table, const int32_t* offsets,
   return (int)cudaErrorInvalidValue;
 }
 
+// The rows per slot a step of the compacted gather that k1_window_plan
+// picks (ops/embedding.py::K1W_ROWS_PER_SLOT).
+constexpr int kCompactU = 8;
+
+template <typename TIn, typename TC, int D>
+int launch_compact(int U, const void* table, const int32_t* offsets, const int32_t* indices,
+                   const uint8_t* mask, void* out, int64_t n_bags, int T, int L, int grid,
+                   cudaStream_t stream, int64_t row_lo, int64_t n_rows) {
+  if (U != kCompactU) return (int)cudaErrorInvalidValue;
+  embedding_bag_compact_kernel<TIn, TC, D, kCompactU><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const TIn*>(table), offsets, indices, mask, static_cast<float*>(out), n_bags,
+      T, L, row_lo, n_rows);
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn, typename TC, typename TO, bool kWindow>
+int launch_general(int d, const void* table, const int32_t* offsets, const int32_t* indices,
+                   const uint8_t* mask, void* out, int64_t n_bags, int T, int L, int grid,
+                   cudaStream_t stream, int64_t row_lo, int64_t n_rows) {
+  embedding_bag_general_kernel<TIn, TC, TO, kWindow><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const TIn*>(table), offsets, indices, mask, static_cast<TO*>(out), d, n_bags,
+      T, L, row_lo, n_rows);
+  return (int)cudaGetLastError();
+}
+
+// G = 0: the general instance at any d. Else the 16-byte-lane mapping
+// (G, U) at a row of 16 * 2^k bytes up to 512, each width its instance;
+// compact: the window's compacted gather (kWindow only).
 template <typename TIn, typename TC, typename TO = TC, bool kWindow = false>
 int launch_width(int d, int G, int U, const void* table, const int32_t* offsets,
                  const int32_t* indices, const uint8_t* mask, void* out, int64_t n_bags,
                  int T, int L, int grid, cudaStream_t stream, int64_t row_lo = 0,
-                 int64_t n_rows = 0) {
-  if (d == 32)
-    return launch_mapping<TIn, TC, 32, TO, kWindow>(G, U, table, offsets, indices, mask, out,
-                                                    n_bags, T, L, grid, stream, row_lo, n_rows);
-  if (d == 64)
-    return launch_mapping<TIn, TC, 64, TO, kWindow>(G, U, table, offsets, indices, mask, out,
-                                                    n_bags, T, L, grid, stream, row_lo, n_rows);
+                 int64_t n_rows = 0, bool compact = false) {
+  if (G == 0)
+    return launch_general<TIn, TC, TO, kWindow>(d, table, offsets, indices, mask, out, n_bags,
+                                                T, L, grid, stream, row_lo, n_rows);
+  constexpr int E = 16 / (int)sizeof(TIn);  // elements of 16 bytes
+#define DRS_K1_WIDTH(w)                                                                      \
+  if (d == (w)) {                                                                            \
+    if constexpr (kWindow) {                                                                 \
+      if (compact)                                                                           \
+        return launch_compact<TIn, TC, (w)>(U, table, offsets, indices, mask, out, n_bags, T, \
+                                            L, grid, stream, row_lo, n_rows);                \
+    }                                                                                        \
+    return launch_mapping<TIn, TC, (w), TO, kWindow>(G, U, table, offsets, indices, mask,    \
+                                                     out, n_bags, T, L, grid, stream,        \
+                                                     row_lo, n_rows);                        \
+  }
+  DRS_K1_WIDTH(E) DRS_K1_WIDTH(2 * E) DRS_K1_WIDTH(4 * E) DRS_K1_WIDTH(8 * E)
+  DRS_K1_WIDTH(16 * E) DRS_K1_WIDTH(32 * E)
+#undef DRS_K1_WIDTH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -257,8 +460,9 @@ int launch_width(int d, int G, int U, const void* table, const int32_t* offsets,
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. (bags_per_warp, rows_per_lane,
-// grid) is ops/embedding.py::k1_launch_plan's. Returns the cudaError_t of
-// the launch (0 = success). The caller validates shapes and alignment.
+// grid) is ops/embedding.py::k1_launch_plan's (bags_per_warp 0: the general
+// instance). Returns the cudaError_t of the launch (0 = success). The
+// caller validates shapes and alignment.
 int drs_embedding_bag(const void* table, int table_dtype, int d,
                       const void* offsets, const void* indices, const void* mask,
                       void* out, int out_dtype, int64_t n_bags, int T, int L,
@@ -289,12 +493,13 @@ int drs_embedding_bag(const void* table, int table_dtype, int d,
 // [row_lo, row_lo + n_rows); out is the f32 partial (B, T, d), each row
 // converted to the compute dtype (compute_dtype: 0 = f32, 1 = bf16) and
 // summed in f32, not rounded. A bf16 row is already a bf16 value, so a
-// bf16 table takes the f32 instance: the same sums.
+// bf16 table takes the f32 instance: the same sums. The plan is
+// ops/embedding.py::k1_window_plan's (compact: the compacted gather).
 int drs_embedding_bag_window(const void* table, int table_dtype, int d, const void* offsets,
                              const void* indices, const void* mask, void* out,
                              int compute_dtype, int64_t row_lo, int64_t n_rows,
                              int64_t n_bags, int T, int L, int bags_per_warp,
-                             int rows_per_lane, int grid, void* stream) {
+                             int rows_per_lane, int grid, int compact, void* stream) {
   if (n_bags <= 0) return 0;
   if (grid <= 0 || row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
   const int32_t* off = static_cast<const int32_t*>(offsets);
@@ -302,15 +507,18 @@ int drs_embedding_bag_window(const void* table, int table_dtype, int d, const vo
   const uint8_t* msk = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = bags_per_warp, U = rows_per_lane;
+  const bool c = compact != 0;
   if (table_dtype == 1 && (compute_dtype == 0 || compute_dtype == 1))
     return launch_width<__nv_bfloat16, float, float, true>(d, G, U, table, off, idx, msk, out,
-                                                           n_bags, T, L, grid, s, row_lo, n_rows);
+                                                           n_bags, T, L, grid, s, row_lo, n_rows,
+                                                           c);
   if (table_dtype == 0 && compute_dtype == 0)
     return launch_width<float, float, float, true>(d, G, U, table, off, idx, msk, out, n_bags, T,
-                                                   L, grid, s, row_lo, n_rows);
+                                                   L, grid, s, row_lo, n_rows, c);
   if (table_dtype == 0 && compute_dtype == 1)
     return launch_width<float, __nv_bfloat16, float, true>(d, G, U, table, off, idx, msk, out,
-                                                           n_bags, T, L, grid, s, row_lo, n_rows);
+                                                           n_bags, T, L, grid, s, row_lo, n_rows,
+                                                           c);
   return (int)cudaErrorInvalidValue;
 }
 

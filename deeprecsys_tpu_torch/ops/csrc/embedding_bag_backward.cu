@@ -41,6 +41,13 @@
 // that row lies in the shard; the test sits on the row the warp already
 // has, so a slot another shard owns costs one compare and no add. The
 // direct instance (kWindow false) is compiled without the test.
+//
+// Widths. The mapping above (D / 32 values a lane) is built at D = 32, 64,
+// 128 and 256, each width its instance (32 and 64 as before); any other
+// width takes the general instance (embedding_bag_backward_general_kernel):
+// the width a runtime argument, lane c the columns c, c + 32, ... of a
+// chunk of 32 * kGeneralCols, the same tasks and atomic adds into the same
+// f32 gradient; correct, not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +98,54 @@ embedding_bag_backward_kernel(const TG* __restrict__ g, const int32_t* __restric
   }
 }
 
+constexpr int kGeneralCols = 4;
+
+template <typename TG, bool kWindow>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+embedding_bag_backward_general_kernel(const TG* __restrict__ g,
+                                      const int32_t* __restrict__ offsets,
+                                      const int32_t* __restrict__ indices,
+                                      const uint8_t* __restrict__ mask, float* __restrict__ grad,
+                                      int d, int64_t n_bags, int T, int L, int64_t row_lo,
+                                      int64_t n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int chunks = (L + 31) / 32;
+  const int64_t n_tasks = n_bags * chunks;
+
+  for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
+    const int64_t bag = task / chunks;
+    const int l0 = (int)(task % chunks) * 32;
+    const int n = min(32, L - l0);
+    const int64_t slot0 = bag * L + l0;
+    int32_t id = -1;
+    if (lane < n) {
+      id = __ldg(indices + slot0 + lane);
+      if (mask != nullptr && __ldg(mask + slot0 + lane) == 0) id = -1;
+    }
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
+    for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
+      float v[kGeneralCols];
+#pragma unroll
+      for (int k = 0; k < kGeneralCols; ++k) {
+        const int c = c0 + lane + 32 * k;
+        v[k] = c < d ? to_float(g[bag * d + c]) : 0.f;
+      }
+      for (int j = 0; j < n; ++j) {
+        const int32_t r = __shfl_sync(0xffffffffu, id, j);  // the same in every lane
+        if (r < 0) continue;
+        if (kWindow && (uint64_t)(base + r) >= (uint64_t)n_rows) continue;
+        float* dst = grad + (base + r) * d;
+#pragma unroll
+        for (int k = 0; k < kGeneralCols; ++k) {
+          const int c = c0 + lane + 32 * k;
+          if (c < d) atomicAdd(dst + c, v[k]);
+        }
+      }
+    }
+  }
+}
+
 template <typename TG, int D, bool kWindow>
 int launch(const void* g, const int32_t* offsets, const int32_t* indices, const uint8_t* mask,
            float* grad, int64_t n_bags, int T, int L, int grid, cudaStream_t stream,
@@ -104,13 +159,15 @@ template <typename TG, bool kWindow>
 int launch_width(int d, const void* g, const int32_t* offsets, const int32_t* indices,
                  const uint8_t* mask, float* grad, int64_t n_bags, int T, int L, int grid,
                  cudaStream_t stream, int64_t row_lo, int64_t n_rows) {
-  if (d == 32)
-    return launch<TG, 32, kWindow>(g, offsets, indices, mask, grad, n_bags, T, L, grid, stream,
-                                   row_lo, n_rows);
-  if (d == 64)
-    return launch<TG, 64, kWindow>(g, offsets, indices, mask, grad, n_bags, T, L, grid, stream,
-                                   row_lo, n_rows);
-  return (int)cudaErrorInvalidValue;
+#define DRS_K1B_WIDTH(w)                                                                    \
+  if (d == (w))                                                                             \
+    return launch<TG, (w), kWindow>(g, offsets, indices, mask, grad, n_bags, T, L, grid,     \
+                                    stream, row_lo, n_rows);
+  DRS_K1B_WIDTH(32) DRS_K1B_WIDTH(64) DRS_K1B_WIDTH(128) DRS_K1B_WIDTH(256)
+#undef DRS_K1B_WIDTH
+  embedding_bag_backward_general_kernel<TG, kWindow><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const TG*>(g), offsets, indices, mask, grad, d, n_bags, T, L, row_lo, n_rows);
+  return (int)cudaGetLastError();
 }
 
 template <bool kWindow>

@@ -108,6 +108,16 @@
 //     S * L entries), coalesced; a slot picks its entries by shuffles, and
 //     its rows, hot or cold, load U at a time. No combining step.
 //
+// Widths. The mappings above are built for D = 32 and 64. Any other width
+// takes the general instance (embedding_bag_hotcold_general_kernel, launched
+// the same way after launch 1): the width a runtime argument, a warp a bag,
+// lane c the columns c, c + 32, ... of a chunk of 32 * kGeneralCols, one
+// element a load; the bag's slots walked in order, each hot hit from `hot`
+// and each non-hot slot of rank r from cold entry cold_start[g] + r while
+// r < cold_start[g + 1] - cold_start[g], as above; the same numerics and
+// outputs (a row-wise row's scale read a byte at a time: a row of D + 4
+// bytes need not start on a 4-byte boundary); correct, not tuned.
+//
 // Row-wise rows (D + 4 bytes, 36 or 68, on 4-byte boundaries only) load as
 // K4 loads them (pooled_rows.cuh, shared with embedding_bag_int8.cu): each
 // lane the 16-byte-aligned chunks over its words, picked by the row's
@@ -599,6 +609,96 @@ embedding_bag_hotcold_kernel(const TIn* __restrict__ hot, const TIn* __restrict_
   if (!waited) wait_cold_starts();
 }
 
+constexpr int kGeneralCols = 4;
+
+// One element of a row at p (column c of a row of `d` values) as the value
+// the bag sums: float rows converted to the compute dtype, per-table int8
+// as an exact int, row-wise int8 times the row's scale.
+template <int M, typename TC, typename TIn>
+__device__ __forceinline__ float general_value(const TIn* p, int c, float row_scale) {
+  if constexpr (M == kFloat) {
+    return as_compute<TC>(to_float(__ldg(p + c)));
+  } else {
+    return __fmul_rn(static_cast<float>(__ldg(p + c)), row_scale);
+  }
+}
+
+// Launch 2 at any width: a warp a bag (grid-stride), the slots in order.
+template <int M, typename TIn, typename TC, typename TO>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+embedding_bag_hotcold_general_kernel(const TIn* __restrict__ hot, const TIn* __restrict__ table,
+                                     const float* __restrict__ scale,
+                                     const int32_t* __restrict__ hot_sel,
+                                     const uint8_t* __restrict__ hot_mask,
+                                     const int32_t* __restrict__ cold_ids,
+                                     const int32_t* cold_start,  // launch 1's, past the wait
+                                     TO* __restrict__ out, int d, int64_t n_bags, int T, int L) {
+  using Acc = typename std::conditional<M == kInt8, int, float>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t rb = M == kRowwise ? d + 4 : d;  // a row's elements (bytes for int8)
+  wait_cold_starts();
+  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
+       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
+    const int64_t lo = cold_start[bag];
+    const int64_t n_cold = cold_start[bag + 1] - lo;
+    for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
+      Acc acc[kGeneralCols] = {};
+      int64_t rank = 0;  // non-hot slots so far
+      for (int l0 = 0; l0 < L; l0 += 32) {
+        uint8_t m = 0;
+        int32_t sel = 0;
+        if (l0 + lane < L) {
+          m = __ldg(hot_mask + bag * L + l0 + lane);
+          sel = __ldg(hot_sel + bag * L + l0 + lane);
+        }
+        const int n = min(32, L - l0);
+        for (int j = 0; j < n; ++j) {  // every value below is the same in every lane
+          const bool hit = __shfl_sync(kFull, (int)m, j) != 0;
+          const int32_t sj = __shfl_sync(kFull, sel, j);
+          const TIn* row;
+          if (hit) {
+            row = hot + (int64_t)sj * rb;
+          } else {
+            if (rank >= n_cold) continue;
+            row = table + (int64_t)__ldg(cold_ids + lo + rank) * rb;
+            ++rank;
+          }
+          float row_scale = 1.f;
+          if constexpr (M == kRowwise) {
+            const uint8_t* b = reinterpret_cast<const uint8_t*>(row) + d;
+            row_scale = __uint_as_float((uint32_t)__ldg(b) | ((uint32_t)__ldg(b + 1) << 8) |
+                                        ((uint32_t)__ldg(b + 2) << 16) |
+                                        ((uint32_t)__ldg(b + 3) << 24));
+          }
+#pragma unroll
+          for (int k = 0; k < kGeneralCols; ++k) {
+            const int c = c0 + lane + 32 * k;
+            if (c >= d) continue;
+            if constexpr (M == kInt8) {
+              acc[k] += (int)__ldg(row + c);
+            } else {
+              acc[k] += general_value<M, TC>(row, c, row_scale);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGeneralCols; ++k) {
+        const int c = c0 + lane + 32 * k;
+        if (c >= d) continue;
+        TO* dst = out + bag * d + c;
+        if constexpr (std::is_same<TO, int32_t>::value) {
+          to_out(acc[k], dst);
+        } else if constexpr (M == kInt8) {
+          to_out(__fmul_rn(static_cast<float>(acc[k]), __ldg(scale + bag % T)), dst);
+        } else {
+          to_out(acc[k], dst);
+        }
+      }
+    }
+  }
+}
+
 struct Args {
   const void* hot;
   const void* table;
@@ -692,8 +792,31 @@ int launch_plan(int rows_per_slot, int ids_per_lane, const Args& a) {
   }
 }
 
+// Launch 2 of the general instance, as launch() launches the others.
+template <int M, typename TIn, typename TC, typename TO>
+int launch_general(int d, const Args& a) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.grid);
+  cfg.blockDim = dim3(kWarpsPerBlock * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, embedding_bag_hotcold_general_kernel<M, TIn, TC, TO>,
+      static_cast<const TIn*>(a.hot), static_cast<const TIn*>(a.table), a.scale, a.hot_sel,
+      a.hot_mask, a.cold_ids, static_cast<const int32_t*>(a.cold_start), static_cast<TO*>(a.out),
+      d, a.n_bags, a.T, a.L);
+}
+
+// rows_per_slot < 0: the general instance at any width; else the plan's
+// mapping at D = 32 or 64.
 template <int M, typename TIn, typename TC, typename TO = TC>
 int launch_width(int d, int rows_per_slot, int ids_per_lane, const Args& a) {
+  if (rows_per_slot < 0) return launch_general<M, TIn, TC, TO>(d, a);
   if (d == 32) return launch_plan<M, TIn, TC, 32, TO>(rows_per_slot, ids_per_lane, a);
   if (d == 64) return launch_plan<M, TIn, TC, 64, TO>(rows_per_slot, ids_per_lane, a);
   return (int)cudaErrorInvalidValue;

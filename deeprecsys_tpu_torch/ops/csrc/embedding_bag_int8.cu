@@ -86,6 +86,16 @@
 // (TC = int32_t), so that the shards' partials add exactly and the scale
 // and rounding come once, after the combine, as the TPU package's psum of
 // int32 partials does; K4 the f32 sum before the cast (TC = float).
+//
+// Widths. The mappings above are built for D = 32 and 64. Any other width
+// takes the general instances (embedding_bag_int8_general_kernel and
+// embedding_bag_rowwise_general_kernel): the width a runtime argument, a
+// warp a bag, lane c the columns c, c + 32, ... of a chunk of
+// 32 * kGeneralCols, one byte a load, the bag's slots in order, the same
+// numerics (K1-int8 exact in int32, then one __fmul_rn by the table's
+// scale; K4 each value times its row's scale, read byte by byte since a
+// row of D + 4 bytes need not start on a 4-byte boundary, summed in f32)
+// and the same window; correct, not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -304,6 +314,106 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
   }
 }
 
+constexpr int kGeneralCols = 4;
+
+// The bag's live slots in order: f(row) for each whose row the slot reads
+// (window: the shard owns it), the ids fetched 32 at a time in one
+// coalesced load; the row index is the same in every lane.
+template <bool kWindow, typename F>
+__device__ __forceinline__ void for_each_row(const int32_t* __restrict__ indices,
+                                             const uint8_t* __restrict__ mask, int64_t bag,
+                                             int L, int64_t base, int64_t n_rows, int lane, F f) {
+  for (int l0 = 0; l0 < L; l0 += 32) {
+    int32_t id = -1;
+    if (l0 + lane < L) {
+      const int64_t at = bag * L + l0 + lane;
+      id = __ldg(indices + at);
+      if (mask != nullptr && __ldg(mask + at) == 0) id = -1;
+    }
+    const int n = min(32, L - l0);
+    for (int j = 0; j < n; ++j) {
+      const int32_t r = __shfl_sync(0xffffffffu, id, j);
+      if (owned<kWindow>(r, base, n_rows)) f(base + r);
+    }
+  }
+}
+
+// K1-int8 at any width (TC = int32_t: the window's exact pool).
+template <typename TC, bool kWindow>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+embedding_bag_int8_general_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
+                                  const int32_t* __restrict__ offsets,
+                                  const int32_t* __restrict__ indices,
+                                  const uint8_t* __restrict__ mask, TC* __restrict__ out, int d,
+                                  int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
+  const int lane = threadIdx.x & 31;
+  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
+       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
+    for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
+      int acc[kGeneralCols] = {};
+      for_each_row<kWindow>(indices, mask, bag, L, base, n_rows, lane, [&](int64_t row) {
+        const int8_t* p = q + row * d;
+#pragma unroll
+        for (int k = 0; k < kGeneralCols; ++k) {
+          const int c = c0 + lane + 32 * k;
+          if (c < d) acc[k] += (int)__ldg(p + c);
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < kGeneralCols; ++k) {
+        const int c = c0 + lane + 32 * k;
+        if (c >= d) continue;
+        if constexpr (kWindow) {
+          to_out(acc[k], out + bag * d + c);
+        } else {
+          to_out(__fmul_rn(static_cast<float>(acc[k]), __ldg(scale + bag % T)), out + bag * d + c);
+        }
+      }
+    }
+  }
+}
+
+// K4 at any width: rows of d + 4 bytes, the scale the last 4 (read a byte
+// at a time: a row need not start on a 4-byte boundary).
+template <typename TC, bool kWindow>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+embedding_bag_rowwise_general_kernel(const int8_t* __restrict__ qrows,
+                                     const int32_t* __restrict__ offsets,
+                                     const int32_t* __restrict__ indices,
+                                     const uint8_t* __restrict__ mask, TC* __restrict__ out, int d,
+                                     int64_t n_bags, int T, int L, int64_t row_lo,
+                                     int64_t n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int64_t rb = d + 4;
+  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
+       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
+    for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
+      float acc[kGeneralCols] = {};
+      for_each_row<kWindow>(indices, mask, bag, L, base, n_rows, lane, [&](int64_t row) {
+        const uint8_t* p = reinterpret_cast<const uint8_t*>(qrows) + row * rb;
+        const uint32_t w = (uint32_t)__ldg(p + d) | ((uint32_t)__ldg(p + d + 1) << 8) |
+                           ((uint32_t)__ldg(p + d + 2) << 16) | ((uint32_t)__ldg(p + d + 3) << 24);
+        const float row_scale = __uint_as_float(w);
+#pragma unroll
+        for (int k = 0; k < kGeneralCols; ++k) {
+          const int c = c0 + lane + 32 * k;
+          if (c < d) {
+            const float value = static_cast<float>(static_cast<int8_t>(__ldg(p + c)));
+            acc[k] += __fmul_rn(value, row_scale);
+          }
+        }
+      });
+#pragma unroll
+      for (int k = 0; k < kGeneralCols; ++k) {
+        const int c = c0 + lane + 32 * k;
+        if (c < d) to_out(acc[k], out + bag * d + c);
+      }
+    }
+  }
+}
+
 struct Args {
   const int32_t* offsets;
   const int32_t* indices;
@@ -365,8 +475,16 @@ int mapping_rowwise(int G, int U, const void* qrows, const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+// G = 0: the general instance at any width; else the mapping (G, U) at
+// D = 32 or 64.
 template <typename TC, bool kWindow = false>
 int width_int8(int d, int G, int U, const void* q, const void* scale, const Args& a) {
+  if (G == 0) {
+    embedding_bag_int8_general_kernel<TC, kWindow><<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
+        static_cast<const int8_t*>(q), static_cast<const float*>(scale), a.offsets, a.indices,
+        a.mask, static_cast<TC*>(a.out), d, a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
+    return (int)cudaGetLastError();
+  }
   if (d == 32) return mapping_int8<TC, 32, kWindow>(G, U, q, scale, a);
   if (d == 64) return mapping_int8<TC, 64, kWindow>(G, U, q, scale, a);
   return (int)cudaErrorInvalidValue;
@@ -374,6 +492,13 @@ int width_int8(int d, int G, int U, const void* q, const void* scale, const Args
 
 template <typename TC, bool kWindow = false>
 int width_rowwise(int d, int G, int U, const void* qrows, const Args& a) {
+  if (G == 0) {
+    embedding_bag_rowwise_general_kernel<TC, kWindow>
+        <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
+            static_cast<const int8_t*>(qrows), a.offsets, a.indices, a.mask,
+            static_cast<TC*>(a.out), d, a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
+    return (int)cudaGetLastError();
+  }
   if (d == 32) return mapping_rowwise<TC, 32, kWindow>(G, U, qrows, a);
   if (d == 64) return mapping_rowwise<TC, 64, kWindow>(G, U, qrows, a);
   return (int)cudaErrorInvalidValue;

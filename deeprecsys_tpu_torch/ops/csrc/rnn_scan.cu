@@ -44,6 +44,14 @@
 //     that reads them, so no step waits for device memory.
 // No tensor cores: TF32 would change the f32 results, and tanhf (not
 // tanh.approx) keeps JAX's values.
+//
+// Hidden sizes. The design above is the instance for the zoo's H = 64. Any
+// other H up to 1024 (the card's block) takes the general instance
+// (rnn_scan_general_kernel): block b still owns batch row b and thread j
+// unit j, but W is held as f32 in dynamic shared memory (each thread reads
+// its column there; where H * H floats pass kSharedWBytes, through the L1
+// from device memory instead), each step's xproj is loaded a step ahead
+// from device memory, and the dot is one FMA chain; correct, not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +59,7 @@
 
 namespace {
 
-constexpr int kH = 64;      // the zoo's hidden size; the wrapper rejects others
+constexpr int kH = 64;      // the zoo's hidden size: the tuned instance
 constexpr int kChains = 2;  // independent partial sums of the dot
 constexpr int kChunk = 8;   // steps a cp.async group
 constexpr int kRing = 4;    // chunks in flight or held
@@ -153,9 +161,71 @@ rnn_scan_kernel(const float* __restrict__ xproj, const TW* __restrict__ w,
   cp_async_wait<0>();  // leave no copy in flight into a block's freed shared memory
 }
 
+// The general instance's shared memory: h's two rows, then W where it fits.
+constexpr int kSharedWBytes = 200 * 1024;
+
+template <typename TW, typename TC>
+__global__ void __launch_bounds__(1024)
+rnn_scan_general_kernel(const float* __restrict__ xproj, const TW* __restrict__ w,
+                        const TW* __restrict__ bias, const float* __restrict__ h0,
+                        const int32_t* __restrict__ seq_lengths, TC* __restrict__ all_h, int T,
+                        int B, int H, int w_shared) {
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;          // [2][H]
+  float* ws = smem + 2 * H;  // [H][H], row-major as w, where w_shared
+  const int j = threadIdx.x;
+  const int b = blockIdx.x;
+  const int64_t step_stride = (int64_t)B * H;
+  if (w_shared) {
+    for (int i = j; i < H * H; i += H) ws[i] = to_float(w[i]);
+  }
+  const float bj = to_float(bias[j]);
+  const int len = seq_lengths != nullptr ? seq_lengths[b] : T;
+  float h = h0 != nullptr ? h0[(int64_t)b * H + j] : 0.f;
+  hs[j] = h;
+  __syncthreads();
+  float xp = __ldg(xproj + (int64_t)b * H + j);  // step t's, loaded a step ahead
+  for (int t = 0; t < T; ++t) {
+    const int64_t at = t * step_stride + (int64_t)b * H + j;
+    const float xp_next = t + 1 < T ? __ldg(xproj + at + step_stride) : 0.f;
+    const float* hv = hs + (t & 1) * H;
+    float dot = 0.f;
+    if (w_shared) {
+      for (int k = 0; k < H; ++k) dot = fmaf(hv[k], ws[k * H + j], dot);
+    } else {
+      for (int k = 0; k < H; ++k) dot = fmaf(hv[k], to_float(__ldg(w + k * H + j)), dot);
+    }
+    if (t < len) h = round_to<TC>(tanhf((xp + dot) + bj));
+    xp = xp_next;
+    hs[((t + 1) & 1) * H + j] = h;
+    store(all_h + at, h);
+    __syncthreads();
+  }
+}
+
+template <typename TW, typename TC>
+int launch_general(const float* xproj, const void* w, const void* bias, const float* h0,
+                   const int32_t* seq_lengths, void* all_h, int T, int B, int H,
+                   cudaStream_t stream) {
+  const int with_w = (2 * H + H * H) * (int)sizeof(float);
+  const int w_shared = with_w <= kSharedWBytes;
+  const int bytes = w_shared ? with_w : 2 * H * (int)sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rnn_scan_general_kernel<TW, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rnn_scan_general_kernel<TW, TC><<<B, H, bytes, stream>>>(
+      xproj, static_cast<const TW*>(w), static_cast<const TW*>(bias), h0, seq_lengths,
+      static_cast<TC*>(all_h), T, B, H, w_shared);
+  return (int)cudaGetLastError();
+}
+
 template <typename TW, typename TC>
 int launch(const float* xproj, const void* w, const void* bias, const float* h0,
-           const int32_t* seq_lengths, void* all_h, int T, int B, cudaStream_t stream) {
+           const int32_t* seq_lengths, void* all_h, int T, int B, int H, cudaStream_t stream) {
+  if (H != kH)
+    return launch_general<TW, TC>(xproj, w, bias, h0, seq_lengths, all_h, T, B, H, stream);
   rnn_scan_kernel<TW, TC><<<B, kH, 0, stream>>>(
       xproj, static_cast<const TW*>(w), static_cast<const TW*>(bias), h0, seq_lengths,
       static_cast<TC*>(all_h), T, B);
@@ -166,26 +236,27 @@ int launch(const float* xproj, const void* w, const void* bias, const float* h0,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16. Launches one block a batch row.
+// dtype codes: 0 = float32, 1 = bfloat16. Launches one block a batch row
+// (H = 64 the tuned instance, any other H up to 1024 the general one).
 // Returns the cudaError_t of the launch (0 = success). The caller validates
 // shapes, dtypes, devices and alignment.
 int drs_rnn_scan(const void* xproj, const void* w, const void* bias, int w_dtype,
                  const void* h0, const void* seq_lengths, void* all_h, int out_dtype,
                  int T, int B, int H, void* stream) {
-  if (H != kH) return (int)cudaErrorInvalidValue;
+  if (H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
   if (T <= 0 || B <= 0) return 0;
   const float* x = static_cast<const float*>(xproj);
   const float* h = static_cast<const float*>(h0);
   const int32_t* lens = static_cast<const int32_t*>(seq_lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_dtype == 0 && out_dtype == 0)
-    return launch<float, float>(x, w, bias, h, lens, all_h, T, B, s);
+    return launch<float, float>(x, w, bias, h, lens, all_h, T, B, H, s);
   if (w_dtype == 0 && out_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, w, bias, h, lens, all_h, T, B, s);
+    return launch<float, __nv_bfloat16>(x, w, bias, h, lens, all_h, T, B, H, s);
   if (w_dtype == 1 && out_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, w, bias, h, lens, all_h, T, B, s);
+    return launch<__nv_bfloat16, float>(x, w, bias, h, lens, all_h, T, B, H, s);
   if (w_dtype == 1 && out_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, bias, h, lens, all_h, T, B, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, bias, h, lens, all_h, T, B, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -66,6 +66,14 @@
 //     one barrier (__syncwarp() where one warp holds the row, else
 //     __syncthreads()), and reads it back as float4 broadcasts.
 // No tensor cores and no TF32: they would change the f32 results.
+//
+// Hidden sizes. The design above is the instance for the zoo's H = 64. Any
+// other H up to 1024 takes the general instance
+// (rnn_scan_backward_general_kernel): block b owns row b and thread j unit
+// j as above, W held as f32 in dynamic shared memory (row j read by thread
+// j; where H * H floats pass kSharedWBytes, through the L1 from device
+// memory instead), each step's y and gh loaded a step ahead from device
+// memory, the dot one FMA chain; correct, not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +81,7 @@
 
 namespace {
 
-constexpr int kH = 64;  // the zoo's hidden size; the wrapper rejects others
+constexpr int kH = 64;  // the zoo's hidden size: the tuned instance
 constexpr unsigned kFull = 0xffffffffu;
 
 // The shipped instance: threads a hidden unit (KS), hidden units a thread
@@ -264,6 +272,76 @@ rnn_scan_backward_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
+constexpr int kSharedWBytes = 200 * 1024;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename TW>
+__global__ void __launch_bounds__(1024)
+rnn_scan_backward_general_kernel(const float* __restrict__ y, const float* __restrict__ gh,
+                                 const TW* __restrict__ w, const int32_t* __restrict__ seq_lengths,
+                                 float* __restrict__ delta, float* __restrict__ dh0, int T, int B,
+                                 int H, int w_shared) {
+  extern __shared__ __align__(16) float smem[];
+  float* ds = smem;          // [2][H]
+  float* ws = smem + 2 * H;  // [H][H], row-major as w, where w_shared
+  const int j = threadIdx.x;
+  const int b = blockIdx.x;
+  const int64_t step_stride = (int64_t)B * H;
+  if (w_shared) {
+    for (int i = j; i < H * H; i += H) ws[i] = to_float(w[i]);
+    __syncthreads();
+  }
+  const int len = seq_lengths != nullptr ? min(max(__ldg(seq_lengths + b), 0), T) : T;
+  float dh = 0.f;
+  for (int t = T - 1; t >= len; --t) {  // frozen steps: dh passes on
+    const int64_t at = t * step_stride + (int64_t)b * H + j;
+    dh = dh + __ldg(gh + at);
+    delta[at] = 0.f;
+  }
+  // Step t's y and gh, loaded a step ahead.
+  const int64_t at0 = (int64_t)max(len - 1, 0) * step_stride + (int64_t)b * H + j;
+  float yt = len > 0 ? __ldg(y + at0) : 0.f, ght = len > 0 ? __ldg(gh + at0) : 0.f;
+  for (int t = len - 1; t >= 0; --t) {
+    const int64_t at = t * step_stride + (int64_t)b * H + j;
+    const float y_next = t > 0 ? __ldg(y + at - step_stride) : 0.f;
+    const float gh_next = t > 0 ? __ldg(gh + at - step_stride) : 0.f;
+    const float g = dh + ght;
+    const float d = (g + g * yt) * (1.f - yt);
+    delta[at] = d;
+    float* dv = ds + (t & 1) * H;
+    dv[j] = d;
+    __syncthreads();
+    float acc = 0.f;
+    if (w_shared) {
+      for (int k = 0; k < H; ++k) acc = fmaf(dv[k], ws[j * H + k], acc);
+    } else {
+      for (int k = 0; k < H; ++k) acc = fmaf(dv[k], to_float(__ldg(w + (int64_t)j * H + k)), acc);
+    }
+    dh = acc;
+    yt = y_next;
+    ght = gh_next;
+  }
+  dh0[(int64_t)b * H + j] = dh;
+}
+
+template <typename TW>
+int launch_general(const float* y, const float* gh, const void* w, const int32_t* seq_lengths,
+                   float* delta, float* dh0, int T, int B, int H, cudaStream_t stream) {
+  const int with_w = (2 * H + H * H) * (int)sizeof(float);
+  const int w_shared = with_w <= kSharedWBytes;
+  const int bytes = w_shared ? with_w : 2 * H * (int)sizeof(float);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rnn_scan_backward_general_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rnn_scan_backward_general_kernel<TW><<<B, H, bytes, stream>>>(
+      y, gh, static_cast<const TW*>(w), seq_lengths, delta, dh0, T, B, H, w_shared);
+  return (int)cudaGetLastError();
+}
+
 template <typename TW, int KS, int NU, int kChains, int kChunk, int kRing>
 int launch(const float* y, const float* gh, const void* w, const int32_t* seq_lengths,
            float* delta, float* dh0, int T, int B, cudaStream_t stream) {
@@ -276,13 +354,14 @@ int launch(const float* y, const float* gh, const void* w, const int32_t* seq_le
 
 extern "C" {
 
-// w dtype code: 0 = float32, 1 = bfloat16. Launches one block a batch row.
+// w dtype code: 0 = float32, 1 = bfloat16. Launches one block a batch row
+// (H = 64 the tuned instance, any other H up to 1024 the general one).
 // Returns the cudaError_t of the launch (0 = success). The caller validates
 // shapes, dtypes, devices and alignment.
 int drs_rnn_scan_backward(const void* y, const void* gh, const void* w, int w_dtype,
                           const void* seq_lengths, void* delta, void* dh0, int T, int B, int H,
                           void* stream) {
-  if (H != kH) return (int)cudaErrorInvalidValue;
+  if (H < 1 || H > 1024) return (int)cudaErrorInvalidValue;
   if (T <= 0 || B <= 0) return 0;
   const float* yy = static_cast<const float*>(y);
   const float* g = static_cast<const float*>(gh);
@@ -290,6 +369,11 @@ int drs_rnn_scan_backward(const void* y, const void* gh, const void* w, int w_dt
   float* d = static_cast<float*>(delta);
   float* h = static_cast<float*>(dh0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H != kH) {
+    if (w_dtype == 0) return launch_general<float>(yy, g, w, lens, d, h, T, B, H, s);
+    if (w_dtype == 1) return launch_general<__nv_bfloat16>(yy, g, w, lens, d, h, T, B, H, s);
+    return (int)cudaErrorInvalidValue;
+  }
   using S = Shipped;
   if (w_dtype == 0)
     return launch<float, S::KS, S::NU, S::kChains, S::kChunk, S::kRing>(yy, g, w, lens, d, h, T,

@@ -64,9 +64,26 @@
 // accumulator add lands before any scale is read, as above; a slot whose
 // fused row lies outside the shard touches nothing (launch 1 adds no g^2,
 // launch 2's lanes leave before their wait). The update is cast to the table
-// dtype before it is added, as in the single-device step: a bf16 shard
-// rounds at each add, where the TPU package's sharded step adds in f32 and
-// rounds each row once (ROADMAP.md Queue 3).
+// dtype before it is added, as in the single-device step, for an f32
+// shard. A bf16 shard follows the TPU package's sharded step instead
+// (train.py:177-182: the shard's updates added in f32, each row rounded
+// once), with a merge inside the window: a launch before launch 1
+// (rank_rows_kernel) inserts each owned slot's row into an open-addressing
+// hash table in scratch (atomicCAS, linear probing, at most half full), so
+// each distinct touched row gets one entry; the thread that claims an entry
+// zeroes its f32 row and lists the entry. Launch 2 adds each owned slot's
+// f32 update into its row's entry (apply_merged_kernel:
+// red.global.add.v4.f32, 16 bytes a lane), and a last launch
+// (merge_rows_kernel, a warp a listed entry) adds each entry's row into the
+// shard and rounds it once. No sort and nothing read back; the
+// accumulator's adds are one a slot, as before.
+//
+// Widths. The mapping above is built at every width up to 64 whose table
+// and gradient rows are 16 * 2^k bytes, each width its instance; 32 and 64
+// keep theirs. Any other width takes the general instance
+// (accumulate_general_kernel, apply_general_kernel): a thread a slot, the
+// bag's mean g^2 summed in column order (row_mean_sq), scalar atomic adds
+// (bf16 ones cast first, as above); correct, not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +115,15 @@ struct Args {
   float neg_lr, eps;
   cudaStream_t stream;
   int64_t row_lo, n_rows;  // the window (kWindow instances only)
+  // The bf16 window's merge (null keys: none), in the wrapper's scratch:
+  // the hash table's n_keys (a power of two) entries, each a shard row or
+  // -1 (set here); rank: each slot's entry (-1: another shard's row), then
+  // the count of claimed entries and the claimed entries (2 n_slots + 1
+  // ints); each entry's (D,) f32 sum.
+  int32_t* keys = nullptr;
+  int64_t n_keys = 0;
+  int32_t* rank = nullptr;
+  float* merged = nullptr;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -126,6 +152,21 @@ __device__ __forceinline__ void load_g(const TG* __restrict__ p, float (&v)[E]) 
 #pragma unroll
     for (int k = 0; k < E; ++k) v[k] = to_float(__ldg(p + k));
   }
+}
+
+template <typename TT>
+__device__ __forceinline__ TT from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One atomic add of x, cast to the table dtype first.
+__device__ __forceinline__ void atomic_add_as(float* p, float x) { atomicAdd(p, x); }
+__device__ __forceinline__ void atomic_add_as(__nv_bfloat16* p, float x) {
+  atomicAdd(p, __float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -304,6 +345,206 @@ apply_shard_kernel(TT* __restrict__ table, const float* __restrict__ acc,
                                   row_lo, n_rows);
 }
 
+// Launch 2 of a bf16 window: apply_body's slots, each owned slot's f32
+// update added (VB-byte f32 reductions) into the f32 row of its rank.
+template <typename TG, int D, int VB>
+__global__ void __launch_bounds__(kThreads)
+apply_merged_kernel(float* __restrict__ merged, const int32_t* __restrict__ rank,
+                    const float* __restrict__ acc, const TG* __restrict__ g,
+                    const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
+                    int64_t n_slots, int T, int L, float neg_lr, float eps, int64_t row_lo) {
+  constexpr int E = VB / (int)sizeof(float);
+  constexpr int P = D / E;
+  constexpr int S = P < 32 ? P : 32;
+  constexpr int K = P / S;
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t slot = t / S;
+  const int j = (int)(t % S);
+  if (slot >= n_slots) return;
+  const int32_t r = __ldg(rank + slot);
+  if (r < 0) return;  // another shard's row
+  const int64_t bag = slot / L;
+  const int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot) - row_lo;
+  float v[K][E];
+#pragma unroll
+  for (int k = 0; k < K; ++k) load_g<TG, E>(g + bag * D + (j + k * S) * E, v[k]);
+  wait_accumulated();
+  const float s = rsqrtf(__ldcg(acc + row) + eps);
+  float* dst = merged + (int64_t)r * D;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[k][e] = neg_lr * (v[k][e] * s);
+    red_add<float, E>(dst + (j + k * S) * E, v[k]);
+  }
+}
+
+// The bf16 window's first launch: a thread a slot; an owned slot inserts
+// its shard row into the hash table (linear probing from a multiplicative
+// hash; the table is at most half full) and records its entry in rank, -1
+// for another shard's row. The thread that claims an entry zeroes its f32
+// row, which launch 2 adds into, and appends the entry to `claimed`, whose
+// count is rank[n_slots].
+__global__ void __launch_bounds__(kThreads)
+rank_rows_kernel(int32_t* __restrict__ keys, int64_t n_keys, int32_t* __restrict__ rank,
+                 int32_t* __restrict__ claimed, float* __restrict__ merged,
+                 const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
+                 int64_t n_slots, int T, int L, int d, int64_t row_lo, int64_t n_rows) {
+  const int64_t slot = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (slot >= n_slots) return;
+  const int64_t row = (int64_t)__ldg(offsets + (slot / L) % T) + __ldg(indices + slot) - row_lo;
+  if ((uint64_t)row >= (uint64_t)n_rows) {
+    rank[slot] = -1;
+    return;
+  }
+  const int32_t key = (int32_t)row;
+  const uint64_t mask = (uint64_t)n_keys - 1;
+  uint64_t h = ((uint32_t)key * 2654435761u) & mask;
+  for (;;) {
+    const int32_t prev = atomicCAS(keys + h, -1, key);
+    if (prev == -1) {
+      float* m = merged + h * d;
+      if (d % 4 == 0) {
+        for (int c = 0; c < d; c += 4) *reinterpret_cast<float4*>(m + c) = make_float4(0, 0, 0, 0);
+      } else {
+        for (int c = 0; c < d; ++c) m[c] = 0.f;
+      }
+      claimed[atomicAdd(rank + n_slots, 1)] = (int32_t)h;
+      break;
+    }
+    if (prev == key) break;
+    h = (h + 1) & mask;
+  }
+  rank[slot] = (int32_t)h;
+}
+
+// The bf16 window's last launch: each claimed entry's f32 sum added into
+// the shard's row and rounded once; a warp an entry (lanes over the row),
+// grid-stride over the count rank_rows_kernel left in *n_claimed.
+template <typename TT>
+__global__ void __launch_bounds__(kThreads)
+merge_rows_kernel(TT* __restrict__ table, const int32_t* __restrict__ keys,
+                  const int32_t* __restrict__ claimed, const int32_t* __restrict__ n_claimed,
+                  const float* __restrict__ merged, int d) {
+  const int lane = threadIdx.x & 31;
+  const int n = *n_claimed;
+  for (int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5; i < n;
+       i += ((int64_t)gridDim.x * kThreads) >> 5) {
+    const int64_t h = claimed[i];
+    TT* p = table + (int64_t)keys[h] * d;
+    for (int c = lane; c < d; c += 32) p[c] = from_float<TT>(to_float(p[c]) + merged[h * d + c]);
+  }
+}
+
+// The bf16 window's first launch (after the table's reset to -1 and the
+// count's to 0).
+int launch_rank_rows(const Args& a, int d) {
+  const int64_t n_slots = a.n_bags * a.L;
+  cudaError_t err = cudaMemsetAsync(a.keys, 0xff, a.n_keys * sizeof(int32_t), a.stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(a.rank + n_slots, 0, sizeof(int32_t), a.stream);
+  if (err != cudaSuccess) return (int)err;
+  rank_rows_kernel<<<(unsigned)((n_slots + kThreads - 1) / kThreads), kThreads, 0, a.stream>>>(
+      a.keys, a.n_keys, a.rank, a.rank + n_slots + 1, a.merged, a.offsets, a.indices, n_slots,
+      a.T, a.L, d, a.row_lo, a.n_rows);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 window's last launch: a block for each 8 claimed entries at
+// most, at most 8 blocks an SM.
+int launch_merge_rows(const Args& a, int d) {
+  const int64_t n_slots = a.n_bags * a.L;
+  const int64_t blocks = (n_slots + kThreads / 32 - 1) / (kThreads / 32);
+  merge_rows_kernel<__nv_bfloat16><<<(unsigned)(blocks < 1056 ? blocks : 1056), kThreads, 0,
+                                     a.stream>>>(
+      static_cast<__nv_bfloat16*>(a.table), a.keys, a.rank + n_slots + 1, a.rank + n_slots,
+      a.merged, d);
+  return (int)cudaGetLastError();
+}
+
+// A row's mean of squares, summed in column order and multiplied by
+// f32(1 / d). torch.mean adds in another order, which
+// ops/sparse_adagrad.py::sparse_adagrad_tolerance bounds for this instance.
+template <typename TG>
+__device__ float row_mean_sq(const TG* __restrict__ row, int d) {
+  float sum = 0.f;
+  for (int j = 0; j < d; ++j) {
+    const float v = to_float(__ldg(row + j));
+    sum = __fadd_rn(sum, __fmul_rn(v, v));
+  }
+  return __fmul_rn(sum, __fdiv_rn(1.f, (float)d));
+}
+
+// The general instance's launch 1: a thread a slot; the slot's bag's mean
+// g^2 (row_mean_sq), one f32 atomic add into the slot's row.
+template <typename TG, bool kWindow>
+__global__ void __launch_bounds__(kThreads)
+accumulate_general_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
+                          const int32_t* __restrict__ indices, float* __restrict__ acc, int d,
+                          int64_t n_slots, int T, int L, int64_t row_lo, int64_t n_rows) {
+  const int64_t slot = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (slot >= n_slots) return;
+  const int64_t bag = slot / L;
+  int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
+  if constexpr (kWindow) {
+    row -= row_lo;
+    if ((uint64_t)row >= (uint64_t)n_rows) return;
+  }
+  atomicAdd(acc + row, row_mean_sq(g + bag * d, d));
+}
+
+// The general instance's launch 2 (stream-ordered after launch 1): a thread
+// a slot, one scalar atomic add an element, the update cast to the table
+// dtype first; or, with a rank (the bf16 window's merge), the f32 update
+// added into the f32 row of the slot's rank.
+template <typename TT, typename TG, bool kWindow>
+__global__ void __launch_bounds__(kThreads)
+apply_general_kernel(TT* __restrict__ table, float* __restrict__ merged,
+                     const int32_t* __restrict__ rank, const float* __restrict__ acc,
+                     const TG* __restrict__ g, const int32_t* __restrict__ offsets,
+                     const int32_t* __restrict__ indices, int d, int64_t n_slots, int T, int L,
+                     float neg_lr, float eps, int64_t row_lo, int64_t n_rows) {
+  const int64_t slot = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (slot >= n_slots) return;
+  const int64_t bag = slot / L;
+  int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
+  if constexpr (kWindow) {
+    row -= row_lo;
+    if ((uint64_t)row >= (uint64_t)n_rows) return;
+  }
+  const float s = rsqrtf(__ldcg(acc + row) + eps);
+  const int32_t r = rank != nullptr ? __ldg(rank + slot) : -1;
+  for (int k = 0; k < d; ++k) {
+    const float u = neg_lr * (to_float(__ldg(g + bag * d + k)) * s);
+    if (rank != nullptr) {
+      atomicAdd(merged + (int64_t)r * d + k, u);
+    } else {
+      atomic_add_as(table + row * d + k, u);
+    }
+  }
+}
+
+template <typename TT, typename TG, bool kWindow>
+int launch_general(const Args& a, int d) {
+  const int64_t n_slots = a.n_bags * a.L;
+  const unsigned blocks = (unsigned)((n_slots + kThreads - 1) / kThreads);
+  if (a.keys != nullptr) {
+    const int err = launch_rank_rows(a, d);
+    if (err != 0) return err;
+  }
+  accumulate_general_kernel<TG, kWindow><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const TG*>(a.g), a.offsets, a.indices, a.acc, d, n_slots, a.T, a.L, a.row_lo,
+      a.n_rows);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  apply_general_kernel<TT, TG, kWindow><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<TT*>(a.table), a.merged, a.keys != nullptr ? a.rank : nullptr, a.acc,
+      static_cast<const TG*>(a.g), a.offsets, a.indices, d, n_slots, a.T, a.L, a.neg_lr, a.eps,
+      a.row_lo, a.n_rows);
+  err = (int)cudaGetLastError();
+  if (err != 0 || a.keys == nullptr) return err;
+  return launch_merge_rows(a, d);
+}
+
 template <typename TG, int D, int S, int PF, bool kWindow>
 int launch_accumulate(const Args& a, int row_bytes) {
   if constexpr (S < D * (int)sizeof(TG) / 16) {
@@ -317,12 +558,14 @@ int launch_accumulate(const Args& a, int row_bytes) {
   }
 }
 
-// Launch 1 on lanes_per_bag (4, 8, 16 or 32: at least a 16-byte chunk
-// of the gradient row a lane) lanes a bag; the window's slots only when
+// Launch 1 on lanes_per_bag (1, 2, 4, 8, 16 or 32: at least a 16-byte
+// chunk of the gradient row a lane) lanes a bag; the window's slots only when
 // kWindow.
 template <typename TG, int D, int PF, bool kWindow = false>
 int accumulate(const Args& a, int row_bytes, int lanes_per_bag) {
   switch (lanes_per_bag) {
+    case 1: return launch_accumulate<TG, D, 1, PF, kWindow>(a, row_bytes);
+    case 2: return launch_accumulate<TG, D, 2, PF, kWindow>(a, row_bytes);
     case 4: return launch_accumulate<TG, D, 4, PF, kWindow>(a, row_bytes);
     case 8: return launch_accumulate<TG, D, 8, PF, kWindow>(a, row_bytes);
     case 16: return launch_accumulate<TG, D, 16, PF, kWindow>(a, row_bytes);
@@ -370,29 +613,57 @@ int launch(const Args& a, int lanes_per_bag, bool pdl) {
   return launch_apply(apply_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl);
 }
 
-// Both launches of one row shard (Shipped's mapping, the window's slots).
+// Both launches of one row shard (Shipped's mapping, the window's slots);
+// with a rank, the bf16 merge's launches 2 and 3.
 template <typename TT, typename TG, int D, int VB, int PF>
 int launch_shard(const Args& a, int lanes_per_bag, bool pdl) {
   constexpr int P = D * (int)sizeof(TT) / VB;
-  const int err = accumulate<TG, D, PF, true>(a, D * (int)sizeof(TT), lanes_per_bag);
+  int err = a.keys != nullptr ? launch_rank_rows(a, D) : 0;
   if (err != 0) return err;
+  err = accumulate<TG, D, PF, true>(a, D * (int)sizeof(TT), lanes_per_bag);
+  if (err != 0) return err;
+  if (a.keys != nullptr) {
+    constexpr int PM = D * (int)sizeof(float) / VB;  // lanes of an f32 row
+    err = launch_pdl(apply_merged_kernel<TG, D, VB>, a, a.n_bags * a.L * (PM < 32 ? PM : 32), pdl,
+                     a.merged, a.rank, static_cast<const float*>(a.acc),
+                     static_cast<const TG*>(a.g), a.offsets, a.indices, a.n_bags * a.L, a.T, a.L,
+                     a.neg_lr, a.eps, a.row_lo);
+    if (err != 0) return err;
+    return launch_merge_rows(a, D);
+  }
   return launch_pdl(apply_shard_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl,
                     static_cast<TT*>(a.table), static_cast<const float*>(a.acc),
                     static_cast<const TG*>(a.g), a.offsets, a.indices, a.n_bags * a.L, a.T, a.L,
                     a.neg_lr, a.eps, a.row_lo, a.n_rows);
 }
 
+// Whether width D takes the vector instance: D at most 64 (launch 1's
+// halving order is torch.mean's there) and the table's and the gradient's
+// rows 16 * 2^k bytes (ops/sparse_adagrad.py::k5_launch_plan's rule).
+template <typename TT, typename TG, int D>
+constexpr bool vector_width() {
+  return D <= 64 && D * (int)sizeof(TT) >= 16 && D * (int)sizeof(TG) >= 16;
+}
+
+// lanes_per_bag 0: the general instance at any width; else the vector
+// instance of width d.
 template <typename TT, typename TG, bool kWindow>
 int launch_width(int d, const Args& a, int lanes_per_bag) {
   constexpr int VB = Shipped::kVecBytes;
   using K = Shipped;
-  if constexpr (kWindow) {
-    if (d == 32) return launch_shard<TT, TG, 32, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
-    if (d == 64) return launch_shard<TT, TG, 64, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
-  } else {
-    if (d == 32) return launch<TT, TG, 32, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
-    if (d == 64) return launch<TT, TG, 64, VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);
+  if (lanes_per_bag == 0) return launch_general<TT, TG, kWindow>(a, d);
+#define DRS_K5_WIDTH(w)                                                                    \
+  if constexpr (vector_width<TT, TG, (w)>()) {                                             \
+    if (d == (w)) {                                                                        \
+      if constexpr (kWindow) {                                                             \
+        return launch_shard<TT, TG, (w), VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);     \
+      } else {                                                                             \
+        return launch<TT, TG, (w), VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);           \
+      }                                                                                    \
+    }                                                                                      \
   }
+  DRS_K5_WIDTH(4) DRS_K5_WIDTH(8) DRS_K5_WIDTH(16) DRS_K5_WIDTH(32) DRS_K5_WIDTH(64)
+#undef DRS_K5_WIDTH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -430,15 +701,27 @@ int drs_sparse_adagrad(void* table, int table_dtype, int d, void* acc, const voi
 // One row shard's step: table is the shard's (n_rows, d) rows [row_lo,
 // row_lo + n_rows) of the fused table and acc its (n_rows,) accumulator;
 // the ids are the whole stream's table-local ids.
+// keys, n_keys, rank, merged: a bf16 shard's merge scratch (required for
+// one, null for an f32 shard): keys (n_keys int32, a power of two at least
+// twice the stream's slots), rank (2 * slots + 1 int32), merged ((n_keys,
+// d) f32, 16-byte aligned); none needs setting.
 int drs_sparse_adagrad_window(void* table, int table_dtype, int d, void* acc, const void* g,
                               int g_dtype, const void* offsets, const void* indices,
                               int64_t row_lo, int64_t n_rows, int64_t n_bags, int T, int L,
-                              float neg_lr, float eps, int lanes_per_bag, void* stream) {
+                              float neg_lr, float eps, int lanes_per_bag, void* keys,
+                              int64_t n_keys, void* rank, void* merged, void* stream) {
   if (n_bags <= 0 || L <= 0) return 0;
-  if (row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
-  const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
-                  static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
-                  static_cast<cudaStream_t>(stream), row_lo, n_rows};
+  if (row_lo < 0 || n_rows < 0 || n_rows >= (int64_t)1 << 31 ||
+      (table_dtype == 1) != (keys != nullptr) ||
+      (keys != nullptr && (n_keys < 2 * n_bags * L || (n_keys & (n_keys - 1)) != 0)))
+    return (int)cudaErrorInvalidValue;
+  Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
+            static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
+            static_cast<cudaStream_t>(stream), row_lo, n_rows};
+  a.keys = static_cast<int32_t*>(keys);
+  a.n_keys = n_keys;
+  a.rank = static_cast<int32_t*>(rank);
+  a.merged = static_cast<float*>(merged);
   return launch_dtypes<true>(table_dtype, d, a, g_dtype, lanes_per_bag);
 }
 

@@ -67,7 +67,9 @@ import torch
 from deeprecsys_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_WIDTHS = (32, 64)
+# The widths the tuned instances are built for (K1-int8, K4, K6, K5's
+# scalar parts); every other width takes a kernel's general instance.
+TUNED_WIDTHS = (32, 64)
 
 
 def init_fused_tables(table_rows, dim: int, dtype: torch.dtype,
@@ -223,6 +225,13 @@ class K1Plan:
     independent row loads a step. ``grid`` blocks of K1_WARPS_PER_BLOCK
     warps walk the ``tasks`` in a grid-stride loop (one task a warp when the
     grid covers them all, as ``k1_launch_plan``'s does).
+
+    ``bags_per_warp`` 0 is the general instance (any width: a warp a bag,
+    a lane an element of the row a step, ``row_slots`` 0).
+    ``compact`` (the ownership window's long bags, ``k1_window_plan``): a
+    warp a bag that first packs the ids of the rows its shard owns, then
+    gathers only those, ``row_slots`` slots of ``rows_per_lane`` rows a
+    step.
     """
 
     bags_per_warp: int
@@ -230,10 +239,17 @@ class K1Plan:
     row_slots: int
     tasks: int
     grid: int
+    compact: bool = False
+
+    @property
+    def general(self) -> bool:
+        return self.bags_per_warp == 0
 
     @property
     def rows_per_step(self) -> int:
         """Rows of one bag a warp reads a step."""
+        if self.general:
+            return 1
         return self.row_slots // self.bags_per_warp * self.rows_per_lane
 
 
@@ -253,6 +269,18 @@ def _plan(n_bags: int, L: int, S: int, long_rows_per_lane: int,
     return K1Plan(bags_per_warp=G, rows_per_lane=U, row_slots=S, tasks=tasks, grid=grid)
 
 
+def _vector_row(row_bytes: int) -> bool:
+    """Whether a row of ``row_bytes`` takes the 16-byte-lane instances:
+    16 * 2^k bytes, up to a warp's 512 (bf16 d 8 to 256, f32 d 4 to 128)."""
+    return 16 <= row_bytes <= 512 and row_bytes & (row_bytes - 1) == 0
+
+
+def _general_plan(n_bags: int) -> K1Plan:
+    """The general instance's plan: a warp a bag."""
+    return K1Plan(bags_per_warp=0, rows_per_lane=1, row_slots=0, tasks=n_bags,
+                  grid=max(1, -(-n_bags // K1_WARPS_PER_BLOCK)))
+
+
 @functools.lru_cache(maxsize=512)
 def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1Plan:
     """K1's mapping for ``n_bags = B * T`` bags of ``L`` rows of width ``d``.
@@ -266,7 +294,10 @@ def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1P
     resident), and within the run-to-run spread at rm2 (PERF.md). The grid
     is one block per K1_WARPS_PER_BLOCK tasks: capping it at the blocks the
     card holds at once, each block looping over tasks, measured no faster.
-    These are the only mappings ``csrc/embedding_bag.cu`` is built with.
+    These mappings are built at every row of 16 * 2^k bytes up to 512 (bf16
+    d 8 to 256, f32 d 4 to 128); any other width takes the general
+    instance (``bags_per_warp`` 0: a warp a bag, a lane an element, no
+    vector loads), which is correct and not tuned.
 
     K1-int8 (``csrc/embedding_bag_int8.cu``) takes ``table_dtype=torch.int8``:
     16 int8 values a lane too (S = 16 at d = 32, 8 at d = 64), one slot a
@@ -274,11 +305,45 @@ def k1_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1P
     U = 2 at d = 32, 4 a warp (2 slots each) and U = 4 at d = 64: of the
     mappings measured on an H100 (``experiments/int8_sweep.py``, PERF.md),
     the fastest at the zoo's shapes on uniform and zipf(1.2) ids, and the
-    only ones that source builds.
+    only ones that source builds besides its general instance, which every
+    other width takes.
     """
     if table_dtype == torch.int8:
+        if d not in TUNED_WIDTHS:
+            return _general_plan(n_bags)
         return _plan(n_bags, L, 512 // d, 2 if d == 32 else 4, 2, 1 if d == 32 else 4)
-    return _plan(n_bags, L, 32 // (d * table_dtype.itemsize // 16), 4)
+    row_bytes = d * table_dtype.itemsize
+    if not _vector_row(row_bytes):
+        return _general_plan(n_bags)
+    return _plan(n_bags, L, 32 // (row_bytes // 16), 4)
+
+
+# The window's compacted gather (k1_window_plan): rows a slot a step
+# (kCompactU in csrc/embedding_bag.cu), and the most steps a bag the direct
+# mapping's window walks before the compacted gather takes over. Chosen by
+# ``kernel_bench --only k1w_sweep`` on an H100 (PERF.md): at rm1's shards
+# (2.5 steps a bag) every design ran within 6.2-6.5 us and the direct one
+# fastest; at rm2's (7.5 steps) the compacted gather at U = 8 was 24% (1/4
+# shard) and 6% (1/2) under the direct one.
+K1W_ROWS_PER_SLOT = 8
+K1W_DIRECT_STEPS = 4
+
+
+@functools.lru_cache(maxsize=512)
+def k1_window_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype) -> K1Plan:
+    """K1's plan on a row shard (the ownership window). Short bags, widths
+    without the 16-byte lanes and bags that ``k1_launch_plan``'s mapping
+    walks in at most K1W_DIRECT_STEPS steps take that mapping with the
+    window's test at each row load. Longer walks take the compacted
+    gather: a warp a bag reads up to 128 of its ids at once, packs the ids
+    its shard owns into shared memory (a ballot and a prefix count), and
+    gathers only those, K1's slots with ``K1W_ROWS_PER_SLOT`` rows each in
+    flight, so it takes the steps of the owned rows (about 1/M of the bag
+    on an M-way shard), not of every slot (``csrc/embedding_bag.cu``)."""
+    plan = k1_launch_plan(n_bags, L, d, table_dtype)
+    if plan.general or L <= 8 or -(-L // plan.rows_per_step) <= K1W_DIRECT_STEPS:
+        return plan
+    return dataclasses.replace(plan, rows_per_lane=K1W_ROWS_PER_SLOT, compact=True)
 
 
 @functools.lru_cache(maxsize=512)
@@ -292,7 +357,10 @@ def k4_launch_plan(n_bags: int, L: int, d: int) -> K1Plan:
     and 3 rows at d = 64. Chosen by measurement on an H100
     (``experiments/int8_sweep.py``, PERF.md): at L = 1 the narrower lanes
     spread a batch over twice the warps and finish sooner. The only
-    mappings ``csrc/embedding_bag_int8.cu`` builds for K4."""
+    mappings ``csrc/embedding_bag_int8.cu`` builds for K4 besides its
+    general instance, which every width but 32 and 64 takes."""
+    if d not in TUNED_WIDTHS:
+        return _general_plan(n_bags)
     return _plan(n_bags, L, 256 // d if L <= 1 else 512 // d, 2 if d == 32 else 3, 2,
                  1 if d == 32 else 4)
 
@@ -315,6 +383,7 @@ def _declare(lib: ctypes.CDLL):
         ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows of the shard
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
+        ctypes.c_int,                                       # plan: compact
         ctypes.c_void_p,                                    # stream
     ]
 
@@ -331,9 +400,8 @@ def _check(table, offsets, indices, cdt, mask):
 
 
 def _check_float_table(table, cdt):
-    if table.dim() != 2 or table.shape[1] not in _KERNEL_WIDTHS:
-        raise ValueError(f"table must be (R, d) with d in {_KERNEL_WIDTHS}; "
-                         f"got {tuple(table.shape)}")
+    if table.dim() != 2 or table.shape[1] < 1:
+        raise ValueError(f"table must be (R, d) with d >= 1; got {tuple(table.shape)}")
     if table.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
         raise TypeError(f"table and compute dtypes must be float32 or bfloat16; "
                         f"got {table.dtype} and {cdt}")
@@ -369,7 +437,8 @@ def embedding_bag(table: torch.Tensor, offsets: torch.Tensor,
     """Pooled multi-table lookup (JAX ``ops/embedding.py:770-800``).
 
     Args:
-      table: fused ``(total_rows, d)`` table, float32 or bfloat16, d 32 or 64.
+      table: fused ``(total_rows, d)`` table, float32 or bfloat16, any d >= 1
+        (``k1_launch_plan`` picks the instance).
       offsets: ``(T,)`` int32 first row of each table.
       indices: ``(B, T, L)`` int32 table-local ids, ``0 <= id < rows[t]``.
         The kernel does not check the range. The JAX gather adds the
@@ -402,12 +471,12 @@ def _dispatch(table, offsets, indices, mask, cdt) -> torch.Tensor:
                                        compute_dtype=cdt, mask=mask)
     if device.type != "cuda":
         raise ValueError(f"embedding_bag runs on cpu or cuda, not {device}")
-    if table.data_ptr() % 16:
+    B, T, L = indices.shape
+    plan = k1_launch_plan(B * T, L, table.shape[1], table.dtype)
+    if not plan.general and table.data_ptr() % 16:
         raise ValueError("the kernel loads 16-byte vectors: the table must "
                          "start on a 16-byte boundary")
-    B, T, L = indices.shape
-    return _launch(table, offsets, indices, mask, cdt,
-                   k1_launch_plan(B * T, L, table.shape[1], table.dtype))
+    return _launch(table, offsets, indices, mask, cdt, plan)
 
 
 def _launch(table, offsets, indices, mask, cdt, plan: K1Plan) -> torch.Tensor:
@@ -481,9 +550,9 @@ def _declare_backward(lib: ctypes.CDLL):
 def _check_backward(g, offsets, indices, num_rows: int, mask, out):
     B, T, L = indices.shape
     d = g.shape[-1]
-    if g.shape != (B, T, d) or d not in _KERNEL_WIDTHS or g.dtype not in _DTYPE_CODES:
+    if g.shape != (B, T, d) or d < 1 or g.dtype not in _DTYPE_CODES:
         raise ValueError(f"g must be (B, T, d) = ({B}, {T}, d) float32 or bfloat16 with "
-                         f"d in {_KERNEL_WIDTHS}; got {tuple(g.shape)} {g.dtype}")
+                         f"d >= 1; got {tuple(g.shape)} {g.dtype}")
     if out is not None and (out.shape != (num_rows, d) or out.dtype != torch.float32
                             or not out.is_contiguous() or out.device != g.device):
         raise ValueError(f"out must be a contiguous float32 ({num_rows}, {d}) tensor on "
@@ -745,9 +814,8 @@ def _check_int8(table, row_bytes_extra: int, cdt, offsets, indices, mask, *other
 def _check_int8_table(table, row_bytes_extra: int, cdt):
     if table.dtype != torch.int8:
         raise TypeError(f"an int8 table must be int8; got {table.dtype}")
-    if table.dim() != 2 or table.shape[1] - row_bytes_extra not in _KERNEL_WIDTHS:
-        widths = tuple(w + row_bytes_extra for w in _KERNEL_WIDTHS)
-        raise ValueError(f"the int8 table must be (R, w) with w in {widths}; "
+    if table.dim() != 2 or table.shape[1] - row_bytes_extra < 1:
+        raise ValueError(f"the int8 table must be (R, w) with w >= {row_bytes_extra + 1}; "
                          f"got {tuple(table.shape)}")
     if cdt not in _DTYPE_CODES:
         raise TypeError(f"the compute dtype must be float32 or bfloat16; got {cdt}")
@@ -808,7 +876,7 @@ def embedding_bag_int8(q: torch.Tensor, scale: torch.Tensor, offsets: torch.Tens
     """Pooled lookup over per-table int8 tables (JAX ``models/base.py:163-182``).
 
     Args:
-      q: ``(R, d)`` int8 fused table, d 32 or 64.
+      q: ``(R, d)`` int8 fused table, any d >= 1.
       scale: ``(T,)`` f32 scale of each table.
       offsets, indices, mask: as ``embedding_bag`` takes them.
 
@@ -831,13 +899,14 @@ def embedding_bag_int8(q: torch.Tensor, scale: torch.Tensor, offsets: torch.Tens
                                             compute_dtype=cdt, mask=mask)
     if q.device.type != "cuda":
         raise ValueError(f"embedding_bag_int8 runs on cpu or cuda, not {q.device}")
-    if q.data_ptr() % 16:
+    B, T, L = indices.shape
+    plan = k1_launch_plan(B * T, L, q.shape[1], torch.int8)
+    if not plan.general and q.data_ptr() % 16:
         raise ValueError("K1-int8 loads 16-byte vectors: the table must start on a "
                          "16-byte boundary")
-    B, T, L = indices.shape
     return _launch_int8(embedding_bag_int8, "drs_embedding_bag_int8", q,
                         (q.data_ptr(), scale.data_ptr(), q.shape[1]), offsets, indices, mask,
-                        cdt, k1_launch_plan(B * T, L, q.shape[1], torch.int8))
+                        cdt, plan)
 
 
 embedding_bag_int8.kernel_launches = 0
@@ -851,7 +920,8 @@ def embedding_bag_int8_rowwise(qrows: torch.Tensor, offsets: torch.Tensor,
 
     Args:
       qrows: ``(R, d + 4)`` int8 rows (``quantize_rowwise_int8``'s layout),
-        d 32 or 64, starting on a 4-byte boundary (every row then does).
+        any d >= 1; at d 32 and 64 (K4's tuned instances) starting on a
+        4-byte boundary, so that every row does.
       offsets, indices, mask: as ``embedding_bag`` takes them.
 
     Returns:
@@ -866,7 +936,7 @@ def embedding_bag_int8_rowwise(qrows: torch.Tensor, offsets: torch.Tensor,
     """
     cdt = compute_dtype
     _check_int8(qrows, 4, cdt, offsets, indices, mask)
-    if qrows.data_ptr() % 4:
+    if qrows.shape[1] - 4 in TUNED_WIDTHS and qrows.data_ptr() % 4:
         raise ValueError("row-wise rows hold an f32 scale: the table must start on a "
                          "4-byte boundary")
     if qrows.device.type == "cpu":
@@ -893,7 +963,7 @@ def _check_window(table, row_lo: int):
 
 
 def _launch_window(wrapper, fn: str, lib, table, args, offsets, indices, mask, out_dtype,
-                   d: int, row_lo: int, plan: K1Plan, extra=()) -> torch.Tensor:
+                   d: int, row_lo: int, plan: K1Plan, extra=(), tail=()) -> torch.Tensor:
     """``fn`` (a window entry point of ``lib``) on checked CUDA inputs,
     counted in ``wrapper.kernel_launches``."""
     B, T, L = indices.shape
@@ -903,7 +973,7 @@ def _launch_window(wrapper, fn: str, lib, table, args, offsets, indices, mask, o
     _build.launch(lib, fn, table.device, *args, offsets.data_ptr(), indices.data_ptr(),
                   mask.data_ptr() if mask is not None else None, out.data_ptr(), *extra,
                   row_lo, table.shape[0], B * T, T, L, plan.bags_per_warp, plan.rows_per_lane,
-                  plan.grid)
+                  plan.grid, *tail)
     _build.count_launch(wrapper)
     return out
 
@@ -922,7 +992,7 @@ def embedding_bag_shard(shard: torch.Tensor, offsets: torch.Tensor, indices: tor
     once give ``embedding_bag`` up to the order of the f32 sums.
 
     CPU tensors take ``embedding_bag_reference(..., window=...)``; CUDA
-    tensors launch K1's window instance with ``k1_launch_plan``'s mapping,
+    tensors launch K1's window instance with ``k1_window_plan``'s mapping,
     counted in ``embedding_bag_shard.kernel_launches``. With grad enabled
     and ``shard.requires_grad`` the call is differentiable with respect to
     the shard (``EmbeddingBagShardFunction``: backward K1b's window).
@@ -942,15 +1012,16 @@ def _dispatch_shard(shard, offsets, indices, mask, cdt, row_lo: int) -> torch.Te
                                        window=(row_lo, row_lo + shard.shape[0]))
     if shard.device.type != "cuda":
         raise ValueError(f"embedding_bag_shard runs on cpu or cuda, not {shard.device}")
-    if shard.data_ptr() % 16:
-        raise ValueError("the kernel loads 16-byte vectors: the shard must start on a "
-                         "16-byte boundary")
     B, T, L = indices.shape
     d = shard.shape[1]
+    plan = k1_window_plan(B * T, L, d, shard.dtype)
+    if not plan.general and shard.data_ptr() % 16:
+        raise ValueError("the kernel loads 16-byte vectors: the shard must start on a "
+                         "16-byte boundary")
     return _launch_window(embedding_bag_shard, "drs_embedding_bag_window", _kernel_lib(), shard,
                           (shard.data_ptr(), _DTYPE_CODES[shard.dtype], d), offsets, indices,
-                          mask, torch.float32, d, row_lo,
-                          k1_launch_plan(B * T, L, d, shard.dtype), (_DTYPE_CODES[cdt],))
+                          mask, torch.float32, d, row_lo, plan, (_DTYPE_CODES[cdt],),
+                          (int(plan.compact),))
 
 
 embedding_bag_shard.kernel_launches = 0
@@ -975,15 +1046,16 @@ def embedding_bag_int8_shard(q_shard: torch.Tensor, offsets: torch.Tensor,
                                             window=window)
     if q_shard.device.type != "cuda":
         raise ValueError(f"embedding_bag_int8_shard runs on cpu or cuda, not {q_shard.device}")
-    if q_shard.data_ptr() % 16:
-        raise ValueError("K1-int8 loads 16-byte vectors: the shard must start on a "
-                         "16-byte boundary")
     B, T, L = indices.shape
     d = q_shard.shape[1]
+    plan = k1_launch_plan(B * T, L, d, torch.int8)
+    if not plan.general and q_shard.data_ptr() % 16:
+        raise ValueError("K1-int8 loads 16-byte vectors: the shard must start on a "
+                         "16-byte boundary")
     return _launch_window(embedding_bag_int8_shard, "drs_embedding_bag_int8_window",
                           _build.load("embedding_bag_int8", _declare_int8), q_shard,
                           (q_shard.data_ptr(), d), offsets, indices, mask, torch.int32, d,
-                          row_lo, k1_launch_plan(B * T, L, d, torch.int8))
+                          row_lo, plan)
 
 
 embedding_bag_int8_shard.kernel_launches = 0
@@ -1001,7 +1073,7 @@ def embedding_bag_int8_rowwise_shard(qrows_shard: torch.Tensor, offsets: torch.T
     ``embedding_bag_int8_rowwise_shard.kernel_launches``."""
     _check_int8(qrows_shard, 4, torch.float32, offsets, indices, mask)
     window = _check_window(qrows_shard, row_lo)
-    if qrows_shard.data_ptr() % 4:
+    if qrows_shard.shape[1] - 4 in TUNED_WIDTHS and qrows_shard.data_ptr() % 4:
         raise ValueError("row-wise rows hold an f32 scale: the shard must start on a "
                          "4-byte boundary")
     if qrows_shard.device.type == "cpu":
@@ -1105,7 +1177,13 @@ class K6Plan:
     rows_per_slot: int
     ids_per_lane: int
     grid: int
-    geometry: K6Geometry
+    geometry: K6Geometry | None
+
+    @property
+    def general(self) -> bool:
+        """The general instance (any width; ``rows_per_slot`` -1): a warp
+        a bag, a lane an element of the row, the bag's slots in order."""
+        return self.rows_per_slot < 0
 
 
 def k6_window_ids(L: int, geo: K6Geometry) -> int:
@@ -1122,7 +1200,11 @@ def k6_launch_plan(n_bags: int, L: int, mode: str, d: int, itemsize: int) -> K6P
     """K6's plan for ``n_bags`` bags of ``L`` slots of a layout; the only
     ones ``csrc/embedding_bag_hotcold.cu`` builds. Long bags load a window
     of ``k6_window_ids`` ids a lane (up to L = 128 in one window at G =
-    1); short bags all of their rows, at most the geometry's a step."""
+    1); short bags all of their rows, at most the geometry's a step. Widths
+    but 32 and 64 take the general instance, which is correct and not
+    tuned."""
+    if d not in TUNED_WIDTHS:
+        return K6Plan(1, -1, 0, max(1, -(-n_bags // K6_WARPS_PER_BLOCK)), None)
     short = L <= 8
     geo = k6_geometry(mode, d, itemsize, short)
     if short:
@@ -1308,17 +1390,17 @@ def _hotcold_dispatch(wrapper, mode: str, hot, table, scale, split: dict, d: int
         return plain()
     if device.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {device}")
-    if table.data_ptr() % align or hot.data_ptr() % align:
-        raise ValueError(f"K6 loads {align}-byte words: the table and the hot table must "
-                         f"start on a {align}-byte boundary")
     hot_sel, cold_ids = split["hot_sel"], split["cold_ids"]
     B, T, L = hot_sel.shape
+    plan = k6_launch_plan(B * T, L, mode, d, table.element_size())
+    if not plan.general and (table.data_ptr() % align or hot.data_ptr() % align):
+        raise ValueError(f"K6 loads {align}-byte words: the table and the hot table must "
+                         f"start on a {align}-byte boundary")
     out_dtype = (torch.int32 if mode == "int8" else torch.float32) if partial else cdt
     out = torch.empty((B, T, d), dtype=out_dtype, device=device)
     if B * T == 0:
         return out
     _check_k6_sizes(cold_ids.numel(), B * T)
-    plan = k6_launch_plan(B * T, L, mode, d, table.element_size())
     starts = torch.empty((B * T + 1,), dtype=torch.int32, device=device)  # launch 1's output
     lib = _build.load("embedding_bag_hotcold", _declare_hotcold)
     head = (_K6_MODES[mode], _DTYPE_CODES.get(table.dtype, 0), d, hot.data_ptr() or None,
@@ -1343,7 +1425,7 @@ def embedding_bag_hotcold(hot_table: torch.Tensor, table: torch.Tensor, split: d
 
     Args:
       hot_table: ``(K, d)`` rows of the hot set (``table[hot_ids]``), K >= 0.
-      table: fused ``(R, d)`` float32 or bfloat16 table, d 32 or 64.
+      table: fused ``(R, d)`` float32 or bfloat16 table, any d >= 1.
       split: ``ops/hotcold.py::split_hot_cold``'s arrays as tensors on the
         table's device: ``hot_sel``/``hot_mask`` ``(B, T, L)``, the padded
         cold stream ``cold_ids``/``cold_seg`` ``(C_pad,)`` in its order (bags

@@ -35,7 +35,11 @@ import torch
 from deeprecsys_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HIDDEN = 64  # the zoo's hidden size, the only one K3 is built for
+KERNEL_HIDDEN = 64  # the zoo's hidden size: K3's and K3b's tuned instances
+# K3 and K3b run a batch row on one block, a thread a hidden unit: the
+# card's largest block (1024 threads) bounds H. Every H but KERNEL_HIDDEN
+# takes their general instances.
+MAX_HIDDEN = 1024
 
 
 def basic_rnn_init(input_size: int, hidden_size: int, dtype: torch.dtype,
@@ -89,6 +93,12 @@ def _kernel_lib() -> ctypes.CDLL:
     return _build.load("rnn_scan", _declare)
 
 
+def _check_hidden(H: int):
+    if not 1 <= H <= MAX_HIDDEN:
+        raise ValueError(f"the RNN scan kernels run a thread a hidden unit, at most "
+                         f"{MAX_HIDDEN} (the card's block size); got H = {H}")
+
+
 def _check(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths):
     """Raise on anything the kernel does not take (both devices share the
     contract, so the CPU tests exercise these checks too)."""
@@ -96,9 +106,7 @@ def _check(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths):
         raise TypeError(f"xproj must be (T, B, H) float32; got "
                         f"{tuple(xproj.shape)} {xproj.dtype}")
     T, B, H = xproj.shape
-    if H != KERNEL_HIDDEN:
-        raise ValueError(f"the RNN scan kernel is built for hidden size "
-                         f"{KERNEL_HIDDEN} only; got H = {H}")
+    _check_hidden(H)
     if h2h_w.shape != (H, H) or h2h_b.shape != (H,):
         raise ValueError(f"h2h_w must be ({H}, {H}) and h2h_b ({H},); got "
                          f"{tuple(h2h_w.shape)} and {tuple(h2h_b.shape)}")
@@ -126,7 +134,8 @@ def rnn_scan(xproj: torch.Tensor, h2h_w: torch.Tensor, h2h_b: torch.Tensor,
 
     Args:
       xproj: ``(T, B, H)`` float32, the hoisted projection ``x @ i2h_w + i2h_b``.
-      h2h_w, h2h_b: ``(H, H)`` and ``(H,)``, float32 or bfloat16, H = 64.
+      h2h_w, h2h_b: ``(H, H)`` and ``(H,)``, float32 or bfloat16, 1 <= H <=
+        1024 (H = 64 takes the tuned instance, any other H the general one).
       out_dtype: the compute dtype, float32 or bfloat16; the hidden state is
         rounded to it at every step.
       h0: optional ``(B, H)`` initial state (zeros if None), cast to out_dtype.
@@ -163,7 +172,7 @@ def _dispatch(xproj, h2h_w, h2h_b, out_dtype, h0, seq_lengths):
         return xproj.new_empty((T, B, H), dtype=out_dtype), last
     lens = None if seq_lengths is None else seq_lengths.to(torch.int32).contiguous()
     xproj, w, b = xproj.contiguous(), h2h_w.contiguous(), h2h_b.contiguous()
-    if xproj.data_ptr() % 16:
+    if H == KERNEL_HIDDEN and xproj.data_ptr() % 16:
         raise ValueError("the kernel copies xproj in 16-byte pieces: it must start "
                          "on a 16-byte boundary")
     all_h = torch.empty((T, B, H), dtype=out_dtype, device=xproj.device)
@@ -235,10 +244,10 @@ def rnn_scan_backward(y: torch.Tensor, gh: torch.Tensor, h2h_w: torch.Tensor,
     ``rnn_scan_backward.kernel_launches``; a failed build or launch raises.
     """
     T, B, H = y.shape
-    if H != KERNEL_HIDDEN or gh.shape != y.shape or h2h_w.shape != (H, H):
-        raise ValueError(f"y and gh must be (T, B, {KERNEL_HIDDEN}) and h2h_w "
-                         f"({KERNEL_HIDDEN}, {KERNEL_HIDDEN}); got {tuple(y.shape)}, "
-                         f"{tuple(gh.shape)} and {tuple(h2h_w.shape)}")
+    _check_hidden(H)
+    if gh.shape != y.shape or h2h_w.shape != (H, H):
+        raise ValueError(f"y and gh must be (T, B, H) and h2h_w (H, H); got "
+                         f"{tuple(y.shape)}, {tuple(gh.shape)} and {tuple(h2h_w.shape)}")
     if y.dtype != torch.float32 or gh.dtype != torch.float32 or h2h_w.dtype not in _DTYPE_CODES:
         raise TypeError(f"y and gh must be float32 and h2h_w float32 or bfloat16; got "
                         f"{y.dtype}, {gh.dtype} and {h2h_w.dtype}")

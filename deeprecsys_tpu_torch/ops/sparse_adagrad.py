@@ -21,11 +21,18 @@ On a mesh (``train.py::make_sharded_sparse_table_step``) each row shard of
 the table takes ``sparse_adagrad_step_shard``: K5 with the ownership window
 (the shard's fused rows ``[row_lo, row_lo + R_s)`` and its own
 accumulator), over the stream of every data slice's ids, so that every
-accumulator add still lands before any scale is read. Its update is cast to
-the table dtype before it is added, as the single-device step's: a bf16
-shard rounds at each add, where the JAX sharded step adds in f32 and rounds
-each row once (``train.py:172-182``; ROADMAP.md Queue 3). f32 tables are
-the same either way.
+accumulator add still lands before any scale is read. A bf16 shard follows
+the JAX sharded step (``train.py:177-182``): the accumulator still takes
+one f32 add a slot, but the table's updates are summed a row in f32 and
+each touched row is rounded once (a merge inside K5's window: a first
+launch gives each touched row an entry of a hash table in scratch, launch 2
+adds into the entry's f32 row, a last launch adds each row into the table
+and rounds it). An f32 shard adds into its rows directly, which is the same
+rule.
+
+Any width d >= 1 computes: widths up to 64 whose rows (table and gradient)
+are 16 * 2^k bytes take the vector instances, any other width K5's general
+instance (a thread a slot, no vector adds), which is correct and not tuned.
 """
 
 from __future__ import annotations
@@ -37,10 +44,9 @@ import functools
 import torch
 
 from deeprecsys_tpu_torch.ops import _build
-from deeprecsys_tpu_torch.ops.embedding import scatter_counts, window_ids
+from deeprecsys_tpu_torch.ops.embedding import _vector_row, scatter_counts, window_ids
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_WIDTHS = (32, 64)
 K5_THREADS = 256     # kThreads in csrc/sparse_adagrad.cu
 K5_VEC_BYTES = 16    # Shipped::kVecBytes there: one lane's atomic add in launch 2
 
@@ -50,11 +56,16 @@ class K5Plan:
     """K5's two launches for ``n_bags`` bags (B * T) of L slots: launch 1
     (accumulate) on a lane a slot, ``lanes_per_bag`` lanes a window of a
     bag's slots, launch 2 (apply) on ``lanes_per_slot`` lanes a slot, each
-    of ``K5_THREADS``-thread blocks."""
+    of ``K5_THREADS``-thread blocks. ``lanes_per_bag`` 0 is the general
+    instance: a thread a slot in both launches."""
     lanes_per_bag: int
     lanes_per_slot: int
     accumulate_blocks: int
     apply_blocks: int
+
+    @property
+    def general(self) -> bool:
+        return self.lanes_per_bag == 0
 
 
 @functools.lru_cache(maxsize=None)  # the wrapper asks every step; host time counts
@@ -65,7 +76,13 @@ def k5_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype,
     bags share a warp, and a longer bag takes a warp for each 32 of its
     slots); launch 2 takes a lane for each ``K5_VEC_BYTES`` of a table row,
     at most 32 lanes a slot. The C entry point gets ``lanes_per_bag`` and
-    computes the same grids."""
+    computes the same grids. Widths past 64, and a table or gradient row
+    that is not 16 * 2^k bytes, take the general instance (a thread a
+    slot, its mean g^2 summed in column order, ``csrc/sparse_adagrad.cu``)."""
+    if not (d <= 64 and _vector_row(d * table_dtype.itemsize)
+            and _vector_row(d * g_dtype.itemsize)):
+        blocks = -(-n_bags * L // K5_THREADS)
+        return K5Plan(0, 1, blocks, blocks)
     lanes_per_bag = min(32, max(1 << max(0, L - 1).bit_length(), d * g_dtype.itemsize // 16))
     windows = -(-L // lanes_per_bag)
     lanes_per_slot = min(32, d * table_dtype.itemsize // K5_VEC_BYTES)
@@ -98,7 +115,15 @@ def sparse_adagrad_step_reference(table: torch.Tensor, acc: torch.Tensor,
     flat, g_rows = _window_rows(offsets, indices, g, window)
     acc.index_add_(0, flat, torch.mean(g_rows * g_rows, dim=-1))
     scale = torch.rsqrt(acc[flat] + eps)
-    table.index_add_(0, flat, (-learning_rate * (g_rows * scale[:, None])).to(table.dtype))
+    update = -learning_rate * (g_rows * scale[:, None])
+    if window is None or table.dtype == torch.float32:
+        table.index_add_(0, flat, update.to(table.dtype))
+        return
+    # A shard of a narrower dtype: each touched row's updates summed in f32,
+    # the row rounded once (the JAX sharded step, train.py:177-182).
+    rows, rank = torch.unique(flat, return_inverse=True)
+    summed = table.index_select(0, rows).float().index_add_(0, rank, update)
+    table.index_copy_(0, rows, summed.to(table.dtype))
 
 
 def _declare_window(lib: ctypes.CDLL):
@@ -111,7 +136,10 @@ def _declare_window(lib: ctypes.CDLL):
         ctypes.c_int64, ctypes.c_int64,                # row_lo, rows
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,    # B*T, T, L
         ctypes.c_float, ctypes.c_float,                # -learning_rate, eps
-        ctypes.c_int, ctypes.c_void_p,                 # lanes a bag, stream
+        ctypes.c_int,                                  # lanes a bag
+        ctypes.c_void_p, ctypes.c_int64,               # merge: hash keys, their number
+        ctypes.c_void_p, ctypes.c_void_p,              # merge: entry a slot, f32 rows
+        ctypes.c_void_p,                               # stream
     ]
 
 
@@ -128,8 +156,8 @@ def _declare(lib: ctypes.CDLL):
 
 
 def _check(table, acc, offsets, indices, g):
-    if table.dim() != 2 or table.shape[1] not in _KERNEL_WIDTHS or table.dtype not in _DTYPE_CODES:
-        raise ValueError(f"table must be (R, d) float32 or bfloat16 with d in {_KERNEL_WIDTHS}; "
+    if table.dim() != 2 or table.shape[1] < 1 or table.dtype not in _DTYPE_CODES:
+        raise ValueError(f"table must be (R, d) float32 or bfloat16 with d >= 1; "
                          f"got {tuple(table.shape)} {table.dtype}")
     R, d = table.shape
     if acc.shape != (R,) or acc.dtype != torch.float32:
@@ -147,7 +175,8 @@ def _check(table, acc, offsets, indices, g):
         raise ValueError("table, acc, offsets, indices and g must be on one device")
     if not all(t.is_contiguous() for t in (table, acc, offsets, indices)):
         raise ValueError("table, acc, offsets and indices must be contiguous")
-    if table.device.type == "cuda" and table.data_ptr() % 16:
+    if (table.device.type == "cuda" and table.data_ptr() % 16
+            and not k5_launch_plan(1, 1, d, table.dtype, g.dtype).general):
         raise ValueError("K5 adds 16-byte vectors into the table's rows: the table must "
                          "start on a 16-byte boundary")
 
@@ -158,7 +187,7 @@ def sparse_adagrad_step(table: torch.Tensor, acc: torch.Tensor, offsets: torch.T
     """One row-wise AdaGrad step of the rows ``indices`` read, in place.
 
     Args:
-      table: fused ``(R, d)`` table, float32 or bfloat16, d 32 or 64.
+      table: fused ``(R, d)`` table, float32 or bfloat16, any d >= 1.
       acc: ``(R,)`` float32 accumulator, one a row.
       offsets, indices: as ``embedding_bag`` took them (ids not checked).
       g: ``(B, T, d)`` gradient of the pooled output, float32 or bfloat16.
@@ -206,7 +235,7 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
 
     Args:
       shard: ``(R_s, d)`` rows ``[row_lo, row_lo + R_s)`` of the fused
-        table, float32 or bfloat16, d 32 or 64.
+        table, float32 or bfloat16, any d >= 1.
       acc_shard: its ``(R_s,)`` float32 accumulator.
       offsets, indices: the whole stream's table-local ids (every data
         slice's, concatenated in data-row order).
@@ -215,11 +244,17 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
 
     Only the rows the shard owns are touched; a slot whose row another shard
     owns adds nothing. Both launches run over the whole stream, so every
-    accumulator add lands before any scale is read. CPU tensors take
+    accumulator add lands before any scale is read. A bf16 shard's updates
+    are summed a row in f32 and each touched row rounded once (the JAX
+    sharded step's rule): a first launch gives each touched row an entry of
+    a hash table in scratch (``_merge_scratch``), launch 2 adds into the
+    entry's f32 row, and a last launch adds each row into the shard and
+    rounds it. CPU tensors take
     ``sparse_adagrad_step_reference(..., window=...)``; CUDA tensors launch
-    K5's window instance (two kernels on the current stream, counted once
-    in ``sparse_adagrad_step_shard.kernel_launches``); a failed build or
-    launch raises.
+    K5's window instance (two kernels on the current stream, four for a
+    bf16 shard, counted once in
+    ``sparse_adagrad_step_shard.kernel_launches``); a failed build or launch
+    raises.
     """
     if row_lo < 0:
         raise ValueError(f"row_lo must be >= 0; got {row_lo}")
@@ -237,16 +272,36 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
     if g.data_ptr() % 16:
         g = g.clone()
     plan = k5_launch_plan(B * T, L, shard.shape[1], shard.dtype, g.dtype)
+    merge = (None, 0, None, None)
+    if shard.dtype != torch.float32:
+        keys, rank, merged = _merge_scratch(shard, B * T * L)
+        merge = (keys.data_ptr(), keys.numel(), rank.data_ptr(), merged.data_ptr())
     _build.launch(_build.load("sparse_adagrad", _declare_window), "drs_sparse_adagrad_window",
                   shard.device, shard.data_ptr(), _DTYPE_CODES[shard.dtype], shard.shape[1],
                   acc_shard.data_ptr(), g.data_ptr(), _DTYPE_CODES[g.dtype], offsets.data_ptr(),
                   indices.data_ptr(), row_lo, shard.shape[0], B * T, T, L, -learning_rate, eps,
-                  plan.lanes_per_bag)
+                  plan.lanes_per_bag, *merge)
     _build.count_launch(sparse_adagrad_step_shard)
     return None
 
 
 sparse_adagrad_step_shard.kernel_launches = 0
+
+
+def _merge_scratch(shard: torch.Tensor, n_slots: int) -> tuple:
+    """The bf16 window's merge scratch, none of it set here: the hash
+    table's keys (int32, the power of two >= 2 n_slots, so at most half
+    full), each slot's entry then the count and the list of claimed entries
+    (int32) and each entry's f32 row; with the table's size, as
+    ``drs_sparse_adagrad_window`` takes them."""
+    if shard.shape[0] >= 2 ** 31:
+        raise ValueError(f"the bf16 window keys the shard's rows in int32; got "
+                         f"{shard.shape[0]} rows")
+    n_keys = 1 << (2 * n_slots - 1).bit_length()
+    keys = torch.empty((n_keys,), dtype=torch.int32, device=shard.device)
+    rank = torch.empty((2 * n_slots + 1,), dtype=torch.int32, device=shard.device)
+    merged = torch.empty((n_keys, shard.shape[1]), dtype=torch.float32, device=shard.device)
+    return keys, rank, merged
 
 
 def sparse_adagrad_tolerance(table0: torch.Tensor, acc0: torch.Tensor, offsets: torch.Tensor,
@@ -259,16 +314,40 @@ def sparse_adagrad_tolerance(table0: torch.Tensor, acc0: torch.Tensor, offsets: 
     rsqrt (half of it), and each side rounds each add to the table dtype,
     so the updated rows agree within n * (2^-21 + 2 ulp) * (|table0| +
     sum |term|), ulp the table dtype's unit roundoff (2^-23 f32, 2^-8
-    bf16). ``window``: two steps of that row shard (``table0``, ``acc0``
-    the shard's)."""
+    bf16). Where K5 runs its general instance (``k5_launch_plan``) the two
+    sides also sum a bag's d squares in other orders: each mean within
+    (d + 1) * 2^-23 of the other, relatively, which the accumulator adds
+    and each term carries through rsqrt; so every row's terms differ, rows
+    of one add too, and the cast of a term to a narrower table dtype can
+    land an ulp of the term apart (2 ulp * sum |term| more; the vector
+    instances keep torch.mean's order, so rows of one add cast the plain
+    version's terms bit for bit). ``window``: two steps of that row
+    shard (``table0``, ``acc0`` the shard's); a bf16 shard's rows follow
+    the sharded rule (each row's updates summed in f32, the row rounded
+    once), so its rows agree within the f32 bound above plus one bf16 ulp
+    of the row's value."""
     d = g.shape[-1]
     R = table0.shape[0]
     flat, g_rows = _window_rows(offsets, indices, g, window)
     n = scatter_counts(offsets, indices, R, window=window)
     acc = acc0.clone().index_add_(0, flat, torch.mean(g_rows * g_rows, dim=-1))
     acc_tol = n * 2.0 ** -22 * acc
-    terms = (learning_rate * g_rows.abs() * torch.rsqrt(acc[flat] + eps)[:, None])
+    mean_rel = 0.0
+    if k5_launch_plan(1, 1, d, table0.dtype, g.dtype).general:
+        mean_rel = (d + 1) * 2.0 ** -23
+        acc_tol += mean_rel * (acc - acc0)
+    scale = torch.rsqrt(acc[flat] + eps)[:, None]
+    terms = learning_rate * g_rows.abs() * scale
     term_sum = torch.zeros((R, d), device=g.device).index_add_(0, flat, terms)
-    ulp = 2.0 ** -23 if table0.dtype == torch.float32 else 2.0 ** -8
+    once = window is not None and table0.dtype != torch.float32
+    ulp = 2.0 ** -23 if table0.dtype == torch.float32 or once else 2.0 ** -8
     tol = n[:, None] * (2.0 ** -21 + 2 * ulp) * (table0.float().abs() + term_sum)
+    tol += mean_rel * term_sum
+    if mean_rel and not once and table0.dtype != torch.float32:
+        tol += 2 * ulp * term_sum
+    if once:
+        value = table0.to(torch.float32, copy=True).index_add_(
+            0, flat, -learning_rate * g_rows * scale)
+        binade = torch.exp2(torch.floor(torch.log2((value.abs() + tol).clamp_min(2.0 ** -126))))
+        tol += torch.where(n[:, None] > 0, binade * torch.finfo(table0.dtype).eps, 0.0)
     return tol, acc_tol

@@ -178,6 +178,31 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer, learning
     return step
 
 
+def update_shard_copies(tables: list, accs: list, offsets: torch.Tensor, indices: torch.Tensor,
+                        g: torch.Tensor, row_lo: int, learning_rate: float, eps: float = 1e-8):
+    """One row shard's sparse step over all of its copies: K5's window
+    (``sparse_adagrad_step_shard``) on ``tables[0]`` and ``accs[0]`` once,
+    then the rows the stream touched in the shard copied from that first
+    copy into every other (an ``index_select`` on the owner, an
+    ``index_copy_`` on each other copy, across cards where the copies lie
+    on several). So every copy equals the first bit for bit, as JAX's
+    sharded step keeps one array a shard (``train.py:177-182``), where a
+    launch a copy would round K5's atomic adds in another order on each.
+    ``offsets``, ``indices`` and ``g`` are the stream on the first copy's
+    device."""
+    table, acc = tables[0], accs[0]
+    sparse_adagrad_step_shard(table, acc, offsets, indices, g, row_lo, learning_rate, eps)
+    if len(tables) == 1:
+        return
+    local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
+    rows = local[(local >= 0) & (local < table.shape[0])]
+    t_rows, a_rows = table.index_select(0, rows), acc.index_select(0, rows)
+    for t, a in zip(tables[1:], accs[1:]):
+        r = rows.to(t.device)
+        t.index_copy_(0, r, t_rows.to(t.device))
+        a.index_copy_(0, r, a_rows.to(a.device))
+
+
 def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
                                    learning_rate: float, loss_fn, mesh, eps: float = 1e-8,
                                    table_learning_rate: float | None = None,
@@ -194,12 +219,15 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
     so the dense half's gradients are their mean over "data" (summed over
     a leaf's copies) and each slice's pooled gradient carries the 1 / D of
     the JAX step's ``g_pooled / n_data``. Then the all-gather over "data":
-    for each distinct (device, shard) tensor, one K5 window launch
-    (``sparse_adagrad_step_shard``) over all D slices' ids and pooled
-    gradients, concatenated in data-row order on that device, so every
-    accumulator add lands before any scale is read. ``dedup``: the
-    concatenated stream's rows merged first (``dedup_touched_rows``, once a
-    device), then the window over the unique rows.
+    for each shard m, one K5 window launch (``sparse_adagrad_step_shard``)
+    on its first copy (entry (0, m)) over all D slices' ids and pooled
+    gradients, concatenated in data-row order on that copy's device, so
+    every accumulator add lands before any scale is read; the touched rows
+    are then copied into the shard's other copies (``update_shard_copies``),
+    so the copies stay equal bit for bit, as JAX's one array a shard. On
+    one card the copies are one tensor. ``dedup``: the concatenated
+    stream's rows merged first (``dedup_touched_rows``, once a device),
+    then the window over the unique rows.
     """
     M = mesh.shape["model"]
     if cfg.total_rows % M:
@@ -226,20 +254,19 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
         tx_state.update(leaves, reduce_copies(groups, list(g[:len(leaves)])))
         g_pooled = g[len(leaves):]
         streams: dict = {}
-        done: set = set()
-        for d in range(mesh.shape["data"]):
-            for m in range(M):
+        for m in range(M):
+            tables, accs = [], []
+            for d in range(mesh.shape["data"]):
                 shard = sp.entry(d, m)["tables"]
-                if id(shard) in done:
-                    continue
-                done.add(id(shard))
-                dev = shard.device
-                if dev not in streams:  # every slice's ids and gradients, in data-row order
-                    stream = (offsets.on(dev), torch.cat([sl.indices.to(dev) for sl in slices]),
-                              torch.cat([gp.to(dev) for gp in g_pooled]))
-                    streams[dev] = _dedup_stream(*stream) if dedup else stream
-                sparse_adagrad_step_shard(shard, acc.part(d, m), *streams[dev], m * rps,
-                                          table_learning_rate, eps)
+                if not any(t is shard for t in tables):
+                    tables.append(shard)
+                    accs.append(acc.part(d, m))
+            dev = tables[0].device
+            if dev not in streams:  # every slice's ids and gradients, in data-row order
+                stream = (offsets.on(dev), torch.cat([sl.indices.to(dev) for sl in slices]),
+                          torch.cat([gp.to(dev) for gp in g_pooled]))
+                streams[dev] = _dedup_stream(*stream) if dedup else stream
+            update_shard_copies(tables, accs, *streams[dev], m * rps, table_learning_rate, eps)
         return loss.detach()
 
     return step

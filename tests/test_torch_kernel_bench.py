@@ -453,3 +453,60 @@ def test_window_bounds_and_yardsticks_cover_the_shard():
     want = embedding_bag_backward_reference(g, offsets, ids, rps, window=(rps, 2 * rps))
     torch.testing.assert_close(got, want)
     torch.testing.assert_close(g2, (rows * rows).mean(-1))
+
+
+@pytest.mark.parametrize("name", kernel_bench.K1W_MODELS)
+@pytest.mark.parametrize("M,B", kernel_bench.K1W_CELLS)
+def test_k1w_bench_inputs_check_bound_and_library_on_the_cpu(name, M, B):
+    """``--only k1w``'s pieces where no card is needed, at table_scale 2000:
+    shard 1 of M and its ids; the check passes the window's plain version;
+    the windowed ``F.embedding_bag`` computes the shard's partial; the
+    bound reads only the owned distinct rows, every id and the f32 partial.
+    Without a card the CLI exits 1 before any bench."""
+    from deeprecsys_tpu_torch.kernel_bench import (
+        _k1w_check, k1w_inputs, window_bound, window_library)
+
+    inp = k1w_inputs(name, M, B // 64, "cpu", n_batches=1, table_scale=2000)
+    shard, lo, offsets, idx = inp["shard"], inp["row_lo"], inp["offsets"], inp["ids"][0]
+    R = inp["cfg"].total_rows
+    assert shard.shape == (R // M, inp["cfg"].sparse_feature_size) and lo == R // M
+    assert idx.shape == (B // 64, inp["cfg"].num_tables, inp["cfg"].num_indices_per_lookup)
+    w = (lo, lo + shard.shape[0])
+    want = embedding_bag_reference(shard, offsets, idx, window=w)
+    _k1w_check(want, inp, idx, "plain")
+    lib = window_library(shard, lo, offsets)(idx).view(want.shape)
+    torch.testing.assert_close(lib.float(), want, rtol=2 ** -7, atol=2 ** -7)
+    flat = (idx.long() + offsets.long()[None, :, None]).reshape(-1)
+    owned = flat[(flat >= lo) & (flat < lo + shard.shape[0])]
+    b = window_bound(shard, lo, offsets, idx, shard.shape[1])
+    assert b["bytes"] == (torch.unique(owned).numel() * shard.shape[1] * 2 + idx.numel() * 4
+                          + want.numel() * 4)
+    assert kernel_bench.BENCHES["k1w"] is kernel_bench.bench_k1w
+    if not torch.cuda.is_available():
+        assert kernel_bench.main(["--only", "k1w"]) == 1
+
+
+def test_k1w_sweep_unit_launches_every_design_from_the_shipped_source():
+    """The sweep's translation unit (``experiments/k1w_sweep.py``) includes
+    the shipped K1 source and launches each (design, U) of K1W_SWEEP at d
+    32 and 64 once, by the kernel templates the source defines, and its
+    floor kernel once a width; ``kernel_bench`` keeps only the shipped
+    kernels' benches. Without a card the CLI exits 1."""
+    from deeprecsys_tpu_torch.experiments import k1w_sweep
+    from deeprecsys_tpu_torch.ops import _build
+
+    src = _build.CSRC / "embedding_bag.cu"
+    unit = k1w_sweep.unit(src)
+    assert unit.startswith(f'#include "{src}"')
+    text = src.read_text()
+    assert "embedding_bag_compact_kernel(" in text and "embedding_bag_kernel(" in text
+    assert "kCompactIds" in text and "k1w_floor_kernel" not in text
+    for design, u in k1w_sweep.K1W_SWEEP:
+        for d in k1w_sweep.WIDTHS:
+            case = f"if (design == {k1w_sweep.DESIGNS[design]} && U == {u} && d == {d})"
+            assert unit.count(case) == 1, case
+    for d in k1w_sweep.WIDTHS:
+        assert unit.count(f"k1w_floor_kernel<{d}><<<") == 1
+    assert "k1w_sweep" not in kernel_bench.BENCHES
+    if not torch.cuda.is_available():
+        assert k1w_sweep.main([]) == 1

@@ -281,3 +281,31 @@ def test_sharded_sparse_rows_must_divide():
     # dien at table_scale 2000 trains sparse on model axis 2.
     tr = train.Trainer(cfg, mesh=_mesh(2, 2), sparse_tables=True, learning_rate=0.05)
     assert np.isfinite(tr.fit(2, batch_size=16).losses).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_update_shard_copies_leaves_every_copy_equal(dtype):
+    """The sharded sparse step's update of one shard over explicit clones
+    (copies on distinct cards): K5's window once on copy 0, then its
+    touched rows copied into the others, so every copy of the table and
+    the accumulator equals copy 0 bit for bit, and copy 0 is one window
+    step."""
+    cfg = zoo.get_config("rm1", table_scale=SCALE)
+    rps = cfg.total_rows // 4
+    row_lo = rps  # shard 1 of 4
+    gen = torch.Generator().manual_seed(3)
+    table = ((torch.rand((rps, cfg.sparse_feature_size), generator=gen) - 0.5) * 0.1).to(dtype)
+    acc = torch.rand((rps,), generator=gen) * 1e-3
+    batch = RecDataGenerator(cfg, seed=4).generate_batch(2 * BATCH)
+    offsets = torch.as_tensor(cfg.table_offsets, dtype=torch.int32)
+    indices = torch.as_tensor(batch.indices)
+    g = torch.randn((2 * BATCH, cfg.num_tables, cfg.sparse_feature_size), generator=gen) * 1e-2
+    tables = [table.clone() for _ in range(3)]
+    accs = [acc.clone() for _ in range(3)]
+    train.update_shard_copies(tables, accs, offsets, indices, g, row_lo, 0.1)
+    want_t, want_a = table.clone(), acc.clone()
+    train.sparse_adagrad_step_shard(want_t, want_a, offsets, indices, g, row_lo, 0.1)
+    assert torch.equal(tables[0], want_t) and torch.equal(accs[0], want_a)
+    assert not torch.equal(tables[0], table)  # the step touched the shard
+    for t, a in zip(tables[1:], accs[1:]):
+        assert torch.equal(t, tables[0]) and torch.equal(a, accs[0])

@@ -28,7 +28,7 @@ from deeprecsys_tpu_torch.ops import (
     cat_interaction, embedding_bag, embedding_bag_reference, init_fused_tables,
     mlp_apply, mlp_init, unpack_table)
 from deeprecsys_tpu_torch.ops.embedding import (
-    K1_BLOCKS_PER_SM, K1_WARPS_PER_BLOCK, k1_launch_plan)
+    K1_BLOCKS_PER_SM, K1_WARPS_PER_BLOCK, K1W_ROWS_PER_SLOT, k1_launch_plan, k1_window_plan)
 
 TABLE_ROWS = (50, 30, 20)
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -102,8 +102,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     table, offsets, indices, _ = _lookup_inputs(32)
     t, o, i = (torch.from_numpy(table), torch.from_numpy(offsets),
                torch.from_numpy(indices))
-    with pytest.raises(ValueError, match="d in"):
-        embedding_bag(t[:, :16].contiguous(), o, i)
+    with pytest.raises(ValueError, match="d >= 1"):
+        embedding_bag(t[:, :0].contiguous(), o, i)
+    # Any width d >= 1 computes (the kernel's general instance on the card).
+    narrow = t[:, :12].contiguous()
+    assert torch.equal(embedding_bag(narrow, o, i), embedding_bag_reference(narrow, o, i))
     with pytest.raises(TypeError, match="dtypes"):
         embedding_bag(t.double(), o, i)
     with pytest.raises(TypeError, match="indices"):
@@ -211,6 +214,7 @@ def test_mlp_init_distributions():
 
 K1_CU = Path(__file__).resolve().parents[1] / "deeprecsys_tpu_torch" / "ops" / "csrc" / \
     "embedding_bag.cu"
+K1_COMPACT_IDS = 128  # kCompactIds: the ids a warp packs at once
 
 
 def _k1_instances(S):
@@ -273,7 +277,9 @@ def test_k1_plan_covers_every_zoo_bag_once(name, dtype, grid_cap):
 
 @pytest.mark.parametrize("grid_cap", [None, 1])
 @pytest.mark.parametrize("d,dtype", [(32, torch.bfloat16), (64, torch.bfloat16),
-                                     (32, torch.float32), (64, torch.float32)])
+                                     (32, torch.float32), (64, torch.float32),
+                                     (8, torch.bfloat16), (256, torch.bfloat16),
+                                     (4, torch.float32), (128, torch.float32)])
 @pytest.mark.parametrize("L", [1, 2, 3, 5, 8, 20, 80, 120])
 @pytest.mark.parametrize("n_bags", [1, 13, 1001])
 def test_k1_plan_covers_edge_shapes_once(n_bags, L, d, dtype, grid_cap):
@@ -287,3 +293,73 @@ def test_k1_plan_covers_edge_shapes_once(n_bags, L, d, dtype, grid_cap):
         assert plan.bags_per_warp == plan.row_slots and plan.rows_per_step >= L
     reads, writes = _k1_coverage(plan, n_bags, L)
     assert (reads == 1).all() and (writes == 1).all()
+
+
+@pytest.mark.parametrize("d,dtype,vector", [
+    (4, torch.bfloat16, False), (8, torch.bfloat16, True), (12, torch.bfloat16, False),
+    (256, torch.bfloat16, True), (512, torch.bfloat16, False), (4, torch.float32, True),
+    (12, torch.float32, False), (128, torch.float32, True), (256, torch.float32, False),
+    (3, torch.float32, False)])
+def test_k1_plan_takes_the_16_byte_lanes_only_at_rows_of_16_times_2k_bytes(d, dtype, vector):
+    """Rows of 16 * 2^k bytes up to 512 take the 16-byte-lane mappings
+    (one instance a width in embedding_bag.cu); any other width the general
+    instance, a warp a bag (bags_per_warp 0), in the direct lookup and in
+    the window alike."""
+    for L in (1, 5, 80):
+        for plan in (k1_launch_plan(100, L, d, dtype), k1_window_plan(100, L, d, dtype)):
+            assert plan.general == (not vector)
+            if not vector:
+                assert plan.grid * K1_WARPS_PER_BLOCK >= plan.tasks == 100 and not plan.compact
+
+
+def _compact_coverage(ids: np.ndarray, row_lo: int, n_rows: int, plan) -> np.ndarray:
+    """How often the window's compacted gather reads each slot of each bag
+    (``csrc/embedding_bag.cu::embedding_bag_compact_kernel``'s index
+    arithmetic in numpy): windows of kCompactIds slots, lane l's r-th id the
+    slot w0 + 32 r + l, owned ids packed by rank (the ballot's popc below
+    the lane, plus the count of earlier registers), then the slots s < S of
+    P lanes reading packed ids k0 + u S + s."""
+    n_bags, L = ids.shape
+    S, U = plan.row_slots, plan.rows_per_lane
+    reads = np.zeros(ids.shape, np.int64)
+    for bag in range(n_bags):
+        for w0 in range(0, L, K1_COMPACT_IDS):
+            packed, n = {}, 0
+            for r in range(K1_COMPACT_IDS // 32):
+                lanes = w0 + r * 32 + np.arange(32)
+                owned = (lanes < L) & np.isin(lanes, np.flatnonzero(
+                    (ids[bag] >= row_lo) & (ids[bag] < row_lo + n_rows)))
+                for lane in np.flatnonzero(owned):
+                    packed[n + int(owned[:lane].sum())] = lanes[lane]
+                n += int(owned.sum())
+            for k0 in range(0, n, S * U):
+                for u in range(U):
+                    for s in range(S):
+                        k = k0 + u * S + s
+                        if k < n:
+                            reads[bag, packed[k]] += 1
+    return reads
+
+
+@pytest.mark.parametrize("L", [65, 120, 128, 300])
+def test_k1_window_compact_plan_reads_every_owned_slot_once(L):
+    """The window's plan for walks longer than K1W_DIRECT_STEPS steps is the
+    compacted gather: each slot whose row the shard owns read exactly once,
+    no other slot read. rm1's bags (d = 32, L = 80: 2.5 steps) keep the
+    direct mapping, rm2's (d = 64, L = 120: 7.5 steps) take the gather."""
+    plan = k1_window_plan(7, L, 64, torch.bfloat16)
+    assert plan.compact and plan.rows_per_lane == K1W_ROWS_PER_SLOT and plan.row_slots == 4
+    assert not k1_window_plan(7, 64, 64, torch.bfloat16).compact  # 4 steps: direct
+    assert not k1_window_plan(4096, 80, 32, torch.bfloat16).compact  # rm1
+    assert k1_window_plan(16384, 120, 64, torch.bfloat16).compact  # rm2
+    rng = np.random.default_rng(L)
+    ids = rng.integers(0, 1000, size=(7, L))
+    reads = _compact_coverage(ids, 250, 250, plan)
+    owned = (ids >= 250) & (ids < 500)
+    assert (reads == owned).all()
+
+
+def test_k1_compact_constants_match_the_kernel_source():
+    src = K1_CU.read_text()
+    assert re.search(rf"kCompactIds = {K1_COMPACT_IDS};", src)
+    assert re.search(rf"kCompactU = {K1W_ROWS_PER_SLOT};", src)

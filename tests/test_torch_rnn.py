@@ -98,8 +98,12 @@ def test_rnn_init_distributions():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     xproj = torch.zeros((3, 2, 64))
     w, b = torch.zeros((64, 64)), torch.zeros(64)
-    with pytest.raises(ValueError, match="hidden size 64"):
-        rnn_scan(torch.zeros((3, 2, 32)), w[:32, :32], b[:32], torch.float32)
+    with pytest.raises(ValueError, match="at most 1024"):
+        rnn_scan(torch.zeros((3, 2, 1025)), torch.zeros((1025, 1025)), torch.zeros(1025),
+                 torch.float32)
+    # Any other hidden size computes (the kernels' general instances on the card).
+    all_h, _ = rnn_scan(torch.zeros((3, 2, 32)), w[:32, :32], b[:32], torch.float32)
+    assert all_h.shape == (3, 2, 32)
     with pytest.raises(TypeError, match="xproj"):
         rnn_scan(xproj.bfloat16(), w, b, torch.float32)
     with pytest.raises(TypeError, match="share a dtype"):
