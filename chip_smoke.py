@@ -17,9 +17,10 @@ Before the fixtures (phase 3, widths) it holds every kernel at widths the
 zoo does not use to its plain version with the same tolerances, at a small
 size: K1, K1b, K1-int8, K4, K5 and the three K6 modes at d 4, 8, 12, 16
 and 128 (the 16-byte-lane instances and the general ones), K5 also at
-d 24, 48 and 100, each window mode at d = 8 (K5's bf16 shard also on rows
-of many adds, which its once-rounded bound holds), K3 and K3b at H 4, 8
-and 32; drives the dryrun's "dot"
+d 24, 48 and 100, each window mode at d = 8 (K5's window in both of its
+plans, its bf16 shard also on rows of many adds, which its once-rounded
+bound holds; K6 on a shard with the hits and on the cold-only route), K3
+and K3b at H 4, 8 and 32; drives the dryrun's "dot"
 DLRM (d = 8) and dien at H = 8 on the card against their CPU forwards,
 each read around itself; and times K1 at rm1's shape with d = 8 and K3 at
 DIEN's with H = 8 beside their plain versions, bounds and library calls.
@@ -101,8 +102,10 @@ plain version; rm1's latency ladder swept on the card
 beside phase 6's real engine; ``--enable_profiling`` (its trace lists K1)
 and ``experiments/op_breakdown.py`` for rm1 and dien; ``train_planted``
 (``experiments/train_quality.py``, sparse tables) on rm1 at full size with
-its holdout AUC beside the Bayes ceiling; and ``experiments/qps_sweep.py``
-on the card for rm1's latency-bounded QPS.
+its holdout AUC beside the Bayes ceiling, and that model's int8 row-wise
+export checkpointed and served through ``ServingServer`` on the card
+within 0.02 AUC of it (the JAX lifecycle test's rule); and
+``experiments/qps_sweep.py`` on the card for rm1's latency-bounded QPS.
 
 Then training over meshes whose entries all name the card (phase 17, after
 phase 11; virtual shards: every launch, gradient reduction and update runs,
@@ -166,15 +169,17 @@ from deeprecsys_tpu_torch.experiments import sweep as sweep_mod
 from deeprecsys_tpu_torch.kernel_bench import (
     HBM_BYTES_PER_S, cold_starts_bound, direct_call, g_rows, hotcold_calls, hotcold_inputs,
     k1_bound, k1_int8_bound, k1_library, k1b_bound, k1b_library, k3_bound, k3_library, k3b_bound,
-    k3b_library, k4_bound, k5_bound, k5_library, k6_bound, k6_call, k10_bound, k10_inputs,
-    k10_library, k1b_window_bound, k5_window_bound, measure, named_kernel_ms, ptxas_summary,
+    k3b_library, k4_bound, k5_bound, k5_library, k6_bound, k6_call, k6_cold_bound, k10_bound,
+    k10_inputs, k10_library, k1b_window_bound, k5_window_bound, mean_bound, measure,
+    named_kernel_ms, ptxas_summary,
     random_int8_tables, span_ms, window_bound, window_g_rows, window_library)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for, make_hotcold_model
 from deeprecsys_tpu_torch.ops import (
     _build, embedding_bag, embedding_bag_backward, embedding_bag_backward_reference,
-    embedding_bag_backward_shard, embedding_bag_hotcold, embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference,
+    embedding_bag_backward_shard, embedding_bag_cold_partial_reference, embedding_bag_hotcold,
+    embedding_bag_hotcold_int8, embedding_bag_hotcold_int8_reference,
     embedding_bag_hotcold_int8_rowwise, embedding_bag_hotcold_int8_rowwise_reference,
     embedding_bag_hotcold_int8_rowwise_shard, embedding_bag_hotcold_int8_shard,
     embedding_bag_hotcold_reference, embedding_bag_hotcold_shard, embedding_bag_int8,
@@ -188,7 +193,7 @@ from deeprecsys_tpu_torch import ops as port_ops
 from deeprecsys_tpu_torch.ops import embedding as emb_mod
 from deeprecsys_tpu_torch.ops import hotcold as hotcold_ops
 from deeprecsys_tpu_torch.ops.embedding import (
-    backward_tolerance, hotcold_cold_starts, hotcold_tolerance, pooled_tolerance,
+    backward_tolerance, cold_tolerance, hotcold_cold_starts, hotcold_tolerance, pooled_tolerance,
     rowwise_tolerance, scatter_counts, window_ids)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
@@ -252,8 +257,9 @@ KERNELS = {
     # the ownership window (a row shard's masked gather and pool under the
     # TPU package's shard_map, and the int8 pools GSPMD partitions in its
     # sharded_apply), and K6 on a shard's cold stream (the shard_map bodies
-    # of its sharded and hybrid hot/cold lookups), each leaving the partial
-    # in the type it sums in.
+    # of its sharded and hybrid hot/cold lookups: with the hot hits on the
+    # first shard, on the cold-only route on the others, both counted here),
+    # each leaving the partial in the type it sums in.
     "embedding_bag_shard": {"source": "deeprecsys_tpu_torch/ops/csrc/embedding_bag.cu",
                             "replaces": "deeprecsys_tpu/parallel/sharding.py:118"},
     "embedding_bag_int8_shard": {
@@ -385,11 +391,15 @@ QPS_SLA_MS = 25.0
 QPS_ARRIVALS = (4.0, 2.0, 1.4, 1.0)
 QPS_QUERIES = 300
 QPS_SUB_BATCH = 256
+# The served int8 export's holdout AUC against the trained model's: the
+# JAX lifecycle test's limit (tests/test_train_quality.py:68).
+SERVED_AUC_TOL = 0.02
 # Phase 16, serving over meshes whose entries all name the card (virtual
 # shards): the row shards of the kernels' cases and of the 1xM meshes, the
 # meshes rm1 runs on, and the models whose 1/4-shard windows are checked.
 MESH_SHARDS = 4
 MESH_AXES = ((1, 4), (2, 2), (4, 1))
+K6_TIMED_BATCHES = 4  # K6 on a shard timed on the zipf batches after the hot set's warm-up
 MESH_KERNEL_MODELS = ("rm1", "rm2")
 # The window kernel and K6's shard mode of each table layout.
 SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
@@ -936,7 +946,8 @@ def width_window_cases(device, c: dict, what: str, errs: dict):
     """Each window mode on rows [R/4, R/2) of ``c``'s tables: K1's (f32
     partial of bf16 and f32 shards), K1-int8's (exact), K4's, K1b's, K5's
     (f32 and bf16 shards) and K6 on a shard's cold stream in the three
-    layouts, each against its plain version."""
+    layouts, with hits and on the cold-only route, each against its plain
+    version."""
     offsets, idx, mask = c["offsets"], c["indices"], c["mask"]
     R = sum(WIDTH_ROWS)
     lo, hi = R // 4, R // 2
@@ -1019,6 +1030,19 @@ def width_window_cases(device, c: dict, what: str, errs: dict):
             raise AssertionError(f"K6 on a shard ({quant}) disagrees with its plain version "
                                  f"({what})")
         errs[key] = max(errs.get(key, 0.0), err.max().item())
+    # The cold-only route (a shard that counts no hot hit) on the same
+    # stream: the general instance at this width.
+    cold = {"cold_ids": split["cold_ids"], "cold_seg": split["cold_seg"],
+            "bags": tuple(split["hot_sel"].shape[:2])}
+    for quant in ("none",) + QUANT_MODES:
+        table = {"none": local["table"].bfloat16(), "int8": local["q"],
+                 "int8_rowwise": local["qrows"]}[quant]
+        got = _hotcold_partial(quant, None, table, cold)
+        synchronize(device)
+        want = _hotcold_partial(quant, None, table, cold, plain=True)
+        _merge(errs, HOTCOLD_SHARD[quant], _check_partial(
+            quant, got, want, table, f"{what}, K6's cold-only route", _hotcold_tol(quant, None,
+                                                                                    cold)))
 
 
 def width_times(device, card: str) -> dict:
@@ -3377,9 +3401,60 @@ def k5_zipf_case(device, cfg, learning_rate: float) -> float:
     return worst
 
 
+def serve_trained_export(device, tr, rep: dict, card: str) -> tuple[dict, dict]:
+    """The second half of the JAX lifecycle test (tests/test_train_quality.py
+    :44-68) on the card: ``train_planted``'s model exported int8 row-wise
+    (``export_serving_params``), checkpointed (``save_params``), served
+    through ``ServingServer`` (one engine on the card, buckets
+    (QUALITY_BATCH,)) over the holdout the trained AUC was taken on
+    (``make_holdout``, seed-pure), the served AUC held within
+    SERVED_AUC_TOL of the trained one; K4 must have served it. Returns both
+    AUCs and the launches."""
+    from deeprecsys_tpu_torch.utils.metrics_ml import auc
+
+    sp, qcfg = port_train.export_serving_params(tr.params, tr.cfg)
+    holdout = train_quality.make_holdout(tr.cfg, train_quality.planted_weights(tr.cfg),
+                                         n_batches=rep["holdout_n"] // rep["batch"],
+                                         batch=rep["batch"])
+    scfg = ServingConfig(engine_backend=_backend(device), inference_engines=1,
+                         batch_buckets=(rep["batch"],), max_mini_batch_size=rep["batch"],
+                         sub_task_batch_size=rep["batch"])
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        save_params(Path(tmp) / "ck", bridge.params_to_numpy(sp, qcfg))
+        del sp
+        _reset_counts()
+        server = ServingServer(qcfg, scfg, checkpoint_path=str(Path(tmp) / "ck"),
+                               accel_device=str(device))
+        server.start(timeout=600)
+        try:
+            scores, labels = [], []
+            for idx, dense, _logits, y in holdout:
+                out = server.predict(idx, dense=dense, timeout=120)
+                scores.append(np.asarray(out["scores"], np.float32)[:, 0])
+                labels.append(y)
+        finally:
+            server.stop()
+        counts = _counts()
+    served = auc(np.concatenate(scores), np.concatenate(labels).astype(int))
+    if counts["embedding_bag_int8_rowwise"] == 0:
+        raise AssertionError("the served int8 export never launched K4")
+    if not abs(served - rep["final_auc"]) <= SERVED_AUC_TOL:
+        raise AssertionError(f"the int8_rowwise export serves AUC {served:.4f}, the trained "
+                             f"model {rep['final_auc']:.4f} (limit {SERVED_AUC_TOL})")
+    _log(f"[15 data] train_planted's int8_rowwise export checkpointed and served through "
+         f"ServingServer (one engine, {_backend(device)}, buckets ({rep['batch']},)): served "
+         f"holdout AUC {served:.4f} against the trained {rep['final_auc']:.4f} (|diff| "
+         f"{abs(served - rep['final_auc']):.4f} <= {SERVED_AUC_TOL}), {rep['holdout_n']} rows, "
+         f"launches {_nonzero(counts)} [{card}]")
+    return {"served_auc": served, "trained_auc": rep["final_auc"]}, counts
+
+
 def data_train_qps(device, card: str) -> tuple[dict, dict]:
     """``train_planted`` on rm1 at full size (sparse tables, the JAX
-    defaults), its holdout AUC against Bayes and its steps a second; then
+    defaults), its holdout AUC against Bayes and its steps a second, its
+    int8 row-wise export served (``serve_trained_export``); then
     ``qps_sweep`` on ``gpu`` for rm1 over QPS_ARRIVALS."""
     cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
     (tr, rep), counts = _count_path("train_planted rm1", train_quality.train_planted, cfg,
@@ -3398,6 +3473,8 @@ def data_train_qps(device, card: str) -> tuple[dict, dict]:
          + ", ".join(f"{p['step']}: {p['auc']:.4f}" for p in rep["auc_curve"])
          + f"); loss {rep['loss_first8']:.4f} -> {rep['loss_last8']:.4f}; "
          f"{rep['steps_per_s']:.2f} steps/s (host batches, step, loss read) [{card}]")
+    rep["served"], scounts = serve_trained_export(device, tr, rep, card)
+    _add(counts, scounts)
     del tr
     _free(device)
     errs = {"sparse_adagrad_step": k5_zipf_case(device, cfg, rep["table_lr"]),
@@ -3492,7 +3569,18 @@ def _window_partial(quant: str, shard, offsets, idx, row_lo: int, mask, plain: b
 
 
 def _hotcold_partial(quant: str, hot, shard, split: dict, plain: bool = False):
-    """K6 on a shard in ``quant``'s layout (or its plain version)."""
+    """K6 on a shard in ``quant``'s layout (or its plain version); ``hot``
+    None: the cold-only route of a shard that counts no hot hit (``split``:
+    its cold stream and ``bags``)."""
+    if hot is None:
+        if plain:
+            return embedding_bag_cold_partial_reference(
+                shard, split, mode={"none": "float"}.get(quant, quant),
+                compute_dtype=torch.bfloat16 if quant == "none" else None)
+        kw = {"compute_dtype": torch.bfloat16} if quant == "none" else {}
+        return {"none": embedding_bag_hotcold_shard, "int8": embedding_bag_hotcold_int8_shard,
+                "int8_rowwise": embedding_bag_hotcold_int8_rowwise_shard}[quant](
+                    None, shard, split, **kw)
     if quant == "none":
         if plain:
             return embedding_bag_hotcold_reference(hot, shard, split,
@@ -3505,6 +3593,15 @@ def _hotcold_partial(quant: str, hot, shard, split: dict, plain: bool = False):
     if plain:
         return embedding_bag_hotcold_int8_rowwise_reference(hot, shard, split, partial=True)
     return embedding_bag_hotcold_int8_rowwise_shard(hot, shard, split)
+
+
+def _hotcold_tol(quant: str, hot, split: dict):
+    """The tolerance of K6 on a shard (``_check_partial``'s): the cold-only
+    route's (``hot`` None) or the hot/cold one's."""
+    rowwise = quant == "int8_rowwise"
+    if hot is None:
+        return lambda a, b, t, *r: cold_tolerance(a, b, t, split, rowwise=rowwise)
+    return lambda a, b, t, *r: hotcold_tolerance(a, b, hot, t, split, rowwise=rowwise)
 
 
 def _check_partial(quant: str, got, want, table, what: str, tolerance, *args) -> float:
@@ -3569,11 +3666,12 @@ def _on(x, device):
 
 def _hotcold_cells(quant: str, hp, split: dict, what: str, errs: dict) -> float:
     """K6 on every (data, model) cell of a mesh hot/cold lookup, as
-    ``parallel/sharding.py::_hotcold_row`` launches it: cell (d, m) takes
-    data slice d's hot hits (shard 0 only; the others an all-false mask) and
-    its own cold stream (``split``: tensor-parallel ``(M, C_pad)`` or hybrid
-    ``(D, M, C_pad)``, segments local to the slice, pad ``b_loc * T``), on
-    ``hp``'s shard and hot table; each held to its plain version."""
+    ``parallel/sharding.py::_hotcold_row`` launches it: cell (d, 0) takes
+    data slice d's hot hits and its own cold stream, every other cell its
+    cold stream alone (the cold-only route; ``split``: tensor-parallel
+    ``(M, C_pad)`` or hybrid ``(D, M, C_pad)``, segments local to the
+    slice, pad ``b_loc * T``), on ``hp``'s shard (and hot table); each held
+    to its plain version."""
     mesh = hp.mesh
     D, M = mesh.shape["data"], mesh.shape["model"]
     b = split["hot_sel"].shape[0] // D
@@ -3584,18 +3682,20 @@ def _hotcold_cells(quant: str, hp, split: dict, what: str, errs: dict) -> float:
             shard, hot = _layout_leaf(e["tables"]), e["hot_table"]
             dev = shard.device
             cold = (lambda k: split[k][d][m]) if D > 1 else (lambda k: split[k][m])
-            hits = _on(split["hot_mask"][d * b:(d + 1) * b], dev)
-            cell = {"hot_sel": _on(split["hot_sel"][d * b:(d + 1) * b], dev),
-                    "hot_mask": hits if m == 0 else torch.zeros_like(hits),
-                    "cold_ids": _on(cold("cold_local"), dev), "cold_seg": _on(cold("cold_seg"), dev)}
+            cell = {"cold_ids": _on(cold("cold_local"), dev),
+                    "cold_seg": _on(cold("cold_seg"), dev)}
+            if m == 0:
+                cell.update(hot_sel=_on(split["hot_sel"][d * b:(d + 1) * b], dev),
+                            hot_mask=_on(split["hot_mask"][d * b:(d + 1) * b], dev))
+            else:
+                hot, cell["bags"] = None, (b, split["hot_sel"].shape[1])
             got = _hotcold_partial(quant, hot, shard, cell)
             synchronize(dev)
             want = _hotcold_partial(quant, hot, shard, cell, plain=True)
             worst = max(worst, _check_partial(
                 quant, got, want, shard,
-                f"{what}: cell ({d}, {m}), b={b}, C_pad {cell['cold_ids'].numel()}",
-                lambda a, b_, t: hotcold_tolerance(a, b_, hot, t, cell,
-                                                   rowwise=quant == "int8_rowwise")))
+                f"{what}: cell ({d}, {m}), b={b}, C_pad {cell['cold_ids'].numel()}"
+                + ("" if m == 0 else ", cold-only"), _hotcold_tol(quant, hot, cell)))
     _merge(errs, HOTCOLD_SHARD[quant], worst)
     return worst
 
@@ -3646,13 +3746,15 @@ def _bucket_windows(device, cfg, sp, buckets, what: str, errs: dict) -> float:
 
 def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, dict]:
     """K1, K1-int8 and K4 with the ownership window, and K6 in the three
-    layouts on a shard's cold stream, at ``name``'s full shape and its 1/4
+    layouts on a shard's cold stream (with the hits on shard 0, on the
+    cold-only route on the others), at ``name``'s full shape and its 1/4
     row shards (rm1: all four, their partials combined and held to the
     direct kernels; rm2: its second shard), on the generator's ids (masked
     and not) and zipf(1.2) ids; each held to its plain version (int32
     partials bit for bit). At rm1 the direct K1 is held to the full window's
     partial rounded once, bit for bit, and each kernel is timed at shard
-    1's shape. Returns the max |error| and the times by kernel."""
+    1's shape (K6 also at shard 0's, with the hits). Returns the max |error|
+    and the times by kernel."""
     cfg = zoo.get_config(name, table_scale=TABLE_SCALE, param_dtype="bfloat16",
                          compute_dtype="bfloat16")
     g, offsets, indices, mask = _case_inputs(device, cfg, BATCH, None, seed)
@@ -3711,19 +3813,30 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
         _log("[16 mesh] rm1: K1 with the full window [0, R), rounded once, equals the direct "
              "K1 bit for bit")
 
-    # K6 on a shard's cold stream (zipf ids, the JAX hot-set rule).
+    # K6 on a shard's cold stream (zipf ids, the JAX hot-set rule): the hot
+    # set fitted on a warm-up batch, as the refreshing engine fits it on
+    # earlier traffic; checked on that batch and on a later one, timed on
+    # the later ones.
     zipf = zipf_stream(cfg, BATCH, seed=seed + 20)
     hot_ids, cov = _hot_set(cfg, zipf)
     offs64 = np.asarray(cfg.table_offsets, dtype=np.int64)
-    split = hotcold_ops.split_hot_cold_sharded(
-        zipf, offs64, hot_ids, MESH_SHARDS, rps,
-        cold_buckets=cold_buckets_for(zipf.size, _cuda_mesh(device, 1, MESH_SHARDS)),
-        impl="native")
-    zidx = torch.from_numpy(zipf).to(device)
-    hot_sel = torch.from_numpy(split["hot_sel"]).to(device)
-    hot_mask = torch.from_numpy(split["hot_mask"]).to(device)
-    no_hits = torch.zeros_like(hot_mask)
+    buckets = cold_buckets_for(zipf.size, _cuda_mesh(device, 1, MESH_SHARDS))
+    later = [zipf_stream(cfg, BATCH, seed=seed + 21 + i) for i in range(K6_TIMED_BATCHES)]
+    batches = [(b, hotcold_ops.split_hot_cold_sharded(b, offs64, hot_ids, MESH_SHARDS, rps,
+                                                      cold_buckets=buckets, impl="native"))
+               for b in [zipf] + later]
     hid = torch.as_tensor(hot_ids, dtype=torch.int64, device=device)
+
+    def shard_split(m: int, split: dict) -> dict:
+        """Shard m's call as the mesh path makes it: the hits on shard 0,
+        the cold-only route (its cold stream and ``bags``) on the others."""
+        sp = {"cold_ids": torch.from_numpy(split["cold_local"][m]).to(device),
+              "cold_seg": torch.from_numpy(split["cold_seg"][m]).to(device)}
+        hot_sel = torch.from_numpy(split["hot_sel"]).to(device)
+        if m == 0:
+            return dict(sp, hot_sel=hot_sel, hot_mask=torch.from_numpy(split["hot_mask"]).to(device))
+        return dict(sp, bags=tuple(hot_sel.shape[:2]))
+
     for quant in ("none",) + QUANT_MODES:
         key = HOTCOLD_SHARD[quant]
         table = tables[quant]
@@ -3731,42 +3844,44 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
         # layout at rm2 (the plain version takes the same ones).
         hot = (table.index_select(0, hid) if full
                else table.index_select(0, hid % table.shape[0]))
-        parts = []
-        for m in shards:
-            shard = table[m * rps - base:m * rps - base + rps]
-            sp = {"hot_sel": hot_sel, "hot_mask": hot_mask if (m == 0 or not full) else no_hits,
-                  "cold_ids": torch.from_numpy(split["cold_local"][m]).to(device),
-                  "cold_seg": torch.from_numpy(split["cold_seg"][m]).to(device)}
-            what = (f"{name} {quant} K6 on shard {m} of {MESH_SHARDS}: zipf(1.2), K={len(hot_ids)} "
-                    f"(coverage {cov:.4f}), C_pad {sp['cold_ids'].numel()}")
-            got = _hotcold_partial(quant, hot, shard, sp)
-            synchronize(device)
-            want = _hotcold_partial(quant, hot, shard, sp, plain=True)
-            err = _check_partial(quant, got, want, shard, what,
-                                 lambda a, b, t, *r: hotcold_tolerance(
-                                     a, b, hot, t, sp, rowwise=quant == "int8_rowwise"))
-            errs[key] = max(errs.get(key, 0.0), err)
-            parts.append(got)
-        if full:
-            acc = parts[0]
-            for p_ in parts[1:]:
-                acc = acc + p_
-            combined = _finish(quant, acc, scale)
-            direct = direct_call(quant, {"none": table, "int8": {"q": table, "scale": scale},
-                                         "int8_rowwise": {"qrows": table}}[quant],
-                                 offsets, zidx, torch.bfloat16)
-            what = f"{name} {quant}: K6 on {MESH_SHARDS} shards combined against the direct kernel"
-            if quant == "int8":
-                if not torch.equal(combined, direct):
-                    raise AssertionError(f"{what}: not bit for bit")
-            else:
-                _check_pooled(combined, direct, table, offsets, zidx, None, what,
-                              tolerance=tol[quant], kernel=key)
-        _log(f"[16 mesh] {key} ok at {name}'s {len(shards)} shard(s): max |err| "
-             f"{errs[key]:.3e} against the plain version"
+        for n, (ids_np, split) in enumerate(batches[:2]):
+            which = "the warm-up batch" if n == 0 else "a later batch"
+            parts = []
+            for m in shards:
+                shard = table[m * rps - base:m * rps - base + rps]
+                sp = shard_split(m, split)
+                h = hot if m == 0 else None
+                what = (f"{name} {quant} K6 on shard {m} of {MESH_SHARDS}: zipf(1.2), {which}, "
+                        f"K={len(hot_ids)} (coverage of the warm-up batch {cov:.4f}), C_pad "
+                        f"{sp['cold_ids'].numel()}" + ("" if m == 0 else ", cold-only"))
+                got = _hotcold_partial(quant, h, shard, sp)
+                synchronize(device)
+                want = _hotcold_partial(quant, h, shard, sp, plain=True)
+                err = _check_partial(quant, got, want, shard, what, _hotcold_tol(quant, h, sp))
+                errs[key] = max(errs.get(key, 0.0), err)
+                parts.append(got)
+            if full:
+                acc = parts[0]
+                for p_ in parts[1:]:
+                    acc = acc + p_
+                combined = _finish(quant, acc, scale)
+                direct = direct_call(quant, {"none": table, "int8": {"q": table, "scale": scale},
+                                             "int8_rowwise": {"qrows": table}}[quant],
+                                     offsets, torch.from_numpy(ids_np).to(device), torch.bfloat16)
+                what = (f"{name} {quant}: K6 on {MESH_SHARDS} shards combined against the direct "
+                        f"kernel ({which})")
+                if quant == "int8":
+                    if not torch.equal(combined, direct):
+                        raise AssertionError(f"{what}: not bit for bit")
+                else:
+                    _check_pooled(combined, direct, table, offsets,
+                                  torch.from_numpy(ids_np).to(device), None, what,
+                                  tolerance=tol[quant], kernel=key)
+        _log(f"[16 mesh] {key} ok at {name}'s {len(shards)} shard(s), on the warm-up batch and a "
+             f"later one: max |err| {errs[key]:.3e} against the plain version"
              + (" (int32, bit for bit)" if quant == "int8" else "")
-             + (f"; combined with the hot part on shard 0 only, the direct kernel's pool"
-                if full else ""))
+             + (f"; shards 1-{MESH_SHARDS - 1} on the cold-only route, combined with shard 0's "
+                f"hits, the direct kernel's pool" if full else "; shard 1 on the cold-only route"))
 
     # Times at shard 1's shape: the kernel, its plain version, the library call.
     lo = rps
@@ -3790,28 +3905,36 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
              f"card); bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); plain "
              f"{_us(t['plain_ms'])}; library {_us(t['library_ms'])}; wall a call "
              f"{k['wall_ms'] * 1e3:.2f} us [{card}]")
-    sp1 = {"hot_sel": hot_sel, "hot_mask": hot_mask,
-           "cold_ids": torch.from_numpy(split["cold_local"][1]).to(device),
-           "cold_seg": torch.from_numpy(split["cold_seg"][1]).to(device)}
+    # K6 on a shard, as the path calls it: shard 1 on the cold-only route
+    # (the call of every shard m >= 1, three launches of four) and shard 0
+    # with the hits, over the later batches; the bound over the same ones.
     for quant in ("none",) + QUANT_MODES:
-        shard = tables[quant][lo - base:lo - base + rps]
-        hot = tables[quant].index_select(0, hid % tables[quant].shape[0])
-        args = [(sp1,)]
-        k = measure(lambda s_: _hotcold_partial(quant, hot, shard, s_), args, TIMED_ITERS)
-        pl = measure(lambda s_: _hotcold_partial(quant, hot, shard, s_, plain=True), args,
-                     TIMED_ITERS)
-        lib = (measure(window_library(shard, lo, offsets), [(zidx,)], TIMED_ITERS)
-               if quant == "none" else None)
-        bound = k6_bound(hot, shard, sp1, torch.float32, "float" if quant == "none" else quant)
-        times[HOTCOLD_SHARD[quant]] = {
-            "ms": k["launch_sum_ms"], "plain_ms": pl["device_ms"],
-            "library_ms": None if lib is None else lib["device_ms"],
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
-        t = times[HOTCOLD_SHARD[quant]]
-        _log(f"[16 mesh] {HOTCOLD_SHARD[quant]} at {name}'s shard 1 (zipf, C_pad "
-             f"{sp1['cold_ids'].numel()}): {_us(t['ms'])} device, both launches (virtual shard "
-             f"on one card); bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); plain "
-             f"{_us(t['plain_ms'])}; library {_us(t['library_ms'])} [{card}]")
+        for m in (1, 0) if full else (1,):  # rm2's table holds shard 1 alone
+            shard = tables[quant][m * rps - base:m * rps - base + rps]
+            sps = [shard_split(m, split) for _, split in batches[1:]]
+            hot = tables[quant].index_select(0, hid % tables[quant].shape[0]) if m == 0 else None
+            args = [(sp,) for sp in sps]
+            k = measure(lambda s_: _hotcold_partial(quant, hot, shard, s_), args, TIMED_ITERS)
+            pl = measure(lambda s_: _hotcold_partial(quant, hot, shard, s_, plain=True), args,
+                         TIMED_ITERS)
+            lib = (measure(window_library(shard, m * rps, offsets),
+                           [(torch.from_numpy(b).to(device),) for b, _ in batches[1:]],
+                           TIMED_ITERS) if quant == "none" else None)
+            mode = "float" if quant == "none" else quant
+            bound = mean_bound([k6_cold_bound(shard, sp, mode) if m else
+                                k6_bound(hot, shard, sp, torch.float32, mode) for sp in sps])
+            sp = sps[0]
+            t = {"ms": k["launch_sum_ms"], "plain_ms": pl["device_ms"],
+                 "library_ms": None if lib is None else lib["device_ms"],
+                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+            times[HOTCOLD_SHARD[quant] + ("" if m else " shard 0")] = t
+            _log(f"[16 mesh] {HOTCOLD_SHARD[quant]} at {name}'s shard {m} (zipf, the "
+                 f"{K6_TIMED_BATCHES} batches after the warm-up, C_pad "
+                 f"{sp['cold_ids'].numel()}, {'the cold-only route' if m else 'with the hits'}): "
+                 f"{_us(t['ms'])} device, {k['launches']:.0f} launch(es) a call (virtual shard on "
+                 f"one card); bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+                 f"{bound['bytes'] / 1e6:.3f} MB); plain {_us(t['plain_ms'])}; windowed "
+                 f"F.embedding_bag {_us(t['library_ms'])} [{card}]")
     del tables
     _free(device)
     return errs, times

@@ -7,7 +7,7 @@ library yardsticks of the other training kernels K1b and K5 (``k1b_bound``,
 times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6,k3b]
-    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k5w
+    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k6w,k5w
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
@@ -46,11 +46,16 @@ For K1's ownership window (``--only k1w``) on shard 1 of rm1's and rm2's
 bf16 tables at 1x4 (a data slice of 512) and 2x2 (of 256): the shipped
 window kernel's time beside its plain version, ``window_bound`` and the
 windowed ``F.embedding_bag`` (``experiments/k1w_sweep.py`` sweeps both
-window designs and their floors at the same cells); ``--only k5w`` times
-K5's window on rm1's 1/4 shard (f32 and bf16 shards, batch 128) as a span
-beside its bound, after holding it to its plain version on the batch's ids
-and on ids folded onto 256 rows a table (rows of many adds, where a bf16
-shard's once-rounded bound is tight).
+window designs and their floors at the same cells); ``--only k6w`` times
+K6 on shards 0 and 1 of rm1's and rm2's 1x4 hot/cold mesh as the mesh path
+calls them (shard 0 with the hot hits, shard 1 with none: the cold-only
+route) in the three layouts, beside each call's bound, plain version and
+the windowed ``F.embedding_bag``; ``--only k5w`` times K5's window on
+rm1's 1/4, 1/2 and whole-table shards and rm2's 1/4 shard (f32 and bf16
+shards, batch 128) as a span beside its bound, plain version and library
+yardstick, after holding it to its plain version on the batch's ids and on
+ids folded onto 256 rows a table (rows of many adds, where a bf16 shard's
+once-rounded bound is tight).
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -1291,13 +1296,232 @@ def bench_k1w(log) -> list:
     return rows
 
 
+K6W_MODELS = ("rm1", "rm2")  # K6 on a shard: the zoo's long-bag models
+K6W_SHARDS = 4               # the 1x4 hot/cold mesh of the serving paths
+
+
+def hotcold_shard_inputs(name: str, quant: str, device, n_batches: int = 8, seed: int = 22,
+                         table_scale: int = 1) -> dict:
+    """K6 on a shard as the 1x4 hot/cold mesh calls it: the JAX hot-set rule
+    fitted on a warm-up zipf(1.2) batch of ``name`` (BATCH rows), as the
+    refreshing engine fits it on earlier traffic, then ``n_batches`` later
+    batches, each split by ``split_hot_cold_sharded`` into four shards'
+    cold streams (the mesh's pad ladder); a random table of ``quant``'s
+    layout (bf16 for "none"), its hot rows and shards 0 and 1 (views).
+    Returns ``{"cfg", "table", "hot", "shards", "row_lo", "offsets", "ids",
+    "splits": [{m: split of shard m}], "coverage", "n_cold"}`` over the
+    later batches; shard 0's split holds the hits and its cold stream,
+    shard 1's its cold stream and ``bags``; ``coverage`` is the hot set's
+    share of the warm-up batch."""
+    import types
+
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, zipf_stream
+    from deeprecsys_tpu_torch.models.base import table_offsets
+    from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
+    from deeprecsys_tpu_torch.ops.hotcold import split_hot_cold_sharded
+
+    cfg = zoo.get_config(name, table_scale=table_scale, param_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    rps = R // K6W_SHARDS
+    g = torch.Generator(device=device).manual_seed(1)
+    if quant == "none":
+        table = torch.empty((R, d), dtype=torch.bfloat16, device=device).uniform_(
+            -0.05, 0.05, generator=g)
+    else:
+        table = torch.randint(-127, 128, (R, d + (4 if quant == "int8_rowwise" else 0)),
+                              generator=g, device=device, dtype=torch.int8)
+        if quant == "int8_rowwise":
+            scales = torch.rand((R,), generator=g, device=device) * 1e-2 + 1e-4
+            table[:, d:] = scales.view(torch.int8).reshape(R, 4)
+    hot_ids, coverage = _hot_set(cfg, zipf_stream(cfg, BATCH, seed=seed))
+    streams = [zipf_stream(cfg, BATCH, seed=seed + 1 + i) for i in range(n_batches)]
+    offs = np.asarray(cfg.table_offsets, dtype=np.int64)
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": K6W_SHARDS})
+    splits, n_cold = [], []
+    for idx in streams:
+        sp = split_hot_cold_sharded(idx, offs, hot_ids, K6W_SHARDS, rps,
+                                    cold_buckets=cold_buckets_for(idx.size, mesh), impl="native")
+        on = {k: torch.from_numpy(np.ascontiguousarray(sp[k])).to(device)
+              for k in ("hot_sel", "hot_mask", "cold_local", "cold_seg")}
+        B, T, _ = on["hot_sel"].shape
+        splits.append({0: {"hot_sel": on["hot_sel"], "hot_mask": on["hot_mask"],
+                           "cold_ids": on["cold_local"][0].contiguous(),
+                           "cold_seg": on["cold_seg"][0].contiguous()},
+                       1: {"cold_ids": on["cold_local"][1].contiguous(),
+                           "cold_seg": on["cold_seg"][1].contiguous(), "bags": (B, T)}})
+        n_cold.append([int((sp["cold_seg"][m] < B * T).sum()) for m in (0, 1)])
+    return {"cfg": cfg, "table": table, "shards": [table[:rps], table[rps:2 * rps]],
+            "hot": table.index_select(0, torch.as_tensor(hot_ids, device=device)),
+            "row_lo": rps, "offsets": table_offsets(cfg, device),
+            "ids": [torch.from_numpy(s).to(device) for s in streams], "splits": splits,
+            "coverage": coverage, "n_cold": n_cold}
+
+
+def k6_shard_calls(quant: str, hot, shard) -> dict:
+    """K6 on a shard for ``quant``'s layout as the mesh path calls it, and
+    its plain version, as functions of a split: ``with_hits`` (shard 0:
+    the hot hits and its cold stream) and ``no_hits`` (shards m >= 1: the
+    cold-only route on the shard's cold stream). Each returns the
+    partial."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    wrap = {"none": emb.embedding_bag_hotcold_shard, "int8": emb.embedding_bag_hotcold_int8_shard,
+            "int8_rowwise": emb.embedding_bag_hotcold_int8_rowwise_shard}[quant]
+    kw = {"compute_dtype": torch.bfloat16} if quant == "none" else {}
+
+    def ref(s):
+        if quant == "none":
+            return emb.embedding_bag_hotcold_reference(hot, shard, s, compute_dtype=torch.bfloat16,
+                                                       partial=True)
+        if quant == "int8":
+            return emb.embedding_bag_hotcold_int8_reference(hot, shard, None, s, partial=True)
+        return emb.embedding_bag_hotcold_int8_rowwise_reference(hot, shard, s, partial=True)
+
+    def cold(s):
+        return {k: s[k] for k in ("cold_ids", "cold_seg", "bags")}
+
+    return {"with_hits": (lambda s: wrap(hot, shard, s, **kw), ref),
+            "no_hits": (lambda s: wrap(None, shard, cold(s), **kw),
+                        lambda s: emb.embedding_bag_cold_partial_reference(
+                            shard, cold(s), mode=_K6_MODE[quant],
+                            compute_dtype=torch.bfloat16 if quant == "none" else None))}
+
+
+_K6_MODE = {"none": "float", "int8": "int8", "int8_rowwise": "int8_rowwise"}
+
+
+def k6_cold_bound(shard: torch.Tensor, split: dict, mode: str = "float") -> dict:
+    """K6 on a shard that counts no hot hit (the cold-only route, JAX's
+    ``local_fn``): ``cold_ids`` and ``cold_seg`` read once (8 bytes a padded
+    cold slot), each distinct cold row read once (the layout's row bytes),
+    the ``(B*T, d)`` 4-byte partial written once; an add a gathered element
+    (and a multiply an element for row-wise rows)."""
+    B, T = split["bags"]
+    cold_ids, cold_seg = split["cold_ids"], split["cold_seg"]
+    d = shard.shape[1] - (4 if mode == "int8_rowwise" else 0)
+    real = cold_seg < B * T
+    rows = torch.unique(cold_ids[real]).numel()
+    nbytes = (cold_ids.numel() * 8 + rows * shard.shape[1] * shard.element_size()
+              + B * T * d * 4)
+    return _bound(nbytes, int(real.sum()) * d * (2 if mode == "int8_rowwise" else 1))
+
+
+def _check_shard_partial(quant: str, got, want, shard, hot, split: dict, what: str) -> float:
+    """K6 on a shard against its plain version: int8 bit for bit, else
+    within ``hotcold_tolerance`` (``cold_tolerance`` where ``hot`` is None,
+    the cold-only route)."""
+    from deeprecsys_tpu_torch.ops.embedding import cold_tolerance, hotcold_tolerance
+
+    if quant == "int8":
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 on a shard differs from its plain version ({what})")
+        return 0.0
+    rowwise = quant == "int8_rowwise"
+    tol = (cold_tolerance(got, want, shard, split, rowwise=rowwise) if hot is None else
+           hotcold_tolerance(got, want, hot, shard, split, rowwise=rowwise))
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"K6 on a shard disagrees with its plain version ({what}): max "
+                             f"|err| {err.max().item():.3e}")
+    return err.max().item()
+
+
+def mean_bound(bounds: list) -> dict:
+    """The mean of ``_bound`` dicts over the batches a time averages."""
+    out = {k: float(np.mean([b[k] for b in bounds])) for k in ("bytes", "flops", "bound_ms")}
+    by = {b["bound_by"] for b in bounds}
+    return {**out, "bound_by": by.pop() if len(by) == 1 else "bytes and operations"}
+
+
+def bench_k6w(log) -> list:
+    """K6 on a shard of the 1x4 hot/cold mesh at rm1's and rm2's full shapes
+    (the JAX hot-set rule fitted on a warm-up zipf(1.2) batch of 512, then
+    eight later batches), in the three layouts: the calls the mesh path
+    makes, shard 0 with the hits and its cold stream, and shard 1 on the
+    cold-only route with its own cold stream. Each is held to its plain
+    version on the first later batch, then timed over the later batches
+    (the median of each launch summed, ``launch_sum_ms``, and the span) in
+    the order plain, kernel, kernel, plain, beside its bound over the same
+    batches (``k6_bound`` with hits, ``k6_cold_bound`` without) and the
+    windowed ``F.embedding_bag`` of the float shard on the original ids
+    (``window_library``)."""
+    device = torch.device("cuda")
+    rows = []
+    for name in K6W_MODELS:
+        for quant in K6_LAYOUTS:
+            inp = hotcold_shard_inputs(name, quant, device)
+            lo = inp["row_lo"]
+            for call, m in (("with_hits", 0), ("no_hits", 1)):
+                shard = inp["shards"][m]
+                hot = inp["hot"] if m == 0 else None
+                fns = k6_shard_calls(quant, inp["hot"], shard)[call]
+                args = [(s[m],) for s in inp["splits"]]
+                s0 = inp["splits"][0][m]
+                err = _check_shard_partial(quant, fns[0](s0), fns[1](s0), shard, hot, s0,
+                                           f"{name} {quant} {call}")
+                runs = [measure(fn, args) for fn in (fns[1], fns[0], fns[0], fns[1])]
+                mode = _K6_MODE[quant]
+                bound = mean_bound([k6_cold_bound(shard, s[m], mode) if m else
+                                    k6_bound(inp["hot"], shard, s[m], torch.float32, mode)
+                                    for s in inp["splits"]])
+                lib = (measure(window_library(shard, m * lo, inp["offsets"]),
+                               [(i,) for i in inp["ids"]]) if quant == "none" else None)
+                row = {"model": name, "layout": quant, "call": call, "shard": m,
+                       "c_pad": s0["cold_ids"].numel(),
+                       "n_cold": float(np.mean([n[m] for n in inp["n_cold"]])),
+                       "coverage": inp["coverage"], **bound,
+                       "ms": float(np.mean([r["launch_sum_ms"] for r in runs[1:3]])),
+                       "ms_each": [r["launch_sum_ms"] for r in runs[1:3]],
+                       "span_ms": span_ms(fns[0], args),
+                       "launches": runs[1]["launches"], "by_kernel": runs[1]["us_by_kernel"],
+                       "plain_ms": float(np.mean([r["device_ms"] for r in (runs[0], runs[3])])),
+                       "library_ms": None if lib is None else lib["device_ms"],
+                       "max_abs_err": err}
+                log(f"K6 shard {m}/{K6W_SHARDS} {name} {quant} {call} (C_pad {row['c_pad']}, "
+                    f"{row['n_cold']:.0f} cold a batch, hot set's coverage of the warm-up batch "
+                    f"{row['coverage']:.4f}): {_us(row['ms'])} "
+                    f"({', '.join(_us(x) for x in row['ms_each'])}) in "
+                    f"{row['launches']:.0f} launches ({_by_kernel(row['by_kernel'])}); span "
+                    f"{_us(row['span_ms'])}; bound {_us(row['bound_ms'])} ({row['bound_by']}, "
+                    f"{row['bytes'] / 1e6:.3f} MB); plain {_us(row['plain_ms'])}; windowed "
+                    f"F.embedding_bag {_us(row['library_ms'])}; max |err| {err:.3e}")
+                rows.append(row)
+            del inp
+            torch.cuda.empty_cache()
+    return rows
+
+
+K5W_CELLS = (("rm1", 4), ("rm1", 2), ("rm1", 1), ("rm2", 4), ("rm1", 16), ("rm2", 16))
+# (model, model axis M)
+
+
+def k5w_library_bf16(shard: torch.Tensor, acc: torch.Tensor, learning_rate: float,
+                     eps: float = 1e-8):
+    """K5's window on a bf16 shard as PyTorch calls on the owned slots'
+    rows prepared beforehand (``window_g_rows``, and the touched rows with
+    each slot's rank among them): the accumulator's ``index_add_``, a
+    gather and ``rsqrt``, the f32 updates ``index_add_``-ed into an f32
+    copy of the touched rows, then the rows rounded once into the shard."""
+    def call(g_rows, row_g2, flat, touched, rank):
+        acc.index_add_(0, flat, row_g2)
+        scale = torch.rsqrt(acc[flat] + eps)
+        rows = shard.index_select(0, touched).float().index_add_(
+            0, rank, -learning_rate * (g_rows * scale[:, None]))
+        return shard.index_copy_(0, touched, rows.to(shard.dtype))
+    return call
+
+
 def bench_k5w(log) -> list:
-    """K5's window (``sparse_adagrad_step_shard``) on shard 1 of 4 of rm1's
-    table at the trainer's batch (128, eight batches of ids), f32 and bf16
-    shards: each held to its plain version on one batch, then the span of
-    its launches (``span_ms``) beside its bound (``k5_window_bound``) and
-    its plain version's device time. Only public functions, so an older
-    checkout runs it too."""
+    """K5's window (``sparse_adagrad_step_shard``) on shard 1 of M of rm1's
+    table (M 4, 2 and 1: the whole table) and of rm2's (M 4) at the
+    trainer's batch (128, eight batches of ids), f32 and bf16 shards: each
+    held to its plain version on one batch and on its ids folded onto 256
+    rows a table, then the span of its launches (``span_ms``) beside its
+    bound (``k5_window_bound``), its plain version's device time and its
+    library yardstick (``k5_library`` on an f32 shard, ``k5w_library_bf16``
+    on a bf16 one)."""
     from deeprecsys_tpu_torch import zoo
     from deeprecsys_tpu_torch.data import RecDataGenerator
     from deeprecsys_tpu_torch.models.base import table_offsets
@@ -1306,54 +1530,75 @@ def bench_k5w(log) -> list:
         sparse_adagrad_step_reference, sparse_adagrad_tolerance)
 
     device = torch.device("cuda")
-    cfg = zoo.get_config("rm1")
-    rps = cfg.total_rows // 4
-    lo, d = rps, cfg.sparse_feature_size
-    offsets = table_offsets(cfg, device)
-    g = torch.Generator(device=device).manual_seed(15)
-    ids = [b.to(device).indices for b in RecDataGenerator(cfg, seed=13).generate_batches(8, 128)]
-    gs = [torch.randn((128, cfg.num_tables, d), generator=g, device=device) * 1e-2 for _ in ids]
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        shard = ((torch.rand((rps, d), generator=g, device=device) - 0.5) * 0.1).to(dt)
-        acc = torch.zeros((rps,), dtype=torch.float32, device=device)
-        args = list(zip(gs, ids))
+    for name, M in K5W_CELLS:
+        cfg = zoo.get_config(name)
+        R = cfg.total_rows
+        rps = R // M
+        lo = rps if M > 1 else 0
+        d = cfg.sparse_feature_size
+        offsets = table_offsets(cfg, device)
+        g = torch.Generator(device=device).manual_seed(15)
+        ids = [b.to(device).indices for b in
+               RecDataGenerator(cfg, seed=13).generate_batches(8, 128)]
+        gs = [torch.randn((128, cfg.num_tables, d), generator=g, device=device) * 1e-2
+              for _ in ids]
+        for dt in (torch.float32, torch.bfloat16):
+            shard = ((torch.rand((rps, d), generator=g, device=device) - 0.5) * 0.1).to(dt)
+            acc = torch.zeros((rps,), dtype=torch.float32, device=device)
+            args = list(zip(gs, ids))
 
-        def k5(gr, i):
-            sparse_adagrad_step_shard(shard, acc, offsets, i, gr, lo, 0.1)
+            def k5(gr, i):
+                sparse_adagrad_step_shard(shard, acc, offsets, i, gr, lo, 0.1)
 
-        def plain(gr, i):
-            sparse_adagrad_step_reference(shard, acc, offsets, i, gr, 0.1, window=(lo, lo + rps))
+            def plain(gr, i):
+                sparse_adagrad_step_reference(shard, acc, offsets, i, gr, 0.1,
+                                              window=(lo, lo + rps))
 
-        # The batch's ids, then the same folded onto 256 rows of each table
-        # (tables 2 and 3 lie in the window): ~40 adds a row.
-        for what, i in (("ids", ids[0]), ("ids on 256 rows a table", ids[0] % 256)):
-            got_t, got_a, want_t, want_a = shard.clone(), acc.clone(), shard.clone(), acc.clone()
-            sparse_adagrad_step_shard(got_t, got_a, offsets, i, gs[0], lo, 0.1)
-            sparse_adagrad_step_reference(want_t, want_a, offsets, i, gs[0], 0.1,
-                                          window=(lo, lo + rps))
-            tol, acc_tol = sparse_adagrad_tolerance(shard, acc, offsets, i, gs[0], 0.1,
-                                                    window=(lo, lo + rps))
-            err = (got_t.float() - want_t.float()).abs()
-            if not (bool((err <= tol).all()) and bool(((got_a - want_a).abs() <= acc_tol).all())):
-                raise AssertionError(f"K5's window disagrees with its plain version ({dt}, "
-                                     f"{what}): max |err| table {err.max().item():.3e}")
-            del got_t, got_a, want_t, want_a, tol, acc_tol, err
-        bound = k5_window_bound(shard, gs[0], offsets, ids[0], lo)
-        span = span_ms(k5, args)
-        run = measure(k5, args)
-        pl = measure(plain, args)
-        row = {"dtype": str(dt)[6:], "span_ms": span, "device_ms": run["device_ms"],
-               "wall_ms": run["wall_ms"], "plain_ms": pl["device_ms"], **bound,
-               "by_kernel": run["us_by_kernel"]}
-        log(f"K5 window rm1 shard 1/4 {row['dtype']} B=128 T=8 L=80 d={d}: span "
-            f"{_us(span)}, device {_us(run['device_ms'])} a call over {run['launches']:.1f} "
-            f"launches, wall {_us(run['wall_ms'])}; bound {_us(bound['bound_ms'])} "
-            f"({bound['bound_by']}); plain {_us(row['plain_ms'])}; by kernel "
-            f"{_by_kernel(run['us_by_kernel'])}")
-        rows.append(row)
-        del shard, acc
-        torch.cuda.empty_cache()
+            # The batch's ids, then the same folded onto 256 rows of each table
+            # (rows of ~40 adds at rm1's 1/4 shard).
+            for what, i in (("ids", ids[0]), ("ids on 256 rows a table", ids[0] % 256)):
+                got_t, got_a = shard.clone(), acc.clone()
+                want_t, want_a = shard.clone(), acc.clone()
+                sparse_adagrad_step_shard(got_t, got_a, offsets, i, gs[0], lo, 0.1)
+                sparse_adagrad_step_reference(want_t, want_a, offsets, i, gs[0], 0.1,
+                                              window=(lo, lo + rps))
+                tol, acc_tol = sparse_adagrad_tolerance(shard, acc, offsets, i, gs[0], 0.1,
+                                                        window=(lo, lo + rps))
+                err = (got_t.float() - want_t.float()).abs()
+                if not (bool((err <= tol).all())
+                        and bool(((got_a - want_a).abs() <= acc_tol).all())):
+                    raise AssertionError(f"K5's window disagrees with its plain version "
+                                         f"({name} 1/{M}, {dt}, {what}): max |err| table "
+                                         f"{err.max().item():.3e}")
+                del got_t, got_a, want_t, want_a, tol, acc_tol, err
+            bound = k5_window_bound(shard, gs[0], offsets, ids[0], lo)
+            runs = [measure(fn, args) for fn in (plain, k5, k5, plain)]
+            spans = [span_ms(k5, args) for _ in range(2)]
+            prepared = [window_g_rows(gr, offsets, i, lo, rps) for gr, i in args]
+            if dt == torch.float32:
+                lib = measure(k5_library(shard, acc, 0.1), prepared)
+            else:
+                lib = measure(k5w_library_bf16(shard, acc, 0.1),
+                              [(*p, *torch.unique(p[2], return_inverse=True)) for p in prepared])
+            row = {"model": name, "shard": f"1/{M}", "dtype": str(dt)[6:],
+                   "shape": list(ids[0].shape) + [d], "span_ms": float(np.mean(spans)),
+                   "spans_ms": spans, "device_ms": runs[1]["device_ms"],
+                   "launch_sum_ms": float(np.mean([r["launch_sum_ms"] for r in runs[1:3]])),
+                   "wall_ms": runs[1]["wall_ms"], "launches": runs[1]["launches"],
+                   "plain_ms": float(np.mean([r["device_ms"] for r in (runs[0], runs[3])])),
+                   "library_ms": lib["device_ms"], **bound,
+                   "by_kernel": runs[1]["us_by_kernel"]}
+            rows.append(row)
+            log(f"K5 window {name} shard {row['shard']} {row['dtype']} B=128 "
+                f"T={cfg.num_tables} L={cfg.num_indices_per_lookup} d={d}: span "
+                f"{_us(row['span_ms'])} ({', '.join(_us(x) for x in spans)}), device "
+                f"{_us(row['device_ms'])} a call over {row['launches']:.1f} launches, launches' "
+                f"medians summed {_us(row['launch_sum_ms'])}, wall {_us(row['wall_ms'])}; bound "
+                f"{_us(bound['bound_ms'])} ({bound['bound_by']}); plain {_us(row['plain_ms'])}; "
+                f"library {_us(row['library_ms'])}; by kernel {_by_kernel(row['by_kernel'])}")
+            del shard, acc, prepared
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1370,7 +1615,7 @@ def _us(ms) -> str:
 
 BENCHES = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
            "k6": bench_k6, "k3b": bench_k3b, "k5": bench_k5, "k10": bench_k10,
-           "k1w": bench_k1w, "k5w": bench_k5w}  # --only's names
+           "k1w": bench_k1w, "k6w": bench_k6w, "k5w": bench_k5w}  # --only's names
 
 
 def main(argv=None) -> int:

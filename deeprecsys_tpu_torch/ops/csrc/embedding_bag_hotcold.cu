@@ -38,11 +38,12 @@
 // caller gives the shard as `table` and that shard's cold stream, whose
 // ids the host splitter already made shard-local (ops/hotcold.py::
 // split_hot_cold_hybrid), so no window is needed; the hot hits are counted
-// on one shard only (the others get an all-false hot_mask). The partial
-// leaves unscaled and unrounded: f32 for float and row-wise tables, the
-// exact int32 pool for per-table int8, so that the shards' partials add
-// exactly as the single-device sums do and the scale and rounding come
-// once, after the combine.
+// on one shard only, the first, and every other shard pools its cold
+// stream alone in the cold-only instance (drs_embedding_bag_cold_partial,
+// below). The partial leaves unscaled and unrounded: f32 for float and
+// row-wise tables, the exact int32 pool for per-table int8, so that the
+// shards' partials add exactly as the single-device sums do and the scale
+// and rounding come once, after the combine.
 //
 // What bounds it: the same random row reads as K1 (~21-24 G rows/s from
 // DRAM on an H100, PERF.md), with the hot rows from a K-row table that the
@@ -699,6 +700,311 @@ embedding_bag_hotcold_general_kernel(const TIn* __restrict__ hot, const TIn* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cold-only instance: K6 on a row shard that counts no hot hit (every
+// shard of a mesh but the first). It computes the TPU package's shard body
+// (deeprecsys_tpu/parallel/sharding.py:212-216 and :263-270, local_fn): the
+// shard's compacted cold rows segment-summed by cold_seg into the (B*T, D)
+// partial, the pads' bag (B*T) dropped, bags with no cold entry zero. It
+// reads no hot_sel, hot_mask or hot row and builds no cold_start: one
+// launch, no atomics, every output row written once.
+//
+// A warp owns kColdChunk consecutive cold entries [c0, c1) and the bags
+// (cold_seg[c0 - 1], cold_seg[c1 - 1]] (cold_seg[-1] = -1; the last chunk's
+// run to B*T - 1), so the chunks' bags tile [0, B*T) since cold_seg does not
+// decrease. Every bag it owns that has entries begins inside its chunk (a
+// bag's first entry is the first with cold_seg >= it), and it finishes each
+// of them, reading past c1 for the last; the entries before its first
+// begun bag belong to the warp before. Round trip 1 loads the chunk's ids
+// and segments and the next chunk's (a lane two of each) and the segment
+// before the chunk; the bags begun are the lanes whose segment differs from
+// the one before (one ballot). The owned bags before the first begun one
+// and after the last have no entry: the warp stores their zeros as one
+// contiguous run, 16 bytes a lane. The begun bags go a slot a bag (K6's
+// short-bag mapping: V values a lane, P lanes a row, S = 32 / P slots), S
+// of them a round: a slot finds its bag's entries [start, end) from the
+// begin ballot (__fns), takes their ids from the lanes that hold them (past
+// the 64 held, from cold_ids) and loads U rows a step (round trip 2), then
+// stores the bag's V values and zeroes the run of bags with no entry after
+// it (a sparse stream's chunk spans many such bags). Rows
+// load as K6's cold rows do (load_row16 with the layout's hint, row-wise
+// rows as K4 loads them).
+constexpr int kColdChunk = 32;  // cold entries a warp (ops/embedding.py::K6_COLD_CHUNK)
+constexpr int kColdRows = 8;    // rows a slot loads at once (U; row-wise rows half as many)
+
+// What a warp knows of its chunk after round trip 1.
+struct ColdChunk {
+  int32_t seg;        // this lane's entry's segment (n_bags past the stream)
+  int32_t id[2];      // this lane's entries c0 + lane and c0 + 32 + lane (0 past the stream)
+  unsigned begins;    // lanes whose entry begins a real bag
+  int nb;             // bags begun in the chunk
+  int64_t lo, hi;     // the bags the warp owns, [lo, hi]
+  int32_t first, last;  // the first and the last begun bag
+  int64_t last_end;   // one past the last begun bag's entries
+};
+
+// The first pad (segment >= n_bags) in [0, hi], cold_seg[hi] being one: a
+// search of 32 probes a round (each round a dependent load; about
+// log32(hi) of them).
+__device__ __forceinline__ int64_t first_pad(const int32_t* __restrict__ cold_seg, int64_t hi,
+                                             int32_t n_bags, int lane) {
+  int64_t lo = 0;  // every entry below lo is real
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t p = lo + lane * step;
+    const unsigned m = __ballot_sync(kFull, p >= hi || __ldg(cold_seg + p) >= n_bags);
+    if (m == 0u) {
+      lo += 31 * step + 1;
+      continue;
+    }
+    const int j = __ffs(m) - 1;
+    hi = min(lo + j * step, hi);
+    if (j > 0) lo += (j - 1) * step + 1;
+  }
+  return lo;
+}
+
+// A chunk of real entries owns the bags (cold_seg[c0 - 1], the last real
+// segment in it]; the last chunk's run to n_bags - 1. The bags past the
+// last real entry of the stream (every bag, at a shard that owns no cold
+// entry) are the pad-only chunks' (those from the first pad on), split
+// among them evenly: each finds the first pad, and so the last real
+// segment, by first_pad (pad_share, kept out of line: the chunks of real
+// entries never run it).
+struct BagRange {
+  int64_t lo, hi;
+};
+
+__device__ __noinline__ BagRange pad_share(const int32_t* __restrict__ cold_seg, int64_t chunk,
+                                           int64_t n_chunks, int32_t n_bags, int32_t before,
+                                           int lane) {
+  const int64_t c0 = chunk * kColdChunk;
+  const int64_t pad = c0 == 0 ? 0 : before < n_bags ? c0 : first_pad(cold_seg, c0 - 1, n_bags,
+                                                                     lane);
+  const int64_t last_real = pad == 0 ? -1 : (int64_t)min(__ldg(cold_seg + pad - 1), n_bags);
+  const int64_t pad_chunk0 = (pad + kColdChunk - 1) / kColdChunk;
+  const int64_t share = (n_bags - 1 - last_real + n_chunks - pad_chunk0 - 1) /
+                        (n_chunks - pad_chunk0);
+  const int64_t lo = last_real + 1 + (chunk - pad_chunk0) * share;
+  return {lo, (lo + share < n_bags ? lo + share : n_bags) - 1};
+}
+
+// A chunk of real entries: its begun bags, the bags it owns, its last
+// bag's end (past the chunk where that bag runs on).
+__device__ __forceinline__ void begun_bags(ColdChunk& c, const int32_t* __restrict__ cold_seg,
+                                           int64_t c_pad, int64_t c0, int32_t seg1,
+                                           int32_t before, int32_t n_bags, int lane) {
+  const int32_t up = __shfl_up_sync(kFull, c.seg, 1);
+  c.begins = __ballot_sync(kFull, c.seg != (lane == 0 ? before : up) && c.seg < n_bags);
+  c.nb = __popc(c.begins);
+  c.lo = before + 1;
+  const unsigned real = __ballot_sync(kFull, c.seg < n_bags);
+  c.hi = c0 + kColdChunk >= c_pad ? n_bags - 1
+                                  : (int64_t)__shfl_sync(kFull, c.seg, 31 - __clz(real));
+  if (c.nb == 0) return;
+  const int pl = 31 - __clz(c.begins);
+  c.first = __shfl_sync(kFull, c.seg, __ffs(c.begins) - 1);
+  c.last = __shfl_sync(kFull, c.seg, pl);
+  // The last begun bag's end: the first entry after it of another segment.
+  unsigned m = __ballot_sync(kFull, c.seg != c.last) & (pl == 31 ? 0u : ~0u << (pl + 1));
+  if (m != 0u) {
+    c.last_end = c0 + __ffs(m) - 1;
+  } else if ((m = __ballot_sync(kFull, seg1 != c.last)) != 0u) {
+    c.last_end = c0 + 32 + __ffs(m) - 1;
+  } else {
+    for (int64_t base = c0 + 64;; base += 32) {  // a bag longer than the two chunks held
+      const int64_t i = base + lane;
+      const int32_t s = i < c_pad ? min(__ldg(cold_seg + i), n_bags) : n_bags;
+      m = __ballot_sync(kFull, s != c.last);
+      if (m != 0u) {
+        c.last_end = base + __ffs(m) - 1;
+        break;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ ColdChunk cold_chunk(const int32_t* __restrict__ cold_ids,
+                                                const int32_t* __restrict__ cold_seg,
+                                                int64_t c_pad, int64_t chunk, int64_t n_chunks,
+                                                int32_t n_bags, int lane) {
+  ColdChunk c;
+  const int64_t c0 = chunk * kColdChunk;
+  const int64_t i0 = c0 + lane, i1 = i0 + 32;
+  c.seg = i0 < c_pad ? min(__ldg(cold_seg + i0), n_bags) : n_bags;
+  const int32_t seg1 = i1 < c_pad ? min(__ldg(cold_seg + i1), n_bags) : n_bags;
+  c.id[0] = i0 < c_pad ? __ldg(cold_ids + i0) : 0;
+  c.id[1] = i1 < c_pad ? __ldg(cold_ids + i1) : 0;
+  const int32_t before = c0 == 0 ? -1 : min(__ldg(cold_seg + c0 - 1), n_bags);
+  c.nb = 0;
+  c.begins = 0u;
+  c.first = c.last = 0;
+  c.last_end = c0;
+  if (__shfl_sync(kFull, c.seg, 0) >= n_bags) {  // a pad-only chunk
+    const BagRange r = pad_share(cold_seg, chunk, n_chunks, n_bags, before, lane);
+    c.lo = r.lo;
+    c.hi = r.hi;
+  } else {
+    begun_bags(c, cold_seg, c_pad, c0, seg1, before, n_bags, lane);
+  }
+  return c;
+}
+
+// Entry e's id: held by a lane (e - c0 < 64) or loaded. Every lane calls it.
+__device__ __forceinline__ int32_t cold_id(const ColdChunk& c, const int32_t* __restrict__ cold_ids,
+                                           int64_t c0, int64_t e, bool live) {
+  const int64_t r = e - c0;
+  const int32_t held = id_of<2>(c.id, r >= 0 && r < 64 ? (int)r : 0);
+  return !live ? -1 : r < 64 ? held : __ldg(cold_ids + e);
+}
+
+// Zeros over the partial's bags [lo, hi] (one contiguous run), 16 bytes a lane.
+template <typename TO, int D>
+__device__ __forceinline__ void zero_bags(TO* __restrict__ out, int64_t lo, int64_t hi, int lane) {
+  static_assert(D * sizeof(TO) % 16 == 0, "a bag's partial is whole 16-byte words");
+  uint4* p = reinterpret_cast<uint4*>(out + lo * D);
+  const int64_t n = (hi - lo + 1) * D * (int64_t)sizeof(TO) / 16;
+  for (int64_t w = lane; w < n; w += 32) p[w] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int M, typename TIn, typename TC, typename TO, int D, int H>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
+embedding_bag_cold_partial_kernel(const TIn* __restrict__ table,
+                                  const int32_t* __restrict__ cold_ids,
+                                  const int32_t* __restrict__ cold_seg, int64_t c_pad,
+                                  TO* __restrict__ out, int64_t n_bags) {
+  constexpr int V = M == kRowwise ? 16 : 16 / (int)sizeof(TIn);
+  constexpr int P = D / V;   // lanes a row
+  constexpr int S = 32 / P;  // bags a round
+  constexpr int U = M == kRowwise ? kColdRows / 2 : kColdRows;  // row-wise: two chunks a row
+  using Acc = typename std::conditional<M == kInt8, int, float>::type;
+  const int lane = threadIdx.x & 31;
+  const int slot = lane / P;
+  const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t warps = (int64_t)gridDim.x * kWarpsPerBlock;
+  const int64_t n_chunks = c_pad > 0 ? (c_pad + kColdChunk - 1) / kColdChunk : 1;
+  for (int64_t chunk = warp; chunk < n_chunks; chunk += warps) {
+    const int64_t c0 = chunk * kColdChunk;
+    const ColdChunk c = cold_chunk(cold_ids, cold_seg, c_pad, chunk, n_chunks, (int32_t)n_bags,
+                                   lane);
+    zero_bags<TO, D>(out, c.lo, c.nb != 0 ? c.first - 1 : c.hi, lane);
+    // S begun bags a round, slot s the round's s-th: its entries
+    // [start, start + n) pooled, then the zero run up to the next begun bag
+    // (the last one's up to hi) by the slot's P lanes.
+    for (int k0 = 0; k0 < c.nb; k0 += S) {
+      const int k = k0 + slot;  // the slot's bag's rank among the chunk's begun bags
+      const bool live = k < c.nb;
+      const int p = live ? (int)__fns(c.begins, 0, k + 1) : 0;
+      const int pn = k + 1 < c.nb ? (int)__fns(c.begins, 0, k + 2) : 0;
+      const int64_t bag = __shfl_sync(kFull, c.seg, p);
+      const int32_t next_seg = __shfl_sync(kFull, c.seg, pn);
+      const int64_t start = c0 + p;
+      const int n = !live ? 0 : (int)((k + 1 < c.nb ? c0 + pn : c.last_end) - start);
+      const int64_t next = k + 1 < c.nb ? (int64_t)next_seg : c.hi + 1;
+      const int steps = __reduce_max_sync(kFull, n);
+      Acc acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0;
+      for (int e0 = 0; e0 < steps; e0 += U) {
+        int32_t code[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          code[u] = cold_id(c, cold_ids, c0, start + e0 + u, e0 + u < n);
+        add_rows<M, TIn, TC, D, V, H>(acc, table, table, code, lane);
+      }
+      if (!live) continue;
+      store_vals<M, TO, V>(out + bag * D + (lane % P) * V, acc, nullptr, bag, 1);
+      constexpr int kWords = D * (int)sizeof(TO) / 16;  // 16-byte words a bag
+      uint4* run = reinterpret_cast<uint4*>(out);
+      for (int64_t w = (bag + 1) * kWords + lane % P; w < next * kWords; w += P)
+        run[w] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The cold-only instance at any width: the same chunks and bags, a warp a
+// bag in order, lane c the columns c, c + 32, ... as the general instance.
+template <int M, typename TIn, typename TC, typename TO>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+embedding_bag_cold_partial_general_kernel(const TIn* __restrict__ table,
+                                          const int32_t* __restrict__ cold_ids,
+                                          const int32_t* __restrict__ cold_seg, int64_t c_pad,
+                                          TO* __restrict__ out, int d, int64_t n_bags) {
+  using Acc = typename std::conditional<M == kInt8, int, float>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t rb = M == kRowwise ? d + 4 : d;  // a row's elements (bytes for int8)
+  const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t warps = (int64_t)gridDim.x * kWarpsPerBlock;
+  const int64_t n_chunks = c_pad > 0 ? (c_pad + kColdChunk - 1) / kColdChunk : 1;
+  auto zero = [&](int64_t lo, int64_t hi) {
+    for (int64_t i = lo * d + lane; i < (hi + 1) * d; i += 32) out[i] = TO(0);
+  };
+  for (int64_t chunk = warp; chunk < n_chunks; chunk += warps) {
+    const int64_t c0 = chunk * kColdChunk;
+    const ColdChunk c = cold_chunk(cold_ids, cold_seg, c_pad, chunk, n_chunks, (int32_t)n_bags,
+                                   lane);
+    zero(c.lo, c.nb != 0 ? c.first - 1 : c.hi);
+    if (c.nb == 0) continue;
+    zero((int64_t)c.last + 1, c.hi);
+    int64_t done = c.first;  // bags below it are written
+    for (int k = 0; k < c.nb; ++k) {
+      const int p = (int)__fns(c.begins, 0, k + 1);
+      const int64_t bag = __shfl_sync(kFull, c.seg, p);
+      zero(done, bag - 1);
+      const int64_t start = c0 + p;
+      const int64_t end = k + 1 < c.nb ? c0 + __fns(c.begins, 0, k + 2) : c.last_end;
+      for (int col0 = 0; col0 < d; col0 += 32 * kGeneralCols) {
+        Acc acc[kGeneralCols] = {};
+        for (int64_t e = start; e < end; ++e) {  // every value below is the same in every lane
+          const TIn* row = table + (int64_t)cold_id(c, cold_ids, c0, e, true) * rb;
+          float row_scale = 1.f;
+          if constexpr (M == kRowwise) {
+            const uint8_t* b = reinterpret_cast<const uint8_t*>(row) + d;
+            row_scale = __uint_as_float((uint32_t)__ldg(b) | ((uint32_t)__ldg(b + 1) << 8) |
+                                        ((uint32_t)__ldg(b + 2) << 16) |
+                                        ((uint32_t)__ldg(b + 3) << 24));
+          }
+#pragma unroll
+          for (int j = 0; j < kGeneralCols; ++j) {
+            const int col = col0 + lane + 32 * j;
+            if (col >= d) continue;
+            if constexpr (M == kInt8) {
+              acc[j] += (int)__ldg(row + col);
+            } else {
+              acc[j] += general_value<M, TC>(row, col, row_scale);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGeneralCols; ++j) {
+          const int col = col0 + lane + 32 * j;
+          if (col < d) to_out(acc[j], out + bag * d + col);
+        }
+      }
+      done = bag + 1;
+    }
+  }
+}
+
+// The cold-only launch: the tuned mapping at D = 32 and 64 (K6's hint of a
+// long bag's cold rows), the general instance at any other width.
+template <int M, typename TIn, typename TC, typename TO>
+int launch_cold(int d, const TIn* table, const int32_t* cold_ids, const int32_t* cold_seg,
+                int64_t c_pad, TO* out, int64_t n_bags, int grid, cudaStream_t stream) {
+  const dim3 g((unsigned)grid), b(kWarpsPerBlock * 32);
+  if (d == 32) {
+    embedding_bag_cold_partial_kernel<M, TIn, TC, TO, 32, Shipped<M, TIn, 32, false>::H>
+        <<<g, b, 0, stream>>>(table, cold_ids, cold_seg, c_pad, out, n_bags);
+  } else if (d == 64) {
+    embedding_bag_cold_partial_kernel<M, TIn, TC, TO, 64, Shipped<M, TIn, 64, false>::H>
+        <<<g, b, 0, stream>>>(table, cold_ids, cold_seg, c_pad, out, n_bags);
+  } else {
+    embedding_bag_cold_partial_general_kernel<M, TIn, TC, TO>
+        <<<g, b, 0, stream>>>(table, cold_ids, cold_seg, c_pad, out, d, n_bags);
+  }
+  return (int)cudaGetLastError();
+}
+
 struct Args {
   const void* hot;
   const void* table;
@@ -902,6 +1208,40 @@ int drs_embedding_bag_hotcold_partial(int mode, int table_dtype, int d, const vo
     return launch_width<kFloat, float, __nv_bfloat16, float>(d, u, ni, a);
   if (mode == kInt8) return launch_width<kInt8, int8_t, float, int32_t>(d, u, ni, a);
   if (mode == kRowwise) return launch_width<kRowwise, int8_t, float, float>(d, u, ni, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cold-only instance on one row shard (one launch): out is the
+// (n_bags, d) partial of the shard's cold stream, f32 for float and row-wise
+// tables, int32 for per-table int8; mode, table_dtype and compute_dtype as
+// drs_embedding_bag_hotcold_partial's. grid: ops/embedding.py::
+// k6_cold_grid's (any grid covers the stream: the warps stride over it).
+int drs_embedding_bag_cold_partial(int mode, int table_dtype, int d, const void* table,
+                                   const void* cold_ids, const void* cold_seg, int64_t c_pad,
+                                   void* out, int compute_dtype, int64_t n_bags, int grid,
+                                   void* stream) {
+  if (n_bags <= 0) return 0;
+  if (grid <= 0 || c_pad < 0 || d < 1 || n_bags >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const auto ids = static_cast<const int32_t*>(cold_ids);
+  const auto seg = static_cast<const int32_t*>(cold_seg);
+  const auto s = static_cast<cudaStream_t>(stream);
+  float* f = static_cast<float*>(out);
+  if (mode == kFloat && table_dtype == 1 && (compute_dtype == 0 || compute_dtype == 1))
+    return launch_cold<kFloat, __nv_bfloat16, float>(
+        d, static_cast<const __nv_bfloat16*>(table), ids, seg, c_pad, f, n_bags, grid, s);
+  if (mode == kFloat && table_dtype == 0 && compute_dtype == 0)
+    return launch_cold<kFloat, float, float>(d, static_cast<const float*>(table), ids, seg, c_pad,
+                                             f, n_bags, grid, s);
+  if (mode == kFloat && table_dtype == 0 && compute_dtype == 1)
+    return launch_cold<kFloat, float, __nv_bfloat16>(d, static_cast<const float*>(table), ids,
+                                                     seg, c_pad, f, n_bags, grid, s);
+  if (mode == kInt8)
+    return launch_cold<kInt8, int8_t, float>(d, static_cast<const int8_t*>(table), ids, seg,
+                                             c_pad, static_cast<int32_t*>(out), n_bags, grid, s);
+  if (mode == kRowwise)
+    return launch_cold<kRowwise, int8_t, float>(d, static_cast<const int8_t*>(table), ids, seg,
+                                                c_pad, f, n_bags, grid, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -56,27 +56,39 @@
 // The order of the atomic adds changes from run to run, so results agree
 // with a sequential scatter to within the rounding of the adds to a row.
 //
-// The ownership window (kWindow, drs_sparse_adagrad_window): the step of one
-// row shard of the table, rows [row_lo, row_lo + n_rows), with its own
+// The ownership window (drs_sparse_adagrad_window): the step of one row
+// shard of the table, rows [row_lo, row_lo + n_rows), with its own
 // accumulator; it replaces the shard's masked scatters of the sharded
-// sparse step (deeprecsys_tpu/train.py:177-182). Both launches run over the
-// whole stream it is given (every data slice's ids, concatenated), so every
-// accumulator add lands before any scale is read, as above; a slot whose
-// fused row lies outside the shard touches nothing (launch 1 adds no g^2,
-// launch 2's lanes leave before their wait). The update is cast to the table
-// dtype before it is added, as in the single-device step, for an f32
-// shard. A bf16 shard follows the TPU package's sharded step instead
-// (train.py:177-182: the shard's updates added in f32, each row rounded
-// once), with a merge inside the window: a launch before launch 1
-// (rank_rows_kernel) inserts each owned slot's row into an open-addressing
-// hash table in scratch (atomicCAS, linear probing, at most half full), so
-// each distinct touched row gets one entry; the thread that claims an entry
-// zeroes its f32 row and lists the entry. Launch 2 adds each owned slot's
-// f32 update into its row's entry (apply_merged_kernel:
-// red.global.add.v4.f32, 16 bytes a lane), and a last launch
-// (merge_rows_kernel, a warp a listed entry) adds each entry's row into the
-// shard and rounds it once. No sort and nothing read back; the
-// accumulator's adds are one a slot, as before.
+// sparse step (deeprecsys_tpu/train.py:177-182). It is given the whole
+// stream (every data slice's ids, concatenated), of which the shard owns
+// about 1 / M. Launch 1 (launch 1's mapping above: a lane a slot, S lanes a
+// window of a bag; column order at any width) adds each owned slot's bag's
+// mean g^2 to its accumulator; launch 2 (apply_shard_kernel) walks every
+// slot and a slot outside the window touches nothing, its lanes leaving
+// after one id load made before launch 2's wait. Every accumulator add
+// lands before any scale is read: launch 2 waits for launch 1
+// (programmatic dependent launch, as above). Measured and not shipped
+// (experiments/k5w_sweep.py, PERF.md): launch 1 a bag a task (its ids and
+// mean once) and a list of the owned slots that launch 2 walks alone; the
+// fewer warps of a bag a task hide less of launch 1's latency, and the
+// list's append and its dependent loads after launch 2's wait cost more
+// than the unowned lanes it spares. The update is cast to the table dtype
+// before it is added, as in the single-device step, for an f32 shard. A
+// bf16 shard follows the TPU package's sharded step instead (train.py:
+// 177-182: the shard's updates added in f32, each row rounded once), with
+// a merge inside the window: launch 1 (window_accumulate_kernel) also
+// inserts each owned slot's row into an open-addressing hash table
+// (atomicCAS, linear probing, at most half full), so each distinct touched
+// row gets one entry; the slot that claims an entry zeroes its f32 row and
+// lists it (one atomic add a warp). Launch 2 adds each slot's f32 update
+// into its entry's row (red.global.add.v4.f32, 16 bytes a lane), and a last
+// launch (merge_rows_kernel, a warp a listed entry) adds each entry's row
+// into the shard, rounds it once and frees its key. No sort, no memset and
+// nothing read back: the hash table and the count of claimed entries stay
+// in the wrapper's scratch from call to call; the merge frees every key it
+// set, and the count alternates between two, launch 1 zeroing the one the
+// previous call used, for the next call (so a CUDA graph, which would
+// replay one count, cannot hold the window: the wrapper refuses a capture).
 //
 // Widths. The mapping above is built at every width up to 64 whose table
 // and gradient rows are 16 * 2^k bytes, each width its instance; 32 and 64
@@ -92,6 +104,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 // Launch 1's L2 prefetches (bits; the sweep's, none shipped): the slot's
 // table row, for launch 2's atomic adds; the slot's accumulator, ahead of
 // launch 1's own add.
@@ -114,16 +127,7 @@ struct Args {
   int T, L;
   float neg_lr, eps;
   cudaStream_t stream;
-  int64_t row_lo, n_rows;  // the window (kWindow instances only)
-  // The bf16 window's merge (null keys: none), in the wrapper's scratch:
-  // the hash table's n_keys (a power of two) entries, each a shard row or
-  // -1 (set here); rank: each slot's entry (-1: another shard's row), then
-  // the count of claimed entries and the claimed entries (2 n_slots + 1
-  // ints); each entry's (D,) f32 sum.
-  int32_t* keys = nullptr;
-  int64_t n_keys = 0;
-  int32_t* rank = nullptr;
-  float* merged = nullptr;
+  int64_t row_lo = 0, n_rows = 0;  // the window (accumulate_kernel's kWindow instances)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -334,7 +338,8 @@ apply_kernel(TT* __restrict__ table, const float* __restrict__ acc, const TG* __
                                    0, 0);
 }
 
-// Launch 2 of one row shard: apply_kernel's slots, the window's only.
+// Launch 2 of one row shard on the direct plan: apply_kernel's slots, the
+// window's only.
 template <typename TT, typename TG, int D, int VB>
 __global__ void __launch_bounds__(kThreads)
 apply_shard_kernel(TT* __restrict__ table, const float* __restrict__ acc,
@@ -345,11 +350,12 @@ apply_shard_kernel(TT* __restrict__ table, const float* __restrict__ acc,
                                   row_lo, n_rows);
 }
 
-// Launch 2 of a bf16 window: apply_body's slots, each owned slot's f32
-// update added (VB-byte f32 reductions) into the f32 row of its rank.
+// Launch 2 of a bf16 window on the direct plan: apply_body's slots, each
+// owned slot's f32 update added (VB-byte f32 reductions) into the f32 row
+// of the entry launch 1 gave it (read after the wait: launch 1 wrote it).
 template <typename TG, int D, int VB>
 __global__ void __launch_bounds__(kThreads)
-apply_merged_kernel(float* __restrict__ merged, const int32_t* __restrict__ rank,
+apply_merged_kernel(float* __restrict__ merged, const int32_t* __restrict__ entry,
                     const float* __restrict__ acc, const TG* __restrict__ g,
                     const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
                     int64_t n_slots, int T, int L, float neg_lr, float eps, int64_t row_lo) {
@@ -361,14 +367,14 @@ apply_merged_kernel(float* __restrict__ merged, const int32_t* __restrict__ rank
   const int64_t slot = t / S;
   const int j = (int)(t % S);
   if (slot >= n_slots) return;
-  const int32_t r = __ldg(rank + slot);
-  if (r < 0) return;  // another shard's row
   const int64_t bag = slot / L;
   const int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot) - row_lo;
   float v[K][E];
 #pragma unroll
   for (int k = 0; k < K; ++k) load_g<TG, E>(g + bag * D + (j + k * S) * E, v[k]);
   wait_accumulated();
+  const int32_t r = __ldcg(entry + slot);
+  if (r < 0) return;  // another shard's row
   const float s = rsqrtf(__ldcg(acc + row) + eps);
   float* dst = merged + (int64_t)r * D;
 #pragma unroll
@@ -377,88 +383,6 @@ apply_merged_kernel(float* __restrict__ merged, const int32_t* __restrict__ rank
     for (int e = 0; e < E; ++e) v[k][e] = neg_lr * (v[k][e] * s);
     red_add<float, E>(dst + (j + k * S) * E, v[k]);
   }
-}
-
-// The bf16 window's first launch: a thread a slot; an owned slot inserts
-// its shard row into the hash table (linear probing from a multiplicative
-// hash; the table is at most half full) and records its entry in rank, -1
-// for another shard's row. The thread that claims an entry zeroes its f32
-// row, which launch 2 adds into, and appends the entry to `claimed`, whose
-// count is rank[n_slots].
-__global__ void __launch_bounds__(kThreads)
-rank_rows_kernel(int32_t* __restrict__ keys, int64_t n_keys, int32_t* __restrict__ rank,
-                 int32_t* __restrict__ claimed, float* __restrict__ merged,
-                 const int32_t* __restrict__ offsets, const int32_t* __restrict__ indices,
-                 int64_t n_slots, int T, int L, int d, int64_t row_lo, int64_t n_rows) {
-  const int64_t slot = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (slot >= n_slots) return;
-  const int64_t row = (int64_t)__ldg(offsets + (slot / L) % T) + __ldg(indices + slot) - row_lo;
-  if ((uint64_t)row >= (uint64_t)n_rows) {
-    rank[slot] = -1;
-    return;
-  }
-  const int32_t key = (int32_t)row;
-  const uint64_t mask = (uint64_t)n_keys - 1;
-  uint64_t h = ((uint32_t)key * 2654435761u) & mask;
-  for (;;) {
-    const int32_t prev = atomicCAS(keys + h, -1, key);
-    if (prev == -1) {
-      float* m = merged + h * d;
-      if (d % 4 == 0) {
-        for (int c = 0; c < d; c += 4) *reinterpret_cast<float4*>(m + c) = make_float4(0, 0, 0, 0);
-      } else {
-        for (int c = 0; c < d; ++c) m[c] = 0.f;
-      }
-      claimed[atomicAdd(rank + n_slots, 1)] = (int32_t)h;
-      break;
-    }
-    if (prev == key) break;
-    h = (h + 1) & mask;
-  }
-  rank[slot] = (int32_t)h;
-}
-
-// The bf16 window's last launch: each claimed entry's f32 sum added into
-// the shard's row and rounded once; a warp an entry (lanes over the row),
-// grid-stride over the count rank_rows_kernel left in *n_claimed.
-template <typename TT>
-__global__ void __launch_bounds__(kThreads)
-merge_rows_kernel(TT* __restrict__ table, const int32_t* __restrict__ keys,
-                  const int32_t* __restrict__ claimed, const int32_t* __restrict__ n_claimed,
-                  const float* __restrict__ merged, int d) {
-  const int lane = threadIdx.x & 31;
-  const int n = *n_claimed;
-  for (int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5; i < n;
-       i += ((int64_t)gridDim.x * kThreads) >> 5) {
-    const int64_t h = claimed[i];
-    TT* p = table + (int64_t)keys[h] * d;
-    for (int c = lane; c < d; c += 32) p[c] = from_float<TT>(to_float(p[c]) + merged[h * d + c]);
-  }
-}
-
-// The bf16 window's first launch (after the table's reset to -1 and the
-// count's to 0).
-int launch_rank_rows(const Args& a, int d) {
-  const int64_t n_slots = a.n_bags * a.L;
-  cudaError_t err = cudaMemsetAsync(a.keys, 0xff, a.n_keys * sizeof(int32_t), a.stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(a.rank + n_slots, 0, sizeof(int32_t), a.stream);
-  if (err != cudaSuccess) return (int)err;
-  rank_rows_kernel<<<(unsigned)((n_slots + kThreads - 1) / kThreads), kThreads, 0, a.stream>>>(
-      a.keys, a.n_keys, a.rank, a.rank + n_slots + 1, a.merged, a.offsets, a.indices, n_slots,
-      a.T, a.L, d, a.row_lo, a.n_rows);
-  return (int)cudaGetLastError();
-}
-
-// The bf16 window's last launch: a block for each 8 claimed entries at
-// most, at most 8 blocks an SM.
-int launch_merge_rows(const Args& a, int d) {
-  const int64_t n_slots = a.n_bags * a.L;
-  const int64_t blocks = (n_slots + kThreads / 32 - 1) / (kThreads / 32);
-  merge_rows_kernel<__nv_bfloat16><<<(unsigned)(blocks < 1056 ? blocks : 1056), kThreads, 0,
-                                     a.stream>>>(
-      static_cast<__nv_bfloat16*>(a.table), a.keys, a.rank + n_slots + 1, a.rank + n_slots,
-      a.merged, d);
-  return (int)cudaGetLastError();
 }
 
 // A row's mean of squares, summed in column order and multiplied by
@@ -476,26 +400,22 @@ __device__ float row_mean_sq(const TG* __restrict__ row, int d) {
 
 // The general instance's launch 1: a thread a slot; the slot's bag's mean
 // g^2 (row_mean_sq), one f32 atomic add into the slot's row.
-template <typename TG, bool kWindow>
+template <typename TG>
 __global__ void __launch_bounds__(kThreads)
 accumulate_general_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
                           const int32_t* __restrict__ indices, float* __restrict__ acc, int d,
-                          int64_t n_slots, int T, int L, int64_t row_lo, int64_t n_rows) {
+                          int64_t n_slots, int T, int L) {
   const int64_t slot = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (slot >= n_slots) return;
   const int64_t bag = slot / L;
-  int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
-  if constexpr (kWindow) {
-    row -= row_lo;
-    if ((uint64_t)row >= (uint64_t)n_rows) return;
-  }
+  const int64_t row = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + slot);
   atomicAdd(acc + row, row_mean_sq(g + bag * d, d));
 }
 
 // The general instance's launch 2 (stream-ordered after launch 1): a thread
 // a slot, one scalar atomic add an element, the update cast to the table
-// dtype first; or, with a rank (the bf16 window's merge), the f32 update
-// added into the f32 row of the slot's rank.
+// dtype first; or, with a rank (the bf16 window's merge on the direct
+// plan), the f32 update added into the f32 row of the slot's entry.
 template <typename TT, typename TG, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 apply_general_kernel(TT* __restrict__ table, float* __restrict__ merged,
@@ -523,29 +443,164 @@ apply_general_kernel(TT* __restrict__ table, float* __restrict__ merged,
   }
 }
 
-template <typename TT, typename TG, bool kWindow>
+// ---------------------------------------------------------------------------
+// The bf16 window's merge.
+
+// A window's state beside its shard (ops/sparse_adagrad.py::_window_launch).
+struct Window {
+  int64_t row_lo, n_rows;  // the shard's fused rows [row_lo, row_lo + n_rows)
+  int lanes;               // launch 1's lanes a window of a bag (a power of two <= 32)
+  // bf16 merge: this call's count of claimed entries, zero when the call
+  // starts; the previous call's (`other`) is set to zero by launch 1, for
+  // the call after this one: the wrapper keeps both and alternates them,
+  // so no call needs a memset.
+  int32_t* count;
+  int32_t* other;
+  int32_t* entry;    // bf16 merge: each slot's entry (-1 for another shard's row)
+  int32_t* keys;     // bf16 merge: the hash table's n_keys keys, -1 where free (kept between
+                     // calls: the merge frees what it used); null for an f32 shard
+  int64_t n_keys;
+  int32_t* claimed;  // bf16 merge: the claimed entries, *count of them
+  float* merged;     // bf16 merge: each entry's (d,) f32 sum of updates
+};
+
+// Row `key`'s entry in the hash table (linear probing from a
+// multiplicative hash; at most half full), claimed if it was free.
+__device__ __forceinline__ int32_t insert_row(int32_t* keys, int64_t n_keys, int32_t key,
+                                              bool& claimed) {
+  const uint64_t mask = (uint64_t)n_keys - 1;
+  uint64_t h = ((uint32_t)key * 2654435761u) & mask;
+  for (;;) {
+    const int32_t prev = atomicCAS(keys + h, -1, key);
+    if (prev == -1 || prev == key) {
+      claimed = prev == -1;
+      return (int32_t)h;
+    }
+    h = (h + 1) & mask;
+  }
+}
+
+// The index this lane's slot takes in a list that grows by one atomic add a
+// warp (its lanes that `take` it), or -1.
+__device__ __forceinline__ int warp_append(int32_t* count, bool take) {
+  const unsigned ball = __ballot_sync(kFull, take);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == __ffs(ball) - 1) base = atomicAdd(count, __popc(ball));
+  base = __shfl_sync(kFull, base, ball != 0u ? __ffs(ball) - 1 : 0);
+  return take ? base + __popc(ball & ((1u << lane) - 1u)) : -1;
+}
+
+// Launch 1 of a bf16 window (and of an f32 one at the general instance's
+// widths), on accumulate_kernel's mapping: a task is a window of w.lanes
+// slots of a bag (a lane a slot; w.lanes at least the gradient row's
+// 16-byte chunks for D > 0), the bag's mean g^2 computed as
+// accumulate_kernel computes it (D > 0: torch.mean's order; D = 0, any
+// width d: column order, row_mean_sq, by the window's first lane). An owned
+// slot adds the mean to its row's accumulator and, on a bf16 shard,
+// inserts its row into the hash table (a claimer zeroes its entry's f32
+// row and lists the entry, one atomic add a warp); each slot records its
+// entry (-1 where another shard owns its row). Block 0 zeroes the previous
+// call's count.
+template <typename TG, int D>
+__global__ void __launch_bounds__(kThreads)
+window_accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
+                         const int32_t* __restrict__ indices, float* __restrict__ acc, int d,
+                         int64_t n_bags, int T, int L, Window w) {
+  // Launch 2 may start now: it reads nothing before its wait.
+  asm volatile("griddepcontrol.launch_dependents;");
+  const bool merge = w.keys != nullptr;
+  if (merge && blockIdx.x == 0 && threadIdx.x == 0) *w.other = 0;
+  const int S = w.lanes;
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int windows = (L + S - 1) / S;
+  const int64_t task = t / S;
+  const int64_t bag = task / windows;
+  const int j = (int)(t % S);
+  const int l = (int)(task % windows) * S + j;
+  const bool real = bag < n_bags;  // a warp's tasks run past the last bag together
+  float mean_sq;
+  if constexpr (D > 0) {
+    constexpr int kE = 16 / (int)sizeof(TG);  // g values a 16-byte chunk
+    constexpr int kChunks = D / kE;
+    float v[kE] = {};
+    if (real && j < kChunks) {
+      load_g<TG, kE>(g + bag * D + j * kE, v);
+#pragma unroll
+      for (int k = 0; k < kE; ++k) v[k] = __fmul_rn(v[k], v[k]);
+    }
+#pragma unroll
+    for (int off = kChunks / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < kE; ++k) v[k] = __fadd_rn(v[k], __shfl_xor_sync(kFull, v[k], off));
+    }
+    mean_sq = __shfl_sync(kFull, halving_sum(v), 0, S) / (float)D;
+  } else {
+    const float m = real && j == 0 ? row_mean_sq(g + bag * d, d) : 0.f;
+    mean_sq = __shfl_sync(kFull, m, 0, S);
+  }
+  int64_t r = -1;
+  if (real && l < L)
+    r = (int64_t)__ldg(offsets + bag % T) + __ldg(indices + bag * L + l) - w.row_lo;
+  const bool own = r >= 0 && (uint64_t)r < (uint64_t)w.n_rows;
+  const int32_t row = (int32_t)r;
+  if (own) atomicAdd(acc + row, mean_sq);
+  if (!merge) return;  // an f32 shard at the general instance's widths
+  int32_t ent = -1;
+  {
+    bool claim = false;
+    if (own) ent = insert_row(w.keys, w.n_keys, row, claim);
+    const int at = warp_append(w.count, claim);
+    if (claim) {
+      const int dd = D > 0 ? D : d;
+      float* m = w.merged + (int64_t)ent * dd;
+      if (dd % 4 == 0) {
+        for (int c = 0; c < dd; c += 4) *reinterpret_cast<float4*>(m + c) = make_float4(0, 0, 0, 0);
+      } else {
+        for (int c = 0; c < dd; ++c) m[c] = 0.f;
+      }
+      w.claimed[at] = ent;
+    }
+  }
+  if (real && l < L) w.entry[bag * L + l] = ent;
+}
+
+// The bf16 window's last launch: each claimed entry's f32 sum added into
+// the shard's row and rounded once, and its key freed for the next call; a
+// warp an entry (lanes over the row), grid-stride over *count.
+template <typename TT>
+__global__ void __launch_bounds__(kThreads)
+merge_rows_kernel(TT* __restrict__ table, int d, Window w) {
+  wait_accumulated();
+  const int lane = threadIdx.x & 31;
+  const int n = __ldcg(w.count);
+  for (int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5; i < n;
+       i += ((int64_t)gridDim.x * kThreads) >> 5) {
+    const int64_t h = __ldcg(w.claimed + i);
+    TT* p = table + (int64_t)__ldcg(w.keys + h) * d;
+    for (int c = lane; c < d; c += 32)
+      p[c] = from_float<TT>(to_float(p[c]) + __ldcg(w.merged + h * d + c));
+    __syncwarp();
+    if (lane == 0) w.keys[h] = -1;
+  }
+}
+
+// The general instance's two launches (one device).
+template <typename TT, typename TG>
 int launch_general(const Args& a, int d) {
   const int64_t n_slots = a.n_bags * a.L;
   const unsigned blocks = (unsigned)((n_slots + kThreads - 1) / kThreads);
-  if (a.keys != nullptr) {
-    const int err = launch_rank_rows(a, d);
-    if (err != 0) return err;
-  }
-  accumulate_general_kernel<TG, kWindow><<<blocks, kThreads, 0, a.stream>>>(
-      static_cast<const TG*>(a.g), a.offsets, a.indices, a.acc, d, n_slots, a.T, a.L, a.row_lo,
-      a.n_rows);
-  int err = (int)cudaGetLastError();
+  accumulate_general_kernel<TG><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const TG*>(a.g), a.offsets, a.indices, a.acc, d, n_slots, a.T, a.L);
+  const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  apply_general_kernel<TT, TG, kWindow><<<blocks, kThreads, 0, a.stream>>>(
-      static_cast<TT*>(a.table), a.merged, a.keys != nullptr ? a.rank : nullptr, a.acc,
-      static_cast<const TG*>(a.g), a.offsets, a.indices, d, n_slots, a.T, a.L, a.neg_lr, a.eps,
-      a.row_lo, a.n_rows);
-  err = (int)cudaGetLastError();
-  if (err != 0 || a.keys == nullptr) return err;
-  return launch_merge_rows(a, d);
+  apply_general_kernel<TT, TG, false><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<TT*>(a.table), nullptr, nullptr, a.acc, static_cast<const TG*>(a.g),
+      a.offsets, a.indices, d, n_slots, a.T, a.L, a.neg_lr, a.eps, 0, 0);
+  return (int)cudaGetLastError();
 }
 
-template <typename TG, int D, int S, int PF, bool kWindow>
+template <typename TG, int D, int S, int PF, bool kWindow = false>
 int launch_accumulate(const Args& a, int row_bytes) {
   if constexpr (S < D * (int)sizeof(TG) / 16) {
     return (int)cudaErrorInvalidValue;  // fewer lanes than the row's chunks (k5_launch_plan)
@@ -559,8 +614,8 @@ int launch_accumulate(const Args& a, int row_bytes) {
 }
 
 // Launch 1 on lanes_per_bag (1, 2, 4, 8, 16 or 32: at least a 16-byte
-// chunk of the gradient row a lane) lanes a bag; the window's slots only when
-// kWindow.
+// chunk of the gradient row a lane) lanes a bag; the window's slots only
+// when kWindow.
 template <typename TG, int D, int PF, bool kWindow = false>
 int accumulate(const Args& a, int row_bytes, int lanes_per_bag) {
   switch (lanes_per_bag) {
@@ -613,28 +668,75 @@ int launch(const Args& a, int lanes_per_bag, bool pdl) {
   return launch_apply(apply_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl);
 }
 
-// Both launches of one row shard (Shipped's mapping, the window's slots);
-// with a rank, the bf16 merge's launches 2 and 3.
-template <typename TT, typename TG, int D, int VB, int PF>
-int launch_shard(const Args& a, int lanes_per_bag, bool pdl) {
-  constexpr int P = D * (int)sizeof(TT) / VB;
-  int err = a.keys != nullptr ? launch_rank_rows(a, D) : 0;
-  if (err != 0) return err;
-  err = accumulate<TG, D, PF, true>(a, D * (int)sizeof(TT), lanes_per_bag);
-  if (err != 0) return err;
-  if (a.keys != nullptr) {
-    constexpr int PM = D * (int)sizeof(float) / VB;  // lanes of an f32 row
-    err = launch_pdl(apply_merged_kernel<TG, D, VB>, a, a.n_bags * a.L * (PM < 32 ? PM : 32), pdl,
-                     a.merged, a.rank, static_cast<const float*>(a.acc),
-                     static_cast<const TG*>(a.g), a.offsets, a.indices, a.n_bags * a.L, a.T, a.L,
-                     a.neg_lr, a.eps, a.row_lo);
+// The window's launch 1 on its plan's lanes a window of a bag.
+template <typename TG, int D>
+int launch_window_accumulate(const Args& a, int d, const Window& w) {
+  const int64_t threads = a.n_bags * ((a.L + w.lanes - 1) / w.lanes) * w.lanes;
+  window_accumulate_kernel<TG, D><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                                    a.stream>>>(static_cast<const TG*>(a.g), a.offsets, a.indices,
+                                                a.acc, d, a.n_bags, a.T, a.L, w);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 merge's last launch: a warp a claimed entry at most, at most
+// kMergeBlocksPerSm blocks an SM (the warps stride over the entries).
+constexpr int kMergeBlocksPerSm = 8;
+
+template <typename TT>
+int launch_merge_rows(const Args& a, int d, const Window& w) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t cap = (int64_t)sms * kMergeBlocksPerSm * kThreads;
+  const int64_t threads = a.n_bags * a.L * 32;
+  return launch_pdl(merge_rows_kernel<TT>, a, threads < cap ? threads : cap, Shipped::kPdl,
+                    static_cast<TT*>(a.table), d, w);
+}
+
+// The window's launches at width D (Shipped's mapping): launch 1, launch 2
+// over every slot, a bf16 shard's merge last.
+template <typename TT, typename TG, int D, int VB>
+int launch_window(const Args& a, const Window& w) {
+  constexpr bool kPdl = Shipped::kPdl;
+  const int64_t n_slots = a.n_bags * a.L;
+  constexpr int PT = D * (int)sizeof(TT) / VB, PF = D * (int)sizeof(float) / VB;
+  constexpr int ST = PT < 32 ? PT : 32, SF = PF < 32 ? PF : 32;  // lanes a slot
+  if (w.keys == nullptr) {
+    // An f32 shard needs no entries: the single-device launch 1 with the
+    // window (accumulate_kernel's kWindow).
+    const int err = accumulate<TG, D, Shipped::kPrefetch, true>(a, D * (int)sizeof(TT), w.lanes);
     if (err != 0) return err;
-    return launch_merge_rows(a, D);
+    return launch_pdl(apply_shard_kernel<TT, TG, D, VB>, a, n_slots * ST, kPdl,
+                      static_cast<TT*>(a.table), static_cast<const float*>(a.acc),
+                      static_cast<const TG*>(a.g), a.offsets, a.indices, n_slots, a.T, a.L,
+                      a.neg_lr, a.eps, w.row_lo, w.n_rows);
   }
-  return launch_pdl(apply_shard_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl,
-                    static_cast<TT*>(a.table), static_cast<const float*>(a.acc),
-                    static_cast<const TG*>(a.g), a.offsets, a.indices, a.n_bags * a.L, a.T, a.L,
-                    a.neg_lr, a.eps, a.row_lo, a.n_rows);
+  int err = launch_window_accumulate<TG, D>(a, D, w);
+  if (err != 0) return err;
+  err = launch_pdl(apply_merged_kernel<TG, D, VB>, a, n_slots * SF, kPdl, w.merged,
+                   static_cast<const int32_t*>(w.entry), static_cast<const float*>(a.acc),
+                   static_cast<const TG*>(a.g), a.offsets, a.indices, n_slots, a.T, a.L,
+                   a.neg_lr, a.eps, w.row_lo);
+  if (err != 0) return err;
+  return launch_merge_rows<TT>(a, D, w);
+}
+
+// The window at any width: launch 1 (a bag's mean in column order), launch
+// 2 a thread a slot (stream-ordered), a bf16 shard's merge last.
+template <typename TT, typename TG>
+int launch_window_general(const Args& a, int d, const Window& w) {
+  const bool merge = w.keys != nullptr;
+  int err = launch_window_accumulate<TG, 0>(a, d, w);
+  if (err != 0) return err;
+  const int64_t n_slots = a.n_bags * a.L;
+  apply_general_kernel<TT, TG, true><<<(unsigned)((n_slots + kThreads - 1) / kThreads), kThreads,
+                                       0, a.stream>>>(
+      static_cast<TT*>(a.table), w.merged, merge ? w.entry : nullptr, a.acc,
+      static_cast<const TG*>(a.g), a.offsets, a.indices, d, n_slots, a.T, a.L, a.neg_lr, a.eps,
+      w.row_lo, w.n_rows);
+  err = (int)cudaGetLastError();
+  if (err != 0 || !merge) return err;
+  return launch_merge_rows<TT>(a, d, w);
 }
 
 // Whether width D takes the vector instance: D at most 64 (launch 1's
@@ -647,38 +749,42 @@ constexpr bool vector_width() {
 
 // lanes_per_bag 0: the general instance at any width; else the vector
 // instance of width d.
-template <typename TT, typename TG, bool kWindow>
+template <typename TT, typename TG>
 int launch_width(int d, const Args& a, int lanes_per_bag) {
   constexpr int VB = Shipped::kVecBytes;
   using K = Shipped;
-  if (lanes_per_bag == 0) return launch_general<TT, TG, kWindow>(a, d);
-#define DRS_K5_WIDTH(w)                                                                    \
-  if constexpr (vector_width<TT, TG, (w)>()) {                                             \
-    if (d == (w)) {                                                                        \
-      if constexpr (kWindow) {                                                             \
-        return launch_shard<TT, TG, (w), VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);     \
-      } else {                                                                             \
-        return launch<TT, TG, (w), VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl);           \
-      }                                                                                    \
-    }                                                                                      \
+  if (lanes_per_bag == 0) return launch_general<TT, TG>(a, d);
+#define DRS_K5_WIDTH(w)                                                     \
+  if constexpr (vector_width<TT, TG, (w)>()) {                              \
+    if (d == (w)) return launch<TT, TG, (w), VB, K::kPrefetch>(a, lanes_per_bag, K::kPdl); \
   }
   DRS_K5_WIDTH(4) DRS_K5_WIDTH(8) DRS_K5_WIDTH(16) DRS_K5_WIDTH(32) DRS_K5_WIDTH(64)
 #undef DRS_K5_WIDTH
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool kWindow>
-int launch_dtypes(int table_dtype, int d, const Args& a, int g_dtype, int lanes_per_bag) {
-  if (table_dtype == 0 && g_dtype == 0)
-    return launch_width<float, float, kWindow>(d, a, lanes_per_bag);
-  if (table_dtype == 0 && g_dtype == 1)
-    return launch_width<float, __nv_bfloat16, kWindow>(d, a, lanes_per_bag);
-  if (table_dtype == 1 && g_dtype == 0)
-    return launch_width<__nv_bfloat16, float, kWindow>(d, a, lanes_per_bag);
-  if (table_dtype == 1 && g_dtype == 1)
-    return launch_width<__nv_bfloat16, __nv_bfloat16, kWindow>(d, a, lanes_per_bag);
+// The window at width d: the general instance, or the vector one of d.
+template <typename TT, typename TG>
+int launch_window_width(int d, const Args& a, const Window& w, bool general) {
+  constexpr int VB = Shipped::kVecBytes;
+  if (general) return launch_window_general<TT, TG>(a, d, w);
+#define DRS_K5_WIDTH(x)                                                     \
+  if constexpr (vector_width<TT, TG, (x)>()) {                              \
+    if (d == (x)) return launch_window<TT, TG, (x), VB>(a, w);         \
+  }
+  DRS_K5_WIDTH(4) DRS_K5_WIDTH(8) DRS_K5_WIDTH(16) DRS_K5_WIDTH(32) DRS_K5_WIDTH(64)
+#undef DRS_K5_WIDTH
   return (int)cudaErrorInvalidValue;
 }
+
+// fn<TT, TG>(...) for the (table, gradient) dtype codes.
+#define DRS_K5_DTYPES(fn, ...)                                                    \
+  if (table_dtype == 0 && g_dtype == 0) return fn<float, float>(__VA_ARGS__);     \
+  if (table_dtype == 0 && g_dtype == 1) return fn<float, __nv_bfloat16>(__VA_ARGS__); \
+  if (table_dtype == 1 && g_dtype == 0) return fn<__nv_bfloat16, float>(__VA_ARGS__); \
+  if (table_dtype == 1 && g_dtype == 1)                                           \
+    return fn<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);                         \
+  return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
@@ -694,35 +800,51 @@ int drs_sparse_adagrad(void* table, int table_dtype, int d, void* acc, const voi
   if (n_bags <= 0 || L <= 0) return 0;
   const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
                   static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
-                  static_cast<cudaStream_t>(stream), 0, 0};
-  return launch_dtypes<false>(table_dtype, d, a, g_dtype, lanes_per_bag);
+                  static_cast<cudaStream_t>(stream)};
+  DRS_K5_DTYPES(launch_width, d, a, lanes_per_bag)
 }
 
 // One row shard's step: table is the shard's (n_rows, d) rows [row_lo,
 // row_lo + n_rows) of the fused table and acc its (n_rows,) accumulator;
-// the ids are the whole stream's table-local ids.
-// keys, n_keys, rank, merged: a bf16 shard's merge scratch (required for
-// one, null for an f32 shard): keys (n_keys int32, a power of two at least
-// twice the stream's slots), rank (2 * slots + 1 int32), merged ((n_keys,
-// d) f32, 16-byte aligned); none needs setting.
+// the ids are the whole stream's table-local ids. The plan
+// (ops/sparse_adagrad.py::k5_window_plan): launch 1's lanes_per_bag (a
+// power of two <= 32; at least the gradient row's 16-byte chunks unless
+// general) and general (any width: column order, scalar adds). A bf16
+// shard's merge (required for one, null for an f32 shard): count (int32,
+// zero) and other (the previous call's count, zeroed here for the next
+// call), keys (n_keys int32, a power of two at least twice the slots, each
+// -1, which the call leaves -1), entry and claimed (slots int32 each),
+// merged ((n_keys, d) f32, 16-byte aligned), none of which needs setting.
 int drs_sparse_adagrad_window(void* table, int table_dtype, int d, void* acc, const void* g,
                               int g_dtype, const void* offsets, const void* indices,
                               int64_t row_lo, int64_t n_rows, int64_t n_bags, int T, int L,
-                              float neg_lr, float eps, int lanes_per_bag, void* keys,
-                              int64_t n_keys, void* rank, void* merged, void* stream) {
+                              float neg_lr, float eps, int lanes_per_bag, int general,
+                              void* count, void* other, void* keys, int64_t n_keys, void* entry,
+                              void* claimed, void* merged, void* stream) {
   if (n_bags <= 0 || L <= 0) return 0;
-  if (row_lo < 0 || n_rows < 0 || n_rows >= (int64_t)1 << 31 ||
-      (table_dtype == 1) != (keys != nullptr) ||
-      (keys != nullptr && (n_keys < 2 * n_bags * L || (n_keys & (n_keys - 1)) != 0)))
+  const int64_t n_slots = n_bags * L;
+  const bool merge = keys != nullptr;
+  if (row_lo < 0 || n_rows < 0 || n_rows >= (int64_t)1 << 31 || n_slots >= (int64_t)1 << 31 ||
+      lanes_per_bag < 1 || lanes_per_bag > 32 || (lanes_per_bag & (lanes_per_bag - 1)) != 0 ||
+      (table_dtype == 1) != merge ||
+      (merge && (n_keys < 2 * n_slots || (n_keys & (n_keys - 1)) != 0 || count == nullptr ||
+                 other == nullptr || entry == nullptr || claimed == nullptr ||
+                 merged == nullptr)))
     return (int)cudaErrorInvalidValue;
-  Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
-            static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
-            static_cast<cudaStream_t>(stream), row_lo, n_rows};
-  a.keys = static_cast<int32_t*>(keys);
-  a.n_keys = n_keys;
-  a.rank = static_cast<int32_t*>(rank);
-  a.merged = static_cast<float*>(merged);
-  return launch_dtypes<true>(table_dtype, d, a, g_dtype, lanes_per_bag);
+  const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
+                  static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
+                  static_cast<cudaStream_t>(stream), row_lo, n_rows};
+  const Window w = {row_lo,
+                    n_rows,
+                    lanes_per_bag,
+                    static_cast<int32_t*>(count),
+                    static_cast<int32_t*>(other),
+                    static_cast<int32_t*>(entry),
+                    static_cast<int32_t*>(keys),
+                    n_keys,
+                    static_cast<int32_t*>(claimed),
+                    static_cast<float*>(merged)};
+  DRS_K5_DTYPES(launch_window_width, d, a, w, general != 0)
 }
 
 const char* drs_cuda_error_string(int err) {

@@ -41,9 +41,12 @@ ownership window (the shard's fused rows ``[row_lo, row_hi)``; a slot whose
 row lies outside adds nothing) and return the sum before its last step (f32
 for float and row-wise tables, the exact int32 pool for per-table int8), and
 the ``*_hotcold_*_shard`` wrappers do the same for K6 on a shard's cold
-stream. The caller adds the shards' partials and then scales and rounds
-once, so a sharded per-table int8 lookup is bit for bit the single-device
-one. Each keeps its own launch count. Under autograd (the dense mesh
+stream: with the hot hits on the first shard, and on every other one
+(``hot_table=None``) by K6's cold-only instance, one launch that pools the
+shard's cold stream alone (``embedding_bag_cold_partial_reference``, the
+JAX shard body). The caller adds the shards' partials and then scales and
+rounds once, so a sharded per-table int8 lookup is bit for bit the
+single-device one. Each keeps its own launch count. Under autograd (the dense mesh
 trainer) ``embedding_bag_shard`` runs as ``EmbeddingBagShardFunction``,
 whose backward is K1b with the same window (``embedding_bag_backward_shard``:
 the shard's own ``(R_s, d)`` f32 gradient).
@@ -1254,6 +1257,18 @@ def _check_k6_sizes(c_pad: int, n_bags: int):
                          f"{c_pad}, B*T {n_bags}")
 
 
+def _cold_pooled(row_fn, acc_dtype: torch.dtype, table: torch.Tensor, split: dict,
+                 B: int, T: int) -> torch.Tensor:
+    """The cold rows summed into their bags, ``(B, T, d)`` in
+    ``acc_dtype``: an ``index_add_`` segment sum over ``cold_seg`` into
+    ``B*T + 1`` bags, the last (the pads') dropped."""
+    cold = row_fn(table.index_select(0, split["cold_ids"].long()))
+    d = cold.shape[1]
+    segs = torch.zeros((B * T + 1, d), dtype=acc_dtype, device=table.device)
+    segs.index_add_(0, split["cold_seg"].long(), cold.to(acc_dtype))
+    return segs[:B * T].reshape(B, T, d)
+
+
 def _hotcold_pooled(row_fn, acc_dtype: torch.dtype, hot: torch.Tensor, table: torch.Tensor,
                     split: dict) -> torch.Tensor:
     """The hot hits pooled over L plus the cold rows summed into their bags,
@@ -1261,17 +1276,38 @@ def _hotcold_pooled(row_fn, acc_dtype: torch.dtype, hot: torch.Tensor, table: to
     values that are summed."""
     hot_sel, hot_mask = split["hot_sel"], split["hot_mask"]
     B, T, L = hot_sel.shape
-    cold = row_fn(table.index_select(0, split["cold_ids"].long()))
-    d = cold.shape[1]
+    segs = _cold_pooled(row_fn, acc_dtype, table, split, B, T)
+    d = segs.shape[-1]
     if hot.shape[0]:
         rows = row_fn(hot.index_select(0, hot_sel.reshape(-1).long()))
         rows = torch.where(hot_mask.reshape(-1, 1), rows, torch.zeros((), dtype=rows.dtype))
         pooled = rows.reshape(B, T, L, d).sum(dim=2, dtype=acc_dtype)
     else:  # K = 0: no hot hits
         pooled = torch.zeros((B, T, d), dtype=acc_dtype, device=table.device)
-    segs = torch.zeros((B * T + 1, d), dtype=acc_dtype, device=table.device)
-    segs.index_add_(0, split["cold_seg"].long(), cold.to(acc_dtype))
-    return pooled + segs[:B * T].reshape(B, T, d)  # the last bag holds the pads
+    return pooled + segs
+
+
+def embedding_bag_cold_partial_reference(table: torch.Tensor, split: dict, *,
+                                         mode: str = "float",
+                                         compute_dtype: torch.dtype | None = None
+                                         ) -> torch.Tensor:
+    """Plain PyTorch cold-only partial of a row shard that counts no hot
+    hit (the JAX shard body, ``parallel/sharding.py:212-216``, ``local_fn``):
+    ``split``'s ``cold_ids`` (shard-local) gathered from ``table`` in
+    ``mode``'s layout ("float", "int8" or "int8_rowwise") and
+    segment-summed by ``cold_seg`` (``index_add_``) into the ``(B, T, d)``
+    partial, ``split["bags"] = (B, T)``; pads (bag ``B*T``) dropped. Float
+    rows are converted to ``compute_dtype`` (default: the table's) and
+    summed in f32, per-table int8 rows in exact int32, row-wise rows
+    dequantized and summed in f32: ``embedding_bag_hotcold*_reference(...,
+    partial=True)`` with an all-false hot mask."""
+    B, T = split["bags"]
+    if mode == "int8":
+        return _cold_pooled(lambda r: r.to(torch.int32), torch.int32, table, split, B, T)
+    if mode == "int8_rowwise":
+        return _cold_pooled(dequant_packed_rows, torch.float32, table, split, B, T)
+    cdt = compute_dtype if compute_dtype is not None else table.dtype
+    return _cold_pooled(lambda r: r.to(cdt).float(), torch.float32, table, split, B, T)
 
 
 def embedding_bag_hotcold_reference(hot_table: torch.Tensor, table: torch.Tensor, split: dict,
@@ -1322,6 +1358,18 @@ def hotcold_tolerance(a: torch.Tensor, b: torch.Tensor, hot: torch.Tensor, table
     return _order_tolerance(a, b, abs_sum, split["hot_sel"].shape[-1])
 
 
+def cold_tolerance(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor, split: dict,
+                   rowwise: bool = False) -> torch.Tensor:
+    """``hotcold_tolerance`` for two cold-only partials (the cold-only
+    route's split, ``bags`` and no hot arrays): a bag sums at most as many
+    rows as the longest bag of the cold stream has entries."""
+    B, T = split["bags"]
+    row_fn = (lambda r: dequant_packed_rows(r).abs()) if rowwise else (lambda r: r.float().abs())
+    abs_sum = _cold_pooled(row_fn, torch.float32, table, split, B, T)
+    counts = torch.bincount(split["cold_seg"].long(), minlength=B * T + 1)[:B * T]
+    return _order_tolerance(a, b, abs_sum, int(counts.max()) if counts.numel() else 0)
+
+
 def _check_hotcold(hot, table, split: dict, *others):
     """The split's arrays and the hot table as K6 takes them (both devices
     share the contract). The cold stream's order is not checked: it would
@@ -1349,6 +1397,67 @@ def _check_hotcold(hot, table, split: dict, *others):
         raise ValueError("the tables and the split must be contiguous")
 
 
+def _check_cold(table, split: dict):
+    """The cold-only route's split: the shard's cold stream ``cold_ids``/
+    ``cold_seg`` and ``bags = (B, T)``, on the table's device."""
+    cold_ids, cold_seg = split["cold_ids"], split["cold_seg"]
+    if (cold_ids.dim() != 1 or cold_ids.dtype != torch.int32
+            or cold_seg.shape != cold_ids.shape or cold_seg.dtype != torch.int32):
+        raise TypeError(f"cold_ids and cold_seg must be (C_pad,) int32; got "
+                        f"{tuple(cold_ids.shape)} {cold_ids.dtype} and "
+                        f"{tuple(cold_seg.shape)} {cold_seg.dtype}")
+    bags = split["bags"]
+    if len(bags) != 2 or any(int(n) < 0 for n in bags):
+        raise ValueError(f"bags must be (B, T) >= 0; got {bags}")
+    if any(t.device != table.device for t in (cold_ids, cold_seg)):
+        raise ValueError("the table and the cold stream must be on one device")
+    if not all(t.is_contiguous() for t in (table, cold_ids, cold_seg)):
+        raise ValueError("the table and the cold stream must be contiguous")
+
+
+# The cold-only instance's chunk, kColdChunk in csrc/embedding_bag_hotcold.cu.
+K6_COLD_CHUNK = 32
+
+
+def k6_cold_grid(c_pad: int) -> int:
+    """The cold-only instance's grid: a warp a chunk of ``K6_COLD_CHUNK``
+    cold entries (one chunk for an empty stream: it zeroes every bag),
+    ``K6_WARPS_PER_BLOCK`` warps a block."""
+    chunks = max(1, -(-c_pad // K6_COLD_CHUNK))
+    return -(-chunks // K6_WARPS_PER_BLOCK)
+
+
+def _cold_dispatch(wrapper, mode: str, table, split: dict, d: int, cdt, align: int):
+    """K6's cold-only route on a row shard that counts no hot hit: for CPU
+    tensors ``embedding_bag_cold_partial_reference``; on the card one launch
+    of the cold-only instance, counted in ``wrapper.kernel_launches``.
+    Returns the ``(B, T, d)`` partial, f32 (int32 for per-table int8)."""
+    _check_cold(table, split)
+    device = table.device
+    if device.type == "cpu":
+        return embedding_bag_cold_partial_reference(
+            table, split, mode=mode, compute_dtype=cdt if mode == "float" else None)
+    if device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {device}")
+    B, T = (int(n) for n in split["bags"])
+    cold_ids, cold_seg = split["cold_ids"], split["cold_seg"]
+    if d in TUNED_WIDTHS and table.data_ptr() % align:
+        raise ValueError(f"K6 loads {align}-byte words: the table must start on a {align}-byte "
+                         f"boundary")
+    out = torch.empty((B, T, d), dtype=torch.int32 if mode == "int8" else torch.float32,
+                      device=device)
+    if B * T == 0:
+        return out
+    _check_k6_sizes(cold_ids.numel(), B * T)
+    _build.launch(_build.load("embedding_bag_hotcold", _declare_hotcold),
+                  "drs_embedding_bag_cold_partial", device, _K6_MODES[mode],
+                  _DTYPE_CODES.get(table.dtype, 0), d, table.data_ptr() or None,
+                  cold_ids.data_ptr() or None, cold_seg.data_ptr() or None, cold_ids.numel(),
+                  out.data_ptr(), _DTYPE_CODES[cdt], B * T, k6_cold_grid(cold_ids.numel()))
+    _build.count_launch(wrapper)
+    return out
+
+
 def _declare_hotcold(lib: ctypes.CDLL):
     lib.drs_embedding_bag_hotcold.restype = ctypes.c_int
     lib.drs_embedding_bag_hotcold.argtypes = [
@@ -1370,6 +1479,14 @@ def _declare_hotcold(lib: ctypes.CDLL):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,     # cold_start, out, compute dtype
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: rows/slot, ids/lane, grid
+        ctypes.c_void_p,                                    # stream
+    ]
+    lib.drs_embedding_bag_cold_partial.restype = ctypes.c_int
+    lib.drs_embedding_bag_cold_partial.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # mode, table dtype, d
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # table (the shard), cold_ids, cold_seg
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,      # C_pad, out, compute dtype
+        ctypes.c_int64, ctypes.c_int,                       # B*T, grid
         ctypes.c_void_p,                                    # stream
     ]
     lib.drs_hotcold_cold_starts.restype = ctypes.c_int
@@ -1514,19 +1631,28 @@ def embedding_bag_hotcold_int8_rowwise(hot_qrows: torch.Tensor, qrows: torch.Ten
 embedding_bag_hotcold_int8_rowwise.kernel_launches = 0
 
 
-def embedding_bag_hotcold_shard(hot_table: torch.Tensor, shard: torch.Tensor, split: dict, *,
+def embedding_bag_hotcold_shard(hot_table: torch.Tensor | None, shard: torch.Tensor,
+                                split: dict, *,
                                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One row shard's part of ``embedding_bag_hotcold`` (K6 on a shard):
     ``split``'s ``cold_ids`` are the shard's own cold ids, already local to
     it (``ops/hotcold.py::split_hot_cold_sharded``, ``_hybrid``), and its
-    ``hot_mask`` marks the hits this shard counts (all false on every shard
-    but one, so the hot part is counted once). Returns the ``(B, T, d)`` f32
-    partial, each row converted to the compute dtype and summed, not
-    rounded. CPU tensors take ``embedding_bag_hotcold_reference(...,
-    partial=True)``; CUDA tensors launch K6, counted in
-    ``embedding_bag_hotcold_shard.kernel_launches``."""
+    ``hot_mask`` marks the hits this shard counts: a mesh counts them on
+    its first shard only. Returns the ``(B, T, d)`` f32 partial, each row
+    converted to the compute dtype and summed, not rounded. CPU tensors take
+    ``embedding_bag_hotcold_reference(..., partial=True)``; CUDA tensors
+    launch K6, counted in ``embedding_bag_hotcold_shard.kernel_launches``.
+
+    ``hot_table`` None is the cold-only route, for a shard that counts no
+    hot hit (the JAX shard body): ``split`` holds only ``cold_ids``,
+    ``cold_seg`` and ``bags = (B, T)``; CPU tensors take
+    ``embedding_bag_cold_partial_reference``, CUDA tensors one launch of
+    K6's cold-only instance, counted here too."""
     cdt = compute_dtype if compute_dtype is not None else shard.dtype
     _check_float_table(shard, cdt)
+    if hot_table is None:
+        return _cold_dispatch(embedding_bag_hotcold_shard, "float", shard, split, shard.shape[1],
+                              cdt, 16)
     _check_hotcold(hot_table, shard, split)
     return _hotcold_dispatch(
         embedding_bag_hotcold_shard, "float", hot_table, shard, None, split, shard.shape[1], cdt,
@@ -1537,13 +1663,17 @@ def embedding_bag_hotcold_shard(hot_table: torch.Tensor, shard: torch.Tensor, sp
 embedding_bag_hotcold_shard.kernel_launches = 0
 
 
-def embedding_bag_hotcold_int8_shard(hot_q: torch.Tensor, q_shard: torch.Tensor,
+def embedding_bag_hotcold_int8_shard(hot_q: torch.Tensor | None, q_shard: torch.Tensor,
                                      split: dict) -> torch.Tensor:
     """``embedding_bag_hotcold_shard`` over a per-table int8 shard: the
     ``(B, T, d)`` exact int32 pool before the scale (K6-int8 with an int32
     output). CPU tensors take the plain version; CUDA tensors launch K6,
-    counted in ``embedding_bag_hotcold_int8_shard.kernel_launches``."""
+    counted in ``embedding_bag_hotcold_int8_shard.kernel_launches``;
+    ``hot_q`` None is the cold-only route, as there."""
     _check_int8_table(q_shard, 0, torch.float32)
+    if hot_q is None:
+        return _cold_dispatch(embedding_bag_hotcold_int8_shard, "int8", q_shard, split,
+                              q_shard.shape[1], torch.float32, 16)
     _check_hotcold(hot_q, q_shard, split)
     return _hotcold_dispatch(
         embedding_bag_hotcold_int8_shard, "int8", hot_q, q_shard, None, split, q_shard.shape[1],
@@ -1555,13 +1685,18 @@ def embedding_bag_hotcold_int8_shard(hot_q: torch.Tensor, q_shard: torch.Tensor,
 embedding_bag_hotcold_int8_shard.kernel_launches = 0
 
 
-def embedding_bag_hotcold_int8_rowwise_shard(hot_qrows: torch.Tensor, qrows_shard: torch.Tensor,
+def embedding_bag_hotcold_int8_rowwise_shard(hot_qrows: torch.Tensor | None,
+                                             qrows_shard: torch.Tensor,
                                              split: dict) -> torch.Tensor:
     """``embedding_bag_hotcold_shard`` over a row-wise int8 shard: the
     ``(B, T, d)`` f32 sum of the dequantized rows, not cast. CPU tensors
     take the plain version; CUDA tensors launch K6, counted in
-    ``embedding_bag_hotcold_int8_rowwise_shard.kernel_launches``."""
+    ``embedding_bag_hotcold_int8_rowwise_shard.kernel_launches``;
+    ``hot_qrows`` None is the cold-only route, as there."""
     _check_int8_table(qrows_shard, 4, torch.float32)
+    if hot_qrows is None:
+        return _cold_dispatch(embedding_bag_hotcold_int8_rowwise_shard, "int8_rowwise",
+                              qrows_shard, split, qrows_shard.shape[1] - 4, torch.float32, 4)
     _check_hotcold(hot_qrows, qrows_shard, split)
     return _hotcold_dispatch(
         embedding_bag_hotcold_int8_rowwise_shard, "int8_rowwise", hot_qrows, qrows_shard, None,

@@ -21,14 +21,14 @@ On a mesh (``train.py::make_sharded_sparse_table_step``) each row shard of
 the table takes ``sparse_adagrad_step_shard``: K5 with the ownership window
 (the shard's fused rows ``[row_lo, row_lo + R_s)`` and its own
 accumulator), over the stream of every data slice's ids, so that every
-accumulator add still lands before any scale is read. A bf16 shard follows
-the JAX sharded step (``train.py:177-182``): the accumulator still takes
-one f32 add a slot, but the table's updates are summed a row in f32 and
-each touched row is rounded once (a merge inside K5's window: a first
-launch gives each touched row an entry of a hash table in scratch, launch 2
-adds into the entry's f32 row, a last launch adds each row into the table
-and rounds it). An f32 shard adds into its rows directly, which is the same
-rule.
+accumulator add still lands before any scale is read. A bf16 shard
+follows the JAX sharded step (``train.py:177-182``): the accumulator still
+takes one f32 add a slot, but the table's updates are summed a row in f32
+and each touched row is rounded once (a merge inside K5's window: launch 1
+also gives each touched row an entry of a hash table kept from call to
+call, launch 2 adds into the entry's f32 row, a last launch adds each row
+into the table, rounds it and frees the entry). An f32 shard adds into its
+rows directly, which is the same rule.
 
 Any width d >= 1 computes: widths up to 64 whose rows (table and gradient)
 are 16 * 2^k bytes take the vector instances, any other width K5's general
@@ -40,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -91,6 +92,28 @@ def k5_launch_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype,
                   -(-n_bags * L * lanes_per_slot // K5_THREADS))
 
 
+@dataclasses.dataclass(frozen=True)
+class K5WindowPlan:
+    """K5's window: launch 1 on ``lanes_per_bag`` lanes a window of a
+    bag's slots (a power of two <= 32), ``general`` at a width without the
+    vector instances; launch 2 walks every slot of the stream."""
+    lanes_per_bag: int
+    general: bool
+
+
+@functools.lru_cache(maxsize=None)
+def k5_window_plan(n_bags: int, L: int, d: int, table_dtype: torch.dtype,
+                   g_dtype: torch.dtype) -> K5WindowPlan:
+    """The window's launch 1 takes ``k5_launch_plan``'s lanes a bag (the
+    power of two >= L, at least a lane a 16-byte chunk of the gradient row,
+    at most 32), or at the general instance's widths the power of two >= L
+    (at most 32). A bag a task and a list of the owned slots for launch 2
+    (``experiments/k5w_sweep.py``) measured slower (PERF.md §6)."""
+    plan = k5_launch_plan(n_bags, L, d, table_dtype, g_dtype)
+    lanes = plan.lanes_per_bag or min(32, 1 << max(0, L - 1).bit_length())
+    return K5WindowPlan(lanes, plan.general)
+
+
 def _window_rows(offsets, indices, g, window):
     """The step's touched rows (of the shard, with ``window``) and their
     f32 gradient rows; slots outside the window dropped."""
@@ -136,9 +159,10 @@ def _declare_window(lib: ctypes.CDLL):
         ctypes.c_int64, ctypes.c_int64,                # row_lo, rows
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,    # B*T, T, L
         ctypes.c_float, ctypes.c_float,                # -learning_rate, eps
-        ctypes.c_int,                                  # lanes a bag
+        ctypes.c_int, ctypes.c_int,                    # plan: lanes a bag, general
+        ctypes.c_void_p, ctypes.c_void_p,              # merge: this call's count, the last's
         ctypes.c_void_p, ctypes.c_int64,               # merge: hash keys, their number
-        ctypes.c_void_p, ctypes.c_void_p,              # merge: entry a slot, f32 rows
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # merge: entries, claimed, f32 rows
         ctypes.c_void_p,                               # stream
     ]
 
@@ -243,18 +267,14 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
       row_lo, learning_rate, eps: the window's first fused row; the step's.
 
     Only the rows the shard owns are touched; a slot whose row another shard
-    owns adds nothing. Both launches run over the whole stream, so every
-    accumulator add lands before any scale is read. A bf16 shard's updates
-    are summed a row in f32 and each touched row rounded once (the JAX
-    sharded step's rule): a first launch gives each touched row an entry of
-    a hash table in scratch (``_merge_scratch``), launch 2 adds into the
-    entry's f32 row, and a last launch adds each row into the shard and
-    rounds it. CPU tensors take
+    owns adds nothing. Every accumulator add lands before any scale is
+    read. A bf16 shard's updates are summed a row in f32 and each touched
+    row rounded once (the JAX sharded step's rule). CPU tensors take
     ``sparse_adagrad_step_reference(..., window=...)``; CUDA tensors launch
-    K5's window instance (two kernels on the current stream, four for a
-    bf16 shard, counted once in
-    ``sparse_adagrad_step_shard.kernel_launches``); a failed build or launch
-    raises.
+    K5's window (``_window_launch``: launch 1, which for a bf16 shard also
+    gives each owned row its merge entry, launch 2, and for a bf16 shard
+    the merge; counted once in ``sparse_adagrad_step_shard.kernel_launches``);
+    a failed build or launch raises.
     """
     if row_lo < 0:
         raise ValueError(f"row_lo must be >= 0; got {row_lo}")
@@ -268,19 +288,12 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
     B, T, L = indices.shape
     if B * T == 0 or L == 0:
         return None
-    g = g.contiguous()
-    if g.data_ptr() % 16:
-        g = g.clone()
-    plan = k5_launch_plan(B * T, L, shard.shape[1], shard.dtype, g.dtype)
-    merge = (None, 0, None, None)
-    if shard.dtype != torch.float32:
-        keys, rank, merged = _merge_scratch(shard, B * T * L)
-        merge = (keys.data_ptr(), keys.numel(), rank.data_ptr(), merged.data_ptr())
-    _build.launch(_build.load("sparse_adagrad", _declare_window), "drs_sparse_adagrad_window",
-                  shard.device, shard.data_ptr(), _DTYPE_CODES[shard.dtype], shard.shape[1],
-                  acc_shard.data_ptr(), g.data_ptr(), _DTYPE_CODES[g.dtype], offsets.data_ptr(),
-                  indices.data_ptr(), row_lo, shard.shape[0], B * T, T, L, -learning_rate, eps,
-                  plan.lanes_per_bag, *merge)
+    if shard.dtype != torch.float32 and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("K5's window on a bf16 shard keeps its count and hash keys from call "
+                           "to call on the stream; a CUDA graph would replay one call's: not "
+                           "capturable")
+    plan = k5_window_plan(B * T, L, shard.shape[1], shard.dtype, g.dtype)
+    _window_launch(shard, acc_shard, offsets, indices, g, row_lo, learning_rate, eps, plan)
     _build.count_launch(sparse_adagrad_step_shard)
     return None
 
@@ -288,20 +301,78 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
 sparse_adagrad_step_shard.kernel_launches = 0
 
 
-def _merge_scratch(shard: torch.Tensor, n_slots: int) -> tuple:
-    """The bf16 window's merge scratch, none of it set here: the hash
-    table's keys (int32, the power of two >= 2 n_slots, so at most half
-    full), each slot's entry then the count and the list of claimed entries
-    (int32) and each entry's f32 row; with the table's size, as
-    ``drs_sparse_adagrad_window`` takes them."""
-    if shard.shape[0] >= 2 ** 31:
-        raise ValueError(f"the bf16 window keys the shard's rows in int32; got "
-                         f"{shard.shape[0]} rows")
-    n_keys = 1 << (2 * n_slots - 1).bit_length()
-    keys = torch.empty((n_keys,), dtype=torch.int32, device=shard.device)
-    rank = torch.empty((2 * n_slots + 1,), dtype=torch.int32, device=shard.device)
-    merged = torch.empty((n_keys, shard.shape[1]), dtype=torch.float32, device=shard.device)
-    return keys, rank, merged
+def _window_launch(shard, acc, offsets, indices, g, row_lo: int, learning_rate: float,
+                   eps: float, plan: K5WindowPlan, lib: ctypes.CDLL | None = None):
+    """K5's window launches on checked CUDA tensors on ``plan``, with a
+    bf16 shard's scratch (``_window_state``), from ``lib`` (a build of K5's
+    source with its C entry; the shipped one by default)."""
+    B, T, L = indices.shape
+    n_slots = B * T * L
+    if n_slots >= 2 ** 31:
+        raise ValueError(f"K5's window indexes slots in int32; got {n_slots}")
+    g = g.contiguous()
+    if g.data_ptr() % 16:  # the kernels load g's rows in 16-byte chunks
+        g = g.clone()
+    dev = shard.device
+    scratch = (None, None, None, 0, None, None, None)
+    if shard.dtype != torch.float32:
+        if shard.shape[0] >= 2 ** 31:
+            raise ValueError(f"the bf16 window keys the shard's rows in int32; got "
+                             f"{shard.shape[0]} rows")
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        key = (index, torch._C._cuda_getCurrentRawStream(index))
+        state, pair = _window_state(key, dev, n_slots)
+        count, work, keys = (state[k].data_ptr() for k in ("count", "work", "keys"))
+        merged = torch.empty((state["keys"].numel(), shard.shape[1]), dtype=torch.float32,
+                             device=dev)
+        scratch = (count + 4 * pair, count + 4 * (1 - pair), keys, state["keys"].numel(), work,
+                   work + 4 * n_slots, merged.data_ptr())
+    if lib is None:
+        lib = _build.load("sparse_adagrad", _declare_window)
+    try:
+        _build.launch(lib, "drs_sparse_adagrad_window", dev, shard.data_ptr(),
+                      _DTYPE_CODES[shard.dtype], shard.shape[1], acc.data_ptr(), g.data_ptr(),
+                      _DTYPE_CODES[g.dtype], offsets.data_ptr(), indices.data_ptr(), row_lo,
+                      shard.shape[0], B * T, T, L, -learning_rate, eps, plan.lanes_per_bag,
+                      int(plan.general), *scratch)
+    except Exception:
+        if scratch[0] is not None:
+            with _WINDOW_LOCK:  # a launch that failed may leave the count or keys set
+                _WINDOW_STATE.pop(key, None)
+        raise
+
+
+_WINDOW_STATE: dict = {}
+_WINDOW_LOCK = threading.Lock()
+
+
+def _window_state(key, device, n_slots: int) -> tuple[dict, int]:
+    """A bf16 window's scratch kept from call to call on one (card, stream),
+    whose calls run in its order, and the count this call takes: ``count``
+    (two int32, zero; the calls alternate between them, and each one's
+    launch 1 zeroes the one the call before used, for the call after it),
+    ``work`` (int32: each slot's entry, then the claimed entries, ``n_slots``
+    each) and ``keys`` (the hash table: int32, -1 where free, the power of
+    two >= 2 ``n_slots``, so at most half full; each call's merge frees
+    every key it set). So no call sets them: they are filled once, when
+    made or grown, on the stream that uses them. A CUDA graph would replay
+    one count without its zeroing, so ``sparse_adagrad_step_shard`` refuses
+    a capture."""
+    with _WINDOW_LOCK:
+        state = _WINDOW_STATE.get(key)
+        if state is None:
+            state = {"count": torch.zeros((2,), dtype=torch.int32, device=device),
+                     "work": torch.empty((0,), dtype=torch.int32, device=device),
+                     "keys": torch.empty((0,), dtype=torch.int32, device=device), "calls": 0}
+            _WINDOW_STATE[key] = state
+        if state["work"].numel() < 2 * n_slots:
+            state["work"] = torch.empty((2 * n_slots,), dtype=torch.int32, device=device)
+        if state["keys"].numel() < 2 * n_slots:
+            state["keys"] = torch.full((1 << (2 * n_slots - 1).bit_length(),), -1,
+                                       dtype=torch.int32, device=device)
+        pair = state["calls"] % 2
+        state["calls"] += 1
+        return state, pair
 
 
 def sparse_adagrad_tolerance(table0: torch.Tensor, acc0: torch.Tensor, offsets: torch.Tensor,

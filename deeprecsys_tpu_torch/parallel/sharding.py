@@ -505,24 +505,6 @@ def _hotcold_shard_partial(layout: str, hot, shard, split: dict, cdt):
     return ops.embedding_bag_hotcold_int8_rowwise_shard(hot, shard, split)
 
 
-_NO_HITS: dict = {}
-
-
-def _no_hits(shape, device) -> torch.Tensor:
-    """An all-false hot mask, made once a (shape, device): the shards other
-    than the first count no hot hit, so the hot part is counted once. The
-    engines' threads share it, each on its own stream, so it is filled
-    before it is handed out."""
-    key = (tuple(shape), device)
-    t = _NO_HITS.get(key)
-    if t is None:
-        t = torch.zeros(shape, dtype=torch.bool, device=device)
-        if t.device.type == "cuda":
-            torch.cuda.current_stream(t.device).synchronize()
-        _NO_HITS[key] = t
-    return t
-
-
 def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
 
@@ -530,16 +512,21 @@ def _tensor(x) -> torch.Tensor:
 def _hotcold_row(mesh: Mesh, d: int, hot_of: Callable, shard_of: Callable, hot_sel, hot_mask,
                  cold_local, cold_seg, layout: str, cdt, scale_on) -> torch.Tensor:
     """One data row's hot/cold lookup: K6 a shard on its own cold stream,
-    the real hot mask on shard 0 only; partials combined on entry (d, 0)."""
+    the hot hits counted on shard 0 only (K6 with them) and every other
+    shard's cold stream pooled alone (K6's cold-only route, the JAX shard
+    body ``local_fn``); partials combined on entry (d, 0)."""
     out_dev = mesh.device(d, 0)
+    bags = tuple(hot_sel.shape[:2])
     partials = []
     for m in range(mesh.shape["model"]):
         dev = mesh.device(d, m)
-        sel = _to(hot_sel, dev)
-        hits = _to(hot_mask, dev) if m == 0 else _no_hits(hot_mask.shape, dev)
-        split = {"hot_sel": sel, "hot_mask": hits, "cold_ids": _to(cold_local[m], dev),
-                 "cold_seg": _to(cold_seg[m], dev)}
-        partials.append(_hotcold_shard_partial(layout, hot_of(m), shard_of(m), split, cdt))
+        split = {"cold_ids": _to(cold_local[m], dev), "cold_seg": _to(cold_seg[m], dev)}
+        if m == 0:
+            split.update(hot_sel=_to(hot_sel, dev), hot_mask=_to(hot_mask, dev))
+            partials.append(_hotcold_shard_partial(layout, hot_of(m), shard_of(m), split, cdt))
+        else:
+            partials.append(_hotcold_shard_partial(layout, None, shard_of(m),
+                                                   dict(split, bags=bags), cdt))
     return _finish(_combine(partials, out_dev), layout, cdt, scale_on(out_dev))
 
 

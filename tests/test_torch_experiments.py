@@ -86,6 +86,42 @@ def test_sparse_trainer_learns_the_planted_signal(trained):
     assert abs(again - rep["final_auc"]) <= 5e-5
 
 
+def test_trained_models_int8_export_serves_its_auc(trained, tmp_path):
+    """The JAX lifecycle test's second half (tests/test_train_quality.py:44-68)
+    on the same trained model: its int8 row-wise export
+    (``export_serving_params``) checkpointed (``save_params``), served by
+    ``ServingServer`` on one CPU engine with buckets (128,), scores the
+    holdout within 0.02 AUC of the trained model, as the JAX test holds it
+    (the export's 7-bit rounding and the serving path lie in between)."""
+    from deeprecsys_tpu_torch import ServingConfig, bridge
+    from deeprecsys_tpu_torch.serving.ingress import ServingServer
+    from deeprecsys_tpu_torch.train import export_serving_params
+    from deeprecsys_tpu_torch.utils.checkpoint import save_params
+    from deeprecsys_tpu_torch.utils.metrics_ml import auc
+
+    tr, rep = trained
+    sp, qcfg = export_serving_params(tr.params, tr.cfg)
+    assert qcfg.table_quant == "int8_rowwise" and set(sp["tables"]) == {"qrows"}
+    save_params(tmp_path / "ck", bridge.params_to_numpy(sp, qcfg))
+    holdout = train_quality.make_holdout(tr.cfg, train_quality.planted_weights(tr.cfg),
+                                         n_batches=4, batch=128)
+    scfg = ServingConfig(engine_backend="cpu", inference_engines=1, batch_buckets=(128,),
+                         max_mini_batch_size=128, sub_task_batch_size=128)
+    server = ServingServer(qcfg, scfg, checkpoint_path=str(tmp_path / "ck"),
+                           accel_device="cpu")
+    server.start(timeout=600)
+    try:
+        scores, labels = [], []
+        for idx, dense, _logits, y in holdout:
+            out = server.predict(idx, dense=dense, timeout=120)
+            scores.append(np.asarray(out["scores"], np.float32)[:, 0])
+            labels.append(y)
+    finally:
+        server.stop()
+    served = auc(np.concatenate(scores), np.concatenate(labels).astype(int))
+    assert abs(served - rep["final_auc"]) <= 0.02, (served, rep["final_auc"])
+
+
 def test_sweep_writes_a_cpu_ladder_the_sim_never_reads(tmp_path, monkeypatch):
     rows = sweep.main(["--models", "ncf", "--batches", "1", "4", "16", "--table-scale",
                        str(SCALE), "--dtype", "float32", "--device", "cpu",

@@ -63,7 +63,8 @@ from deeprecsys_tpu_torch.ops import (
     embedding_bag_int8, embedding_bag_int8_reference, embedding_bag_int8_rowwise,
     embedding_bag_int8_rowwise_reference, embedding_bag_reference, optimizer_update,
     optimizer_update_reference, rnn_scan, rnn_scan_backward, rnn_scan_backward_reference,
-    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference)
+    rnn_scan_reference, sparse_adagrad_step, sparse_adagrad_step_reference,
+    sparse_adagrad_step_shard)
 from deeprecsys_tpu_torch.ops.embedding import (
     backward_tolerance, pooled_tolerance, rowwise_tolerance)
 from deeprecsys_tpu_torch.ops.rnn import rnn_scan_tolerance
@@ -1017,7 +1018,6 @@ def test_shard_autograd_launches_the_backward_window(cuda):
 @pytest.mark.parametrize("shards", [1, 2, 4])
 @pytest.mark.parametrize("B,T,L,rows", [(37, 3, 23, 52), (128, 8, 80, 2000), (129, 43, 1, 500)])
 def test_sparse_adagrad_window_matches_plain(cuda, B, T, L, rows, shards, d, table_dt, g_dt):
-    from deeprecsys_tpu_torch.ops import sparse_adagrad_step_shard
 
     gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=B + L + shards)
     grad = (grad * 1e-2).to(g_dt)
@@ -1038,3 +1038,191 @@ def test_sparse_adagrad_window_matches_plain(cuda, B, T, L, rows, shards, d, tab
         tol, acc_tol = sparse_adagrad_tolerance(t0, a0, offsets, indices, grad, 0.1, window=w)
         assert bool(((acc - want_a).abs() <= acc_tol).all())
         assert bool(((table.float() - want_t.float()).abs() <= tol).all())
+
+
+def _cold_only_case(cuda, layout, d, case):
+    """A 4-shard split of a small table (T 3 x 300 rows) and the table in
+    ``layout``: zipf ids with a 40-row hot set; every id hot (each shard's
+    stream all pads); or bags of 150 slots whose table-0 ids all lie in
+    shard 1 (cold bags of 150 entries, across five of the kernel's chunks
+    and past the 64 ids a warp holds), no hot set."""
+    from deeprecsys_tpu_torch.ops.hotcold import select_hot_ids, split_hot_cold_sharded
+
+    T, rows = 3, 300
+    R, rps = T * rows, T * rows // 4
+    rng = np.random.default_rng(d + len(case))
+    B, L = (8, 150) if case == "long_bag" else (64, 20)
+    idx = (rng.zipf(1.3, size=(B, T, L)) % rows).astype(np.int32)
+    off64 = np.arange(T, dtype=np.int64) * rows
+    if case == "long_bag":
+        idx[:, 0, :] = rng.integers(rps, rows, size=(B, L))  # fused rows of shard 1
+        hot_ids = np.empty(0, np.int64)
+    else:
+        hot_ids = select_hot_ids(idx, off64, R if case == "all_pads" else 40)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    if layout == "none":
+        table = torch.randn((R, d), generator=g, device=cuda).to(torch.bfloat16)
+    else:
+        table = torch.randint(-127, 128, (R, d), generator=g, device=cuda, dtype=torch.int8)
+        if layout == "int8_rowwise":
+            table = torch.cat([table, (torch.rand((R,), generator=g, device=cuda) * 1e-2 + 1e-4)
+                               .view(torch.int8).reshape(R, 4)], dim=1)
+    return table, idx, off64, hot_ids, split_hot_cold_sharded(idx, off64, hot_ids, 4, rps), rps
+
+
+@pytest.mark.parametrize("case", ["zipf", "all_pads", "long_bag"])
+@pytest.mark.parametrize("d", [32, 64, 8])
+@pytest.mark.parametrize("layout", ["none", "int8", "int8_rowwise"])
+def test_cold_only_shard_kernel_matches_plain_and_combines(cuda, layout, d, case):
+    """K6's cold-only route (``hot_table=None``, one launch) on shards 1-3
+    against its plain version (int32 bit for bit, else within
+    ``cold_tolerance``), counted in the shard wrapper's launches; shard 0's
+    K6 with the hits and the three combined against the direct kernel (K1-
+    int8 bit for bit)."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    table, idx, off64, hot_ids, split, rps = _cold_only_case(cuda, layout, d, case)
+    fn = {"none": emb.embedding_bag_hotcold_shard, "int8": emb.embedding_bag_hotcold_int8_shard,
+          "int8_rowwise": emb.embedding_bag_hotcold_int8_rowwise_shard}[layout]
+    mode = {"none": "float", "int8": "int8", "int8_rowwise": "int8_rowwise"}[layout]
+    B, T, _ = idx.shape
+    hot = table.index_select(0, torch.as_tensor(hot_ids, device=cuda))
+    parts = []
+    for m in range(4):
+        shard = table[m * rps:(m + 1) * rps]
+        cold = {"cold_ids": torch.from_numpy(split["cold_local"][m]).to(cuda),
+                "cold_seg": torch.from_numpy(split["cold_seg"][m]).to(cuda)}
+        if m == 0:
+            s = dict(cold, hot_sel=torch.from_numpy(split["hot_sel"]).to(cuda),
+                     hot_mask=torch.from_numpy(split["hot_mask"]).to(cuda))
+            parts.append(fn(hot, shard, s))
+            continue
+        s = dict(cold, bags=(B, T))
+        before = fn.kernel_launches
+        got = fn(None, shard, s)
+        torch.cuda.synchronize()
+        assert fn.kernel_launches == before + 1
+        want = emb.embedding_bag_cold_partial_reference(shard, s, mode=mode)
+        if layout == "int8":
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+        else:
+            tol = emb.cold_tolerance(got, want, shard, s, rowwise=layout == "int8_rowwise")
+            assert got.dtype == torch.float32 and bool(((got - want).abs() <= tol).all())
+        if case == "all_pads":
+            assert not bool(got.any())
+        parts.append(got)
+    acc = sum(parts)
+    offsets = torch.as_tensor(off64.astype(np.int32), device=cuda)
+    ids = torch.from_numpy(idx).to(cuda)
+    if layout == "int8":
+        scale = torch.rand((T,), device=cuda) * 1e-2 + 1e-4
+        assert torch.equal(acc.float() * scale[None, :, None],
+                           embedding_bag_int8(table, scale, offsets, ids))
+    elif layout == "int8_rowwise":
+        want = embedding_bag_int8_rowwise(table, offsets, ids)
+        assert bool(((acc - want).abs() <= rowwise_tolerance(acc, want, table, offsets, ids)).all())
+    else:
+        got, want = acc.to(torch.bfloat16), embedding_bag(table, offsets, ids)
+        assert bool(((got.float() - want.float()).abs()
+                     <= pooled_tolerance(got, want, table, offsets, ids)).all())
+
+
+@pytest.mark.parametrize("layout", ["none", "int8", "int8_rowwise"])
+def test_cold_only_kernel_on_an_empty_stream_writes_zeros(cuda, layout):
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    table, _, _, _, _, rps = _cold_only_case(cuda, layout, 32, "zipf")
+    fn = {"none": emb.embedding_bag_hotcold_shard, "int8": emb.embedding_bag_hotcold_int8_shard,
+          "int8_rowwise": emb.embedding_bag_hotcold_int8_rowwise_shard}[layout]
+    empty = torch.empty((0,), dtype=torch.int32, device=cuda)
+    got = fn(None, table[rps:2 * rps], {"cold_ids": empty, "cold_seg": empty, "bags": (70, 3)})
+    assert got.shape == (70, 3, 32) and not bool(got.any())
+
+
+@pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["batch", "repeated", "owns_nothing"])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_sparse_adagrad_window_plans_match_plain_twice(cuda, shards, case, table_dt):
+    """K5's window, each call twice in a row on one stream: a bf16 shard's
+    kept scratch (the count the next call takes, the hash keys) is left
+    zero and free, so the second call is as right as the first.
+    Cases: the batch's ids, ids on 7 rows a table (rows of ~150 adds), and
+    a shard past every id (it owns nothing)."""
+    from deeprecsys_tpu_torch.ops import sparse_adagrad as sa
+
+    B, T, L, rows, d = 64, 3, 80, 300, 32
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=shards + len(case))
+    if case == "repeated":
+        indices = indices % 7
+    grad = grad * 1e-2
+    R = T * rows
+    rps = R // shards
+    table0 = (torch.rand((R + rps, d), generator=gen, device=cuda) - 0.5).to(table_dt)
+    acc0 = torch.rand((R + rps,), generator=gen, device=cuda) * 1e-4
+    windows = ([(R, R + rps)] if case == "owns_nothing"
+               else [(m * rps, (m + 1) * rps) for m in range(shards)])
+    for w in windows:
+        t0, a0 = table0[w[0]:w[1]], acc0[w[0]:w[1]]
+        table, acc = t0.clone(), a0.clone()
+        want_t, want_a = t0.clone(), a0.clone()
+        for _ in range(2):
+            t1, a1 = table.clone(), acc.clone()
+            sparse_adagrad_step_shard(table, acc, offsets, indices, grad, w[0], 0.1)
+            torch.cuda.synchronize()
+            sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1,
+                                          window=w)
+            tol, acc_tol = sparse_adagrad_tolerance(t1, a1, offsets, indices, grad, 0.1,
+                                                    window=w)
+            assert bool(((acc - want_a).abs() <= acc_tol).all()), w
+            assert bool(((table.float() - want_t.float()).abs() <= tol).all()), w
+            table.copy_(want_t)  # each step held from the plain version's state
+            acc.copy_(want_a)
+    if table_dt == torch.bfloat16:
+        state = sa._WINDOW_STATE[(torch.cuda.current_device(),
+                                  torch.cuda.current_stream().cuda_stream)]
+        assert int(state["count"][state["calls"] % 2]) == 0  # the next call's count
+        assert bool((state["keys"] == -1).all())
+
+
+@pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
+def test_sparse_adagrad_window_after_a_larger_stream(cuda, table_dt):
+    """K5's window on a stream of 120-slot bags, then on a smaller one on
+    the same stream: the scratch kept from the larger call (a longer list,
+    more hash keys) serves the smaller one, which is as right as on fresh
+    scratch."""
+    from deeprecsys_tpu_torch.ops import sparse_adagrad as sa
+
+    d, rows, T = 32, 400, 4
+    R = T * rows
+    for B, L in ((64, 120), (16, 20), (8, 80)):
+        gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=B + L)
+        grad = grad * 1e-2
+        lo, hi = R // 4, R // 2
+        table = ((torch.rand((hi - lo, d), generator=gen, device=cuda) - 0.5)).to(table_dt)
+        acc = torch.rand((hi - lo,), generator=gen, device=cuda) * 1e-4
+        want_t, want_a = table.clone(), acc.clone()
+        tol, acc_tol = sparse_adagrad_tolerance(table, acc, offsets, indices, grad, 0.1,
+                                                window=(lo, hi))
+        sparse_adagrad_step_shard(table, acc, offsets, indices, grad, lo, 0.1)
+        sparse_adagrad_step_reference(want_t, want_a, offsets, indices, grad, 0.1,
+                                      window=(lo, hi))
+        assert bool(((acc - want_a).abs() <= acc_tol).all()), (B, L)
+        assert bool(((table.float() - want_t.float()).abs() <= tol).all()), (B, L)
+
+
+def test_sparse_adagrad_window_refuses_a_graph_capture(cuda):
+    """K5's window on a bf16 shard keeps its count and hash keys from call
+    to call on the stream, so a CUDA graph (which would replay one call's)
+    cannot capture it: the wrapper raises before it launches anything."""
+    B, T, L, rows, d = 8, 2, 10, 50, 32
+    _, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=3)
+    table = torch.zeros((rows, d), dtype=torch.bfloat16, device=cuda)
+    acc = torch.zeros((rows,), device=cuda)
+    before = sparse_adagrad_step_shard.kernel_launches
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        with pytest.raises(RuntimeError, match="not capturable"):
+            with torch.cuda.graph(graph, stream=stream):
+                sparse_adagrad_step_shard(table, acc, offsets, indices, grad, 0, 0.1)
+    assert sparse_adagrad_step_shard.kernel_launches == before
