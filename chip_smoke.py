@@ -194,7 +194,7 @@ from deeprecsys_tpu_torch.ops import embedding as emb_mod
 from deeprecsys_tpu_torch.ops import hotcold as hotcold_ops
 from deeprecsys_tpu_torch.ops.embedding import (
     backward_tolerance, cold_tolerance, hotcold_cold_starts, hotcold_tolerance, pooled_tolerance,
-    rowwise_tolerance, scatter_counts, window_ids)
+    rowwise_tolerance, scatter_counts, table_range, window_ids)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.parallel import make_mesh, make_train_step, shard_params, sharded_apply
@@ -3805,6 +3805,8 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
              f"masked and not: max |err| {errs[key]:.3e} against the plain version"
              + (f"; the {MESH_SHARDS} partials combined match the direct kernel"
                 + (" bit for bit" if quant == "int8" else "") if full else ""))
+    if full:  # K4's window where the shard's edges fall mid-table
+        straddling_k4_cases(device, cfg, tables["int8_rowwise"], offsets, indices, mask, errs)
     if full:  # the direct path: the full window's partial rounded once is K1
         got = embedding_bag_shard(tables["none"], offsets, indices, 0,
                                   compute_dtype=torch.bfloat16).to(torch.bfloat16)
@@ -3938,6 +3940,39 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
     del tables
     _free(device)
     return errs, times
+
+
+def straddling_k4_cases(device, cfg, qrows, offsets, indices, mask, errs: dict):
+    """K4's window on ``cfg``'s shard 1 of MESH_SHARDS shifted by half of
+    the first table (three tables meet it, the first and last straddling a
+    shard edge; ``qrows`` the whole table), masked and not, against its
+    plain version within ``rowwise_tolerance`` of the window; the aligned
+    shards are ``mesh_kernel_cases``' own. The meeting tables come from the
+    wrapper (derived from the offsets) and from ``table_range`` with the
+    fused rows, as a placement makes it."""
+    rps = cfg.total_rows // MESH_SHARDS
+    lo = rps + cfg.scaled_rows[0] // 2
+    shard = qrows[lo:lo + rps]
+    placed = table_range(cfg.table_offsets, lo, rps, cfg.total_rows)
+    for tr in (None, placed):
+        for m_ in (None, mask):
+            got = embedding_bag_int8_rowwise_shard(shard, offsets, indices, lo, mask=m_,
+                                                   table_range=tr)
+            synchronize(device)
+            want = embedding_bag_int8_rowwise_reference(shard, offsets, indices, mask=m_,
+                                                        window=(lo, lo + rps))
+            what = (f"rm1 int8_rowwise window rows [{lo}, {lo + rps}) (tables "
+                    f"[{placed.lo}, {placed.hi}), {'given' if tr else 'derived'}), "
+                    f"mask={'yes' if m_ is not None else 'no'}")
+            err = _check_partial("int8_rowwise", got, want, shard, what,
+                                 lambda a, b, t, *r: rowwise_tolerance(
+                                     a, b, t, offsets, indices, m_, window=(lo, lo + rps)))
+            errs[SHARD["int8_rowwise"]] = max(errs.get(SHARD["int8_rowwise"], 0.0), err)
+    _log(f"[16 mesh] {SHARD['int8_rowwise']} ok on rm1's window shifted by half a table (rows "
+         f"[{lo}, {lo + rps}), tables [{placed.lo}, {placed.hi}), straddling "
+         f"{placed.lo_edge}/{placed.hi_edge}), masked and not, with the range given and derived: "
+         f"max |err| "
+         f"{errs[SHARD['int8_rowwise']]:.3e} so far")
 
 
 def _mesh_launch_check(counts: dict, want: dict, what: str):
@@ -4890,6 +4925,45 @@ def mesh_rm1_train_step(device, start: dict, hosts: list, card: str, errs: dict)
     return {"rel": rel, "parity": par}, counts
 
 
+def k1b_window_cases(device, errs: dict):
+    """K1b's window at rm1's training shape (f32, batch TRAIN_BATCH) on its
+    aligned shard 1 of MESH_SHARDS and on the same window shifted by half a
+    table (three tables meet it, two straddling), masked and not, with the
+    meeting tables given (``table_range`` with the fused rows, as the mesh
+    path places them) and derived by the wrapper: each against its plain
+    version within ``backward_tolerance`` of the window."""
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    rps = R // MESH_SHARDS
+    offsets = table_offsets(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(16)
+    ids = torch.as_tensor(RecDataGenerator(cfg, seed=14).generate_batch(TRAIN_BATCH).indices,
+                          device=device)
+    g = torch.randn((TRAIN_BATCH, cfg.num_tables, d), generator=gen, device=device) * 1e-2
+    mask = torch.rand(ids.shape, generator=gen, device=device) < 0.7
+    for where, lo in (("aligned", rps), ("shifted by half a table", rps + cfg.scaled_rows[0] // 2)):
+        w = (lo, lo + rps)
+        placed = table_range(cfg.table_offsets, lo, rps, R)
+        for tr in (placed, None):
+            for m in (None, mask):
+                got = embedding_bag_backward_shard(g, offsets, ids, lo, rps, mask=m,
+                                                   table_range=tr)
+                synchronize(device)
+                err = (got - embedding_bag_backward_reference(g, offsets, ids, rps, mask=m,
+                                                              window=w)).abs()
+                if not bool((err <= backward_tolerance(g, offsets, ids, rps, m, window=w)).all()):
+                    raise AssertionError(f"K1b's window disagrees with its plain version (rm1 "
+                                         f"rows [{lo}, {lo + rps}), {where})")
+                errs["embedding_bag_backward_shard"] = max(errs["embedding_bag_backward_shard"],
+                                                           err.max().item())
+                del got, err
+        _log(f"[17 mesh train] K1b's window ok at rm1's window {where} (rows [{lo}, {lo + rps}), "
+             f"tables [{placed.lo}, {placed.hi}), straddling {placed.lo_edge}/{placed.hi_edge}), "
+             f"B={TRAIN_BATCH} f32, masked and not, range given and derived: max |err| "
+             f"{errs['embedding_bag_backward_shard']:.3e} so far")
+    _free(device)
+
+
 def mesh_window_times(device, card: str) -> dict:
     """K1b's and K5's windows at rm1's training shape on its shard 1 of 4
     (rows [R/4, R/2), f32, batch TRAIN_BATCH, eight batches of ids): each
@@ -5017,6 +5091,7 @@ def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
         _free(device)
     out["dryrun"], counts = mesh_dryrun(device, card, errs)
     _add(launches, counts)
+    k1b_window_cases(device, errs)
     out["times"] = mesh_window_times(device, card)
     for name, mode, axes in MESH_TIMED_RUNS:
         out["steps"].append(mesh_train_time(device, name, mode, axes, card))

@@ -1,7 +1,8 @@
-"""This checkout's K5 window and K6 shard calls timed in turns with another
-checkout's (an earlier commit, unpacked with ``git archive``), on one card.
+"""This checkout's window kernels timed in turns with another checkout's
+(an earlier commit, unpacked with ``git archive``), on one card.
 
     python -m deeprecsys_tpu_torch.experiments.parent_turns --other DIR [--json PATH]
+        [--kernels k5,k6,k1bw,k4w,k1b]
 
 Runs this file as a child four times, in the order other, this, this,
 other, each with ``PYTHONPATH`` set to its checkout, so that each child
@@ -17,14 +18,24 @@ span of 50 calls):
   it: ``--route cold`` the cold-only route (``shard`` given no hot rows),
   ``--route mask`` K6 with an all-false hot mask (the call of a checkout
   without that route). The hot set is fitted on a warm-up zipf(1.2) batch
-  of 512 and the calls take four later batches.
+  of 512 and the calls take four later batches;
+- K1b's window (``k1bw``: ``embedding_bag_backward_shard`` into a kept f32
+  gradient, f32 gradients, the trainer's batch 128) and K4's window
+  (``k4w``: ``embedding_bag_int8_rowwise_shard``, batch 512) at
+  ``WINDOW_PLACES``: rm1's and rm2's 1/4 shard 1, rm1's window shifted by
+  half a table (three tables meet it, two of them straddling) and dien's
+  1/4 shard 1 (its edges mid-table), eight batches of the generator's ids
+  each; and the direct K1b (``k1b``) over rm1's whole table. Each checkout
+  calls the wrappers with the arguments every checkout since the mesh port
+  takes (a newer one derives its table range itself).
 
 Each call is held first to ``embedding_bag_hotcold_reference(...,
 partial=True)`` with the mask it stands for (int8 bit for bit, else within
-``hotcold_tolerance``), and K5's to its plain version
-(``sparse_adagrad_tolerance``). It uses only functions that every checkout
-since the mesh port has. It needs a CUDA card and exits non-zero without
-one. It imports no JAX.
+``hotcold_tolerance``), K5's to its plain version
+(``sparse_adagrad_tolerance``), K1b's and K4's to theirs
+(``backward_tolerance``, ``rowwise_tolerance``, with the window). It uses
+only functions that every checkout since the mesh port has. It needs a
+CUDA card and exits non-zero without one. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +55,11 @@ K6_MODELS = ("rm1", "rm2")
 K6_LAYOUTS = ("none", "int8", "int8_rowwise")
 SHARDS = 4
 BATCH = 512
+TRAIN_BATCH = 128
+KERNELS = ("k5", "k6", "k1bw", "k4w", "k1b")
+# (model, place): shard 1 of 4, or the same window shifted by half of the
+# first table.
+WINDOW_PLACES = (("rm1", "1/4"), ("rm2", "1/4"), ("rm1", "1/4 + half a table"), ("dien", "1/4"))
 
 
 def span_ms(fn, args_list, iters: int = 50) -> float:
@@ -187,10 +203,129 @@ def k6_rows(device, route: str) -> list:
     return rows
 
 
-def child(route: str, out: Path) -> int:
+def window_of(cfg, place: str) -> tuple:
+    """``(row_lo, rows)`` of a ``WINDOW_PLACES`` place of ``cfg``'s fused
+    table: shard 1 of 4, shifted by half of the first table for "... +
+    half a table"."""
+    rps = cfg.total_rows // SHARDS
+    return rps + (cfg.scaled_rows[0] // 2 if place.endswith("half a table") else 0), rps
+
+
+def window_inputs(name: str, place: str, B: int, device, n_batches: int = 8,
+                  seed: int = 13, table_scale: int = 1) -> dict:
+    """``name``'s config (full size by default), the place's window, the
+    fused offsets on ``device`` and ``n_batches`` batches of B of the
+    generator's ids."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.data import RecDataGenerator
+    from deeprecsys_tpu_torch.models.base import table_offsets
+
+    cfg = zoo.get_config(name, table_scale=table_scale)
+    lo, rows = window_of(cfg, place)
+    return {"cfg": cfg, "row_lo": lo, "rows": rows, "offsets": table_offsets(cfg, device),
+            "ids": [b.to(device).indices for b in
+                    RecDataGenerator(cfg, seed=seed).generate_batches(n_batches, B)]}
+
+
+def k1bw_call(inp: dict, device, seed: int = 15):
+    """K1b's window at ``inp``'s window: ``(fn(g, ids), args, plain(g, ids),
+    grad)`` with f32 gradients of the trainer's batch, adding into one kept
+    f32 gradient ``grad``; checked against its plain version first."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    cfg, lo, rows, offsets, ids = (inp[k] for k in ("cfg", "row_lo", "rows", "offsets", "ids"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gs = [torch.randn((ids[0].shape[0], cfg.num_tables, cfg.sparse_feature_size),
+                      generator=gen, device=device) * 1e-2 for _ in ids]
+    grad = torch.zeros((rows, cfg.sparse_feature_size), dtype=torch.float32, device=device)
+    w = (lo, lo + rows)
+    got = emb.embedding_bag_backward_shard(gs[0], offsets, ids[0], lo, rows)
+    want = emb.embedding_bag_backward_reference(gs[0], offsets, ids[0], rows, window=w)
+    if not bool(((got - want).abs()
+                 <= emb.backward_tolerance(gs[0], offsets, ids[0], rows, window=w)).all()):
+        raise AssertionError(f"K1b's window disagrees with its plain version ({w})")
+    del got, want
+    return (lambda g, i: emb.embedding_bag_backward_shard(g, offsets, i, lo, rows, out=grad),
+            list(zip(gs, ids)),
+            lambda g, i: emb.embedding_bag_backward_reference(g, offsets, i, rows, out=grad,
+                                                              window=w), grad)
+
+
+def k4w_call(inp: dict, device, seed: int = 17):
+    """K4's window at ``inp``'s window: ``(fn(ids), args, plain(ids),
+    shard)`` over a random row-wise int8 shard (positive row scales);
+    checked against its plain version first."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    cfg, lo, rows, offsets, ids = (inp[k] for k in ("cfg", "row_lo", "rows", "offsets", "ids"))
+    d = cfg.sparse_feature_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shard = torch.randint(-127, 128, (rows, d + 4), generator=gen, device=device,
+                          dtype=torch.int8)
+    sc = torch.rand((rows,), generator=gen, device=device) * 1e-2 + 1e-4
+    shard[:, d:] = sc.view(torch.int8).reshape(rows, 4)
+    w = (lo, lo + rows)
+    got = emb.embedding_bag_int8_rowwise_shard(shard, offsets, ids[0], lo)
+    want = emb.embedding_bag_int8_rowwise_reference(shard, offsets, ids[0], window=w)
+    if not bool(((got - want).abs()
+                 <= emb.rowwise_tolerance(got, want, shard, offsets, ids[0], window=w)).all()):
+        raise AssertionError(f"K4's window disagrees with its plain version ({w})")
+    return (lambda i: emb.embedding_bag_int8_rowwise_shard(shard, offsets, i, lo),
+            [(i,) for i in ids],
+            lambda i: emb.embedding_bag_int8_rowwise_reference(shard, offsets, i, window=w),
+            shard)
+
+
+def window_rows(device, kernel: str) -> list:
+    rows = []
+    for name, place in WINDOW_PLACES:
+        inp = window_inputs(name, place, TRAIN_BATCH if kernel == "k1bw" else BATCH, device)
+        fn, args, _, kept = (k1bw_call if kernel == "k1bw" else k4w_call)(inp, device)
+        ms = span_ms(fn, args)
+        label = {"k1bw": "K1b window", "k4w": "K4 window"}[kernel]
+        rows.append({"kernel": label, "model": name, "place": place,
+                     "window": [inp["row_lo"], inp["row_lo"] + inp["rows"]], "span_ms": ms})
+        print(f"[parent_turns] {label} {name} {place} rows [{inp['row_lo']}, "
+              f"{inp['row_lo'] + inp['rows']}): span {ms * 1e3:.2f} us", flush=True)
+        del inp, kept, fn, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k1b_rows(device) -> list:
+    """The direct K1b over rm1's whole f32 table (out= a kept gradient)."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    inp = window_inputs("rm1", "1/4", TRAIN_BATCH, device)
+    cfg, offsets, ids = inp["cfg"], inp["offsets"], inp["ids"]
+    R, d = cfg.total_rows, cfg.sparse_feature_size
+    gen = torch.Generator(device=device).manual_seed(15)
+    gs = [torch.randn((TRAIN_BATCH, cfg.num_tables, d), generator=gen, device=device) * 1e-2
+          for _ in ids]
+    got = emb.embedding_bag_backward(gs[0], offsets, ids[0], R)
+    want = emb.embedding_bag_backward_reference(gs[0], offsets, ids[0], R)
+    if not bool(((got - want).abs()
+                 <= emb.backward_tolerance(gs[0], offsets, ids[0], R)).all()):
+        raise AssertionError("K1b disagrees with its plain version")
+    del got, want
+    grad = torch.zeros((R, d), dtype=torch.float32, device=device)
+    ms = span_ms(lambda g, i: emb.embedding_bag_backward(g, offsets, i, R, out=grad),
+                 list(zip(gs, ids)))
+    print(f"[parent_turns] K1b direct rm1 whole table: span {ms * 1e3:.2f} us", flush=True)
+    del grad
+    torch.cuda.empty_cache()
+    return [{"kernel": "K1b direct", "model": "rm1", "place": "whole table", "span_ms": ms}]
+
+
+def child(route: str, out: Path, kernels: list) -> int:
     device = torch.device("cuda")
+    rows = []
     with torch.inference_mode():
-        rows = k5_rows(device) + k6_rows(device, route)
+        for k in kernels:
+            rows += {"k5": lambda: k5_rows(device), "k6": lambda: k6_rows(device, route),
+                     "k1bw": lambda: window_rows(device, "k1bw"),
+                     "k4w": lambda: window_rows(device, "k4w"),
+                     "k1b": lambda: k1b_rows(device)}[k]()
     out.write_text(json.dumps(rows, indent=1))
     return 0
 
@@ -200,14 +335,19 @@ def main(argv=None) -> int:
     p.add_argument("--other", type=Path, help="the other checkout (its root)")
     p.add_argument("--other_route", default="mask", choices=("mask", "cold"))
     p.add_argument("--json", type=Path, default=None, help="write the results here")
+    p.add_argument("--kernels", default=",".join(KERNELS),
+                   help=f"comma-separated, of {','.join(KERNELS)} (default: all)")
     p.add_argument("--child", type=Path, default=None, help=argparse.SUPPRESS)
     p.add_argument("--route", default="cold", choices=("mask", "cold"), help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("parent_turns: no CUDA card is available", file=sys.stderr)
         return 1
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        p.error(f"--kernels takes {','.join(KERNELS)}; got {args.kernels}")
     if args.child is not None:
-        return child(args.route, args.child)
+        return child(args.route, args.child, kernels)
     this = Path(__file__).resolve().parents[2]
     other = args.other.resolve()
     runs = []
@@ -216,8 +356,8 @@ def main(argv=None) -> int:
         out = this / "build" / "parent_turns" / f"run{n}.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         env = dict(os.environ, PYTHONPATH=str(root))
-        subprocess.run([sys.executable, __file__, "--child", str(out), "--route", route],
-                       cwd=root, env=env, check=True)
+        subprocess.run([sys.executable, __file__, "--child", str(out), "--route", route,
+                        "--kernels", args.kernels], cwd=root, env=env, check=True)
         runs.append({"checkout": "other" if root == other else "this",
                      "rows": json.loads(out.read_text())})
     res = {"runs": runs}

@@ -7,7 +7,7 @@ library yardsticks of the other training kernels K1b and K5 (``k1b_bound``,
 times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6,k3b]
-    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k6w,k5w
+    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k6w,k5w,k1bw,k4w
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
@@ -55,7 +55,11 @@ rm1's 1/4, 1/2 and whole-table shards and rm2's 1/4 shard (f32 and bf16
 shards, batch 128) as a span beside its bound, plain version and library
 yardstick, after holding it to its plain version on the batch's ids and on
 ids folded onto 256 rows a table (rows of many adds, where a bf16 shard's
-once-rounded bound is tight).
+once-rounded bound is tight); ``--only k1bw,k4w`` time K1b's window (batch
+128, f32) and K4's (batch 512) at rm1's and rm2's 1/4 shard 1, rm1's
+window shifted by half a table and dien's 1/4 shard 1 (``bench_windows``)
+beside their bounds, which count only the ids (and K1b's gradient rows) of
+the bags whose table meets the shard (``meeting_ids``).
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -253,20 +257,32 @@ def k4_bound(qrows: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
     return _bound(nbytes, 2 * B * T * L * d)
 
 
+def meeting_ids(offsets: torch.Tensor, indices: torch.Tensor, row_lo: int,
+                rows: int) -> torch.Tensor:
+    """The ids of the bags whose table meets the row shard ``[row_lo, row_lo
+    + rows)`` (``ops.embedding.table_range``): the only ids a window launch
+    must read, since no slot of another table can land in the shard."""
+    from deeprecsys_tpu_torch.ops.embedding import table_range_of
+
+    tr = table_range_of(offsets, row_lo, rows)
+    return indices[:, tr.lo:tr.hi]
+
+
 def window_bound(shard: torch.Tensor, row_lo: int, offsets: torch.Tensor,
                  indices: torch.Tensor, d: int, ops_per_element: int = 1) -> dict:
     """A row shard's lookup (K1, K1-int8 or K4 with the ownership window):
     each distinct row of the batch that the shard owns read once (the
-    shard's row bytes each), every id read once (the kernel tests each
-    against the window), the ``(B, T, d)`` 4-byte partial (f32 or int32)
-    written once; ``ops_per_element`` operations a gathered element of an
-    owned slot."""
+    shard's row bytes each), the ids of the bags whose table meets the
+    shard read once (``meeting_ids``: the other tables' slots cannot land in
+    it), the ``(B, T, d)`` 4-byte partial (f32 or int32) written once;
+    ``ops_per_element`` operations a gathered element of an owned slot."""
     B, T, L = indices.shape
     flat = indices.long() + offsets.long()[None, :, None]
     owned = (flat >= row_lo) & (flat < row_lo + shard.shape[0])
     rows = torch.unique(flat[owned]).numel()
     row_bytes = shard.shape[1] * shard.element_size()
-    nbytes = rows * row_bytes + indices.numel() * 4 + B * T * d * 4
+    ids = meeting_ids(offsets, indices, row_lo, shard.shape[0]).numel()
+    nbytes = rows * row_bytes + ids * 4 + B * T * d * 4
     return _bound(nbytes, int(owned.sum()) * d * ops_per_element)
 
 
@@ -361,13 +377,14 @@ def _owned(offsets: torch.Tensor, indices: torch.Tensor, row_lo: int, rows: int)
 def k1b_window_bound(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
                      row_lo: int, rows: int) -> dict:
     """K1b's window on one row shard: each distinct owned row of the f32
-    gradient read and written once, ``g`` and the ids read once (the kernel
-    tests every id against the window); one add an element of an owned
-    slot."""
+    gradient read and written once; the gradient rows and the ids of the
+    bags whose table meets the shard read once (``meeting_ids``: no other
+    bag adds into it); one add an element of an owned slot."""
     flat, owned = _owned(offsets, indices, row_lo, rows)
     d = g.shape[-1]
-    nbytes = (torch.unique(flat[owned]).numel() * d * 4 * 2 + g.numel() * g.element_size()
-              + indices.numel() * 4)
+    meet = meeting_ids(offsets, indices, row_lo, rows)
+    nbytes = (torch.unique(flat[owned]).numel() * d * 4 * 2
+              + meet.shape[0] * meet.shape[1] * d * g.element_size() + meet.numel() * 4)
     return _bound(nbytes, int(owned.sum()) * d)
 
 
@@ -1602,6 +1619,66 @@ def bench_k5w(log) -> list:
     return rows
 
 
+def bench_windows(log, kernel: str) -> list:
+    """K1b's window (``kernel`` "k1bw": f32 gradients of the trainer's batch
+    128 added into a kept f32 gradient) or K4's (``"k4w"``: batch 512, a
+    random row-wise int8 shard) at ``parent_turns.WINDOW_PLACES`` (rm1's and
+    rm2's 1/4 shard 1, rm1's window shifted by half a table, dien's 1/4
+    shard 1), eight batches of the generator's ids: held to its plain
+    version, then its device time (order plain, kernel, kernel, plain)
+    beside its bound (``k1b_window_bound``, ``window_bound``), its plain
+    version and, for K1b, the windowed ``index_add_`` (``k1b_library`` on
+    the owned slots' rows prepared beforehand); no PyTorch call pools
+    row-wise int8 rows."""
+    from deeprecsys_tpu_torch.experiments.parent_turns import (
+        TRAIN_BATCH, WINDOW_PLACES, k1bw_call, k4w_call, window_inputs)
+    from deeprecsys_tpu_torch.ops.embedding import table_range_of
+
+    device = torch.device("cuda")
+    out = []
+    for name, place in WINDOW_PLACES:
+        inp = window_inputs(name, place, TRAIN_BATCH if kernel == "k1bw" else BATCH, device)
+        lo, rows, offsets, ids = inp["row_lo"], inp["rows"], inp["offsets"], inp["ids"]
+        fn, args, plain, kept = (k1bw_call if kernel == "k1bw" else k4w_call)(inp, device)
+        runs = [measure(f, args) for f in (plain, fn, fn, plain)]
+        if kernel == "k1bw":
+            bound = k1b_window_bound(args[0][0], offsets, ids[0], lo, rows)
+            prepared = [window_g_rows(g, offsets, i, lo, rows) for g, i in args]
+            lib = measure(k1b_library(kept), [(p[0], p[2]) for p in prepared])["device_ms"]
+            del prepared
+        else:
+            bound = window_bound(kept, lo, offsets, ids[0], inp["cfg"].sparse_feature_size, 2)
+            lib = None
+        tr = table_range_of(offsets, lo, rows)
+        row = {"kernel": kernel, "model": name, "place": place, "window": [lo, lo + rows],
+               "tables": [tr.lo, tr.hi], "straddling": [tr.lo_edge, tr.hi_edge],
+               "shape": list(ids[0].shape) + [inp["cfg"].sparse_feature_size], **bound,
+               "ms": float(np.mean([r["kernel_ms"] for r in runs[1:3]])),
+               "ms_each": [r["kernel_ms"] for r in runs[1:3]],
+               "plain_ms": float(np.mean([r["device_ms"] for r in (runs[0], runs[3])])),
+               "library_ms": lib, "wall_ms": runs[1]["wall_ms"]}
+        row["of_bound"] = row["bound_ms"] / row["ms"]
+        each = ", ".join(_us(x) for x in row["ms_each"])
+        log(f"{'K1b' if kernel == 'k1bw' else 'K4'} window {name} {place} rows "
+            f"[{lo}, {lo + rows}) {row['shape']}, tables [{tr.lo}, {tr.hi}) straddling "
+            f"{tr.lo_edge}/{tr.hi_edge}: {_us(row['ms'])} ({each}"
+            f"; {100 * row['of_bound']:.1f}% of the bound {_us(row['bound_ms'])}, "
+            f"{row['bound_by']}, {row['bytes'] / 1e6:.3f} MB); plain {_us(row['plain_ms'])}; "
+            f"library {_us(lib)}")
+        out.append(row)
+        del inp, fn, args, plain, kept
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_k1bw(log) -> list:
+    return bench_windows(log, "k1bw")
+
+
+def bench_k4w(log) -> list:
+    return bench_windows(log, "k4w")
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1615,7 +1692,8 @@ def _us(ms) -> str:
 
 BENCHES = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
            "k6": bench_k6, "k3b": bench_k3b, "k5": bench_k5, "k10": bench_k10,
-           "k1w": bench_k1w, "k6w": bench_k6w, "k5w": bench_k5w}  # --only's names
+           "k1w": bench_k1w, "k6w": bench_k6w, "k5w": bench_k5w, "k1bw": bench_k1bw,
+           "k4w": bench_k4w}  # --only's names
 
 
 def main(argv=None) -> int:

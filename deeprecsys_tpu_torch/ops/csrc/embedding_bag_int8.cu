@@ -86,6 +86,17 @@
 // (TC = int32_t), so that the shards' partials add exactly and the scale
 // and rounding come once, after the combine, as the TPU package's psum of
 // int32 partials does; K4 the f32 sum before the cast (TC = float).
+// K4's window maps its warps onto the bags of the tables that meet the
+// shard only (window_tables.cuh): its G-bag groups are formed over those
+// bags, so a group never mixes an owned table with a foreign one, and a
+// bag of a table wholly inside the shard reads its rows with no window
+// test (only the range's first and last tables, where they straddle a
+// shard edge, test each slot). The partial keeps its (B, T, D) shape,
+// since the shards' partials are added whole: the same launch writes the
+// other tables' bags as zeros, kZeroBags bags a warp in 16-byte stores,
+// after the groups' tasks, without reading an id or a row. At rm1's 1/4
+// shard that spares three quarters of the batch's 1.31 MB of ids. K1-int8's
+// window still walks every bag.
 //
 // Widths. The mappings above are built for D = 32 and 64. Any other width
 // takes the general instances (embedding_bag_int8_general_kernel and
@@ -102,11 +113,15 @@
 #include <stdint.h>
 
 #include "pooled_rows.cuh"
+#include "window_tables.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;   // ops/embedding.py::K1_WARPS_PER_BLOCK
 constexpr int kMinBlocksPerSm = 4;
+// Foreign bags a warp of K4's window zeroes (ops/embedding.py::K4W_ZERO_BAGS): of 2,
+// 8, 32 and 128, 32 measured fastest (experiments/k4w_sweep.py, PERF.md).
+constexpr int kZeroBags = 32;
 
 // The ids of step `step0` for the warp's G bags, id -1 where a slot is past
 // L, past the last bag, or masked out; id k of the step is (bag0 + k / RPS,
@@ -127,6 +142,57 @@ __device__ __forceinline__ void load_ids(int32_t (&ids)[NI], const int32_t* __re
       if (mask != nullptr && __ldg(mask + at) == 0) id = -1;
     }
     ids[r] = id;
+  }
+}
+
+// load_ids over the window's meeting bags: at[r] is the first slot
+// (bag * L) of the batch bag that id register r's lane serves, -1 where that
+// is past the group's bags (window_slots).
+template <int RPS, int NI>
+__device__ __forceinline__ void load_window_ids(int32_t (&ids)[NI], const int64_t (&at)[NI],
+                                                const int32_t* __restrict__ indices,
+                                                const uint8_t* __restrict__ mask, int L,
+                                                int step0, int lane) {
+#pragma unroll
+  for (int r = 0; r < NI; ++r) {
+    const int l = step0 + (r * 32 + lane) % RPS;
+    int32_t id = -1;
+    if (at[r] >= 0 && l < L) {
+      id = __ldg(indices + at[r] + l);
+      if (mask != nullptr && __ldg(mask + at[r] + l) == 0) id = -1;
+    }
+    ids[r] = id;
+  }
+}
+
+// The first slots of the bags the id registers of a task of G meeting bags
+// (from meeting bag k0, of n_own) serve, for load_window_ids.
+template <int G, int RPS, int NI>
+__device__ __forceinline__ void window_slots(int64_t (&at)[NI], int64_t k0, int64_t n_own,
+                                             int T, int L, const Window& w, int lane) {
+#pragma unroll
+  for (int r = 0; r < NI; ++r) {
+    const int k = r * 32 + lane;
+    const int64_t kb = k0 + k / RPS;
+    at[r] = (k < G * RPS && kb < n_own) ? window_bag(kb, T, w) * L : -1;
+  }
+}
+
+// Zeroes the partial rows of the bags of the tables that do not meet the
+// window: zero task z covers the foreign bags [z * kZeroBags, (z + 1) *
+// kZeroBags) of the B * (T - nt), in 16-byte stores; D * sizeof(TC) is a
+// multiple of 16 at the tuned widths.
+template <typename TC, int D>
+__device__ __forceinline__ void zero_foreign(TC* __restrict__ out, int64_t z, int64_t n_foreign,
+                                             int T, const Window& w, int lane) {
+  constexpr int kChunks = D * (int)sizeof(TC) / 16;  // 16-byte chunks a row
+  const int nf = T - w.nt;
+  for (int e = lane; e < kZeroBags * kChunks; e += 32) {
+    const int64_t f = z * kZeroBags + e / kChunks;
+    if (f >= n_foreign) break;
+    const int j = (int)(f % nf);
+    const int64_t bag = (f / nf) * T + (j < w.t_lo ? j : j + w.nt);
+    reinterpret_cast<uint4*>(out + bag * D)[e % kChunks] = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -236,7 +302,7 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
                                   const int32_t* __restrict__ offsets,
                                   const int32_t* __restrict__ indices,
                                   const uint8_t* __restrict__ mask, TC* __restrict__ out,
-                                  int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
+                                  int64_t n_bags, int T, int L, Window w) {
   constexpr int RB = D + 4;           // bytes a row: D values, then the f32 scale
   constexpr int CPL = D / LPR;        // values a lane
   constexpr int NW = CPL / 4;         // their words, from word c0 = r * NW of the row
@@ -255,21 +321,43 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
   const int r = lane % LPR;
   const int c0 = r * NW;
   const int last = lane | (LPR - 1);  // the row's last lane: its window holds the scale
-  const int64_t n_tasks = (n_bags + G - 1) / G;
+  // The window's groups are over the meeting tables' n_own bags; its zero
+  // tasks follow them.
+  const int64_t n_own = kWindow ? n_bags / T * w.nt : n_bags;
+  const int64_t n_tasks = (n_own + G - 1) / G;
+  const int64_t n_all = kWindow ? n_tasks + (n_bags - n_own + kZeroBags - 1) / kZeroBags : n_tasks;
 
   for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
+       task < n_all; task += (int64_t)gridDim.x * kWarpsPerBlock) {
+    if constexpr (kWindow) {
+      if (task >= n_tasks) {
+        zero_foreign<TC, D>(out, task - n_tasks, n_bags - n_own, T, w, lane);
+        continue;
+      }
+    }
     const int64_t bag0 = task * G;
-    const int64_t bag = bag0 + bi;
+    int64_t bag = bag0 + bi;
+    bool tested = false;  // the window's test at each row load (a straddling table)
+    int64_t at[NI];
+    if constexpr (kWindow) {
+      const int t = w.t_lo + (int)(bag % w.nt);
+      tested = window_tested(t, w);
+      bag = bag < n_own ? window_bag(bag, T, w) : n_bags;
+      window_slots<G, RPS, NI>(at, bag0, n_own, T, L, w, lane);
+    }
     const int64_t base =
-        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? row_lo : 0);
+        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? w.row_lo : 0);
 
     int32_t ids[NI];
     float acc[CPL];
 #pragma unroll
     for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
 
-    load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, 0, lane);
+    if constexpr (kWindow) {
+      load_window_ids<RPS, NI>(ids, at, indices, mask, L, 0, lane);
+    } else {
+      load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, 0, lane);
+    }
     for (int step0 = 0; step0 < L; step0 += RPS) {
       int32_t rid[U];
 #pragma unroll
@@ -284,15 +372,20 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
 #pragma unroll
         for (int c = 0; c < NC; ++c) win[u][c] = make_uint4(0u, 0u, 0u, 0u);
         e[u] = 0u;
-        if (owned<kWindow>(rid[u], base, n_rows)) {
+        if (rid[u] >= 0 && (!tested || in_window(base, rid[u], w))) {
           const uint4* chunk = row_window(
               reinterpret_cast<uintptr_t>(qrows) + (base + rid[u]) * RB, c0, e[u]);
 #pragma unroll
           for (int c = 0; c < NC; ++c) win[u][c] = load16<H>(chunk + c);
         }
       }
-      if (step0 + RPS < L) load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L,
-                                                 step0 + RPS, lane);
+      if (step0 + RPS < L) {
+        if constexpr (kWindow) {
+          load_window_ids<RPS, NI>(ids, at, indices, mask, L, step0 + RPS, lane);
+        } else {
+          load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, step0 + RPS, lane);
+        }
+      }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         uint32_t x[NW + 1];
@@ -382,16 +475,33 @@ embedding_bag_rowwise_general_kernel(const int8_t* __restrict__ qrows,
                                      const int32_t* __restrict__ offsets,
                                      const int32_t* __restrict__ indices,
                                      const uint8_t* __restrict__ mask, TC* __restrict__ out, int d,
-                                     int64_t n_bags, int T, int L, int64_t row_lo,
-                                     int64_t n_rows) {
+                                     int64_t n_bags, int T, int L, Window w) {
   const int lane = threadIdx.x & 31;
   const int64_t rb = d + 4;
-  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
-       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
-    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
+  // The window: a warp a bag of the meeting tables, then a warp a foreign
+  // bag, which it zeroes.
+  const int64_t n_own = kWindow ? n_bags / T * w.nt : n_bags;
+  for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); task < n_bags;
+       task += (int64_t)gridDim.x * kWarpsPerBlock) {
+    int64_t bag = task;
+    bool tested = false;
+    if constexpr (kWindow) {
+      if (task >= n_own) {
+        const int nf = T - w.nt;
+        const int64_t f = task - n_own;
+        const int j = (int)(f % nf);
+        bag = (f / nf) * T + (j < w.t_lo ? j : j + w.nt);
+        for (int c = lane; c < d; c += 32) to_out(0.f, out + bag * d + c);
+        continue;
+      }
+      tested = window_tested(w.t_lo + (int)(task % w.nt), w);
+      bag = window_bag(task, T, w);
+    }
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? w.row_lo : 0);
     for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
       float acc[kGeneralCols] = {};
-      for_each_row<kWindow>(indices, mask, bag, L, base, n_rows, lane, [&](int64_t row) {
+      for_each_row<false>(indices, mask, bag, L, base, 0, lane, [&](int64_t row) {
+        if (tested && (uint64_t)row >= (uint64_t)w.n_rows) return;
         const uint8_t* p = reinterpret_cast<const uint8_t*>(qrows) + row * rb;
         const uint32_t w = (uint32_t)__ldg(p + d) | ((uint32_t)__ldg(p + d + 1) << 8) |
                            ((uint32_t)__ldg(p + d + 2) << 16) | ((uint32_t)__ldg(p + d + 3) << 24);
@@ -423,7 +533,12 @@ struct Args {
   int T, L, grid;
   cudaStream_t stream;
   int64_t row_lo = 0, n_rows = 0;  // the window (kWindow instances only)
+  int t_lo = 0, nt = 0, test_lo = 0, test_hi = 0;  // K4's window: its meeting tables
 };
+
+Window window_of(const Args& a) {
+  return Window{a.row_lo, a.n_rows, a.t_lo, a.nt, a.test_lo, a.test_hi};
+}
 
 template <typename TC, int D, int LPR, int G, int U, bool H, bool kWindow = false>
 int launch_int8(const void* q, const void* scale, const Args& a) {
@@ -439,7 +554,7 @@ int launch_rowwise(const void* qrows, const Args& a) {
   embedding_bag_int8_rowwise_kernel<TC, D, LPR, G, U, H, kWindow>
       <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
           static_cast<const int8_t*>(qrows), a.offsets, a.indices, a.mask,
-          static_cast<TC*>(a.out), a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
+          static_cast<TC*>(a.out), a.n_bags, a.T, a.L, window_of(a));
   return (int)cudaGetLastError();
 }
 
@@ -496,7 +611,7 @@ int width_rowwise(int d, int G, int U, const void* qrows, const Args& a) {
     embedding_bag_rowwise_general_kernel<TC, kWindow>
         <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
             static_cast<const int8_t*>(qrows), a.offsets, a.indices, a.mask,
-            static_cast<TC*>(a.out), d, a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
+            static_cast<TC*>(a.out), d, a.n_bags, a.T, a.L, window_of(a));
     return (int)cudaGetLastError();
   }
   if (d == 32) return mapping_rowwise<TC, 32, kWindow>(G, U, qrows, a);
@@ -561,17 +676,27 @@ int drs_embedding_bag_int8_window(const void* q, int d, const void* offsets,
   return width_int8<int32_t, true>(d, bags_per_warp, rows_per_lane, q, nullptr, a);
 }
 
-// As above for K4: out is the (B, T, d) f32 sum before the cast.
+// As above for K4: out is the (B, T, d) f32 sum before the cast. Tables
+// [t_lo, t_lo + nt) meet the shard (ops/embedding.py::table_range),
+// test_lo / test_hi where the first / last of them straddles a shard edge;
+// the other tables' bags come out zero. grid covers the plan's groups over
+// the B * nt meeting bags and the zero tasks (k4_window_plan).
 int drs_embedding_bag_int8_rowwise_window(const void* qrows, int d, const void* offsets,
                                           const void* indices, const void* mask, void* out,
-                                          int64_t row_lo, int64_t n_rows, int64_t n_bags, int T,
+                                          int64_t row_lo, int64_t n_rows, int t_lo, int nt,
+                                          int test_lo, int test_hi, int64_t n_bags, int T,
                                           int L, int bags_per_warp, int rows_per_lane, int grid,
                                           void* stream) {
   if (n_bags <= 0) return 0;
-  if (grid <= 0 || row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (grid <= 0 || row_lo < 0 || n_rows < 0 || t_lo < 0 || nt < 0 || t_lo + nt > T)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(offsets, indices, mask, out, n_bags, T, L, grid, stream);
   a.row_lo = row_lo;
   a.n_rows = n_rows;
+  a.t_lo = t_lo;
+  a.nt = nt;
+  a.test_lo = test_lo;
+  a.test_hi = test_hi;
   return width_rowwise<float, true>(d, bags_per_warp, rows_per_lane, qrows, a);
 }
 

@@ -49,7 +49,10 @@ rounds once, so a sharded per-table int8 lookup is bit for bit the
 single-device one. Each keeps its own launch count. Under autograd (the dense mesh
 trainer) ``embedding_bag_shard`` runs as ``EmbeddingBagShardFunction``,
 whose backward is K1b with the same window (``embedding_bag_backward_shard``:
-the shard's own ``(R_s, d)`` f32 gradient).
+the shard's own ``(R_s, d)`` f32 gradient). K1b's and K4's windows launch
+only over the bags of the tables that meet the shard (``table_range``: a
+range of tables known on the host, made where the shard is placed and
+handed to the wrappers, or derived once per offsets tensor).
 
 The export helpers ``quantize_rowwise_int8`` and ``quantize_pertable_int8``
 are plain torch: they run once an export. (JAX's ``pack_table`` is
@@ -63,6 +66,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -166,6 +170,91 @@ def window_ids(offsets: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor 
     if mask is not None:
         valid &= mask
     return torch.where(valid, flat - row_lo, 0).reshape(-1), valid
+
+
+@dataclasses.dataclass(frozen=True)
+class TableRange:
+    """The tables that meet a row shard ``[row_lo, row_lo + rows)`` of the
+    fused table: tables ``lo .. hi - 1`` (contiguous: the shard is a range
+    of fused rows). ``lo_edge``: table ``lo`` starts before ``row_lo``;
+    ``hi_edge``: table ``hi - 1`` ends past the shard (or, for the last
+    table, its end is not known). Only those two tables straddle a shard
+    edge; every slot of the others lies inside the shard, so the window
+    kernels add or read its row with no test (``csrc/window_tables.cuh``)."""
+
+    lo: int
+    hi: int
+    lo_edge: bool
+    hi_edge: bool
+
+    @property
+    def kernel_args(self) -> tuple:
+        """``(t_lo, nt, test_lo, test_hi)`` as the window entry points take them."""
+        return (self.lo, self.hi - self.lo, int(self.lo_edge), int(self.hi_edge))
+
+
+@functools.lru_cache(maxsize=4096)
+def _table_range(offsets: tuple, row_lo: int, row_hi: int, total_rows: int | None) -> TableRange:
+    T = len(offsets)
+    if row_hi <= row_lo or T == 0:
+        return TableRange(0, 0, False, False)
+    # Table t holds [offsets[t], offsets[t + 1]) and the last one the rest:
+    # those that start before row_hi and end after row_lo.
+    ends = offsets[1:] + (math.inf,)
+    meet = [t for t in range(T) if offsets[t] < row_hi and ends[t] > row_lo]
+    if not meet:
+        return TableRange(0, 0, False, False)
+    lo, hi = meet[0], meet[-1] + 1
+    end = offsets[hi] if hi < T else (math.inf if total_rows is None else total_rows)
+    return TableRange(lo, hi, offsets[lo] < row_lo, end > row_hi)
+
+
+def table_range(offsets, row_lo: int, rows: int, total_rows: int | None = None) -> TableRange:
+    """The ``TableRange`` of the shard ``[row_lo, row_lo + rows)`` from the
+    tables' first fused rows ``offsets`` on the host (a sequence of ints,
+    e.g. ``ModelConfig.table_offsets``). ``total_rows``: the fused table's
+    rows (the padded ones on a mesh), where the last table ends; without it
+    the last table counts as straddling wherever it meets the shard."""
+    return _table_range(tuple(int(o) for o in offsets), int(row_lo), int(row_lo) + int(rows),
+                        None if total_rows is None else int(total_rows))
+
+
+_HOST_OFFSETS: dict = {}  # id(offsets tensor) -> (weakref, version, host tuple)
+
+
+def host_offsets(offsets: torch.Tensor) -> tuple:
+    """``offsets`` as a tuple of host ints: copied from its device once per
+    tensor (again only after an in-place change; an inference tensor keeps
+    no version, so its first copy stands), then cached for as long as the
+    tensor lives. A window wrapper called without a range derives it from
+    this (``table_range``)."""
+    key = id(offsets)
+    version = None if offsets.is_inference() else offsets._version
+    hit = _HOST_OFFSETS.get(key)
+    if hit is not None and hit[0]() is offsets and hit[1] == version:
+        return hit[2]
+    vals = tuple(int(o) for o in offsets.tolist())
+    _HOST_OFFSETS[key] = (weakref.ref(offsets, lambda _, k=key: _HOST_OFFSETS.pop(k, None)),
+                          version, vals)
+    return vals
+
+
+def _range_of(table_range: TableRange | None, offsets: torch.Tensor, row_lo: int,
+              rows: int) -> TableRange:
+    """A window wrapper's table range: the caller's, or derived from the
+    offsets' cached host copy."""
+    if table_range is None:
+        return table_range_of(offsets, row_lo, rows)
+    T = offsets.shape[0]
+    if not 0 <= table_range.lo <= table_range.hi <= T:
+        raise ValueError(f"table_range {table_range} does not fit {T} tables")
+    return table_range
+
+
+def table_range_of(offsets: torch.Tensor, row_lo: int, rows: int) -> TableRange:
+    """``table_range`` from an offsets tensor (on any device: its host copy
+    is made once, ``host_offsets``)."""
+    return table_range(host_offsets(offsets), row_lo, rows)
 
 
 def embedding_bag_reference(table: torch.Tensor, offsets: torch.Tensor,
@@ -368,6 +457,27 @@ def k4_launch_plan(n_bags: int, L: int, d: int) -> K1Plan:
                  1 if d == 32 else 4)
 
 
+# Foreign bags a warp of K4's window zeroes (kZeroBags in
+# csrc/embedding_bag_int8.cu; chosen by experiments/k4w_sweep.py).
+K4W_ZERO_BAGS = 32
+
+
+@functools.lru_cache(maxsize=512)
+def k4_window_plan(B: int, T: int, nt: int, L: int, d: int) -> K1Plan:
+    """K4's plan on a row shard that ``nt`` of the ``T`` tables meet:
+    ``k4_launch_plan``'s mapping over the ``B * nt`` bags of those tables
+    (its groups of G bags formed over them alone), then, at the tuned
+    widths, a task a K4W_ZERO_BAGS of the other tables' bags, which the
+    launch zeroes; the general instance a warp a bag of either kind.
+    ``tasks`` and ``grid`` count both."""
+    plan = k4_launch_plan(B * nt, L, d)
+    if plan.general:
+        return _general_plan(B * T)
+    tasks = plan.tasks + -(-B * (T - nt) // K4W_ZERO_BAGS)
+    return dataclasses.replace(plan, tasks=tasks,
+                               grid=max(1, -(-tasks // K1_WARPS_PER_BLOCK)))
+
+
 def _declare(lib: ctypes.CDLL):
     lib.drs_embedding_bag.restype = ctypes.c_int
     lib.drs_embedding_bag.argtypes = [
@@ -545,7 +655,8 @@ def _declare_backward(lib: ctypes.CDLL):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
         ctypes.c_void_p,                                    # grad (f32, the shard's)
         ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # table range (kernel_args)
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B, T, L
         ctypes.c_int, ctypes.c_void_p,                      # grid, stream
     ]
 
@@ -563,10 +674,17 @@ def _check_backward(g, offsets, indices, num_rows: int, mask, out):
     _check(g.new_empty((0, d)), offsets, indices, g.dtype, mask)
 
 
-def _k1b_grid(indices) -> int:
+def _k1b_grid(indices, tables: int | None = None) -> int:
+    """K1b's blocks: a warp a bag and 32 of its slots, over every bag, or
+    over the bags of ``tables`` tables (the window's meeting tables)."""
     B, T, L = indices.shape
-    tasks = B * T * -(-L // 32)  # a warp a bag and 32 of its slots
-    return -(-tasks // K1B_WARPS_PER_BLOCK)
+    tasks = B * (T if tables is None else tables) * -(-L // 32)
+    return max(1, -(-tasks // K1B_WARPS_PER_BLOCK))
+
+
+# Widths at which K1b's window adds a row with 16-byte vector reductions:
+# the output rows must start on 16-byte boundaries.
+K1BW_VECTOR_WIDTHS = (32, 64, 128, 256)
 
 
 def embedding_bag_backward(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
@@ -620,7 +738,8 @@ embedding_bag_backward.kernel_launches = 0
 
 def embedding_bag_backward_shard(g: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
                                  row_lo: int, rows: int, *, mask: torch.Tensor | None = None,
-                                 out: torch.Tensor | None = None) -> torch.Tensor:
+                                 out: torch.Tensor | None = None,
+                                 table_range: TableRange | None = None) -> torch.Tensor:
     """The gradient of ``embedding_bag_shard`` with respect to its row
     shard (K1b with the ownership window; the VJP of the shard's masked
     gather + pool, JAX ``parallel/sharding.py:102-130``, under the dense
@@ -632,7 +751,11 @@ def embedding_bag_backward_shard(g: torch.Tensor, offsets: torch.Tensor, indices
       offsets, indices, mask: as ``embedding_bag_shard`` took them (the
         whole batch's table-local ids).
       row_lo, rows: the shard holds the fused rows ``[row_lo, row_lo + rows)``.
-      out: optional f32 ``(rows, d)`` buffer to accumulate into.
+      out: optional f32 ``(rows, d)`` buffer to accumulate into (on the
+        card at d 32, 64, 128 and 256 starting on a 16-byte boundary).
+      table_range: the tables that meet the shard (``table_range``), made
+        where the shard is placed; without it the wrapper derives it from
+        the offsets' host copy, made once per offsets tensor.
 
     Returns:
       the shard's f32 ``(rows, d)`` gradient: each bag's gradient added at
@@ -641,9 +764,10 @@ def embedding_bag_backward_shard(g: torch.Tensor, offsets: torch.Tensor, indices
       order, as ``embedding_bag_backward``'s.
 
     CPU tensors take ``embedding_bag_backward_reference(..., window=...)``;
-    CUDA tensors launch K1b's window instance, counted in
-    ``embedding_bag_backward_shard.kernel_launches``; a failed build or
-    launch raises.
+    CUDA tensors launch K1b's window kernel over the bags of the range's
+    tables alone, counted in ``embedding_bag_backward_shard.kernel_launches``
+    (no launch where no table meets the shard); a failed build or launch
+    raises.
     """
     if row_lo < 0 or rows < 0:
         raise ValueError(f"row_lo and rows must be >= 0; got {row_lo}, {rows}")
@@ -658,13 +782,18 @@ def embedding_bag_backward_shard(g: torch.Tensor, offsets: torch.Tensor, indices
     g = g.contiguous()
     if out is None:
         out = torch.zeros((rows, d), dtype=torch.float32, device=g.device)
-    if B * T == 0 or L == 0:
+    elif d in K1BW_VECTOR_WIDTHS and out.data_ptr() % 16:
+        raise ValueError("K1b's window adds 16-byte vectors: out must start on a 16-byte "
+                         "boundary")
+    tr = _range_of(table_range, offsets, row_lo, rows)
+    if B * T == 0 or L == 0 or tr.hi == tr.lo:
         return out
     _build.launch(_build.load("embedding_bag_backward", _declare_backward),
                   "drs_embedding_bag_backward_window", g.device,
                   g.data_ptr(), _DTYPE_CODES[g.dtype], d, offsets.data_ptr(),
                   indices.data_ptr(), mask.data_ptr() if mask is not None else None,
-                  out.data_ptr(), row_lo, rows, B * T, T, L, _k1b_grid(indices))
+                  out.data_ptr(), row_lo, rows, *tr.kernel_args, B, T, L,
+                  _k1b_grid(indices, tr.hi - tr.lo))
     _build.count_launch(embedding_bag_backward_shard)
     return out
 
@@ -722,19 +851,21 @@ class EmbeddingBagShardFunction(torch.autograd.Function):
     forward K1's window (the f32 partial), backward K1b's window
     (``embedding_bag_backward_shard``; the plain versions on the CPU). The
     gradient comes back in the shard's dtype, summed in f32 and rounded
-    once."""
+    once. The shard's ``TableRange`` (or None) rides along to the backward."""
 
     @staticmethod
-    def forward(ctx, shard, offsets, indices, mask, cdt, row_lo):
+    def forward(ctx, shard, offsets, indices, mask, cdt, row_lo, table_range):
         ctx.save_for_backward(offsets, indices, mask)
         ctx.rows, ctx.row_lo, ctx.table_dtype = shard.shape[0], row_lo, shard.dtype
+        ctx.table_range = table_range
         return _dispatch_shard(shard, offsets, indices, mask, cdt, row_lo)
 
     @staticmethod
     def backward(ctx, g):
         offsets, indices, mask = ctx.saved_tensors
-        grad = embedding_bag_backward_shard(g, offsets, indices, ctx.row_lo, ctx.rows, mask=mask)
-        return grad.to(ctx.table_dtype), None, None, None, None, None
+        grad = embedding_bag_backward_shard(g, offsets, indices, ctx.row_lo, ctx.rows, mask=mask,
+                                            table_range=ctx.table_range)
+        return grad.to(ctx.table_dtype), None, None, None, None, None, None
 
 
 # ------------------------------------------------- int8 tables (K1-int8, K4)
@@ -843,13 +974,15 @@ def _declare_int8(lib: ctypes.CDLL):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
         ctypes.c_void_p,                                    # stream
     ]
-    for fn in ("drs_embedding_bag_int8_window", "drs_embedding_bag_int8_rowwise_window"):
+    for fn, table_range in (("drs_embedding_bag_int8_window", ()),
+                            ("drs_embedding_bag_int8_rowwise_window", (ctypes.c_int,) * 4)):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = [
             ctypes.c_void_p, ctypes.c_int,                      # shard, d
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
             ctypes.c_void_p,                                    # out (int32 or f32)
             ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows of the shard
+            *table_range,                                       # K4: TableRange.kernel_args
             ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
             ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
             ctypes.c_void_p,                                    # stream
@@ -966,24 +1099,27 @@ def _check_window(table, row_lo: int):
 
 
 def _launch_window(wrapper, fn: str, lib, table, args, offsets, indices, mask, out_dtype,
-                   d: int, row_lo: int, plan: K1Plan, extra=(), tail=()) -> torch.Tensor:
+                   d: int, row_lo: int, plan: K1Plan, extra=(), tail=(),
+                   tables=()) -> torch.Tensor:
     """``fn`` (a window entry point of ``lib``) on checked CUDA inputs,
-    counted in ``wrapper.kernel_launches``."""
+    counted in ``wrapper.kernel_launches``; ``tables``: K4's
+    ``TableRange.kernel_args``."""
     B, T, L = indices.shape
     out = torch.empty((B, T, d), dtype=out_dtype, device=table.device)
     if B * T == 0:
         return out
     _build.launch(lib, fn, table.device, *args, offsets.data_ptr(), indices.data_ptr(),
                   mask.data_ptr() if mask is not None else None, out.data_ptr(), *extra,
-                  row_lo, table.shape[0], B * T, T, L, plan.bags_per_warp, plan.rows_per_lane,
-                  plan.grid, *tail)
+                  row_lo, table.shape[0], *tables, B * T, T, L, plan.bags_per_warp,
+                  plan.rows_per_lane, plan.grid, *tail)
     _build.count_launch(wrapper)
     return out
 
 
 def embedding_bag_shard(shard: torch.Tensor, offsets: torch.Tensor, indices: torch.Tensor,
                         row_lo: int, *, compute_dtype: torch.dtype | None = None,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
+                        mask: torch.Tensor | None = None,
+                        table_range: TableRange | None = None) -> torch.Tensor:
     """One row shard's part of ``embedding_bag`` (K1 with the ownership
     window; JAX ``parallel/sharding.py:102-130``).
 
@@ -998,13 +1134,15 @@ def embedding_bag_shard(shard: torch.Tensor, offsets: torch.Tensor, indices: tor
     tensors launch K1's window instance with ``k1_window_plan``'s mapping,
     counted in ``embedding_bag_shard.kernel_launches``. With grad enabled
     and ``shard.requires_grad`` the call is differentiable with respect to
-    the shard (``EmbeddingBagShardFunction``: backward K1b's window).
+    the shard (``EmbeddingBagShardFunction``: backward K1b's window, which
+    takes ``table_range``; the forward does not read it).
     """
     cdt = compute_dtype if compute_dtype is not None else shard.dtype
     _check(shard, offsets, indices, cdt, mask)
     _check_window(shard, row_lo)
     if torch.is_grad_enabled() and shard.requires_grad:
-        return EmbeddingBagShardFunction.apply(shard, offsets, indices, mask, cdt, row_lo)
+        return EmbeddingBagShardFunction.apply(shard, offsets, indices, mask, cdt, row_lo,
+                                               table_range)
     return _dispatch_shard(shard, offsets, indices, mask, cdt, row_lo)
 
 
@@ -1066,14 +1204,21 @@ embedding_bag_int8_shard.kernel_launches = 0
 
 def embedding_bag_int8_rowwise_shard(qrows_shard: torch.Tensor, offsets: torch.Tensor,
                                      indices: torch.Tensor, row_lo: int, *,
-                                     mask: torch.Tensor | None = None) -> torch.Tensor:
+                                     mask: torch.Tensor | None = None,
+                                     table_range: TableRange | None = None) -> torch.Tensor:
     """One row shard's part of ``embedding_bag_int8_rowwise`` (K4 with the
     ownership window): the ``(B, T, d)`` f32 sum of the dequantized rows the
-    shard owns, not cast.
+    shard owns, not cast (zero for a bag of a table the shard does not
+    meet).
+
+    ``table_range``: the tables that meet the shard (``table_range``), made
+    where the shard is placed; without it the wrapper derives it from the
+    offsets' host copy, made once per offsets tensor.
 
     CPU tensors take ``embedding_bag_int8_rowwise_reference(...,
-    window=...)``; CUDA tensors launch K4's window instance, counted in
-    ``embedding_bag_int8_rowwise_shard.kernel_launches``."""
+    window=...)``; CUDA tensors launch K4's window instance over the range's
+    bags (``k4_window_plan``), which also zeroes the other bags' rows,
+    counted in ``embedding_bag_int8_rowwise_shard.kernel_launches``."""
     _check_int8(qrows_shard, 4, torch.float32, offsets, indices, mask)
     window = _check_window(qrows_shard, row_lo)
     if qrows_shard.shape[1] - 4 in TUNED_WIDTHS and qrows_shard.data_ptr() % 4:
@@ -1087,11 +1232,13 @@ def embedding_bag_int8_rowwise_shard(qrows_shard: torch.Tensor, offsets: torch.T
                          f"{qrows_shard.device}")
     B, T, L = indices.shape
     d = qrows_shard.shape[1] - 4
+    tr = _range_of(table_range, offsets, row_lo, qrows_shard.shape[0])
     return _launch_window(embedding_bag_int8_rowwise_shard,
                           "drs_embedding_bag_int8_rowwise_window",
                           _build.load("embedding_bag_int8", _declare_int8), qrows_shard,
                           (qrows_shard.data_ptr(), d), offsets, indices, mask, torch.float32,
-                          d, row_lo, k4_launch_plan(B * T, L, d))
+                          d, row_lo, k4_window_plan(B, T, tr.hi - tr.lo, L, d),
+                          tables=tr.kernel_args)
 
 
 embedding_bag_int8_rowwise_shard.kernel_launches = 0

@@ -54,6 +54,7 @@ losses at the end are the JAX module's (:427-462).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -376,22 +377,41 @@ def _finish(acc: torch.Tensor, layout: str, cdt: torch.dtype, scale=None) -> tor
     return acc.to(cdt)
 
 
-def _shard_partial(layout: str, tables, offsets, indices, row_lo: int, cdt, mask):
+def _shard_partial(layout: str, tables, offsets, indices, row_lo: int, cdt, mask,
+                   table_range=None):
+    """Shard ``row_lo``'s partial for the table's layout; ``table_range``
+    (the shard's ``ops.embedding.TableRange``, or None) goes to the kernels
+    that launch over the meeting tables alone: K1b's window (the float
+    lookup's backward) and K4's."""
     from deeprecsys_tpu_torch import ops
 
     if layout == "float":
         return ops.embedding_bag_shard(tables, offsets, indices, row_lo, compute_dtype=cdt,
-                                       mask=mask)
+                                       mask=mask, table_range=table_range)
     if layout == "int8":
         return ops.embedding_bag_int8_shard(tables["q"], offsets, indices, row_lo, mask=mask)
     return ops.embedding_bag_int8_rowwise_shard(tables["qrows"], offsets, indices, row_lo,
-                                                mask=mask)
+                                                mask=mask, table_range=table_range)
+
+
+@functools.lru_cache(maxsize=256)
+def shard_table_ranges(cfg: ModelConfig, rows_per_shard: int, n_model: int) -> tuple:
+    """Each row shard's ``TableRange`` (the tables that meet it), made once
+    a (config, placement) from the config's table offsets on the host: no
+    offsets are read back from a card. The last table ends at the padded
+    fused table's end, ``rows_per_shard * n_model``."""
+    from deeprecsys_tpu_torch.ops.embedding import table_range
+
+    return tuple(table_range(cfg.table_offsets, m * rows_per_shard, rows_per_shard,
+                             rows_per_shard * n_model) for m in range(n_model))
 
 
 def _row_sharded_pooled(entry_tables: Callable, mesh: Mesh, d: int, rows_per_shard: int,
-                        offsets: Replicated, indices, mask, cdt, layout: str, scale_on):
+                        offsets: Replicated, indices, mask, cdt, layout: str, scale_on,
+                        ranges=None):
     """Row d's pooled lookup: a partial a shard (the window), combined on
-    entry (d, 0), finished there."""
+    entry (d, 0), finished there. ``ranges``: each shard's table range
+    (``shard_table_ranges``), or None."""
     out_dev = mesh.device(d, 0)
     moved: dict = {}
     partials = []
@@ -401,7 +421,8 @@ def _row_sharded_pooled(entry_tables: Callable, mesh: Mesh, d: int, rows_per_sha
             moved[dev] = (_to(indices, dev), None if mask is None else _to(mask, dev))
         idx, msk = moved[dev]
         partials.append(_shard_partial(layout, entry_tables(m), offsets.on(dev), idx,
-                                       m * rows_per_shard, cdt, msk))
+                                       m * rows_per_shard, cdt, msk,
+                                       None if ranges is None else ranges[m]))
     return _finish(_combine(partials, out_dev), layout, cdt, scale_on(out_dev))
 
 
@@ -451,7 +472,8 @@ def pooled_on_row(sp: ShardedParams, d: int, batch: Batch, cfg: ModelConfig,
     return _row_sharded_pooled(
         lambda m: sp.entry(d, m)["tables"], mesh, d, sp.rows_per_shard, offsets, batch.indices,
         batch.mask, compute_dtype_of(cfg), layout,
-        lambda dev: tables0["scale"] if layout == "int8" else None)
+        lambda dev: tables0["scale"] if layout == "int8" else None,
+        shard_table_ranges(cfg, sp.rows_per_shard, mesh.shape["model"]))
 
 
 def sharded_apply(model: ModelFns, mesh: Mesh, has_dense: bool) -> Callable:

@@ -461,7 +461,8 @@ def test_k1w_bench_inputs_check_bound_and_library_on_the_cpu(name, M, B):
     """``--only k1w``'s pieces where no card is needed, at table_scale 2000:
     shard 1 of M and its ids; the check passes the window's plain version;
     the windowed ``F.embedding_bag`` computes the shard's partial; the
-    bound reads only the owned distinct rows, every id and the f32 partial.
+    bound reads only the owned distinct rows, the ids of the tables that
+    meet the shard and the f32 partial.
     Without a card the CLI exits 1 before any bench."""
     from deeprecsys_tpu_torch.kernel_bench import (
         _k1w_check, k1w_inputs, window_bound, window_library)
@@ -479,7 +480,9 @@ def test_k1w_bench_inputs_check_bound_and_library_on_the_cpu(name, M, B):
     flat = (idx.long() + offsets.long()[None, :, None]).reshape(-1)
     owned = flat[(flat >= lo) & (flat < lo + shard.shape[0])]
     b = window_bound(shard, lo, offsets, idx, shard.shape[1])
-    assert b["bytes"] == (torch.unique(owned).numel() * shard.shape[1] * 2 + idx.numel() * 4
+    meet = idx[:, 2:4] if (name, M) == ("rm1", 4) else kernel_bench.meeting_ids(
+        offsets, idx, lo, shard.shape[0])
+    assert b["bytes"] == (torch.unique(owned).numel() * shard.shape[1] * 2 + meet.numel() * 4
                           + want.numel() * 4)
     assert kernel_bench.BENCHES["k1w"] is kernel_bench.bench_k1w
     if not torch.cuda.is_available():

@@ -1012,6 +1012,90 @@ def test_shard_autograd_launches_the_backward_window(cuda):
     torch.testing.assert_close(torch.cat([t.grad for t in shards]), want, rtol=1e-5, atol=1e-5)
 
 
+# Windows over the tables (3000, 500, 2000, 700) rows, fused 6200: K1b's
+# and K4's windows launch over the meeting tables alone (TableRange).
+WINDOW_ROWS = (3000, 500, 2000, 700)
+WINDOW_CASES = {
+    "aligned": (3000, 500),          # table 1 exactly
+    "straddling": (2500, 3300),      # tables 0-2, the first and last straddling
+    "one table": (1000, 1000),       # inside table 0
+    "last table": (5500, 700),       # the last table, to the fused table's end
+}
+
+
+@pytest.mark.parametrize("L", [23, 5, 1])
+@pytest.mark.parametrize("d", [8, 32, 64])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_table_range_windows_match_plain(cuda, case, d, L):
+    """K1b's window (f32 and bf16 gradients) and K4's window on an aligned,
+    a straddling, a one-table and a last-table window, with the range the
+    placement makes (``table_range`` with the fused rows) and the one the
+    wrapper derives, masked: each within its tolerance of the plain version
+    (the bags of the other tables exactly 0 in K4's partial, written over
+    memory that held NaN)."""
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag_backward_shard, embedding_bag_int8_rowwise_shard)
+    from deeprecsys_tpu_torch.ops.embedding import table_range
+
+    row_lo, rows = WINDOW_CASES[case]
+    w = (row_lo, row_lo + rows)
+    _, _, qrows, offsets, indices, mask = _int8_inputs(cuda, WINDOW_ROWS, d, 37, L,
+                                                       seed=d + L + rows, masked=True)
+    R, B, T = sum(WINDOW_ROWS), 37, len(WINDOW_ROWS)
+    placed = table_range(np.cumsum((0,) + WINDOW_ROWS[:-1]), row_lo, rows, R)
+    shard = qrows[row_lo:row_lo + rows]
+    for tr in (placed, None):
+        junk = torch.full((B, T, d), float("nan"), device=cuda)
+        del junk  # the partial's memory held NaN: the launch must write every bag
+        before = embedding_bag_int8_rowwise_shard.kernel_launches
+        got = embedding_bag_int8_rowwise_shard(shard, offsets, indices, row_lo, mask=mask,
+                                               table_range=tr)
+        torch.cuda.synchronize()
+        assert embedding_bag_int8_rowwise_shard.kernel_launches == before + 1
+        want = embedding_bag_int8_rowwise_reference(shard, offsets, indices, mask=mask, window=w)
+        tol = rowwise_tolerance(got, want, shard, offsets, indices, mask, window=w)
+        assert bool(((got - want).abs() <= tol).all()), (case, tr)
+        foreign = [t for t in range(T) if not placed.lo <= t < placed.hi]
+        assert bool((got[:, foreign] == 0).all())
+        g = torch.randn((B, T, d), generator=torch.Generator(device=cuda).manual_seed(L),
+                        device=cuda)
+        for g_dt in (torch.float32, torch.bfloat16):
+            gg = g.to(g_dt)
+            got = embedding_bag_backward_shard(gg, offsets, indices, row_lo, rows, mask=mask,
+                                               table_range=tr)
+            torch.cuda.synchronize()
+            want = embedding_bag_backward_reference(gg, offsets, indices, rows, mask=mask,
+                                                    window=w)
+            tol = backward_tolerance(gg, offsets, indices, rows, mask, window=w)
+            assert bool(((got - want).abs() <= tol).all()), (case, tr, g_dt)
+
+
+def test_table_range_windows_skip_when_no_table_meets(cuda):
+    """An empty shard: K1b's window launches nothing (no table meets it)
+    and K4's writes a partial of zeros."""
+    from deeprecsys_tpu_torch.ops import (
+        embedding_bag_backward_shard, embedding_bag_int8_rowwise_shard)
+
+    _, _, qrows, offsets, indices, _ = _int8_inputs(cuda, WINDOW_ROWS, 32, 9, 7, seed=3,
+                                                    masked=False)
+    before = embedding_bag_backward_shard.kernel_launches
+    g = torch.randn((9, len(WINDOW_ROWS), 32), device=cuda)
+    got = embedding_bag_backward_shard(g, offsets, indices, 100, 0)
+    assert got.shape == (0, 32) and embedding_bag_backward_shard.kernel_launches == before
+    got = embedding_bag_int8_rowwise_shard(qrows[100:100], offsets, indices, 100)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+
+
+def test_backward_window_rejects_a_misaligned_out(cuda):
+    from deeprecsys_tpu_torch.ops import embedding_bag_backward_shard
+
+    _, offsets, indices, g = _dup_inputs(cuda, 4, 2, 3, 10, 32, seed=1)
+    base = torch.zeros((10 * 32 + 1,), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        embedding_bag_backward_shard(g, offsets, indices, 0, 10, out=base[1:].view(10, 32))
+
+
 @pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 24, 32, 64, 100])
