@@ -3805,8 +3805,8 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
              f"masked and not: max |err| {errs[key]:.3e} against the plain version"
              + (f"; the {MESH_SHARDS} partials combined match the direct kernel"
                 + (" bit for bit" if quant == "int8" else "") if full else ""))
-    if full:  # K4's window where the shard's edges fall mid-table
-        straddling_k4_cases(device, cfg, tables["int8_rowwise"], offsets, indices, mask, errs)
+    if full:  # K1-int8's and K4's windows where the shard's edges fall mid-table
+        straddling_window_cases(device, cfg, tables, offsets, indices, mask, errs)
     if full:  # the direct path: the full window's partial rounded once is K1
         got = embedding_bag_shard(tables["none"], offsets, indices, 0,
                                   compute_dtype=torch.bfloat16).to(torch.bfloat16)
@@ -3933,8 +3933,9 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
             _log(f"[16 mesh] {HOTCOLD_SHARD[quant]} at {name}'s shard {m} (zipf, the "
                  f"{K6_TIMED_BATCHES} batches after the warm-up, C_pad "
                  f"{sp['cold_ids'].numel()}, {'the cold-only route' if m else 'with the hits'}): "
-                 f"{_us(t['ms'])} device, {k['launches']:.0f} launch(es) a call (virtual shard on "
-                 f"one card); bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+                 f"{_us(t['ms'])} device, {k['launches']:.0f} launch(es) a call ("
+                 f"{', '.join(k['kernels'])}; virtual shard on one card); bound "
+                 f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
                  f"{bound['bytes'] / 1e6:.3f} MB); plain {_us(t['plain_ms'])}; windowed "
                  f"F.embedding_bag {_us(t['library_ms'])} [{card}]")
     del tables
@@ -3942,37 +3943,39 @@ def mesh_kernel_cases(device, name: str, seed: int, card: str) -> tuple[dict, di
     return errs, times
 
 
-def straddling_k4_cases(device, cfg, qrows, offsets, indices, mask, errs: dict):
-    """K4's window on ``cfg``'s shard 1 of MESH_SHARDS shifted by half of
-    the first table (three tables meet it, the first and last straddling a
-    shard edge; ``qrows`` the whole table), masked and not, against its
-    plain version within ``rowwise_tolerance`` of the window; the aligned
-    shards are ``mesh_kernel_cases``' own. The meeting tables come from the
-    wrapper (derived from the offsets) and from ``table_range`` with the
-    fused rows, as a placement makes it."""
+def straddling_window_cases(device, cfg, tables: dict, offsets, indices, mask, errs: dict):
+    """K1-int8's and K4's windows on ``cfg``'s shard 1 of MESH_SHARDS
+    shifted by half of the first table (three tables meet it, the first and
+    last straddling a shard edge; ``tables`` the whole tables of
+    ``_shard_tables``), masked and not, against their plain versions: the
+    int32 pool bit for bit, K4 within ``rowwise_tolerance`` of the window;
+    the aligned shards are ``mesh_kernel_cases``' own. The meeting tables
+    come from the wrapper (derived from the offsets) and from
+    ``table_range`` with the fused rows, as a placement makes it."""
     rps = cfg.total_rows // MESH_SHARDS
     lo = rps + cfg.scaled_rows[0] // 2
-    shard = qrows[lo:lo + rps]
+    w = (lo, lo + rps)
     placed = table_range(cfg.table_offsets, lo, rps, cfg.total_rows)
-    for tr in (None, placed):
-        for m_ in (None, mask):
-            got = embedding_bag_int8_rowwise_shard(shard, offsets, indices, lo, mask=m_,
-                                                   table_range=tr)
-            synchronize(device)
-            want = embedding_bag_int8_rowwise_reference(shard, offsets, indices, mask=m_,
-                                                        window=(lo, lo + rps))
-            what = (f"rm1 int8_rowwise window rows [{lo}, {lo + rps}) (tables "
-                    f"[{placed.lo}, {placed.hi}), {'given' if tr else 'derived'}), "
-                    f"mask={'yes' if m_ is not None else 'no'}")
-            err = _check_partial("int8_rowwise", got, want, shard, what,
-                                 lambda a, b, t, *r: rowwise_tolerance(
-                                     a, b, t, offsets, indices, m_, window=(lo, lo + rps)))
-            errs[SHARD["int8_rowwise"]] = max(errs.get(SHARD["int8_rowwise"], 0.0), err)
-    _log(f"[16 mesh] {SHARD['int8_rowwise']} ok on rm1's window shifted by half a table (rows "
-         f"[{lo}, {lo + rps}), tables [{placed.lo}, {placed.hi}), straddling "
-         f"{placed.lo_edge}/{placed.hi_edge}), masked and not, with the range given and derived: "
-         f"max |err| "
-         f"{errs[SHARD['int8_rowwise']]:.3e} so far")
+    for quant, fn in (("int8", embedding_bag_int8_shard),
+                      ("int8_rowwise", embedding_bag_int8_rowwise_shard)):
+        shard = tables[quant][lo:lo + rps]
+        for tr in (None, placed):
+            for m_ in (None, mask):
+                got = fn(shard, offsets, indices, lo, mask=m_, table_range=tr)
+                synchronize(device)
+                want = _window_partial(quant, shard, offsets, indices, lo, m_, plain=True)
+                what = (f"rm1 {quant} window rows [{lo}, {lo + rps}) (tables "
+                        f"[{placed.lo}, {placed.hi}), {'given' if tr else 'derived'}), "
+                        f"mask={'yes' if m_ is not None else 'no'}")
+                err = _check_partial(quant, got, want, shard, what,
+                                     lambda a, b, t, *r: rowwise_tolerance(
+                                         a, b, t, offsets, indices, m_, window=w))
+                errs[SHARD[quant]] = max(errs.get(SHARD[quant], 0.0), err)
+        _log(f"[16 mesh] {SHARD[quant]} ok on rm1's window shifted by half a table (rows "
+             f"[{lo}, {lo + rps}), tables [{placed.lo}, {placed.hi}), straddling "
+             f"{placed.lo_edge}/{placed.hi_edge}), masked and not, with the range given and "
+             f"derived: max |err| {errs[SHARD[quant]]:.3e} so far"
+             + (" (int32, bit for bit)" if quant == "int8" else ""))
 
 
 def _mesh_launch_check(counts: dict, want: dict, what: str):

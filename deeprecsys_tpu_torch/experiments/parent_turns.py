@@ -2,11 +2,12 @@
 (an earlier commit, unpacked with ``git archive``), on one card.
 
     python -m deeprecsys_tpu_torch.experiments.parent_turns --other DIR [--json PATH]
-        [--kernels k5,k6,k1bw,k4w,k1b]
+        [--kernels k5,k6,k1bw,k4w,k1b,k1iw,k6s0,fwd] [--turns N]
 
-Runs this file as a child four times, in the order other, this, this,
-other, each with ``PYTHONPATH`` set to its checkout, so that each child
-imports and builds that checkout's package and nothing else. A child
+Runs this file as a child four times (``--turns`` N: 4 N times), in the
+order other, this, this, other, each with ``PYTHONPATH`` set to its
+checkout, so that each child imports and builds that checkout's package and
+nothing else. A child
 times, with CUDA events (each call queued behind a spin kernel; the median
 span of 50 calls):
 
@@ -19,9 +20,22 @@ span of 50 calls):
   ``--route mask`` K6 with an all-false hot mask (the call of a checkout
   without that route). The hot set is fitted on a warm-up zipf(1.2) batch
   of 512 and the calls take four later batches;
+- ``k6s0``: K6 on shard 0 of that mesh (the hits) at rm1 and rm2 in the
+  three layouts, over eight later batches, and the wrapper's host time a
+  call there (``host_ms``), beside the host time of the mesh split a batch
+  (``split_hot_cold_sharded``, the median of its calls);
+  the paths left as they were at rm1: shard 1 on the cold-only route and
+  the single-device K6 (``embedding_bag_hotcold*`` on ``split_hot_cold``'s
+  split);
+- ``fwd``: rm1's 1x4 hot/cold forward (bf16, full size,
+  ``make_hotcold_model(mesh=)``, four zipf batches in turn): the wall of a
+  whole call (the host split, then the mesh lookup and the towers, waited
+  for), of the split alone (``prepare``) and of the rest alone on a split
+  made beforehand, each the median of 40 calls after 5;
 - K1b's window (``k1bw``: ``embedding_bag_backward_shard`` into a kept f32
-  gradient, f32 gradients, the trainer's batch 128) and K4's window
-  (``k4w``: ``embedding_bag_int8_rowwise_shard``, batch 512) at
+  gradient, f32 gradients, the trainer's batch 128), K4's window (``k4w``:
+  ``embedding_bag_int8_rowwise_shard``, batch 512) and K1-int8's
+  (``k1iw``: ``embedding_bag_int8_shard``, batch 512) at
   ``WINDOW_PLACES``: rm1's and rm2's 1/4 shard 1, rm1's window shifted by
   half a table (three tables meet it, two of them straddling) and dien's
   1/4 shard 1 (its edges mid-table), eight batches of the generator's ids
@@ -33,7 +47,8 @@ Each call is held first to ``embedding_bag_hotcold_reference(...,
 partial=True)`` with the mask it stands for (int8 bit for bit, else within
 ``hotcold_tolerance``), K5's to its plain version
 (``sparse_adagrad_tolerance``), K1b's and K4's to theirs
-(``backward_tolerance``, ``rowwise_tolerance``, with the window). It uses
+(``backward_tolerance``, ``rowwise_tolerance``, with the window; K1-int8's
+int32 pool bit for bit). It uses
 only functions that every checkout since the mesh port has. It needs a
 CUDA card and exits non-zero without one. It imports no JAX.
 """
@@ -45,6 +60,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -56,10 +72,24 @@ K6_LAYOUTS = ("none", "int8", "int8_rowwise")
 SHARDS = 4
 BATCH = 512
 TRAIN_BATCH = 128
-KERNELS = ("k5", "k6", "k1bw", "k4w", "k1b")
+KERNELS = ("k5", "k6", "k1bw", "k4w", "k1b", "k1iw", "k6s0", "fwd")
 # (model, place): shard 1 of 4, or the same window shifted by half of the
 # first table.
 WINDOW_PLACES = (("rm1", "1/4"), ("rm2", "1/4"), ("rm1", "1/4 + half a table"), ("dien", "1/4"))
+
+
+def host_ms(fn, args_list, iters: int = 200) -> float:
+    """Host time a call: ``iters`` calls back to back by the host clock,
+    then a wait for the card (whose share is small where a call's kernels
+    take less than its host work), over ``iters``."""
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def span_ms(fn, args_list, iters: int = 50) -> float:
@@ -121,6 +151,190 @@ def k5_rows(device) -> list:
     return rows
 
 
+def shard_split(sp: dict, m: int, device, all_hot: bool = True) -> dict:
+    """Shard m's K6 call of ``split_hot_cold_sharded``'s ``sp`` on the
+    card: its cold stream and the hits (an all-false mask unless
+    ``all_hot``)."""
+    on = {k: torch.from_numpy(np.ascontiguousarray(sp[k])).to(device)
+          for k in ("hot_sel", "hot_mask", "cold_local", "cold_seg")}
+    return {"hot_sel": on["hot_sel"], "cold_ids": on["cold_local"][m].contiguous(),
+            "cold_seg": on["cold_seg"][m].contiguous(),
+            "hot_mask": on["hot_mask"] if all_hot else torch.zeros_like(on["hot_mask"])}
+
+
+def _k6_table(quant: str, R: int, d: int, device, seed: int = 1) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    if quant == "none":
+        return torch.empty((R, d), dtype=torch.bfloat16, device=device).uniform_(
+            -0.05, 0.05, generator=g)
+    table = torch.randint(-127, 128, (R, d + (4 if quant == "int8_rowwise" else 0)),
+                          generator=g, device=device, dtype=torch.int8)
+    if quant == "int8_rowwise":
+        sc = torch.rand((R,), generator=g, device=device) * 1e-2 + 1e-4
+        table[:, d:] = sc.view(torch.int8).reshape(R, 4)
+    return table
+
+
+def _k6_check(quant: str, got, want, hot, table, split, what: str):
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    ok = (torch.equal(got, want) if quant == "int8" else bool(
+        ((got.float() - want.float()).abs() <= emb.hotcold_tolerance(
+            got, want, hot, table, split, rowwise=quant == "int8_rowwise")).all()))
+    if not ok:
+        raise AssertionError(f"K6 disagrees with its plain version ({what})")
+
+
+def _k6_plain(quant: str, hot, table, split, partial: bool):
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    if quant == "none":
+        return emb.embedding_bag_hotcold_reference(hot, table, split, partial=partial,
+                                                   compute_dtype=torch.bfloat16)
+    if quant == "int8":
+        scale = None if partial else torch.full((split["hot_sel"].shape[1],), 1e-3,
+                                                device=table.device)
+        return emb.embedding_bag_hotcold_int8_reference(hot, table, scale, split,
+                                                        partial=partial,
+                                                        compute_dtype=torch.bfloat16)
+    return emb.embedding_bag_hotcold_int8_rowwise_reference(hot, table, split, partial=partial,
+                                                            compute_dtype=torch.bfloat16)
+
+
+def k6s0_rows(device) -> list:
+    import types
+
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, zipf_stream
+    from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
+    from deeprecsys_tpu_torch.ops import embedding as emb
+    from deeprecsys_tpu_torch.ops.hotcold import split_hot_cold, split_hot_cold_sharded
+
+    rows = []
+    for name in K6_MODELS:
+        cfg = zoo.get_config(name, param_dtype="bfloat16", compute_dtype="bfloat16")
+        R, d = cfg.total_rows, cfg.sparse_feature_size
+        rps = R // SHARDS
+        hot_ids, _ = _hot_set(cfg, zipf_stream(cfg, BATCH, seed=22))
+        offs = np.asarray(cfg.table_offsets, dtype=np.int64)
+        mesh = types.SimpleNamespace(shape={"data": 1, "model": SHARDS})
+        streams = [zipf_stream(cfg, BATCH, seed=23 + i) for i in range(8)]
+        split_times, splits, singles = [], [], []
+        for idx in streams:
+            kw = {"cold_buckets": cold_buckets_for(idx.size, mesh), "impl": "native"}
+            split_hot_cold_sharded(idx, offs, hot_ids, SHARDS, rps, **kw)  # warm
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sp = split_hot_cold_sharded(idx, offs, hot_ids, SHARDS, rps, **kw)
+                split_times.append((time.perf_counter() - t0) * 1e3)
+            splits.append([shard_split(sp, m, device) for m in (0, 1)])
+            if name == "rm1":
+                single = split_hot_cold(idx, offs, hot_ids, cold_buckets=cold_buckets_for(idx.size))
+                singles.append({k: torch.from_numpy(np.ascontiguousarray(single[k])).to(device)
+                                for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")})
+        split_ms = float(np.median(split_times))
+        rows.append({"kernel": "mesh split", "model": name, "host_ms": split_ms})
+        print(f"[parent_turns] split_hot_cold_sharded {name} 1x{SHARDS}: host "
+              f"{split_ms * 1e3:.1f} us a batch (median of {len(split_times)})", flush=True)
+        for quant in K6_LAYOUTS:
+            table = _k6_table(quant, R, d, device)
+            hot = table.index_select(0, torch.as_tensor(hot_ids, device=device))
+            wrap = {"none": emb.embedding_bag_hotcold_shard,
+                    "int8": emb.embedding_bag_hotcold_int8_shard,
+                    "int8_rowwise": emb.embedding_bag_hotcold_int8_rowwise_shard}[quant]
+            kw = {"compute_dtype": torch.bfloat16} if quant == "none" else {}
+            calls = {"shard 0 (hits)": (lambda s, t=table[:rps]: wrap(hot, t, s[0], **kw),
+                                        table[:rps], 0)}
+            if name == "rm1":
+                B, T, _ = splits[0][1]["hot_sel"].shape
+                calls["shard 1 (cold-only)"] = (
+                    lambda s, t=table[rps:2 * rps], B=B, T=T: wrap(
+                        None, t, {"cold_ids": s[1]["cold_ids"], "cold_seg": s[1]["cold_seg"],
+                                  "bags": (B, T)}, **kw), table[rps:2 * rps], 1)
+            for label, (call, shard, m) in calls.items():
+                s0 = splits[0]
+                got = call(s0)
+                if m == 0:
+                    _k6_check(quant, got, _k6_plain(quant, hot, shard, s0[0], True), hot, shard,
+                              s0[0], f"{name} {quant} {label}")
+                ms = span_ms(call, [(s,) for s in splits])
+                rows.append({"kernel": "K6", "model": name, "layout": quant, "call": label,
+                             "span_ms": ms})
+                print(f"[parent_turns] K6 {name} {quant} {label}: span {ms * 1e3:.2f} us",
+                      flush=True)
+                if m == 0:
+                    ms = host_ms(call, [(s,) for s in splits])
+                    rows.append({"kernel": "K6 host a call", "model": name, "layout": quant,
+                                 "call": label, "host_ms": ms})
+                    print(f"[parent_turns] K6 {name} {quant} {label}: host {ms * 1e3:.2f} us a "
+                          f"call", flush=True)
+            if name == "rm1":
+                scale = torch.full((cfg.num_tables,), 1e-3, device=device)
+                single = {"none": lambda s: emb.embedding_bag_hotcold(
+                              hot, table, s, compute_dtype=torch.bfloat16),
+                          "int8": lambda s: emb.embedding_bag_hotcold_int8(
+                              hot, table, scale, s, compute_dtype=torch.bfloat16),
+                          "int8_rowwise": lambda s: emb.embedding_bag_hotcold_int8_rowwise(
+                              hot, table, s, compute_dtype=torch.bfloat16)}[quant]
+                _k6_check(quant, single(singles[0]), _k6_plain(quant, hot, table, singles[0],
+                                                               False),
+                          hot, table, singles[0], f"rm1 {quant} single device")
+                ms = span_ms(single, [(s,) for s in singles])
+                rows.append({"kernel": "K6", "model": name, "layout": quant,
+                             "call": "single device", "span_ms": ms})
+                print(f"[parent_turns] K6 {name} {quant} single device: span {ms * 1e3:.2f} us",
+                      flush=True)
+            del table, hot
+            torch.cuda.empty_cache()
+        del splits, singles
+    return rows
+
+
+def fwd_rows(device) -> list:
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, zipf_stream
+    from deeprecsys_tpu_torch.models import get_model
+    from deeprecsys_tpu_torch.models.base import Batch
+    from deeprecsys_tpu_torch.models.hotcold import make_hotcold_model
+    from deeprecsys_tpu_torch.parallel import make_mesh, shard_params
+
+    cfg = zoo.get_config("rm1", param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = get_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    hot_ids, _ = _hot_set(cfg, zipf_stream(cfg, BATCH, seed=31))
+    mesh4 = make_mesh(1, SHARDS, devices=[device] * SHARDS)
+    hc = make_hotcold_model(model, hot_ids, mesh=mesh4)
+    hp = shard_params(hc.convert_params(params), mesh4)
+    dense = np.random.default_rng(31).random((BATCH, cfg.dense_dim), dtype=np.float32)
+    hosts = [Batch(dense=dense, indices=zipf_stream(cfg, BATCH, seed=32 + i)) for i in range(4)]
+    splits = [hc.prepare(h) for h in hosts]
+    tail = Batch(dense=torch.from_numpy(dense).to(device), indices=None)
+
+    def median_ms(fn) -> float:
+        walls = []
+        for i in range(45):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(i % len(hosts))
+            torch.cuda.synchronize()
+            if i >= 5:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    rows = []
+    for part, fn in (("whole call", lambda i: hc.apply(hp, tail, hc.prepare(hosts[i]))),
+                     ("split alone", lambda i: hc.prepare(hosts[i])),
+                     ("lookup and towers alone", lambda i: hc.apply(hp, tail, splits[i]))):
+        wall = median_ms(fn)
+        rows.append({"kernel": "1x4 hot/cold forward", "model": "rm1", "part": part,
+                     "wall_ms": wall})
+        print(f"[parent_turns] rm1 1x{SHARDS} hot/cold forward (bf16, B {BATCH}), {part}: wall "
+              f"{wall * 1e3:.1f} us (median of 40)", flush=True)
+    del params, hp
+    torch.cuda.empty_cache()
+    return rows
+
+
 def k6_rows(device, route: str) -> list:
     import types
 
@@ -144,23 +358,9 @@ def k6_rows(device, route: str) -> list:
             sp = split_hot_cold_sharded(idx, offs, hot_ids, SHARDS, rps,
                                         cold_buckets=cold_buckets_for(idx.size, mesh),
                                         impl="native")
-            on = {k: torch.from_numpy(np.ascontiguousarray(sp[k])).to(device)
-                  for k in ("hot_sel", "hot_mask", "cold_local", "cold_seg")}
-            splits.append([{"hot_sel": on["hot_sel"], "cold_ids": on["cold_local"][m].contiguous(),
-                            "cold_seg": on["cold_seg"][m].contiguous(),
-                            "hot_mask": on["hot_mask"] if m == 0 else
-                            torch.zeros_like(on["hot_mask"])} for m in (0, 1)])
+            splits.append([shard_split(sp, m, device, all_hot=m == 0) for m in (0, 1)])
         for quant in K6_LAYOUTS:
-            g = torch.Generator(device=device).manual_seed(1)
-            if quant == "none":
-                table = torch.empty((R, d), dtype=torch.bfloat16, device=device).uniform_(
-                    -0.05, 0.05, generator=g)
-            else:
-                table = torch.randint(-127, 128, (R, d + (4 if quant == "int8_rowwise" else 0)),
-                                      generator=g, device=device, dtype=torch.int8)
-                if quant == "int8_rowwise":
-                    sc = torch.rand((R,), generator=g, device=device) * 1e-2 + 1e-4
-                    table[:, d:] = sc.view(torch.int8).reshape(R, 4)
+            table = _k6_table(quant, R, d, device)
             hot = table.index_select(0, torch.as_tensor(hot_ids, device=device))
             wrap = {"none": emb.embedding_bag_hotcold_shard,
                     "int8": emb.embedding_bag_hotcold_int8_shard,
@@ -178,21 +378,8 @@ def k6_rows(device, route: str) -> list:
                     def call(s, shard=shard):
                         return wrap(hot, shard, s, **kw)
                 s0 = splits[0][m]
-                got = call(s0)
-                if quant == "none":
-                    want = emb.embedding_bag_hotcold_reference(hot, shard, s0, partial=True,
-                                                               compute_dtype=torch.bfloat16)
-                elif quant == "int8":
-                    want = emb.embedding_bag_hotcold_int8_reference(hot, shard, None, s0,
-                                                                    partial=True)
-                else:
-                    want = emb.embedding_bag_hotcold_int8_rowwise_reference(hot, shard, s0,
-                                                                            partial=True)
-                ok = (torch.equal(got, want) if quant == "int8" else bool(
-                    ((got - want).abs() <= emb.hotcold_tolerance(
-                        got, want, hot, shard, s0, rowwise=quant == "int8_rowwise")).all()))
-                if not ok:
-                    raise AssertionError(f"K6 on shard {m} disagrees ({name} {quant})")
+                _k6_check(quant, call(s0), _k6_plain(quant, hot, shard, s0, True), hot, shard, s0,
+                          f"{name} {quant} shard {m}")
                 ms = span_ms(call, [(s[m],) for s in splits])
                 rows.append({"kernel": "K6 shard", "model": name, "layout": quant, "shard": m,
                              "route": "hits" if m == 0 else route, "span_ms": ms})
@@ -276,13 +463,35 @@ def k4w_call(inp: dict, device, seed: int = 17):
             shard)
 
 
+def k1iw_call(inp: dict, device, seed: int = 19):
+    """K1-int8's window at ``inp``'s window: ``(fn(ids), args, plain(ids),
+    shard)`` over a random per-table int8 shard; checked against its plain
+    version (the exact int32 pool) first."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    cfg, lo, rows, offsets, ids = (inp[k] for k in ("cfg", "row_lo", "rows", "offsets", "ids"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shard = torch.randint(-127, 128, (rows, cfg.sparse_feature_size), generator=gen,
+                          device=device, dtype=torch.int8)
+    w = (lo, lo + rows)
+    if not torch.equal(emb.embedding_bag_int8_shard(shard, offsets, ids[0], lo),
+                       emb.embedding_bag_int8_reference(shard, None, offsets, ids[0], window=w)):
+        raise AssertionError(f"K1-int8's window differs from its plain version ({w})")
+    return (lambda i: emb.embedding_bag_int8_shard(shard, offsets, i, lo), [(i,) for i in ids],
+            lambda i: emb.embedding_bag_int8_reference(shard, None, offsets, i, window=w), shard)
+
+
+WINDOW_CALLS = {"k1bw": (k1bw_call, "K1b window"), "k4w": (k4w_call, "K4 window"),
+                "k1iw": (k1iw_call, "K1-int8 window")}
+
+
 def window_rows(device, kernel: str) -> list:
     rows = []
     for name, place in WINDOW_PLACES:
         inp = window_inputs(name, place, TRAIN_BATCH if kernel == "k1bw" else BATCH, device)
-        fn, args, _, kept = (k1bw_call if kernel == "k1bw" else k4w_call)(inp, device)
+        make, label = WINDOW_CALLS[kernel]
+        fn, args, _, kept = make(inp, device)
         ms = span_ms(fn, args)
-        label = {"k1bw": "K1b window", "k4w": "K4 window"}[kernel]
         rows.append({"kernel": label, "model": name, "place": place,
                      "window": [inp["row_lo"], inp["row_lo"] + inp["rows"]], "span_ms": ms})
         print(f"[parent_turns] {label} {name} {place} rows [{inp['row_lo']}, "
@@ -325,7 +534,9 @@ def child(route: str, out: Path, kernels: list) -> int:
             rows += {"k5": lambda: k5_rows(device), "k6": lambda: k6_rows(device, route),
                      "k1bw": lambda: window_rows(device, "k1bw"),
                      "k4w": lambda: window_rows(device, "k4w"),
-                     "k1b": lambda: k1b_rows(device)}[k]()
+                     "k1iw": lambda: window_rows(device, "k1iw"),
+                     "k1b": lambda: k1b_rows(device), "k6s0": lambda: k6s0_rows(device),
+                     "fwd": lambda: fwd_rows(device)}[k]()
     out.write_text(json.dumps(rows, indent=1))
     return 0
 
@@ -337,6 +548,8 @@ def main(argv=None) -> int:
     p.add_argument("--json", type=Path, default=None, help="write the results here")
     p.add_argument("--kernels", default=",".join(KERNELS),
                    help=f"comma-separated, of {','.join(KERNELS)} (default: all)")
+    p.add_argument("--turns", type=int, default=1,
+                   help="repeat the other, this, this, other order this many times")
     p.add_argument("--child", type=Path, default=None, help=argparse.SUPPRESS)
     p.add_argument("--route", default="cold", choices=("mask", "cold"), help=argparse.SUPPRESS)
     args = p.parse_args(argv)
@@ -351,8 +564,9 @@ def main(argv=None) -> int:
     this = Path(__file__).resolve().parents[2]
     other = args.other.resolve()
     runs = []
-    for n, (root, route) in enumerate(((other, args.other_route), (this, "cold"),
-                                       (this, "cold"), (other, args.other_route))):
+    order = ((other, args.other_route), (this, "cold"), (this, "cold"),
+             (other, args.other_route)) * args.turns
+    for n, (root, route) in enumerate(order):
         out = this / "build" / "parent_turns" / f"run{n}.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         env = dict(os.environ, PYTHONPATH=str(root))
@@ -362,10 +576,12 @@ def main(argv=None) -> int:
                      "rows": json.loads(out.read_text())})
     res = {"runs": runs}
     for k, row in enumerate(runs[1]["rows"]):
-        key = {n: v for n, v in row.items() if n not in ("span_ms", "route")}
-        sp = [run["rows"][k]["span_ms"] * 1e3 for run in runs]
-        print(f"[parent_turns] {key}: other {sp[0]:.2f}, {sp[3]:.2f} us; this {sp[1]:.2f}, "
-              f"{sp[2]:.2f} us", flush=True)
+        metric = next(n for n in ("span_ms", "host_ms", "wall_ms") if n in row)
+        key = {n: v for n, v in row.items() if n not in (metric, "route")}
+        by = {c: ", ".join(f"{run['rows'][k][metric] * 1e3:.2f}" for run in runs
+                           if run["checkout"] == c) for c in ("other", "this")}
+        print(f"[parent_turns] {key} ({metric[:-3]}): other {by['other']} us; this "
+              f"{by['this']} us", flush=True)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(res, indent=1))

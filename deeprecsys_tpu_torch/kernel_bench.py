@@ -7,7 +7,7 @@ library yardsticks of the other training kernels K1b and K5 (``k1b_bound``,
 times those.
 
     python -m deeprecsys_tpu_torch.kernel_bench [--json PATH] [--only k1,k1_host,k3,int8,k6,k3b]
-    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k6w,k5w,k1bw,k4w
+    python -m deeprecsys_tpu_torch.kernel_bench --only k1w,k6w,k5w,k1bw,k4w,k1iw,k6s0
 
 For K1, K1-int8 and K4 at every zoo model's shape (bf16 output, batch 512,
 full-size tables, ids from the port's generator, 8 batches so that rows
@@ -55,11 +55,15 @@ rm1's 1/4, 1/2 and whole-table shards and rm2's 1/4 shard (f32 and bf16
 shards, batch 128) as a span beside its bound, plain version and library
 yardstick, after holding it to its plain version on the batch's ids and on
 ids folded onto 256 rows a table (rows of many adds, where a bf16 shard's
-once-rounded bound is tight); ``--only k1bw,k4w`` time K1b's window (batch
-128, f32) and K4's (batch 512) at rm1's and rm2's 1/4 shard 1, rm1's
-window shifted by half a table and dien's 1/4 shard 1 (``bench_windows``)
-beside their bounds, which count only the ids (and K1b's gradient rows) of
-the bags whose table meets the shard (``meeting_ids``).
+once-rounded bound is tight); ``--only k1bw,k4w,k1iw`` time K1b's window
+(batch 128, f32), K4's and K1-int8's (batch 512) at rm1's and rm2's 1/4
+shard 1, rm1's window shifted by half a table and dien's 1/4 shard 1
+(``bench_windows``) beside their bounds, which count only the ids (and
+K1b's gradient rows) of the bags whose table meets the shard
+(``meeting_ids``); ``--only k6s0`` times K6 on shard 0 of rm1's and rm2's
+1x4 hot/cold mesh (the hits: ``cold_starts_kernel``, then the pool) in
+the three layouts as ``k6w`` does, beside the host time of the mesh split
+a batch.
 
 It times the port of the checkout it runs in and calls only the port's
 public functions. To compare two versions of the kernels, unpack the other
@@ -1329,7 +1333,8 @@ def hotcold_shard_inputs(name: str, quant: str, device, n_batches: int = 8, seed
     "splits": [{m: split of shard m}], "coverage", "n_cold"}`` over the
     later batches; shard 0's split holds the hits and its cold stream,
     shard 1's its cold stream and ``bags``; ``coverage`` is the hot set's
-    share of the warm-up batch."""
+    share of the warm-up batch; ``split_ms`` the host time of the mesh
+    split a batch (the median over the batches)."""
     import types
 
     from deeprecsys_tpu_torch import zoo
@@ -1356,10 +1361,13 @@ def hotcold_shard_inputs(name: str, quant: str, device, n_batches: int = 8, seed
     streams = [zipf_stream(cfg, BATCH, seed=seed + 1 + i) for i in range(n_batches)]
     offs = np.asarray(cfg.table_offsets, dtype=np.int64)
     mesh = types.SimpleNamespace(shape={"data": 1, "model": K6W_SHARDS})
-    splits, n_cold = [], []
+    splits, n_cold, split_ms = [], [], []
     for idx in streams:
-        sp = split_hot_cold_sharded(idx, offs, hot_ids, K6W_SHARDS, rps,
-                                    cold_buckets=cold_buckets_for(idx.size, mesh), impl="native")
+        kw = {"cold_buckets": cold_buckets_for(idx.size, mesh), "impl": "native"}
+        split_hot_cold_sharded(idx, offs, hot_ids, K6W_SHARDS, rps, **kw)
+        t0 = time.perf_counter()
+        sp = split_hot_cold_sharded(idx, offs, hot_ids, K6W_SHARDS, rps, **kw)
+        split_ms.append((time.perf_counter() - t0) * 1e3)
         on = {k: torch.from_numpy(np.ascontiguousarray(sp[k])).to(device)
               for k in ("hot_sel", "hot_mask", "cold_local", "cold_seg")}
         B, T, _ = on["hot_sel"].shape
@@ -1373,7 +1381,7 @@ def hotcold_shard_inputs(name: str, quant: str, device, n_batches: int = 8, seed
             "hot": table.index_select(0, torch.as_tensor(hot_ids, device=device)),
             "row_lo": rps, "offsets": table_offsets(cfg, device),
             "ids": [torch.from_numpy(s).to(device) for s in streams], "splits": splits,
-            "coverage": coverage, "n_cold": n_cold}
+            "coverage": coverage, "n_cold": n_cold, "split_ms": float(np.median(split_ms))}
 
 
 def k6_shard_calls(quant: str, hot, shard) -> dict:
@@ -1452,7 +1460,7 @@ def mean_bound(bounds: list) -> dict:
     return {**out, "bound_by": by.pop() if len(by) == 1 else "bytes and operations"}
 
 
-def bench_k6w(log) -> list:
+def bench_k6w(log, calls=(("with_hits", 0), ("no_hits", 1))) -> list:
     """K6 on a shard of the 1x4 hot/cold mesh at rm1's and rm2's full shapes
     (the JAX hot-set rule fitted on a warm-up zipf(1.2) batch of 512, then
     eight later batches), in the three layouts: the calls the mesh path
@@ -1463,14 +1471,14 @@ def bench_k6w(log) -> list:
     the order plain, kernel, kernel, plain, beside its bound over the same
     batches (``k6_bound`` with hits, ``k6_cold_bound`` without) and the
     windowed ``F.embedding_bag`` of the float shard on the original ids
-    (``window_library``)."""
+    (``window_library``). ``calls``: which of the two."""
     device = torch.device("cuda")
     rows = []
     for name in K6W_MODELS:
         for quant in K6_LAYOUTS:
             inp = hotcold_shard_inputs(name, quant, device)
             lo = inp["row_lo"]
-            for call, m in (("with_hits", 0), ("no_hits", 1)):
+            for call, m in calls:
                 shard = inp["shards"][m]
                 hot = inp["hot"] if m == 0 else None
                 fns = k6_shard_calls(quant, inp["hot"], shard)[call]
@@ -1495,7 +1503,7 @@ def bench_k6w(log) -> list:
                        "launches": runs[1]["launches"], "by_kernel": runs[1]["us_by_kernel"],
                        "plain_ms": float(np.mean([r["device_ms"] for r in (runs[0], runs[3])])),
                        "library_ms": None if lib is None else lib["device_ms"],
-                       "max_abs_err": err}
+                       "max_abs_err": err, "split_ms": inp["split_ms"]}
                 log(f"K6 shard {m}/{K6W_SHARDS} {name} {quant} {call} (C_pad {row['c_pad']}, "
                     f"{row['n_cold']:.0f} cold a batch, hot set's coverage of the warm-up batch "
                     f"{row['coverage']:.4f}): {_us(row['ms'])} "
@@ -1503,7 +1511,8 @@ def bench_k6w(log) -> list:
                     f"{row['launches']:.0f} launches ({_by_kernel(row['by_kernel'])}); span "
                     f"{_us(row['span_ms'])}; bound {_us(row['bound_ms'])} ({row['bound_by']}, "
                     f"{row['bytes'] / 1e6:.3f} MB); plain {_us(row['plain_ms'])}; windowed "
-                    f"F.embedding_bag {_us(row['library_ms'])}; max |err| {err:.3e}")
+                    f"F.embedding_bag {_us(row['library_ms'])}; max |err| {err:.3e}; the mesh "
+                    f"split {_us(row['split_ms'])} of host a batch")
                 rows.append(row)
             del inp
             torch.cuda.empty_cache()
@@ -1621,17 +1630,18 @@ def bench_k5w(log) -> list:
 
 def bench_windows(log, kernel: str) -> list:
     """K1b's window (``kernel`` "k1bw": f32 gradients of the trainer's batch
-    128 added into a kept f32 gradient) or K4's (``"k4w"``: batch 512, a
-    random row-wise int8 shard) at ``parent_turns.WINDOW_PLACES`` (rm1's and
+    128 added into a kept f32 gradient), K4's (``"k4w"``: batch 512, a
+    random row-wise int8 shard) or K1-int8's (``"k1iw"``: batch 512, a
+    random per-table int8 shard) at ``parent_turns.WINDOW_PLACES`` (rm1's and
     rm2's 1/4 shard 1, rm1's window shifted by half a table, dien's 1/4
     shard 1), eight batches of the generator's ids: held to its plain
     version, then its device time (order plain, kernel, kernel, plain)
     beside its bound (``k1b_window_bound``, ``window_bound``), its plain
     version and, for K1b, the windowed ``index_add_`` (``k1b_library`` on
     the owned slots' rows prepared beforehand); no PyTorch call pools
-    row-wise int8 rows."""
+    int8 rows."""
     from deeprecsys_tpu_torch.experiments.parent_turns import (
-        TRAIN_BATCH, WINDOW_PLACES, k1bw_call, k4w_call, window_inputs)
+        TRAIN_BATCH, WINDOW_CALLS, WINDOW_PLACES, window_inputs)
     from deeprecsys_tpu_torch.ops.embedding import table_range_of
 
     device = torch.device("cuda")
@@ -1639,7 +1649,8 @@ def bench_windows(log, kernel: str) -> list:
     for name, place in WINDOW_PLACES:
         inp = window_inputs(name, place, TRAIN_BATCH if kernel == "k1bw" else BATCH, device)
         lo, rows, offsets, ids = inp["row_lo"], inp["rows"], inp["offsets"], inp["ids"]
-        fn, args, plain, kept = (k1bw_call if kernel == "k1bw" else k4w_call)(inp, device)
+        make, label = WINDOW_CALLS[kernel]
+        fn, args, plain, kept = make(inp, device)
         runs = [measure(f, args) for f in (plain, fn, fn, plain)]
         if kernel == "k1bw":
             bound = k1b_window_bound(args[0][0], offsets, ids[0], lo, rows)
@@ -1647,7 +1658,8 @@ def bench_windows(log, kernel: str) -> list:
             lib = measure(k1b_library(kept), [(p[0], p[2]) for p in prepared])["device_ms"]
             del prepared
         else:
-            bound = window_bound(kept, lo, offsets, ids[0], inp["cfg"].sparse_feature_size, 2)
+            bound = window_bound(kept, lo, offsets, ids[0], inp["cfg"].sparse_feature_size,
+                                 2 if kernel == "k4w" else 1)
             lib = None
         tr = table_range_of(offsets, lo, rows)
         row = {"kernel": kernel, "model": name, "place": place, "window": [lo, lo + rows],
@@ -1659,7 +1671,7 @@ def bench_windows(log, kernel: str) -> list:
                "library_ms": lib, "wall_ms": runs[1]["wall_ms"]}
         row["of_bound"] = row["bound_ms"] / row["ms"]
         each = ", ".join(_us(x) for x in row["ms_each"])
-        log(f"{'K1b' if kernel == 'k1bw' else 'K4'} window {name} {place} rows "
+        log(f"{label} {name} {place} rows "
             f"[{lo}, {lo + rows}) {row['shape']}, tables [{tr.lo}, {tr.hi}) straddling "
             f"{tr.lo_edge}/{tr.hi_edge}: {_us(row['ms'])} ({each}"
             f"; {100 * row['of_bound']:.1f}% of the bound {_us(row['bound_ms'])}, "
@@ -1679,6 +1691,14 @@ def bench_k4w(log) -> list:
     return bench_windows(log, "k4w")
 
 
+def bench_k1iw(log) -> list:
+    return bench_windows(log, "k1iw")
+
+
+def bench_k6s0(log) -> list:
+    return bench_k6w(log, calls=(("with_hits", 0),))
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1693,7 +1713,7 @@ def _us(ms) -> str:
 BENCHES = {"k1": bench_k1, "k1_host": bench_k1_host, "k3": bench_k3, "int8": bench_int8,
            "k6": bench_k6, "k3b": bench_k3b, "k5": bench_k5, "k10": bench_k10,
            "k1w": bench_k1w, "k6w": bench_k6w, "k5w": bench_k5w, "k1bw": bench_k1bw,
-           "k4w": bench_k4w}  # --only's names
+           "k4w": bench_k4w, "k1iw": bench_k1iw, "k6s0": bench_k6s0}  # --only's names
 
 
 def main(argv=None) -> int:

@@ -81,13 +81,13 @@
 // table split over a mesh's "model" axis, as K1's (embedding_bag.cu). The
 // shard holds fused rows [row_lo, row_lo + n_rows); a slot whose fused row
 // falls outside adds nothing, one inside reads shard row offsets[t] + id -
-// row_lo, tested where the row is loaded. The partial leaves in the type
-// the kernel sums in: K1-int8 the exact int32 pool before the scale
-// (TC = int32_t), so that the shards' partials add exactly and the scale
-// and rounding come once, after the combine, as the TPU package's psum of
-// int32 partials does; K4 the f32 sum before the cast (TC = float).
-// K4's window maps its warps onto the bags of the tables that meet the
-// shard only (window_tables.cuh): its G-bag groups are formed over those
+// row_lo. The partial leaves in the type the kernel sums in: K1-int8 the
+// exact int32 pool before the scale (TC = int32_t), so that the shards'
+// partials add exactly and the scale and rounding come once, after the
+// combine, as the TPU package's psum of int32 partials does; K4 the f32 sum
+// before the cast (TC = float).
+// Both windows map their warps onto the bags of the tables that meet the
+// shard only (window_tables.cuh): the G-bag groups are formed over those
 // bags, so a group never mixes an owned table with a foreign one, and a
 // bag of a table wholly inside the shard reads its rows with no window
 // test (only the range's first and last tables, where they straddle a
@@ -95,8 +95,7 @@
 // since the shards' partials are added whole: the same launch writes the
 // other tables' bags as zeros, kZeroBags bags a warp in 16-byte stores,
 // after the groups' tasks, without reading an id or a row. At rm1's 1/4
-// shard that spares three quarters of the batch's 1.31 MB of ids. K1-int8's
-// window still walks every bag.
+// shard that spares three quarters of the batch's 1.31 MB of ids.
 //
 // Widths. The mappings above are built for D = 32 and 64. Any other width
 // takes the general instances (embedding_bag_int8_general_kernel and
@@ -119,8 +118,9 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;   // ops/embedding.py::K1_WARPS_PER_BLOCK
 constexpr int kMinBlocksPerSm = 4;
-// Foreign bags a warp of K4's window zeroes (ops/embedding.py::K4W_ZERO_BAGS): of 2,
-// 8, 32 and 128, 32 measured fastest (experiments/k4w_sweep.py, PERF.md).
+// Foreign bags a warp of K1-int8's and K4's windows zeroes
+// (ops/embedding.py::K4W_ZERO_BAGS): of 2, 8, 32 and 128, 32 measured
+// fastest for K4 (experiments/k4w_sweep.py, PERF.md).
 constexpr int kZeroBags = 32;
 
 // The ids of step `step0` for the warp's G bags, id -1 where a slot is past
@@ -196,17 +196,6 @@ __device__ __forceinline__ void zero_foreign(TC* __restrict__ out, int64_t z, in
   }
 }
 
-// Whether the slot of id `id` reads a row: not masked out (id >= 0) and,
-// with the window, its row base + id inside the shard's [0, n_rows).
-template <bool kWindow>
-__device__ __forceinline__ bool owned(int32_t id, int64_t base, int64_t n_rows) {
-  if constexpr (kWindow) {
-    return id >= 0 && (uint64_t)(base + id) < (uint64_t)n_rows;
-  } else {
-    return id >= 0;
-  }
-}
-
 // K1-int8.
 template <typename TC, int D, int LPR, int G, int U, bool H, bool kWindow = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSm)
@@ -214,7 +203,7 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
                           const int32_t* __restrict__ offsets,
                           const int32_t* __restrict__ indices,
                           const uint8_t* __restrict__ mask, TC* __restrict__ out,
-                          int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
+                          int64_t n_bags, int T, int L, Window w) {
   constexpr int CPL = D / LPR;        // int8 values (bytes) a lane a row
   constexpr int NV = CPL / 16;        // its 16-byte loads
   constexpr int S = 32 / LPR;         // row slots a warp
@@ -229,21 +218,42 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
   const int bi = group / SPB;
   const int s = group % SPB;
   const int col = (lane % LPR) * CPL;
-  const int64_t n_tasks = (n_bags + G - 1) / G;
+  // The window's groups are over the meeting tables' n_own bags; its zero
+  // tasks follow them (as K4's).
+  const int64_t n_own = kWindow ? n_bags / T * w.nt : n_bags;
+  const int64_t n_tasks = (n_own + G - 1) / G;
+  const int64_t n_all = kWindow ? n_tasks + (n_bags - n_own + kZeroBags - 1) / kZeroBags : n_tasks;
 
   for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       task < n_tasks; task += (int64_t)gridDim.x * kWarpsPerBlock) {
+       task < n_all; task += (int64_t)gridDim.x * kWarpsPerBlock) {
+    if constexpr (kWindow) {
+      if (task >= n_tasks) {
+        zero_foreign<TC, D>(out, task - n_tasks, n_bags - n_own, T, w, lane);
+        continue;
+      }
+    }
     const int64_t bag0 = task * G;
-    const int64_t bag = bag0 + bi;
+    int64_t bag = bag0 + bi;
+    bool tested = false;  // the window's test at each row load (a straddling table)
+    int64_t at[NI];
+    if constexpr (kWindow) {
+      tested = window_tested(w.t_lo + (int)(bag % w.nt), w);
+      bag = bag < n_own ? window_bag(bag, T, w) : n_bags;
+      window_slots<G, RPS, NI>(at, bag0, n_own, T, L, w, lane);
+    }
     const int64_t base =
-        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? row_lo : 0);
+        (bag < n_bags ? (int64_t)__ldg(offsets + bag % T) : 0) - (kWindow ? w.row_lo : 0);
 
     int32_t ids[NI];
     int acc[CPL];
 #pragma unroll
     for (int i = 0; i < CPL; ++i) acc[i] = 0;
 
-    load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, 0, lane);
+    if constexpr (kWindow) {
+      load_window_ids<RPS, NI>(ids, at, indices, mask, L, 0, lane);
+    } else {
+      load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, 0, lane);
+    }
     for (int step0 = 0; step0 < L; step0 += RPS) {
       int32_t rid[U];
 #pragma unroll
@@ -253,14 +263,19 @@ embedding_bag_int8_kernel(const int8_t* __restrict__ q, const float* __restrict_
       for (int u = 0; u < U; ++u) {
 #pragma unroll
         for (int c = 0; c < NV; ++c) v[u][c] = make_uint4(0u, 0u, 0u, 0u);
-        if (owned<kWindow>(rid[u], base, n_rows)) {
+        if (rid[u] >= 0 && (!tested || in_window(base, rid[u], w))) {
           const int8_t* row = q + (base + rid[u]) * D + col;
 #pragma unroll
           for (int c = 0; c < NV; ++c) v[u][c] = load16<H>(row + 16 * c);
         }
       }
-      if (step0 + RPS < L) load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L,
-                                                 step0 + RPS, lane);
+      if (step0 + RPS < L) {
+        if constexpr (kWindow) {
+          load_window_ids<RPS, NI>(ids, at, indices, mask, L, step0 + RPS, lane);
+        } else {
+          load_ids<G, RPS, NI>(ids, indices, mask, bag0, n_bags, L, step0 + RPS, lane);
+        }
+      }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
 #pragma unroll
@@ -409,13 +424,13 @@ embedding_bag_int8_rowwise_kernel(const int8_t* __restrict__ qrows,
 
 constexpr int kGeneralCols = 4;
 
-// The bag's live slots in order: f(row) for each whose row the slot reads
-// (window: the shard owns it), the ids fetched 32 at a time in one
-// coalesced load; the row index is the same in every lane.
-template <bool kWindow, typename F>
+// The bag's live slots in order: f(row) for each that is not masked out,
+// row = base + id, the ids fetched 32 at a time in one coalesced load; the
+// row index is the same in every lane.
+template <typename F>
 __device__ __forceinline__ void for_each_row(const int32_t* __restrict__ indices,
                                              const uint8_t* __restrict__ mask, int64_t bag,
-                                             int L, int64_t base, int64_t n_rows, int lane, F f) {
+                                             int L, int64_t base, int lane, F f) {
   for (int l0 = 0; l0 < L; l0 += 32) {
     int32_t id = -1;
     if (l0 + lane < L) {
@@ -426,9 +441,27 @@ __device__ __forceinline__ void for_each_row(const int32_t* __restrict__ indices
     const int n = min(32, L - l0);
     for (int j = 0; j < n; ++j) {
       const int32_t r = __shfl_sync(0xffffffffu, id, j);
-      if (owned<kWindow>(r, base, n_rows)) f(base + r);
+      if (r >= 0) f(base + r);
     }
   }
+}
+
+// A general instance's window task: a warp a bag of the meeting tables
+// (task < B * nt), then a warp a foreign bag, which it zeroes. Returns the
+// batch bag, and in `foreign` and `tested` which kind it is.
+__device__ __forceinline__ int64_t general_window_bag(int64_t task, int64_t n_bags, int T,
+                                                      const Window& w, bool& foreign,
+                                                      bool& tested) {
+  const int64_t n_own = n_bags / T * w.nt;
+  foreign = task >= n_own;
+  if (foreign) {
+    const int nf = T - w.nt;
+    const int64_t f = task - n_own;
+    const int j = (int)(f % nf);
+    return (f / nf) * T + (j < w.t_lo ? j : j + w.nt);
+  }
+  tested = window_tested(w.t_lo + (int)(task % w.nt), w);
+  return window_bag(task, T, w);
 }
 
 // K1-int8 at any width (TC = int32_t: the window's exact pool).
@@ -438,14 +471,25 @@ embedding_bag_int8_general_kernel(const int8_t* __restrict__ q, const float* __r
                                   const int32_t* __restrict__ offsets,
                                   const int32_t* __restrict__ indices,
                                   const uint8_t* __restrict__ mask, TC* __restrict__ out, int d,
-                                  int64_t n_bags, int T, int L, int64_t row_lo, int64_t n_rows) {
+                                  int64_t n_bags, int T, int L, Window w) {
   const int lane = threadIdx.x & 31;
-  for (int64_t bag = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); bag < n_bags;
-       bag += (int64_t)gridDim.x * kWarpsPerBlock) {
-    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? row_lo : 0);
+  for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); task < n_bags;
+       task += (int64_t)gridDim.x * kWarpsPerBlock) {
+    int64_t bag = task;
+    bool tested = false;
+    if constexpr (kWindow) {
+      bool foreign;
+      bag = general_window_bag(task, n_bags, T, w, foreign, tested);
+      if (foreign) {
+        for (int c = lane; c < d; c += 32) to_out(0, out + bag * d + c);
+        continue;
+      }
+    }
+    const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? w.row_lo : 0);
     for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
       int acc[kGeneralCols] = {};
-      for_each_row<kWindow>(indices, mask, bag, L, base, n_rows, lane, [&](int64_t row) {
+      for_each_row(indices, mask, bag, L, base, lane, [&](int64_t row) {
+        if (tested && (uint64_t)row >= (uint64_t)w.n_rows) return;
         const int8_t* p = q + row * d;
 #pragma unroll
         for (int k = 0; k < kGeneralCols; ++k) {
@@ -478,29 +522,22 @@ embedding_bag_rowwise_general_kernel(const int8_t* __restrict__ qrows,
                                      int64_t n_bags, int T, int L, Window w) {
   const int lane = threadIdx.x & 31;
   const int64_t rb = d + 4;
-  // The window: a warp a bag of the meeting tables, then a warp a foreign
-  // bag, which it zeroes.
-  const int64_t n_own = kWindow ? n_bags / T * w.nt : n_bags;
   for (int64_t task = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); task < n_bags;
        task += (int64_t)gridDim.x * kWarpsPerBlock) {
     int64_t bag = task;
     bool tested = false;
     if constexpr (kWindow) {
-      if (task >= n_own) {
-        const int nf = T - w.nt;
-        const int64_t f = task - n_own;
-        const int j = (int)(f % nf);
-        bag = (f / nf) * T + (j < w.t_lo ? j : j + w.nt);
+      bool foreign;
+      bag = general_window_bag(task, n_bags, T, w, foreign, tested);
+      if (foreign) {
         for (int c = lane; c < d; c += 32) to_out(0.f, out + bag * d + c);
         continue;
       }
-      tested = window_tested(w.t_lo + (int)(task % w.nt), w);
-      bag = window_bag(task, T, w);
     }
     const int64_t base = (int64_t)__ldg(offsets + bag % T) - (kWindow ? w.row_lo : 0);
     for (int c0 = 0; c0 < d; c0 += 32 * kGeneralCols) {
       float acc[kGeneralCols] = {};
-      for_each_row<false>(indices, mask, bag, L, base, 0, lane, [&](int64_t row) {
+      for_each_row(indices, mask, bag, L, base, lane, [&](int64_t row) {
         if (tested && (uint64_t)row >= (uint64_t)w.n_rows) return;
         const uint8_t* p = reinterpret_cast<const uint8_t*>(qrows) + row * rb;
         const uint32_t w = (uint32_t)__ldg(p + d) | ((uint32_t)__ldg(p + d + 1) << 8) |
@@ -533,7 +570,7 @@ struct Args {
   int T, L, grid;
   cudaStream_t stream;
   int64_t row_lo = 0, n_rows = 0;  // the window (kWindow instances only)
-  int t_lo = 0, nt = 0, test_lo = 0, test_hi = 0;  // K4's window: its meeting tables
+  int t_lo = 0, nt = 0, test_lo = 0, test_hi = 0;  // and its meeting tables
 };
 
 Window window_of(const Args& a) {
@@ -545,7 +582,7 @@ int launch_int8(const void* q, const void* scale, const Args& a) {
   embedding_bag_int8_kernel<TC, D, LPR, G, U, H, kWindow>
       <<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
           static_cast<const int8_t*>(q), static_cast<const float*>(scale), a.offsets,
-          a.indices, a.mask, static_cast<TC*>(a.out), a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
+          a.indices, a.mask, static_cast<TC*>(a.out), a.n_bags, a.T, a.L, window_of(a));
   return (int)cudaGetLastError();
 }
 
@@ -597,7 +634,7 @@ int width_int8(int d, int G, int U, const void* q, const void* scale, const Args
   if (G == 0) {
     embedding_bag_int8_general_kernel<TC, kWindow><<<a.grid, kWarpsPerBlock * 32, 0, a.stream>>>(
         static_cast<const int8_t*>(q), static_cast<const float*>(scale), a.offsets, a.indices,
-        a.mask, static_cast<TC*>(a.out), d, a.n_bags, a.T, a.L, a.row_lo, a.n_rows);
+        a.mask, static_cast<TC*>(a.out), d, a.n_bags, a.T, a.L, window_of(a));
     return (int)cudaGetLastError();
   }
   if (d == 32) return mapping_int8<TC, 32, kWindow>(G, U, q, scale, a);
@@ -662,25 +699,39 @@ int drs_embedding_bag_int8_rowwise(const void* qrows, int d, const void* offsets
   return (int)cudaErrorInvalidValue;
 }
 
-// The lookup of one row shard (the window): q holds fused rows [row_lo,
-// row_lo + n_rows); out is the (B, T, d) int32 pool before the scale.
-int drs_embedding_bag_int8_window(const void* q, int d, const void* offsets,
-                                  const void* indices, const void* mask, void* out,
-                                  int64_t row_lo, int64_t n_rows, int64_t n_bags, int T, int L,
-                                  int bags_per_warp, int rows_per_lane, int grid, void* stream) {
-  if (n_bags <= 0) return 0;
-  if (grid <= 0 || row_lo < 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
-  Args a = make_args(offsets, indices, mask, out, n_bags, T, L, grid, stream);
+// The window's arguments: the shard [row_lo, row_lo + n_rows) and the tables
+// [t_lo, t_lo + nt) that meet it (ops/embedding.py::table_range), test_lo /
+// test_hi where the first / last of them straddles a shard edge.
+bool window_args(Args& a, int64_t row_lo, int64_t n_rows, int t_lo, int nt, int test_lo,
+                 int test_hi) {
+  if (row_lo < 0 || n_rows < 0 || t_lo < 0 || nt < 0 || t_lo + nt > a.T) return false;
   a.row_lo = row_lo;
   a.n_rows = n_rows;
+  a.t_lo = t_lo;
+  a.nt = nt;
+  a.test_lo = test_lo;
+  a.test_hi = test_hi;
+  return true;
+}
+
+// The lookup of one row shard (the window): q holds fused rows [row_lo,
+// row_lo + n_rows); out is the (B, T, d) int32 pool before the scale, the
+// bags of the tables outside [t_lo, t_lo + nt) zero. grid covers the plan's
+// groups over the B * nt meeting bags and the zero tasks (k1i_window_plan).
+int drs_embedding_bag_int8_window(const void* q, int d, const void* offsets,
+                                  const void* indices, const void* mask, void* out,
+                                  int64_t row_lo, int64_t n_rows, int t_lo, int nt, int test_lo,
+                                  int test_hi, int64_t n_bags, int T, int L, int bags_per_warp,
+                                  int rows_per_lane, int grid, void* stream) {
+  if (n_bags <= 0) return 0;
+  Args a = make_args(offsets, indices, mask, out, n_bags, T, L, grid, stream);
+  if (grid <= 0 || !window_args(a, row_lo, n_rows, t_lo, nt, test_lo, test_hi))
+    return (int)cudaErrorInvalidValue;
   return width_int8<int32_t, true>(d, bags_per_warp, rows_per_lane, q, nullptr, a);
 }
 
-// As above for K4: out is the (B, T, d) f32 sum before the cast. Tables
-// [t_lo, t_lo + nt) meet the shard (ops/embedding.py::table_range),
-// test_lo / test_hi where the first / last of them straddles a shard edge;
-// the other tables' bags come out zero. grid covers the plan's groups over
-// the B * nt meeting bags and the zero tasks (k4_window_plan).
+// As above for K4: out is the (B, T, d) f32 sum before the cast; grid:
+// k4_window_plan's.
 int drs_embedding_bag_int8_rowwise_window(const void* qrows, int d, const void* offsets,
                                           const void* indices, const void* mask, void* out,
                                           int64_t row_lo, int64_t n_rows, int t_lo, int nt,
@@ -688,15 +739,9 @@ int drs_embedding_bag_int8_rowwise_window(const void* qrows, int d, const void* 
                                           int L, int bags_per_warp, int rows_per_lane, int grid,
                                           void* stream) {
   if (n_bags <= 0) return 0;
-  if (grid <= 0 || row_lo < 0 || n_rows < 0 || t_lo < 0 || nt < 0 || t_lo + nt > T)
-    return (int)cudaErrorInvalidValue;
   Args a = make_args(offsets, indices, mask, out, n_bags, T, L, grid, stream);
-  a.row_lo = row_lo;
-  a.n_rows = n_rows;
-  a.t_lo = t_lo;
-  a.nt = nt;
-  a.test_lo = test_lo;
-  a.test_hi = test_hi;
+  if (grid <= 0 || !window_args(a, row_lo, n_rows, t_lo, nt, test_lo, test_hi))
+    return (int)cudaErrorInvalidValue;
   return width_rowwise<float, true>(d, bags_per_warp, rows_per_lane, qrows, a);
 }
 

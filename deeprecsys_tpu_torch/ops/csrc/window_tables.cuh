@@ -1,5 +1,6 @@
 // The tables an ownership-window launch covers (K1b's window,
-// embedding_bag_backward.cu; K4's window, embedding_bag_int8.cu).
+// embedding_bag_backward.cu; K1-int8's and K4's windows,
+// embedding_bag_int8.cu).
 //
 // A row shard holds the fused rows [row_lo, row_lo + n_rows). Table t holds
 // [offsets[t], offsets[t + 1]) (the last table runs to the end of the fused

@@ -457,25 +457,39 @@ def k4_launch_plan(n_bags: int, L: int, d: int) -> K1Plan:
                  1 if d == 32 else 4)
 
 
-# Foreign bags a warp of K4's window zeroes (kZeroBags in
-# csrc/embedding_bag_int8.cu; chosen by experiments/k4w_sweep.py).
+# Foreign bags a warp of K1-int8's and K4's windows zeroes (kZeroBags in
+# csrc/embedding_bag_int8.cu; chosen for K4 by experiments/k4w_sweep.py).
 K4W_ZERO_BAGS = 32
+
+
+def _with_zero_tasks(plan: K1Plan, B: int, T: int, nt: int) -> K1Plan:
+    """A window plan over the ``B * nt`` meeting bags, then a task a
+    K4W_ZERO_BAGS of the other tables' bags, which the launch zeroes; the
+    general instance a warp a bag of either kind. ``tasks`` and ``grid``
+    count both."""
+    if plan.general:
+        return _general_plan(B * T)
+    tasks = plan.tasks + -(-B * (T - nt) // K4W_ZERO_BAGS)
+    return dataclasses.replace(plan, tasks=tasks,
+                               grid=max(1, -(-tasks // K1_WARPS_PER_BLOCK)))
 
 
 @functools.lru_cache(maxsize=512)
 def k4_window_plan(B: int, T: int, nt: int, L: int, d: int) -> K1Plan:
     """K4's plan on a row shard that ``nt`` of the ``T`` tables meet:
     ``k4_launch_plan``'s mapping over the ``B * nt`` bags of those tables
-    (its groups of G bags formed over them alone), then, at the tuned
-    widths, a task a K4W_ZERO_BAGS of the other tables' bags, which the
-    launch zeroes; the general instance a warp a bag of either kind.
-    ``tasks`` and ``grid`` count both."""
-    plan = k4_launch_plan(B * nt, L, d)
-    if plan.general:
-        return _general_plan(B * T)
-    tasks = plan.tasks + -(-B * (T - nt) // K4W_ZERO_BAGS)
-    return dataclasses.replace(plan, tasks=tasks,
-                               grid=max(1, -(-tasks // K1_WARPS_PER_BLOCK)))
+    (its groups of G bags formed over them alone), then the zero tasks of
+    the other tables' bags (``_with_zero_tasks``)."""
+    return _with_zero_tasks(k4_launch_plan(B * nt, L, d), B, T, nt)
+
+
+@functools.lru_cache(maxsize=512)
+def k1i_window_plan(B: int, T: int, nt: int, L: int, d: int) -> K1Plan:
+    """K1-int8's plan on a row shard that ``nt`` of the ``T`` tables meet:
+    ``k1_launch_plan(..., torch.int8)``'s mapping over the ``B * nt`` bags
+    of those tables, then the zero tasks of the other tables' bags
+    (``_with_zero_tasks``), as K4's window."""
+    return _with_zero_tasks(k1_launch_plan(B * nt, L, d, torch.int8), B, T, nt)
 
 
 def _declare(lib: ctypes.CDLL):
@@ -974,15 +988,14 @@ def _declare_int8(lib: ctypes.CDLL):
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
         ctypes.c_void_p,                                    # stream
     ]
-    for fn, table_range in (("drs_embedding_bag_int8_window", ()),
-                            ("drs_embedding_bag_int8_rowwise_window", (ctypes.c_int,) * 4)):
+    for fn in ("drs_embedding_bag_int8_window", "drs_embedding_bag_int8_rowwise_window"):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = [
             ctypes.c_void_p, ctypes.c_int,                      # shard, d
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, indices, mask
             ctypes.c_void_p,                                    # out (int32 or f32)
             ctypes.c_int64, ctypes.c_int64,                     # row_lo, rows of the shard
-            *table_range,                                       # K4: TableRange.kernel_args
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # TableRange.kernel_args
             ctypes.c_int64, ctypes.c_int, ctypes.c_int,         # B*T, T, L
             ctypes.c_int, ctypes.c_int, ctypes.c_int,           # plan: bags/warp, rows/lane, grid
             ctypes.c_void_p,                                    # stream
@@ -1102,7 +1115,7 @@ def _launch_window(wrapper, fn: str, lib, table, args, offsets, indices, mask, o
                    d: int, row_lo: int, plan: K1Plan, extra=(), tail=(),
                    tables=()) -> torch.Tensor:
     """``fn`` (a window entry point of ``lib``) on checked CUDA inputs,
-    counted in ``wrapper.kernel_launches``; ``tables``: K4's
+    counted in ``wrapper.kernel_launches``; ``tables``: K1-int8's and K4's
     ``TableRange.kernel_args``."""
     B, T, L = indices.shape
     out = torch.empty((B, T, d), dtype=out_dtype, device=table.device)
@@ -1170,18 +1183,25 @@ embedding_bag_shard.kernel_launches = 0
 
 def embedding_bag_int8_shard(q_shard: torch.Tensor, offsets: torch.Tensor,
                              indices: torch.Tensor, row_lo: int, *,
-                             mask: torch.Tensor | None = None) -> torch.Tensor:
+                             mask: torch.Tensor | None = None,
+                             table_range: TableRange | None = None) -> torch.Tensor:
     """One row shard's part of ``embedding_bag_int8`` (K1-int8 with the
     ownership window): the ``(B, T, d)`` exact int32 pool of the rows the
-    shard owns, before the scale. The shards' partials add exactly; their
-    sum times the table's scale, cast once, is ``embedding_bag_int8`` bit
-    for bit.
+    shard owns, before the scale (zero for a bag of a table the shard does
+    not meet). The shards' partials add exactly; their sum times the
+    table's scale, cast once, is ``embedding_bag_int8`` bit for bit.
+
+    ``table_range``: the tables that meet the shard (``table_range``), made
+    where the shard is placed; without it the wrapper derives it from the
+    offsets' host copy, made once per offsets tensor.
 
     CPU tensors take ``embedding_bag_int8_reference(..., window=...)``;
-    CUDA tensors launch K1-int8's window instance, counted in
-    ``embedding_bag_int8_shard.kernel_launches``."""
+    CUDA tensors launch K1-int8's window instance over the range's bags
+    (``k1i_window_plan``), which also zeroes the other bags' rows, counted
+    in ``embedding_bag_int8_shard.kernel_launches``."""
     _check_int8(q_shard, 0, torch.float32, offsets, indices, mask)
     window = _check_window(q_shard, row_lo)
+    tr = _range_of(table_range, offsets, row_lo, q_shard.shape[0])
     if q_shard.device.type == "cpu":
         return embedding_bag_int8_reference(q_shard, None, offsets, indices, mask=mask,
                                             window=window)
@@ -1189,14 +1209,14 @@ def embedding_bag_int8_shard(q_shard: torch.Tensor, offsets: torch.Tensor,
         raise ValueError(f"embedding_bag_int8_shard runs on cpu or cuda, not {q_shard.device}")
     B, T, L = indices.shape
     d = q_shard.shape[1]
-    plan = k1_launch_plan(B * T, L, d, torch.int8)
+    plan = k1i_window_plan(B, T, tr.hi - tr.lo, L, d)
     if not plan.general and q_shard.data_ptr() % 16:
         raise ValueError("K1-int8 loads 16-byte vectors: the shard must start on a "
                          "16-byte boundary")
     return _launch_window(embedding_bag_int8_shard, "drs_embedding_bag_int8_window",
                           _build.load("embedding_bag_int8", _declare_int8), q_shard,
                           (q_shard.data_ptr(), d), offsets, indices, mask, torch.int32, d,
-                          row_lo, plan)
+                          row_lo, plan, tables=tr.kernel_args)
 
 
 embedding_bag_int8_shard.kernel_launches = 0
@@ -1224,6 +1244,7 @@ def embedding_bag_int8_rowwise_shard(qrows_shard: torch.Tensor, offsets: torch.T
     if qrows_shard.shape[1] - 4 in TUNED_WIDTHS and qrows_shard.data_ptr() % 4:
         raise ValueError("row-wise rows hold an f32 scale: the shard must start on a "
                          "4-byte boundary")
+    tr = _range_of(table_range, offsets, row_lo, qrows_shard.shape[0])
     if qrows_shard.device.type == "cpu":
         return embedding_bag_int8_rowwise_reference(qrows_shard, offsets, indices, mask=mask,
                                                     window=window)
@@ -1232,7 +1253,6 @@ def embedding_bag_int8_rowwise_shard(qrows_shard: torch.Tensor, offsets: torch.T
                          f"{qrows_shard.device}")
     B, T, L = indices.shape
     d = qrows_shard.shape[1] - 4
-    tr = _range_of(table_range, offsets, row_lo, qrows_shard.shape[0])
     return _launch_window(embedding_bag_int8_rowwise_shard,
                           "drs_embedding_bag_int8_rowwise_window",
                           _build.load("embedding_bag_int8", _declare_int8), qrows_shard,

@@ -382,14 +382,15 @@ def _shard_partial(layout: str, tables, offsets, indices, row_lo: int, cdt, mask
     """Shard ``row_lo``'s partial for the table's layout; ``table_range``
     (the shard's ``ops.embedding.TableRange``, or None) goes to the kernels
     that launch over the meeting tables alone: K1b's window (the float
-    lookup's backward) and K4's."""
+    lookup's backward), K1-int8's and K4's."""
     from deeprecsys_tpu_torch import ops
 
     if layout == "float":
         return ops.embedding_bag_shard(tables, offsets, indices, row_lo, compute_dtype=cdt,
                                        mask=mask, table_range=table_range)
     if layout == "int8":
-        return ops.embedding_bag_int8_shard(tables["q"], offsets, indices, row_lo, mask=mask)
+        return ops.embedding_bag_int8_shard(tables["q"], offsets, indices, row_lo, mask=mask,
+                                            table_range=table_range)
     return ops.embedding_bag_int8_rowwise_shard(tables["qrows"], offsets, indices, row_lo,
                                                 mask=mask, table_range=table_range)
 

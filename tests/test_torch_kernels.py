@@ -1070,13 +1070,47 @@ def test_table_range_windows_match_plain(cuda, case, d, L):
             assert bool(((got - want).abs() <= tol).all()), (case, tr, g_dt)
 
 
+@pytest.mark.parametrize("L", [23, 5, 1])
+@pytest.mark.parametrize("d", [8, 32, 64])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_k1_int8_table_range_windows_match_plain(cuda, case, d, L):
+    """K1-int8's window over the meeting tables on an aligned, a
+    straddling, a one-table and a last-table window, with the range the
+    placement makes and the one the wrapper derives, masked and not: the
+    int32 pool bit for bit its plain version, the other tables' bags 0
+    (written over memory that held NaN), one launch a call."""
+    from deeprecsys_tpu_torch.ops import embedding_bag_int8_shard
+    from deeprecsys_tpu_torch.ops.embedding import table_range
+
+    row_lo, rows = WINDOW_CASES[case]
+    w = (row_lo, row_lo + rows)
+    q, _, _, offsets, indices, mask = _int8_inputs(cuda, WINDOW_ROWS, d, 37, L,
+                                                   seed=2 * d + L + rows, masked=True)
+    B, T = 37, len(WINDOW_ROWS)
+    placed = table_range(np.cumsum((0,) + WINDOW_ROWS[:-1]), row_lo, rows, sum(WINDOW_ROWS))
+    shard = q[row_lo:row_lo + rows]
+    foreign = [t for t in range(T) if not placed.lo <= t < placed.hi]
+    for tr in (placed, None):
+        for m_ in (mask, None):
+            junk = torch.full((B, T, d), float("nan"), device=cuda)
+            del junk  # the partial's memory held NaN: the launch must write every bag
+            before = embedding_bag_int8_shard.kernel_launches
+            got = embedding_bag_int8_shard(shard, offsets, indices, row_lo, mask=m_,
+                                           table_range=tr)
+            torch.cuda.synchronize()
+            assert embedding_bag_int8_shard.kernel_launches == before + 1
+            want = embedding_bag_int8_reference(shard, None, offsets, indices, mask=m_, window=w)
+            assert got.dtype == torch.int32 and torch.equal(got, want), (case, tr)
+            assert bool((got[:, foreign] == 0).all())
+
+
 def test_table_range_windows_skip_when_no_table_meets(cuda):
     """An empty shard: K1b's window launches nothing (no table meets it)
-    and K4's writes a partial of zeros."""
+    and K1-int8's and K4's write partials of zeros."""
     from deeprecsys_tpu_torch.ops import (
-        embedding_bag_backward_shard, embedding_bag_int8_rowwise_shard)
+        embedding_bag_backward_shard, embedding_bag_int8_rowwise_shard, embedding_bag_int8_shard)
 
-    _, _, qrows, offsets, indices, _ = _int8_inputs(cuda, WINDOW_ROWS, 32, 9, 7, seed=3,
+    q, _, qrows, offsets, indices, _ = _int8_inputs(cuda, WINDOW_ROWS, 32, 9, 7, seed=3,
                                                     masked=False)
     before = embedding_bag_backward_shard.kernel_launches
     g = torch.randn((9, len(WINDOW_ROWS), 32), device=cuda)
@@ -1085,6 +1119,96 @@ def test_table_range_windows_skip_when_no_table_meets(cuda):
     got = embedding_bag_int8_rowwise_shard(qrows[100:100], offsets, indices, 100)
     torch.cuda.synchronize()
     assert bool((got == 0).all())
+    got = embedding_bag_int8_shard(q[100:100], offsets, indices, 100)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and bool((got == 0).all())
+
+
+def test_k1_int8_window_refuses_a_range_that_does_not_fit(cuda):
+    from deeprecsys_tpu_torch.ops import embedding_bag_int8_shard
+    from deeprecsys_tpu_torch.ops.embedding import TableRange
+
+    q, _, _, offsets, indices, _ = _int8_inputs(cuda, WINDOW_ROWS, 32, 9, 7, seed=3,
+                                                masked=False)
+    with pytest.raises(ValueError, match="does not fit"):
+        embedding_bag_int8_shard(q[:500], offsets, indices, 0,
+                                 table_range=TableRange(3, 5, False, True))
+
+
+# K6 on shard 0 (the hits; cold_starts_kernel, then the pool):
+# (ids, k, masked). zipf and uniform ids with a hot set; K = 0 (every
+# valid slot cold); every row hot (shard 0's stream all pads); a ragged
+# mask; and a stream with no pads (the whole table as one shard, its cold
+# stream unpadded: a bag's entries may end at C_pad).
+SHARD0_CASES = {"zipf": ("zipf", 40, False), "uniform": ("uniform", 40, False),
+                "K = 0": ("zipf", 0, False), "empty cold stream": ("zipf", -1, False),
+                "ragged": ("zipf", 40, True), "no pads": ("zipf", 40, True)}
+
+
+@pytest.mark.parametrize("case", list(SHARD0_CASES))
+@pytest.mark.parametrize("d", [32, 64, 8])
+@pytest.mark.parametrize("B,T,L", [(9, 3, 80), (33, 5, 17), (40, 4, 3)])
+@pytest.mark.parametrize("layout", ["none", "int8", "int8_rowwise"])
+def test_hotcold_shard0_matches_plain(cuda, layout, B, T, L, d, case):
+    """K6 on shard 0 of a 1x4 split (``split_hot_cold_sharded``: the hits
+    and shard 0's cold stream) against ``embedding_bag_hotcold*_reference(
+    ..., partial=True)``: per-table int8 bit for bit, float and row-wise
+    within ``hotcold_tolerance``; d 8 takes the general instance, L 3 the
+    short-bag mapping, int8 at d 64 four bags a warp. The call (both
+    launches) is counted once."""
+    from deeprecsys_tpu_torch.ops import embedding as emb
+    from deeprecsys_tpu_torch.ops.hotcold import (
+        select_hot_ids, split_hot_cold, split_hot_cold_sharded)
+
+    ids, k, masked = SHARD0_CASES[case]
+    rows = 200
+    R = rows * T
+    rng = np.random.default_rng(B + L + d)
+    idx = ((rng.zipf(1.2, size=(B, T, L)) if ids == "zipf"
+            else rng.integers(0, rows, size=(B, T, L))) % rows).astype(np.int32)
+    off64 = np.arange(T, dtype=np.int64) * rows
+    mask = rng.random((B, T, L)) < 0.6 if masked else None
+    hot_ids = (np.arange(R, dtype=np.int64) if k < 0
+               else select_hot_ids(idx, off64, k) if k else np.empty(0, np.int64))
+    if case == "no pads":
+        rps = R
+        sp = split_hot_cold(idx, off64, hot_ids, pad=False, slot_mask=mask)
+        cold_ids, cold_seg = sp["cold_ids"], sp["cold_seg"]
+        assert cold_seg.size and (cold_seg < B * T).all()
+    else:
+        rps = R // 4
+        sp = split_hot_cold_sharded(idx, off64, hot_ids, 4, rps, slot_mask=mask)
+        cold_ids, cold_seg = sp["cold_local"][0], sp["cold_seg"][0]
+    g = torch.Generator(device=cuda).manual_seed(d)
+    if layout == "none":
+        table = torch.randn((R, d), generator=g, device=cuda).to(torch.bfloat16)
+    else:
+        table = torch.randint(-127, 128, (R, d), generator=g, device=cuda, dtype=torch.int8)
+        if layout == "int8_rowwise":
+            table = torch.cat([table, (torch.rand((R,), generator=g, device=cuda) * 1e-2 + 1e-4)
+                               .view(torch.int8).reshape(R, 4)], dim=1)
+    hot = table.index_select(0, torch.as_tensor(hot_ids, device=cuda))
+    s = {"hot_sel": torch.from_numpy(sp["hot_sel"]).to(cuda),
+         "hot_mask": torch.from_numpy(sp["hot_mask"]).to(cuda),
+         "cold_ids": torch.from_numpy(np.ascontiguousarray(cold_ids)).to(cuda),
+         "cold_seg": torch.from_numpy(np.ascontiguousarray(cold_seg)).to(cuda)}
+    fn = {"none": emb.embedding_bag_hotcold_shard, "int8": emb.embedding_bag_hotcold_int8_shard,
+          "int8_rowwise": emb.embedding_bag_hotcold_int8_rowwise_shard}[layout]
+    before = fn.kernel_launches
+    got = fn(hot, table[:rps], s)
+    torch.cuda.synchronize()
+    assert fn.kernel_launches == before + 1
+    if layout == "int8":
+        want = emb.embedding_bag_hotcold_int8_reference(hot, table[:rps], None, s, partial=True)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        rowwise = layout == "int8_rowwise"
+        want = (emb.embedding_bag_hotcold_int8_rowwise_reference if rowwise
+                else emb.embedding_bag_hotcold_reference)(hot, table[:rps], s, partial=True)
+        tol = emb.hotcold_tolerance(got, want, hot, table[:rps], s, rowwise=rowwise)
+        assert got.dtype == torch.float32 and bool(((got - want).abs() <= tol).all())
+    if case == "empty cold stream":
+        assert not bool((s["cold_seg"] < B * T).any())
 
 
 def test_backward_window_rejects_a_misaligned_out(cuda):

@@ -465,6 +465,93 @@ def test_k6_cold_sweep_variants_apply_to_the_shipped_source():
     assert len(set(units)) == len(units)
 
 
+def test_k6_shard0_sweep_units_build_the_shipped_source():
+    """``experiments/k6_shard0_sweep.py``: every unit holds the shipped K6
+    source whole (its header inlined), one case a key over the pool alone
+    without PDL, and the host pointer; the shipped mapping of each layout
+    is ``k6_launch_plan``'s at the model's shard-0 shape."""
+    from deeprecsys_tpu_torch import zoo
+    from deeprecsys_tpu_torch.experiments import k6_shard0_sweep as sw
+    from deeprecsys_tpu_torch.ops import _build
+
+    keys = []
+    for name in sw.MODELS:
+        cfg = zoo.get_config(name)
+        d, L = cfg.sparse_feature_size, cfg.num_indices_per_lookup
+        for layout in sw.LAYOUTS:
+            ship = sw.key_of(layout, d, L, sw.shipped(layout, d))
+            plan = emb.k6_launch_plan(512 * cfg.num_tables, L, MODE[layout], d,
+                                      2 if layout == "none" else 1)
+            assert ship[2:] == (plan.ids_per_lane, plan.geometry.values_per_lane,
+                                plan.bags_per_warp, plan.geometry.rows_per_slot,
+                                plan.geometry.hint)
+            keys += [ship] + [sw.key_of(layout, d, L, i) for i in sw.instances(layout, d)]
+    keys = list(dict.fromkeys(keys))
+    units = sw.units(_build.CSRC, keys)
+    src = (_build.CSRC / "embedding_bag_hotcold.cu").read_text().replace(
+        '#include "pooled_rows.cuh"', (_build.CSRC / "pooled_rows.cuh").read_text())
+    assert all(u.startswith(src) and u.endswith(sw.POINTER_SOURCE) for u in units.values())
+    cases = [u[len(src):].count("    case ") for u in units.values()]
+    assert sum(cases) == len(keys) and "(a, false);" in "".join(units.values())
+
+
+@pytest.fixture(scope="module")
+def k6s0_pointer(tmp_path_factory):
+    """``k6_shard0_sweep.POINTER_SOURCE`` built with the host's g++."""
+    import ctypes
+    import subprocess
+
+    from deeprecsys_tpu_torch.experiments import k6_shard0_sweep as sw
+
+    out = tmp_path_factory.mktemp("k6s0_pointer")
+    cpp = out / "pointer.cpp"
+    cpp.write_text("#include <cstdint>\n" + sw.POINTER_SOURCE)
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(out / "pointer.so"), str(cpp)],
+                   check=True)
+    lib = ctypes.CDLL(str(out / "pointer.so"))
+    getattr(lib, sw.POINTER).restype = None
+    getattr(lib, sw.POINTER).argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_void_p]
+    return lib
+
+
+@pytest.mark.parametrize("case", ["zipf", "ragged", "all pads", "no pads", "hybrid D = 2"])
+def test_k6_shard0_sweep_host_pointers_match_the_reference(k6s0_pointer, case):
+    """Design (a)'s host pointers in ``experiments/k6_shard0_sweep.py`` (the
+    native one-pass loop and numpy's ``bincount``/``cumsum``) equal
+    ``hotcold_cold_starts_reference`` on shard 0's cold stream of
+    ``split_hot_cold_sharded`` (a ragged mask, every row hot so the stream
+    is all pads, the whole table as one shard with no pads) and on each
+    data shard's cell of ``split_hot_cold_hybrid``."""
+    from deeprecsys_tpu_torch.experiments import k6_shard0_sweep as sw
+
+    rng = np.random.default_rng(len(case))
+    B, T, L, rows = 24, 3, 17, 300
+    idx = (rng.zipf(1.2, size=(B, T, L)) % rows).astype(np.int32)
+    off64 = np.arange(T, dtype=np.int64) * rows
+    mask = rng.random((B, T, L)) < 0.5 if case == "ragged" else None
+    hot_ids = (np.arange(rows * T, dtype=np.int64) if case == "all pads"
+               else ops_hc.select_hot_ids(idx, off64, 20))
+    if case == "hybrid D = 2":
+        sp = ops_hc.split_hot_cold_hybrid(idx, off64, hot_ids, 2, 4, rows * T // 4)
+        cells, n_bags = [sp["cold_seg"][0, 0], sp["cold_seg"][1, 0]], B // 2 * T
+    elif case == "no pads":
+        sp = ops_hc.split_hot_cold(idx, off64, hot_ids, pad=False)
+        cells, n_bags = [sp["cold_seg"]], B * T
+    else:
+        sp = ops_hc.split_hot_cold_sharded(idx, off64, hot_ids, 4, rows * T // 4, slot_mask=mask)
+        cells, n_bags = [sp["cold_seg"][0]], B * T
+    for seg in cells:
+        seg = np.ascontiguousarray(seg, dtype=np.int32)
+        want = emb.hotcold_cold_starts_reference(_t(seg), n_bags).numpy()
+        np.testing.assert_array_equal(sw.host_pointer(k6s0_pointer, seg, n_bags), want)
+        np.testing.assert_array_equal(sw.numpy_pointer(seg, n_bags), want)
+        if case == "all pads":
+            assert not want.any()
+        if case == "no pads":
+            assert want[-1] == seg.size > 0
+
+
 def test_k5w_sweep_builds_the_shipped_source_and_one_without_pdl():
     """``experiments/k5w_sweep.py``: its units hold the shipped K5 source
     whole, the measured design and its entry point added; the second has

@@ -1,21 +1,24 @@
-"""K1b's and K4's ownership windows over the tables that meet a shard, on
-the CPU.
+"""K1b's, K1-int8's and K4's ownership windows over the tables that meet
+a shard, on the CPU.
 
 A row shard ``[row_lo, row_lo + rows)`` of the fused table meets a
 contiguous range of tables, known on the host before an id is read
-(``ops.embedding.table_range``); K1b's window and K4's window launch only
-over the bags of those tables, and only the range's two end tables, where
-they straddle a shard edge, test each slot against the window
+(``ops.embedding.table_range``); the windows of K1b, K1-int8 and K4 launch
+only over the bags of those tables, and only the range's two end tables,
+where they straddle a shard edge, test each slot against the window
 (``csrc/window_tables.cuh``). Here: the range against a brute force over
-every fused row, the ranges the mesh path hands the wrappers, Python
-mirrors of both kernels' task mappings (every owned slot visited once, no
-foreign bag read, K4's foreign bags zero), the premise on the plain
-versions (a bag of a table outside the range adds nothing), and the
-bounds and timing helpers that count only the meeting tables' ids.
+every fused row, the ranges the mesh path hands the wrappers (given,
+derived, refused where they do not fit), Python mirrors of the kernels'
+task mappings (every owned slot visited once, no foreign bag read, the
+foreign bags zero), the premise on the plain versions (a bag of a table
+outside the range adds nothing), and the bounds and timing helpers that
+count only the meeting tables' ids.
 
 Tolerances: the mirrors add the same f32 terms as the plain versions in
 another order, so they are held within ``backward_tolerance`` and
-``rowwise_tolerance`` of the window; the premise checks are exact zeros.
+``rowwise_tolerance`` of the window; K1-int8's int32 pool is exact, so its
+mirror and wrapper equal the plain version bit for bit; the premise checks
+are exact zeros.
 """
 
 import re
@@ -261,16 +264,57 @@ def test_k4_window_mirror_zeroes_foreign_bags_and_reads_none(name, M, m, d):
     B, T, L = idx.shape
     row_lo, rows = _window(cfg, M, m)
     tr = emb.table_range(cfg.table_offsets, row_lo, rows, cfg.total_rows)
-    nt = tr.hi - tr.lo
     qrows = emb.quantize_rowwise_int8(torch.randn((rows, d), generator=g))
-    vals = emb.dequant_packed_rows(qrows)
-    plan = emb.k4_window_plan(B, T, nt, L, d)
+    plan = emb.k4_window_plan(B, T, tr.hi - tr.lo, L, d)
+    got = _mirror_window(plan, cfg, idx, mask, tr, row_lo, rows,
+                         emb.dequant_packed_rows(qrows), torch.float32)
+    w = (row_lo, row_lo + rows)
+    want = emb.embedding_bag_int8_rowwise_reference(qrows, offsets, idx, mask=mask, window=w)
+    assert bool(((got - want).abs()
+                 <= emb.rowwise_tolerance(got, want, qrows, offsets, idx, mask, window=w)).all())
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 8])
+@pytest.mark.parametrize("name,M,m", CELLS)
+def test_k1_int8_window_mirror_covers_every_bag_once(name, M, m, d, masked):
+    """A mirror of K1-int8's window (``embedding_bag_int8_kernel`` and the
+    general instance with kWindow), as K4's above: ``k1i_window_plan``'s
+    groups of G bags over the meeting tables' B * nt bags, then its zero
+    tasks (the general instance a warp a bag): the groups and the zero
+    tasks together write every bag once, read no foreign id, and the int32
+    pool equals the plain version bit for bit."""
+    cfg, offsets, idx, mask, g = _inputs(name, 9, seed=2 * d + M, masked=masked)
+    B, T, L = idx.shape
+    row_lo, rows = _window(cfg, M, m)
+    tr = emb.table_range(cfg.table_offsets, row_lo, rows, cfg.total_rows)
+    q = torch.randint(-127, 128, (rows, d), generator=g, dtype=torch.int8)
+    plan = emb.k1i_window_plan(B, T, tr.hi - tr.lo, L, d)
+    assert plan.general == (d not in emb.TUNED_WIDTHS)
+    assert plan.grid == -(-plan.tasks // emb.K1_WARPS_PER_BLOCK)
+    got = _mirror_window(plan, cfg, idx, mask, tr, row_lo, rows, q.to(torch.int32), torch.int32)
+    want = emb.embedding_bag_int8_reference(q, None, offsets, idx, mask=mask,
+                                            window=(row_lo, row_lo + rows))
+    assert torch.equal(got, want)
+
+
+def _mirror_window(plan, cfg, idx, mask, tr, row_lo: int, rows: int, vals, dtype):
+    """The partial a window plan over the meeting tables computes
+    (K1-int8's and K4's kernels with kWindow): groups of G bags over the
+    B * nt meeting bags, each adding ``vals`` of the slots it owns (the
+    window test only on a straddling table), then zero tasks of
+    K4W_ZERO_BAGS foreign bags (the general instance: a warp a bag of
+    either kind). Asserts that every bag is written once, that no foreign
+    bag's id is read, and that an untested slot lies in the shard."""
+    B, T, L = idx.shape
+    d = vals.shape[1]
+    nt = tr.hi - tr.lo
     G = 1 if plan.general else plan.bags_per_warp
     n_own, n_foreign = B * nt, B * (T - nt)
     own_tasks = -(-n_own // G)
     zero_bags = 1 if plan.general else emb.K4W_ZERO_BAGS
     assert plan.tasks == own_tasks + -(-n_foreign // zero_bags)
-    out = torch.full((B * T, d), float("nan"))
+    out = torch.full((B * T, d), float("nan")).to(dtype)
     writes = np.zeros(B * T, dtype=np.int64)
     read = np.zeros((B, T), dtype=bool)
     off = cfg.table_offsets
@@ -280,7 +324,7 @@ def test_k4_window_mirror_zeroes_foreign_bags_and_reads_none(name, M, m, d):
                            min(n_foreign, (task - own_tasks + 1) * zero_bags)):
                 b, j = divmod(f, T - nt)
                 bag = b * T + (j if j < tr.lo else j + nt)
-                out[bag] = 0.0
+                out[bag] = 0
                 writes[bag] += 1
             continue
         for bi in range(G):
@@ -290,9 +334,9 @@ def test_k4_window_mirror_zeroes_foreign_bags_and_reads_none(name, M, m, d):
             bag = _window_bag(k, T, tr)
             b, t = divmod(bag, T)
             read[b, t] = True
-            acc = torch.zeros(d)
+            acc = torch.zeros(d, dtype=dtype)
             for l in range(L):
-                if not mask[b, t, l]:
+                if mask is not None and not mask[b, t, l]:
                     continue
                 local = int(off[t]) + int(idx[b, t, l]) - row_lo
                 inside = 0 <= local < rows
@@ -306,10 +350,64 @@ def test_k4_window_mirror_zeroes_foreign_bags_and_reads_none(name, M, m, d):
     assert read[:, tr.lo:tr.hi].all() and not read[:, :tr.lo].any() and not read[:, tr.hi:].any()
     got = out.reshape(B, T, d)
     assert bool((got[:, :tr.lo] == 0).all()) and bool((got[:, tr.hi:] == 0).all())
+    return got
+
+
+@pytest.mark.parametrize("place", ["1/4", "1/4 + half a table"])
+def test_int8_windows_take_a_given_or_derived_range_and_refuse_one_that_does_not_fit(place):
+    """K1-int8's and K4's window wrappers (the plain versions on the CPU)
+    with the range a placement makes and with the one they derive from the
+    offsets: the same partial, K1-int8's the plain int32 pool bit for bit;
+    a range past the tables raises on either device's path."""
+    cfg, offsets, idx, mask, g = _inputs("rm1", 6, seed=11, masked=True)
+    row_lo, rows = _window(cfg, 4, 1 if place == "1/4" else "shifted")
     w = (row_lo, row_lo + rows)
-    want = emb.embedding_bag_int8_rowwise_reference(qrows, offsets, idx, mask=mask, window=w)
-    assert bool(((got - want).abs()
-                 <= emb.rowwise_tolerance(got, want, qrows, offsets, idx, mask, window=w)).all())
+    q = torch.randint(-127, 128, (rows, 32), generator=g, dtype=torch.int8)
+    qrows = emb.quantize_rowwise_int8(torch.randn((rows, 32), generator=g))
+    placed = emb.table_range(cfg.table_offsets, row_lo, rows, cfg.total_rows)
+    assert placed.hi - placed.lo == (2 if place == "1/4" else 3)
+    want = emb.embedding_bag_int8_reference(q, None, offsets, idx, mask=mask, window=w)
+    want4 = emb.embedding_bag_int8_rowwise_reference(qrows, offsets, idx, mask=mask, window=w)
+    for tr in (placed, None):
+        assert torch.equal(emb.embedding_bag_int8_shard(q, offsets, idx, row_lo, mask=mask,
+                                                        table_range=tr), want)
+        assert torch.equal(emb.embedding_bag_int8_rowwise_shard(
+            qrows, offsets, idx, row_lo, mask=mask, table_range=tr), want4)
+    bad = emb.TableRange(cfg.num_tables - 1, cfg.num_tables + 1, False, True)
+    with pytest.raises(ValueError, match="does not fit"):
+        emb.embedding_bag_int8_shard(q, offsets, idx, row_lo, table_range=bad)
+    with pytest.raises(ValueError, match="does not fit"):
+        emb.embedding_bag_int8_rowwise_shard(qrows, offsets, idx, row_lo, table_range=bad)
+
+
+def test_shard_table_ranges_reach_the_k1_int8_window(monkeypatch):
+    """``sharded_apply``'s lookup over per-table int8 tables hands each
+    shard's K1-int8 window the placement's range (``shard_table_ranges``),
+    and the combined pool equals the direct K1-int8 bit for bit."""
+    cfg = zoo.get_config("dien", table_scale=1000)
+    M, R = 4, cfg.total_rows
+    rps = R // M
+    ranges = sharding.shard_table_ranges(cfg, rps, M)
+    mesh = make_mesh(1, M, devices=["cpu"] * M)
+    offsets = sharding.Replicated(mesh, torch.as_tensor(cfg.table_offsets, dtype=torch.int32))
+    g = torch.Generator().manual_seed(1)
+    idx = torch.stack([torch.randint(0, n, (8, 1), generator=g) for n in cfg.scaled_rows],
+                      dim=1).to(torch.int32)
+    seen = []
+    real = emb.embedding_bag_int8_shard
+
+    def record(*args, **kw):
+        seen.append(kw.get("table_range"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr("deeprecsys_tpu_torch.ops.embedding_bag_int8_shard", record)
+    tables = emb.quantize_pertable_int8(torch.randn((R, 32), generator=g), cfg.scaled_rows)
+    sp = sharding.shard_params({"tables": tables}, mesh)
+    got = sharding.pooled_on_row(sp, 0, Batch(dense=None, indices=idx, mask=None), cfg, offsets)
+    assert seen == list(ranges)
+    want = emb.embedding_bag_int8(tables["q"], tables["scale"], offsets.on(torch.device("cpu")),
+                                  idx, compute_dtype=got.dtype)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name,M", [("dien", 4), ("rm1", 4)])
@@ -369,6 +467,21 @@ def test_turns_calls_hold_the_plain_versions(place):
     assert torch.equal(got, grad) and bool(got.abs().sum() > 0)
     fn, args, plain, _ = parent_turns.k4w_call(inp, cpu)
     assert torch.equal(fn(*args[0]), plain(*args[0]))
+
+
+@pytest.mark.parametrize("place", [p for _, p in parent_turns.WINDOW_PLACES[:3]])
+def test_k1iw_turns_call_holds_the_plain_version(place):
+    """``parent_turns.k1iw_call`` (which ``kernel_bench --only k1iw`` times
+    too) at a small scale on the CPU: its call and plain version give the
+    same int32 pool, zero on the tables outside the window."""
+    cpu = torch.device("cpu")
+    inp = parent_turns.window_inputs("rm1", place, 8, cpu, n_batches=2, table_scale=1000)
+    fn, args, plain, shard = parent_turns.k1iw_call(inp, cpu)
+    got = fn(*args[1])
+    tr = emb.table_range_of(inp["offsets"], inp["row_lo"], inp["rows"])
+    assert torch.equal(got, plain(*args[1])) and got.dtype == torch.int32
+    assert bool(got[:, tr.lo:tr.hi].abs().sum() > 0)
+    assert not bool(got[:, :tr.lo].any()) and not bool(got[:, tr.hi:].any())
 
 
 def test_the_sweeps_build_one_substitution_each():
