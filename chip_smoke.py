@@ -129,6 +129,19 @@ against ``False`` for rm1's and rm2's single-device sparse steps (each
 step's K5 then against its plain version), with the sort and segment sum
 alone.
 
+Then a mesh across processes (phase 18, after phase 17): two spawned
+processes share the card over gloo (NCCL refuses two ranks on one card),
+each holding two entries of a mesh that ``make_mesh`` gathers from both:
+rm1 at full size through ``sharded_apply`` in bf16 at batch 512 on 2x2
+(each process a data row) and 1x4 (the sum over "model" crosses the
+processes) against the single-device forward, and the dense and sparse
+f32 steps at batch 128 on 1x4, two each, whose losses are held to the
+single-process mesh trainer's; every launch of K1's, K1b's and K5's
+windows in the children against its plain version, the children's
+launches counted in the kernels line, and the walls of ten forwards and
+steps by CUDA events in each child (two processes on one card, the
+collectives through the host: they show no scaling).
+
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
 at once. It imports no JAX and nothing of the JAX package: only
@@ -143,12 +156,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import multiprocessing as mp
 import queue
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -172,7 +188,7 @@ from deeprecsys_tpu_torch.kernel_bench import (
     k3b_library, k4_bound, k5_bound, k5_library, k6_bound, k6_call, k6_cold_bound, k10_bound,
     k10_inputs, k10_library, k1b_window_bound, k5_window_bound, mean_bound, measure,
     named_kernel_ms, ptxas_summary,
-    random_int8_tables, span_ms, window_bound, window_g_rows, window_library)
+    random_int8_tables, span_ms, wall_ms, window_bound, window_g_rows, window_library)
 from deeprecsys_tpu_torch.models import get_model, sigmoid_output
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for, make_hotcold_model
@@ -197,7 +213,8 @@ from deeprecsys_tpu_torch.ops.embedding import (
     rowwise_tolerance, scatter_counts, table_range, window_ids)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
-from deeprecsys_tpu_torch.parallel import make_mesh, make_train_step, shard_params, sharded_apply
+from deeprecsys_tpu_torch.parallel import (
+    distributed_init, make_mesh, make_train_step, shard_params, sharded_apply)
 from deeprecsys_tpu_torch.parallel.sharding import leaf_copies
 from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.runtime.native import native_available
@@ -440,6 +457,22 @@ DEDUP_MODELS = ("rm1", "rm2")
 HOTCOLD_SHARD = {"none": "embedding_bag_hotcold_shard",
                  "int8": "embedding_bag_hotcold_int8_shard",
                  "int8_rowwise": "embedding_bag_hotcold_int8_rowwise_shard"}
+# Phase 18, a mesh across processes: DIST_PROCS processes share the card,
+# each with MESH_SHARDS / DIST_PROCS entries of it; rm1 at full size, the
+# bf16 forward at BATCH on each shape of DIST_FWD_AXES (DIST_FWD_BATCHES
+# batches) and, in each int8 layout, on DIST_QUANT_AXES; the f32 dense and
+# sparse steps at TRAIN_BATCH on DIST_TRAIN_AXES (DIST_STEPS steps each),
+# then DIST_TIMED more of each, timed. The children report within
+# DIST_WAIT_S.
+DIST_PROCS = 2
+DIST_FWD_AXES = ((2, 2), (1, 4))
+DIST_QUANT_AXES = (1, 4)
+DIST_FWD_BATCHES = 2
+DIST_TRAIN_AXES = (1, 4)
+DIST_STEPS = 2
+DIST_TIMED = 10
+DIST_WAIT_S = 420
+DIST_LABEL = "two processes on one card, collectives through the host over gloo: no scaling shown"
 
 
 def _log(msg: str):
@@ -4432,6 +4465,23 @@ def _k1_window_err(what: str):
     return check
 
 
+def _int8_window_err(quant: str, what: str):
+    """An ``after`` for K1-int8's (``quant`` "int8") or K4's window
+    (``SHARD[quant]``): the partial against its plain version with the
+    window on the same shard and ids, as ``_check_partial`` holds it
+    (int32 bit for bit; K4 within ``rowwise_tolerance`` of the window).
+    Returns the max |err|."""
+    def check(args, kw, out):
+        shard, offsets, indices, row_lo = args[:4]
+        mask, w = kw.get("mask"), (row_lo, row_lo + shard.shape[0])
+        want = _window_partial(quant, shard, offsets, indices, row_lo, mask, plain=True)
+        return _check_partial(
+            quant, out, want, shard, f"{what}: rows [{w[0]}, {w[1]}), b={indices.shape[0]}",
+            lambda a, b, t: rowwise_tolerance(a, b, t, offsets, indices, mask, window=w))
+
+    return check
+
+
 def _check_k1b_windows(calls, what: str) -> float:
     """Each recorded K1b window launch against its plain version, within
     ``backward_tolerance`` of the window (the order of each row's adds)."""
@@ -5104,6 +5154,262 @@ def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
+@contextlib.contextmanager
+def _collectives():
+    """The collective calls of ``torch.distributed`` this process makes
+    inside the block, counted (one count for all kinds)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "broadcast", "all_gather_object")
+    calls, origs = [0], {n: getattr(dist, n) for n in names}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(origs[n]))
+    try:
+        yield calls
+    finally:
+        for n, fn in origs.items():
+            setattr(dist, n, fn)
+
+
+def _dist_mesh(device, D: int, M: int):
+    """A D x M mesh over every process of the group: this process's share of
+    the entries, each ``device``."""
+    return make_mesh(D, M, devices=[device] * (D * M // DIST_PROCS))
+
+
+def _dist_train(device, cfg, mode: str, start: dict, hosts: list, errs: dict) -> tuple:
+    """``mode`` ("dense" or "sparse") adagrad on DIST_TRAIN_AXES across the
+    processes from ``start`` on ``hosts``: every step's K1 window launches
+    held to their plain version at the call, its K1b or K5 window launches
+    after the step, before the next; the launches of the DIST_STEPS steps
+    (this process's: 2 a step of each window on 1x4, K10 once); then
+    DIST_TIMED steps timed by CUDA events. Returns ``(losses, step wall ms,
+    collectives a step, launches)``."""
+    D, M = DIST_TRAIN_AXES
+    sparse, what = mode == "sparse", f"rm1 {mode} {D}x{M} across {DIST_PROCS} processes"
+    tr = port_train.Trainer(cfg, mesh=_dist_mesh(device, D, M), optimizer="adagrad",
+                            learning_rate=MESH_TRAIN_LR, sparse_tables=sparse, params=start)
+    labels = [tr._labels(h, None) for h in hosts]
+    _reset_counts()
+    window = ((port_train, "sparse_adagrad_step_shard", _k5_pre) if sparse
+              else (emb_mod, "embedding_bag_backward_shard", None))
+    losses = []
+    for h, lab in zip(hosts, labels):
+        with _recorded(*window) as calls, \
+                _recorded(port_ops, "embedding_bag_shard", after=_k1_window_err(what)) as k1:
+            losses.append(float(tr.step(h, lab)))
+        synchronize(device)
+        _merge(errs, "embedding_bag_shard", max(c[3] for c in k1))
+        if sparse:  # before the next step changes the shards the calls hold
+            _merge(errs, "sparse_adagrad_step_shard", _check_k5(calls, what, True))
+        else:
+            _merge(errs, "embedding_bag_backward_shard", _check_k1b_windows(calls, what))
+        del calls, k1
+    counts = _counts()
+    local = D * M // DIST_PROCS
+    _mesh_launch_check(counts, _want(
+        embedding_bag_shard=local * len(hosts),
+        embedding_bag_backward_shard=0 if sparse else local * len(hosts),
+        sparse_adagrad_step_shard=local * len(hosts) if sparse else 0,
+        optimizer_update=len(hosts)), what)
+    with _collectives() as calls:
+        wall = wall_ms(lambda h, lab: tr.step(h, lab), list(zip(hosts, labels)), DIST_TIMED)
+    del tr
+    _free(device)
+    return losses, wall, calls[0] / DIST_TIMED, counts
+
+
+def dist_child(rank: int, port: int, device_name: str, table_scale: int, q):
+    """One of DIST_PROCS processes of phase 18 (spawned): joins the group,
+    runs rm1's forward (float, per-table int8, row-wise int8) and steps on
+    meshes across the processes, holds every launch of K1's, K1-int8's,
+    K4's, K1b's and K5's windows to its plain version, and puts ``(rank,
+    "ok", results)`` (or ``"error"`` with the traceback)."""
+    import torch.distributed as dist
+
+    try:
+        device = torch.device(device_name)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        # NCCL refuses two ranks on one card: processes that share it name gloo.
+        distributed_init(f"127.0.0.1:{port}", num_processes=DIST_PROCS, process_id=rank,
+                         backend="gloo")
+        errs = {"embedding_bag_shard": 0.0, "embedding_bag_backward_shard": 0.0,
+                "sparse_adagrad_step_shard": 0.0, **{SHARD[q]: 0.0 for q in QUANT_MODES}}
+        launches, out = _want(), {"fwd": {}, "train": {}}
+        cfg = zoo.get_config("rm1", table_scale=table_scale, param_dtype="bfloat16",
+                             compute_dtype="bfloat16")
+        model = get_model(cfg, device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        batches = [b.to(device) for b in
+                   RecDataGenerator(cfg, seed=1).generate_batches(DIST_FWD_BATCHES, BATCH)]
+        with torch.inference_mode():
+            wants = [model.apply(params, b).float().cpu().numpy() for b in batches]
+            for D, M in DIST_FWD_AXES:
+                what = f"rm1 bf16 sharded_apply {D}x{M} across {DIST_PROCS} processes"
+                mesh = _dist_mesh(device, D, M)
+                sp = shard_params(params, mesh)
+                fn = sharded_apply(model, mesh, has_dense=True)
+                _reset_counts()
+                with _recorded(port_ops, "embedding_bag_shard", after=_k1_window_err(what)) as k1:
+                    outs = [fn(sp, b) for b in batches]
+                synchronize(device)
+                counts = _counts()
+                _mesh_launch_check(counts, _want(
+                    embedding_bag_shard=len(batches) * D * M // DIST_PROCS), what)
+                _add(launches, counts)
+                _merge(errs, "embedding_bag_shard", max(c[3] for c in k1))
+                worst = max(_check_close(o.float().cpu().numpy(), w, what)
+                            for o, w in zip(outs, wants))
+                with _collectives() as calls:
+                    wall = wall_ms(fn, [(sp, b) for b in batches], DIST_TIMED)
+                out["fwd"][f"float {D}x{M}"] = {"max_abs_err": worst, "wall_ms": wall,
+                                                "collectives": calls[0] / DIST_TIMED}
+                del sp, fn, outs, k1
+            del params, wants
+            _free(device)
+            D, M = DIST_QUANT_AXES
+            for quant in QUANT_MODES:
+                what = f"rm1 {quant} sharded_apply {D}x{M} across {DIST_PROCS} processes"
+                qcfg = cfg.replace(table_quant=quant)
+                qmodel = get_model(qcfg, device)
+                qparams = qmodel.init(torch.Generator(device=device).manual_seed(0))
+                wants = [qmodel.apply(qparams, b).float().cpu().numpy() for b in batches]
+                mesh = _dist_mesh(device, D, M)
+                sp = shard_params(qparams, mesh)
+                fn = sharded_apply(qmodel, mesh, has_dense=True)
+                _reset_counts()
+                with _recorded(port_ops, SHARD[quant], after=_int8_window_err(quant, what)) as w8:
+                    outs = [fn(sp, b) for b in batches]
+                synchronize(device)
+                counts = _counts()
+                _mesh_launch_check(counts, _want(
+                    **{SHARD[quant]: len(batches) * D * M // DIST_PROCS}), what)
+                _add(launches, counts)
+                _merge(errs, SHARD[quant], max(c[3] for c in w8))
+                worst = max(_check_close(o.float().cpu().numpy(), w, what)
+                            for o, w in zip(outs, wants))
+                with _collectives() as calls:
+                    wall = wall_ms(fn, [(sp, b) for b in batches], DIST_TIMED)
+                out["fwd"][f"{quant} {D}x{M}"] = {"max_abs_err": worst, "wall_ms": wall,
+                                                  "collectives": calls[0] / DIST_TIMED}
+                del qparams, wants, sp, fn, outs, w8
+                _free(device)
+        del batches
+        _free(device)
+        cfg = zoo.get_config("rm1", table_scale=table_scale)
+        start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
+        gen = RecDataGenerator(cfg, seed=1)
+        hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(DIST_STEPS)]
+        for mode in ("dense", "sparse"):
+            losses, wall, calls, counts = _dist_train(device, cfg, mode, start, hosts, errs)
+            out["train"][mode] = {"losses": losses, "wall_ms": wall, "collectives": calls}
+            _add(launches, counts)
+        out["errs"], out["launches"] = errs, launches
+        q.put((rank, "ok", out))
+    except Exception:  # the parent raises it
+        q.put((rank, "error", traceback.format_exc()[-4000:]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_dist(device, card: str) -> tuple[dict, dict]:
+    """Phase 18: a mesh across processes. DIST_PROCS spawned processes share
+    the card over gloo (NCCL refuses two ranks on one card), each with half
+    of the entries: rm1 at full size through ``sharded_apply`` in bf16 on
+    DIST_FWD_AXES, and with per-table and row-wise int8 tables on
+    DIST_QUANT_AXES, against the single-device forward (bf16_atol), and the
+    dense and sparse f32 steps on DIST_TRAIN_AXES, whose losses are held
+    here to the single-process mesh trainer's on the same weights and
+    batches (TRAIN_LOSS_RTOL). In the children every launch of K1's,
+    K1-int8's, K4's, K1b's and K5's windows is held to its plain version;
+    their launches are this phase's. The walls are CUDA-event times of DIST_TIMED calls in each
+    child: two processes on one card, collectives through the host over
+    gloo, so they show no scaling. Returns the results and the launches."""
+    t0 = time.perf_counter()
+    cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
+    start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
+    gen = RecDataGenerator(cfg, seed=1)
+    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(DIST_STEPS)]
+    want = {}
+    for mode in ("dense", "sparse"):
+        tr = port_train.Trainer(cfg, mesh=_cuda_mesh(device, *DIST_TRAIN_AXES),
+                                optimizer="adagrad", learning_rate=MESH_TRAIN_LR,
+                                sparse_tables=mode == "sparse", params=start)
+        want[mode] = [float(tr.step(h, tr._labels(h, None))) for h in hosts]
+        del tr
+        _free(device)
+    del start
+    _free(device)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=dist_child, args=(r, port, str(device), TABLE_SCALE, q))
+             for r in range(DIST_PROCS)]
+    for proc in procs:
+        proc.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, detail = q.get(timeout=DIST_WAIT_S)
+            if status != "ok":
+                raise AssertionError(f"phase 18 process {rank} failed:\n{detail}")
+            results[rank] = detail
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+    launches = _want()
+    errs: dict = {}
+    for rank, res in sorted(results.items()):
+        _add(launches, res["launches"])
+        for key, err in res["errs"].items():
+            _merge(errs, key, err)
+        for mode, tr in res["train"].items():
+            rel = float(np.max(np.abs(np.asarray(tr["losses"]) - want[mode])
+                               / np.abs(want[mode])))
+            if not (np.all(np.isfinite(tr["losses"])) and rel <= TRAIN_LOSS_RTOL):
+                raise AssertionError(f"phase 18 {mode} on process {rank}: losses {tr['losses']} "
+                                     f"against the single-process mesh's {want[mode]}")
+            tr["rel"] = rel
+    def by_process(get, fmt: str) -> str:
+        return ", ".join(format(get(res), fmt) for _, res in sorted(results.items()))
+
+    for key in results[0]["fwd"]:
+        _log(f"[18 processes] rm1 bf16 batch {BATCH} sharded_apply, {key} tables, across "
+             f"{DIST_PROCS} processes: max |err| against the single-device forward by process "
+             f"{by_process(lambda r: r['fwd'][key]['max_abs_err'], '.3e')} (limit bf16_atol); "
+             f"wall {by_process(lambda r: r['fwd'][key]['wall_ms'], '.4f')} ms a forward by "
+             f"process, {by_process(lambda r: r['fwd'][key]['collectives'], '.1f')} collective "
+             f"calls a forward ({DIST_LABEL}) [{card}]")
+    for mode in want:
+        _log(f"[18 processes] rm1 {mode} f32 batch {TRAIN_BATCH} on "
+             f"{DIST_TRAIN_AXES[0]}x{DIST_TRAIN_AXES[1]} across {DIST_PROCS} processes: losses "
+             f"{', '.join(f'{x:.6f}' for x in results[0]['train'][mode]['losses'])} against the "
+             f"single-process mesh's {', '.join(f'{x:.6f}' for x in want[mode])} (max relative "
+             f"error by process {by_process(lambda r: r['train'][mode]['rel'], '.2e')}, limit "
+             f"{TRAIN_LOSS_RTOL:.0e}); wall {by_process(lambda r: r['train'][mode]['wall_ms'], '.4f')}"
+             f" ms a step by process, "
+             f"{by_process(lambda r: r['train'][mode]['collectives'], '.1f')} collective calls "
+             f"a step ({DIST_LABEL}) [{card}]")
+    _log(f"[18 processes] every window launch in the children within its plain version (max "
+         f"|err| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}); launches "
+         f"{_nonzero(launches)}; phase 18 in {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"results": results, "want": want, "errs": errs}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5200,6 +5506,18 @@ def main() -> int:
     _add(launches, mesh_train_launches)
     mesh["errs"]["embedding_bag_shard"] = max(mesh["errs"]["embedding_bag_shard"],
                                               mesh_train["errs"]["embedding_bag_shard"])
+
+    # Phase 18: a mesh across processes, read around itself in its children.
+    dist_res, dist_launches = phase_dist(device, card["card"])
+    for key in ("embedding_bag_shard", "embedding_bag_backward_shard",
+                "sparse_adagrad_step_shard", *(SHARD[q] for q in QUANT_MODES)):
+        if dist_launches[key] == 0:
+            raise AssertionError(f"the multi-process paths never launched {key}")
+    _add(launches, dist_launches)
+    for key in ("embedding_bag_shard", *(SHARD[q] for q in QUANT_MODES)):
+        mesh["errs"][key] = max(mesh["errs"].get(key, 0.0), dist_res["errs"][key])
+    for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard"):
+        mesh_train["errs"][key] = max(mesh_train["errs"][key], dist_res["errs"][key])
     trained["sparse_adagrad_step"]["max_abs_err"] = max(
         trained["sparse_adagrad_step"]["max_abs_err"], mesh_train["errs"]["sparse_adagrad_step"])
 
@@ -5325,6 +5643,15 @@ def main() -> int:
              f"{r['sparse']['wall_ms']:.4f} / True {r['dedup']['wall_ms']:.4f}, device "
              f"{_us(r['sparse']['device_ms'])} / {_us(r['dedup']['device_ms'])}, sort + segment "
              f"sum {_us(r['sort_segment_ms'])} [{card['card']}]")
+    procs = [r for _, r in sorted(dist_res["results"].items())]
+    _log(f"[10 summary] a mesh across {DIST_PROCS} processes ({DIST_LABEL}), rm1 full size, wall "
+         f"ms by process: bf16 forward, batch {BATCH}: "
+         + "; ".join(f"{k} " + ", ".join(f"{r['fwd'][k]['wall_ms']:.4f}" for r in procs)
+                     for k in procs[0]["fwd"])
+         + f"; f32 step, batch {TRAIN_BATCH}, {DIST_TRAIN_AXES[0]}x{DIST_TRAIN_AXES[1]}: "
+         + "; ".join(f"{m} " + ", ".join(f"{r['train'][m]['wall_ms']:.4f}" for r in procs)
+                     for m in procs[0]["train"])
+         + f" [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())

@@ -93,6 +93,7 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
         except RuntimeError:
             pass  # no native runtime: the splitter takes its numpy path
     if mesh is not None:
+        mesh.require_one_process("make_hotcold_model(mesh=)")
         n_data, n_shards = mesh.shape["data"], mesh.shape["model"]
         if cfg.total_rows % n_shards:
             raise ValueError(f"total rows {cfg.total_rows} must divide over model axis "

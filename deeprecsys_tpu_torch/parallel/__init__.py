@@ -3,10 +3,13 @@
 lookups and ``sharded_apply`` (``sharding.py``, with the training losses,
 ``make_train_step`` and ``unshard_params``), and the table-wise model
 (``api.py``). The mesh trainers are ``train.py``'s ``Trainer(mesh=)`` and
-``make_sharded_sparse_table_step``.
+``make_sharded_sparse_table_step``. ``distributed_init`` starts a
+``torch.distributed`` process group, over which ``make_mesh`` builds a mesh
+of several processes' devices (the serving forward and the mesh trainers
+run there).
 
-Not ported yet (ROADMAP.md Queue 1): multi-process meshes
-(``distributed_init`` with more than one process raises).
+Not ported yet over several processes (ROADMAP.md Queue 1 item 12c):
+hot/cold, table-wise sharding and the mesh engines raise there.
 """
 
 from deeprecsys_tpu_torch.parallel.mesh import Mesh, distributed_init, make_mesh

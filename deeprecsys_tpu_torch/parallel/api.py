@@ -39,6 +39,7 @@ def make_tablewise_model(model: ModelFns, mesh: Mesh,
     scores on ``mesh.devices.flat[0]``: per-table int8 pools exactly in
     int32 and scales by each original table's scale, row-wise int8 sums the
     dequantized rows in f32, each cast once, as on one device."""
+    mesh.require_one_process("make_tablewise_model")
     cfg = model.cfg
     if placement is None:
         placement = plan_tablewise_placement(cfg, mesh.shape["model"])

@@ -50,6 +50,20 @@ distinct devices (the JAX ``psum`` of the replicated leaves' gradients), so
 each distinct tensor takes the whole gradient once and its update exactly
 once (``leaf_copies``). ``unshard_params`` reads the full params back. The
 losses at the end are the JAX module's (:427-462).
+
+Across processes (a ``Mesh`` whose entries several processes own,
+``mesh.py``): each process places and launches on its own entries only
+(remote entries hold None), every process takes the same host batch and
+loops over the rows, columns and leaves in one fixed order, and the
+combines become collectives (``Mesh.all_reduce``, ``broadcast``): the sum
+over "model" adds a process's local partials, then sums over the row's
+processes; the concat over "data" sends each row's slice from entry (d,
+0)'s process to every process (``all_gather_slices``); the loss is gathered
+so that every process returns it; ``reduce_copies`` sums a leaf's copies
+over the processes that hold them; the dense step's row sum takes its
+backward as a broadcast of the row's pooled gradient (``row_partial``);
+``unshard_params`` gathers the shards. Hot/cold, table-wise and the mesh
+engines raise there (``Mesh.require_one_process``).
 """
 
 from __future__ import annotations
@@ -89,11 +103,17 @@ class Sharded:
 
     @classmethod
     def place(cls, mesh: Mesh, shard_of: Callable[[int], torch.Tensor]) -> "Sharded":
+        """Shard m on each of this process's entries of column m (None on
+        another process's): keyed by device, which names one place within a
+        process."""
         cache: dict = {}
         parts = []
         for d in range(mesh.shape["data"]):
             row = []
             for m in range(mesh.shape["model"]):
+                if not mesh.is_local(d, m):
+                    row.append(None)
+                    continue
                 dev = mesh.device(d, m)
                 key = (dev, m)
                 if key not in cache:
@@ -121,9 +141,13 @@ class Sharded:
     def part(self, d: int, m: int) -> torch.Tensor:
         return self.parts[d][m]
 
+    def first(self) -> torch.Tensor:
+        """This process's first shard tensor (row-major over the entries)."""
+        return next(p for row in self.parts for p in row if p is not None)
+
     @property
     def rows_per_shard(self) -> int:
-        return int(self.parts[0][0].shape[0])
+        return int(self.first().shape[0])
 
 
 class Replicated:
@@ -192,15 +216,20 @@ class ShardedParams:
         self.entries = entries  # [d][m]
         self.rows_per_shard = rows_per_shard
 
-    def entry(self, d: int, m: int) -> dict:
+    def entry(self, d: int, m: int) -> dict | None:
+        """Entry (d, m)'s params; None where another process holds it."""
         return self.entries[d][m]
+
+    def first_entry(self) -> dict:
+        """This process's first entry (row-major)."""
+        return next(e for row in self.entries for e in row if e is not None)
 
     def with_leaf(self, key: str, t: torch.Tensor) -> "ShardedParams":
         """The same params with top-level leaf ``key`` replaced by ``t``,
         replicated: one copy a distinct device."""
         rep = Replicated(self.mesh, t)
-        entries = [[{**e, key: rep.on(self.mesh.device(d, m))} for m, e in enumerate(row)]
-                   for d, row in enumerate(self.entries)]
+        entries = [[None if e is None else {**e, key: rep.on(self.mesh.device(d, m))}
+                    for m, e in enumerate(row)] for d, row in enumerate(self.entries)]
         return ShardedParams(self.mesh, entries, self.rows_per_shard)
 
     def tensors(self) -> list:
@@ -210,6 +239,8 @@ class ShardedParams:
         seen: dict = {}
         for row in self.entries:
             for e in row:
+                if e is None:
+                    continue
                 for t in tree_flatten(e):
                     seen.setdefault(id(t), t)
         return list(seen.values())
@@ -246,7 +277,8 @@ def gather_rows(sp: ShardedParams, ids) -> torch.Tensor:
 def shard_params(params: dict, mesh: Mesh) -> ShardedParams:
     """Place ``params`` on the mesh per ``param_shardings`` (JAX
     ``sharding.py:97-99``): one copy a distinct device of each replicated
-    leaf, one tensor a (device, shard) of each sharded table leaf."""
+    leaf, one tensor a (device, shard) of each sharded table leaf, on this
+    process's entries only (another process's entry is None)."""
     specs = param_shardings(params, mesh)
     D, M = mesh.shape["data"], mesh.shape["model"]
     tables = params["tables"]
@@ -273,6 +305,9 @@ def shard_params(params: dict, mesh: Mesh) -> ShardedParams:
     for d in range(D):
         row = []
         for m in range(M):
+            if not mesh.is_local(d, m):
+                row.append(None)
+                continue
             dev = mesh.device(d, m)
             e = {k: rep(v, dev) for k, v in params.items() if k != "tables"}
             if isinstance(tables, dict):
@@ -407,16 +442,18 @@ def shard_table_ranges(cfg: ModelConfig, rows_per_shard: int, n_model: int) -> t
                              rows_per_shard * n_model) for m in range(n_model))
 
 
-def _row_sharded_pooled(entry_tables: Callable, mesh: Mesh, d: int, rows_per_shard: int,
-                        offsets: Replicated, indices, mask, cdt, layout: str, scale_on,
-                        ranges=None):
-    """Row d's pooled lookup: a partial a shard (the window), combined on
-    entry (d, 0), finished there. ``ranges``: each shard's table range
-    (``shard_table_ranges``), or None."""
-    out_dev = mesh.device(d, 0)
+def _row_partial(entry_tables: Callable, mesh: Mesh, d: int, rows_per_shard: int,
+                 offsets: Replicated, indices, mask, cdt, layout: str, ranges=None):
+    """This process's part of row d's pooled lookup: a partial a local
+    shard (the window), added in shard order on the row's first local
+    entry; None where the process holds none of row d. ``ranges``: each
+    shard's table range (``shard_table_ranges``), or None."""
+    local = [m for m in range(mesh.shape["model"]) if mesh.is_local(d, m)]
+    if not local:
+        return None
     moved: dict = {}
     partials = []
-    for m in range(mesh.shape["model"]):
+    for m in local:
         dev = mesh.device(d, m)
         if dev not in moved:
             moved[dev] = (_to(indices, dev), None if mask is None else _to(mask, dev))
@@ -424,7 +461,36 @@ def _row_sharded_pooled(entry_tables: Callable, mesh: Mesh, d: int, rows_per_sha
         partials.append(_shard_partial(layout, entry_tables(m), offsets.on(dev), idx,
                                        m * rows_per_shard, cdt, msk,
                                        None if ranges is None else ranges[m]))
-    return _finish(_combine(partials, out_dev), layout, cdt, scale_on(out_dev))
+    return _combine(partials, mesh.device(d, local[0]))
+
+
+def _row_sum(mesh: Mesh, d: int, acc: torch.Tensor | None) -> torch.Tensor | None:
+    """The rest of the ``psum`` over "model": this process's part of row d
+    (``_row_partial``; None where it holds none of the row) summed over the
+    row's processes (a collective only where they are several; an int32
+    pool stays exact), on entry (d, 0); None in every other process."""
+    if acc is None:
+        return None
+    acc = mesh.all_reduce(acc, mesh.row_ranks(d))
+    return _to(acc, mesh.device(d, 0)) if mesh.is_local(d, 0) else None
+
+
+def all_gather_slices(mesh: Mesh, slices: list, shape: tuple, dtype: torch.dtype) -> list:
+    """The concat over "data": row d's slice (on entry (d, 0), None in
+    another process) of every row, in row order. Across processes each row
+    is sent from its entry (d, 0)'s process to every process (a broadcast a
+    row into a buffer of ``shape`` and ``dtype``, which every slice has),
+    and lands on this process's first device."""
+    if not mesh.multi_process:
+        return slices
+    for s in slices:
+        if s is not None and (tuple(s.shape) != tuple(shape) or s.dtype != dtype):
+            raise ValueError(f"a data slice is {tuple(s.shape)} {s.dtype}, not the "
+                             f"{tuple(shape)} {dtype} every process gathers")
+    return [mesh.broadcast(s if s is not None else torch.empty(shape, dtype=dtype,
+                                                               device=mesh.home),
+                           mesh.rank_of(d, 0), mesh.all_ranks)
+            for d, s in enumerate(slices)]
 
 
 def sharded_embedding_bag(table, offsets: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
@@ -435,21 +501,24 @@ def sharded_embedding_bag(table, offsets: torch.Tensor, indices: torch.Tensor, m
     ``(total_rows, d)`` float table (sharded here) or its ``Sharded`` rows.
     Each shard pools the rows it owns (K1 with the window), one sum over the
     shards completes each data slice; returns ``(B, T, d)`` in the compute
-    dtype on ``mesh.devices.flat[0]``. ``total_rows`` must divide over the
-    model axis (``pad_rows_for_mesh``)."""
+    dtype on ``mesh.home`` (every process's, across processes).
+    ``total_rows`` must divide over the model axis (``pad_rows_for_mesh``)."""
     n_model = mesh.shape["model"]
     if total_rows % n_model:
         raise ValueError(f"total rows {total_rows} must divide over model axis {n_model}; "
                          "pad the last table (see pad_rows_for_mesh)")
     rows = table if isinstance(table, Sharded) else Sharded.rows(table, mesh)
-    cdt = compute_dtype if compute_dtype is not None else rows.part(0, 0).dtype
+    cdt = compute_dtype if compute_dtype is not None else rows.first().dtype
     offs = Replicated(mesh, offsets)
     out = []
     for d, sl in enumerate(split_batch(Batch(dense=None, indices=indices, mask=mask), mesh)):
-        out.append(_row_sharded_pooled(lambda m, d=d: rows.part(d, m), mesh, d,
-                                       total_rows // n_model, offs, sl.indices, sl.mask, cdt,
-                                       "float", lambda dev: None))
-    return torch.cat([_to(o, mesh.devices.flat[0]) for o in out], dim=0)
+        acc = _row_sum(mesh, d, _row_partial(lambda m, d=d: rows.part(d, m), mesh, d,
+                                             total_rows // n_model, offs, sl.indices, sl.mask,
+                                             cdt, "float"))
+        out.append(None if acc is None else _finish(acc, "float", cdt))
+    b, nt = indices.shape[0] // mesh.shape["data"], indices.shape[1]
+    out = all_gather_slices(mesh, out, (b, nt, rows.first().shape[1]), cdt)
+    return torch.cat([_to(o, mesh.home) for o in out], dim=0)
 
 
 def pad_rows_for_mesh(cfg: ModelConfig, n_model: int) -> int:
@@ -459,22 +528,41 @@ def pad_rows_for_mesh(cfg: ModelConfig, n_model: int) -> int:
 
 
 def pooled_on_row(sp: ShardedParams, d: int, batch: Batch, cfg: ModelConfig,
-                   offsets: Replicated) -> torch.Tensor:
-    """Row d's pooled lookup for the table's layout, on entry (d, 0)."""
+                  offsets: Replicated) -> torch.Tensor | None:
+    """Row d's pooled lookup for the table's layout, on entry (d, 0); None in
+    a process that does not hold entry (d, 0) (its shards' partials go
+    there)."""
     from deeprecsys_tpu_torch.models.base import pooled_lookup
 
     mesh = sp.mesh
-    dev0 = mesh.device(d, 0)
-    tables0 = sp.entry(d, 0)["tables"]
     if sp.rows_per_shard is None:  # a replicated table: the direct lookup
+        if not mesh.is_local(d, 0):
+            return None
+        dev0 = mesh.device(d, 0)
         b = _batch_to(batch, dev0)
-        return pooled_lookup(tables0, b, cfg, offsets=offsets.on(dev0))
-    layout = _layout(tables0)
-    return _row_sharded_pooled(
-        lambda m: sp.entry(d, m)["tables"], mesh, d, sp.rows_per_shard, offsets, batch.indices,
-        batch.mask, compute_dtype_of(cfg), layout,
-        lambda dev: tables0["scale"] if layout == "int8" else None,
-        shard_table_ranges(cfg, sp.rows_per_shard, mesh.shape["model"]))
+        return pooled_lookup(sp.entry(d, 0)["tables"], b, cfg, offsets=offsets.on(dev0))
+    acc, finish = row_partial(sp, d, batch, cfg, offsets)
+    acc = _row_sum(mesh, d, acc)
+    return None if acc is None else finish(acc)
+
+
+def row_partial(sp: ShardedParams, d: int, batch: Batch, cfg: ModelConfig,
+                offsets: Replicated):
+    """This process's part of row d's row-sharded lookup and how entry (d,
+    0) finishes the row's sum: ``(partial, finish)``; the partial is None
+    where the process holds none of row d. ``pooled_on_row`` is ``finish``
+    of the partial summed over the row's processes (``_row_sum``)."""
+    mesh = sp.mesh
+    layout, cdt = _layout(sp.first_entry()["tables"]), compute_dtype_of(cfg)
+    acc = _row_partial(lambda m: sp.entry(d, m)["tables"], mesh, d, sp.rows_per_shard, offsets,
+                       batch.indices, batch.mask, cdt, layout,
+                       shard_table_ranges(cfg, sp.rows_per_shard, mesh.shape["model"]))
+
+    def finish(acc):
+        scale = sp.entry(d, 0)["tables"]["scale"] if layout == "int8" else None
+        return _finish(acc, layout, cdt, scale)
+
+    return acc, finish
 
 
 def sharded_apply(model: ModelFns, mesh: Mesh, has_dense: bool) -> Callable:
@@ -485,9 +573,10 @@ def sharded_apply(model: ModelFns, mesh: Mesh, has_dense: bool) -> Callable:
     the row-sharded lookup of the table's layout (K1, K1-int8 or K4 with the
     window, combined, finished), then ``apply_from_pooled`` on entry (d, 0)
     (dien's K3 there too); the slices' scores concatenated on
-    ``mesh.devices.flat[0]``. ``sharded_params`` is ``shard_params``' (placed
+    ``mesh.home`` (``all_gather_slices``: across processes every process
+    gets the whole batch's). ``sharded_params`` is ``shard_params``' (placed
     once, not a call); the batch on any device (pinned host memory copies
-    asynchronously)."""
+    asynchronously), the same batch on every process."""
     cfg = model.cfg
     offsets = Replicated(mesh, torch.as_tensor(cfg.table_offsets, dtype=torch.int32))
 
@@ -496,15 +585,19 @@ def sharded_apply(model: ModelFns, mesh: Mesh, has_dense: bool) -> Callable:
             raise TypeError(f"sharded_apply's fn takes shard_params(params, mesh), not "
                             f"{type(sp).__name__}")
         _check_dense(has_dense, batch)
-        scores = []
-        for d, sl in enumerate(split_batch(batch, mesh)):
+        scores, slices = [], split_batch(batch, mesh)
+        for d, sl in enumerate(slices):
             pooled = pooled_on_row(sp, d, sl, cfg, offsets)
+            if pooled is None:
+                scores.append(None)
+                continue
             dev0 = mesh.device(d, 0)
             tail = Batch(dense=None if sl.dense is None else _to(torch.as_tensor(sl.dense), dev0),
                          indices=None, mask=None)
             scores.append(model.apply_from_pooled(sp.entry(d, 0), pooled, tail))
-        out_dev = mesh.devices.flat[0]
-        return torch.cat([_to(s, out_dev) for s in scores], dim=0)
+        scores = all_gather_slices(mesh, scores, (slices[0].indices.shape[0], cfg.out_dim),
+                                   compute_dtype_of(cfg))
+        return torch.cat([_to(s, mesh.home) for s in scores], dim=0)
 
     return fn
 
@@ -585,6 +678,7 @@ def sharded_embedding_bag_hotcold(hot_table, table, split: dict, mesh: Mesh, *,
     leaf), sharded here, or its ``Sharded`` rows; ``hot_table`` a tensor or
     ``(d, m) -> entry (d, m)'s copy``. Returns ``(B, T, d)`` on
     ``mesh.devices.flat[0]``."""
+    mesh.require_one_process("sharded_embedding_bag_hotcold")
     _no_pack(pack)
     rows = _rows_of(mesh, table)
     hot = _hot_rows(mesh, hot_table)
@@ -602,6 +696,7 @@ def hybrid_hotcold_rows(hot_table, table, split: dict, mesh: Mesh, *,
                         rowwise: bool = False) -> list:
     """``hybrid_embedding_bag_hotcold``'s data slices: slice d's pooled
     lookup on entry (d, 0), for each d."""
+    mesh.require_one_process("hybrid_embedding_bag_hotcold")
     rows = _rows_of(mesh, table)
     hot = _hot_rows(mesh, hot_table)
     layout = _quant_layout(table_scale, rowwise)
@@ -671,6 +766,7 @@ class TablewisePlan:
     row count. ``table_scale``: the ``(T,)`` scales of per-table int8."""
 
     def __init__(self, placement, mesh: Mesh, table_scale: torch.Tensor | None = None):
+        mesh.require_one_process("table-wise sharding")
         M = placement.num_shards
         if M != mesh.shape["model"]:
             raise ValueError(f"placement for {M} shards on model axis {mesh.shape['model']}")
@@ -773,14 +869,18 @@ def tablewise_embedding_bag(shard_tables, indices: torch.Tensor, placement, mesh
 # ----------------------------------------------------------------------
 
 
-def leaf_copies(sp: ShardedParams, skip: tuple = ()) -> list:
-    """Each logical leaf's distinct tensors, first copy first: a replicated
-    leaf has one a distinct device, shard m of a row-sharded table one a
-    distinct device of column m. Top-level keys in ``skip`` are left out.
-    One step updates each tensor here once, whichever entries share it."""
+def leaf_groups(sp: ShardedParams, skip: tuple = ()) -> list:
+    """Each logical leaf of this process as ``((path, m), copies)``: its
+    distinct tensors, first copy first, where ``m`` is the shard of a
+    row-sharded table's leaf (its copies on this process's distinct devices
+    of column m) and None for a replicated leaf (a copy a distinct device).
+    Top-level keys in ``skip`` are left out. One step updates each tensor
+    here once, whichever entries share it."""
     groups: dict = {}
     for row in sp.entries:
         for m, e in enumerate(row):
+            if e is None:
+                continue
             for path, t in bridge.flatten(e).items():
                 top = path.split("/")[0]
                 if top in skip:
@@ -789,28 +889,42 @@ def leaf_copies(sp: ShardedParams, skip: tuple = ()) -> list:
                 copies = groups.setdefault((path, m if sharded else None), [])
                 if not any(c is t for c in copies):
                     copies.append(t)
-    return list(groups.values())
+    return list(groups.items())
 
 
-def reduce_copies(groups: list, grads: list) -> list:
-    """The gradients of ``groups``' tensors (flattened in order; None for a
-    copy no slice used) with each logical leaf's copies given their sum:
-    added in copy order on the first copy's device, then moved to each
-    copy's (the JAX ``psum``). A leaf of one copy keeps its gradient."""
-    out, i = [], 0
-    for copies in groups:
+def leaf_copies(sp: ShardedParams, skip: tuple = ()) -> list:
+    """Each logical leaf's distinct tensors in this process (``leaf_groups``
+    without the keys)."""
+    return [copies for _, copies in leaf_groups(sp, skip)]
+
+
+def reduce_copies(mesh: Mesh, groups: list, grads: list) -> list:
+    """The gradients of ``groups``' tensors (``leaf_groups``, flattened in
+    order; None for a copy no slice used) with each logical leaf's copies
+    given their sum: added in copy order on the first copy's device (the
+    JAX ``psum``), then, across processes, summed over the processes that
+    hold copies of the leaf (every process for a replicated leaf, column
+    m's for shard m), one all-reduce a leaf in the order of the leaves'
+    keys, which every process shares; then moved to each copy's device. A
+    leaf of one copy in one process keeps its gradient."""
+    totals, i = [], 0
+    for _, copies in groups:
         gs = grads[i:i + len(copies)]
         i += len(copies)
-        if len(copies) == 1:
-            out.append(gs[0] if gs[0] is not None else torch.zeros_like(copies[0]))
-            continue
         total = None
         for g in gs:
             if g is not None:
                 total = _to(g, copies[0].device) if total is None else total + _to(
                     g, copies[0].device)
-        if total is None:
-            total = torch.zeros_like(copies[0])
+        totals.append(torch.zeros_like(copies[0]) if total is None else total)
+    if mesh.multi_process:
+        # A path is a replicated leaf (m None) or a table's shards (m >= 0).
+        for j in sorted(range(len(groups)), key=lambda j: (groups[j][0][0], groups[j][0][1] or 0)):
+            m = groups[j][0][1]
+            totals[j] = mesh.all_reduce(totals[j], mesh.all_ranks if m is None
+                                        else mesh.col_ranks(m))
+    out = []
+    for (_, copies), total in zip(groups, totals):
         out.extend(_to(total, c.device) for c in copies)
     return out
 
@@ -837,29 +951,53 @@ def with_grad(leaves: list, fn):
 
 
 def split_targets(targets: torch.Tensor, mesh: Mesh) -> list:
-    """The targets' D contiguous slices over "data", slice d on entry (d, 0)."""
+    """The targets' D contiguous slices over "data", slice d on entry (d, 0)
+    (None where another process holds it)."""
     D = mesh.shape["data"]
     b = targets.shape[0] // D
-    return [_to(targets[d * b:(d + 1) * b], mesh.device(d, 0)) for d in range(D)]
+    return [_to(targets[d * b:(d + 1) * b], mesh.device(d, 0)) if mesh.is_local(d, 0) else None
+            for d in range(D)]
 
 
 def mesh_loss(model: ModelFns, sp: ShardedParams, slices: list, targets: list, loss_fn,
-              pooled_of: Callable) -> torch.Tensor:
+              pooled_of: Callable) -> tuple:
     """The global mean loss: each data slice's mean loss (``pooled_of(d,
     slice)``, then ``apply_from_pooled`` on entry (d, 0)), summed on
-    ``mesh.devices.flat[0]`` in slice order and divided by D (the JAX
-    ``pmean`` over "data"; equal slices, so the mean of the batch)."""
+    ``mesh.home`` in slice order and divided by D (the JAX ``pmean`` over
+    "data"; equal slices, so the mean of the batch). Returns ``(share,
+    loss)``: ``share`` is what this process differentiates, the sum of the
+    slices whose entry (d, 0) it holds over D (None if it holds none);
+    ``loss`` is what every process returns: across processes the slices'
+    losses gathered (an all-reduce of a (D,) vector holding each at its
+    row and zeros elsewhere, so exact), then summed as on one process. On
+    one process both are the one loss."""
     mesh = sp.mesh
-    total = None
+    D = len(slices)
+    losses = {}
     for d, sl in enumerate(slices):
+        if not mesh.is_local(d, 0):
+            continue
         dev0 = mesh.device(d, 0)
         tail = Batch(dense=None if sl.dense is None else _to(torch.as_tensor(sl.dense), dev0),
                      indices=None, mask=None)
         loss = loss_fn(model.apply_from_pooled(sp.entry(d, 0), pooled_of(d, sl), tail),
                        targets[d])
-        loss = _to(loss, mesh.devices.flat[0])
-        total = loss if total is None else total + loss
-    return total / len(slices)
+        losses[d] = _to(loss, mesh.home)
+
+    def mean(ls):
+        total = None
+        for loss in ls:
+            total = loss if total is None else total + loss
+        return None if total is None else total / D
+
+    share = mean(losses.values())
+    if not mesh.multi_process:
+        return share, share
+    vec = torch.zeros((D,), dtype=torch.float32, device=mesh.home)
+    for d, loss in losses.items():
+        vec[d] = loss.detach()
+    vec = mesh.all_reduce(vec, mesh.all_ranks)
+    return share, mean(vec[d] for d in range(D))
 
 
 class MeshOptimizer:
@@ -890,21 +1028,55 @@ def make_mesh_dense_step(model: ModelFns, mesh: Mesh, loss_fn) -> Callable:
     (``reduce_copies``), then the optimizer (``MeshOptimizer``, K10).
     ``step(sp, opt_state, batch, targets)`` updates both in place and
     returns the loss; ``opt_state`` is a ``MeshOptimizer`` of
-    ``leaf_copies(sp)``' tensors."""
-    offsets = Replicated(mesh, torch.as_tensor(model.cfg.table_offsets, dtype=torch.int32))
+    ``leaf_copies(sp)``' tensors.
+
+    A row whose entries several processes hold is differentiated in two
+    passes: each process's part of the row (``row_partial``) is summed over
+    the row's processes, and entry (d, 0)'s process differentiates its loss
+    with respect to that sum; the sum's backward is then a broadcast of
+    the row's pooled gradient from there to the row's processes, each of
+    which runs its windows' backward with it (K1b's window). The collectives
+    run between the passes, in row order: inside autograd each process's
+    engine would order them by its own graph, which differs between
+    processes. A row within one process is one pass, as on one process."""
+    cfg = model.cfg
+    offsets = Replicated(mesh, torch.as_tensor(cfg.table_offsets, dtype=torch.int32))
 
     def step(sp: ShardedParams, opt_state: MeshOptimizer, batch: Batch, targets):
-        groups = leaf_copies(sp)
-        leaves = [t for copies in groups for t in copies]
+        groups = leaf_groups(sp)
+        leaves = [t for _, copies in groups for t in copies]
         slices, tsl = split_batch(batch, mesh), split_targets(targets, mesh)
 
         def run():
-            loss = mesh_loss(model, sp, slices, tsl, loss_fn,
-                             lambda d, sl: pooled_on_row(sp, d, sl, model.cfg, offsets))
-            return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+            pooled, parts, sums = {}, {}, {}
+            for d, sl in enumerate(slices):
+                if sp.rows_per_shard is None or len(mesh.row_ranks(d)) == 1:
+                    pooled[d] = pooled_on_row(sp, d, sl, cfg, offsets)
+                    continue
+                part, finish = row_partial(sp, d, sl, cfg, offsets)
+                if part is None:
+                    continue
+                parts[d] = part
+                total = _row_sum(mesh, d, part.detach())
+                if total is not None:
+                    sums[d] = total.requires_grad_()
+                    pooled[d] = finish(sums[d])
+            share, loss = mesh_loss(model, sp, slices, tsl, loss_fn, lambda d, sl: pooled[d])
+            n = len(leaves)
+            grads = (torch.autograd.grad(share, leaves + list(sums.values()), allow_unused=True)
+                     if share is not None else (None,) * (n + len(sums)))
+            if not parts:
+                return loss, grads[:n]
+            g_sums = dict(zip(sums, grads[n:]))
+            g_parts = [mesh.broadcast(g_sums[d] if d in g_sums else torch.empty_like(p),
+                                      mesh.rank_of(d, 0), mesh.row_ranks(d)).to(p.device)
+                       for d, p in parts.items()]
+            more = torch.autograd.grad(list(parts.values()), leaves, g_parts, allow_unused=True)
+            return loss, [a if b is None else b if a is None else a + b
+                          for a, b in zip(grads[:n], more)]
 
         loss, grads = with_grad(leaves, run)
-        opt_state.update(leaves, reduce_copies(groups, list(grads)))
+        opt_state.update(leaves, reduce_copies(mesh, groups, list(grads)))
         return loss.detach()
 
     return step
@@ -949,13 +1121,26 @@ def make_train_step(model: ModelFns, mesh: Mesh, has_dense: bool, learning_rate:
 def unshard_params(sp: ShardedParams, device: torch.device | str = "cpu") -> dict:
     """The full params as one device reads them (the counterpart of
     ``np.asarray`` on the JAX package's sharded arrays): the row shards of
-    the table concatenated in shard order, every other leaf entry (0, 0)'s
-    copy; a copy on ``device`` (the host by default)."""
-    e0 = sp.entry(0, 0)
-    out = bridge.tree_map(lambda t: t.detach().to(device, copy=True), e0)
+    the table concatenated in shard order, every other leaf this process's
+    first entry's copy; a copy on ``device`` (the host by default). Across
+    processes every process calls it (each shard is broadcast from entry
+    (0, m)'s process) and every process gets the whole params; one of them
+    (rank 0) writes checkpoints and exports."""
+    mesh = sp.mesh
+    out = bridge.tree_map(lambda t: t.detach().to(device, copy=True), sp.first_entry())
     if sp.rows_per_shard is not None:
-        out["tables"] = torch.cat([sp.entry(0, m)["tables"].detach().to(device)
-                                   for m in range(sp.mesh.shape["model"])])
+        mine: dict = {}  # shard m -> this process's first copy of it
+        for row in sp.entries:
+            for m, e in enumerate(row):
+                if e is not None:
+                    mine.setdefault(m, e["tables"])
+        like = next(iter(mine.values()))
+        parts = []
+        for m in range(mesh.shape["model"]):
+            part = mesh.broadcast(mine[m] if m in mine else torch.empty_like(like),
+                                  mesh.rank_of(0, m), mesh.all_ranks)
+            parts.append(part.detach().to(device))
+        out["tables"] = torch.cat(parts)
     return out
 
 

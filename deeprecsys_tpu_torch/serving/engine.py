@@ -228,6 +228,7 @@ class ComputeEngine(threading.Thread):
         # On a mesh the engine's device is its first entry (JAX engine.py:785).
         self.mesh = mesh
         if mesh is not None:
+            mesh.require_one_process("ComputeEngine(mesh=)")
             device = mesh.devices.flat[0]
             for dev in mesh.distinct_devices:
                 resolve_device(str(dev))

@@ -23,7 +23,10 @@ differentiates through the row-sharded lookup (K1's and K1b's ownership
 windows, ``parallel/sharding.py::make_mesh_dense_step``) and K10 updates
 the distinct tensors of each device; the sparse mode is
 ``make_sharded_sparse_table_step`` (K1's window, then K5's window on each
-row shard). ``dedup=True`` (``dedup_touched_rows``: a sort and a segment
+row shard). A mesh may span processes (``parallel.distributed_init``):
+every process runs the same steps on the same batches, and the combines
+are collectives over ``torch.distributed``. ``dedup=True``
+(``dedup_touched_rows``: a sort and a segment
 sum in torch ops, then K5 over the unique rows) merges a row's repeated
 gradients before the update, on one device and on a mesh; it stays off by
 default (ROADMAP.md Queue 2 item 5 holds its measurement on the card).
@@ -55,9 +58,9 @@ from deeprecsys_tpu_torch.ops import embedding_bag, sparse_adagrad_step, sparse_
 from deeprecsys_tpu_torch.ops.embedding import quantize_pertable_int8, quantize_rowwise_int8
 from deeprecsys_tpu_torch.ops.optimizer import Optimizer
 from deeprecsys_tpu_torch.parallel.sharding import (
-    MeshOptimizer, Replicated, Sharded, ShardedParams, leaf_copies, loss_fn_for,
-    make_mesh_dense_step, mesh_loss, pooled_on_row, reduce_copies, shard_params, sharded_apply,
-    split_batch, split_targets, unshard_params, with_grad)
+    MeshOptimizer, Replicated, Sharded, ShardedParams, all_gather_slices, leaf_copies,
+    leaf_groups, loss_fn_for, make_mesh_dense_step, mesh_loss, pooled_on_row, reduce_copies,
+    shard_params, sharded_apply, split_batch, split_targets, unshard_params, with_grad)
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 from deeprecsys_tpu_torch.utils.metrics_ml import auc
 
@@ -178,6 +181,14 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer, learning
     return step
 
 
+def touched_rows(offsets: torch.Tensor, indices: torch.Tensor, row_lo: int,
+                 rows: int) -> torch.Tensor:
+    """The local rows of the shard ``[row_lo, row_lo + rows)`` that a
+    stream's ids touch (repeats kept)."""
+    local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
+    return local[(local >= 0) & (local < rows)]
+
+
 def update_shard_copies(tables: list, accs: list, offsets: torch.Tensor, indices: torch.Tensor,
                         g: torch.Tensor, row_lo: int, learning_rate: float, eps: float = 1e-8):
     """One row shard's sparse step over all of its copies: K5's window
@@ -194,13 +205,41 @@ def update_shard_copies(tables: list, accs: list, offsets: torch.Tensor, indices
     sparse_adagrad_step_shard(table, acc, offsets, indices, g, row_lo, learning_rate, eps)
     if len(tables) == 1:
         return
-    local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
-    rows = local[(local >= 0) & (local < table.shape[0])]
-    t_rows, a_rows = table.index_select(0, rows), acc.index_select(0, rows)
-    for t, a in zip(tables[1:], accs[1:]):
+    rows = touched_rows(offsets, indices, row_lo, table.shape[0])
+    _set_rows(tables[1:], accs[1:], rows, table.index_select(0, rows), acc.index_select(0, rows))
+
+
+def _set_rows(tables: list, accs: list, rows, t_rows, a_rows):
+    """``rows`` of each copy of a shard and its accumulator set to
+    ``t_rows`` and ``a_rows``."""
+    for t, a in zip(tables, accs):
         r = rows.to(t.device)
         t.index_copy_(0, r, t_rows.to(t.device))
         a.index_copy_(0, r, a_rows.to(a.device))
+
+
+def _send_shard_rows(mesh, m: int, tables: list, accs: list, offsets: torch.Tensor,
+                     indices: torch.Tensor, row_lo: int):
+    """Shard m's copies on the other processes of column m made equal to
+    its first copy (entry (0, m)) after its update: the rows the batch's
+    ids touch, of the table and of the accumulator, broadcast from entry
+    (0, m)'s process inside column m's group and copied into this process's
+    copies. ``tables``/``accs``: this process's distinct copies of shard m;
+    ``offsets``/``indices``: the whole batch's (every process has them)."""
+    ranks = mesh.col_ranks(m)
+    if len(ranks) == 1:
+        return
+    table, acc, src = tables[0], accs[0], mesh.rank_of(0, m)
+    rows = touched_rows(offsets.to(table.device), indices.to(table.device), row_lo,
+                        table.shape[0])
+    if mesh.rank == src:
+        t_rows, a_rows = table.index_select(0, rows), acc.index_select(0, rows)
+    else:
+        t_rows = torch.empty((len(rows), table.shape[1]), dtype=table.dtype, device=table.device)
+        a_rows = torch.empty((len(rows),), dtype=acc.dtype, device=acc.device)
+    t_rows, a_rows = mesh.broadcast(t_rows, src, ranks), mesh.broadcast(a_rows, src, ranks)
+    if mesh.rank != src:
+        _set_rows(tables, accs, rows, t_rows, a_rows)
 
 
 def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
@@ -228,6 +267,12 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
     one card the copies are one tensor. ``dedup``: the concatenated
     stream's rows merged first (``dedup_touched_rows``, once a device),
     then the window over the unique rows.
+
+    Across processes every process takes the same batch: the pooled
+    gradients go from each entry (d, 0)'s process to every process
+    (``all_gather_slices``), entry (0, m)'s process runs shard m's window,
+    and its touched rows go to the copies on the column's other processes
+    (``_send_shard_rows``).
     """
     M = mesh.shape["model"]
     if cfg.total_rows % M:
@@ -243,30 +288,43 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
         with torch.no_grad():  # the single-device step's lookup reads no mask either
             pooled = [pooled_on_row(sp, d, sl._replace(mask=None), cfg, offsets)
                       for d, sl in enumerate(slices)]
-        groups = leaf_copies(sp, skip=("tables",))
-        leaves = [t for copies in groups for t in copies]
+        owned = [p for p in pooled if p is not None]
+        groups = leaf_groups(sp, skip=("tables",))
+        leaves = [t for _, copies in groups for t in copies]
 
         def grads():
-            loss = mesh_loss(model, sp, slices, tsl, loss_fn, lambda d, sl: pooled[d])
-            return loss, torch.autograd.grad(loss, leaves + pooled, allow_unused=True)
+            share, loss = mesh_loss(model, sp, slices, tsl, loss_fn, lambda d, sl: pooled[d])
+            if share is None:
+                return loss, (None,) * (len(leaves) + len(owned))
+            return loss, torch.autograd.grad(share, leaves + owned, allow_unused=True)
 
-        loss, g = with_grad(leaves + pooled, grads)
-        tx_state.update(leaves, reduce_copies(groups, list(g[:len(leaves)])))
-        g_pooled = g[len(leaves):]
+        loss, g = with_grad(leaves + owned, grads)
+        tx_state.update(leaves, reduce_copies(mesh, groups, list(g[:len(leaves)])))
+        g_owned = iter(g[len(leaves):])
+        g_pooled = all_gather_slices(mesh, [None if p is None else next(g_owned)
+                                            for p in pooled],
+                                     (*slices[0].indices.shape[:2], cfg.sparse_feature_size),
+                                     compute_dtype_of(cfg))
+        all_ids = torch.cat([sl.indices for sl in slices]) if mesh.multi_process else None
         streams: dict = {}
         for m in range(M):
             tables, accs = [], []
             for d in range(mesh.shape["data"]):
-                shard = sp.entry(d, m)["tables"]
-                if not any(t is shard for t in tables):
-                    tables.append(shard)
+                shard = sp.entry(d, m)
+                if shard is not None and not any(t is shard["tables"] for t in tables):
+                    tables.append(shard["tables"])
                     accs.append(acc.part(d, m))
-            dev = tables[0].device
-            if dev not in streams:  # every slice's ids and gradients, in data-row order
-                stream = (offsets.on(dev), torch.cat([sl.indices.to(dev) for sl in slices]),
-                          torch.cat([gp.to(dev) for gp in g_pooled]))
-                streams[dev] = _dedup_stream(*stream) if dedup else stream
-            update_shard_copies(tables, accs, *streams[dev], m * rps, table_learning_rate, eps)
+            if mesh.is_local(0, m):
+                dev = tables[0].device
+                if dev not in streams:  # every slice's ids and gradients, in data-row order
+                    stream = (offsets.on(dev), torch.cat([sl.indices.to(dev) for sl in slices]),
+                              torch.cat([gp.to(dev) for gp in g_pooled]))
+                    streams[dev] = _dedup_stream(*stream) if dedup else stream
+                update_shard_copies(tables, accs, *streams[dev], m * rps, table_learning_rate,
+                                    eps)
+            if all_ids is not None and tables:
+                _send_shard_rows(mesh, m, tables, accs, offsets.on(tables[0].device), all_ids,
+                                 m * rps)
         return loss.detach()
 
     return step
@@ -283,13 +341,16 @@ class Trainer:
 
     With ``mesh`` (``parallel.make_mesh``) the params are ``shard_params``
     of the init (made on the mesh's first device) or of ``params``, a
-    ``ShardedParams``; ``device`` is the mesh's first device. Dense mode
+    ``ShardedParams``; ``device`` is the mesh's first device (``mesh.home``:
+    this process's, on a mesh across processes, where every process builds
+    the trainer from the same params and steps on the same batches). Dense mode
     trains by ``make_mesh_dense_step`` (the optimizer state a distinct
     tensor, so the table's is row-sharded with it), sparse mode by
     ``make_sharded_sparse_table_step`` with a row-sharded accumulator.
     ``evaluate`` runs ``sharded_apply``; ``full_params()`` is
     ``unshard_params``' full tensors, what checkpoints and
-    ``export_serving_params`` write.
+    ``export_serving_params`` write (across processes every process calls
+    it; rank 0 writes).
     """
 
     def __init__(
@@ -323,10 +384,11 @@ class Trainer:
         if mesh is None:
             self.device = resolve_device(str(device or "cuda"))
         else:
-            self.device = mesh.devices.flat[0]
+            self.device = mesh.home
             want = resolve_device(str(device)) if device is not None else self.device
             if want.type != self.device.type or want.index not in (None, self.device.index):
-                raise ValueError(f"device {device} is not the mesh's first device {self.device}")
+                raise ValueError(f"device {device} is not the mesh's first device {self.device} "
+                                 "(this process's)")
         self.sparse_tables = sparse_tables
         self.model = get_model(cfg, self.device)
         self.loss_fn = loss_fn_for(loss, sigmoid_output(cfg))

@@ -15,10 +15,18 @@ held to the single-device step: the loss rtol 1e-5, the table and the
 accumulator the JAX sharded-step test's limits (rtol 1e-4, atol 1e-6 and
 1e-7), every copy of a replicated leaf (and, dense, of a table shard) equal
 to the first.
+
+Across processes (four cards or more): two spawned processes of two cards
+each over ``nccl`` form one 1x4 mesh; the forward is held to the
+single-device forward, one sparse step to the single-process 1x4 mesh's
+(the loss rtol 1e-5, the whole table the JAX sharded-step limits).
 """
 
+import multiprocessing as mp
 import queue
+import socket
 import time
+import traceback
 
 import numpy as np
 import pytest
@@ -31,7 +39,8 @@ from deeprecsys_tpu_torch.models import get_model
 from deeprecsys_tpu_torch.models.base import Batch, table_offsets
 from deeprecsys_tpu_torch.models.hotcold import hot_ids_from_generator, make_hotcold_model
 from deeprecsys_tpu_torch.ops import embedding_bag_int8
-from deeprecsys_tpu_torch.parallel import make_mesh, shard_params, sharded_apply
+from deeprecsys_tpu_torch.parallel import (
+    distributed_init, make_mesh, shard_params, sharded_apply, unshard_params)
 from deeprecsys_tpu_torch.parallel import sharding
 from deeprecsys_tpu_torch.serving import engine, packets
 
@@ -212,3 +221,74 @@ def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
         acc0 = tr.opt_state[1].part(0, m).cpu()
         for d in range(1, D):
             assert torch.equal(tr.opt_state[1].part(d, m).cpu(), acc0)
+
+
+def _two_process_run(first: torch.device, mesh) -> dict:
+    """rm1's forward on a 64-row batch and one sparse adagrad step on the
+    same batch over ``mesh``, from the seed's params made on ``first``."""
+    cfg, model, params = _model(first)
+    batch = RecDataGenerator(cfg, seed=1).generate_batch(64)
+    scores = sharded_apply(model, mesh, has_dense=True)(shard_params(params, mesh), batch)
+    tr = train.Trainer(cfg, mesh=mesh, optimizer="adagrad", learning_rate=0.05,
+                       sparse_tables=True, table_learning_rate=0.01, params=params)
+    loss = float(tr.step(batch, tr._labels(batch, None)))
+    return {"scores": scores.cpu().numpy(), "loss": loss,
+            "table": unshard_params(tr.params)["tables"].numpy(),
+            "start": float(params["tables"].double().sum())}
+
+
+def _nccl_worker(rank: int, port: int, q):
+    """One of two processes, each with two cards (2 * rank, 2 * rank + 1)."""
+    import torch.distributed as dist
+
+    try:
+        cards = [torch.device("cuda", 2 * rank), torch.device("cuda", 2 * rank + 1)]
+        torch.cuda.set_device(cards[0])
+        distributed_init(f"127.0.0.1:{port}", num_processes=2, process_id=rank, backend="nccl")
+        mesh = make_mesh(1, 4, devices=cards)
+        q.put((rank, "ok", {"ranks": mesh.ranks.tolist(),
+                            **_two_process_run(cards[0], mesh)}))
+    except Exception:  # surfaced by the test
+        q.put((rank, "error", traceback.format_exc()[-3000:]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_two_processes_of_two_cards_over_nccl(cards):
+    """The 1x4 mesh over two processes (nccl): the forward within rtol
+    2e-4, atol 2e-5 of the single-device forward, one sparse step as the
+    single-process 1x4 mesh's."""
+    if len(cards) < 4:
+        pytest.skip("needs four CUDA cards: two processes of two")
+    want = _two_process_run(cards[0], make_mesh(1, 4, devices=cards[:4]))
+    cfg, model, params = _model(cards[0])
+    single = model.apply(params, RecDataGenerator(cfg, seed=1).generate_batch(64)
+                         .to(cards[0])).cpu().numpy()
+    del params
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_worker, args=(r, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, detail = q.get(timeout=600)
+            assert status == "ok", (rank, detail)
+            results[rank] = detail
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    for rank, got in sorted(results.items()):
+        assert got["ranks"] == [[0, 0, 1, 1]]
+        assert got["start"] == want["start"], rank  # the same seeded params
+        np.testing.assert_allclose(got["scores"], single, rtol=RTOL, atol=ATOL)
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        np.testing.assert_allclose(got["table"], want["table"], rtol=1e-4, atol=1e-6)

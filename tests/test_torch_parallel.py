@@ -106,8 +106,8 @@ def test_make_mesh_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA card"):
         make_mesh()
     distributed_init()  # one process: a no-op, as in JAX
-    with pytest.raises(NotImplementedError, match="12b"):
-        distributed_init("localhost:1234", num_processes=2, process_id=0)
+    with pytest.raises(RuntimeError, match="'nccl' needs CUDA cards"):
+        distributed_init("localhost:1234", num_processes=2, process_id=0, backend="nccl")
 
 
 def test_shard_params_shares_one_tensor_a_device_and_shard():
