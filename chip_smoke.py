@@ -142,6 +142,23 @@ launches counted in the kernels line, and the walls of ten forwards and
 steps by CUDA events in each child (two processes on one card, the
 collectives through the host: they show no scaling).
 
+Then the port's tools (phase 19, last), each run briefly from its
+``main(argv)`` (``deeprecsys_tpu_torch/tools/``) and read back from its
+record under ``chiprun_out/tools/``: ``cpu_mp_soak --accel`` (two cpu-mp
+engine processes over the blob arena and the offload engine on the card
+under sustained HTTP load, one arena exhaustion cycle: 0 errors, 503s at
+the wall and a recovered 200, 0 slots leaked, K1's launches the offload
+engine's executions); ``ragged_hotcold_soak`` (ragged predicts on an rm3
+hot/cold engine on the card whose refresh fires under a rotating zipf
+head: 0 errors, at least two refreshes, K6 launched and its plain version
+never called by the path); ``mesh_bench`` on 1x4 and 2x2 meshes of the
+card (rm1 full size; virtual shards, so labelled: K1's window D*M times a
+forward, the splitter's descriptor counters within the JAX test's law);
+``sim_revalidate`` (rm1 served on the card and simulated over its ladder
+at the JAX sim-validation point; the sim launches nothing); and
+``refresh_scan_cost`` (rm1's refresh scan on the host). The first launches
+of each kernel on these paths are held to their plain versions.
+
 Phases run in order and any failure raises, so the script exits non-zero
 and never prints the closing line. Without a CUDA card it exits non-zero
 at once. It imports no JAX and nothing of the JAX package: only
@@ -226,6 +243,11 @@ from deeprecsys_tpu_torch.serving.load_generator import model_batch_sizes
 from deeprecsys_tpu_torch.serving.packets import ERR_OK, ERR_PAYLOAD
 from deeprecsys_tpu_torch.utils.checkpoint import (
     checkpoint_params, load_model_params, save_params)
+from deeprecsys_tpu_torch.tools import cpu_mp_soak as tool_soak
+from deeprecsys_tpu_torch.tools import mesh_bench as tool_mesh
+from deeprecsys_tpu_torch.tools import ragged_hotcold_soak as tool_ragged
+from deeprecsys_tpu_torch.tools import refresh_scan_cost as tool_scan
+from deeprecsys_tpu_torch.tools import sim_revalidate as tool_sim
 from deeprecsys_tpu_torch.utils.devices import synchronize
 
 ROOT = Path(__file__).resolve().parent
@@ -473,6 +495,22 @@ DIST_STEPS = 2
 DIST_TIMED = 10
 DIST_WAIT_S = 420
 DIST_LABEL = "two processes on one card, collectives through the host over gloo: no scaling shown"
+# Phase 19, the port's tools on the card, each from its main(argv) and
+# read back from its record: the two soaks for TOOL_SOAK_MINUTES, sampled
+# every TOOL_SAMPLE_S (the cpu-mp soak's one exhaustion cycle at its first
+# sample; the ragged soak's head rotated every TOOL_PHASE_REQUESTS
+# requests), mesh_bench on each of TOOL_MESHES (rm1 at TABLE_SCALE),
+# sim_revalidate and refresh_scan_cost on rm1. Each records under
+# TOOLS_OUT; the first TOOL_CHECKED launches of each kernel on a path are
+# held to its plain version (the later ones run unchecked, so the times are
+# the tools' own).
+TOOL_SOAK_MINUTES = 0.75
+TOOL_SAMPLE_S = 15.0
+TOOL_PHASE_REQUESTS = 200
+TOOL_MIN_REFRESHES = 2
+TOOL_MESHES = ((1, 4), (2, 2))
+TOOL_CHECKED = 8
+TOOLS_OUT = ROOT / "chiprun_out" / "tools"
 
 
 def _log(msg: str):
@@ -5410,6 +5448,297 @@ def phase_dist(device, card: str) -> tuple[dict, dict]:
     return {"results": results, "want": want, "errs": errs}, launches
 
 
+# --------------------------------------------------- phase 19: the port's tools
+
+def _first_checked(check, n: int = TOOL_CHECKED):
+    """An ``after`` for ``_recorded`` that runs ``check`` on the first ``n``
+    calls (from any thread) and returns None for the later ones."""
+    seen, lock = [0], threading.Lock()
+
+    def after(args, kw, out):
+        with lock:
+            seen[0] += 1
+            if seen[0] > n:
+                return None
+        return check(args, kw, out)
+
+    return after
+
+
+def _worst(calls, what: str, kernel: str) -> float:
+    errs = [c[3] for c in calls if c[3] is not None]
+    if not errs:
+        raise AssertionError(f"{what}: no launch of {kernel} was held to its plain version")
+    return max(errs)
+
+
+def _k1_err(what: str):
+    """An ``after`` for ``embedding_bag``: K1's pooled output against
+    ``embedding_bag_reference`` on the same table and ids (on the calling
+    thread's stream), within ``pooled_tolerance``. Returns the max |err|."""
+    def check(args, kw, out):
+        table, offsets, indices = args[:3]
+        mask = kw.get("mask")
+        with torch.no_grad():
+            want = embedding_bag_reference(table, offsets, indices, mask=mask,
+                                           compute_dtype=kw.get("compute_dtype"))
+            return _check_pooled(out.detach(), want, table, offsets, indices, mask, what)
+
+    return check
+
+
+def _k6_err(what: str, reference):
+    """An ``after`` for ``embedding_bag_hotcold``: K6's output against its
+    plain version (``reference``, the unpatched one) on the same split,
+    within ``hotcold_tolerance``. Returns the max |err|."""
+    def check(args, kw, out):
+        hot, table, split = args[:3]
+        with torch.no_grad():
+            got = out.detach()
+            want = reference(hot, table, split, compute_dtype=kw.get("compute_dtype"))
+            err = (got.float() - want.float()).abs()
+            tol = hotcold_tolerance(got, want, hot, table, split)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"K6 disagrees with its plain version ({what}): max |err| "
+                                 f"{err.max().item():.3e}, {int((err > tol).sum())} over")
+        return err.max().item()
+
+    return check
+
+
+@contextlib.contextmanager
+def _plain_calls(module, name: str):
+    """Calls of the plain version ``module.<name>`` made inside the block,
+    counted (a list of one count)."""
+    orig, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _tool(tool, name: str, argv: list) -> tuple[dict, dict]:
+    """``tool.main(argv)`` with its record at TOOLS_OUT/phase19_<name>.json
+    and the launch counts set to 0 just before and read just after."""
+    out = TOOLS_OUT / f"phase19_{name}.json"
+    _reset_counts()
+    rec = tool.main(argv + ["--out", str(out)])
+    counts = _counts()
+    if json.loads(out.read_text())["card"] != rec["card"]:
+        raise AssertionError(f"{name}: the record at {out} is not the run's")
+    return rec, counts
+
+
+def tool_cpu_mp_soak(device, card: str, errs: dict) -> tuple[dict, dict]:
+    """``cpu_mp_soak --accel`` for TOOL_SOAK_MINUTES: two cpu-mp engine
+    processes and the offload engine on ``device``, one exhaustion cycle.
+    0 errors, every cycle 503s then a recovered 200, 0 slots leaked (the
+    arena and /v1/healthz), both /v1/infer routes served, and K1's launches
+    here the offload engine's executions, the first TOOL_CHECKED held to
+    the plain version."""
+    what = "cpu_mp_soak --accel, the offload engine"
+    with _recorded(port_ops, "embedding_bag", after=_first_checked(_k1_err(what))) as k1:
+        rec, counts = _tool(tool_soak, "cpu_mp_soak", [
+            "--accel", "--minutes", str(TOOL_SOAK_MINUTES), "--sample-s", str(TOOL_SAMPLE_S),
+            "--first-exhaustion-s", str(TOOL_SAMPLE_S), "--device", str(device)])
+    errs["embedding_bag"] = _worst(k1, what, "K1")
+    cycles = rec["exhaustion_cycles"]
+    if (rec["n_errors"] or not cycles
+            or not all(c["n_503"] >= 1 and c["recovered_200"] for c in cycles)
+            or rec["slots_leaked_at_quiesce"] != 0
+            or rec["payload_slots_in_flight_at_quiesce"] != 0
+            or rec["infer_accel_ok"] == 0 or rec["infer_child_ok"] == 0
+            or rec["predict_ok"] == 0):
+        summary = {k: v for k, v in rec.items() if k != "samples"}
+        raise AssertionError(f"cpu_mp_soak: {json.dumps(summary)}")
+    if counts != _want(embedding_bag=rec["accel_executions"]):
+        raise AssertionError(f"cpu_mp_soak: launches {_nonzero(counts)} for the offload "
+                             f"engine's {rec['accel_executions']} executions")
+    last = rec["samples"][-1]
+    _log(f"[19 tools] cpu_mp_soak --accel ({rec['model']}, 2 engine processes + the offload "
+         f"engine on {device}, {rec['clients']} clients, {rec['minutes']} min): "
+         f"{rec['predict_ok']} predicts, {rec['infer_accel_ok']} offloaded and "
+         f"{rec['infer_child_ok']} child /v1/infer, {rec['n_errors']} errors, "
+         f"{rec['client_503s']} client 503s; exhaustion cycles "
+         + "; ".join(f"{c['slots_staged']} slots staged, {c['n_503']} 503s, recovered "
+                     f"{c['recovered_200']}" for c in cycles)
+         + f"; {rec['slots_leaked_at_quiesce']} slots leaked; RSS first/second half "
+         f"{rec['rss_first_half_mb']:.1f}/{rec['rss_second_half_mb']:.1f} MB; predict p50/p95 "
+         f"{last['p50_ms']:.3f}/{last['p95_ms']:.3f} ms; K1 {counts['embedding_bag']} launches = "
+         f"the offload engine's executions, the first {TOOL_CHECKED} max |err| "
+         f"{errs['embedding_bag']:.3e} [{card}]")
+    return rec, counts
+
+
+def tool_ragged_hotcold_soak(device, card: str, errs: dict) -> tuple[dict, dict]:
+    """``ragged_hotcold_soak`` for TOOL_SOAK_MINUTES on ``device`` (rm3,
+    table_scale 100, hot/cold): 0 errors, at least TOOL_MIN_REFRESHES
+    refreshes, K6 launched and its plain version never called by the path,
+    the first TOOL_CHECKED launches held to it, a clean shutdown."""
+    what = "ragged_hotcold_soak, rm3 hot/cold"
+    reference = emb_mod.embedding_bag_hotcold_reference
+    with _plain_calls(emb_mod, "embedding_bag_hotcold_reference") as plain, \
+            _recorded(port_ops, "embedding_bag_hotcold",
+                      after=_first_checked(_k6_err(what, reference))) as k6:
+        rec, counts = _tool(tool_ragged, "ragged_hotcold_soak", [
+            "--minutes", str(TOOL_SOAK_MINUTES), "--sample-s", str(TOOL_SAMPLE_S),
+            "--phase-requests", str(TOOL_PHASE_REQUESTS), "--device", str(device)])
+    errs["embedding_bag_hotcold"] = _worst(k6, what, "K6")
+    if (rec["errors"] or rec["requests_ok"] == 0 or rec["hot_refreshes"] < TOOL_MIN_REFRESHES
+            or not rec["clean_shutdown"] or counts["embedding_bag_hotcold"] == 0 or plain[0]):
+        raise AssertionError(f"ragged_hotcold_soak: {rec['requests_ok']} ok, {rec['errors']} "
+                             f"errors, {rec['hot_refreshes']} refreshes, clean shutdown "
+                             f"{rec['clean_shutdown']}, launches {_nonzero(counts)}, plain "
+                             f"version called {plain[0]} times")
+    _log(f"[19 tools] ragged_hotcold_soak (rm3 table_scale {rec['table_scale']}, hot/cold, "
+         f"{rec['clients']} clients, batch {rec['batch']}, head rotated every "
+         f"{rec['phase_requests']} requests, {rec['minutes']} min, on {device}): "
+         f"{rec['requests_ok']} ragged predicts, {rec['errors']} errors, {rec['hot_refreshes']} "
+         f"refreshes, p50/p95 {rec['p50_ms']:.3f}/{rec['p95_ms']:.3f} ms, max RSS "
+         f"{rec['rss_start_mb']:.0f} -> {rec['rss_end_mb']:.0f} MB, clean shutdown; launches "
+         f"{_nonzero(counts)}, the plain K6 never called; the first {TOOL_CHECKED} K6 max |err| "
+         f"{errs['embedding_bag_hotcold']:.3e} [{card}]")
+    return rec, counts
+
+
+def tool_mesh_bench(device, card: str, errs: dict) -> tuple[dict, dict]:
+    """``mesh_bench`` on each of TOOL_MESHES for rm1 at table_scale 1: the
+    record virtual on one card, samples/s > 0, K1's window D*M times a
+    forward (the first TOOL_CHECKED held to its plain version), and the
+    descriptor counters within the JAX test's law."""
+    launches, out = _want(), {}
+    for D, M in TOOL_MESHES:
+        what = f"mesh_bench rm1 {D}x{M}"
+        with _recorded(port_ops, "embedding_bag_shard",
+                       after=_first_checked(_k1_window_err(what))) as k1:
+            rec, counts = _tool(tool_mesh, f"mesh_bench_{D}x{M}", [
+                "--mesh", f"{D}x{M}", "--models", "rm1", "--table-scale", str(TABLE_SCALE),
+                "--device", str(device)])
+        _merge(errs, "embedding_bag_shard", _worst(k1, what, "K1's window"))
+        r = rec["results"]["rm1"]
+        one_card = device.type == "cuda" and torch.cuda.device_count() < D * M
+        if (rec["virtual"] != (one_card or device.type == "cpu") or not r["samples_per_s"] > 0
+                or (one_card and "virtual shards of one card" not in rec["label"])):
+            raise AssertionError(f"{what}: virtual {rec['virtual']} ({rec['label']}), "
+                                 f"{r['samples_per_s']} samples/s")
+        _mesh_launch_check(counts, _want(embedding_bag_shard=D * M * r["forwards"]), what)
+        for key, v in rec["descriptor_counters"]["rm1"].items():
+            d, m = (int(x) for x in key.split("x"))
+            flat = [x for row in v["per_chip_descriptors"] for x in row]
+            if (v["max_chip_descriptors"] > max(v["ideal_per_chip"] * 1.5, 8)
+                    or sum(flat) != v["n_cold_total"] or len(flat) != d * m):
+                raise AssertionError(f"{what}: splitter {key} {v}")
+        _add(launches, counts)
+        out[f"{D}x{M}"] = rec
+        _log(f"[19 tools] {what} ({rec['label']}), bf16 batch {rec['batch']}: "
+             f"{r['latency_ms']:.4f} ms a forward (loops of {(r['forwards'] - 1) // 2}: "
+             + ", ".join(f"{t:.4f}" for t in r["trials_ms"])
+             + f"), {r['samples_per_s']:.1f} samples/s, first call {r['first_call_s']:.2f} s; "
+             f"launches {_nonzero(counts)}; splitter max / ideal descriptors a shard "
+             + ", ".join(f"{k} {v['max_chip_descriptors']} / {v['ideal_per_chip']:.1f}"
+                         for k, v in rec["descriptor_counters"]["rm1"].items())
+             + f" [{card}]")
+    return out, launches
+
+
+@contextlib.contextmanager
+def _runs_of(module):
+    """Each ``module.run_serving`` call inside the block, with the launch
+    counts set to 0 just before it and read just after: a list of
+    ``(engine_backend, counts, result)``."""
+    orig, runs = module.run_serving, []
+
+    def run(model_cfg, serving_cfg, *args, **kwargs):
+        _reset_counts()
+        res = orig(model_cfg, serving_cfg, *args, **kwargs)
+        runs.append((serving_cfg.engine_backend, _counts(), res))
+        return res
+
+    module.run_serving = run
+    try:
+        yield runs
+    finally:
+        module.run_serving = orig
+
+
+def tool_sim_revalidate(device, card: str, errs: dict) -> tuple[dict, dict]:
+    """``sim_revalidate rm1``: the real half served on the card (K1 once an
+    execution, the first TOOL_CHECKED held to the plain version), the sim
+    half over the card's ladder launching no kernel; both p95s and the
+    relative error."""
+    what = "sim_revalidate rm1, the real half"
+    with _runs_of(tool_sim) as runs, \
+            _recorded(port_ops, "embedding_bag", after=_first_checked(_k1_err(what))) as k1:
+        rec, _ = _tool(tool_sim, "sim_revalidate", [
+            "rm1", "--table-scale", str(TABLE_SCALE), "--device", str(device)])
+    _merge(errs, "embedding_bag", _worst(k1, what, "K1"))
+    ((real_backend, real_counts, real), (sim_backend, sim_counts, _)) = runs
+    counts = _want()  # each half's, read around its own run
+    _add(counts, real_counts)
+    _add(counts, sim_counts)
+    want_backend = "gpu" if device.type == "cuda" else "cpu"
+    if (real_backend != want_backend or real_counts != _want(embedding_bag=real.executions)
+            or real.executions == 0 or sim_backend != "sim" or sim_counts != _want()):
+        raise AssertionError(f"sim_revalidate: real half {real_backend} launches "
+                             f"{_nonzero(real_counts)} for {real.executions} executions; sim "
+                             f"half {sim_backend} launches {_nonzero(sim_counts)}")
+    r = rec["results"]["rm1"]
+    if not (np.isfinite(r["p95_rel_err"]) and r["sim"]["n"] == r["real"]["n"] > 0):
+        raise AssertionError(f"sim_revalidate: {r}")
+    _log(f"[19 tools] sim_revalidate rm1 (table_scale {r['table_scale']}, {r['dtype']}, the "
+         f"JAX sim-validation point: arrivals 60 ms apart, sizes ~N(165, 16), sub-batch 64), "
+         f"ladder measured on {r['ladder']['device']}, {r['ladder']['power_limit']}: real on "
+         f"{device} QPS {r['real']['qps']:.2f} p50/p95 {r['real']['p50_ms']:.3f}/"
+         f"{r['real']['p95_ms']:.3f} ms, sim QPS {r['sim']['qps']:.2f} p50/p95 "
+         f"{r['sim']['p50_ms']:.3f}/{r['sim']['p95_ms']:.3f} ms: p95 relative error "
+         f"{r['p95_rel_err']:+.4f}, p50 {r['p50_rel_err']:+.4f}; real launches "
+         f"{_nonzero(real_counts)} = {real.executions} executions, sim launches none [{card}]")
+    return rec, counts
+
+
+def tool_refresh_scan_cost(device, card: str) -> tuple[dict, dict]:
+    """``refresh_scan_cost --models rm1``: host numpy, no launch."""
+    rec, counts = _tool(tool_scan, "refresh_scan_cost", [
+        "--models", "rm1", "--table-scale", str(TABLE_SCALE), "--device", str(device)])
+    r = rec["results"]["rm1"]
+    if counts != _want() or not (r["uncapped_ms"] > 0 and r["capped_ms"] > 0):
+        raise AssertionError(f"refresh_scan_cost: {r}, launches {_nonzero(counts)}")
+    _log(f"[19 tools] refresh_scan_cost rm1 (window {r['window']} x {r['batch']}, "
+         f"{r['lookups_scanned_M']:.4f} M ids, hot set {r['hot_rows_k']} rows, budget "
+         f"{r['budget']}; host numpy): uncapped {r['uncapped_ms']:.1f} ms, capped "
+         f"{r['capped_ms']:.1f} ms; holdout coverage of the uncapped set "
+         f"{r['coverage_uncapped_set']:.4f}, of the capped set "
+         f"{r['coverage_capped_set_full_holdout']:.4f} [{card}]")
+    return rec, counts
+
+
+def phase_tools(device, card: str) -> tuple[dict, dict]:
+    """Phase 19: the port's tools on ``device``, each from its ``main(argv)``
+    and read back from its record, each path's launches read around it.
+    Returns the records (with ``errs``: each kernel's max |err| over its
+    checked launches) and the launches."""
+    t0 = time.perf_counter()
+    launches, errs, out = _want(), {}, {}
+    for name, fn in (("cpu_mp_soak", tool_cpu_mp_soak),
+                     ("ragged_hotcold_soak", tool_ragged_hotcold_soak),
+                     ("mesh_bench", tool_mesh_bench), ("sim_revalidate", tool_sim_revalidate)):
+        out[name], counts = fn(device, card, errs)
+        _add(launches, counts)
+        _free(device)
+    out["refresh_scan_cost"], counts = tool_refresh_scan_cost(device, card)
+    _add(launches, counts)
+    out["errs"] = errs
+    _log(f"[19 tools] launches {_nonzero(launches)}; records under {TOOLS_OUT}; phase 19 in "
+         f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5530,6 +5859,19 @@ def main() -> int:
     k3_err = max(k3_err, data["errs"]["rnn_scan"])
     trained["sparse_adagrad_step"]["max_abs_err"] = max(
         trained["sparse_adagrad_step"]["max_abs_err"], data["errs"]["sparse_adagrad_step"])
+
+    # Phase 19: the port's tools, each path read around itself.
+    tools, tool_launches = phase_tools(device, card["card"])
+    for key in ("embedding_bag", "embedding_bag_hotcold", "embedding_bag_shard"):
+        if tool_launches[key] == 0:
+            raise AssertionError(f"the tools' paths never launched {key}")
+    _add(launches, tool_launches)
+    kernel_errs["embedding_bag"] = max(kernel_errs["embedding_bag"],
+                                       tools["errs"]["embedding_bag"])
+    hotcold["errs"]["embedding_bag_hotcold"] = max(hotcold["errs"]["embedding_bag_hotcold"],
+                                                   tools["errs"]["embedding_bag_hotcold"])
+    mesh["errs"]["embedding_bag_shard"] = max(mesh["errs"]["embedding_bag_shard"],
+                                              tools["errs"]["embedding_bag_shard"])
 
     _log(f"[10 summary] per model, bf16, batch {BATCH}, full-size tables [{card['card']}]:")
     _log("[10 summary]   model: forward wall ms, device ms, idle, K1 us (% of 3.35 TB/s, "
@@ -5652,6 +5994,21 @@ def main() -> int:
          + "; ".join(f"{m} " + ", ".join(f"{r['train'][m]['wall_ms']:.4f}" for r in procs)
                      for m in procs[0]["train"])
          + f" [{card['card']}]")
+    soak, ragged, sim = tools["cpu_mp_soak"], tools["ragged_hotcold_soak"], tools["sim_revalidate"]
+    sv, scan = sim["results"]["rm1"], tools["refresh_scan_cost"]["results"]["rm1"]
+    _log(f"[10 summary] the tools: cpu_mp_soak --accel {soak['minutes']} min {soak['predict_ok']} "
+         f"predicts, {soak['n_errors']} errors, "
+         f"{sum(c['n_503'] for c in soak['exhaustion_cycles'])} 503s at the wall, "
+         f"{soak['slots_leaked_at_quiesce']} leaked, RSS {soak['rss_first_half_mb']:.1f}/"
+         f"{soak['rss_second_half_mb']:.1f} MB; ragged_hotcold_soak {ragged['requests_ok']} "
+         f"predicts, {ragged['errors']} errors, {ragged['hot_refreshes']} refreshes, p50/p95 "
+         f"{ragged['p50_ms']:.3f}/{ragged['p95_ms']:.3f} ms; mesh_bench rm1 ms a forward "
+         + ", ".join(f"{k} {v['results']['rm1']['latency_ms']:.4f}"
+                     for k, v in tools["mesh_bench"].items())
+         + f" (virtual shards of one card); sim_revalidate rm1 p95 real "
+         f"{sv['real']['p95_ms']:.3f} / sim {sv['sim']['p95_ms']:.3f} ms "
+         f"({sv['p95_rel_err']:+.4f}); refresh_scan_cost rm1 uncapped/capped "
+         f"{scan['uncapped_ms']:.1f}/{scan['capped_ms']:.1f} ms [{card['card']}]")
     _log(f"[10 summary] chip_smoke took {time.perf_counter() - t_start:.1f} s after start-up")
 
     print(card_line())

@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "deeprecsys_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"deeprecsys_tpu", "jax", "jaxlib"}
+FORBIDDEN = {"deeprecsys_tpu", "jax", "jaxlib", "tools"}  # tools: the JAX repo's tools/
 
 MODULES = [
     "deeprecsys_tpu_torch",
@@ -34,6 +34,13 @@ MODULES = [
     "deeprecsys_tpu_torch.experiments.k5_sweep",
     "deeprecsys_tpu_torch.experiments.k6_sweep",
     "deeprecsys_tpu_torch.experiments.sweep_build",
+    "deeprecsys_tpu_torch.tools",
+    "deeprecsys_tpu_torch.tools.common",
+    "deeprecsys_tpu_torch.tools.refresh_scan_cost",
+    "deeprecsys_tpu_torch.tools.sim_revalidate",
+    "deeprecsys_tpu_torch.tools.mesh_bench",
+    "deeprecsys_tpu_torch.tools.cpu_mp_soak",
+    "deeprecsys_tpu_torch.tools.ragged_hotcold_soak",
     "deeprecsys_tpu_torch.runtime",
     "deeprecsys_tpu_torch.runtime.native",
     "deeprecsys_tpu_torch.runtime.shm_queue",
