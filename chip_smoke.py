@@ -484,8 +484,10 @@ HOTCOLD_SHARD = {"none": "embedding_bag_hotcold_shard",
 # bf16 forward at BATCH on each shape of DIST_FWD_AXES (DIST_FWD_BATCHES
 # batches) and, in each int8 layout, on DIST_QUANT_AXES; the f32 dense and
 # sparse steps at TRAIN_BATCH on DIST_TRAIN_AXES (DIST_STEPS steps each),
-# then DIST_TIMED more of each, timed. The children report within
-# DIST_WAIT_S.
+# then DIST_TIMED more of each, timed. In each table layout, rm1 also runs
+# the paths of DIST_LAYOUT_PATHS at BATCH on phase 16's zipf(1.2) stream
+# (seed 31, the JAX hot-set rule): one checked forward, then DIST_TIMED
+# timed. The children report within DIST_WAIT_S.
 DIST_PROCS = 2
 DIST_FWD_AXES = ((2, 2), (1, 4))
 DIST_QUANT_AXES = (1, 4)
@@ -494,6 +496,9 @@ DIST_TRAIN_AXES = (1, 4)
 DIST_STEPS = 2
 DIST_TIMED = 10
 DIST_WAIT_S = 420
+DIST_LAYOUT_PATHS = (("table-wise", 1, 4), ("hot/cold tensor-parallel", 1, 4),
+                     ("hot/cold hybrid", 2, 2))
+DIST_KERNEL_ITERS = 20  # each route's kernel timed at its first cell's shapes
 DIST_LABEL = "two processes on one card, collectives through the host over gloo: no scaling shown"
 # Phase 19, the port's tools on the card, each from its main(argv) and
 # read back from its record: the two soaks for TOOL_SOAK_MINUTES, sampled
@@ -5264,6 +5269,112 @@ def _dist_train(device, cfg, mode: str, start: dict, hosts: list, errs: dict) ->
     return losses, wall, calls[0] / DIST_TIMED, counts
 
 
+def _direct_err(quant: str, what: str):
+    """An ``after`` for the direct kernel of ``quant``'s layout
+    (``LOOKUP[quant]``) on a table-wise shard: its pooled output against its
+    plain version on the same shard, offsets and ids (K1-int8 bit for bit,
+    K1 and K4 within their tolerances). Returns the max |err|."""
+    def check(args, kw, out):
+        cdt, mask = kw.get("compute_dtype"), kw.get("mask")
+        if quant == "int8":
+            tbl, scale, offs, idx = args[:4]
+            want = embedding_bag_int8_reference(tbl, scale, offs, idx, compute_dtype=cdt,
+                                                mask=mask)
+            if not torch.equal(out, want):
+                raise AssertionError(f"K1-int8 differs from its plain version ({what})")
+            return 0.0
+        tbl, offs, idx = args[:3]
+        plain = embedding_bag_reference if quant == "none" else embedding_bag_int8_rowwise_reference
+        return _check_pooled(out, plain(tbl, offs, idx, compute_dtype=cdt, mask=mask), tbl, offs,
+                             idx, mask, what, kernel=LOOKUP[quant],
+                             tolerance=pooled_tolerance if quant == "none" else rowwise_tolerance)
+
+    return check
+
+
+def _k6_shard_err(quant: str, what: str):
+    """An ``after`` for K6's shard mode of ``quant``'s layout
+    (``HOTCOLD_SHARD[quant]``): the partial against its plain version on the
+    same shard and split (the cold-only route's where ``hot`` is None), as
+    ``_check_partial`` holds it. Returns the max |err|."""
+    def check(args, kw, out):
+        hot, shard, split = args[:3]
+        want = _hotcold_partial(quant, hot, shard, split, plain=True)
+        return _check_partial(quant, out, want, shard,
+                              f"{what}: C_pad {split['cold_ids'].numel()}"
+                              + (", cold-only" if hot is None else ""),
+                              _hotcold_tol(quant, hot, split))
+
+    return check
+
+
+def _dist_layouts(device, cfg, errs: dict, launches: dict) -> dict:
+    """rm1 (``cfg``, bf16) in each table layout on DIST_LAYOUT_PATHS across
+    the processes, at BATCH on phase 16's zipf(1.2) stream with the JAX
+    hot-set rule: one forward of each path held to the single-device direct
+    forward (bf16_atol), every launch of the path's kernel in it (K1,
+    K1-int8 or K4 on a table-wise shard; K6's shard mode on a hot/cold
+    cell, shard 0 with the hits, the others cold-only) held to its plain
+    version at the call, its launches checked against this process's cells;
+    the kernel of each route (a table-wise cell; K6 with the hits, K6
+    cold-only) timed at its first cell's shapes in this child
+    (``measure``'s launch sum: while the other child runs too); then
+    DIST_TIMED forwards timed by CUDA events (the hot/cold host split
+    inside, as a caller runs it). Returns ``{"<path> <layout> DxM":
+    results}``."""
+    zipf = zipf_stream(cfg, BATCH, seed=31)
+    dense = np.random.default_rng(31).random((BATCH, cfg.dense_dim), dtype=np.float32)
+    host = Batch(dense=dense, indices=zipf)
+    batch = host.to(device)
+    tail = Batch(dense=batch.dense, indices=None)
+    hot_ids, _ = _hot_set(cfg, zipf)
+    out = {}
+    for quant in ("none",) + QUANT_MODES:
+        qcfg = cfg.replace(table_quant=quant)
+        model = get_model(qcfg, device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        want = model.apply(params, batch).float().cpu().numpy()
+        for path, D, M in DIST_LAYOUT_PATHS:
+            mesh = _dist_mesh(device, D, M)
+            if path == "table-wise":
+                tw = make_tablewise_model(model, mesh)
+                tw_params = tw.convert_params(params)
+                kernel, after = LOOKUP[quant], _direct_err
+                fn, args = tw.apply, (tw_params, batch)
+            else:
+                hc = make_hotcold_model(model, hot_ids, mesh=mesh)
+                hp = shard_params(hc.convert_params(params), mesh)
+                kernel, after = HOTCOLD_SHARD[quant], _k6_shard_err
+                fn, args = (lambda hc, hp: hc.apply(hp, tail, hc.prepare(host))), (hc, hp)
+            key = f"{path} {quant} {D}x{M}"
+            what = f"rm1 bf16 {key} across {DIST_PROCS} processes"
+            _reset_counts()
+            with _recorded(port_ops, kernel, after=after(quant, what)) as calls:
+                got = fn(*args)
+            synchronize(device)
+            counts = _counts()
+            _mesh_launch_check(counts, _want(**{kernel: D * M // DIST_PROCS}), what)
+            _add(launches, counts)
+            _merge(errs, kernel, _worst(calls, what, kernel))
+            worst = _check_close(got.float().cpu().numpy(), want, what)
+            kernel_ms = {}
+            for c_args, c_kw, _, _ in calls:
+                route = ("cell" if path == "table-wise"
+                         else "cold-only" if c_args[0] is None else "shard 0")
+                if route not in kernel_ms:
+                    wrapper = getattr(port_ops, kernel)
+                    kernel_ms[route] = measure(lambda: wrapper(*c_args, **c_kw), [()],
+                                               DIST_KERNEL_ITERS)["launch_sum_ms"]
+            with _collectives() as coll:
+                wall = wall_ms(fn, [args], DIST_TIMED)
+            out[key] = {"max_abs_err": worst, "wall_ms": wall, "kernel_ms": kernel_ms,
+                        "collectives": coll[0] / DIST_TIMED}
+            del args, fn, calls, got
+        del params, model, tw, tw_params, hc, hp
+        _free(device)
+    return out
+
+
 def dist_child(rank: int, port: int, device_name: str, table_scale: int, q):
     """One of DIST_PROCS processes of phase 18 (spawned): joins the group,
     runs rm1's forward (float, per-table int8, row-wise int8) and steps on
@@ -5280,7 +5391,8 @@ def dist_child(rank: int, port: int, device_name: str, table_scale: int, q):
         distributed_init(f"127.0.0.1:{port}", num_processes=DIST_PROCS, process_id=rank,
                          backend="gloo")
         errs = {"embedding_bag_shard": 0.0, "embedding_bag_backward_shard": 0.0,
-                "sparse_adagrad_step_shard": 0.0, **{SHARD[q]: 0.0 for q in QUANT_MODES}}
+                "sparse_adagrad_step_shard": 0.0, **{SHARD[q]: 0.0 for q in QUANT_MODES},
+                **{k: 0.0 for k in (*LOOKUP.values(), *HOTCOLD_SHARD.values())}}
         launches, out = _want(), {"fwd": {}, "train": {}}
         cfg = zoo.get_config("rm1", table_scale=table_scale, param_dtype="bfloat16",
                              compute_dtype="bfloat16")
@@ -5340,8 +5452,9 @@ def dist_child(rank: int, port: int, device_name: str, table_scale: int, q):
                                                   "collectives": calls[0] / DIST_TIMED}
                 del qparams, wants, sp, fn, outs, w8
                 _free(device)
-        del batches
-        _free(device)
+            del batches
+            _free(device)
+            out["paths"] = _dist_layouts(device, cfg, errs, launches)
         cfg = zoo.get_config("rm1", table_scale=table_scale)
         start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
         gen = RecDataGenerator(cfg, seed=1)
@@ -5364,14 +5477,19 @@ def phase_dist(device, card: str) -> tuple[dict, dict]:
     the card over gloo (NCCL refuses two ranks on one card), each with half
     of the entries: rm1 at full size through ``sharded_apply`` in bf16 on
     DIST_FWD_AXES, and with per-table and row-wise int8 tables on
-    DIST_QUANT_AXES, against the single-device forward (bf16_atol), and the
-    dense and sparse f32 steps on DIST_TRAIN_AXES, whose losses are held
-    here to the single-process mesh trainer's on the same weights and
-    batches (TRAIN_LOSS_RTOL). In the children every launch of K1's,
-    K1-int8's, K4's, K1b's and K5's windows is held to its plain version;
-    their launches are this phase's. The walls are CUDA-event times of DIST_TIMED calls in each
-    child: two processes on one card, collectives through the host over
-    gloo, so they show no scaling. Returns the results and the launches."""
+    DIST_QUANT_AXES, against the single-device forward (bf16_atol); the
+    table-wise, hot/cold tensor-parallel and hot/cold hybrid models
+    (DIST_LAYOUT_PATHS) in the three layouts on the zipf stream, against the
+    layout's single-device forward (bf16_atol); and the dense and sparse
+    f32 steps on DIST_TRAIN_AXES, whose losses are held here to the
+    single-process mesh trainer's on the same weights and batches
+    (TRAIN_LOSS_RTOL). In the children every launch of K1's, K1-int8's,
+    K4's, K1b's and K5's windows, of K1, K1-int8 and K4 on a table-wise
+    shard and of K6's shard modes is held to its plain version; their
+    launches are this phase's. The walls are CUDA-event times of DIST_TIMED
+    calls in each child: two processes on one card, collectives through the
+    host over gloo, so they show no scaling. Returns the results and the
+    launches."""
     t0 = time.perf_counter()
     cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE)
     start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
@@ -5432,6 +5550,17 @@ def phase_dist(device, card: str) -> tuple[dict, dict]:
              f"wall {by_process(lambda r: r['fwd'][key]['wall_ms'], '.4f')} ms a forward by "
              f"process, {by_process(lambda r: r['fwd'][key]['collectives'], '.1f')} collective "
              f"calls a forward ({DIST_LABEL}) [{card}]")
+    for key in results[0]["paths"]:
+        _log(f"[18 processes] rm1 bf16 batch {BATCH} on zipf(1.2) ids, {key} across "
+             f"{DIST_PROCS} processes: max |err| against the layout's single-device forward by "
+             f"process {by_process(lambda r: r['paths'][key]['max_abs_err'], '.3e')} (limit "
+             f"bf16_atol); wall {by_process(lambda r: r['paths'][key]['wall_ms'], '.4f')} ms a "
+             f"forward by process, {by_process(lambda r: r['paths'][key]['collectives'], '.1f')} "
+             f"collective calls a forward ({DIST_LABEL}); kernel us by process and route "
+             + "; ".join(f"{rank}: " + ", ".join(f"{route} {_us(ms)}" for route, ms in
+                                                 res["paths"][key]["kernel_ms"].items())
+                         for rank, res in sorted(results.items()))
+             + f" [{card}]")
     for mode in want:
         _log(f"[18 processes] rm1 {mode} f32 batch {TRAIN_BATCH} on "
              f"{DIST_TRAIN_AXES[0]}x{DIST_TRAIN_AXES[1]} across {DIST_PROCS} processes: losses "
@@ -5839,12 +5968,16 @@ def main() -> int:
     # Phase 18: a mesh across processes, read around itself in its children.
     dist_res, dist_launches = phase_dist(device, card["card"])
     for key in ("embedding_bag_shard", "embedding_bag_backward_shard",
-                "sparse_adagrad_step_shard", *(SHARD[q] for q in QUANT_MODES)):
+                "sparse_adagrad_step_shard", *(SHARD[q] for q in QUANT_MODES),
+                *LOOKUP.values(), *HOTCOLD_SHARD.values()):
         if dist_launches[key] == 0:
             raise AssertionError(f"the multi-process paths never launched {key}")
     _add(launches, dist_launches)
-    for key in ("embedding_bag_shard", *(SHARD[q] for q in QUANT_MODES)):
+    for key in ("embedding_bag_shard", *(SHARD[q] for q in QUANT_MODES),
+                *HOTCOLD_SHARD.values()):
         mesh["errs"][key] = max(mesh["errs"].get(key, 0.0), dist_res["errs"][key])
+    for key in LOOKUP.values():  # the direct kernels on the table-wise shards
+        kernel_errs[key] = max(kernel_errs[key], dist_res["errs"][key])
     for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard"):
         mesh_train["errs"][key] = max(mesh_train["errs"][key], dist_res["errs"][key])
     trained["sparse_adagrad_step"]["max_abs_err"] = max(
@@ -5990,6 +6123,9 @@ def main() -> int:
          f"ms by process: bf16 forward, batch {BATCH}: "
          + "; ".join(f"{k} " + ", ".join(f"{r['fwd'][k]['wall_ms']:.4f}" for r in procs)
                      for k in procs[0]["fwd"])
+         + f"; bf16 forward on zipf(1.2) ids, batch {BATCH}: "
+         + "; ".join(f"{k} " + ", ".join(f"{r['paths'][k]['wall_ms']:.4f}" for r in procs)
+                     for k in procs[0]["paths"])
          + f"; f32 step, batch {TRAIN_BATCH}, {DIST_TRAIN_AXES[0]}x{DIST_TRAIN_AXES[1]}: "
          + "; ".join(f"{m} " + ", ".join(f"{r['train'][m]['wall_ms']:.4f}" for r in procs)
                      for m in procs[0]["train"])

@@ -22,7 +22,11 @@ shard, row shard) cell (``split_hot_cold_hybrid`` otherwise), each shard
 runs K6 on its own cold stream with the hot hits counted on one shard, and
 one sum a data row combines (``parallel/sharding.py``). ``apply`` then takes
 ``shard_params(convert_params(params), mesh)``. The port keeps ``(R, d)``
-tables, so there is no packed cold table.
+tables, so there is no packed cold table. On a mesh across processes every
+process calls ``prepare`` and ``apply`` on the same host batch: the split
+is deterministic, so each makes it alike; each launches on its own shards,
+a row's partials are summed over the row's processes and the scores are
+gathered, so every process returns the whole batch's.
 """
 
 from __future__ import annotations
@@ -93,7 +97,6 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
         except RuntimeError:
             pass  # no native runtime: the splitter takes its numpy path
     if mesh is not None:
-        mesh.require_one_process("make_hotcold_model(mesh=)")
         n_data, n_shards = mesh.shape["data"], mesh.shape["model"]
         if cfg.total_rows % n_shards:
             raise ValueError(f"total rows {cfg.total_rows} must divide over model axis "
@@ -158,34 +161,36 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray, mesh=None,
     def _mesh_apply(sp, batch: Batch, split: dict, cdt) -> torch.Tensor:
         """The mesh lookup (tensor-parallel or hybrid) on ``sp``, a
         ``ShardedParams`` of the converted params, then the model's tail a
-        data slice on entry (d, 0); the scores on ``mesh.devices.flat[0]``."""
+        data slice on each of this process's entries (d, 0); the whole
+        batch's scores on ``mesh.home`` (across processes, on every one)."""
         from deeprecsys_tpu_torch.parallel.sharding import (
-            Sharded, _to, hybrid_hotcold_rows, sharded_embedding_bag_hotcold)
+            Sharded, _to, concat_slices, hybrid_hotcold_rows, sharded_hotcold_rows)
 
-        tables0 = sp.entry(0, 0)["tables"]
+        tables0 = sp.first_entry()["tables"]
         key = ("qrows" if isinstance(tables0, dict) and "qrows" in tables0
                else "q" if isinstance(tables0, dict) else None)
-        rows = Sharded(mesh, [[sp.entry(d, m)["tables"] if key is None
-                               else sp.entry(d, m)["tables"][key]
-                               for m in range(n_shards)] for d in range(n_data)])
+        rows = Sharded(mesh, [[None if e is None else e["tables"] if key is None
+                               else e["tables"][key] for e in row] for row in sp.entries])
         kw = {"compute_dtype": cdt, "rowwise": key == "qrows",
               "table_scale": tables0["scale"] if key == "q" else None}
 
         def hot(d, m):
             return sp.entry(d, m)["hot_table"]
 
-        if n_data == 1:
-            pooled = [sharded_embedding_bag_hotcold(hot, rows, split, mesh, **kw)]
-        else:
-            pooled = hybrid_hotcold_rows(hot, rows, split, mesh, **kw)
-        b = pooled[0].shape[0]
+        rows_of = sharded_hotcold_rows if n_data == 1 else hybrid_hotcold_rows
+        pooled = rows_of(hot, rows, split, mesh, **kw)
+        b = np.shape(split["hot_sel"])[0] // n_data
         scores = []
         for d, pooled_d in enumerate(pooled):
+            if pooled_d is None:
+                scores.append(None)
+                continue
             dev = mesh.device(d, 0)
-            dense = None if batch.dense is None else _to(batch.dense[d * b:(d + 1) * b], dev)
+            dense = None if batch.dense is None else _to(
+                torch.as_tensor(batch.dense)[d * b:(d + 1) * b], dev)
             scores.append(model.apply_from_pooled(sp.entry(d, 0), pooled_d,
                                                   Batch(dense=dense, indices=None)))
-        return torch.cat([_to(s, mesh.devices.flat[0]) for s in scores], dim=0)
+        return concat_slices(mesh, scores, (b, cfg.out_dim), cdt)
 
     return HotColdModel(base=model, hot_ids=hot_ids, convert_params=convert_params,
                         apply=apply, prepare=prepare)

@@ -5,11 +5,9 @@ lookups and ``sharded_apply`` (``sharding.py``, with the training losses,
 (``api.py``). The mesh trainers are ``train.py``'s ``Trainer(mesh=)`` and
 ``make_sharded_sparse_table_step``. ``distributed_init`` starts a
 ``torch.distributed`` process group, over which ``make_mesh`` builds a mesh
-of several processes' devices (the serving forward and the mesh trainers
-run there).
-
-Not ported yet over several processes (ROADMAP.md Queue 1 item 12c):
-hot/cold, table-wise sharding and the mesh engines raise there.
+of several processes' devices (the serving forward, the hot/cold and
+table-wise lookups and models, and the mesh trainers run there). The mesh
+engines serve from one process, as the JAX package's do: there they raise.
 """
 
 from deeprecsys_tpu_torch.parallel.mesh import Mesh, distributed_init, make_mesh

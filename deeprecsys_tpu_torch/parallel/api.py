@@ -6,7 +6,9 @@ tables: the fused table converts to the ``(M, rows_per_shard, W)``
 placement layout, shard s lives on column s of the mesh, lookups run
 through ``tablewise_rows`` (each shard pools only its own tables; a
 ``torch.cat`` combines), and the rest of the network runs from the pooled
-embeddings (``apply_from_pooled``), data-parallel over "data".
+embeddings (``apply_from_pooled``), data-parallel over "data". Across
+processes each process places and pools its own shards, a row's cells go to
+entry (d, 0)'s process, and the scores are gathered on every process.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from deeprecsys_tpu_torch.models.base import Batch, ModelFns, compute_dtype_of
 from deeprecsys_tpu_torch.parallel.mesh import Mesh
 from deeprecsys_tpu_torch.parallel.placement import TablePlacement, plan_tablewise_placement
 from deeprecsys_tpu_torch.parallel.sharding import (
-    Sharded, TablewisePlan, _to, build_tablewise_tables, split_batch, tablewise_rows)
+    Sharded, TablewisePlan, _to, build_tablewise_tables, concat_slices, split_batch,
+    tablewise_rows)
 
 
 class TablewiseModel(NamedTuple):
@@ -34,12 +37,14 @@ def make_tablewise_model(model: ModelFns, mesh: Mesh,
     ``convert_params`` takes float, per-table int8 (``{"q", "scale"}``) or
     row-wise int8 (``{"qrows"}``) tables and returns ``{"tables_tw":
     Sharded, "plan": TablewisePlan (with the per-table int8 scales), "rest":
-    [the other params on entry (d, 0) for each d]}``, so a forward moves
-    nothing but its batch; ``apply(tw_params, batch)`` returns the
-    scores on ``mesh.devices.flat[0]``: per-table int8 pools exactly in
-    int32 and scales by each original table's scale, row-wise int8 sums the
-    dequantized rows in f32, each cast once, as on one device."""
-    mesh.require_one_process("make_tablewise_model")
+    [the other params on entry (d, 0) for each d, None where another process
+    holds it]}``, so a forward moves nothing but its batch; ``apply(tw_params,
+    batch)`` returns the whole batch's scores on ``mesh.home``, on every
+    process (the same batch on every process): per-table int8 pools exactly
+    in int32 and scales by each original table's scale, row-wise int8 sums
+    the dequantized rows in f32, each cast once, as on one device. Across
+    processes each builds the ``(M, rows_per_shard, W)`` layout and places
+    its own shards."""
     cfg = model.cfg
     if placement is None:
         placement = plan_tablewise_placement(cfg, mesh.shape["model"])
@@ -52,7 +57,7 @@ def make_tablewise_model(model: ModelFns, mesh: Mesh,
             tables["q"] if quant == "int8" else tables)
         tw = Sharded.stacked(build_tablewise_tables(fused, cfg, placement), mesh)
         rest = [{k: _tree_to(v, mesh.device(d, 0)) for k, v in params.items() if k != "tables"}
-                for d in range(mesh.shape["data"])]
+                if mesh.is_local(d, 0) else None for d in range(mesh.shape["data"])]
         plan = TablewisePlan(placement, mesh, tables["scale"] if quant == "int8" else None)
         return {"tables_tw": tw, "plan": plan, "rest": rest}
 
@@ -61,13 +66,16 @@ def make_tablewise_model(model: ModelFns, mesh: Mesh,
                                 tw_params["plan"], compute_dtype=cdt,
                                 mask=None if batch.mask is None else torch.as_tensor(batch.mask),
                                 rowwise=quant == "int8_rowwise")
-        scores = []
-        for d, sl in enumerate(split_batch(batch, mesh)):
+        scores, slices = [], split_batch(batch, mesh)
+        for d, sl in enumerate(slices):
+            if pooled[d] is None:
+                scores.append(None)
+                continue
             dev = mesh.device(d, 0)
             tail = Batch(dense=None if sl.dense is None else _to(torch.as_tensor(sl.dense), dev),
                          indices=None, mask=None)
             scores.append(model.apply_from_pooled(tw_params["rest"][d], pooled[d], tail))
-        return torch.cat([_to(s, mesh.devices.flat[0]) for s in scores], dim=0)
+        return concat_slices(mesh, scores, (slices[0].indices.shape[0], cfg.out_dim), cdt)
 
     return TablewiseModel(placement=placement, convert_params=convert_params, apply=apply)
 

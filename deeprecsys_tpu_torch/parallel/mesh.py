@@ -116,11 +116,15 @@ class Mesh:
         return self.distinct_devices[0]
 
     def require_one_process(self, what: str):
-        """Raise for a path that runs on one process's mesh only."""
+        """Raise for a path that runs on one process's mesh only: the mesh
+        engines, which the JAX package also runs from one process."""
         if self.multi_process:
             raise NotImplementedError(
-                f"{what} on a mesh across processes is not ported yet (ROADMAP.md Queue 1 "
-                "item 12c); it runs on a mesh of one process")
+                f"{what} serves a mesh from one process: the JAX package's engine does the "
+                "same and has no engine over several processes (no leader that broadcasts "
+                "each execution's batch, no refresh across processes), so the port has none "
+                "(ROADMAP.md Queue 1 item 12c); the forward, the hot/cold and table-wise "
+                "models and the trainers run across processes")
 
     # -- collectives (only where ``ranks`` holds more than this process) --
 

@@ -23,7 +23,8 @@ explicit, from the calling thread:
   single-device lookup only in the order of its f32 sums.
 - the batch splits over "data" into D contiguous slices; slice d looks up on
   row d of the mesh and runs the model's ``apply_from_pooled`` on entry
-  (d, 0); the slices' scores are concatenated on ``mesh.devices.flat[0]``.
+  (d, 0); the slices' scores are concatenated on ``mesh.home``
+  (``concat_slices``).
 
 Each launch goes to the current stream of its entry's device. A partial
 moved between two devices is ordered by PyTorch's cross-device copy, which
@@ -62,8 +63,16 @@ processes; the concat over "data" sends each row's slice from entry (d,
 so that every process returns it; ``reduce_copies`` sums a leaf's copies
 over the processes that hold them; the dense step's row sum takes its
 backward as a broadcast of the row's pooled gradient (``row_partial``);
-``unshard_params`` gathers the shards. Hot/cold, table-wise and the mesh
-engines raise there (``Mesh.require_one_process``).
+``unshard_params`` gathers the shards. The hot/cold lookups take the
+same pattern: K6 on each local shard of a row (the hot hits where the
+process holds (d, 0)), the row's partials summed over its processes, the
+slices gathered; every process makes the split itself from the same host
+batch (the splitter is deterministic), so nothing is sent for it. A
+table-wise row's cells, each pooled by its own process, are sent to entry
+(d, 0)'s process (``_gather_row_cells``, the JAX ``all_gather`` over
+"model"), then the slices are gathered. The mesh engines
+(``ComputeEngine(mesh=)``) serve from one process, as the JAX package's
+do, and raise there (``Mesh.require_one_process``).
 """
 
 from __future__ import annotations
@@ -493,6 +502,13 @@ def all_gather_slices(mesh: Mesh, slices: list, shape: tuple, dtype: torch.dtype
             for d, s in enumerate(slices)]
 
 
+def concat_slices(mesh: Mesh, slices: list, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """The data slices (``all_gather_slices``' input) concatenated on
+    ``mesh.home``: the whole batch's result, on every process."""
+    return torch.cat([_to(s, mesh.home) for s in all_gather_slices(mesh, slices, shape, dtype)],
+                     dim=0)
+
+
 def sharded_embedding_bag(table, offsets: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
                           total_rows: int, *, compute_dtype: torch.dtype | None = None,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -517,8 +533,7 @@ def sharded_embedding_bag(table, offsets: torch.Tensor, indices: torch.Tensor, m
                                              cdt, "float"))
         out.append(None if acc is None else _finish(acc, "float", cdt))
     b, nt = indices.shape[0] // mesh.shape["data"], indices.shape[1]
-    out = all_gather_slices(mesh, out, (b, nt, rows.first().shape[1]), cdt)
-    return torch.cat([_to(o, mesh.home) for o in out], dim=0)
+    return concat_slices(mesh, out, (b, nt, rows.first().shape[1]), cdt)
 
 
 def pad_rows_for_mesh(cfg: ModelConfig, n_model: int) -> int:
@@ -595,9 +610,8 @@ def sharded_apply(model: ModelFns, mesh: Mesh, has_dense: bool) -> Callable:
             tail = Batch(dense=None if sl.dense is None else _to(torch.as_tensor(sl.dense), dev0),
                          indices=None, mask=None)
             scores.append(model.apply_from_pooled(sp.entry(d, 0), pooled, tail))
-        scores = all_gather_slices(mesh, scores, (slices[0].indices.shape[0], cfg.out_dim),
-                                   compute_dtype_of(cfg))
-        return torch.cat([_to(s, mesh.home) for s in scores], dim=0)
+        return concat_slices(mesh, scores, (slices[0].indices.shape[0], cfg.out_dim),
+                             compute_dtype_of(cfg))
 
     return fn
 
@@ -625,16 +639,21 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
 
 
-def _hotcold_row(mesh: Mesh, d: int, hot_of: Callable, shard_of: Callable, hot_sel, hot_mask,
-                 cold_local, cold_seg, layout: str, cdt, scale_on) -> torch.Tensor:
-    """One data row's hot/cold lookup: K6 a shard on its own cold stream,
-    the hot hits counted on shard 0 only (K6 with them) and every other
-    shard's cold stream pooled alone (K6's cold-only route, the JAX shard
-    body ``local_fn``); partials combined on entry (d, 0)."""
-    out_dev = mesh.device(d, 0)
+def _hotcold_row_partial(mesh: Mesh, d: int, hot_of: Callable, shard_of: Callable, hot_sel,
+                         hot_mask, cold_local, cold_seg, layout: str, cdt):
+    """This process's part of row d's hot/cold lookup: K6 on each of its
+    shards of the row, on that shard's own cold stream (the JAX shard body
+    ``local_fn``), the hot hits counted on shard 0 (K6 with them, where this
+    process holds entry (d, 0)) and every other shard's cold stream pooled
+    alone (K6's cold-only route); the partials added in shard order on the
+    row's first local entry. None where the process holds none of row d.
+    The per-table int8 partial is int32, the others f32."""
+    local = [m for m in range(mesh.shape["model"]) if mesh.is_local(d, m)]
+    if not local:
+        return None
     bags = tuple(hot_sel.shape[:2])
     partials = []
-    for m in range(mesh.shape["model"]):
+    for m in local:
         dev = mesh.device(d, m)
         split = {"cold_ids": _to(cold_local[m], dev), "cold_seg": _to(cold_seg[m], dev)}
         if m == 0:
@@ -643,7 +662,20 @@ def _hotcold_row(mesh: Mesh, d: int, hot_of: Callable, shard_of: Callable, hot_s
         else:
             partials.append(_hotcold_shard_partial(layout, None, shard_of(m),
                                                    dict(split, bags=bags), cdt))
-    return _finish(_combine(partials, out_dev), layout, cdt, scale_on(out_dev))
+    return _combine(partials, mesh.device(d, local[0]))
+
+
+def _hotcold_row(mesh: Mesh, d: int, hot_of: Callable, shard_of: Callable, hot_sel, hot_mask,
+                 cold_local, cold_seg, layout: str, cdt, scale) -> torch.Tensor | None:
+    """Row d's hot/cold lookup on entry (d, 0) (None in every other
+    process): this process's part (``_hotcold_row_partial``) summed over the
+    row's processes (``_row_sum``; an int32 pool stays exact), then
+    finished once (``scale``: per-table int8's, or None)."""
+    acc = _row_sum(mesh, d, _hotcold_row_partial(mesh, d, hot_of, shard_of, hot_sel, hot_mask,
+                                                 cold_local, cold_seg, layout, cdt))
+    if acc is None:
+        return None
+    return _finish(acc, layout, cdt, None if scale is None else _to(scale, acc.device))
 
 
 def _hot_rows(mesh: Mesh, hot_table) -> Callable:
@@ -665,6 +697,45 @@ def _no_pack(pack: int):
                                   "(bridge.params_from_numpy unpacks them)")
 
 
+def _hotcold_lookup(hot_table, table, split: dict, mesh: Mesh, hybrid: bool, compute_dtype,
+                    table_scale, rowwise: bool) -> tuple:
+    """``(slices, shape, dtype)``: the lookup's data slices, slice d on entry
+    (d, 0) and None where another process holds that entry (hybrid: one a
+    data row; tensor-parallel: the whole batch on row 0), and the shape and
+    dtype every slice has."""
+    rows = _rows_of(mesh, table)
+    hot = _hot_rows(mesh, hot_table)
+    layout = _quant_layout(table_scale, rowwise)
+    first = rows.first()
+    cdt = compute_dtype or (torch.float32 if layout != "float" else first.dtype)
+    width = first.shape[1] - (4 if rowwise else 0)  # a row-wise row ends in its f32 scale
+    hot_sel, hot_mask = _tensor(split["hot_sel"]), _tensor(split["hot_mask"])
+    cold_local, cold_seg = _tensor(split["cold_local"]), _tensor(split["cold_seg"])
+    B, T = hot_sel.shape[:2]
+    if not hybrid:
+        return [_hotcold_row(mesh, 0, lambda m: hot(0, m), lambda m: rows.part(0, m), hot_sel,
+                             hot_mask, cold_local, cold_seg, layout, cdt, table_scale)], \
+            (B, T, width), cdt
+    D = mesh.shape["data"]
+    if B % D:
+        raise ValueError(f"batch {B} does not divide over data axis {D}")
+    b = B // D
+    return [_hotcold_row(mesh, d, lambda m, d=d: hot(d, m), lambda m, d=d: rows.part(d, m),
+                         hot_sel[d * b:(d + 1) * b], hot_mask[d * b:(d + 1) * b], cold_local[d],
+                         cold_seg[d], layout, cdt, table_scale)
+            for d in range(D)], (b, T, width), cdt
+
+
+def sharded_hotcold_rows(hot_table, table, split: dict, mesh: Mesh, *,
+                         compute_dtype: torch.dtype | None = None, table_scale=None,
+                         rowwise: bool = False) -> list:
+    """``sharded_embedding_bag_hotcold``'s one row: ``[pooled]``, the whole
+    batch's lookup on entry (0, 0), or ``[None]`` in a process that does not
+    hold it."""
+    return _hotcold_lookup(hot_table, table, split, mesh, False, compute_dtype, table_scale,
+                           rowwise)[0]
+
+
 def sharded_embedding_bag_hotcold(hot_table, table, split: dict, mesh: Mesh, *,
                                   compute_dtype: torch.dtype | None = None, table_scale=None,
                                   rowwise: bool = False, pack: int = 1) -> torch.Tensor:
@@ -676,43 +747,25 @@ def sharded_embedding_bag_hotcold(hot_table, table, split: dict, mesh: Mesh, *,
     the partials are summed and finished (``table_scale``: per-table int8,
     ``rowwise``: row-wise int8). ``table``: the fused table (or its 2-D int8
     leaf), sharded here, or its ``Sharded`` rows; ``hot_table`` a tensor or
-    ``(d, m) -> entry (d, m)'s copy``. Returns ``(B, T, d)`` on
-    ``mesh.devices.flat[0]``."""
-    mesh.require_one_process("sharded_embedding_bag_hotcold")
+    ``(d, m) -> entry (d, m)'s copy``. Across processes every process makes
+    the same split from the same host batch and launches on its own shards
+    of row 0; the row's sum crosses the row's processes (an all-reduce of
+    the partials) and the result is sent from entry (0, 0)'s process to
+    every process. Returns ``(B, T, d)`` on ``mesh.home``."""
     _no_pack(pack)
-    rows = _rows_of(mesh, table)
-    hot = _hot_rows(mesh, hot_table)
-    layout = _quant_layout(table_scale, rowwise)
-    cdt = compute_dtype or (torch.float32 if layout != "float" else rows.part(0, 0).dtype)
-    cold_local, cold_seg = _tensor(split["cold_local"]), _tensor(split["cold_seg"])
-    return _hotcold_row(mesh, 0, lambda m: hot(0, m), lambda m: rows.part(0, m),
-                        _tensor(split["hot_sel"]), _tensor(split["hot_mask"]), cold_local,
-                        cold_seg, layout, cdt, lambda dev: _to(table_scale, dev)
-                        if table_scale is not None else None)
+    return concat_slices(mesh, *_hotcold_lookup(hot_table, table, split, mesh, False,
+                                                compute_dtype, table_scale, rowwise))
 
 
 def hybrid_hotcold_rows(hot_table, table, split: dict, mesh: Mesh, *,
                         compute_dtype: torch.dtype | None = None, table_scale=None,
                         rowwise: bool = False) -> list:
     """``hybrid_embedding_bag_hotcold``'s data slices: slice d's pooled
-    lookup on entry (d, 0), for each d."""
-    mesh.require_one_process("hybrid_embedding_bag_hotcold")
-    rows = _rows_of(mesh, table)
-    hot = _hot_rows(mesh, hot_table)
-    layout = _quant_layout(table_scale, rowwise)
-    cdt = compute_dtype or (torch.float32 if layout != "float" else rows.part(0, 0).dtype)
-    hot_sel, hot_mask = _tensor(split["hot_sel"]), _tensor(split["hot_mask"])
-    cold_local, cold_seg = _tensor(split["cold_local"]), _tensor(split["cold_seg"])
-    D = mesh.shape["data"]
-    B = hot_sel.shape[0]
-    if B % D:
-        raise ValueError(f"batch {B} does not divide over data axis {D}")
-    b = B // D
-    return [_hotcold_row(mesh, d, lambda m, d=d: hot(d, m), lambda m, d=d: rows.part(d, m),
-                         hot_sel[d * b:(d + 1) * b], hot_mask[d * b:(d + 1) * b], cold_local[d],
-                         cold_seg[d], layout, cdt,
-                         lambda dev: _to(table_scale, dev) if table_scale is not None else None)
-            for d in range(D)]
+    lookup on entry (d, 0), for each d; None for a slice whose entry (d, 0)
+    another process holds. Across processes each row's partials are summed
+    over the row's processes (``_hotcold_row``)."""
+    return _hotcold_lookup(hot_table, table, split, mesh, True, compute_dtype, table_scale,
+                           rowwise)[0]
 
 
 def hybrid_embedding_bag_hotcold(hot_table, table, split: dict, mesh: Mesh, *,
@@ -724,11 +777,12 @@ def hybrid_embedding_bag_hotcold(hot_table, table, split: dict, mesh: Mesh, *,
     data slice, ``b_loc * T + t``, pads ``b_loc * T``). Data slice d runs K6
     a shard on cell (d, m)'s stream with ``n_bags = b_loc * T`` and its
     slice of the hot hits on shard 0; each row's partials are combined on
-    entry (d, 0). Returns ``(B, T, d)`` on ``mesh.devices.flat[0]``."""
+    entry (d, 0) (across processes: summed over the row's processes). The
+    slices are concatenated on ``mesh.home`` (across processes each is sent
+    from entry (d, 0)'s process to every process): ``(B, T, d)``."""
     _no_pack(pack)
-    out = hybrid_hotcold_rows(hot_table, table, split, mesh, compute_dtype=compute_dtype,
-                              table_scale=table_scale, rowwise=rowwise)
-    return torch.cat([_to(o, mesh.devices.flat[0]) for o in out], dim=0)
+    return concat_slices(mesh, *_hotcold_lookup(hot_table, table, split, mesh, True,
+                                                compute_dtype, table_scale, rowwise))
 
 
 # ----------------------------------------------------------------------
@@ -758,15 +812,15 @@ def build_tablewise_tables(fused_table: torch.Tensor, cfg: ModelConfig,
 class TablewisePlan:
     """What a table-wise lookup reads besides the ids, built once a
     (placement, mesh, scales): the table permutation (on the host and each
-    mesh device), each shard's table offsets within it and, for per-table
-    int8, its placed tables' scales, on the devices of that shard's column,
-    and the inverse permutation on every device. A virtual pad slot's offset
-    is 0: it reads the shard's row 0 (JAX ``sharding.py:348-357``); its
-    planned offset, the sum of its shard's real rows, may equal the shard's
-    row count. ``table_scale``: the ``(T,)`` scales of per-table int8."""
+    of this process's devices), each shard's table offsets within it and,
+    for per-table int8, its placed tables' scales, on this process's devices
+    of that shard's column, and the inverse permutation on each of this
+    process's devices. A virtual pad slot's offset is 0: it reads the
+    shard's row 0 (JAX ``sharding.py:348-357``); its planned offset, the sum
+    of its shard's real rows, may equal the shard's row count.
+    ``table_scale``: the ``(T,)`` scales of per-table int8."""
 
     def __init__(self, placement, mesh: Mesh, table_scale: torch.Tensor | None = None):
-        mesh.require_one_process("table-wise sharding")
         M = placement.num_shards
         if M != mesh.shape["model"]:
             raise ValueError(f"placement for {M} shards on model axis {mesh.shape['model']}")
@@ -791,11 +845,12 @@ class TablewisePlan:
         return t if t is not None else self._perm[torch.device("cpu")].to(device)
 
     def cells(self, indices: torch.Tensor, mask: torch.Tensor | None):
-        """Each (data slice d, shard s) cell's lookup inputs on entry (d,
-        s)'s device: ``(d, s, ids (b, cap, L), mask or None, the placed
-        tables' offsets (cap,), their scales (cap,) or None)``. ``indices``
-        and ``mask`` are in the original table order; virtual slots get id 0
-        (and a false mask where there is one)."""
+        """This process's (data slice d, shard s) cells' lookup inputs on
+        entry (d, s)'s device: ``(d, s, ids (b, cap, L), mask or None, the
+        placed tables' offsets (cap,), their scales (cap,) or None)``, in
+        the order d, then s. ``indices`` and ``mask`` are in the original
+        table order; virtual slots get id 0 (and a false mask where there is
+        one)."""
         M, D, cap = self.placement.num_shards, self.mesh.shape["data"], self.cap
         indices = torch.as_tensor(indices)
         B, _, L = indices.shape
@@ -810,6 +865,8 @@ class TablewisePlan:
         b = B // D
         for d in range(D):
             for s in range(M):
+                if not self.mesh.is_local(d, s):
+                    continue
                 dev = self.mesh.device(d, s)
                 idx = _to(idx_perm[d * b:(d + 1) * b, s * cap:(s + 1) * cap].contiguous(), dev)
                 msk = None if mask_perm is None else _to(
@@ -818,30 +875,80 @@ class TablewisePlan:
                        None if self.scale is None else self.scale.part(d, s))
 
 
+def _tablewise_out(shards: Sharded, compute_dtype, rowwise: bool) -> tuple:
+    """``(dtype, width)`` of the table-wise shards' pooled rows: the compute
+    dtype (f32 by default for int8 shards), and the row's width (a row-wise
+    int8 row ends in its f32 scale's 4 bytes)."""
+    first = shards.first()
+    return (compute_dtype or (torch.float32 if first.dtype == torch.int8 else first.dtype),
+            first.shape[-1] - (4 if rowwise else 0))
+
+
+def _gather_row_cells(mesh: Mesh, d: int, pooled: dict, shape: tuple,
+                      dtype: torch.dtype) -> dict | None:
+    """Row d's cells ``{s: (b, cap, d)}`` on entry (d, 0)'s process (None in
+    every other): the JAX tiled ``all_gather`` over "model". Each other
+    process of the row sends its cells of the row, concatenated in shard
+    order, in one broadcast over the row's processes, in rank order; a
+    process outside row d makes no call for it. ``pooled``: this process's
+    cells by (d, s)."""
+    row = mesh.row_ranks(d)
+    if mesh.rank not in row:
+        return None
+    dest, M = mesh.rank_of(d, 0), mesh.shape["model"]
+    got = {s: pooled[(d, s)] for s in range(M) if (d, s) in pooled} if mesh.rank == dest else {}
+    b, cap, width = shape
+    for r in row:
+        if r == dest:
+            continue
+        theirs = [s for s in range(M) if mesh.rank_of(d, s) == r]
+        buf = (torch.cat([_to(pooled[(d, s)], mesh.home) for s in theirs], dim=1)
+               if mesh.rank == r else
+               torch.empty((b, len(theirs) * cap, width), dtype=dtype, device=mesh.home))
+        buf = mesh.broadcast(buf, r, row)
+        if mesh.rank == dest:
+            got.update({s: buf[:, i * cap:(i + 1) * cap] for i, s in enumerate(theirs)})
+    return got if mesh.rank == dest else None
+
+
 def tablewise_rows(shard_tables, indices: torch.Tensor, plan: TablewisePlan, *,
                    compute_dtype: torch.dtype | None = None, mask: torch.Tensor | None = None,
                    rowwise: bool = False) -> list:
     """``tablewise_embedding_bag``'s data slices on ``plan``'s mesh: slice
-    d's ``(b, T, d)`` pooled lookup on entry (d, 0), for each d."""
+    d's ``(b, T, d)`` pooled lookup on entry (d, 0), for each d; None for a
+    slice whose entry (d, 0) another process holds. Each process pools its
+    own cells (``plan.cells``); across processes a row's cells cross to
+    entry (d, 0)'s process (``_gather_row_cells``) in the order d, then
+    rank, the same on every process."""
     from deeprecsys_tpu_torch import ops
 
     mesh = plan.mesh
     shards = (shard_tables if isinstance(shard_tables, Sharded)
               else Sharded.stacked(shard_tables, mesh))
-    cdt = compute_dtype or (torch.float32 if shards.part(0, 0).dtype == torch.int8
-                            else shards.part(0, 0).dtype)
-    slices: list = [[] for _ in range(mesh.shape["data"])]
+    cdt, width = _tablewise_out(shards, compute_dtype, rowwise)
+    pooled = {}
     for d, s, idx, msk, offs, scale in plan.cells(indices, mask):
         tbl = shards.part(d, s)
         if rowwise:
-            pooled = ops.embedding_bag_int8_rowwise(tbl, offs, idx, compute_dtype=cdt, mask=msk)
+            pooled[(d, s)] = ops.embedding_bag_int8_rowwise(tbl, offs, idx, compute_dtype=cdt,
+                                                            mask=msk)
         elif scale is not None:
-            pooled = ops.embedding_bag_int8(tbl, scale, offs, idx, compute_dtype=cdt, mask=msk)
+            pooled[(d, s)] = ops.embedding_bag_int8(tbl, scale, offs, idx, compute_dtype=cdt,
+                                                    mask=msk)
         else:
-            pooled = ops.embedding_bag(tbl, offs, idx, compute_dtype=cdt, mask=msk)
-        slices[d].append(_to(pooled, mesh.device(d, 0)))
-    return [torch.cat(row, dim=1).index_select(1, plan.inv.on(mesh.device(d, 0)))
-            for d, row in enumerate(slices)]
+            pooled[(d, s)] = ops.embedding_bag(tbl, offs, idx, compute_dtype=cdt, mask=msk)
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    shape = (torch.as_tensor(indices).shape[0] // D, plan.cap, width)
+    out = []
+    for d in range(D):
+        cells = _gather_row_cells(mesh, d, pooled, shape, cdt)
+        if cells is None:
+            out.append(None)
+            continue
+        dev0 = mesh.device(d, 0)
+        out.append(torch.cat([_to(cells[s], dev0) for s in range(M)], dim=1)
+                   .index_select(1, plan.inv.on(dev0)))
+    return out
 
 
 def tablewise_embedding_bag(shard_tables, indices: torch.Tensor, placement, mesh: Mesh, *,
@@ -853,15 +960,20 @@ def tablewise_embedding_bag(shard_tables, indices: torch.Tensor, placement, mesh
     the shard with the tables' offsets within it: K1, K1-int8 with the
     placed tables' ``table_scale``, or K4 with ``rowwise``), the combine is
     a ``torch.cat`` of the shards' ``(b, cap, d)`` slices on entry (d, 0)
-    (the JAX ``all_gather``), and the inverse permutation restores the
-    original table order. ``indices`` and ``mask`` are in the original
-    order; virtual pad tables read the shard's row 0 with a false mask and
-    are dropped. ``shard_tables``: ``(M, rows_per_shard, W)``
-    (``build_tablewise_tables``) or its ``Sharded`` shards. Returns
-    ``(B, T, d)`` in the compute dtype on ``mesh.devices.flat[0]``."""
-    out = tablewise_rows(shard_tables, indices, TablewisePlan(placement, mesh, table_scale),
+    (the JAX ``all_gather``; across processes the row's cells are sent
+    there), and the inverse permutation restores the original table order.
+    ``indices`` and ``mask`` are in the original order; virtual pad tables
+    read the shard's row 0 with a false mask and are dropped.
+    ``shard_tables``: ``(M, rows_per_shard, W)`` (``build_tablewise_tables``)
+    or its ``Sharded`` shards. Returns ``(B, T, d)`` in the compute dtype on
+    ``mesh.home``, on every process."""
+    shards = (shard_tables if isinstance(shard_tables, Sharded)
+              else Sharded.stacked(shard_tables, mesh))
+    out = tablewise_rows(shards, indices, TablewisePlan(placement, mesh, table_scale),
                          compute_dtype=compute_dtype, mask=mask, rowwise=rowwise)
-    return torch.cat([_to(o, mesh.devices.flat[0]) for o in out], dim=0)
+    cdt, width = _tablewise_out(shards, compute_dtype, rowwise)
+    B, T = torch.as_tensor(indices).shape[:2]
+    return concat_slices(mesh, out, (B // mesh.shape["data"], T, width), cdt)
 
 
 # ----------------------------------------------------------------------

@@ -18,8 +18,10 @@ to the first.
 
 Across processes (four cards or more): two spawned processes of two cards
 each over ``nccl`` form one 1x4 mesh; the forward is held to the
-single-device forward, one sparse step to the single-process 1x4 mesh's
-(the loss rtol 1e-5, the whole table the JAX sharded-step limits).
+single-device forward, the hot/cold tensor-parallel model (on zipf(1.2)
+ids) and the table-wise model to one process's 1x4 mesh (rtol 2e-4, atol
+2e-5), one sparse step to the single-process 1x4 mesh's (the loss rtol
+1e-5, the whole table the JAX sharded-step limits).
 """
 
 import multiprocessing as mp
@@ -42,6 +44,7 @@ from deeprecsys_tpu_torch.ops import embedding_bag_int8
 from deeprecsys_tpu_torch.parallel import (
     distributed_init, make_mesh, shard_params, sharded_apply, unshard_params)
 from deeprecsys_tpu_torch.parallel import sharding
+from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.serving import engine, packets
 
 pytestmark = pytest.mark.gpu
@@ -224,15 +227,27 @@ def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
 
 
 def _two_process_run(first: torch.device, mesh) -> dict:
-    """rm1's forward on a 64-row batch and one sparse adagrad step on the
-    same batch over ``mesh``, from the seed's params made on ``first``."""
+    """rm1's forward on a 64-row batch, the hot/cold tensor-parallel model on
+    64 rows of zipf(1.2) ids, the table-wise model on the batch and one
+    sparse adagrad step on the batch over ``mesh``, from the seed's params
+    made on ``first``."""
     cfg, model, params = _model(first)
     batch = RecDataGenerator(cfg, seed=1).generate_batch(64)
     scores = sharded_apply(model, mesh, has_dense=True)(shard_params(params, mesh), batch)
+    idx = zipf_stream(cfg, 64, seed=5)
+    dense = np.random.default_rng(5).random((64, cfg.dense_dim), dtype=np.float32)
+    hc = make_hotcold_model(model, hot_ids_from_generator(cfg, seed=5, hot_rows=256,
+                                                          n_batches=2, batch_size=64), mesh=mesh)
+    hotcold = hc.apply(shard_params(hc.convert_params(params), mesh),
+                       Batch(dense=torch.from_numpy(dense), indices=None),
+                       hc.prepare(Batch(dense=dense, indices=idx)))
+    tw = make_tablewise_model(model, mesh)
+    tablewise = tw.apply(tw.convert_params(params), batch)
     tr = train.Trainer(cfg, mesh=mesh, optimizer="adagrad", learning_rate=0.05,
                        sparse_tables=True, table_learning_rate=0.01, params=params)
     loss = float(tr.step(batch, tr._labels(batch, None)))
-    return {"scores": scores.cpu().numpy(), "loss": loss,
+    return {"scores": scores.cpu().numpy(), "hotcold": hotcold.cpu().numpy(),
+            "tablewise": tablewise.cpu().numpy(), "loss": loss,
             "table": unshard_params(tr.params)["tables"].numpy(),
             "start": float(params["tables"].double().sum())}
 
@@ -257,8 +272,10 @@ def _nccl_worker(rank: int, port: int, q):
 
 def test_two_processes_of_two_cards_over_nccl(cards):
     """The 1x4 mesh over two processes (nccl): the forward within rtol
-    2e-4, atol 2e-5 of the single-device forward, one sparse step as the
-    single-process 1x4 mesh's."""
+    2e-4, atol 2e-5 of the single-device forward, the hot/cold
+    tensor-parallel (the row sum crosses the processes) and table-wise (the
+    row's cells cross) models within the same limits of the single-process
+    1x4 mesh's, one sparse step as the single-process 1x4 mesh's."""
     if len(cards) < 4:
         pytest.skip("needs four CUDA cards: two processes of two")
     want = _two_process_run(cards[0], make_mesh(1, 4, devices=cards[:4]))
@@ -290,5 +307,8 @@ def test_two_processes_of_two_cards_over_nccl(cards):
         assert got["ranks"] == [[0, 0, 1, 1]]
         assert got["start"] == want["start"], rank  # the same seeded params
         np.testing.assert_allclose(got["scores"], single, rtol=RTOL, atol=ATOL)
+        for path in ("hotcold", "tablewise"):
+            np.testing.assert_allclose(got[path], want[path], rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{path} on process {rank}")
         assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
         np.testing.assert_allclose(got["table"], want["table"], rtol=1e-4, atol=1e-6)
