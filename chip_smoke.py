@@ -28,11 +28,19 @@ Then it drives the models at full width (bf16, batch 512):
 
 - rm1 through ``get_model(...).apply`` and the standalone CLI loop, timed
   against the plain path;
+- the engines' CUDA graphs (phase 6): an rm1 engine with float, per-table
+  int8 and row-wise int8 tables, a dien engine and an rm1 hot/cold engine
+  at the canonical ladder, ragged requests accepted, each program's first
+  replay (every bucket, masked twin and cold rung) held to ``model.apply``
+  on the rows it was warmed on, with the graphs captured, their ms and
+  their pool;
 - rm1 through the serving stack (``serving.run_serving``: load generator,
-  engines on their own CUDA streams, aggregator) at the canonical
-  DeepRecSys point, with 1 and with 4 engines; payload requests through an
-  engine, held against ``model.apply``; a short DeepRecSched tuning run;
-  and dien served through ``main.py --queue`` (K1 and K3);
+  engines on their own CUDA streams replaying their graphs, aggregator) at
+  the canonical DeepRecSys point, with 1 and with 4 engines, each engine's
+  programs held as above; ``engine_bench``'s closed loop with 1 and 4
+  engines, its window traced for the device's idle share; payload requests
+  through an engine, held against ``model.apply``; a short DeepRecSched
+  tuning run; and dien served through ``main.py --queue`` (K1 and K3);
 - rm2, rm3, wnd, mtwnd, ncf, din and dien through ``get_model(...).apply``,
   three forwards each, checked against the plain path and timed, each
   model's table freed before the next; dien also through the CLI loop;
@@ -195,6 +203,7 @@ from deeprecsys_tpu_torch import train as port_train
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.data import trace as trace_mod
 from deeprecsys_tpu_torch.data.ragged import pad_csr
+from deeprecsys_tpu_torch.engine_bench import engine_arm
 from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.experiments import op_breakdown, qps_sweep, train_quality
@@ -237,7 +246,7 @@ from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.runtime.native import native_available
 from deeprecsys_tpu_torch.serving import ServiceRequest, latency_model, orchestrator, run_serving
 from deeprecsys_tpu_torch.serving.buckets import resolve_buckets
-from deeprecsys_tpu_torch.serving.engine import ComputeEngine
+from deeprecsys_tpu_torch.serving.engine import ComputeEngine, build_engine_pool
 from deeprecsys_tpu_torch.serving.ingress import HttpIngress, ServingServer
 from deeprecsys_tpu_torch.serving.load_generator import model_batch_sizes
 from deeprecsys_tpu_torch.serving.packets import ERR_OK, ERR_PAYLOAD
@@ -375,6 +384,18 @@ SERVING_POINT = {"batch_size_distribution": "normal", "avg_mini_batch_size": 165
                  "sub_task_batch_size": 32, "avg_arrival_rate_ms": 10.0}
 SERVE_QUERIES = 200
 DIEN_QUERIES = 50
+# Phase 6, the engines' CUDA graphs: an engine of each of these (model,
+# tables, lookup) at the canonical ladder, ragged requests accepted (so its
+# masked twins too), the hot/cold one tracking refreshes (so its direct
+# programs too), each program's first replay held to the eager forward; and
+# engine_bench's closed loop with 1 and 4 engines, its window traced.
+PROGRAM_ENGINES = (("rm1", "none", "xla"), ("rm1", "int8", "xla"),
+                   ("rm1", "int8_rowwise", "xla"), ("dien", "none", "xla"),
+                   ("rm1", "none", "hotcold"))
+PROGRAM_HOT_ROWS = 4096  # the hot/cold engine's set: its sample stays 8 batches
+CAPACITY_EXECUTIONS = 1000
+CAPACITY_ROWS = 32
+SPLIT_KEYS = ("hot_sel", "hot_mask", "cold_ids", "cold_seg")
 TRAIN_FIXTURE = ROOT / "tests" / "golden" / "torch_port_train.npz"
 TRAIN_FAMILIES = ("rm1", "wnd", "mtwnd", "ncf", "din", "dien")
 TRAIN_BATCH = 128  # the train CLI's default batch
@@ -1392,28 +1413,179 @@ def _served_line(res, counts: dict) -> str:
             f"{res.pacing_error_p99_ms:.4f} ms; wall {res.wall_s:.2f} s")
 
 
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _programs_line(eng) -> str:
+    pool = eng.graph_pool_bytes
+    return (f"{len(eng.programs)} programs, {eng.graph_captures} graphs captured in "
+            f"{eng.capture_ms:.1f} ms, graph pool "
+            + ("not measured" if pool is None else f"{pool / 2**20:.1f} MiB"))
+
+
+def check_programs(device, eng, model, params, what: str) -> float:
+    """Each of ``eng``'s programs: its first replay (at warm-up) against
+    ``model.apply`` with ``params`` on the rows it was warmed on (a hot/cold
+    program: the hot/cold model's eager forward on its split and the
+    engine's params), and against the eager forward the engine ran before
+    capturing it, within bf16_atol; on a card every program must hold a
+    graph. Returns the max |err|. Call after the path's launches were read:
+    these forwards launch too."""
+    worst = 0.0
+    with torch.inference_mode():
+        for prog in eng.programs:
+            rows = eng.warm_inputs(prog.key)
+            dense = rows["dense"].to(device) if "dense" in rows else None
+            if prog.key[0] == "hotcold":
+                out = eng._hotcold.apply(eng.params, Batch(dense=dense, indices=None),
+                                         {k: rows[k].to(device) for k in SPLIT_KEYS})
+            else:
+                mask = rows["mask"].to(device) if "mask" in rows else None
+                out = model.apply(params, Batch(dense=dense, indices=rows["indices"].to(device),
+                                                mask=mask))
+            want = out.float().cpu().numpy()
+            err = max(float(np.abs(prog.first_scores - want).max()), prog.warm_err or 0.0)
+            if (device.type == "cuda" and prog.graph is None) or err > bf16_atol(want):
+                raise AssertionError(f"{what}: program {prog.key}'s first replay differs from "
+                                     f"the eager forward by {err:.3e} > {bf16_atol(want):.3e} "
+                                     f"(captured: {prog.graph is not None})")
+            worst = max(worst, err)
+    return worst
+
+
 def serve_rm1(device, engines: int, card: str, table_quant: str = "none",
               phase: str = "6 serving") -> tuple[dict, dict]:
     """rm1 at the canonical point through ``run_serving``, each engine with
-    its own params from its seed (``table_quant``: int8 tables). Returns
-    the result and the launches."""
+    its own params from its seed (``table_quant``: int8 tables), then each
+    engine's programs held to the eager forward on its params
+    (``check_programs``). Returns the result and the launches."""
     cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
                          compute_dtype="bfloat16", table_quant=table_quant)
     scfg = ServingConfig(**SERVING_POINT, num_batches=SERVE_QUERIES,
                          inference_engines=engines, engine_backend=_backend(device))
     _reset_peak(device)
     _reset_counts()
-    res = run_serving(cfg, scfg, settle_s=0.1)
+    with _engines_of_runs() as built:
+        res = run_serving(cfg, scfg, settle_s=0.1)
     counts = _counts()
     what = f"rm1 {table_quant} tables" if table_quant != "none" else "rm1"
     _check_served(res, counts, 0, f"{what} served by {engines} engine(s)",
                   lookup=LOOKUP[table_quant])
     peak = _peak_gib(device)
+    model = get_model(cfg, device)
+    errs = [check_programs(device, e, model, e.params, f"{what} engine {e.engine_id}")
+            for e in built]
     _log(f"[{phase}] {what} table_scale={TABLE_SCALE} bf16, {engines} engine(s): "
-         f"{_served_line(res, counts)}; peak device memory {peak:.3f} GiB [{card}]")
+         f"{_served_line(res, counts)}; peak device memory {peak:.3f} GiB; each engine "
+         + "; ".join(_programs_line(e) for e in built)
+         + f"; every program's first replay within bf16_atol of model.apply on its rows (max "
+         f"|err| {max(errs):.3e}) [{card}]")
+    programs = [{"programs": len(e.programs), "captures": e.graph_captures,
+                 "capture_ms": e.capture_ms, "pool_bytes": e.graph_pool_bytes} for e in built]
+    del built
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return {"engines": engines, **res.to_dict(), "peak_gib": peak}, counts
+    return {"engines": engines, **res.to_dict(), "peak_gib": peak, "programs": programs,
+            "program_err": max(errs)}, counts
+
+
+def serve_programs(device, card: str) -> tuple[dict, dict]:
+    """One engine of each of ``PROGRAM_ENGINES`` at the canonical ladder,
+    its params from seed 0: its warm-up launches (an eager forward and a
+    replay a program on a card, each one lookup, K3 twice for dien) read
+    when it is ready, then every program held to the eager forward
+    (``check_programs``). Returns the rows by engine and the launches."""
+    launches, out = _want(), {}
+    per = 2 if device.type == "cuda" else 1  # warm-up executions a program
+    for name, quant, impl in PROGRAM_ENGINES:
+        t0 = time.perf_counter()
+        cfg = zoo.get_config(name, table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                             compute_dtype="bfloat16", table_quant=quant, embedding_impl=impl,
+                             hot_set_rows=PROGRAM_HOT_ROWS)
+        model = get_model(cfg.replace(embedding_impl="xla"), device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device), accept_ragged=True,
+                             hotcold_refresh_interval=REFRESH_INTERVAL if impl == "hotcold" else 0)
+        what = f"{name} {quant} tables{' hot/cold' if impl == 'hotcold' else ''}"
+        _reset_peak(device)
+        _reset_counts()
+        req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+        eng = ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, device=device, params=params)
+        eng.start()
+        try:
+            ready = ready_q.get(timeout=600)
+            if isinstance(ready, Exception):
+                raise RuntimeError(f"{what}: the engine failed during setup") from ready
+            counts = _counts()
+            split = per * sum(p.key[0] == "hotcold" for p in eng.programs)
+            direct = eng.warmup_executions - split
+            want = _want(**{LOOKUP[quant]: direct, HOTCOLD[quant]: split},
+                         rnn_scan=2 * direct if name == "dien" else 0)
+            if counts != want or eng.warmup_executions != per * len(eng.programs):
+                raise AssertionError(f"{what}: warm-up launches {counts}, expected {want} for "
+                                     f"{eng.warmup_executions} executions of "
+                                     f"{len(eng.programs)} programs")
+            _add(launches, counts)
+            direct_params = {k: v for k, v in eng.params.items() if k != "hot_table"}
+            err = check_programs(device, eng, model, direct_params, what)
+        finally:
+            req_q.put(None)
+            eng.join(timeout=120)
+        peak = _peak_gib(device)
+        rungs = sorted({p.key[2] for p in eng.programs if p.key[0] == "hotcold"})
+        _log(f"[6 serving] {what} engine at the canonical ladder {list(eng.buckets)}, ragged "
+             f"accepted{f', cold rungs {rungs}' if rungs else ''}: {_programs_line(eng)}; "
+             f"warm-up launches {_nonzero(counts)} for {eng.warmup_executions} executions; every "
+             f"program's first replay within bf16_atol of the eager forward on its rows (max "
+             f"|err| {err:.3e}, replay against the engine's own eager run "
+             f"{max((p.warm_err or 0.0) for p in eng.programs):.3e}); peak device memory "
+             f"{peak:.3f} GiB; {time.perf_counter() - t0:.1f} s [{card}]")
+        out[what] = {"programs": len(eng.programs), "captures": eng.graph_captures,
+                     "capture_ms": eng.capture_ms, "pool_bytes": eng.graph_pool_bytes,
+                     "max_abs_err": err, "peak_gib": peak}
+        del eng, params, direct_params
+        _free(device)
+    return out, launches
+
+
+def serve_capacity(device, fwd: dict, card: str) -> tuple[dict, dict]:
+    """engine_bench's engine arm on phase 5's rm1 params: CAPACITY_EXECUTIONS
+    executions of CAPACITY_ROWS rows, the queue never empty, through 1 and
+    4 engines, the timed window traced (the device's idle share: how far
+    the host holds the card back); every execution one K1 launch."""
+    out, launches = {}, _want()
+    for engines in (1, 4):
+        built = []
+
+        def pool_fn(*args, **kwargs):
+            pool, total = build_engine_pool(*args, **kwargs)
+            built.extend(pool)
+            return pool, total
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = engine_arm(fwd["cfg"], _backend(device), engines, CAPACITY_EXECUTIONS, CAPACITY_ROWS,
+                       params=fwd["params"], pool_fn=pool_fn, profile=device.type == "cuda")
+        counts = _counts()
+        ex = sum(_executions(e) for e in built)
+        if counts != _want(embedding_bag=ex):
+            raise AssertionError(f"closed loop, {engines} engine(s): launches {counts} for {ex} "
+                                 f"executions")
+        _add(launches, counts)
+        idle = r.get("idle_share")
+        _log(f"[6 serving] rm1 closed loop (engine_bench's engine arm), {engines} engine(s), "
+             f"{CAPACITY_EXECUTIONS} executions of {CAPACITY_ROWS} rows, the window traced: "
+             f"{r['executions_per_s']:.1f} executions/s, inference p50 "
+             f"{r['inference_p50_ms']:.3f} ms, {r['cpu_ms_per_execution']:.3f} CPU ms an "
+             f"execution; device busy "
+             + ("not measured" if idle is None else
+                f"{r['device_busy_ms']:.1f} ms of {r['seconds'] * 1e3:.1f}, idle {idle:.1%}")
+             + f"; launches {_nonzero(counts)} for {ex} executions; "
+             f"{time.perf_counter() - t0:.1f} s [{card}]")
+        out[engines] = r
+        del built
+        _free(device)
+    return out, launches
 
 
 def serve_payloads(device, fwd: dict) -> tuple[float, dict]:
@@ -1516,8 +1688,10 @@ def phase_serving(device, fwd: dict, card: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     launches = _want()
     out = {}
-    for key, run in (("rm1_1", lambda: serve_rm1(device, 1, card)),
+    for key, run in (("programs", lambda: serve_programs(device, card)),
+                     ("rm1_1", lambda: serve_rm1(device, 1, card)),
                      ("rm1_4", lambda: serve_rm1(device, 4, card)),
+                     ("capacity", lambda: serve_capacity(device, fwd, card)),
                      ("payload_err", lambda: serve_payloads(device, fwd)),
                      ("tune", lambda: serve_tuning(device, fwd, card)),
                      ("dien", lambda: serve_dien(device, card))):
@@ -3035,8 +3209,11 @@ def fabric_reload(device, fwd: dict, served: tuple, ckpt: Path, new_params: dict
         _reset_peak(device)
         _reset_counts()
         ex0 = _executions(server.engines[0])
+        cap0 = (server.engines[0].graph_captures, server.engines[0].capture_ms)
         r = _reload_under_traffic(server, base, _body(probe), ckpt)
         del r["at_swap"]
+        r["recaptures"] = server.engines[0].graph_captures - cap0[0]
+        r["recapture_ms"] = server.engines[0].capture_ms - cap0[1]
         counts = _counts()
         ex = _executions(server.engines[0]) - ex0
         if counts != _want(embedding_bag=ex):
@@ -3050,7 +3227,8 @@ def fabric_reload(device, fwd: dict, served: tuple, ckpt: Path, new_params: dict
                        "/v1/predict after the reload (the new params)")
     _log(f"[14 fabric] reload of {ckpt.name} ({_table_bytes(new_params['tables']) / 2**30:.3f} "
          f"GiB of tables) under {FABRIC_CLIENTS} clients of 32-row predicts: 0 failed of "
-         f"{r['answered']} answered; applied in {r['apply_ms']:.1f} ms on the serve thread "
+         f"{r['answered']} answered; applied in {r['apply_ms']:.1f} ms on the serve thread, "
+         f"{r['recaptures']} graphs captured again in {r['recapture_ms']:.1f} ms of it "
          f"(request to ACK {r['wall_s'] * 1e3:.1f} ms); then the new params' scores (max |err| "
          f"{err:.3e}); peak device memory {peak:.3f} GiB; launches {counts} [{card}]")
     out["direct"] = {**r, "peak_gib": peak, "max_abs_err": err}
@@ -4443,14 +4621,19 @@ class _Recorder:
     """A kernel wrapper that records its calls as ``(args, kwargs,
     before(*args), result)`` and runs the wrapper; with ``after``, the
     result recorded is ``after(args, kwargs, out)``: a check made at the
-    call, before the step goes on to change what the call read. Its
-    ``kernel_launches`` is the wrapper's own (a wrapper counts itself
-    through its module's name, which then names this)."""
+    call, before the step goes on to change what the call read. A call
+    that a serving engine makes while it captures a CUDA graph launches
+    nothing (each replay does, held to the eager forward in phase 6) and
+    may not synchronize: it runs unrecorded. Its ``kernel_launches`` is
+    the wrapper's own (a wrapper counts itself through its module's name,
+    which then names this)."""
 
     def __init__(self, orig, before, after):
         self.orig, self.before, self.after, self.calls = orig, before, after, []
 
     def __call__(self, *args, **kwargs):
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return self.orig(*args, **kwargs)
         pre = self.before(*args) if self.before is not None else None
         out = self.orig(*args, **kwargs)
         self.calls.append((args, kwargs, pre,
@@ -6030,6 +6213,17 @@ def main() -> int:
              f"{s['queue_wait_p95_ms']:.3f}, {s['inference_p95_ms']:.3f}, "
              f"{s['pacing_error_mean_ms']:.4f}/{s['pacing_error_p99_ms']:.4f}, "
              f"{s['peak_gib']:.3f} [{card['card']}]")
+    _log("[10 summary] the engines' CUDA graphs, canonical ladder, bf16 full size: engine: "
+         "programs, graphs captured, capture ms, graph pool MiB, max |err| of the first replays")
+    for what, r in serving["programs"].items():
+        pool = "not measured" if r["pool_bytes"] is None else f"{r['pool_bytes'] / 2**20:.1f}"
+        _log(f"[10 summary]   {what}: {r['programs']}, {r['captures']}, {r['capture_ms']:.1f}, "
+             f"{pool}, {r['max_abs_err']:.3e} [{card['card']}]")
+    for engines, r in serving["capacity"].items():
+        idle = "not measured" if r.get("idle_share") is None else f"{r['idle_share']:.1%}"
+        _log(f"[10 summary]   rm1 closed loop, {engines} engine(s), {CAPACITY_ROWS}-row "
+             f"executions (traced): {r['executions_per_s']:.1f} executions/s, device idle "
+             f"{idle} [{card['card']}]")
     _log("[10 summary] rm1 with int8 tables, bf16, batch 512, full-size tables: mode: forward "
          "wall ms, device ms, idle, forward peak GiB; kernel us, bound us, plain us, K1 on a bf16 "
          "table us (same ids); served (1 engine): QPS, p50/p95/p99 ms, inference p95 ms, peak "

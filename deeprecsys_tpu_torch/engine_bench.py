@@ -12,13 +12,16 @@ ones with ``--table_quant``), every execution at 32 rows (a sub-batch of
 the canonical serving point):
 
 - ``engine``: the serving engines themselves (``build_engine_pool``, one
-  bucket), their request queue filled with ``--executions`` requests;
+  bucket), their request queue filled with ``--executions`` requests; on a
+  card each engine replays the CUDA graph of its bucket it captured at
+  warm-up (``serving/programs.py``), with its copies in and out;
 - ``eager``: each thread a bare loop on its own stream: the forward, a
   non-blocking copy of the scores into pinned memory, an event and a wait
   on it, with no queue and no second thread an engine;
 - ``graph``: the same loop replaying one CUDA graph of the forward a
   thread (captured one thread at a time before the timed window), so an
-  execution is one call into PyTorch instead of one a device op.
+  execution is one call into PyTorch instead of one a device op: the
+  engine's replay without its queue, copies and second thread.
 
 With ``--embedding_impl hotcold`` the engines split every request on the
 host and pool it with K6 (their hot set sampled at set-up), and only the
@@ -74,12 +77,31 @@ def _row(arm: str, threads: int, n: int, seconds: float, usage0, usage1, **extra
             "cpu_ms_per_execution": (usage1[1] - usage0[1]) * 1000.0 / n, **extra}
 
 
+def device_busy_ms(prof):
+    """The union of the device intervals (kernels, copies) in a finished
+    ``torch.profiler`` trace, ms; None if it holds none."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    return (busy + hi - lo) / 1e3
+
+
 def engine_arm(model_cfg, backend: str, engines: int, n: int, rows: int, params=None,
                pool_fn=build_engine_pool, config_cls=ServingConfig,
-               request_cls=ServiceRequest) -> dict:
+               request_cls=ServiceRequest, profile: bool = False) -> dict:
     """``n`` requests of ``rows`` rows through ``engines`` engines of
     ``pool_fn`` (the port's by default; the JAX package's takes the same
-    arguments). Timed from the first request put to the last answer."""
+    arguments). Timed from the first request put to the last answer. With
+    ``profile`` (a card) a ``torch.profiler`` trace of that window gives the
+    device's busy ms and idle share (1 - busy / wall); tracing slows the
+    host, so such a row's rate is not the untraced one."""
     scfg = config_cls(inference_engines=engines, engine_backend=backend,
                       batch_buckets=(rows,), max_mini_batch_size=rows)
     request_q, accel_q, response_q, ready_q = (queue.Queue() for _ in range(4))
@@ -91,6 +113,11 @@ def engine_arm(model_cfg, backend: str, engines: int, n: int, rows: int, params=
         item = ready_q.get(timeout=600)
         if isinstance(item, Exception):
             raise RuntimeError("an engine failed during setup") from item
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                      acc_events=True)
+        prof.start()
     usage0, t0 = _usage(), time.perf_counter()
     for i in range(n):
         request_q.put(request_cls(batch_id=i, batch_size=rows, arrival_time=time.time()))
@@ -106,6 +133,12 @@ def engine_arm(model_cfg, backend: str, engines: int, n: int, rows: int, params=
         else:
             inference.append(r.inference_end_time - r.queue_start_time)
     seconds, usage1 = time.perf_counter() - t0, _usage()
+    extra = {}
+    if prof is not None:
+        prof.stop()
+        busy = device_busy_ms(prof)
+        extra = {"device_busy_ms": busy,
+                 "idle_share": None if busy is None else 1.0 - busy / (seconds * 1000.0)}
     for e in pool:
         e.join()
         if getattr(e, "error", None) is not None:
@@ -113,7 +146,7 @@ def engine_arm(model_cfg, backend: str, engines: int, n: int, rows: int, params=
     if len(inference) != n:
         raise RuntimeError(f"{len(inference)} answers for {n} requests")
     return _row("engine", engines, n, seconds, usage0, usage1,
-                inference_p50_ms=statistics.median(inference) * 1000.0)
+                inference_p50_ms=statistics.median(inference) * 1000.0, **extra)
 
 
 def loop_arm(model, params, host_batch, device, threads: int, n: int, graph: bool) -> dict:
@@ -193,7 +226,9 @@ def describe(r: dict) -> str:
                else f"{switches:.2f} context switches")
             + f" and {r['cpu_ms_per_execution']:.3f} CPU ms an execution"
             + (f", inference p50 {r['inference_p50_ms']:.3f} ms"
-               if "inference_p50_ms" in r else ""))
+               if "inference_p50_ms" in r else "")
+            + (f", device idle {r['idle_share']:.1%} of the traced window"
+               if r.get("idle_share") is not None else ""))
 
 
 def card_line() -> str:

@@ -331,10 +331,11 @@ def run_queue(model_cfg: ModelConfig, args):
     lm = _calibrated_latency_model(model_cfg) if args.engine_backend == "sim" else None
     if args.engine_backend == "gpu" and args.inference_engines > 1:
         print(f"[deeprecsys_tpu_torch] WARNING: {args.inference_engines} engine threads "
-              "share one interpreter, and every eager PyTorch call hands the GIL to "
-              "another engine: on an H100, four rm1 engines sustained half the "
-              "executions a second of one, and at 100 queries/s their queue did not "
-              "drain (engine_bench; PERF.md). Use --inference_engines 1.", flush=True)
+              "share one interpreter: each engine replays CUDA graphs, but its copies, "
+              "replays and queue hand-offs still take turns on the GIL. On an H100 four "
+              "rm1 engines served the canonical point at p95 10.3-60.0 ms against one "
+              "engine's 3.3-7.2 ms, and sustained fewer executions a second than one "
+              "(engine_bench; PERF.md). Use --inference_engines 1.", flush=True)
     on_card = args.engine_backend == "gpu" or (
         args.model_accel and lm is None and args.device != "cpu")
     prof = _profiler(args, on_card)

@@ -12,11 +12,15 @@ A failed build raises; there is no fallback. ``launch`` calls a loaded
 kernel on PyTorch's current stream of a tensor's card (the calling
 thread's: a serving engine launches on its own stream). Builds, loads and
 launch counts are safe under threads: one compile a source per process,
-one load, and ``count_launch`` loses no update.
+one load, and ``count_launch`` loses no update. A launch made while the
+calling thread captures a CUDA graph (``recording_launches``) runs nothing
+yet: it is tallied for the graph, and each replay adds the tally to the
+counters (``count_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -65,6 +69,7 @@ _GUARD = threading.Lock()       # guards the two dicts below
 _NAME_LOCKS: dict[str, threading.RLock] = {}  # reentrant: load() holds it around build()
 _LOADED: dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()  # .tally: the launches of the capture this thread makes
 
 
 def _name_lock(name: str) -> threading.RLock:
@@ -120,9 +125,35 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
 
 def count_launch(wrapper):
     """Add one to ``wrapper.kernel_launches``, exact under threads (the
-    serving engines launch from several)."""
+    serving engines launch from several); inside ``recording_launches``, to
+    the capture's tally instead."""
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.kernel_launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a CUDA-graph capture in this thread: yields a dict that
+    collects the launches the captured calls make (wrapper -> count), which
+    the counters do not see until ``count_replay``."""
+    tally, prev = {}, getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
+def count_replay(tally: dict):
+    """A replay of a captured graph launched ``tally``'s kernels: add them
+    to their wrappers' counters."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.kernel_launches += n
 
 
 def launch(lib: ctypes.CDLL, fn: str, device: torch.device, *args):

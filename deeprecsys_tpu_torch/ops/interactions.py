@@ -16,11 +16,17 @@ import torch
 
 
 @functools.lru_cache(maxsize=64)
-def _tril_pairs(num_fea: int, include_diag: bool) -> tuple[np.ndarray, np.ndarray]:
+def _tril_pairs(num_fea: int, include_diag: bool,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's lower-triangle pairs (i, j), row by row, j < i (j <= i
-    with the diagonal)."""
+    with the diagonal), as index tensors on ``device``: made once, so that a
+    forward copies nothing from the host (a serving engine captures it as a
+    CUDA graph). Made outside inference mode, so that a training step may
+    save them for its backward."""
     ii, jj = np.tril_indices(num_fea, 0 if include_diag else -1)
-    return ii.astype(np.int64), jj.astype(np.int64)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(ii.astype(np.int64)).to(device),
+                torch.from_numpy(jj.astype(np.int64)).to(device))
 
 
 def dot_interaction(dense_out: torch.Tensor, emb_out: torch.Tensor, *,
@@ -32,7 +38,7 @@ def dot_interaction(dense_out: torch.Tensor, emb_out: torch.Tensor, *,
     feats = torch.cat([dense_out[:, None, :], emb_out], dim=1)  # (B, F, d)
     f32 = feats.float()
     z = torch.bmm(f32, f32.transpose(1, 2)).to(feats.dtype)
-    ii, jj = _tril_pairs(feats.shape[1], self_interaction)
+    ii, jj = _tril_pairs(feats.shape[1], self_interaction, feats.device)
     return torch.cat([dense_out, z[:, ii, jj]], dim=1)
 
 

@@ -9,12 +9,16 @@ Engines are threads of one process sharing the card, as in the JAX
 package. ``ComputeEngine`` serves every request at a static batch bucket
 (the smallest of the ladder that holds it) from rows generated once at the
 largest bucket and sliced, the reference's "pre-generate at max size then
-slice" (``inferenceEngine.py:200-206``). Every bucket runs once before the
-engine signals ready: the counterpart of the JAX package's compile a
-bucket, which here builds and loads the kernels, fills
-``k1_launch_plan``'s cache and the caching allocator. Two threads an
-engine: the serve thread assembles and dispatches, the completion thread
-waits for the scores and answers. ``SimEngine`` sleeps a
+slice" (``inferenceEngine.py:200-206``). As the JAX engine compiles one
+program a bucket (its masked twin, each cold rung, the direct lookup)
+before it signals ready, an engine without a mesh builds one
+``programs.BucketProgram`` for each at warm-up: on a card a CUDA graph of
+the forward, captured on the engine's stream, which each execution replays
+over static device inputs (the rows copied in, the scores copied out); on
+the CPU the same program runs the eager forward over the same buffers. A
+mesh engine runs its forward eagerly, each bucket once at warm-up. Two
+threads an engine: the serve thread assembles and dispatches, the
+completion thread waits for the scores and answers. ``SimEngine`` sleeps a
 ``LatencyModel``'s time instead of computing.
 
 On a CUDA card, each engine:
@@ -24,9 +28,13 @@ On a CUDA card, each engine:
   thread-local), so K1 and K3, which launch on the calling thread's current
   stream, land on the engine's stream;
 - copies each execution's rows from pinned host memory with
-  ``non_blocking=True``: the pre-generated rows of each bucket are pinned
-  once, and a payload group is assembled into one of ``IN_FLIGHT`` pinned
-  staging slots, which is reused only after its execution was answered;
+  ``non_blocking=True`` into its program's static inputs: the
+  pre-generated rows of each bucket are pinned once, and a payload group is
+  assembled into one of ``IN_FLIGHT`` pinned staging slots, which is reused
+  only after its execution was answered;
+- replays the program's graph, so the serve loop issues no eager forward
+  op, and the launches the capture recorded are added to the kernels'
+  counters at each replay;
 - copies the scores back with ``non_blocking=True`` into the slot's pinned
   buffer and records an event on its stream; the completion thread waits
   on that event (the GIL released), where a device error surfaces and is
@@ -54,18 +62,22 @@ is mask-free; nothing reads the cold count back from the card). With
 every interval, upgrades, refreshes or disables the hot set and re-enables
 it when a head returns. A scan worker thread only computes candidate ids
 and their ``HotIndex``; it launches nothing. The swap happens on the serve
-thread: a new hot table (``index_select`` on the engine's stream), never
-a write into the live one.
+thread: the new hot rows are written into the hot table the programs read
+(``index_select`` on the engine's stream, so executions queued before it
+read the old rows); a hot set of another size rebuilds the programs. The
+engine made that table itself (``convert_params``): a caller's params are
+never written.
 
 Checkpoint reload (JAX ``engine.py:65-86, :732-804``): ``request_reload``
 hands the engine a ``ReloadHandle`` from any thread; the serve thread
 applies it before the next execution it dispatches (or within 0.5 s when
 idle). On a card the new params are loaded on the serve thread, so on the
-engine's stream, and every tensor of the old params is marked with
-``record_stream``: the executions still queued on the stream keep reading
-the old tables, and the allocator reuses their memory only after them.
-Both copies live during the swap. A hot/cold engine derives its hot table
-from the new tables; its hot ids stay.
+engine's stream, the programs are rebuilt (captured again) against them,
+and the old programs and params are dropped only after the engine's stream
+has finished the executions queued on it, which read them (a mesh engine
+marks the old tensors with ``record_stream`` instead). Both copies live
+during the swap; a rebuild that fails keeps the old ones serving. A hot/cold
+engine derives its hot table from the new tables; its hot ids stay.
 
 A cpu-mp engine process (``process_engine.py``) runs this same engine on
 the CPU over shared-memory rings: the reload path arrives as fragments on
@@ -109,6 +121,7 @@ from deeprecsys_tpu_torch.models import get_model
 from deeprecsys_tpu_torch.models.base import Batch, compute_dtype_of
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
 from deeprecsys_tpu_torch.serving.latency_model import LatencyModel
+from deeprecsys_tpu_torch.serving.programs import BUILD_LOCK, ProgramSet, StaticInputs, pad_cold
 from deeprecsys_tpu_torch.serving.packets import (
     ERR_DEADLINE,
     ERR_OVER_LADDER,
@@ -264,6 +277,14 @@ class ComputeEngine(threading.Thread):
         # executions, coalesced, clamped, rejected and expired requests.
         self.bucket_counts: dict[int, int] = {}
         self.warmup_executions = 0
+        # The serve-time programs (no mesh): their static inputs, the set
+        # serving now, and the captures made (with their wall ms) and the
+        # graph pool of the current set (a card).
+        self._static: StaticInputs | None = None
+        self.programs: ProgramSet | None = None
+        self.graph_captures = 0
+        self.capture_ms = 0.0
+        self.graph_pool_bytes = None
         self.coalesced_requests = 0
         self.clamped_requests = 0
         # Over-ladder handling: strict (the default for direct construction)
@@ -312,9 +333,8 @@ class ComputeEngine(threading.Thread):
     def _setup(self):
         """Model, params (with ``hotcold``/``auto`` the hot set and its
         table), the pinned rows of every bucket and the staging slots, then
-        one execution a bucket: its masked twin with ``accept_ragged``, every
-        cold rung on a hot/cold engine, and with refresh tracking also the
-        direct lookup's. Runs in the engine's thread, on its stream."""
+        the programs (``_build_programs``), or on a mesh one execution of
+        each. Runs in the engine's thread, on its stream."""
         cfg = self.model_cfg
         # The direct model: the lookup "auto" falls back to and a disabled
         # split serves; a hot/cold engine runs its tail (apply_from_pooled).
@@ -334,9 +354,11 @@ class ComputeEngine(threading.Thread):
             self.params = shard_params(self.params, self.mesh)
             self._direct_fn = sharded_apply(self.model, self.mesh, has_dense=cfg.dense_dim > 0)
         if self.device.type == "cuda":
-            # Params and offsets were made on other streams or threads.
-            for dev in self._devices():
-                torch.cuda.synchronize(dev)
+            # Params and offsets were made on other streams or threads. A
+            # device-wide wait must not meet another engine's capture.
+            with BUILD_LOCK:
+                for dev in self._devices():
+                    torch.cuda.synchronize(dev)
         pin = self.device.type == "cuda"
         full = RecDataGenerator(cfg, seed=self.seed + 17,
                                 data_generation=self.serving_cfg.data_generation,
@@ -355,14 +377,19 @@ class ComputeEngine(threading.Thread):
         hotcold = self._hotcold is not None
         for _ in range(IN_FLIGHT):
             self._free_slots.put(_Slot(max(self.buckets), cfg, ragged, pin, hotcold, self.mesh))
+        for b in self.buckets:
+            self._host_data[b] = Batch(dense=None if dense is None else dense[:b],
+                                       indices=indices[:b])
+        if self.mesh is None:
+            self._static = StaticInputs(cfg, max(self.buckets), ragged, hotcold, self.device)
+            self.programs = self._build_programs()
+            return
         all_true = None
         if ragged:
             all_true = torch.ones(indices.shape, dtype=torch.bool, pin_memory=pin)
         direct = not hotcold or self.serving_cfg.hotcold_refresh_interval > 0
         T, L = cfg.num_tables, cfg.num_indices_per_lookup
         for b in self.buckets:
-            self._host_data[b] = Batch(dense=None if dense is None else dense[:b],
-                                       indices=indices[:b])
             if hotcold:
                 # Every cold rung the splitter pads to, on an empty split.
                 for c_pad in cold_buckets_for(b * T * L, self.mesh):
@@ -373,6 +400,114 @@ class ComputeEngine(threading.Thread):
                     # The masked twin: a ragged request runs the direct
                     # lookup with a mask.
                     self._warm(self._host_data[b]._replace(mask=all_true[:b]), b)
+
+    def _program_keys(self) -> list:
+        """The serve-time programs, in the JAX engine's warm order (its
+        ``engine.py:296-324, :384-475, :525-542``): for each bucket a
+        hot/cold program at each cold rung (a hot/cold engine), then where
+        the direct lookup serves (no split, or refresh tracking, which may
+        disable the split) the direct program and, with ``accept_ragged``,
+        its masked twin."""
+        T, L = self.model_cfg.num_tables, self.model_cfg.num_indices_per_lookup
+        hotcold = self._hotcold is not None
+        direct = not hotcold or self.serving_cfg.hotcold_refresh_interval > 0
+        keys = []
+        for b in self.buckets:
+            if hotcold:
+                keys += [("hotcold", b, c_pad) for c_pad in cold_buckets_for(b * T * L)]
+            if direct:
+                keys.append(("direct", b))
+                if self.serving_cfg.accept_ragged:
+                    keys.append(("masked", b))
+        return keys
+
+    def _build_programs(self) -> ProgramSet:
+        """Build every program against the current params and hot set, each
+        warmed on ``warm_inputs`` (on a card also captured and replayed once,
+        one engine's set at a time in the process); the warm-up executions
+        and captures are counted."""
+        progs = ProgramSet(self.device)
+        on_card = self.device.type == "cuda"
+        splits: dict = {}  # bucket -> its rows' split, for every cold rung
+        with BUILD_LOCK if on_card else contextlib.nullcontext():
+            for key in self._program_keys():
+                b = key[1]
+                inputs = (self._static.split_of(b, key[2]) if key[0] == "hotcold"
+                          else self._static.rows(b, masked=key[0] == "masked"))
+                progs.add(key, self._forward(key[0]), inputs, self.warm_inputs(key, splits))
+            pool = progs.pool_bytes()
+        self.warmup_executions += progs.executions
+        self.graph_captures += progs.captures
+        self.capture_ms += progs.capture_ms
+        self.graph_pool_bytes = pool
+        return progs
+
+    def _forward(self, kind: str):
+        """A program's forward over its static inputs, closed over the
+        current params: K6 on the split and the model's tail (``hotcold``),
+        else the direct model (a hot/cold engine's without its hot table)."""
+        params = self.params
+        if kind == "hotcold":
+            apply = self._hotcold.apply
+
+            def forward(inp: dict) -> torch.Tensor:
+                split = {k: inp[k] for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}
+                return apply(params, Batch(dense=inp.get("dense"), indices=None), split)
+            return forward
+        direct = params if self._hotcold is None else {
+            k: v for k, v in params.items() if k != "hot_table"}
+        apply = self.model.apply
+
+        def forward(inp: dict) -> torch.Tensor:
+            return apply(direct, Batch(dense=inp.get("dense"), indices=inp["indices"],
+                                       mask=inp.get("mask")))
+        return forward
+
+    def warm_inputs(self, key: tuple, splits: dict | None = None) -> dict:
+        """The host rows program ``key`` is warmed on (and on a card first
+        replayed on), by input name: the bucket's pre-generated rows, an
+        all-true mask for a masked twin, and for a hot/cold program their
+        split by the current hot set with its cold stream cut or padded to
+        the program's rung (``pad_cold``): a split the splitter could give
+        there, so every rung is warmed on real rows (JAX's warm-up pools an
+        empty split). ``splits``: a dict the caller keeps, bucket -> the
+        unpadded split, so that one split serves every rung."""
+        from deeprecsys_tpu_torch.ops.hotcold import split_hot_cold
+
+        b = key[1]
+        host = self._host_data[b]
+        rows = {"indices": host.indices}
+        if host.dense is not None:
+            rows["dense"] = host.dense
+        if key[0] == "masked":
+            rows["mask"] = torch.ones(host.indices.shape, dtype=torch.bool)
+        elif key[0] == "hotcold":
+            splits = {} if splits is None else splits
+            if b not in splits:
+                # numpy: the native splitter's calls stay the served executions'.
+                splits[b] = split_hot_cold(host.indices.numpy(),
+                                           np.asarray(self.model_cfg.table_offsets, np.int64),
+                                           np.asarray(self._hotcold.hot_ids), impl="numpy",
+                                           pad=False)
+            rows.update((k, torch.from_numpy(v)) for k, v in
+                        pad_cold(splits[b], key[2], b * self.model_cfg.num_tables).items())
+        return rows
+
+    def _swap_programs(self, params: dict):
+        """Serve ``params``: build the programs against them, then drop the
+        old programs and params once the executions queued on the engine's
+        stream, which read both, are done. A failed build keeps the old ones
+        serving."""
+        old = self.params, self.programs
+        self.params = params
+        try:
+            self.programs = self._build_programs()
+        except BaseException:
+            self.params, self.programs = old
+            raise
+        if self.device.type == "cuda":
+            self._stream.synchronize()
+        del old
 
     def _devices(self) -> list:
         """The devices the engine runs on: the mesh's distinct ones, or its one."""
@@ -429,6 +564,7 @@ class ComputeEngine(threading.Thread):
         self.params = self._hotcold.convert_params(self.params)
 
     def _warm(self, host: Batch, bucket: int, split: dict | None = None):
+        """One warm-up execution of a mesh engine."""
         slot = self._free_slots.get()
         if split is not None:
             slot.stage(split)
@@ -501,16 +637,14 @@ class ComputeEngine(threading.Thread):
                      mask=slot.mask[:bucket] if any_mask else None)
 
     def _dispatch(self, host: Batch, bucket: int, slot: _Slot, split: dict | None = None) -> list:
-        """Copy ``host`` in (and ``split``, the host split held in ``slot``),
-        run the model (K6 on the split, else the direct lookup), copy the
-        scores into ``slot``; returns the events that mark the scores
-        readable, one on the engine's stream of each of its devices (none on
-        the CPU, where every step is synchronous)."""
+        """Run one execution of ``host`` (and ``split``, the host split held
+        in ``slot``) and copy the scores into ``slot``: without a mesh its
+        program (K6 on the split, else the direct lookup, masked if ``host``
+        is) copies the rows in and replays; on a mesh the model runs
+        eagerly. Returns the events that mark the scores readable, one on
+        the engine's stream of each of its devices (none on the CPU, where
+        every step is synchronous)."""
         on_card = self.device.type == "cuda"
-
-        def to_device(t):
-            return None if t is None else t.to(self.device, non_blocking=on_card)
-
         if self.mesh is not None:
             # The mesh paths move each data slice to its row themselves.
             if split is not None:
@@ -520,16 +654,13 @@ class ComputeEngine(threading.Thread):
                 out = self._direct_fn(self.params, host)
         elif split is not None:
             # The split stands for the ids and consumed the ragged mask: the
-            # tail takes only the dense features.
-            batch = Batch(dense=to_device(host.dense), indices=None)
-            dev_split = {k: to_device(v) for k, v in slot.split_tensors(split).items()}
-            out = self._hotcold.apply(self.params, batch, dev_split)
+            # program takes the split and the dense features.
+            rows = slot.split_tensors(split)
+            rows["dense"] = host.dense
+            out = self.programs[("hotcold", bucket, split["cold_ids"].size)].run(rows)
         else:
-            batch = Batch(dense=to_device(host.dense), indices=to_device(host.indices),
-                          mask=to_device(host.mask))
-            params = self.params if self._hotcold is None else {
-                k: v for k, v in self.params.items() if k != "hot_table"}
-            out = self.model.apply(params, batch)
+            rows = {"dense": host.dense, "indices": host.indices, "mask": host.mask}
+            out = self.programs[("direct" if host.mask is None else "masked", bucket)].run(rows)
         slot.out[:bucket].copy_(out, non_blocking=on_card)
         if not on_card:
             return []
@@ -653,7 +784,7 @@ class ComputeEngine(threading.Thread):
         engine's stream): the direct model's layout (float, per-table or
         row-wise int8) fixes the template, and a hot/cold engine adds the
         hot table gathered from the new tables."""
-        from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params, tree_flatten
+        from deeprecsys_tpu_torch.utils.checkpoint import checkpoint_params
 
         t0 = time.perf_counter()
         try:
@@ -661,17 +792,20 @@ class ComputeEngine(threading.Thread):
                                     handle.path, self.device)
             if self._hotcold is not None:
                 new = self._hotcold.convert_params(new)
-            if self.mesh is not None:
+            if self.mesh is None:
+                # The programs captured against the old params: rebuilt.
+                self._swap_programs(new)
+            else:
                 from deeprecsys_tpu_torch.parallel import shard_params
 
                 new = shard_params(new, self.mesh)  # JAX engine.py:785-792
-            old, self.params = self.params, new
-            if self.device.type == "cuda":
-                # Executions queued on the streams still read the old
-                # tensors: their memory is reused only after those finish.
-                for t in (old.tensors() if self.mesh is not None else tree_flatten(old)):
-                    t.record_stream(self._streams[t.device])
-            del old
+                old, self.params = self.params, new
+                if self.device.type == "cuda":
+                    # Executions queued on the streams still read the old
+                    # tensors: their memory is reused only after those finish.
+                    for t in old.tensors():
+                        t.record_stream(self._streams[t.device])
+                del old
             self.last_reload_ms = (time.perf_counter() - t0) * 1000.0
         except Exception as e:
             handle.error = e
@@ -979,10 +1113,13 @@ class ComputeEngine(threading.Thread):
         return True
 
     def _install_hot_ids(self, new_hot, ref_cov: float, hot_index=None):
-        """Swap in a hot set: a new hot table gathered from the live table
-        on the engine's stream (executions in flight keep reading the old
-        one, which the stream's order keeps alive until they are done), and
-        the coverage reference re-based on the new set."""
+        """Swap in a hot set, and re-base the coverage reference on it. One
+        device: the new hot rows written into the hot table the programs
+        read, on the engine's stream (executions queued before the write
+        read the old rows, in stream order); a set of another size rebuilds
+        the programs on a new table. A mesh: a new hot table (executions in
+        flight keep reading the old one, which the stream's order keeps
+        alive until they are done)."""
         from deeprecsys_tpu_torch.models.hotcold import with_hot_ids
 
         hc = with_hot_ids(self._hotcold, new_hot, mesh=self.mesh, hot_index=hot_index)
@@ -993,12 +1130,29 @@ class ComputeEngine(threading.Thread):
             from deeprecsys_tpu_torch.parallel.sharding import gather_rows
 
             self.params = self.params.with_leaf("hot_table", gather_rows(self.params, new_hot))
+        elif len(new_hot) == len(self._hotcold.hot_ids):
+            self._write_hot_rows(new_hot)
         else:
-            self.params = hc.convert_params(
-                {k: v for k, v in self.params.items() if k != "hot_table"})
+            prev, self._hotcold = self._hotcold, hc
+            try:
+                self._swap_programs(hc.convert_params(
+                    {k: v for k, v in self.params.items() if k != "hot_table"}))
+            except BaseException:
+                self._hotcold = prev
+                raise
         self._hotcold = hc
         self.hot_coverage = ref_cov
         self.hot_refreshes += 1
+
+    def _write_hot_rows(self, new_hot):
+        """The rows ``new_hot`` of the live table, in its layout, written
+        into the engine's own hot table in place."""
+        tables = self.params["tables"]
+        rows = tables if not isinstance(tables, dict) else tables.get("qrows", tables.get("q"))
+        hid = torch.from_numpy(np.asarray(new_hot, dtype=np.int64))
+        if self.device.type == "cuda":
+            hid = hid.pin_memory().to(self.device, non_blocking=True)
+        torch.index_select(rows, 0, hid, out=self.params["hot_table"])
 
     def _disable_hotcold(self, live_cov: float, cand_cov: float):
         self._hotcold_active = False

@@ -780,7 +780,11 @@ def test_hotcold_adaptive_refresh_recovers_from_drift(scan_async):
             if eng._hotcold_active:
                 break
         assert eng._hotcold_active, "a returning head must re-enable the split"
-        assert eng.params["hot_table"] is not hot_table  # swaps build new tables
+        # A swap of the same size writes the new rows into the table the
+        # engine's programs read (a card's graphs hold its address).
+        assert eng.params["hot_table"] is hot_table
+        hot_ids = torch.as_tensor(np.asarray(eng._hotcold.hot_ids, dtype=np.int64))
+        assert torch.equal(hot_table, eng.params["tables"][hot_ids])
         idx = _pool_batch(cfg, pools, 999)
         np.testing.assert_allclose(srv.predict(idx), _direct_scores(eng, idx),
                                    rtol=1e-5, atol=1e-6)
