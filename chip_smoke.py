@@ -95,8 +95,16 @@ at ``--table_scale 100`` (the file format does not depend on the table's
 size, and a 4 GB ``.npz`` a run is not worth the time), and the trainer's
 ``int8_rowwise`` and ``int8`` exports served through ``main.py --checkpoint
 --table_quant`` (standalone and ``--queue``); the four kernels' times (K10
-over rm1's dense params) and each training step's wall, device time, idle
-share and peak memory.
+over rm1's dense params); then, for rm1 dense (adagrad and adam), rm1
+``--sparse_tables`` and dien ``--sparse_tables``, two arms from the same
+weights on the same batches: the trainer's programs (``Trainer.step``: a
+shape's first step eager, then captured as a CUDA graph, every later step
+a replay) and its step function called eagerly; ``GRAPH_STEPS`` steps of
+each held together within the ``GRAPH_*`` limits, with equal launches and
+no kernel wrapper called from Python over the replays, then each arm's
+step wall, device time and idle share, the captures, capture ms, graph
+pool bytes and peak memory. Since adam's count lives on the card, K10 is
+held to its plain version at counts 1, 2 and 1000.
 
 Then the data modes and the experiments (phase 15), each path read around
 itself: rm1 standalone on stack-distance trace ids (``data/trace.py``'s
@@ -132,10 +140,12 @@ step, K5's window M a sparse step, K10 once);
 batch, the loss falling, step 1's windows against their plain versions)
 and on rm1 for one step against the single-device SGD step; the two
 windows' times at rm1's 1/4 shard beside their bounds, plain versions and
-``index_add_`` yardsticks; each path's step times; and ``dedup=True``
+``index_add_`` yardsticks; each path's step times in phase 11's two arms
+(its programs, replayed CUDA graphs on a mesh of one card, and its step
+function called eagerly, held together as there); and ``dedup=True``
 against ``False`` for rm1's and rm2's single-device sparse steps (each
-step's K5 then against its plain version), with the sort and segment sum
-alone.
+step's K5 then, on an eager step, against its plain version), with the
+sort and segment sum alone.
 
 Then a mesh across processes (phase 18, after phase 17): two spawned
 processes share the card over gloo (NCCL refuses two ranks on one card),
@@ -241,7 +251,7 @@ from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
 from deeprecsys_tpu_torch.parallel import (
     distributed_init, make_mesh, make_train_step, shard_params, sharded_apply)
-from deeprecsys_tpu_torch.parallel.sharding import leaf_copies
+from deeprecsys_tpu_torch.parallel.sharding import leaf_copies, leaf_groups
 from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.runtime.native import native_available
 from deeprecsys_tpu_torch.serving import ServiceRequest, latency_model, orchestrator, run_serving
@@ -405,6 +415,33 @@ ROUND_TRIP_SCALE = 100
 # batches: f32 sums in other orders (cuBLAS, K1b's and K5's atomics) over
 # three steps (measured at most 3.5e-7 on an H100, PERF.md), with a margin.
 TRAIN_LOSS_RTOL = 1e-4
+# The trainer's programs (CUDA graphs) against its step functions called
+# eagerly, phases 11 and 17: the runs (model, sparse tables, optimizer) at
+# full width, f32, batch TRAIN_BATCH; GRAPH_STEPS steps of each arm from the
+# same weights on the same batches, then TRAIN_TIMED steps of each timed
+# (after a warm-up step a batch). The arms differ only in the order of K1b's
+# and K5's atomic adds, so they are held to tests/test_torch_train.py's
+# limits between the port and JAX: losses rtol 1e-5; params rtol 1e-5 and
+# atol 1e-6, adam's atol 2% of the steps' reach (lr x steps: its update
+# turns the rounding of a near-zero gradient into an O(lr) change), a
+# sparse table's 1e-3 of it (the row-wise scale multiplies the gradients'
+# rounding); row accumulators 1e-4 of the largest. The learning rates are
+# that file's, below the CLI's 0.1, where the bce clip could take a score's
+# gradient away in one arm and not the other.
+GRAPH_RUNS = (("rm1", False, "adagrad"), ("rm1", True, "adagrad"), ("dien", True, "adagrad"),
+              ("rm1", False, "adam"))
+GRAPH_STEPS = 4
+TRAIN_TIMED = 20
+GRAPH_LR = {"sgd": 0.05, "adagrad": 0.01, "adam": 1e-3}
+GRAPH_LOSS_RTOL = 1e-5
+GRAPH_PARAM_RTOL = 1e-5
+GRAPH_PARAM_ATOL = 1e-6
+GRAPH_ADAM_REACH = 0.02
+GRAPH_SPARSE_REACH = 1e-3
+GRAPH_ACC_RTOL = 1e-4
+# The spin a graphed step's device span is queued behind (GPU cycles, ~1 ms
+# on an H100): longer than the host's work to queue a step.
+GRAPH_SPIN_CYCLES = 2_000_000
 # K3b against its plain loop in f32: two orders of the 64-term dot carried
 # over the scan's steps, within this share of the largest |delta|.
 K3B_RTOL = 1e-5
@@ -415,6 +452,9 @@ DUP_ROWS = 64
 # and rm1's full-size params: one element, a size under one 16-byte vector,
 # sizes past a vector and past the kernel's 65,536-element chunks.
 K10_SIZES = (1, 3, 4097, 2 * 65536 + 5)
+# The step counts of those K10 checks: adam's bias corrections at counts 1 and 2 and
+# far into a run (the kernel's powf against torch.pow on the card).
+K10_COUNTS = (1, 2, 1000)
 # The int8 bundles' scores against those of the float checkpoint they were
 # exported from (rm1, sigmoid scores in [0, 1]): the rounding of each table
 # value to 7 bits, pooled over 80 rows and carried through the towers.
@@ -467,7 +507,7 @@ SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
 # Phase 17, training over meshes of the card at rm1's full size: the paths
 # held to the single-device trainer (mode, data, model axes; "dedup" is
 # sparse with dedup=True), the steps of that check, the CLI's learning
-# rate, the timed paths (20 steps after 4), make_train_step's steps on the
+# rate, the timed paths (in phase 11's two arms), make_train_step's steps on the
 # dryrun's tiny "dot" DLRM (__graft_entry__.py:56-63), and the models of the
 # dedup measurement.
 MESH_TRAIN_RUNS = (("dense", 1, 4), ("dense", 2, 2), ("sparse", 1, 4), ("sparse", 2, 2),
@@ -475,7 +515,6 @@ MESH_TRAIN_RUNS = (("dense", 1, 4), ("dense", 2, 2), ("sparse", 1, 4), ("sparse"
 MESH_PARITY_STEPS = 3
 MESH_G_RTOL = 1e-5  # the mesh's pooled gradients against one device's, of their max |g|
 MESH_TRAIN_LR = 0.1
-MESH_TIMED_STEPS = 20
 MESH_TIMED_RUNS = (("rm1", "dense", (1, 4)), ("rm1", "dense", (2, 2)), ("rm1", "sparse", (1, 4)),
                    ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (4, 1)), ("rm1", "dedup", (2, 2)),
                    ("rm1", "make_train_step", (2, 2)), ("dien", "sparse", (1, 4)))
@@ -2518,7 +2557,10 @@ def train_kernel_cases(device, name: str, seed: int) -> dict:
 def _k10_step(device, name: str, params: list, grads: list, states: list, count: int) -> float:
     """One step of K10 on copies and of the plain version in place, from
     the same values; raises unless every param and state element is the
-    same bit for bit. Returns the max |difference| (0.0)."""
+    same bit for bit. Returns the max |difference| (0.0). ``count``: adam's
+    step count, handed to both as the int32 scalar on the card the trainer
+    keeps."""
+    count = torch.tensor(count, dtype=torch.int32, device=device)
     ps, ss = [p.clone() for p in params], [[t.clone() for t in s] for s in states]
     optimizer_update(name, ps, grads, ss, 0.1, count)
     synchronize(device)
@@ -2540,7 +2582,8 @@ def _k10_states(name: str, params: list) -> list:
 
 def train_k10_cases(device) -> float:
     """K10 against its plain version, bit for bit, for sgd, adagrad and adam
-    in f32 and bf16: two steps (adam's bias corrections at counts 1 and 2)
+    in f32 and bf16: steps at K10_COUNTS (adam's bias corrections from the
+    count on the card: K10's powf against torch.pow)
     on leaves of K10_SIZES elements and an unaligned slice of each (4 or 2
     bytes past a 16-byte boundary: the element-by-element path), gradients
     over seven decades; then one step on rm1's params (full-size table at
@@ -2556,11 +2599,11 @@ def train_k10_cases(device) -> float:
                       * 10.0 ** torch.randint(-6, 1, p.shape, generator=gen, device=device)).to(dt)
                      for p in params]
             states = _k10_states(name, params)
-            for count in (1, 2):
+            for count in K10_COUNTS:
                 worst = max(worst, _k10_step(device, name, params, grads, states, count))
             _log(f"[11 train kernels] K10 ok {name} {str(dt)[6:]}: leaves of {K10_SIZES} "
-                 f"elements, aligned and 1 element past a 16-byte boundary, two steps: bit for "
-                 f"bit the plain version")
+                 f"elements, aligned and 1 element past a 16-byte boundary, steps at counts "
+                 f"{K10_COUNTS}: bit for bit the plain version")
     for dt in (torch.float32, torch.bfloat16):
         leaves, grads = k10_inputs(device, table_scale=TABLE_SCALE)
         leaves, grads = [p.to(dt) for p in leaves], [g.to(dt) for g in grads]
@@ -2913,14 +2956,15 @@ def k10_times(device, card: str) -> dict:
     (``k10_library``). Returns the adagrad row as the kernels line takes it."""
     leaves, grads = k10_inputs(device, table_scale=TABLE_SCALE)
     row = None
+    count = torch.ones((), dtype=torch.int32, device=device)
     for name in ("adagrad", "sgd", "adam"):
         states = _k10_states(name, leaves)
 
         def kernel():
-            optimizer_update(name, leaves, grads, states, 0.1, 1)
+            optimizer_update(name, leaves, grads, states, 0.1, count)
 
         def plain():
-            optimizer_update_reference(name, leaves, grads, states, 0.1, 1)
+            optimizer_update_reference(name, leaves, grads, states, 0.1, count)
         order = (("p1", plain), ("k1", kernel), ("k2", kernel), ("p2", plain)) \
             if name == "adagrad" else (("k1", kernel), ("k2", kernel))
         runs = {key: measure(fn, [()], 10) for key, fn in order}
@@ -2944,28 +2988,192 @@ def k10_times(device, card: str) -> dict:
     return {"optimizer_update": row}
 
 
-def train_step_times(device, name: str, sparse: bool, card: str) -> dict:
-    """One training step of the CLI's (host batch to the card, forward,
-    backward, update, the loss read back) at full width: wall and device
-    time a step, idle share, the kernels that took the most device time,
-    and peak device memory (trainer state included)."""
-    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
-    _reset_peak(device)
-    tr = port_train.Trainer(cfg, learning_rate=0.1, sparse_tables=sparse, device=device)
-    gen = RecDataGenerator(tr.cfg, seed=1)
-    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(4)]
-    args = [(h, tr._labels(h, None)) for h in hosts]
-    m = measure(lambda h, lab: float(tr.step(h, lab)), args, 20)
-    peak = _peak_gib(device)
+class _PythonLaunches:
+    """Counts the kernel launches made from Python (``_build.launch``) while
+    it is entered: a replayed step makes none."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        self._real = _build.launch
+
+        def launch(*args):
+            self.n += 1
+            return self._real(*args)
+
+        _build.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        _build.launch = self._real
+
+
+def _param_pairs(a, b) -> list:
+    """``(key, a's tensor, b's tensor)`` for every distinct tensor of two
+    trainers' params of one structure: ``bridge.flatten`` of a dict,
+    ``leaf_groups`` of a mesh's ``ShardedParams`` (every copy)."""
+    if isinstance(a, dict):
+        fa, fb = bridge.flatten(a), bridge.flatten(b)
+        return [(k, fa[k], fb[k]) for k in fa]
+    return [(path, x, y) for ((path, _), xs), (_, ys) in zip(leaf_groups(a), leaf_groups(b))
+            for x, y in zip(xs, ys)]
+
+
+def _acc_pairs(a, b) -> list:
+    """Two sparse trainers' row accumulators, shard by shard on a mesh."""
+    if isinstance(a, torch.Tensor):
+        return [(a, b)]
+    return [(a.part(0, m), b.part(0, m)) for m in range(len(a.parts[0]))]
+
+
+def check_graph_agreement(what: str, losses_g: list, losses_e: list, params_g, params_e,
+                          opt: str, sparse: bool, steps: int, accs=()) -> dict:
+    """The graphed arm against the eager arm after ``steps`` steps from the
+    same weights on the same batches (GRAPH_* limits, written before any
+    run): the losses within GRAPH_LOSS_RTOL, each param within GRAPH_PARAM_RTOL
+    and its atol (GRAPH_PARAM_ATOL; adam GRAPH_ADAM_REACH of the steps' reach,
+    a sparse table GRAPH_SPARSE_REACH of it), each row accumulator within
+    GRAPH_ACC_RTOL of its largest value. Returns the worst loss error and
+    the worst param error as a share of its limit."""
+    loss_rel = float(np.max(np.abs(np.asarray(losses_g) - losses_e) / np.abs(losses_e)))
+    if not (np.all(np.isfinite(losses_g)) and loss_rel <= GRAPH_LOSS_RTOL):
+        raise AssertionError(f"{what}: graphed losses {losses_g} against the eager {losses_e} "
+                             f"(max relative error {loss_rel:.2e} > {GRAPH_LOSS_RTOL:.0e})")
+    reach = steps * GRAPH_LR[opt]
+    share, worst = 0.0, 0.0
+    for key, a, b in _param_pairs(params_g, params_e):
+        atol = (GRAPH_ADAM_REACH * reach if opt == "adam" else
+                GRAPH_SPARSE_REACH * reach if sparse and key == "tables" else GRAPH_PARAM_ATOL)
+        diff = (a.float() - b.float()).abs_()
+        worst = max(worst, diff.max().item())
+        share = max(share, diff.div_(b.float().abs().mul_(GRAPH_PARAM_RTOL).add_(atol)).max().item())
+        del diff
+    for a, b in accs:
+        lim = GRAPH_ACC_RTOL * b.max().item()
+        share = max(share, (a - b).abs().max().item() / lim)
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: graphed params differ from the eager ones past their "
+                             f"limits ({share:.3f} of the limit, max |diff| {worst:.3e})")
+    return {"loss_rel": loss_rel, "param_share": share, "param_max_diff": worst}
+
+
+def _arm(m: dict) -> dict:
     dev = m["device_ms"]
-    idle = None if dev is None else 1 - dev / m["wall_ms"]
-    what = f"{name} {'--sparse_tables' if sparse else 'dense'}"
-    _log(f"[11 train steps] {what} batch {TRAIN_BATCH} f32: wall {m['wall_ms']:.4f} ms a step, "
-         f"device {_us(dev)} in {m['launches']:.0f} device ops, idle "
-         f"{'not measured' if idle is None else f'{100 * idle:.1f}%'}; peak device memory "
-         f"{peak:.3f} GiB [{card}]")
-    _log(f"[11 train steps] {what}, device time by kernel: {_top(m, 8)} [{card}]")
-    if not sparse:
+    return {"wall_ms": m["wall_ms"], "device_ms": dev,
+            "idle": None if dev is None else 1 - dev / m["wall_ms"], "by_kernel": m["us_by_kernel"]}
+
+
+def _arm_text(a: dict) -> str:
+    idle = "not measured" if a["idle"] is None else f"{100 * a['idle']:.1f}%"
+    return f"wall {a['wall_ms']:.4f} ms a step, device {_us(a['device_ms'])}, idle {idle}"
+
+
+def _programs_text(progs) -> str:
+    pool = progs.pool_bytes()
+    return (f"{progs.captures} captures in {progs.capture_ms:.1f} ms, graph pool "
+            f"{'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}")
+
+
+def graph_arms(device, what: str, graphed, eager, args: list, programs, opt: str, sparse: bool,
+               params, accs, want: dict, timed: int, label: str, card: str) -> tuple[dict, dict]:
+    """The graphed arm (``graphed(*a)``, a trainer's programs) and the eager
+    arm (``eager(*a)``, the step function called directly) over ``args``
+    (GRAPH_STEPS batches, one shape), each returning the step's loss
+    tensor, then timed with the loss read back each step; and the graphed
+    step's device span (``span_ms``: queued behind a ~1 ms spin, so that
+    the host's work lies outside it) and its wall without reading the loss
+    back (``wall_ms`` of back-to-back steps: the card's pace where the host
+    queues ahead). The launches of each arm are read
+    around it and must be ``want``; the graphed arm's steps after its first
+    (the capture's) call no kernel wrapper from Python. Returns the result
+    and the graphed arm's launches."""
+    _reset_counts()
+    with _PythonLaunches() as py:
+        losses_g = [float(graphed(*args[0]))]
+        first = py.n
+        losses_g += [float(graphed(*a)) for a in args[1:]]
+    synchronize(device)
+    counts_g = _counts()
+    _reset_counts()
+    losses_e = [float(eager(*a)) for a in args]
+    synchronize(device)
+    counts_e = _counts()
+    if counts_g != want or counts_e != want:
+        raise AssertionError(f"{what}: launches graphed {_nonzero(counts_g)}, eager "
+                             f"{_nonzero(counts_e)}, expected {_nonzero(want)}")
+    if py.n != first or programs.captures != (device.type == "cuda"):
+        raise AssertionError(f"{what}: {py.n - first} launches from Python over the replays, "
+                             f"{programs.captures} captures")
+    agree = check_graph_agreement(what, losses_g, losses_e, *params(), opt, sparse, len(args),
+                                  accs())
+    g = _arm(measure(lambda *a: float(graphed(*a)), args, timed))
+    e = _arm(measure(lambda *a: float(eager(*a)), args, timed))
+    on_card = device.type == "cuda"
+    g["span_ms"] = span_ms(graphed, args, timed, spin_cycles=GRAPH_SPIN_CYCLES) if on_card else None
+    g["queued_ms"] = wall_ms(graphed, args, timed) if on_card else None
+    pool = programs.pool_bytes()
+    _log(f"[{label}] {what}: graphed and eager arms agree over {len(args)} steps (losses max "
+         f"relative {agree['loss_rel']:.2e}, limit {GRAPH_LOSS_RTOL:.0e}; params "
+         f"{agree['param_share']:.3f} of their limits, max |diff| {agree['param_max_diff']:.3e}); "
+         f"graphed {_arm_text(g)}, device span {_us(g['span_ms'])}, a step without reading "
+         f"the loss back {_us(g['queued_ms'])}; eager {_arm_text(e)}; "
+         f"{_programs_text(programs)}; "
+         f"launches a step {_nonzero({k: v // len(args) for k, v in counts_g.items()})} [{card}]")
+    return {"name": what, "graphed": g, "eager": e, **agree, "captures": programs.captures,
+            "capture_ms": programs.capture_ms, "pool_bytes": pool}, counts_g
+
+
+def _summary_arms(st: dict) -> str:
+    def arm(a):
+        dev = "not measured" if a["device_ms"] is None else f"{a['device_ms']:.4f}"
+        idle = "not measured" if a["idle"] is None else f"{100 * a['idle']:.1f}%"
+        return f"{a['wall_ms']:.4f}, {dev}, {idle}"
+
+    pool = "not measured" if st["pool_bytes"] is None else f"{st['pool_bytes'] / 2**20:.1f}"
+    g = st["graphed"]
+    ms = {k: "not measured" if g.get(k) is None else f"{g[k]:.4f}" for k in ("span_ms", "queued_ms")}
+    return (f"{arm(g)} (span {ms['span_ms']}, loss unread {ms['queued_ms']}) / "
+            f"{arm(st['eager'])}; {st['captures']}, "
+            f"{st['capture_ms']:.1f}, {pool}; {st['param_share']:.3f}; {st['peak_gib']:.3f}")
+
+
+def train_step_times(device, name: str, sparse: bool, opt: str, card: str) -> tuple[dict, dict]:
+    """One training step of the CLI's shape (host batch to the card,
+    forward, backward, update, the loss read back) at full width, in two
+    arms from the same weights on the same batches: ``Trainer.step`` (its
+    programs: the step captured as a CUDA graph and replayed) and the
+    trainer's step function (``make_dense_step`` or
+    ``make_sparse_table_step``) called directly, eagerly (``graph_arms``).
+    Then, for a dense step, the two passes over the whole table inside it
+    timed alone. Returns the result (both arms' wall, device time, idle
+    share; captures, capture ms, pool bytes; peak memory) and the graphed
+    arm's launches."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    _free(device)
+    _reset_peak(device)
+    start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
+    kw = dict(optimizer=opt, learning_rate=GRAPH_LR[opt], sparse_tables=sparse, device=device,
+              params=start)
+    tr, ev = port_train.Trainer(cfg, **kw), port_train.Trainer(cfg, **kw)
+    del start
+    gen = RecDataGenerator(tr.cfg, seed=1)
+    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(GRAPH_STEPS)]
+    args = [(h, tr._labels(h, None)) for h in hosts]
+    what = f"{name} {'--sparse_tables' if sparse else 'dense'} {opt}"
+    res, counts = graph_arms(
+        device, f"{what}, batch {TRAIN_BATCH} f32", lambda h, lab: tr.step(h, lab),
+        lambda h, lab: ev._step(ev.params, ev.opt_state, h.to(device), ev._targets(lab)),
+        args, tr.step_program, opt, sparse, lambda: (tr.params, ev.params),
+        lambda: _acc_pairs(tr.opt_state[1], ev.opt_state[1]) if sparse else (),
+        _train_want(name, sparse, GRAPH_STEPS), TRAIN_TIMED, "11 train steps", card)
+    peak = _peak_gib(device)
+    del ev
+    _free(device)
+    _log(f"[11 train steps] {what}, graphed arm's device time by kernel: "
+         f"{_top({'us_by_kernel': res['graphed']['by_kernel']}, 8)}; peak device memory of both "
+         f"arms {peak:.3f} GiB [{card}]")
+    if not sparse and opt == "adagrad":
         # The two passes over the whole table that the step's kernels share
         # one name with: the gradient's zero-fill and the optimizer's sweep.
         R, d = tr.params["tables"].shape
@@ -2984,8 +3192,7 @@ def train_step_times(device, name: str, sparse: bool, card: str) -> dict:
         del grads
     del tr
     _free(device)
-    return {"name": what, "wall_ms": m["wall_ms"], "device_ms": dev, "idle": idle,
-            "peak_gib": peak}
+    return {**res, "name": what, "peak_gib": peak}, counts
 
 
 def phase_train(device, card: str) -> tuple[dict, dict, list]:
@@ -3005,8 +3212,11 @@ def phase_train(device, card: str) -> tuple[dict, dict, list]:
         _add(launches, train_path(device, name, sparse, card)["launches"])
     _add(launches, round_trip(device, card)["launches"])
     times = train_kernel_times(device, card)
-    steps = [train_step_times(device, name, sparse, card)
-             for name, sparse in (("rm1", False), ("rm1", True), ("dien", True))]
+    steps = []
+    for name, sparse, opt in GRAPH_RUNS:
+        res, counts = train_step_times(device, name, sparse, opt, card)
+        steps.append(res)
+        _add(launches, counts)
     _log(f"[11 train] phase 11 in {time.perf_counter() - t0:.1f} s")
     return {k: {**times[k], "max_abs_err": errs[k]} for k in times}, launches, steps
 
@@ -5068,59 +5278,86 @@ def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def mesh_train_time(device, name: str, mode: str, axes, card: str, errs: dict | None = None) -> dict:
-    """A trainer's step (host batch to the card, forward, backward, update,
-    the loss read back) at full width: MESH_TIMED_STEPS steps after 4, wall
-    and device time a step, idle share, the kernels that took the most
-    device time, and peak device memory (trainer state included, read
-    before anything else allocates). ``axes`` None: one device; ``mode``
-    "make_train_step": ``make_train_step``'s SGD step in place of a
-    trainer's. With ``errs`` (a sparse trainer on one device) one more step
-    after the timed ones holds its K5 launch to the plain version
-    (``_check_k5``), merged into ``errs["sparse_adagrad_step"]``."""
+def mesh_train_time(device, name: str, mode: str, axes, card: str,
+                    errs: dict | None = None) -> tuple[dict, dict]:
+    """A step (host batch to the card, forward, backward, update, the loss
+    read back) at full width in two arms from the same weights on the same
+    batches (``graph_arms``): the trainer's programs (each step after the
+    first a CUDA-graph replay) and its step function called directly,
+    eagerly; their agreement, then TRAIN_TIMED steps of each: wall and
+    device time a step, idle share, the kernels that took the most device
+    time, captures, capture ms, pool bytes and peak device memory (both
+    arms' state). ``axes`` None: one device; ``mode`` "make_train_step":
+    ``make_train_step``'s SGD step (its programs, and the dense step it
+    wraps, called eagerly) in place of trainers'. With ``errs`` (a sparse
+    trainer on one device) one more eager step holds its K5 launch to the
+    plain version (``_check_k5``), merged into ``errs["sparse_adagrad_step"]``.
+    Returns the result and the graphed arm's launches."""
     cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
     _free(device)
     _reset_peak(device)
     mesh = None if axes is None else _cuda_mesh(device, *axes)
     gen = RecDataGenerator(cfg, seed=1)
-    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(4)]
-    if mode == "make_train_step":  # SGD through make_train_step, host batch to the card
-        model = get_model(cfg, device)
-        tr = shard_params(model.init(torch.Generator(device=device).manual_seed(0)), mesh)
-        run = make_train_step(model, mesh, has_dense=cfg.dense_dim > 0,
-                              learning_rate=MESH_TRAIN_LR, loss="bce",
-                              sigmoid_output=sigmoid_output(cfg))(tr)
+    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(GRAPH_STEPS)]
+    model = get_model(cfg, device)
+    start = model.init(torch.Generator(device=device).manual_seed(0))
+    dien = cfg.model_type == "dien"
+    where = "one device" if axes is None else f"{axes[0]}x{axes[1]}"
+    if mode == "make_train_step":  # SGD through make_train_step
+        opt, sparse = "sgd", False
+        sps = [shard_params(bridge.tree_map(lambda t: t.clone(), start), mesh) for _ in range(2)]
+        runs = [make_train_step(model, mesh, has_dense=cfg.dense_dim > 0,
+                                learning_rate=GRAPH_LR[opt], loss="bce",
+                                sigmoid_output=sigmoid_output(cfg))(sp) for sp in sps]
         args = [(h, torch.as_tensor(gen.generate_targets(TRAIN_BATCH, round_targets=True)))
                 for h in hosts]
+        dense_step = runs[1].programs.step  # make_mesh_dense_step's step over sps[1]
 
-        def step(h, t):
-            return float(run(tr, h.to(device), t.to(device))[1])
+        def graphed(h, t):
+            return runs[0](sps[0], h, t)[1]
+
+        def eager(h, t):
+            return dense_step(h.to(device), t.to(device))
+
+        programs, params, accs = runs[0].programs, (lambda: (sps[0], sps[1])), (lambda: ())
+        want = _mesh_want("dense", dien, *axes, GRAPH_STEPS)
     else:
-        tr = port_train.Trainer(cfg, mesh=mesh, device=device if mesh is None else None,
-                                optimizer="adagrad", learning_rate=MESH_TRAIN_LR,
-                                sparse_tables=mode != "dense", dedup=mode == "dedup")
+        opt, sparse = "adagrad", mode != "dense"
+        trs = [port_train.Trainer(cfg, mesh=mesh, device=device if mesh is None else None,
+                                  optimizer=opt, learning_rate=GRAPH_LR[opt],
+                                  sparse_tables=sparse, dedup=mode == "dedup", params=start)
+               for _ in range(2)]
+        tr, ev = trs
         args = [(h, tr._labels(h, None)) for h in hosts]
 
-        def step(h, lab):
-            return float(tr.step(h, lab))
-    m = measure(step, args, MESH_TIMED_STEPS)
+        def graphed(h, lab):
+            return tr.step(h, lab)
+
+        def eager(h, lab):
+            return ev._step(ev.params, ev.opt_state, h.to(device), ev._targets(lab))
+
+        programs, params = tr.step_program, (lambda: (tr.params, ev.params))
+
+        def accs():
+            return _acc_pairs(tr.opt_state[1], ev.opt_state[1]) if sparse else ()
+
+        want = (_train_want(name, sparse, GRAPH_STEPS) if mesh is None
+                else _mesh_want(mode, dien, *axes, GRAPH_STEPS))
+    del start
+    res, counts = graph_arms(device, f"{name} {mode} on {where}, batch {TRAIN_BATCH} f32",
+                             graphed, eager, args, programs, opt, sparse, params, accs, want,
+                             TRAIN_TIMED, "17 mesh train", card)
     peak = _peak_gib(device)
     if errs is not None:
         with _recorded(port_train, "sparse_adagrad_step", _k5_pre) as calls:
-            step(*args[0])
+            eager(*args[0])
         _merge(errs, "sparse_adagrad_step", _check_k5(calls, f"{name} {mode} one device", False))
         del calls
-    dev = m["device_ms"]
-    idle = None if dev is None else 1 - dev / m["wall_ms"]
-    where = "one device" if axes is None else f"{axes[0]}x{axes[1]}"
-    _log(f"[17 mesh train] {name} {mode} on {where}, batch {TRAIN_BATCH} f32: wall "
-         f"{m['wall_ms']:.4f} ms a step, device {_us(dev)} in {m['launches']:.0f} device ops, "
-         f"idle {'not measured' if idle is None else f'{100 * idle:.1f}%'}, peak "
-         f"{peak:.3f} GiB; device time by kernel: {_top(m, 6)} [{card}]")
-    del tr
+    _log(f"[17 mesh train] {name} {mode} on {where}: graphed arm's device time by kernel: "
+         f"{_top({'us_by_kernel': res['graphed']['by_kernel']}, 6)}; peak of both arms "
+         f"{peak:.3f} GiB [{card}]")
     _free(device)
-    return {"name": f"{name} {mode} {where}", "wall_ms": m["wall_ms"], "device_ms": dev,
-            "idle": idle, "peak_gib": peak, "by_kernel": m["us_by_kernel"]}
+    return {**res, "name": f"{name} {mode} {where}", "peak_gib": peak}, counts
 
 
 def mesh_dryrun(device, card: str, errs: dict) -> tuple[dict, dict]:
@@ -5303,17 +5540,20 @@ def mesh_window_times(device, card: str) -> dict:
     return out
 
 
-def dedup_times(device, card: str, errs: dict) -> dict:
+def dedup_times(device, card: str, errs: dict) -> tuple[dict, dict]:
     """The measurement ROADMAP Queue 2 item 5 asks for: single-device sparse
     steps of rm1 and rm2 with ``dedup=True`` against ``False``
     (``mesh_train_time``, each step's K5 then held to its plain version:
     dedup's K5 takes the unique rows as bags of one), and
     ``dedup_touched_rows`` alone (the sort and the segment sum) at the
-    step's stream (batch TRAIN_BATCH's B*T*L rows)."""
-    out = {}
+    step's stream (batch TRAIN_BATCH's B*T*L rows). Returns the results
+    and the graphed arms' launches."""
+    out, launches = {}, _want()
     for name in DEDUP_MODELS:
-        steps = {mode: mesh_train_time(device, name, mode, None, card, errs)
-                 for mode in ("sparse", "dedup")}
+        steps = {}
+        for mode in ("sparse", "dedup"):
+            steps[mode], counts = mesh_train_time(device, name, mode, None, card, errs)
+            _add(launches, counts)
         cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
         offsets = table_offsets(cfg, device)
         ids = torch.as_tensor(RecDataGenerator(cfg, seed=1).generate_batch(TRAIN_BATCH).indices,
@@ -5325,7 +5565,7 @@ def dedup_times(device, card: str, errs: dict) -> dict:
         rows = g[:, :, None, :].expand(B, T, L, d).reshape(-1, d)
         m = measure(lambda: port_train.dedup_touched_rows(flat, rows), [()], TIMED_ITERS)
         out[name] = {**steps, "sort_segment_ms": m["device_ms"], "sort_segment_wall_ms": m["wall_ms"]}
-        s, dd = steps["sparse"], steps["dedup"]
+        s, dd = steps["sparse"]["graphed"], steps["dedup"]["graphed"]
         _log(f"[17 dedup] {name} single-device sparse step, batch {TRAIN_BATCH} f32 "
              f"({B * T * L} touched slots): dedup=False wall {s['wall_ms']:.4f} ms, device "
              f"{_us(s['device_ms'])}; dedup=True wall {dd['wall_ms']:.4f} ms, device "
@@ -5333,7 +5573,7 @@ def dedup_times(device, card: str, errs: dict) -> dict:
              f"{_us(m['device_ms'])}, wall {_us(m['wall_ms'])} [{card}]")
         del flat, rows, g, ids
         _free(device)
-    return out
+    return out, launches
 
 
 def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
@@ -5373,8 +5613,11 @@ def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
     k1b_window_cases(device, errs)
     out["times"] = mesh_window_times(device, card)
     for name, mode, axes in MESH_TIMED_RUNS:
-        out["steps"].append(mesh_train_time(device, name, mode, axes, card))
-    out["dedup"] = dedup_times(device, card, errs)
+        res, counts = mesh_train_time(device, name, mode, axes, card)
+        out["steps"].append(res)
+        _add(launches, counts)
+    out["dedup"], counts = dedup_times(device, card, errs)
+    _add(launches, counts)
     out["errs"] = errs
     _log(f"[17 mesh train] phase 17 in {time.perf_counter() - t0:.1f} s")
     return out, launches
@@ -6267,13 +6510,13 @@ def main() -> int:
          f"{r['direct']['peak_gib']:.3f}/{r['hotcold']['peak_gib']:.3f}, 0 failed; cpu-mp + "
          f"offload (table_scale {FABRIC_MP_SCALE}) QPS {m['measured_qps']:.2f}, p95 "
          f"{m['p95_ms']:.3f} ms, {m['accel_requests']} offloaded [{card['card']}]")
-    _log("[10 summary] training step, f32, batch 128, full-size tables: wall ms, device ms, "
-         "idle, peak GiB")
+    _log("[10 summary] training step, f32, batch 128, full-size tables, the trainer's "
+         "programs (CUDA graphs; with the device span and the ms a step when the loss is not "
+         "read back) / its step function called eagerly: wall ms, device ms, idle; captures, "
+         "capture ms, graph pool MiB; params' share of their agreement limit; peak GiB of both "
+         "arms")
     for st in steps:
-        dev = "not measured" if st["device_ms"] is None else f"{st['device_ms']:.4f}"
-        idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.1f}%"
-        _log(f"[10 summary]   {st['name']}: {st['wall_ms']:.4f}, {dev}, {idle}, "
-             f"{st['peak_gib']:.3f} [{card['card']}]")
+        _log(f"[10 summary]   {st['name']}: {_summary_arms(st)} [{card['card']}]")
     syn, cri, sim = data["synthetic"], data["criteo"], data["sim"]
     q, qps = data["train_qps"]["quality"], data["train_qps"]["qps"]
     _log(f"[10 summary] data modes and experiments, rm1 bf16 batch {BATCH}, full size: "
@@ -6301,16 +6544,14 @@ def main() -> int:
          + f" [{card['card']}]")
     _log("[10 summary] training over meshes whose entries all name this card (virtual shards: "
          "every launch, reduction and update; no scaling across cards is shown), f32 batch "
-         f"{TRAIN_BATCH} full size: path: wall ms, device ms, idle, peak GiB")
+         f"{TRAIN_BATCH} full size, graphed / eager as above")
     for st in mesh_train["steps"]:
-        dev = "not measured" if st["device_ms"] is None else f"{st['device_ms']:.4f}"
-        idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.1f}%"
-        _log(f"[10 summary]   {st['name']}: {st['wall_ms']:.4f}, {dev}, {idle}, "
-             f"{st['peak_gib']:.3f} [{card['card']}]")
+        _log(f"[10 summary]   {st['name']}: {_summary_arms(st)} [{card['card']}]")
     for name, r in mesh_train["dedup"].items():
-        _log(f"[10 summary]   dedup {name} one device: step wall ms dedup=False "
-             f"{r['sparse']['wall_ms']:.4f} / True {r['dedup']['wall_ms']:.4f}, device "
-             f"{_us(r['sparse']['device_ms'])} / {_us(r['dedup']['device_ms'])}, sort + segment "
+        s, dd = r["sparse"]["graphed"], r["dedup"]["graphed"]
+        _log(f"[10 summary]   dedup {name} one device, graphed: step wall ms dedup=False "
+             f"{s['wall_ms']:.4f} / True {dd['wall_ms']:.4f}, device "
+             f"{_us(s['device_ms'])} / {_us(dd['device_ms'])}, sort + segment "
              f"sum {_us(r['sort_segment_ms'])} [{card['card']}]")
     procs = [r for _, r in sorted(dist_res["results"].items())]
     _log(f"[10 summary] a mesh across {DIST_PROCS} processes ({DIST_LABEL}), rm1 full size, wall "

@@ -13,9 +13,10 @@ kernel on PyTorch's current stream of a tensor's card (the calling
 thread's: a serving engine launches on its own stream). Builds, loads and
 launch counts are safe under threads: one compile a source per process,
 one load, and ``count_launch`` loses no update. A launch made while the
-calling thread captures a CUDA graph (``recording_launches``) runs nothing
-yet: it is tallied for the graph, and each replay adds the tally to the
-counters (``count_replay``).
+calling thread captures a CUDA graph (``recording_launches``), or made by
+another thread onto the stream being captured (autograd's worker thread
+runs a captured backward there), runs nothing yet: it is tallied for the
+graph, and each replay adds the tally to the counters (``count_replay``).
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ _NAME_LOCKS: dict[str, threading.RLock] = {}  # reentrant: load() holds it aroun
 _LOADED: dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
 _RECORDING = threading.local()  # .tally: the launches of the capture this thread makes
+_STREAM_TALLIES: dict = {}  # raw stream being captured -> its capture's tally
 
 
 def _name_lock(name: str) -> threading.RLock:
@@ -128,24 +130,33 @@ def count_launch(wrapper):
     serving engines launch from several); inside ``recording_launches``, to
     the capture's tally instead."""
     tally = getattr(_RECORDING, "tally", None)
-    if tally is not None:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
-        return
+    if tally is None and _STREAM_TALLIES:
+        tally = _STREAM_TALLIES.get(torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()))
     with _COUNT_LOCK:
-        wrapper.kernel_launches += 1
+        if tally is not None:
+            tally[wrapper] = tally.get(wrapper, 0) + 1
+        else:
+            wrapper.kernel_launches += 1
 
 
 @contextlib.contextmanager
-def recording_launches():
+def recording_launches(stream: int | None = None):
     """Around a CUDA-graph capture in this thread: yields a dict that
     collects the launches the captured calls make (wrapper -> count), which
-    the counters do not see until ``count_replay``."""
+    the counters do not see until ``count_replay``. ``stream``: the raw
+    stream being captured, whose launches from other threads (autograd's
+    backward) the dict collects too."""
     tally, prev = {}, getattr(_RECORDING, "tally", None)
     _RECORDING.tally = tally
+    if stream is not None:
+        _STREAM_TALLIES[stream] = tally
     try:
         yield tally
     finally:
         _RECORDING.tally = prev
+        if stream is not None:
+            _STREAM_TALLIES.pop(stream, None)
 
 
 def count_replay(tally: dict):

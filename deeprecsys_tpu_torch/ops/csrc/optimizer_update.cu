@@ -14,7 +14,9 @@
 //   adagrad: a = a + (g * g); u = rsqrt(a + 1e-7); u = (u * g) * -lr;
 //            p = p + u
 //   adam:    m = (m * b1) + (g * (1 - b1)); v = (v * b2) + ((g * g) * (1 - b2));
-//            u = (m * inv_bc1) / (sqrt(v * inv_bc2) + 1e-8); p = p + (u * -lr)
+//            u = (m / bc1) / (sqrt(v / bc2) + 1e-8); p = p + (u * -lr),
+//            bc = 1 - b^count in f32 (optax's bias corrections), each
+//            rounded to the leaf's dtype before it divides (optax casts it)
 // Bit for bit with the plain version on the card:
 //   * every product, sum, quotient and square root is written with an
 //     __f*_rn intrinsic, which nvcc never contracts into an FMA (the eager
@@ -22,11 +24,12 @@
 //   * rsqrt is rsqrtf, what ATen's CUDA rsqrt calls for float and, through
 //     float, for bfloat16 (c10/cuda/CUDAMathCompat.h; compared bit for bit
 //     with torch.rsqrt on the card);
-//   * ATen on CUDA divides a tensor by a Python scalar as a product with
-//     its reciprocal, 1.0f / float(s) taken on the host in f32 (measured:
-//     x / s equals x * (1 / s) at every element), so the bias corrections
-//     come in as inv_bc1 = 1 / bc1 and inv_bc2 = 1 / bc2 from the host and
-//     are multiplied, where the CPU's plain version divides;
+//   * adam's step count lives on the card (an int32 the step advances
+//     before the update), so a CUDA graph of the step replays with the
+//     count it reaches: every thread reads it and computes the bias
+//     corrections with powf, as torch.pow does for the plain version on
+//     the card, and divides by them (__fdiv_rn; ATen divides by a tensor
+//     on the card, where it multiplied by the reciprocal of a host float);
 //   * bfloat16 leaves: each step computes in f32 from the bf16 operands and
 //     rounds its result to bf16 (round to nearest even), as each eager op
 //     on a bf16 tensor does.
@@ -74,7 +77,13 @@ struct Leaves {
 };
 
 struct Hyper {
-  float neg_lr, b1, omb1, b2, omb2, inv_bc1, inv_bc2, eps;
+  float neg_lr, b1, omb1, b2, omb2, eps;
+  const int* count;  // adam's step count (on the card), null for sgd and adagrad
+};
+
+// adam's bias corrections 1 - b^count in f32, each in the leaf's dtype.
+struct BiasCorrections {
+  float bc1, bc2;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -93,9 +102,20 @@ __device__ __forceinline__ T to_t(float x) {
   else return x;
 }
 
+template <int O, typename T>
+__device__ __forceinline__ BiasCorrections bias_corrections(const Hyper& h) {
+  if constexpr (O != kAdam) {
+    return {1.f, 1.f};
+  } else {
+    const float c = static_cast<float>(__ldg(h.count));
+    return {rnd<T>(__fsub_rn(1.f, powf(h.b1, c))), rnd<T>(__fsub_rn(1.f, powf(h.b2, c)))};
+  }
+}
+
 // One element: p, s1, s2 updated in place (f32 values of T, already rounded).
 template <int O, typename T>
-__device__ __forceinline__ void step(float& p, float g, float& s1, float& s2, const Hyper& h) {
+__device__ __forceinline__ void step(float& p, float g, float& s1, float& s2, const Hyper& h,
+                                     const BiasCorrections& bc) {
   if constexpr (O == kSgd) {
     p = rnd<T>(__fadd_rn(p, rnd<T>(__fmul_rn(g, h.neg_lr))));
   } else if constexpr (O == kAdagrad) {
@@ -107,8 +127,8 @@ __device__ __forceinline__ void step(float& p, float g, float& s1, float& s2, co
     s1 = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(s1, h.b1)), rnd<T>(__fmul_rn(g, h.omb1))));
     s2 = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(s2, h.b2)),
                           rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(g, g)), h.omb2))));
-    const float a = rnd<T>(__fmul_rn(s1, h.inv_bc1));
-    const float s = rnd<T>(__fadd_rn(rnd<T>(__fsqrt_rn(rnd<T>(__fmul_rn(s2, h.inv_bc2)))),
+    const float a = rnd<T>(__fdiv_rn(s1, bc.bc1));
+    const float s = rnd<T>(__fadd_rn(rnd<T>(__fsqrt_rn(rnd<T>(__fdiv_rn(s2, bc.bc2)))),
                                      h.eps));
     const float u = rnd<T>(__fmul_rn(rnd<T>(__fdiv_rn(a, s)), h.neg_lr));
     p = rnd<T>(__fadd_rn(p, u));
@@ -118,11 +138,11 @@ __device__ __forceinline__ void step(float& p, float g, float& s1, float& s2, co
 template <int O, typename T>
 __device__ __forceinline__ void update_one(T* __restrict__ p, const T* __restrict__ g,
                                            T* __restrict__ s1, T* __restrict__ s2, int64_t i,
-                                           const Hyper& h) {
+                                           const Hyper& h, const BiasCorrections& bc) {
   float pv = to_float(p[i]);
   float a = O == kSgd ? 0.f : to_float(s1[i]);
   float b = O == kAdam ? to_float(s2[i]) : 0.f;
-  step<O, T>(pv, to_float(g[i]), a, b, h);
+  step<O, T>(pv, to_float(g[i]), a, b, h, bc);
   p[i] = to_t<T>(pv);
   if constexpr (O != kSgd) s1[i] = to_t<T>(a);
   if constexpr (O == kAdam) s2[i] = to_t<T>(b);
@@ -168,14 +188,14 @@ struct Vec {
 template <int O, typename T>
 __device__ __forceinline__ void update_vec(T* __restrict__ p, const T* __restrict__ g,
                                            T* __restrict__ s1, T* __restrict__ s2, int64_t i,
-                                           const Hyper& h) {
+                                           const Hyper& h, const BiasCorrections& bc) {
   Vec<T> pv, gv, av{}, bv{};  // av, bv: zeros where the optimizer has no such state
   pv.load(p + i);
   gv.load(g + i);
   if constexpr (O != kSgd) av.load(s1 + i);
   if constexpr (O == kAdam) bv.load(s2 + i);
 #pragma unroll
-  for (int k = 0; k < Vec<T>::kN; ++k) step<O, T>(pv.v[k], gv.v[k], av.v[k], bv.v[k], h);
+  for (int k = 0; k < Vec<T>::kN; ++k) step<O, T>(pv.v[k], gv.v[k], av.v[k], bv.v[k], h, bc);
   pv.store(p + i);
   if constexpr (O != kSgd) av.store(s1 + i);
   if constexpr (O == kAdam) bv.store(s2 + i);
@@ -185,6 +205,7 @@ template <int O, typename T>
 __global__ void __launch_bounds__(kThreads)
 optimizer_update_kernel(const Leaves leaves, const Hyper h) {
   constexpr int V = Vec<T>::kN;
+  const BiasCorrections bc = bias_corrections<O, T>(h);
   const int64_t n_chunks = leaves.first_chunk[leaves.count];
   for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
     int leaf = 0;
@@ -199,10 +220,10 @@ optimizer_update_kernel(const Leaves leaves, const Hyper h) {
     if (leaves.vec[leaf]) {
       const int64_t vend = begin + (end - begin) / V * V;
       for (int64_t j = begin + (int64_t)threadIdx.x * V; j < vend; j += kThreads * V)
-        update_vec<O, T>(p, g, s1, s2, j, h);
+        update_vec<O, T>(p, g, s1, s2, j, h, bc);
       i = vend + threadIdx.x;
     }
-    for (; i < end; i += kThreads) update_one<O, T>(p, g, s1, s2, i, h);
+    for (; i < end; i += kThreads) update_one<O, T>(p, g, s1, s2, i, h, bc);
   }
 }
 
@@ -232,16 +253,19 @@ extern "C" {
 // bfloat16); opt 0 = sgd, 1 = adagrad, 2 = adam. p, g, s1, s2 and n are
 // host arrays of n_leaves entries: the param, its gradient, the state
 // (adagrad: s1 the accumulator; adam: s1 mu, s2 nu; null where the
-// optimizer has none), and the leaf's elements. Launches once for every
-// kMaxLeaves leaves. Returns the first nonzero cudaError_t (0 = success);
-// the caller validates shapes, dtypes and contiguity.
+// optimizer has none), and the leaf's elements. count: adam's step count,
+// an int32 on the card, already advanced for this step (null for sgd and
+// adagrad). Launches once for every kMaxLeaves leaves. Returns the first
+// nonzero cudaError_t (0 = success); the caller validates shapes, dtypes
+// and contiguity.
 int drs_optimizer_update(int opt, int dtype, int n_leaves, void* const* p,
                          const void* const* g, void* const* s1, void* const* s2,
                          const int64_t* n, float neg_lr, float b1, float omb1, float b2,
-                         float omb2, float inv_bc1, float inv_bc2, float eps, void* stream) {
-  if (opt < kSgd || opt > kAdam || dtype < 0 || dtype > 1 || n_leaves < 0)
+                         float omb2, float eps, const int* count, void* stream) {
+  if (opt < kSgd || opt > kAdam || dtype < 0 || dtype > 1 || n_leaves < 0 ||
+      (opt == kAdam && count == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Hyper h = {neg_lr, b1, omb1, b2, omb2, inv_bc1, inv_bc2, eps};
+  const Hyper h = {neg_lr, b1, omb1, b2, omb2, eps, count};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int at = 0; at < n_leaves; at += kMaxLeaves) {
     Leaves l = {};

@@ -19,14 +19,19 @@ op by op in optax's order; the state has the params' dtype:
   1e-7)). (optax's ``where(acc > 0, ...)`` is always true here: acc >= 0.1.)
 - adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu;
   p += -lr * (mu / bc1) / (sqrt(nu / bc2) + eps), b1 0.9, b2 0.999, eps
-  1e-8, the bias corrections bc = 1 - b^count in f32 (``adam_bias_corrections``).
+  1e-8, the bias corrections bc = 1 - b^count in f32 (``adam_bias_corrections``),
+  each cast to the leaf's dtype before it divides, as optax casts it.
+
+adam's step count is an int32 scalar on the params' device, advanced in
+place by ``Optimizer.update`` before the update reads it (optax's
+``count``): a CUDA graph of the trainer's step then replays with the count
+each replay reaches, where a host int would be frozen at its captured value.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from deeprecsys_tpu_torch.ops import _build
@@ -38,19 +43,28 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def adam_bias_corrections(count: int) -> tuple[float, float]:
-    """``(1 - b1^count, 1 - b2^count)`` computed in f32, as optax does."""
-    f32 = np.float32
-    return (float(f32(1) - f32(ADAM_B1) ** f32(count)),
-            float(f32(1) - f32(ADAM_B2) ** f32(count)))
+def adam_bias_corrections(count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(1 - b1^count, 1 - b2^count)`` computed in f32 from the int32 step
+    count, as optax does: f32 scalars on the count's device (``torch.pow``,
+    whose f32 ``powf`` K10 also calls on the card)."""
+    c = count.to(torch.float32)
+    return tuple(1 - torch.pow(torch.full((), b, dtype=torch.float32, device=c.device), c)
+                 for b in (ADAM_B1, ADAM_B2))
+
+
+def _bias_corrected(m: torch.Tensor, bc: torch.Tensor) -> torch.Tensor:
+    """``m / bc`` with ``bc`` cast to m's dtype first (optax's ``t /
+    bias_correction.astype(t.dtype)``), divided in f32 and rounded to m's
+    dtype: the same bits on the CPU and the card."""
+    return (m.float() / bc.to(m.dtype).float()).to(m.dtype)
 
 
 def optimizer_update_reference(name: str, params: list, grads: list, states: list,
-                               learning_rate: float, count: int = 0):
+                               learning_rate: float, count: torch.Tensor | None = None):
     """Plain PyTorch update, op by op in optax's order, in place.
     ``states``: ``[]`` (sgd), ``[accs]`` (adagrad), ``[mus, nus]`` (adam),
-    each a list parallel to ``params``; ``count``: adam's step count, already
-    advanced for this step."""
+    each a list parallel to ``params``; ``count``: adam's step count, an
+    int32 scalar tensor, already advanced for this step."""
     lr = learning_rate
     if name == "sgd":
         for p, g in zip(params, grads):
@@ -67,7 +81,7 @@ def optimizer_update_reference(name: str, params: list, grads: list, states: lis
         for p, g, mu, nu in zip(params, grads, states[0], states[1]):
             mu.mul_(b1).add_(g * (1 - b1))
             nu.mul_(b2).add_((g * g) * (1 - b2))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+            u = _bias_corrected(mu, bc1) / (torch.sqrt(_bias_corrected(nu, bc2)) + ADAM_EPS)
             p.add_(u * -lr)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
@@ -82,9 +96,18 @@ def _declare(lib: ctypes.CDLL):
         ctypes.POINTER(ctypes.c_int64),               # elements a leaf
         ctypes.c_float, ctypes.c_float, ctypes.c_float,  # -lr, b1, 1 - b1
         ctypes.c_float, ctypes.c_float,               # b2, 1 - b2
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,  # 1 / bc1, 1 / bc2, eps
+        ctypes.c_float, ctypes.c_void_p,              # eps, adam's count (on the card)
         ctypes.c_void_p,                              # stream
     ]
+
+
+def _check_count(name: str, count, device: torch.device):
+    if name != "adam":
+        return
+    if not (isinstance(count, torch.Tensor) and count.shape == () and count.dtype == torch.int32
+            and count.device == device):
+        raise ValueError(f"adam takes its step count as an int32 scalar tensor on {device}; "
+                         f"got {count!r}")
 
 
 def _check(name: str, params: list, grads: list, states: list):
@@ -109,7 +132,7 @@ def _check(name: str, params: list, grads: list, states: list):
 
 
 def optimizer_update(name: str, params: list, grads: list, states: list,
-                     learning_rate: float, count: int = 0):
+                     learning_rate: float, count: torch.Tensor | None = None):
     """One step of optimizer ``name`` over every leaf, in place.
 
     Args:
@@ -119,7 +142,9 @@ def optimizer_update(name: str, params: list, grads: list, states: list,
       states: ``[]`` (sgd), ``[accs]`` (adagrad), ``[mus, nus]`` (adam),
         each a list of tensors of the params' shapes and dtypes.
       learning_rate: the step's.
-      count: adam's step count, already advanced for this step.
+      count: adam's step count, an int32 scalar tensor on the params'
+        device, already advanced for this step (K10 reads it on the card);
+        unused by sgd and adagrad.
 
     CPU tensors take ``optimizer_update_reference``. CUDA tensors launch K10
     (one launch for every leaf of one dtype, on the current stream) and
@@ -132,6 +157,7 @@ def optimizer_update(name: str, params: list, grads: list, states: list,
     if not params:
         return None
     device = params[0].device
+    _check_count(name, count, device)
     if device.type == "cpu":
         return optimizer_update_reference(name, params, grads, states, learning_rate, count)
     if device.type != "cuda":
@@ -139,11 +165,9 @@ def optimizer_update(name: str, params: list, grads: list, states: list,
     if not all(t.is_contiguous() for leaf in zip(params, *states) for t in leaf):
         raise ValueError("params and optimizer state must be contiguous")
     grads = [g.contiguous() for g in grads]
-    bc1, bc2 = adam_bias_corrections(count) if name == "adam" else (1.0, 1.0)
-    f32 = np.float32
     hyper = (-learning_rate, ADAM_B1, 1 - ADAM_B1, ADAM_B2, 1 - ADAM_B2,
-             float(f32(1) / f32(bc1)), float(f32(1) / f32(bc2)),
-             ADAM_EPS if name == "adam" else ADAGRAD_EPS)
+             ADAM_EPS if name == "adam" else ADAGRAD_EPS,
+             count.data_ptr() if name == "adam" else None)
     lib = _build.load("optimizer_update", _declare)
     launched = False
     for dtype, code in _DTYPE_CODES.items():
@@ -173,7 +197,8 @@ class Optimizer:
     in place by ``optimizer_update``: kernel K10 on the card, optax's update
     written out op by op on the CPU (the formulas are above). The state
     mirrors the params in their dtype, as optax's does: adagrad a list of
-    accumulators (starting at 0.1), adam ``{"count", "mu", "nu"}``. The
+    accumulators (starting at 0.1), adam ``{"count", "mu", "nu"}`` with the
+    count an int32 scalar on the params' device, advanced in place. The
     single-device trainer and the mesh trainers (``parallel/sharding.py::
     MeshOptimizer``) both take it.
     """
@@ -187,7 +212,9 @@ class Optimizer:
         if self.name == "adagrad":
             return [torch.full_like(p, 0.1) for p in leaves]
         if self.name == "adam":
-            return {"count": 0, "mu": [torch.zeros_like(p) for p in leaves],
+            device = leaves[0].device if leaves else torch.device("cpu")
+            return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                    "mu": [torch.zeros_like(p) for p in leaves],
                     "nu": [torch.zeros_like(p) for p in leaves]}
         return None
 
@@ -198,7 +225,7 @@ class Optimizer:
         elif self.name == "adagrad":
             optimizer_update("adagrad", leaves, grads, [state], self.lr)
         else:
-            state["count"] += 1
+            state["count"].add_(1)
             optimizer_update("adam", leaves, grads, [state["mu"], state["nu"]], self.lr,
                              count=state["count"])
         return state

@@ -1212,19 +1212,34 @@ def make_train_step(model: ModelFns, mesh: Mesh, has_dense: bool, learning_rate:
     computed by K10's sgd (``p += g * -lr``, the same bits: a negation is
     exact), one launch a device and dtype over the distinct tensors there.
     ``sigmoid_output`` tells "bce" which space the scores are in
-    (``loss_fn_for``)."""
+    (``loss_fn_for``).
+
+    As JAX compiles the step, ``jitted(sp)`` runs it through
+    ``train_programs.StepPrograms`` bound to ``sp`` (a CUDA graph a batch
+    shape on a card, replayed on the programs' stream), unless
+    ``train_programs.eager_reason(mesh)`` keeps it eager (a mesh across
+    processes or cards); the step then takes that ``sp`` only."""
     from deeprecsys_tpu_torch.ops.optimizer import Optimizer
+    from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason
 
     dense_step = make_mesh_dense_step(model, mesh, loss_fn_for(loss, sigmoid_output))
 
     def jitted(sp: ShardedParams) -> Callable:
         opt = MeshOptimizer(Optimizer("sgd", learning_rate),
                             [t for copies in leaf_copies(sp) for t in copies])
+        programs = None if eager_reason(mesh) else StepPrograms(
+            lambda batch, targets: dense_step(sp, opt, batch, targets), mesh.home)
 
-        def step(sp: ShardedParams, batch: Batch, targets: torch.Tensor):
+        def step(sp_in: ShardedParams, batch: Batch, targets: torch.Tensor):
             _check_dense(has_dense, batch)
+            if sp_in is not sp:
+                raise ValueError("the step takes the ShardedParams it was built for "
+                                 "(make_train_step(...)(sp)); build one for these")
+            if programs is not None:
+                return sp, programs(batch, targets)
             return sp, dense_step(sp, opt, batch, torch.as_tensor(targets))
 
+        step.programs = programs
         return step
 
     return jitted

@@ -59,6 +59,40 @@ from deeprecsys_tpu_torch.ops import _build
 BUILD_LOCK = threading.Lock()
 
 
+def capture(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream) -> tuple:
+    """Capture ``fn()`` as a CUDA graph into ``pool`` on ``stream`` (the
+    current one), ``capture_error_mode="thread_local"``; a capture that fails
+    raises. The launches the captured calls make (on this thread, or by
+    another thread onto ``stream``: autograd's worker runs a backward there)
+    are tallied, not counted. Returns ``(graph, out, launches, ms)``: the
+    graph, ``fn``'s static output, the tally a replay adds
+    (``_build.count_replay``) and the capture's host ms."""
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with _build.recording_launches(stream.cuda_stream) as launches:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture was invalidated with fn
+            raise
+        graph.capture_end()
+    return graph, out, launches, (time.perf_counter() - t0) * 1000.0
+
+
+def pool_bytes(pool):
+    """Device bytes a graph pool holds (its segments in the caching
+    allocator's snapshot); None without a pool (the CPU)."""
+    if pool is None:
+        return None
+    pool = tuple(pool)
+    return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 class StaticInputs:
     """Device buffers for every input a program reads, at the engine's
     largest bucket: the rows (``dense``, ``indices``, with ``masked`` the
@@ -153,25 +187,12 @@ class BucketProgram:
             return 1
         self.load(host)
         eager = self.forward(self.inputs)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with _build.recording_launches() as launches:
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                out = self.forward(self.inputs)
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture was invalidated with the forward
-                raise
-            graph.capture_end()
-        self.capture_ms = (time.perf_counter() - t0) * 1000.0
-        self.graph, self.out, self.launches = graph, out, launches
+        self.graph, self.out, self.launches, self.capture_ms = capture(
+            lambda: self.forward(self.inputs), pool, torch.cuda.current_stream(self.device))
         self.graph.replay()
         _build.count_replay(self.launches)
-        self.warm_err = float((out.float() - eager.float()).abs().max().item())
-        self.first_scores = out.float().cpu().numpy()
+        self.warm_err = float((self.out.float() - eager.float()).abs().max().item())
+        self.first_scores = self.out.float().cpu().numpy()
         return 2
 
 
@@ -208,13 +229,8 @@ class ProgramSet:
         return len(self.programs)
 
     def pool_bytes(self):
-        """Device bytes the set's graph pool holds (its segments in the
-        caching allocator's snapshot); None on the CPU."""
-        if self.pool is None:
-            return None
-        pool = tuple(self.pool)
-        return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        """Device bytes the set's graph pool holds; None on the CPU."""
+        return pool_bytes(self.pool)
 
 
 def pad_cold(split: dict, c_pad: int, n_bags: int) -> dict:

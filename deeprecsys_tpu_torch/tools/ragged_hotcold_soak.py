@@ -2,7 +2,7 @@
 fires under drift, under sustained concurrent HTTP load.
 
     python -m deeprecsys_tpu_torch.tools.ragged_hotcold_soak [--minutes 15]
-        [--phase-requests 300] [--device cuda|cpu] [--out PATH]
+        [--phase-requests 300] [--min-requests 0] [--device cuda|cpu] [--out PATH]
 
 Counterpart of ``tools/ragged_hotcold_soak.py:41-178``. Every request's
 CSR lengths and values become a slot mask that the native splitter's
@@ -19,6 +19,11 @@ collapses and the engine refreshes again and again; lengths uniform in
 0.5, a refresh check every 24 executions over a window of 8. It serves on
 the card (``engine_backend="gpu"``: K6 and the native splitter on the
 serve thread) unless ``--device cpu`` is given.
+
+``--min-requests N`` keeps the clients sending past ``--minutes`` until N
+requests have been sent: a short run on a loaded host then still reaches
+the refresh checks (the first one comes after 24 executions), where a time
+bound alone may not.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--phase-requests", type=int, default=300,
                     help="rotate the zipf head every N requests")
+    ap.add_argument("--min-requests", type=int, default=0,
+                    help="keep sending past --minutes until N requests were sent")
     ap.add_argument("--table-scale", type=int, default=100)
     ap.add_argument("--sample-s", type=float, default=30.0, help="progress line interval")
     device_arg(ap)
@@ -91,8 +98,10 @@ def main(argv=None) -> dict:
 
     def client(cid: int):
         rng = np.random.default_rng(1000 + cid)
-        while time.time() < stop_at:
+        while True:
             with lock:
+                if time.time() >= stop_at and counter[0] >= args.min_requests:
+                    break
                 counter[0] += 1
                 phase = counter[0] // args.phase_requests
             # The same skew, other head rows each phase: live coverage
@@ -145,7 +154,8 @@ def main(argv=None) -> dict:
     lat = np.asarray(stats["lat_ms"])
     record = {
         "minutes": args.minutes, "clients": args.clients, "batch": args.batch,
-        "phase_requests": args.phase_requests, "table_scale": args.table_scale,
+        "phase_requests": args.phase_requests, "min_requests": args.min_requests,
+        "table_scale": args.table_scale,
         "device": str(device), "card": card,
         "requests_ok": stats["ok"], "errors": stats["errors"], "hot_refreshes": refreshes,
         "p50_ms": float(np.percentile(lat, 50)) if lat.size else None,

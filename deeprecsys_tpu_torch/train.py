@@ -33,7 +33,13 @@ default (ROADMAP.md Queue 2 item 5 holds its measurement on the card).
 
 JAX's jitted steps donate the params and the optimizer state; the port
 updates them in place instead (``Trainer.params`` and ``opt_state`` are
-the same tensors after a step).
+the same tensors after a step). JAX compiles each step once a batch shape;
+the port's ``Trainer`` runs its steps through ``train_programs.py``'s
+``StepPrograms``: on a card the first step of a shape runs eagerly, is then
+captured as a CUDA graph, and every later step of the shape is a replay,
+on the trainer's own stream. A mesh across processes or cards, and K5's
+bf16 window, stay eager (``Trainer.eager_reason``, decided when the trainer
+is built).
 
     python -m deeprecsys_tpu_torch.train --model rm1 --steps 200 \\
         [--sparse_tables] [--criteo train.txt] [--save ckpt] \\
@@ -43,7 +49,9 @@ the same tensors after a step).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -61,6 +69,7 @@ from deeprecsys_tpu_torch.parallel.sharding import (
     MeshOptimizer, Replicated, Sharded, ShardedParams, all_gather_slices, leaf_copies,
     leaf_groups, loss_fn_for, make_mesh_dense_step, mesh_loss, pooled_on_row, reduce_copies,
     shard_params, sharded_apply, split_batch, split_targets, unshard_params, with_grad)
+from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 from deeprecsys_tpu_torch.utils.metrics_ml import auc
 
@@ -88,8 +97,11 @@ def dedup_touched_rows(flat: torch.Tensor, g_rows: torch.Tensor):
 
     Returns ``(uids (N,), summed (N, d) f32)``: one entry a unique row in
     ascending order, then an inert tail (uid 0, gradient 0: zero-adds on
-    row 0). On the card the segment sum's adds are atomic, in no fixed
-    order."""
+    row 0). The unique ids are a scatter of the sorted ids at their segment
+    ids, where every member of a run writes the same value: no shape
+    depends on the data, so nothing is read back from the card and the
+    step can be captured as a CUDA graph. On the card the segment sum's
+    adds are atomic, in no fixed order."""
     N, d = g_rows.shape
     sid, order = torch.sort(flat, stable=True)
     newrun = torch.ones((N,), dtype=torch.bool, device=flat.device)
@@ -97,8 +109,7 @@ def dedup_touched_rows(flat: torch.Tensor, g_rows: torch.Tensor):
     seg = torch.cumsum(newrun, 0) - 1
     summed = torch.zeros((N, d), dtype=torch.float32, device=g_rows.device)
     summed.index_add_(0, seg, g_rows.float().index_select(0, order))
-    uids = torch.zeros_like(flat)
-    uids[seg[newrun]] = sid[newrun]
+    uids = torch.zeros_like(flat).scatter_(0, seg, sid)
     return uids, summed
 
 
@@ -351,6 +362,13 @@ class Trainer:
     ``unshard_params``' full tensors, what checkpoints and
     ``export_serving_params`` write (across processes every process calls
     it; rank 0 writes).
+
+    Steps go through ``step_program`` (``train_programs.StepPrograms``: a
+    CUDA graph a batch shape on a card, replayed on the trainer's stream,
+    where evaluation runs too; the eager step over static buffers on the
+    CPU), or, where ``eager_reason`` says why, straight to the step function
+    on the caller's streams (``step_program`` None). Assigning ``params`` or
+    ``opt_state`` drops the captured programs.
     """
 
     def __init__(
@@ -397,11 +415,54 @@ class Trainer:
             params = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
         else:
             params = bridge.tree_map(lambda t: t.detach().to(self.device, copy=True), params)
+        self.step_program = None
         if mesh is not None:
             self._init_mesh(params, learning_rate, table_learning_rate, dedup)
-            return
+        else:
+            self._init_one_device(params, learning_rate, table_learning_rate, dedup)
+        table = self.params.first_entry()["tables"] if mesh is not None else self.params["tables"]
+        self.eager_reason = eager_reason(mesh, table.dtype, sparse_tables)
+        if self.eager_reason is None:
+            # A weak reference: the programs must not keep the trainer (its
+            # tables, state and graph pool) alive in a cycle after its last
+            # reference goes.
+            trainer = weakref.ref(self)
+
+            def step(batch: Batch, targets: torch.Tensor) -> torch.Tensor:
+                tr = trainer()
+                return tr._step(tr.params, tr.opt_state, batch, targets)
+
+            self.step_program = StepPrograms(step, self.device)
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        self._params = value
+        self._drop_programs()
+
+    @property
+    def opt_state(self):
+        return self._opt_state
+
+    @opt_state.setter
+    def opt_state(self, value):
+        self._opt_state = value
+        self._drop_programs()
+
+    def _drop_programs(self):
+        """The captured programs read the tensors they were captured with:
+        new params or state drop them."""
+        if getattr(self, "step_program", None) is not None:
+            self.step_program.reset()
+
+    def _init_one_device(self, params: dict, learning_rate: float, table_learning_rate,
+                         dedup: bool):
+        cfg = self.cfg
         self.params = params
-        if sparse_tables:
+        if self.sparse_tables:
             rest = {k: v for k, v in params.items() if k != "tables"}
             table_acc = torch.zeros((params["tables"].shape[0],), dtype=torch.float32,
                                     device=self.device)
@@ -434,15 +495,19 @@ class Trainer:
         ``unshard_params`` (host copies) on a mesh."""
         return self.params if self.mesh is None else unshard_params(self.params)
 
-    def _targets(self, labels: np.ndarray) -> torch.Tensor:
+    def _targets(self, labels: np.ndarray, on_host: bool = False) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(labels, dtype=np.float32))
         if t.ndim == 1:
             t = t[:, None].expand(t.shape[0], self.cfg.out_dim)
-        return t.contiguous().to(self.device)
+        return t.contiguous() if on_host else t.contiguous().to(self.device)
 
     def step(self, host: Batch, labels) -> torch.Tensor:
         """One train step on a host batch and its (B,) or (B, out_dim)
-        labels; returns the loss (a device scalar, not synchronised)."""
+        labels; returns the loss (a device scalar, not synchronised): the
+        batch shape's program (``step_program``), or the eager step where
+        ``eager_reason`` keeps it so."""
+        if self.step_program is not None:
+            return self.step_program(host, self._targets(labels, on_host=True))
         return self._step(self.params, self.opt_state, host.to(self.device),
                           self._targets(labels))
 
@@ -471,7 +536,11 @@ class Trainer:
         return (host.indices[:, 0, 0] % 2).astype(np.float32)
 
     def _scores(self, host: Batch) -> np.ndarray:
-        with torch.inference_mode():
+        """The forward's scores on the host: eager (JAX jits it; the port
+        captures only the steps), on the trainer's stream."""
+        on_stream = (self.step_program.on_stream() if self.step_program is not None
+                     else contextlib.nullcontext())
+        with on_stream, torch.inference_mode():
             if self.mesh is not None:
                 out = self._apply(self.params, host.to(self.device))
             else:

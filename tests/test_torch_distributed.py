@@ -114,6 +114,7 @@ def _runs(mesh_of, params: dict, axes) -> dict:
             losses = tr.fit(STEPS, batch_size=TRAIN_BATCH, seed=1).losses
             full = bridge.flatten(unshard_params(tr.params))
             out[(mode, D, M)] = (losses, {k: v.numpy() for k, v in full.items()})
+            out[("eager", mode, D, M)] = (tr.step_program is None, tr.eager_reason)
     return out
 
 
@@ -496,6 +497,18 @@ def test_trainer_matches_single_process_mesh(runs, mode, D, M):
         for key, w in want.items():
             np.testing.assert_allclose(got[key], w, rtol=PARAM_RTOL, atol=PARAM_ATOL,
                                        err_msg=f"rank {rank} {key}")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("D,M", AXES)
+def test_trainer_across_processes_stays_eager(runs, mode, D, M):
+    """Decided when the trainer is built: a mesh across processes steps
+    eagerly (gloo's collectives cannot be captured), with its reason; the
+    same mesh in one process steps through its programs."""
+    for rank, res in runs["workers"].items():
+        eager, reason = res[("eager", mode, D, M)]
+        assert eager and "across processes" in reason, rank
+    assert runs["single"][("eager", mode, D, M)] == (False, None)
 
 
 @pytest.mark.parametrize("mode", MODES)

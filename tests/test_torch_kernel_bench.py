@@ -329,7 +329,8 @@ def test_k10_library_computes_the_update(name):
     plain_states = [[t.clone() for t in s] for s in states]
     for count in (1, 2):
         lib(params, grads, states)
-        optimizer_update_reference(name, want, grads, plain_states, 0.05, count)
+        optimizer_update_reference(name, want, grads, plain_states, 0.05,
+                                   torch.tensor(count, dtype=torch.int32))
     for a, b in zip(params, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 

@@ -529,6 +529,7 @@ def _k10_case(cuda, name, dt, sizes, seed, unaligned=False):
 
 
 def _k10_bit_for_bit(name, params, grads, states, count):
+    count = torch.tensor(count, dtype=torch.int32, device=params[0].device)
     ps, ss = [p.clone() for p in params], [[t.clone() for t in s] for s in states]
     before = optimizer_update.kernel_launches
     optimizer_update(name, ps, grads, ss, 0.05, count)
@@ -545,11 +546,12 @@ def _k10_bit_for_bit(name, params, grads, states, count):
 def test_optimizer_update_kernel_is_bit_for_bit(cuda, name, dt, unaligned):
     """Odd sizes (one element, under a vector, a vector and a tail, past
     the 65,536-element chunk), two steps (adam's bias corrections at counts
-    1 and 2), aligned leaves and leaves one element past a 16-byte boundary
-    (the element-by-element path)."""
+    1 and 2, then a step at count 1000: the kernel's powf against
+    torch.pow), aligned leaves and leaves one element past a 16-byte
+    boundary (the element-by-element path)."""
     params, grads, states = _k10_case(cuda, name, dt, (1, 3, 7, 4097, 65536 * 2 + 5, 1000003),
                                       seed=3, unaligned=unaligned)
-    for count in (1, 2):
+    for count in (1, 2, 1000):
         _k10_bit_for_bit(name, params, grads, states, count)
 
 

@@ -314,7 +314,7 @@ def test_optimizer_update_reference_matches_optax(name, dtype):
         upd, state = tx.update({k: jnp.asarray(exact(v)) for k, v in g.items()}, state, jp)
         jp = optax.apply_updates(jp, upd)
         optimizer_update_reference(name, leaves, [as_dt(g[k]) for k in ("w", "b")], states, 0.05,
-                                   count)
+                                   torch.tensor(count, dtype=torch.int32))
     if dtype == "float32":
         got = leaves + [t for s in states for t in s]
         want = [jp[k] for k in ("w", "b")] + [t for s in _optax_state_lists(name, state) for t in s]
