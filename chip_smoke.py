@@ -405,7 +405,6 @@ PROGRAM_ENGINES = (("rm1", "none", "xla"), ("rm1", "int8", "xla"),
 PROGRAM_HOT_ROWS = 4096  # the hot/cold engine's set: its sample stays 8 batches
 CAPACITY_EXECUTIONS = 1000
 CAPACITY_ROWS = 32
-SPLIT_KEYS = ("hot_sel", "hot_mask", "cold_ids", "cold_seg")
 TRAIN_FIXTURE = ROOT / "tests" / "golden" / "torch_port_train.npz"
 TRAIN_FAMILIES = ("rm1", "wnd", "mtwnd", "ncf", "din", "dien")
 TRAIN_BATCH = 128  # the train CLI's default batch
@@ -501,6 +500,12 @@ MESH_SHARDS = 4
 MESH_AXES = ((1, 4), (2, 2), (4, 1))
 K6_TIMED_BATCHES = 4  # K6 on a shard timed on the zipf batches after the hot set's warm-up
 MESH_KERNEL_MODELS = ("rm1", "rm2")
+# Phase 16's served rm1 engine: one engine over each of these meshes of the
+# card at the canonical point, its programs captured; beside it the eager
+# 2x2 engine, measured before mesh engines captured their programs (PERF.md
+# section 5, an NVIDIA H100 80GB HBM3 at 700 W).
+MESH_SERVING_AXES = ((2, 2), (1, 4))
+MESH_EAGER_2X2 = {"measured_qps": 62.49, "p95_ms": 1199.649}
 # The window kernel and K6's shard mode of each table layout.
 SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
          "int8_rowwise": "embedding_bag_int8_rowwise_shard"}
@@ -1467,18 +1472,24 @@ def check_programs(device, eng, model, params, what: str) -> float:
     """Each of ``eng``'s programs: its first replay (at warm-up) against
     ``model.apply`` with ``params`` on the rows it was warmed on (a hot/cold
     program: the hot/cold model's eager forward on its split and the
-    engine's params), and against the eager forward the engine ran before
-    capturing it, within bf16_atol; on a card every program must hold a
-    graph. Returns the max |err|. Call after the path's launches were read:
-    these forwards launch too."""
+    engine's params; on a mesh the mesh split and the sharded params), and
+    against the eager forward the engine ran before capturing it, within
+    bf16_atol; on a card every program must hold a graph and the engine no
+    eager reason. Returns the max |err|. Call after the path's launches
+    were read: these forwards launch too."""
+    if device.type == "cuda" and (eng.eager_reason is not None
+                                  or eng.graph_captures < len(eng.programs)):
+        raise AssertionError(f"{what}: {eng.graph_captures} graphs for {len(eng.programs)} "
+                             f"programs (eager reason: {eng.eager_reason})")
     worst = 0.0
     with torch.inference_mode():
         for prog in eng.programs:
             rows = eng.warm_inputs(prog.key)
             dense = rows["dense"].to(device) if "dense" in rows else None
             if prog.key[0] == "hotcold":
+                keys = ("hot_sel", "hot_mask", eng._static.cold_key, "cold_seg")
                 out = eng._hotcold.apply(eng.params, Batch(dense=dense, indices=None),
-                                         {k: rows[k].to(device) for k in SPLIT_KEYS})
+                                         {k: rows[k].to(device) for k in keys})
             else:
                 mask = rows["mask"].to(device) if "mask" in rows else None
                 out = model.apply(params, Batch(dense=dense, indices=rows["indices"].to(device),
@@ -4612,12 +4623,38 @@ def mesh_layouts(device, fwd: dict, card: str, errs: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+def _mesh_tally(device, eng, want, what: str) -> str:
+    """On a card every program of the mesh engine ``eng`` holds a graph
+    whose capture tallied ``want`` (launches by kernel name, one a shard;
+    or ``want(key)`` for program ``key``), so the launches read around its
+    run are its executions times that tally. Returns the line that says so
+    (the CPU captures nothing)."""
+    if device.type != "cuda":
+        return "no capture on the CPU"
+    for p in eng.programs:
+        got = {w.__name__: n for w, n in p.launches.items()}
+        expected = want(p.key) if callable(want) else want
+        if p.graph is None or got != expected:
+            raise AssertionError(f"{what}: program {p.key} captured {p.graph is not None}, "
+                                 f"tally {got}, expected {expected}")
+    return ("each program's capture tally one launch a shard, so launches = executions x "
+            "tally")
+
+
+def _mesh_programs_line(eng) -> str:
+    return (f"eager_reason {eng.eager_reason}; {_programs_line(eng)} (first set "
+            f"{eng.programs.capture_ms:.1f} ms)")
+
+
 def mesh_engine_payloads(device, fwd: dict, card: str, errs: dict) -> tuple[float, dict]:
     """Payload requests (32, 17 and 100 rows) and a ragged one (64 rows,
     masked) through one rm1 engine on a 2x2 mesh of the card (phase 5's
-    params): scores held to ``model.apply`` on the same rows (bf16_atol);
-    D*M window K1 launches an execution; the window K1 at every bucket's
-    slice, masked and not, held to its plain version."""
+    params), its programs captured at warm-up: scores held to
+    ``model.apply`` on the same rows (bf16_atol); D*M window K1 launches an
+    execution, each replay its capture's tally; each program's first
+    replay held to ``model.apply`` on its warm rows (``check_programs``);
+    the window K1 at every bucket's slice, masked and not, held to its
+    plain version."""
     cfg, model, params = fwd["cfg"], fwd["model"], fwd["params"]
     scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device), accept_ragged=True)
     data = RecDataGenerator(cfg, seed=40)
@@ -4647,58 +4684,86 @@ def mesh_engine_payloads(device, fwd: dict, card: str, errs: dict) -> tuple[floa
                        f"mesh payload engine ({ex} executions)")
     if eng.error is not None:
         raise AssertionError(f"mesh payload engine: {eng.error!r}")
+    tally = _mesh_tally(device, eng, {"embedding_bag_shard": mesh.size}, "mesh payload engine")
     worst = 0.0
     for i, p in enumerate(payloads):
         if got[i].error_code != ERR_OK:
             raise AssertionError(f"mesh payload {i}: error {got[i].error_code}")
         worst = max(worst, _check_close(got[i].scores, _forward(model, params, p, device),
                                         f"mesh payload {i}"))
+    prog = check_programs(device, eng, model, params, "rm1 2x2 payload engine")
     k1 = _bucket_windows(device, cfg, eng.params, eng.buckets, "rm1 2x2 payload engine", errs)
-    _log(f"[16 mesh] rm1 engine on a 2x2 mesh of one card (buckets {eng.buckets}): payloads "
+    _log(f"[16 mesh] rm1 engine on a 2x2 mesh of one card (buckets {eng.buckets}), ragged "
+         f"accepted: {_mesh_programs_line(eng)}; every program's first replay within bf16_atol "
+         f"of model.apply on its rows (max |err| {prog:.3e}, replay against the engine's own "
+         f"eager run {max((p.warm_err or 0.0) for p in eng.programs):.3e}); payloads "
          f"of 32, 17, 100 rows and a ragged one of 64 match model.apply (max |err| "
-         f"{worst:.3e}, limit bf16_atol); launches {counts} for {ex} executions; window K1 "
-         f"at each bucket's slice max |err| {k1:.3e} against its plain version [{card}]")
-    return worst, counts
+         f"{worst:.3e}, limit bf16_atol); launches {_nonzero(counts)} for {ex} executions "
+         f"({eng.warmup_executions} at warm-up), {tally}; window K1 at each bucket's slice max "
+         f"|err| {k1:.3e} against its plain version [{card}]")
+    return max(worst, prog), counts
 
 
 def mesh_serving(device, fwd: dict, single: dict, card: str, errs: dict) -> tuple[dict, dict]:
-    """rm1 (phase 5's params) through ``run_serving`` with one engine on a
-    2x2 mesh of the card at the canonical point, beside phase 6's
-    single-device engine; the window K1 at the engine's buckets held to its
-    plain version."""
+    """rm1 (phase 5's params) through ``run_serving`` with one engine on each
+    of ``MESH_SERVING_AXES``' meshes of the card at the canonical point, its
+    programs captured, beside phase 6's single-device engine and the eager
+    2x2 engine (``MESH_EAGER_2X2``); each program's first replay held to
+    ``model.apply`` on its warm rows; the window K1 at the engine's buckets
+    held to its plain version."""
     cfg = fwd["cfg"]
     scfg = ServingConfig(**SERVING_POINT, num_batches=SERVE_QUERIES,
                          engine_backend=_backend(device))
-    _reset_peak(device)
-    _reset_counts()
-    with _engines_of_runs() as engines:
-        res = run_serving(cfg, scfg, settle_s=0.1, params=fwd["params"],
-                          mesh=_cuda_mesh(device, 2, 2))
-    counts = _counts()
-    (eng,) = engines
-    if res.engine_errors or res.error_responses or res.num_responses != res.cpu_sub_requests:
-        raise AssertionError(f"mesh serving: {res.num_responses} responses for "
-                             f"{res.cpu_sub_requests}, errors {res.error_responses} "
-                             f"{res.engine_errors}")
-    _mesh_launch_check(counts, _want(embedding_bag_shard=4 * res.executions),
-                       f"mesh serving ({res.executions} executions)")
-    peak = _peak_gib(device)
-    k1 = _bucket_windows(device, cfg, eng.params, eng.buckets, "rm1 2x2 served engine", errs)
-    _log(f"[16 mesh] rm1 served by one engine on a 2x2 mesh of one card (virtual shards), "
-         f"canonical point: {_served_line(res, counts)}; peak {peak:.3f} GiB; window K1 at each "
-         f"bucket's slice max |err| {k1:.3e}; beside phase 6's "
-         f"single-device engine: QPS {single['measured_qps']:.2f}, p50/p95/p99 "
-         f"{single['p50_ms']:.3f}/{single['p95_ms']:.3f}/{single['p99_ms']:.3f} ms [{card}]")
-    return {**res.to_dict(), "peak_gib": peak}, counts
+    out, launches = {}, _want()
+    for D, M in MESH_SERVING_AXES:
+        label = f"{D}x{M}"
+        _reset_peak(device)
+        _reset_counts()
+        with _engines_of_runs() as engines:
+            res = run_serving(cfg, scfg, settle_s=0.1, params=fwd["params"],
+                              mesh=_cuda_mesh(device, D, M))
+        counts = _counts()
+        (eng,) = engines
+        if res.engine_errors or res.error_responses or res.num_responses != res.cpu_sub_requests:
+            raise AssertionError(f"mesh serving {label}: {res.num_responses} responses for "
+                                 f"{res.cpu_sub_requests}, errors {res.error_responses} "
+                                 f"{res.engine_errors}")
+        _mesh_launch_check(counts, _want(embedding_bag_shard=D * M * res.executions),
+                           f"mesh serving {label} ({res.executions} executions)")
+        tally = _mesh_tally(device, eng, {"embedding_bag_shard": D * M},
+                            f"mesh serving {label}")
+        peak = _peak_gib(device)
+        prog = check_programs(device, eng, fwd["model"], fwd["params"],
+                              f"rm1 {label} served engine")
+        k1 = _bucket_windows(device, cfg, eng.params, eng.buckets,
+                             f"rm1 {label} served engine", errs)
+        eager = MESH_EAGER_2X2
+        _log(f"[16 mesh] rm1 served by one engine on a {label} mesh of one card (virtual "
+             f"shards), its programs captured, canonical point: {_served_line(res, counts)}; "
+             f"{_mesh_programs_line(eng)}; {tally}; every program's first replay within "
+             f"bf16_atol of model.apply on its rows (max |err| {prog:.3e}); peak {peak:.3f} "
+             f"GiB; window K1 at each bucket's slice max |err| {k1:.3e}; beside phase 6's "
+             f"single-device engine: QPS {single['measured_qps']:.2f}, p50/p95/p99 "
+             f"{single['p50_ms']:.3f}/{single['p95_ms']:.3f}/{single['p99_ms']:.3f} ms; and "
+             f"the eager 2x2 engine (PERF.md section 5): QPS {eager['measured_qps']:.2f}, p95 "
+             f"{eager['p95_ms']:.3f} ms [{card}]")
+        out[label] = {**res.to_dict(), "peak_gib": peak, "programs": len(eng.programs),
+                      "captures": eng.graph_captures, "capture_ms": eng.capture_ms,
+                      "pool_bytes": eng.graph_pool_bytes, "program_err": prog}
+        _add(launches, counts)
+        del engines, eng
+        _free(device)
+    return out, launches
 
 
 def mesh_reload(device, fwd: dict, ckpt: Path, new_params: dict, card: str,
                 errs: dict) -> tuple[dict, dict]:
     """The reload of phase 14's checkpoint into an rm1 engine on a 2x2 mesh
     of the card, behind the HTTP ingress, while two clients keep sending
-    predicts: 0 failed requests, then the new params' scores; the window K1
-    at the engine's bucket on the reloaded shards held to its plain
-    version."""
+    predicts: 0 failed requests, the programs captured again against the
+    new shards (each first replay held to ``model.apply`` with the new
+    params), then the new params' scores; the window K1 at the engine's
+    bucket on the reloaded shards held to its plain version."""
     cfg, model = fwd["cfg"], fwd["model"]
     scfg = ServingConfig(engine_backend=_backend(device), batch_buckets=(32,),
                          max_mini_batch_size=32, sub_task_batch_size=32)
@@ -4711,13 +4776,19 @@ def mesh_reload(device, fwd: dict, ckpt: Path, new_params: dict, card: str,
     ing.start()
     base = "http://%s:%s" % ing.address
     try:
+        eng = server.engines[0]
+        first = eng.programs
         r = _reload_under_traffic(server, base, _body(probe), ckpt)
         del r["at_swap"]
         _, after = _http(f"{base}/v1/predict", _body(probe))
         counts = _counts()
-        ex = _executions(server.engines[0])
+        ex = _executions(eng)
         peak = _peak_gib(device)  # before the checks' plain versions allocate
-        k1 = _bucket_windows(device, cfg, server.engines[0].params, server.engines[0].buckets,
+        if eng.programs is first:
+            raise AssertionError("mesh reload: the programs were not built again")
+        tally = _mesh_tally(device, eng, {"embedding_bag_shard": 4}, "mesh reload")
+        prog = check_programs(device, eng, model, new_params, "rm1 2x2 engine after its reload")
+        k1 = _bucket_windows(device, cfg, eng.params, eng.buckets,
                              "rm1 2x2 engine after its reload", errs)
     finally:
         ing.stop()
@@ -4726,20 +4797,32 @@ def mesh_reload(device, fwd: dict, ckpt: Path, new_params: dict, card: str,
                        "mesh /v1/predict after the reload")
     _log(f"[16 mesh] reload of {ckpt.name} into a 2x2-mesh engine under {FABRIC_CLIENTS} "
          f"clients: 0 failed of {r['answered']} answered; applied in {r['apply_ms']:.1f} ms "
-         f"(loaded on the card, sharded into views); then the new params' scores (max |err| "
-         f"{err:.3e}); window K1 on the reloaded shards max |err| {k1:.3e}; peak {peak:.3f} "
-         f"GiB; launches {counts} [{card}]")
+         f"(loaded on the card, sharded into views, {len(eng.programs)} programs captured "
+         f"again in {eng.programs.capture_ms:.1f} ms, graph pool "
+         + ("not measured" if eng.graph_pool_bytes is None
+            else f"{eng.graph_pool_bytes / 2**20:.1f} MiB")
+         + f"); each first replay within bf16_atol of model.apply with the new params (max "
+         f"|err| {prog:.3e}); then the new params' scores (max |err| {err:.3e}); {tally}; "
+         f"window K1 on the reloaded shards max |err| {k1:.3e}; peak {peak:.3f} GiB; launches "
+         f"{_nonzero(counts)} for {ex} executions [{card}]")
+    recapture_ms = eng.programs.capture_ms
+    del eng, first
     _free(device)
-    return {**r, "peak_gib": peak, "max_abs_err": err}, counts
+    return {**r, "peak_gib": peak, "max_abs_err": max(err, prog),
+            "recapture_ms": recapture_ms}, counts
 
 
 def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
     """Zipf(1.2) payloads through an rm1 hot/cold engine with refresh
-    tracking on a 1x4 mesh of the card: it must upgrade its hot set (the
-    new hot table gathered from the shards that own its rows), and every
-    payload's scores match the direct model (bf16_atol); then, at each of
-    the engine's buckets, K6 on every shard (zipf ids, the new hot set) and
-    the window K1 held to their plain versions."""
+    tracking on a 1x4 mesh of the card, its programs (each mesh cold rung
+    and the direct lookup of each bucket) captured and, before any payload,
+    each first replay held to the eager forward on its warm rows
+    (``check_programs``; its launches are taken out of the path's): it must
+    upgrade its hot set, the new hot rows gathered from the shards that own
+    them and written into the hot table its programs read (the same
+    tensor), and every payload's scores match the direct model (bf16_atol);
+    then, at each of the engine's buckets, K6 on every shard (zipf ids, the
+    new hot set) and the window K1 held to their plain versions."""
     cfg = zoo.get_config("rm1", table_scale=TABLE_SCALE, param_dtype="bfloat16",
                          compute_dtype="bfloat16", embedding_impl="hotcold",
                          hot_set_rows=REFRESH_HOT_ROWS)
@@ -4756,6 +4839,10 @@ def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
     ready = ready_q.get(timeout=300)
     if isinstance(ready, Exception):
         raise RuntimeError("the mesh refresh engine failed during setup") from ready
+    table = eng.params.entry(0, 0)["hot_table"]
+    pre = _counts()
+    prog = check_programs(device, eng, model, params, f"rm1 1x{MESH_SHARDS} hot/cold engine")
+    checked = {k: v - pre[k] for k, v in _counts().items()}
     warm_cov, answered, after = eng.hot_coverage, [], 0
     while len(answered) < REFRESH_MAX_PAYLOADS and after < 2 * REFRESH_INTERVAL:
         n = len(answered)
@@ -4767,7 +4854,7 @@ def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
         after += eng.hot_refreshes > 0
     req_q.put(None)
     eng.join(timeout=120)
-    counts = _counts()
+    counts = {k: v - checked[k] for k, v in _counts().items()}
     ex = _executions(eng)
     k6, k1 = counts["embedding_bag_hotcold_shard"], counts["embedding_bag_shard"]
     if eng.error is not None or eng.hot_refreshes < 1:
@@ -4776,9 +4863,13 @@ def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
             embedding_bag_hotcold_shard=k6, embedding_bag_shard=k1):
         raise AssertionError(f"mesh refresh: launches {counts} for {ex} executions")
     hot = eng.params.entry(0, MESH_SHARDS - 1)["hot_table"]
-    if not torch.equal(hot, params["tables"].index_select(0, torch.as_tensor(
-            np.asarray(eng._hotcold.hot_ids), device=device))):
-        raise AssertionError("mesh refresh: the hot table is not the tables' hot rows")
+    if hot is not table or not torch.equal(hot, params["tables"].index_select(
+            0, torch.as_tensor(np.asarray(eng._hotcold.hot_ids), device=device))):
+        raise AssertionError("mesh refresh: the programs' hot table does not hold the tables' "
+                             f"hot rows (the same tensor: {hot is table})")
+    tally = _mesh_tally(device, eng, lambda key: {
+        "embedding_bag_hotcold_shard" if key[0] == "hotcold" else "embedding_bag_shard":
+        MESH_SHARDS}, "mesh refresh")
     worst = max(_check_close(r.scores, _forward(model, params, p, device), f"mesh refresh {n}")
                 for n, (p, r) in enumerate(answered))
     hc = make_hotcold_model(model, np.asarray(eng._hotcold.hot_ids), mesh=mesh)
@@ -4788,15 +4879,21 @@ def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
              for n in eng.buckets)
     k1 = _bucket_windows(device, cfg, eng.params, eng.buckets,
                          f"rm1 1x{MESH_SHARDS} hot/cold engine's direct path", errs)
-    _log(f"[16 mesh] rm1 hot/cold engine with refresh on a 1x{MESH_SHARDS} mesh of one card: "
+    rungs = sorted({p.key[2] for p in eng.programs if p.key[0] == "hotcold"})
+    _log(f"[16 mesh] rm1 hot/cold engine with refresh on a 1x{MESH_SHARDS} mesh of one card "
+         f"(mesh cold rungs {rungs}): {_mesh_programs_line(eng)}; every program's first "
+         f"replay within bf16_atol of the eager forward on its rows (max |err| {prog:.3e}); "
          f"{len(answered)} zipf(1.2) payloads of 64 rows; warm-up coverage {warm_cov:.4f}, "
          f"hot_refreshes {eng.hot_refreshes}, hot_coverage {eng.hot_coverage:.4f}; the new hot "
-         f"table is the shards' rows; scores match the direct model (max |err| {worst:.3e}); "
-         f"launches {counts} for {ex} executions; at each bucket K6 max |err| {k6:.3e} and "
-         f"window K1 {k1:.3e} against their plain versions [{card}]")
-    del params, eng
+         f"rows (the shards') written into the programs' own hot table, the same tensor; "
+         f"scores match the direct model (max |err| {worst:.3e}); launches {_nonzero(counts)} "
+         f"for {ex} executions, {tally}; at each "
+         f"bucket K6 max |err| {k6:.3e} and window K1 {k1:.3e} against their plain versions "
+         f"[{card}]")
+    del params, eng, table, hot
     _free(device)
-    return {"payloads": len(answered), "hot_refreshes": 1, "max_abs_err": worst}, counts
+    return {"payloads": len(answered), "hot_refreshes": 1, "max_abs_err": max(worst, prog)}, \
+        counts
 
 
 def phase_mesh(device, fwd: dict, times: dict, single: dict, card: str,
@@ -6535,11 +6632,17 @@ def main() -> int:
          + ", ".join(f"{k} {v['wall_ms']:.4f} / {_us(v['device_ms'])}"
                      for k, v in mesh["rm1"].items())
          + f" [{card['card']}]")
-    s = mesh["serving"]
-    _log(f"[10 summary]   rm1 one engine on a 2x2 mesh, canonical point: QPS "
-         f"{s['measured_qps']:.2f}, p50/p95/p99 {s['p50_ms']:.3f}/{s['p95_ms']:.3f}/"
-         f"{s['p99_ms']:.3f} ms, peak {s['peak_gib']:.3f} GiB; reload under traffic 0 failed, "
-         f"{mesh_reload_res['apply_ms']:.1f} ms; zoo on 1x4: "
+    _log("[10 summary]   rm1 one engine, its programs captured, canonical point: "
+         + "; ".join(f"{k} mesh QPS {s['measured_qps']:.2f}, p50/p95/p99 {s['p50_ms']:.3f}/"
+                     f"{s['p95_ms']:.3f}/{s['p99_ms']:.3f} ms, {s['captures']} graphs in "
+                     f"{s['capture_ms']:.1f} ms, pool "
+                     + ("not measured" if s["pool_bytes"] is None
+                        else f"{s['pool_bytes'] / 2**20:.1f} MiB")
+                     + f", peak {s['peak_gib']:.3f} GiB" for k, s in mesh["serving"].items())
+         + f" (the eager 2x2 engine: QPS {MESH_EAGER_2X2['measured_qps']:.2f}, p95 "
+         f"{MESH_EAGER_2X2['p95_ms']:.3f} ms); reload under traffic 0 failed, "
+         f"{mesh_reload_res['apply_ms']:.1f} ms, recapture {mesh_reload_res['recapture_ms']:.1f} "
+         f"ms; zoo on 1x4: "
          + ", ".join(f"{r['name']} {r['max_abs_err']:.2e}" for r in mesh_zoo_rows)
          + f" [{card['card']}]")
     _log("[10 summary] training over meshes whose entries all name this card (virtual shards: "

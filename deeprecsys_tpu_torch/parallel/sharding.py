@@ -241,6 +241,23 @@ class ShardedParams:
                     for m, e in enumerate(row)] for d, row in enumerate(self.entries)]
         return ShardedParams(self.mesh, entries, self.rows_per_shard)
 
+    def write_leaf(self, key: str, t: torch.Tensor):
+        """Copy ``t`` into top-level leaf ``key`` in place: into its one
+        tensor on each distinct device, on that device's current stream. A
+        program captured over these params reads the new values (a
+        ``with_leaf`` copy it would never see)."""
+        done: set = set()
+        for row in self.entries:
+            for e in row:
+                if e is None or id(e[key]) in done:
+                    continue
+                dst = e[key]
+                if dst.shape != t.shape or dst.dtype != t.dtype:
+                    raise ValueError(f"leaf {key!r} is {tuple(dst.shape)} {dst.dtype}; cannot "
+                                     f"write {tuple(t.shape)} {t.dtype} into it")
+                dst.copy_(t, non_blocking=dst.device.type == "cuda")
+                done.add(id(dst))
+
     def tensors(self) -> list:
         """Every distinct tensor the entries hold."""
         from deeprecsys_tpu_torch.utils.checkpoint import tree_flatten
@@ -679,8 +696,9 @@ def _hotcold_row(mesh: Mesh, d: int, hot_of: Callable, shard_of: Callable, hot_s
 
 
 def _hot_rows(mesh: Mesh, hot_table) -> Callable:
-    """``hot_table``: a tensor (replicated here) or ``(d, m) -> entry (d,
-    m)'s copy``."""
+    """``hot_table``: a tensor (replicated here, a copy a call where it is
+    not on every device) or ``(d, m) -> entry (d, m)'s copy``, which the
+    engines pass: a captured program reads their own hot tables."""
     if callable(hot_table):
         return hot_table
     rep = Replicated(mesh, hot_table)

@@ -11,13 +11,13 @@ package. ``ComputeEngine`` serves every request at a static batch bucket
 largest bucket and sliced, the reference's "pre-generate at max size then
 slice" (``inferenceEngine.py:200-206``). As the JAX engine compiles one
 program a bucket (its masked twin, each cold rung, the direct lookup)
-before it signals ready, an engine without a mesh builds one
+before it signals ready, also on a mesh, an engine builds one
 ``programs.BucketProgram`` for each at warm-up: on a card a CUDA graph of
 the forward, captured on the engine's stream, which each execution replays
 over static device inputs (the rows copied in, the scores copied out); on
 the CPU the same program runs the eager forward over the same buffers. A
-mesh engine runs its forward eagerly, each bucket once at warm-up. Two
-threads an engine: the serve thread assembles and dispatches, the
+mesh engine over several cards keeps its programs eager
+(``eager_reason``). Two threads an engine: the serve thread assembles and dispatches, the
 completion thread waits for the scores and answers. ``SimEngine`` sleeps a
 ``LatencyModel``'s time instead of computing.
 
@@ -64,20 +64,21 @@ it when a head returns. A scan worker thread only computes candidate ids
 and their ``HotIndex``; it launches nothing. The swap happens on the serve
 thread: the new hot rows are written into the hot table the programs read
 (``index_select`` on the engine's stream, so executions queued before it
-read the old rows); a hot set of another size rebuilds the programs. The
-engine made that table itself (``convert_params``): a caller's params are
-never written.
+read the old rows; on a mesh the rows gathered from the shards that own
+them, written into the hot table on each distinct device); a hot set of
+another size rebuilds the programs. The engine made that table itself
+(``convert_params``): a caller's params are never written.
 
 Checkpoint reload (JAX ``engine.py:65-86, :732-804``): ``request_reload``
 hands the engine a ``ReloadHandle`` from any thread; the serve thread
 applies it before the next execution it dispatches (or within 0.5 s when
 idle). On a card the new params are loaded on the serve thread, so on the
-engine's stream, the programs are rebuilt (captured again) against them,
-and the old programs and params are dropped only after the engine's stream
-has finished the executions queued on it, which read them (a mesh engine
-marks the old tensors with ``record_stream`` instead). Both copies live
-during the swap; a rebuild that fails keeps the old ones serving. A hot/cold
-engine derives its hot table from the new tables; its hot ids stay.
+engine's stream (a mesh engine shards them), the programs are rebuilt
+(captured again) against them, and the old programs and params are dropped
+only after the engine's stream on each of its devices has finished the
+executions queued on it, which read them. Both copies live during the swap;
+a rebuild that fails keeps the old ones serving. A hot/cold engine derives
+its hot table from the new tables; its hot ids stay.
 
 A cpu-mp engine process (``process_engine.py``) runs this same engine on
 the CPU over shared-memory rings: the reload path arrives as fragments on
@@ -92,7 +93,12 @@ own thread: the buckets round up to a multiple of the "data" axis, the
 params are placed by ``parallel.shard_params`` (the table row-sharded over
 "model"), the direct path runs ``parallel.sharded_apply`` and a hot/cold
 engine the mesh split (tensor-parallel when "data" is 1, hybrid
-otherwise). The engine's device is the mesh's first entry, where the
+otherwise), each as its programs: the rows, or the split staged in the
+slot, are copied into the static inputs (``StaticInputs`` holds the mesh
+split's streams), then the program runs. On one card's virtual shards
+(every entry one device) that is a replay of the captured forward: every
+shard's launch and the combine, on the engine's one stream. The engine's
+device is the mesh's first entry, where the static inputs live and the
 scores land; the engine makes a stream on every distinct mesh device in its
 thread, and an execution completes when an event on each of them has
 passed. A refresh gathers the new hot table's rows from the shards that own
@@ -121,7 +127,8 @@ from deeprecsys_tpu_torch.models import get_model
 from deeprecsys_tpu_torch.models.base import Batch, compute_dtype_of
 from deeprecsys_tpu_torch.models.hotcold import cold_buckets_for
 from deeprecsys_tpu_torch.serving.latency_model import LatencyModel
-from deeprecsys_tpu_torch.serving.programs import BUILD_LOCK, ProgramSet, StaticInputs, pad_cold
+from deeprecsys_tpu_torch.serving.programs import (
+    BUILD_LOCK, ProgramSet, StaticInputs, eager_reason, pad_cold)
 from deeprecsys_tpu_torch.serving.packets import (
     ERR_DEADLINE,
     ERR_OVER_LADDER,
@@ -249,6 +256,9 @@ class ComputeEngine(threading.Thread):
         if self.device.type == "cuda" and self.device.index is None:
             # The card by its index, as tensors name it (streams are keyed so).
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # Why the programs stay eager (a mesh over several cards), or None
+        # where a card captures them: decided here, never by a failed capture.
+        self.eager_reason = eager_reason(mesh)
         self.params = params
         self.seed = seed
         if buckets is None:
@@ -270,16 +280,15 @@ class ComputeEngine(threading.Thread):
         self._host_data: dict[int, Batch] = {}  # bucket -> host rows (pinned on a card)
         self._pending: "queue.Queue" = queue.Queue()
         self._free_slots: "queue.Queue" = queue.Queue()
-        self._stream = None
         self._streams: dict = {}  # device -> the engine's stream there (a card)
         self.error: Exception | None = None
         # Observability, single writer each: executions per bucket, warm-up
         # executions, coalesced, clamped, rejected and expired requests.
         self.bucket_counts: dict[int, int] = {}
         self.warmup_executions = 0
-        # The serve-time programs (no mesh): their static inputs, the set
-        # serving now, and the captures made (with their wall ms) and the
-        # graph pool of the current set (a card).
+        # The serve-time programs: their static inputs, the set serving now,
+        # and the captures made (with their wall ms) and the graph pool of
+        # the current set (a card).
         self._static: StaticInputs | None = None
         self.programs: ProgramSet | None = None
         self.graph_captures = 0
@@ -332,9 +341,9 @@ class ComputeEngine(threading.Thread):
 
     def _setup(self):
         """Model, params (with ``hotcold``/``auto`` the hot set and its
-        table), the pinned rows of every bucket and the staging slots, then
-        the programs (``_build_programs``), or on a mesh one execution of
-        each. Runs in the engine's thread, on its stream."""
+        table; on a mesh sharded), the pinned rows of every bucket and the
+        staging slots, then the programs (``_build_programs``). Runs in the
+        engine's thread, on its stream."""
         cfg = self.model_cfg
         # The direct model: the lookup "auto" falls back to and a disabled
         # split serves; a hot/cold engine runs its tail (apply_from_pooled).
@@ -380,31 +389,15 @@ class ComputeEngine(threading.Thread):
         for b in self.buckets:
             self._host_data[b] = Batch(dense=None if dense is None else dense[:b],
                                        indices=indices[:b])
-        if self.mesh is None:
-            self._static = StaticInputs(cfg, max(self.buckets), ragged, hotcold, self.device)
-            self.programs = self._build_programs()
-            return
-        all_true = None
-        if ragged:
-            all_true = torch.ones(indices.shape, dtype=torch.bool, pin_memory=pin)
-        direct = not hotcold or self.serving_cfg.hotcold_refresh_interval > 0
-        T, L = cfg.num_tables, cfg.num_indices_per_lookup
-        for b in self.buckets:
-            if hotcold:
-                # Every cold rung the splitter pads to, on an empty split.
-                for c_pad in cold_buckets_for(b * T * L, self.mesh):
-                    self._warm(self._host_data[b], b, self._empty_split(b, c_pad))
-            if direct:
-                self._warm(self._host_data[b], b)
-                if ragged:
-                    # The masked twin: a ragged request runs the direct
-                    # lookup with a mask.
-                    self._warm(self._host_data[b]._replace(mask=all_true[:b]), b)
+        self._static = StaticInputs(cfg, max(self.buckets), ragged, hotcold, self.device,
+                                    self.mesh)
+        self.programs = self._build_programs()
 
     def _program_keys(self) -> list:
         """The serve-time programs, in the JAX engine's warm order (its
         ``engine.py:296-324, :384-475, :525-542``): for each bucket a
-        hot/cold program at each cold rung (a hot/cold engine), then where
+        hot/cold program at each cold rung (a hot/cold engine; on a mesh the
+        rungs a cell's stream pads to, ``:414-430``), then where
         the direct lookup serves (no split, or refresh tracking, which may
         disable the split) the direct program and, with ``accept_ragged``,
         its masked twin."""
@@ -414,7 +407,8 @@ class ComputeEngine(threading.Thread):
         keys = []
         for b in self.buckets:
             if hotcold:
-                keys += [("hotcold", b, c_pad) for c_pad in cold_buckets_for(b * T * L)]
+                keys += [("hotcold", b, c_pad)
+                         for c_pad in cold_buckets_for(b * T * L, self.mesh)]
             if direct:
                 keys.append(("direct", b))
                 if self.serving_cfg.accept_ragged:
@@ -424,9 +418,9 @@ class ComputeEngine(threading.Thread):
     def _build_programs(self) -> ProgramSet:
         """Build every program against the current params and hot set, each
         warmed on ``warm_inputs`` (on a card also captured and replayed once,
-        one engine's set at a time in the process); the warm-up executions
-        and captures are counted."""
-        progs = ProgramSet(self.device)
+        one engine's set at a time in the process, unless ``eager_reason``);
+        the warm-up executions and captures are counted."""
+        progs = ProgramSet(self.device, capture=self.eager_reason is None)
         on_card = self.device.type == "cuda"
         splits: dict = {}  # bucket -> its rows' split, for every cold rung
         with BUILD_LOCK if on_card else contextlib.nullcontext():
@@ -444,15 +438,24 @@ class ComputeEngine(threading.Thread):
 
     def _forward(self, kind: str):
         """A program's forward over its static inputs, closed over the
-        current params: K6 on the split and the model's tail (``hotcold``),
-        else the direct model (a hot/cold engine's without its hot table)."""
+        current params: K6 on the split and the model's tail (``hotcold``;
+        on a mesh K6 a shard on the mesh split), else the direct model (a
+        hot/cold engine's without its hot table; on a mesh
+        ``parallel.sharded_apply``'s forward over the sharded params)."""
         params = self.params
         if kind == "hotcold":
             apply = self._hotcold.apply
 
             def forward(inp: dict) -> torch.Tensor:
-                split = {k: inp[k] for k in ("hot_sel", "hot_mask", "cold_ids", "cold_seg")}
+                split = {k: v for k, v in inp.items() if k != "dense"}
                 return apply(params, Batch(dense=inp.get("dense"), indices=None), split)
+            return forward
+        if self.mesh is not None:
+            apply_mesh = self._direct_fn
+
+            def forward(inp: dict) -> torch.Tensor:
+                return apply_mesh(params, Batch(dense=inp.get("dense"), indices=inp["indices"],
+                                                mask=inp.get("mask")))
             return forward
         direct = params if self._hotcold is None else {
             k: v for k, v in params.items() if k != "hot_table"}
@@ -468,11 +471,11 @@ class ComputeEngine(threading.Thread):
         replayed on), by input name: the bucket's pre-generated rows, an
         all-true mask for a masked twin, and for a hot/cold program their
         split by the current hot set with its cold stream cut or padded to
-        the program's rung (``pad_cold``): a split the splitter could give
-        there, so every rung is warmed on real rows (JAX's warm-up pools an
-        empty split). ``splits``: a dict the caller keeps, bucket -> the
-        unpadded split, so that one split serves every rung."""
-        from deeprecsys_tpu_torch.ops.hotcold import split_hot_cold
+        the program's rung (``pad_cold``; on a mesh the mesh splitter's, each
+        cell's stream): a split the splitter could give there, so every rung
+        is warmed on real rows (JAX's warm-up pools an empty split).
+        ``splits``: a dict the caller keeps, bucket -> the unpadded split, so
+        that one split serves every rung."""
 
         b = key[1]
         host = self._host_data[b]
@@ -484,20 +487,34 @@ class ComputeEngine(threading.Thread):
         elif key[0] == "hotcold":
             splits = {} if splits is None else splits
             if b not in splits:
-                # numpy: the native splitter's calls stay the served executions'.
-                splits[b] = split_hot_cold(host.indices.numpy(),
-                                           np.asarray(self.model_cfg.table_offsets, np.int64),
-                                           np.asarray(self._hotcold.hot_ids), impl="numpy",
-                                           pad=False)
+                splits[b] = self._warm_split(host.indices.numpy())
+            D = 1 if self.mesh is None else self.mesh.shape["data"]
             rows.update((k, torch.from_numpy(v)) for k, v in
-                        pad_cold(splits[b], key[2], b * self.model_cfg.num_tables).items())
+                        pad_cold(splits[b], key[2], b // D * self.model_cfg.num_tables).items())
         return rows
 
-    def _swap_programs(self, params: dict):
-        """Serve ``params``: build the programs against them, then drop the
-        old programs and params once the executions queued on the engine's
-        stream, which read both, are done. A failed build keeps the old ones
-        serving."""
+    def _warm_split(self, idx: np.ndarray) -> dict:
+        """``idx``'s split by the current hot set, unpadded (a mesh split:
+        each cell padded to the largest), by the numpy splitter: the native
+        splitter's calls stay the served executions'."""
+        from deeprecsys_tpu_torch.ops.hotcold import (
+            split_hot_cold, split_hot_cold_hybrid, split_hot_cold_sharded)
+
+        offsets = np.asarray(self.model_cfg.table_offsets, np.int64)
+        hot = np.asarray(self._hotcold.hot_ids)
+        if self.mesh is None:
+            return split_hot_cold(idx, offsets, hot, impl="numpy", pad=False)
+        D, M = self.mesh.shape["data"], self.mesh.shape["model"]
+        rps = self.model_cfg.total_rows // M
+        if D == 1:
+            return split_hot_cold_sharded(idx, offsets, hot, M, rps, impl="numpy")
+        return split_hot_cold_hybrid(idx, offsets, hot, D, M, rps, impl="numpy")
+
+    def _swap_programs(self, params):
+        """Serve ``params`` (a dict, or on a mesh ``ShardedParams``): build
+        the programs against them, then drop the old programs and params
+        once the executions queued on the engine's streams, which read both,
+        are done. A failed build keeps the old ones serving."""
         old = self.params, self.programs
         self.params = params
         try:
@@ -505,33 +522,13 @@ class ComputeEngine(threading.Thread):
         except BaseException:
             self.params, self.programs = old
             raise
-        if self.device.type == "cuda":
-            self._stream.synchronize()
+        for stream in self._streams.values():
+            stream.synchronize()
         del old
 
     def _devices(self) -> list:
         """The devices the engine runs on: the mesh's distinct ones, or its one."""
         return [self.device] if self.mesh is None else self.mesh.distinct_devices
-
-    def _empty_split(self, b: int, c_pad: int) -> dict:
-        """A split of no hot hit and no cold lookup at cold rung ``c_pad``,
-        shaped as the engine's splitter shapes its splits (JAX
-        ``engine.py:395-418``)."""
-        T, L = self.model_cfg.num_tables, self.model_cfg.num_indices_per_lookup
-        split = {"hot_sel": np.zeros((b, T, L), np.int32),
-                 "hot_mask": np.zeros((b, T, L), bool)}
-        if self.mesh is None:
-            split["cold_ids"] = np.zeros(c_pad, np.int32)
-            split["cold_seg"] = np.full(c_pad, b * T, np.int32)
-        elif self.mesh.shape["data"] > 1:
-            D, M = self.mesh.shape["data"], self.mesh.shape["model"]
-            split["cold_local"] = np.zeros((D, M, c_pad), np.int32)
-            split["cold_seg"] = np.full((D, M, c_pad), (b // D) * T, np.int32)
-        else:
-            M = self.mesh.shape["model"]
-            split["cold_local"] = np.zeros((M, c_pad), np.int32)
-            split["cold_seg"] = np.full((M, c_pad), b * T, np.int32)
-        return split
 
     def _setup_hotcold(self, require: bool):
         """The hot/cold split (JAX ``engine.py:326-380``): the hot set,
@@ -562,16 +559,6 @@ class ComputeEngine(threading.Thread):
             return
         self._hotcold = make_hotcold_model(self.model, hot_ids, mesh=self.mesh)
         self.params = self._hotcold.convert_params(self.params)
-
-    def _warm(self, host: Batch, bucket: int, split: dict | None = None):
-        """One warm-up execution of a mesh engine."""
-        slot = self._free_slots.get()
-        if split is not None:
-            slot.stage(split)
-        for event in self._dispatch(host, bucket, slot, split):
-            event.synchronize()
-        self._free_slots.put(slot)
-        self.warmup_executions += 1
 
     def _payload_ok(self, r: ServiceRequest) -> bool:
         """True iff a request's payload (if any) matches the model's inputs
@@ -638,26 +625,20 @@ class ComputeEngine(threading.Thread):
 
     def _dispatch(self, host: Batch, bucket: int, slot: _Slot, split: dict | None = None) -> list:
         """Run one execution of ``host`` (and ``split``, the host split held
-        in ``slot``) and copy the scores into ``slot``: without a mesh its
-        program (K6 on the split, else the direct lookup, masked if ``host``
-        is) copies the rows in and replays; on a mesh the model runs
-        eagerly. Returns the events that mark the scores readable, one on
-        the engine's stream of each of its devices (none on the CPU, where
-        every step is synchronous)."""
+        in ``slot``) and copy the scores into ``slot``: its program (K6 on
+        the split, else the direct lookup, masked if ``host`` is) copies the
+        rows in and replays (an eager mesh program runs its forward).
+        Returns the events that mark the scores readable, one on the
+        engine's stream of each of its devices (none on the CPU, where every
+        step is synchronous)."""
         on_card = self.device.type == "cuda"
-        if self.mesh is not None:
-            # The mesh paths move each data slice to its row themselves.
-            if split is not None:
-                out = self._hotcold.apply(self.params, Batch(dense=host.dense, indices=None),
-                                          slot.split_tensors(split))
-            else:
-                out = self._direct_fn(self.params, host)
-        elif split is not None:
+        if split is not None:
             # The split stands for the ids and consumed the ragged mask: the
             # program takes the split and the dense features.
             rows = slot.split_tensors(split)
             rows["dense"] = host.dense
-            out = self.programs[("hotcold", bucket, split["cold_ids"].size)].run(rows)
+            c_pad = split[self._static.cold_key].shape[-1]
+            out = self.programs[("hotcold", bucket, c_pad)].run(rows)
         else:
             rows = {"dense": host.dense, "indices": host.indices, "mask": host.mask}
             out = self.programs[("direct" if host.mask is None else "masked", bucket)].run(rows)
@@ -684,7 +665,6 @@ class ComputeEngine(threading.Thread):
                         self._streams[dev] = torch.cuda.Stream(dev)
                         stack.enter_context(torch.cuda.stream(self._streams[dev]))
                     stack.enter_context(torch.cuda.device(self.device))
-                    self._stream = self._streams[self.device]
                 self._setup()
             except Exception as e:  # surface engine failures instead of hanging
                 self.error = e
@@ -792,20 +772,12 @@ class ComputeEngine(threading.Thread):
                                     handle.path, self.device)
             if self._hotcold is not None:
                 new = self._hotcold.convert_params(new)
-            if self.mesh is None:
-                # The programs captured against the old params: rebuilt.
-                self._swap_programs(new)
-            else:
+            if self.mesh is not None:
                 from deeprecsys_tpu_torch.parallel import shard_params
 
                 new = shard_params(new, self.mesh)  # JAX engine.py:785-792
-                old, self.params = self.params, new
-                if self.device.type == "cuda":
-                    # Executions queued on the streams still read the old
-                    # tensors: their memory is reused only after those finish.
-                    for t in old.tensors():
-                        t.record_stream(self._streams[t.device])
-                del old
+            # The programs captured against the old params: rebuilt.
+            self._swap_programs(new)
             self.last_reload_ms = (time.perf_counter() - t0) * 1000.0
         except Exception as e:
             handle.error = e
@@ -1113,30 +1085,27 @@ class ComputeEngine(threading.Thread):
         return True
 
     def _install_hot_ids(self, new_hot, ref_cov: float, hot_index=None):
-        """Swap in a hot set, and re-base the coverage reference on it. One
-        device: the new hot rows written into the hot table the programs
-        read, on the engine's stream (executions queued before the write
-        read the old rows, in stream order); a set of another size rebuilds
-        the programs on a new table. A mesh: a new hot table (executions in
-        flight keep reading the old one, which the stream's order keeps
-        alive until they are done)."""
+        """Swap in a hot set, and re-base the coverage reference on it: the
+        new hot rows written into the hot table the programs read, on the
+        engine's stream (executions queued before the write read the old
+        rows, in stream order); a set of another size rebuilds the programs
+        on a new table."""
         from deeprecsys_tpu_torch.models.hotcold import with_hot_ids
 
         hc = with_hot_ids(self._hotcold, new_hot, mesh=self.mesh, hot_index=hot_index)
-        if self.mesh is not None:
-            # The hot rows gathered from the shards that own them, as raw
-            # rows of the table's layout, then one copy a device (JAX
-            # engine.py:1104-1113).
-            from deeprecsys_tpu_torch.parallel.sharding import gather_rows
-
-            self.params = self.params.with_leaf("hot_table", gather_rows(self.params, new_hot))
-        elif len(new_hot) == len(self._hotcold.hot_ids):
+        if len(new_hot) == len(self._hotcold.hot_ids):
             self._write_hot_rows(new_hot)
         else:
             prev, self._hotcold = self._hotcold, hc
+            if self.mesh is None:
+                new = hc.convert_params({k: v for k, v in self.params.items()
+                                         if k != "hot_table"})
+            else:
+                from deeprecsys_tpu_torch.parallel.sharding import gather_rows
+
+                new = self.params.with_leaf("hot_table", gather_rows(self.params, new_hot))
             try:
-                self._swap_programs(hc.convert_params(
-                    {k: v for k, v in self.params.items() if k != "hot_table"}))
+                self._swap_programs(new)
             except BaseException:
                 self._hotcold = prev
                 raise
@@ -1146,7 +1115,15 @@ class ComputeEngine(threading.Thread):
 
     def _write_hot_rows(self, new_hot):
         """The rows ``new_hot`` of the live table, in its layout, written
-        into the engine's own hot table in place."""
+        into the engine's own hot table in place. On a mesh the rows are
+        gathered from the shards that own them, as raw rows of the table's
+        layout, and written into the hot table on each distinct device (JAX
+        ``engine.py:1104-1113``)."""
+        if self.mesh is not None:
+            from deeprecsys_tpu_torch.parallel.sharding import gather_rows
+
+            self.params.write_leaf("hot_table", gather_rows(self.params, new_hot))
+            return
         tables = self.params["tables"]
         rows = tables if not isinstance(tables, dict) else tables.get("qrows", tables.get("q"))
         hid = torch.from_numpy(np.asarray(new_hot, dtype=np.int64))

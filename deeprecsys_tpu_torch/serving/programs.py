@@ -1,6 +1,7 @@
 """An engine's serve-time programs, one a bucket: the counterpart of the JAX
 engine's ``_jitted`` dict and ``_warm_buckets``
-(``deeprecsys_tpu/serving/engine.py:152, :525-542``).
+(``deeprecsys_tpu/serving/engine.py:152, :525-542``; on a mesh the jitted
+sharded apply and hot/cold programs, ``:279-290, :384-435``).
 
 The JAX engine keeps one ``jax.jit`` executable a serve-time shape (each
 bucket, its masked twin, each cold rung of a hot/cold engine, the direct
@@ -13,7 +14,8 @@ engine's stream. A replay is one call into PyTorch where the eager forward
 makes 34-50.
 
 - ``StaticInputs``: the engine's device input buffers, at its largest bucket
-  and cold rung; a program reads leading slices of them.
+  and cold rung (on a mesh, the mesh split's: a cold stream a cell); a
+  program reads leading slices of them.
 - ``BucketProgram``: one program: its slices, its forward (a closure over
   the params it was built with) and, on a card, its graph, its static
   output and the kernel launches its capture recorded, which each replay
@@ -29,6 +31,13 @@ it, replays it once and holds the replay to the eager output
 eagerly over the same static buffers, so the CPU tests reach the copy-in
 and the slicing that a card replays; a card never runs the eager forward at
 serve time, and a capture that fails raises.
+
+A mesh engine builds the same programs over the mesh's forward. Where its
+entries all name one device (one card's virtual shards) every shard's launch
+and the combine run on the engine's one stream, and the program is captured
+as on one device. A mesh over several cards, or across processes, stays
+eager (``eager_reason``, decided when the engine is built): its programs run
+the forward over the same static inputs, never a graph.
 
 Captures run on the engine's stream with ``capture_error_mode=
 "thread_local"`` (engines warm up in parallel threads, whose own streams
@@ -57,6 +66,22 @@ from deeprecsys_tpu_torch.ops import _build
 # so no capture overlaps another engine's eager warm-up (its first kernel
 # loads) or capture.
 BUILD_LOCK = threading.Lock()
+
+
+def eager_reason(mesh):
+    """Why the programs over ``mesh`` stay eager, or None where they are
+    captured: without a mesh, and on a mesh of one process whose entries
+    all name one device (one card's virtual shards, ``["cuda:0"] * 4``).
+    The engines' and the trainers' rule."""
+    if mesh is None:
+        return None
+    if mesh.multi_process:
+        return ("a mesh across processes: its collectives run over torch.distributed "
+                "(gloo through host copies), which a CUDA graph cannot capture")
+    if len(mesh.distinct_devices) > 1:
+        return ("a mesh over several cards in one process: captures across devices are "
+                "not tried")
+    return None
 
 
 def capture(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream) -> tuple:
@@ -97,25 +122,34 @@ class StaticInputs:
     """Device buffers for every input a program reads, at the engine's
     largest bucket: the rows (``dense``, ``indices``, with ``masked`` the
     ``mask``) and, with ``hotcold``, the split's flat arrays (room for every
-    lookup and the largest cold rung)."""
+    lookup and the largest cold rung; on a mesh a cold stream a cell of the
+    split, as ``engine._Slot`` holds it)."""
 
     def __init__(self, cfg: ModelConfig, rows: int, masked: bool, hotcold: bool,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         T, L = cfg.num_tables, cfg.num_indices_per_lookup
 
         def buf(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=device)
 
         self.shape = (T, L)
+        self.mesh = mesh
         self.indices = buf((rows, T, L), torch.int32)
         self.dense = buf((rows, cfg.dense_dim), torch.float32) if cfg.dense_dim else None
         self.mask = buf((rows, T, L), torch.bool) if masked else None
         self.split = None
         if hotcold:
-            n, cold = rows * T * L, max(cold_buckets_for(rows * T * L))
+            n, cold = rows * T * L, max(cold_buckets_for(rows * T * L, mesh))
+            cells = 1 if mesh is None else mesh.size
             self.split = {"hot_sel": buf((n,), torch.int32), "hot_mask": buf((n,), torch.bool),
-                          "cold_ids": buf((cold,), torch.int32),
-                          "cold_seg": buf((cold,), torch.int32)}
+                          self.cold_key: buf((cells * cold,), torch.int32),
+                          "cold_seg": buf((cells * cold,), torch.int32)}
+
+    @property
+    def cold_key(self) -> str:
+        """The split's name for its cold ids: ``cold_ids`` on one device,
+        ``cold_local`` (each shard's own ids) on a mesh."""
+        return "cold_ids" if self.mesh is None else "cold_local"
 
     def rows(self, bucket: int, masked: bool) -> dict:
         """The slices a direct (``masked``: masked) program of ``bucket`` reads."""
@@ -128,13 +162,23 @@ class StaticInputs:
 
     def split_of(self, bucket: int, c_pad: int) -> dict:
         """The slices a hot/cold program of ``bucket`` at cold rung ``c_pad``
-        reads, shaped as K6 takes the split (and the dense rows)."""
+        reads, shaped as the lookup takes the split (and the dense rows): K6's
+        ``(C_pad,)`` stream on one device; on a mesh ``(M, C_pad)``
+        (tensor-parallel) or ``(D, M, C_pad)`` (hybrid) streams, each cell's
+        contiguous."""
         T, L = self.shape
         n = bucket * T * L
+        if self.mesh is None:
+            cold = (c_pad,)
+        elif self.mesh.shape["data"] == 1:
+            cold = (self.mesh.shape["model"], c_pad)
+        else:
+            cold = (self.mesh.shape["data"], self.mesh.shape["model"], c_pad)
+        n_cold = int(np.prod(cold))
         out = {"hot_sel": self.split["hot_sel"][:n].view(bucket, T, L),
                "hot_mask": self.split["hot_mask"][:n].view(bucket, T, L),
-               "cold_ids": self.split["cold_ids"][:c_pad],
-               "cold_seg": self.split["cold_seg"][:c_pad]}
+               self.cold_key: self.split[self.cold_key][:n_cold].view(cold),
+               "cold_seg": self.split["cold_seg"][:n_cold].view(cold)}
         if self.dense is not None:
             out["dense"] = self.dense[:bucket]
         return out
@@ -142,14 +186,16 @@ class StaticInputs:
 
 class BucketProgram:
     """One serve-time program: ``forward(inputs)`` over the static slices
-    ``inputs`` (a dict by name), captured as a graph on a card."""
+    ``inputs`` (a dict by name), captured as a graph where ``capture`` (on
+    a card, but an eager mesh engine's)."""
 
     def __init__(self, key: tuple, forward: Callable[[dict], torch.Tensor], inputs: dict,
-                 device: torch.device):
+                 device: torch.device, capture: bool):
         self.key = key
         self.forward = forward
         self.inputs = inputs
         self.device = device
+        self.capture = capture
         self.graph = None
         self.out = None          # the graph's static output (a card)
         self.launches: dict = {}  # wrapper -> launches a replay (a card)
@@ -167,7 +213,7 @@ class BucketProgram:
 
     def run(self, host: dict) -> torch.Tensor:
         """One execution: copy ``host`` in, then replay (a card) or run the
-        forward (the CPU). Returns the static output."""
+        forward (the CPU, an eager mesh engine). Returns the output."""
         self.runs += 1
         self.load(host)
         if self.graph is None:
@@ -179,11 +225,11 @@ class BucketProgram:
     def build(self, host: dict, pool) -> int:
         """Warm the program on ``host``'s rows; on a card capture it into
         ``pool`` on the current stream and replay it once. Returns the
-        executions run (the CPU 1; a card 2, the eager forward and the
-        replay)."""
-        if self.device.type != "cuda":
+        executions run (the CPU or an eager program 1; a capture 2, the
+        eager forward and the replay)."""
+        if not self.capture:
             self.load(host)
-            self.first_scores = self.forward(self.inputs).float().numpy()
+            self.first_scores = self.forward(self.inputs).float().cpu().numpy()
             return 1
         self.load(host)
         eager = self.forward(self.inputs)
@@ -199,11 +245,12 @@ class BucketProgram:
 class ProgramSet:
     """An engine's programs by key: ``("direct", bucket)``, ``("masked",
     bucket)``, ``("hotcold", bucket, cold_rung)``. On a card they share one
-    graph memory pool."""
+    graph memory pool (``capture`` False: none, the programs stay eager)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
-        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self.capture = capture and device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
         self.programs: dict[tuple, BucketProgram] = {}
         self.executions = 0  # warm-up executions the builds ran
         self.captures = 0
@@ -211,7 +258,7 @@ class ProgramSet:
 
     def add(self, key: tuple, forward: Callable[[dict], torch.Tensor], inputs: dict,
             host: dict) -> BucketProgram:
-        prog = BucketProgram(key, forward, inputs, self.device)
+        prog = BucketProgram(key, forward, inputs, self.device, self.capture)
         self.executions += prog.build(host, self.pool)
         if prog.graph is not None:
             self.captures += 1
@@ -234,13 +281,16 @@ class ProgramSet:
 
 
 def pad_cold(split: dict, c_pad: int, n_bags: int) -> dict:
-    """``split`` (an unpadded host split, ``pad=False``) with its cold
-    stream cut or padded to ``c_pad`` entries: cut, it is the split of a
-    batch whose later cold lookups are masked out; pads are id 0 in bag
-    ``n_bags``, as the splitter pads."""
-    n = min(int(split["n_cold"]), c_pad)
-    cold_ids = np.zeros(c_pad, np.int32)
-    cold_seg = np.full(c_pad, n_bags, np.int32)
-    cold_ids[:n], cold_seg[:n] = split["cold_ids"][:n], split["cold_seg"][:n]
+    """``split`` (an unpadded host split, ``pad=False``; or a mesh split,
+    each cell's stream padded) with each cold stream cut or padded to
+    ``c_pad`` entries: cut, it is the split of a batch whose later cold
+    lookups are masked out; pads are id 0 in bag ``n_bags`` (a data slice's
+    bags on a hybrid mesh), as the splitters pad."""
+    key = "cold_ids" if "cold_ids" in split else "cold_local"
+    ids, seg = np.asarray(split[key]), np.asarray(split["cold_seg"])
+    n = min(ids.shape[-1], c_pad)
+    cold_ids = np.zeros(ids.shape[:-1] + (c_pad,), np.int32)
+    cold_seg = np.full(ids.shape[:-1] + (c_pad,), n_bags, np.int32)
+    cold_ids[..., :n], cold_seg[..., :n] = ids[..., :n], seg[..., :n]
     return {"hot_sel": split["hot_sel"], "hot_mask": split["hot_mask"],
-            "cold_ids": cold_ids, "cold_seg": cold_seg}
+            key: cold_ids, "cold_seg": cold_seg}

@@ -49,7 +49,8 @@ import torch
 
 from deeprecsys_tpu_torch.models.base import Batch
 from deeprecsys_tpu_torch.ops import _build
-from deeprecsys_tpu_torch.serving.programs import BUILD_LOCK, capture, pool_bytes
+from deeprecsys_tpu_torch.serving.programs import (
+    BUILD_LOCK, capture, pool_bytes, eager_reason as mesh_eager_reason)
 
 StepFn = Callable[[Batch, torch.Tensor], torch.Tensor]  # (batch, targets) -> loss
 
@@ -57,17 +58,13 @@ StepFn = Callable[[Batch, torch.Tensor], torch.Tensor]  # (batch, targets) -> lo
 def eager_reason(mesh, table_dtype: torch.dtype | None = None, sparse: bool = False):
     """Why a trainer's steps stay eager, or None where they are captured:
     on one device, and on a mesh of one process whose entries all name one
-    device (one card's virtual shards, ``["cuda:0"] * 4``). ``table_dtype``
-    and ``sparse``: the table's dtype and whether the mesh step updates it
-    by K5's window."""
-    if mesh is None:
-        return None
-    if mesh.multi_process:
-        return ("a mesh across processes: its collectives run over torch.distributed "
-                "(gloo through host copies), which a CUDA graph cannot capture")
-    if len(mesh.distinct_devices) > 1:
-        return ("a mesh over several cards in one process: captures across devices are "
-                "not tried")
+    device (one card's virtual shards, ``["cuda:0"] * 4``; the engines'
+    rule, ``serving/programs.py::eager_reason``). ``table_dtype`` and
+    ``sparse``: the table's dtype and whether the mesh step updates it by
+    K5's window."""
+    reason = mesh_eager_reason(mesh)
+    if reason is not None or mesh is None:
+        return reason
     if sparse and table_dtype is not None and table_dtype != torch.float32:
         return ("K5's window on a bf16 shard keeps its count and hash keys from call to "
                 "call, and each call zeroes the next call's count, which a replay would "

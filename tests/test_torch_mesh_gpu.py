@@ -121,9 +121,10 @@ def test_hotcold_across_cards(cards, quant):
 @pytest.mark.parametrize("impl", ["xla", "hotcold"])
 def test_mesh_engine_across_cards(cards, impl):
     """An engine whose mesh spans the cards (a stream on each, an event on
-    each an execution): payload and ragged requests score as the
-    single-device forward; the hot/cold engine refreshes its hot set from
-    the shards on their cards."""
+    each an execution): its programs stay eager, by the reason it states at
+    construction (no capture across devices); payload and ragged requests
+    score as the single-device forward; the hot/cold engine refreshes its
+    hot set from the shards on their cards."""
     n = len(cards)
     D, M = (2, n // 2) if n % 2 == 0 and n > 2 else (1, n)
     cfg = zoo.get_config("rm1", table_scale=SCALE, embedding_impl=impl, hot_set_rows=64)
@@ -137,9 +138,11 @@ def test_mesh_engine_across_cards(cards, impl):
     req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
     eng = engine.ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, params=params,
                                mesh=make_mesh(D, M, devices=cards[:D * M]))
+    assert "several cards" in eng.eager_reason
     eng.start()
     got = ready_q.get(timeout=600)
     assert not isinstance(got, Exception), got
+    assert eng.graph_captures == 0 and all(p.graph is None for p in eng.programs)
     rng = np.random.default_rng(3)
     try:
         for i in range(12):

@@ -690,8 +690,9 @@ def test_mesh_engine_payload_and_ragged_scores(impl, D, M):
 @pytest.mark.parametrize("D,M", [(1, 8), (2, 4)])
 def test_mesh_hotcold_refresh_recovers_from_drift(D, M):
     """JAX tests/test_parallel.py:595: a drifted head outside the hot set is
-    refreshed in on a mesh engine (the hot table gathered from the shards
-    that own its rows); scores equal the direct model through the swap."""
+    refreshed in on a mesh engine (the hot rows gathered from the shards
+    that own them, written into the hot table its programs read); scores
+    equal the direct model through the swap."""
     cfg = zoo.get_config("ncf", table_scale=500).replace(embedding_impl="hotcold",
                                                           hot_set_rows=64)
     scfg = _scfg(sub_task_batch_size=8, hotcold_refresh_interval=4, hotcold_refresh_window=8,
@@ -721,7 +722,7 @@ def test_mesh_hotcold_refresh_recovers_from_drift(D, M):
         assert eng.hot_refreshes == 1, "mesh refresh never fired"
         assert eng.hot_coverage > 0.9
         new = eng.params.entry(D - 1, M - 1)["hot_table"]
-        assert new is not old
+        assert new is old  # the same tensor, now holding the new rows
         assert torch.equal(new, sharding.gather_rows(eng.params, eng._hotcold.hot_ids))
         params = {k: v for k, v in eng.params.entry(0, 0).items() if k not in ("hot_table",)}
         params["tables"] = torch.cat([eng.params.entry(0, m)["tables"] for m in range(M)])

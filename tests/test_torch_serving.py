@@ -130,19 +130,40 @@ def test_load_generator_stream_equals_jax(kw):
     assert min(port.pacing_errors_s) > -1e-3  # time.sleep never returns early
 
 
+class _LateClock:
+    """A virtual clock for ``load_generator.time``: ``perf_counter()`` reads
+    it and ``sleep(s)`` advances it by ``s`` plus ``late`` (a sleep that
+    always wakes late). Times are dyadic, so every sum is exact."""
+
+    def __init__(self, start: float, late: float):
+        self.now, self.late, self.sleeps = start, late, 0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def sleep(self, s: float):
+        self.sleeps += 1
+        self.now += s + self.late
+
+
 def test_pacing_overshoot_does_not_add_up(monkeypatch):
-    """Twenty 2 ms gaps with a sleep that always wakes 1 ms late: pacing
-    against the schedule ends ~1 ms late, not ~20 ms (the sum of the
-    overshoots, as sleeping for each gap would)."""
-    real_sleep = time.sleep
-    monkeypatch.setattr(load_generator.time, "sleep", lambda s: real_sleep(s + 1e-3))
-    start = t_next = time.perf_counter()
-    late = []
+    """Twenty gaps of 2^-9 s (~2 ms) with a sleep that always wakes 2^-10 s
+    (~1 ms) late, on a virtual clock: each wake-up is exactly 2^-10 s late
+    and the schedule ends exactly 2^-10 s late, not twenty times that (the
+    sum of the overshoots, as sleeping for each gap would); a deadline
+    already passed returns its lateness without sleeping."""
+    gap, late = 2.0 ** -9, 2.0 ** -10
+    clock = _LateClock(1024.0, late)
+    monkeypatch.setattr(load_generator, "time", clock)
+    start = t_next = clock.perf_counter()
+    woke = []
     for _ in range(20):
-        t_next += 2e-3
-        late.append(load_generator.sleep_until(t_next))
-    assert min(late) >= 0.0 and time.perf_counter() - start - 20 * 2e-3 < 10e-3
-    assert load_generator.sleep_until(time.perf_counter() - 1.0) >= 1.0  # already late
+        t_next += gap
+        woke.append(load_generator.sleep_until(t_next))
+    assert woke == [late] * 20 and clock.sleeps == 20
+    assert clock.perf_counter() - start - 20 * gap == late
+    assert load_generator.sleep_until(clock.perf_counter() - 1.0) == 1.0  # already late
+    assert clock.sleeps == 20
 
 
 def test_load_generator_raises_on_engine_setup_failure():
