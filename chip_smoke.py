@@ -123,6 +123,17 @@ export checkpointed and served through ``ServingServer`` on the card
 within 0.02 AUC of it (the JAX lifecycle test's rule); and
 ``experiments/qps_sweep.py`` on the card for rm1's latency-bounded QPS.
 
+Then serving over meshes (phase 16, after phase 14): the window kernels at
+rm1's and rm2's shards, rm1's ``sharded_apply``, its int8, table-wise and
+hot/cold layouts, payloads, ``run_serving`` and a refreshing hot/cold engine
+on meshes whose entries all name the card (virtual shards), each engine's
+programs one CUDA graph each; and, where the machine has two cards or more,
+rm1 through ``run_serving`` on 2x2, 1x4 and 1x2 meshes of distinct cards (as
+many as it holds), each program a graph a card's part, beside the same
+engine with its programs eager and the same mesh of card 0's virtual
+shards, their QPS and p95 on lines of their own (on one card a line says
+that this part did not run).
+
 Then training over meshes whose entries all name the card (phase 17, after
 phase 11; virtual shards: every launch, gradient reduction and update runs,
 no scaling across cards shows): rm1 at full size (f32, batch 128) trained
@@ -506,6 +517,11 @@ MESH_KERNEL_MODELS = ("rm1", "rm2")
 # section 5, an NVIDIA H100 80GB HBM3 at 700 W).
 MESH_SERVING_AXES = ((2, 2), (1, 4))
 MESH_EAGER_2X2 = {"measured_qps": 62.49, "p95_ms": 1199.649}
+# Phase 16's engines over several cards: one rm1 engine over each of these
+# meshes of distinct cards that the machine holds, graphed, beside the same
+# engine with its programs eager and the same mesh of card 0's virtual
+# shards, each at the canonical point.
+MESH_CARDS_AXES = ((2, 2), (1, 4), (1, 2))
 # The window kernel and K6's shard mode of each table layout.
 SHARD = {"none": "embedding_bag_shard", "int8": "embedding_bag_int8_shard",
          "int8_rowwise": "embedding_bag_int8_rowwise_shard"}
@@ -4123,14 +4139,17 @@ def _window_cells(quant: str, sp, d: int, offsets, indices, mask, what: str,
     rps, worst = sp.rows_per_shard, 0.0
     for m in range(sp.mesh.shape["model"]):
         shard, lo = _layout_leaf(sp.entry(d, m)["tables"]), m * rps
-        got = _window_partial(quant, shard, offsets, indices, lo, mask)
+        # on the shard's own card (a mesh over several cards)
+        offs, idx = offsets.to(shard.device), indices.to(shard.device)
+        msk = None if mask is None else mask.to(shard.device)
+        got = _window_partial(quant, shard, offs, idx, lo, msk)
         synchronize(shard.device)
-        want = _window_partial(quant, shard, offsets, indices, lo, mask, plain=True)
+        want = _window_partial(quant, shard, offs, idx, lo, msk, plain=True)
         worst = max(worst, _check_partial(
             quant, got, want, shard,
             f"{what}: shard {m} (rows [{lo}, {lo + rps})), b={indices.shape[0]}, "
             f"mask={'yes' if mask is not None else 'no'}",
-            lambda a, b, t: tol(a, b, t, offsets, indices, mask, window=(lo, lo + rps))))
+            lambda a, b, t: tol(a, b, t, offs, idx, msk, window=(lo, lo + rps))))
     _merge(errs, SHARD[quant], worst)
     return worst
 
@@ -4204,16 +4223,18 @@ def _tablewise_cells(quant: str, tw_params: dict, batch: Batch, what: str, errs:
     return worst
 
 
-def _bucket_windows(device, cfg, sp, buckets, what: str, errs: dict) -> float:
-    """The window kernel at a mesh engine's buckets: data slice 0's ids (and
-    a ragged mask) of a ``bucket``-row batch on every shard of row 0."""
+def _bucket_windows(device, cfg, sp, buckets, what: str, errs: dict,
+                    quant: str = "none") -> float:
+    """The window kernel of ``quant``'s layout at a mesh engine's buckets:
+    data slice 0's ids (and a ragged mask) of a ``bucket``-row batch on
+    every shard of row 0, each on its shard's card."""
     D = sp.mesh.shape["data"]
     offsets = table_offsets(cfg, device)
     worst = 0.0
     for n in buckets:
         _, _, idx, mask = _case_inputs(device, cfg, n, None, seed=60 + n)
         for m_ in (None, mask):
-            worst = max(worst, _window_cells("none", sp, 0, offsets, idx[:n // D],
+            worst = max(worst, _window_cells(quant, sp, 0, offsets, idx[:n // D],
                                              None if m_ is None else m_[:n // D],
                                              f"{what} bucket {n}", errs))
     return worst
@@ -4894,6 +4915,240 @@ def mesh_refresh(device, card: str, errs: dict) -> tuple[dict, dict]:
     _free(device)
     return {"payloads": len(answered), "hot_refreshes": 1, "max_abs_err": max(worst, prog)}, \
         counts
+
+
+@contextlib.contextmanager
+def _eager_engines():
+    """Engines built inside the block keep their programs eager (phase 16's
+    eager arm): the engines' rule gives them a reason."""
+    from deeprecsys_tpu_torch.serving import engine as engine_module
+
+    orig = engine_module.eager_reason
+    engine_module.eager_reason = lambda mesh: "the eager arm of chip_smoke.py's phase 16"
+    try:
+        yield
+    finally:
+        engine_module.eager_reason = orig
+
+
+def _card_launches(eng) -> dict:
+    """A graphed engine's launches by card index over its run: each
+    program's tally on that card times its eager warm run, its warm replay
+    and its served replays."""
+    out: dict = {}
+    for p in eng.programs:
+        for dev, tally in p.stage_launches:
+            out[dev.index] = out.get(dev.index, 0) + sum(tally.values()) * (p.runs + 2)
+    return out
+
+
+def mesh_cards(device, fwd: dict, card: str, errs: dict) -> tuple[dict, dict]:
+    """rm1 (phase 5's params) through ``run_serving`` with one engine over
+    each of ``MESH_CARDS_AXES``' meshes of distinct cards the machine holds,
+    at the canonical point: graphed (a graph a card's part a program), the
+    same engine with its programs eager, and the same mesh of card 0's
+    virtual shards (graphed, one graph a program). Each run answers every
+    sub-request with D*M window K1 launches an execution; each graphed
+    engine's programs hold to ``model.apply`` on their warm rows
+    (``check_programs``), the window K1 at its buckets on each card to its
+    plain version. With one card, one line says that this part did not
+    run. Returns the results by mesh and arm, and the launches."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n < 2:
+        _log(f"[16 mesh cards] the engines over several cards need two cards or more; this "
+             f"machine has {n}: not run [{card}]")
+        return {}, _want()
+    cfg = fwd["cfg"]
+    scfg = ServingConfig(**SERVING_POINT, num_batches=SERVE_QUERIES,
+                         engine_backend=_backend(device))
+    cards = [torch.device("cuda", i) for i in range(n)]
+    out, launches = {}, _want()
+    for D, M in MESH_CARDS_AXES:
+        if D * M > n:
+            continue
+        label = f"{D}x{M}"
+        out[label] = {}
+        for arm, devices in (("one card", [device] * (D * M)), ("graphed", cards[:D * M]),
+                             ("eager", cards[:D * M])):
+            what = f"rm1 {label} over {'one card' if arm == 'one card' else f'{D * M} cards'}"
+            for c in cards:
+                _reset_peak(c)
+            _reset_counts()
+            with _engines_of_runs() as engines, (
+                    _eager_engines() if arm == "eager" else contextlib.nullcontext()):
+                res = run_serving(cfg, scfg, settle_s=0.1, params=fwd["params"],
+                                  mesh=make_mesh(D, M, devices=devices))
+            counts = _counts()
+            (eng,) = engines
+            if (res.engine_errors or res.error_responses
+                    or res.num_responses != res.cpu_sub_requests):
+                raise AssertionError(f"{what} ({arm}): {res.num_responses} responses for "
+                                     f"{res.cpu_sub_requests}, errors {res.error_responses} "
+                                     f"{res.engine_errors}")
+            _mesh_launch_check(counts, _want(embedding_bag_shard=D * M * res.executions),
+                               f"{what} ({arm}, {res.executions} executions)")
+            peak = max(_peak_gib(c) for c in cards[:D * M])
+            row = {**res.to_dict(), "peak_gib": peak, "programs": len(eng.programs),
+                   "captures": eng.graph_captures, "capture_ms": eng.capture_ms}
+            if arm == "eager":
+                if eng.graph_captures or any(p.graphs for p in eng.programs):
+                    raise AssertionError(f"{what}: the eager arm captured")
+                detail = f"{len(eng.programs)} programs, eager"
+            else:
+                tally = _mesh_tally(device, eng, {"embedding_bag_shard": D * M},
+                                    f"{what} ({arm})")
+                prog = check_programs(device, eng, fwd["model"], fwd["params"], what)
+                warm = max((p.warm_err or 0.0) for p in eng.programs)
+                parts = {len(p.graphs) for p in eng.programs}
+                by_card = {f"cuda:{i}": b for i, b in sorted(eng.graph_pool_bytes_by_card.items())}
+                per_card = _card_launches(eng)
+                row.update(program_err=prog, warm_err=warm, graphs_a_program=sorted(parts),
+                           pool_bytes=eng.graph_pool_bytes, pool_bytes_by_card=by_card,
+                           launches_by_card=per_card)
+                detail = (f"{len(eng.programs)} programs, {sorted(parts)} graphs each (a graph "
+                          f"a card's part), {eng.graph_captures} programs captured in "
+                          f"{eng.capture_ms:.1f} ms ({eng.capture_ms / len(eng.programs):.2f} ms "
+                          f"a program); graph pool by card "
+                          f"{ {k: f'{v / 2**20:.1f} MiB' for k, v in by_card.items()} }; "
+                          f"window K1 launches by card {per_card}; {tally}; every first "
+                          f"replay within bf16_atol of model.apply on its rows (max |err| "
+                          f"{prog:.3e}), against the engine's own eager run {warm:.3e}")
+                if arm == "graphed":
+                    k1 = _bucket_windows(device, cfg, eng.params, eng.buckets, what, errs)
+                    detail += f"; window K1 at each bucket's slice on each card max |err| {k1:.3e}"
+            _log(f"[16 mesh cards] {what}, {arm}, canonical point: {_served_line(res, counts)}; "
+                 f"{detail}; peak {peak:.3f} GiB [{card}]")
+            _log(f"[16 mesh cards] {label} {arm}: QPS {res.measured_qps:.2f} [{card}; "
+                 f"{D * M if arm != 'one card' else 1} card(s)]")
+            _log(f"[16 mesh cards] {label} {arm}: p95 {res.p95_ms:.3f} ms [{card}; "
+                 f"{D * M if arm != 'one card' else 1} card(s)]")
+            out[label][arm] = row
+            _add(launches, counts)
+            del engines, eng
+            _free(device)
+    out["paths"], counts = mesh_cards_paths(device, cards, card, errs)
+    _add(launches, counts)
+    return out, launches
+
+
+def _payloads(cfg, impl: str, rng) -> list:
+    """A cards engine's first payloads: 32, 100 and a ragged 64 rows of the
+    generator's ids (a direct engine), or 64 rows of zipf(1.2) ids."""
+    if impl == "hotcold":
+        return [Batch(dense=rng.random((64, cfg.dense_dim), dtype=np.float32)
+                      if cfg.dense_dim else None, indices=zipf_stream(cfg, 64, seed=500 + n))
+                for n in range(REFRESH_MAX_PAYLOADS)]
+    data = RecDataGenerator(cfg, seed=41)
+    rag = data.generate_batch(64)
+    return [data.generate_batch(32), data.generate_batch(100),
+            rag._replace(mask=rng.random(rag.indices.shape) < 0.6)]
+
+
+def mesh_cards_paths(device, cards: list, card: str, errs: dict) -> tuple[dict, dict]:
+    """Over the largest mesh of distinct cards (2x2 on four cards, else
+    1x2), each engine's programs a graph a card's part, at the canonical
+    ladder: rm1 with per-table and with row-wise int8 tables served direct,
+    ragged accepted (K1-int8's and K4's windows); rm1 hot/cold with refresh
+    in the three layouts on zipf(1.2) payloads (K6 on a shard, the direct
+    windows beside, until a refresh and 2 x REFRESH_INTERVAL payloads after
+    it; the scans inline, so that the refresh comes at the same payload on
+    every run); dien (K3 in each data row's tail, on that row's first card). Each
+    engine's payloads are held to ``model.apply`` (bf16_atol), each first
+    replay to the reference (``check_programs``, its launches taken out of
+    the path's), the path's launches to its executions times the tally, and
+    the path's kernel on every cell at each bucket, on its own card, to its
+    plain version."""
+    D, M = (2, 2) if len(cards) >= 4 else (1, 2)
+    mesh = make_mesh(D, M, devices=cards[:D * M])
+    runs = ([("rm1", q, "xla") for q in QUANT_MODES]
+            + [("rm1", q, "hotcold") for q in ("none",) + QUANT_MODES] + [("dien", "none", "xla")])
+    out, launches = {}, _want()
+    rng = np.random.default_rng(43)
+    for name, quant, impl in runs:
+        what = f"{name} {quant} tables {impl}, {D}x{M} over {D * M} cards"
+        cfg = zoo.get_config(name, table_scale=TABLE_SCALE, param_dtype="bfloat16",
+                             compute_dtype="bfloat16", table_quant=quant, embedding_impl=impl,
+                             hot_set_rows=REFRESH_HOT_ROWS)
+        model = get_model(cfg.replace(embedding_impl="xla"), device)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        _reset_counts()  # K3 launches a forward (dien's scans), from one forward
+        _forward(model, params, RecDataGenerator(cfg, seed=3).generate_batch(8), device)
+        k3_a_forward = _counts()["rnn_scan"]
+        scfg = ServingConfig(**SERVING_POINT, engine_backend=_backend(device),
+                             accept_ragged=impl == "xla",
+                             hotcold_refresh_interval=REFRESH_INTERVAL if impl == "hotcold" else 0,
+                             hotcold_refresh_window=8, hotcold_scan_async=False)
+        req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+        _reset_counts()
+        eng = ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, params=params, mesh=mesh)
+        eng.start()
+        ready = ready_q.get(timeout=600)
+        if isinstance(ready, Exception):
+            raise RuntimeError(f"{what}: the engine failed during setup") from ready
+        pre = _counts()
+        prog = check_programs(device, eng, model, params, what)
+        checked = {k: v - pre[k] for k, v in _counts().items()}
+        answered, after = [], 0
+        for n, p in enumerate(_payloads(cfg, impl, rng)):
+            req_q.put(ServiceRequest(batch_id=n, batch_size=len(p.indices),
+                                     arrival_time=time.time(), payload=p))
+            answered.append((p, resp_q.get(timeout=120)))
+            after += eng.hot_refreshes > 0
+            if impl == "hotcold" and after >= 2 * REFRESH_INTERVAL:
+                break
+        req_q.put(None)
+        eng.join(timeout=120)
+        counts = {k: v - checked[k] for k, v in _counts().items()}
+        ex = _executions(eng)
+        if eng.error is not None or (impl == "hotcold" and eng.hot_refreshes < 1):
+            raise AssertionError(f"{what}: {eng.hot_refreshes} refreshes, error {eng.error!r}")
+        k3 = k3_a_forward * D * ex  # a forward's scans in each data row's tail
+        if impl == "hotcold":
+            k6, k1 = counts[HOTCOLD_SHARD[quant]], counts[SHARD[quant]]
+            if k6 == 0 or k6 + k1 != D * M * ex:
+                raise AssertionError(f"{what}: launches {counts} for {ex} executions")
+            want = _want(**{HOTCOLD_SHARD[quant]: k6, SHARD[quant]: k1})
+        else:
+            want = _want(**{SHARD[quant]: D * M * ex}, rnn_scan=k3)
+        _mesh_launch_check(counts, want, f"{what} ({ex} executions)")
+
+        def tally(key):
+            t = {(HOTCOLD_SHARD if key[0] == "hotcold" else SHARD)[quant]: D * M}
+            return {**t, "rnn_scan": k3_a_forward * D} if k3_a_forward else t
+
+        line = _mesh_tally(device, eng, tally, what)
+        worst = 0.0
+        for n, (p, r) in enumerate(answered):
+            if r.error_code != ERR_OK:
+                raise AssertionError(f"{what}: payload {n} error {r.error_code}")
+            worst = max(worst, _check_close(r.scores, _forward(model, params, p, device),
+                                            f"{what} payload {n}"))
+        cells = _bucket_windows(device, cfg, eng.params, eng.buckets, what, errs, quant)
+        if impl == "hotcold":
+            hc = make_hotcold_model(model, np.asarray(eng._hotcold.hot_ids), mesh=mesh)
+            cells = max(cells, max(
+                _hotcold_cells(quant, eng.params, hc.prepare(Batch(
+                    dense=None, indices=zipf_stream(cfg, n, seed=400 + n))),
+                    f"{what} bucket {n}", errs) for n in eng.buckets))
+        by_card = {f"cuda:{i}": b for i, b in sorted(eng.graph_pool_bytes_by_card.items())}
+        _log(f"[16 mesh cards] {what}: {len(eng.programs)} programs, "
+             f"{sorted({len(p.graphs) for p in eng.programs})} graphs each, captured in "
+             f"{eng.capture_ms:.1f} ms; graph pool by card "
+             f"{ {k: f'{v / 2**20:.1f} MiB' for k, v in by_card.items()} }; every first replay "
+             f"within bf16_atol of the reference (max |err| {prog:.3e}, against the engine's "
+             f"own eager run {max((p.warm_err or 0.0) for p in eng.programs):.3e}); "
+             f"{len(answered)} payloads match model.apply (max |err| {worst:.3e})"
+             + (f", hot_refreshes {eng.hot_refreshes}" if impl == "hotcold" else "")
+             + f"; launches {_nonzero(counts)} for {ex} executions, {line}; launches by card "
+             f"{_card_launches(eng)}; each cell's kernel at each bucket against its plain "
+             f"version max |err| {cells:.3e} [{card}]")
+        out[what] = {"programs": len(eng.programs), "max_abs_err": max(worst, prog),
+                     "capture_ms": eng.capture_ms, "pool_bytes_by_card": by_card,
+                     "launches_by_card": _card_launches(eng)}
+        _add(launches, counts)
+        del eng, params, model
+        _free(device)
+    return out, launches
 
 
 def phase_mesh(device, fwd: dict, times: dict, single: dict, card: str,
@@ -6433,6 +6688,10 @@ def main() -> int:
     _add(mesh_launches, counts)
     # Phase 16: serving over meshes of the card, each path read around itself.
     mesh, counts = phase_mesh(device, fwd, times, serving["rm1_1"], card["card"], mesh_errs)
+    _add(mesh_launches, counts)
+    # Phase 16's engines over several cards (two cards or more), read around
+    # themselves.
+    mesh["cards"], counts = mesh_cards(device, fwd, card["card"], mesh_errs)
     _add(mesh_launches, counts)
     del fwd
     torch.cuda.empty_cache()

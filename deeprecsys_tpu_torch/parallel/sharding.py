@@ -28,9 +28,21 @@ explicit, from the calling thread:
 
 Each launch goes to the current stream of its entry's device. A partial
 moved between two devices is ordered by PyTorch's cross-device copy, which
-waits on the current streams of both; on one device everything is on one
-stream. The CPU tests can check the combine's order only as far as one
-device shows it: the order across several cards is untested.
+waits on the current streams of both by events; on one device everything
+is on one stream. ``tests/test_torch_mesh_gpu.py`` holds the order across
+several cards to the single-device forward; the CPU tests reach it by
+naming each entry of a CPU mesh a card of its own (``card_plan(places=)``).
+
+The mesh engines' programs (``serving/programs.py``) run the same forward
+cut into parts, one a card and job (``card_plan``, ``mesh_stages``): a part
+on each card that pools the shards of rows combined on another card, then
+a part on each card that sums its rows in shard order (its own partials
+and those received), finishes them and runs the tail, ``mesh.home``'s last
+with the concat. Each part reads only tensors on its own card: the
+partials and slices that cross cards are copied by the caller into
+receive buffers there, so that each part can be captured as a CUDA graph
+of its card. The pieces and their order are ``sharded_apply``'s (and the
+mesh hot/cold model's), so the parts compute their scores bit for bit.
 
 Table-wise sharding (``build_tablewise_tables``, ``tablewise_embedding_bag``)
 places whole tables on shards (``placement.py``); each shard pools its own
@@ -78,7 +90,7 @@ do, and raise there (``Mesh.require_one_process``).
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -801,6 +813,236 @@ def hybrid_embedding_bag_hotcold(hot_table, table, split: dict, mesh: Mesh, *,
     _no_pack(pack)
     return concat_slices(mesh, *_hotcold_lookup(hot_table, table, split, mesh, True,
                                                 compute_dtype, table_scale, rowwise))
+
+
+# ----------------------------------------------------------------------
+# The mesh forward cut into parts, one a card (the engines' programs)
+# ----------------------------------------------------------------------
+
+
+class CardPart(NamedTuple):
+    """One card's share of a one-process mesh forward (``card_plan``).
+    ``shards``: the entries (d, m) whose partial it pools and sends to row
+    d's entry (d, 0), which is on another card. ``rows``: the data rows
+    whose sum over "model" (its own shards' partials and those it received,
+    in shard order), finish and tail it runs. ``concat``: the last part, on
+    ``mesh.home``, which concatenates the slices."""
+
+    place: object
+    device: torch.device
+    shards: tuple
+    rows: tuple
+    concat: bool
+
+
+class Stage(NamedTuple):
+    """A part made runnable (``mesh_stages``): ``fn(recv)`` runs the part's
+    work on ``device`` alone and returns its outputs by key; ``sends`` maps
+    each output another part reads to that part's device, where the caller
+    copies it into ``recv[key]`` (a buffer it keeps) before that part runs.
+    The last stage's outputs hold ``"out"``, the whole batch's scores."""
+
+    device: torch.device
+    fn: Callable[[dict], dict]
+    sends: dict
+
+
+def card_plan(mesh: Mesh, places=None, sharded: bool = True) -> tuple:
+    """The mesh forward of one process cut into parts, one a card and job,
+    in the order they run: first a part on each card that pools shards of
+    rows combined on another card, then a part on each card that combines
+    rows, ``mesh.home``'s last (it concatenates the slices). A plain
+    function of the entries' places: ``places`` is a (D, M) grid of labels,
+    the entries' devices by default; entries of one label share a card.
+    A one-card mesh gives one part, the whole forward. ``sharded`` False
+    (a replicated table): each row's whole lookup on its entry (d, 0)."""
+    mesh.require_one_process("the mesh forward cut into parts per card")
+    D, M = mesh.shape["data"], mesh.shape["model"] if sharded else 1
+    grid = mesh.devices if places is None else np.asarray(places, dtype=object).reshape(
+        mesh.devices.shape)
+    device = {}
+    for d in range(D):
+        for m in range(mesh.shape["model"]):
+            device.setdefault(grid[d, m], mesh.device(d, m))
+    order = list(device)
+    home = grid[0, 0]
+    parts = []
+    for p in order:
+        shards = tuple((d, m) for d in range(D) for m in range(1, M)
+                       if grid[d, m] == p and grid[d, 0] != p)
+        if shards:
+            parts.append(CardPart(p, device[p], shards, (), False))
+    for p in order[1:] + [home]:
+        rows = tuple(d for d in range(D) if grid[d, 0] == p)
+        if rows or p == home:
+            parts.append(CardPart(p, device[p], (), rows, p == home))
+    return tuple(parts)
+
+
+def _direct_fns(model: ModelFns, sp: ShardedParams):
+    """The row-sharded lookup's pieces over static inputs ``x`` (a place's
+    rows: ``indices``, ``dense``, ``mask`` of the whole bucket): shard
+    (d, m)'s partial (a replicated table: row d's whole lookup) and row d's
+    finish, as ``sharded_apply`` computes them."""
+    from deeprecsys_tpu_torch.models.base import pooled_lookup
+
+    cfg, mesh = model.cfg, sp.mesh
+    D = mesh.shape["data"]
+    layout, cdt = _layout(sp.first_entry()["tables"]), compute_dtype_of(cfg)
+    offsets = Replicated(mesh, torch.as_tensor(cfg.table_offsets, dtype=torch.int32))
+    rps = sp.rows_per_shard
+    ranges = None if rps is None else shard_table_ranges(cfg, rps, mesh.shape["model"])
+
+    def rows(x, name, d):
+        t = x.get(name)
+        b = x["indices"].shape[0] // D
+        return None if t is None else t[d * b:(d + 1) * b]
+
+    def partial(d, m, x):
+        dev = mesh.device(d, m)
+        idx, mask = rows(x, "indices", d), rows(x, "mask", d)
+        if rps is None:
+            return pooled_lookup(sp.entry(d, 0)["tables"], Batch(dense=None, indices=idx,
+                                                                 mask=mask),
+                                 cfg, offsets=offsets.on(dev))
+        return _shard_partial(layout, sp.entry(d, m)["tables"], offsets.on(dev), idx,
+                              m * rps, cdt, mask, ranges[m])
+
+    def finish(d, acc):
+        if rps is None:
+            return acc
+        scale = sp.entry(d, 0)["tables"]["scale"] if layout == "int8" else None
+        return _finish(acc, layout, cdt, scale)
+
+    return partial, finish, lambda x, d: rows(x, "dense", d)
+
+
+def _hotcold_fns(model: ModelFns, sp: ShardedParams):
+    """The mesh hot/cold lookup's pieces over static inputs ``x`` (a
+    place's split: ``hot_sel``, ``hot_mask``, ``cold_local`` and
+    ``cold_seg`` streams, ``dense``): cell (d, m)'s K6 partial, the hot
+    hits counted on shard 0, and row d's finish, as
+    ``models/hotcold.py``'s mesh apply computes them (tensor-parallel where
+    "data" is 1, else hybrid)."""
+    cfg, mesh = model.cfg, sp.mesh
+    D, T = mesh.shape["data"], cfg.num_tables
+    tables0 = sp.first_entry()["tables"]
+    key = ("qrows" if isinstance(tables0, dict) and "qrows" in tables0
+           else "q" if isinstance(tables0, dict) else None)
+    layout = _quant_layout(tables0["scale"] if key == "q" else None, key == "qrows")
+    cdt = compute_dtype_of(cfg)
+
+    def rows(x, name, d):
+        t = x.get(name)
+        b = x["hot_sel"].shape[0] // D
+        return None if t is None else t[d * b:(d + 1) * b]
+
+    def partial(d, m, x):
+        e = sp.entry(d, m)
+        cell = (m,) if D == 1 else (d, m)
+        split = {"cold_ids": x["cold_local"][cell], "cold_seg": x["cold_seg"][cell]}
+        shard = e["tables"] if key is None else e["tables"][key]
+        if m == 0:
+            split.update(hot_sel=rows(x, "hot_sel", d), hot_mask=rows(x, "hot_mask", d))
+            return _hotcold_shard_partial(layout, e["hot_table"], shard, split, cdt)
+        bags = (x["hot_sel"].shape[0] // D, T)
+        return _hotcold_shard_partial(layout, None, shard, dict(split, bags=bags), cdt)
+
+    def finish(d, acc):
+        scale = sp.entry(d, 0)["tables"]["scale"] if layout == "int8" else None
+        return _finish(acc, layout, cdt, scale)
+
+    return partial, finish, lambda x, d: rows(x, "dense", d)
+
+
+def mesh_stages(model: ModelFns, sp: ShardedParams, plan: tuple, inputs: dict,
+                hotcold: bool = False) -> tuple[list, list]:
+    """``sharded_apply``'s forward (``hotcold``: the mesh hot/cold model's)
+    over ``sp`` as ``plan``'s parts (``card_plan``), each reading the static
+    inputs of its place, ``inputs[place]`` (a dict by name, the bucket's
+    rows or split). Every tensor a part reads from another card is a
+    ``recv`` buffer that the caller fills with the output of the part that
+    made it (``Stage.sends``): shard (d, m)'s partial (key ``("partial",
+    d, m)``), row d's scores (``("scores", d)``). The sums run in shard
+    order and each piece is ``sharded_apply``'s, so the parts together
+    compute its scores bit for bit. Returns ``(stages, loads)``: the stages
+    in order, and ``(place, name, index)`` for each piece of the host rows
+    a place reads (``index`` () for a whole array): what the caller copies
+    into ``inputs[place][name][index]`` from ``host[name][index]``."""
+    mesh = sp.mesh
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    if sp.rows_per_shard is None:
+        M = 1
+    partial, finish, dense_of = (_hotcold_fns if hotcold else _direct_fns)(model, sp)
+    sent = {e for p in plan for e in p.shards}  # pooled on another card than their row's
+    home = plan[-1].device  # the concat's part
+    row_home = {d: p.device for p in plan for d in p.rows}
+    reads: dict = {}
+
+    def read(place, name, index):
+        reads.setdefault(place, {}).setdefault(name, set()).add(index)
+
+    def read_cell(place, d, m):
+        if hotcold:
+            for name in ("cold_local", "cold_seg"):
+                read(place, name, (m,) if D == 1 else (d, m))
+            if m == 0:
+                read(place, "hot_sel", d)
+                read(place, "hot_mask", d)
+        else:
+            read(place, "indices", d)
+            read(place, "mask", d)
+
+    def stage(part: CardPart) -> Stage:
+        x = inputs[part.place]
+        for d, m in part.shards:
+            read_cell(part.place, d, m)
+        for d in part.rows:
+            read(part.place, "dense", d)
+            for m in range(M):
+                if (d, m) not in sent:
+                    read_cell(part.place, d, m)
+
+        def fn(recv: dict) -> dict:
+            out = {("partial", d, m): partial(d, m, x) for d, m in part.shards}
+            scores = {}
+            for d in part.rows:
+                acc = None
+                for m in range(M):
+                    p = recv[("partial", d, m)] if (d, m) in sent else partial(d, m, x)
+                    acc = p if acc is None else acc + p
+                scores[d] = model.apply_from_pooled(
+                    sp.entry(d, 0), finish(d, acc),
+                    Batch(dense=dense_of(x, d), indices=None, mask=None))
+            if part.concat:
+                out["out"] = torch.cat([scores[d] if d in scores else recv[("scores", d)]
+                                        for d in range(D)], dim=0)
+            else:
+                out.update((("scores", d), s) for d, s in scores.items())
+            return out
+
+        sends = {("partial", d, m): row_home[d] for d, m in part.shards}
+        if not part.concat:
+            sends.update((("scores", d), home) for d in part.rows)
+        return Stage(part.device, fn, sends)
+
+    stages = [stage(part) for part in plan]
+    loads = []
+    for place, names in reads.items():
+        x = inputs[place]
+        for name, pieces in names.items():
+            if x.get(name) is None:
+                continue
+            cells = name in ("cold_local", "cold_seg")
+            whole = (D * M if cells and D > 1 else M if cells else D)
+            if len(pieces) == whole:
+                loads.append((place, name, ()))
+                continue
+            b = x[name].shape[0] // D
+            for piece in sorted(pieces):
+                index = piece if cells else (slice(piece * b, (piece + 1) * b),)
+                loads.append((place, name, index))
+    return stages, loads
 
 
 # ----------------------------------------------------------------------

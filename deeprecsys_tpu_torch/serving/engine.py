@@ -16,8 +16,8 @@ before it signals ready, also on a mesh, an engine builds one
 the forward, captured on the engine's stream, which each execution replays
 over static device inputs (the rows copied in, the scores copied out); on
 the CPU the same program runs the eager forward over the same buffers. A
-mesh engine over several cards keeps its programs eager
-(``eager_reason``). Two threads an engine: the serve thread assembles and dispatches, the
+mesh engine over several cards captures a graph a card for each program.
+Two threads an engine: the serve thread assembles and dispatches, the
 completion thread waits for the scores and answers. ``SimEngine`` sleeps a
 ``LatencyModel``'s time instead of computing.
 
@@ -91,18 +91,24 @@ With ``mesh=`` (a ``parallel.make_mesh`` mesh; JAX ``engine.py:140-151,
 :279-488, :785-792, :1095-1151``) the engine serves over the mesh from its
 own thread: the buckets round up to a multiple of the "data" axis, the
 params are placed by ``parallel.shard_params`` (the table row-sharded over
-"model"), the direct path runs ``parallel.sharded_apply`` and a hot/cold
-engine the mesh split (tensor-parallel when "data" is 1, hybrid
-otherwise), each as its programs: the rows, or the split staged in the
-slot, are copied into the static inputs (``StaticInputs`` holds the mesh
-split's streams), then the program runs. On one card's virtual shards
-(every entry one device) that is a replay of the captured forward: every
-shard's launch and the combine, on the engine's one stream. The engine's
-device is the mesh's first entry, where the static inputs live and the
-scores land; the engine makes a stream on every distinct mesh device in its
-thread, and an execution completes when an event on each of them has
-passed. A refresh gathers the new hot table's rows from the shards that own
-them; a reload loads the checkpoint on the first device and shards it.
+"model"), the direct path runs ``parallel.sharded_apply``'s forward and a
+hot/cold engine the mesh split (tensor-parallel when "data" is 1, hybrid
+otherwise), each cut into parts by card (``parallel/sharding.py::
+card_plan``, ``mesh_stages``) as its programs: the rows, or the split
+staged in the slot, are copied into the static inputs of each card
+(``StaticInputs`` a card, holding the mesh split's streams), only the
+pieces that card reads, then each card's part runs. On one card's virtual
+shards (every entry one device) that is one part, a replay of the captured
+forward: every shard's launch and the combine, on the engine's one stream.
+Over several cards each card's part is a graph replayed on the engine's
+stream of that card, and the partials and slices that cross cards are
+copied between the replays into static buffers on the receiving card. The
+engine's device is the mesh's first entry, where the scores land; the
+engine makes a stream on every distinct mesh device in its thread, and an
+execution completes when an event on each of them has passed. A refresh
+gathers the new hot table's rows from the shards that own them and writes
+them into the hot table on each card; a reload loads the checkpoint on the
+first device and shards it.
 The orchestrator, ``build_engine_pool`` and the ingress pass ``mesh`` on to
 thread engines (cpu-mp engine processes refuse one, as in the JAX package).
 There is no TPU layout negotiation to port: a checkpoint is loaded against
@@ -256,7 +262,7 @@ class ComputeEngine(threading.Thread):
         if self.device.type == "cuda" and self.device.index is None:
             # The card by its index, as tensors name it (streams are keyed so).
             self.device = torch.device("cuda", torch.cuda.current_device())
-        # Why the programs stay eager (a mesh over several cards), or None
+        # Why the programs stay eager (a mesh across processes), or None
         # where a card captures them: decided here, never by a failed capture.
         self.eager_reason = eager_reason(mesh)
         self.params = params
@@ -275,7 +281,7 @@ class ComputeEngine(threading.Thread):
             n_data = mesh.shape["data"]
             self.buckets = tuple(sorted({-(-b // n_data) * n_data for b in self.buckets}))
         self.model = None
-        self._direct_fn = None  # the mesh's direct forward (parallel.sharded_apply)
+        self._plan = None  # the mesh forward's parts by card (parallel.sharding.card_plan)
         self._rows = np.asarray(model_cfg.scaled_rows, np.int64)[None, :, None]
         self._host_data: dict[int, Batch] = {}  # bucket -> host rows (pinned on a card)
         self._pending: "queue.Queue" = queue.Queue()
@@ -290,10 +296,12 @@ class ComputeEngine(threading.Thread):
         # and the captures made (with their wall ms) and the graph pool of
         # the current set (a card).
         self._static: StaticInputs | None = None
+        self._static_at: dict = {}  # a mesh's place -> the static inputs on its card
         self.programs: ProgramSet | None = None
         self.graph_captures = 0
         self.capture_ms = 0.0
         self.graph_pool_bytes = None
+        self.graph_pool_bytes_by_card: dict = {}
         self.coalesced_requests = 0
         self.clamped_requests = 0
         # Over-ladder handling: strict (the default for direct construction)
@@ -356,12 +364,13 @@ class ComputeEngine(threading.Thread):
         if cfg.embedding_impl in ("hotcold", "auto"):
             self._setup_hotcold(require=cfg.embedding_impl == "hotcold")
         if self.mesh is not None:
-            from deeprecsys_tpu_torch.parallel import shard_params, sharded_apply
+            from deeprecsys_tpu_torch.parallel import sharding
 
             # The table row-sharded over "model"; a hot table and the towers
             # replicated (JAX engine.py:279-290, :371-378).
-            self.params = shard_params(self.params, self.mesh)
-            self._direct_fn = sharded_apply(self.model, self.mesh, has_dense=cfg.dense_dim > 0)
+            self.params = sharding.shard_params(self.params, self.mesh)
+            self._plan = sharding.card_plan(self.mesh,
+                                            sharded=self.params.rows_per_shard is not None)
         if self.device.type == "cuda":
             # Params and offsets were made on other streams or threads. A
             # device-wide wait must not meet another engine's capture.
@@ -391,6 +400,12 @@ class ComputeEngine(threading.Thread):
                                        indices=indices[:b])
         self._static = StaticInputs(cfg, max(self.buckets), ragged, hotcold, self.device,
                                     self.mesh)
+        if self._plan is not None:  # the home card's (the last part's) are ``_static``
+            home = self._plan[-1].place
+            for p in self._plan:
+                if p.place not in self._static_at:
+                    self._static_at[p.place] = self._static if p.place == home else StaticInputs(
+                        cfg, max(self.buckets), ragged, hotcold, p.device, self.mesh)
         self.programs = self._build_programs()
 
     def _program_keys(self) -> list:
@@ -420,28 +435,53 @@ class ComputeEngine(threading.Thread):
         warmed on ``warm_inputs`` (on a card also captured and replayed once,
         one engine's set at a time in the process, unless ``eager_reason``);
         the warm-up executions and captures are counted."""
-        progs = ProgramSet(self.device, capture=self.eager_reason is None)
+        progs = ProgramSet(self.device, capture=self.eager_reason is None,
+                           devices=self._devices())
         on_card = self.device.type == "cuda"
         splits: dict = {}  # bucket -> its rows' split, for every cold rung
         with BUILD_LOCK if on_card else contextlib.nullcontext():
             for key in self._program_keys():
-                b = key[1]
-                inputs = (self._static.split_of(b, key[2]) if key[0] == "hotcold"
-                          else self._static.rows(b, masked=key[0] == "masked"))
-                progs.add(key, self._forward(key[0]), inputs, self.warm_inputs(key, splits))
-            pool = progs.pool_bytes()
+                stages, inputs, loads = self._program(key)
+                progs.add(key, stages, inputs, self.warm_inputs(key, splits), loads)
+            by_card = progs.pool_bytes_by_card()
         self.warmup_executions += progs.executions
         self.graph_captures += progs.captures
         self.capture_ms += progs.capture_ms
-        self.graph_pool_bytes = pool
+        self.graph_pool_bytes = sum(by_card.values()) if on_card else None
+        self.graph_pool_bytes_by_card = by_card
         return progs
 
+    def _inputs(self, key: tuple, static: StaticInputs) -> dict:
+        """The slices of ``static`` program ``key`` reads."""
+        if key[0] == "hotcold":
+            return static.split_of(key[1], key[2])
+        return static.rows(key[1], masked=key[0] == "masked")
+
+    def _program(self, key: tuple) -> tuple:
+        """Program ``key``'s ``(stages, inputs, loads)``, closed over the
+        current params: on one device one stage, the forward of
+        ``_forward``, whose inputs load whole (``loads`` None); on a mesh the
+        stages of ``parallel.sharding.mesh_stages`` (one a card and job),
+        each over the static inputs of its card, and the pieces of the host
+        rows each card's slices take."""
+        from deeprecsys_tpu_torch.parallel.sharding import Stage, mesh_stages
+
+        if self.mesh is None:
+            inputs = self._inputs(key, self._static)
+            forward = self._forward(key[0])
+            return [Stage(self.device, lambda recv: {"out": forward(inputs)}, {})], inputs, None
+        at = {place: self._inputs(key, s) for place, s in self._static_at.items()}
+        stages, pieces = mesh_stages(self.model, self.params, self._plan, at,
+                                     hotcold=key[0] == "hotcold")
+        loads = [(at[place][name][index] if index else at[place][name], name, index)
+                 for place, name, index in pieces]
+        return stages, at[self._plan[-1].place], loads
+
     def _forward(self, kind: str):
-        """A program's forward over its static inputs, closed over the
-        current params: K6 on the split and the model's tail (``hotcold``;
-        on a mesh K6 a shard on the mesh split), else the direct model (a
-        hot/cold engine's without its hot table; on a mesh
-        ``parallel.sharded_apply``'s forward over the sharded params)."""
+        """A program's forward over its static inputs on one device, closed
+        over the current params: K6 on the split and the model's tail
+        (``hotcold``), else the direct model (a hot/cold engine's without
+        its hot table)."""
         params = self.params
         if kind == "hotcold":
             apply = self._hotcold.apply
@@ -449,13 +489,6 @@ class ComputeEngine(threading.Thread):
             def forward(inp: dict) -> torch.Tensor:
                 split = {k: v for k, v in inp.items() if k != "dense"}
                 return apply(params, Batch(dense=inp.get("dense"), indices=None), split)
-            return forward
-        if self.mesh is not None:
-            apply_mesh = self._direct_fn
-
-            def forward(inp: dict) -> torch.Tensor:
-                return apply_mesh(params, Batch(dense=inp.get("dense"), indices=inp["indices"],
-                                                mask=inp.get("mask")))
             return forward
         direct = params if self._hotcold is None else {
             k: v for k, v in params.items() if k != "hot_table"}
@@ -627,7 +660,7 @@ class ComputeEngine(threading.Thread):
         """Run one execution of ``host`` (and ``split``, the host split held
         in ``slot``) and copy the scores into ``slot``: its program (K6 on
         the split, else the direct lookup, masked if ``host`` is) copies the
-        rows in and replays (an eager mesh program runs its forward).
+        rows in and replays (on the CPU runs its forward).
         Returns the events that mark the scores readable, one on the
         engine's stream of each of its devices (none on the CPU, where every
         step is synchronous)."""

@@ -16,12 +16,13 @@ makes 34-50.
 - ``StaticInputs``: the engine's device input buffers, at its largest bucket
   and cold rung (on a mesh, the mesh split's: a cold stream a cell); a
   program reads leading slices of them.
-- ``BucketProgram``: one program: its slices, its forward (a closure over
-  the params it was built with) and, on a card, its graph, its static
-  output and the kernel launches its capture recorded, which each replay
-  adds to the wrappers' counters (``_build.count_replay``).
-- ``ProgramSet``: an engine's programs, sharing one graph memory pool. A
-  reload builds a new set against the new params.
+- ``BucketProgram``: one program: its slices, its stages (closures over
+  the params it was built with; one a card) and, on a card, a graph a
+  stage, the static outputs and the kernel launches the captures recorded,
+  which each replay adds to the wrappers' counters
+  (``_build.count_replay``).
+- ``ProgramSet``: an engine's programs, sharing one graph memory pool a
+  card. A reload builds a new set against the new params.
 
 Building a program on a card runs its forward once eagerly (which builds the
 kernels, creates cuBLAS's handle and workspace on the engine's stream and
@@ -32,21 +33,33 @@ eagerly over the same static buffers, so the CPU tests reach the copy-in
 and the slicing that a card replays; a card never runs the eager forward at
 serve time, and a capture that fails raises.
 
-A mesh engine builds the same programs over the mesh's forward. Where its
-entries all name one device (one card's virtual shards) every shard's launch
-and the combine run on the engine's one stream, and the program is captured
-as on one device. A mesh over several cards, or across processes, stays
-eager (``eager_reason``, decided when the engine is built): its programs run
-the forward over the same static inputs, never a graph.
+A mesh engine builds the same programs over the mesh's forward, cut into
+parts by card (``parallel/sharding.py::card_plan``, ``mesh_stages``): a
+program is a list of stages, each the work of one card. Where the entries
+all name one card (its virtual shards) that is one stage, captured as on
+one device. Over several cards of one process each card's stage is
+captured on the engine's stream of that card into a graph pool of that
+card: PyTorch's private pool belongs to the capturing device alone, so one
+graph over several cards would take the other cards' memory from their
+ordinary pools. Every tensor a stage reads from another card is a static
+buffer on its own card (``recv``), allocated by the eager run before the
+captures, and the copies into it run between the replays, as a
+cross-device ``copy_`` on the two cards' engine streams, which PyTorch
+orders by events and not by a host wait. The rows are copied from pinned
+memory straight into each card's static inputs, only the pieces that card
+reads. A mesh across processes stays eager (``eager_reason``, decided when
+the engine is built): its programs run the forward over the same static
+inputs, never a graph.
 
-Captures run on the engine's stream with ``capture_error_mode=
+Captures run on the engine's streams with ``capture_error_mode=
 "thread_local"`` (engines warm up in parallel threads, whose own streams
 keep working), one program set being built in the process at a time
-(``BUILD_LOCK``), and without ``torch.cuda.graph``'s device-wide
-synchronize and cache flush, which would stall an engine that rebuilds
-under traffic behind every other engine's work. The programs of a set share
-one memory pool: safe because the engine's one stream runs their replays
-one after another.
+(``BUILD_LOCK``, held over every card's captures of a set), and without
+``torch.cuda.graph``'s device-wide synchronize and cache flush, which
+would stall an engine that rebuilds under traffic behind every other
+engine's work. The programs of a set share one memory pool a card: safe
+because the engine's one stream on each card runs their replays one after
+another.
 """
 
 from __future__ import annotations
@@ -70,17 +83,12 @@ BUILD_LOCK = threading.Lock()
 
 def eager_reason(mesh):
     """Why the programs over ``mesh`` stay eager, or None where they are
-    captured: without a mesh, and on a mesh of one process whose entries
-    all name one device (one card's virtual shards, ``["cuda:0"] * 4``).
-    The engines' and the trainers' rule."""
-    if mesh is None:
-        return None
-    if mesh.multi_process:
+    captured: without a mesh, and on a mesh of one process, whether its
+    entries name one card or several (one graph a card). The trainers'
+    rule adds its own (``train_programs.eager_reason``)."""
+    if mesh is not None and mesh.multi_process:
         return ("a mesh across processes: its collectives run over torch.distributed "
                 "(gloo through host copies), which a CUDA graph cannot capture")
-    if len(mesh.distinct_devices) > 1:
-        return ("a mesh over several cards in one process: captures across devices are "
-                "not tried")
     return None
 
 
@@ -113,9 +121,18 @@ def pool_bytes(pool):
     allocator's snapshot); None without a pool (the CPU)."""
     if pool is None:
         return None
-    pool = tuple(pool)
-    return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == pool)
+    return sum(pool_bytes_by_card([pool]).values())
+
+
+def pool_bytes_by_card(pools) -> dict:
+    """Device bytes the graph pools ``pools`` hold, by card index (a card
+    whose pools hold no segment is left out)."""
+    ids = {tuple(p) for p in pools}
+    out: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", ())) in ids:
+            out[seg["device"]] = out.get(seg["device"], 0) + int(seg["total_size"])
+    return out
 
 
 class StaticInputs:
@@ -185,82 +202,137 @@ class StaticInputs:
 
 
 class BucketProgram:
-    """One serve-time program: ``forward(inputs)`` over the static slices
-    ``inputs`` (a dict by name), captured as a graph where ``capture`` (on
-    a card, but an eager mesh engine's)."""
+    """One serve-time program: its ``stages`` (``parallel.sharding.Stage``:
+    one on one device or one card, one a card and job over several cards)
+    over the static slices they read, each stage captured as a graph where
+    ``capture`` (on a card, unless the engine states an eager reason). ``inputs``: the
+    slices by name on the output's card; ``loads``: ``(dst, name, index)``,
+    each static slice and the piece ``host[name][index]`` copied into it
+    (``index`` () for a whole array), every card's."""
 
-    def __init__(self, key: tuple, forward: Callable[[dict], torch.Tensor], inputs: dict,
+    def __init__(self, key: tuple, stages: list, inputs: dict, loads: list,
                  device: torch.device, capture: bool):
         self.key = key
-        self.forward = forward
+        self.stages = stages
         self.inputs = inputs
+        self.loads = loads
         self.device = device
         self.capture = capture
-        self.graph = None
-        self.out = None          # the graph's static output (a card)
-        self.launches: dict = {}  # wrapper -> launches a replay (a card)
+        self.graphs: list = []   # a graph a stage (a card)
+        self.outs: list = []     # each stage's static outputs (a card)
+        self.recv: dict = {}     # the buffers a stage reads from another card's stage
+        self.launches: dict = {}  # wrapper -> launches a replay, every stage's (a card)
+        self.stage_launches: list = []  # (card, wrapper -> launches) a stage (a card)
         self.capture_ms = 0.0
         self.warm_err = None     # max |first replay - eager forward| (a card)
         self.first_scores = None  # the first run's scores after capture, f32 on the host
         self.runs = 0            # executions served after the build (serve thread)
 
+    @property
+    def graph(self):
+        """The last stage's graph (the one that writes the scores); None
+        where the program runs eagerly."""
+        return self.graphs[-1] if self.graphs else None
+
+    @property
+    def out(self) -> torch.Tensor | None:
+        """The scores' static tensor (a card)."""
+        return self.outs[-1]["out"] if self.outs else None
+
     def load(self, host: dict):
         """Copy an execution's host rows (pinned on a card) into the static
-        slices, on the current stream."""
+        slices, on the current stream of each slice's card."""
         on_card = self.device.type == "cuda"
-        for name, dst in self.inputs.items():
-            dst.copy_(host[name], non_blocking=on_card)
+        for dst, name, index in self.loads:
+            src = host[name]
+            dst.copy_(src[index] if index else src, non_blocking=on_card)
 
-    def run(self, host: dict) -> torch.Tensor:
-        """One execution: copy ``host`` in, then replay (a card) or run the
-        forward (the CPU, an eager mesh engine). Returns the output."""
-        self.runs += 1
-        self.load(host)
-        if self.graph is None:
-            return self.forward(self.inputs)
-        self.graph.replay()
+    def _send(self, stage, outs: dict):
+        """Copy each output of ``stage`` that another stage reads into its
+        receive buffer (allocated by the first, eager run): on a card a
+        cross-device ``copy_``, ordered by events on both cards' current
+        streams."""
+        for key, dev in stage.sends.items():
+            src = outs[key]
+            dst = self.recv.get(key)
+            if dst is None:
+                dst = self.recv[key] = torch.empty(src.shape, dtype=src.dtype, device=dev)
+            dst.copy_(src, non_blocking=dev.type == "cuda")
+
+    def _eager(self) -> torch.Tensor:
+        for stage in self.stages:
+            outs = stage.fn(self.recv)
+            self._send(stage, outs)
+        return outs["out"]
+
+    def _replay(self) -> torch.Tensor:
+        for stage, graph, outs in zip(self.stages, self.graphs, self.outs):
+            graph.replay()
+            self._send(stage, outs)
         _build.count_replay(self.launches)
         return self.out
 
-    def build(self, host: dict, pool) -> int:
-        """Warm the program on ``host``'s rows; on a card capture it into
-        ``pool`` on the current stream and replay it once. Returns the
-        executions run (the CPU or an eager program 1; a capture 2, the
-        eager forward and the replay)."""
-        if not self.capture:
-            self.load(host)
-            self.first_scores = self.forward(self.inputs).float().cpu().numpy()
-            return 1
+    def run(self, host: dict) -> torch.Tensor:
+        """One execution: copy ``host`` in, then replay every stage (a card)
+        or run the stages eagerly (the CPU, an eager program). Returns the
+        output."""
+        self.runs += 1
         self.load(host)
-        eager = self.forward(self.inputs)
-        self.graph, self.out, self.launches, self.capture_ms = capture(
-            lambda: self.forward(self.inputs), pool, torch.cuda.current_stream(self.device))
-        self.graph.replay()
-        _build.count_replay(self.launches)
-        self.warm_err = float((self.out.float() - eager.float()).abs().max().item())
-        self.first_scores = self.out.float().cpu().numpy()
+        return self._replay() if self.graphs else self._eager()
+
+    def build(self, host: dict, pools: dict) -> int:
+        """Warm the program on ``host``'s rows; on a card capture each stage
+        on its card's current stream into that card's pool (``pools`` by
+        device) and replay the program once. Returns the executions run
+        (the CPU or an eager program 1; a capture 2, the eager forward and
+        the replay)."""
+        self.load(host)
+        if not self.capture:
+            self.first_scores = self._eager().float().cpu().numpy()
+            return 1
+        eager = self._eager()
+        for stage in self.stages:
+            with torch.cuda.device(stage.device):
+                graph, outs, launches, ms = capture(
+                    lambda: stage.fn(self.recv), pools[stage.device],
+                    torch.cuda.current_stream(stage.device))
+            self.graphs.append(graph)
+            self.outs.append(outs)
+            self.stage_launches.append((stage.device, launches))
+            for wrapper, n in launches.items():
+                self.launches[wrapper] = self.launches.get(wrapper, 0) + n
+            self.capture_ms += ms
+        out = self._replay()
+        self.warm_err = float((out.float() - eager.float()).abs().max().item())
+        self.first_scores = out.float().cpu().numpy()
         return 2
 
 
 class ProgramSet:
     """An engine's programs by key: ``("direct", bucket)``, ``("masked",
     bucket)``, ``("hotcold", bucket, cold_rung)``. On a card they share one
-    graph memory pool (``capture`` False: none, the programs stay eager)."""
+    graph memory pool a card of ``devices`` (``capture`` False: none, the
+    programs stay eager)."""
 
-    def __init__(self, device: torch.device, capture: bool = True):
+    def __init__(self, device: torch.device, capture: bool = True, devices=None):
         self.device = device
         self.capture = capture and device.type == "cuda"
-        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self.pools = ({dev: torch.cuda.graph_pool_handle() for dev in (devices or [device])}
+                      if self.capture else {})
         self.programs: dict[tuple, BucketProgram] = {}
         self.executions = 0  # warm-up executions the builds ran
-        self.captures = 0
+        self.captures = 0    # programs captured (each a graph a stage)
         self.capture_ms = 0.0
 
-    def add(self, key: tuple, forward: Callable[[dict], torch.Tensor], inputs: dict,
-            host: dict) -> BucketProgram:
-        prog = BucketProgram(key, forward, inputs, self.device, self.capture)
-        self.executions += prog.build(host, self.pool)
-        if prog.graph is not None:
+    def add(self, key: tuple, stages: list, inputs: dict, host: dict,
+            loads: list | None = None) -> BucketProgram:
+        """Build the program ``key`` of ``stages``, warmed on ``host``;
+        ``loads`` None: ``inputs`` whole, each from ``host`` by its name."""
+        if loads is None:
+            loads = [(dst, name, ()) for name, dst in inputs.items()]
+        prog = BucketProgram(key, stages, inputs, loads, self.device, self.capture)
+        self.executions += prog.build(host, self.pools)
+        if prog.graphs:
             self.captures += 1
             self.capture_ms += prog.capture_ms
         self.programs[key] = prog
@@ -275,9 +347,10 @@ class ProgramSet:
     def __len__(self) -> int:
         return len(self.programs)
 
-    def pool_bytes(self):
-        """Device bytes the set's graph pool holds; None on the CPU."""
-        return pool_bytes(self.pool)
+    def pool_bytes_by_card(self) -> dict:
+        """Device bytes the set's graph pools hold, by card index; empty on
+        the CPU."""
+        return pool_bytes_by_card(self.pools.values()) if self.capture else {}
 
 
 def pad_cold(split: dict, c_pad: int, n_bags: int) -> dict:

@@ -58,13 +58,19 @@ StepFn = Callable[[Batch, torch.Tensor], torch.Tensor]  # (batch, targets) -> lo
 def eager_reason(mesh, table_dtype: torch.dtype | None = None, sparse: bool = False):
     """Why a trainer's steps stay eager, or None where they are captured:
     on one device, and on a mesh of one process whose entries all name one
-    device (one card's virtual shards, ``["cuda:0"] * 4``; the engines'
-    rule, ``serving/programs.py::eager_reason``). ``table_dtype`` and
+    device (one card's virtual shards, ``["cuda:0"] * 4``). A mesh across
+    processes takes the engines' reason (``serving/programs.py::
+    eager_reason``); a mesh over several cards its own. ``table_dtype`` and
     ``sparse``: the table's dtype and whether the mesh step updates it by
     K5's window."""
     reason = mesh_eager_reason(mesh)
     if reason is not None or mesh is None:
         return reason
+    if len(mesh.distinct_devices) > 1:
+        return ("a trainer over several cards: its backward runs on autograd's worker "
+                "thread of each card, so a card's share of a step is launched from several "
+                "threads, which a capture a card would have to take in; captures across "
+                "cards are not tried for the trainers")
     if sparse and table_dtype is not None and table_dtype != torch.float32:
         return ("K5's window on a bf16 shard keeps its count and hash keys from call to "
                 "call, and each call zeroes the next call's count, which a replay would "

@@ -16,6 +16,18 @@ accumulator the JAX sharded-step test's limits (rtol 1e-4, atol 1e-6 and
 1e-7), every copy of a replicated leaf (and, dense, of a table shard) equal
 to the first.
 
+An engine over several cards (``ComputeEngine(mesh=)`` on 2x2, 1x4 and 1x2
+meshes of distinct cards, as many as there are cards): every program a
+graph a card's part, each first replay the engine's eager forward bit for
+bit (max |err| 0.0) and the reference's scores within the limits above,
+payloads as the single-device forward, launches around a run its
+executions times the captures' tally (one lookup launch a shard on its
+card, dien's scans on each row's card); the int8 layouts, hot/cold and
+dien; a same-size refresh writes every card's hot table in place; a reload
+under queued replays captures the programs again; a replayed execution
+makes no host synchronization. A trainer over several cards stays eager
+by its own reason.
+
 Across processes (four cards or more): two spawned processes of two cards
 each over ``nccl`` form one 1x4 mesh; the forward is held to the
 single-device forward, the hot/cold tensor-parallel model (on zipf(1.2)
@@ -34,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from deeprecsys_tpu_torch import ServingConfig, train, zoo
+from deeprecsys_tpu_torch import ServingConfig, ops, train, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.experiments.skew_bench import zipf_stream
 from deeprecsys_tpu_torch.models import get_model
@@ -118,48 +130,125 @@ def test_hotcold_across_cards(cards, quant):
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+# The meshes of distinct cards an engine is held on, as many as the cards allow.
+ENGINE_AXES = [(2, 2), (1, 4), (1, 2)]
+
+
+def _engine_axes(cards, axes):
+    D, M = axes
+    if D * M > len(cards):
+        pytest.skip(f"a {D}x{M} mesh of distinct cards needs {D * M} cards")
+    return make_mesh(D, M, devices=cards[:D * M])
+
+
+class _Engine:
+    """A started mesh engine and its queues."""
+
+    def __init__(self, cfg, scfg, mesh, params=None):
+        self.req_q, self.resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
+        self.eng = engine.ComputeEngine(0, cfg, scfg, self.req_q, self.resp_q, ready_q,
+                                        params=params, mesh=mesh)
+        self.eng.start()
+        ready = ready_q.get(timeout=600)
+        assert not isinstance(ready, Exception), ready
+        self.n = 0
+
+    def send(self, idx, dense=None, mask=None):
+        self.req_q.put(packets.ServiceRequest(
+            batch_id=self.n, batch_size=len(idx), arrival_time=time.time(),
+            payload=Batch(dense=dense, indices=np.asarray(idx, np.int32), mask=mask)))
+        self.n += 1
+
+    def answer(self):
+        r = self.resp_q.get(timeout=120)
+        assert r.error_code == 0, r.error_code
+        return r.scores
+
+    def stop(self):
+        self.req_q.put(None)
+        self.eng.join(timeout=120)
+        assert not self.eng.is_alive() and self.eng.error is None
+
+
+def _check_graphs(eng, reference) -> float:
+    """Every program captured, a graph a card's part; each first replay at
+    0.0 from the engine's own eager forward and within RTOL/ATOL of
+    ``reference(key, warm rows)``; each part's capture tallied one launch a
+    shard it pools. Returns the largest error against the reference."""
+    plan = eng._plan
+    assert eng.eager_reason is None and eng.graph_captures == len(eng.programs)
+    assert set(eng.graph_pool_bytes_by_card) <= {d.index for d in eng.mesh.distinct_devices}
+    assert eng.graph_pool_bytes == sum(eng.graph_pool_bytes_by_card.values()) > 0
+    worst = 0.0
+    for prog in eng.programs:
+        assert len(prog.graphs) == len(plan), prog.key
+        assert [d for d, _ in prog.stage_launches] == [p.device for p in plan]
+        for part, (_, tally) in zip(plan, prog.stage_launches):
+            pooled = len(part.shards) + sum(
+                1 for d in part.rows for m in range(eng.mesh.shape["model"])
+                if eng.mesh.device(d, m) == part.device)
+            assert sum(n for w, n in tally.items() if w.__name__ in SHARD_WRAPPERS) == pooled, (
+                prog.key, part, tally)
+        assert prog.warm_err == 0.0, (prog.key, prog.warm_err)
+        want = reference(prog.key, eng.warm_inputs(prog.key))
+        np.testing.assert_allclose(prog.first_scores, want, rtol=RTOL, atol=ATOL)
+        worst = max(worst, float(np.abs(prog.first_scores - want).max()))
+    return worst
+
+
+@pytest.mark.parametrize("axes", ENGINE_AXES, ids=lambda a: f"{a[0]}x{a[1]}")
 @pytest.mark.parametrize("impl", ["xla", "hotcold"])
-def test_mesh_engine_across_cards(cards, impl):
-    """An engine whose mesh spans the cards (a stream on each, an event on
-    each an execution): its programs stay eager, by the reason it states at
-    construction (no capture across devices); payload and ragged requests
-    score as the single-device forward; the hot/cold engine refreshes its
-    hot set from the shards on their cards."""
-    n = len(cards)
-    D, M = (2, n // 2) if n % 2 == 0 and n > 2 else (1, n)
+def test_mesh_engine_across_cards(cards, impl, axes):
+    """An engine whose mesh spans distinct cards (a stream on each, an event
+    on each an execution) captures every program as a graph a card's part,
+    with no eager reason; each first replay is the engine's eager forward
+    bit for bit and ``model.apply``'s scores; payload and ragged requests
+    score as the single-device forward; the launches read around the run
+    are the executions times the captures' tally; the hot/cold engine
+    refreshes its hot set from the shards on their cards."""
+    mesh = _engine_axes(cards, axes)
+    D, M = axes
     cfg = zoo.get_config("rm1", table_scale=SCALE, embedding_impl=impl, hot_set_rows=64)
     base = cfg.replace(embedding_impl="xla")
     model = get_model(base, cards[0])
     params = model.init(torch.Generator(device=cards[0]).manual_seed(0))
-    scfg = ServingConfig(engine_backend="gpu" if cards[0].type == "cuda" else "cpu",
-                         batch_buckets=(8, 32), max_mini_batch_size=32,
+    scfg = ServingConfig(engine_backend="gpu", batch_buckets=(8, 32), max_mini_batch_size=32,
                          accept_ragged=True, hotcold_refresh_interval=4 if impl == "hotcold"
                          else 0, hotcold_refresh_window=8)
-    req_q, resp_q, ready_q = queue.Queue(), queue.Queue(), queue.Queue()
-    eng = engine.ComputeEngine(0, cfg, scfg, req_q, resp_q, ready_q, params=params,
-                               mesh=make_mesh(D, M, devices=cards[:D * M]))
-    assert "several cards" in eng.eager_reason
-    eng.start()
-    got = ready_q.get(timeout=600)
-    assert not isinstance(got, Exception), got
-    assert eng.graph_captures == 0 and all(p.graph is None for p in eng.programs)
+    shard, k6 = ops.embedding_bag_shard, ops.embedding_bag_hotcold_shard
+    before = shard.kernel_launches + k6.kernel_launches
+    e = _Engine(cfg, scfg, mesh, params=params)
+    eng = e.eng
+
+    def reference(key, rows):
+        with torch.inference_mode():
+            if key[0] == "hotcold":
+                split = {k: rows[k].to(cards[0]) for k in ("hot_sel", "hot_mask", "cold_local",
+                                                          "cold_seg")}
+                out = eng._hotcold.apply(eng.params, Batch(dense=rows["dense"].to(cards[0]),
+                                                           indices=None), split)
+            else:
+                out = model.apply(params, Batch(dense=rows["dense"], indices=rows["indices"],
+                                                mask=rows.get("mask")).to(cards[0]))
+            return out.float().cpu().numpy()
+
     rng = np.random.default_rng(3)
     try:
+        counted = shard.kernel_launches + k6.kernel_launches - before
+        _check_graphs(eng, reference)
+        during = shard.kernel_launches + k6.kernel_launches - before - counted
         for i in range(12):
             n_rows = 32 if i % 3 else 8
             idx = zipf_stream(cfg, n_rows, seed=50 + i) if impl == "hotcold" else \
                 RecDataGenerator(cfg, seed=50 + i).generate_batch(n_rows).indices
             dense = rng.random((n_rows, cfg.dense_dim), dtype=np.float32)
             mask = rng.random(idx.shape) < 0.6 if i % 2 else None
-            req_q.put(packets.ServiceRequest(batch_id=i, batch_size=n_rows,
-                                             arrival_time=time.time(),
-                                             payload=Batch(dense=dense, indices=idx, mask=mask)))
-            r = resp_q.get(timeout=120)
-            assert r.error_code == 0
+            e.send(idx, dense, mask)
+            got = e.answer()
             with torch.inference_mode():
                 want = model.apply(params, Batch(dense=dense, indices=idx, mask=mask)
                                    .to(cards[0])).cpu().numpy()
-            np.testing.assert_allclose(r.scores, want, rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
         if impl == "hotcold":
             assert eng.hot_refreshes >= 1
             hot = eng.params.entry(D - 1, M - 1)["hot_table"]
@@ -167,9 +256,224 @@ def test_mesh_engine_across_cards(cards, impl):
             assert torch.equal(hot.to(cards[0]), params["tables"].index_select(
                 0, torch.as_tensor(np.asarray(eng._hotcold.hot_ids), device=cards[0])))
     finally:
-        req_q.put(None)
-        eng.join(timeout=120)
-    assert eng.error is None
+        e.stop()
+    executions = sum(eng.bucket_counts.values()) + eng.warmup_executions
+    # the references of the hot/cold programs ran the mesh lookup once a program
+    assert (shard.kernel_launches + k6.kernel_launches - before - during
+            == D * M * executions)
+
+
+# The mesh lookups' kernel wrappers: a window (K1, K1-int8, K4) or K6 on a shard.
+SHARD_WRAPPERS = ("embedding_bag_shard", "embedding_bag_int8_shard",
+                  "embedding_bag_int8_rowwise_shard", "embedding_bag_hotcold_shard",
+                  "embedding_bag_hotcold_int8_shard", "embedding_bag_hotcold_int8_rowwise_shard")
+
+
+def _shard_launches() -> int:
+    return sum(getattr(ops, w).kernel_launches for w in SHARD_WRAPPERS)
+
+
+@pytest.mark.parametrize("name,quant,impl", [
+    ("rm1", "int8", "xla"), ("rm1", "int8_rowwise", "xla"), ("rm1", "int8", "hotcold"),
+    ("rm1", "int8_rowwise", "hotcold"), ("dien", "none", "xla")])
+def test_mesh_engine_across_cards_layouts_and_dien(cards, name, quant, impl):
+    """Per-table and row-wise int8 tables (K1-int8's and K4's windows;
+    K6-int8 and K6-rowwise on a shard with a refreshing engine's direct
+    windows beside them) and dien (K3 in each data row's tail, on that
+    row's first card) over the largest mesh of distinct cards: a graph a
+    card's part a program, each first replay the engine's eager forward bit
+    for bit and within RTOL/ATOL of the reference; payloads score as
+    ``model.apply``; the launches of a served run are its executions times
+    the captures' tally (K3: one a data row)."""
+    mesh = _engine_axes(cards, (2, 2) if len(cards) >= 4 else (1, 2))
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    cfg = zoo.get_config(name, table_scale=SCALE, table_quant=quant, embedding_impl=impl,
+                         hot_set_rows=64)
+    model = get_model(cfg.replace(embedding_impl="xla"), cards[0])
+    params = model.init(torch.Generator(device=cards[0]).manual_seed(0))
+    k3 = ops.rnn_scan.kernel_launches  # dien's scans a forward, from one forward
+    with torch.inference_mode():
+        model.apply(params, RecDataGenerator(cfg, seed=3).generate_batch(8).to(cards[0]))
+    k3 = ops.rnn_scan.kernel_launches - k3
+    scfg = ServingConfig(engine_backend="gpu", batch_buckets=(8, 32), max_mini_batch_size=32,
+                         accept_ragged=impl == "xla",
+                         hotcold_refresh_interval=4 if impl == "hotcold" else 0,
+                         hotcold_refresh_window=8)
+    e = _Engine(cfg, scfg, mesh, params=params)
+    eng = e.eng
+
+    def reference(key, rows):
+        with torch.inference_mode():
+            if key[0] == "hotcold":
+                split = {k: rows[k].to(cards[0]) for k in ("hot_sel", "hot_mask", "cold_local",
+                                                          "cold_seg")}
+                out = eng._hotcold.apply(eng.params, Batch(dense=rows["dense"].to(cards[0]),
+                                                           indices=None), split)
+            else:
+                out = model.apply(params, Batch(dense=rows.get("dense"), indices=rows["indices"],
+                                                mask=rows.get("mask")).to(cards[0]))
+            return out.float().cpu().numpy()
+
+    rng = np.random.default_rng(7)
+    try:
+        _check_graphs(eng, reference)
+        for prog in eng.programs:
+            for part, (_, tally) in zip(eng._plan, prog.stage_launches):
+                scans = sum(n for w, n in tally.items() if w.__name__ == "rnn_scan")
+                assert scans == k3 * len(part.rows), (prog.key, tally)
+        shard0, k3_0 = _shard_launches(), ops.rnn_scan.kernel_launches
+        served0 = sum(eng.bucket_counts.values())
+        for i in range(10):
+            n_rows = 32 if i % 3 else 8
+            idx = zipf_stream(cfg, n_rows, seed=70 + i) if impl == "hotcold" else \
+                RecDataGenerator(cfg, seed=70 + i).generate_batch(n_rows).indices
+            dense = (rng.random((n_rows, cfg.dense_dim), dtype=np.float32)
+                     if cfg.dense_dim else None)
+            mask = rng.random(idx.shape) < 0.6 if impl == "xla" and i % 2 else None
+            e.send(idx, dense, mask)
+            got = e.answer()
+            with torch.inference_mode():
+                want = model.apply(params, Batch(dense=dense, indices=idx, mask=mask)
+                                   .to(cards[0])).float().cpu().numpy()
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    finally:
+        e.stop()
+    served = sum(eng.bucket_counts.values()) - served0
+    assert served == 10
+    assert _shard_launches() - shard0 == D * M * served
+    # each data row's tail, and each payload's reference
+    assert ops.rnn_scan.kernel_launches - k3_0 == k3 * (D + 1) * served
+    if impl == "hotcold":
+        assert eng.hot_refreshes >= 1
+
+
+@pytest.mark.parametrize("axes", ENGINE_AXES, ids=lambda a: f"{a[0]}x{a[1]}")
+def test_mesh_refresh_across_cards_writes_every_cards_hot_table_in_place(cards, axes):
+    """A same-size refresh gathers the new hot rows from the shards and
+    writes them into the hot table the graphs read on every card, the same
+    tensors; the programs are not rebuilt and the next scores are the
+    direct model's."""
+    mesh = _engine_axes(cards, axes)
+    cfg = zoo.get_config("ncf", table_scale=500).replace(embedding_impl="hotcold",
+                                                          hot_set_rows=64)
+    scfg = ServingConfig(engine_backend="gpu", batch_buckets=(8,), max_mini_batch_size=8,
+                         hotcold_refresh_window=8, hotcold_scan_async=False,
+                         hotcold_refresh_interval=4, hotcold_refresh_margin=0.05)
+    e = _Engine(cfg, scfg, mesh)
+    eng = e.eng
+    tables = {dev: eng.params.entry(*_entry_on(mesh, dev))["hot_table"]
+              for dev in mesh.distinct_devices}
+    progs, captures = eng.programs, eng.graph_captures
+    hot = set(int(i) for i in eng._hotcold.hot_ids)
+    pools = [[i for i in range(r) if int(off) + i not in hot][:6]
+             for off, r in zip(cfg.table_offsets, cfg.scaled_rows)]
+    rng = np.random.default_rng(0)
+
+    def batch():
+        return np.stack([rng.choice(p, size=(8, 1)) for p in pools], axis=1).astype(np.int32)
+    try:
+        for _ in range(8):
+            e.send(batch())
+            e.answer()
+            if eng.hot_refreshes:
+                break
+        assert eng.hot_refreshes == 1 and eng._hotcold_active
+        idx = batch()
+        e.send(idx)
+        got = e.answer()
+    finally:
+        e.stop()
+    assert eng.programs is progs and eng.graph_captures == captures
+    want_rows = sharding.gather_rows(eng.params, eng._hotcold.hot_ids)
+    for dev, table in tables.items():
+        assert table.device == dev
+        assert eng.params.entry(*_entry_on(mesh, dev))["hot_table"] is table
+        assert torch.equal(table.to(cards[0]), want_rows)
+    D, M = axes
+    full = {k: v for k, v in eng.params.entry(0, 0).items() if k != "hot_table"}
+    full["tables"] = torch.cat([eng.params.entry(0, m)["tables"].to(cards[0])
+                                for m in range(M)])
+    with torch.inference_mode():
+        want = eng.model.apply(full, Batch(dense=None, indices=idx).to(cards[0]))
+    np.testing.assert_allclose(got, want.float().cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+def _entry_on(mesh, dev) -> tuple:
+    return next((d, m) for d in range(mesh.shape["data"]) for m in range(mesh.shape["model"])
+                if mesh.device(d, m) == dev)
+
+
+def test_mesh_reload_across_cards_under_queued_replays(cards, tmp_path):
+    """A reload while replays are queued on every card's stream: requests
+    sent after it was scheduled get the new checkpoint's scores, the
+    programs are captured again (a graph a card), the caller's params are
+    not written."""
+    from deeprecsys_tpu_torch import bridge
+    from deeprecsys_tpu_torch.utils.checkpoint import save_params
+
+    mesh = _engine_axes(cards, (2, 2) if len(cards) >= 4 else (1, 2))
+    cfg = zoo.get_config("rm1", table_scale=SCALE)
+    model = get_model(cfg, cards[0])
+    old, new = bridge.init_numpy(cfg, 1), bridge.init_numpy(cfg, 2)
+    save_params(str(tmp_path / "ckpt"), new)
+    caller = bridge.params_from_numpy(old, cfg, cards[0])
+    leaves = [caller["tables"]] + [t for layer in caller["bot"] + caller["top"]
+                                   for t in layer.values()]
+    before = [(t.clone(), t._version) for t in leaves]
+    new_params = bridge.params_from_numpy(new, cfg, cards[0])
+    scfg = ServingConfig(engine_backend="gpu", batch_buckets=(32,), max_mini_batch_size=32)
+    e = _Engine(cfg, scfg, mesh, params=caller)
+    first = e.eng.programs
+    batches = [(RecDataGenerator(cfg, seed=10 + i).generate_batch(32)) for i in range(24)]
+    try:
+        for b in batches[:16]:
+            e.send(b.indices, b.dense)
+        handle = e.eng.request_reload(str(tmp_path / "ckpt"))
+        for b in batches[16:]:
+            e.send(b.indices, b.dense)
+        got = [e.answer() for _ in batches]
+        assert handle.event.wait(timeout=60) and handle.error is None
+    finally:
+        e.stop()
+    eng = e.eng
+    assert eng.programs is not first and eng.last_reload_ms > 0
+    assert eng.graph_captures == 2 * len(eng.programs)
+    assert all(len(p.graphs) == len(eng._plan) and p.warm_err == 0.0 for p in eng.programs)
+    for i, (b, scores) in enumerate(zip(batches, got)):
+        with torch.inference_mode():
+            want_new = model.apply(new_params, b.to(cards[0])).cpu().numpy()
+            want_old = model.apply(caller, b.to(cards[0])).cpu().numpy()
+        if i >= 16:  # sent after the reload was scheduled
+            np.testing.assert_allclose(scores, want_new, rtol=RTOL, atol=ATOL)
+        else:
+            assert (np.allclose(scores, want_old, rtol=RTOL, atol=ATOL)
+                    or np.allclose(scores, want_new, rtol=RTOL, atol=ATOL)), i
+    for t, (value, version) in zip(leaves, before):
+        assert t._version == version and torch.equal(t, value)
+
+
+@pytest.mark.parametrize("impl", ["xla", "hotcold"])
+def test_mesh_across_cards_replay_makes_no_host_sync(cards, impl):
+    """A replayed execution over every card (the rows copied into each
+    card's inputs, a graph a card, the partials and slices copied between
+    them) makes no host synchronization."""
+    mesh = _engine_axes(cards, (2, 2) if len(cards) >= 4 else (1, 2))
+    cfg = zoo.get_config("rm1", table_scale=SCALE, embedding_impl=impl, hot_set_rows=256)
+    scfg = ServingConfig(engine_backend="gpu", batch_buckets=(8, 32), max_mini_batch_size=32)
+    e = _Engine(cfg, scfg, mesh)
+    runs = sum(p.runs for p in e.eng.programs)
+    b = RecDataGenerator(cfg, seed=5).generate_batch(20)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            e.send(b.indices, b.dense)
+            scores = e.answer()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        e.stop()
+    assert scores.shape == (20, 1) and np.isfinite(scores).all()
+    assert sum(p.runs for p in e.eng.programs) == runs + 1
 
 
 @pytest.mark.parametrize("sparse", [False, True])
@@ -183,6 +487,8 @@ def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
               table_learning_rate=0.01, params=start)
     single = train.Trainer(cfg, device=cards[0], **kw)
     tr = train.Trainer(cfg, mesh=make_mesh(D, M, devices=cards[:D * M]), **kw)
+    # a trainer over several cards stays eager by its own reason
+    assert tr.step_program is None and "autograd's worker" in tr.eager_reason
     host = RecDataGenerator(cfg, seed=1).generate_batch(64)
     labels = single._labels(host, None)
     k5_calls = []
