@@ -539,6 +539,17 @@ MESH_TRAIN_LR = 0.1
 MESH_TIMED_RUNS = (("rm1", "dense", (1, 4)), ("rm1", "dense", (2, 2)), ("rm1", "sparse", (1, 4)),
                    ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (4, 1)), ("rm1", "dedup", (2, 2)),
                    ("rm1", "make_train_step", (2, 2)), ("dien", "sparse", (1, 4)))
+# Phase 17's part over several cards (two cards or more): the paths (model,
+# mode, mesh of distinct cards) in three arms from the same weights on the
+# same batches, graphed over the cards, eager over the cards, graphed on card
+# 0's virtual shards of the same mesh; the graphed and eager arms held
+# together by the GRAPH_* limits over GRAPH_STEPS steps, the one-card arm's
+# losses to the graphed arm's by GRAPH_LOSS_RTOL; then TRAIN_TIMED steps of
+# each timed.
+MESH_TRAIN_CARDS = (("rm1", "dense", (2, 2)), ("rm1", "dense", (1, 4)), ("rm1", "dense", (1, 2)),
+                    ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (1, 4)),
+                    ("rm1", "sparse", (1, 2)), ("rm1", "dedup", (2, 2)),
+                    ("dien", "sparse", (1, 4)), ("rm1", "make_train_step", (2, 2)))
 DRYRUN_STEPS = 4
 DRYRUN_CFG = dict(model_type="dlrm", model_name="dryrun", mlp_bot=(16, 8), mlp_top=(16, 8, 1),
                   embedding_rows=(64, 64, 32, 32), sparse_feature_size=8,
@@ -3017,16 +3028,20 @@ def k10_times(device, card: str) -> dict:
 
 class _PythonLaunches:
     """Counts the kernel launches made from Python (``_build.launch``) while
-    it is entered: a replayed step makes none."""
+    it is entered, in all (``n``) and by card index (``by_card``): a
+    replayed step makes none."""
 
     def __init__(self):
         self.n = 0
+        self.by_card: dict = {}
 
     def __enter__(self):
         self._real = _build.launch
 
         def launch(*args):
             self.n += 1
+            index = args[2].index
+            self.by_card[index] = self.by_card.get(index, 0) + 1
             return self._real(*args)
 
         _build.launch = launch
@@ -5928,6 +5943,245 @@ def dedup_times(device, card: str, errs: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+def _sync_cards(cards: list):
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def _measure_cards(fn, args: list, iters: int, cards: list) -> dict:
+    """A step's wall (host clock over ``iters`` back-to-back calls cycling
+    through ``args``, after a warm-up call each, every card synchronised on
+    either side) and its device time by card (the summed kernel and copy
+    durations on each card, from a torch.profiler trace of a second loop,
+    traced again up to three times when a trace shows no device activity);
+    each card's idle share ``1 - device / wall``. On the CPU the wall
+    alone."""
+    for a in args:
+        fn(*a)
+    on_card = cards[0].type == "cuda"
+    if on_card:
+        _sync_cards(cards)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args[i % len(args)])
+    if on_card:
+        _sync_cards(cards)
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    by_card: dict = {}
+    for _ in range(3 if on_card else 0):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    acc_events=True) as prof:
+            for i in range(iters):
+                fn(*args[i % len(args)])
+            _sync_cards(cards)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_card[e.device_index] = (by_card.get(e.device_index, 0.0)
+                                           + e.time_range.elapsed_us() / 1e3 / iters)
+        if by_card:
+            break
+    idle = {c: 1 - ms / wall for c, ms in sorted(by_card.items())}
+    return {"wall_ms": wall, "device_ms_by_card": dict(sorted(by_card.items())),
+            "device_ms": sum(by_card.values()) if by_card else None, "idle_by_card": idle,
+            "idle": float(np.mean(list(idle.values()))) if idle else None}
+
+
+def _cards_text(a: dict) -> str:
+    if a["device_ms"] is None:
+        return f"wall {a['wall_ms']:.4f} ms a step, device not measured"
+    dev = ", ".join(f"cuda:{c} {ms:.4f}" for c, ms in a["device_ms_by_card"].items())
+    idle = ", ".join(f"{100 * x:.1f}%" for x in a["idle_by_card"].values())
+    return (f"wall {a['wall_ms']:.4f} ms a step, device ms by card {dev}, idle by card {idle} "
+            f"(mean {100 * a['idle']:.1f}%)")
+
+
+def _card_tally(prog, wrapper: str | None = None) -> dict:
+    """A staged program's launches a replay by card index (``wrapper``: that
+    kernel's alone), from its parts' capture tallies."""
+    out: dict = {}
+    for dev, tally in prog.stage_launches:
+        n = sum(v for w, v in tally.items() if wrapper is None or w.__name__ == wrapper)
+        out[dev.index] = out.get(dev.index, 0) + n
+    return {c: n for c, n in sorted(out.items()) if n}
+
+
+def mesh_train_cards_path(device, cards: list, name: str, mode: str, D: int, M: int,
+                          card: str) -> tuple[dict, dict]:
+    """One path over a D x M mesh of distinct cards (``MESH_TRAIN_CARDS``),
+    rm1 or dien at full width, f32, batch TRAIN_BATCH: ``mode`` "dense"
+    (adagrad), "sparse", "dedup" (sparse, ``dedup=True``) or
+    "make_train_step" (its SGD step), in three arms from the same weights on
+    the same batches: graphed over the cards (the trainer's programs: each
+    step after the first a replay of a graph a part of the step on its
+    card), eager over the cards (the step function called directly), and
+    graphed on card 0's virtual shards of the same mesh. The graphed and
+    eager arms agree over GRAPH_STEPS steps within the GRAPH_* limits, make
+    the launches ``_cards_want`` says, and the same launches by card (the
+    graphed arm's parts' tallies, its eager first step's and the eager arm's
+    launches from Python); no kernel wrapper is called from Python over the
+    replays; K1b's window launches once a (d, m) on that entry's card
+    (dense), K5's window once a shard on its entry (0, m)'s card (sparse).
+    The one-card arm's losses agree with the graphed arm's within
+    GRAPH_LOSS_RTOL. Then each arm's step is timed over TRAIN_TIMED steps
+    (``_measure_cards``). Returns the result and the graphed arm's
+    launches."""
+    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    over = cards[:D * M]
+    for c in over:
+        _reset_peak(c)
+    meshes = (make_mesh(D, M, devices=over), make_mesh(D, M, devices=over),
+              _cuda_mesh(device, D, M))
+    gen = RecDataGenerator(cfg, seed=1)
+    hosts = [gen.generate_batch(TRAIN_BATCH) for _ in range(GRAPH_STEPS)]
+    model = get_model(cfg, device)
+    start = model.init(torch.Generator(device=device).manual_seed(0))
+    what = f"{name} {mode} {D}x{M} over {D * M} cards"
+    if mode == "make_train_step":
+        opt, sparse = "sgd", False
+        sps = [shard_params(bridge.tree_map(lambda t: t.clone(), start), mesh) for mesh in meshes]
+        steps = [make_train_step(model, mesh, has_dense=cfg.dense_dim > 0,
+                                 learning_rate=GRAPH_LR[opt], loss="bce",
+                                 sigmoid_output=sigmoid_output(cfg))(sp)
+                 for sp, mesh in zip(sps, meshes)]
+        args = [(h, torch.as_tensor(gen.generate_targets(TRAIN_BATCH, round_targets=True)))
+                for h in hosts]
+        arms = {"graphed": lambda h, t: steps[0](sps[0], h, t)[1],
+                "eager": lambda h, t: steps[1].programs.step(h.to(device), t.to(device)),
+                "one card": lambda h, t: steps[2](sps[2], h, t)[1]}
+        programs = {"graphed": steps[0].programs, "one card": steps[2].programs}
+        params, accs = (lambda: (sps[0], sps[1])), (lambda: ())
+    else:
+        opt, sparse = "adagrad", mode != "dense"
+        trs = [port_train.Trainer(cfg, mesh=mesh, optimizer=opt, learning_rate=GRAPH_LR[opt],
+                                  sparse_tables=sparse, dedup=mode == "dedup", params=start)
+               for mesh in meshes]
+        args = [(h, trs[0]._labels(h, None)) for h in hosts]
+        ev = trs[1]
+        arms = {"graphed": lambda h, lab: trs[0].step(h, lab),
+                "eager": lambda h, lab: ev._step(ev.params, ev.opt_state, h.to(device),
+                                                 ev._targets(lab)),
+                "one card": lambda h, lab: trs[2].step(h, lab)}
+        programs = {"graphed": trs[0].step_program, "one card": trs[2].step_program}
+        params = lambda: (trs[0].params, ev.params)  # noqa: E731
+
+        def accs():
+            return _acc_pairs(trs[0].opt_state[1], ev.opt_state[1]) if sparse else ()
+    del start
+    if programs["graphed"].cut is None or programs["one card"].cut is not None:
+        raise AssertionError(f"{what}: the graphed arm is not cut into parts by card, or the "
+                             f"one-card arm is")
+    dien = cfg.model_type == "dien"
+    want = _mesh_want("dense" if mode == "make_train_step" else mode, dien, D, M, GRAPH_STEPS)
+    want["optimizer_update"] = len(set(over)) * GRAPH_STEPS  # K10 once a card a step
+    _reset_counts()
+    with _PythonLaunches() as py:
+        losses_g = [float(arms["graphed"](*args[0]))]
+        first, first_by = py.n, dict(py.by_card)
+        losses_g += [float(arms["graphed"](*a)) for a in args[1:]]
+    _sync_cards(over)
+    counts_g = _counts()
+    _reset_counts()
+    with _PythonLaunches() as pe:
+        losses_e = [float(arms["eager"](*a)) for a in args]
+    _sync_cards(over)
+    counts_e = _counts()
+    if counts_g != want or counts_e != want:
+        raise AssertionError(f"{what}: launches graphed {_nonzero(counts_g)}, eager "
+                             f"{_nonzero(counts_e)}, expected {_nonzero(want)}")
+    progs = programs["graphed"]
+    (prog,) = progs.programs.values()
+    on_card = device.type == "cuda"
+    if (py.n != first or progs.captures != on_card
+            or len(prog.graphs) != (len(prog.stages) if on_card else 0)):
+        raise AssertionError(f"{what}: {py.n - first} launches from Python over the replays, "
+                             f"{progs.captures} captures, {len(prog.graphs)} graphs for "
+                             f"{len(prog.stages)} parts")
+    tally = _card_tally(prog)
+    eager_by = {c: n / GRAPH_STEPS for c, n in sorted(pe.by_card.items())}
+    # The graphed arm's first call runs the step's parts eagerly, then captures them.
+    if tally != eager_by or dict(sorted(first_by.items())) != {c: 2 * n for c, n in tally.items()}:
+        raise AssertionError(f"{what}: launches a step by card: graphed {tally} (its first "
+                             f"call, the eager parts and their capture: {first_by}), eager "
+                             f"{eager_by}")
+    entries = {}
+    for d in range(D):
+        for m in range(M):
+            c = over[d * M + m].index
+            entries[c] = entries.get(c, 0) + 1
+    if mode in ("dense", "make_train_step"):
+        k1b = _card_tally(prog, "embedding_bag_backward_shard")
+        if k1b != entries:
+            raise AssertionError(f"{what}: K1b window launches by card {k1b}, entries {entries}")
+        per = f"K1b's window by card {k1b}"
+    else:
+        k5, shards = _card_tally(prog, "sparse_adagrad_step_shard"), {}
+        for m in range(M):
+            shards[over[m].index] = shards.get(over[m].index, 0) + 1
+        if k5 != shards:
+            raise AssertionError(f"{what}: K5 window launches by card {k5}, first copies "
+                                 f"{shards}")
+        per = f"K5's window by card {k5}"
+    agree = check_graph_agreement(what, losses_g, losses_e, *params(), opt, sparse,
+                                  GRAPH_STEPS, accs())
+    losses_v = [float(arms["one card"](*a)) for a in args]
+    rel_v = float(np.max(np.abs(np.asarray(losses_v) - losses_g) / np.abs(losses_g)))
+    if not rel_v <= GRAPH_LOSS_RTOL:
+        raise AssertionError(f"{what}: one card's losses {losses_v} against the graphed "
+                             f"arm's {losses_g} (max relative error {rel_v:.2e})")
+    times = {arm: _measure_cards(fn, args, TRAIN_TIMED, over if arm != "one card" else [device])
+             for arm, fn in arms.items()}
+    pools = {arm: {f"cuda:{i}": b / 2**20 for i, b in sorted(p.pool_bytes_by_card().items())}
+             for arm, p in programs.items()}
+    peak = max(_peak_gib(c) for c in over)
+    parts = len(prog.stages)
+    _log(f"[17 mesh train cards] {what} (f32, batch {TRAIN_BATCH}): graphed and eager arms "
+         f"agree over {GRAPH_STEPS} steps (losses max relative {agree['loss_rel']:.2e}, limit "
+         f"{GRAPH_LOSS_RTOL:.0e}; params {agree['param_share']:.3f} of their limits, max |diff| "
+         f"{agree['param_max_diff']:.3e}); one card's virtual shards' losses max relative "
+         f"{rel_v:.2e}; launches a step by card {tally} in both arms, none from Python over the "
+         f"replays; {per} [{card}]")
+    for arm in ("graphed", "eager", "one card"):
+        extra = ""
+        if arm in programs:
+            p = programs[arm]
+            (pp,) = p.programs.values()
+            n = len(pp.stages) if hasattr(pp, "stages") else 1
+            extra = (f"; {p.captures} captures, {n} part(s), {p.capture_ms / n:.2f} ms a part "
+                     f"(in all {p.capture_ms:.1f}); graph pool MiB by card "
+                     f"{ {k: round(v, 1) for k, v in pools[arm].items()} }")
+        _log(f"[17 mesh train cards] {what}, {arm}: {_cards_text(times[arm])}{extra} [{card}]")
+    _log(f"[17 mesh train cards] {what}: graphed {times['graphed']['wall_ms']:.4f} ms, eager "
+         f"{times['eager']['wall_ms']:.4f}, one card {times['one card']['wall_ms']:.4f} a step "
+         f"(eager / graphed {times['eager']['wall_ms'] / times['graphed']['wall_ms']:.2f}x, "
+         f"graphed / one card {times['graphed']['wall_ms'] / times['one card']['wall_ms']:.2f}x); "
+         f"{parts} parts; peak over the cards {peak:.3f} GiB [{card}]")
+    return {"name": what, "times": times, **agree, "one_card_rel": rel_v, "parts": parts,
+            "launches_by_card": tally, "capture_ms": progs.capture_ms, "pool_mib": pools,
+            "peak_gib": peak}, counts_g
+
+
+def mesh_train_cards(device, card: str) -> tuple[dict, dict]:
+    """Phase 17's part over several cards: each path of ``MESH_TRAIN_CARDS``
+    whose mesh the machine's cards hold (``mesh_train_cards_path``). With
+    one card, a line says that this part did not run. Returns the results
+    and the graphed arms' launches."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n < 2:
+        _log(f"[17 mesh train cards] training over several cards needs two cards or more; this "
+             f"machine has {n}: not run [{card}]")
+        return {}, _want()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    out, launches = {}, _want()
+    for name, mode, (D, M) in MESH_TRAIN_CARDS:
+        if D * M > n:
+            continue
+        res, counts = mesh_train_cards_path(device, cards, name, mode, D, M, card)
+        out[res["name"]] = res
+        _add(launches, counts)
+        _free(device)
+    return out, launches
+
+
 def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
     """Phase 17: training over meshes whose entries all name the card
     (virtual shards: every launch, gradient reduction and update runs; no
@@ -5969,6 +6223,8 @@ def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
         out["steps"].append(res)
         _add(launches, counts)
     out["dedup"], counts = dedup_times(device, card, errs)
+    _add(launches, counts)
+    out["cards"], counts = mesh_train_cards(device, card)
     _add(launches, counts)
     out["errs"] = errs
     _log(f"[17 mesh train] phase 17 in {time.perf_counter() - t0:.1f} s")

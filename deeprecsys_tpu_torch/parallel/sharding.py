@@ -62,7 +62,10 @@ leaf once), and ``reduce_copies`` adds the gradients of a leaf's copies on
 distinct devices (the JAX ``psum`` of the replicated leaves' gradients), so
 each distinct tensor takes the whole gradient once and its update exactly
 once (``leaf_copies``). ``unshard_params`` reads the full params back. The
-losses at the end are the JAX module's (:427-462).
+losses at the end are the JAX module's (:427-462). The trainers' programs
+run a step over several cards cut into parts by card
+(``train_places``, ``mesh_train_stages``), each part a CUDA graph of its
+card, the same pieces in the same order.
 
 Across processes (a ``Mesh`` whose entries several processes own,
 ``mesh.py``): each process places and launches on its own entries only
@@ -836,15 +839,18 @@ class CardPart(NamedTuple):
 
 
 class Stage(NamedTuple):
-    """A part made runnable (``mesh_stages``): ``fn(recv)`` runs the part's
-    work on ``device`` alone and returns its outputs by key; ``sends`` maps
-    each output another part reads to that part's device, where the caller
-    copies it into ``recv[key]`` (a buffer it keeps) before that part runs.
-    The last stage's outputs hold ``"out"``, the whole batch's scores."""
+    """A part made runnable (``mesh_stages``, ``mesh_train_stages``):
+    ``fn(recv)`` runs the part's work on ``device`` alone and returns its
+    outputs by key; ``sends`` maps each output another part reads to that
+    part's device, where the caller copies it into ``recv[key]`` (a buffer
+    it keeps) before that part runs. One stage's outputs hold ``"out"``
+    (the forward's last: the whole batch's scores; a training step's: its
+    loss). ``part``: a training step's ``(kind, place)``."""
 
     device: torch.device
     fn: Callable[[dict], dict]
     sends: dict
+    part: tuple | None = None
 
 
 def card_plan(mesh: Mesh, places=None, sharded: bool = True) -> tuple:
@@ -1386,9 +1392,15 @@ class MeshOptimizer:
                        for dev, idx in self.devices.items()}
 
     def update(self, leaves: list, grads: list):
-        for dev, idx in self.devices.items():
-            self.tx.update([leaves[i] for i in idx],
-                           [grads[i].to(leaves[i].dtype) for i in idx], self.states[dev])
+        for dev in self.devices:
+            self.update_on(dev, leaves, grads)
+
+    def update_on(self, dev: torch.device, leaves: list, grads: list):
+        """The update of ``dev``'s tensors alone (``grads`` is read only at
+        their indices): a training step cut by card runs it on each card."""
+        idx = self.devices[dev]
+        self.tx.update([leaves[i] for i in idx], [grads[i].to(leaves[i].dtype) for i in idx],
+                       self.states[dev])
 
 
 def make_mesh_dense_step(model: ModelFns, mesh: Mesh, loss_fn) -> Callable:
@@ -1451,7 +1463,430 @@ def make_mesh_dense_step(model: ModelFns, mesh: Mesh, loss_fn) -> Callable:
         opt_state.update(leaves, reduce_copies(mesh, groups, list(grads)))
         return loss.detach()
 
+    def stages(sp: ShardedParams, opt_state: MeshOptimizer, inputs: dict,
+               places: "TrainPlaces") -> list:
+        return mesh_train_stages(model, sp, loss_fn, opt_state, inputs, places)
+
+    step.stages = stages
     return step
+
+
+# ----------------------------------------------------------------------
+# A training step cut into parts by card (the trainers' staged programs)
+# ----------------------------------------------------------------------
+
+
+class TrainPlaces(NamedTuple):
+    """Where the parts of a one-process mesh's training step run
+    (``train_places``): ``grid`` maps each entry (d, m) to its place,
+    ``devices`` each place to its device (in the entries' row-major order),
+    ``home`` is entry (0, 0)'s place."""
+
+    grid: dict
+    devices: dict
+    home: object
+
+    def order(self, places) -> list:
+        """``places`` in the entries' order, home last: the order in which
+        the parts of one kind run."""
+        return [p for p in self.devices if p in places and p != self.home] + (
+            [self.home] if self.home in places else [])
+
+
+def train_places(mesh: Mesh) -> TrainPlaces:
+    """Each entry's place, read from the forward's cut (``card_plan``, so
+    that a plan which labels the entries labels the step's parts too): a
+    shard the plan sends is pooled on its own card, every other entry on its
+    row's. A step over more than one place is cut into parts
+    (``mesh_train_stages``)."""
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    plan = card_plan(mesh)
+    grid, device = {}, {p.place: p.device for p in plan}
+    for part in plan:
+        for e in part.shards:
+            grid[e] = part.place
+    for part in plan:
+        for d in part.rows:
+            for m in range(M):
+                grid.setdefault((d, m), part.place)
+    devices: dict = {}
+    for d in range(D):
+        for m in range(M):
+            devices.setdefault(grid[(d, m)], device[grid[(d, m)]])
+    return TrainPlaces(grid, devices, grid[(0, 0)])
+
+
+class TableStep(NamedTuple):
+    """The sparse step's table update as its cut runs it (``train.py``'s
+    pieces): ``acc`` the row accumulator (row-sharded with the table);
+    ``stream(offsets, ids, g)`` K5's stream (``dedup``'s merged rows, or as
+    it is); ``update(table, acc, offsets, ids, g, row_lo)`` K5's window on a
+    shard's first copy; ``rows(table, acc, offsets, ids, row_lo)`` the
+    fixed-size touched rows ``(rows, table rows, acc rows)`` that
+    ``set_rows(tables, accs, rows, table rows, acc rows)`` writes into the
+    other copies."""
+
+    acc: Sharded
+    stream: Callable
+    update: Callable
+    rows: Callable
+    set_rows: Callable
+
+
+# A value a part sends another card crosses alone from this many elements
+# (a table shard's gradient); smaller ones to one card go packed into one
+# flat tensor a dtype, one cross-card copy instead of one a leaf.
+PACK_MAX = 1 << 22
+
+
+class _Mail:
+    """The values the parts of one step hand each other, by (place, key).
+    One for a later part of its own place stays in ``local``; one for
+    another place goes out in the part's outputs (``Stage.sends``), packed
+    (``PACK_MAX``), and is read there from the receive buffers as a view."""
+
+    def __init__(self, places: TrainPlaces):
+        self.devices = places.devices
+        self.local: dict = {}  # (place, key) -> tensor
+        self.where: dict = {}  # (place, key) -> (receive key, shape, start, numel)
+
+    def stage(self, place, kind: str, body: Callable) -> Stage:
+        """The part ``kind`` of ``place``: ``body(get, put)`` runs its work,
+        reads what was sent to it by ``get(key)`` (None if nothing was) and
+        sends by ``put(place, key, tensor)`` (a None tensor sends nothing);
+        it returns its other outputs (``"out"``: the step's loss)."""
+        sends: dict = {}
+
+        def fn(recv: dict) -> dict:
+            mail: dict = {}
+
+            def put(dst, key, t):
+                if t is None:
+                    return
+                if dst == place:
+                    self.local[(place, key)] = t
+                else:
+                    mail.setdefault(dst, []).append((key, t))
+
+            outs = body(lambda key: self._get(place, key, recv), put) or {}
+            for dst, items in mail.items():
+                packs: dict = {}
+                for key, t in items:
+                    if t.numel() >= PACK_MAX:
+                        packs[("alone", key)] = [(key, t)]
+                    else:
+                        packs.setdefault(t.dtype, []).append((key, t))
+                for tag, group in packs.items():
+                    rkey = (kind, place, dst, str(tag))
+                    at = 0
+                    for key, t in group:
+                        self.where[(dst, key)] = (rkey, tuple(t.shape), at, t.numel())
+                        at += t.numel()
+                    outs[rkey] = (group[0][1] if len(group) == 1
+                                  else torch.cat([t.reshape(-1) for _, t in group]))
+                    sends[rkey] = self.devices[dst]
+            return outs
+
+        return Stage(self.devices[place], fn, sends, (kind, place))
+
+    def _get(self, place, key, recv: dict):
+        t = self.local.get((place, key))
+        if t is not None:
+            return t
+        at = self.where.get((place, key))
+        if at is None:
+            return None
+        rkey, shape, start, n = at
+        buf = recv[rkey]
+        return buf.view(shape) if buf.numel() == n else buf[start:start + n].view(shape)
+
+
+def mesh_train_stages(model: ModelFns, sp: ShardedParams, loss_fn, opt: MeshOptimizer,
+                      inputs: dict, places: TrainPlaces, tables: TableStep | None = None) -> list:
+    """One training step over ``sp`` (one process, several places) cut into
+    parts, each the work of one place (``Stage``: it reads only tensors on
+    its own card, so that it can be captured as a CUDA graph of that card).
+    ``inputs[place]``: the whole batch's static tensors there (``dense``,
+    ``indices``, ``mask``, ``targets``). ``tables`` None: the dense step
+    (``make_mesh_dense_step``), the optimizer over every tensor; else the
+    sparse step (``train.py::make_sharded_sparse_table_step``), the
+    optimizer over the towers and ``tables`` for the table. The kinds of
+    part run in this order, each kind's parts home last:
+
+    1. shard: K1's window on each entry whose row is combined on another
+       place, without grad; the partial sent to entry (d, 0)'s place;
+    2. row: on each place that holds rows' first entries, each row's sum
+       over "model" in shard order (its own partials, the dense step's
+       through ``EmbeddingBagShardFunction``, and the received ones, leaves
+       of the autograd graph there), its finish, tail and loss; the rows'
+       losses over D differentiated with respect to the towers of those
+       entries and its own shards (dense) or the pooled rows (sparse), and
+       to the received partials, whose gradients go back to their shards'
+       places (dense); the losses go to home; the pooled gradients (sparse)
+       to each entry (0, m)'s place;
+    3. backward (dense): K1b's window on each sent shard, from its received
+       gradient;
+    4. reduce: each leaf's copies' gradients (each the sum of its parts'
+       contributions, in part order) added on its first copy's place in
+       copy order (``reduce_copies``), the sum sent to every copy's place;
+       a leaf of one copy and at most one contribution has nothing to add,
+       and its gradient goes straight to its update;
+    5. update: ``MeshOptimizer.update_on`` of a device (K10); sparse, K5's
+       window on each entry (0, m)'s place over every slice's ids and
+       pooled gradients in data-row order (``tables.update``) and its
+       touched rows for the shard's other copies (``tables.rows``); home
+       sums the losses in slice order over D (``"out"``);
+    6. copy (sparse): those rows written into the other copies.
+
+    Each piece and its order is the eager step's, so the parts, run in
+    order with their sends, give its loss and its updates bit for bit
+    where no tensor takes more than two contributions (a place's copies are
+    distinct tensors on distinct cards; entries labelled as places on one
+    device share them)."""
+    from deeprecsys_tpu_torch.models.base import pooled_lookup
+    from deeprecsys_tpu_torch.ops import embedding as emb
+
+    mesh, cfg = sp.mesh, model.cfg
+    D = mesh.shape["data"]
+    rps = sp.rows_per_shard
+    M = 1 if rps is None else mesh.shape["model"]
+    sparse = tables is not None
+    grid, devices, home = places.grid, places.devices, places.home
+    layout, cdt = _layout(sp.first_entry()["tables"]), compute_dtype_of(cfg)
+    offsets = Replicated(mesh, torch.as_tensor(cfg.table_offsets, dtype=torch.int32))
+    ranges = None if rps is None else shard_table_ranges(cfg, rps, mesh.shape["model"])
+    groups = leaf_groups(sp, skip=("tables",) if sparse else ())
+    leaves = [t for _, copies in groups for t in copies]
+    index = {id(t): i for i, t in enumerate(leaves)}
+    home_of: dict = {}  # leaf -> the place of the first entry that holds it
+    for d in range(D):
+        for m in range(mesh.shape["model"]):
+            for t in bridge.flatten(sp.entry(d, m)).values():
+                if id(t) in index:
+                    home_of.setdefault(index[id(t)], grid[(d, m)])
+    first = 0
+    reduce_at, copies_of = {}, {}  # leaf -> its group's first copy's place; group -> leaves
+    for j, (_, copies) in enumerate(groups):
+        copies_of[j] = list(range(first, first + len(copies)))
+        for i in copies_of[j]:
+            reduce_at[i] = home_of[first]
+        first += len(copies)
+    update_at = {dev: home_of[idx[0]] for dev, idx in opt.devices.items()}
+    update_of = {i: update_at[leaves[i].device] for i in range(len(leaves))}
+    sent = [(d, m) for d in range(D) for m in range(M) if grid[(d, m)] != grid[(d, 0)]]
+    rows_at: dict = {}
+    for d in range(D):
+        rows_at.setdefault(grid[(d, 0)], []).append(d)
+    k5_at = sorted({grid[(0, m)] for m in range(M)}, key=list(devices).index) if sparse else []
+    mail = _Mail(places)
+
+    def rows_of(x, name, d):
+        t = x.get(name)
+        b = x["indices"].shape[0] // D
+        return None if t is None else t[d * b:(d + 1) * b]
+
+    def mask_of(x, d):
+        return None if sparse else rows_of(x, "mask", d)
+
+    def used_by(rows) -> list:
+        """The tensors a row part differentiates: the towers of its rows'
+        entries (d, 0), and the shards it pools (dense)."""
+        out, seen = [], set()
+        for d in rows:
+            ts = [t for path, t in bridge.flatten(sp.entry(d, 0)).items()
+                  if not (sparse and path.split("/")[0] == "tables")]
+            if not sparse and rps is not None:
+                ts += [sp.entry(d, m)["tables"] for m in range(1, M) if (d, m) not in sent]
+            for t in ts:
+                if id(t) in index and id(t) not in seen:
+                    seen.add(id(t))
+                    out.append(t)
+        return out
+
+    contrib: dict = {}  # leaf -> the keys of its gradient's contributions, in part order
+    alone: set = set()  # leaves of one copy and at most one contribution: no reduce
+    stages = []
+
+    def grad_to(i, key) -> tuple:
+        """Where a contribution to leaf i goes, and its key there: the
+        leaf's reduce, or, alone, straight to its update as its total."""
+        return (update_of[i], ("total", i)) if i in alone else (reduce_at[i], key)
+
+    def shard_part(p):
+        def body(get, put):
+            x, off = inputs[p], offsets.on(devices[p])
+            for d, m in [e for e in sent if grid[e] == p]:
+                with torch.no_grad():
+                    part = _shard_partial(layout, sp.entry(d, m)["tables"], off,
+                                          rows_of(x, "indices", d), m * rps, cdt, mask_of(x, d),
+                                          ranges[m])
+                put(grid[(d, 0)], ("partial", d, m), part)
+        return body
+
+    def row_part(p, rows):
+        used = used_by(rows)
+        keys = [("g", index[id(t)], p) for t in used]
+        for t, key in zip(used, keys):
+            contrib.setdefault(index[id(t)], []).append(key)
+
+        def body(get, put):
+            x = inputs[p]
+            off = offsets.on(devices[p])
+            received = []  # dense: ((d, m), the received partial as a leaf)
+
+            def lookup(d):
+                idx, msk = rows_of(x, "indices", d), mask_of(x, d)
+                if rps is None:  # a replicated table: the whole lookup on entry (d, 0)
+                    return pooled_lookup(sp.entry(d, 0)["tables"],
+                                         Batch(dense=None, indices=idx, mask=msk), cfg, offsets=off)
+                acc = None
+                for m in range(M):
+                    if (d, m) in sent:
+                        part = get(("partial", d, m))
+                        if not sparse:
+                            part = part.detach().requires_grad_()
+                            received.append(((d, m), part))
+                    else:
+                        part = _shard_partial(layout, sp.entry(d, m)["tables"], off, idx,
+                                              m * rps, cdt, msk, ranges[m])
+                    acc = part if acc is None else acc + part
+                return _finish(acc, layout, cdt)
+
+            pooled = {}
+            if sparse:
+                with torch.no_grad():
+                    pooled = {d: lookup(d) for d in rows}
+            wrt = used + list(pooled.values())
+
+            def run():
+                losses, share = {}, None
+                for d in rows:
+                    tail = Batch(dense=rows_of(x, "dense", d), indices=None, mask=None)
+                    scores = model.apply_from_pooled(sp.entry(d, 0),
+                                                     pooled[d] if sparse else lookup(d), tail)
+                    losses[d] = loss_fn(scores, rows_of(x, "targets", d))
+                    share = losses[d] if share is None else share + losses[d]
+                return losses, torch.autograd.grad(share / D, wrt + [r for _, r in received],
+                                                   allow_unused=True)
+
+            losses, grads = with_grad(wrt, run)
+            for d in rows:
+                put(home, ("loss", d), losses[d].detach())
+            for t, key, g in zip(used, keys, grads):
+                put(*grad_to(index[id(t)], key), g)
+            rest = grads[len(used):]
+            for d, g in zip(rows, rest[:len(pooled)]):
+                for q in k5_at:
+                    put(q, ("pooled grad", d), g)
+            for ((d, m), _), g in zip(received, rest[len(pooled):]):
+                put(grid[(d, m)], ("partial grad", d, m), g)
+        return body
+
+    def backward_part(p):
+        mine = [e for e in sent if grid[e] == p]
+        for d, m in mine:
+            contrib.setdefault(index[id(sp.entry(d, m)["tables"])], []).append(("g", p, d, m))
+
+        def body(get, put):
+            x, off = inputs[p], offsets.on(devices[p])
+            for d, m in mine:
+                shard = sp.entry(d, m)["tables"]
+                g = emb.embedding_bag_backward_shard(
+                    get(("partial grad", d, m)), off, rows_of(x, "indices", d), m * rps,
+                    shard.shape[0], mask=mask_of(x, d), table_range=ranges[m])
+                put(*grad_to(index[id(shard)], ("g", p, d, m)), g.to(shard.dtype))
+        return body
+
+    def reduce_part(p):
+        mine = [j for j, copies in copies_of.items()
+                if reduce_at[copies[0]] == p and copies[0] not in alone]
+
+        def body(get, put):
+            for j in mine:
+                total = None
+                for i in copies_of[j]:
+                    g_copy = None
+                    for key in contrib.get(i, ()):
+                        g = get(key)
+                        if g is not None:
+                            g_copy = g if g_copy is None else g_copy + g
+                    if g_copy is not None:
+                        total = g_copy if total is None else total + g_copy
+                if total is None:
+                    total = torch.zeros_like(leaves[copies_of[j][0]])
+                for i in copies_of[j]:
+                    put(update_of[i], ("total", i), total)
+        return body
+
+    def update_part(p):
+        mine = [dev for dev, q in update_at.items() if q == p]
+        shards = [m for m in range(M) if sparse and grid[(0, m)] == p]
+
+        def body(get, put):
+            grads = [None] * len(leaves)
+            for dev in mine:
+                for i in opt.devices[dev]:
+                    g = get(("total", i))  # None: a leaf alone that no part used
+                    grads[i] = torch.zeros_like(leaves[i]) if g is None else g
+                opt.update_on(dev, leaves, grads)
+            if shards:
+                x, off = inputs[p], offsets.on(devices[p])
+                g = torch.cat([get(("pooled grad", d)) for d in range(D)])
+                stream = tables.stream(off, x["indices"], g)
+                for m in shards:
+                    copies = shard_copies(sp, tables.acc, m)
+                    (_, t0, a0), rest = copies[0], copies[1:]
+                    tables.update(t0, a0, *stream, m * rps)
+                    if rest:
+                        moved = tables.rows(t0, a0, stream[0], stream[1], m * rps)
+                        for d, _, _ in rest:
+                            for n, t in enumerate(moved):
+                                put(grid[(d, m)], ("rows", m, d, n), t)
+            if p == home:
+                loss = None
+                for d in range(D):
+                    loss = get(("loss", d)) if loss is None else loss + get(("loss", d))
+                return {"out": loss / D}
+        return body
+
+    def copy_part(p):
+        mine = [(m, d, t, a) for m in range(M) for d, t, a in shard_copies(sp, tables.acc, m)[1:]
+                if grid[(d, m)] == p]
+
+        def body(get, put):
+            for m, d, t, a in mine:
+                tables.set_rows([t], [a], *(get(("rows", m, d, n)) for n in range(3)))
+        return body
+
+    def kind(name, parts: dict):
+        for p in places.order(parts):
+            stages.append(mail.stage(p, name, parts[p]))
+
+    kind("shard", {grid[e]: shard_part(grid[e]) for e in sent})
+    kind("row", {p: row_part(p, rows) for p, rows in rows_at.items()})
+    if not sparse:
+        kind("backward", {grid[e]: backward_part(grid[e]) for e in sent})
+    alone.update(i for i, *more in copies_of.values()
+                 if not more and len(contrib.get(i, ())) <= 1)
+    kind("reduce", {reduce_at[copies[0]]: reduce_part(reduce_at[copies[0]])
+                    for copies in copies_of.values() if copies[0] not in alone})
+    kind("update", {p: update_part(p) for p in set(update_at.values()) | set(k5_at)})
+    if sparse:
+        kind("copy", {grid[(d, m)]: copy_part(grid[(d, m)]) for m in range(M)
+                      for d, _, _ in shard_copies(sp, tables.acc, m)[1:]})
+    return stages
+
+
+def shard_copies(sp: ShardedParams, acc: Sharded, m: int) -> list:
+    """Shard m's distinct copies in this process, first copy first: ``(d,
+    table, acc)`` of the first row d that holds each (the sparse step's
+    table and its row accumulator)."""
+    out = []
+    for d in range(sp.mesh.shape["data"]):
+        e = sp.entry(d, m)
+        if e is not None and not any(e["tables"] is t for _, t, _ in out):
+            out.append((d, e["tables"], acc.part(d, m)))
+    return out
 
 
 def _check_dense(has_dense: bool, batch: Batch):
@@ -1475,12 +1910,13 @@ def make_train_step(model: ModelFns, mesh: Mesh, has_dense: bool, learning_rate:
     (``loss_fn_for``).
 
     As JAX compiles the step, ``jitted(sp)`` runs it through
-    ``train_programs.StepPrograms`` bound to ``sp`` (a CUDA graph a batch
-    shape on a card, replayed on the programs' stream), unless
+    ``train_programs.StepPrograms`` bound to ``sp`` (on a card a CUDA graph
+    a batch shape, replayed on the programs' stream; over several cards a
+    graph a part of the step, ``mesh_train_stages``), unless
     ``train_programs.eager_reason(mesh)`` keeps it eager (a mesh across
-    processes or cards); the step then takes that ``sp`` only."""
+    processes); the step then takes that ``sp`` only."""
     from deeprecsys_tpu_torch.ops.optimizer import Optimizer
-    from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason
+    from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason, train_cut
 
     dense_step = make_mesh_dense_step(model, mesh, loss_fn_for(loss, sigmoid_output))
 
@@ -1488,7 +1924,9 @@ def make_train_step(model: ModelFns, mesh: Mesh, has_dense: bool, learning_rate:
         opt = MeshOptimizer(Optimizer("sgd", learning_rate),
                             [t for copies in leaf_copies(sp) for t in copies])
         programs = None if eager_reason(mesh) else StepPrograms(
-            lambda batch, targets: dense_step(sp, opt, batch, targets), mesh.home)
+            lambda batch, targets: dense_step(sp, opt, batch, targets), mesh.home,
+            cut=train_cut(mesh, lambda inputs, places: dense_step.stages(sp, opt, inputs,
+                                                                         places)))
 
         def step(sp_in: ShardedParams, batch: Batch, targets: torch.Tensor):
             _check_dense(has_dense, batch)

@@ -16,6 +16,9 @@ makes 34-50.
 - ``StaticInputs``: the engine's device input buffers, at its largest bucket
   and cold rung (on a mesh, the mesh split's: a cold stream a cell); a
   program reads leading slices of them.
+- ``StagedProgram``: stages run in order, a graph a stage on its card, the
+  outputs that cross cards copied between the replays; the trainers' steps
+  over several cards share it (``train_programs.py::StagedStep``).
 - ``BucketProgram``: one program: its slices, its stages (closures over
   the params it was built with; one a card) and, on a card, a graph a
   stage, the static outputs and the kernel launches the captures recorded,
@@ -116,14 +119,6 @@ def capture(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream) -> 
     return graph, out, launches, (time.perf_counter() - t0) * 1000.0
 
 
-def pool_bytes(pool):
-    """Device bytes a graph pool holds (its segments in the caching
-    allocator's snapshot); None without a pool (the CPU)."""
-    if pool is None:
-        return None
-    return sum(pool_bytes_by_card([pool]).values())
-
-
 def pool_bytes_by_card(pools) -> dict:
     """Device bytes the graph pools ``pools`` hold, by card index (a card
     whose pools hold no segment is left out)."""
@@ -201,7 +196,85 @@ class StaticInputs:
         return out
 
 
-class BucketProgram:
+class StagedProgram:
+    """Stages (``parallel.sharding.Stage``) run in order, each captured as a
+    graph on its card, and the outputs a stage sends another card copied
+    between the replays into receive buffers there (``recv``, allocated by
+    the first, eager run). The send and replay loop of the engines' programs
+    and of the trainers' steps over several cards. ``out`` is the output
+    ``"out"`` of the stage that makes it."""
+
+    def __init__(self, stages: list):
+        self.stages = stages
+        self.graphs: list = []   # a graph a stage (a card)
+        self.outs: list = []     # each stage's static outputs (a card)
+        self.recv: dict = {}     # the buffers a stage reads from another card's stage
+        self.launches: dict = {}  # wrapper -> launches a replay, every stage's (a card)
+        self.stage_launches: list = []  # (card, wrapper -> launches) a stage (a card)
+        self.stage_ms: list = []  # each stage's capture, host ms (a card)
+        self.capture_ms = 0.0
+        self._out_at = len(stages) - 1  # the stage whose outputs hold "out"
+
+    @property
+    def graph(self):
+        """The last stage's graph; None where the program runs eagerly."""
+        return self.graphs[-1] if self.graphs else None
+
+    @property
+    def out(self) -> torch.Tensor | None:
+        """The output's static tensor (a card)."""
+        return self.outs[self._out_at]["out"] if self.outs else None
+
+    def _send(self, stage, outs: dict):
+        """Copy each output of ``stage`` that another stage reads into its
+        receive buffer (allocated by the first, eager run): on a card a
+        cross-device ``copy_``, ordered by events on both cards' current
+        streams. A key the stage did not output this time is skipped."""
+        for key, dev in stage.sends.items():
+            src = outs.get(key)
+            if src is None:
+                continue
+            dst = self.recv.get(key)
+            if dst is None:
+                dst = self.recv[key] = torch.empty(src.shape, dtype=src.dtype, device=dev)
+            dst.copy_(src, non_blocking=dev.type == "cuda")
+
+    def _eager(self) -> torch.Tensor:
+        out = None
+        for i, stage in enumerate(self.stages):
+            outs = stage.fn(self.recv)
+            self._send(stage, outs)
+            if "out" in outs:
+                out, self._out_at = outs["out"], i
+        return out
+
+    def _replay(self) -> torch.Tensor:
+        for stage, graph, outs in zip(self.stages, self.graphs, self.outs):
+            graph.replay()
+            self._send(stage, outs)
+        _build.count_replay(self.launches)
+        return self.out
+
+    def _capture(self, pools: dict):
+        """Capture each stage on its card's current stream into that card's
+        pool (``pools`` by device), in order; a stage reads the receive
+        buffers the eager run allocated, and the static outputs of the
+        stages captured before it."""
+        for stage in self.stages:
+            with torch.cuda.device(stage.device):
+                graph, outs, launches, ms = capture(
+                    lambda: stage.fn(self.recv), pools[stage.device],
+                    torch.cuda.current_stream(stage.device))
+            self.graphs.append(graph)
+            self.outs.append(outs)
+            self.stage_launches.append((stage.device, launches))
+            self.stage_ms.append(ms)
+            for wrapper, n in launches.items():
+                self.launches[wrapper] = self.launches.get(wrapper, 0) + n
+            self.capture_ms += ms
+
+
+class BucketProgram(StagedProgram):
     """One serve-time program: its ``stages`` (``parallel.sharding.Stage``:
     one on one device or one card, one a card and job over several cards)
     over the static slices they read, each stage captured as a graph where
@@ -212,32 +285,15 @@ class BucketProgram:
 
     def __init__(self, key: tuple, stages: list, inputs: dict, loads: list,
                  device: torch.device, capture: bool):
+        super().__init__(stages)
         self.key = key
-        self.stages = stages
         self.inputs = inputs
         self.loads = loads
         self.device = device
         self.capture = capture
-        self.graphs: list = []   # a graph a stage (a card)
-        self.outs: list = []     # each stage's static outputs (a card)
-        self.recv: dict = {}     # the buffers a stage reads from another card's stage
-        self.launches: dict = {}  # wrapper -> launches a replay, every stage's (a card)
-        self.stage_launches: list = []  # (card, wrapper -> launches) a stage (a card)
-        self.capture_ms = 0.0
         self.warm_err = None     # max |first replay - eager forward| (a card)
         self.first_scores = None  # the first run's scores after capture, f32 on the host
         self.runs = 0            # executions served after the build (serve thread)
-
-    @property
-    def graph(self):
-        """The last stage's graph (the one that writes the scores); None
-        where the program runs eagerly."""
-        return self.graphs[-1] if self.graphs else None
-
-    @property
-    def out(self) -> torch.Tensor | None:
-        """The scores' static tensor (a card)."""
-        return self.outs[-1]["out"] if self.outs else None
 
     def load(self, host: dict):
         """Copy an execution's host rows (pinned on a card) into the static
@@ -246,31 +302,6 @@ class BucketProgram:
         for dst, name, index in self.loads:
             src = host[name]
             dst.copy_(src[index] if index else src, non_blocking=on_card)
-
-    def _send(self, stage, outs: dict):
-        """Copy each output of ``stage`` that another stage reads into its
-        receive buffer (allocated by the first, eager run): on a card a
-        cross-device ``copy_``, ordered by events on both cards' current
-        streams."""
-        for key, dev in stage.sends.items():
-            src = outs[key]
-            dst = self.recv.get(key)
-            if dst is None:
-                dst = self.recv[key] = torch.empty(src.shape, dtype=src.dtype, device=dev)
-            dst.copy_(src, non_blocking=dev.type == "cuda")
-
-    def _eager(self) -> torch.Tensor:
-        for stage in self.stages:
-            outs = stage.fn(self.recv)
-            self._send(stage, outs)
-        return outs["out"]
-
-    def _replay(self) -> torch.Tensor:
-        for stage, graph, outs in zip(self.stages, self.graphs, self.outs):
-            graph.replay()
-            self._send(stage, outs)
-        _build.count_replay(self.launches)
-        return self.out
 
     def run(self, host: dict) -> torch.Tensor:
         """One execution: copy ``host`` in, then replay every stage (a card)
@@ -291,17 +322,7 @@ class BucketProgram:
             self.first_scores = self._eager().float().cpu().numpy()
             return 1
         eager = self._eager()
-        for stage in self.stages:
-            with torch.cuda.device(stage.device):
-                graph, outs, launches, ms = capture(
-                    lambda: stage.fn(self.recv), pools[stage.device],
-                    torch.cuda.current_stream(stage.device))
-            self.graphs.append(graph)
-            self.outs.append(outs)
-            self.stage_launches.append((stage.device, launches))
-            for wrapper, n in launches.items():
-                self.launches[wrapper] = self.launches.get(wrapper, 0) + n
-            self.capture_ms += ms
+        self._capture(pools)
         out = self._replay()
         self.warm_err = float((out.float() - eager.float()).abs().max().item())
         self.first_scores = out.float().cpu().numpy()

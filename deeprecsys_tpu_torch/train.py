@@ -37,9 +37,11 @@ the same tensors after a step). JAX compiles each step once a batch shape;
 the port's ``Trainer`` runs its steps through ``train_programs.py``'s
 ``StepPrograms``: on a card the first step of a shape runs eagerly, is then
 captured as a CUDA graph, and every later step of the shape is a replay,
-on the trainer's own stream. A mesh across processes or cards, and K5's
-bf16 window, stay eager (``Trainer.eager_reason``, decided when the trainer
-is built).
+on the trainer's own stream. Over several cards of one process the step is
+cut into parts by card (``parallel/sharding.py::mesh_train_stages``; the
+sparse step's table update through ``TableStep``), a graph a part on that
+card's stream. A mesh across processes and K5's bf16 window stay eager
+(``Trainer.eager_reason``, decided when the trainer is built).
 
     python -m deeprecsys_tpu_torch.train --model rm1 --steps 200 \\
         [--sparse_tables] [--criteo train.txt] [--save ckpt] \\
@@ -66,10 +68,11 @@ from deeprecsys_tpu_torch.ops import embedding_bag, sparse_adagrad_step, sparse_
 from deeprecsys_tpu_torch.ops.embedding import quantize_pertable_int8, quantize_rowwise_int8
 from deeprecsys_tpu_torch.ops.optimizer import Optimizer
 from deeprecsys_tpu_torch.parallel.sharding import (
-    MeshOptimizer, Replicated, Sharded, ShardedParams, all_gather_slices, leaf_copies,
-    leaf_groups, loss_fn_for, make_mesh_dense_step, mesh_loss, pooled_on_row, reduce_copies,
-    shard_params, sharded_apply, split_batch, split_targets, unshard_params, with_grad)
-from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason
+    MeshOptimizer, Replicated, Sharded, ShardedParams, TableStep, TrainPlaces, all_gather_slices,
+    leaf_copies, leaf_groups, loss_fn_for, make_mesh_dense_step, mesh_loss, mesh_train_stages,
+    pooled_on_row, reduce_copies, shard_copies, shard_params, sharded_apply, split_batch,
+    split_targets, unshard_params, with_grad)
+from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason, train_cut
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 from deeprecsys_tpu_torch.utils.metrics_ml import auc
 
@@ -195,9 +198,26 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer, learning
 def touched_rows(offsets: torch.Tensor, indices: torch.Tensor, row_lo: int,
                  rows: int) -> torch.Tensor:
     """The local rows of the shard ``[row_lo, row_lo + rows)`` that a
-    stream's ids touch (repeats kept)."""
+    stream's ids touch (repeats kept): a boolean selection, whose size the
+    host reads back; across processes only (``_send_shard_rows``)."""
     local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
     return local[(local >= 0) & (local < rows)]
+
+
+def shard_rows(table: torch.Tensor, acc: torch.Tensor, offsets: torch.Tensor,
+               indices: torch.Tensor, row_lo: int) -> tuple:
+    """The touched rows of a shard ``[row_lo, row_lo + R_s)`` at a fixed
+    size, one a slot of the stream: each slot's local row clamped into the
+    shard, and the shard's table and accumulator rows there, ``(rows,
+    table rows, acc rows)``. Written into a copy of the shard that equalled
+    ``table`` before K5's step, they make it equal again: a slot outside
+    the shard writes back a row of the owner's, which K5 left as it was or
+    updated as an owned slot does, and repeated rows write equal values. No
+    shape depends on the ids, so nothing is read back from the card
+    (``touched_rows``' mask would be) and the copy can be captured."""
+    local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
+    rows = local.clamp_(0, table.shape[0] - 1)
+    return rows, table.index_select(0, rows), acc.index_select(0, rows)
 
 
 def update_shard_copies(tables: list, accs: list, offsets: torch.Tensor, indices: torch.Tensor,
@@ -205,19 +225,18 @@ def update_shard_copies(tables: list, accs: list, offsets: torch.Tensor, indices
     """One row shard's sparse step over all of its copies: K5's window
     (``sparse_adagrad_step_shard``) on ``tables[0]`` and ``accs[0]`` once,
     then the rows the stream touched in the shard copied from that first
-    copy into every other (an ``index_select`` on the owner, an
-    ``index_copy_`` on each other copy, across cards where the copies lie
-    on several). So every copy equals the first bit for bit, as JAX's
-    sharded step keeps one array a shard (``train.py:177-182``), where a
-    launch a copy would round K5's atomic adds in another order on each.
-    ``offsets``, ``indices`` and ``g`` are the stream on the first copy's
-    device."""
+    copy into every other (``shard_rows``: an ``index_select`` on the owner
+    at a fixed size, an ``index_copy_`` on each other copy, across cards
+    where the copies lie on several). So every copy equals the first bit
+    for bit, as JAX's sharded step keeps one array a shard
+    (``train.py:177-182``), where a launch a copy would round K5's atomic
+    adds in another order on each. ``offsets``, ``indices`` and ``g`` are
+    the stream on the first copy's device."""
     table, acc = tables[0], accs[0]
     sparse_adagrad_step_shard(table, acc, offsets, indices, g, row_lo, learning_rate, eps)
     if len(tables) == 1:
         return
-    rows = touched_rows(offsets, indices, row_lo, table.shape[0])
-    _set_rows(tables[1:], accs[1:], rows, table.index_select(0, rows), acc.index_select(0, rows))
+    _set_rows(tables[1:], accs[1:], *shard_rows(table, acc, offsets, indices, row_lo))
 
 
 def _set_rows(tables: list, accs: list, rows, t_rows, a_rows):
@@ -284,6 +303,12 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
     (``all_gather_slices``), entry (0, m)'s process runs shard m's window,
     and its touched rows go to the copies on the column's other processes
     (``_send_shard_rows``).
+
+    ``step.stages(sp, opt_state, inputs, places)`` is the same step cut
+    into parts by card (``parallel/sharding.py::mesh_train_stages``, its
+    table update this step's pieces: ``_dedup_stream``, K5's window,
+    ``shard_rows``, ``_set_rows``), which the trainer's programs capture
+    over several cards.
     """
     M = mesh.shape["model"]
     if cfg.total_rows % M:
@@ -319,12 +344,8 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
         all_ids = torch.cat([sl.indices for sl in slices]) if mesh.multi_process else None
         streams: dict = {}
         for m in range(M):
-            tables, accs = [], []
-            for d in range(mesh.shape["data"]):
-                shard = sp.entry(d, m)
-                if shard is not None and not any(t is shard["tables"] for t in tables):
-                    tables.append(shard["tables"])
-                    accs.append(acc.part(d, m))
+            copies = shard_copies(sp, acc, m)
+            tables, accs = [t for _, t, _ in copies], [a for _, _, a in copies]
             if mesh.is_local(0, m):
                 dev = tables[0].device
                 if dev not in streams:  # every slice's ids and gradients, in data-row order
@@ -338,6 +359,15 @@ def make_sharded_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer,
                                  m * rps)
         return loss.detach()
 
+    def stages(sp: ShardedParams, opt_state, inputs: dict, places: TrainPlaces) -> list:
+        table_step = TableStep(
+            acc=opt_state[1],
+            stream=lambda *stream: _dedup_stream(*stream) if dedup else stream,
+            update=lambda *a: sparse_adagrad_step_shard(*a, table_learning_rate, eps),
+            rows=shard_rows, set_rows=_set_rows)
+        return mesh_train_stages(model, sp, loss_fn, opt_state[0], inputs, places, table_step)
+
+    step.stages = stages
     return step
 
 
@@ -365,10 +395,12 @@ class Trainer:
 
     Steps go through ``step_program`` (``train_programs.StepPrograms``: a
     CUDA graph a batch shape on a card, replayed on the trainer's stream,
-    where evaluation runs too; the eager step over static buffers on the
-    CPU), or, where ``eager_reason`` says why, straight to the step function
-    on the caller's streams (``step_program`` None). Assigning ``params`` or
-    ``opt_state`` drops the captured programs.
+    where evaluation runs too; over several cards a graph a part of the
+    step on each card's stream, ``self._step.stages``; the eager step, or
+    its parts, over static buffers on the CPU), or, where ``eager_reason``
+    says why, straight to the step function on the caller's streams
+    (``step_program`` None). Assigning ``params`` or ``opt_state`` drops the
+    captured programs.
     """
 
     def __init__(
@@ -432,7 +464,12 @@ class Trainer:
                 tr = trainer()
                 return tr._step(tr.params, tr.opt_state, batch, targets)
 
-            self.step_program = StepPrograms(step, self.device)
+            def stages(inputs: dict, places: TrainPlaces) -> list:
+                tr = trainer()
+                return tr._step.stages(tr.params, tr.opt_state, inputs, places)
+
+            self.step_program = StepPrograms(step, self.device,
+                                             cut=None if mesh is None else train_cut(mesh, stages))
 
     @property
     def params(self):

@@ -22,13 +22,22 @@ does (``deeprecsys_tpu/train.py:427``).
 - ``StepProgram``: one shape's program: its inputs and, on a card, its
   graph, its static loss and the kernel launches its capture recorded,
   which each replay adds to the wrappers' counters (``_build.count_replay``).
-- ``StepPrograms``: a trainer's programs by shape and the stream they run
-  on; on a card they share one graph memory pool, which is safe because
-  the stream runs their replays one after another.
+- ``StagedStep``: one shape's step over several cards of one process
+  (``TrainCut``, ``parallel/sharding.py::mesh_train_stages``): static
+  inputs on each card, the step's parts, each captured as a graph on its
+  card's stream into its card's pool, and the tensors that cross cards
+  copied between the replays into receive buffers on the receiving card
+  (``serving/programs.py::StagedProgram``, the mesh engines' loop). Each
+  part touches one card, so autograd's worker thread of that card
+  launches a row part's backward onto that card's captured stream.
+- ``StepPrograms``: a trainer's programs by shape and the streams they
+  run on (one a card); on a card they share one graph memory pool a card,
+  which is safe because each stream runs their replays one after another.
 
-On the CPU, which the tests ask for, a program runs the step eagerly over
-the same static buffers, so the CPU tests reach the copy-in and the shape
-keys. A capture that fails raises: nothing falls back to the eager step.
+On the CPU, which the tests ask for, a program runs the step (or its
+parts, with their sends) eagerly over the same static buffers, so the CPU
+tests reach the copy-in, the shape keys and the cut. A capture that fails
+raises: nothing falls back to the eager step.
 Captures use ``capture_error_mode="thread_local"`` (autograd's worker thread
 launches the backward onto the captured stream, and ``_build`` tallies its
 launches by that stream) and hold the serving engines' ``BUILD_LOCK``, so a
@@ -37,45 +46,60 @@ trainer never captures while an engine of the same process builds.
 A program closes over the tensors it was captured with. Whatever replaces
 the trainer's params or optimizer state, instead of writing into them,
 drops the programs (``reset``). Which steps stay eager is decided when the
-trainer is built (``eager_reason``), never by catching a failed capture.
+trainer is built (``eager_reason``: a mesh across processes, K5's bf16
+window), never by catching a failed capture, and so is whether a mesh takes
+one program or parts (``train_cut``: more than one place means parts).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from deeprecsys_tpu_torch.models.base import Batch
 from deeprecsys_tpu_torch.ops import _build
 from deeprecsys_tpu_torch.serving.programs import (
-    BUILD_LOCK, capture, pool_bytes, eager_reason as mesh_eager_reason)
+    BUILD_LOCK, StagedProgram, capture, pool_bytes_by_card, eager_reason as mesh_eager_reason)
 
 StepFn = Callable[[Batch, torch.Tensor], torch.Tensor]  # (batch, targets) -> loss
 
 
 def eager_reason(mesh, table_dtype: torch.dtype | None = None, sparse: bool = False):
     """Why a trainer's steps stay eager, or None where they are captured:
-    on one device, and on a mesh of one process whose entries all name one
-    device (one card's virtual shards, ``["cuda:0"] * 4``). A mesh across
-    processes takes the engines' reason (``serving/programs.py::
-    eager_reason``); a mesh over several cards its own. ``table_dtype`` and
-    ``sparse``: the table's dtype and whether the mesh step updates it by
-    K5's window."""
+    on one device and on any mesh of one process (one program where its
+    entries all name one card, a graph a part over several cards). A mesh
+    across processes takes the engines' reason (``serving/programs.py::
+    eager_reason``). ``table_dtype`` and ``sparse``: the table's dtype and
+    whether the mesh step updates it by K5's window."""
     reason = mesh_eager_reason(mesh)
     if reason is not None or mesh is None:
         return reason
-    if len(mesh.distinct_devices) > 1:
-        return ("a trainer over several cards: its backward runs on autograd's worker "
-                "thread of each card, so a card's share of a step is launched from several "
-                "threads, which a capture a card would have to take in; captures across "
-                "cards are not tried for the trainers")
     if sparse and table_dtype is not None and table_dtype != torch.float32:
         return ("K5's window on a bf16 shard keeps its count and hash keys from call to "
                 "call, and each call zeroes the next call's count, which a replay would "
                 "skip (ops/sparse_adagrad.py::sparse_adagrad_step_shard refuses a capture)")
     return None
+
+
+class TrainCut(NamedTuple):
+    """A mesh step cut into parts by place (``parallel/sharding.py::
+    train_places``): ``stages(inputs, places)`` makes one batch shape's
+    parts over the static inputs of each place (``inputs[place]``, a dict
+    by name)."""
+
+    places: object
+    stages: Callable
+
+
+def train_cut(mesh, stages: Callable) -> TrainCut | None:
+    """The cut of a step over ``mesh`` (``stages`` as ``TrainCut``'s), or
+    None where the mesh's entries are all one place: one program."""
+    from deeprecsys_tpu_torch.parallel.sharding import train_places
+
+    places = train_places(mesh)
+    return TrainCut(places, stages) if len(places.devices) > 1 else None
 
 
 def step_key(host: Batch, targets: torch.Tensor) -> tuple:
@@ -95,9 +119,13 @@ class StepInputs:
         self.batch = Batch(*(buf(x) for x in host))
         self.targets = buf(targets)
 
+    def named(self) -> dict:
+        """The buffers by name: the batch's fields and ``targets``."""
+        return {**self.batch._asdict(), "targets": self.targets}
+
     def load(self, host: Batch, targets: torch.Tensor):
         """Copy a step's host batch (pinned on a card) into the buffers, on
-        the current stream."""
+        the current stream of their card."""
         on_card = self.targets.device.type == "cuda"
         for dst, src in zip((*self.batch, self.targets), (*host, targets)):
             if dst is not None:
@@ -130,12 +158,45 @@ class StepProgram:
         _build.count_replay(self.launches)
         return self.loss.clone()
 
-    def build(self, host: Batch, targets: torch.Tensor, pool, stream) -> torch.Tensor:
-        """The shape's first step, eagerly, then its capture into ``pool`` on
-        ``stream`` (the current one). Returns the eager step's loss."""
+    def build(self, host: Batch, targets: torch.Tensor, pools: dict) -> torch.Tensor:
+        """The shape's first step, eagerly, then its capture into its card's
+        pool (``pools`` by device) on the card's current stream. Returns the
+        eager step's loss."""
         loss = self.run(host, targets)
         self.graph, self.loss, self.launches, self.capture_ms = capture(
-            lambda: self.step(self.inputs.batch, self.inputs.targets), pool, stream)
+            lambda: self.step(self.inputs.batch, self.inputs.targets), pools[self.device],
+            torch.cuda.current_stream(self.device))
+        return loss
+
+
+class StagedStep(StagedProgram):
+    """One batch shape's step over several places (``TrainCut``): static
+    inputs a place, the step's parts over them (each captured as a graph on
+    its card), the tensors that cross places copied between the parts
+    (``serving/programs.py::StagedProgram``)."""
+
+    def __init__(self, key: tuple, cut: TrainCut, host: Batch, targets: torch.Tensor):
+        self.inputs = {p: StepInputs(host, targets, dev) for p, dev in cut.places.devices.items()}
+        super().__init__(cut.stages({p: x.named() for p, x in self.inputs.items()}, cut.places))
+        self.key = key
+        self.runs = 0  # steps taken, the eager first one included
+
+    def run(self, host: Batch, targets: torch.Tensor) -> torch.Tensor:
+        """One step: copy the batch into every place's inputs, then replay
+        the parts (a card; the loss copied out of its graph) or run them."""
+        self.runs += 1
+        for x in self.inputs.values():
+            x.load(host, targets)
+        if not self.graphs:
+            return self._eager()
+        return self._replay().clone()
+
+    def build(self, host: Batch, targets: torch.Tensor, pools: dict) -> torch.Tensor:
+        """The shape's first step, its parts run eagerly, then each part
+        captured into its card's pool on the card's current stream. Returns
+        the eager step's loss."""
+        loss = self.run(host, targets)
+        self._capture(pools)
         return loss
 
 
@@ -152,50 +213,66 @@ class StepPrograms:
 
     ``programs(host, targets)`` takes one step: ``host`` a ``Batch`` of host
     arrays or tensors, ``targets`` a tensor; returns the loss, a scalar
-    tensor on the device (not synchronised). On a card the steps run on the
-    programs' own stream (``stream``), ordered after the caller's current
-    stream's work and before its later work."""
+    tensor on ``device`` (not synchronised). ``step`` is the step function
+    itself; with ``cut`` (a step over several places) a program is the
+    step's parts instead (``StagedStep``). On a card the steps run on the
+    programs' own stream on each card (``streams``), ordered after each
+    caller's current stream's work and before its later work."""
 
-    def __init__(self, step: StepFn, device: torch.device):
+    def __init__(self, step: StepFn, device: torch.device, cut: TrainCut | None = None):
         self.step = step
         self.device = device
+        self.cut = cut
+        devices = [device] if cut is None else list(dict.fromkeys(cut.places.devices.values()))
         on_card = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if on_card else None
-        self.pool = torch.cuda.graph_pool_handle() if on_card else None
-        self.programs: dict[tuple, StepProgram] = {}
+        # The home card's last, so that it is the current card inside on_stream.
+        devices = sorted(devices, key=lambda dev: dev == device)
+        self.streams = {dev: torch.cuda.Stream(dev) for dev in devices} if on_card else {}
+        self.pools = {dev: torch.cuda.graph_pool_handle() for dev in devices} if on_card else {}
+        self.programs: dict = {}
         self.captures = 0
         self.capture_ms = 0.0
 
     @contextlib.contextmanager
     def on_stream(self):
-        """Run the body on the programs' stream (a card), after the caller's
-        stream's work and before its later work; on the CPU as it is."""
-        if self.stream is None:
+        """Run the body on the programs' streams (a card), each after its
+        card's caller's stream's work and before its later work, the
+        caller's stream on ``device`` after all of them (so that reading
+        the loss waits for the whole step); on the CPU as it is."""
+        if not self.streams:
             yield
             return
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
+        callers = {dev: torch.cuda.current_stream(dev) for dev in self.streams}
+        with contextlib.ExitStack() as stack:
+            for dev, stream in self.streams.items():
+                stream.wait_stream(callers[dev])
+                stack.enter_context(torch.cuda.stream(stream))
             yield
-        caller.wait_stream(self.stream)
+        for dev, stream in self.streams.items():
+            callers[dev].wait_stream(stream)
+            if dev != self.device:
+                callers[self.device].wait_stream(stream)
+
+    def _program(self, key: tuple, host: Batch, targets: torch.Tensor):
+        if self.cut is not None:
+            return StagedStep(key, self.cut, host, targets)
+        return StepProgram(key, self.step, StepInputs(host, targets, self.device), self.device)
 
     def __call__(self, host: Batch, targets) -> torch.Tensor:
         host = Batch(*(None if x is None else torch.as_tensor(x) for x in host))
         targets = torch.as_tensor(targets)
         key = step_key(host, targets)
         prog = self.programs.get(key)
-        if self.stream is None:
+        if not self.streams:
             if prog is None:
-                prog = self.programs[key] = StepProgram(
-                    key, self.step, StepInputs(host, targets, self.device), self.device)
+                prog = self.programs[key] = self._program(key, host, targets)
             return prog.run(host, targets)
         with self.on_stream():
             host, targets = Batch(*(_pinned(x) for x in host)), _pinned(targets)
             if prog is None:
-                prog = StepProgram(key, self.step, StepInputs(host, targets, self.device),
-                                   self.device)
+                prog = self._program(key, host, targets)
                 with BUILD_LOCK:
-                    loss = prog.build(host, targets, self.pool, self.stream)
+                    loss = prog.build(host, targets, self.pools)
                 self.programs[key] = prog
                 self.captures += 1
                 self.capture_ms += prog.capture_ms
@@ -206,13 +283,19 @@ class StepPrograms:
 
     def reset(self):
         """Drop every program (the params or state they were captured with
-        were replaced); the next step of each shape builds anew. The pool
-        is freed once the stream has run the replays already queued."""
-        if self.stream is not None and self.programs:
-            self.stream.synchronize()
-            self.pool = torch.cuda.graph_pool_handle()
+        were replaced); the next step of each shape builds anew. The pools
+        are freed once the streams have run the replays already queued."""
+        if self.streams and self.programs:
+            for stream in self.streams.values():
+                stream.synchronize()
+            self.pools = {dev: torch.cuda.graph_pool_handle() for dev in self.streams}
         self.programs = {}
 
+    def pool_bytes_by_card(self) -> dict:
+        """Device bytes the programs' graph pools hold, by card index; empty
+        on the CPU."""
+        return pool_bytes_by_card(self.pools.values()) if self.pools else {}
+
     def pool_bytes(self):
-        """Device bytes the programs' graph pool holds; None on the CPU."""
-        return pool_bytes(self.pool)
+        """Device bytes the programs' graph pools hold; None on the CPU."""
+        return sum(self.pool_bytes_by_card().values()) if self.pools else None

@@ -14,7 +14,12 @@ towers on its own card, the gradients of the copies added across cards) are
 held to the single-device step: the loss rtol 1e-5, the table and the
 accumulator the JAX sharded-step test's limits (rtol 1e-4, atol 1e-6 and
 1e-7), every copy of a replicated leaf (and, dense, of a table shard) equal
-to the first.
+to the first. The trainer over several cards replays a graph a part of the
+step on each card (``parallel/sharding.py::mesh_train_stages``): over four
+steps it stays within ``chip_smoke.py``'s ``GRAPH_*`` limits of the step
+function called eagerly on the same cards (the two differ only in the order
+of K1b's and K5's atomic adds), and a replayed step makes no host
+synchronization.
 
 An engine over several cards (``ComputeEngine(mesh=)`` on 2x2, 1x4 and 1x2
 meshes of distinct cards, as many as there are cards): every program a
@@ -25,8 +30,7 @@ executions times the captures' tally (one lookup launch a shard on its
 card, dien's scans on each row's card); the int8 layouts, hot/cold and
 dien; a same-size refresh writes every card's hot table in place; a reload
 under queued replays captures the programs again; a replayed execution
-makes no host synchronization. A trainer over several cards stays eager
-by its own reason.
+makes no host synchronization.
 
 Across processes (four cards or more): two spawned processes of two cards
 each over ``nccl`` form one 1x4 mesh; the forward is held to the
@@ -476,21 +480,37 @@ def test_mesh_across_cards_replay_makes_no_host_sync(cards, impl):
     assert sum(p.runs for p in e.eng.programs) == runs + 1
 
 
+# The graphed step against the eager step on the same cards: chip_smoke.py's
+# GRAPH_* limits (tests/test_torch_train.py's between the port and JAX):
+# losses rtol 1e-5; params rtol 1e-5, atol 1e-6, a sparse table's atol 1e-3
+# of the steps' reach (lr x steps); row accumulators 1e-4 of the largest.
+GRAPH_STEPS = 4
+GRAPH_LOSS_RTOL, GRAPH_PARAM_RTOL, GRAPH_PARAM_ATOL = 1e-5, 1e-5, 1e-6
+GRAPH_SPARSE_REACH, GRAPH_ACC_RTOL = 1e-3, 1e-4
+
+
 @pytest.mark.parametrize("sparse", [False, True])
 def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
+    """The trainer over distinct cards replays a graph a part of its step:
+    its first step (the parts run eagerly) against the single-device step,
+    then four steps against the step function called eagerly on the same
+    cards, within the GRAPH_* limits; one K1b window launch a (d, m) a
+    dense step, one K5 window launch a shard on copy (0, m) a sparse one."""
     from deeprecsys_tpu_torch.ops import embedding_bag_backward_shard, sparse_adagrad_step_shard
 
     n = len(cards)
     D, M = (2, n // 2) if n >= 4 else (1, n)
     cfg, model, start = _model(cards[0])
-    kw = dict(optimizer="adagrad", learning_rate=0.05, sparse_tables=sparse,
-              table_learning_rate=0.01, params=start)
+    lr, tlr = 0.05, 0.01
+    kw = dict(optimizer="adagrad", learning_rate=lr, sparse_tables=sparse,
+              table_learning_rate=tlr, params=start)
     single = train.Trainer(cfg, device=cards[0], **kw)
     tr = train.Trainer(cfg, mesh=make_mesh(D, M, devices=cards[:D * M]), **kw)
-    # a trainer over several cards stays eager by its own reason
-    assert tr.step_program is None and "autograd's worker" in tr.eager_reason
-    host = RecDataGenerator(cfg, seed=1).generate_batch(64)
-    labels = single._labels(host, None)
+    ev = train.Trainer(cfg, mesh=make_mesh(D, M, devices=cards[:D * M]), **kw)
+    # a trainer over several cards takes a graph a part of its step
+    assert tr.eager_reason is None and tr.step_program.cut is not None
+    hosts = [RecDataGenerator(cfg, seed=1 + i).generate_batch(64) for i in range(GRAPH_STEPS)]
+    labels = [single._labels(h, None) for h in hosts]
     k5_calls = []
 
     def k5_recorded(*args):
@@ -499,8 +519,8 @@ def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
 
     monkeypatch.setattr(train, "sparse_adagrad_step_shard", k5_recorded)
     k1b, k5 = embedding_bag_backward_shard.kernel_launches, sparse_adagrad_step_shard.kernel_launches
-    want = float(single.step(host, labels))
-    got = float(tr.step(host, labels))
+    want = float(single.step(hosts[0], labels[0]))
+    got = float(tr.step(hosts[0], labels[0]))
     torch.cuda.synchronize()
     assert got == pytest.approx(want, rel=1e-5)
     if sparse:
@@ -517,6 +537,25 @@ def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
             acc = torch.cat([tr.opt_state[1].part(d, m).cpu() for m in range(M)])
             np.testing.assert_allclose(acc.numpy(), single.opt_state[1].cpu().numpy(),
                                        rtol=1e-4, atol=1e-7)
+    # Graphed against eager on the same cards over GRAPH_STEPS steps.
+    losses = [got] + [float(tr.step(h, lab)) for h, lab in zip(hosts[1:], labels[1:])]
+    eager = [float(ev._step(ev.params, ev.opt_state, h.to(cards[0]), ev._targets(lab)))
+             for h, lab in zip(hosts, labels)]
+    np.testing.assert_allclose(losses, eager, rtol=GRAPH_LOSS_RTOL)
+    (prog,) = tr.step_program.programs.values()
+    assert prog.runs == GRAPH_STEPS and len(prog.graphs) == len(prog.stages) > 1
+    reach = GRAPH_STEPS * (tlr if sparse else lr)
+    for ((path, _), xs), (_, ys) in zip(sharding.leaf_groups(tr.params),
+                                        sharding.leaf_groups(ev.params)):
+        atol = GRAPH_SPARSE_REACH * reach if sparse and path == "tables" else GRAPH_PARAM_ATOL
+        for x, y in zip(xs, ys):
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=GRAPH_PARAM_RTOL,
+                                       atol=atol, err_msg=path)
+    if sparse:
+        for m in range(M):
+            a, b = tr.opt_state[1].part(0, m).cpu(), ev.opt_state[1].part(0, m).cpu()
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=GRAPH_ACC_RTOL * b.max().item())
     np.testing.assert_array_equal(tr.full_params()["tables"].numpy(),
                                   torch.cat([tr.params.entry(0, m)["tables"].cpu()
                                              for m in range(M)]).numpy())
@@ -533,6 +572,29 @@ def test_mesh_training_step_across_cards(cards, sparse, monkeypatch):
         acc0 = tr.opt_state[1].part(0, m).cpu()
         for d in range(1, D):
             assert torch.equal(tr.opt_state[1].part(d, m).cpu(), acc0)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_mesh_training_across_cards_replay_makes_no_host_sync(cards, sparse):
+    """A replayed step over every card (the batch copied into each card's
+    inputs, a graph a part of the step, the partials, gradients and rows
+    copied between them) makes no host synchronization."""
+    mesh = _engine_axes(cards, (2, 2) if len(cards) >= 4 else (1, 2))
+    cfg, model, start = _model(cards[0])
+    tr = train.Trainer(cfg, mesh=mesh, optimizer="adagrad", learning_rate=0.05,
+                       sparse_tables=sparse, table_learning_rate=0.01, params=start)
+    host = RecDataGenerator(cfg, seed=2).generate_batch(64)
+    labels = tr._labels(host, None)
+    tr.step(host, labels)  # the parts run eagerly, then captured
+    (prog,) = tr.step_program.programs.values()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = tr.step(host, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert prog.runs == 2 and len(prog.graphs) == len(prog.stages) > 1
+    assert np.isfinite(float(loss))
 
 
 def _two_process_run(first: torch.device, mesh) -> dict:

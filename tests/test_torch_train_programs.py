@@ -19,9 +19,10 @@ on the CPU, where each program runs the eager step over its static buffers.
   replaced, on ids with many duplicates.
 - adam's count is an int32 on the params' device, advanced once a step.
 - The steps that stay eager are decided when the trainer is built: a bf16
-  table's sharded sparse step (K5's bf16 window) and a mesh over several
-  cards record their reasons (the mesh across processes: in
-  ``tests/test_torch_distributed.py``'s workers).
+  table's sharded sparse step (K5's bf16 window) records its reason (the
+  mesh across processes: in ``tests/test_torch_distributed.py``'s
+  workers); a mesh over several cards takes programs (a graph a part of
+  the step: ``tests/test_torch_mesh_train_cards.py``).
 """
 
 import jax
@@ -199,8 +200,9 @@ def test_make_train_step_runs_through_programs():
 
 def test_the_eager_cases_are_decided_at_construction():
     """A bf16 table's sharded sparse step (K5's bf16 window refuses a
-    capture) and a mesh over two cards stay eager, with their reasons; a
-    float32 sparse mesh and a bf16 table on one device take programs."""
+    capture) stays eager, with its reason; a float32 sparse mesh, a bf16
+    table on one device and a mesh over two cards (cut into parts by card)
+    take programs."""
     cfg = zoo.get_config("rm1", table_scale=SCALE, param_dtype="bfloat16",
                          compute_dtype="bfloat16")
     mesh = make_mesh(1, 4, devices=["cpu"] * 4)
@@ -212,7 +214,8 @@ def test_the_eager_cases_are_decided_at_construction():
     assert train.Trainer(zoo.get_config("rm1", table_scale=SCALE), mesh=mesh,
                          sparse_tables=True).step_program is not None
     two_cards = make_mesh(1, 2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
-    assert "several cards" in eager_reason(two_cards)
+    assert eager_reason(two_cards) is None
+    assert "bf16 shard" in eager_reason(two_cards, torch.bfloat16, sparse=True)
     assert eager_reason(None) is None
     assert eager_reason(make_mesh(2, 2, devices=["cpu"] * 4), torch.bfloat16) is None
 
