@@ -153,10 +153,13 @@ and on rm1 for one step against the single-device SGD step; the two
 windows' times at rm1's 1/4 shard beside their bounds, plain versions and
 ``index_add_`` yardsticks; each path's step times in phase 11's two arms
 (its programs, replayed CUDA graphs on a mesh of one card, and its step
-function called eagerly, held together as there); and ``dedup=True``
-against ``False`` for rm1's and rm2's single-device sparse steps (each
-step's K5 then, on an eager step, against its plain version), with the
-sort and segment sum alone.
+function called eagerly, held together as there; rm1 with bf16 params on
+1x4 and 2x2 too, K5's bf16 window inside the graph, its launches on an
+eager step against its plain version, and over several cards); K5's bf16
+window captured alone and replayed against its plain version, its replay
+span timed; and ``dedup=True`` against ``False`` for rm1's and rm2's
+single-device sparse steps (each step's K5 then, on an eager step,
+against its plain version), with the sort and segment sum alone.
 
 Then a mesh across processes (phase 18, after phase 17): two spawned
 processes share the card over gloo (NCCL refuses two ranks on one card),
@@ -169,7 +172,14 @@ single-process mesh trainer's; every launch of K1's, K1b's and K5's
 windows in the children against its plain version, the children's
 launches counted in the kernels line, and the walls of ten forwards and
 steps by CUDA events in each child (two processes on one card, the
-collectives through the host: they show no scaling).
+collectives through the host: they show no scaling). With two cards or
+more, processes of a card each over nccl (two on 1x2, four on 2x2 and
+1x4): rm1's dense, sparse and bf16 sparse steps, each trainer built
+eager (its graphs replay slower, ``train_programs.NCCL_SLOWER``) and then
+made to take its programs, a CUDA graph a process holding its
+collectives, against the step function called eagerly, with the walls of
+both timed in turns, the collectives a step and the graphs' captures and
+pools; with fewer cards a line says the part did not run.
 
 Then the port's tools (phase 19, last), each run briefly from its
 ``main(argv)`` (``deeprecsys_tpu_torch/tools/``) and read back from its
@@ -228,6 +238,7 @@ from deeprecsys_tpu_torch.engine_bench import engine_arm
 from deeprecsys_tpu_torch.experiments.skew_bench import _hot_set, measure_skewed, zipf_stream
 from deeprecsys_tpu_torch.experiments.skew_bench import line as skew_line
 from deeprecsys_tpu_torch.experiments import op_breakdown, qps_sweep, train_quality
+from deeprecsys_tpu_torch.experiments.nccl_step_probe import turn_walls
 from deeprecsys_tpu_torch.experiments import sweep as sweep_mod
 from deeprecsys_tpu_torch.kernel_bench import (
     HBM_BYTES_PER_S, cold_starts_bound, direct_call, g_rows, hotcold_calls, hotcold_inputs,
@@ -260,6 +271,7 @@ from deeprecsys_tpu_torch.ops.embedding import (
     rowwise_tolerance, scatter_counts, table_range, window_ids)
 from deeprecsys_tpu_torch.ops.rnn import KERNEL_HIDDEN, rnn_scan_tolerance
 from deeprecsys_tpu_torch.ops.sparse_adagrad import sparse_adagrad_tolerance
+from deeprecsys_tpu_torch.train_programs import NCCL_SLOWER
 from deeprecsys_tpu_torch.parallel import (
     distributed_init, make_mesh, make_train_step, shard_params, sharded_apply)
 from deeprecsys_tpu_torch.parallel.sharding import leaf_copies, leaf_groups
@@ -449,6 +461,14 @@ GRAPH_PARAM_ATOL = 1e-6
 GRAPH_ADAM_REACH = 0.02
 GRAPH_SPARSE_REACH = 1e-3
 GRAPH_ACC_RTOL = 1e-4
+# A bf16 table's sparse mesh step (phase 17's "sparse bf16" paths, phase
+# 18's over nccl): K5's bf16 window sums a row's updates in f32 in the order
+# its atomic adds take, then rounds the row once, so a bf16 value may land a
+# bf16 ulp from the other arm's. bf16 params are held within
+# GRAPH_BF16_RTOL of each value (two bf16 ulps) beside the atols above, the
+# losses within GRAPH_BF16_LOSS_RTOL.
+GRAPH_BF16_RTOL = 2.0 ** -7
+GRAPH_BF16_LOSS_RTOL = 1e-3
 # The spin a graphed step's device span is queued behind (GPU cycles, ~1 ms
 # on an H100): longer than the host's work to queue a step.
 GRAPH_SPIN_CYCLES = 2_000_000
@@ -538,7 +558,8 @@ MESH_G_RTOL = 1e-5  # the mesh's pooled gradients against one device's, of their
 MESH_TRAIN_LR = 0.1
 MESH_TIMED_RUNS = (("rm1", "dense", (1, 4)), ("rm1", "dense", (2, 2)), ("rm1", "sparse", (1, 4)),
                    ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (4, 1)), ("rm1", "dedup", (2, 2)),
-                   ("rm1", "make_train_step", (2, 2)), ("dien", "sparse", (1, 4)))
+                   ("rm1", "make_train_step", (2, 2)), ("dien", "sparse", (1, 4)),
+                   ("rm1", "sparse bf16", (1, 4)), ("rm1", "sparse bf16", (2, 2)))
 # Phase 17's part over several cards (two cards or more): the paths (model,
 # mode, mesh of distinct cards) in three arms from the same weights on the
 # same batches, graphed over the cards, eager over the cards, graphed on card
@@ -549,7 +570,8 @@ MESH_TIMED_RUNS = (("rm1", "dense", (1, 4)), ("rm1", "dense", (2, 2)), ("rm1", "
 MESH_TRAIN_CARDS = (("rm1", "dense", (2, 2)), ("rm1", "dense", (1, 4)), ("rm1", "dense", (1, 2)),
                     ("rm1", "sparse", (2, 2)), ("rm1", "sparse", (1, 4)),
                     ("rm1", "sparse", (1, 2)), ("rm1", "dedup", (2, 2)),
-                    ("dien", "sparse", (1, 4)), ("rm1", "make_train_step", (2, 2)))
+                    ("dien", "sparse", (1, 4)), ("rm1", "make_train_step", (2, 2)),
+                    ("rm1", "sparse bf16", (2, 2)), ("rm1", "sparse bf16", (1, 4)))
 DRYRUN_STEPS = 4
 DRYRUN_CFG = dict(model_type="dlrm", model_name="dryrun", mlp_bot=(16, 8), mlp_top=(16, 8, 1),
                   embedding_rows=(64, 64, 32, 32), sparse_feature_size=8,
@@ -592,6 +614,19 @@ DIST_LAYOUT_PATHS = (("table-wise", 1, 4), ("hot/cold tensor-parallel", 1, 4),
                      ("hot/cold hybrid", 2, 2))
 DIST_KERNEL_ITERS = 20  # each route's kernel timed at its first cell's shapes
 DIST_LABEL = "two processes on one card, collectives through the host over gloo: no scaling shown"
+# Phase 18's part over nccl (two cards or more): DIST_NCCL_PATHS by the
+# number of processes, each on a card of its own; rm1 at full size, f32 and
+# with bf16 params (DIST_NCCL_MODES), batch TRAIN_BATCH, GRAPH_STEPS steps in
+# two arms (the trainer's programs: a CUDA graph a process that holds its
+# NCCL collectives; the step function called eagerly) held together by the
+# GRAPH_* limits, then timed in turns (graphed, eager, eager, graphed),
+# DIST_NCCL_TIMED steps a turn, the processes meeting at a barrier before
+# each turn, the loss read back each step. The children report within
+# DIST_NCCL_WAIT_S, else every one is killed.
+DIST_NCCL_PATHS = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+DIST_NCCL_MODES = ("dense", "sparse", "sparse bf16")
+DIST_NCCL_TIMED = 10
+DIST_NCCL_WAIT_S = 600
 # Phase 19, the port's tools on the card, each from its main(argv) and
 # read back from its record: the two soaks for TOOL_SOAK_MINUTES, sampled
 # every TOOL_SAMPLE_S (the cpu-mp soak's one exhaustion cycle at its first
@@ -3076,20 +3111,25 @@ def check_graph_agreement(what: str, losses_g: list, losses_e: list, params_g, p
     run): the losses within GRAPH_LOSS_RTOL, each param within GRAPH_PARAM_RTOL
     and its atol (GRAPH_PARAM_ATOL; adam GRAPH_ADAM_REACH of the steps' reach,
     a sparse table GRAPH_SPARSE_REACH of it), each row accumulator within
-    GRAPH_ACC_RTOL of its largest value. Returns the worst loss error and
-    the worst param error as a share of its limit."""
+    GRAPH_ACC_RTOL of its largest value. Where the params are bf16 (a bf16
+    table's sparse step) the rtol is GRAPH_BF16_RTOL and the losses'
+    GRAPH_BF16_LOSS_RTOL. Returns the worst loss error and the worst param
+    error as a share of its limit."""
+    bf16 = any(b.dtype == torch.bfloat16 for _, _, b in _param_pairs(params_g, params_e))
+    loss_rtol = GRAPH_BF16_LOSS_RTOL if bf16 else GRAPH_LOSS_RTOL
     loss_rel = float(np.max(np.abs(np.asarray(losses_g) - losses_e) / np.abs(losses_e)))
-    if not (np.all(np.isfinite(losses_g)) and loss_rel <= GRAPH_LOSS_RTOL):
+    if not (np.all(np.isfinite(losses_g)) and loss_rel <= loss_rtol):
         raise AssertionError(f"{what}: graphed losses {losses_g} against the eager {losses_e} "
-                             f"(max relative error {loss_rel:.2e} > {GRAPH_LOSS_RTOL:.0e})")
+                             f"(max relative error {loss_rel:.2e} > {loss_rtol:.0e})")
     reach = steps * GRAPH_LR[opt]
     share, worst = 0.0, 0.0
     for key, a, b in _param_pairs(params_g, params_e):
         atol = (GRAPH_ADAM_REACH * reach if opt == "adam" else
                 GRAPH_SPARSE_REACH * reach if sparse and key == "tables" else GRAPH_PARAM_ATOL)
+        rtol = GRAPH_BF16_RTOL if b.dtype == torch.bfloat16 else GRAPH_PARAM_RTOL
         diff = (a.float() - b.float()).abs_()
         worst = max(worst, diff.max().item())
-        share = max(share, diff.div_(b.float().abs().mul_(GRAPH_PARAM_RTOL).add_(atol)).max().item())
+        share = max(share, diff.div_(b.float().abs().mul_(rtol).add_(atol)).max().item())
         del diff
     for a, b in accs:
         lim = GRAPH_ACC_RTOL * b.max().item()
@@ -3097,7 +3137,8 @@ def check_graph_agreement(what: str, losses_g: list, losses_e: list, params_g, p
     if not share <= 1.0:
         raise AssertionError(f"{what}: graphed params differ from the eager ones past their "
                              f"limits ({share:.3f} of the limit, max |diff| {worst:.3e})")
-    return {"loss_rel": loss_rel, "param_share": share, "param_max_diff": worst}
+    return {"loss_rel": loss_rel, "param_share": share, "param_max_diff": worst,
+            "loss_rtol": loss_rtol}
 
 
 def _arm(m: dict) -> dict:
@@ -3156,7 +3197,7 @@ def graph_arms(device, what: str, graphed, eager, args: list, programs, opt: str
     g["queued_ms"] = wall_ms(graphed, args, timed) if on_card else None
     pool = programs.pool_bytes()
     _log(f"[{label}] {what}: graphed and eager arms agree over {len(args)} steps (losses max "
-         f"relative {agree['loss_rel']:.2e}, limit {GRAPH_LOSS_RTOL:.0e}; params "
+         f"relative {agree['loss_rel']:.2e}, limit {agree['loss_rtol']:.0e}; params "
          f"{agree['param_share']:.3f} of their limits, max |diff| {agree['param_max_diff']:.3e}); "
          f"graphed {_arm_text(g)}, device span {_us(g['span_ms'])}, a step without reading "
          f"the loss back {_us(g['queued_ms'])}; eager {_arm_text(e)}; "
@@ -5531,6 +5572,12 @@ def _dense_parity(single_call, mesh_calls, table_s, table_of, state_s, state_of,
     return worst
 
 
+def _train_cfg(name: str, mode: str) -> ModelConfig:
+    """``name`` at TABLE_SCALE, with bf16 params for a "sparse bf16" path."""
+    bf16 = dict(param_dtype="bfloat16") if mode == "sparse bf16" else {}
+    return zoo.get_config(name, table_scale=TABLE_SCALE, **bf16)
+
+
 def _mesh_want(mode: str, dien: bool, D: int, M: int, steps: int) -> dict:
     """A path's launches on a mesh of one card: K1's window D*M a step, K1b's
     window D*M a dense step or K5's window M a sparse step (one a shard, on
@@ -5656,11 +5703,15 @@ def mesh_train_time(device, name: str, mode: str, axes, card: str,
     time, captures, capture ms, pool bytes and peak device memory (both
     arms' state). ``axes`` None: one device; ``mode`` "make_train_step":
     ``make_train_step``'s SGD step (its programs, and the dense step it
-    wraps, called eagerly) in place of trainers'. With ``errs`` (a sparse
-    trainer on one device) one more eager step holds its K5 launch to the
-    plain version (``_check_k5``), merged into ``errs["sparse_adagrad_step"]``.
-    Returns the result and the graphed arm's launches."""
-    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    wraps, called eagerly) in place of trainers'; "sparse bf16": the sparse
+    step with bf16 params (K5's bf16 window inside the graph). With
+    ``errs`` (a sparse trainer) one more eager step holds its K5 launches to
+    the plain version (``_check_k5``), merged into
+    ``errs["sparse_adagrad_step"]`` on one device and, on a mesh, into
+    ``errs["sparse_adagrad_step_shard"]`` (a bf16 shard's also into
+    ``errs["sparse_adagrad_step_shard bf16"]``). Returns the result and the
+    graphed arm's launches."""
+    cfg = _train_cfg(name, mode)
     _free(device)
     _reset_peak(device)
     mesh = None if axes is None else _cuda_mesh(device, *axes)
@@ -5711,20 +5762,26 @@ def mesh_train_time(device, name: str, mode: str, axes, card: str,
         want = (_train_want(name, sparse, GRAPH_STEPS) if mesh is None
                 else _mesh_want(mode, dien, *axes, GRAPH_STEPS))
     del start
-    res, counts = graph_arms(device, f"{name} {mode} on {where}, batch {TRAIN_BATCH} f32",
+    dtype = "bf16 params" if mode == "sparse bf16" else "f32"
+    res, counts = graph_arms(device, f"{name} {mode} on {where}, batch {TRAIN_BATCH} {dtype}",
                              graphed, eager, args, programs, opt, sparse, params, accs, want,
                              TRAIN_TIMED, "17 mesh train", card)
     peak = _peak_gib(device)
     if errs is not None:
-        with _recorded(port_train, "sparse_adagrad_step", _k5_pre) as calls:
+        key = "sparse_adagrad_step" if mesh is None else "sparse_adagrad_step_shard"
+        with _recorded(port_train, key, _k5_pre) as calls:
             eager(*args[0])
-        _merge(errs, "sparse_adagrad_step", _check_k5(calls, f"{name} {mode} one device", False))
+        err = _check_k5(calls, f"{name} {mode} {where}", mesh is not None)
+        _merge(errs, key, err)
+        if mode == "sparse bf16":
+            _merge(errs, f"{key} bf16", err)
         del calls
     _log(f"[17 mesh train] {name} {mode} on {where}: graphed arm's device time by kernel: "
          f"{_top({'us_by_kernel': res['graphed']['by_kernel']}, 6)}; peak of both arms "
          f"{peak:.3f} GiB [{card}]")
     _free(device)
-    return {**res, "name": f"{name} {mode} {where}", "peak_gib": peak}, counts
+    return {**res, "name": f"{name} {mode} {where}", "peak_gib": peak,
+            "k5_window_launches": counts["sparse_adagrad_step_shard"]}, counts
 
 
 def mesh_dryrun(device, card: str, errs: dict) -> tuple[dict, dict]:
@@ -5902,8 +5959,82 @@ def mesh_window_times(device, card: str) -> dict:
              f"kernel: {t['by_kernel']} [{card}]")
     _log(f"[17 mesh train times] K5's window, its two launches' medians summed: "
          f"{_us(out['sparse_adagrad_step_shard']['launch_sum_ms'])} [{card}]")
-    del shard, acc, prepared
+    del shard, acc
     _free(device)
+    out["sparse_adagrad_step_shard bf16"] = k5_bf16_window_graphed(
+        device, offsets, list(zip(gs, ids)), prepared, lo, rps, d, card)
+    del prepared
+    _free(device)
+    return out
+
+
+def k5_bf16_window_graphed(device, offsets, args: list, prepared: list, lo: int, rps: int,
+                           d: int, card: str) -> dict:
+    """K5's window on a bf16 shard (rm1's shard 1 of 4, f32 gradients) as
+    the graphed steps run it: captured once (``serving.programs.capture``:
+    the call's own scratch in the graph's pool, its count and keys set by
+    memsets inside the graph) over static ids and gradients, then, for each
+    of ``args``' batches copied into them, a replay held to the plain
+    version within ``sparse_adagrad_tolerance``. Timed: the replay's
+    span (``span_ms``), the eager call's span, each launch's median summed,
+    the plain version (plain, kernel, kernel, plain), ``k5w_library_bf16``
+    on the owned slots' rows prepared beforehand, and the bound. Returns
+    the times, the bound and the max |err|."""
+    from deeprecsys_tpu_torch.kernel_bench import k5w_library_bf16
+    from deeprecsys_tpu_torch.serving.programs import capture
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    shard = ((torch.rand((rps, d), generator=gen, device=device) - 0.5) * 0.1).to(torch.bfloat16)
+    acc = torch.zeros((rps,), dtype=torch.float32, device=device)
+    g_in, ids_in = args[0][0].clone(), args[0][1].clone()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        sparse_adagrad_step_shard(shard, acc, offsets, ids_in, g_in, lo, 0.1)  # builds, warms
+        graph, _, tally, _ = capture(
+            lambda: sparse_adagrad_step_shard(shard, acc, offsets, ids_in, g_in, lo, 0.1),
+            torch.cuda.graph_pool_handle(), stream)
+    stream.synchronize()
+    worst = 0.0
+    for g, i in args:
+        g_in.copy_(g)
+        ids_in.copy_(i)
+        t0, a0 = shard.clone(), acc.clone()
+        torch.cuda.synchronize(device)
+        graph.replay()  # on the current stream, after the copies
+        torch.cuda.synchronize(device)
+        want_t, want_a = _k5_ref(t0, a0, offsets, i, g, 0.1, 1e-8, (lo, lo + rps))
+        tol, acc_tol = sparse_adagrad_tolerance(t0, a0, offsets, i, g, 0.1, window=(lo, lo + rps))
+        err, acc_err = (shard.float() - want_t.float()).abs(), (acc - want_a).abs()
+        if not (bool((err <= tol).all()) and bool((acc_err <= acc_tol).all())):
+            raise AssertionError(f"K5's bf16 window replayed in a graph disagrees with its plain "
+                                 f"version: max |err| table {err.max().item():.3e}, acc "
+                                 f"{acc_err.max().item():.3e}")
+        worst = max(worst, err.max().item(), acc_err.max().item())
+        del t0, a0, want_t, want_a, tol, acc_tol, err, acc_err
+    if tally != {sparse_adagrad_step_shard: 1}:
+        raise AssertionError(f"K5's bf16 window's capture recorded {tally}")
+
+    def k5(g, i):
+        sparse_adagrad_step_shard(shard, acc, offsets, i, g, lo, 0.1)
+
+    runs = _time_runs(
+        k5, lambda g, i: sparse_adagrad_step_reference(shard, acc, offsets, i, g, 0.1,
+                                                       window=(lo, lo + rps)),
+        k5w_library_bf16(shard, acc, 0.1), args,
+        [(*pr, *torch.unique(pr[2], return_inverse=True)) for pr in prepared], TIMED_ITERS)
+    t = _timed(runs, "launch_sum_ms")
+    out = {**t, **k5_window_bound(shard, args[0][0], offsets, args[0][1], lo),
+           "launch_sum_ms": t["ms"], "eager_ms": span_ms(k5, args, TIMED_ITERS),
+           "ms": span_ms(lambda g, i: graph.replay(), args, TIMED_ITERS), "max_abs_err": worst}
+    _log(f"[17 mesh train times] K5's window on a bf16 shard, rm1's shard 1 of {MESH_SHARDS} "
+         f"(B={TRAIN_BATCH} T=8 L=80 d={d}, f32 g), replayed in a CUDA graph over "
+         f"{len(args)} batches: max |err| against the plain version {worst:.3e} (within "
+         f"sparse_adagrad_tolerance); replay span "
+         f"{_us(out['ms'])}, eager span {_us(out['eager_ms'])}, launches' medians summed "
+         f"{_us(out['launch_sum_ms'])}; bound {_us(out['bound_ms'])} ({out['bound_by']}); plain "
+         f"{_us(out['plain_ms'])}; k5w_library_bf16 {_us(out['library_ms'])} [{card}]")
+    del graph, shard, acc
     return out
 
 
@@ -6023,9 +6154,11 @@ def mesh_train_cards_path(device, cards: list, name: str, mode: str, D: int, M: 
     (dense), K5's window once a shard on its entry (0, m)'s card (sparse).
     The one-card arm's losses agree with the graphed arm's within
     GRAPH_LOSS_RTOL. Then each arm's step is timed over TRAIN_TIMED steps
-    (``_measure_cards``). Returns the result and the graphed arm's
+    (``_measure_cards``). "sparse bf16": the sparse step with bf16 params
+    (K5's bf16 window inside its card's graph), the one-card arm's losses
+    within GRAPH_BF16_LOSS_RTOL. Returns the result and the graphed arm's
     launches."""
-    cfg = zoo.get_config(name, table_scale=TABLE_SCALE)
+    cfg = _train_cfg(name, mode)
     over = cards[:D * M]
     for c in over:
         _reset_peak(c)
@@ -6125,7 +6258,7 @@ def mesh_train_cards_path(device, cards: list, name: str, mode: str, D: int, M: 
                                   GRAPH_STEPS, accs())
     losses_v = [float(arms["one card"](*a)) for a in args]
     rel_v = float(np.max(np.abs(np.asarray(losses_v) - losses_g) / np.abs(losses_g)))
-    if not rel_v <= GRAPH_LOSS_RTOL:
+    if not rel_v <= agree["loss_rtol"]:
         raise AssertionError(f"{what}: one card's losses {losses_v} against the graphed "
                              f"arm's {losses_g} (max relative error {rel_v:.2e})")
     times = {arm: _measure_cards(fn, args, TRAIN_TIMED, over if arm != "one card" else [device])
@@ -6134,9 +6267,10 @@ def mesh_train_cards_path(device, cards: list, name: str, mode: str, D: int, M: 
              for arm, p in programs.items()}
     peak = max(_peak_gib(c) for c in over)
     parts = len(prog.stages)
-    _log(f"[17 mesh train cards] {what} (f32, batch {TRAIN_BATCH}): graphed and eager arms "
+    dtype = "bf16 params" if mode == "sparse bf16" else "f32"
+    _log(f"[17 mesh train cards] {what} ({dtype}, batch {TRAIN_BATCH}): graphed and eager arms "
          f"agree over {GRAPH_STEPS} steps (losses max relative {agree['loss_rel']:.2e}, limit "
-         f"{GRAPH_LOSS_RTOL:.0e}; params {agree['param_share']:.3f} of their limits, max |diff| "
+         f"{agree['loss_rtol']:.0e}; params {agree['param_share']:.3f} of their limits, max |diff| "
          f"{agree['param_max_diff']:.3e}); one card's virtual shards' losses max relative "
          f"{rel_v:.2e}; launches a step by card {tally} in both arms, none from Python over the "
          f"replays; {per} [{card}]")
@@ -6157,7 +6291,7 @@ def mesh_train_cards_path(device, cards: list, name: str, mode: str, D: int, M: 
          f"{parts} parts; peak over the cards {peak:.3f} GiB [{card}]")
     return {"name": what, "times": times, **agree, "one_card_rel": rel_v, "parts": parts,
             "launches_by_card": tally, "capture_ms": progs.capture_ms, "pool_mib": pools,
-            "peak_gib": peak}, counts_g
+            "peak_gib": peak, "k5_window_launches": counts_g["sparse_adagrad_step_shard"]}, counts_g
 
 
 def mesh_train_cards(device, card: str) -> tuple[dict, dict]:
@@ -6219,13 +6353,16 @@ def phase_mesh_train(device, card: str) -> tuple[dict, dict]:
     k1b_window_cases(device, errs)
     out["times"] = mesh_window_times(device, card)
     for name, mode, axes in MESH_TIMED_RUNS:
-        res, counts = mesh_train_time(device, name, mode, axes, card)
+        res, counts = mesh_train_time(device, name, mode, axes, card,
+                                      errs if mode == "sparse bf16" else None)
         out["steps"].append(res)
         _add(launches, counts)
     out["dedup"], counts = dedup_times(device, card, errs)
     _add(launches, counts)
     out["cards"], counts = mesh_train_cards(device, card)
     _add(launches, counts)
+    out["bf16_launches"] = sum(r["k5_window_launches"] for r in
+                               [*out["steps"], *out["cards"].values()] if "bf16" in r["name"])
     out["errs"] = errs
     _log(f"[17 mesh train] phase 17 in {time.perf_counter() - t0:.1f} s")
     return out, launches
@@ -6609,6 +6746,208 @@ def phase_dist(device, card: str) -> tuple[dict, dict]:
          f"|err| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}); launches "
          f"{_nonzero(launches)}; phase 18 in {time.perf_counter() - t0:.1f} s [{card}]")
     return {"results": results, "want": want, "errs": errs}, launches
+
+
+def _nccl_path(device, mesh, mode: str, table_scale: int, errs: dict) -> tuple[dict, dict]:
+    """One path of phase 18's nccl part in this child: rm1 ("dense",
+    "sparse" or "sparse bf16": bf16 params) adagrad on ``mesh``, whose
+    entries here are this process's one card, in two arms from the same
+    weights on the same batches: the trainer's programs, which it is built
+    without (``NCCL_SLOWER``) and takes here (``take_programs``: the first
+    step eager, then a graph of the step with its NCCL collectives,
+    replayed), and its step function called eagerly. The arms agree within the GRAPH_*
+    limits (``check_graph_agreement``) and make this process's launches
+    (K1's window once a local entry a step, K1b's too on a dense step, K5's
+    once a shard whose entry (0, m) is here, K10 once); no kernel wrapper is
+    called from Python over the replays. One more eager step holds K5's
+    window to its plain version (sparse). Then the arms timed in turns
+    (``nccl_step_probe.turn_walls``: graphed, eager, eager, graphed,
+    DIST_NCCL_TIMED steps a turn, every process entering each turn at a
+    barrier; the median step, its loss read back), and the collective calls
+    of an eager step. Returns the results and the graphed arm's launches."""
+    import torch.distributed as dist
+
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    sparse, bf16 = mode != "dense", mode == "sparse bf16"
+    cfg = zoo.get_config("rm1", table_scale=table_scale,
+                         **(dict(param_dtype="bfloat16") if bf16 else {}))
+    start = get_model(cfg, device).init(torch.Generator(device=device).manual_seed(0))
+    n = len(mesh.all_ranks)
+    what = f"rm1 {mode} {D}x{M} across {n} processes over nccl, a card each"
+    kw = dict(optimizer="adagrad", learning_rate=GRAPH_LR["adagrad"], sparse_tables=sparse,
+              params=start)
+    tr, ev = (port_train.Trainer(cfg, mesh=mesh, **kw) for _ in range(2))
+    del start
+    if tr.eager_reason != NCCL_SLOWER or tr.step_program is not None:
+        raise AssertionError(f"{what}: built with eager reason {tr.eager_reason!r}, not the "
+                             "nccl replays' measured slowdown")
+    tr.take_programs()  # its graphs, to hold them to the eager step and time both
+    if tr.eager_reason is not None or tr.step_program is None or tr.step_program.cut is not None:
+        raise AssertionError(f"{what}: the trainer takes no program of one graph "
+                             f"({tr.eager_reason})")
+    gen = RecDataGenerator(cfg, seed=1)
+    args = [(h, tr._labels(h, None)) for h in
+            (gen.generate_batch(TRAIN_BATCH) for _ in range(GRAPH_STEPS))]
+
+    def graphed(h, lab):
+        return tr.step(h, lab)
+
+    def eager(h, lab):
+        return ev._step(ev.params, ev.opt_state, h.to(device), ev._targets(lab))
+
+    local = sum(mesh.is_local(d, m) for d in range(D) for m in range(M))
+    owners = [m for m in range(M) if mesh.is_local(0, m)]
+    want = _want(embedding_bag_shard=local * GRAPH_STEPS,
+                 embedding_bag_backward_shard=0 if sparse else local * GRAPH_STEPS,
+                 sparse_adagrad_step_shard=len(owners) * GRAPH_STEPS if sparse else 0,
+                 optimizer_update=GRAPH_STEPS)
+    _reset_counts()
+    with _PythonLaunches() as py:
+        losses_g = [float(graphed(*args[0]))]
+        first = py.n
+        losses_g += [float(graphed(*a)) for a in args[1:]]
+    synchronize(device)
+    counts_g = _counts()
+    _reset_counts()
+    with _collectives() as coll:
+        losses_e = [float(eager(*a)) for a in args]
+    synchronize(device)
+    counts_e = _counts()
+    progs = tr.step_program
+    if counts_g != want or counts_e != want or py.n != first or progs.captures != 1:
+        raise AssertionError(f"{what}: launches graphed {_nonzero(counts_g)}, eager "
+                             f"{_nonzero(counts_e)}, expected {_nonzero(want)}; "
+                             f"{py.n - first} from Python over the replays; "
+                             f"{progs.captures} captures")
+    accs = ([(tr.opt_state[1].part(0, m), ev.opt_state[1].part(0, m)) for m in owners]
+            if sparse else ())
+    agree = check_graph_agreement(what, losses_g, losses_e, tr.params, ev.params, "adagrad",
+                                  sparse, GRAPH_STEPS, accs)
+    if sparse:
+        with _recorded(port_train, "sparse_adagrad_step_shard", _k5_pre) as calls:
+            eager(*args[0])
+        err = _check_k5(calls, what, True)
+        _merge(errs, "sparse_adagrad_step_shard", err)
+        if bf16:
+            _merge(errs, "sparse_adagrad_step_shard bf16", err)
+        del calls
+    turns = turn_walls({"graphed": graphed, "eager": eager}, args, DIST_NCCL_TIMED,
+                       lambda: dist.barrier(device_ids=[device.index]), device)
+    walls = {arm: t["median_ms"] for arm, t in turns.items()}
+    pool = progs.pool_bytes()
+    res = {"losses": losses_g, "eager_losses": losses_e, **agree, "wall_ms": walls,
+           "collectives": coll[0] / GRAPH_STEPS, "captures": progs.captures,
+           "capture_ms": progs.capture_ms, "pool_mib": pool / 2**20,
+           "launches": _nonzero({k: v // GRAPH_STEPS for k, v in counts_g.items()}),
+           "k5_window_launches": counts_g["sparse_adagrad_step_shard"]}
+    del tr, ev
+    _free(device)
+    return res, counts_g
+
+
+def nccl_child(rank: int, n_procs: int, paths: tuple, port: int, table_scale: int, q):
+    """One of ``n_procs`` processes of phase 18's nccl part (spawned), on
+    card ``rank``: joins the group over nccl, runs ``_nccl_path`` for each
+    mesh of ``paths`` and mode of DIST_NCCL_MODES, and puts ``(rank, "ok",
+    results)`` (or ``"error"`` with the traceback; the parent then kills
+    every child, so none waits in a collective for a process that failed)."""
+    import torch.distributed as dist
+
+    try:
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        distributed_init(f"127.0.0.1:{port}", num_processes=n_procs, process_id=rank,
+                         backend="nccl")
+        errs, launches, out = {}, _want(), {}
+        for D, M in paths:
+            mesh = make_mesh(D, M, devices=[device])
+            for mode in DIST_NCCL_MODES:
+                res, counts = _nccl_path(device, mesh, mode, table_scale, errs)
+                out[f"rm1 {mode} {D}x{M}"] = res
+                _add(launches, counts)
+        q.put((rank, "ok", {"paths": out, "errs": errs, "launches": launches}))
+    except Exception:  # the parent raises it
+        q.put((rank, "error", traceback.format_exc()[-4000:]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_dist_nccl(device, card: str) -> tuple[dict, dict, dict]:
+    """Phase 18's part over nccl: for each number of processes in
+    DIST_NCCL_PATHS that the machine's cards hold, that many spawned
+    children, each on a card of its own (``nccl_child``), every path's
+    graphed steps held to its eager steps there; here every child's losses
+    must be the same, and one line a path gives the walls of both arms by
+    process, the losses apart, the collectives a step, the captures,
+    capture ms and graph pool. With fewer cards a line says the part did
+    not run. Returns the results, the children's launches and their
+    kernels' max |err|."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    out, launches, errs = {}, _want(), {}
+    _free(device)
+    for n_procs, paths in DIST_NCCL_PATHS.items():
+        if n < n_procs:
+            _log(f"[18 processes nccl] {n_procs} processes of a card each need {n_procs} cards; "
+                 f"this machine has {n}: not run [{card}]")
+            continue
+        t0 = time.perf_counter()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=nccl_child, args=(r, n_procs, paths, port, TABLE_SCALE, q))
+                 for r in range(n_procs)]
+        for proc in procs:
+            proc.start()
+        results = {}
+        try:
+            deadline = time.monotonic() + DIST_NCCL_WAIT_S
+            for _ in procs:
+                rank, status, detail = q.get(timeout=max(1.0, deadline - time.monotonic()))
+                if status != "ok":
+                    raise AssertionError(f"phase 18 nccl process {rank} of {n_procs} "
+                                         f"failed:\n{detail}")
+                results[rank] = detail
+        finally:
+            failed = len(results) < n_procs
+            for proc in procs:
+                if failed:
+                    proc.kill()
+                proc.join(timeout=30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(timeout=10)
+        for rank, res in sorted(results.items()):
+            _add(launches, res["launches"])
+            for key, err in res["errs"].items():
+                _merge(errs, key, err)
+        for key in results[0]["paths"]:
+            rs = [results[r]["paths"][key] for r in sorted(results)]
+            if any(r["losses"] != rs[0]["losses"] for r in rs):
+                raise AssertionError(f"phase 18 nccl {key}: the processes' losses differ: "
+                                     f"{[r['losses'] for r in rs]}")
+            out[key] = rs
+
+            def by(get, fmt):
+                return ", ".join(format(get(r), fmt) for r in rs)
+
+            _log(f"[18 processes nccl] {key} across {n_procs} processes, a card each, batch "
+                 f"{TRAIN_BATCH}: graphed and eager agree over {GRAPH_STEPS} steps (losses max "
+                 f"relative {max(r['loss_rel'] for r in rs):.2e}, limit "
+                 f"{rs[0]['loss_rtol']:.0e}; params {max(r['param_share'] for r in rs):.3f} of "
+                 f"their limits), every process's losses equal; median ms a step by process "
+                 f"in turns, loss read back: graphed {by(lambda r: r['wall_ms']['graphed'], '.4f')}, eager "
+                 f"{by(lambda r: r['wall_ms']['eager'], '.4f')}; "
+                 f"{by(lambda r: r['collectives'], '.1f')} collective calls an eager step; "
+                 f"{by(lambda r: r['captures'], 'd')} captures, capture ms "
+                 f"{by(lambda r: r['capture_ms'], '.1f')}, graph pool MiB "
+                 f"{by(lambda r: r['pool_mib'], '.1f')}; launches a step on process 0 "
+                 f"{rs[0]['launches']} [{card}]")
+        _log(f"[18 processes nccl] {n_procs} processes in {time.perf_counter() - t0:.1f} s "
+             f"[{card}]")
+    return out, launches, errs
 
 
 # --------------------------------------------------- phase 19: the port's tools
@@ -7003,8 +7342,23 @@ def main() -> int:
     mesh["errs"]["embedding_bag_shard"] = max(mesh["errs"]["embedding_bag_shard"],
                                               mesh_train["errs"]["embedding_bag_shard"])
 
-    # Phase 18: a mesh across processes, read around itself in its children.
+    # Phase 18: a mesh across processes, read around itself in its children;
+    # its part over nccl (two cards or more) too.
     dist_res, dist_launches = phase_dist(device, card["card"])
+    dist_res["nccl"], nccl_launches, nccl_errs = phase_dist_nccl(device, card["card"])
+    _add(dist_launches, nccl_launches)
+    for key, err in nccl_errs.items():
+        _merge(dist_res["errs"], key, err)
+    # K5's window on a bf16 shard, on the main paths: phase 17's bf16 steps
+    # (the graphed arms, one card and over cards) and phase 18's over nccl.
+    bf16_launches = mesh_train["bf16_launches"] + sum(
+        r["k5_window_launches"] for key, rs in dist_res["nccl"].items() if "bf16" in key
+        for r in rs)
+    if bf16_launches == 0:
+        raise AssertionError("the bf16 sparse mesh paths never launched K5's bf16 window")
+    bf16_err = max(mesh_train["errs"].get("sparse_adagrad_step_shard bf16", 0.0),
+                   dist_res["errs"].get("sparse_adagrad_step_shard bf16", 0.0),
+                   mesh_train["times"]["sparse_adagrad_step_shard bf16"]["max_abs_err"])
     for key in ("embedding_bag_shard", "embedding_bag_backward_shard",
                 "sparse_adagrad_step_shard", *(SHARD[q] for q in QUANT_MODES),
                 *LOOKUP.values(), *HOTCOLD_SHARD.values()):
@@ -7183,6 +7537,14 @@ def main() -> int:
          + "; ".join(f"{m} " + ", ".join(f"{r['train'][m]['wall_ms']:.4f}" for r in procs)
                      for m in procs[0]["train"])
          + f" [{card['card']}]")
+    _log(f"[10 summary] processes of a card each over nccl, rm1 full size, batch {TRAIN_BATCH}, "
+         "adagrad: path: graphed / eager wall ms a step by process (loss read back), "
+         "collectives an eager step, graph pool MiB" + ("" if dist_res["nccl"] else ": not run"))
+    for key, rs in dist_res["nccl"].items():
+        _log(f"[10 summary]   {key}: "
+             + ", ".join(f"{r['wall_ms']['graphed']:.4f}" for r in rs) + " / "
+             + ", ".join(f"{r['wall_ms']['eager']:.4f}" for r in rs)
+             + f", {rs[0]['collectives']:.1f}, {rs[0]['pool_mib']:.1f} [{card['card']}]")
     soak, ragged, sim = tools["cpu_mp_soak"], tools["ragged_hotcold_soak"], tools["sim_revalidate"]
     sv, scan = sim["results"]["rm1"], tools["refresh_scan_cost"]["results"]["rm1"]
     _log(f"[10 summary] the tools: cpu_mp_soak --accel {soak['minutes']} min {soak['predict_ok']} "
@@ -7226,6 +7588,11 @@ def main() -> int:
         {"name": key, "route": "cuda", **KERNELS[key], "launches": launches[key],
          "max_abs_err": mesh_train["errs"][key], **{k: mesh_train["times"][key][k] for k in timed}}
         for key in ("embedding_bag_backward_shard", "sparse_adagrad_step_shard")] + [
+        # K5's window on a bf16 shard, timed as the graphed steps replay it.
+        {"name": "sparse_adagrad_step_shard on a bf16 shard", "route": "cuda",
+         **KERNELS["sparse_adagrad_step_shard"], "launches": bf16_launches,
+         "max_abs_err": bf16_err,
+         **{k: mesh_train["times"]["sparse_adagrad_step_shard bf16"][k] for k in timed}}] + [
         # The new widths' instances, on the paths at those widths (phase 3).
         {"name": f"{key} at {label} = {WINDOW_WIDTH}", "route": "cuda", **KERNELS[key],
          "launches": width_launches[key], "max_abs_err": widths[f"{key} {label}={WINDOW_WIDTH}"],

@@ -257,8 +257,8 @@ int launch_bag(const Args& a, const BagWindow& w) {
                       a.neg_lr, a.eps, w.row_lo, w.n_rows);
   }
   if (err != 0) return err;
-  const Window m = {w.row_lo, w.n_rows, w.lanes, w.counts + 1, w.other + 1, w.entry,
-                    w.keys, w.n_keys, w.claimed, w.merged};
+  const Window m = {w.row_lo, w.n_rows, w.lanes, w.counts + 1, w.entry, w.keys, w.n_keys,
+                    w.claimed, w.merged};
   return launch_merge_rows<TT>(a, D, m);
 }
 """
@@ -301,10 +301,10 @@ def units(src: Path) -> dict:
 
 
 class BagScratch:
-    """The bag-a-task design's scratch, kept from call to call as the
-    shipped window keeps its own: two pairs of counts (list, claimed)
-    alternated, each call's launch 1 zeroing the other pair; the list and
-    entries; the hash keys, which the merge frees."""
+    """The bag-a-task design's scratch, kept from call to call (the
+    shipped window's is each call's own): two pairs of counts (list,
+    claimed) alternated, each call's launch 1 zeroing the other pair; the
+    list and entries; the hash keys, which the merge frees."""
 
     def __init__(self, device, n_slots: int):
         self.counts = torch.zeros((4,), dtype=torch.int32, device=device)

@@ -83,12 +83,14 @@
 // lists it (one atomic add a warp). Launch 2 adds each slot's f32 update
 // into its entry's row (red.global.add.v4.f32, 16 bytes a lane), and a last
 // launch (merge_rows_kernel, a warp a listed entry) adds each entry's row
-// into the shard, rounds it once and frees its key. No sort, no memset and
-// nothing read back: the hash table and the count of claimed entries stay
-// in the wrapper's scratch from call to call; the merge frees every key it
-// set, and the count alternates between two, launch 1 zeroing the one the
-// previous call used, for the next call (so a CUDA graph, which would
-// replay one count, cannot hold the window: the wrapper refuses a capture).
+// into the shard, rounds it once and frees its key. No sort and nothing
+// read back: the entry point zeroes the count of claimed entries (4 bytes)
+// and sets every key to -1 by two memsets on the stream ahead of launch 1,
+// so a call carries nothing over from the call before it, its scratch is
+// the caller's temporaries (ops/sparse_adagrad.py::_window_scratch), and a
+// CUDA graph can hold it (the memsets become nodes of the graph; its
+// scratch lies in the graph's pool, which other graphs may use between two
+// replays of this one). The merge still frees every key it set.
 //
 // Widths. The mapping above is built at every width up to 64 whose table
 // and gradient rows are 16 * 2^k bytes, each width its instance; 32 and 64
@@ -450,15 +452,12 @@ apply_general_kernel(TT* __restrict__ table, float* __restrict__ merged,
 struct Window {
   int64_t row_lo, n_rows;  // the shard's fused rows [row_lo, row_lo + n_rows)
   int lanes;               // launch 1's lanes a window of a bag (a power of two <= 32)
-  // bf16 merge: this call's count of claimed entries, zero when the call
-  // starts; the previous call's (`other`) is set to zero by launch 1, for
-  // the call after this one: the wrapper keeps both and alternates them,
-  // so no call needs a memset.
+  // bf16 merge: this call's count of claimed entries, zeroed by the entry
+  // point's memset ahead of launch 1.
   int32_t* count;
-  int32_t* other;
   int32_t* entry;    // bf16 merge: each slot's entry (-1 for another shard's row)
-  int32_t* keys;     // bf16 merge: the hash table's n_keys keys, -1 where free (kept between
-                     // calls: the merge frees what it used); null for an f32 shard
+  int32_t* keys;     // bf16 merge: the hash table's n_keys keys, -1 where free (set so by
+                     // the entry point's memset); null for an f32 shard
   int64_t n_keys;
   int32_t* claimed;  // bf16 merge: the claimed entries, *count of them
   float* merged;     // bf16 merge: each entry's (d,) f32 sum of updates
@@ -500,8 +499,7 @@ __device__ __forceinline__ int warp_append(int32_t* count, bool take) {
 // slot adds the mean to its row's accumulator and, on a bf16 shard,
 // inserts its row into the hash table (a claimer zeroes its entry's f32
 // row and lists the entry, one atomic add a warp); each slot records its
-// entry (-1 where another shard owns its row). Block 0 zeroes the previous
-// call's count.
+// entry (-1 where another shard owns its row).
 template <typename TG, int D>
 __global__ void __launch_bounds__(kThreads)
 window_accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ offsets,
@@ -510,7 +508,6 @@ window_accumulate_kernel(const TG* __restrict__ g, const int32_t* __restrict__ o
   // Launch 2 may start now: it reads nothing before its wait.
   asm volatile("griddepcontrol.launch_dependents;");
   const bool merge = w.keys != nullptr;
-  if (merge && blockIdx.x == 0 && threadIdx.x == 0) *w.other = 0;
   const int S = w.lanes;
   const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int windows = (L + S - 1) / S;
@@ -668,6 +665,16 @@ int launch(const Args& a, int lanes_per_bag, bool pdl) {
   return launch_apply(apply_kernel<TT, TG, D, VB>, a, a.n_bags * a.L * (P < 32 ? P : 32), pdl);
 }
 
+// A bf16 window's count of claimed entries set to zero and every key to -1
+// ahead of launch 1, on the stream (memset nodes in a CUDA graph, so each
+// replay starts from them).
+inline int zero_count(const Args& a, const Window& w) {
+  int err = (int)cudaMemsetAsync(w.count, 0, sizeof(int32_t), a.stream);
+  if (err == 0)
+    err = (int)cudaMemsetAsync(w.keys, 0xff, (size_t)w.n_keys * sizeof(int32_t), a.stream);
+  return err;
+}
+
 // The window's launch 1 on its plan's lanes a window of a bag.
 template <typename TG, int D>
 int launch_window_accumulate(const Args& a, int d, const Window& w) {
@@ -711,7 +718,9 @@ int launch_window(const Args& a, const Window& w) {
                       static_cast<const TG*>(a.g), a.offsets, a.indices, n_slots, a.T, a.L,
                       a.neg_lr, a.eps, w.row_lo, w.n_rows);
   }
-  int err = launch_window_accumulate<TG, D>(a, D, w);
+  int err = zero_count(a, w);
+  if (err != 0) return err;
+  err = launch_window_accumulate<TG, D>(a, D, w);
   if (err != 0) return err;
   err = launch_pdl(apply_merged_kernel<TG, D, VB>, a, n_slots * SF, kPdl, w.merged,
                    static_cast<const int32_t*>(w.entry), static_cast<const float*>(a.acc),
@@ -726,7 +735,9 @@ int launch_window(const Args& a, const Window& w) {
 template <typename TT, typename TG>
 int launch_window_general(const Args& a, int d, const Window& w) {
   const bool merge = w.keys != nullptr;
-  int err = launch_window_accumulate<TG, 0>(a, d, w);
+  int err = merge ? zero_count(a, w) : 0;
+  if (err != 0) return err;
+  err = launch_window_accumulate<TG, 0>(a, d, w);
   if (err != 0) return err;
   const int64_t n_slots = a.n_bags * a.L;
   apply_general_kernel<TT, TG, true><<<(unsigned)((n_slots + kThreads - 1) / kThreads), kThreads,
@@ -810,16 +821,16 @@ int drs_sparse_adagrad(void* table, int table_dtype, int d, void* acc, const voi
 // (ops/sparse_adagrad.py::k5_window_plan): launch 1's lanes_per_bag (a
 // power of two <= 32; at least the gradient row's 16-byte chunks unless
 // general) and general (any width: column order, scalar adds). A bf16
-// shard's merge (required for one, null for an f32 shard): count (int32,
-// zero) and other (the previous call's count, zeroed here for the next
-// call), keys (n_keys int32, a power of two at least twice the slots, each
-// -1, which the call leaves -1), entry and claimed (slots int32 each),
-// merged ((n_keys, d) f32, 16-byte aligned), none of which needs setting.
+// shard's merge (required for one, null for an f32 shard): count (one
+// int32, zeroed here by a memset ahead of launch 1), keys (n_keys int32, a
+// power of two at least twice the slots, set to -1 here by a memset ahead
+// of launch 1), entry and claimed (slots int32 each), merged ((n_keys, d)
+// f32, 16-byte aligned), none of which needs setting.
 int drs_sparse_adagrad_window(void* table, int table_dtype, int d, void* acc, const void* g,
                               int g_dtype, const void* offsets, const void* indices,
                               int64_t row_lo, int64_t n_rows, int64_t n_bags, int T, int L,
                               float neg_lr, float eps, int lanes_per_bag, int general,
-                              void* count, void* other, void* keys, int64_t n_keys, void* entry,
+                              void* count, void* keys, int64_t n_keys, void* entry,
                               void* claimed, void* merged, void* stream) {
   if (n_bags <= 0 || L <= 0) return 0;
   const int64_t n_slots = n_bags * L;
@@ -828,8 +839,7 @@ int drs_sparse_adagrad_window(void* table, int table_dtype, int d, void* acc, co
       lanes_per_bag < 1 || lanes_per_bag > 32 || (lanes_per_bag & (lanes_per_bag - 1)) != 0 ||
       (table_dtype == 1) != merge ||
       (merge && (n_keys < 2 * n_slots || (n_keys & (n_keys - 1)) != 0 || count == nullptr ||
-                 other == nullptr || entry == nullptr || claimed == nullptr ||
-                 merged == nullptr)))
+                 entry == nullptr || claimed == nullptr || merged == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a = {table, static_cast<float*>(acc), g, static_cast<const int32_t*>(offsets),
                   static_cast<const int32_t*>(indices), n_bags, T, L, neg_lr, eps,
@@ -838,7 +848,6 @@ int drs_sparse_adagrad_window(void* table, int table_dtype, int d, void* acc, co
                     n_rows,
                     lanes_per_bag,
                     static_cast<int32_t*>(count),
-                    static_cast<int32_t*>(other),
                     static_cast<int32_t*>(entry),
                     static_cast<int32_t*>(keys),
                     n_keys,

@@ -24,11 +24,15 @@ accumulator), over the stream of every data slice's ids, so that every
 accumulator add still lands before any scale is read. A bf16 shard
 follows the JAX sharded step (``train.py:177-182``): the accumulator still
 takes one f32 add a slot, but the table's updates are summed a row in f32
-and each touched row is rounded once (a merge inside K5's window: launch 1
-also gives each touched row an entry of a hash table kept from call to
-call, launch 2 adds into the entry's f32 row, a last launch adds each row
-into the table, rounds it and frees the entry). An f32 shard adds into its
-rows directly, which is the same rule.
+and each touched row is rounded once (a merge inside K5's window: two
+memsets zero the call's count of entries and free every key of its hash
+table, launch 1 gives each touched row an entry of that table, launch 2
+adds into the entry's f32 row, a last launch adds each row into the table,
+rounds it and frees the entry). An f32 shard adds into its rows directly,
+which is the same rule. A call's work does not depend on the calls before
+it, so a CUDA graph can hold it: each call takes its scratch from the
+caching allocator, a captured one from the graph's pool
+(``_window_scratch``).
 
 Any width d >= 1 computes: widths up to 64 whose rows (table and gradient)
 are 16 * 2^k bytes take the vector instances, any other width K5's general
@@ -40,7 +44,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import threading
 
 import torch
 
@@ -160,7 +163,7 @@ def _declare_window(lib: ctypes.CDLL):
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,    # B*T, T, L
         ctypes.c_float, ctypes.c_float,                # -learning_rate, eps
         ctypes.c_int, ctypes.c_int,                    # plan: lanes a bag, general
-        ctypes.c_void_p, ctypes.c_void_p,              # merge: this call's count, the last's
+        ctypes.c_void_p,                               # merge: the count of entries
         ctypes.c_void_p, ctypes.c_int64,               # merge: hash keys, their number
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # merge: entries, claimed, f32 rows
         ctypes.c_void_p,                               # stream
@@ -271,10 +274,12 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
     read. A bf16 shard's updates are summed a row in f32 and each touched
     row rounded once (the JAX sharded step's rule). CPU tensors take
     ``sparse_adagrad_step_reference(..., window=...)``; CUDA tensors launch
-    K5's window (``_window_launch``: launch 1, which for a bf16 shard also
-    gives each owned row its merge entry, launch 2, and for a bf16 shard
-    the merge; counted once in ``sparse_adagrad_step_shard.kernel_launches``);
-    a failed build or launch raises.
+    K5's window (``_window_launch``: for a bf16 shard memsets of its count
+    of entries and its hash keys, launch 1, which for a bf16 shard also
+    gives each owned row its merge entry, launch 2, and for a bf16 shard the
+    merge; counted once in ``sparse_adagrad_step_shard.kernel_launches``); a
+    failed build or launch raises. A bf16 shard's scratch is the call's own
+    (``_window_scratch``), so a CUDA graph can capture the call.
     """
     if row_lo < 0:
         raise ValueError(f"row_lo must be >= 0; got {row_lo}")
@@ -288,10 +293,6 @@ def sparse_adagrad_step_shard(shard: torch.Tensor, acc_shard: torch.Tensor,
     B, T, L = indices.shape
     if B * T == 0 or L == 0:
         return None
-    if shard.dtype != torch.float32 and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("K5's window on a bf16 shard keeps its count and hash keys from call "
-                           "to call on the stream; a CUDA graph would replay one call's: not "
-                           "capturable")
     plan = k5_window_plan(B * T, L, shard.shape[1], shard.dtype, g.dtype)
     _window_launch(shard, acc_shard, offsets, indices, g, row_lo, learning_rate, eps, plan)
     _build.count_launch(sparse_adagrad_step_shard)
@@ -304,8 +305,8 @@ sparse_adagrad_step_shard.kernel_launches = 0
 def _window_launch(shard, acc, offsets, indices, g, row_lo: int, learning_rate: float,
                    eps: float, plan: K5WindowPlan, lib: ctypes.CDLL | None = None):
     """K5's window launches on checked CUDA tensors on ``plan``, with a
-    bf16 shard's scratch (``_window_state``), from ``lib`` (a build of K5's
-    source with its C entry; the shipped one by default)."""
+    bf16 shard's scratch (``_window_scratch``), from ``lib`` (a build of
+    K5's source with its C entry; the shipped one by default)."""
     B, T, L = indices.shape
     n_slots = B * T * L
     if n_slots >= 2 ** 31:
@@ -314,65 +315,40 @@ def _window_launch(shard, acc, offsets, indices, g, row_lo: int, learning_rate: 
     if g.data_ptr() % 16:  # the kernels load g's rows in 16-byte chunks
         g = g.clone()
     dev = shard.device
-    scratch = (None, None, None, 0, None, None, None)
+    scratch = (None, None, 0, None, None, None)
     if shard.dtype != torch.float32:
         if shard.shape[0] >= 2 ** 31:
             raise ValueError(f"the bf16 window keys the shard's rows in int32; got "
                              f"{shard.shape[0]} rows")
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
-        key = (index, torch._C._cuda_getCurrentRawStream(index))
-        state, pair = _window_state(key, dev, n_slots)
-        count, work, keys = (state[k].data_ptr() for k in ("count", "work", "keys"))
-        merged = torch.empty((state["keys"].numel(), shard.shape[1]), dtype=torch.float32,
-                             device=dev)
-        scratch = (count + 4 * pair, count + 4 * (1 - pair), keys, state["keys"].numel(), work,
-                   work + 4 * n_slots, merged.data_ptr())
+        s = _window_scratch(dev, n_slots, shard.shape[1])
+        work = s["work"].data_ptr()
+        scratch = (s["count"].data_ptr(), s["keys"].data_ptr(), s["keys"].numel(), work,
+                   work + 4 * n_slots, s["merged"].data_ptr())
     if lib is None:
         lib = _build.load("sparse_adagrad", _declare_window)
-    try:
-        _build.launch(lib, "drs_sparse_adagrad_window", dev, shard.data_ptr(),
-                      _DTYPE_CODES[shard.dtype], shard.shape[1], acc.data_ptr(), g.data_ptr(),
-                      _DTYPE_CODES[g.dtype], offsets.data_ptr(), indices.data_ptr(), row_lo,
-                      shard.shape[0], B * T, T, L, -learning_rate, eps, plan.lanes_per_bag,
-                      int(plan.general), *scratch)
-    except Exception:
-        if scratch[0] is not None:
-            with _WINDOW_LOCK:  # a launch that failed may leave the count or keys set
-                _WINDOW_STATE.pop(key, None)
-        raise
+    _build.launch(lib, "drs_sparse_adagrad_window", dev, shard.data_ptr(),
+                  _DTYPE_CODES[shard.dtype], shard.shape[1], acc.data_ptr(), g.data_ptr(),
+                  _DTYPE_CODES[g.dtype], offsets.data_ptr(), indices.data_ptr(), row_lo,
+                  shard.shape[0], B * T, T, L, -learning_rate, eps, plan.lanes_per_bag,
+                  int(plan.general), *scratch)
 
 
-_WINDOW_STATE: dict = {}
-_WINDOW_LOCK = threading.Lock()
-
-
-def _window_state(key, device, n_slots: int) -> tuple[dict, int]:
-    """A bf16 window's scratch kept from call to call on one (card, stream),
-    whose calls run in its order, and the count this call takes: ``count``
-    (two int32, zero; the calls alternate between them, and each one's
-    launch 1 zeroes the one the call before used, for the call after it),
-    ``work`` (int32: each slot's entry, then the claimed entries, ``n_slots``
-    each) and ``keys`` (the hash table: int32, -1 where free, the power of
-    two >= 2 ``n_slots``, so at most half full; each call's merge frees
-    every key it set). So no call sets them: they are filled once, when
-    made or grown, on the stream that uses them. A CUDA graph would replay
-    one count without its zeroing, so ``sparse_adagrad_step_shard`` refuses
-    a capture."""
-    with _WINDOW_LOCK:
-        state = _WINDOW_STATE.get(key)
-        if state is None:
-            state = {"count": torch.zeros((2,), dtype=torch.int32, device=device),
-                     "work": torch.empty((0,), dtype=torch.int32, device=device),
-                     "keys": torch.empty((0,), dtype=torch.int32, device=device), "calls": 0}
-            _WINDOW_STATE[key] = state
-        if state["work"].numel() < 2 * n_slots:
-            state["work"] = torch.empty((2 * n_slots,), dtype=torch.int32, device=device)
-        if state["keys"].numel() < 2 * n_slots:
-            state["keys"] = torch.full((1 << (2 * n_slots - 1).bit_length(),), -1,
-                                       dtype=torch.int32, device=device)
-        pair = state["calls"] % 2
-        state["calls"] += 1
-        return state, pair
+def _window_scratch(device, n_slots: int, d: int) -> dict:
+    """A bf16 window call's scratch, the call's own temporaries from the
+    caching allocator (a captured call's from the graph's pool), none of
+    which needs setting: ``count`` (one int32, which the call zeroes by a
+    memset ahead of launch 1), ``work`` (int32: each slot's entry, then the
+    claimed entries, ``n_slots`` each), ``keys`` (the hash table: int32, a
+    power of two >= 2 ``n_slots``, so at most half full, which the call
+    sets to -1 by a second memset) and ``merged`` (each key's f32 row of
+    width ``d``, which the claiming slot zeroes). The allocator's stream
+    semantics keep a call's scratch from a later call's until the first has
+    run; nothing carries over from one call, or one replay, to the next."""
+    n_keys = 1 << (2 * n_slots - 1).bit_length()
+    return {"count": torch.empty((1,), dtype=torch.int32, device=device),
+            "work": torch.empty((2 * n_slots,), dtype=torch.int32, device=device),
+            "keys": torch.empty((n_keys,), dtype=torch.int32, device=device),
+            "merged": torch.empty((n_keys, d), dtype=torch.float32, device=device)}
 
 
 def sparse_adagrad_tolerance(table0: torch.Tensor, acc0: torch.Tensor, offsets: torch.Tensor,

@@ -135,17 +135,33 @@ class Mesh:
         On nccl, a copy on this process's first card: NCCL keeps one
         communicator a group and card, and a process that used two cards in
         one group would wait on a peer that used one."""
-        where = torch.device("cpu") if self.backend == "gloo" else self.home
-        return t.detach().to(where, copy=True).contiguous()
+        return t.detach().to(self._where, copy=True).contiguous()
+
+    @property
+    def _where(self) -> torch.device:
+        return torch.device("cpu") if self.backend == "gloo" else self.home
 
     def all_reduce(self, t: torch.Tensor, ranks: tuple) -> torch.Tensor:
         """``t`` summed over the processes ``ranks`` (this one among them),
         on ``t``'s device; ``t`` itself where ``ranks`` is this process."""
+        return self.all_reduce_flat([t], ranks)[0]
+
+    def all_reduce_flat(self, ts: list, ranks: tuple) -> list:
+        """The tensors ``ts`` (one dtype) each summed over the processes
+        ``ranks`` by one all-reduce: flattened in order into one buffer
+        where this process's collectives run (``_staged``'s place), reduced,
+        and each read back as a view (on its own device: a copy where that
+        is elsewhere). ``ts`` itself where ``ranks`` is this process."""
         if len(ranks) == 1:
-            return t
-        buf = self._staged(t)
+            return ts
+        buf = (self._staged(ts[0]).reshape(-1) if len(ts) == 1
+               else torch.cat([t.detach().reshape(-1).to(self._where) for t in ts]))
         dist.all_reduce(buf, group=self._groups[ranks])
-        return buf.to(t.device)
+        out, at = [], 0
+        for t in ts:
+            out.append(buf[at:at + t.numel()].view(t.shape).to(t.device))
+            at += t.numel()
+        return out
 
     def broadcast(self, t: torch.Tensor, src: int, ranks: tuple) -> torch.Tensor:
         """Process ``src``'s ``t`` on every process of ``ranks``, on ``t``'s

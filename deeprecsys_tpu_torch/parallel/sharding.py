@@ -1282,9 +1282,9 @@ def reduce_copies(mesh: Mesh, groups: list, grads: list) -> list:
     given their sum: added in copy order on the first copy's device (the
     JAX ``psum``), then, across processes, summed over the processes that
     hold copies of the leaf (every process for a replicated leaf, column
-    m's for shard m), one all-reduce a leaf in the order of the leaves'
-    keys, which every process shares; then moved to each copy's device. A
-    leaf of one copy in one process keeps its gradient."""
+    m's for shard m) by ``reduce_across``: one all-reduce for each set of
+    processes and dtype; then moved to each copy's device. A leaf of one
+    copy in one process keeps its gradient."""
     totals, i = [], 0
     for _, copies in groups:
         gs = grads[i:i + len(copies)]
@@ -1296,15 +1296,44 @@ def reduce_copies(mesh: Mesh, groups: list, grads: list) -> list:
                     g, copies[0].device)
         totals.append(torch.zeros_like(copies[0]) if total is None else total)
     if mesh.multi_process:
-        # A path is a replicated leaf (m None) or a table's shards (m >= 0).
-        for j in sorted(range(len(groups)), key=lambda j: (groups[j][0][0], groups[j][0][1] or 0)):
-            m = groups[j][0][1]
-            totals[j] = mesh.all_reduce(totals[j], mesh.all_ranks if m is None
-                                        else mesh.col_ranks(m))
+        totals = reduce_across(mesh, [key for key, _ in groups], totals)
     out = []
     for (_, copies), total in zip(groups, totals):
         out.extend(_to(total, c.device) for c in copies)
     return out
+
+
+def reduce_across(mesh: Mesh, keys: list, totals: list) -> list:
+    """Each leaf's total (``keys[j]`` its ``(path, m)``: m None for a
+    replicated leaf, the shard for a table's) summed over the processes that
+    hold the leaf: ``all_ranks``, or ``col_ranks(m)``. The counterpart of
+    XLA's all-reduce combiner: the leaves of one rank set and dtype go
+    flattened into one buffer, in the order of their keys, and take one
+    all-reduce (``Mesh.all_reduce_flat``), which every member issues in the
+    same order (by each buffer's first key: the members of a rank set hold
+    the same leaves of it). A leaf of ``PACK_MAX`` elements or more (a table
+    shard's dense gradient) takes an all-reduce of its own, as XLA's
+    combiner leaves a buffer past its threshold alone. The threshold is the
+    cross-card packing constant, assumed here and not measured for this
+    use: packing a leaf of that size copies 64 MiB in and out (about 20 µs
+    at an H100's 3.35 TB/s), about one NCCL all-reduce's launch, and rm1's
+    leaves fall far to either side of it (a table shard's gradient of some
+    10^8 elements, tower leaves below 10^6), so any threshold between those
+    splits them the same way. A sum of two processes is the same bits
+    either way."""
+    totals = list(totals)
+    buckets: dict = {}
+    for j in sorted(range(len(keys)), key=lambda j: (keys[j][0], keys[j][1] or 0)):
+        m = keys[j][1]
+        ranks = mesh.all_ranks if m is None else mesh.col_ranks(m)
+        if len(ranks) == 1:
+            continue
+        tag = ("alone", j) if totals[j].numel() >= PACK_MAX else totals[j].dtype
+        buckets.setdefault((ranks, tag), []).append(j)
+    for (ranks, _), js in buckets.items():
+        for j, t in zip(js, mesh.all_reduce_flat([totals[j] for j in js], ranks)):
+            totals[j] = t
+    return totals
 
 
 def by_device(tensors: list) -> dict:
@@ -1371,9 +1400,10 @@ def mesh_loss(model: ModelFns, sp: ShardedParams, slices: list, targets: list, l
     share = mean(losses.values())
     if not mesh.multi_process:
         return share, share
-    vec = torch.zeros((D,), dtype=torch.float32, device=mesh.home)
-    for d, loss in losses.items():
-        vec[d] = loss.detach()
+    # Made on the card from the losses (no host read), so a step that holds
+    # it can be captured.
+    zero = torch.zeros((), dtype=torch.float32, device=mesh.home)
+    vec = torch.stack([losses[d].detach().float() if d in losses else zero for d in range(D)])
     vec = mesh.all_reduce(vec, mesh.all_ranks)
     return share, mean(vec[d] for d in range(D))
 
@@ -1535,7 +1565,9 @@ class TableStep(NamedTuple):
 
 # A value a part sends another card crosses alone from this many elements
 # (a table shard's gradient); smaller ones to one card go packed into one
-# flat tensor a dtype, one cross-card copy instead of one a leaf.
+# flat tensor a dtype, one cross-card copy instead of one a leaf. Across
+# processes the same size sets a gradient's all-reduce apart
+# (``reduce_across``).
 PACK_MAX = 1 << 22
 
 
@@ -1913,8 +1945,10 @@ def make_train_step(model: ModelFns, mesh: Mesh, has_dense: bool, learning_rate:
     ``train_programs.StepPrograms`` bound to ``sp`` (on a card a CUDA graph
     a batch shape, replayed on the programs' stream; over several cards a
     graph a part of the step, ``mesh_train_stages``), unless
-    ``train_programs.eager_reason(mesh)`` keeps it eager (a mesh across
-    processes); the step then takes that ``sp`` only."""
+    ``train_programs.eager_reason(mesh)`` keeps it eager (any mesh across
+    processes: over gloo, or a process with several cards, it cannot be
+    captured; over nccl, a card each, it replays slower); the step then
+    takes that ``sp`` only."""
     from deeprecsys_tpu_torch.ops.optimizer import Optimizer
     from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason, train_cut
 

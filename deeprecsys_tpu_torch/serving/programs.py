@@ -50,9 +50,9 @@ captures, and the copies into it run between the replays, as a
 cross-device ``copy_`` on the two cards' engine streams, which PyTorch
 orders by events and not by a host wait. The rows are copied from pinned
 memory straight into each card's static inputs, only the pieces that card
-reads. A mesh across processes stays eager (``eager_reason``, decided when
-the engine is built): its programs run the forward over the same static
-inputs, never a graph.
+reads. An engine serves a mesh from one process only
+(``Mesh.require_one_process``); ``eager_reason`` gives a mesh across
+processes its reason by backend.
 
 Captures run on the engine's streams with ``capture_error_mode=
 "thread_local"`` (engines warm up in parallel threads, whose own streams
@@ -85,14 +85,19 @@ BUILD_LOCK = threading.Lock()
 
 
 def eager_reason(mesh):
-    """Why the programs over ``mesh`` stay eager, or None where they are
-    captured: without a mesh, and on a mesh of one process, whether its
-    entries name one card or several (one graph a card). The trainers'
-    rule adds its own (``train_programs.eager_reason``)."""
-    if mesh is not None and mesh.multi_process:
-        return ("a mesh across processes: its collectives run over torch.distributed "
-                "(gloo through host copies), which a CUDA graph cannot capture")
-    return None
+    """Why an engine's programs over ``mesh`` stay eager, or None where they
+    are captured: without a mesh, and on a mesh of one process, whether its
+    entries name one card or several (one graph a card). A mesh across
+    processes gives its reason by backend, though an engine over one raises
+    before it asks (``Mesh.require_one_process``). The trainers' rule is
+    their own (``train_programs.eager_reason``)."""
+    if mesh is None or not mesh.multi_process:
+        return None
+    if mesh.backend != "nccl":
+        return (f"a mesh across processes over {mesh.backend}: its collectives run through "
+                "host copies, which a CUDA graph cannot capture")
+    return ("a mesh across processes over nccl: an engine serves a mesh from one process "
+            "only, as the JAX package's does (Mesh.require_one_process)")
 
 
 def capture(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream) -> tuple:

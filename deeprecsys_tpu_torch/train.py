@@ -40,8 +40,11 @@ captured as a CUDA graph, and every later step of the shape is a replay,
 on the trainer's own stream. Over several cards of one process the step is
 cut into parts by card (``parallel/sharding.py::mesh_train_stages``; the
 sparse step's table update through ``TableStep``), a graph a part on that
-card's stream. A mesh across processes and K5's bf16 window stay eager
-(``Trainer.eager_reason``, decided when the trainer is built).
+card's stream. A mesh across processes stays eager
+(``Trainer.eager_reason``, decided when the trainer is built): over gloo,
+or where a process holds several cards, the step cannot be captured; over
+nccl, a card each, it can (one program a process, its collectives inside
+the graph, ``Trainer.take_programs``) but replays slower than it runs.
 
     python -m deeprecsys_tpu_torch.train --model rm1 --steps 200 \\
         [--sparse_tables] [--criteo train.txt] [--save ckpt] \\
@@ -72,7 +75,8 @@ from deeprecsys_tpu_torch.parallel.sharding import (
     leaf_copies, leaf_groups, loss_fn_for, make_mesh_dense_step, mesh_loss, mesh_train_stages,
     pooled_on_row, reduce_copies, shard_copies, shard_params, sharded_apply, split_batch,
     split_targets, unshard_params, with_grad)
-from deeprecsys_tpu_torch.train_programs import StepPrograms, eager_reason, train_cut
+from deeprecsys_tpu_torch.train_programs import (
+    StepPrograms, capture_reason, eager_reason, train_cut)
 from deeprecsys_tpu_torch.utils.devices import resolve_device
 from deeprecsys_tpu_torch.utils.metrics_ml import auc
 
@@ -195,15 +199,6 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest: Optimizer, learning
     return step
 
 
-def touched_rows(offsets: torch.Tensor, indices: torch.Tensor, row_lo: int,
-                 rows: int) -> torch.Tensor:
-    """The local rows of the shard ``[row_lo, row_lo + rows)`` that a
-    stream's ids touch (repeats kept): a boolean selection, whose size the
-    host reads back; across processes only (``_send_shard_rows``)."""
-    local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
-    return local[(local >= 0) & (local < rows)]
-
-
 def shard_rows(table: torch.Tensor, acc: torch.Tensor, offsets: torch.Tensor,
                indices: torch.Tensor, row_lo: int) -> tuple:
     """The touched rows of a shard ``[row_lo, row_lo + R_s)`` at a fixed
@@ -213,8 +208,9 @@ def shard_rows(table: torch.Tensor, acc: torch.Tensor, offsets: torch.Tensor,
     ``table`` before K5's step, they make it equal again: a slot outside
     the shard writes back a row of the owner's, which K5 left as it was or
     updated as an owned slot does, and repeated rows write equal values. No
-    shape depends on the ids, so nothing is read back from the card
-    (``touched_rows``' mask would be) and the copy can be captured."""
+    shape depends on the ids, so nothing is read back from the card (a
+    mask of the owned slots would be) and the copy can be captured, on one
+    process and across processes (``_send_shard_rows``)."""
     local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
     rows = local.clamp_(0, table.shape[0] - 1)
     return rows, table.index_select(0, rows), acc.index_select(0, rows)
@@ -252,21 +248,19 @@ def _send_shard_rows(mesh, m: int, tables: list, accs: list, offsets: torch.Tens
                      indices: torch.Tensor, row_lo: int):
     """Shard m's copies on the other processes of column m made equal to
     its first copy (entry (0, m)) after its update: the rows the batch's
-    ids touch, of the table and of the accumulator, broadcast from entry
-    (0, m)'s process inside column m's group and copied into this process's
-    copies. ``tables``/``accs``: this process's distinct copies of shard m;
-    ``offsets``/``indices``: the whole batch's (every process has them)."""
+    ids touch, of the table and of the accumulator, at a fixed size
+    (``shard_rows``: a row a slot, clamped into the shard), broadcast from
+    entry (0, m)'s process inside column m's group and copied into this
+    process's copies. No shape depends on the ids, so the step can be
+    captured. ``tables``/``accs``: this process's distinct copies of shard
+    m; ``offsets``/``indices``: the whole batch's (every process has
+    them)."""
     ranks = mesh.col_ranks(m)
     if len(ranks) == 1:
         return
     table, acc, src = tables[0], accs[0], mesh.rank_of(0, m)
-    rows = touched_rows(offsets.to(table.device), indices.to(table.device), row_lo,
-                        table.shape[0])
-    if mesh.rank == src:
-        t_rows, a_rows = table.index_select(0, rows), acc.index_select(0, rows)
-    else:
-        t_rows = torch.empty((len(rows), table.shape[1]), dtype=table.dtype, device=table.device)
-        a_rows = torch.empty((len(rows),), dtype=acc.dtype, device=acc.device)
+    rows, t_rows, a_rows = shard_rows(table, acc, offsets.to(table.device),
+                                      indices.to(table.device), row_lo)
     t_rows, a_rows = mesh.broadcast(t_rows, src, ranks), mesh.broadcast(a_rows, src, ranks)
     if mesh.rank != src:
         _set_rows(tables, accs, rows, t_rows, a_rows)
@@ -396,8 +390,11 @@ class Trainer:
     Steps go through ``step_program`` (``train_programs.StepPrograms``: a
     CUDA graph a batch shape on a card, replayed on the trainer's stream,
     where evaluation runs too; over several cards a graph a part of the
-    step on each card's stream, ``self._step.stages``; the eager step, or
-    its parts, over static buffers on the CPU), or, where ``eager_reason``
+    step on each card's stream, ``self._step.stages``; across processes
+    over nccl, one card each, a graph a process holding its collectives,
+    only after ``take_programs``; the eager step, or its parts, over static
+    buffers on the CPU), or,
+    where ``eager_reason``
     says why, straight to the step function on the caller's streams
     (``step_program`` None). Assigning ``params`` or ``opt_state`` drops the
     captured programs.
@@ -452,24 +449,37 @@ class Trainer:
             self._init_mesh(params, learning_rate, table_learning_rate, dedup)
         else:
             self._init_one_device(params, learning_rate, table_learning_rate, dedup)
-        table = self.params.first_entry()["tables"] if mesh is not None else self.params["tables"]
-        self.eager_reason = eager_reason(mesh, table.dtype, sparse_tables)
+        self.eager_reason = eager_reason(mesh)
         if self.eager_reason is None:
-            # A weak reference: the programs must not keep the trainer (its
-            # tables, state and graph pool) alive in a cycle after its last
-            # reference goes.
-            trainer = weakref.ref(self)
+            self.take_programs()
 
-            def step(batch: Batch, targets: torch.Tensor) -> torch.Tensor:
-                tr = trainer()
-                return tr._step(tr.params, tr.opt_state, batch, targets)
+    def take_programs(self):
+        """Build ``step_program``, as the trainer does where ``eager_reason``
+        is None. Across processes over nccl, a card each, where the step can
+        be captured but replays slower (``train_programs.NCCL_SLOWER``), a
+        caller that measures it takes the programs here; ``eager_reason``
+        is None after. Raises where the step cannot be captured
+        (``train_programs.capture_reason``)."""
+        reason = capture_reason(self.mesh)
+        if reason is not None:
+            raise ValueError(f"this trainer's step cannot be captured: {reason}")
+        # A weak reference: the programs must not keep the trainer (its
+        # tables, state and graph pool) alive in a cycle after its last
+        # reference goes.
+        trainer = weakref.ref(self)
 
-            def stages(inputs: dict, places: TrainPlaces) -> list:
-                tr = trainer()
-                return tr._step.stages(tr.params, tr.opt_state, inputs, places)
+        def step(batch: Batch, targets: torch.Tensor) -> torch.Tensor:
+            tr = trainer()
+            return tr._step(tr.params, tr.opt_state, batch, targets)
 
-            self.step_program = StepPrograms(step, self.device,
-                                             cut=None if mesh is None else train_cut(mesh, stages))
+        def stages(inputs: dict, places: TrainPlaces) -> list:
+            tr = trainer()
+            return tr._step.stages(tr.params, tr.opt_state, inputs, places)
+
+        mesh = self.mesh
+        self.step_program = StepPrograms(step, self.device,
+                                         cut=None if mesh is None else train_cut(mesh, stages))
+        self.eager_reason = None
 
     @property
     def params(self):
@@ -573,8 +583,10 @@ class Trainer:
         return (host.indices[:, 0, 0] % 2).astype(np.float32)
 
     def _scores(self, host: Batch) -> np.ndarray:
-        """The forward's scores on the host: eager (JAX jits it; the port
-        captures only the steps), on the trainer's stream."""
+        """The forward's scores on the host, on the trainer's stream: eager,
+        as the JAX trainer's ``evaluate`` and ``evaluate_batches`` call
+        ``self.model.apply`` without ``jit`` (``deeprecsys_tpu/train.py:
+        440-445``, ``:456-457``)."""
         on_stream = (self.step_program.on_stream() if self.step_program is not None
                      else contextlib.nullcontext())
         with on_stream, torch.inference_mode():

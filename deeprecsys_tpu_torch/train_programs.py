@@ -43,12 +43,24 @@ launches the backward onto the captured stream, and ``_build`` tallies its
 launches by that stream) and hold the serving engines' ``BUILD_LOCK``, so a
 trainer never captures while an engine of the same process builds.
 
+Across processes over nccl, each process holding one card, a program is
+that process's step with its collectives: every process builds the same
+programs in the same order, since each decides from the batch shape alone,
+and a shape's first, eager step makes every group's communicator before
+any capture. NCCL launches its kernels onto a stream of its own, ordered
+after and before the captured stream by events, which the graph records;
+torch.distributed keeps a captured collective out of its watchdog. Such a
+step replays slower than it runs eagerly (``NCCL_SLOWER``), so a trainer
+takes these programs only when asked (``Trainer.take_programs``).
+
 A program closes over the tensors it was captured with. Whatever replaces
 the trainer's params or optimizer state, instead of writing into them,
 drops the programs (``reset``). Which steps stay eager is decided when the
-trainer is built (``eager_reason``: a mesh across processes, K5's bf16
-window), never by catching a failed capture, and so is whether a mesh takes
-one program or parts (``train_cut``: more than one place means parts).
+trainer is built (``eager_reason``: a mesh across processes over gloo, or
+one whose process holds several cards, which cannot be captured, and one
+over nccl, whose graphs replay slower), never by catching a failed
+capture, and so is whether a mesh takes one program or parts
+(``train_cut``: more than one place of one process means parts).
 """
 
 from __future__ import annotations
@@ -66,21 +78,45 @@ from deeprecsys_tpu_torch.serving.programs import (
 StepFn = Callable[[Batch, torch.Tensor], torch.Tensor]  # (batch, targets) -> loss
 
 
-def eager_reason(mesh, table_dtype: torch.dtype | None = None, sparse: bool = False):
-    """Why a trainer's steps stay eager, or None where they are captured:
-    on one device and on any mesh of one process (one program where its
-    entries all name one card, a graph a part over several cards). A mesh
-    across processes takes the engines' reason (``serving/programs.py::
-    eager_reason``). ``table_dtype`` and ``sparse``: the table's dtype and
-    whether the mesh step updates it by K5's window."""
-    reason = mesh_eager_reason(mesh)
-    if reason is not None or mesh is None:
-        return reason
-    if sparse and table_dtype is not None and table_dtype != torch.float32:
-        return ("K5's window on a bf16 shard keeps its count and hash keys from call to "
-                "call, and each call zeroes the next call's count, which a replay would "
-                "skip (ops/sparse_adagrad.py::sparse_adagrad_step_shard refuses a capture)")
+def capture_reason(mesh):
+    """Why a trainer's step over ``mesh`` cannot be captured, or None where
+    it can: on one device and on any mesh of one process (one program where
+    its entries all name one card, a graph a part over several cards), and
+    on a mesh across processes over nccl whose process holds one card (one
+    program a process: its NCCL collectives are captured with the step).
+    Across processes over gloo the collectives go through host copies,
+    which a graph cannot hold; a process that holds several cards would
+    need its step cut by card around collectives that all run on its first
+    card (``Mesh._staged``), which the cut has no part for."""
+    if mesh is None or not mesh.multi_process:
+        return None
+    if mesh.backend != "nccl":
+        return mesh_eager_reason(mesh)  # the engines' gloo reason
+    if len(mesh.distinct_devices) > 1:
+        return ("a mesh across processes whose process holds several cards: its step would "
+                "be cut into a graph a card, and its collectives all run on its first card "
+                "(Mesh._staged), for which the cut has no part")
     return None
+
+
+NCCL_SLOWER = (
+    "a mesh across processes over nccl, a card each: its step, captured as one graph a "
+    "process, replayed 2-8x slower than its eager step on four H100s (rm1, batch 128: sparse "
+    "1x4 29.9-33.4 ms a step against 4.2-4.3, dense 2x2 43.0-44.2 against 17.7; "
+    "experiments/nccl_step_probe.py, the processes meeting at a barrier before each turn), "
+    "the time spent inside NCCL's all-reduce kernels in the graph and the card otherwise "
+    "idle; so it runs eagerly until a traced fix makes the replay no slower "
+    "(Trainer.take_programs captures it, to measure it)")
+
+
+def eager_reason(mesh):
+    """Why a trainer's steps stay eager, or None where they are captured:
+    ``capture_reason``'s, and across processes over nccl, where each
+    process's step can be captured, the measured slowdown ``NCCL_SLOWER``."""
+    reason = capture_reason(mesh)
+    if reason is None and mesh is not None and mesh.multi_process:
+        return NCCL_SLOWER
+    return reason
 
 
 class TrainCut(NamedTuple):
@@ -95,9 +131,12 @@ class TrainCut(NamedTuple):
 
 def train_cut(mesh, stages: Callable) -> TrainCut | None:
     """The cut of a step over ``mesh`` (``stages`` as ``TrainCut``'s), or
-    None where the mesh's entries are all one place: one program."""
+    None where the mesh's entries are all one place, and across processes
+    (each process's one card, ``eager_reason``): one program."""
     from deeprecsys_tpu_torch.parallel.sharding import train_places
 
+    if mesh.multi_process:
+        return None
     places = train_places(mesh)
     return TrainCut(places, stages) if len(places.devices) > 1 else None
 

@@ -18,6 +18,11 @@ inside each process) and ``(1, 4)`` (the sum crosses the processes):
   ``tests/test_torch_mesh_train.py``'s limits (rtol 1e-5, atol 1e-6; the
   sparse table atol 1e-3 of the steps' reach) and to the single-process
   mesh's at its limits for two meshes of one model (rtol 1e-5, atol 1e-7);
+- a step's all-reduces: one for each set of processes the tower leaves
+  (and, on ``(2, 2)``, the table shards' copies) span, beside the loss's
+  and the row sum's (``reduce_copies``' merge, XLA's all-reduce combiner);
+  and the merged reduce against the per-leaf one (every leaf set apart,
+  ``PACK_MAX = 0``), bit for bit over the two processes;
 - on ``(1, 4)``, the per-table int8 and row-wise int8 tables (weights made
   by ``bridge.init_numpy``): scores within 2e-4 of JAX's apply, and the
   pooled lookup of data row 0, summed over both processes, equal to JAX's
@@ -211,6 +216,47 @@ def _raises(fn) -> str:
     return "did not raise"
 
 
+def _step_reduces(mesh, params: dict, reduces: list) -> dict:
+    """The all-reduces of one adagrad step of each mode's trainer on
+    ``mesh`` (``reduces`` collects the calls): ``{("step reduces", mode, D,
+    M): n}``."""
+    out = {}
+    host = RecDataGenerator(_cfg(), seed=1).generate_batch(TRAIN_BATCH)
+    for mode in MODES:
+        tr = train.Trainer(_cfg(), mesh=mesh, optimizer="adagrad", learning_rate=LR,
+                           sparse_tables=mode == "sparse", params=params)
+        labels = tr._labels(host, None)
+        reduces.clear()
+        tr.step(host, labels)
+        out[("step reduces", mode, *mesh.devices.shape)] = len(reduces)
+    return out
+
+
+def _merged_against_per_leaf(sp, reduces: list) -> tuple:
+    """``reduce_copies`` over every leaf of ``sp`` (tables included, as the
+    dense step reduces them) on gradients drawn from this process's rank,
+    merged (one all-reduce a rank set and dtype) and per leaf (every leaf
+    set apart, the reduce before the merge): ``(bit for bit equal, merged
+    calls, per-leaf calls)``."""
+    mesh = sp.mesh
+    groups = sharding.leaf_groups(sp)
+    gen = torch.Generator().manual_seed(100 + mesh.rank)
+    grads = [torch.randn(t.shape, generator=gen).to(t.dtype) for _, copies in groups
+             for t in copies]
+    reduces.clear()
+    merged = sharding.reduce_copies(mesh, groups, grads)
+    n_merged = len(reduces)
+    pack_max, sharding.PACK_MAX = sharding.PACK_MAX, 0
+    try:
+        reduces.clear()
+        per_leaf = sharding.reduce_copies(mesh, groups, grads)
+    finally:
+        sharding.PACK_MAX = pack_max
+    equal = len(merged) == len(per_leaf) and all(torch.equal(a, b)
+                                                 for a, b in zip(merged, per_leaf))
+    return equal, n_merged, len(reduces)
+
+
 def run_worker(rank: int, n_proc: int, port: int, job: dict, q):
     """One process of the mesh: ``job["local"]`` CPU entries, the same
     params and batches as every other process; runs the forward, the
@@ -263,6 +309,8 @@ def run_worker(rank: int, n_proc: int, port: int, job: dict, q):
                     reduces.clear()
                     hc.apply(hp, Batch(dense=torch.from_numpy(_host().dense), indices=None), split)
                     res[("hotcold reduces", D, M)] = len(reduces)
+                    res.update(_step_reduces(mesh, params, reduces))
+                    res[("merged", D, M)] = _merged_against_per_leaf(sp, reduces)
             finally:
                 dist.all_reduce = orig
             mesh = make_mesh(1, 4, devices=devices)
@@ -646,6 +694,30 @@ def test_int8_pools_across_processes_are_exact(runs, D, M):
                                       err_msg=f"rank {rank}")
         np.testing.assert_array_equal(res[("tablewise pooled", "int8", D, M)], want_tw,
                                       err_msg=f"rank {rank}")
+
+
+def test_a_step_reduces_its_leaves_once_a_rank_set(runs):
+    """One all-reduce a step for every tower leaf (and, on 2x2, every table
+    shard, whose copies span both processes there): a dense step makes the
+    loss's and the leaves' (2x2: 2; 1x4: the row sum's too, 3; before the
+    merge 13 and 12), a sparse step the same (2x2: 2; 1x4: 3; before 11 and
+    12)."""
+    want = {("dense", 2, 2): 2, ("dense", 1, 4): 3, ("sparse", 2, 2): 2, ("sparse", 1, 4): 3}
+    for rank, res in runs["workers"].items():
+        for (mode, D, M), n in want.items():
+            assert res[("step reduces", mode, D, M)] == n, (rank, mode, D, M)
+
+
+@pytest.mark.parametrize("D,M", AXES)
+def test_merged_reduce_equals_the_per_leaf_reduce_bit_for_bit(runs, D, M):
+    """Over two processes the merged reduce (one all-reduce a rank set and
+    dtype) gives every leaf the bits of one all-reduce a leaf: 2x2 in one
+    call where 12 leaves took 12 (the shards' copies span both processes),
+    1x4 in one where 10 took 10 (each shard's copies lie in one)."""
+    calls = {(2, 2): (1, 12), (1, 4): (1, 10)}[(D, M)]
+    for rank, res in runs["workers"].items():
+        equal, n_merged, n_per_leaf = res[("merged", D, M)]
+        assert equal and (n_merged, n_per_leaf) == calls, (rank, n_merged, n_per_leaf)
 
 
 def test_hotcold_row_sum_crosses_processes_only_where_a_row_does(runs):

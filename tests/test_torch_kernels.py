@@ -1352,14 +1352,19 @@ def test_cold_only_kernel_on_an_empty_stream_writes_zeros(cuda, layout):
 @pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["batch", "repeated", "owns_nothing"])
 @pytest.mark.parametrize("shards", [1, 2, 4])
-def test_sparse_adagrad_window_plans_match_plain_twice(cuda, shards, case, table_dt):
-    """K5's window, each call twice in a row on one stream: a bf16 shard's
-    kept scratch (the count the next call takes, the hash keys) is left
-    zero and free, so the second call is as right as the first.
+def test_sparse_adagrad_window_plans_match_plain_twice(cuda, shards, case, table_dt,
+                                                      monkeypatch):
+    """K5's window, each call twice in a row on one stream: the second call
+    is as right as the first, and a bf16 shard's merge frees every hash key
+    it set (each call's keys, read back after it ran, are all -1 again).
     Cases: the batch's ids, ids on 7 rows a table (rows of ~150 adds), and
     a shard past every id (it owns nothing)."""
     from deeprecsys_tpu_torch.ops import sparse_adagrad as sa
 
+    scratches = []
+    made = sa._window_scratch
+    monkeypatch.setattr(sa, "_window_scratch",
+                        lambda *a: scratches.append(made(*a)) or scratches[-1])
     B, T, L, rows, d = 64, 3, 80, 300, 32
     gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=shards + len(case))
     if case == "repeated":
@@ -1387,19 +1392,16 @@ def test_sparse_adagrad_window_plans_match_plain_twice(cuda, shards, case, table
             assert bool(((table.float() - want_t.float()).abs() <= tol).all()), w
             table.copy_(want_t)  # each step held from the plain version's state
             acc.copy_(want_a)
-    if table_dt == torch.bfloat16:
-        state = sa._WINDOW_STATE[(torch.cuda.current_device(),
-                                  torch.cuda.current_stream().cuda_stream)]
-        assert int(state["count"][state["calls"] % 2]) == 0  # the next call's count
-        assert bool((state["keys"] == -1).all())
+    assert len(scratches) == (2 * len(windows) if table_dt == torch.bfloat16 else 0)
+    assert all(bool((s["keys"] == -1).all()) for s in scratches)
 
 
 @pytest.mark.parametrize("table_dt", [torch.float32, torch.bfloat16])
 def test_sparse_adagrad_window_after_a_larger_stream(cuda, table_dt):
-    """K5's window on a stream of 120-slot bags, then on a smaller one on
-    the same stream: the scratch kept from the larger call (a longer list,
-    more hash keys) serves the smaller one, which is as right as on fresh
-    scratch."""
+    """K5's window on a stream of 120-slot bags, then on smaller ones on
+    the same stream: the caching allocator may hand a smaller call the
+    larger call's freed scratch (its keys and count as that call left
+    them), and the smaller call is as right as on fresh scratch."""
     from deeprecsys_tpu_torch.ops import sparse_adagrad as sa
 
     d, rows, T = 32, 400, 4
@@ -1420,19 +1422,50 @@ def test_sparse_adagrad_window_after_a_larger_stream(cuda, table_dt):
         assert bool(((table.float() - want_t.float()).abs() <= tol).all()), (B, L)
 
 
-def test_sparse_adagrad_window_refuses_a_graph_capture(cuda):
-    """K5's window on a bf16 shard keeps its count and hash keys from call
-    to call on the stream, so a CUDA graph (which would replay one call's)
-    cannot capture it: the wrapper raises before it launches anything."""
-    B, T, L, rows, d = 8, 2, 10, 50, 32
-    _, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=3)
-    table = torch.zeros((rows, d), dtype=torch.bfloat16, device=cuda)
-    acc = torch.zeros((rows,), device=cuda)
-    before = sparse_adagrad_step_shard.kernel_launches
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
+def test_sparse_adagrad_window_replays_in_a_graph(cuda):
+    """K5's window on a bf16 shard captured as a CUDA graph (the programs'
+    ``capture``): its scratch lives in the graph's pool, which a second
+    graph shares and fills with 7s between two replays (its temporaries
+    take the memory the window's scratch left), so each replay must set its
+    own count and keys. Each replay, on new gradients copied into the
+    captured input, is held to the plain version within
+    ``sparse_adagrad_tolerance`` and counts one launch."""
+    from deeprecsys_tpu_torch.ops import _build
+    from deeprecsys_tpu_torch.serving.programs import capture
+
+    B, T, L, rows, d = 64, 3, 80, 300, 32
+    gen, offsets, indices, grad = _dup_inputs(cuda, B, T, L, rows, d, seed=3)
+    lo, hi = rows // 2, 2 * rows
+    table = ((torch.rand((hi - lo, d), generator=gen, device=cuda) - 0.5)).to(torch.bfloat16)
+    acc = torch.rand((hi - lo,), generator=gen, device=cuda) * 1e-4
+    g = grad * 1e-2
+    n_keys = 1 << (2 * B * T * L - 1).bit_length()
+    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        with pytest.raises(RuntimeError, match="not capturable"):
-            with torch.cuda.graph(graph, stream=stream):
-                sparse_adagrad_step_shard(table, acc, offsets, indices, grad, 0, 0.1)
-    assert sparse_adagrad_step_shard.kernel_launches == before
+        sparse_adagrad_step_shard(table, acc, offsets, indices, g, lo, 0.1)  # eager: builds
+        graph, _, launches, _ = capture(
+            lambda: sparse_adagrad_step_shard(table, acc, offsets, indices, g, lo, 0.1),
+            pool, stream)
+        sevens, _, _, _ = capture(
+            lambda: torch.full((n_keys * (d + 2),), 7, dtype=torch.int32, device=cuda).sum(),
+            pool, stream)
+    stream.synchronize()
+    assert launches == {sparse_adagrad_step_shard: 1}
+    for step in range(3):
+        g.copy_(torch.randn((B, T, d), generator=gen, device=cuda) * 1e-2)
+        t0, a0 = table.clone(), acc.clone()
+        before = sparse_adagrad_step_shard.kernel_launches
+        with torch.cuda.stream(stream):
+            stream.wait_stream(torch.cuda.default_stream())
+            sevens.replay()
+            graph.replay()
+            _build.count_replay(launches)
+        stream.synchronize()
+        assert sparse_adagrad_step_shard.kernel_launches == before + 1
+        want_t, want_a = t0.clone(), a0.clone()
+        sparse_adagrad_step_reference(want_t, want_a, offsets, indices, g, 0.1, window=(lo, hi))
+        tol, acc_tol = sparse_adagrad_tolerance(t0, a0, offsets, indices, g, 0.1,
+                                                window=(lo, hi))
+        assert bool(((acc - want_a).abs() <= acc_tol).all()), step
+        assert bool(((table.float() - want_t.float()).abs() <= tol).all()), step

@@ -352,8 +352,11 @@ def test_mesh_engine_counts_a_launch_a_shard_per_execution(monkeypatch, name, im
 def test_eager_reason_is_one_rule_for_engines_and_trainers():
     """Programs over a mesh of one process are captured, whether its entries
     name one card or several (a graph a card, for the engines and the
-    trainers alike), and a mesh across processes keeps both eager by the
-    engines' reason (the trainer's rule adds K5's bf16 window).
+    trainers alike). Across processes the engines' reason goes by backend
+    (an engine raises before it asks, ``Mesh.require_one_process``): over
+    gloo the engines and the trainers share it; over nccl a trainer of one
+    card a process could capture its step but keeps it eager for the
+    replays' measured slowdown, an engine gives its own reason.
     ``tests/test_torch_distributed.py`` reads a real trainer's reason across
     processes."""
     import types
@@ -362,14 +365,20 @@ def test_eager_reason_is_one_rule_for_engines_and_trainers():
 
     one = make_mesh(2, 2, devices=["cpu"] * 4)
     two_cards = make_mesh(1, 2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
-    processes = types.SimpleNamespace(multi_process=True)
     assert programs.eager_reason(None) is None and programs.eager_reason(one) is None
     assert programs.eager_reason(two_cards) is None
     assert train_programs.eager_reason(two_cards) is None
-    reason = programs.eager_reason(processes)
-    assert "across processes" in reason and train_programs.eager_reason(processes) == reason
+    gloo = types.SimpleNamespace(multi_process=True, backend="gloo",
+                                 distinct_devices=[torch.device("cpu")])
+    reason = programs.eager_reason(gloo)
+    assert "across processes" in reason and "gloo" in reason
+    assert train_programs.eager_reason(gloo) == reason
+    nccl = types.SimpleNamespace(multi_process=True, backend="nccl",
+                                 distinct_devices=[torch.device("cuda", 0)])
+    assert "one process" in programs.eager_reason(nccl)
+    assert train_programs.capture_reason(nccl) is None
+    assert train_programs.eager_reason(nccl) == train_programs.NCCL_SLOWER
     assert train_programs.eager_reason(one) is None
-    assert "bf16 shard" in train_programs.eager_reason(one, torch.bfloat16, sparse=True)
     scfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,), max_mini_batch_size=8)
     qs = [queue.Queue() for _ in range(3)]
     assert engine.ComputeEngine(0, zoo.get_config("ncf", table_scale=SCALE), scfg, *qs,

@@ -32,6 +32,15 @@ dien; a same-size refresh writes every card's hot table in place; a reload
 under queued replays captures the programs again; a replayed execution
 makes no host synchronization.
 
+Across processes of one card each (two cards or more): two spawned
+processes over ``nccl`` form one 1x2 mesh, and each trainer (dense and
+sparse, adagrad), built eager for its replays' measured slowdown, takes
+its programs and replays a CUDA graph a step that holds its NCCL
+collectives; over four steps its losses and params stay within the
+``GRAPH_*`` limits of the step function called eagerly in the same
+processes and of one process's 1x2 mesh over the same two cards; every
+child reports within ``NCCL_WAIT_S`` or is killed.
+
 Across processes (four cards or more): two spawned processes of two cards
 each over ``nccl`` form one 1x4 mesh; the forward is held to the
 single-device forward, the hot/cold tensor-parallel model (on zipf(1.2)
@@ -50,7 +59,7 @@ import numpy as np
 import pytest
 import torch
 
-from deeprecsys_tpu_torch import ServingConfig, ops, train, zoo
+from deeprecsys_tpu_torch import ServingConfig, bridge, ops, train, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.experiments.skew_bench import zipf_stream
 from deeprecsys_tpu_torch.models import get_model
@@ -62,6 +71,7 @@ from deeprecsys_tpu_torch.parallel import (
 from deeprecsys_tpu_torch.parallel import sharding
 from deeprecsys_tpu_torch.parallel.api import make_tablewise_model
 from deeprecsys_tpu_torch.serving import engine, packets
+from deeprecsys_tpu_torch.train_programs import NCCL_SLOWER
 
 pytestmark = pytest.mark.gpu
 
@@ -683,3 +693,112 @@ def test_two_processes_of_two_cards_over_nccl(cards):
                                        err_msg=f"{path} on process {rank}")
         assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
         np.testing.assert_allclose(got["table"], want["table"], rtol=1e-4, atol=1e-6)
+
+
+NCCL_WAIT_S = 300
+GRAPH_STEPS = 4
+
+
+def _one_card_steps(mesh, card: torch.device, sparse: bool) -> dict:
+    """rm1 (f32, adagrad) on ``mesh`` from the seed's params made on
+    ``card``, GRAPH_STEPS steps of 32 rows, in two arms: the trainer's
+    programs and its step function called eagerly. Returns both arms'
+    losses and full params (host), the graphed trainer's eager reason as
+    built, and the programs' captures and graphs. Across processes the
+    trainer is built eager (``NCCL_SLOWER``) and takes its programs
+    (``take_programs``)."""
+    cfg, model, params = _model(card)
+    kw = dict(optimizer="adagrad", learning_rate=0.01, sparse_tables=sparse, params=params)
+    graphed, eager = (train.Trainer(cfg, mesh=mesh, **kw) for _ in range(2))
+    reason = graphed.eager_reason
+    if mesh.multi_process:
+        graphed.take_programs()
+    gen = RecDataGenerator(cfg, seed=1)
+    got, want = [], []
+    for _ in range(GRAPH_STEPS):
+        host = gen.generate_batch(32)
+        labels = graphed._labels(host, None)
+        got.append(float(graphed.step(host, labels)))
+        want.append(float(eager._step(eager.params, eager.opt_state, host.to(card),
+                                      eager._targets(labels))))
+    progs = graphed.step_program
+    return {"graphed": got, "eager": want, "reason": reason,
+            "captures": None if progs is None else progs.captures,
+            "graphs": None if progs is None else [p.graph is not None
+                                                  for p in progs.programs.values()],
+            "params": _flat(graphed.params), "eager_params": _flat(eager.params)}
+
+
+def _flat(sp) -> dict:
+    """A mesh trainer's full params as host arrays by leaf path."""
+    return {k: v.numpy() for k, v in bridge.flatten(unshard_params(sp)).items()}
+
+
+def _nccl_one_card_worker(rank: int, port: int, q):
+    """One of two processes, each with card ``rank``: the 1x2 mesh's dense
+    and sparse trainers (``_one_card_steps``)."""
+    import torch.distributed as dist
+
+    try:
+        card = torch.device("cuda", rank)
+        torch.cuda.set_device(card)
+        distributed_init(f"127.0.0.1:{port}", num_processes=2, process_id=rank, backend="nccl")
+        mesh = make_mesh(1, 2, devices=[card])
+        q.put((rank, "ok", {mode: _one_card_steps(mesh, card, mode == "sparse")
+                            for mode in ("dense", "sparse")}))
+    except Exception:  # surfaced by the test
+        q.put((rank, "error", traceback.format_exc()[-3000:]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _assert_graph_limits(got: dict, want: dict, sparse: bool, who: str):
+    """``chip_smoke.py``'s GRAPH_* limits over GRAPH_STEPS adagrad steps."""
+    reach = GRAPH_STEPS * 0.01
+    for key, w in want.items():
+        atol = 1e-3 * reach if sparse and key == "tables" else 1e-6
+        np.testing.assert_allclose(got[key], w, rtol=1e-5, atol=atol, err_msg=f"{who} {key}")
+
+
+def test_processes_of_one_card_over_nccl_replay_their_steps(cards):
+    """Two processes, one card each, over nccl: each dense and sparse
+    trainer is built eager for the replays' measured slowdown
+    (``NCCL_SLOWER``), then takes its programs (``take_programs``: one
+    graph a process, its collectives inside) and replays them; graphed
+    against eager in each process and against one process's 1x2 mesh over
+    the same cards (a graph a part)."""
+    want = {mode: _one_card_steps(make_mesh(1, 2, devices=cards[:2]), cards[0],
+                                  mode == "sparse") for mode in ("dense", "sparse")}
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_one_card_worker, args=(r, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, detail = q.get(timeout=NCCL_WAIT_S)
+            assert status == "ok", (rank, detail)
+            results[rank] = detail
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    assert sorted(results) == [0, 1]
+    for rank, res in sorted(results.items()):
+        for mode, got in res.items():
+            who, sparse = f"{mode} on process {rank}", mode == "sparse"
+            assert got["reason"] == NCCL_SLOWER, who
+            assert got["captures"] == 1 and got["graphs"] == [True], who
+            np.testing.assert_allclose(got["graphed"], got["eager"], rtol=1e-5, err_msg=who)
+            np.testing.assert_allclose(got["graphed"], want[mode]["graphed"], rtol=1e-5,
+                                       err_msg=who)
+            _assert_graph_limits(got["params"], got["eager_params"], sparse, who)
+            _assert_graph_limits(got["params"], want[mode]["params"], sparse, who)

@@ -217,7 +217,8 @@ def test_make_train_step_over_cards_matches_jax(monkeypatch, layout):
 def _by_mask(table, acc, copy_t, copy_a, offsets, indices, row_lo):
     """The boolean-mask copy the fixed-size one replaced (a shape that
     depends on the ids)."""
-    rows = train.touched_rows(offsets, indices, row_lo, table.shape[0])
+    local = (indices.long() + offsets.long()[None, :, None]).reshape(-1) - row_lo
+    rows = local[(local >= 0) & (local < table.shape[0])]
     copy_t.index_copy_(0, rows, table.index_select(0, rows))
     copy_a.index_copy_(0, rows, acc.index_select(0, rows))
 

@@ -344,11 +344,22 @@ def test_k6_cold_bound_counts_the_stream_the_rows_and_the_partial():
 def test_k5_window_plan_mirrors_the_source():
     """The plan's lanes are K5's (``k5_launch_plan``) or, at the general
     instance's widths, the power of two >= L up to 32; the C entry takes
-    the plan and a bf16 shard's two counts, and launch 1 takes a window of
-    S slots of a bag a task."""
+    the plan and a bf16 shard's one count, which it zeroes by a memset on
+    the stream ahead of launch 1 (so a CUDA graph replays the zeroing), and
+    its keys, which it sets to -1 the same way (no scratch is kept between
+    calls); launch 1 takes a window of S slots of a bag a task."""
     src = (CSRC / "sparse_adagrad.cu").read_text()
-    assert re.search(r"int lanes_per_bag, int general,\s+void\* count, void\* other, "
-                     r"void\* keys", src)
+    assert re.search(r"int lanes_per_bag, int general,\s+void\* count, void\* keys", src)
+    assert re.search(r"void\* merged, void\* stream\)", src)
+    assert "cudaMemsetAsync(w.count, 0, sizeof(int32_t), a.stream)" in src
+    assert "if (err == 0)\n    err = (int)cudaMemsetAsync(w.keys, 0xff," in src
+    assert "fill_keys" not in src
+    assert src.count("zero_count(a, w)") == 2  # the vector and the general windows'
+    for zero, launch1 in (("int err = zero_count(a, w);",
+                           "err = launch_window_accumulate<TG, D>(a, D, w);"),
+                          ("int err = merge ? zero_count(a, w) : 0;",
+                           "err = launch_window_accumulate<TG, 0>(a, d, w);")):
+        assert src.index(zero) < src.index(launch1)
     assert "const int64_t task = t / S;" in src and "const int64_t bag = task / windows;" in src
     f32, bf16 = torch.float32, torch.bfloat16
     for L in (1, 3, 8, 20, 80, 120, 200):

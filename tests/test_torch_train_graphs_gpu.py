@@ -18,6 +18,9 @@ port and JAX: losses rtol 1e-5; params rtol 1e-5 and atol 1e-6, adam's atol
 1e-4 of the largest. Each kernel's launches are counted once a step, the
 replays' included; a replayed step calls no kernel wrapper from Python and
 makes no host synchronization (``torch.cuda.set_sync_debug_mode("error")``).
+A bf16 table's sharded sparse step (1x4 and 2x2 of the card) replays K5's
+bf16 window inside its graph; its params are held within two bf16 ulps of
+each value beside those limits, its losses within 1e-3.
 """
 
 import numpy as np
@@ -147,6 +150,59 @@ def test_graphed_steps_match_the_eager_step(cuda, monkeypatch, name, opt, sparse
                                    atol=1e-4 * float(eager.opt_state[1].max()))
     if opt == "adam":
         assert int(graphed.opt_state["count"]) == int(eager.opt_state["count"]) == len(batches)
+
+
+# A bf16 table's sharded sparse step (K5's bf16 window: each row's updates
+# summed in f32 in an order the atomic adds pick, the row rounded once): a
+# value may land a bf16 ulp from the other arm's, so the params are held
+# within two bf16 ulps of each value beside the f32 limits, the losses
+# within BF16_LOSS_RTOL.
+BF16_RTOL = 2.0 ** -7
+BF16_LOSS_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("axes", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_graphed_bf16_sparse_mesh_step_matches_the_eager_step(cuda, monkeypatch, axes):
+    """rm1 with bf16 params, sparse, on the card's virtual shards: the
+    programs (K5's bf16 window inside the graph, with scratch of its own)
+    against the step function called eagerly, over five steps of two
+    shapes; K5's window launches once a shard a step, none from Python over
+    the replays, and a replayed step makes no host synchronization."""
+    cfg = zoo.get_config("rm1", table_scale=SCALE, param_dtype="bfloat16")
+    start = bridge.params_from_numpy(bridge.init_numpy(cfg, 0), cfg, "cpu")
+    graphed, eager = (train.Trainer(cfg, mesh=make_mesh(*axes, devices=[cuda] * 4),
+                                    optimizer="adagrad", learning_rate=LR["adagrad"],
+                                    sparse_tables=True, params=start) for _ in range(2))
+    assert graphed.eager_reason is None
+    assert graphed.params.first_entry()["tables"].dtype == torch.bfloat16
+    calls = _LaunchCalls(monkeypatch)
+    got, want = [], []
+    for i, (host, labels) in enumerate(_batches(graphed.cfg)):
+        before, n0 = _counts(), calls.n
+        if i == len(SIZES) - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = graphed.step(host, labels)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got.append(float(loss))
+        torch.cuda.synchronize()
+        assert _counts()["sparse_adagrad_step_shard"] - before["sparse_adagrad_step_shard"] \
+            == axes[1]
+        if i in (1, 3, 4):
+            assert calls.n == n0, f"step {i} called a wrapper"
+        want.append(float(eager._step(eager.params, eager.opt_state, host.to(cuda),
+                                      eager._targets(labels))))
+    assert graphed.step_program.captures == 2
+    np.testing.assert_allclose(got, want, rtol=BF16_LOSS_RTOL)
+    reach = len(SIZES) * LR["adagrad"]
+    for key, w in _full(eager).items():
+        atol = 1e-3 * reach if key == "tables" else 1e-6
+        torch.testing.assert_close(_full(graphed)[key].float().cpu(), w.float().cpu(),
+                                   rtol=BF16_RTOL, atol=atol, msg=key)
+    for m in range(axes[1]):
+        a, b = graphed.opt_state[1].part(0, m), eager.opt_state[1].part(0, m)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.max()))
 
 
 def test_make_train_step_replays_on_a_mesh_of_one_card(cuda):

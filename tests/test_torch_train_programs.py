@@ -13,16 +13,30 @@ on the CPU, where each program runs the eager step over its static buffers.
   (its update turns the f32 rounding of a near-zero gradient into an O(lr)
   change); the sparse table within 1e-3 of the reach and the row
   accumulators within 1e-4 of the largest.
+- A bf16 table on a sparse mesh (1x4 and 2x2; f32 compute), its step K5's
+  bf16 window (each row's updates summed in f32, the row rounded once),
+  against the JAX mesh ``Trainer`` of the same shape (whose sharded step
+  has that rule; the single-device step rounds at each add). One step
+  agrees within a bf16 ulp of each table element, which the per-add rule
+  fails (``test_bf16_sparse_mesh_one_step_matches_jax_within_an_ulp``);
+  over four, a param one ulp apart changes the next step's gradients,
+  which AdaGrad's normalisation turns into O(lr) moves of the rows with
+  near-zero gradients. So, stated for bf16 over four steps (``BF16_*``):
+  losses rtol 1e-3; every leaf but the table within 2 bf16 ulps of its
+  largest magnitude; the table within half the steps' reach; the row
+  accumulators within 10% of the largest.
 - Against the eager step, bit for bit: the program path and the step
   function called directly on a copy of the params and state; the
   scatter-based ``dedup_touched_rows`` against the boolean-mask one it
   replaced, on ids with many duplicates.
 - adam's count is an int32 on the params' device, advanced once a step.
-- The steps that stay eager are decided when the trainer is built: a bf16
-  table's sharded sparse step (K5's bf16 window) records its reason (the
-  mesh across processes: in ``tests/test_torch_distributed.py``'s
-  workers); a mesh over several cards takes programs (a graph a part of
-  the step: ``tests/test_torch_mesh_train_cards.py``).
+- The steps that stay eager are decided when the trainer is built: a mesh
+  across processes records its reason (over gloo, or whose process holds
+  several cards: it cannot be captured; over nccl, a card each: its
+  replays' measured slowdown; a real gloo mesh:
+  ``tests/test_torch_distributed.py``'s workers); a bf16 table's sharded
+  sparse step and a mesh over several cards (a graph a part of the step:
+  ``tests/test_torch_mesh_train_cards.py``) take programs.
 """
 
 import jax
@@ -32,15 +46,22 @@ import torch
 
 from deeprecsys_tpu import train as jax_train
 from deeprecsys_tpu import zoo as jax_zoo
+from deeprecsys_tpu.parallel import make_mesh as jax_make_mesh
 from deeprecsys_tpu_torch import bridge, train, zoo
 from deeprecsys_tpu_torch.data import RecDataGenerator
 from deeprecsys_tpu_torch.models import get_model
 from deeprecsys_tpu_torch.parallel import make_mesh, make_train_step, shard_params
-from deeprecsys_tpu_torch.train_programs import eager_reason
+from deeprecsys_tpu_torch.train_programs import NCCL_SLOWER, capture_reason, eager_reason
 
 SCALE = 2000
 SIZES = (32, 32, 16, 32)
 LR = {"adagrad": 0.01, "adam": 1e-3}
+BF16 = dict(param_dtype="bfloat16")
+BF16_LOSS_RTOL = 1e-3
+BF16_ULPS = 2 * 2.0 ** -8       # two bf16 ulps, relative to a leaf's largest magnitude
+BF16_TABLE_REACH = 0.5          # of the steps' reach
+BF16_ACC_SHARE = 0.1            # of the largest accumulator
+BF16_ONE_STEP_ULPS = 2.0        # a tower leaf after one step, in bf16 ulps of each value
 
 
 def _batches(cfg, sizes=SIZES, seed=1):
@@ -57,18 +78,23 @@ def _batches(cfg, sizes=SIZES, seed=1):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """The JAX single-device trainer for each (optimizer, sparse, dedup)
+    """The JAX trainer for each (optimizer, sparse, dedup, bf16 mesh)
     asked for, run once over the batches: (start params, losses, params,
-    table accumulator)."""
+    table accumulator). ``bf16_axes``: a bf16 table on the JAX mesh of that
+    shape; None: f32 on one device."""
     cache = {}
 
-    def run(opt: str, sparse: bool, dedup: bool):
-        key = (opt, sparse, dedup)
+    def run(opt: str, sparse: bool, dedup: bool, bf16_axes=None):
+        key = (opt, sparse, dedup, bf16_axes)
         if key not in cache:
-            jt = jax_train.Trainer(jax_zoo.get_config("rm1", table_scale=SCALE), optimizer=opt,
-                                   learning_rate=LR[opt], sparse_tables=sparse, dedup=dedup)
+            kw = {} if bf16_axes is None else BF16
+            mesh = None if bf16_axes is None else jax_make_mesh(
+                *bf16_axes, devices=jax.devices()[:bf16_axes[0] * bf16_axes[1]])
+            jt = jax_train.Trainer(jax_zoo.get_config("rm1", table_scale=SCALE, **kw), mesh=mesh,
+                                   optimizer=opt, learning_rate=LR[opt], sparse_tables=sparse,
+                                   dedup=dedup)
             start = bridge.params_from_numpy(jax.device_get(jt.params), jt.cfg, "cpu")
-            cfg = zoo.get_config("rm1", table_scale=SCALE)
+            cfg = zoo.get_config("rm1", table_scale=SCALE, **kw)
             losses = jax_train._fit_batches(jt, _batches(cfg))
             acc = np.asarray(jt.opt_state[1]) if sparse else None
             cache[key] = (start, losses, bridge.flatten(jax.device_get(jt.params)), acc)
@@ -77,13 +103,21 @@ def jax_runs():
     return run
 
 
-def _assert_close_to_jax(pt, want_losses, got_losses, want_params, want_acc, opt, sparse):
-    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)
+def _assert_close_to_jax(pt, want_losses, got_losses, want_params, want_acc, opt, sparse,
+                         bf16=False):
+    np.testing.assert_allclose(got_losses, want_losses, rtol=BF16_LOSS_RTOL if bf16 else 1e-5)
     got = bridge.flatten(bridge.params_to_numpy(pt.full_params(), pt.cfg))
     assert sorted(got) == sorted(want_params)
     reach = len(SIZES) * LR[opt]
     for key, w in want_params.items():
         w = np.asarray(w)
+        if bf16:
+            w = w.astype(np.float32)
+            atol = (BF16_TABLE_REACH * reach if key == "tables"
+                    else BF16_ULPS * float(np.abs(w).max()))
+            np.testing.assert_allclose(np.asarray(got[key], np.float32), w, rtol=0, atol=atol,
+                                       err_msg=key)
+            continue
         if opt == "adam":
             atol = 0.02 * reach
         elif sparse and key == "tables":
@@ -95,25 +129,30 @@ def _assert_close_to_jax(pt, want_losses, got_losses, want_params, want_acc, opt
         acc = pt.opt_state[1]
         if pt.mesh is not None:
             acc = torch.cat([acc.part(0, m) for m in range(pt.mesh.shape["model"])])
-        np.testing.assert_allclose(acc.numpy(), want_acc, rtol=0, atol=1e-4 * want_acc.max())
+        share = BF16_ACC_SHARE if bf16 else 1e-4
+        np.testing.assert_allclose(acc.numpy(), want_acc, rtol=0, atol=share * want_acc.max())
 
 
-@pytest.mark.parametrize("opt,sparse,dedup,axes", [
-    ("adagrad", False, False, None), ("adam", False, False, None),
-    ("adagrad", True, False, None), ("adagrad", True, True, None),
-    ("adam", False, False, (1, 4)), ("adagrad", True, True, (1, 4))])
-def test_program_trainer_matches_jax(jax_runs, opt, sparse, dedup, axes):
+@pytest.mark.parametrize("opt,sparse,dedup,axes,bf16", [
+    ("adagrad", False, False, None, False), ("adam", False, False, None, False),
+    ("adagrad", True, False, None, False), ("adagrad", True, True, None, False),
+    ("adam", False, False, (1, 4), False), ("adagrad", True, True, (1, 4), False),
+    ("adagrad", True, False, (1, 4), True), ("adagrad", True, False, (2, 2), True)])
+def test_program_trainer_matches_jax(jax_runs, opt, sparse, dedup, axes, bf16):
     """Four steps through the programs, two batch shapes, against JAX's
-    trainer; one program a shape, each run as often as its shape came."""
-    start, want_losses, want_params, want_acc = jax_runs(opt, sparse, dedup)
-    cfg = zoo.get_config("rm1", table_scale=SCALE)
+    trainer; one program a shape, each run as often as its shape came. A
+    bf16 table's sparse mesh step is held to the JAX mesh trainer at the
+    ``BF16_*`` limits."""
+    start, want_losses, want_params, want_acc = jax_runs(opt, sparse, dedup,
+                                                         axes if bf16 else None)
+    cfg = zoo.get_config("rm1", table_scale=SCALE, **(BF16 if bf16 else {}))
     mesh = None if axes is None else make_mesh(*axes, devices=["cpu"] * (axes[0] * axes[1]))
     pt = train.Trainer(cfg, mesh=mesh, optimizer=opt, learning_rate=LR[opt],
                        sparse_tables=sparse, dedup=dedup, device=None if mesh else "cpu",
                        params=start)
     assert pt.eager_reason is None and pt.step_program is not None
     got_losses = train._fit_batches(pt, _batches(cfg))
-    _assert_close_to_jax(pt, want_losses, got_losses, want_params, want_acc, opt, sparse)
+    _assert_close_to_jax(pt, want_losses, got_losses, want_params, want_acc, opt, sparse, bf16)
     progs = pt.step_program.programs
     assert sorted(key[1][0][0] for key in progs) == [16, 32]
     assert sorted(p.runs for p in progs.values()) == [1, 3]
@@ -121,6 +160,50 @@ def test_program_trainer_matches_jax(jax_runs, opt, sparse, dedup, axes):
     if opt == "adam":
         count = (pt.opt_state if mesh is None else next(iter(pt.opt_state.states.values())))
         assert count["count"].dtype == torch.int32 and int(count["count"]) == len(SIZES)
+
+
+def _bf16_ulps(got, want, start) -> np.ndarray:
+    """|got - want| in bf16 ulps of the larger of |want| and |start| (a
+    value near zero after the step that moved it keeps its operands' ulp)."""
+    got, want, start = (np.asarray(x, np.float32) for x in (got, want, start))
+    ref = np.maximum(np.abs(want), np.abs(start))
+    return np.abs(got - want) / (np.spacing(ref) * 2.0 ** 16)
+
+
+@pytest.mark.parametrize("axes", [(1, 4), (2, 2)])
+def test_bf16_sparse_mesh_one_step_matches_jax_within_an_ulp(axes):
+    """One step of a bf16 table on a sparse mesh against the JAX mesh
+    ``Trainer`` (the sharded rule: each row's updates summed in f32, the row
+    rounded once), before the steps' chaos: the loss within rtol 1e-5; every
+    table element within 1 bf16 ulp (``_bf16_ulps``; measured on the CPU:
+    at most 1.0, 86-87 elements apart at all); the tower leaves within
+    ``BF16_ONE_STEP_ULPS`` (at most 2.0 measured: the port's optimizer
+    update rounds its own f32 result); the row accumulators within rtol
+    1e-5 (7.2e-7 measured). The limit tells the rules apart: the JAX
+    single-device step, which rounds the row at each add, lands up to 109
+    ulps from the mesh step, 4463 table elements past 1 ulp, and is
+    asserted to fail it here."""
+    cfg_j = jax_zoo.get_config("rm1", table_scale=SCALE, **BF16)
+    kw = dict(optimizer="adagrad", learning_rate=LR["adagrad"], sparse_tables=True)
+    jm = jax_train.Trainer(cfg_j, mesh=jax_make_mesh(*axes, devices=jax.devices()[:4]), **kw)
+    js = jax_train.Trainer(cfg_j, **kw)
+    s0 = bridge.flatten(jax.device_get(jm.params))
+    start = bridge.params_from_numpy(jax.device_get(jm.params), jm.cfg, "cpu")
+    cfg = zoo.get_config("rm1", table_scale=SCALE, **BF16)
+    batch = _batches(cfg)[:1]
+    want_loss = jax_train._fit_batches(jm, batch)
+    jax_train._fit_batches(js, batch)
+    want, per_add = (bridge.flatten(jax.device_get(t.params)) for t in (jm, js))
+    pt = train.Trainer(cfg, mesh=make_mesh(*axes, devices=["cpu"] * 4), params=start, **kw)
+    np.testing.assert_allclose(train._fit_batches(pt, batch), want_loss, rtol=1e-5)
+    got = bridge.flatten(bridge.params_to_numpy(pt.full_params(), pt.cfg))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        limit = 1.0 if key == "tables" else BF16_ONE_STEP_ULPS
+        assert _bf16_ulps(got[key], want[key], s0[key]).max() <= limit, key
+    assert (_bf16_ulps(per_add["tables"], want["tables"], s0["tables"]) > 1.0).sum() > 0
+    acc = torch.cat([pt.opt_state[1].part(0, m) for m in range(axes[1])]).numpy()
+    np.testing.assert_allclose(acc, np.asarray(jm.opt_state[1]), rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("opt,sparse,dedup", [("adam", False, False), ("adagrad", True, True)])
@@ -198,26 +281,59 @@ def test_make_train_step_runs_through_programs():
         step(shard_params(start, mesh), *_batches(cfg, (32,))[0])
 
 
-def test_the_eager_cases_are_decided_at_construction():
-    """A bf16 table's sharded sparse step (K5's bf16 window refuses a
-    capture) stays eager, with its reason; a float32 sparse mesh, a bf16
-    table on one device and a mesh over two cards (cut into parts by card)
-    take programs."""
+def test_the_eager_cases_are_decided_at_construction(monkeypatch):
+    """A bf16 table's sharded sparse step of one process (K5's bf16 window,
+    captured with scratch of its own), a float32 sparse mesh, a bf16 table
+    on one device and a mesh over two cards (cut into parts by card) take
+    programs. Across processes (the backend set where the CPU cannot make
+    one) every mesh is eager: over nccl with one card a process the step
+    can be captured (``capture_reason`` None) but is kept eager for its
+    measured slowdown (``NCCL_SLOWER``); over gloo, with a reason that
+    names gloo; a process that holds several cards, with a reason of its
+    own; those two cannot be captured, and ``take_programs`` raises where
+    ``capture_reason`` gives a reason."""
+    from deeprecsys_tpu_torch.parallel import mesh as mesh_mod
+
     cfg = zoo.get_config("rm1", table_scale=SCALE, param_dtype="bfloat16",
                          compute_dtype="bfloat16")
     mesh = make_mesh(1, 4, devices=["cpu"] * 4)
     tr = train.Trainer(cfg, mesh=mesh, sparse_tables=True)
-    assert tr.step_program is None and "bf16 shard" in tr.eager_reason
+    assert tr.eager_reason is None and tr.step_program is not None
     host, labels = _batches(tr.cfg, (8,))[0]
-    assert np.isfinite(float(tr.step(host, labels)))  # the eager step still trains
+    assert np.isfinite(float(tr.step(host, labels)))
+    assert len(tr.step_program.programs) == 1
     assert train.Trainer(cfg, sparse_tables=True, device="cpu").eager_reason is None
     assert train.Trainer(zoo.get_config("rm1", table_scale=SCALE), mesh=mesh,
                          sparse_tables=True).step_program is not None
     two_cards = make_mesh(1, 2, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
     assert eager_reason(two_cards) is None
-    assert "bf16 shard" in eager_reason(two_cards, torch.bfloat16, sparse=True)
     assert eager_reason(None) is None
-    assert eager_reason(make_mesh(2, 2, devices=["cpu"] * 4), torch.bfloat16) is None
+    assert eager_reason(make_mesh(2, 2, devices=["cpu"] * 4)) is None
+
+    def across(backend: str, local: list) -> "mesh_mod.Mesh":
+        """A 1 x 2·len(local) mesh over two processes, this one rank 0 with
+        the entries ``local``, rank 1 the rest, on ``backend``: the
+        process group's answers monkeypatched (no group exists here)."""
+        for name, value in (("get_rank", 0), ("get_world_size", 2), ("get_backend", backend)):
+            monkeypatch.setattr(mesh_mod.dist, name, lambda value=value: value)
+        monkeypatch.setattr(mesh_mod.dist, "new_group", lambda ranks: tuple(ranks))
+        devices = np.empty(2 * len(local), dtype=object)
+        for i, dev in enumerate(local * 2):
+            devices[i] = torch.device(dev)
+        return mesh_mod.Mesh(devices.reshape(1, -1), np.repeat([0, 1], len(local)))
+
+    nccl = across("nccl", ["cuda:0"])
+    assert capture_reason(nccl) is None and eager_reason(nccl) == NCCL_SLOWER
+    assert "slower" in NCCL_SLOWER and "nccl" in NCCL_SLOWER
+    gloo = eager_reason(across("gloo", ["cpu"]))
+    assert "across processes" in gloo and "gloo" in gloo
+    assert capture_reason(across("gloo", ["cpu"])) == gloo
+    several = eager_reason(across("nccl", ["cuda:0", "cuda:1"]))
+    assert "several cards" in several and several != gloo
+    assert capture_reason(across("nccl", ["cuda:0", "cuda:1"])) == several
+    monkeypatch.setattr(train, "capture_reason", lambda m: gloo)
+    with pytest.raises(ValueError, match="cannot be captured"):
+        tr.take_programs()
 
 
 def test_a_trainer_is_freed_with_its_last_reference():
